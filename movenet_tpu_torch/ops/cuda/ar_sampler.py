@@ -1,0 +1,470 @@
+"""Single-launch autoregressive sampler: wrapper, plain version, launch count.
+
+The counterpart of ``movenet_tpu.ops.pallas.ar_sampler`` without video
+context and without speculation.  ``cuda_generate`` takes the place of
+``pallas_generate``: one parallel pass over the prompt fills the
+dilation rings (``WaveNet.prompt_state``) and gives the first code, then
+one launch of the kernel in ``csrc/ar_sampler.cu`` runs every step
+t in [RF, n).  ``plain_generate`` computes the same function as a
+per-step torch loop (``ar_sampler_plain``); ``ar_sampler``, the kernel's
+wrapper, takes it only for tensors on the CPU.  For CUDA tensors it
+launches the kernel or raises.
+
+``fast=True`` is the reassociated chain of ``stack_fast_weights``: one
+dependent product per layer and the packed-tanh gate, in float32.
+
+Sampling at T > 0 draws the first code with
+``jax.random.categorical(fold_in(PRNGKey(seed), RF-1), ...)``
+(``ops/jax_random``) and every later code by Gumbel-max on counter-based
+noise (``positional_gumbel``), as the JAX kernel does, so equal weights
+give the JAX package's codes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from movenet_tpu_torch.models.wavenet import WaveNet
+from movenet_tpu_torch.ops import jax_random
+
+KERNEL_SOURCE = "movenet_tpu_torch/csrc/ar_sampler.cu"
+BATCH_SIZES = (1, 2, 4, 8, 16, 32)
+RING_BYTES_LIMIT = 48 * 1024 * 1024
+
+# kernel launches by form, counted by the wrapper where it launches
+launch_counts: Dict[str, int] = {"ar_sampler_exact": 0,
+                                 "ar_sampler_fast": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ------------------------------------------------------ positional noise
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), without int64 overflow."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def positional_bits(seed: int, t: int, batch: int, c_in: int,
+                    device=None) -> torch.Tensor:
+    """The 24-bit integers behind ``positional_gumbel``: a lowbias32 hash
+    of the counter ``(t * batch + b) * c_in + c`` xor the scaled seed,
+    all modulo 2^32 (``batch`` is the whole batch)."""
+    bi = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+    ci = torch.arange(c_in, dtype=torch.int64, device=device)[None, :]
+    x = ((t * batch + bi) * c_in + ci) & _M32
+    seed_t = torch.full((), int(seed) & _M32, dtype=torch.int64,
+                        device=device)
+    x = x ^ _mul32(seed_t, 0x9E3779B9)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x21F0AAAD)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0xD35A2D97)
+    x = x ^ (x >> 15)
+    return x >> 8
+
+
+def positional_gumbel(seed: int, t: int, batch: int, c_in: int,
+                      device=None) -> torch.Tensor:
+    """(batch, c_in) float32 Gumbel noise as a pure function of (seed,
+    position t, stream b, class c)."""
+    u = positional_bits(seed, t, batch, c_in, device).to(torch.float32) \
+        * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u + 1e-20) + 1e-20)
+
+
+# --------------------------------------------------------------- weights
+def stack_sampler_params(model: WaveNet) -> dict:
+    """Per-layer parameters stacked into the kernel's dense arrays:
+    ``w_fg`` (L, 2R, 2R) = [W_cur; W_past], ``w_out`` (L, R, R+S) =
+    [W_res | W_skip], and a zero per-layer fg bias (no video context)."""
+    def f32(x):
+        return x.detach().to(torch.float32)
+
+    n_layers = len(model.dilations)
+    r = model.residual_channels
+    return {
+        "front_cur": f32(model.front_cur),
+        "front_past": f32(model.front_past),
+        "w_fg": torch.cat([f32(model.blocks_w_cur),
+                           f32(model.blocks_w_past)], dim=1),
+        "b_fg": torch.zeros(n_layers, 2 * r, device=model.front_cur.device),
+        "w_out": torch.cat([f32(model.blocks_res_kernel),
+                            f32(model.blocks_skip_kernel)], dim=2),
+        "b_out": torch.cat([f32(model.blocks_res_bias),
+                            f32(model.blocks_skip_bias)], dim=1),
+        "h1_w": f32(model.head1.kernel),
+        "h1_b": f32(model.head1.bias).reshape(1, -1),
+        "h2_w": f32(model.head2.kernel),
+        "h2_b": f32(model.head2.bias).reshape(1, -1),
+    }
+
+
+def stack_fast_weights(model: WaveNet, sp: dict) -> dict:
+    """Weight products of the short-chain sampler.
+
+    With h_{l+1} = gated_l W_res_l + b_res_l + h_l, the next fg is
+    gated_l (W_res_l W_cur_{l+1}) + [h_l | past_{l+1}] W_fg_{l+1}
+    + b_{l+1} + b_res_l W_cur_{l+1}, so one product per layer depends on
+    the gate.  The front embedding folds the same way (fc0, fp0).  Every
+    matrix producing an fg has its gate-half columns scaled by 0.5 and
+    every matrix consuming ``gated`` has its rows halved, so the gate is
+    v = tanh(fg), gated' = v0 * v1 + v0 = 2 tanh(f) sigmoid(g).
+
+    Returns w_prod (L, R, 2R) (last layer zero), fc0/fp0 (C, 2R), w_p0c
+    (R, 2R), the scaled w_fg_s / w_out_s, b_corr (L, 2R) (zero for layer
+    0; the caller adds it to the per-(layer, batch) fg bias and applies
+    colscale to the sum) and colscale (2R,).
+    """
+    r = model.residual_channels
+    n_layers = len(model.dilations)
+    w_fg, w_out, b_out = sp["w_fg"], sp["w_out"], sp["b_out"]
+    dev = w_fg.device
+    colscale = torch.cat([torch.ones(r, device=dev),
+                          torch.full((r,), 0.5, device=dev)])
+    prods = []
+    b_corr = [torch.zeros(2 * r, device=dev)]
+    for l in range(n_layers):
+        if l + 1 < n_layers:
+            w_cur_next = w_fg[l + 1][:r]
+            prods.append(torch.matmul(w_out[l][:, :r], w_cur_next))
+            b_corr.append(torch.matmul(b_out[l][:r], w_cur_next))
+        else:
+            prods.append(torch.zeros(r, 2 * r, device=dev))
+    w_cur_0 = w_fg[0][:r]
+    return {
+        "w_prod": torch.stack(prods) * 0.5 * colscale,
+        "fc0": torch.matmul(sp["front_cur"], w_cur_0) * colscale,
+        "fp0": torch.matmul(sp["front_past"], w_cur_0) * colscale,
+        "w_p0c": w_fg[0][r:] * colscale,
+        "w_fg_s": w_fg * colscale,
+        "w_out_s": w_out * 0.5,
+        "b_corr": torch.stack(b_corr),
+        "colscale": colscale,
+    }
+
+
+# ---------------------------------------------------------------- inputs
+@dataclass
+class SamplerInputs:
+    """Everything one launch reads: weights (float32, contiguous, on the
+    model's device), the filled rings and the first two codes."""
+
+    fast: bool
+    rf: int
+    n_samples: int
+    temperature: float
+    parity_sampling: bool
+    seed: int
+    dilations: List[int]
+    offsets: List[int]
+    weights: Dict[str, torch.Tensor]
+    b_fg: torch.Tensor         # (L, B, 2R)
+    ring: torch.Tensor         # (B, sum_d, R); the launch copies it
+    init_codes: torch.Tensor   # (2, B) int32: prompt[:, -1], first code
+    prompt: torch.Tensor       # (B, RF) int32
+
+    @property
+    def batch(self) -> int:
+        return self.ring.shape[0]
+
+    @property
+    def name(self) -> str:
+        return "ar_sampler_fast" if self.fast else "ar_sampler_exact"
+
+
+@torch.no_grad()
+def prepare(model: WaveNet, prompt_codes, n_samples: int,
+            temperature: float = 0.0, seed: int = 0,
+            video: Optional[torch.Tensor] = None,
+            parity_sampling: bool = True, labels=None, fast: bool = False,
+            speculative: bool = False,
+            return_stats: bool = False) -> SamplerInputs:
+    """Check the request, stack the weights and run the prompt pass."""
+    rf = model.receptive_fields
+    if n_samples <= rf:
+        raise ValueError(f"n_samples ({n_samples}) must exceed RF ({rf})")
+    dev = model.front_cur.device
+    prompt = torch.as_tensor(prompt_codes, device=dev)
+    if prompt.ndim != 2 or prompt.shape[1] < rf:
+        raise ValueError(
+            f"prompt must be (B, >= RF={rf}) codes, got "
+            f"{tuple(prompt.shape)}")
+    batch = prompt.shape[0]
+    if batch not in BATCH_SIZES:
+        raise ValueError(
+            "AR sampler supports batch sizes dividing 128 (up to "
+            f"32), got {batch}; use fast_generate for other batch sizes")
+    if speculative:
+        raise NotImplementedError(
+            "speculative kernel not yet ported (movenet_tpu "
+            "ar_sampler._make_spec_kernel); use speculative=False")
+    if return_stats:
+        raise ValueError(
+            "return_stats reports the speculative hit counter; it "
+            "requires speculative=True")
+    if video is not None:
+        raise NotImplementedError(
+            "video conditioning in the AR kernel is not yet ported; use "
+            "fast_generate(video=...)")
+    dil = model.dilations
+    sum_d = int(np.sum(dil))
+    c_in, r = model.input_channels, model.residual_channels
+    ring_bytes = sum_d * batch * r * 4
+    if ring_bytes > RING_BYTES_LIMIT:
+        raise ValueError(
+            f"ring buffers need {ring_bytes/2**20:.0f} MiB VMEM at "
+            f"batch={batch} (sum of dilations {sum_d}, R={r}); reduce "
+            "the batch or use fast_generate")
+    prompt = prompt[:, :rf].to(torch.int32)
+    if prompt.min() < 0 or prompt.max() >= c_in:
+        raise ValueError(f"prompt codes must lie in [0, {c_in})")
+
+    sp = stack_sampler_params(model)
+    n_layers = len(dil)
+    b_fg = sp["b_fg"][:, None, :].expand(n_layers, batch, 2 * r)
+    global_vec = None
+    if labels is not None and model.global_classes:
+        global_vec = model.embed_global(
+            torch.as_tensor(labels, device=dev)).to(torch.float32)
+        b_fg = b_fg + torch.einsum(
+            "br,lro->lbo", global_vec,
+            model.blocks_global_kernel.detach().to(torch.float32))
+    weights = {k: sp[k] for k in ("front_cur", "front_past", "w_fg",
+                                  "w_out", "b_out", "h1_w", "h1_b",
+                                  "h2_w", "h2_b")}
+    if fast:
+        fw = stack_fast_weights(model, sp)
+        b_fg = (b_fg + fw["b_corr"][:, None, :]) * fw["colscale"]
+        weights["w_fg"] = fw["w_fg_s"]
+        weights["w_out"] = fw["w_out_s"]
+        for k in ("fc0", "fp0", "w_p0c", "w_prod"):
+            weights[k] = fw[k]
+    weights = {k: v.contiguous() for k, v in weights.items()}
+
+    buffers, last_logits = model.prompt_state(prompt, None, global_vec)
+    if temperature == 0.0:
+        first = torch.argmax(last_logits, dim=-1)
+    else:
+        key = jax_random.fold_in(jax_random.PRNGKey(seed), rf - 1)
+        scores = torch.softmax(last_logits, dim=-1) if parity_sampling \
+            else last_logits
+        first = jax_random.categorical(key, scores / temperature)
+    return SamplerInputs(
+        fast=fast, rf=rf, n_samples=int(n_samples),
+        temperature=float(temperature), parity_sampling=parity_sampling,
+        seed=int(seed), dilations=list(dil),
+        offsets=[int(o) for o in np.concatenate([[0], np.cumsum(dil)[:-1]])],
+        weights=weights, b_fg=b_fg.contiguous(),
+        ring=torch.cat([b.to(torch.float32) for b in buffers],
+                       dim=1).contiguous(),
+        init_codes=torch.stack([prompt[:, -1],
+                                first.to(torch.int32)]).contiguous(),
+        prompt=prompt)
+
+
+# ---------------------------------------------------------- plain version
+@torch.no_grad()
+def ar_sampler_plain(inp: SamplerInputs, return_margins: bool = False):
+    """The kernel's function as a per-step torch loop on the inputs'
+    device: (B, n - RF) int32 codes, the code consumed at each step.
+
+    ``return_margins=True`` also returns, for each step, the gap between
+    the two best scores behind the next code (B, n - RF), which says how
+    close a decision was when a kernel disagrees."""
+    w = inp.weights
+    r = w["front_cur"].shape[1]
+    ring = inp.ring.clone()
+    batch = inp.batch
+    prev = inp.init_codes[0].long()
+    cur = inp.init_codes[1].long()
+    out = torch.empty(batch, inp.n_samples - inp.rf, dtype=torch.int32,
+                      device=ring.device)
+    margins = torch.empty(out.shape, device=ring.device) \
+        if return_margins else None
+    n_layers = len(inp.dilations)
+
+    def slot(l, t):
+        return inp.offsets[l] + t % inp.dilations[l]
+
+    for t in range(inp.rf, inp.n_samples):
+        skip = torch.zeros(batch, w["w_out"].shape[2] - r,
+                           device=ring.device)
+        h = w["front_cur"][cur] + w["front_past"][prev]
+        if not inp.fast:
+            for l in range(n_layers):
+                s_l = slot(l, t)
+                fg = torch.matmul(torch.cat([h, ring[:, s_l]], dim=1),
+                                  w["w_fg"][l]) + inp.b_fg[l]
+                gated = torch.tanh(fg[:, :r]) * torch.sigmoid(fg[:, r:])
+                o = torch.matmul(gated, w["w_out"][l]) + w["b_out"][l]
+                skip = skip + o[:, r:]
+                ring[:, s_l] = h
+                h = o[:, :r] + h
+        else:
+            fg = w["fc0"][cur] + (
+                w["fp0"][prev]
+                + torch.matmul(ring[:, slot(0, t)], w["w_p0c"])
+                + inp.b_fg[0])
+            for l in range(n_layers):
+                s_l = slot(l, t)
+                v = torch.tanh(fg)
+                gated = v[:, :r] * v[:, r:] + v[:, :r]
+                o = torch.matmul(gated, w["w_out"][l]) + w["b_out"][l]
+                if l + 1 < n_layers:
+                    fgp = torch.matmul(gated, w["w_prod"][l])
+                    pre = torch.matmul(
+                        torch.cat([h, ring[:, slot(l + 1, t)]], dim=1),
+                        w["w_fg"][l + 1]) + inp.b_fg[l + 1]
+                    fg = fgp + pre
+                ring[:, s_l] = h
+                skip = skip + o[:, r:]
+                h = o[:, :r] + h
+        y = torch.matmul(F.leaky_relu(skip), w["h1_w"]) + w["h1_b"]
+        logits = torch.matmul(F.leaky_relu(y), w["h2_w"]) + w["h2_b"]
+        if inp.temperature == 0.0:
+            scores = logits
+        else:
+            scores = torch.softmax(logits, dim=-1) if inp.parity_sampling \
+                else logits
+            scores = scores / inp.temperature + positional_gumbel(
+                inp.seed, t, batch, logits.shape[1], device=ring.device)
+        out[:, t - inp.rf] = cur.to(torch.int32)
+        if margins is not None:
+            top2 = torch.topk(scores, 2, dim=-1).values
+            margins[:, t - inp.rf] = top2[:, 0] - top2[:, 1]
+        prev, cur = cur, torch.argmax(scores, dim=-1)
+    return (out, margins) if return_margins else out
+
+
+# ---------------------------------------------------------------- kernel
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    from movenet_tpu_torch.ops.cuda import build
+
+    lib = build.load("ar_sampler")
+    if lib.movenet_ar_sampler_launch.argtypes is None:
+        lib.movenet_ar_sampler_launch.argtypes = _ARGTYPES
+        lib.movenet_ar_sampler_launch.restype = ctypes.c_int
+        lib.movenet_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.movenet_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, x: torch.Tensor, shape: tuple, dtype, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} is {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def ar_sampler(inp: SamplerInputs) -> torch.Tensor:
+    """The kernel's wrapper: (B, n - RF) int32 codes.  Tensors on the CPU
+    take ``ar_sampler_plain``; CUDA tensors take one launch of
+    ``csrc/ar_sampler.cu`` on the current stream."""
+    dev = inp.ring.device
+    if dev.type == "cpu":
+        return ar_sampler_plain(inp)
+    if dev.type != "cuda":
+        raise ValueError(f"ar_sampler runs on cpu or cuda, not {dev}")
+    w = inp.weights
+    c_in, r = w["front_cur"].shape
+    n_layers = len(inp.dilations)
+    s = w["w_out"].shape[2] - r
+    batch, sum_d = inp.batch, int(sum(inp.dilations))
+    f32, i32 = torch.float32, torch.int32
+    shapes = {"front_cur": (c_in, r), "front_past": (c_in, r),
+              "w_fg": (n_layers, 2 * r, 2 * r),
+              "w_out": (n_layers, r, r + s), "b_out": (n_layers, r + s),
+              "h1_w": (s, c_in), "h1_b": (1, c_in),
+              "h2_w": (c_in, c_in), "h2_b": (1, c_in)}
+    if inp.fast:
+        shapes.update(fc0=(c_in, 2 * r), fp0=(c_in, 2 * r),
+                      w_p0c=(r, 2 * r), w_prod=(n_layers, r, 2 * r))
+    for k, shape in shapes.items():
+        _check(k, w[k], shape, f32, dev)
+    _check("b_fg", inp.b_fg, (n_layers, batch, 2 * r), f32, dev)
+    _check("ring", inp.ring, (batch, sum_d, r), f32, dev)
+    _check("init_codes", inp.init_codes, (2, batch), i32, dev)
+
+    out = torch.empty(batch, inp.n_samples - inp.rf, dtype=i32, device=dev)
+    ring = torch.empty_like(inp.ring)
+    ring.copy_(inp.ring)
+    dil = torch.tensor(inp.dilations, dtype=i32, device=dev)
+    off = torch.tensor(inp.offsets, dtype=i32, device=dev)
+
+    def ptr(k):
+        return w[k].data_ptr() if k in w else None
+
+    seed = inp.seed & _M32  # the kernel reads the int32 as uint32
+    seed = seed - (1 << 32) if seed >= 1 << 31 else seed
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):  # launch on the tensors' own card
+        err = lib.movenet_ar_sampler_launch(
+            int(inp.fast), ptr("front_cur"), ptr("front_past"),
+            ptr("w_fg"), inp.b_fg.data_ptr(), ptr("w_out"), ptr("b_out"),
+            ptr("h1_w"), ptr("h1_b"), ptr("h2_w"), ptr("h2_b"),
+            ptr("fc0"), ptr("fp0"), ptr("w_p0c"), ptr("w_prod"),
+            dil.data_ptr(), off.data_ptr(), ring.data_ptr(),
+            inp.init_codes.data_ptr(), out.data_ptr(), batch, c_in, r, s,
+            n_layers, sum_d, inp.rf, inp.n_samples, seed,
+            int(inp.parity_sampling), inp.temperature,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            "ar_sampler kernel launch failed: "
+            f"{lib.movenet_cuda_error_string(err).decode()} "
+            f"(cudaError {err})")
+    launch_counts[inp.name] += 1
+    return out
+
+
+# ----------------------------------------------------------- entry points
+def _codes(inp: SamplerInputs, gen: torch.Tensor) -> torch.Tensor:
+    return torch.cat([inp.prompt, gen], dim=1)[:, :inp.n_samples]
+
+
+def cuda_generate(model: WaveNet, prompt_codes, n_samples: int,
+                  temperature: float = 0.0, seed: int = 0,
+                  video: Optional[torch.Tensor] = None,
+                  parity_sampling: bool = True, labels=None,
+                  fast: bool = False, speculative: bool = False,
+                  return_stats: bool = False) -> torch.Tensor:
+    """Generate (B, n_samples) int32 mu-law codes, the prompt's first RF
+    included, with one kernel launch on the model's CUDA device (the
+    plain version for a model on the CPU).  B in {1, 2, 4, 8, 16, 32}."""
+    inp = prepare(model, prompt_codes, n_samples, temperature, seed, video,
+                  parity_sampling, labels, fast, speculative, return_stats)
+    return _codes(inp, ar_sampler(inp))
+
+
+def plain_generate(model: WaveNet, prompt_codes, n_samples: int,
+                   temperature: float = 0.0, seed: int = 0,
+                   video: Optional[torch.Tensor] = None,
+                   parity_sampling: bool = True, labels=None,
+                   fast: bool = False) -> torch.Tensor:
+    """``cuda_generate``'s function as a per-step torch loop, on any
+    device."""
+    inp = prepare(model, prompt_codes, n_samples, temperature, seed, video,
+                  parity_sampling, labels, fast)
+    return _codes(inp, ar_sampler_plain(inp))

@@ -1,0 +1,55 @@
+"""The AR sampler kernel (csrc/ar_sampler.cu) against its plain torch
+version, on a CUDA GPU.  Imports only torch and the port, so that it
+runs on a machine without JAX:
+
+    python -m pytest tests/test_torch_ar_sampler_cuda.py -q
+
+Without a card every test skips."""
+
+import numpy as np
+import pytest
+import torch
+
+from movenet_tpu_torch.config import ModelConfig
+from movenet_tpu_torch.models.wavenet import make_wavenet
+from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+
+
+@pytest.fixture
+def gpu_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(layer_size=3, stack_size=2, input_channels=32,
+                      residual_channels=16, skip_channels=16)
+    model = make_wavenet(cfg, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        # greedy decisions get a margin above float32 summation noise
+        model.head2.kernel.mul_(10.0)
+    return model.to("cuda").eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4, 32])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_kernel_matches_plain(gpu_model, batch, fast, temperature):
+    rf = gpu_model.receptive_fields
+    prompt = np.random.default_rng(batch).integers(0, 32, size=(batch, rf))
+    inp = ars.prepare(gpu_model, prompt, rf + 300, temperature=temperature,
+                      seed=3, fast=fast)
+    before = ars.launch_counts[inp.name]
+    got = ars.ar_sampler(inp)
+    torch.cuda.synchronize()
+    assert ars.launch_counts[inp.name] == before + 1
+    want = ars.ar_sampler_plain(inp)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_a_wrong_input(gpu_model):
+    rf = gpu_model.receptive_fields
+    inp = ars.prepare(gpu_model, np.zeros((2, rf), np.int64), rf + 8)
+    inp.b_fg = inp.b_fg.double()
+    with pytest.raises(ValueError, match="b_fg is torch.float64"):
+        ars.ar_sampler(inp)
