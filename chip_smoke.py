@@ -11,13 +11,27 @@ Phases (any failure exits non-zero and prints no result):
      C=256, R=S=64, RF=3072; seeded random weights, head2 x 10) for
      n = RF + 2048: greedy B=1 and B=8, exact and fast, and T=1.0 with
      parity sampling at B=8, fast, seed 3;
-  4. serve (the main path): GenerationServer on a flagship checkpoint in
-     a temp dir, once with the fast sampler (the default) and once with
-     the exact one, answering ping, greedy, sampled and wav requests over
-     TCP; every generate request is one kernel launch, and the codes
-     equal a direct cuda_generate call;
-  5. times: samples/s of the kernel and of the plain version;
-  6. the kernels line, then the card line, then the result line.
+  4. spec kernel vs plain: the speculative kernel and its plain version
+     give equal (codes, hits) at the same width and n, B=1: greedy exact
+     order 3 depth 1, greedy fast o3 d1 (the serve default form), greedy
+     fast o2 d2, and T=1.0 parity fast o3 d1 seed 3; the codes equal the
+     standard kernel's and the hits equal the utils/spec_sim replay; and
+     the same on a hit-rich model (utils/fixtures.train_overfit, trained
+     on the card at the fixture's width), where hits must be > 0;
+  5. serve (the main path): ``serve()`` on a flagship checkpoint in a
+     temp dir, once with the default options (fast sampler, speculative
+     1) and once with the exact sampler; after warmup speculation must be
+     "active"; ping, greedy B=1 (one second of audio, on the speculative
+     kernel, with spec_commit_ratio), sampled B=8 (standard kernel) and
+     wav requests over TCP; exact launch counts per kernel; the codes
+     equal a direct standard-kernel cuda_generate call;
+  6. generate CLI: ``movenet_tpu_torch.generate.main`` on the same
+     checkpoint, greedy, --speculative 1 --spec_depth 2, writes WAVs of
+     the requested length with one speculative launch;
+  7. times: samples/s of the kernels and the plain versions, and the
+     speculative kernel's time per generated sample beside the standard
+     kernel's;
+  8. the kernels line, then the card line, then the result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -25,6 +39,7 @@ The last line of standard output is
 
 from __future__ import annotations
 
+import base64
 import json
 import subprocess
 import sys
@@ -38,7 +53,12 @@ FLAGSHIP = dict(layer_size=10, stack_size=3, input_channels=256,
                 residual_channels=64, skip_channels=64)
 N_COMPARE = 2048          # generated samples per kernel-vs-plain case
 N_SERVE = 16_000          # generated samples of the B=1 serve request
-REPLACES = "movenet_tpu/ops/pallas/ar_sampler.py:206"
+REPLACES = {"ar_sampler_exact": "movenet_tpu/ops/pallas/ar_sampler.py:206",
+            "ar_sampler_fast": "movenet_tpu/ops/pallas/ar_sampler.py:206",
+            "ar_sampler_spec_exact":
+                "movenet_tpu/ops/pallas/ar_sampler.py:422",
+            "ar_sampler_spec_fast":
+                "movenet_tpu/ops/pallas/ar_sampler.py:422"}
 
 
 class PhaseFailed(Exception):
@@ -131,65 +151,153 @@ def phase_compare(torch, np, model, rf):
     return records
 
 
-def phase_serve(torch, np, mc, model, rf):
-    """The main path: two servers (fast default, exact), real requests."""
+def spec_case(torch, np, ars, spec_sim, label, inp, order, depth):
+    """One speculative kernel-vs-plain case; returns its record."""
+    got, hits = ars.ar_sampler_spec(inp, order, depth)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_hits = ars.ar_sampler_spec_plain(inp, order, depth)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    standard = ars.ar_sampler(inp)
+    kernel_ms = time_cuda(torch, lambda: ars.ar_sampler_spec(
+        inp, order, depth), 3)
+    standard_ms = time_cuda(torch, lambda: ars.ar_sampler(inp), 3)
+    codes = torch.cat([inp.prompt, got], dim=1)[0].cpu().numpy()
+    replay, iters = spec_sim.simulate_spec_hits(
+        codes, inp.weights["front_cur"].shape[0], inp.rf, order, depth)
+    generated = inp.n_samples - inp.rf
+    rec = dict(label=label, name=inp.spec_name, batch=1, fast=inp.fast,
+               equal=bool(torch.equal(got, want)) and int(hits) == int(
+                   want_hits),
+               hits=int(hits), plain_hits=int(want_hits), replay=replay,
+               equal_standard=bool(torch.equal(got, standard)),
+               max_abs_err=int((got.long() - want.long()).abs().max()),
+               ms=kernel_ms, plain_ms=plain_ms, standard_ms=standard_ms,
+               us_per_sample=kernel_ms * 1e3 / generated,
+               standard_us_per_sample=standard_ms * 1e3 / generated,
+               steps_per_iter=generated / iters)
+    print(f"spec {label}: equal={rec['equal']} hits kernel {rec['hits']} "
+          f"plain {rec['plain_hits']} replay {replay} "
+          f"(x{rec['steps_per_iter']:.3f} steps/iteration), codes == "
+          f"standard kernel {rec['equal_standard']}; kernel "
+          f"{kernel_ms:.2f} ms ({rec['us_per_sample']:.2f} us/sample), "
+          f"standard kernel {standard_ms:.2f} ms "
+          f"({rec['standard_us_per_sample']:.2f} us/sample), plain "
+          f"{plain_ms:.1f} ms", flush=True)
+    return rec
+
+
+def phase_spec_compare(torch, np, model, rf):
+    """Speculative kernel vs plain, at flagship width and on the card-
+    trained fixture; returns per-case records."""
+    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+    from movenet_tpu_torch.utils import fixtures, spec_sim
+
+    cases = [("greedy exact o3 d1", 0.0, False, 3, 1, 0),
+             ("greedy fast o3 d1", 0.0, True, 3, 1, 0),
+             ("greedy fast o2 d2", 0.0, True, 2, 2, 0),
+             ("T=1.0 parity fast o3 d1", 1.0, True, 3, 1, 3)]
+    rng = np.random.default_rng(2)
+    records = []
+    for label, temp, fast, order, depth, seed in cases:
+        prompt = rng.integers(0, model.input_channels, size=(1, rf))
+        inp = ars.prepare(model, prompt, rf + N_COMPARE, temperature=temp,
+                          seed=seed, parity_sampling=True, fast=fast,
+                          speculative=True, spec_order=order,
+                          spec_depth=depth)
+        records.append(spec_case(torch, np, ars, spec_sim, label, inp,
+                                 order, depth))
+    # hit-rich: the sine fixture trained on the card
+    t0 = time.perf_counter()
+    trained, codes = fixtures.train_overfit(
+        fixtures.sine_wave(), device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    print(f"fixture trained on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    frf = trained.receptive_fields
+    for depth in (1, 2):
+        inp = ars.prepare(trained, codes[None, :frf], frf + N_COMPARE,
+                          fast=True, speculative=True, spec_depth=depth)
+        rec = spec_case(torch, np, ars, spec_sim,
+                        f"trained fixture greedy fast o3 d{depth}", inp, 3,
+                        depth)
+        check(rec["hits"] > 0, f"{rec['label']}: no guess committed")
+        records.append(rec)
+    return records
+
+
+def write_checkpoint(np, mc, model, run_dir):
     from movenet_tpu_torch.config import TrainingConfig
     from movenet_tpu_torch.models.convert import params_to_jax
-    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
-    from movenet_tpu_torch.serve import (GenerationServer,
-                                         GenerationService, request)
     from movenet_tpu_torch.train.checkpoint import save_params
+
+    cfg = TrainingConfig(model_config=mc, use_video=False, scheduler=None,
+                         batch_size=1)
+    save_params(run_dir, 0, params_to_jax(model.state_dict()), cfg)
+
+
+def phase_serve(torch, np, mc, rf, run_dir):
+    """The main path: two servers (the default: fast + speculative, and
+    exact + speculative), real requests."""
+    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+    from movenet_tpu_torch.serve import request, serve
+    from movenet_tpu_torch.utils.spec_sim import simulate_spec_hits
 
     rng = np.random.default_rng(1)
     prompt8 = rng.integers(0, mc.input_channels, size=(8, rf)).tolist()
-    with tempfile.TemporaryDirectory() as run_dir:
-        cfg = TrainingConfig(model_config=mc, use_video=False,
-                             scheduler=None, batch_size=1)
-        save_params(run_dir, 0, params_to_jax(model.state_dict()), cfg)
-        services = {}
-        replies = {}
-        ars.reset_launch_counts()
-        for fast in (True, False):
-            svc = GenerationService(Path(run_dir), fast=fast,
-                                    device="cuda")
-            services[fast] = svc
-            svc.warmup()
-            server = GenerationServer(("127.0.0.1", 0), svc)
-            thread = threading.Thread(target=server.serve_forever,
-                                      daemon=True)
-            thread.start()
-            port = server.server_address[1]
-            try:
-                reqs = {"ping": {"op": "ping", "id": "ping"},
-                        "greedy": {"id": "greedy", "temperature": 0.0,
-                                   "n_samples": rf + N_SERVE},
-                        "sampled": {"id": "sampled", "temperature": 1.0,
-                                    "seed": 3, "prompt": prompt8,
-                                    "n_samples": rf + N_COMPARE}}
-                if fast:
-                    reqs["wav"] = {"id": "wav", "temperature": 0.0,
-                                   "format": "wav",
-                                   "n_samples": rf + N_COMPARE}
-                for key, payload in reqs.items():
-                    resp = request("127.0.0.1", port, payload)
-                    check("error" not in resp,
-                          f"serve {key} (fast={fast}): {resp.get('error')}")
-                    replies[(fast, key)] = resp
-            finally:
-                server.shutdown()
-                server.server_close()
-                thread.join(timeout=30)
-        torch.cuda.synchronize()
-        launches = dict(ars.launch_counts)
+    services = {}
+    replies = {}
+    ars.reset_launch_counts()
+    for fast in (True, False):
+        # serve(): warmup, then the in-process speculative validation
+        server = serve(Path(run_dir), port=0, fast=fast, device="cuda")
+        svc = server.service
+        services[fast] = svc
+        state = svc.info()["speculative"]
+        check(state == "active",
+              f"speculation is {state!r} after warmup (fast={fast})")
+        thread = threading.Thread(target=server.serve_forever,
+                                  daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        try:
+            reqs = {"ping": {"op": "ping", "id": "ping"},
+                    "greedy": {"id": "greedy", "temperature": 0.0,
+                               "n_samples": rf + N_SERVE},
+                    "sampled": {"id": "sampled", "temperature": 1.0,
+                                "seed": 3, "prompt": prompt8,
+                                "n_samples": rf + N_COMPARE}}
+            if fast:
+                reqs["wav"] = {"id": "wav", "temperature": 0.0,
+                               "format": "wav",
+                               "n_samples": rf + N_COMPARE}
+            for key, payload in reqs.items():
+                resp = request("127.0.0.1", port, payload)
+                check("error" not in resp,
+                      f"serve {key} (fast={fast}): {resp.get('error')}")
+                replies[(fast, key)] = resp
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    torch.cuda.synchronize()
+    launches = dict(ars.launch_counts)
 
-    # every generate request, warmup included, was one launch
-    check(launches == {"ar_sampler_fast": 4, "ar_sampler_exact": 3},
-          f"launch counts of the main path: {launches}")
+    # every generate request, warmup and validation included, was one
+    # launch: per server the warmup and the validation reference on the
+    # standard kernel, the validation run and the B=1 greedy requests on
+    # the speculative one, the B=8 sampled request on the standard one
+    want_launches = {"ar_sampler_fast": 3, "ar_sampler_spec_fast": 3,
+                     "ar_sampler_exact": 3, "ar_sampler_spec_exact": 2}
+    check(launches == want_launches,
+          f"launch counts of the serve path: {launches}, expected "
+          f"{want_launches}")
     for fast in (True, False):
         svc = services[fast]
         ping = replies[(fast, "ping")]
-        check(ping.get("ok") and ping["model"]["sampler"] == "cuda",
-              f"ping: {ping}")
+        check(ping.get("ok") and ping["model"]["sampler"] == "cuda"
+              and ping["model"]["speculative"] == "active", f"ping: {ping}")
         silence = np.full((1, rf), svc.silent_code)
         direct = {
             "greedy": ars.cuda_generate(svc.model, silence, rf + N_SERVE,
@@ -207,18 +315,62 @@ def phase_serve(torch, np, mc, model, rf):
                   f"{key}: codes out of range")
             check((got == want).all(),
                   f"serve {key} (fast={fast}) differs from cuda_generate")
-            print(f"serve fast={int(fast)} {key}: B={got.shape[0]} "
-                  f"n={got.shape[1]} {resp['ms']} ms, "
-                  f"{resp['samples_per_sec']} samples/s", flush=True)
+            extra = ""
+            if key == "greedy":
+                check("spec_commit_ratio" in resp,
+                      f"greedy (fast={fast}) not served speculatively")
+                hits, _ = simulate_spec_hits(got[0], mc.input_channels, rf)
+                check(resp["spec_commit_ratio"]
+                      == round(hits / N_SERVE, 4),
+                      f"spec_commit_ratio {resp['spec_commit_ratio']} vs "
+                      f"replay {hits}/{N_SERVE}")
+                extra = f", spec_commit_ratio {resp['spec_commit_ratio']}"
+            else:
+                check("spec_commit_ratio" not in resp,
+                      f"{key} (fast={fast}) rode the speculative kernel")
+            print(f"serve fast={int(fast)} speculative=1 {key}: "
+                  f"B={got.shape[0]} n={got.shape[1]} {resp['ms']} ms, "
+                  f"{resp['samples_per_sec']} samples/s{extra}", flush=True)
         if fast:
             wav = replies[(True, "wav")]
             check(len(wav["wav_b64"]) == 1, "wav: one stream expected")
-            import base64
             raw = base64.b64decode(wav["wav_b64"][0])
             check(raw[:4] == b"RIFF" and len(raw) == 44 + 2 * (rf + N_COMPARE),
                   "wav: not a 16-bit mono WAV of the requested length")
             print(f"serve fast=1 wav: {wav['ms']} ms, "
                   f"{wav['samples_per_sec']} samples/s", flush=True)
+    return launches
+
+
+def phase_cli(torch, np, rf, run_dir):
+    """The generate CLI, greedy, speculative at depth 2; one launch."""
+    import wave
+
+    from movenet_tpu_torch import generate
+    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+
+    n = rf + N_COMPARE
+    with tempfile.TemporaryDirectory() as out:
+        ars.reset_launch_counts()
+        t0 = time.perf_counter()
+        written = generate.main([
+            "--checkpoint", str(run_dir), "--temperature", "0",
+            "--speculative", "1", "--spec_depth", "2", "--n_samples",
+            str(n), "--out", out])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(ars.launch_counts)
+        wavs = written.get("generated", [])
+        check(len(wavs) == 1, f"generate CLI wrote {written}")
+        with wave.open(str(wavs[0])) as w:
+            frames = w.getnframes()
+        check(frames == n, f"generate CLI wav has {frames} frames, not {n}")
+    want = {k: 0 for k in launches}
+    want["ar_sampler_spec_fast"] = 1
+    check(launches == want, f"launch counts of the CLI: {launches}")
+    print(f"generate CLI: {n} samples (speculative depth 2) in "
+          f"{dt * 1e3:.1f} ms with the checkpoint load, {frames} frames "
+          "written", flush=True)
     return launches
 
 
@@ -266,8 +418,22 @@ def main() -> int:
         bad = [r["label"] for r in records if not r["equal"]]
         check(not bad, f"kernel and plain disagree: {bad}")
 
-        phase = "serve"
-        launches = phase_serve(torch, np, mc, model, rf)
+        phase = "spec kernel vs plain"
+        spec_records = phase_spec_compare(torch, np, model, rf)
+        bad = [r["label"] for r in spec_records
+               if not (r["equal"] and r["hits"] == r["plain_hits"]
+                       and r["equal_standard"]
+                       and r["hits"] == r["replay"])]
+        check(not bad, f"speculative kernel disagrees: {bad}")
+
+        with tempfile.TemporaryDirectory() as run_dir:
+            write_checkpoint(np, mc, model, run_dir)
+            phase = "serve"
+            launches = phase_serve(torch, np, mc, rf, run_dir)
+            phase = "generate CLI"
+            cli_launches = phase_cli(torch, np, rf, run_dir)
+        for k, v in cli_launches.items():
+            launches[k] += v
 
         phase = "times"
         for r in records:
@@ -275,17 +441,23 @@ def main() -> int:
                   f"({r['ms']:.2f} ms for {r['batch']}x{N_COMPARE}), plain "
                   f"{r['plain_sps']:.0f} samples/s ({r['plain_ms']:.1f} ms)"
                   f"; {card}", flush=True)
+        for r in spec_records:
+            print(f"time spec {r['label']}: {r['us_per_sample']:.3f} us per "
+                  f"generated sample, standard kernel "
+                  f"{r['standard_us_per_sample']:.3f}; hits {r['hits']}"
+                  f"/{N_COMPARE}; plain {r['plain_ms']:.1f} ms; {card}",
+                  flush=True)
 
         phase = "kernels line"
         from movenet_tpu_torch.ops.cuda import ar_sampler as ars
         kernels = []
-        for name in ("ar_sampler_exact", "ar_sampler_fast"):
-            mine = [r for r in records if r["name"] == name]
+        for name in REPLACES:
+            mine = [r for r in records + spec_records if r["name"] == name]
             timed = [r for r in mine if r["batch"] == 1][0]
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": ars.KERNEL_SOURCE,
-                "replaces": REPLACES, "launches": launches[name],
+                "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                 "matches_plain": all(r["equal"] for r in mine),

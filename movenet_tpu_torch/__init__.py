@@ -5,8 +5,9 @@ imports torch and never jax.  Plain tensor code is PyTorch; the TPU's
 Pallas kernels become hand-written CUDA kernels for Hopper (sm_90a) under
 ``csrc/``, each with a plain PyTorch version beside it that the wrapper
 uses for tensors on the CPU.  So far it serves generation: config,
-mu-law, the WaveNet forward, the cached samplers, the single-launch AR
-sampler kernel, parameter checkpoints and the TCP server.
+mu-law, the resampler, the WaveNet forward, the cached samplers, the
+single-launch AR sampler kernels (standard and speculative), parameter
+checkpoints, the TCP server and the generate CLI.
 """
 
 __version__ = "0.1.0"

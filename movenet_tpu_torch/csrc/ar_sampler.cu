@@ -39,6 +39,31 @@
 // Staging weights in shared memory, splitting a stream over a
 // thread-block cluster, and sharing one block among the B streams are
 // later work.
+//
+// Speculative form.  ar_sampler_spec_kernel<FAST, NCH> replaces the TPU
+// kernel ar_sampler.py:_make_spec_kernel (pallas_call at ar_sampler.py:
+// 1054): B=1 without video, in both forms.  Each iteration runs the real
+// chain at step t and NCH-1 speculative chains at t+1 (and t+2), under
+// guesses from n-gram tables (t2 (C) in shared memory; the (C, C) pair
+// table t3 in a per-launch global copy, read and written by thread 0
+// only).  Chain k feeds on the codes (x_t, x_{t-1}) shifted by k guesses
+// and its layer-l ring tap at time t+k-d is chain k-d's layer input when
+// d <= k and the untouched ring slot of t+k otherwise.  Its ring writes
+// wait in shared memory (L*R floats per chain) and commit, in time
+// order, only when the real code equals the guess: then, and only
+// then, they are what the standard kernel would have written.  So the
+// codes equal the standard kernel's for any guess sequence provided
+// every chain runs the standard kernel's float32 operations in its
+// order: the same fmaf chains (dots<N> gives each chain its own
+// accumulator over one shared weight load, so an iteration reads the
+// weights once for all chains), the same __fadd_rn/__fmul_rn steps, the
+// same block reductions, and the Gumbel noise of position t+k.  In fast
+// mode the next layer's [h|tap] product of a speculative chain whose tap
+// is another chain's fresh h (d(l+1) <= k) waits for one more phase
+// after phase M; that happens at the first two layers of each stack.
+// Bound: as the standard kernel, by L2 reads of the weights per step, of
+// which a hit saves one or two steps' worth; the extra chains add FMAs
+// per load and one barrier phase at those layers.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -347,6 +372,458 @@ size_t shared_bytes(int c_in, int r, int s) {
          + sizeof(int) * kWarps;
 }
 
+// ------------------------------------------------------- speculative form
+
+struct SpecParams {
+  int* t2;        // (C)    successor table, -1 unseen; read once, kept in smem
+  int* t3;        // (C, C) pair table, -1 unseen; null for order 2
+  int* hits;      // (1)    committed guesses
+  int order;      // 2 or 3
+  int adaptive;   // learn the tables from the committed codes
+};
+
+// acc[c] = xa[c][0:k1] . w[0:k1, col] continued over xb[c][0:k2] . w[k1:k1+k2,
+// col], one fmaf chain per c in the order dot_col sums: so chain c gets
+// the bits dot_col gives it over the concatenated [xa | xb], and every
+// weight is loaded once for all N chains.
+template <int N>
+__device__ __forceinline__ void dots(const float* const* xa,
+                                     const float* const* xb, const float* w,
+                                     int k1, int k2, int stride, float* acc) {
+  float a[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) a[c] = 0.f;
+#pragma unroll 16
+  for (int i = 0; i < k1; ++i) {
+    const float wv = __ldg(w + i * stride);
+#pragma unroll
+    for (int c = 0; c < N; ++c) a[c] = fmaf(xa[c][i], wv, a[c]);
+  }
+  w += static_cast<size_t>(k1) * stride;
+#pragma unroll 16
+  for (int i = 0; i < k2; ++i) {
+    const float wv = __ldg(w + i * stride);
+#pragma unroll
+    for (int c = 0; c < N; ++c) a[c] = fmaf(xb[c][i], wv, a[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < N; ++c) acc[c] = a[c];
+}
+
+// dots<n> for a run-time n in [1, NMAX]
+template <int NMAX>
+__device__ __forceinline__ void dots_n(int n, const float* const* xa,
+                                       const float* const* xb, const float* w,
+                                       int k1, int k2, int stride, float* acc) {
+  if (n == 1) {
+    dots<1>(xa, xb, w, k1, k2, stride, acc);
+  } else if (n == 2) {
+    dots<2>(xa, xb, w, k1, k2, stride, acc);
+  } else if constexpr (NMAX >= 3) {
+    dots<3>(xa, xb, w, k1, k2, stride, acc);
+  }
+}
+
+__device__ __forceinline__ bool code_ok(int c, int C) { return c >= 0 && c < C; }
+
+// the guess for x_{t+1} and, at depth 2, for x_{t+2}; an index outside
+// [0, C) reads 0, as the TPU kernel's one-hot products do
+__device__ int spec_guess1(int prev, int cur, const int* t2s, const int* t3,
+                           int C, int order) {
+  int g = code_ok(cur, C) ? t2s[cur] : 0;
+  if (order == 3) {
+    const int g3 = code_ok(prev, C) && code_ok(cur, C) ? t3[prev * C + cur] : 0;
+    if (g3 >= 0) g = g3;
+  }
+  return g;
+}
+
+__device__ int spec_guess2(int cur, int g1, const int* t2s, const int* t3,
+                           int C, int order) {
+  if (!code_ok(g1, C)) return 0;
+  int g = t2s[g1];
+  if (order == 3) {
+    const int g3 = code_ok(cur, C) ? t3[cur * C + g1] : 0;
+    if (g3 >= 0) g = g3;
+  }
+  return g;
+}
+
+// floats of one chain's buffers: x [h|tap] 2R, h_next R, part0 2R, part1
+// 2R, gated R, skip S, act C, scores C
+__host__ __device__ __forceinline__ int chain_floats(int c_in, int r, int s) {
+  return 2 * r + r + 2 * r + 2 * r + r + s + 2 * c_in;
+}
+
+size_t spec_shared_bytes(int nch, int c_in, int r, int s, int n_layers) {
+  return sizeof(float) * (static_cast<size_t>(nch) * chain_floats(c_in, r, s)
+                          + static_cast<size_t>(nch - 1) * n_layers * r + kWarps)
+         + sizeof(int) * (kWarps + c_in + 2);
+}
+
+template <bool FAST, int NCH>
+__global__ void __launch_bounds__(kThreads)
+ar_sampler_spec_kernel(Params p, SpecParams q) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int C = p.c_in, R = p.r, R2 = 2 * p.r, S = p.s, RS = p.r + p.s;
+  const int L = p.n_layers, LR = p.n_layers * p.r;
+  const int cs = chain_floats(C, R, S);
+  // chain k's buffers start at smem + k * cs
+  constexpr int oX = 0;
+  const int oHN = R2, oP0 = oHN + R, oP1 = oP0 + R2, oG = oP1 + R2,
+            oSk = oG + R, oAct = oSk + S, oSc = oAct + C;
+#define CH(k, o) (smem + (k) * cs + (o))
+  float* spec = smem + NCH * cs;             // chain k>=1 at (k-1) * LR
+  float* red_v = spec + (NCH - 1) * LR;
+  int* red_i = reinterpret_cast<int*>(red_v + kWarps);
+  int* t2s = red_i + kWarps;                 // C
+  int* guess = t2s + C;                      // g1, g2
+
+  float* ring = p.ring;
+  const int n = p.n_samples;
+  int prev = p.init_codes[0];
+  int cur = p.init_codes[1];
+  for (int c = tid; c < C; c += kThreads) t2s[c] = q.t2[c];
+  __syncthreads();
+  if (tid == 0) {
+    const int g1 = spec_guess1(prev, cur, t2s, q.t3, C, q.order);
+    guess[0] = g1;
+    guess[1] = NCH == 3 ? spec_guess2(cur, g1, t2s, q.t3, C, q.order) : 0;
+  }
+  __syncthreads();
+
+  int t = p.rf;
+  int hits = 0;
+  while (t < n) {
+    const int g1 = guess[0], g2 = guess[1];
+    // chain k embeds (cc[k], pc[k]): (x_t, x_{t-1}), (g1, x_t), (g2, g1)
+    const int cc[3] = {cur, g1, g2};
+    const int pc[3] = {prev, cur, g1};
+
+    // ---- front: each chain's h; layer 0's taps
+    const int d0 = __ldg(p.dil), o0 = __ldg(p.off);
+    for (int j = tid; j < R; j += kThreads) {
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        CH(k, oX)[j] =
+            (code_ok(cc[k], C) ? __ldg(p.front_cur + cc[k] * R + j) : 0.f)
+            + (code_ok(pc[k], C) ? __ldg(p.front_past + pc[k] * R + j) : 0.f);
+        CH(k, oX)[R + j] = d0 <= k ? CH(k - d0, oX)[j]
+                                   : ring[(o0 + (t + k) % d0) * R + j];
+      }
+    }
+    for (int j = tid; j < S; j += kThreads) {
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) CH(k, oSk)[j] = 0.f;
+    }
+    __syncthreads();
+
+    const float* xs[NCH];
+    const float* xb[NCH];
+    float acc[NCH];
+    if (!FAST) {
+      for (int l = 0; l < L; ++l) {
+        const int slot = __ldg(p.off + l) + t % __ldg(p.dil + l);
+        // phase A: fg partial sums over the h rows and the tap rows
+        const float* w = p.w_fg + static_cast<size_t>(l) * R2 * R2;
+        for (int i = tid; i < 2 * R2; i += kThreads) {
+          const int half = i / R2, j = i - half * R2;
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oX) + half * R;
+          dots<NCH>(xs, xs, w + half * R * R2 + j, R, 0, R2, acc);
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) CH(k, half ? oP1 : oP0)[j] = acc[k];
+        }
+        __syncthreads();
+        // phase B: gate
+        const float* bl = p.b_fg + l * R2;
+        for (int i = tid; i < R; i += kThreads) {
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) {
+            const float f = __fadd_rn(__fadd_rn(CH(k, oP0)[i], CH(k, oP1)[i]),
+                                      __ldg(bl + i));
+            const float g = __fadd_rn(
+                __fadd_rn(CH(k, oP0)[R + i], CH(k, oP1)[R + i]),
+                __ldg(bl + R + i));
+            CH(k, oG)[i] = __fmul_rn(tanhf(f), sigmoidf_(g));
+          }
+        }
+        __syncthreads();
+        // phase C: res/skip outputs; the real ring write and the deferred
+        // spec ones; the next layer's taps
+        const float* wo = p.w_out + static_cast<size_t>(l) * R * RS;
+        const float* bo = p.b_out + l * RS;
+        const bool more = l + 1 < L;
+        const int dn = more ? __ldg(p.dil + l + 1) : 1;
+        const int on = more ? __ldg(p.off + l + 1) : 0;
+        for (int i = tid; i < RS + R; i += kThreads) {
+          if (i < RS) {
+#pragma unroll
+            for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oG);
+            dots<NCH>(xs, xs, wo + i, R, 0, RS, acc);
+#pragma unroll
+            for (int k = 0; k < NCH; ++k) {
+              const float o = __fadd_rn(acc[k], __ldg(bo + i));
+              if (i < R) {
+                if (k == 0) ring[slot * R + i] = CH(0, oX)[i];
+                else spec[(k - 1) * LR + l * R + i] = CH(k, oX)[i];
+                CH(k, oX)[i] = __fadd_rn(o, CH(k, oX)[i]);
+              } else {
+                CH(k, oSk)[i - R] = __fadd_rn(CH(k, oSk)[i - R], o);
+              }
+            }
+            if (i < R && more) {
+#pragma unroll
+              for (int k = 1; k < NCH; ++k)
+                if (dn <= k) CH(k, oX)[R + i] = CH(k - dn, oX)[i];
+            }
+          } else if (more) {
+            const int j = i - RS;
+#pragma unroll
+            for (int k = 0; k < NCH; ++k)
+              if (dn > k) CH(k, oX)[R + j] = ring[(on + (t + k) % dn) * R + j];
+          }
+        }
+        __syncthreads();
+      }
+    } else {
+      // layer 0's fg: fc0[c] + ((fp0[p] + tap0 @ w_p0c) + b_fg[0])
+      for (int j = tid; j < R2; j += kThreads) {
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oX) + R;
+        dots<NCH>(xs, xs, p.w_p0c + j, R, 0, R2, acc);
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) {
+          CH(k, oP0)[j] =
+              code_ok(cc[k], C) ? __ldg(p.fc0 + cc[k] * R2 + j) : 0.f;
+          const float pre = __fadd_rn(
+              code_ok(pc[k], C) ? __ldg(p.fp0 + pc[k] * R2 + j) : 0.f, acc[k]);
+          CH(k, oP1)[j] = __fadd_rn(pre, __ldg(p.b_fg + j));
+        }
+      }
+      __syncthreads();
+      for (int l = 0; l < L; ++l) {
+        const int slot = __ldg(p.off + l) + t % __ldg(p.dil + l);
+        const bool more = l + 1 < L;
+        const int dn = more ? __ldg(p.dil + l + 1) : 1;
+        const int on = more ? __ldg(p.off + l + 1) : 0;
+        // chains 0..ready-1 read their next tap from the ring; chain k >=
+        // ready reads chain (k - dn)'s h_next, known only after phase M
+        const int ready = more ? (dn < NCH ? dn : NCH) : NCH;
+        // phase G: packed-tanh gates; move in h; fetch the ring taps
+        for (int i = tid; i < R; i += kThreads) {
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) {
+            const float v0 = tanhf(__fadd_rn(CH(k, oP0)[i], CH(k, oP1)[i]));
+            const float v1 =
+                tanhf(__fadd_rn(CH(k, oP0)[R + i], CH(k, oP1)[R + i]));
+            CH(k, oG)[i] = __fadd_rn(__fmul_rn(v0, v1), v0);
+            if (l > 0) CH(k, oX)[i] = CH(k, oHN)[i];
+            if (more && k < ready)
+              CH(k, oX)[R + i] = ring[(on + (t + k) % dn) * R + i];
+          }
+        }
+        __syncthreads();
+        // phase M: gated @ w_prod, the ready chains' next [h|tap] product,
+        // and the res/skip outputs, side by side
+        const float* wp = p.w_prod + static_cast<size_t>(l) * R * R2;
+        const float* wn = p.w_fg + static_cast<size_t>(l + 1) * R2 * R2;
+        const float* bn = p.b_fg + (l + 1) * R2;
+        const float* wo = p.w_out + static_cast<size_t>(l) * R * RS;
+        const float* bo = p.b_out + l * RS;
+        for (int i = tid; i < 2 * R2 + RS; i += kThreads) {
+          if (i < R2) {
+            if (more) {
+#pragma unroll
+              for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oG);
+              dots<NCH>(xs, xs, wp + i, R, 0, R2, acc);
+#pragma unroll
+              for (int k = 0; k < NCH; ++k) CH(k, oP0)[i] = acc[k];
+            }
+          } else if (i < 2 * R2) {
+            const int j = i - R2;
+            if (more) {
+#pragma unroll
+              for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oX);
+              dots_n<NCH>(ready, xs, xs, wn + j, R2, 0, R2, acc);
+#pragma unroll
+              for (int k = 0; k < NCH; ++k)
+                if (k < ready) CH(k, oP1)[j] = __fadd_rn(acc[k], __ldg(bn + j));
+            }
+          } else {
+            const int j = i - 2 * R2;
+#pragma unroll
+            for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oG);
+            dots<NCH>(xs, xs, wo + j, R, 0, RS, acc);
+#pragma unroll
+            for (int k = 0; k < NCH; ++k) {
+              const float o = __fadd_rn(acc[k], __ldg(bo + j));
+              if (j < R) {
+                if (k == 0) ring[slot * R + j] = CH(0, oX)[j];
+                else spec[(k - 1) * LR + l * R + j] = CH(k, oX)[j];
+                CH(k, oHN)[j] = __fadd_rn(o, CH(k, oX)[j]);
+              } else {
+                CH(k, oSk)[j - R] = __fadd_rn(CH(k, oSk)[j - R], o);
+              }
+            }
+          }
+        }
+        __syncthreads();
+        // phase M2: the late chains' next product over [h | h_next of
+        // chain k - dn], the same fmaf chain as over a copied tap
+        if (more && ready < NCH) {
+          const int late = NCH - ready;
+          for (int j = tid; j < R2; j += kThreads) {
+#pragma unroll
+            for (int c = 0; c < NCH; ++c) {
+              const int k = ready + c < NCH ? ready + c : NCH - 1;
+              xs[c] = CH(k, oX);
+              xb[c] = CH(k - dn, oHN);
+            }
+            dots_n<NCH>(late, xs, xb, wn + j, R, R, R2, acc);
+#pragma unroll
+            for (int c = 0; c < NCH; ++c)
+              if (c < late)
+                CH(ready + c, oP1)[j] = __fadd_rn(acc[c], __ldg(bn + j));
+          }
+          __syncthreads();
+        }
+      }
+    }
+
+    // ---- heads: y = leaky(skip) @ W1 + b1; logits = leaky(y) @ W2 + b2
+    for (int c = tid; c < C; c += kThreads) {
+      float a[NCH];
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) a[k] = 0.f;
+#pragma unroll 16
+      for (int kk = 0; kk < S; ++kk) {
+        const float wv = __ldg(p.h1_w + kk * C + c);
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) a[k] = fmaf(leaky(CH(k, oSk)[kk]), wv, a[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < NCH; ++k)
+        CH(k, oAct)[c] = leaky(__fadd_rn(a[k], __ldg(p.h1_b + c)));
+    }
+    __syncthreads();
+    float local_max[NCH];
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      local_max[k] = -CUDART_INF_F;
+      xs[k] = CH(k, oAct);
+    }
+    for (int c = tid; c < C; c += kThreads) {
+      dots<NCH>(xs, xs, p.h2_w + c, C, 0, C, acc);
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        const float logit = __fadd_rn(acc[k], __ldg(p.h2_b + c));
+        CH(k, oSc)[c] = logit;
+        local_max[k] = fmaxf(local_max[k], logit);
+      }
+    }
+
+    // ---- sampling of chain k at position t+k, as the standard kernel
+    int nxt[NCH];
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      float* scores = CH(k, oSc);
+      float best_v = -CUDART_INF_F;
+      int best_i = C;
+      if (p.temperature == 0.f) {
+        for (int c = tid; c < C; c += kThreads)
+          if (better(scores[c], c, best_v, best_i)) { best_v = scores[c]; best_i = c; }
+      } else {
+        float denom = 1.f;
+        float m = 0.f;
+        if (p.parity) {
+          m = block_max(local_max[k], red_v);
+          float local_sum = 0.f;
+          for (int c = tid; c < C; c += kThreads) {
+            const float e = expf(__fsub_rn(scores[c], m));
+            scores[c] = e;
+            local_sum = __fadd_rn(local_sum, e);
+          }
+          denom = block_sum(local_sum, red_v);
+        }
+        for (int c = tid; c < C; c += kThreads) {
+          const float base = p.parity
+              ? __fdiv_rn(__fdiv_rn(scores[c], denom), p.temperature)
+              : __fdiv_rn(scores[c], p.temperature);
+          const float v = __fadd_rn(
+              base, positional_gumbel(p.seed, static_cast<uint32_t>(t + k), 1u,
+                                      0u, static_cast<uint32_t>(C),
+                                      static_cast<uint32_t>(c)));
+          if (better(v, c, best_v, best_i)) { best_v = v; best_i = c; }
+        }
+      }
+      nxt[k] = block_argmax(best_v, best_i, red_v, red_i);
+    }
+
+    // ---- commit: a guess holds only if the real code equals it
+    const bool hit = nxt[0] == g1 && t + 1 < n;
+    const bool hit2 = NCH == 3 && hit && nxt[NCH - 2] == g2 && t + 2 < n;
+    if (hit) {
+      for (int i = tid; i < LR; i += kThreads) {
+        const int l = i / R, j = i - l * R;
+        const int d = __ldg(p.dil + l), o = __ldg(p.off + l);
+        ring[(o + (t + 1) % d) * R + j] = spec[i];
+        // s2 after s1: at d <= 2 the slots coincide, the later time wins
+        if (hit2) ring[(o + (t + 2) % d) * R + j] = spec[LR + i];
+      }
+    }
+    if (tid == 0) {
+      if (q.adaptive) {
+        // later writes win: x_t -> x_{t+1}, then the committed ones
+        if (code_ok(cur, C)) t2s[cur] = nxt[0];
+        if (hit && code_ok(g1, C)) t2s[g1] = nxt[1];
+        if (hit2 && code_ok(g2, C)) t2s[g2] = nxt[NCH - 1];
+        if (q.order == 3) {
+          // the TPU kernel keys the row on prev's one-hot: row 0 when
+          // prev lies outside [0, C)
+          if (code_ok(cur, C)) q.t3[(code_ok(prev, C) ? prev : 0) * C + cur] = nxt[0];
+          if (hit && code_ok(cur, C) && code_ok(g1, C)) q.t3[cur * C + g1] = nxt[1];
+          if (hit2 && code_ok(g1, C) && code_ok(g2, C))
+            q.t3[g1 * C + g2] = nxt[NCH - 1];
+        }
+      }
+      p.out[t - p.rf] = cur;
+      if (hit) p.out[t + 1 - p.rf] = g1;
+      if (hit2) p.out[t + 2 - p.rf] = g2;
+    }
+    hits += static_cast<int>(hit) + static_cast<int>(hit2);
+    if (hit2) {
+      t += 3; prev = g2; cur = nxt[NCH - 1];
+    } else if (hit) {
+      t += 2; prev = g1; cur = nxt[1];
+    } else {
+      t += 1; prev = cur; cur = nxt[0];
+    }
+    if (tid == 0) {
+      const int ng1 = spec_guess1(prev, cur, t2s, q.t3, C, q.order);
+      guess[0] = ng1;
+      guess[1] = NCH == 3 ? spec_guess2(cur, ng1, t2s, q.t3, C, q.order) : 0;
+    }
+    __syncthreads();
+  }
+  if (tid == 0) *q.hits = hits;
+#undef CH
+}
+
+template <bool FAST, int NCH>
+int launch_spec(const Params& p, const SpecParams& q, size_t smem,
+                cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ar_sampler_spec_kernel<FAST, NCH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  ar_sampler_spec_kernel<FAST, NCH><<<1, kThreads, smem, st>>>(p, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -385,6 +862,37 @@ int movenet_ar_sampler_launch(
     ar_sampler_kernel<false><<<batch, kThreads, smem, st>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the speculative sampler (B=1, one block) on `stream`; t2 and t3
+// are per-launch copies that it updates in place.  Returns the
+// cudaError_t of the launch.
+int movenet_ar_sampler_spec_launch(
+    int fast, int order, int depth, int adaptive, const float* front_cur,
+    const float* front_past, const float* w_fg, const float* b_fg,
+    const float* w_out, const float* b_out, const float* h1_w,
+    const float* h1_b, const float* h2_w, const float* h2_b, const float* fc0,
+    const float* fp0, const float* w_p0c, const float* w_prod, const int* dil,
+    const int* off, float* ring, const int* init_codes, int* t2, int* t3,
+    int* out, int* hits, int c_in, int r, int s, int n_layers, int sum_d,
+    int rf, int n_samples, int seed, int parity, float temperature,
+    void* stream) {
+  if ((order != 2 && order != 3) || (depth != 1 && depth != 2)
+      || (order == 3 && t3 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{front_cur, front_past, w_fg, b_fg, w_out, b_out, h1_w, h1_b,
+           h2_w, h2_b, fc0, fp0, w_p0c, w_prod, dil, off, ring, init_codes,
+           out, 1, c_in, r, s, n_layers, sum_d, rf, n_samples,
+           static_cast<uint32_t>(seed), parity, temperature};
+  SpecParams q{t2, t3, hits, order, adaptive};
+  const int nch = depth + 1;
+  const size_t smem = spec_shared_bytes(nch, c_in, r, s, n_layers);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fast)
+    return nch == 2 ? launch_spec<true, 2>(p, q, smem, st)
+                    : launch_spec<true, 3>(p, q, smem, st);
+  return nch == 2 ? launch_spec<false, 2>(p, q, smem, st)
+                  : launch_spec<false, 3>(p, q, smem, st);
 }
 
 const char* movenet_cuda_error_string(int err) {

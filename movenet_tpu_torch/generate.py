@@ -1,12 +1,27 @@
-"""Loading a trained model for generation.
+"""Standalone generation CLI: checkpoint -> audio.
 
-So far only ``load_checkpoint_model``; the generate CLI, which needs the
-data layer and the sample export, comes with a later part of the port.
+    python -m movenet_tpu_torch.generate --checkpoint <run_dir> \
+        --n_samples 160000 --temperature 1.0 --out generated/
+
+The counterpart of ``movenet_tpu.generate``: load the parameters of a run
+directory (``checkpoints/<step>/params.npz`` plus its ``config.json``),
+prompt with RF frames of mu-law silence, and synthesize waveforms with
+the fastest applicable sampler:
+
+  * a model on a CUDA device, batch 1, 2, 4 or 8 -> the AR sampler kernel
+    (``--speculative 1``: the speculative kernel for B=1 greedy and
+    sampled decoding, same codes);
+  * otherwise                                    -> the cached sampler.
+
+Prompts from validation clips (``--dataset``) need the data layer, which
+is not ported yet (ROADMAP.md A.6).
 """
 
 from __future__ import annotations
 
+import argparse
 import logging
+import time
 from pathlib import Path
 
 import torch
@@ -31,3 +46,139 @@ def load_checkpoint_model(checkpoint_dir: Path, device="cpu"):
     model = model.to(torch.device(device)).eval()
     logger.info("restored step-%d params from %s", step, checkpoint_dir)
     return model, config, step
+
+
+def generate_from_checkpoint(
+    checkpoint_dir: Path,
+    dataset_fp: str = None,
+    n_samples: int = None,
+    temperature: float = 1.0,
+    batch_size: int = 1,
+    use_video: bool = None,
+    out_dir: Path = Path("generated"),
+    seed: int = 0,
+    parity_sampling: bool = True,
+    fast: bool = True,
+    speculative: bool = False,
+    spec_order: int = 3,
+    spec_depth: int = 1,
+    device=None,
+):
+    """Generate ``batch_size`` clips from a checkpoint and write them with
+    ``export_samples``; returns kind -> written paths.  ``device``
+    defaults to the first CUDA device when there is one, else the CPU."""
+    from movenet_tpu_torch.models.sampler import fast_generate
+    from movenet_tpu_torch.ops import jax_random, mu_law_encode
+    from movenet_tpu_torch.ops.cuda.ar_sampler import cuda_generate
+    from movenet_tpu_torch.utils.samples import export_samples
+
+    if dataset_fp:
+        raise NotImplementedError(
+            "prompts from a dataset need the data layer, which is not "
+            "ported yet (ROADMAP.md A.6); generate without --dataset")
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    model, config, step = load_checkpoint_model(checkpoint_dir, device)
+    mc = config.model_config
+    rf = model.receptive_fields
+    n = int(n_samples or config.generate_n_samples or mc.max_audio_frames)
+    if n <= rf:
+        raise ValueError(f"n_samples ({n}) must exceed the receptive "
+                         f"field ({rf})")
+
+    # prompts: silence (video and labels come with dataset prompts)
+    silent_code = int(mu_law_encode(torch.zeros(1), mc.input_channels)[0])
+    prompt = torch.full((batch_size, rf), silent_code, dtype=torch.int32,
+                        device=device)
+
+    t0 = time.perf_counter()
+    # the AR kernels need a CUDA device; everywhere else the cached
+    # sampler is the fast path
+    if device.type == "cuda" and prompt.shape[0] in (1, 2, 4, 8):
+        spec_ok = speculative and prompt.shape[0] == 1
+        codes = cuda_generate(model, prompt, n, temperature=temperature,
+                              seed=seed, parity_sampling=parity_sampling,
+                              fast=fast, speculative=spec_ok,
+                              spec_order=spec_order, spec_depth=spec_depth,
+                              return_stats=spec_ok)
+        if spec_ok:
+            codes, hits = codes
+            h, g = float(hits), n - rf
+            # g - h is the iteration count at any spec_depth, so g/(g-h)
+            # is the steps-per-iteration multiplier
+            logger.info(
+                "speculative decode: %d/%d samples from committed "
+                "guesses (%.2fx steps/iteration)", int(h), g,
+                g / max(1.0, g - h))
+    else:
+        codes = fast_generate(model, prompt, n, temperature=temperature,
+                              rng=jax_random.PRNGKey(seed),
+                              parity_sampling=parity_sampling)
+    codes = codes.cpu().numpy()
+    dt = time.perf_counter() - t0
+    n_new = (n - rf) * codes.shape[0]
+    logger.info("sample generation took %.2f seconds "
+                "(%.0f samples/sec incl build)", dt, n_new / dt)
+
+    model_rate = max(1, int(16_000 * mc.max_audio_frames / 160_000))
+    written = export_samples(out_dir, step, "generate",
+                             {"generated": codes, "prompt": codes[:, :rf]},
+                             mc.input_channels, model_rate=model_rate)
+    return written
+
+
+def main(argv=None):
+    """Run the CLI; prints and returns the written paths by kind."""
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s: %(levelname)s: %(message)s")
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--checkpoint", type=Path, required=True,
+                    help="run directory containing checkpoints/ and "
+                         "config.json")
+    ap.add_argument("--dataset", type=str, default=None,
+                    help="prompts from validation clips (not ported yet)")
+    ap.add_argument("--n_samples", type=int, default=None)
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--batch_size", type=int, default=1)
+    ap.add_argument("--use_video", type=lambda x: bool(int(x)),
+                    default=None)
+    ap.add_argument("--parity_sampling", type=lambda x: bool(int(x)),
+                    default=True)
+    ap.add_argument("--fast_sampler", type=lambda x: bool(int(x)),
+                    default=True,
+                    help="short-critical-path kernel (1: default); "
+                         "0 = exact-chain kernel")
+    ap.add_argument("--speculative", type=lambda x: bool(int(x)),
+                    default=False,
+                    help="B=1 only: speculative-wavefront kernel (same "
+                         "codes, hit-rate-dependent speedup on trained "
+                         "models)")
+    ap.add_argument("--spec_order", type=int, default=3, choices=(2, 3),
+                    help="speculative guesser order: 3 = learned (C,C) "
+                         "pair table with 2-gram fallback (default), 2 = "
+                         "learned successor column")
+    ap.add_argument("--spec_depth", type=int, default=1, choices=(1, 2),
+                    help="speculative chains per iteration beyond the "
+                         "real one (2 commits up to 3 samples/iter on "
+                         "double hits; default 1)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=Path, default=Path("generated"))
+    ap.add_argument("--device", type=str, default=None,
+                    help="torch device of the model (default: cuda when "
+                         "available, else cpu)")
+    args = ap.parse_args(argv)
+    written = generate_from_checkpoint(
+        args.checkpoint, args.dataset, args.n_samples, args.temperature,
+        args.batch_size, args.use_video, args.out, args.seed,
+        args.parity_sampling, fast=args.fast_sampler,
+        speculative=args.speculative, spec_order=args.spec_order,
+        spec_depth=args.spec_depth, device=args.device)
+    for kind, paths in written.items():
+        for p in paths:
+            print(p)
+    return written
+
+
+if __name__ == "__main__":
+    main()

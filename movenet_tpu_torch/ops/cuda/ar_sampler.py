@@ -1,17 +1,27 @@
-"""Single-launch autoregressive sampler: wrapper, plain version, launch count.
+"""Single-launch autoregressive samplers: wrappers, plain versions, counts.
 
 The counterpart of ``movenet_tpu.ops.pallas.ar_sampler`` without video
-context and without speculation.  ``cuda_generate`` takes the place of
-``pallas_generate``: one parallel pass over the prompt fills the
-dilation rings (``WaveNet.prompt_state``) and gives the first code, then
-one launch of the kernel in ``csrc/ar_sampler.cu`` runs every step
-t in [RF, n).  ``plain_generate`` computes the same function as a
-per-step torch loop (``ar_sampler_plain``); ``ar_sampler``, the kernel's
-wrapper, takes it only for tensors on the CPU.  For CUDA tensors it
-launches the kernel or raises.
+context.  ``cuda_generate`` takes the place of ``pallas_generate``: one
+parallel pass over the prompt fills the dilation rings
+(``WaveNet.prompt_state``) and gives the first code, then one launch of
+a kernel in ``csrc/ar_sampler.cu`` runs every step t in [RF, n).
+``plain_generate`` computes the same function as a per-step torch loop
+(``ar_sampler_plain``); ``ar_sampler``, the kernel's wrapper, takes it
+only for tensors on the CPU.  For CUDA tensors it launches the kernel or
+raises.
 
 ``fast=True`` is the reassociated chain of ``stack_fast_weights``: one
 dependent product per layer and the packed-tanh gate, in float32.
+
+``speculative=True`` (B=1, no video) is the wavefront of
+``_make_spec_kernel``: each iteration runs step t and a guessed step
+t+1 (and t+2 at ``spec_depth=2``) side by side, the guesses coming from
+n-gram tables seeded from the prompt and learned online.  A guess
+commits only when the real chain's code equals it, so the codes equal
+the standard sampler's.  ``ar_sampler_spec`` is the wrapper,
+``ar_sampler_spec_plain`` the plain version; both return the codes and
+the hit counter (committed guesses), which
+``utils/spec_sim.simulate_spec_hits`` replays from the codes alone.
 
 Sampling at T > 0 draws the first code with
 ``jax.random.categorical(fold_in(PRNGKey(seed), RF-1), ...)``
@@ -36,10 +46,15 @@ from movenet_tpu_torch.ops import jax_random
 KERNEL_SOURCE = "movenet_tpu_torch/csrc/ar_sampler.cu"
 BATCH_SIZES = (1, 2, 4, 8, 16, 32)
 RING_BYTES_LIMIT = 48 * 1024 * 1024
+# above this many classes the (C, C) pair table is not kept: order 3
+# falls back to order 2, as pallas_generate does
+SPEC_PAIR_TABLE_MAX_C = 1024
 
-# kernel launches by form, counted by the wrapper where it launches
+# kernel launches by form, counted by the wrappers where they launch
 launch_counts: Dict[str, int] = {"ar_sampler_exact": 0,
-                                 "ar_sampler_fast": 0}
+                                 "ar_sampler_fast": 0,
+                                 "ar_sampler_spec_exact": 0,
+                                 "ar_sampler_spec_fast": 0}
 
 
 def reset_launch_counts() -> None:
@@ -175,6 +190,16 @@ class SamplerInputs:
     ring: torch.Tensor         # (B, sum_d, R); the launch copies it
     init_codes: torch.Tensor   # (2, B) int32: prompt[:, -1], first code
     prompt: torch.Tensor       # (B, RF) int32
+    # speculative decoding (B=1): the guesser's order after the
+    # large-C downgrade (0 when not speculative), its depth, whether it
+    # learns online, and the tables seeded from the prompt on the host:
+    # t2 (C,) and t3 (C, C) int32, -1 where unseen (t3 is None above
+    # SPEC_PAIR_TABLE_MAX_C classes)
+    spec_order: int = 0
+    spec_depth: int = 1
+    spec_adaptive: bool = True
+    t2: Optional[np.ndarray] = None
+    t3: Optional[np.ndarray] = None
 
     @property
     def batch(self) -> int:
@@ -184,14 +209,37 @@ class SamplerInputs:
     def name(self) -> str:
         return "ar_sampler_fast" if self.fast else "ar_sampler_exact"
 
+    @property
+    def spec_name(self) -> str:
+        return ("ar_sampler_spec_fast" if self.fast
+                else "ar_sampler_spec_exact")
+
+
+def seed_spec_tables(prompt: np.ndarray, c_in: int, pair_table: bool):
+    """The guess tables seeded from one prompt (RF,) as pallas_generate
+    seeds them: t2[p[:-1]] = p[1:] and t3[p[:-2], p[1:-1]] = p[2:], -1
+    where unseen.  Numpy fancy assignment is last-write-wins for
+    duplicate transitions, as JAX's CPU scatter and the replay in
+    ``utils/spec_sim`` are; a device scatter (``index_put_``) picks an
+    unspecified winner, which would change hit counts."""
+    p = np.asarray(prompt, np.int64).ravel()
+    t2 = np.full(c_in, -1, np.int32)
+    t2[p[:-1]] = p[1:]
+    t3 = None
+    if pair_table:
+        t3 = np.full((c_in, c_in), -1, np.int32)
+        t3[p[:-2], p[1:-1]] = p[2:]
+    return t2, t3
+
 
 @torch.no_grad()
 def prepare(model: WaveNet, prompt_codes, n_samples: int,
             temperature: float = 0.0, seed: int = 0,
             video: Optional[torch.Tensor] = None,
             parity_sampling: bool = True, labels=None, fast: bool = False,
-            speculative: bool = False,
-            return_stats: bool = False) -> SamplerInputs:
+            speculative: bool = False, return_stats: bool = False,
+            spec_order: int = 3, spec_depth: int = 1,
+            spec_adaptive: bool = True) -> SamplerInputs:
     """Check the request, stack the weights and run the prompt pass."""
     rf = model.receptive_fields
     if n_samples <= rf:
@@ -207,14 +255,19 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
         raise ValueError(
             "AR sampler supports batch sizes dividing 128 (up to "
             f"32), got {batch}; use fast_generate for other batch sizes")
-    if speculative:
-        raise NotImplementedError(
-            "speculative kernel not yet ported (movenet_tpu "
-            "ar_sampler._make_spec_kernel); use speculative=False")
-    if return_stats:
+    if speculative and (batch != 1 or video is not None):
+        raise ValueError(
+            "speculative sampling supports B=1 decoding without video "
+            "(it is a LATENCY optimization; batch/video paths use the "
+            "standard kernel)")
+    if return_stats and not speculative:
         raise ValueError(
             "return_stats reports the speculative hit counter; it "
             "requires speculative=True")
+    if spec_order not in (2, 3):
+        raise ValueError(f"spec_order must be 2 or 3, got {spec_order}")
+    if spec_depth not in (1, 2):
+        raise ValueError(f"spec_depth must be 1 or 2, got {spec_depth}")
     if video is not None:
         raise NotImplementedError(
             "video conditioning in the AR kernel is not yet ported; use "
@@ -262,6 +315,14 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
         scores = torch.softmax(last_logits, dim=-1) if parity_sampling \
             else last_logits
         first = jax_random.categorical(key, scores / temperature)
+    spec = {}
+    if speculative:
+        pair_table = c_in <= SPEC_PAIR_TABLE_MAX_C
+        t2, t3 = seed_spec_tables(prompt[0].cpu().numpy(), c_in,
+                                  pair_table)
+        spec = dict(spec_order=spec_order if pair_table else 2,
+                    spec_depth=spec_depth,
+                    spec_adaptive=bool(spec_adaptive), t2=t2, t3=t3)
     return SamplerInputs(
         fast=fast, rf=rf, n_samples=int(n_samples),
         temperature=float(temperature), parity_sampling=parity_sampling,
@@ -272,7 +333,7 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
                        dim=1).contiguous(),
         init_codes=torch.stack([prompt[:, -1],
                                 first.to(torch.int32)]).contiguous(),
-        prompt=prompt)
+        prompt=prompt, **spec)
 
 
 # ---------------------------------------------------------- plain version
@@ -349,9 +410,214 @@ def ar_sampler_plain(inp: SamplerInputs, return_margins: bool = False):
     return (out, margins) if return_margins else out
 
 
+def _spec_options(inp: SamplerInputs, order, depth, adaptive):
+    if inp.t2 is None:
+        raise ValueError("inputs were not prepared with speculative=True")
+    if inp.batch != 1:
+        raise ValueError("the speculative sampler runs B=1")
+    order = inp.spec_order if order is None else int(order)
+    depth = inp.spec_depth if depth is None else int(depth)
+    adaptive = inp.spec_adaptive if adaptive is None else bool(adaptive)
+    if order not in (2, 3) or depth not in (1, 2):
+        raise ValueError(f"spec order {order} / depth {depth} not in "
+                         "{2, 3} / {1, 2}")
+    if order == 3 and inp.t3 is None:
+        raise ValueError("order 3 needs the (C, C) pair table, which is "
+                         f"not kept above {SPEC_PAIR_TABLE_MAX_C} classes")
+    return order, depth, adaptive
+
+
+@torch.no_grad()
+def ar_sampler_spec_plain(inp: SamplerInputs, order: Optional[int] = None,
+                          depth: Optional[int] = None,
+                          adaptive: Optional[bool] = None):
+    """The speculative kernel's function as a per-iteration torch loop on
+    the inputs' device: ((1, n - RF) int32 codes, 0-d int32 hits).
+
+    Each iteration runs the real chain at step t and speculative chains
+    at t+1 under the guess g1 (and at t+2 under g2 at depth 2), each with
+    its own (1, .) products of ``ar_sampler_plain``'s shapes.  The
+    chains' ring taps: for s1, the real chain's layer input where the
+    dilation is 1 and the untouched ring slot of t+1 otherwise; for s2,
+    s1's input at d == 1, the real chain's at d == 2 and the ring slot of
+    t+2 otherwise.  The spec ring writes wait until the real code equals
+    the guess and then commit in time order (real, s1, s2).  Order,
+    depth and adaptivity default to the ones ``prepare`` was given."""
+    order, depth, adaptive = _spec_options(inp, order, depth, adaptive)
+    w = inp.weights
+    r = w["front_cur"].shape[1]
+    c_in = w["front_cur"].shape[0]
+    dev = inp.ring.device
+    ring = inp.ring[0].clone()                     # (sum_d, R)
+    n, rf = inp.n_samples, inp.rf
+    out = np.empty(n - rf, np.int32)
+    t2 = inp.t2.astype(np.int64)
+    t3 = inp.t3.astype(np.int64) if order == 3 else None
+    n_layers = len(inp.dilations)
+    dil, off = inp.dilations, inp.offsets
+
+    def ok(c):
+        return 0 <= c < c_in
+
+    def row(table, c):
+        # a code outside [0, C) (no guess) embeds as zeros, as the TPU
+        # kernel's one-hot product does
+        return table[c][None, :] if ok(c) else \
+            torch.zeros(1, table.shape[1], device=dev)
+
+    def slot(l, tt):
+        return off[l] + tt % dil[l]
+
+    def t3_at(p, c):
+        # the kernel's one-hot reads give 0 for an invalid index
+        return int(t3[p, c]) if ok(p) and ok(c) else 0
+
+    def guess1(prev, cur):
+        g = int(t2[cur]) if ok(cur) else 0
+        if order == 3:
+            g3 = t3_at(prev, cur)
+            g = g3 if g3 >= 0 else g
+        return g
+
+    def guess2(cur, g1):
+        if not ok(g1):
+            return 0
+        g = int(t2[g1])
+        if order == 3:
+            g3 = t3_at(cur, g1)
+            g = g3 if g3 >= 0 else g
+        return g
+
+    def head(skip, tt):
+        y = torch.matmul(F.leaky_relu(skip), w["h1_w"]) + w["h1_b"]
+        logits = torch.matmul(F.leaky_relu(y), w["h2_w"]) + w["h2_b"]
+        if inp.temperature == 0.0:
+            scores = logits
+        else:
+            scores = torch.softmax(logits, dim=-1) if inp.parity_sampling \
+                else logits
+            scores = scores / inp.temperature + positional_gumbel(
+                inp.seed, tt, 1, c_in, device=dev)
+        return int(torch.argmax(scores, dim=-1))
+
+    def gated_out(l, fg):
+        if inp.fast:
+            v = torch.tanh(fg)
+            gated = v[:, :r] * v[:, r:] + v[:, :r]
+        else:
+            gated = torch.tanh(fg[:, :r]) * torch.sigmoid(fg[:, r:])
+        return gated, torch.matmul(gated, w["w_out"][l]) + w["b_out"][l]
+
+    def fg_of(l, h, tap):
+        return torch.matmul(torch.cat([h, tap], dim=1), w["w_fg"][l]) \
+            + inp.b_fg[l]
+
+    def taps(l, tt, hs):
+        """Layer-l ring taps of the chains at t, t+1, t+2 and the slots
+        their writes go to; ``hs`` are the chains' layer-l inputs."""
+        d = dil[l]
+        tp = [ring[slot(l, tt)][None, :]]
+        sl = [slot(l, tt)]
+        if len(hs) > 1:
+            tp.append(hs[0] if d == 1 else ring[slot(l, tt + 1)][None, :])
+            sl.append(slot(l, tt) if d == 1 else slot(l, tt + 1))
+        if len(hs) > 2:
+            tp.append(hs[1] if d == 1 else hs[0] if d == 2
+                      else ring[slot(l, tt + 2)][None, :])
+            sl.append(slot(l, tt) if d <= 2 else slot(l, tt + 2))
+        return tp, sl
+
+    prev = int(inp.init_codes[0, 0])
+    cur = int(inp.init_codes[1, 0])
+    t = rf
+    hits = 0
+    while t < n:
+        g1 = guess1(prev, cur)
+        codes = [(cur, prev), (g1, cur)]
+        if depth == 2:
+            g2 = guess2(cur, g1)
+            codes.append((g2, g1))
+        k_ch = len(codes)
+        hs = [row(w["front_cur"], c) + row(w["front_past"], p)
+              for c, p in codes]
+        skips = [torch.zeros(1, w["w_out"].shape[2] - r, device=dev)
+                 for _ in range(k_ch)]
+        writes = [[] for _ in range(k_ch)]          # (slot, h) per chain
+        if not inp.fast:
+            for l in range(n_layers):
+                tp, sl = taps(l, t, hs)
+                outs = [gated_out(l, fg_of(l, hs[k], tp[k]))[1]
+                        for k in range(k_ch)]
+                for k in range(k_ch):
+                    writes[k].append((sl[k], hs[k]))
+                    skips[k] = skips[k] + outs[k][:, r:]
+                    hs[k] = outs[k][:, :r] + hs[k]
+                ring[sl[0]] = writes[0][-1][1][0]
+        else:
+            # layer 0's tap at t+1 (t+2) is the front embedding of the
+            # chain one step earlier: the first dilation is 1
+            tap0 = [ring[slot(0, t)][None, :]] + hs[:k_ch - 1]
+            fgs = [row(w["fc0"], c) + (
+                row(w["fp0"], p) + torch.matmul(tap0[k], w["w_p0c"])
+                + inp.b_fg[0]) for k, (c, p) in enumerate(codes)]
+            for l in range(n_layers):
+                _, sl = taps(l, t, hs)
+                go = [gated_out(l, fg) for fg in fgs]
+                if l + 1 < n_layers:
+                    h_next = [o[:, :r] + h for (_, o), h in zip(go, hs)]
+                    tp, _ = taps(l + 1, t, h_next)
+                    fgs = [torch.matmul(go[k][0], w["w_prod"][l])
+                           + fg_of(l + 1, hs[k], tp[k])
+                           for k in range(k_ch)]
+                for k in range(k_ch):
+                    writes[k].append((sl[k], hs[k]))
+                    skips[k] = skips[k] + go[k][1][:, r:]
+                    hs[k] = go[k][1][:, :r] + hs[k]
+                ring[sl[0]] = writes[0][-1][1][0]
+        nxt = [head(skips[k], t + k) for k in range(k_ch)]
+        hit = nxt[0] == g1 and t + 1 < n
+        hit2 = depth == 2 and hit and nxt[1] == g2 and t + 2 < n
+        for k, on in ((1, hit), (2, hit2)):
+            if on:
+                for s_k, h_k in writes[k]:
+                    ring[s_k] = h_k[0]
+        if adaptive:
+            if ok(cur):
+                t2[cur] = nxt[0]
+            if hit and ok(g1):
+                t2[g1] = nxt[1]
+            if hit2 and ok(g2):
+                t2[g2] = nxt[2]
+            if order == 3:
+                # the kernel keys the row on prev's one-hot: row 0 when
+                # prev is outside [0, C)
+                if ok(cur):
+                    t3[prev if ok(prev) else 0, cur] = nxt[0]
+                if hit and ok(cur) and ok(g1):
+                    t3[cur, g1] = nxt[1]
+                if hit2 and ok(g1) and ok(g2):
+                    t3[g1, g2] = nxt[2]
+        out[t - rf] = cur
+        if hit:
+            out[t + 1 - rf] = g1
+        if hit2:
+            out[t + 2 - rf] = g2
+        hits += int(hit) + int(hit2)
+        if hit2:
+            t, prev, cur = t + 3, g2, nxt[2]
+        elif hit:
+            t, prev, cur = t + 2, g1, nxt[1]
+        else:
+            t, prev, cur = t + 1, cur, nxt[0]
+    return (torch.from_numpy(out)[None].to(dev),
+            torch.tensor(hits, dtype=torch.int32, device=dev))
+
+
 # ---------------------------------------------------------------- kernel
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
+_SPEC_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 22
+                  + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -361,6 +627,8 @@ def _kernel_lib() -> ctypes.CDLL:
     if lib.movenet_ar_sampler_launch.argtypes is None:
         lib.movenet_ar_sampler_launch.argtypes = _ARGTYPES
         lib.movenet_ar_sampler_launch.restype = ctypes.c_int
+        lib.movenet_ar_sampler_spec_launch.argtypes = _SPEC_ARGTYPES
+        lib.movenet_ar_sampler_spec_launch.restype = ctypes.c_int
         lib.movenet_cuda_error_string.argtypes = [ctypes.c_int]
         lib.movenet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -378,15 +646,8 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def ar_sampler(inp: SamplerInputs) -> torch.Tensor:
-    """The kernel's wrapper: (B, n - RF) int32 codes.  Tensors on the CPU
-    take ``ar_sampler_plain``; CUDA tensors take one launch of
-    ``csrc/ar_sampler.cu`` on the current stream."""
-    dev = inp.ring.device
-    if dev.type == "cpu":
-        return ar_sampler_plain(inp)
-    if dev.type != "cuda":
-        raise ValueError(f"ar_sampler runs on cpu or cuda, not {dev}")
+def _check_inputs(inp: SamplerInputs, dev) -> tuple:
+    """Check every tensor a launch reads; returns (C, R, S, L, sum_d)."""
     w = inp.weights
     c_in, r = w["front_cur"].shape
     n_layers = len(inp.dilations)
@@ -406,37 +667,107 @@ def ar_sampler(inp: SamplerInputs) -> torch.Tensor:
     _check("b_fg", inp.b_fg, (n_layers, batch, 2 * r), f32, dev)
     _check("ring", inp.ring, (batch, sum_d, r), f32, dev)
     _check("init_codes", inp.init_codes, (2, batch), i32, dev)
+    return c_in, r, s, n_layers, sum_d
 
+
+def _weight_ptrs(inp: SamplerInputs) -> list:
+    """The 14 weight pointers of a launch, None for the fast-only ones in
+    exact mode."""
+    w = inp.weights
+
+    def ptr(k):
+        return w[k].data_ptr() if k in w else None
+
+    return [ptr("front_cur"), ptr("front_past"), ptr("w_fg"),
+            inp.b_fg.data_ptr(), ptr("w_out"), ptr("b_out"), ptr("h1_w"),
+            ptr("h1_b"), ptr("h2_w"), ptr("h2_b"), ptr("fc0"), ptr("fp0"),
+            ptr("w_p0c"), ptr("w_prod")]
+
+
+def _seed32(seed: int) -> int:
+    seed = seed & _M32  # the kernel reads the int32 as uint32
+    return seed - (1 << 32) if seed >= 1 << 31 else seed
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: "
+            f"{lib.movenet_cuda_error_string(err).decode()} "
+            f"(cudaError {err})")
+
+
+def _device_of(inp: SamplerInputs, what: str):
+    dev = inp.ring.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
+    return dev
+
+
+def ar_sampler(inp: SamplerInputs) -> torch.Tensor:
+    """The kernel's wrapper: (B, n - RF) int32 codes.  Tensors on the CPU
+    take ``ar_sampler_plain``; CUDA tensors take one launch of
+    ``csrc/ar_sampler.cu`` on the current stream."""
+    dev = _device_of(inp, "ar_sampler")
+    if dev.type == "cpu":
+        return ar_sampler_plain(inp)
+    c_in, r, s, n_layers, sum_d = _check_inputs(inp, dev)
+    i32 = torch.int32
+    batch = inp.batch
     out = torch.empty(batch, inp.n_samples - inp.rf, dtype=i32, device=dev)
     ring = torch.empty_like(inp.ring)
     ring.copy_(inp.ring)
     dil = torch.tensor(inp.dilations, dtype=i32, device=dev)
     off = torch.tensor(inp.offsets, dtype=i32, device=dev)
-
-    def ptr(k):
-        return w[k].data_ptr() if k in w else None
-
-    seed = inp.seed & _M32  # the kernel reads the int32 as uint32
-    seed = seed - (1 << 32) if seed >= 1 << 31 else seed
     lib = _kernel_lib()
     with torch.cuda.device(dev):  # launch on the tensors' own card
         err = lib.movenet_ar_sampler_launch(
-            int(inp.fast), ptr("front_cur"), ptr("front_past"),
-            ptr("w_fg"), inp.b_fg.data_ptr(), ptr("w_out"), ptr("b_out"),
-            ptr("h1_w"), ptr("h1_b"), ptr("h2_w"), ptr("h2_b"),
-            ptr("fc0"), ptr("fp0"), ptr("w_p0c"), ptr("w_prod"),
+            int(inp.fast), *_weight_ptrs(inp),
             dil.data_ptr(), off.data_ptr(), ring.data_ptr(),
             inp.init_codes.data_ptr(), out.data_ptr(), batch, c_in, r, s,
-            n_layers, sum_d, inp.rf, inp.n_samples, seed,
+            n_layers, sum_d, inp.rf, inp.n_samples, _seed32(inp.seed),
             int(inp.parity_sampling), inp.temperature,
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            "ar_sampler kernel launch failed: "
-            f"{lib.movenet_cuda_error_string(err).decode()} "
-            f"(cudaError {err})")
+    _raise_on(lib, err, "ar_sampler")
     launch_counts[inp.name] += 1
     return out
+
+
+def ar_sampler_spec(inp: SamplerInputs, order: Optional[int] = None,
+                    depth: Optional[int] = None,
+                    adaptive: Optional[bool] = None):
+    """The speculative kernel's wrapper: ((1, n - RF) int32 codes, 0-d
+    int32 hits).  Tensors on the CPU take ``ar_sampler_spec_plain``; CUDA
+    tensors take one launch of ``csrc/ar_sampler.cu``'s
+    ``ar_sampler_spec_kernel`` on the current stream, with per-launch
+    device copies of the guess tables, which it updates in place."""
+    dev = _device_of(inp, "ar_sampler_spec")
+    if dev.type == "cpu":
+        return ar_sampler_spec_plain(inp, order, depth, adaptive)
+    order, depth, adaptive = _spec_options(inp, order, depth, adaptive)
+    c_in, r, s, n_layers, sum_d = _check_inputs(inp, dev)
+    i32 = torch.int32
+    out = torch.empty(1, inp.n_samples - inp.rf, dtype=i32, device=dev)
+    hits = torch.zeros((), dtype=i32, device=dev)
+    ring = torch.empty_like(inp.ring)
+    ring.copy_(inp.ring)
+    dil = torch.tensor(inp.dilations, dtype=i32, device=dev)
+    off = torch.tensor(inp.offsets, dtype=i32, device=dev)
+    t2 = torch.from_numpy(inp.t2).to(dev)
+    t3 = torch.from_numpy(inp.t3).to(dev) if order == 3 else None
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        err = lib.movenet_ar_sampler_spec_launch(
+            int(inp.fast), order, depth, int(adaptive), *_weight_ptrs(inp),
+            dil.data_ptr(), off.data_ptr(), ring.data_ptr(),
+            inp.init_codes.data_ptr(), t2.data_ptr(),
+            None if t3 is None else t3.data_ptr(), out.data_ptr(),
+            hits.data_ptr(), c_in, r, s, n_layers, sum_d, inp.rf,
+            inp.n_samples, _seed32(inp.seed), int(inp.parity_sampling),
+            inp.temperature, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "ar_sampler_spec")
+    launch_counts[inp.spec_name] += 1
+    return out, hits
 
 
 # ----------------------------------------------------------- entry points
@@ -449,13 +780,23 @@ def cuda_generate(model: WaveNet, prompt_codes, n_samples: int,
                   video: Optional[torch.Tensor] = None,
                   parity_sampling: bool = True, labels=None,
                   fast: bool = False, speculative: bool = False,
-                  return_stats: bool = False) -> torch.Tensor:
+                  spec_adaptive: bool = True, spec_order: int = 3,
+                  spec_depth: int = 1, return_stats: bool = False):
     """Generate (B, n_samples) int32 mu-law codes, the prompt's first RF
     included, with one kernel launch on the model's CUDA device (the
-    plain version for a model on the CPU).  B in {1, 2, 4, 8, 16, 32}."""
+    plain version for a model on the CPU).  B in {1, 2, 4, 8, 16, 32}.
+
+    ``speculative=True`` (B=1, no video) runs the speculative kernel;
+    with ``return_stats`` the result is (codes, hits), hits a 0-d int32
+    tensor counting the samples that came from committed guesses."""
     inp = prepare(model, prompt_codes, n_samples, temperature, seed, video,
-                  parity_sampling, labels, fast, speculative, return_stats)
-    return _codes(inp, ar_sampler(inp))
+                  parity_sampling, labels, fast, speculative, return_stats,
+                  spec_order, spec_depth, spec_adaptive)
+    if not speculative:
+        return _codes(inp, ar_sampler(inp))
+    gen, hits = ar_sampler_spec(inp)
+    codes = _codes(inp, gen)
+    return (codes, hits) if return_stats else codes
 
 
 def plain_generate(model: WaveNet, prompt_codes, n_samples: int,

@@ -163,8 +163,9 @@ def test_error_checks(models):
     with pytest.raises(ValueError, match="requires speculative"):
         ars.cuda_generate(tm, np.zeros((1, rf), np.int32), rf + 10,
                           return_stats=True)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ars.cuda_generate(tm, np.zeros((1, rf), np.int32), rf + 10,
+    with pytest.raises(ValueError, match="speculative sampling supports "
+                       "B=1"):
+        ars.cuda_generate(tm, np.zeros((2, rf), np.int32), rf + 10,
                           speculative=True)
     with pytest.raises(NotImplementedError, match="video"):
         ars.cuda_generate(tm, np.zeros((1, rf), np.int32), rf + 10,

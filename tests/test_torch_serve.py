@@ -4,6 +4,7 @@ JAX server (movenet_tpu/serve.py, scan sampler) on the same weights."""
 import base64
 import io
 import threading
+import time
 import wave
 
 import jax
@@ -26,6 +27,7 @@ from movenet_tpu_torch.serve import (GenerationServer, GenerationService,
                                      request)
 from movenet_tpu_torch.train.checkpoint import (latest_step,
                                                 restore_params, save_params)
+from movenet_tpu_torch.utils.spec_sim import simulate_spec_hits
 
 torch.set_num_threads(1)
 
@@ -213,8 +215,124 @@ def test_kernel_route_on_cpu_uses_the_plain_version(run_dirs, rng_np):
 
 
 def test_speculative_and_missing_cuda_raise(run_dirs, monkeypatch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        GenerationService(run_dirs[1], device="cpu", speculative=True)
+    # speculation rides the kernel route only: a scan-sampler service
+    # reports it off and never validates it
+    svc = GenerationService(run_dirs[1], device="cpu", speculative=True)
+    assert svc.info()["speculative"] == "off"
+    assert svc.validate_speculative() is False
+    assert svc.spec_validated is None
+    codes, ratio = svc.generate_with_stats(svc.rf + 4, temperature=0.0)
+    assert codes.shape == (1, svc.rf + 4) and ratio is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GenerationService(run_dirs[1], device="cuda")
+
+
+def _fake_cuda_generate(monkeypatch, calls, fail_orders=()):
+    """Record each cuda_generate call's route (None: standard kernel,
+    else the speculative order) and fail the given orders."""
+    real = ars.cuda_generate
+
+    def fake(model, prompt, n_samples, temperature=0.0, seed=0,
+             parity_sampling=True, fast=True, speculative=False,
+             spec_order=3, **kw):
+        calls.append(spec_order if speculative else None)
+        if speculative and spec_order in fail_orders:
+            raise RuntimeError(f"simulated order-{spec_order} failure")
+        return real(model, prompt, n_samples, temperature=temperature,
+                    seed=seed, parity_sampling=parity_sampling, fast=fast,
+                    speculative=speculative, spec_order=spec_order, **kw)
+
+    monkeypatch.setattr(ars, "cuda_generate", fake)
+
+
+def test_speculative_validation_failure_disables_routing(run_dirs,
+                                                         monkeypatch):
+    """A failing speculative kernel never crashes the server: order 3
+    fails, order 2 fails, speculation is off for the server's lifetime
+    and the standard kernel serves every request."""
+    calls = []
+    _fake_cuda_generate(monkeypatch, calls, fail_orders=(2, 3))
+    svc = GenerationService(run_dirs[1], device="cpu", prefer_kernel=True,
+                            speculative=True)
+    assert svc.validate_speculative() is False
+    assert calls == [None, 3, 2]          # reference run, then o3, o2
+    assert svc.speculative is False
+    assert svc.spec_validated is False
+    assert svc.info()["speculative"] == "off"
+    n = svc.rf + 8
+    codes = svc.generate(n, temperature=0.0)
+    assert codes.shape == (1, n)
+    assert calls[3:] == [None]            # no further spec attempts
+
+
+def test_speculative_order3_failure_downgrades_to_order2(run_dirs,
+                                                         monkeypatch):
+    calls = []
+    _fake_cuda_generate(monkeypatch, calls, fail_orders=(3,))
+    svc = GenerationService(run_dirs[1], device="cpu", prefer_kernel=True,
+                            speculative=True)
+    assert svc.validate_speculative() is True
+    assert calls == [None, 3, 2]          # ref, o3 fails, o2 bit-equal
+    assert svc.speculative is True
+    assert svc.spec_order == 2
+    assert svc.spec_validated is True
+    n = svc.rf + 8
+    codes = svc.generate(n, temperature=0.0)
+    assert codes.shape == (1, n)
+    assert calls[3:] == [2]               # routed by o2, no o3 retry
+    assert svc.last_spec_commit_ratio is not None
+    assert 0.0 <= svc.last_spec_commit_ratio < 1.0
+
+
+def test_speculative_staging_first_request_standard(run_dirs, monkeypatch):
+    """Until validation passes, B=1 greedy requests are served by the
+    standard kernel; the first one starts validation in the background
+    and a later one rides the validated speculative kernel."""
+    calls = []
+    _fake_cuda_generate(monkeypatch, calls)
+    svc = GenerationService(run_dirs[1], device="cpu", prefer_kernel=True,
+                            speculative=True)
+    assert svc.spec_validated is None
+    assert svc.info()["speculative"] == "pending-validation"
+    n = svc.rf + 8
+    codes, ratio = svc.generate_with_stats(n, temperature=0.0)
+    assert codes.shape == (1, n)
+    assert ratio is None                  # served standard
+    assert calls[0] is None
+    deadline = time.monotonic() + 30
+    while svc.spec_validated is None and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert svc.spec_validated is True
+    codes2, ratio2 = svc.generate_with_stats(n, temperature=0.0)
+    assert ratio2 is not None             # now rides speculative
+    np.testing.assert_array_equal(codes2, codes)
+    assert svc.info()["speculative"] == "active"
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_speculative_greedy_request_equals_jax_server(run_dirs, jax_service,
+                                                      fast):
+    svc = GenerationService(run_dirs[1], device="cpu", prefer_kernel=True,
+                            fast=fast)
+    assert svc.validate_speculative() is True
+    srv = GenerationServer(("127.0.0.1", 0), svc)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        n = svc.rf + 121
+        resp = request("127.0.0.1", _port(srv),
+                       {"id": 11, "n_samples": n, "temperature": 0.0})
+        sampled = request("127.0.0.1", _port(srv),
+                          {"id": 12, "n_samples": n, "temperature": 1.0})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=10)
+    assert "error" not in resp, resp
+    codes = np.asarray(resp["codes"])
+    np.testing.assert_array_equal(codes,
+                                  jax_service.generate(n, temperature=0.0))
+    hits, _ = simulate_spec_hits(codes[0], 32, svc.rf, order=3)
+    assert resp["spec_commit_ratio"] == round(hits / (n - svc.rf), 4)
+    assert "spec_commit_ratio" not in sampled    # standard kernel
