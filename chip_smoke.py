@@ -28,10 +28,23 @@ Phases (any failure exits non-zero and prints no result):
   6. generate CLI: ``movenet_tpu_torch.generate.main`` on the same
      checkpoint, greedy, --speculative 1 --spec_depth 2, writes WAVs of
      the requested length with one speculative launch;
-  7. times: samples/s of the kernels and the plain versions, and the
+  7. train kernels vs plain: at the breakdancing training shapes (layer
+     3 x stack 3, C=R=S=64, bf16, B=2, T=160000, video as the stride-10
+     projection triple; seeded random weights and data) the trunk
+     forward (skip, hsave, tfsg), the trunk backward for a seeded dskip
+     (every gradient), the head forward (loss, match, p) and backward
+     (dskip, head gradients) each against its plain version, with the
+     tolerances stated there, and each kernel's time by CUDA events;
+  8. train (the main training path): ``make_train_step`` (AdamW, lr 3e-4)
+     for 1 warm-up + 5 steps through the kernels, each step launching
+     each of the four training kernels once, then the same steps through
+     the plain versions from the same weights; the losses are finite and
+     agree within 1e-3; step ms (median), steps/s, peak memory;
+  9. times: samples/s of the AR kernels and the plain versions, the
      speculative kernel's time per generated sample beside the standard
-     kernel's;
-  8. the kernels line, then the card line, then the result line.
+     kernel's, and the train step and kernel times;
+  10. the kernels line (with each kernel's bound from this run's shapes),
+     then the card line, then the result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -53,6 +66,22 @@ FLAGSHIP = dict(layer_size=10, stack_size=3, input_channels=256,
                 residual_channels=64, skip_channels=64)
 N_COMPARE = 2048          # generated samples per kernel-vs-plain case
 N_SERVE = 16_000          # generated samples of the B=1 serve request
+N_TRAIN = 5               # timed train steps after one warm-up step
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
+# and float32 (no tensor core) operations/s
+HBM_BYTES_S = 3.35e12
+BF16_OPS_S = 989e12
+F32_OPS_S = 67e12
+TRAIN_KERNELS = {
+    "stack_fwd": ("movenet_tpu_torch/csrc/stack_kernel.cu",
+                  "movenet_tpu/ops/pallas/stack_kernel.py:280"),
+    "stack_bwd": ("movenet_tpu_torch/csrc/stack_kernel.cu",
+                  "movenet_tpu/ops/pallas/stack_kernel.py:1486"),
+    "head_fwd": ("movenet_tpu_torch/csrc/head_loss.cu",
+                 "movenet_tpu/ops/pallas/head_loss.py:281"),
+    "head_bwd": ("movenet_tpu_torch/csrc/head_loss.cu",
+                 "movenet_tpu/ops/pallas/head_loss.py:336"),
+}
 REPLACES = {"ar_sampler_exact": "movenet_tpu/ops/pallas/ar_sampler.py:206",
             "ar_sampler_fast": "movenet_tpu/ops/pallas/ar_sampler.py:206",
             "ar_sampler_spec_exact":
@@ -374,6 +403,267 @@ def phase_cli(torch, np, rf, run_dir):
     return launches
 
 
+def train_bounds(b, t, l, r, s, c, v, win, proj):
+    """(bound_ms, bound_by) of each training kernel from its shapes:
+    bytes (each input read once, each output written once) over 3.35 TB/s
+    against operations over the operands' peak (bf16 989 TF/s, float32
+    67 TF/s without tensor cores), the larger."""
+    m = b * t
+    w_bytes = 4 * l * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
+    pack = 4 * t * 3 * b
+    ctx = 2 * m * r
+    fwd_bytes = pack + 2 * 2 * v * r + ctx + w_bytes + 2 * m * s \
+        + 2 * l * m * r + 2 * l * m * 2 * r
+    fwd_ops = 2 * m * l * (win * 2 * r + r * (r + s))
+    bwd_bytes = 2 * l * m * r + 2 * l * m * 2 * r + 2 * m * s + pack \
+        + (2 * (m // 10) * r * 2 if proj else ctx * 2) + 2 * w_bytes \
+        + 4 * 2 * v * r
+    bwd_ops = 2 * m * l * ((r + s) * r + 2 * r * win + (win + 1) * 2 * r
+                           + (r + 1) * (r + s)) + 2 * m * r
+    if proj:
+        bwd_ops += 2 * (m // 10) * (r + 1) * 10 * r + 2 * m * r * r
+    hw = 4 * (s * c + c * c + 2 * c)
+    head_fwd_bytes = 2 * m * s + pack + hw + 4 * m * c
+    head_fwd_ops = 2 * m * (s * c + c * c)
+    head_bwd_bytes = 2 * m * s + pack + 4 * m * c + hw + 2 * m * s + hw
+    head_bwd_ops = 2 * m * (3 * s * c + 2 * c * c)
+
+    def bound(nbytes, ops, peak):
+        tb, to = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    return {"stack_fwd": bound(fwd_bytes, fwd_ops, BF16_OPS_S),
+            "stack_bwd": bound(bwd_bytes, bwd_ops, F32_OPS_S),
+            "head_fwd": bound(head_fwd_bytes, head_fwd_ops, BF16_OPS_S),
+            "head_bwd": bound(head_bwd_bytes, head_bwd_ops, BF16_OPS_S)}
+
+
+def ar_bound(model, batch, steps):
+    """(bound_ms, bound_by) of one AR sampler launch: the weights read
+    once against the float32 operations of every step."""
+    r, s, c = (model.residual_channels, model.skip_channels,
+               model.input_channels)
+    n_layers = len(model.dilations)
+    weights = 4 * (2 * c * r + n_layers * (2 * r * 2 * r + r * (r + s))
+                   + s * c + c * c)
+    ops = 2 * batch * steps * (n_layers * (4 * r * r + r * (r + s))
+                               + s * c + c * c)
+    tb, to = weights / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def _scale(want):
+    return float(want.float().abs().max())
+
+
+def phase_train_kernels(torch, np, cfg, model, batch):
+    """Each training kernel against its plain version on the card, at
+    the breakdancing shapes, and its time; returns records by kernel."""
+    from movenet_tpu_torch.models import fused
+    from movenet_tpu_torch.ops import head_loss as hl
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    b, t = batch.codes.shape
+    dil = tuple(model.dilations)
+    with torch.no_grad():
+        ctx, (b_fg, w_fg, w_out, b_out) = fused._prepare_trunk(
+            model, batch.codes, batch.video, None)
+        check(sk.ctx_is_proj(ctx), "breakdancing ctx is not the projection "
+              "triple")
+        proj = sk._ctx_proj_args(ctx)
+        ctx_flat = sk.ctx_flatten(ctx, torch.bfloat16)
+        pack = fused._codes_pack(batch.codes, True)
+        table2 = torch.cat([model.front_cur, model.front_past],
+                           0).to(torch.bfloat16)
+        fargs = (pack, table2, ctx_flat, b_fg, w_fg, w_out, b_out, dil, b)
+        rec = {}
+        # stack forward; tolerance: bf16 outputs whose float32 sums differ
+        # in order may sit one bf16 step apart: 2% of each output's scale
+        got = ks.stack_fwd(*fargs)
+        want = sk.stack_fwd_plain(*fargs)
+        errs = {}
+        for name, x, y in zip(("skip", "hsave", "tfsg"), got, want):
+            errs[name] = _err(x, y)
+            check(errs[name] <= 2e-2 * _scale(y),
+                  f"stack_fwd {name}: max err {errs[name]:.3g}, scale "
+                  f"{_scale(y):.3g}")
+        rec["stack_fwd"] = dict(
+            max_abs_err=max(errs.values()), errs=errs,
+            ms=time_cuda(torch, lambda: ks.run_fwd(
+                ks.library(), *fargs, ks._stream(table2)), 5),
+            plain_ms=time_cuda(torch, lambda: sk.stack_fwd_plain(*fargs),
+                                 2))
+        # stack backward from the plain forward's saved tensors and a
+        # seeded dskip; float32 sums over 320000 rows in other orders:
+        # 1e-3 of each gradient's scale, dxc (bf16) 2%
+        skip, hsave, tfsg = want
+        g = torch.Generator(device="cuda").manual_seed(5)
+        dskip = (torch.randn(skip.shape, generator=g, device="cuda")
+                 * 1e-3).to(torch.bfloat16)
+        bargs = (hsave, tfsg, ctx_flat, w_fg, w_out, dskip, pack, 64, dil,
+                 proj)
+        got = ks.stack_bwd(*bargs)
+        want = sk.stack_bwd_plain(*bargs)
+        errs = {}
+        for name, x, y in zip(("dtab", "dxc", "db_fg", "dw_fg", "dw_out",
+                               "db_out", "dwup_aug"), got, want):
+            errs[name] = _err(x, y)
+            tol = (2e-2 if name == "dxc" else 1e-3) * _scale(y)
+            check(errs[name] <= tol, f"stack_bwd {name}: max err "
+                  f"{errs[name]:.3g}, scale {_scale(y):.3g}")
+        rec["stack_bwd"] = dict(
+            max_abs_err=max(errs.values()), errs=errs,
+            ms=time_cuda(torch, lambda: ks.run_bwd(
+                ks.library(), *bargs, stream=ks._stream(tfsg)), 5),
+            plain_ms=time_cuda(torch, lambda: sk.stack_bwd_plain(*bargs),
+                                 2))
+        # head forward and backward on the kernel's skip sum; loss rtol
+        # 1e-4 (float32 sums of 320000 rows), matches within 10 rows
+        # (first-argmax ties of z within float32 noise), p 2e-4 (the bf16
+        # operand leaky(y) may round one step apart), the gradients 1e-3
+        # of their scale, dskip (bf16) 1%
+        skip = got_skip = ks.stack_fwd(*fargs)[0]
+        rf = model.receptive_fields
+        hargs = (got_skip, pack, model.head1.kernel, model.head1.bias,
+                 model.head2.kernel, model.head2.bias, rf, True, 2 * b)
+        loss, match, p = kh.head_fwd(*hargs)
+        wl, wm, wp = hl.head_fwd_plain(*hargs)
+        check(abs(float(loss) - float(wl)) <= 1e-4 * abs(float(wl)),
+              f"head_fwd loss {float(loss)} vs plain {float(wl)}")
+        check(abs(float(match) - float(wm)) <= 10,
+              f"head_fwd match {float(match)} vs plain {float(wm)}")
+        errs = {"loss": abs(float(loss) - float(wl)),
+                "match": abs(float(match) - float(wm)),
+                "p": _err(p, wp)}
+        check(errs["p"] <= 2e-4, f"head_fwd p: max err {errs['p']:.3g}")
+        rec["head_fwd"] = dict(
+            max_abs_err=errs["p"], errs=errs,
+            ms=time_cuda(torch, lambda: kh.run_fwd(
+                kh.library(), *hargs, stream=kh._stream(skip)), 5),
+            plain_ms=time_cuda(torch, lambda: hl.head_fwd_plain(*hargs),
+                                 2))
+        dloss = torch.tensor(1.0 / (b * (t - rf)), device="cuda")
+        hb = (got_skip, pack, wp, model.head1.kernel, model.head1.bias,
+              model.head2.kernel, model.head2.bias, rf, True, dloss, 2 * b)
+        got = kh.head_bwd(*hb)
+        want = hl.head_bwd_plain(*hb)
+        errs = {}
+        for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"), got,
+                              want):
+            errs[name] = _err(x, y)
+            tol = (1e-2 if name == "dskip" else 1e-3) * _scale(y)
+            check(errs[name] <= tol, f"head_bwd {name}: max err "
+                  f"{errs[name]:.3g}, scale {_scale(y):.3g}")
+        rec["head_bwd"] = dict(
+            max_abs_err=max(errs.values()), errs=errs,
+            ms=time_cuda(torch, lambda: kh.run_bwd(
+                kh.library(), *hb, stream=kh._stream(skip)), 5),
+            plain_ms=time_cuda(torch, lambda: hl.head_bwd_plain(*hb), 2))
+    for name, r in rec.items():
+        errs = ", ".join(f"{k} {v:.3g}" for k, v in r["errs"].items())
+        print(f"train kernel {name} vs plain: {errs}; kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
+    return rec
+
+
+class plain_versions:
+    """Within the block the trunk and head ops call their plain versions
+    on CUDA tensors too (the library itself never does): the reference
+    run of the train phase."""
+
+    def __enter__(self):
+        from movenet_tpu_torch.ops import head_loss as hl
+        from movenet_tpu_torch.ops import stack_kernel as sk
+        from movenet_tpu_torch.ops.cuda import head_loss as kh
+        from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+        self.saved = [(ks, "stack_fwd", ks.stack_fwd),
+                      (ks, "stack_bwd", ks.stack_bwd),
+                      (kh, "head_fwd", kh.head_fwd),
+                      (kh, "head_bwd", kh.head_bwd)]
+        ks.stack_fwd = sk.stack_fwd_plain
+        ks.stack_bwd = sk.stack_bwd_plain
+        kh.head_fwd = hl.head_fwd_plain
+        kh.head_bwd = hl.head_bwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def phase_train(torch, np, cfg, model, batch):
+    """The main training path: make_train_step on the card through the
+    kernels (1 warm-up + N_TRAIN timed steps), then the same steps through
+    the plain versions from the same weights."""
+    import copy
+
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.train import create_train_state, make_train_step
+
+    plain_model = copy.deepcopy(model)
+    runs = {}
+    launches = {k: 0 for k in TRAIN_KERNELS}
+    for label, m in (("kernels", model), ("plain", plain_model)):
+        state = create_train_state(m, cfg, device="cuda")
+        step = make_train_step(m, cfg)
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(N_TRAIN + 1):
+            ks.reset_launch_counts()
+            kh.reset_launch_counts()
+            t0 = time.perf_counter()
+            if label == "plain":
+                with plain_versions():
+                    state, metrics = step(state, batch)
+            else:
+                state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts = {**ks.launch_counts, **kh.launch_counts}
+            if label == "kernels":
+                check(all(counts[k] == 1 for k in TRAIN_KERNELS),
+                      f"train step {i}: kernel launches {counts}")
+                for k in TRAIN_KERNELS:
+                    launches[k] += counts[k]
+            else:
+                check(all(counts[k] == 0 for k in TRAIN_KERNELS),
+                      f"plain step {i} launched kernels: {counts}")
+            loss = float(metrics["loss"])
+            check(np.isfinite(loss) and np.isfinite(
+                float(metrics["grad_norm"])), f"{label} step {i}: "
+                f"loss {loss}, grad_norm {float(metrics['grad_norm'])}")
+            losses.append(loss)
+            print(f"train {label} step {i}: loss {loss:.6f} accuracy "
+                  f"{float(metrics['accuracy']):.6f} grad_norm "
+                  f"{float(metrics['grad_norm']):.6g}; {times[-1]:.2f} ms; "
+                  f"launches {counts}", flush=True)
+        runs[label] = dict(losses=losses,
+                           step_ms=float(np.median(times[1:])),
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # tolerance: the two runs round the same bf16 forward in different
+    # orders and their updates drift apart by Adam steps of lr: 1e-3
+    for i, (a, w) in enumerate(zip(runs["kernels"]["losses"],
+                                   runs["plain"]["losses"])):
+        check(abs(a - w) <= 1e-3 * abs(w),
+              f"train step {i}: kernel loss {a} vs plain {w}")
+    k, p = runs["kernels"], runs["plain"]
+    print(f"train: step {k['step_ms']:.2f} ms (median of {N_TRAIN} after "
+          f"warm-up), {1e3 / k['step_ms']:.3f} steps/s, plain step "
+          f"{p['step_ms']:.2f} ms; peak memory {k['peak_gb']:.2f} GB "
+          f"(plain {p['peak_gb']:.2f} GB)", flush=True)
+    return runs, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -435,7 +725,24 @@ def main() -> int:
         for k, v in cli_launches.items():
             launches[k] += v
 
+        phase = "train kernels vs plain"
+        from movenet_tpu_torch.utils.fixtures import breakdancing
+        cfg, bd_model, bd_batch = breakdancing(device="cuda")
+        train_recs = phase_train_kernels(torch, np, cfg, bd_model, bd_batch)
+        phase = "train"
+        runs, train_launches = phase_train(torch, np, cfg, bd_model,
+                                           bd_batch)
+        launches.update(train_launches)
+
         phase = "times"
+        k, pl = runs["kernels"], runs["plain"]
+        print(f"time train (breakdancing, B=2, T=160000, bf16): step "
+              f"{k['step_ms']:.2f} ms, {1e3 / k['step_ms']:.3f} steps/s, "
+              f"plain step {pl['step_ms']:.2f} ms, peak memory "
+              f"{k['peak_gb']:.2f} GB; {card}", flush=True)
+        for name, r in train_recs.items():
+            print(f"time {name}: kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms; {card}", flush=True)
         for r in records:
             print(f"time {r['label']}: kernel {r['sps']:.0f} samples/s "
                   f"({r['ms']:.2f} ms for {r['batch']}x{N_COMPARE}), plain "
@@ -451,6 +758,7 @@ def main() -> int:
         phase = "kernels line"
         from movenet_tpu_torch.ops.cuda import ar_sampler as ars
         kernels = []
+        ar_bound_ms, ar_bound_by = ar_bound(model, 1, N_COMPARE)
         for name in REPLACES:
             mine = [r for r in records + spec_records if r["name"] == name]
             timed = [r for r in mine if r["batch"] == 1][0]
@@ -460,8 +768,25 @@ def main() -> int:
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+                "bound_ms": ar_bound_ms, "bound_by": ar_bound_by,
+                "library_ms": None,
                 "matches_plain": all(r["equal"] for r in mine),
                 "shape": f"B=1, n=RF+{N_COMPARE}"})
+        mc = cfg.model_config
+        bounds = train_bounds(
+            2, mc.max_audio_frames, len(bd_model.dilations),
+            mc.residual_channels, mc.skip_channels, mc.input_channels,
+            mc.input_channels, 3 * mc.residual_channels, True)
+        for name, (source, replaces) in TRAIN_KERNELS.items():
+            r = train_recs[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1], "library_ms": None,
+                "matches_plain": True,
+                "shape": "breakdancing: B=2, T=160000, L=9, R=S=C=64, bf16"})
         check(all(k["launches"] > 0 for k in kernels),
               "a kernel of the path was not launched")
         print(json.dumps({"kernels": kernels}))

@@ -34,10 +34,16 @@ from movenet_tpu_torch.train.checkpoint import restore_params
 logger = logging.getLogger(__name__)
 
 
-def load_checkpoint_model(checkpoint_dir: Path, device="cpu"):
+def load_checkpoint_model(checkpoint_dir: Path, device="cuda"):
     """(model, config, step) from a run directory: ``config.json`` gives
     the architecture, the latest ``checkpoints/<step>/params.npz`` the
-    weights.  The model is on ``device``, in eval mode."""
+    weights.  The model is on ``device``, in eval mode; a CUDA device
+    that is not there raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is "
+            "available (pass device='cpu' to load on the CPU)")
     checkpoint_dir = Path(checkpoint_dir)
     config = TrainingConfig.load(checkpoint_dir / "config.json")
     params, step = restore_params(checkpoint_dir)
@@ -62,11 +68,12 @@ def generate_from_checkpoint(
     speculative: bool = False,
     spec_order: int = 3,
     spec_depth: int = 1,
-    device=None,
+    device="cuda",
 ):
     """Generate ``batch_size`` clips from a checkpoint and write them with
     ``export_samples``; returns kind -> written paths.  ``device``
-    defaults to the first CUDA device when there is one, else the CPU."""
+    defaults to the CUDA device; without one it raises, and the CPU runs
+    only when the caller asks for it (``device="cpu"``)."""
     from movenet_tpu_torch.models.sampler import fast_generate
     from movenet_tpu_torch.ops import jax_random, mu_law_encode
     from movenet_tpu_torch.ops.cuda.ar_sampler import cuda_generate
@@ -76,8 +83,6 @@ def generate_from_checkpoint(
         raise NotImplementedError(
             "prompts from a dataset need the data layer, which is not "
             "ported yet (ROADMAP.md A.6); generate without --dataset")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
     model, config, step = load_checkpoint_model(checkpoint_dir, device)
     mc = config.model_config
@@ -164,9 +169,10 @@ def main(argv=None):
                          "double hits; default 1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=Path("generated"))
-    ap.add_argument("--device", type=str, default=None,
-                    help="torch device of the model (default: cuda when "
-                         "available, else cpu)")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="torch device of the model (default: cuda; "
+                         "raises without a CUDA device, cpu only when "
+                         "asked for)")
     args = ap.parse_args(argv)
     written = generate_from_checkpoint(
         args.checkpoint, args.dataset, args.n_samples, args.temperature,

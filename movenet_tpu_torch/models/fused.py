@@ -1,0 +1,211 @@
+"""Fused training forward: codes -> skip sum through the whole-stack
+trunk op, then the head/CE op, so logits never exist in full.
+
+The counterpart of ``movenet_tpu.models.fused`` for its default split
+pipeline (trunk op + head/CE op) with the front embedding folded into
+the trunk.  The ops (``ops/stack_kernel.fused_stack_embed``,
+``ops/head_loss.fused_head_loss``) run their CUDA kernels on tensors on
+the card and their plain versions on the CPU; gradients reach the
+module's parameters through their autograd functions.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from movenet_tpu_torch.models.wavenet import (
+    UPSAMPLE_STRIDE,
+    WaveNet,
+    video_upsample_sizes,
+)
+from movenet_tpu_torch.ops.stack_kernel import (
+    fused_stack_embed,
+    pick_stack_tile,
+    supports_recompute,
+)
+
+# the JAX package's minimum fused granularity: T must be a multiple
+TILE = 128
+
+
+def compute_dtype(model: WaveNet) -> torch.dtype:
+    return torch.bfloat16 if model.compute_dtype == "bfloat16" \
+        else torch.float32
+
+
+def supports_fused(model: WaveNet, time_steps: int) -> bool:
+    return time_steps % TILE == 0
+
+
+def _ctx_proj_tile_ok(model: WaveNet, t: int) -> bool:
+    """Whether the JAX package sends the video as the coarse projection
+    triple at this T (its tile must be a multiple of 80).  The port has
+    no such tile rule, but takes the same path so that both packages
+    compute the same function on the same shapes."""
+    try:
+        tile = pick_stack_tile(t, tuple(model.dilations), ctx=True)
+    except ValueError:
+        return False
+    return tile % 80 == 0
+
+
+def _prepare_trunk(model: WaveNet, codes: torch.Tensor, video, labels):
+    """Encoders and stacked per-layer weights: (ctx, (b_fg (L*B, 2R),
+    w_fg (L, 2R|3R, 2R), w_out (L, R, R+S), b_out (L, R+S))).
+
+    ctx is None, flat (B, T, R) in the compute dtype, or the triple
+    (xc (B, T/10, R) in the compute dtype, wup, bup) whose last
+    upsampling stage runs inside the trunk op."""
+    b, t = codes.shape
+    if t % TILE:
+        raise ValueError(
+            f"fused path needs T % {TILE} == 0, got {t}; use the "
+            "unfused WaveNet.train_logits")
+    r = model.residual_channels
+    dt = compute_dtype(model)
+    ctx = None
+    if video is not None:
+        enc = model.video_encoder
+        if enc is None:
+            raise ValueError("model has no video encoder parameters")
+        up = None
+        if t % UPSAMPLE_STRIDE == 0 and _ctx_proj_tile_ok(model, t):
+            sizes = video_upsample_sizes(model.max_video_frames,
+                                         model.max_audio_frames)
+            up = getattr(enc, f"upsample_{len(sizes) - 2}", None)
+        if up is not None:
+            xc = enc(video, coarse=True, dtype=dt)
+            if xc.shape[1] * UPSAMPLE_STRIDE == t:
+                ctx = (xc.to(dt), up.kernel, up.bias)
+            elif xc.shape[1] == t:      # coarse fell back to full rate
+                ctx = xc.to(dt)
+        if ctx is None:
+            ctx = enc(video, dtype=dt)
+            if ctx.shape[1] != t:
+                raise ValueError(
+                    "expected upsampled video and audio to have equal "
+                    f"time lengths, found {ctx.shape[1]}, {t}")
+            ctx = ctx.to(dt)
+    global_vec = None
+    if labels is not None and model.global_classes:
+        global_vec = model.embed_global(labels).to(torch.float32)
+
+    n_layers = len(model.dilations)
+    fg_parts = [model.blocks_w_cur, model.blocks_w_past]
+    b_fg = torch.zeros(n_layers, b, 2 * r, device=codes.device)
+    if ctx is not None:
+        if model.blocks_ctx_kernel is None:
+            raise ValueError(
+                "model was built with use_context=False but a video "
+                "context was provided")
+        fg_parts.append(model.blocks_ctx_kernel)
+        b_fg = b_fg + model.blocks_ctx_bias[:, None, :]
+    if global_vec is not None:
+        b_fg = b_fg + torch.einsum("br,lro->lbo", global_vec,
+                                   model.blocks_global_kernel)
+    w_fg = torch.cat(fg_parts, dim=1)
+    w_out = torch.cat([model.blocks_res_kernel, model.blocks_skip_kernel],
+                      dim=2)
+    b_out = torch.cat([model.blocks_res_bias, model.blocks_skip_bias],
+                      dim=1)
+    return ctx, (b_fg.reshape(n_layers * b, 2 * r), w_fg, w_out, b_out)
+
+
+def _codes_pack(codes: torch.Tensor, with_targets: bool) -> torch.Tensor:
+    """ONE (T, kB) int32 array for every per-position consumer: columns
+    [0, B) codes, [B, 2B) codes shifted right (row 0 = -1), and with
+    targets [2B, 3B) codes shifted left (CE targets; the last row is
+    junk and masked).  The JAX package packs int16 on the device to
+    halve a TPU relayout; the port keeps int32, the values are equal."""
+    c = codes.to(torch.int32)
+    prev = torch.cat([torch.full_like(c[:, :1], -1), c[:, :-1]], dim=1)
+    parts = [c, prev]
+    if with_targets:
+        parts.append(torch.roll(c, -1, dims=1))
+    return torch.cat(parts, dim=0).t().contiguous()
+
+
+def codes_pack_np(codes) -> np.ndarray:
+    """Host-side (numpy) twin of ``_codes_pack``: (B, T) -> (T, 3B)
+    int32, for data loaders."""
+    b = codes.shape[0]
+    c = np.asarray(codes, np.int32)
+    prev = np.concatenate([np.full((b, 1), -1, np.int32), c[:, :-1]],
+                          axis=1)
+    tgt = np.roll(c, -1, axis=1)
+    return np.ascontiguousarray(np.concatenate([c, prev, tgt], axis=0).T)
+
+
+def _fused_trunk(model: WaveNet, codes: torch.Tensor, video, labels,
+                 codes_pack=None) -> torch.Tensor:
+    """codes (+video/labels) -> skip_sum (B, T, S) in the compute dtype,
+    through the whole-stack op with the embedding folded in."""
+    b, t = codes.shape
+    dt = compute_dtype(model)
+    dilations = tuple(model.dilations)
+    try:
+        pick_stack_tile(t, dilations)
+    except ValueError:
+        raise NotImplementedError(
+            f"no common stack tile for T={t}: the per-block fallback "
+            "(gated_block kernels) is not ported yet (ROADMAP.md B.7)")
+    ctx, (b_fg, w_fg, w_out, b_out) = _prepare_trunk(model, codes, video,
+                                                     labels)
+    strategy = model.fused_strategy
+    if strategy is None:
+        strategy = "recompute" if (
+            model.remat and supports_recompute(t, dilations)) else "auto"
+    if codes_pack is None:
+        codes_pack = _codes_pack(codes, with_targets=False)
+    table2 = torch.cat([model.front_cur, model.front_past], dim=0).to(dt)
+    return fused_stack_embed(codes_pack, table2, ctx, b_fg, w_fg, w_out,
+                             b_out, dilations, strategy)
+
+
+def fused_train_loss(model: WaveNet, codes: torch.Tensor, video=None,
+                     labels=None, parity: bool = True,
+                     merge_head: bool = False, codes_pack=None):
+    """codes -> (mean NLL, accuracy), trunk op + head/CE op.
+
+    ``merge_head=True`` (the trunk and head merged in one kernel, JAX's
+    ``fused_stack_head_loss``) is not ported (ROADMAP.md B.6)."""
+    from movenet_tpu_torch.ops.head_loss import fused_head_loss
+
+    if merge_head:
+        raise NotImplementedError(
+            "merge_head=True (the merged trunk + head/CE kernel) is not "
+            "ported yet (ROADMAP.md B.6)")
+    b, t = codes.shape
+    if codes_pack is not None and tuple(codes_pack.shape) == (t, 3 * b):
+        pack3 = codes_pack.to(codes.device, torch.int32)
+    else:
+        pack3 = _codes_pack(codes, with_targets=True)
+    skip_sum = _fused_trunk(model, codes, video, labels, codes_pack=pack3)
+    loss_sum, match = fused_head_loss(
+        skip_sum, pack3, model.head1.kernel, model.head1.bias,
+        model.head2.kernel, model.head2.bias, model.receptive_fields,
+        parity, tgt_off=2 * b)
+    n_valid = b * (t - model.receptive_fields)
+    return loss_sum / n_valid, match / n_valid
+
+
+def fused_train_logits(model: WaveNet, codes: torch.Tensor,
+                       video: Optional[torch.Tensor] = None,
+                       labels: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """(B, T) codes -> (B, T-RF, C) float32 logits through the fused
+    trunk; the head runs in float32 torch ops."""
+    b, t = codes.shape
+    skip_sum = _fused_trunk(model, codes, video, labels)
+    y = torch.nn.functional.leaky_relu(skip_sum.to(torch.float32))
+    y = torch.matmul(y, model.head1.kernel) + model.head1.bias
+    logits = torch.matmul(torch.nn.functional.leaky_relu(y),
+                          model.head2.kernel) + model.head2.bias
+    return logits[:, model.receptive_fields - 1:-1, :]
+
+
+__all__ = ["supports_fused", "codes_pack_np", "fused_train_loss",
+           "fused_train_logits"]

@@ -5,7 +5,9 @@ parameter names and shapes, in the JAX (in, out) layout, so that one set
 of weights drives both packages (``models/convert.py``).  Every size-2
 dilated causal convolution is two matrix products and a time shift
 (``ops/conv.py``); activations are (batch, time, channels).  The port
-computes in float32 whatever ``compute_dtype`` the configuration names.
+computes in float32 whatever ``compute_dtype`` the configuration names,
+except on the fused training path (``models/fused.py``), which runs the
+video encoder and the trunk in the compute dtype as the JAX package does.
 
 Parity quirk kept: ``forward`` returns softmax probabilities by default
 (``output_unnormalized=True``), as the reference does.
@@ -128,24 +130,31 @@ class VideoEncoder(nn.Module):
                                generator)
                 getattr(self, f"upsample_{i}_bias").data.zero_()
 
-    def forward(self, video: torch.Tensor,
-                coarse: bool = False) -> torch.Tensor:
+    def forward(self, video: torch.Tensor, coarse: bool = False,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """``coarse=True`` stops before a final dense stride-10 stage and
-        returns the (B, T/10, R) features."""
+        returns the (B, T/10, R) features.  ``dtype``: every stage's
+        operands, result and bias in that type (flax ``Dense(dtype=...)``).
+        """
         b, f = video.shape[0], video.shape[1]
         r = self.residual_channels
-        x = self.frame_proj(video.reshape(b, f, -1).to(torch.float32))
+
+        def dense(mod, x):
+            return torch.matmul(x, mod.kernel.to(dtype)) + mod.bias.to(dtype)
+
+        x = dense(self.frame_proj, video.reshape(b, f, -1).to(dtype))
         n_stages = len(self.stages)
         for i, k, s_out in self.stages:
             if coarse and i == n_stages - 1 and k == UPSAMPLE_STRIDE:
                 return x
             if k == UPSAMPLE_STRIDE:
-                y = getattr(self, f"upsample_{i}")(x)
+                y = dense(getattr(self, f"upsample_{i}"), x)
                 x = y.reshape(b, x.shape[1] * k, r)
             else:
                 x = _conv_transpose_valid(
-                    x, getattr(self, f"upsample_{i}_kernel"),
-                    UPSAMPLE_STRIDE) + getattr(self, f"upsample_{i}_bias")
+                    x, getattr(self, f"upsample_{i}_kernel").to(dtype),
+                    UPSAMPLE_STRIDE) \
+                    + getattr(self, f"upsample_{i}_bias").to(dtype)
                 x = x[:, :s_out]
         return x
 
@@ -180,8 +189,16 @@ class WaveNet(nn.Module):
                  max_audio_frames: int = MAX_AUDIO_FRAMES,
                  max_video_frames: int = MAX_VIDEO_FRAMES,
                  global_classes: int = 0, use_context: bool = True,
+                 compute_dtype: str = "float32", remat: bool = False,
+                 fused_strategy: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        # read by the fused training path only (models/fused.py)
+        self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.fused_strategy = fused_strategy
+        self.max_audio_frames = max_audio_frames
+        self.max_video_frames = max_video_frames
         self.layer_size = layer_size
         self.stack_size = stack_size
         self.input_channels = c = input_channels
@@ -389,6 +406,23 @@ class WaveNet(nn.Module):
         logits = self._head(skip_sum)
         return buffers, logits[:, -1, :].to(torch.float32)
 
+    def init_all(self, audio: torch.Tensor,
+                 video: Optional[torch.Tensor] = None,
+                 labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Touches every submodule whatever the lengths, as the JAX
+        package's ``init_all`` does to build the whole parameter tree.
+        The port's modules own their parameters from construction, so
+        this only runs the video encoder, the global embedding and the
+        backbone once: (B, T, C) logits."""
+        ctx = None
+        if video is not None:
+            t = audio.shape[-1] if audio.ndim == 3 else audio.shape[1]
+            ctx = self.encode_video(video)[:, :t]
+        if labels is None and self.global_classes:
+            labels = torch.zeros(audio.shape[0], dtype=torch.long,
+                                 device=self.front_cur.device)
+        return self.backbone(audio, ctx, self.embed_global(labels))
+
     def compute_output_size(self, time_steps: int) -> int:
         return compute_output_size(time_steps, self.layer_size,
                                    self.stack_size)
@@ -408,6 +442,9 @@ def make_wavenet(model_config, device=None,
         max_video_frames=model_config.max_video_frames,
         global_classes=model_config.global_classes,
         use_context=getattr(model_config, "use_context", True),
+        compute_dtype=getattr(model_config, "compute_dtype", "float32"),
+        remat=getattr(model_config, "remat", False),
+        fused_strategy=getattr(model_config, "fused_strategy", None),
         generator=generator,
     )
     return model.to(device) if device is not None else model

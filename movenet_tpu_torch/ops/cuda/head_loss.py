@@ -1,0 +1,152 @@
+"""Head + cross-entropy kernels: wrappers and launch counts.
+
+``head_fwd`` and ``head_bwd`` are the wrappers of the kernels in
+``csrc/head_loss.cu`` (which replace ``head_loss.py:281 _fwd_kernel``
+and ``:336 _bwd_kernel``).  For tensors on the CPU they return the plain
+versions (``ops/head_loss.head_fwd_plain`` / ``head_bwd_plain``); for
+CUDA tensors they launch the kernels or raise.  Each call is one kernel
+launch and one launch of the fixed-order reduction of the per-block
+partial sums, and counts one launch in ``launch_counts``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from movenet_tpu_torch.ops import head_loss as hl
+from movenet_tpu_torch.ops.cuda.stack_kernel import _check, _ptr, _raise
+
+KERNEL_SOURCE = "movenet_tpu_torch/csrc/head_loss.cu"
+launch_counts: Dict[str, int] = {"head_fwd": 0, "head_bwd": 0}
+# blocks per launch: two per SM of an H100
+BLOCKS = 264
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def library():
+    global _lib
+    if _lib is None:
+        from movenet_tpu_torch.ops.cuda import build
+
+        _lib = bind(build.load("head_loss"))
+    return _lib
+
+
+def bind(lib):
+    lib.movenet_head_supports.argtypes = [_I, _I]
+    lib.movenet_head_supports.restype = _I
+    lib.movenet_head_fwd.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _P,
+                                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.movenet_head_fwd.restype = _I
+    lib.movenet_head_bwd.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _P]
+    lib.movenet_head_bwd.restype = _I
+    return lib
+
+
+def _common(lib, skip, pack, w1, b1, w2, tgt_off):
+    batch, t, s = skip.shape
+    c = w2.shape[1]
+    dev = skip.device
+    if skip.dtype != torch.bfloat16:
+        raise ValueError(
+            f"the head kernels take the bfloat16 compute dtype, got "
+            f"{skip.dtype}; float32 on the card is not built "
+            "(ROADMAP.md B.4)")
+    _check("skip", skip, torch.bfloat16, device=dev)
+    _check("targets_pack", pack, torch.int32, device=dev)
+    if pack.shape[0] != t or pack.shape[1] < tgt_off + batch:
+        raise ValueError(f"targets_pack has shape {tuple(pack.shape)}, "
+                         f"needs ({t}, >= {tgt_off + batch})")
+    _check("w1", w1, torch.float32, (s, c), dev)
+    _check("b1", b1, torch.float32, (c,), dev)
+    _check("w2", w2, torch.float32, (c, c), dev)
+    if not lib.movenet_head_supports(s, c):
+        raise NotImplementedError(
+            f"the head kernels take S, C <= 64, multiples of 4; got S={s}, "
+            f"C={c} (ROADMAP.md B.4)")
+    return batch, t, s, c, dev
+
+
+def run_fwd(lib, skip, pack, w1, b1, w2, b2, rf, parity, tgt_off=0,
+            save_p=True, stream=None, blocks=BLOCKS):
+    batch, t, s, c, dev = _common(lib, skip, pack, w1, b1, w2, tgt_off)
+    _check("b2", b2, torch.float32, (c,), dev)
+    p = torch.empty(batch, t, c, dtype=torch.float32, device=dev) \
+        if save_p else None
+    part = torch.empty(blocks, 2, dtype=torch.float32, device=dev)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    err = lib.movenet_head_fwd(
+        _ptr(skip), _ptr(pack), pack.shape[1], tgt_off, _ptr(w1), _ptr(b1),
+        _ptr(w2), _ptr(b2), _ptr(p), _ptr(part), _ptr(out), batch, t, s, c,
+        rf, int(parity), blocks, stream)
+    _raise(err, "head_fwd")
+    return out[0], out[1], p
+
+
+def run_bwd(lib, skip, pack, p, w1, b1, w2, b2, rf, parity, dloss,
+            tgt_off=0, stream=None, blocks=BLOCKS):
+    batch, t, s, c, dev = _common(lib, skip, pack, w1, b1, w2, tgt_off)
+    _check("p", p, torch.float32, (batch, t, c), dev)
+    dloss = torch.as_tensor(dloss, dtype=torch.float32,
+                            device=dev).reshape(1).contiguous()
+    dskip = torch.empty_like(skip)
+    n = s * c + c * c + 2 * c
+    part = torch.empty(blocks, n, dtype=torch.float32, device=dev)
+    grads = torch.empty(n, dtype=torch.float32, device=dev)
+    err = lib.movenet_head_bwd(
+        _ptr(skip), _ptr(pack), pack.shape[1], tgt_off, _ptr(p), _ptr(w1),
+        _ptr(b1), _ptr(w2), _ptr(dloss), _ptr(dskip), _ptr(part),
+        _ptr(grads), batch, t, s, c, rf, int(parity), blocks, stream)
+    _raise(err, "head_bwd")
+    dw1 = grads[:s * c].reshape(s, c)
+    db1 = grads[s * c:s * c + c]
+    dw2 = grads[s * c + c:s * c + c + c * c].reshape(c, c)
+    db2 = grads[s * c + c + c * c:]
+    return dskip, dw1, db1, dw2, db2
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def head_fwd(skip, pack, w1, b1, w2, b2, rf: int, parity: bool,
+             tgt_off: int = 0, save_p: bool = True):
+    """(loss_sum, match_count, p or None): plain on the CPU, the forward
+    kernel on CUDA tensors."""
+    if not skip.is_cuda:
+        return hl.head_fwd_plain(skip, pack, w1, b1, w2, b2, rf, parity,
+                                 tgt_off, save_p)
+    out = run_fwd(library(), skip, pack, w1, b1, w2, b2, rf, parity,
+                  tgt_off, save_p, _stream(skip))
+    launch_counts["head_fwd"] += 1
+    return out
+
+
+def head_bwd(skip, pack, p, w1, b1, w2, b2, rf: int, parity: bool, dloss,
+             tgt_off: int = 0):
+    """(dskip, dw1, db1, dw2, db2): plain on the CPU, the backward kernel
+    on CUDA tensors."""
+    if not skip.is_cuda:
+        return hl.head_bwd_plain(skip, pack, p, w1, b1, w2, b2, rf, parity,
+                                 dloss, tgt_off)
+    out = run_bwd(library(), skip, pack, p, w1, b1, w2, b2, rf, parity,
+                  dloss, tgt_off, _stream(skip))
+    launch_counts["head_bwd"] += 1
+    return out
+
+
+__all__ = ["head_fwd", "head_bwd", "launch_counts", "reset_launch_counts",
+           "KERNEL_SOURCE"]

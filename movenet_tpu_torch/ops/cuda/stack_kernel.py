@@ -1,0 +1,239 @@
+"""Whole-stack trunk kernels: wrappers and launch counts.
+
+``stack_fwd`` and ``stack_bwd`` are the wrappers of the forward and
+backward kernels in ``csrc/stack_kernel.cu`` (which replace
+``stack_kernel.py:280 _fwd_kernel`` and ``:1486 _bwd_kernel_padded``).
+For tensors on the CPU they return the plain versions
+(``ops/stack_kernel.stack_fwd_plain`` / ``stack_bwd_plain``); for CUDA
+tensors they launch the kernels or raise.  One call of ``stack_fwd`` is
+L+1 grid launches (the embedding, then one per layer); one call of
+``stack_bwd`` is 5L+2 (plus 3 with the video projection): per layer the
+layer launch and two weight-gradient launches with their reductions.
+Each call counts one launch in ``launch_counts``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence
+
+import torch
+
+from movenet_tpu_torch.ops import stack_kernel as sk
+
+KERNEL_SOURCE = "movenet_tpu_torch/csrc/stack_kernel.cu"
+# kernel calls by wrapper, counted where the kernels launch
+launch_counts: Dict[str, int] = {"stack_fwd": 0, "stack_bwd": 0}
+# blocks of the time-reduction launches: two per SM of an H100
+REDUCE_BLOCKS = 264
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_long
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def library():
+    """The built kernel library (nvcc at first use), argtypes set."""
+    global _lib
+    if _lib is None:
+        from movenet_tpu_torch.ops.cuda import build
+
+        _lib = bind(build.load("stack_kernel"))
+    return _lib
+
+
+def bind(lib):
+    lib.movenet_stack_supports.argtypes = [_I, _I]
+    lib.movenet_stack_supports.restype = _I
+    lib.movenet_stack_bwd_scratch.argtypes = [_I, _I, _I, _I, _I, _I, _I,
+                                              _I]
+    lib.movenet_stack_bwd_scratch.restype = _L
+    lib.movenet_stack_fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _P,
+                                      _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _P]
+    lib.movenet_stack_fwd.restype = _I
+    lib.movenet_stack_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                      _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _P]
+    lib.movenet_stack_bwd.restype = _I
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(name, t, dtype, shape=None, device=None):
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}, the kernel takes {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, not {device}")
+
+
+def _raise(err: int, what: str):
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _dils(dilations: Sequence[int]):
+    return (ctypes.c_int * len(dilations))(*dilations)
+
+
+def _fwd_check(pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
+               batch):
+    t = pack.shape[0]
+    n_layers, r = len(dilations), table2.shape[1]
+    s = w_out.shape[2] - r
+    dev = table2.device
+    if table2.dtype != torch.bfloat16:
+        raise ValueError(
+            f"the trunk kernels take the bfloat16 compute dtype, got "
+            f"{table2.dtype}; float32 on the card is not built "
+            "(ROADMAP.md B.2)")
+    _check("codes_pack", pack, torch.int32, device=dev)
+    if pack.shape[1] < 2 * batch:
+        raise ValueError(f"codes_pack has {pack.shape[1]} columns, needs "
+                         f">= {2 * batch}")
+    _check("table2", table2, torch.bfloat16, device=dev)
+    win = (3 if ctx is not None else 2) * r
+    if ctx is not None:
+        _check("ctx", ctx, torch.bfloat16, (batch, t, r), dev)
+    _check("b_fg", b_fg, torch.float32, (n_layers * batch, 2 * r), dev)
+    _check("w_fg", w_fg, torch.float32, (n_layers, win, 2 * r), dev)
+    _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
+    _check("b_out", b_out, torch.float32, (n_layers, r + s), dev)
+    return t, n_layers, r, s
+
+
+def run_fwd(lib, pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
+            batch, stream=None):
+    """Launch the forward on given tensors (outputs allocated here)."""
+    t, n_layers, r, s = _fwd_check(pack, table2, ctx, b_fg, w_fg, w_out,
+                                   b_out, dilations, batch)
+    if not lib.movenet_stack_supports(r, s):
+        raise NotImplementedError(
+            f"the trunk kernels are built for (R, S) in (16, 16), (32, "
+            f"32), (64, 64), (64, 8); got ({r}, {s})")
+    dev, bf = table2.device, torch.bfloat16
+    m = batch * t
+    h = torch.empty(m, r, dtype=torch.float32, device=dev)
+    skacc = torch.empty(m, s, dtype=torch.float32, device=dev)
+    hsave = torch.empty(n_layers, batch, t, r, dtype=bf, device=dev)
+    tfsg = torch.empty(n_layers, batch, t, 2 * r, dtype=bf, device=dev)
+    skip = torch.empty(batch, t, s, dtype=bf, device=dev)
+    err = lib.movenet_stack_fwd(
+        _ptr(pack), pack.shape[1], _ptr(table2), table2.shape[0] // 2,
+        _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
+        _dils(dilations), _ptr(h), _ptr(skacc), _ptr(hsave), _ptr(tfsg),
+        _ptr(skip), batch, t, n_layers, r, s, stream)
+    _raise(err, "stack_fwd")
+    return skip, hsave, tfsg
+
+
+def run_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab,
+            dilations, proj=None, stream=None):
+    """Launch the backward on given tensors (outputs allocated here);
+    same returns as ``stack_bwd_plain``."""
+    n_layers, batch, t, two_r = tfsg.shape
+    r = two_r // 2
+    s = w_out.shape[2] - r
+    dev = tfsg.device
+    win = (3 if ctx is not None else 2) * r
+    _check("hsave", hsave, torch.bfloat16, (n_layers, batch, t, r), dev)
+    _check("tfsg", tfsg, torch.bfloat16, device=dev)
+    if ctx is not None:
+        _check("ctx", ctx, torch.bfloat16, (batch, t, r), dev)
+    _check("w_fg", w_fg, torch.float32, (n_layers, win, 2 * r), dev)
+    _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
+    _check("dskip", dskip, torch.bfloat16, (batch, t, s), dev)
+    _check("codes_pack", pack, torch.int32, device=dev)
+    if not lib.movenet_stack_supports(r, s):
+        raise NotImplementedError(
+            f"the trunk kernels are not built for (R, S) = ({r}, {s})")
+    xc = wup = None
+    if proj is not None:
+        xc, wup_t = proj
+        _check("xc", xc, torch.bfloat16, (batch, t // 10, r), dev)
+        # the kernel reads the projection in its (R, 10R) layout
+        wup = wup_t.permute(2, 0, 1).reshape(r, 10 * r).contiguous()
+        _check("wup", wup, torch.float32, device=dev)
+    chunks = max(1, REDUCE_BLOCKS // batch)
+    embed_blocks = REDUCE_BLOCKS
+    f32 = torch.float32
+    n_scratch = lib.movenet_stack_bwd_scratch(batch, t, r, s, win, chunks,
+                                              vocab, embed_blocks)
+    scratch = torch.empty(n_scratch, dtype=f32, device=dev)
+    dtab = torch.empty(2 * vocab, r, dtype=f32, device=dev)
+    dctx = None
+    if proj is not None:
+        dctx = torch.empty(batch, t // 10, r, dtype=torch.bfloat16,
+                           device=dev)
+    elif ctx is not None:
+        dctx = torch.empty(batch, t, r, dtype=torch.bfloat16, device=dev)
+    db_fg = torch.empty(n_layers * batch, 2 * r, dtype=f32, device=dev)
+    dw_fg = torch.empty(n_layers, win, 2 * r, dtype=f32, device=dev)
+    dw_out = torch.empty(n_layers, r, r + s, dtype=f32, device=dev)
+    db_out = torch.empty(n_layers, r + s, dtype=f32, device=dev)
+    dwup = dbup = None
+    if proj is not None:
+        dwup = torch.empty(r, 10 * r, dtype=f32, device=dev)
+        dbup = torch.empty(10 * r, dtype=f32, device=dev)
+    err = lib.movenet_stack_bwd(
+        _ptr(hsave), _ptr(tfsg), _ptr(ctx), _ptr(w_fg), _ptr(w_out),
+        _ptr(dskip), _ptr(pack), pack.shape[1], vocab, _dils(dilations),
+        _ptr(xc), _ptr(wup), _ptr(scratch), chunks, _ptr(dtab), _ptr(dctx),
+        _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), _ptr(dwup),
+        _ptr(dbup), batch, t, n_layers, r, s, embed_blocks, stream)
+    _raise(err, "stack_bwd")
+    dwup_aug = None
+    if proj is not None:
+        dwup_aug = torch.cat(
+            [dwup.reshape(r, 10, r).permute(1, 0, 2),
+             dbup.reshape(10, 1, r)], dim=1)
+    return dtab, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def stack_fwd(pack, table2, ctx, b_fg, w_fg, w_out, b_out,
+              dilations: Sequence[int], batch: int):
+    """(skip_sum, hsave, tfsg): the plain version for CPU tensors, the
+    forward kernels for CUDA tensors."""
+    if not table2.is_cuda:
+        return sk.stack_fwd_plain(pack, table2, ctx, b_fg, w_fg, w_out,
+                                  b_out, dilations, batch)
+    out = run_fwd(library(), pack, table2, ctx, b_fg, w_fg, w_out, b_out,
+                  dilations, batch, _stream(table2))
+    launch_counts["stack_fwd"] += 1
+    return out
+
+
+def stack_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab: int,
+              dilations: Sequence[int], proj=None):
+    """The backward: the plain version for CPU tensors, the backward
+    kernels for CUDA tensors (returns as ``stack_bwd_plain``)."""
+    if not tfsg.is_cuda:
+        return sk.stack_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, dskip,
+                                  pack, vocab, dilations, proj)
+    out = run_bwd(library(), hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
+                  vocab, dilations, proj, _stream(tfsg))
+    launch_counts["stack_bwd"] += 1
+    return out
+
+
+__all__ = ["stack_fwd", "stack_bwd", "launch_counts",
+           "reset_launch_counts", "KERNEL_SOURCE"]

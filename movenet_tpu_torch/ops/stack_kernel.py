@@ -1,0 +1,396 @@
+"""Whole-stack WaveNet trunk of the training path: geometry, plain
+versions and the autograd op.
+
+The counterpart of ``movenet_tpu.ops.pallas.stack_kernel`` for the
+"save" strategy with the front embedding folded in
+(``fused_stack_embed``).  The forward runs every gated block over the
+whole sequence and keeps each layer's input ``hsave`` (L, B, T, R) and
+its packed gating taps ``tfsg`` = [tanh f | sigmoid g] (L, B, T, 2R) for
+the backward, both in the compute dtype.  The kernels live in
+``csrc/stack_kernel.cu`` behind ``ops/cuda/stack_kernel.py``; tensors on
+the CPU take the plain versions here, ``stack_fwd_plain`` and
+``stack_bwd_plain``, which compute the same function with torch ops over
+whole sequences.
+
+Numerics are the TPU kernels' (stack_kernel.py:280 and :1486):
+
+  forward   the residual stream h stays float32; every product has its
+            operands rounded to the compute dtype and sums in float32;
+            the embedded h is rounded; the taps are stored rounded and
+            ``gated`` is formed from the rounded taps; biases are added
+            in float32 after each product; the skip sum accumulates in
+            float32 and is stored rounded;
+  backward  every product has float32 operands (the stored activations
+            widen exactly); the bias gradients are the column sums of
+            the same operands; the stride-10 video projection's backward
+            splits dctx into (T/10, 10, R) phases; dxc and a flat dctx
+            are stored in the compute dtype.
+
+The TPU forward's per-tile ring snapshots (``tails``) are not kept: in
+the save strategy ``hsave`` holds those rows.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+UPSAMPLE_STRIDE = 10
+# hsave above this many bytes makes the auto strategy pick "recompute"
+_SAVE_ALL_BUDGET_BYTES = 1 << 30
+# the front embedding is folded into the kernel up to this 2V
+EMBED_MAX_2V = 512
+
+
+# ------------------------------------------------------------ geometry
+def pick_stack_tile(t: int, dilations, ctx: bool = False) -> int:
+    """The JAX package's common time tile (MOVENET_STACK_TILE first).
+
+    The port's kernels do not tile by it; it decides, as in the JAX
+    package, which VJP strategy applies and whether the video projection
+    may travel as the coarse triple (``models/fused._ctx_proj_tile_ok``),
+    so that both packages take the same path on the same shapes."""
+    prefer = (1600, 2000, 4000, 1000, 800, 512, 500, 400, 256, 200,
+              128, 64, 32, 16, 8)
+    want = int(os.environ.get("MOVENET_STACK_TILE", "0"))
+    if want:
+        prefer = (want,) + prefer
+    passes = (True, False) if ctx else (False,)
+    for need80 in passes:
+        for tile in prefer:
+            if t % tile or tile % 8:
+                continue
+            if need80 and tile % 80:
+                continue
+            if all(d < tile or d % tile == 0 for d in dilations):
+                return tile
+    raise ValueError(f"no stack tile for T={t}, dilations={dilations}")
+
+
+def _ring_offsets(dilations):
+    offs, total = [], 0
+    for d in dilations:
+        offs.append(total)
+        total += d
+    return offs, total
+
+
+def _split_ring_offsets(dilations, tile: int):
+    """Ring offsets with the d < tile layers first; (offs, small_total,
+    total)."""
+    order = [l for l, d in enumerate(dilations) if d < tile] + \
+            [l for l, d in enumerate(dilations) if d >= tile]
+    offs, tot = [0] * len(dilations), 0
+    for l in order:
+        offs[l] = tot
+        tot += dilations[l]
+    small_total = sum(d for d in dilations if d < tile)
+    return offs, small_total, tot
+
+
+def supports_recompute(t: int, dilations) -> bool:
+    """The tails-recompute VJP needs every dilation inside one tile."""
+    try:
+        tile = pick_stack_tile(t, dilations)
+    except ValueError:
+        return False
+    return all(d < tile for d in dilations)
+
+
+def resolve_strategy(strategy: str, x_shape, n_layers: int,
+                     dilations, itemsize: int = 2) -> str:
+    """"save", "recompute" or "replay", as the JAX package picks it:
+    "auto" saves unless hsave exceeds 1 GiB and recompute applies."""
+    if strategy not in ("auto", "save", "recompute", "replay"):
+        raise ValueError(f"unknown fused_stack strategy: {strategy!r}")
+    b, t, r = x_shape
+    can_recompute = supports_recompute(t, dilations)
+    if strategy in ("recompute", "replay"):
+        if not can_recompute:
+            raise ValueError(
+                f"{strategy} strategy needs every dilation inside one "
+                f"tile (T={t}, dilations={tuple(dilations)})")
+        return strategy
+    if strategy == "save":
+        return "save"
+    hsave_bytes = n_layers * b * t * r * itemsize
+    if can_recompute and hsave_bytes > _SAVE_ALL_BUDGET_BYTES:
+        return "recompute"
+    return "save"
+
+
+# -------------------------------------------------------- embedding
+def _embed_onehot(pack: torch.Tensor, batch: int, vocab: int
+                  ) -> torch.Tensor:
+    """(B, T, 2V) float32 packed causal-embedding one-hot: the current
+    code's one-hot in columns [0, V), the previous code's in [V, 2V).
+    Codes outside [0, V) (the -1 that marks t=0) give zero rows."""
+    codes = pack[:, :batch].t().long()
+    prev = pack[:, batch:2 * batch].t().long()
+
+    def onehot(c):
+        ok = (c >= 0) & (c < vocab)
+        return F.one_hot(torch.where(ok, c, 0), vocab).to(torch.float32) \
+            * ok[..., None].to(torch.float32)
+
+    return torch.cat([onehot(codes), onehot(prev)], dim=-1)
+
+
+def _embed(pack: torch.Tensor, table2: torch.Tensor, batch: int
+           ) -> torch.Tensor:
+    """h[b, t] = cur[codes[b, t]] + past[codes[b, t-1]] in float32."""
+    vocab = table2.shape[0] // 2
+    tab = table2.to(torch.float32)
+    codes = pack[:, :batch].t().long()
+    prev = pack[:, batch:2 * batch].t().long()
+    ok_c = ((codes >= 0) & (codes < vocab))[..., None]
+    ok_p = ((prev >= 0) & (prev < vocab))[..., None]
+    cur = torch.where(ok_c, tab[codes.clamp(0, vocab - 1)], 0.0)
+    past = torch.where(ok_p, tab[vocab + prev.clamp(0, vocab - 1)], 0.0)
+    return cur + past
+
+
+# ------------------------------------------------------- ctx projection
+def ctx_is_proj(ctx) -> bool:
+    """True when ctx is the (xc, wup, bup) coarse-projection triple."""
+    return isinstance(ctx, (tuple, list)) and len(ctx) == 3
+
+
+def ctx_flatten(ctx, dtype) -> torch.Tensor:
+    """(xc, wup, bup) -> flat (B, T, R) conditioning in ``dtype``, the
+    VideoEncoder's final dense stage and reshape."""
+    xc, wup, bup = ctx
+    b, tc, r = xc.shape
+    z = torch.matmul(xc.to(dtype), wup.to(dtype)) + bup.to(dtype)
+    return z.reshape(b, tc * UPSAMPLE_STRIDE, r)
+
+
+def _ctx_proj_args(ctx):
+    """(xc, wup_t) from the triple; wup_t (10, R, R) holds each phase's
+    transposed projection W_p^T."""
+    xc, wup, _ = ctx
+    r = xc.shape[-1]
+    wup_t = wup.reshape(r, UPSAMPLE_STRIDE, r).permute(1, 2, 0)
+    return xc, wup_t.contiguous()
+
+
+def _ctx_proj_grads(dwup_aug, ctx):
+    """(10, R+1, R) ones-augmented grad -> (dwup, dbup) in the shapes
+    (and dtypes) of the triple's Dense parameters."""
+    xc, wup, bup = ctx
+    r = xc.shape[-1]
+    dwup = dwup_aug[:, :r, :].permute(1, 0, 2).reshape(
+        r, UPSAMPLE_STRIDE * r)
+    dbup = dwup_aug[:, r, :].reshape(UPSAMPLE_STRIDE * r)
+    return dwup.to(wup.dtype), dbup.to(bup.dtype)
+
+
+# ------------------------------------------------------ plain versions
+def _shift(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x[:, t-d] along time (dim 1), zero for t < d."""
+    if d >= x.shape[1]:
+        return torch.zeros_like(x)
+    return F.pad(x, (0, 0, d, 0))[:, :x.shape[1]]
+
+
+def _unshift(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x[:, t+d] along time (dim 1), zero for t + d >= T."""
+    if d >= x.shape[1]:
+        return torch.zeros_like(x)
+    return F.pad(x[:, d:], (0, 0, 0, d))
+
+
+def stack_fwd_plain(pack, table2, ctx, b_fg, w_fg, w_out, b_out,
+                    dilations: Sequence[int], batch: int):
+    """(skip_sum (B,T,S), hsave (L,B,T,R), tfsg (L,B,T,2R)), all in
+    table2's dtype (the compute dtype); ctx is None or flat (B,T,R)."""
+    dt = table2.dtype
+
+    def rnd(x):
+        return x.to(dt).to(torch.float32)
+
+    r = table2.shape[1]
+    n_layers = len(dilations)
+    bfg = b_fg.to(torch.float32).reshape(n_layers, batch, 1, 2 * r)
+    ctxf = ctx.to(torch.float32) if ctx is not None else None
+    h = rnd(_embed(pack, table2, batch))
+    skip = None
+    hsave, tfsg = [], []
+    for l, d in enumerate(dilations):
+        hr = rnd(h)
+        hsave.append(hr.to(dt))
+        parts = [hr, rnd(_shift(h, d))] + ([ctxf] if ctxf is not None
+                                            else [])
+        fg = torch.matmul(torch.cat(parts, dim=-1), rnd(w_fg[l])) + bfg[l]
+        v = rnd(torch.cat([torch.tanh(fg[..., :r]),
+                           torch.sigmoid(fg[..., r:])], dim=-1))
+        tfsg.append(v.to(dt))
+        gated = v[..., :r] * v[..., r:]
+        out = torch.matmul(rnd(gated), rnd(w_out[l])) \
+            + b_out[l].to(torch.float32)
+        skip = out[..., r:] if skip is None else skip + out[..., r:]
+        h = out[..., :r] + h
+    return skip.to(dt), torch.stack(hsave), torch.stack(tfsg)
+
+
+def stack_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
+                    vocab: int, dilations: Sequence[int], proj=None):
+    """The backward of ``stack_fwd_plain`` from its saved tensors.
+
+    ``proj`` = (xc, wup_t) folds the stride-10 projection's backward in.
+    Returns (dtab (2V, R), dctx, db_fg (L*B, 2R), dw_fg (L, W_in, 2R),
+    dw_out (L, R, R+S), db_out (L, R+S), dwup_aug (10, R+1, R) or None),
+    float32 except dctx: flat (B, T, R) or coarse dxc (B, T/10, R) in the
+    compute dtype, or None without ctx."""
+    dt = tfsg.dtype
+    n_layers, batch, t, two_r = tfsg.shape
+    r = two_r // 2
+    f32 = torch.float32
+    ctxf = ctx.to(f32) if ctx is not None else None
+    dsk = dskip.to(f32)
+    dh = torch.zeros(batch, t, r, dtype=f32, device=tfsg.device)
+    dctx = torch.zeros_like(dh) if ctx is not None else None
+    db_fg = torch.zeros(n_layers, batch, two_r, dtype=f32,
+                        device=tfsg.device)
+    dw_fg, dw_out, db_out = [None] * n_layers, [None] * n_layers, \
+        [None] * n_layers
+    for l in reversed(range(n_layers)):
+        d = dilations[l]
+        h = hsave[l].to(f32)
+        parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
+        hp = torch.cat(parts, dim=-1)
+        v = tfsg[l].to(f32)
+        tf, sg = v[..., :r], v[..., r:]
+        dout = torch.cat([dh, dsk], dim=-1)
+        dgated = torch.matmul(dout, w_out[l].to(f32).t())
+        dfg = torch.cat([dgated * (sg * (1.0 - tf * tf)),
+                         dgated * (tf * (sg - sg * sg))], dim=-1)
+        gated = tf * sg
+        dw_fg[l] = torch.einsum("btk,btj->kj", hp, dfg)
+        db_fg[l] = dfg.sum(dim=1)
+        dw_out[l] = torch.einsum("btk,btj->kj", gated, dout)
+        db_out[l] = dout.sum(dim=(0, 1))
+        dfg_w = torch.matmul(dfg, w_fg[l].to(f32).t())
+        dh = dh + dfg_w[..., :r] + _unshift(dfg_w[..., r:2 * r], d)
+        if dctx is not None:
+            dctx = dctx + dfg_w[..., 2 * r:]
+    onehot = _embed_onehot(pack, batch, vocab)
+    dtab = torch.einsum("btv,btr->vr", onehot, dh)
+    dwup_aug = None
+    if proj is not None:
+        xc, wup_t = proj
+        tc = t // UPSAMPLE_STRIDE
+        dz = dctx.reshape(batch, tc, UPSAMPLE_STRIDE, r)
+        xc1 = torch.cat([xc.to(f32),
+                         torch.ones(batch, tc, 1, dtype=f32,
+                                    device=xc.device)], dim=-1)
+        dwup_aug = torch.einsum("bqe,bqpr->per", xc1, dz)
+        dxc = torch.einsum("bqpj,pje->bqe", dz, wup_t.to(f32))
+        dctx_out = dxc.to(dt)
+    else:
+        dctx_out = dctx.to(dt) if dctx is not None else None
+    return (dtab, dctx_out, db_fg.reshape(n_layers * batch, two_r),
+            torch.stack(dw_fg), torch.stack(dw_out), torch.stack(db_out),
+            dwup_aug)
+
+
+# ------------------------------------------------------- autograd op
+class _FusedStackEmbed(torch.autograd.Function):
+    """skip_sum = trunk(embed(pack)) with every gradient from the
+    backward kernel; inputs after the pack may be None (no ctx, or the
+    flat ctx instead of the triple)."""
+
+    @staticmethod
+    def forward(fctx, pack, table2, ctx_flat, xc, wup, bup, b_fg, w_fg,
+                w_out, b_out, dilations, batch):
+        from movenet_tpu_torch.ops.cuda import stack_kernel as kern
+
+        proj = xc is not None
+        if proj:
+            ctx_flat = ctx_flatten((xc, wup, bup), table2.dtype)
+        skip, hsave, tfsg = kern.stack_fwd(
+            pack, table2, ctx_flat, b_fg, w_fg, w_out, b_out, dilations,
+            batch)
+        fctx.dilations = tuple(dilations)
+        fctx.proj = proj
+        fctx.has_ctx = ctx_flat is not None
+        fctx.vocab = table2.shape[0] // 2
+        fctx.save_for_backward(hsave, tfsg, ctx_flat, w_fg, w_out, pack,
+                               table2, xc, wup, bup)
+        return skip
+
+    @staticmethod
+    def backward(fctx, dskip):
+        from movenet_tpu_torch.ops.cuda import stack_kernel as kern
+
+        (hsave, tfsg, ctx_flat, w_fg, w_out, pack, table2, xc, wup,
+         bup) = fctx.saved_tensors
+        proj = _ctx_proj_args((xc, wup, bup)) if fctx.proj else None
+        dtab, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug = \
+            kern.stack_bwd(hsave, tfsg, ctx_flat, w_fg, w_out,
+                           dskip.contiguous(), pack, fctx.vocab,
+                           fctx.dilations, proj)
+        d_flat = d_xc = d_wup = d_bup = None
+        if fctx.proj:
+            d_xc = dctx.to(xc.dtype)
+            d_wup, d_bup = _ctx_proj_grads(dwup_aug, (xc, wup, bup))
+        elif fctx.has_ctx:
+            d_flat = dctx.to(ctx_flat.dtype)
+        return (None, dtab.to(table2.dtype), d_flat, d_xc, d_wup, d_bup,
+                db_fg, dw_fg.to(w_fg.dtype), dw_out.to(w_out.dtype),
+                db_out, None, None)
+
+
+def fused_stack_embed(codes_pack: torch.Tensor, table2: torch.Tensor,
+                      ctx, b_fg, w_fg, w_out, b_out,
+                      dilations: Sequence[int],
+                      strategy: str = "auto") -> torch.Tensor:
+    """All gated blocks with the front embedding folded in (the JAX
+    package's ``fused_stack_embed``, save strategy).
+
+    Args:
+      codes_pack: (T, kB) int, k >= 2: column b holds codes[b], column
+        B + b codes[b] shifted one step right with -1 at t = 0 (extra
+        columns, such as CE targets, are ignored).
+      table2: (2V, R) stacked [front_cur; front_past] in the compute
+        dtype, which every output takes.
+      ctx: None, flat (B, T, R) in the compute dtype, or the projection
+        triple (xc (B, T/10, R), wup (R, 10R), bup (10R,)).
+      b_fg: (L*B, 2R) per-(layer, batch) fg bias rows; w_fg (L, 2R|3R,
+        2R); w_out (L, R, R+S); b_out (L, R+S), all float32.
+    Returns:
+      skip_sum (B, T, S) in the compute dtype.
+    """
+    n_layers = w_fg.shape[0]
+    batch = b_fg.shape[0] // n_layers
+    t, r = codes_pack.shape[0], table2.shape[1]
+    if table2.shape[0] > EMBED_MAX_2V:
+        raise NotImplementedError(
+            f"2V = {table2.shape[0]} > {EMBED_MAX_2V}: the non-embed "
+            "fused_stack (front embedding outside the kernel) is not "
+            "ported yet (ROADMAP.md B.2)")
+    mode = resolve_strategy(strategy, (batch, t, r), n_layers, dilations,
+                            table2.element_size())
+    if mode != "save":
+        raise NotImplementedError(
+            f"fused_stack strategy {mode!r} is not ported yet; only "
+            "'save' is (ROADMAP.md B.5)")
+    xc = wup = bup = ctx_flat = None
+    if ctx_is_proj(ctx):
+        xc, wup, bup = ctx
+    else:
+        ctx_flat = ctx
+    return _FusedStackEmbed.apply(codes_pack, table2, ctx_flat, xc, wup,
+                                  bup, b_fg, w_fg, w_out, b_out,
+                                  tuple(dilations), batch)
+
+
+__all__ = [
+    "pick_stack_tile", "supports_recompute", "resolve_strategy",
+    "ctx_is_proj", "ctx_flatten", "stack_fwd_plain", "stack_bwd_plain",
+    "fused_stack_embed",
+]
+

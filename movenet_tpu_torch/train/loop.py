@@ -1,0 +1,184 @@
+"""Train and eval steps.
+
+The counterpart of ``movenet_tpu.train.loop``.  The loss is the
+reference's cross-entropy on the model's softmax output (the parity
+quirk, ``parity_softmax_output``) or on the logits, over the targets
+``codes[:, RF:]``, with first-argmax accuracy.  With
+``config.fused_blocks`` the loss runs through the fused trunk and
+head/CE ops (``models/fused.fused_train_loss``): CUDA kernels for a
+model on the card, their plain versions on the CPU.  Without it the
+unfused ``WaveNet.train_logits`` runs in float32.
+
+A step takes the mean of the microbatch gradients
+(``accumulation_steps``), measures their global norm before clipping,
+clips by optax's rule and applies one optimizer update.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields, replace
+from typing import Callable, Optional
+
+import torch
+
+from movenet_tpu_torch.models.wavenet import WaveNet
+from movenet_tpu_torch.train.optim import (
+    clip_by_global_norm,
+    global_norm,
+    make_optimizer,
+)
+
+
+@dataclass
+class Batch:
+    """int mu-law codes (B, T), optional video (B, F, H, W, C), class
+    labels (B,) and the fused path's (T, 3B) int32 codes pack
+    (``models.fused.codes_pack_np``).  With accumulation every field has
+    a leading (accumulation_steps,) axis."""
+
+    codes: torch.Tensor
+    video: Optional[torch.Tensor] = None
+    labels: Optional[torch.Tensor] = None
+    codes_pack: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "Batch":
+        return Batch(**{f.name: None if getattr(self, f.name) is None
+                        else torch.as_tensor(getattr(self, f.name)).to(
+                            device, non_blocking=True)
+                        for f in fields(self)})
+
+    def micro(self, i: int) -> "Batch":
+        return Batch(**{f.name: None if getattr(self, f.name) is None
+                        else getattr(self, f.name)[i]
+                        for f in fields(self)})
+
+
+@dataclass
+class TrainState:
+    """The module (its parameters), the optimizer, the update count and
+    the LR schedule (None: constant, no ``learning_rate`` metric)."""
+
+    module: WaveNet
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    lr_schedule: Optional[Callable] = None
+
+
+def create_train_state(model: WaveNet, config, optimizer=None,
+                       lr_schedule=None, device="cuda") -> TrainState:
+    """Moves the model to ``device`` (the card unless the caller asks for
+    the CPU; no card raises) and builds ``make_optimizer(config)``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is "
+            "available (pass device='cpu' to train on the CPU)")
+    model = model.to(device)
+    if optimizer is None:
+        optimizer = make_optimizer(config, model.parameters())
+    return TrainState(module=model, optimizer=optimizer, step=0,
+                      lr_schedule=lr_schedule)
+
+
+def _use_fused(config) -> bool:
+    return bool(getattr(config, "fused_blocks", False))
+
+
+def _loss_and_metrics(model: WaveNet, parity: bool, fused: bool = False):
+    rf = model.receptive_fields
+
+    def fn(batch: Batch):
+        labels = batch.labels if model.global_classes else None
+        if fused:
+            from movenet_tpu_torch.models.fused import fused_train_loss
+
+            return fused_train_loss(model, batch.codes, batch.video, labels,
+                                    parity=parity,
+                                    codes_pack=batch.codes_pack)
+        logits = model.train_logits(batch.codes, batch.video, labels)
+        logits = logits.to(torch.float32)          # (B, T-RF, C)
+        targets = batch.codes[:, rf:].long()
+        tgt = targets[..., None]
+        if parity:
+            # CE on the softmax probabilities: lse(p) - p[y]
+            probs = torch.softmax(logits, dim=-1)
+            nll = torch.logsumexp(probs, dim=-1, keepdim=True) \
+                - torch.gather(probs, -1, tgt)
+        else:
+            nll = torch.logsumexp(logits, dim=-1, keepdim=True) \
+                - torch.gather(logits, -1, tgt)
+        loss = nll.mean()
+        acc = (logits.argmax(-1) == targets).to(torch.float32).mean()
+        return loss, acc
+
+    return fn
+
+
+def _build_loss(model: WaveNet, config):
+    return _loss_and_metrics(model,
+                             config.model_config.parity_softmax_output,
+                             fused=_use_fused(config))
+
+
+def make_train_step(model: WaveNet, config):
+    """``train_step(state, batch) -> (state, metrics)``.
+
+    accumulation_steps == 1: batch fields are (B, ...); > 1: (A, B, ...),
+    and the update uses the mean of the A microbatch gradients.  Metrics
+    are 0-dim tensors on the model's device: ``loss``, ``accuracy``,
+    ``grad_norm`` (before clipping) and, with a schedule,
+    ``learning_rate``."""
+    accum = config.accumulation_steps
+    clip = config.gradient_clipping
+    loss_fn = _build_loss(model, config)
+
+    def train_step(state: TrainState, batch: Batch):
+        module = state.module
+        device = module.front_cur.device
+        batch = batch.to(device)
+        params = [p for p in module.parameters() if p.requires_grad]
+        state.optimizer.zero_grad(set_to_none=True)
+        if accum <= 1:
+            loss, acc = loss_fn(batch)
+            loss.backward()
+        else:
+            loss = acc = 0.0
+            for i in range(accum):
+                l_i, a_i = loss_fn(batch.micro(i))
+                l_i.backward()
+                loss, acc = loss + l_i.detach(), acc + a_i.detach()
+            loss, acc = loss / accum, acc / accum
+        grads = [p.grad for p in params if p.grad is not None]
+        with torch.no_grad():
+            if accum > 1:
+                for g in grads:
+                    g.div_(accum)
+            grad_norm = global_norm(grads)
+            if clip and clip > 0:
+                clip_by_global_norm(grads, clip, grad_norm)
+        metrics = {"loss": loss.detach(), "accuracy": acc.detach(),
+                   "grad_norm": grad_norm}
+        if state.lr_schedule is not None:
+            metrics["learning_rate"] = torch.as_tensor(
+                state.lr_schedule(state.step))
+        state.optimizer.step()
+        return replace(state, step=state.step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(model: WaveNet, config):
+    """``eval_step(state, batch) -> {"loss", "accuracy"}``, no gradients
+    (the fused head then saves no softmax)."""
+    loss_fn = _build_loss(model, config)
+
+    def eval_step(state: TrainState, batch: Batch):
+        with torch.no_grad():
+            loss, acc = loss_fn(batch.to(state.module.front_cur.device))
+        return {"loss": loss, "accuracy": acc}
+
+    return eval_step
+
+
+__all__ = ["Batch", "TrainState", "create_train_state", "make_train_step",
+           "make_eval_step"]

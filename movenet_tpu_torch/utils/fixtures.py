@@ -54,3 +54,36 @@ def train_overfit(wave: np.ndarray, c: int = 32, layer: int = 3,
 def sine_wave() -> np.ndarray:
     """The canonical 400-sample sine fixture the suite trains on."""
     return np.sin(np.arange(0, 60, 0.15))
+
+
+# the breakdancing training config of the JAX package's bench
+# (bench.py _breakdancing_setup): full width, bf16, fused blocks
+BREAKDANCING = dict(layer_size=3, stack_size=3, input_channels=64,
+                    residual_channels=64, skip_channels=64,
+                    compute_dtype="bfloat16", max_audio_frames=160_000,
+                    max_video_frames=160)
+
+
+def breakdancing(seed: int = 0, device="cuda"):
+    """(config, model, batch) of the breakdancing train step: layer 3 x
+    stack 3, C=R=S=64, bf16, ``fused_blocks``, AdamW lr 3e-4 without a
+    schedule; B=2 clips of T=160000 codes with video (2, 160, 64, 64, 1).
+    Weights and data are random from ``seed``; model and batch are on
+    ``device``."""
+    from movenet_tpu_torch.config import ModelConfig, TrainingConfig
+    from movenet_tpu_torch.models.wavenet import make_wavenet
+    from movenet_tpu_torch.train import Batch
+
+    mc = ModelConfig(**BREAKDANCING)
+    cfg = TrainingConfig(model_config=mc, optimizer="AdamW",
+                         learning_rate=3e-4, scheduler=None, batch_size=2,
+                         fused_blocks=True, weight_decay=0.0)
+    model = make_wavenet(mc, generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    t = mc.max_audio_frames
+    batch = Batch(
+        codes=torch.from_numpy(rng.integers(0, mc.input_channels,
+                                            size=(2, t))).int(),
+        video=torch.from_numpy(rng.standard_normal(
+            (2, mc.max_video_frames, 64, 64, 1)).astype(np.float32)))
+    return cfg, model.to(device), batch.to(device)

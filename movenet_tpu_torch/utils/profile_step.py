@@ -1,0 +1,60 @@
+"""Device time of one breakdancing train step, by kernel.
+
+    python -m movenet_tpu_torch.utils.profile_step [--steps 2] [--rows 20]
+
+Runs ``make_train_step`` on the breakdancing config (utils/fixtures) on
+the CUDA device: two warm-up steps, then ``--steps`` steps under
+``torch.profiler``, and prints the device time of each kernel (total
+and per call, divided by the step count) with the card's name and power
+limit.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+
+
+def main(argv=None) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from movenet_tpu_torch.train import create_train_state, make_train_step
+    from movenet_tpu_torch.utils.fixtures import breakdancing
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--rows", type=int, default=20,
+                    help="kernels to list, largest first")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    cfg, model, batch = breakdancing()
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, cfg)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: -e.device_time_total)
+    total = sum(e.device_time_total for e in rows) / args.steps / 1e3
+    print(f"device time per step {total:.3f} ms over {args.steps} steps; "
+          f"{card.strip()}")
+    for e in rows[:args.rows]:
+        per_step = e.device_time_total / args.steps / 1e3
+        print(f"{per_step:9.3f} ms/step {e.count // args.steps:4d} calls "
+              f"{e.device_time_total / e.count / 1e3:8.3f} ms/call  "
+              f"{e.key[:100]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -91,6 +91,19 @@ def test_dataset_raises(run_dirs, tmp_path):  # noqa: F811
                                           out_dir=tmp_path, device="cpu")
 
 
+def test_default_device_needs_cuda(run_dirs, tmp_path,  # noqa: F811
+                                   monkeypatch):
+    """No device named: the card, never a silent fall back to the CPU."""
+    monkeypatch.setattr(generate.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.generate_from_checkpoint(run_dirs[1], out_dir=tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.load_checkpoint_model(run_dirs[1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.main(["--checkpoint", str(run_dirs[1]), "--out",
+                       str(tmp_path)])
+
+
 @pytest.mark.parametrize("orig,new,length", [
     (16_000, 44_100, 500), (44_100, 16_000, 1200), (3, 5, 97),
     (160_000, 16_000, 4000), (8_000, 8_000, 64)])

@@ -1,0 +1,114 @@
+"""The port's head + cross-entropy op (ops/head_loss.fused_head_loss) on
+the CPU, where it runs its plain versions, against the JAX package's
+Pallas op in interpret mode: loss sum, match count and every gradient,
+parity and clean CE, float32 and bfloat16, with the targets riding the
+packed codes array (tgt_off = 2B).
+
+Tolerances: float32 loss rtol 1e-5, gradients within 1% of each leaf's
+largest magnitude plus the mean-difference gate of
+tests/test_fused_model.py; bfloat16 loss rtol 1e-4 and gradients within
+2% (the frameworks round equal float32 sums that were added in different
+orders to different bf16 neighbours); the match count equal or off by at
+most one flipped position."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from movenet_tpu.ops.pallas import head_loss as jhl
+
+from movenet_tpu_torch.ops import head_loss as hl
+
+torch.set_num_threads(2)
+B, T, S, C, RF = 2, 1024, 16, 64, 15
+
+
+def _inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, C, size=(B, T)).astype(np.int32)
+    prev = np.concatenate([np.full((B, 1), -1, np.int32), codes[:, :-1]], 1)
+    pack = np.ascontiguousarray(
+        np.concatenate([codes, prev, np.roll(codes, -1, 1)], 0).T)
+    f = np.float32
+    return pack, dict(
+        skip=rng.standard_normal((B, T, S)).astype(f),
+        w1=(rng.standard_normal((S, C)) / 4).astype(f),
+        b1=(rng.standard_normal((C,)) * 0.1).astype(f),
+        w2=(rng.standard_normal((C, C)) / 3).astype(f),
+        b2=(rng.standard_normal((C,)) * 0.1).astype(f))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("parity", [True, False])
+def test_fused_head_loss_matches_jax(parity, dtype):
+    pack, a = _inputs()
+    n_valid = B * (T - RF)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    names = ("skip", "w1", "b1", "w2", "b2")
+
+    def jloss(skip, w1, b1, w2, b2):
+        loss, match = jhl.fused_head_loss(skip, jnp.asarray(pack), w1, b1,
+                                          w2, b2, RF, parity, True, 2 * B)
+        return loss / n_valid, match
+
+    jargs = [jnp.asarray(a[n], jdt if n == "skip" else jnp.float32)
+             for n in names]
+    (want_l, want_m), want_g = jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True)(*jargs)
+
+    ts = {n: torch.tensor(a[n], dtype=tdt if n == "skip" else torch.float32,
+                          requires_grad=True) for n in names}
+    loss, match = hl.fused_head_loss(ts["skip"], torch.from_numpy(pack),
+                                     ts["w1"], ts["b1"], ts["w2"], ts["b2"],
+                                     RF, parity, tgt_off=2 * B)
+    (loss / n_valid).backward()
+    f32 = dtype == "float32"
+    np.testing.assert_allclose(float(loss.detach()) / n_valid, float(want_l),
+                               rtol=1e-5 if f32 else 1e-4)
+    assert abs(float(match) - float(want_m)) <= 1
+    for n, want in zip(names, want_g):
+        got = ts[n].grad.float().numpy()
+        want = np.asarray(want, np.float32)
+        scale = float(np.max(np.abs(want))) + 1e-12
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=(1e-2 if f32 else 2e-2) * scale,
+                                   err_msg=n)
+        bias = abs(float(np.mean(got - want)))
+        assert bias <= (2e-4 if f32 else 2e-3) * scale + 1e-10, n
+
+
+def test_eval_call_saves_no_softmax(monkeypatch):
+    """Without autograd the forward runs with save_p=False."""
+    from movenet_tpu_torch.ops.cuda import head_loss as kern
+
+    pack, a = _inputs(1)
+    seen = []
+    real = kern.head_fwd
+
+    def spy(*args, save_p=True, **kw):
+        seen.append(save_p)
+        return real(*args, save_p=save_p, **kw)
+
+    monkeypatch.setattr(kern, "head_fwd", spy)
+    ts = {n: torch.tensor(v) for n, v in a.items()}
+    with torch.no_grad():
+        loss, match = hl.fused_head_loss(
+            ts["skip"], torch.from_numpy(pack), ts["w1"], ts["b1"],
+            ts["w2"], ts["b2"], RF, True, tgt_off=2 * B)
+    assert seen == [False]
+    want, want_m, p = hl.head_fwd_plain(
+        ts["skip"], torch.from_numpy(pack), ts["w1"], ts["b1"], ts["w2"],
+        ts["b2"], RF, True, 2 * B)
+    assert float(loss) == float(want) and float(match) == float(want_m)
+    assert p.shape == (B, T, C)
+
+
+def test_match_is_first_argmax():
+    z = torch.tensor([[1.0, 3.0, 3.0, 0.0]])
+    zmax = z.max(dim=-1, keepdim=True).values
+    assert hl._match_rows(z, torch.tensor([1]), zmax).item() == 1.0
+    assert hl._match_rows(z, torch.tensor([2]), zmax).item() == 0.0

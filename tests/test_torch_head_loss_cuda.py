@@ -1,0 +1,90 @@
+"""The head/CE kernels (csrc/head_loss.cu) against their plain torch
+versions on a CUDA GPU.  Imports only torch and the port:
+
+    python -m pytest tests/test_torch_head_loss_cuda.py -q
+
+Without a card every test skips.  Tolerances: loss sum rtol 1e-5 (float32
+sums in another order), match count within one position; p within 2e-4
+(the head rounds leaky(y) to bf16 as a product operand, and a sum that
+lands on the other side of a rounding boundary moves z by one bf16 step
+of that operand); the float32 gradients within 1e-4 of their scale;
+dskip is stored in bf16 and may sit one bf16 step away: within 1% of its
+scale."""
+
+import numpy as np
+import pytest
+import torch
+
+from movenet_tpu_torch.ops import head_loss as hl
+from movenet_tpu_torch.ops.cuda import head_loss as kh
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, batch, t, s, c, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    codes = torch.randint(0, c, (batch, t), generator=g, dtype=torch.int32)
+    prev = torch.cat([torch.full((batch, 1), -1, dtype=torch.int32),
+                      codes[:, :-1]], 1)
+    pack = torch.cat([codes, prev, torch.roll(codes, -1, 1)], 0).t()
+    return dict(
+        skip=torch.randn(batch, t, s, generator=g).to(torch.bfloat16),
+        pack=pack.contiguous(),
+        w1=torch.randn(s, c, generator=g) / 4,
+        b1=torch.randn(c, generator=g) * 0.1,
+        w2=torch.randn(c, c, generator=g) / 3,
+        b2=torch.randn(c, generator=g) * 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c,t", [(16, 64, 4000), (64, 64, 10000),
+                                   (8, 64, 999)])
+@pytest.mark.parametrize("parity", [True, False])
+def test_head_kernels_match_plain(cuda, s, c, t, parity):
+    batch, rf = 2, 24
+    a = _inputs(cuda, batch, t, s, c)
+    a = {k: v.to(cuda) for k, v in a.items()}
+    args = (a["skip"], a["pack"], a["w1"], a["b1"], a["w2"], a["b2"], rf,
+            parity, 2 * batch)
+    n0 = dict(kh.launch_counts)
+    loss, match, p = kh.head_fwd(*args)
+    torch.cuda.synchronize()
+    assert kh.launch_counts["head_fwd"] == n0["head_fwd"] + 1
+    wl, wm, wp = hl.head_fwd_plain(*args)
+    np.testing.assert_allclose(float(loss), float(wl), rtol=1e-5)
+    assert abs(float(match) - float(wm)) <= 1
+    np.testing.assert_allclose(p.cpu().numpy(), wp.cpu().numpy(), rtol=0,
+                               atol=2e-4)
+    l2, m2, p2 = kh.head_fwd(*args, save_p=False)
+    assert p2 is None and float(l2) == float(loss)
+    dloss = torch.tensor(1.0 / (batch * (t - rf)), device=cuda)
+    got = kh.head_bwd(a["skip"], a["pack"], wp, a["w1"], a["b1"], a["w2"],
+                      a["b2"], rf, parity, dloss, 2 * batch)
+    torch.cuda.synchronize()
+    assert kh.launch_counts["head_bwd"] == n0["head_bwd"] + 1
+    want = hl.head_bwd_plain(a["skip"], a["pack"], wp, a["w1"], a["b1"],
+                             a["w2"], a["b2"], rf, parity, dloss, 2 * batch)
+    for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"), got, want):
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        tol = (1e-2 if name == "dskip" else 1e-4) * np.abs(y).max()
+        np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_head_wrapper_rejects_wrong_inputs(cuda):
+    a = _inputs(cuda, 2, 500, 16, 64)
+    a = {k: v.to(cuda) for k, v in a.items()}
+    with pytest.raises(ValueError, match="bfloat16"):
+        kh.head_fwd(a["skip"].float(), a["pack"], a["w1"], a["b1"], a["w2"],
+                    a["b2"], 24, True, 4)
+    with pytest.raises(NotImplementedError, match="B.4"):
+        w2 = torch.zeros(128, 128, device=cuda)
+        w1 = torch.zeros(16, 128, device=cuda)
+        b = torch.zeros(128, device=cuda)
+        kh.head_fwd(a["skip"], a["pack"], w1, b, w2, b, 24, True, 4)

@@ -99,7 +99,7 @@ def test_checkpoint_round_trip(run_dirs, tmp_path):
 
 def test_loaded_model_matches_jax_params(run_dirs):
     _, _, variables, _ = j_load(run_dirs[0])
-    model, config, step = load_checkpoint_model(run_dirs[1])
+    model, config, step = load_checkpoint_model(run_dirs[1], device="cpu")
     assert config.model_config.layer_size == 3 and step == 0
     assert model.video_encoder is None      # audio-only run
     np.testing.assert_array_equal(

@@ -1,0 +1,229 @@
+"""The port's whole-stack trunk op (ops/stack_kernel.fused_stack_embed) on
+the CPU, where it runs its plain versions, against the JAX package's
+Pallas op in interpret mode: the forward (skip_sum, hsave, tfsg) and every
+gradient, without ctx, with the flat ctx and with the projection triple,
+in float32 and bfloat16.  Plus the geometry helpers and the paths the port
+refuses.
+
+Tolerances: float32 forward rtol 1e-5; gradients within 1% of each leaf's
+largest magnitude plus a gate on the mean difference (a systematic bias),
+as tests/test_fused_model.py compares the two JAX paths.  bfloat16: the
+two frameworks round the same sums in different orders, so a stored bf16
+value may differ by a few of its last bits: the forward within 2% of each
+output's scale, gradients within 5%, the bias gate at 0.5%."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from movenet_tpu.ops.pallas import stack_kernel as jsk
+
+from movenet_tpu_torch.ops import stack_kernel as sk
+
+torch.set_num_threads(2)
+B, R, S, V = 2, 16, 16, 64
+DIL = (1, 2, 4, 1, 2, 4)
+L = len(DIL)
+
+
+def _inputs(t, ctx_kind, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, V, size=(B, t)).astype(np.int32)
+    prev = np.concatenate([np.full((B, 1), -1, np.int32), codes[:, :-1]], 1)
+    pack = np.ascontiguousarray(
+        np.concatenate([codes, prev, np.roll(codes, -1, 1)], 0).T)
+    f = np.float32
+    win = (3 if ctx_kind else 2) * R
+    arrs = dict(
+        table2=(rng.standard_normal((2 * V, R)) * 0.5).astype(f),
+        b_fg=(rng.standard_normal((L * B, 2 * R)) * 0.1).astype(f),
+        w_fg=(rng.standard_normal((L, win, 2 * R)) / np.sqrt(win)).astype(f),
+        w_out=(rng.standard_normal((L, R, R + S)) / np.sqrt(R)).astype(f),
+        b_out=(rng.standard_normal((L, R + S)) * 0.1).astype(f),
+        dskip=(rng.standard_normal((B, t, S)) * 0.1).astype(f))
+    if ctx_kind == "flat":
+        arrs["ctx"] = (rng.standard_normal((B, t, R)) * 0.5).astype(f)
+    elif ctx_kind == "proj":
+        arrs["xc"] = (rng.standard_normal((B, t // 10, R)) * 0.5).astype(f)
+        arrs["wup"] = (rng.standard_normal((R, 10 * R)) / 4).astype(f)
+        arrs["bup"] = (rng.standard_normal((10 * R,)) * 0.1).astype(f)
+    return pack, arrs
+
+
+def _jax_run(pack, a, dtype, want_saved):
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    names = ["table2"] + [k for k in ("ctx", "xc", "wup", "bup") if k in a] \
+        + ["b_fg", "w_fg", "w_out", "b_out"]
+    cast = {"table2", "ctx", "xc"}
+    args = [jnp.asarray(a[n], jdt if n in cast else jnp.float32)
+            for n in names]
+    pack_j = jnp.asarray(pack)
+
+    def op(*xs):
+        d = dict(zip(names, xs))
+        ctx = d.get("ctx")
+        if "xc" in d:
+            ctx = (d["xc"], d["wup"], d["bup"])
+        return jsk.fused_stack_embed(pack_j, d["table2"], ctx, d["b_fg"],
+                                     d["w_fg"], d["w_out"], d["b_out"], DIL,
+                                     jdt, True)
+
+    skip, vjp = jax.vjp(op, *args)
+    grads = vjp(jnp.asarray(a["dskip"], jdt))
+    saved = None
+    if want_saved:
+        ctx = args[1] if "ctx" in a else None
+        if "xc" in a:
+            ctx = jsk.ctx_flatten(tuple(args[1:4]), jdt)
+        _, hsave, tfsg, _ = jsk._fwd_pallas(
+            None, ctx, args[-4], args[-3], args[-2], args[-1], DIL, True,
+            embed=(pack_j, args[0], B), dtype=jdt)
+        saved = (np.asarray(hsave, np.float32), np.asarray(tfsg, np.float32))
+    return (np.asarray(skip, np.float32),
+            {n: np.asarray(g, np.float32) for n, g in zip(names, grads)},
+            saved)
+
+
+def _torch_run(pack, a, dtype):
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    cast = {"table2", "ctx", "xc"}
+    ts = {n: torch.tensor(v, dtype=tdt if n in cast else torch.float32,
+                          requires_grad=True)
+          for n, v in a.items() if n != "dskip"}
+    ctx = ts.get("ctx")
+    if "xc" in ts:
+        ctx = (ts["xc"], ts["wup"], ts["bup"])
+    skip = sk.fused_stack_embed(torch.from_numpy(pack), ts["table2"], ctx,
+                                ts["b_fg"], ts["w_fg"], ts["w_out"],
+                                ts["b_out"], DIL)
+    skip.backward(torch.tensor(a["dskip"], dtype=tdt))
+    return skip.detach().float().numpy(), \
+        {n: t.grad.float().numpy() for n, t in ts.items()}
+
+
+def _close_grad(name, got, want, rel, bias_rel):
+    scale = float(np.max(np.abs(want))) + 1e-12
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale,
+                               err_msg=name)
+    bias = abs(float(np.mean(got - want)))
+    assert bias <= bias_rel * scale + 1e-10, \
+        f"{name}: systematic difference {bias:.3e} vs scale {scale:.3e}"
+
+
+@pytest.mark.parametrize("t,ctx_kind,dtype,saved", [
+    (1024, None, "float32", True),
+    (12800, "proj", "float32", False),
+    (1280, "flat", "float32", False),
+    (12800, "proj", "bfloat16", True),
+])
+def test_fused_stack_embed_matches_jax(t, ctx_kind, dtype, saved):
+    pack, a = _inputs(t, ctx_kind, dtype)
+    want_skip, want_g, want_saved = _jax_run(pack, a, dtype, saved)
+    got_skip, got_g = _torch_run(pack, a, dtype)
+    f32 = dtype == "float32"
+    scale = float(np.max(np.abs(want_skip)))
+    if f32:
+        np.testing.assert_allclose(got_skip, want_skip, rtol=1e-5,
+                                   atol=1e-5 * scale)
+    else:
+        np.testing.assert_allclose(got_skip, want_skip, rtol=0,
+                                   atol=2e-2 * scale)
+    if saved:
+        tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        ts = {n: torch.tensor(v, dtype=tdt if n in ("table2", "ctx", "xc")
+                              else torch.float32) for n, v in a.items()}
+        ctx = ts.get("ctx")
+        if "xc" in ts:
+            ctx = sk.ctx_flatten((ts["xc"], ts["wup"], ts["bup"]), tdt)
+        _, hsave, tfsg = sk.stack_fwd_plain(
+            torch.from_numpy(pack), ts["table2"], ctx, ts["b_fg"],
+            ts["w_fg"], ts["w_out"], ts["b_out"], DIL, B)
+        for got, want in zip((hsave, tfsg), want_saved):
+            got = got.float().numpy()
+            sc = float(np.max(np.abs(want)))
+            np.testing.assert_allclose(
+                got, want, rtol=0, atol=(1e-5 if f32 else 2e-2) * sc)
+    assert set(got_g) == set(want_g)
+    for n in want_g:
+        if f32:
+            _close_grad(n, got_g[n], want_g[n], 1e-2, 2e-4)
+        else:
+            _close_grad(n, got_g[n], want_g[n], 5e-2, 5e-3)
+
+
+@pytest.mark.parametrize("t", [1024, 1280, 12800, 160_000, 16_000, 1000])
+@pytest.mark.parametrize("ctx", [False, True])
+def test_pick_stack_tile_matches_jax(t, ctx):
+    for dil in (DIL, (1, 2, 4) * 3, tuple(2 ** i for i in range(10)) * 3):
+        try:
+            want = jsk.pick_stack_tile(t, dil, ctx=ctx)
+        except ValueError:
+            with pytest.raises(ValueError):
+                sk.pick_stack_tile(t, dil, ctx=ctx)
+            continue
+        assert sk.pick_stack_tile(t, dil, ctx=ctx) == want
+
+
+@pytest.mark.parametrize("tile", [8, 16, 1600])
+def test_ring_offsets_match_jax(tile):
+    for dil in (DIL, (1, 2, 4) * 3, tuple(2 ** i for i in range(10)) * 3):
+        assert sk._ring_offsets(dil) == jsk._ring_offsets(dil)
+        assert sk._split_ring_offsets(dil, tile) == \
+            jsk._split_ring_offsets(dil, tile)
+
+
+@pytest.mark.parametrize("strategy", ["auto", "save", "recompute",
+                                      "replay"])
+@pytest.mark.parametrize("shape", [(2, 160_000, 64), (8, 160_000, 64),
+                                   (2, 1024, 16)])
+def test_resolve_strategy_matches_jax(strategy, shape):
+    dil = (1, 2, 4) * 3
+    try:
+        want = jsk.resolve_strategy(strategy, shape, len(dil), dil, 2)
+    except ValueError:
+        with pytest.raises(ValueError):
+            sk.resolve_strategy(strategy, shape, len(dil), dil, 2)
+        return
+    assert sk.resolve_strategy(strategy, shape, len(dil), dil, 2) == want
+    assert sk.supports_recompute(shape[1], dil) == \
+        jsk.supports_recompute(shape[1], dil)
+
+
+def test_ctx_projection_helpers_match_jax():
+    rng = np.random.default_rng(3)
+    xc = rng.standard_normal((2, 12, R)).astype(np.float32)
+    wup = rng.standard_normal((R, 10 * R)).astype(np.float32)
+    bup = rng.standard_normal((10 * R,)).astype(np.float32)
+    want = np.asarray(jsk.ctx_flatten(
+        (jnp.asarray(xc), jnp.asarray(wup), jnp.asarray(bup)), jnp.float32))
+    got = sk.ctx_flatten((torch.from_numpy(xc), torch.from_numpy(wup),
+                          torch.from_numpy(bup)), torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    _, wt = jsk._ctx_proj_args((xc, wup, bup))
+    _, wt_t = sk._ctx_proj_args(tuple(torch.from_numpy(x)
+                                      for x in (xc, wup, bup)))
+    np.testing.assert_array_equal(wt_t.numpy(), np.asarray(wt))
+    aug = rng.standard_normal((10, R + 1, R)).astype(np.float32)
+    for got, want in zip(
+            sk._ctx_proj_grads(torch.from_numpy(aug),
+                               tuple(torch.from_numpy(x)
+                                     for x in (xc, wup, bup))),
+            jsk._ctx_proj_grads(jnp.asarray(aug), (xc, wup, bup))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert sk.ctx_is_proj((1, 2, 3)) and not sk.ctx_is_proj(xc)
+
+
+def test_unported_strategies_raise():
+    pack, a = _inputs(1024, None, "float32")
+    ts = {n: torch.tensor(v) for n, v in a.items()}
+    args = (torch.from_numpy(pack), ts["table2"], None, ts["b_fg"],
+            ts["w_fg"], ts["w_out"], ts["b_out"], DIL)
+    for strategy in ("recompute", "replay"):
+        with pytest.raises(NotImplementedError, match="B.5"):
+            sk.fused_stack_embed(*args, strategy=strategy)
+    big = torch.zeros(2 * 300, R)
+    with pytest.raises(NotImplementedError, match="B.2"):
+        sk.fused_stack_embed(args[0], big, *args[2:])

@@ -1,0 +1,114 @@
+"""The trunk kernels (csrc/stack_kernel.cu) against their plain torch
+versions on a CUDA GPU.  Imports only torch and the port, so that it runs
+on a machine without JAX:
+
+    python -m pytest tests/test_torch_stack_kernel_cuda.py -q
+
+Without a card every test skips.  Tolerances: the forward outputs are
+bf16 values whose float32 sums the kernel and torch add in different
+orders, so a stored value may sit one bf16 step away: within 2% of each
+output's scale.  The backward takes the same saved tensors in both
+versions and sums in float32: within 1e-4 of each gradient's scale."""
+
+import numpy as np
+import pytest
+import torch
+
+from movenet_tpu_torch.ops import stack_kernel as sk
+from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+DIL = (1, 2, 4, 1, 2, 4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, t, r, s, v, ctx_kind, batch=2, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    n_layers = len(DIL)
+    codes = torch.randint(0, v, (batch, t), generator=g, dtype=torch.int32)
+    prev = torch.cat([torch.full((batch, 1), -1, dtype=torch.int32),
+                      codes[:, :-1]], 1)
+    pack = torch.cat([codes, prev, torch.roll(codes, -1, 1)], 0).t()
+    win = (3 if ctx_kind else 2) * r
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    a = dict(pack=pack.contiguous(), table2=rn(2 * v, r, scale=0.5).to(bf),
+             b_fg=rn(n_layers * batch, 2 * r, scale=0.1),
+             w_fg=rn(n_layers, win, 2 * r, scale=win ** -0.5),
+             w_out=rn(n_layers, r, r + s, scale=r ** -0.5),
+             b_out=rn(n_layers, r + s, scale=0.1),
+             dskip=rn(batch, t, s, scale=0.1).to(bf))
+    proj = ctx = None
+    if ctx_kind == "flat":
+        ctx = rn(batch, t, r, scale=0.5).to(bf)
+    elif ctx_kind == "proj":
+        trip = (rn(batch, t // 10, r, scale=0.5).to(bf),
+                rn(r, 10 * r, scale=r ** -0.5), rn(10 * r, scale=0.1))
+        ctx = sk.ctx_flatten(trip, bf)
+        proj = sk._ctx_proj_args(trip)
+    a = {k: x.to(dev) for k, x in a.items()}
+    ctx = None if ctx is None else ctx.to(dev)
+    proj = None if proj is None else tuple(x.to(dev) for x in proj)
+    return a, ctx, proj, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,t,ctx_kind", [
+    (16, 16, 1280, None), (16, 16, 1280, "flat"), (16, 16, 1280, "proj"),
+    (32, 32, 2000, "proj"), (64, 64, 3200, "proj"), (64, 8, 1000, "flat"),
+])
+def test_stack_kernels_match_plain(cuda, r, s, t, ctx_kind):
+    a, ctx, proj, batch = _inputs(cuda, t, r, s, 64, ctx_kind)
+    args = (a["pack"], a["table2"], ctx, a["b_fg"], a["w_fg"], a["w_out"],
+            a["b_out"], DIL, batch)
+    before = dict(ks.launch_counts)
+    got = ks.stack_fwd(*args)
+    torch.cuda.synchronize()
+    assert ks.launch_counts["stack_fwd"] == before["stack_fwd"] + 1
+    want = sk.stack_fwd_plain(*args)
+    for name, x, y in zip(("skip", "hsave", "tfsg"), got, want):
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=0,
+                                   atol=2e-2 * np.abs(y).max(), err_msg=name)
+    hsave, tfsg = want[1], want[2]
+    bargs = (hsave, tfsg, ctx, a["w_fg"], a["w_out"], a["dskip"], a["pack"],
+             64, DIL, proj)
+    got = ks.stack_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert ks.launch_counts["stack_bwd"] == before["stack_bwd"] + 1
+    want = sk.stack_bwd_plain(*bargs)
+    names = ("dtab", "dctx", "db_fg", "dw_fg", "dw_out", "db_out",
+             "dwup_aug")
+    for name, x, y in zip(names, got, want):
+        if y is None:
+            assert x is None, name
+            continue
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        tol = (2e-2 if name == "dctx" else 1e-4) * np.abs(y).max()
+        np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_stack_wrapper_rejects_wrong_inputs(cuda):
+    a, ctx, _, batch = _inputs(cuda, 1280, 16, 16, 64, None)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ks.stack_fwd(a["pack"], a["table2"].float(), None, a["b_fg"],
+                     a["w_fg"], a["w_out"], a["b_out"], DIL, batch)
+    with pytest.raises(ValueError, match="b_fg"):
+        ks.stack_fwd(a["pack"], a["table2"], None, a["b_fg"].double(),
+                     a["w_fg"], a["w_out"], a["b_out"], DIL, batch)
+    with pytest.raises(NotImplementedError, match="built"):
+        w_out = torch.zeros(len(DIL), 16, 24, device=cuda)
+        b_out = torch.zeros(len(DIL), 24, device=cuda)
+        ks.stack_fwd(a["pack"], a["table2"], None, a["b_fg"], a["w_fg"],
+                     w_out, b_out, DIL, batch)
