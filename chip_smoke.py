@@ -28,22 +28,39 @@ Phases (any failure exits non-zero and prints no result):
   6. generate CLI: ``movenet_tpu_torch.generate.main`` on the same
      checkpoint, greedy, --speculative 1 --spec_depth 2, writes WAVs of
      the requested length with one speculative launch;
-  7. train kernels vs plain: at the breakdancing training shapes (layer
+  7. video kernel vs plain: a synthetic valid split at the real clip
+     format (16 kHz, 16 fps, 10 s, 96x96; 9 clips) made by the port's
+     ``make_synthetic_dataset``, through the port's ``DataLoader`` with
+     the native preprocessing library built here: (B, 160, 64, 64, 1)
+     video and B x 160,000 codes; the video form of the AR kernel and its
+     plain version give equal codes at the flagship width (its video
+     encoder maps 160 frames to 160,000 samples) for n = RF + 2048:
+     greedy B=1 and B=8, exact and fast, and T=1.0 parity B=8 fast seed
+     3, prompted and conditioned by the clips;
+  8. generate CLI with --dataset (the main path of this form): a
+     ``use_video`` checkpoint of the same weights; greedy B=8 writes 8
+     WAVs of n frames with one ``ar_sampler_ctx_fast`` launch and the
+     codes of a direct ``cuda_generate`` on the same batch; B=1 with
+     --speculative 1 launches ``ar_sampler_ctx_fast`` once and no
+     speculative kernel; B=2 with --fast_sampler 0 launches
+     ``ar_sampler_ctx_exact`` once;
+  9. train kernels vs plain: at the breakdancing training shapes (layer
      3 x stack 3, C=R=S=64, bf16, B=2, T=160000, video as the stride-10
      projection triple; seeded random weights and data) the trunk
      forward (skip, hsave, tfsg), the trunk backward for a seeded dskip
      (every gradient), the head forward (loss, match, p) and backward
      (dskip, head gradients) each against its plain version, with the
      tolerances stated there, and each kernel's time by CUDA events;
-  8. train (the main training path): ``make_train_step`` (AdamW, lr 3e-4)
+  10. train (the main training path): ``make_train_step`` (AdamW, lr 3e-4)
      for 1 warm-up + 5 steps through the kernels, each step launching
      each of the four training kernels once, then the same steps through
      the plain versions from the same weights; the losses are finite and
      agree within 1e-3; step ms (median), steps/s, peak memory;
-  9. times: samples/s of the AR kernels and the plain versions, the
-     speculative kernel's time per generated sample beside the standard
-     kernel's, and the train step and kernel times;
-  10. the kernels line (with each kernel's bound from this run's shapes),
+  11. times: samples/s of the AR kernels and the plain versions (video
+     and audio-only side by side), the speculative kernel's time per
+     generated sample beside the standard kernel's, and the train step
+     and kernel times;
+  12. the kernels line (with each kernel's bound from this run's shapes),
      then the card line, then the result line.
 
 The last line of standard output is
@@ -84,6 +101,10 @@ TRAIN_KERNELS = {
 }
 REPLACES = {"ar_sampler_exact": "movenet_tpu/ops/pallas/ar_sampler.py:206",
             "ar_sampler_fast": "movenet_tpu/ops/pallas/ar_sampler.py:206",
+            "ar_sampler_ctx_exact":
+                "movenet_tpu/ops/pallas/ar_sampler.py:206",
+            "ar_sampler_ctx_fast":
+                "movenet_tpu/ops/pallas/ar_sampler.py:206",
             "ar_sampler_spec_exact":
                 "movenet_tpu/ops/pallas/ar_sampler.py:422",
             "ar_sampler_spec_fast":
@@ -136,8 +157,11 @@ def time_cuda(torch, fn, repeats: int) -> float:
     return start.elapsed_time(stop) / repeats
 
 
-def phase_compare(torch, np, model, rf):
-    """Kernel vs plain on the same inputs; returns per-case records."""
+def phase_compare(torch, np, model, rf, clips=None):
+    """Kernel vs plain on the same inputs; returns per-case records.
+    Prompts are seeded random codes, or with ``clips`` (a loader batch
+    of 8) the clips' first RF codes, and their video conditions the
+    steps."""
     from movenet_tpu_torch.ops.cuda import ar_sampler as ars
 
     cases = [("greedy B=1 exact", 1, 0.0, False, 0),
@@ -148,9 +172,17 @@ def phase_compare(torch, np, model, rf):
     rng = np.random.default_rng(0)
     records = []
     for label, batch, temp, fast, seed in cases:
-        prompt = rng.integers(0, model.input_channels, size=(batch, rf))
+        video = None
+        if clips is None:
+            prompt = rng.integers(0, model.input_channels,
+                                  size=(batch, rf))
+        else:
+            prompt = clips.codes[:batch, :rf]
+            video = clips.video[:batch].to("cuda")
+            label = f"video {label}"
         inp = ars.prepare(model, prompt, rf + N_COMPARE, temperature=temp,
-                          seed=seed, parity_sampling=True, fast=fast)
+                          seed=seed, parity_sampling=True, fast=fast,
+                          video=video)
         got = ars.ar_sampler(inp)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -256,13 +288,13 @@ def phase_spec_compare(torch, np, model, rf):
     return records
 
 
-def write_checkpoint(np, mc, model, run_dir):
+def write_checkpoint(np, mc, model, run_dir, use_video=False):
     from movenet_tpu_torch.config import TrainingConfig
     from movenet_tpu_torch.models.convert import params_to_jax
     from movenet_tpu_torch.train.checkpoint import save_params
 
-    cfg = TrainingConfig(model_config=mc, use_video=False, scheduler=None,
-                         batch_size=1)
+    cfg = TrainingConfig(model_config=mc, use_video=use_video,
+                         scheduler=None, batch_size=1)
     save_params(run_dir, 0, params_to_jax(model.state_dict()), cfg)
 
 
@@ -318,7 +350,8 @@ def phase_serve(torch, np, mc, rf, run_dir):
     # standard kernel, the validation run and the B=1 greedy requests on
     # the speculative one, the B=8 sampled request on the standard one
     want_launches = {"ar_sampler_fast": 3, "ar_sampler_spec_fast": 3,
-                     "ar_sampler_exact": 3, "ar_sampler_spec_exact": 2}
+                     "ar_sampler_exact": 3, "ar_sampler_spec_exact": 2,
+                     "ar_sampler_ctx_exact": 0, "ar_sampler_ctx_fast": 0}
     check(launches == want_launches,
           f"launch counts of the serve path: {launches}, expected "
           f"{want_launches}")
@@ -403,6 +436,116 @@ def phase_cli(torch, np, rf, run_dir):
     return launches
 
 
+def video_clips(torch, np, root, mc):
+    """A synthetic valid split at the real clip format through the
+    port's DataLoader, with the native preprocessing library built and
+    used: the first batch of 8 (CPU tensors)."""
+    from movenet_tpu_torch.data import get_dataloader, make_synthetic_dataset
+    from movenet_tpu_torch.native import build as native_build
+    from movenet_tpu_torch.native import loader
+
+    t0 = time.perf_counter()
+    native_build.build()
+    check(loader.available(), "the native library did not load")
+    make_synthetic_dataset(root, splits=("valid",), clips_per_category=6)
+    made = time.perf_counter()
+    data = get_dataloader(root, input_channels=mc.input_channels,
+                          batch_size=8, train=False, use_video=True,
+                          shuffle=False, num_workers=4,
+                          max_audio_frames=mc.max_audio_frames,
+                          max_video_frames=mc.max_video_frames)
+    check(len(data.index) == 9, f"{len(data.index)} valid clips, not 9")
+    epoch = data.epoch(0)
+    try:
+        clips = next(epoch)
+    finally:
+        epoch.close()
+    check(tuple(clips.codes.shape) == (8, mc.max_audio_frames)
+          and tuple(clips.video.shape) == (8, mc.max_video_frames, 64, 64, 1),
+          f"loader batch codes {tuple(clips.codes.shape)}, video "
+          f"{tuple(clips.video.shape)}")
+    check(bool(torch.isfinite(clips.video).all())
+          and 0 <= int(clips.codes.min()) <= int(clips.codes.max())
+          < mc.input_channels, "loader batch out of range")
+    print(f"data: 9 clips (16 kHz, 16 fps, 10 s, 96x96) written in "
+          f"{made - t0:.1f} s with the native build, first batch of 8 "
+          f"loaded in {time.perf_counter() - made:.1f} s: codes "
+          f"{tuple(clips.codes.shape)}, video {tuple(clips.video.shape)}",
+          flush=True)
+    return clips
+
+
+def phase_dataset_cli(torch, np, mc, model, rf, run_dir, ds):
+    """The generate CLI with --dataset on a use_video checkpoint: greedy
+    B=8 (fast), B=1 with --speculative 1, B=2 with --fast_sampler 0;
+    each one launch of the video kernel; B=8's codes equal a direct
+    cuda_generate on the same batch."""
+    import wave
+
+    from movenet_tpu_torch import generate
+    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+    from movenet_tpu_torch.utils import samples
+
+    n = rf + N_COMPARE
+    runs = [("B=8", ["--batch_size", "8"], "ar_sampler_ctx_fast"),
+            ("B=1 --speculative 1", ["--batch_size", "1", "--speculative",
+                                     "1"], "ar_sampler_ctx_fast"),
+            ("B=2 --fast_sampler 0", ["--batch_size", "2", "--fast_sampler",
+                                      "0"], "ar_sampler_ctx_exact")]
+    total = {k: 0 for k in ars.launch_counts}
+    seen = []
+    real_export = samples.export_samples
+
+    def spy(out_dir, epoch, split, codes, *a, **kw):
+        seen.append(np.asarray(codes["generated"]).copy())
+        return real_export(out_dir, epoch, split, codes, *a, **kw)
+
+    samples.export_samples = spy
+    try:
+        for label, extra, kernel in runs:
+            with tempfile.TemporaryDirectory() as out:
+                ars.reset_launch_counts()
+                t0 = time.perf_counter()
+                written = generate.main([
+                    "--checkpoint", str(run_dir), "--dataset", str(ds),
+                    "--temperature", "0", "--n_samples", str(n), "--out",
+                    out, *extra])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                launches = dict(ars.launch_counts)
+                batch = int(extra[1])
+                wavs = written.get("generated", [])
+                check(len(wavs) == batch,
+                      f"generate --dataset {label} wrote {len(wavs)} WAVs")
+                for path in wavs:
+                    with wave.open(str(path)) as w:
+                        check(w.getnframes() == n,
+                              f"{path}: {w.getnframes()} frames, not {n}")
+            want = {k: 0 for k in launches}
+            want[kernel] = 1
+            check(launches == want,
+                  f"launch counts of generate --dataset {label}: {launches}")
+            for k, v in launches.items():
+                total[k] += v
+            print(f"generate --dataset {label}: {batch} WAVs of {n} frames "
+                  f"in {dt * 1e3:.1f} ms with the checkpoint and data "
+                  f"load; launches {kernel} x1", flush=True)
+    finally:
+        samples.export_samples = real_export
+    # the B=8 run's codes against a direct call on the same batch
+    clips = generate.first_batch(ds, mc, 8, True)
+    direct = ars.cuda_generate(model, clips.codes[:, :rf].to("cuda"), n,
+                               temperature=0.0, video=clips.video.to("cuda"),
+                               fast=True).cpu().numpy()
+    check(seen[0].shape == direct.shape and (seen[0] == direct).all(),
+          "generate --dataset B=8 codes differ from cuda_generate")
+    check((seen[0] >= 0).all() and (seen[0] < mc.input_channels).all(),
+          "generate --dataset codes out of range")
+    print("generate --dataset B=8: codes equal a direct cuda_generate on "
+          "the same clips", flush=True)
+    return total
+
+
 def train_bounds(b, t, l, r, s, c, v, win, proj):
     """(bound_ms, bound_by) of each training kernel from its shapes:
     bytes (each input read once, each output written once) over 3.35 TB/s
@@ -438,17 +581,21 @@ def train_bounds(b, t, l, r, s, c, v, win, proj):
             "head_bwd": bound(head_bwd_bytes, head_bwd_ops, BF16_OPS_S)}
 
 
-def ar_bound(model, batch, steps):
+def ar_bound(model, batch, steps, video=False):
     """(bound_ms, bound_by) of one AR sampler launch: the weights read
-    once against the float32 operations of every step."""
+    once (with video W_ctx too, and the context rows of every step)
+    against the float32 operations of every step."""
     r, s, c = (model.residual_channels, model.skip_channels,
                model.input_channels)
     n_layers = len(model.dilations)
-    weights = 4 * (2 * c * r + n_layers * (2 * r * 2 * r + r * (r + s))
-                   + s * c + c * c)
+    nbytes = 4 * (2 * c * r + n_layers * (2 * r * 2 * r + r * (r + s))
+                  + s * c + c * c)
     ops = 2 * batch * steps * (n_layers * (4 * r * r + r * (r + s))
                                + s * c + c * c)
-    tb, to = weights / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    if video:
+        nbytes += 4 * n_layers * r * 2 * r + 4 * batch * steps * r
+        ops += 2 * batch * steps * n_layers * r * 2 * r
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -716,14 +863,30 @@ def main() -> int:
                        and r["hits"] == r["replay"])]
         check(not bad, f"speculative kernel disagrees: {bad}")
 
-        with tempfile.TemporaryDirectory() as run_dir:
+        with tempfile.TemporaryDirectory() as tmp:
+            run_dir = Path(tmp) / "run"
             write_checkpoint(np, mc, model, run_dir)
             phase = "serve"
             launches = phase_serve(torch, np, mc, rf, run_dir)
             phase = "generate CLI"
             cli_launches = phase_cli(torch, np, rf, run_dir)
-        for k, v in cli_launches.items():
-            launches[k] += v
+            for k, v in cli_launches.items():
+                launches[k] += v
+
+            phase = "video kernel vs plain"
+            ds = Path(tmp) / "clips"
+            clips = video_clips(torch, np, ds, mc)
+            video_records = phase_compare(torch, np, model, rf, clips)
+            bad = [r["label"] for r in video_records if not r["equal"]]
+            check(not bad, f"video kernel and plain disagree: {bad}")
+
+            phase = "generate CLI with --dataset"
+            video_run = Path(tmp) / "video_run"
+            write_checkpoint(np, mc, model, video_run, use_video=True)
+            for k, v in phase_dataset_cli(torch, np, mc, model, rf,
+                                          video_run, ds).items():
+                launches[k] += v
+        records += video_records
 
         phase = "train kernels vs plain"
         from movenet_tpu_torch.utils.fixtures import breakdancing
@@ -743,11 +906,18 @@ def main() -> int:
         for name, r in train_recs.items():
             print(f"time {name}: kernel {r['ms']:.3f} ms, plain "
                   f"{r['plain_ms']:.3f} ms; {card}", flush=True)
+        audio_only = {r["label"]: r for r in records}
         for r in records:
+            beside = ""
+            twin = audio_only.get(r["label"].replace("video ", "", 1))
+            if twin is not r and twin is not None:
+                beside = (f"; audio-only kernel {twin['sps']:.0f} samples/s "
+                          f"({twin['ms'] * 1e3 / N_COMPARE:.1f} us/step)")
             print(f"time {r['label']}: kernel {r['sps']:.0f} samples/s "
-                  f"({r['ms']:.2f} ms for {r['batch']}x{N_COMPARE}), plain "
+                  f"({r['ms']:.2f} ms for {r['batch']}x{N_COMPARE}, "
+                  f"{r['ms'] * 1e3 / N_COMPARE:.1f} us/step), plain "
                   f"{r['plain_sps']:.0f} samples/s ({r['plain_ms']:.1f} ms)"
-                  f"; {card}", flush=True)
+                  f"{beside}; {card}", flush=True)
         for r in spec_records:
             print(f"time spec {r['label']}: {r['us_per_sample']:.3f} us per "
                   f"generated sample, standard kernel "
@@ -758,20 +928,24 @@ def main() -> int:
         phase = "kernels line"
         from movenet_tpu_torch.ops.cuda import ar_sampler as ars
         kernels = []
-        ar_bound_ms, ar_bound_by = ar_bound(model, 1, N_COMPARE)
         for name in REPLACES:
             mine = [r for r in records + spec_records if r["name"] == name]
             timed = [r for r in mine if r["batch"] == 1][0]
+            video = "_ctx_" in name
+            bound_ms, bound_by = ar_bound(model, 1, N_COMPARE, video)
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": ars.KERNEL_SOURCE,
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": REPLACES[name]
+                + (" (has_ctx=True)" if video else ""),
+                "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": timed["ms"], "plain_ms": timed["plain_ms"],
-                "bound_ms": ar_bound_ms, "bound_by": ar_bound_by,
+                "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None,
                 "matches_plain": all(r["equal"] for r in mine),
-                "shape": f"B=1, n=RF+{N_COMPARE}"})
+                "shape": f"B=1, n=RF+{N_COMPARE}"
+                + (", video (160 frames)" if video else "")})
         mc = cfg.model_config
         bounds = train_bounds(
             2, mc.max_audio_frames, len(bd_model.dilations),

@@ -6,9 +6,11 @@ Pallas kernels become hand-written CUDA kernels for Hopper (sm_90a) under
 ``csrc/``, each with a plain PyTorch version beside it that the wrapper
 uses for tensors on the CPU.  So far it serves generation: config,
 mu-law, the resampler, the WaveNet forward, the cached samplers, the
-single-launch AR sampler kernels (standard and speculative), parameter
-checkpoints, the TCP server and the generate CLI; and it trains with the
-fused trunk and head/CE kernels and their backwards (``train/loop``).
+single-launch AR sampler kernels (standard, video-conditioned and
+speculative), parameter checkpoints, the TCP server and the generate CLI
+with dataset prompts; it has the data layer (``data/``, with the native
+C++ preprocessing in ``native/``); and it trains with the fused trunk
+and head/CE kernels and their backwards (``train/loop``).
 """
 
 __version__ = "0.1.0"

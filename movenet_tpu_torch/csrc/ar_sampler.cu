@@ -1,16 +1,28 @@
 // Autoregressive WaveNet sampler: the whole generation loop in one launch.
 //
 // Replaces the TPU kernel movenet_tpu/ops/pallas/ar_sampler.py:_make_kernel
-// (launched by pallas_call at ar_sampler.py:1088 from pallas_generate), for
-// the audio-only case (has_ctx=False), in both its forms:
+// (launched by pallas_call at ar_sampler.py:1088 from pallas_generate), in
+// both its forms:
 //   FAST=false  the exact chain: per layer fg = [h|past] @ W_fg + b_fg,
 //               gated = tanh(f) * sigmoid(g), out = gated @ W_out + b_out;
 //   FAST=true   the reassociated chain of stack_fast_weights: one product
 //               of gated with W_res W_cur(l+1) per layer, the next layer's
 //               [h|past] product beside it, and the packed-tanh gate
 //               v0*v1 + v0 (the 0.5 and 2x factors live in the weights).
-// Both are float32 throughout.  The TPU's lane packing of the output codes
-// and its single-pass-MXU precision in fast mode are not carried over.
+// and with or without video context (has_ctx):
+//   HAS_CTX     W_fg is (L, 3R, 2R) = [W_cur; W_past; W_ctx] and step t
+//               reads its stream's context row ctx_t (R floats).  ctx_t is
+//               the same for every layer, so the step starts with one
+//               phase that folds it into a per-step fg bias,
+//               cb[l] = b_fg[l, b] + ctx_t @ W_ctx[l] (fast layer 0: the
+//               ctx rows of w_p0c), for all L layers at once; the chain
+//               then runs the audio-only form with cb in place of b_fg.
+//               The ctx products are off the dependency chain, as the
+//               TPU kernel's `pre` term is.
+// Both are float32 throughout.  The TPU's lane packing of the output codes,
+// its double-buffered 512-step DMA of ctx slabs with their 128-lane
+// padding, and its single-pass-MXU precision in fast mode are not carried
+// over.
 //
 // Design.  One block per stream (grid = B) and 256 threads; the TPU's
 // sequential grid becomes the step loop inside the block.  Weights are
@@ -35,8 +47,14 @@
 // fast, over 30 layers, plus the head and the reductions.  So the kernel
 // is bound by the latency of its L2 reads and by barrier latency, not by
 // arithmetic; B streams cost about what one does, on B SMs.  The dot
-// products are unrolled so that each thread has 16 loads in flight.
-// Staging weights in shared memory, splitting a stream over a
+// products issue 16 loads at a time per thread, and the kernel is built
+// for one block per SM (__launch_bounds__(256, 1)) so that ptxas may
+// spend registers on them.
+// With video the cb phase reads W_ctx too (L*R*2R*4 bytes, 0.98 MB at the
+// flagship width) in L*2R independent dot products, 15 per thread, and
+// the ctx row (R floats) comes from global memory once per step.
+// Staging weights in shared memory, streaming ctx ahead with cp.async or
+// TMA, splitting a stream over a
 // thread-block cluster, and sharing one block among the B streams are
 // later work.
 //
@@ -77,7 +95,8 @@ constexpr int kWarps = kThreads / 32;
 struct Params {
   const float* front_cur;   // (C, R)
   const float* front_past;  // (C, R)
-  const float* w_fg;        // (L, 2R, 2R)   fast: gate columns halved
+  const float* w_fg;        // (L, 2R, 2R), with ctx (L, 3R, 2R); fast:
+                            //   gate columns halved
   const float* b_fg;        // (L, B, 2R)    fast: + b_corr, columns scaled
   const float* w_out;       // (L, R, R+S)   fast: halved
   const float* b_out;       // (L, R+S)
@@ -87,7 +106,8 @@ struct Params {
   const float* h2_b;        // (C)
   const float* fc0;         // (C, 2R)       fast only
   const float* fp0;         // (C, 2R)       fast only
-  const float* w_p0c;       // (R, 2R)       fast only
+  const float* w_p0c;       // (R, 2R) fast only; with ctx (2R, 2R) =
+                            //   [W_past_0; W_ctx_0]
   const float* w_prod;      // (L, R, 2R)    fast only
   const int* dil;           // (L)
   const int* off;           // (L) ring offset of each layer, in rows
@@ -98,6 +118,7 @@ struct Params {
   uint32_t seed;
   int parity;
   float temperature;
+  const float* ctx;         // (B, n_samples, R) video context; null: none
 };
 
 __device__ __forceinline__ float leaky(float x) {
@@ -109,13 +130,22 @@ __device__ __forceinline__ float sigmoidf_(float x) {
 }
 
 // dot(x[0:k], w[0:k, col]) for a row-major w with `stride` columns.  The
-// weight loads are L2 hits whose latency bounds the loop, so it is
-// unrolled to keep 16 of them in flight; the sum stays one fmaf chain.
+// weight loads are L2 hits whose latency bounds the loop, so they are
+// issued 16 at a time into registers ahead of their fmaf's (a loop that
+// is only unrolled let nvcc interleave each fmaf with the next loads,
+// leaving few in flight); the sum stays one fmaf chain in index order.
 __device__ __forceinline__ float dot_col(const float* x, const float* w,
                                          int k, int stride) {
   float acc = 0.f;
-#pragma unroll 16
-  for (int i = 0; i < k; ++i) acc = fmaf(x[i], __ldg(w + i * stride), acc);
+  int i = 0;
+  for (; i + 16 <= k; i += 16) {
+    float wv[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) wv[u] = __ldg(w + (i + u) * stride);
+#pragma unroll
+    for (int u = 0; u < 16; ++u) acc = fmaf(x[i + u], wv[u], acc);
+  }
+  for (; i < k; ++i) acc = fmaf(x[i], __ldg(w + i * stride), acc);
   return acc;
 }
 
@@ -179,8 +209,8 @@ __device__ int block_argmax(float v, int i, float* red_v, int* red_i) {
   return bi;
 }
 
-template <bool FAST>
-__global__ void __launch_bounds__(kThreads) ar_sampler_kernel(Params p) {
+template <bool FAST, bool HAS_CTX>
+__global__ void __launch_bounds__(kThreads, 1) ar_sampler_kernel(Params p) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, tid = threadIdx.x;
   const int C = p.c_in, R = p.r, R2 = 2 * p.r, S = p.s, RS = p.r + p.s;
@@ -196,10 +226,22 @@ __global__ void __launch_bounds__(kThreads) ar_sampler_kernel(Params p) {
   float* scores = act + C;     // C
   float* red_v = scores + C;   // kWarps
   int* red_i = reinterpret_cast<int*>(red_v + kWarps);  // kWarps
+  float* xc = reinterpret_cast<float*>(red_i + kWarps);  // R    (ctx) ctx_t
+  float* cb = xc + R;          // L*2R (ctx) the step's fg bias per layer
 
   float* ring = p.ring + static_cast<size_t>(b) * p.sum_d * R;
   const float* b_fg_b = p.b_fg + static_cast<size_t>(b) * R2;  // + l*B*2R
   const size_t b_fg_layer = static_cast<size_t>(p.batch) * R2;
+  const float* ctx_b =
+      HAS_CTX ? p.ctx + static_cast<size_t>(b) * p.n_samples * R : nullptr;
+  // layer l's fg taps: (2R, 2R), with ctx (3R, 2R)
+#define W_FG(l) \
+  (p.w_fg + static_cast<size_t>(l) * (HAS_CTX ? 3 * R : R2) * R2)
+  // the fg bias rows of layer l for the current step, and element i of
+  // them: b_fg[l, b] through the read-only path, or with video the
+  // step's cb[l] in shared memory
+#define FG_ROW(l) (HAS_CTX ? cb + (l) * R2 : b_fg_b + (l) * b_fg_layer)
+#define FG_B(row, i) (HAS_CTX ? (row)[i] : __ldg((row) + (i)))
   const int n_out = p.n_samples - p.rf;
   int prev = p.init_codes[b];
   int cur = p.init_codes[p.batch + b];
@@ -216,13 +258,30 @@ __global__ void __launch_bounds__(kThreads) ar_sampler_kernel(Params p) {
       x[R + j] = ring[slot0 * R + j];
     }
     for (int j = tid; j < S; j += kThreads) skip[j] = 0.f;
+    if constexpr (HAS_CTX) {
+      for (int j = tid; j < R; j += kThreads)
+        xc[j] = __ldg(ctx_b + static_cast<size_t>(t) * R + j);
+    }
     __syncthreads();
+
+    if constexpr (HAS_CTX) {
+      // phase P: cb[l] = ctx_t @ W_ctx[l] + b_fg[l, b] for every layer;
+      // fast layer 0 takes W_ctx_0 from the ctx rows of w_p0c
+      for (int i = tid; i < L * R2; i += kThreads) {
+        const int l = i / R2, j = i - l * R2;
+        const float* wc = FAST && l == 0 ? p.w_p0c + R * R2
+                                         : W_FG(l) + R2 * R2;
+        cb[i] = __fadd_rn(dot_col(xc, wc + j, R, R2),
+                          __ldg(b_fg_b + l * b_fg_layer + j));
+      }
+      __syncthreads();
+    }
 
     if (!FAST) {
       for (int l = 0; l < L; ++l) {
         const int slot = __ldg(p.off + l) + t % __ldg(p.dil + l);
         // phase A: fg partial sums over the h rows and the tap rows
-        const float* w = p.w_fg + static_cast<size_t>(l) * R2 * R2;
+        const float* w = W_FG(l);
         for (int i = tid; i < 2 * R2; i += kThreads) {
           const int half = i / R2, j = i - half * R2;
           const float acc = dot_col(x + half * R, w + half * R * R2 + j, R, R2);
@@ -230,11 +289,12 @@ __global__ void __launch_bounds__(kThreads) ar_sampler_kernel(Params p) {
         }
         __syncthreads();
         // phase B: gate
-        const float* bl = b_fg_b + l * b_fg_layer;
+        const float* bl = FG_ROW(l);
         for (int i = tid; i < R; i += kThreads) {
-          const float f = __fadd_rn(__fadd_rn(part0[i], part1[i]), __ldg(bl + i));
+          const float f = __fadd_rn(__fadd_rn(part0[i], part1[i]),
+                                    FG_B(bl, i));
           const float g = __fadd_rn(__fadd_rn(part0[R + i], part1[R + i]),
-                                    __ldg(bl + R + i));
+                                    FG_B(bl, R + i));
           gated[i] = __fmul_rn(tanhf(f), sigmoidf_(g));
         }
         __syncthreads();
@@ -260,12 +320,14 @@ __global__ void __launch_bounds__(kThreads) ar_sampler_kernel(Params p) {
         __syncthreads();
       }
     } else {
-      // layer 0's fg: fc0[cur] + ((fp0[prev] + tap0 @ w_p0c) + b_fg[0])
+      // layer 0's fg: fc0[cur] + ((fp0[prev] + tap0 @ w_p0c) + b_fg[0]);
+      // with video the bias is cb[0], which holds the ctx rows' product
+      const float* b0 = FG_ROW(0);
       for (int j = tid; j < R2; j += kThreads) {
         part0[j] = cur_ok ? __ldg(p.fc0 + cur * R2 + j) : 0.f;
         const float pre = __fadd_rn(prev_ok ? __ldg(p.fp0 + prev * R2 + j) : 0.f,
                                     dot_col(x + R, p.w_p0c + j, R, R2));
-        part1[j] = __fadd_rn(pre, __ldg(b_fg_b + j));
+        part1[j] = __fadd_rn(pre, FG_B(b0, j));
       }
       __syncthreads();
       for (int l = 0; l < L; ++l) {
@@ -286,8 +348,8 @@ __global__ void __launch_bounds__(kThreads) ar_sampler_kernel(Params p) {
         // phase M: the dependent product gated @ w_prod, the next layer's
         // [h|tap] product, and the res/skip outputs, side by side
         const float* wp = p.w_prod + static_cast<size_t>(l) * R * R2;
-        const float* wn = p.w_fg + static_cast<size_t>(l + 1) * R2 * R2;
-        const float* bn = b_fg_b + (l + 1) * b_fg_layer;
+        const float* wn = W_FG(l + 1);
+        const float* bn = FG_ROW(l + 1);
         const float* wo = p.w_out + static_cast<size_t>(l) * R * RS;
         const float* bo = p.b_out + l * RS;
         for (int i = tid; i < 2 * R2 + RS; i += kThreads) {
@@ -296,7 +358,8 @@ __global__ void __launch_bounds__(kThreads) ar_sampler_kernel(Params p) {
           } else if (i < 2 * R2) {
             const int j = i - R2;
             if (more)
-              part1[j] = __fadd_rn(dot_col(x, wn + j, R2, R2), __ldg(bn + j));
+              part1[j] = __fadd_rn(dot_col(x, wn + j, R2, R2),
+                                   FG_B(bn, j));
           } else {
             const int j = i - 2 * R2;
             const float o = __fadd_rn(dot_col(gated, wo + j, R, RS), __ldg(bo + j));
@@ -365,11 +428,30 @@ __global__ void __launch_bounds__(kThreads) ar_sampler_kernel(Params p) {
     prev = cur;
     cur = nxt;
   }
+#undef W_FG
+#undef FG_ROW
+#undef FG_B
 }
 
-size_t shared_bytes(int c_in, int r, int s) {
-  return sizeof(float) * (2 * r + r + 2 * r + 2 * r + r + s + 2 * c_in + kWarps)
+size_t shared_bytes(int c_in, int r, int s, int n_layers, bool has_ctx) {
+  const size_t ctx_floats =
+      has_ctx ? static_cast<size_t>(r) + static_cast<size_t>(n_layers) * 2 * r
+              : 0;
+  return sizeof(float) * (2 * r + r + 2 * r + 2 * r + r + s + 2 * c_in + kWarps
+                          + ctx_floats)
          + sizeof(int) * kWarps;
+}
+
+template <bool FAST, bool HAS_CTX>
+int launch_standard(const Params& p, size_t smem, cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ar_sampler_kernel<FAST, HAS_CTX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  ar_sampler_kernel<FAST, HAS_CTX><<<p.batch, kThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------- speculative form
@@ -829,39 +911,28 @@ int launch_spec(const Params& p, const SpecParams& q, size_t smem,
 extern "C" {
 
 // Launches the sampler on `stream`; returns the cudaError_t of the launch.
+// `ctx` is the (batch, n_samples, r) video context, or null without video.
 int movenet_ar_sampler_launch(
     int fast, const float* front_cur, const float* front_past,
     const float* w_fg, const float* b_fg, const float* w_out,
     const float* b_out, const float* h1_w, const float* h1_b,
     const float* h2_w, const float* h2_b, const float* fc0, const float* fp0,
     const float* w_p0c, const float* w_prod, const int* dil, const int* off,
-    float* ring, const int* init_codes, int* out, int batch, int c_in, int r,
-    int s, int n_layers, int sum_d, int rf, int n_samples, int seed,
-    int parity, float temperature, void* stream) {
+    float* ring, const int* init_codes, int* out, const float* ctx, int batch,
+    int c_in, int r, int s, int n_layers, int sum_d, int rf, int n_samples,
+    int seed, int parity, float temperature, void* stream) {
+  const bool has_ctx = ctx != nullptr;
   Params p{front_cur, front_past, w_fg, b_fg, w_out, b_out, h1_w, h1_b,
            h2_w, h2_b, fc0, fp0, w_p0c, w_prod, dil, off, ring, init_codes,
            out, batch, c_in, r, s, n_layers, sum_d, rf, n_samples,
-           static_cast<uint32_t>(seed), parity, temperature};
-  const size_t smem = shared_bytes(c_in, r, s);
+           static_cast<uint32_t>(seed), parity, temperature, ctx};
+  const size_t smem = shared_bytes(c_in, r, s, n_layers, has_ctx);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fast) {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          ar_sampler_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    ar_sampler_kernel<true><<<batch, kThreads, smem, st>>>(p);
-  } else {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          ar_sampler_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    ar_sampler_kernel<false><<<batch, kThreads, smem, st>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (has_ctx)
+    return fast ? launch_standard<true, true>(p, smem, st)
+                : launch_standard<false, true>(p, smem, st);
+  return fast ? launch_standard<true, false>(p, smem, st)
+              : launch_standard<false, false>(p, smem, st);
 }
 
 // Launches the speculative sampler (B=1, one block) on `stream`; t2 and t3
@@ -883,7 +954,7 @@ int movenet_ar_sampler_spec_launch(
   Params p{front_cur, front_past, w_fg, b_fg, w_out, b_out, h1_w, h1_b,
            h2_w, h2_b, fc0, fp0, w_p0c, w_prod, dil, off, ring, init_codes,
            out, 1, c_in, r, s, n_layers, sum_d, rf, n_samples,
-           static_cast<uint32_t>(seed), parity, temperature};
+           static_cast<uint32_t>(seed), parity, temperature, nullptr};
   SpecParams q{t2, t3, hits, order, adaptive};
   const int nch = depth + 1;
   const size_t smem = spec_shared_bytes(nch, c_in, r, s, n_layers);

@@ -1,20 +1,20 @@
 """Standalone generation CLI: checkpoint -> audio.
 
     python -m movenet_tpu_torch.generate --checkpoint <run_dir> \
-        --n_samples 160000 --temperature 1.0 --out generated/
+        --dataset /path/to/kinetics --n_samples 160000 \
+        --temperature 1.0 --out generated/
 
 The counterpart of ``movenet_tpu.generate``: load the parameters of a run
 directory (``checkpoints/<step>/params.npz`` plus its ``config.json``),
-prompt with RF frames of mu-law silence, and synthesize waveforms with
-the fastest applicable sampler:
+take prompts from validation clips (``--dataset``: the first RF codes of
+each clip, its video unless ``--use_video 0``, and its class label for a
+model with global conditioning) or RF frames of mu-law silence, and
+synthesize waveforms with the fastest applicable sampler:
 
-  * a model on a CUDA device, batch 1, 2, 4 or 8 -> the AR sampler kernel
-    (``--speculative 1``: the speculative kernel for B=1 greedy and
-    sampled decoding, same codes);
+  * a model on a CUDA device, batch 1, 2, 4 or 8 -> the AR sampler kernel,
+    video-conditioned when the prompts bring video (``--speculative 1``:
+    the speculative kernel for B=1 decoding without video, same codes);
   * otherwise                                    -> the cached sampler.
-
-Prompts from validation clips (``--dataset``) need the data layer, which
-is not ported yet (ROADMAP.md A.6).
 """
 
 from __future__ import annotations
@@ -54,6 +54,41 @@ def load_checkpoint_model(checkpoint_dir: Path, device="cuda"):
     return model, config, step
 
 
+def first_batch(dataset_fp, mc, batch_size: int, use_video: bool):
+    """The first validation batch of ``dataset_fp`` in index order: the
+    port's ``Batch`` of CPU tensors (codes, video, labels)."""
+    from movenet_tpu_torch.data.pipeline import get_dataloader
+
+    loader = get_dataloader(
+        dataset_fp, input_channels=mc.input_channels,
+        batch_size=batch_size, train=False, use_video=use_video,
+        shuffle=False, num_workers=2,
+        max_audio_frames=mc.max_audio_frames,
+        max_video_frames=mc.max_video_frames)
+    epoch = loader.epoch(0)
+    try:
+        return next(epoch)
+    except StopIteration:
+        raise ValueError(
+            f"{dataset_fp} has fewer than {batch_size} readable validation "
+            "clips") from None
+    finally:
+        epoch.close()  # stops the loader's producer thread
+
+
+def sampler_route(device: torch.device, batch: int, speculative: bool,
+                  has_video: bool) -> str:
+    """Which sampler generation takes: "speculative" (B=1 without video,
+    when asked for) or "kernel" (the AR kernel, video-conditioned or
+    not) for a model on a CUDA device at B in {1, 2, 4, 8}; "cached"
+    (``models/sampler.fast_generate``) otherwise."""
+    if device.type != "cuda" or batch not in (1, 2, 4, 8):
+        return "cached"
+    if speculative and batch == 1 and not has_video:
+        return "speculative"
+    return "kernel"
+
+
 def generate_from_checkpoint(
     checkpoint_dir: Path,
     dataset_fp: str = None,
@@ -79,31 +114,40 @@ def generate_from_checkpoint(
     from movenet_tpu_torch.ops.cuda.ar_sampler import cuda_generate
     from movenet_tpu_torch.utils.samples import export_samples
 
-    if dataset_fp:
-        raise NotImplementedError(
-            "prompts from a dataset need the data layer, which is not "
-            "ported yet (ROADMAP.md A.6); generate without --dataset")
     device = torch.device(device)
     model, config, step = load_checkpoint_model(checkpoint_dir, device)
     mc = config.model_config
+    if use_video is None:
+        use_video = config.use_video
     rf = model.receptive_fields
     n = int(n_samples or config.generate_n_samples or mc.max_audio_frames)
     if n <= rf:
         raise ValueError(f"n_samples ({n}) must exceed the receptive "
                          f"field ({rf})")
 
-    # prompts: silence (video and labels come with dataset prompts)
-    silent_code = int(mu_law_encode(torch.zeros(1), mc.input_channels)[0])
-    prompt = torch.full((batch_size, rf), silent_code, dtype=torch.int32,
-                        device=device)
+    # prompts: validation clips when a dataset is given, else silence
+    video = labels = None
+    if dataset_fp:
+        batch = first_batch(dataset_fp, mc, batch_size, use_video)
+        prompt = batch.codes[:, :rf].to(device)
+        if use_video and batch.video is not None:
+            video = batch.video.to(device)
+        if model.global_classes and batch.labels is not None:
+            labels = batch.labels.to(device)
+    else:
+        silent_code = int(mu_law_encode(torch.zeros(1),
+                                        mc.input_channels)[0])
+        prompt = torch.full((batch_size, rf), silent_code,
+                            dtype=torch.int32, device=device)
 
     t0 = time.perf_counter()
-    # the AR kernels need a CUDA device; everywhere else the cached
-    # sampler is the fast path
-    if device.type == "cuda" and prompt.shape[0] in (1, 2, 4, 8):
-        spec_ok = speculative and prompt.shape[0] == 1
+    route = sampler_route(device, prompt.shape[0], speculative,
+                          video is not None)
+    if route != "cached":
+        spec_ok = route == "speculative"
         codes = cuda_generate(model, prompt, n, temperature=temperature,
-                              seed=seed, parity_sampling=parity_sampling,
+                              seed=seed, video=video, labels=labels,
+                              parity_sampling=parity_sampling,
                               fast=fast, speculative=spec_ok,
                               spec_order=spec_order, spec_depth=spec_depth,
                               return_stats=spec_ok)
@@ -118,7 +162,8 @@ def generate_from_checkpoint(
                 g / max(1.0, g - h))
     else:
         codes = fast_generate(model, prompt, n, temperature=temperature,
-                              rng=jax_random.PRNGKey(seed),
+                              rng=jax_random.PRNGKey(seed), video=video,
+                              labels=labels,
                               parity_sampling=parity_sampling)
     codes = codes.cpu().numpy()
     dt = time.perf_counter() - t0
@@ -142,12 +187,15 @@ def main(argv=None):
                     help="run directory containing checkpoints/ and "
                          "config.json")
     ap.add_argument("--dataset", type=str, default=None,
-                    help="prompts from validation clips (not ported yet)")
+                    help="prompts (and video, labels) from the validation "
+                         "clips of this dataset tree")
     ap.add_argument("--n_samples", type=int, default=None)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--batch_size", type=int, default=1)
     ap.add_argument("--use_video", type=lambda x: bool(int(x)),
-                    default=None)
+                    default=None,
+                    help="condition on the clips' video (default: the "
+                         "run's use_video)")
     ap.add_argument("--parity_sampling", type=lambda x: bool(int(x)),
                     default=True)
     ap.add_argument("--fast_sampler", type=lambda x: bool(int(x)),
@@ -156,9 +204,9 @@ def main(argv=None):
                          "0 = exact-chain kernel")
     ap.add_argument("--speculative", type=lambda x: bool(int(x)),
                     default=False,
-                    help="B=1 only: speculative-wavefront kernel (same "
-                         "codes, hit-rate-dependent speedup on trained "
-                         "models)")
+                    help="B=1 without video only: speculative-wavefront "
+                         "kernel (same codes, hit-rate-dependent speedup "
+                         "on trained models)")
     ap.add_argument("--spec_order", type=int, default=3, choices=(2, 3),
                     help="speculative guesser order: 3 = learned (C,C) "
                          "pair table with 2-gram fallback (default), 2 = "

@@ -1,10 +1,10 @@
 """Single-launch autoregressive samplers: wrappers, plain versions, counts.
 
-The counterpart of ``movenet_tpu.ops.pallas.ar_sampler`` without video
-context.  ``cuda_generate`` takes the place of ``pallas_generate``: one
-parallel pass over the prompt fills the dilation rings
-(``WaveNet.prompt_state``) and gives the first code, then one launch of
-a kernel in ``csrc/ar_sampler.cu`` runs every step t in [RF, n).
+The counterpart of ``movenet_tpu.ops.pallas.ar_sampler``.
+``cuda_generate`` takes the place of ``pallas_generate``: one parallel
+pass over the prompt fills the dilation rings (``WaveNet.prompt_state``)
+and gives the first code, then one launch of a kernel in
+``csrc/ar_sampler.cu`` runs every step t in [RF, n).
 ``plain_generate`` computes the same function as a per-step torch loop
 (``ar_sampler_plain``); ``ar_sampler``, the kernel's wrapper, takes it
 only for tensors on the CPU.  For CUDA tensors it launches the kernel or
@@ -12,6 +12,17 @@ raises.
 
 ``fast=True`` is the reassociated chain of ``stack_fast_weights``: one
 dependent product per layer and the packed-tanh gate, in float32.
+
+``video=`` (B, F, 64, 64, 1) conditions every step on the encoded video,
+as ``pallas_generate`` does: ``encode_video`` in float32 gives ctx (B,
+T_ctx, R); the prompt pass reads ``ctx[:, :RF]``; step t reads row t of
+ctx zero-padded (or cut) to n rows, so past T_ctx a step sees a zero row
+while the context bias stays in the fg bias.  (The cached sampler
+``models/sampler.fast_generate`` repeats the last row instead, as the
+JAX package's scan sampler does; the two samplers differ there.)  The
+fg taps grow to (L, 3R, 2R) = [W_cur; W_past; W_ctx] and the fg bias
+is ``blocks_ctx_bias``.  The video launches count apart, as
+``ar_sampler_ctx_exact`` and ``ar_sampler_ctx_fast``.
 
 ``speculative=True`` (B=1, no video) is the wavefront of
 ``_make_spec_kernel``: each iteration runs step t and a guessed step
@@ -53,6 +64,8 @@ SPEC_PAIR_TABLE_MAX_C = 1024
 # kernel launches by form, counted by the wrappers where they launch
 launch_counts: Dict[str, int] = {"ar_sampler_exact": 0,
                                  "ar_sampler_fast": 0,
+                                 "ar_sampler_ctx_exact": 0,
+                                 "ar_sampler_ctx_fast": 0,
                                  "ar_sampler_spec_exact": 0,
                                  "ar_sampler_spec_fast": 0}
 
@@ -101,21 +114,33 @@ def positional_gumbel(seed: int, t: int, batch: int, c_in: int,
 
 
 # --------------------------------------------------------------- weights
-def stack_sampler_params(model: WaveNet) -> dict:
+def stack_sampler_params(model: WaveNet, with_context: bool = False
+                         ) -> dict:
     """Per-layer parameters stacked into the kernel's dense arrays:
     ``w_fg`` (L, 2R, 2R) = [W_cur; W_past], ``w_out`` (L, R, R+S) =
-    [W_res | W_skip], and a zero per-layer fg bias (no video context)."""
+    [W_res | W_skip], and a zero per-layer fg bias.  ``with_context``:
+    ``w_fg`` (L, 3R, 2R) = [W_cur; W_past; W_ctx] and the context-conv
+    bias ``blocks_ctx_bias`` (L, 2R) as the fg bias."""
     def f32(x):
         return x.detach().to(torch.float32)
 
     n_layers = len(model.dilations)
     r = model.residual_channels
+    fg_parts = [f32(model.blocks_w_cur), f32(model.blocks_w_past)]
+    if with_context:
+        if model.blocks_ctx_kernel is None:
+            raise ValueError(
+                "model was built with use_context=False but a video "
+                "context was provided")
+        fg_parts.append(f32(model.blocks_ctx_kernel))
+        b_fg = f32(model.blocks_ctx_bias)
+    else:
+        b_fg = torch.zeros(n_layers, 2 * r, device=model.front_cur.device)
     return {
         "front_cur": f32(model.front_cur),
         "front_past": f32(model.front_past),
-        "w_fg": torch.cat([f32(model.blocks_w_cur),
-                           f32(model.blocks_w_past)], dim=1),
-        "b_fg": torch.zeros(n_layers, 2 * r, device=model.front_cur.device),
+        "w_fg": torch.cat(fg_parts, dim=1),
+        "b_fg": b_fg,
         "w_out": torch.cat([f32(model.blocks_res_kernel),
                             f32(model.blocks_skip_kernel)], dim=2),
         "b_out": torch.cat([f32(model.blocks_res_bias),
@@ -139,7 +164,8 @@ def stack_fast_weights(model: WaveNet, sp: dict) -> dict:
     v = tanh(fg), gated' = v0 * v1 + v0 = 2 tanh(f) sigmoid(g).
 
     Returns w_prod (L, R, 2R) (last layer zero), fc0/fp0 (C, 2R), w_p0c
-    (R, 2R), the scaled w_fg_s / w_out_s, b_corr (L, 2R) (zero for layer
+    (R, 2R) = W_past_0, or (2R, 2R) = [W_past_0; W_ctx_0] with video
+    context, the scaled w_fg_s / w_out_s, b_corr (L, 2R) (zero for layer
     0; the caller adds it to the per-(layer, batch) fg bias and applies
     colscale to the sum) and colscale (2R,).
     """
@@ -175,7 +201,8 @@ def stack_fast_weights(model: WaveNet, sp: dict) -> dict:
 @dataclass
 class SamplerInputs:
     """Everything one launch reads: weights (float32, contiguous, on the
-    model's device), the filled rings and the first two codes."""
+    model's device), the filled rings, the first two codes and, with
+    video, the context rows."""
 
     fast: bool
     rf: int
@@ -200,6 +227,8 @@ class SamplerInputs:
     spec_adaptive: bool = True
     t2: Optional[np.ndarray] = None
     t3: Optional[np.ndarray] = None
+    # video context (B, n_samples, R) float32: row t conditions step t
+    ctx: Optional[torch.Tensor] = None
 
     @property
     def batch(self) -> int:
@@ -207,7 +236,9 @@ class SamplerInputs:
 
     @property
     def name(self) -> str:
-        return "ar_sampler_fast" if self.fast else "ar_sampler_exact"
+        form = "fast" if self.fast else "exact"
+        return (f"ar_sampler_ctx_{form}" if self.ctx is not None
+                else f"ar_sampler_{form}")
 
     @property
     def spec_name(self) -> str:
@@ -268,10 +299,6 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
         raise ValueError(f"spec_order must be 2 or 3, got {spec_order}")
     if spec_depth not in (1, 2):
         raise ValueError(f"spec_depth must be 1 or 2, got {spec_depth}")
-    if video is not None:
-        raise NotImplementedError(
-            "video conditioning in the AR kernel is not yet ported; use "
-            "fast_generate(video=...)")
     dil = model.dilations
     sum_d = int(np.sum(dil))
     c_in, r = model.input_channels, model.residual_channels
@@ -285,7 +312,14 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
     if prompt.min() < 0 or prompt.max() >= c_in:
         raise ValueError(f"prompt codes must lie in [0, {c_in})")
 
-    sp = stack_sampler_params(model)
+    ctx = None
+    if video is not None:
+        ctx = model.encode_video(torch.as_tensor(video, device=dev)).to(
+            torch.float32)                              # (B, T_ctx, R)
+        if ctx.shape[0] != batch:
+            raise ValueError(f"video batch {ctx.shape[0]} != prompt batch "
+                             f"{batch}")
+    sp = stack_sampler_params(model, with_context=ctx is not None)
     n_layers = len(dil)
     b_fg = sp["b_fg"][:, None, :].expand(n_layers, batch, 2 * r)
     global_vec = None
@@ -307,7 +341,8 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
             weights[k] = fw[k]
     weights = {k: v.contiguous() for k, v in weights.items()}
 
-    buffers, last_logits = model.prompt_state(prompt, None, global_vec)
+    buffers, last_logits = model.prompt_state(
+        prompt, None if ctx is None else ctx[:, :rf], global_vec)
     if temperature == 0.0:
         first = torch.argmax(last_logits, dim=-1)
     else:
@@ -323,6 +358,13 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
         spec = dict(spec_order=spec_order if pair_table else 2,
                     spec_depth=spec_depth,
                     spec_adaptive=bool(spec_adaptive), t2=t2, t3=t3)
+    if ctx is not None:
+        # row t conditions step t: zero rows past T_ctx, as the TPU
+        # kernel's zero-padded ctx slabs
+        n = int(n_samples)
+        if ctx.shape[1] < n:
+            ctx = F.pad(ctx, (0, 0, 0, n - ctx.shape[1]))
+        ctx = ctx[:, :n].contiguous()
     return SamplerInputs(
         fast=fast, rf=rf, n_samples=int(n_samples),
         temperature=float(temperature), parity_sampling=parity_sampling,
@@ -333,7 +375,7 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
                        dim=1).contiguous(),
         init_codes=torch.stack([prompt[:, -1],
                                 first.to(torch.int32)]).contiguous(),
-        prompt=prompt, **spec)
+        prompt=prompt, ctx=ctx, **spec)
 
 
 # ---------------------------------------------------------- plain version
@@ -344,7 +386,9 @@ def ar_sampler_plain(inp: SamplerInputs, return_margins: bool = False):
 
     ``return_margins=True`` also returns, for each step, the gap between
     the two best scores behind the next code (B, n - RF), which says how
-    close a decision was when a kernel disagrees."""
+    close a decision was when a kernel disagrees.  With video the step's
+    context row joins every [h | tap] (fast layer 0: [tap]) operand, as
+    in the TPU kernel."""
     w = inp.weights
     r = w["front_cur"].shape[1]
     ring = inp.ring.clone()
@@ -364,10 +408,11 @@ def ar_sampler_plain(inp: SamplerInputs, return_margins: bool = False):
         skip = torch.zeros(batch, w["w_out"].shape[2] - r,
                            device=ring.device)
         h = w["front_cur"][cur] + w["front_past"][prev]
+        ctx_t = [] if inp.ctx is None else [inp.ctx[:, t]]
         if not inp.fast:
             for l in range(n_layers):
                 s_l = slot(l, t)
-                fg = torch.matmul(torch.cat([h, ring[:, s_l]], dim=1),
+                fg = torch.matmul(torch.cat([h, ring[:, s_l]] + ctx_t, dim=1),
                                   w["w_fg"][l]) + inp.b_fg[l]
                 gated = torch.tanh(fg[:, :r]) * torch.sigmoid(fg[:, r:])
                 o = torch.matmul(gated, w["w_out"][l]) + w["b_out"][l]
@@ -377,7 +422,8 @@ def ar_sampler_plain(inp: SamplerInputs, return_margins: bool = False):
         else:
             fg = w["fc0"][cur] + (
                 w["fp0"][prev]
-                + torch.matmul(ring[:, slot(0, t)], w["w_p0c"])
+                + torch.matmul(torch.cat([ring[:, slot(0, t)]] + ctx_t,
+                                         dim=1), w["w_p0c"])
                 + inp.b_fg[0])
             for l in range(n_layers):
                 s_l = slot(l, t)
@@ -387,7 +433,8 @@ def ar_sampler_plain(inp: SamplerInputs, return_margins: bool = False):
                 if l + 1 < n_layers:
                     fgp = torch.matmul(gated, w["w_prod"][l])
                     pre = torch.matmul(
-                        torch.cat([h, ring[:, slot(l + 1, t)]], dim=1),
+                        torch.cat([h, ring[:, slot(l + 1, t)]] + ctx_t,
+                                  dim=1),
                         w["w_fg"][l + 1]) + inp.b_fg[l + 1]
                     fg = fgp + pre
                 ring[:, s_l] = h
@@ -614,7 +661,7 @@ def ar_sampler_spec_plain(inp: SamplerInputs, order: Optional[int] = None,
 
 
 # ---------------------------------------------------------------- kernel
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
 _SPEC_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 22
                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
@@ -654,19 +701,22 @@ def _check_inputs(inp: SamplerInputs, dev) -> tuple:
     s = w["w_out"].shape[2] - r
     batch, sum_d = inp.batch, int(sum(inp.dilations))
     f32, i32 = torch.float32, torch.int32
+    kin = 3 * r if inp.ctx is not None else 2 * r   # rows of each fg tap
     shapes = {"front_cur": (c_in, r), "front_past": (c_in, r),
-              "w_fg": (n_layers, 2 * r, 2 * r),
+              "w_fg": (n_layers, kin, 2 * r),
               "w_out": (n_layers, r, r + s), "b_out": (n_layers, r + s),
               "h1_w": (s, c_in), "h1_b": (1, c_in),
               "h2_w": (c_in, c_in), "h2_b": (1, c_in)}
     if inp.fast:
         shapes.update(fc0=(c_in, 2 * r), fp0=(c_in, 2 * r),
-                      w_p0c=(r, 2 * r), w_prod=(n_layers, r, 2 * r))
+                      w_p0c=(kin - r, 2 * r), w_prod=(n_layers, r, 2 * r))
     for k, shape in shapes.items():
         _check(k, w[k], shape, f32, dev)
     _check("b_fg", inp.b_fg, (n_layers, batch, 2 * r), f32, dev)
     _check("ring", inp.ring, (batch, sum_d, r), f32, dev)
     _check("init_codes", inp.init_codes, (2, batch), i32, dev)
+    if inp.ctx is not None:
+        _check("ctx", inp.ctx, (batch, inp.n_samples, r), f32, dev)
     return c_in, r, s, n_layers, sum_d
 
 
@@ -707,7 +757,8 @@ def _device_of(inp: SamplerInputs, what: str):
 def ar_sampler(inp: SamplerInputs) -> torch.Tensor:
     """The kernel's wrapper: (B, n - RF) int32 codes.  Tensors on the CPU
     take ``ar_sampler_plain``; CUDA tensors take one launch of
-    ``csrc/ar_sampler.cu`` on the current stream."""
+    ``csrc/ar_sampler.cu`` on the current stream (the ``HAS_CTX`` form
+    when the inputs carry video context)."""
     dev = _device_of(inp, "ar_sampler")
     if dev.type == "cpu":
         return ar_sampler_plain(inp)
@@ -724,8 +775,9 @@ def ar_sampler(inp: SamplerInputs) -> torch.Tensor:
         err = lib.movenet_ar_sampler_launch(
             int(inp.fast), *_weight_ptrs(inp),
             dil.data_ptr(), off.data_ptr(), ring.data_ptr(),
-            inp.init_codes.data_ptr(), out.data_ptr(), batch, c_in, r, s,
-            n_layers, sum_d, inp.rf, inp.n_samples, _seed32(inp.seed),
+            inp.init_codes.data_ptr(), out.data_ptr(),
+            None if inp.ctx is None else inp.ctx.data_ptr(), batch, c_in,
+            r, s, n_layers, sum_d, inp.rf, inp.n_samples, _seed32(inp.seed),
             int(inp.parity_sampling), inp.temperature,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "ar_sampler")
@@ -785,6 +837,8 @@ def cuda_generate(model: WaveNet, prompt_codes, n_samples: int,
     """Generate (B, n_samples) int32 mu-law codes, the prompt's first RF
     included, with one kernel launch on the model's CUDA device (the
     plain version for a model on the CPU).  B in {1, 2, 4, 8, 16, 32}.
+    ``video`` (B, F, 64, 64, 1) conditions the steps (see the module
+    docstring); ``labels`` (B,) the global classes.
 
     ``speculative=True`` (B=1, no video) runs the speculative kernel;
     with ``return_stats`` the result is (codes, hits), hits a 0-d int32

@@ -1,8 +1,10 @@
 """movenet_tpu_torch AR sampler (ops/cuda/ar_sampler.py) against the JAX
 Pallas kernel run in interpret mode on the CPU, at the small size of
-tests/test_pallas_sampler.py (layer 3 x stack 2, C=32, R=S=16).  The
-CUDA kernel itself runs only on a GPU: tests/test_torch_ar_sampler_cuda.py
-holds it against the plain version there."""
+tests/test_pallas_sampler.py (layer 3 x stack 2, C=32, R=S=16); the
+video cases at layer 3 x stack 1 with 1 video frame for 1000 samples.
+The CUDA kernel itself runs only on a GPU:
+tests/test_torch_ar_sampler_cuda.py holds it against the plain version
+there."""
 
 import jax
 import jax.numpy as jnp
@@ -48,20 +50,48 @@ def models():
     return _models()
 
 
-def test_stack_sampler_params_equal(models):
+@pytest.fixture(scope="module")
+def video_models():
+    """A video-conditioned model with global classes: 1 frame -> 1000
+    samples (three stride-10 stages), head2 x 10 as ``_models``; and a
+    seeded (2, 1, 64, 64, 1) video."""
+    cfg = ModelConfig(layer_size=3, stack_size=1, input_channels=32,
+                      residual_channels=16, skip_channels=16,
+                      compute_dtype="float32", max_audio_frames=1000,
+                      max_video_frames=1, global_classes=3)
+    jm = j_make(cfg)
+    video = np.random.default_rng(11).uniform(
+        0, 255, (2, 1, 64, 64, 1)).astype(np.float32)
+    variables = jm.init(jax.random.PRNGKey(0),
+                        jnp.zeros((2, 1000), jnp.int32), jnp.asarray(video),
+                        jnp.zeros((2,), jnp.int32), method=JWaveNet.init_all)
+    p = dict(variables["params"])
+    p["head2"] = dict(p["head2"],
+                      kernel=jnp.asarray(p["head2"]["kernel"]) * 10.0)
+    variables = {"params": p}
+    return jm, variables, load_jax_params(make_wavenet(cfg), variables), \
+        video
+
+
+@pytest.mark.parametrize("with_context", [False, True])
+def test_stack_sampler_params_equal(models, with_context):
     jm, variables, tm = models
-    want = jars.stack_sampler_params(jm, variables)
-    got = ars.stack_sampler_params(tm)
+    want = jars.stack_sampler_params(jm, variables, with_context)
+    got = ars.stack_sampler_params(tm, with_context)
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    r = tm.residual_channels
+    assert got["w_fg"].shape[1] == (3 if with_context else 2) * r
 
 
-def test_stack_fast_weights_equal(models):
+@pytest.mark.parametrize("with_context", [False, True])
+def test_stack_fast_weights_equal(models, with_context):
     jm, variables, tm = models
-    want = jars.stack_fast_weights(jm, jars.stack_sampler_params(jm,
-                                                                 variables))
-    got = ars.stack_fast_weights(tm, ars.stack_sampler_params(tm))
+    want = jars.stack_fast_weights(jm, jars.stack_sampler_params(
+        jm, variables, with_context))
+    got = ars.stack_fast_weights(tm, ars.stack_sampler_params(
+        tm, with_context))
     assert set(got) == set(want)
     for k in want:
         # the weight products are float32 matmuls summed in another order
@@ -167,13 +197,71 @@ def test_error_checks(models):
                        "B=1"):
         ars.cuda_generate(tm, np.zeros((2, rf), np.int32), rf + 10,
                           speculative=True)
-    with pytest.raises(NotImplementedError, match="video"):
-        ars.cuda_generate(tm, np.zeros((1, rf), np.int32), rf + 10,
-                          video=torch.zeros(1, 1, 64, 64, 1))
     with pytest.raises(ValueError, match=r"\[0, 32\)"):
         ars.cuda_generate(tm, np.full((1, rf), 32, np.int32), rf + 10)
     with pytest.raises(ValueError, match="prompt must be"):
         ars.cuda_generate(tm, np.zeros((1, rf - 1), np.int32), rf + 10)
+
+
+VIDEO_CASES = {
+    # label: (batch, n - RF or absolute n, temperature, fast, labels)
+    "greedy B=2 exact": (2, 160, 0.0, False, False),
+    "greedy B=1 fast": (1, 160, 0.0, True, False),
+    "T=1.0 parity B=2": (2, 120, 1.0, False, False),
+    "greedy B=2 labels": (2, 100, 0.0, False, True),
+    # past T_ctx = 1000 the kernel path conditions on zero rows
+    "greedy B=2 past T_ctx": (2, None, 0.0, False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VIDEO_CASES))
+def test_plain_video_matches_pallas(video_models, case):
+    jm, variables, tm, video = video_models
+    batch, extra, temp, fast, with_labels = VIDEO_CASES[case]
+    rf = jm.receptive_fields
+    n = 1100 if extra is None else rf + extra
+    prompt = np.random.default_rng(batch).integers(
+        0, 32, size=(batch, rf)).astype(np.int32)
+    labels = np.asarray([1, 2][:batch], np.int32) if with_labels else None
+    want = np.asarray(jars.pallas_generate(
+        jm, variables, jnp.asarray(prompt), n, temperature=temp, seed=5,
+        video=jnp.asarray(video[:batch]),
+        labels=None if labels is None else jnp.asarray(labels),
+        interpret=True, fast=fast))
+    got = ars.plain_generate(tm, prompt, n, temperature=temp, seed=5,
+                             video=torch.from_numpy(video[:batch]),
+                             labels=labels, fast=fast).numpy()
+    assert got.shape == (batch, n)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_video_inputs_and_route(video_models):
+    """The video inputs: (L, 3R, 2R) taps, the context bias, ctx rows
+    zero past T_ctx; the wrapper on CPU tensors takes the plain version
+    and counts no launch; speculation refuses video."""
+    jm, _, tm, video = video_models
+    rf = jm.receptive_fields
+    prompt = np.zeros((2, rf), np.int32)
+    v = torch.from_numpy(video)
+    inp = ars.prepare(tm, prompt, 1100, video=v, fast=True)
+    assert inp.name == "ar_sampler_ctx_fast"
+    assert ars.prepare(tm, prompt, rf + 8, video=v).name == \
+        "ar_sampler_ctx_exact"
+    assert inp.ctx.shape == (2, 1100, 16) and inp.ctx.is_contiguous()
+    np.testing.assert_array_equal(
+        inp.ctx[:, :1000].numpy(), tm.encode_video(v).detach().numpy())
+    assert not inp.ctx[:, 1000:].any()
+    assert inp.weights["w_fg"].shape == (3, 48, 32)
+    assert inp.weights["w_p0c"].shape == (32, 32)
+    before = dict(ars.launch_counts)
+    np.testing.assert_array_equal(ars.ar_sampler(inp).numpy(),
+                                  ars.ar_sampler_plain(inp).numpy())
+    assert ars.launch_counts == before
+    with pytest.raises(ValueError, match="without video"):
+        ars.cuda_generate(tm, prompt[:1], rf + 8, video=v[:1],
+                          speculative=True)
+    with pytest.raises(ValueError, match="video batch 2 != prompt batch 1"):
+        ars.cuda_generate(tm, prompt[:1], rf + 8, video=v)
 
 
 def test_ring_bytes_limit_message():

@@ -1,6 +1,6 @@
-"""The AR sampler kernel (csrc/ar_sampler.cu) against its plain torch
-version, on a CUDA GPU.  Imports only torch and the port, so that it
-runs on a machine without JAX:
+"""The AR sampler kernel (csrc/ar_sampler.cu), audio-only and with video
+context, against its plain torch version, on a CUDA GPU.  Imports only
+torch and the port, so that it runs on a machine without JAX:
 
     python -m pytest tests/test_torch_ar_sampler_cuda.py -q
 
@@ -46,6 +46,46 @@ def test_kernel_matches_plain(gpu_model, batch, fast, temperature):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+@pytest.fixture
+def gpu_video_model():
+    """A video-conditioned model at the same width: 1 frame -> 1000
+    samples, and a seeded (4, 1, 64, 64, 1) video."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(layer_size=3, stack_size=2, input_channels=32,
+                      residual_channels=16, skip_channels=16,
+                      max_audio_frames=1000, max_video_frames=1)
+    model = make_wavenet(cfg, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        model.head2.kernel.mul_(10.0)
+    video = np.random.default_rng(4).uniform(0, 255, (4, 1, 64, 64, 1))
+    return model.to("cuda").eval(), torch.tensor(video, dtype=torch.float32,
+                                                 device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("n", [300, 1100])      # 1100: past T_ctx = 1000
+def test_video_kernel_matches_plain(gpu_video_model, batch, fast,
+                                    temperature, n):
+    model, video = gpu_video_model
+    rf = model.receptive_fields
+    prompt = np.random.default_rng(batch).integers(0, 32, size=(batch, rf))
+    inp = ars.prepare(model, prompt, n, temperature=temperature, seed=3,
+                      video=video[:batch], fast=fast)
+    assert inp.name == ("ar_sampler_ctx_fast" if fast
+                        else "ar_sampler_ctx_exact")
+    before = ars.launch_counts[inp.name]
+    got = ars.ar_sampler(inp)
+    torch.cuda.synchronize()
+    assert ars.launch_counts[inp.name] == before + 1
+    want = ars.ar_sampler_plain(inp)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_a_wrong_input(gpu_model):
     rf = gpu_model.receptive_fields
@@ -53,3 +93,7 @@ def test_wrapper_rejects_a_wrong_input(gpu_model):
     inp.b_fg = inp.b_fg.double()
     with pytest.raises(ValueError, match="b_fg is torch.float64"):
         ars.ar_sampler(inp)
+    inp = ars.prepare(gpu_model, np.zeros((2, rf), np.int64), rf + 8)
+    inp.ctx = torch.zeros(2, rf + 8, 16, device="cuda")
+    with pytest.raises(ValueError, match=r"w_fg has shape \(6, 32, 32\)"):
+        ars.ar_sampler(inp)      # video inputs need the (L, 3R, 2R) taps
