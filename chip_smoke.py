@@ -56,11 +56,29 @@ Phases (any failure exits non-zero and prints no result):
      each of the four training kernels once, then the same steps through
      the plain versions from the same weights; the losses are finite and
      agree within 1e-3; step ms (median), steps/s, peak memory;
-  11. times: samples/s of the AR kernels and the plain versions (video
+  11. recompute kernels vs plain: at experiment 02's CLI widths (layer 3
+     x stack 3, C=R=64, S=8, bf16, B=2, T=160000, seeded random weights,
+     codes and video (2, 160, 64, 64, 1) through the encoder, flat ctx)
+     the tails forward (skip, snapshots) and backward (dx, dctx, every
+     gradient) against their plain versions, with their times; one
+     ``fused_train_loss`` loss + backward through the recompute strategy
+     against the save strategy (loss and every gradient within the
+     tolerance stated there), and each one's peak device memory;
+  12. the trainer CLI (the main path of this form): synthetic train and
+     valid splits at the real clip format (8 + 4 clips), then
+     ``movenet_tpu_torch.train.cli.main`` with experiment 02's flags and
+     --fused_strategy recompute for 1 epoch of 4 steps: the trunk runs
+     only the tails kernels (one forward per train step and validation
+     batch, one backward per step), the losses in metrics.jsonl are
+     finite, checkpoint 0 holds params, optimizer state and step 4;
+  13. resume: the same command with --n_epochs 2 --auto_resume 1 starts
+     at epoch 1 and ends at step 8; an uninterrupted 2-epoch run from
+     the same seed ends with the same params and optimizer state;
+  14. times: samples/s of the AR kernels and the plain versions (video
      and audio-only side by side), the speculative kernel's time per
      generated sample beside the standard kernel's, and the train step
      and kernel times;
-  12. the kernels line (with each kernel's bound from this run's shapes),
+  15. the kernels line (with each kernel's bound from this run's shapes),
      then the card line, then the result line.
 
 The last line of standard output is
@@ -99,6 +117,19 @@ TRAIN_KERNELS = {
     "head_bwd": ("movenet_tpu_torch/csrc/head_loss.cu",
                  "movenet_tpu/ops/pallas/head_loss.py:336"),
 }
+TAILS_KERNELS = {
+    "stack_fwd_tails": ("movenet_tpu_torch/csrc/stack_kernel.cu",
+                        "movenet_tpu/ops/pallas/stack_kernel.py:929"),
+    "stack_bwd_tails": ("movenet_tpu_torch/csrc/stack_kernel.cu",
+                        "movenet_tpu/ops/pallas/stack_kernel.py:1031"),
+}
+# experiment 02 (experiments/02_kinetics_breakdancing.sh) through the CLI:
+# its flags, with the CLI's default skip width 8
+EXP02_FLAGS = ["--use_video", "1", "--n_epochs", "10", "--batch_size", "2",
+               "--learning_rate", "0.0003", "--input_channels", "64",
+               "--residual_channels", "64", "--layer_size", "3",
+               "--stack_size", "3", "--checkpoint_every", "1",
+               "--fused_blocks", "1", "--auto_resume", "1"]
 REPLACES = {"ar_sampler_exact": "movenet_tpu/ops/pallas/ar_sampler.py:206",
             "ar_sampler_fast": "movenet_tpu/ops/pallas/ar_sampler.py:206",
             "ar_sampler_ctx_exact":
@@ -581,6 +612,35 @@ def train_bounds(b, t, l, r, s, c, v, win, proj):
             "head_bwd": bound(head_bwd_bytes, head_bwd_ops, BF16_OPS_S)}
 
 
+def tails_bounds(b, t, l, r, s, win, sum_d, tile):
+    """(bound_ms, bound_by) of the recompute kernels: the forward reads x
+    and ctx and writes skip and the snapshots; the backward also reads
+    dskip and writes dx, dctx and the gradients.  Operations: the
+    forward's products on bf16 operands (the backward recomputes them
+    once more), and the backward's gradient products on float32 operands
+    (67 TF/s without tensor cores)."""
+    m = b * t
+    w_bytes = 4 * l * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
+    ctx = 2 * m * r if win == 3 * r else 0
+    snap = 2 * b * (t // tile) * sum_d * r
+    grads = 4 * l * (win * 2 * r + r * (r + s) + r + s + b * 2 * r)
+    fwd_bytes = 2 * m * r + ctx + w_bytes + 2 * m * s + snap
+    bwd_bytes = 2 * m * r + ctx + snap + 2 * m * s + w_bytes \
+        + 2 * m * r + ctx + grads
+    fwd_ops = 2 * m * l * (win * 2 * r + r * (r + s))
+    grad_ops = 2 * m * l * ((r + s) * r + 2 * r * win + win * 2 * r
+                            + r * (r + s))
+
+    def bound(nbytes, ops_ms):
+        tb = nbytes / HBM_BYTES_S * 1e3
+        return (tb, "bytes") if tb >= ops_ms else (ops_ms, "operations")
+
+    return {"stack_fwd_tails": bound(fwd_bytes, fwd_ops / BF16_OPS_S * 1e3),
+            "stack_bwd_tails": bound(bwd_bytes, (fwd_ops / BF16_OPS_S
+                                                 + grad_ops / F32_OPS_S)
+                                     * 1e3)}
+
+
 def ar_bound(model, batch, steps, video=False):
     """(bound_ms, bound_by) of one AR sampler launch: the weights read
     once (with video W_ctx too, and the context rows of every step)
@@ -811,6 +871,298 @@ def phase_train(torch, np, cfg, model, batch):
     return runs, launches
 
 
+def exp02_setup(torch, np, seed=0):
+    """(config, model, batch) at experiment 02's CLI widths: the CLI's
+    config for its flags (S=8) with --fused_strategy recompute; seeded
+    random weights, B=2 codes of T=160000 and video (2, 160, 64, 64, 1),
+    on the card."""
+    from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.models.wavenet import make_wavenet
+    from movenet_tpu_torch.train import Batch
+
+    cfg = config_from_args(arg_parser().parse_args(
+        ["--dataset", "-", *EXP02_FLAGS, "--fused_strategy", "recompute"]))
+    mc = cfg.model_config
+    model = make_wavenet(mc, generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    t = mc.max_audio_frames
+    batch = Batch(
+        codes=torch.from_numpy(rng.integers(0, mc.input_channels,
+                                            size=(2, t))).int(),
+        video=torch.from_numpy(rng.standard_normal(
+            (2, mc.max_video_frames, 64, 64, 1)).astype(np.float32)))
+    return cfg, model.to("cuda"), batch.to("cuda")
+
+
+def phase_tails_kernels(torch, np, model, batch):
+    """The recompute kernels against their plain versions at experiment
+    02's widths, and their times; returns records by kernel."""
+    from movenet_tpu_torch.models import fused
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    dil = tuple(model.dilations)
+    bf = torch.bfloat16
+    rec = {}
+    with torch.no_grad():
+        ctx, (b_fg, w_fg, w_out, b_out) = fused._prepare_trunk(
+            model, batch.codes, batch.video, None)
+        # the encoder's output, flat (B, T, R)
+        ctx = sk.ctx_flatten(ctx, bf) if sk.ctx_is_proj(ctx) else ctx
+        x = sk.front_embed(model.front_cur, model.front_past, batch.codes,
+                           bf)
+        fargs = (x, ctx, b_fg, w_fg, w_out, b_out, dil)
+        # tolerance: bf16 outputs whose float32 sums the kernel and torch
+        # add in other orders may sit one bf16 step apart, and a step in h
+        # moves the layers above: 2% of each output's scale, as the save
+        # forward
+        got = ks.stack_fwd_tails(*fargs)
+        want = sk.stack_fwd_tails_plain(*fargs)
+        errs, equal = {}, {}
+        for name, u, w in zip(("skip", "tails"), got, want):
+            errs[name] = _err(u, w)
+            equal[name] = float((u == w).float().mean())
+            check(errs[name] <= 2e-2 * _scale(w),
+                  f"stack_fwd_tails {name}: max err {errs[name]:.3g}, "
+                  f"scale {_scale(w):.3g}")
+        rec["stack_fwd_tails"] = dict(
+            max_abs_err=max(errs.values()), errs=errs, equal=equal,
+            ms=time_cuda(torch, lambda: ks.run_fwd_tails(
+                ks.library(), *fargs, stream=ks._stream(x)), 5),
+            plain_ms=time_cuda(torch, lambda: sk.stack_fwd_tails_plain(
+                *fargs), 2))
+        # backward from the plain snapshots and a seeded dskip; float32
+        # sums over 320000 rows in other orders: 1e-3 of each gradient's
+        # scale, dx and dctx (bf16) 2%, as phase_train_kernels
+        g = torch.Generator(device="cuda").manual_seed(5)
+        dskip = (torch.randn(want[0].shape, generator=g, device="cuda")
+                 * 1e-3).to(bf)
+        bargs = (x, want[1], ctx, b_fg, w_fg, w_out, b_out, dskip, dil)
+        got = ks.stack_bwd_tails(*bargs)
+        want = sk.stack_bwd_tails_plain(*bargs)
+        errs = {}
+        for name, u, w in zip(("dx", "dctx", "db_fg", "dw_fg", "dw_out",
+                               "db_out"), got, want):
+            errs[name] = _err(u, w)
+            tol = (2e-2 if name in ("dx", "dctx") else 1e-3) * _scale(w)
+            check(errs[name] <= tol, f"stack_bwd_tails {name}: max err "
+                  f"{errs[name]:.3g}, scale {_scale(w):.3g}")
+        rec["stack_bwd_tails"] = dict(
+            max_abs_err=max(errs.values()), errs=errs,
+            ms=time_cuda(torch, lambda: ks.run_bwd_tails(
+                ks.library(), *bargs, stream=ks._stream(x)), 5),
+            plain_ms=time_cuda(torch, lambda: sk.stack_bwd_tails_plain(
+                *bargs), 2))
+    for name, r in rec.items():
+        errs = ", ".join(f"{k} {v:.3g}" for k, v in r["errs"].items())
+        extra = ""
+        if "equal" in r:
+            extra = "; bit-equal share " + ", ".join(
+                f"{k} {v:.6f}" for k, v in r["equal"].items())
+        print(f"recompute kernel {name} vs plain: {errs}{extra}; kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
+    return rec
+
+
+def phase_recompute_vs_save(torch, np, model, batch):
+    """One fused_train_loss loss + backward through the save strategy and
+    through the recompute strategy on the same weights and batch: the
+    kernels each launches, the loss and every gradient against each
+    other, and each one's peak device memory."""
+    from movenet_tpu_torch.models import fused
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    runs = {}
+    for strategy in ("save", "recompute"):
+        model.fused_strategy = strategy
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ks.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _ = fused.fused_train_loss(model, batch.codes, batch.video)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[strategy] = dict(
+            loss=float(loss.detach()), ms=ms,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=dict(ks.launch_counts),
+            grads={n: p.grad.detach().float().clone()
+                   for n, p in model.named_parameters()
+                   if p.grad is not None})
+    model.fused_strategy = "recompute"
+    model.zero_grad(set_to_none=True)
+    s, r = runs["save"], runs["recompute"]
+    check(s["launches"]["stack_fwd"] == 1 and s["launches"]["stack_bwd"] == 1
+          and s["launches"]["stack_fwd_tails"] == 0,
+          f"save launches {s['launches']}")
+    check(r["launches"]["stack_fwd_tails"] == 1
+          and r["launches"]["stack_bwd_tails"] == 1
+          and r["launches"]["stack_fwd"] == 0,
+          f"recompute launches {r['launches']}")
+    # tolerance: the recompute strategy rounds h to bf16 after every layer
+    # and gates from the unrounded taps, the save strategy keeps h in
+    # float32 and gates from the rounded taps.  In float32 the two give
+    # the same gradients; in bf16 the parity loss's gradients (CE on the
+    # softmax) cancel so much that the rounding moves every leaf by about
+    # 8% of its norm (measured with the plain versions at T=1280): loss
+    # within 1e-3 relative, each leaf's gradient within 20% of its norm
+    loss_rel = abs(r["loss"] - s["loss"]) / abs(s["loss"])
+    check(np.isfinite(r["loss"]) and loss_rel <= 1e-3,
+          f"recompute loss {r['loss']} vs save {s['loss']}")
+    check(set(r["grads"]) == set(s["grads"]), "gradient leaves differ")
+    worst, worst_name = 0.0, ""
+    for name, gs in s["grads"].items():
+        rel = float((r["grads"][name] - gs).norm() / (gs.norm() + 1e-30))
+        check(rel <= 0.2, f"recompute vs save gradient {name}: {rel:.3g} "
+              "of its norm")
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst > 0.0, "recompute and save gave identical gradients")
+    saved_gb = s["peak_gb"] - r["peak_gb"]
+    print(f"recompute vs save (B=2, T=160000, S=8, bf16): loss "
+          f"{r['loss']:.7f} vs {s['loss']:.7f} (relative {loss_rel:.3g}); "
+          f"largest gradient difference {worst:.3g} of the norm "
+          f"({worst_name}); peak memory {r['peak_gb']:.3f} GB vs "
+          f"{s['peak_gb']:.3f} GB ({saved_gb:.3f} GB less); loss + "
+          f"backward {r['ms']:.1f} ms vs {s['ms']:.1f} ms (first calls)",
+          flush=True)
+    check(saved_gb >= 0.55, f"recompute peak memory only {saved_gb:.3f} GB "
+          "below save")
+    return dict(loss_rel=loss_rel, worst=worst, worst_name=worst_name,
+                peak_save=s["peak_gb"], peak_recompute=r["peak_gb"])
+
+
+class timed_train_steps:
+    """Within the block the trainer's train steps are timed, each to a
+    synchronised card (observation only)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = []
+
+    def __enter__(self):
+        from movenet_tpu_torch.train import trainer
+
+        self.real = trainer.make_train_step
+        torch, ms = self.torch, self.ms
+
+        def make(model, config):
+            step = self.real(model, config)
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            return timed
+
+        trainer.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        from movenet_tpu_torch.train import trainer
+
+        trainer.make_train_step = self.real
+        return False
+
+
+def cli_run(ds, out, logs, extra):
+    """The trainer CLI with experiment 02's flags and the recompute
+    strategy."""
+    from movenet_tpu_torch.train import cli
+
+    return cli.main(["--dataset", str(ds), *EXP02_FLAGS, "--fused_strategy",
+                     "recompute", "--val_batch_size", "2",
+                     "--n_steps_per_epoch", "4", "--model_output_path",
+                     str(out), "--logger", "jsonl", "--training_logs_path",
+                     str(logs), *extra])
+
+
+def phase_trainer_cli(torch, np, root):
+    """The trainer CLI for 1 epoch of 4 steps on synthetic clips at the
+    real format; returns (launches, median step ms, dataset dir)."""
+    from movenet_tpu_torch.data import kinetics_index, make_synthetic_dataset
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    t0 = time.perf_counter()
+    ds = root / "exp02_clips"
+    make_synthetic_dataset(ds, splits=("train", "valid"),
+                           categories=["breakdancing"], clips_per_category=8)
+    n_val = len(kinetics_index(ds, train=False)) // 2
+    print(f"trainer data: 8 train + {2 * n_val} valid clips (16 kHz, 16 fps, "
+          f"10 s, 96x96) written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ks.reset_launch_counts()
+    kh.reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed_train_steps(torch) as steps:
+        state = cli_run(ds, root / "run", root / "logs",
+                        ["--n_epochs", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**ks.launch_counts, **kh.launch_counts}
+    check(state.step == 4, f"trainer CLI took {state.step} steps, not 4")
+    want = {"stack_fwd_tails": 4 + n_val, "stack_bwd_tails": 4,
+            "stack_fwd": 0, "stack_bwd": 0}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"trainer CLI launches {launches}, expected {want}")
+    lines = [json.loads(l) for l in
+             (root / "logs" / "metrics.jsonl").read_text().splitlines()]
+    losses = [l["loss"] for l in lines if l["tag"] in ("train", "val")]
+    check(losses and all(np.isfinite(losses)), f"losses {losses}")
+    ckpt = root / "run" / "checkpoints" / "0"
+    meta = json.loads((ckpt / "state.json").read_text())
+    check(meta == {"step": 4} and (ckpt / "params.npz").is_file()
+          and (ckpt / "optimizer.pt").is_file(),
+          f"checkpoint 0: {sorted(p.name for p in ckpt.iterdir())}, {meta}")
+    median = float(np.median(steps.ms[1:]))
+    print(f"trainer CLI (experiment 02 flags, --fused_strategy recompute): "
+          f"4 steps + {n_val} validation batches in {wall:.1f} s with the "
+          f"data; step ms {[round(v, 2) for v in steps.ms]} (median after "
+          f"the first {median:.2f}); losses {[round(v, 6) for v in losses]};"
+          f" launches {launches}; checkpoint 0 at step 4", flush=True)
+    return launches, median, ds
+
+
+def phase_resume(torch, np, root, ds):
+    """--n_epochs 2 --auto_resume 1 on the same run continues at epoch 1
+    to step 8; an uninterrupted 2-epoch run ends with the same params and
+    optimizer state."""
+    resumed = cli_run(ds, root / "run", root / "logs", ["--n_epochs", "2"])
+    lines = [json.loads(l) for l in
+             (root / "logs" / "metrics.jsonl").read_text().splitlines()]
+    epochs = [int(l["epoch"]) for l in lines if l["tag"] == "epoch"]
+    check(resumed.step == 8 and epochs == [0, 1],
+          f"resumed run: step {resumed.step}, epochs logged {epochs}")
+    whole = cli_run(ds, root / "whole", root / "logs_whole",
+                    ["--n_epochs", "2"])
+    check(whole.step == 8, f"uninterrupted run: step {whole.step}")
+    diff = 0.0
+    pr = resumed.module.state_dict()
+    for name, w in whole.module.state_dict().items():
+        diff = max(diff, _err(pr[name], w))
+    ow, orr = whole.optimizer.state_dict(), resumed.optimizer.state_dict()
+    check(ow["param_groups"] == orr["param_groups"]
+          and set(ow["state"]) == set(orr["state"]),
+          "optimizer state layout differs")
+    opt_diff = 0.0
+    for i, st in ow["state"].items():
+        for k, v in st.items():
+            opt_diff = max(opt_diff, _err(orr["state"][i][k], v))
+    print(f"resume: started at epoch 1, ended at step 8; against the "
+          f"uninterrupted run: params max difference {diff:.3g}, optimizer "
+          f"state {opt_diff:.3g}", flush=True)
+    check(diff == 0.0 and opt_diff == 0.0,
+          "the resumed run's params or optimizer state differ from the "
+          "uninterrupted run's")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -897,7 +1249,28 @@ def main() -> int:
                                            bd_batch)
         launches.update(train_launches)
 
+        phase = "recompute kernels vs plain"
+        _, e2_model, e2_batch = exp02_setup(torch, np)
+        tails_recs = phase_tails_kernels(torch, np, e2_model, e2_batch)
+        rvs = phase_recompute_vs_save(torch, np, e2_model, e2_batch)
+        del e2_model, e2_batch
+        with tempfile.TemporaryDirectory() as tmp:
+            phase = "trainer CLI"
+            cli_launches, cli_step_ms, ds = phase_trainer_cli(
+                torch, np, Path(tmp))
+            for k in TAILS_KERNELS:
+                launches[k] = cli_launches[k]
+            phase = "resume"
+            phase_resume(torch, np, Path(tmp), ds)
+
         phase = "times"
+        print(f"time recompute (experiment 02 CLI, B=2, T=160000, S=8, "
+              f"bf16): trainer step {cli_step_ms:.2f} ms (median), peak "
+              f"memory of a loss + backward {rvs['peak_recompute']:.3f} GB "
+              f"(save {rvs['peak_save']:.3f} GB); {card}", flush=True)
+        for name, r in tails_recs.items():
+            print(f"time {name}: kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms; {card}", flush=True)
         k, pl = runs["kernels"], runs["plain"]
         print(f"time train (breakdancing, B=2, T=160000, bf16): step "
               f"{k['step_ms']:.2f} ms, {1e3 / k['step_ms']:.3f} steps/s, "
@@ -961,6 +1334,19 @@ def main() -> int:
                 "bound_by": bounds[name][1], "library_ms": None,
                 "matches_plain": True,
                 "shape": "breakdancing: B=2, T=160000, L=9, R=S=C=64, bf16"})
+        from movenet_tpu_torch.ops.stack_kernel import TAILS_TILE
+        tb = tails_bounds(2, 160_000, 9, 64, 8, 3 * 64, 21, TAILS_TILE)
+        for name, (source, replaces) in TAILS_KERNELS.items():
+            r = tails_recs[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": tb[name][0],
+                "bound_by": tb[name][1], "library_ms": None,
+                "matches_plain": True,
+                "shape": "experiment 02 CLI: B=2, T=160000, L=9, R=C=64, "
+                         "S=8, bf16, flat ctx"})
         check(all(k["launches"] > 0 for k in kernels),
               "a kernel of the path was not launched")
         print(json.dumps({"kernels": kernels}))

@@ -2,13 +2,15 @@
 
 The same dataclasses, fields and defaults as ``movenet_tpu.config``, with
 the same JSON round trip, so the port reads a JAX run's ``config.json``
-unchanged.  Fields that only steer the JAX trainer (mesh shape, Pallas
-strategy, interpret mode) are kept so that a config written by either
-package loads in the other; the port's serving path ignores them.
+unchanged, and the same trainer CLI (``arg_parser``, ``config_from_args``)
+with the same flags and defaults.  Fields that only steer the JAX trainer
+(interpret mode, the flat optimizer) are kept so that a config written by
+either package loads in the other; the port ignores them.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 from dataclasses import dataclass, field
@@ -198,3 +200,179 @@ class TrainingConfig:
     @classmethod
     def load(cls, path: Path) -> "TrainingConfig":
         return cls.from_json(Path(path).read_text())
+
+
+def _bool_flag(x: str) -> bool:
+    return bool(int(x))
+
+
+def arg_parser() -> argparse.ArgumentParser:
+    """The JAX trainer's CLI surface, flag for flag and default for
+    default (the CLI defaults differ from the dataclass defaults)."""
+    p = argparse.ArgumentParser(description="movenet_tpu_torch trainer")
+    p.add_argument("--dataset", type=str)
+    p.add_argument("--batch_size", type=int, default=3)
+    p.add_argument("--val_batch_size", type=int, default=3)
+    p.add_argument("--optimizer", type=str, default="AdamW")
+    p.add_argument("--learning_rate", type=float, default=0.001)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--scheduler", type=str, default=None)
+    p.add_argument("--lr_pct_start", type=float, default=0.45)
+    p.add_argument("--base_learning_rate", type=float, default=0.0003)
+    p.add_argument("--scheduler_step_size_up", type=int, default=1000)
+    p.add_argument("--scheduler_step_size_down", type=int, default=None)
+    p.add_argument("--scheduler_cyclic_mode", type=str, default="triangular")
+    p.add_argument("--scheduler_cyclic_gamma", type=float, default=1.0)
+    p.add_argument("--scheduler_cycle_momentum", type=_bool_flag,
+                   default=False)
+    p.add_argument("--max_learning_rate", type=float, default=0.003)
+    p.add_argument("--scheduler_step_size", type=int, default=10)
+    p.add_argument("--scheduler_step_gamma", type=float, default=0.1)
+    p.add_argument(
+        "--scheduler_milestones",
+        type=lambda x: [int(i) for i in json.loads(x)],
+        default=None,
+    )
+    p.add_argument("--accumulation_steps", type=int, default=1)
+    p.add_argument("--num_workers", type=int, default=1)
+    p.add_argument("--val_num_workers", type=int, default=1)
+    p.add_argument("--pin_memory", type=_bool_flag, default=False)
+    p.add_argument("--generate_n_samples", type=int, default=None)
+    p.add_argument("--generate_temperature", type=float, default=1.0)
+    p.add_argument("--n_epochs", type=int, default=10)
+    p.add_argument("--n_steps_per_epoch", type=int, default=None)
+    p.add_argument("--use_video", type=_bool_flag, default=True)
+    p.add_argument("--batch_subsample_frac", type=float, default=None)
+    p.add_argument("--val_batch_subsample_frac", type=float, default=None)
+    p.add_argument("--gradient_clipping", type=float, default=0.0)
+    p.add_argument("--checkpoint_every", type=int, default=1)
+    p.add_argument("--input_channels", type=int, default=16)
+    p.add_argument("--residual_channels", type=int, default=16)
+    p.add_argument("--skip_channels", type=int, default=8)
+    p.add_argument("--layer_size", type=int, default=3)
+    p.add_argument("--stack_size", type=int, default=3)
+    p.add_argument("--global_classes", type=int, default=0)
+    p.add_argument("--fused_blocks", type=_bool_flag, default=False)
+    p.add_argument("--flat_optimizer", type=_bool_flag, default=True)
+    p.add_argument("--scan_steps", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    # distributed: parsed and stored; a mesh of more than one device
+    # raises in the trainer (data parallelism is not ported yet)
+    p.add_argument("--dist_backend", type=str, default=None)
+    p.add_argument("--dist_port", type=str, default="8888")
+    p.add_argument("--coordinator_address", type=str, default=None)
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--mesh_data", type=int, default=-1)
+    p.add_argument("--mesh_seq", type=int, default=1)
+    # model knobs
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--parity_softmax_output", type=_bool_flag, default=True)
+    p.add_argument("--remat", type=_bool_flag, default=False)
+    p.add_argument("--fused_strategy", type=str, default=None,
+                   choices=["auto", "save", "replay", "recompute"])
+    # model IO
+    p.add_argument(
+        "--pretrained_model_path",
+        type=lambda x: None if not x else Path(x),
+        default=None,
+    )
+    p.add_argument(
+        "--pretrained_run_exp_name",
+        type=lambda x: None if not x else x,
+        default=None,
+    )
+    p.add_argument("--model_output_path", type=Path, default=None)
+    p.add_argument("--auto_resume", type=_bool_flag, default=False)
+    p.add_argument("--training_logs_path", type=Path,
+                   default=Path("training_logs"))
+    # logging
+    p.add_argument("--logger", default=None, type=str,
+                   choices=["wandb", "tensorboard", "jsonl"])
+    p.add_argument("--log_every_n_steps", type=int, default=50)
+    p.add_argument("--log_samples_every", type=int, default=None)
+    p.add_argument("--log_video", type=_bool_flag, default=False)
+    p.add_argument("--wandb_api_key", type=str, default="")
+    p.add_argument("--wandb_project", type=str, default="dance2music-tpu")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> TrainingConfig:
+    """Map parsed CLI args onto a TrainingConfig, as the JAX package
+    does."""
+    from datetime import datetime
+
+    out_path = args.model_output_path
+    if out_path is None:
+        out_path = Path("models") / datetime.now().strftime("%Y%m%d%H%M%S")
+
+    return TrainingConfig(
+        model_config=ModelConfig(
+            layer_size=args.layer_size,
+            stack_size=args.stack_size,
+            input_channels=args.input_channels,
+            residual_channels=args.residual_channels,
+            skip_channels=args.skip_channels,
+            compute_dtype=args.compute_dtype,
+            parity_softmax_output=args.parity_softmax_output,
+            remat=args.remat,
+            fused_strategy=args.fused_strategy,
+            global_classes=args.global_classes,
+        ),
+        mesh=MeshConfig(data=args.mesh_data, seq=args.mesh_seq),
+        batch_size=args.batch_size,
+        val_batch_size=args.val_batch_size,
+        checkpoint_every=args.checkpoint_every,
+        optimizer=args.optimizer,
+        learning_rate=args.learning_rate,
+        momentum=args.momentum,
+        weight_decay=args.weight_decay,
+        accumulation_steps=args.accumulation_steps,
+        num_workers=args.num_workers,
+        val_num_workers=args.val_num_workers,
+        pin_memory=args.pin_memory,
+        n_epochs=args.n_epochs,
+        n_steps_per_epoch=args.n_steps_per_epoch,
+        use_video=args.use_video,
+        fused_blocks=args.fused_blocks,
+        flat_optimizer=args.flat_optimizer,
+        scan_steps=args.scan_steps,
+        gradient_clipping=args.gradient_clipping,
+        batch_subsample_frac=args.batch_subsample_frac,
+        val_batch_subsample_frac=args.val_batch_subsample_frac,
+        seed=args.seed,
+        generate_n_samples=args.generate_n_samples,
+        generate_temperature=args.generate_temperature,
+        scheduler=args.scheduler,
+        lr_pct_start=args.lr_pct_start,
+        base_learning_rate=args.base_learning_rate,
+        scheduler_step_size_up=args.scheduler_step_size_up,
+        scheduler_step_size_down=args.scheduler_step_size_down,
+        scheduler_cyclic_mode=args.scheduler_cyclic_mode,
+        scheduler_cyclic_gamma=args.scheduler_cyclic_gamma,
+        scheduler_cycle_momentum=args.scheduler_cycle_momentum,
+        max_learning_rate=args.max_learning_rate,
+        scheduler_step_size=args.scheduler_step_size,
+        scheduler_step_gamma=args.scheduler_step_gamma,
+        scheduler_milestones=args.scheduler_milestones,
+        dist_backend=args.dist_backend,
+        dist_port=args.dist_port,
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes,
+        process_id=args.process_id,
+        pretrained_model_path=(
+            args.pretrained_model_path
+            if args.pretrained_model_path else None
+        ),
+        pretrained_run_exp_name=args.pretrained_run_exp_name,
+        model_output_path=out_path,
+        auto_resume=args.auto_resume,
+        tensorboard_dir=args.training_logs_path,
+        log_every_n_steps=args.log_every_n_steps,
+        log_samples_every=args.log_samples_every,
+        logger=args.logger,
+        wandb_project=args.wandb_project,
+        log_video=args.log_video,
+    )

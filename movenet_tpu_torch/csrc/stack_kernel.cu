@@ -6,7 +6,9 @@
 //     writing skip_sum (B,T,S), hsave (L,B,T,R) and tfsg (L,B,T,2R);
 //   _bwd_kernel_padded (stack_kernel.py:1486, pallas_call at :1443): the
 //     backward from hsave/tfsg, with the embedding-table gradient and the
-//     stride-10 video-projection backward folded in.
+//     stride-10 video-projection backward folded in;
+//   _fwd_kernel_tails (stack_kernel.py:929) and _bwd_kernel_tails (:1031),
+//     the "recompute" strategy: see the section of that name below.
 // Only the bf16 compute dtype is built here (the operands of the forward
 // products are bf16, the backward's are f32, as on the TPU).
 //
@@ -949,6 +951,669 @@ int bwd_impl(const bf16_t* hsave, const bf16_t* tfsg, const bf16_t* ctx,
   return 0;
 }
 
+// ------------------------------------------------- recompute strategy
+// Replaces _fwd_kernel_tails (stack_kernel.py:929, pallas_call at :1003)
+// and _bwd_kernel_tails (:1031, pallas_call at :1190).  The TPU walks one
+// batch row's time tiles in order and carries each layer's dilation ring
+// from tile to tile; between forward and backward it keeps only the ring
+// at each tile start (the "tails").  Blocks here run in no order, so
+// nothing is carried between them; each block recomputes a halo instead:
+//   forward   one block per (batch row, tile of kTailsTile rows).  It runs
+//             all L layers over rows [t0 - HP, t0 + tile), HP = sum(d)
+//             rounded up to 4, from x (rows before t = 0 are zero).  The
+//             first rows of the window lack their taps, but layer l's
+//             error front advances by d_l only, so rows >= t0 are exact
+//             and so are the snapshot rows h_l[t0 - d_l, t0).  h is
+//             rounded to bf16 after every layer, as on the TPU; gated is
+//             tanh * sigmoid of the unrounded float32 taps.
+//   backward  persistent blocks (one of 16 warps per SM; shared memory
+//             allows one) walk tiles.  A tile rebuilds h_0..h_{L-1} for rows [t0, t0 +
+//             tile + HB) from x and its snapshot (bit for bit: the same
+//             fmaf chains as the forward), keeps them in shared memory as
+//             bf16, and sweeps the layers top down: dfg_l at row t needs
+//             dh at t, and dh_l at t needs dfg_l at t + d_l, so after the
+//             sweep the tile's own rows are exact.  It writes dx and dctx
+//             for its own rows, and adds the weight and bias gradients of
+//             its own rows to the block's partial sums in global memory
+//             (read-modify-write: only this block touches them, tiles in a
+//             fixed order).  A fixed-order reduction launch adds the
+//             blocks' partials.  Deterministic, no atomics.
+// Weights: the forward stages each layer's W_fg and W_out in bf16 in
+// shared memory; the backward's shared memory holds the activations, so
+// its products read the weights from global memory (L2) in rows: the
+// recompute products bf16 copies (rounded as the forward rounds them),
+// the gradient products float32 W_fg^T and W_out^T (float32 operands,
+// _BWD_OPERAND_DT on the TPU).
+//
+// Bound (experiment 02 through the CLI: B=2, T=160000, L=9, R=64, S=8,
+// flat ctx): the forward does about 1.7e11 operations on bf16 operands and
+// moves 0.16 GB (x, ctx, skip, 13 MB of snapshots): 0.17 ms of tensor-core
+// work; the backward's recompute and gradient products are about 5.6e11
+// operations, 4.2 ms of float32 work without tensor cores.  These kernels
+// are plain fmaf over shared-memory operands, with a halo of HP/tile extra
+// rows per tile and weights from L2, so fmaf issue and latency bound them,
+// far above those bounds.
+constexpr int kTailsTile = 64;
+constexpr int kMaxLayers = 64;
+// the backward's one block per SM runs 16 warps
+constexpr int kTailsBwdThreads = 512;
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+struct TailsGeom {
+  int dil[kMaxLayers];
+  int offs[kMaxLayers];   // ring offsets: sum of the dilations before l
+  int need[kMaxLayers];   // backward rows of layer l: tile + sum_{k<=l} d_k
+};
+
+// fg of 4 rows x (4 filter + 4 gate) columns c0.., over [h | h(t-d) | ctx]
+// in k order; a row pointer per row and part (bf16), W from wf(k, c0, w8)
+// (bf16 values).  The forward and the backward's rebuild share it, so the
+// rebuilt h is bit-identical to the forward's.
+template <int R, typename WF>
+__device__ __forceinline__ void fg_tile(float (&acc)[4][8],
+                                        const bf16_t* (&rows)[3][4],
+                                        int parts, WF wf) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int p = 0; p < parts; ++p) {
+    for (int k = 0; k < R; k += 2) {
+      float a0[4], a1[4], w0[8], w1[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned v = *reinterpret_cast<const unsigned*>(rows[p][i] + k);
+        a0[i] = __uint_as_float(v << 16);
+        a1[i] = __uint_as_float(v & 0xffff0000u);
+      }
+      wf(p * R + k, w0);
+      wf(p * R + k + 1, w1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a0[i], w0[j], acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a1[i], w1[j], acc[i][j]);
+    }
+  }
+}
+
+__device__ __forceinline__ float sigmoidf(float g) {
+  return 1.f / (1.f + expf(-g));
+}
+
+struct TailsFwdArgs {
+  const bf16_t* x;       // (B, T, R)
+  const bf16_t* ctx;     // (B, T, R) or null
+  const float* b_fg;     // (L*B, 2R)
+  const float* w_fg;     // (L, W_in, 2R)
+  const float* w_out;    // (L, R, R+S)
+  const float* b_out;    // (L, R+S)
+  bf16_t* skip;          // (B, T, S)
+  bf16_t* tails;         // (B, n_tiles, sum_d, R)
+  int batch, t_len, n_layers, halo, sum_d;
+  TailsGeom g;
+};
+
+template <int R, int S>
+struct TailsFwdShape {
+  static constexpr int kNo = R + S;
+  static size_t smem(int halo, bool ctx) {
+    const int n = kTailsTile + halo;
+    const int win = (ctx ? 3 : 2) * R;
+    return static_cast<size_t>(2) * ((ctx ? 3 : 2) * n * R + R +
+                                     win * 2 * R + R * kNo) +
+           4 * (kNo + 2 * R + kTailsTile * S);
+  }
+};
+
+template <int R, int S>
+__global__ void __launch_bounds__(kThreads)
+    stack_tails_fwd_kernel(TailsFwdArgs a) {
+  constexpr int NO = R + S;
+  const int hp = a.halo, n = kTailsTile + hp;
+  const bool has_ctx = a.ctx != nullptr;
+  const int win = (has_ctx ? 3 : 2) * R;
+  const int b = blockIdx.y, ti = blockIdx.x;
+  const int n_tiles = a.t_len / kTailsTile;
+  const int t0 = ti * kTailsTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* bo = reinterpret_cast<float*>(smem);        // (R+S)
+  float* bfg = bo + NO;                                // (2R)
+  float* sk = bfg + 2 * R;                             // (tile, S) skip sum
+  bf16_t* hs = reinterpret_cast<bf16_t*>(sk + kTailsTile * S);  // (n, R)
+  bf16_t* gs = hs + n * R;                             // (n, R) gated
+  bf16_t* zero = gs + n * R;                           // (R) zero row
+  bf16_t* wf = zero + R;                               // (W_in, 2R)
+  bf16_t* wo = wf + win * 2 * R;                       // (R, R+S)
+  bf16_t* cs = wo + R * NO;                            // (n, R) ctx
+  const int tid = threadIdx.x;
+
+  // window row i is time t0 - hp + i; rows outside [0, T) are zero
+  for (int i = tid; i < n * (R / 8); i += kThreads) {
+    const int row = i / (R / 8), j0 = (i % (R / 8)) * 8;
+    const int t = t0 - hp + row;
+    uint4 hv = make_uint4(0, 0, 0, 0), cv = hv;
+    if (t >= 0 && t < a.t_len) {
+      const long m = static_cast<long>(b) * a.t_len + t;
+      hv = *reinterpret_cast<const uint4*>(a.x + m * R + j0);
+      if (has_ctx) cv = *reinterpret_cast<const uint4*>(a.ctx + m * R + j0);
+    }
+    *reinterpret_cast<uint4*>(hs + row * R + j0) = hv;
+    if (has_ctx) *reinterpret_cast<uint4*>(cs + row * R + j0) = cv;
+  }
+  for (int i = tid; i < R; i += kThreads) zero[i] = 0;
+  for (int i = tid; i < kTailsTile * S; i += kThreads) sk[i] = 0.f;
+
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int d = a.g.dil[l];
+    __syncthreads();
+    // the snapshot: this layer's input at the d rows before the tile
+    bf16_t* snap = a.tails +
+        ((static_cast<long>(b) * n_tiles + ti) * a.sum_d + a.g.offs[l]) * R;
+    for (int i = tid; i < d * R; i += kThreads)
+      snap[i] = hs[(hp - d) * R + i];
+    // weights rounded to bf16, as the TPU kernel's _mdot rounds operands
+    const float* wfl = a.w_fg + static_cast<long>(l) * win * 2 * R;
+    const float* wol = a.w_out + static_cast<long>(l) * R * NO;
+    for (int i = tid; i < win * 2 * R; i += kThreads) wf[i] = f2bf(wfl[i]);
+    for (int i = tid; i < R * NO; i += kThreads) wo[i] = f2bf(wol[i]);
+    for (int i = tid; i < NO; i += kThreads)
+      bo[i] = a.b_out[static_cast<long>(l) * NO + i];
+    for (int i = tid; i < 2 * R; i += kThreads)
+      bfg[i] = a.b_fg[(static_cast<long>(l) * a.batch + b) * 2 * R + i];
+    __syncthreads();
+
+    // fg, the gate in registers, gated (rounded as a product operand)
+    for (int tile = tid; tile < (n / 4) * (R / 4); tile += kThreads) {
+      const int r0 = (tile / (R / 4)) * 4, c0 = (tile % (R / 4)) * 4;
+      const bf16_t* rows[3][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + i;
+        rows[0][i] = hs + r * R;
+        rows[1][i] = r >= d ? hs + (r - d) * R : zero;
+        rows[2][i] = cs + r * R;
+      }
+      float acc[4][8];
+      fg_tile<R>(acc, rows, has_ctx ? 3 : 2, [&](int k, float* w) {
+        load4(wf + k * 2 * R + c0, w);
+        load4(wf + k * 2 * R + R + c0, w + 4);
+      });
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float f = acc[i][j] + bfg[c0 + j];
+          const float gg = acc[i][4 + j] + bfg[R + c0 + j];
+          gs[(r0 + i) * R + c0 + j] = f2bf(tanhf(f) * sigmoidf(gg));
+        }
+    }
+    __syncthreads();
+
+    // out = gated W_out + b_out; h = bf16(out_res + h); skip += out_skip
+    constexpr int OC = NO / 8;
+    for (int tile = tid; tile < (n / 4) * OC; tile += kThreads) {
+      const int r0 = (tile / OC) * 4, c0 = (tile % OC) * 8;
+      float acc[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int k = 0; k < R; ++k) {
+        float w[8];
+        load8(wo + k * NO + c0, w);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float av = bf2f(gs[(r0 + i) * R + k]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, w[j], acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + i, t = t0 - hp + r;
+        if (t < 0) continue;                  // stays zero
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float v = acc[i][j] + bo[c0 + j];
+          const int c = c0 + j;
+          if (c < R) {
+            hs[r * R + c] = f2bf(v + bf2f(hs[r * R + c]));
+          } else if (r >= hp) {
+            sk[(r - hp) * S + c - R] += v;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kTailsTile * S; i += kThreads)
+    a.skip[(static_cast<long>(b) * a.t_len + t0) * S + i] = f2bf(sk[i]);
+}
+
+struct TailsBwdArgs {
+  const bf16_t* x;       // (B, T, R)
+  const bf16_t* tails;   // (B, n_tiles, sum_d, R)
+  const bf16_t* ctx;     // (B, T, R) or null
+  const float* b_fg;     // (L*B, 2R)
+  const bf16_t* w_fg_bf;   // (L, W_in, 2R) rounded to bf16
+  const float* w_fg_t;     // (L, 2R, W_in)
+  const bf16_t* w_out_bf;  // (L, R, R+S) rounded to bf16
+  const float* w_out_t;    // (L, R+S, R)
+  const float* b_out;    // (L, R+S)
+  const bf16_t* dskip;   // (B, T, S)
+  bf16_t* dx;            // (B, T, R)
+  bf16_t* dctx;          // (B, T, R) or null
+  float* part;           // (gridDim.x, n_part): [dw_fg | dw_out | db_out |
+                         // db_fg (L, B, 2R)]
+  long n_part;
+  int batch, t_len, n_layers, halo, sum_d;
+  TailsGeom g;
+};
+
+template <int R, int S>
+struct TailsBwdShape {
+  static size_t smem(int halo, bool ctx, int n_layers) {
+    const long n = kTailsTile + halo;
+    return 4 * (n * R + n * 2 * R + n * R + (ctx ? kTailsTile * R : 0)) +
+           2 * (static_cast<long>(n_layers) * n * R + (ctx ? n * R : 0) +
+                n * S);
+  }
+};
+
+template <int R, int S>
+__global__ void __launch_bounds__(kTailsBwdThreads)
+    stack_tails_bwd_kernel(TailsBwdArgs a) {
+  constexpr int NO = R + S, TB = kTailsTile;
+  const int n = TB + a.halo;
+  const bool has_ctx = a.ctx != nullptr;
+  const int win = (has_ctx ? 3 : 2) * R;
+  const int n_tiles = a.t_len / TB;
+  const int nl = a.n_layers;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dh = reinterpret_cast<float*>(smem);   // (n, R) dL/d(layer output)
+  float* dfg = dh + n * R;                        // (n, 2R)
+  float* xb = dfg + n * 2 * R;                    // (n, R) gated, then carry
+  float* dcx = xb + n * R;                        // (tile, R) if ctx
+  bf16_t* hl = reinterpret_cast<bf16_t*>(dcx + (has_ctx ? TB * R : 0));
+  bf16_t* cs = hl + static_cast<long>(nl) * n * R;  // (n, R) if ctx
+  bf16_t* dsk = cs + (has_ctx ? n * R : 0);         // (n, S)
+  const int tid = threadIdx.x;
+  float* part = a.part + blockIdx.x * a.n_part;
+  float* p_dwfg = part;
+  float* p_dwout = p_dwfg + static_cast<long>(nl) * win * 2 * R;
+  float* p_dbout = p_dwout + static_cast<long>(nl) * R * NO;
+  float* p_dbfg = p_dbout + static_cast<long>(nl) * NO;
+
+  for (int tile_i = blockIdx.x; tile_i < a.batch * n_tiles;
+       tile_i += gridDim.x) {
+    const int b = tile_i / n_tiles, ti = tile_i % n_tiles;
+    const int t0 = ti * TB;
+    const long m0 = static_cast<long>(b) * a.t_len + t0;
+    const bf16_t* snap = a.tails +
+        (static_cast<long>(b) * n_tiles + ti) * a.sum_d * R;
+    __syncthreads();
+    // window row r is time t0 + r; rows at or past T are zero
+    for (int i = tid; i < n * (R / 8); i += kTailsBwdThreads) {
+      const int row = i / (R / 8), j0 = (i % (R / 8)) * 8;
+      uint4 hv = make_uint4(0, 0, 0, 0), cv = hv;
+      if (t0 + row < a.t_len) {
+        hv = *reinterpret_cast<const uint4*>(a.x + (m0 + row) * R + j0);
+        if (has_ctx)
+          cv = *reinterpret_cast<const uint4*>(a.ctx + (m0 + row) * R + j0);
+      }
+      *reinterpret_cast<uint4*>(hl + row * R + j0) = hv;
+      if (has_ctx) *reinterpret_cast<uint4*>(cs + row * R + j0) = cv;
+    }
+    for (int i = tid; i < n * S; i += kTailsBwdThreads) {
+      const int row = i / S;
+      dsk[i] = t0 + row < a.t_len ? a.dskip[m0 * S + i] : bf16_t(0);
+    }
+    for (int i = tid; i < n * R; i += kTailsBwdThreads) dh[i] = 0.f;
+    if (has_ctx)
+      for (int i = tid; i < TB * R; i += kTailsBwdThreads) dcx[i] = 0.f;
+    __syncthreads();
+
+    // [h | h(t-d) | ctx] row pointers of layer l: the tap comes from the
+    // snapshot for the first d rows
+    auto row_ptrs = [&](int l, int r0, const bf16_t* (&rows)[3][4]) {
+      const int d = a.g.dil[l];
+      const bf16_t* h = hl + static_cast<long>(l) * n * R;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + i;
+        rows[0][i] = h + r * R;
+        rows[1][i] = r >= d ? h + (r - d) * R : snap + (a.g.offs[l] + r) * R;
+        rows[2][i] = cs + r * R;
+      }
+    };
+
+    // ---- rebuild h_1 .. h_{L-1} over the whole window (the top layer's
+    // sweep needs every row, and each layer's rows need the layer below's)
+    for (int l = 0; l + 1 < nl; ++l) {
+      const int rows_n = n;
+      const bf16_t* wfl = a.w_fg_bf + static_cast<long>(l) * win * 2 * R;
+      const float* bfl = a.b_fg + (static_cast<long>(l) * a.batch + b) * 2 * R;
+      for (int tile = tid; tile < (rows_n / 4) * (R / 4); tile += kTailsBwdThreads) {
+        const int r0 = (tile / (R / 4)) * 4, c0 = (tile % (R / 4)) * 4;
+        const bf16_t* rows[3][4];
+        row_ptrs(l, r0, rows);
+        float acc[4][8];
+        fg_tile<R>(acc, rows, has_ctx ? 3 : 2, [&](int k, float* w) {
+          load4(wfl + k * 2 * R + c0, w);
+          load4(wfl + k * 2 * R + R + c0, w + 4);
+        });
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float f = acc[i][j] + bfl[c0 + j];
+            const float gg = acc[i][4 + j] + bfl[R + c0 + j];
+            xb[(r0 + i) * R + c0 + j] = bf2f(f2bf(tanhf(f) * sigmoidf(gg)));
+          }
+      }
+      __syncthreads();
+      const bf16_t* wol = a.w_out_bf + static_cast<long>(l) * R * NO;
+      const float* bol = a.b_out + static_cast<long>(l) * NO;
+      const bf16_t* h = hl + static_cast<long>(l) * n * R;
+      bf16_t* hn = hl + static_cast<long>(l + 1) * n * R;
+      for (int tile = tid; tile < (rows_n / 4) * (R / 8); tile += kTailsBwdThreads) {
+        const int r0 = (tile / (R / 8)) * 4, c0 = (tile % (R / 8)) * 8;
+        float acc[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+        for (int k = 0; k < R; ++k) {
+          float w[8];
+          load8(wol + k * NO + c0, w);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float av = xb[(r0 + i) * R + k];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, w[j], acc[i][j]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + i;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = c0 + j;
+            const float v = acc[i][j] + bol[c];
+            hn[r * R + c] = t0 + r < a.t_len
+                                ? f2bf(v + bf2f(h[r * R + c])) : bf16_t(0);
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- top-down gradient sweep
+    for (int l = nl - 1; l >= 0; --l) {
+      const int d = a.g.dil[l];
+      const int rows_n = a.g.need[l];
+      const bf16_t* wfl = a.w_fg_bf + static_cast<long>(l) * win * 2 * R;
+      const float* wftl = a.w_fg_t + static_cast<long>(l) * 2 * R * win;
+      const float* wotl = a.w_out_t + static_cast<long>(l) * NO * R;
+      const float* bfl = a.b_fg + (static_cast<long>(l) * a.batch + b) * 2 * R;
+      // fg recomputed (bf16 operands), the unrounded gate, dgated =
+      // [dh | dskip] W_out^T and dfg (float32 operands)
+      for (int tile = tid; tile < (rows_n / 4) * (R / 4); tile += kTailsBwdThreads) {
+        const int r0 = (tile / (R / 4)) * 4, c0 = (tile % (R / 4)) * 4;
+        const bf16_t* rows[3][4];
+        row_ptrs(l, r0, rows);
+        float acc[4][8];
+        fg_tile<R>(acc, rows, has_ctx ? 3 : 2, [&](int k, float* w) {
+          load4(wfl + k * 2 * R + c0, w);
+          load4(wfl + k * 2 * R + R + c0, w + 4);
+        });
+        float dg[4][4] = {};
+        for (int k = 0; k < NO; ++k) {
+          const float4 wv = __ldg(reinterpret_cast<const float4*>(
+              wotl + k * R + c0));
+          const float w[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = r0 + i;
+            const float av = k < R ? dh[r * R + k] : bf2f(dsk[r * S + k - R]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) dg[i][j] = fmaf(av, w[j], dg[i][j]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float tf = tanhf(acc[i][j] + bfl[c0 + j]);
+            const float sg = sigmoidf(acc[i][4 + j] + bfl[R + c0 + j]);
+            dfg[r * 2 * R + c0 + j] = dg[i][j] * (sg * (1.f - tf * tf));
+            dfg[r * 2 * R + R + c0 + j] = dg[i][j] * (tf * (sg - sg * sg));
+            xb[r * R + c0 + j] = tf * sg;
+          }
+        }
+      }
+      __syncthreads();
+
+      // the tile's own rows into the block's partial sums
+      {
+        float* pw = p_dwfg + static_cast<long>(l) * win * 2 * R;
+        constexpr int NC = 2 * R / 8;
+        for (int tile = tid; tile < (win / 4) * NC; tile += kTailsBwdThreads) {
+          const int k0 = (tile / NC) * 4, c0 = (tile % NC) * 8;
+          const int part_i = k0 / R, kk = k0 % R;
+          float acc[4][8] = {};
+          for (int r = 0; r < TB; ++r) {
+            const bf16_t* src;
+            if (part_i == 0) src = hl + (static_cast<long>(l) * n + r) * R;
+            else if (part_i == 1)
+              src = r >= d ? hl + (static_cast<long>(l) * n + r - d) * R
+                           : snap + (a.g.offs[l] + r) * R;
+            else src = cs + r * R;
+            float av[4];
+            load4(src + kk, av);
+            const float4 b0 = *reinterpret_cast<const float4*>(
+                dfg + r * 2 * R + c0);
+            const float4 b1 = *reinterpret_cast<const float4*>(
+                dfg + r * 2 * R + c0 + 4);
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) pw[(k0 + i) * 2 * R + c0 + j] += acc[i][j];
+        }
+        float* po = p_dwout + static_cast<long>(l) * R * NO;
+        constexpr int OC = NO / 8;
+        for (int tile = tid; tile < (R / 4) * OC; tile += kTailsBwdThreads) {
+          const int k0 = (tile / OC) * 4, c0 = (tile % OC) * 8;
+          float acc[4][8] = {};
+          for (int r = 0; r < TB; ++r) {
+            const float4 av4 = *reinterpret_cast<const float4*>(xb + r * R + k0);
+            const float av[4] = {av4.x, av4.y, av4.z, av4.w};
+            float bv[8];
+            if (c0 < R) {
+              const float4 b0 = *reinterpret_cast<const float4*>(dh + r * R + c0);
+              const float4 b1 =
+                  *reinterpret_cast<const float4*>(dh + r * R + c0 + 4);
+              bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+              bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+            } else {
+              load8(dsk + r * S + c0 - R, bv);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) po[(k0 + i) * NO + c0 + j] += acc[i][j];
+        }
+        if (tid < 2 * R) {
+          float s = 0.f;
+          for (int r = 0; r < TB; ++r) s += dfg[r * 2 * R + tid];
+          p_dbfg[(static_cast<long>(l) * a.batch + b) * 2 * R + tid] += s;
+        } else if (tid - 2 * R < NO) {
+          const int c = tid - 2 * R;
+          float s = 0.f;
+          for (int r = 0; r < TB; ++r)
+            s += c < R ? dh[r * R + c] : bf2f(dsk[r * S + c - R]);
+          p_dbout[static_cast<long>(l) * NO + c] += s;
+        }
+      }
+      __syncthreads();
+
+      // dfg_w = dfg W_fg^T: dh += its h part; its past part to xb (the
+      // carry); dctx += its ctx part (own rows)
+      const int wc = win / 4;
+      for (int tile = tid; tile < (rows_n / 4) * wc; tile += kTailsBwdThreads) {
+        const int r0 = (tile / wc) * 4, c0 = (tile % wc) * 4;
+        float acc[4][4] = {};
+        for (int k = 0; k < 2 * R; ++k) {
+          const float4 wv = __ldg(reinterpret_cast<const float4*>(
+              wftl + k * win + c0));
+          const float w[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float av = dfg[(r0 + i) * 2 * R + k];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av, w[j], acc[i][j]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = c0 + j;
+            if (c < R) dh[r * R + c] = dh[r * R + c] + acc[i][j];
+            else if (c < 2 * R) xb[r * R + c - R] = acc[i][j];
+            else if (r < TB) dcx[r * R + c - 2 * R] += acc[i][j];
+          }
+        }
+      }
+      __syncthreads();
+      // the anti-causal carry: dh(t) += dfg_w_past(t + d)
+      for (int i = tid; i < rows_n * R; i += kTailsBwdThreads) {
+        const int r = i / R;
+        if (r + d < rows_n) dh[i] = dh[i] + xb[i + d * R];
+      }
+      __syncthreads();
+    }
+    for (int i = tid; i < TB * R; i += kTailsBwdThreads) {
+      a.dx[m0 * R + i] = f2bf(dh[i]);
+      if (has_ctx) a.dctx[m0 * R + i] = f2bf(dcx[i]);
+    }
+  }
+}
+
+template <int R, int S>
+int fwd_tails_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
+                   const float* w_fg, const float* w_out, const float* b_out,
+                   const TailsGeom& g, bf16_t* skip, bf16_t* tails, int batch,
+                   int t_len, int n_layers, int sum_d, cudaStream_t st) {
+  TailsFwdArgs a;
+  a.x = x;
+  a.ctx = ctx;
+  a.b_fg = b_fg;
+  a.w_fg = w_fg;
+  a.w_out = w_out;
+  a.b_out = b_out;
+  a.skip = skip;
+  a.tails = tails;
+  a.batch = batch;
+  a.t_len = t_len;
+  a.n_layers = n_layers;
+  a.halo = round4(sum_d);
+  a.sum_d = sum_d;
+  a.g = g;
+  const size_t smem = TailsFwdShape<R, S>::smem(a.halo, ctx != nullptr);
+  int err = set_smem(reinterpret_cast<const void*>(
+                         stack_tails_fwd_kernel<R, S>), smem);
+  if (err) return err;
+  stack_tails_fwd_kernel<R, S>
+      <<<dim3(t_len / kTailsTile, batch), kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R, int S>
+int bwd_tails_impl(const bf16_t* x, const bf16_t* tails, const bf16_t* ctx,
+                   const float* b_fg, const bf16_t* w_fg_bf,
+                   const float* w_fg_t, const bf16_t* w_out_bf,
+                   const float* w_out_t,
+                   const float* b_out, const bf16_t* dskip,
+                   const TailsGeom& g, float* scratch, int blocks,
+                   bf16_t* dx, bf16_t* dctx, float* grads, int batch,
+                   int t_len, int n_layers, int sum_d, long n_part,
+                   cudaStream_t st) {
+  TailsBwdArgs a;
+  a.x = x;
+  a.tails = tails;
+  a.ctx = ctx;
+  a.b_fg = b_fg;
+  a.w_fg_bf = w_fg_bf;
+  a.w_fg_t = w_fg_t;
+  a.w_out_bf = w_out_bf;
+  a.w_out_t = w_out_t;
+  a.b_out = b_out;
+  a.dskip = dskip;
+  a.dx = dx;
+  a.dctx = dctx;
+  a.part = scratch;
+  a.n_part = n_part;
+  a.batch = batch;
+  a.t_len = t_len;
+  a.n_layers = n_layers;
+  a.halo = round4(sum_d);
+  a.sum_d = sum_d;
+  a.g = g;
+  const size_t smem =
+      TailsBwdShape<R, S>::smem(a.halo, ctx != nullptr, n_layers);
+  int err = set_smem(reinterpret_cast<const void*>(
+                         stack_tails_bwd_kernel<R, S>), smem);
+  if (err) return err;
+  cudaError_t e = cudaMemsetAsync(
+      scratch, 0, static_cast<size_t>(blocks) * n_part * sizeof(float), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stack_tails_bwd_kernel<R, S><<<blocks, kTailsBwdThreads, smem, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  reduce_kernel<<<grid_for(n_part), kThreads, 0, st>>>(scratch, grads, n_part,
+                                                       1, blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// geometry of the recompute kernels; false if there are too many layers
+bool tails_geom(const int* dil, int n_layers, TailsGeom* g, int* sum_d) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return false;
+  int total = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    g->dil[l] = dil[l];
+    g->offs[l] = total;
+    total += dil[l];
+    g->need[l] = round4(kTailsTile + total);
+  }
+  *sum_d = total;
+  return true;
+}
+
+long tails_n_part(int r, int s, int win, int n_layers, int batch) {
+  return static_cast<long>(n_layers) *
+         (static_cast<long>(win) * 2 * r + r * (r + s) + (r + s) +
+          static_cast<long>(batch) * 2 * r);
+}
+
 }  // namespace
 
 #define MOVENET_STACK_WIDTHS(X) X(16, 16) X(32, 32) X(64, 64) X(64, 8)
@@ -1018,6 +1683,88 @@ int movenet_stack_bwd(const bf16_t* hsave, const bf16_t* tfsg,
                             dtab, dctx_out, db_fg, dw_fg, dw_out, db_out,    \
                             dwup, dbup, batch, t_len, n_layers,              \
                             embed_blocks, st);
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Rows per tile of the recompute kernels' snapshots.
+int movenet_tails_tile() { return kTailsTile; }
+
+// Shared memory of the recompute backward (it exceeds the forward's).
+long movenet_tails_bwd_smem(int r, int s, int win, int n_layers, int sum_d) {
+  const long n = kTailsTile + round4(sum_d);
+  const bool ctx = win == 3 * r;
+  return 4 * (n * r + n * 2 * r + n * r + (ctx ? kTailsTile * r : 0)) +
+         2 * (static_cast<long>(n_layers) * n * r + (ctx ? n * r : 0) +
+              n * s);
+}
+
+// Persistent blocks of the recompute backward: one per SM (its shared
+// memory allows one), at most one per tile.
+int movenet_tails_bwd_blocks(int n_tiles) {
+  const int sm = sm_count();
+  return n_tiles < sm ? (n_tiles < 1 ? 1 : n_tiles) : sm;
+}
+
+// Float32 scratch elements of the recompute backward: each block's
+// partial weight and bias gradients.
+long movenet_tails_bwd_scratch(int r, int s, int win, int n_layers,
+                               int batch, int blocks) {
+  return static_cast<long>(blocks) *
+         tails_n_part(r, s, win, n_layers, batch);
+}
+
+// Recompute forward: skip_sum (B,T,S) and the snapshots (B, T/tile,
+// sum(d), R); returns the first cudaError_t.  dil is a host array.
+int movenet_stack_fwd_tails(const bf16_t* x, const bf16_t* ctx,
+                            const float* b_fg, const float* w_fg,
+                            const float* w_out, const float* b_out,
+                            const int* dil, bf16_t* skip, bf16_t* tails,
+                            int batch, int t_len, int n_layers, int r, int s,
+                            void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  TailsGeom g;
+  int sum_d = 0;
+  if (t_len % kTailsTile || !tails_geom(dil, n_layers, &g, &sum_d))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define X(R_, S_)                                                         \
+  if (r == R_ && s == S_)                                                 \
+    return fwd_tails_impl<R_, S_>(x, ctx, b_fg, w_fg, w_out, b_out, g,    \
+                                  skip, tails, batch, t_len, n_layers,    \
+                                  sum_d, st);
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Recompute backward: dx, dctx (bf16, null without ctx) and grads =
+// [dw_fg (L, W_in, 2R) | dw_out (L, R, R+S) | db_out (L, R+S) | db_fg
+// (L*B, 2R)] in float32; scratch holds movenet_tails_bwd_scratch floats
+// for `blocks` blocks.  Returns the first cudaError_t.
+int movenet_stack_bwd_tails(const bf16_t* x, const bf16_t* tails,
+                            const bf16_t* ctx, const float* b_fg,
+                            const bf16_t* w_fg_bf, const float* w_fg_t,
+                            const bf16_t* w_out_bf, const float* w_out_t,
+                            const float* b_out, const bf16_t* dskip,
+                            const int* dil, float* scratch, int blocks,
+                            bf16_t* dx, bf16_t* dctx, float* grads,
+                            int batch, int t_len, int n_layers, int r,
+                            int s, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  TailsGeom g;
+  int sum_d = 0;
+  if (t_len % kTailsTile || !tails_geom(dil, n_layers, &g, &sum_d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long n_part =
+      tails_n_part(r, s, ctx ? 3 * r : 2 * r, n_layers, batch);
+#define X(R_, S_)                                                            \
+  if (r == R_ && s == S_)                                                    \
+    return bwd_tails_impl<R_, S_>(x, tails, ctx, b_fg, w_fg_bf, w_fg_t,      \
+                                  w_out_bf, w_out_t, b_out, dskip, g,        \
+                                  scratch, blocks,                           \
+                                  dx, dctx, grads, batch, t_len, n_layers,   \
+                                  sum_d, n_part, st);
   MOVENET_STACK_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);

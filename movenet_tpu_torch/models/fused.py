@@ -2,8 +2,10 @@
 trunk op, then the head/CE op, so logits never exist in full.
 
 The counterpart of ``movenet_tpu.models.fused`` for its default split
-pipeline (trunk op + head/CE op) with the front embedding folded into
-the trunk.  The ops (``ops/stack_kernel.fused_stack_embed``,
+pipeline (trunk op + head/CE op): the save strategy with the front
+embedding folded into the trunk, the recompute strategy (``remat`` or
+``fused_strategy``) through ``front_embed`` and the non-embed trunk.  The
+ops (``ops/stack_kernel.fused_stack_embed`` / ``fused_stack``,
 ``ops/head_loss.fused_head_loss``) run their CUDA kernels on tensors on
 the card and their plain versions on the CPU; gradients reach the
 module's parameters through their autograd functions.
@@ -22,18 +24,17 @@ from movenet_tpu_torch.models.wavenet import (
     video_upsample_sizes,
 )
 from movenet_tpu_torch.ops.stack_kernel import (
+    EMBED_MAX_2V,
+    front_embed,
+    fused_stack,
     fused_stack_embed,
     pick_stack_tile,
+    resolve_strategy,
     supports_recompute,
 )
 
 # the JAX package's minimum fused granularity: T must be a multiple
 TILE = 128
-
-
-def compute_dtype(model: WaveNet) -> torch.dtype:
-    return torch.bfloat16 if model.compute_dtype == "bfloat16" \
-        else torch.float32
 
 
 def supports_fused(model: WaveNet, time_steps: int) -> bool:
@@ -65,7 +66,7 @@ def _prepare_trunk(model: WaveNet, codes: torch.Tensor, video, labels):
             f"fused path needs T % {TILE} == 0, got {t}; use the "
             "unfused WaveNet.train_logits")
     r = model.residual_channels
-    dt = compute_dtype(model)
+    dt = model.dtype
     ctx = None
     if video is not None:
         enc = model.video_encoder
@@ -141,10 +142,13 @@ def codes_pack_np(codes) -> np.ndarray:
 
 def _fused_trunk(model: WaveNet, codes: torch.Tensor, video, labels,
                  codes_pack=None) -> torch.Tensor:
-    """codes (+video/labels) -> skip_sum (B, T, S) in the compute dtype,
-    through the whole-stack op with the embedding folded in."""
+    """codes (+video/labels) -> skip_sum (B, T, S) in the compute dtype.
+
+    Routed as the JAX package routes it: the save strategy with 2V <= 512
+    through the whole-stack op with the embedding folded in; any other
+    strategy through ``front_embed`` and the non-embed ``fused_stack``."""
     b, t = codes.shape
-    dt = compute_dtype(model)
+    dt = model.dtype
     dilations = tuple(model.dilations)
     try:
         pick_stack_tile(t, dilations)
@@ -158,11 +162,20 @@ def _fused_trunk(model: WaveNet, codes: torch.Tensor, video, labels,
     if strategy is None:
         strategy = "recompute" if (
             model.remat and supports_recompute(t, dilations)) else "auto"
-    if codes_pack is None:
-        codes_pack = _codes_pack(codes, with_targets=False)
-    table2 = torch.cat([model.front_cur, model.front_past], dim=0).to(dt)
-    return fused_stack_embed(codes_pack, table2, ctx, b_fg, w_fg, w_out,
-                             b_out, dilations, strategy)
+    vocab = model.front_cur.shape[0]
+    mode = resolve_strategy(strategy, (b, t, model.residual_channels),
+                            len(dilations), dilations,
+                            torch.finfo(dt).bits // 8)
+    if mode == "save" and 2 * vocab <= EMBED_MAX_2V:
+        if codes_pack is None:
+            codes_pack = _codes_pack(codes, with_targets=False)
+        table2 = torch.cat([model.front_cur, model.front_past],
+                           dim=0).to(dt)
+        return fused_stack_embed(codes_pack, table2, ctx, b_fg, w_fg, w_out,
+                                 b_out, dilations, strategy)
+    h = front_embed(model.front_cur, model.front_past, codes, dt)
+    return fused_stack(h, ctx, b_fg, w_fg, w_out, b_out, dilations,
+                       strategy)
 
 
 def fused_train_loss(model: WaveNet, codes: torch.Tensor, video=None,

@@ -4,10 +4,13 @@ The counterpart of ``movenet_tpu.models.wavenet``: the same stacked
 parameter names and shapes, in the JAX (in, out) layout, so that one set
 of weights drives both packages (``models/convert.py``).  Every size-2
 dilated causal convolution is two matrix products and a time shift
-(``ops/conv.py``); activations are (batch, time, channels).  The port
-computes in float32 whatever ``compute_dtype`` the configuration names,
-except on the fused training path (``models/fused.py``), which runs the
-video encoder and the trunk in the compute dtype as the JAX package does.
+(``ops/conv.py``); activations are (batch, time, channels).  The input
+layer, the gated blocks, the head and the video encoder compute in the
+configuration's ``compute_dtype``, each product rounded where the JAX
+package's ``preferred_element_type`` rounds it; parameters stay float32.
+``remat=True`` recomputes each block in the backward
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.  The
+cached samplers' per-step products stay float32, as the JAX package's do.
 
 Parity quirk kept: ``forward`` returns softmax probabilities by default
 (``output_unnormalized=True``), as the reference does.
@@ -21,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from movenet_tpu_torch.ops.conv import (
@@ -30,6 +34,7 @@ from movenet_tpu_torch.ops.conv import (
     upsample_kernel_size,
     wavenet_dilations,
 )
+from movenet_tpu_torch.ops.stack_kernel import front_embed
 
 MAX_AUDIO_FRAMES = 160_000
 MAX_VIDEO_FRAMES = 160
@@ -159,6 +164,23 @@ class VideoEncoder(nn.Module):
         return x
 
 
+class _Logistic(torch.autograd.Function):
+    """sigmoid(g) in g's dtype as XLA computes ``lax.logistic``: 1 / (1 +
+    exp(-g)), each step rounded to that dtype; its derivative is JAX's, g'
+    * s * (1 - s) (finite where exp(-g) overflows)."""
+
+    @staticmethod
+    def forward(ctx, g):
+        s = 1.0 / (1.0 + torch.exp(-g))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, grad):
+        (s,) = ctx.saved_tensors
+        return grad * (s * (1.0 - s))
+
+
 def _conv_transpose_valid(x: torch.Tensor, w: torch.Tensor,
                           stride: int) -> torch.Tensor:
     """``jax.lax.conv_transpose(x, w, (stride,), "VALID")`` for x (B, T,
@@ -193,7 +215,6 @@ class WaveNet(nn.Module):
                  fused_strategy: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        # read by the fused training path only (models/fused.py)
         self.compute_dtype = compute_dtype
         self.remat = remat
         self.fused_strategy = fused_strategy
@@ -270,31 +291,38 @@ class WaveNet(nn.Module):
         return receptive_field(self.layer_size, self.stack_size)
 
     # ------------------------------------------------------------ layers
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype as a torch dtype."""
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" \
+            else torch.float32
+
     def _front(self, audio: torch.Tensor) -> torch.Tensor:
         """(B, T) int codes or (B, C, T) float mass -> (B, T, R)."""
+        dt = self.dtype
         if audio.ndim == 2 and not torch.is_floating_point(audio):
-            codes = audio.long()
-            cur = self.front_cur[codes]
-            prev = self.front_past[codes]
-            return cur + causal_pad_shift(prev, 1)
+            # a table lookup whose backward is a one-hot product:
+            # deterministic sums, unlike an indexed scatter-add
+            return front_embed(self.front_cur, self.front_past, audio, dt)
         if audio.ndim != 3:
             raise ValueError(
                 "audio must be (B, T) int codes or (B, C, T) float mass, "
                 f"got shape {tuple(audio.shape)}")
-        x = audio.transpose(1, 2).to(torch.float32)
-        return torch.matmul(x, self.front_cur) \
-            + torch.matmul(causal_pad_shift(x, 1), self.front_past)
+        x = audio.transpose(1, 2).to(dt)
+        return torch.matmul(x, self.front_cur.to(dt)) \
+            + torch.matmul(causal_pad_shift(x, 1), self.front_past.to(dt))
 
     def encode_video(self, video: torch.Tensor) -> torch.Tensor:
-        """Video (B, F, H, W, C) -> (B, T_audio, R) features."""
+        """Video (B, F, H, W, C) -> (B, T_audio, R) features in the
+        compute dtype."""
         if self.video_encoder is None:
             raise ValueError("model has no video encoder parameters")
-        return self.video_encoder(video)
+        return self.video_encoder(video, dtype=self.dtype)
 
     def encode_video_coarse(self, video: torch.Tensor) -> torch.Tensor:
         if self.video_encoder is None:
             raise ValueError("model has no video encoder parameters")
-        return self.video_encoder(video, coarse=True)
+        return self.video_encoder(video, coarse=True, dtype=self.dtype)
 
     def embed_global(self, labels: Optional[torch.Tensor]
                      ) -> Optional[torch.Tensor]:
@@ -309,31 +337,50 @@ class WaveNet(nn.Module):
     def apply_block(self, l: int, x: torch.Tensor,
                     context: Optional[torch.Tensor],
                     global_vec: Optional[torch.Tensor] = None):
-        """One gated residual block: (residual, skip)."""
-        fg = torch.matmul(x, self.blocks_w_cur[l])
-        fg = fg + torch.matmul(causal_pad_shift(x, self.dilations[l]),
-                               self.blocks_w_past[l])
+        """One gated residual block: (residual, skip), in the compute
+        dtype; with ``remat`` its activations are recomputed in the
+        backward instead of kept."""
+        if context is not None and self.blocks_ctx_kernel is None:
+            raise ValueError(
+                "model was built with use_context=False but a "
+                "video context was provided")
+        if self.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                self._block, l, x, context, global_vec, use_reentrant=False)
+        return self._block(l, x, context, global_vec)
+
+    def _block(self, l: int, x: torch.Tensor,
+               context: Optional[torch.Tensor],
+               global_vec: Optional[torch.Tensor]):
+        dt = self.dtype
+
+        def dense(v, kernel, bias=None):
+            y = torch.matmul(v.to(dt), kernel.to(dt))
+            return y if bias is None else y + bias.to(dt)
+
+        fg = dense(x, self.blocks_w_cur[l])
+        fg = fg + dense(causal_pad_shift(x, self.dilations[l]),
+                        self.blocks_w_past[l])
         if context is not None:
-            if self.blocks_ctx_kernel is None:
-                raise ValueError(
-                    "model was built with use_context=False but a "
-                    "video context was provided")
-            fg = fg + (torch.matmul(context, self.blocks_ctx_kernel[l])
-                       + self.blocks_ctx_bias[l])
+            fg = fg + dense(context, self.blocks_ctx_kernel[l],
+                            self.blocks_ctx_bias[l])
         if global_vec is not None and self.global_classes:
-            fg = fg + torch.matmul(
-                global_vec, self.blocks_global_kernel[l])[:, None, :]
+            fg = fg + dense(global_vec,
+                            self.blocks_global_kernel[l])[:, None, :]
         f, g = torch.chunk(fg, 2, dim=-1)
-        gated = torch.tanh(f) * torch.sigmoid(g)
-        residual = (torch.matmul(gated, self.blocks_res_kernel[l])
-                    + self.blocks_res_bias[l]) + x
-        skip = torch.matmul(gated, self.blocks_skip_kernel[l]) \
-            + self.blocks_skip_bias[l]
+        gated = torch.tanh(f) * _Logistic.apply(g)
+        residual = dense(gated, self.blocks_res_kernel[l],
+                         self.blocks_res_bias[l]) + x
+        skip = dense(gated, self.blocks_skip_kernel[l],
+                     self.blocks_skip_bias[l])
         return residual, skip
 
     def _head(self, skip_sum: torch.Tensor) -> torch.Tensor:
-        y = self.head1(F.leaky_relu(skip_sum))
-        return self.head2(F.leaky_relu(y))
+        dt = self.dtype
+        y = torch.matmul(F.leaky_relu(skip_sum.to(dt)),
+                         self.head1.kernel.to(dt)) + self.head1.bias.to(dt)
+        return torch.matmul(F.leaky_relu(y), self.head2.kernel.to(dt)) \
+            + self.head2.bias.to(dt)
 
     def backbone(self, audio: torch.Tensor,
                  context_features: Optional[torch.Tensor],

@@ -14,8 +14,8 @@ raises.
 dependent product per layer and the packed-tanh gate, in float32.
 
 ``video=`` (B, F, 64, 64, 1) conditions every step on the encoded video,
-as ``pallas_generate`` does: ``encode_video`` in float32 gives ctx (B,
-T_ctx, R); the prompt pass reads ``ctx[:, :RF]``; step t reads row t of
+as ``pallas_generate`` does: ``encode_video`` (in the compute dtype,
+widened to float32) gives ctx (B, T_ctx, R); the prompt pass reads ``ctx[:, :RF]``; step t reads row t of
 ctx zero-padded (or cut) to n rows, so past T_ctx a step sees a zero row
 while the context bias stays in the fg bias.  (The cached sampler
 ``models/sampler.fast_generate`` repeats the last row instead, as the

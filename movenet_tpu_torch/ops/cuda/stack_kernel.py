@@ -1,15 +1,19 @@
 """Whole-stack trunk kernels: wrappers and launch counts.
 
-``stack_fwd`` and ``stack_bwd`` are the wrappers of the forward and
-backward kernels in ``csrc/stack_kernel.cu`` (which replace
-``stack_kernel.py:280 _fwd_kernel`` and ``:1486 _bwd_kernel_padded``).
+``stack_fwd`` and ``stack_bwd`` are the wrappers of the save strategy's
+forward and backward kernels in ``csrc/stack_kernel.cu`` (which replace
+``stack_kernel.py:280 _fwd_kernel`` and ``:1486 _bwd_kernel_padded``);
+``stack_fwd_tails`` and ``stack_bwd_tails`` those of the recompute
+strategy's (``:929 _fwd_kernel_tails`` and ``:1031 _bwd_kernel_tails``).
 For tensors on the CPU they return the plain versions
-(``ops/stack_kernel.stack_fwd_plain`` / ``stack_bwd_plain``); for CUDA
-tensors they launch the kernels or raise.  One call of ``stack_fwd`` is
-L+1 grid launches (the embedding, then one per layer); one call of
-``stack_bwd`` is 5L+2 (plus 3 with the video projection): per layer the
-layer launch and two weight-gradient launches with their reductions.
-Each call counts one launch in ``launch_counts``.
+(``ops/stack_kernel.stack_fwd_plain`` ...); for CUDA tensors they launch
+the kernels or raise.  One call of ``stack_fwd`` is L+1 grid launches (the
+embedding, then one per layer); one call of ``stack_bwd`` is 5L+2 (plus 3
+with the video projection): per layer the layer launch and two
+weight-gradient launches with their reductions.  ``stack_fwd_tails`` is
+one launch; ``stack_bwd_tails`` two (the tile sweep and the fixed-order
+reduction of its per-block weight-gradient partials).  Each call counts
+one launch in ``launch_counts``.
 """
 
 from __future__ import annotations
@@ -23,9 +27,12 @@ from movenet_tpu_torch.ops import stack_kernel as sk
 
 KERNEL_SOURCE = "movenet_tpu_torch/csrc/stack_kernel.cu"
 # kernel calls by wrapper, counted where the kernels launch
-launch_counts: Dict[str, int] = {"stack_fwd": 0, "stack_bwd": 0}
+launch_counts: Dict[str, int] = {"stack_fwd": 0, "stack_bwd": 0,
+                                 "stack_fwd_tails": 0, "stack_bwd_tails": 0}
 # blocks of the time-reduction launches: two per SM of an H100
 REDUCE_BLOCKS = 264
+# shared memory one block may use on sm_90
+SMEM_LIMIT = 232_448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,6 +70,21 @@ def bind(lib):
                                       _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _P]
     lib.movenet_stack_bwd.restype = _I
+    lib.movenet_tails_tile.argtypes = []
+    lib.movenet_tails_tile.restype = _I
+    lib.movenet_tails_bwd_smem.argtypes = [_I, _I, _I, _I, _I]
+    lib.movenet_tails_bwd_smem.restype = _L
+    lib.movenet_tails_bwd_blocks.argtypes = [_I]
+    lib.movenet_tails_bwd_blocks.restype = _I
+    lib.movenet_tails_bwd_scratch.argtypes = [_I, _I, _I, _I, _I, _I]
+    lib.movenet_tails_bwd_scratch.restype = _L
+    lib.movenet_stack_fwd_tails.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _P, _I, _I, _I, _I, _I, _P]
+    lib.movenet_stack_fwd_tails.restype = _I
+    lib.movenet_stack_bwd_tails.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _P, _P, _P, _P, _I, _P, _P, _P,
+                                            _I, _I, _I, _I, _I, _P]
+    lib.movenet_stack_bwd_tails.restype = _I
     return lib
 
 
@@ -205,6 +227,100 @@ def run_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab,
     return dtab, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug
 
 
+def _tails_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations):
+    """Shape checks of the recompute kernels: (B, T, L, R, S, W_in)."""
+    batch, t, r = x.shape
+    n_layers = len(dilations)
+    s = w_out.shape[2] - r
+    dev = x.device
+    if x.dtype != torch.bfloat16:
+        raise ValueError(
+            f"the trunk kernels take the bfloat16 compute dtype, got "
+            f"{x.dtype}; float32 on the card is not built (ROADMAP.md B.2)")
+    _check("x", x, torch.bfloat16, device=dev)
+    win = (3 if ctx is not None else 2) * r
+    if ctx is not None:
+        _check("ctx", ctx, torch.bfloat16, (batch, t, r), dev)
+    _check("b_fg", b_fg, torch.float32, (n_layers * batch, 2 * r), dev)
+    _check("w_fg", w_fg, torch.float32, (n_layers, win, 2 * r), dev)
+    _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
+    _check("b_out", b_out, torch.float32, (n_layers, r + s), dev)
+    if not lib.movenet_stack_supports(r, s):
+        raise NotImplementedError(
+            f"the trunk kernels are built for (R, S) in (16, 16), (32, "
+            f"32), (64, 64), (64, 8); got ({r}, {s}) (ROADMAP.md B.2)")
+    tile = lib.movenet_tails_tile()
+    if tile != sk.TAILS_TILE or t % tile:
+        raise ValueError(f"T={t} is not a multiple of the recompute tile "
+                         f"{tile} (ops/stack_kernel.TAILS_TILE "
+                         f"{sk.TAILS_TILE})")
+    smem = lib.movenet_tails_bwd_smem(r, s, win, n_layers, sum(dilations))
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"the recompute backward keeps every layer input of a tile and "
+            f"its halo of sum(dilations) = {sum(dilations)} rows in shared "
+            f"memory: {smem} bytes at L={n_layers}, R={r}, more than "
+            f"{SMEM_LIMIT} (ROADMAP.md B.5)")
+    return batch, t, n_layers, r, s, win
+
+
+def run_fwd_tails(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
+                  stream=None):
+    """Launch the recompute forward (outputs allocated here); returns
+    (skip_sum, tails) as ``stack_fwd_tails_plain``."""
+    batch, t, n_layers, r, s, _ = _tails_check(lib, x, ctx, b_fg, w_fg,
+                                               w_out, b_out, dilations)
+    bf = torch.bfloat16
+    skip = torch.empty(batch, t, s, dtype=bf, device=x.device)
+    tails = torch.empty(batch, t // sk.TAILS_TILE, sum(dilations), r,
+                        dtype=bf, device=x.device)
+    err = lib.movenet_stack_fwd_tails(
+        _ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
+        _dils(dilations), _ptr(skip), _ptr(tails), batch, t, n_layers, r, s,
+        stream)
+    _raise(err, "stack_fwd_tails")
+    return skip, tails
+
+
+def run_bwd_tails(lib, x, tails, ctx, b_fg, w_fg, w_out, b_out, dskip,
+                  dilations, stream=None):
+    """Launch the recompute backward (outputs and scratch allocated
+    here); returns as ``stack_bwd_tails_plain``."""
+    batch, t, n_layers, r, s, win = _tails_check(lib, x, ctx, b_fg, w_fg,
+                                                 w_out, b_out, dilations)
+    dev, f32 = x.device, torch.float32
+    _check("tails", tails, torch.bfloat16,
+           (batch, t // sk.TAILS_TILE, sum(dilations), r), dev)
+    _check("dskip", dskip, torch.bfloat16, (batch, t, s), dev)
+    # the recompute products read bf16 copies of the weights (rounded as
+    # the forward rounds them); the gradient products read W^T rows:
+    # float32 transposed copies (L, 2R, W_in) and (L, R+S, R)
+    w_fg_bf = w_fg.to(torch.bfloat16)
+    w_out_bf = w_out.to(torch.bfloat16)
+    w_fg_t = w_fg.transpose(1, 2).contiguous()
+    w_out_t = w_out.transpose(1, 2).contiguous()
+    blocks = lib.movenet_tails_bwd_blocks(batch * (t // sk.TAILS_TILE))
+    scratch = torch.empty(
+        lib.movenet_tails_bwd_scratch(r, s, win, n_layers, batch, blocks),
+        dtype=f32, device=dev)
+    dx = torch.empty(batch, t, r, dtype=torch.bfloat16, device=dev)
+    dctx = torch.empty_like(dx) if ctx is not None else None
+    sizes = [n_layers * win * 2 * r, n_layers * r * (r + s),
+             n_layers * (r + s), n_layers * batch * 2 * r]
+    grads = torch.empty(sum(sizes), dtype=f32, device=dev)
+    err = lib.movenet_stack_bwd_tails(
+        _ptr(x), _ptr(tails), _ptr(ctx), _ptr(b_fg), _ptr(w_fg_bf),
+        _ptr(w_fg_t), _ptr(w_out_bf), _ptr(w_out_t), _ptr(b_out),
+        _ptr(dskip),
+        _dils(dilations), _ptr(scratch), blocks, _ptr(dx), _ptr(dctx),
+        _ptr(grads), batch, t, n_layers, r, s, stream)
+    _raise(err, "stack_bwd_tails")
+    dw_fg, dw_out, db_out, db_fg = torch.split(grads, sizes)
+    return (dx, dctx, db_fg.view(n_layers * batch, 2 * r),
+            dw_fg.view(n_layers, win, 2 * r),
+            dw_out.view(n_layers, r, r + s), db_out.view(n_layers, r + s))
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -235,5 +351,31 @@ def stack_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab: int,
     return out
 
 
-__all__ = ["stack_fwd", "stack_bwd", "launch_counts",
-           "reset_launch_counts", "KERNEL_SOURCE"]
+def stack_fwd_tails(x, ctx, b_fg, w_fg, w_out, b_out,
+                    dilations: Sequence[int]):
+    """(skip_sum, tails): the plain version for CPU tensors, the recompute
+    forward kernel for CUDA tensors."""
+    if not x.is_cuda:
+        return sk.stack_fwd_tails_plain(x, ctx, b_fg, w_fg, w_out, b_out,
+                                        dilations)
+    out = run_fwd_tails(library(), x, ctx, b_fg, w_fg, w_out, b_out,
+                        dilations, _stream(x))
+    launch_counts["stack_fwd_tails"] += 1
+    return out
+
+
+def stack_bwd_tails(x, tails, ctx, b_fg, w_fg, w_out, b_out, dskip,
+                    dilations: Sequence[int]):
+    """The recompute backward: the plain version for CPU tensors, the
+    kernels for CUDA tensors (returns as ``stack_bwd_tails_plain``)."""
+    if not x.is_cuda:
+        return sk.stack_bwd_tails_plain(x, tails, ctx, b_fg, w_fg, w_out,
+                                        b_out, dskip, dilations)
+    out = run_bwd_tails(library(), x, tails, ctx, b_fg, w_fg, w_out, b_out,
+                        dskip, dilations, _stream(x))
+    launch_counts["stack_bwd_tails"] += 1
+    return out
+
+
+__all__ = ["stack_fwd", "stack_bwd", "stack_fwd_tails", "stack_bwd_tails",
+           "launch_counts", "reset_launch_counts", "KERNEL_SOURCE"]

@@ -1,18 +1,29 @@
 """Whole-stack WaveNet trunk of the training path: geometry, plain
-versions and the autograd op.
+versions and the autograd ops.
 
-The counterpart of ``movenet_tpu.ops.pallas.stack_kernel`` for the
-"save" strategy with the front embedding folded in
-(``fused_stack_embed``).  The forward runs every gated block over the
-whole sequence and keeps each layer's input ``hsave`` (L, B, T, R) and
-its packed gating taps ``tfsg`` = [tanh f | sigmoid g] (L, B, T, 2R) for
-the backward, both in the compute dtype.  The kernels live in
-``csrc/stack_kernel.cu`` behind ``ops/cuda/stack_kernel.py``; tensors on
-the CPU take the plain versions here, ``stack_fwd_plain`` and
-``stack_bwd_plain``, which compute the same function with torch ops over
-whole sequences.
+The counterpart of ``movenet_tpu.ops.pallas.stack_kernel`` for two VJP
+strategies:
 
-Numerics are the TPU kernels' (stack_kernel.py:280 and :1486):
+  save       ``fused_stack_embed``, the front embedding folded in.  The
+             forward runs every gated block over the whole sequence and
+             keeps each layer's input ``hsave`` (L, B, T, R) and its packed
+             gating taps ``tfsg`` = [tanh f | sigmoid g] (L, B, T, 2R) for
+             the backward, both in the compute dtype;
+  recompute  ``fused_stack``, which takes the embedded h (``front_embed``)
+             and returns dx.  The forward keeps only per-tile ring
+             snapshots ``tails`` (B, n_tiles, sum(d), R): for each tile of
+             ``TAILS_TILE`` rows and each layer l, h_l at the d_l rows
+             before the tile.  The backward rebuilds every layer input of
+             a tile from x and its snapshot.
+
+The kernels live in ``csrc/stack_kernel.cu`` behind
+``ops/cuda/stack_kernel.py``; tensors on the CPU take the plain versions
+here (``stack_fwd_plain``, ``stack_bwd_plain``, ``stack_fwd_tails_plain``,
+``stack_bwd_tails_plain``), which compute the same functions with torch
+ops over whole sequences.
+
+Numerics of the save strategy are the TPU kernels' (stack_kernel.py:280
+and :1486):
 
   forward   the residual stream h stays float32; every product has its
             operands rounded to the compute dtype and sums in float32;
@@ -26,8 +37,18 @@ Numerics are the TPU kernels' (stack_kernel.py:280 and :1486):
             splits dctx into (T/10, 10, R) phases; dxc and a flat dctx
             are stored in the compute dtype.
 
-The TPU forward's per-tile ring snapshots (``tails``) are not kept: in
-the save strategy ``hsave`` holds those rows.
+The recompute strategy's differ (stack_kernel.py:929 and :1031):
+
+  forward   h is rounded to the compute dtype after every layer (so the
+            backward rebuilds it bit for bit); ``gated`` is formed from
+            the unrounded float32 taps and rounded as a product operand;
+  backward  the rebuilt fg product has compute-dtype operands; the
+            gradient products have float32 operands; dfg comes from the
+            unrounded taps; dx and a flat dctx are stored in the compute
+            dtype.  A projection triple is folded outside the op
+            (``ctx_proj_fold``).
+
+So a recompute step is not bit-equal to a save step.
 """
 
 from __future__ import annotations
@@ -43,6 +64,9 @@ UPSAMPLE_STRIDE = 10
 _SAVE_ALL_BUDGET_BYTES = 1 << 30
 # the front embedding is folded into the kernel up to this 2V
 EMBED_MAX_2V = 512
+# rows per tile of the recompute strategy's snapshots (the port's own
+# tile: the snapshots never leave the op)
+TAILS_TILE = 64
 
 
 # ------------------------------------------------------------ geometry
@@ -188,6 +212,60 @@ def _ctx_proj_grads(dwup_aug, ctx):
     return dwup.to(wup.dtype), dbup.to(bup.dtype)
 
 
+def ctx_proj_fold(dctx_flat: torch.Tensor, ctx):
+    """Flat (B, T, R) dctx -> (dxc (B, T/10, R), ones-augmented weight
+    gradient (10, R+1, R)), float32: the projection triple's backward in
+    torch ops (the JAX package's ``_ctx_proj_fold_xla``)."""
+    xc, wup, _ = ctx
+    b, tc, r = xc.shape
+    f32 = torch.float32
+    dz = dctx_flat.to(f32).reshape(b, tc, UPSAMPLE_STRIDE, r)
+    dw = torch.einsum("bqe,bqpr->per", xc.to(f32), dz)
+    db = dz.sum(dim=(0, 1))
+    dwup_aug = torch.cat([dw, db[:, None, :]], dim=1)
+    wup3 = wup.to(f32).reshape(r, UPSAMPLE_STRIDE, r)
+    dxc = torch.einsum("bqpr,epr->bqe", dz, wup3)
+    return dxc, dwup_aug
+
+
+# ------------------------------------------------------ front embedding
+class _FrontEmbed(torch.autograd.Function):
+    """h[t] = cur[codes[t]] + past[codes[t-1]] (zero past at t = 0) in the
+    compute dtype; the gradients are one-hot products with float32 sums,
+    as the JAX package's ``models/fused._front_embed``."""
+
+    @staticmethod
+    def forward(fctx, cur_table, past_table, codes, dt):
+        codes = codes.long()
+        cur = cur_table.to(dt)[codes]
+        prev = past_table.to(dt)[codes]
+        fctx.save_for_backward(codes)
+        fctx.dt = dt
+        fctx.vocab = cur_table.shape[0]
+        return cur + F.pad(prev, (0, 0, 1, 0))[:, :-1]
+
+    @staticmethod
+    def backward(fctx, dh):
+        (codes,) = fctx.saved_tensors
+        f32 = torch.float32
+        r = dh.shape[-1]
+        dhr = dh.to(fctx.dt).to(f32)
+        onehot = F.one_hot(codes, fctx.vocab).to(f32)
+        dcur = onehot.reshape(-1, fctx.vocab).t() @ dhr.reshape(-1, r)
+        # past[codes[t]] feeds h[t+1]
+        dpast = onehot[:, :-1].reshape(-1, fctx.vocab).t() \
+            @ dhr[:, 1:].reshape(-1, r)
+        return dcur, dpast, None, None
+
+
+def front_embed(cur_table: torch.Tensor, past_table: torch.Tensor,
+                codes: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """(B, T) codes -> (B, T, R) embedded h in ``dt``: the front causal
+    convolution as a table lookup, with the JAX package's one-hot
+    backward (deterministic float32 sums)."""
+    return _FrontEmbed.apply(cur_table, past_table, codes, dt)
+
+
 # ------------------------------------------------------ plain versions
 def _shift(x: torch.Tensor, d: int) -> torch.Tensor:
     """x[:, t-d] along time (dim 1), zero for t < d."""
@@ -297,6 +375,104 @@ def stack_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
             dwup_aug)
 
 
+def _tails_rebuild(x, ctx, b_fg, w_fg, w_out, b_out, dilations):
+    """Every layer's input h_l (float32 holding compute-dtype values) and
+    the skip sum, as the recompute forward computes them: h rounded after
+    every layer, gated from the unrounded taps."""
+    dt = x.dtype
+    f32 = torch.float32
+
+    def rnd(v):
+        return v.to(dt).to(f32)
+
+    batch, _, r = x.shape
+    n_layers = len(dilations)
+    bfg = b_fg.to(f32).reshape(n_layers, batch, 1, 2 * r)
+    ctxf = ctx.to(f32) if ctx is not None else None
+    h = x.to(f32)
+    hs, skip = [], None
+    for l, d in enumerate(dilations):
+        hs.append(h)
+        parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
+        fg = torch.matmul(torch.cat(parts, dim=-1), rnd(w_fg[l])) + bfg[l]
+        gated = torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:])
+        out = torch.matmul(rnd(gated), rnd(w_out[l])) \
+            + b_out[l].to(f32)
+        skip = out[..., r:] if skip is None else skip + out[..., r:]
+        h = rnd(out[..., :r] + h)
+    return hs, skip
+
+
+def _tails_snapshot(hs, dilations) -> torch.Tensor:
+    """(B, n_tiles, sum(d), R): for tile i and layer l, h_l at the d_l
+    rows before the tile (zero before t = 0), at the ring offsets."""
+    batch, t, r = hs[0].shape
+    tile = TAILS_TILE
+    n_tiles = t // tile
+    offs, total = _ring_offsets(dilations)
+    out = hs[0].new_zeros(batch, n_tiles, total, r)
+    starts = torch.arange(n_tiles, device=hs[0].device) * tile
+    for l, d in enumerate(dilations):
+        rows = starts[:, None] - d + torch.arange(d, device=starts.device)
+        ok = (rows >= 0)[None, :, :, None]
+        out[:, :, offs[l]:offs[l] + d] = torch.where(
+            ok, hs[l][:, rows.clamp(min=0)], 0.0)
+    return out
+
+
+def stack_fwd_tails_plain(x, ctx, b_fg, w_fg, w_out, b_out,
+                          dilations: Sequence[int]):
+    """(skip_sum (B,T,S), tails (B, T/TAILS_TILE, sum(d), R)), both in x's
+    dtype (the compute dtype); ctx is None or flat (B,T,R) in that
+    dtype."""
+    hs, skip = _tails_rebuild(x, ctx, b_fg, w_fg, w_out, b_out, dilations)
+    return skip.to(x.dtype), _tails_snapshot(hs, dilations).to(x.dtype)
+
+
+def stack_bwd_tails_plain(x, tails, ctx, b_fg, w_fg, w_out, b_out, dskip,
+                          dilations: Sequence[int]):
+    """The backward of ``stack_fwd_tails_plain``: (dx (B,T,R), dctx (B,T,R)
+    or None, both in x's dtype; db_fg (L*B, 2R), dw_fg (L, W_in, 2R),
+    dw_out (L, R, R+S), db_out (L, R+S) in float32).
+
+    Over whole sequences the layer inputs are rebuilt from x alone; the
+    snapshot rows ``tails`` equal the rebuilt ones, so it is not read."""
+    dt = x.dtype
+    f32 = torch.float32
+    batch, t, r = x.shape
+    n_layers = len(dilations)
+    hs, _ = _tails_rebuild(x, ctx, b_fg, w_fg, w_out, b_out, dilations)
+    bfg = b_fg.to(f32).reshape(n_layers, batch, 1, 2 * r)
+    ctxf = ctx.to(f32) if ctx is not None else None
+    dsk = dskip.to(f32)
+    dh = torch.zeros(batch, t, r, dtype=f32, device=x.device)
+    dctx = torch.zeros_like(dh) if ctx is not None else None
+    db_fg, dw_fg, dw_out, db_out = ([None] * n_layers for _ in range(4))
+    for l in reversed(range(n_layers)):
+        d = dilations[l]
+        h = hs[l]
+        parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
+        hp = torch.cat(parts, dim=-1)
+        fg = torch.matmul(hp, w_fg[l].to(dt).to(f32)) + bfg[l]
+        tf, sg = torch.tanh(fg[..., :r]), torch.sigmoid(fg[..., r:])
+        dout = torch.cat([dh, dsk], dim=-1)
+        dgated = torch.matmul(dout, w_out[l].to(f32).t())
+        dfg = torch.cat([dgated * (sg * (1.0 - tf * tf)),
+                         dgated * (tf * (sg - sg * sg))], dim=-1)
+        dw_fg[l] = torch.einsum("btk,btj->kj", hp, dfg)
+        db_fg[l] = dfg.sum(dim=1)
+        dw_out[l] = torch.einsum("btk,btj->kj", tf * sg, dout)
+        db_out[l] = dout.sum(dim=(0, 1))
+        dfg_w = torch.matmul(dfg, w_fg[l].to(f32).t())
+        dh = dh + dfg_w[..., :r]
+        dh = dh + _unshift(dfg_w[..., r:2 * r], d)
+        if dctx is not None:
+            dctx = dctx + dfg_w[..., 2 * r:]
+    return (dh.to(dt), dctx.to(dt) if dctx is not None else None,
+            torch.stack(db_fg).reshape(n_layers * batch, 2 * r),
+            torch.stack(dw_fg), torch.stack(dw_out), torch.stack(db_out))
+
+
 # ------------------------------------------------------- autograd op
 class _FusedStackEmbed(torch.autograd.Function):
     """skip_sum = trunk(embed(pack)) with every gradient from the
@@ -375,9 +551,9 @@ def fused_stack_embed(codes_pack: torch.Tensor, table2: torch.Tensor,
     mode = resolve_strategy(strategy, (batch, t, r), n_layers, dilations,
                             table2.element_size())
     if mode != "save":
-        raise NotImplementedError(
-            f"fused_stack strategy {mode!r} is not ported yet; only "
-            "'save' is (ROADMAP.md B.5)")
+        raise ValueError(
+            f"fused_stack_embed is the save strategy only; {mode!r} runs "
+            "through front_embed + fused_stack (models/fused routes it)")
     xc = wup = bup = ctx_flat = None
     if ctx_is_proj(ctx):
         xc, wup, bup = ctx
@@ -388,9 +564,92 @@ def fused_stack_embed(codes_pack: torch.Tensor, table2: torch.Tensor,
                                   tuple(dilations), batch)
 
 
+class _FusedStackTails(torch.autograd.Function):
+    """skip_sum = trunk(x) through the recompute strategy: the forward
+    keeps x and the ring snapshots, the backward rebuilds the layer
+    inputs; a projection triple is flattened here and its backward folded
+    by ``ctx_proj_fold``."""
+
+    @staticmethod
+    def forward(fctx, x, ctx_flat, xc, wup, bup, b_fg, w_fg, w_out, b_out,
+                dilations):
+        from movenet_tpu_torch.ops.cuda import stack_kernel as kern
+
+        proj = xc is not None
+        if proj:
+            ctx_flat = ctx_flatten((xc, wup, bup), x.dtype)
+        skip, tails = kern.stack_fwd_tails(x, ctx_flat, b_fg, w_fg, w_out,
+                                           b_out, dilations)
+        fctx.dilations = tuple(dilations)
+        fctx.proj = proj
+        fctx.has_ctx = ctx_flat is not None
+        fctx.save_for_backward(x, tails, ctx_flat, b_fg, w_fg, w_out, b_out,
+                               xc, wup, bup)
+        return skip
+
+    @staticmethod
+    def backward(fctx, dskip):
+        from movenet_tpu_torch.ops.cuda import stack_kernel as kern
+
+        (x, tails, ctx_flat, b_fg, w_fg, w_out, b_out, xc, wup,
+         bup) = fctx.saved_tensors
+        dx, dctx, db_fg, dw_fg, dw_out, db_out = kern.stack_bwd_tails(
+            x, tails, ctx_flat, b_fg, w_fg, w_out, b_out,
+            dskip.to(x.dtype).contiguous(), fctx.dilations)
+        d_flat = d_xc = d_wup = d_bup = None
+        if fctx.proj:
+            dxc, dwup_aug = ctx_proj_fold(dctx, (xc, wup, bup))
+            d_xc = dxc.to(xc.dtype)
+            d_wup, d_bup = _ctx_proj_grads(dwup_aug, (xc, wup, bup))
+        elif fctx.has_ctx:
+            d_flat = dctx.to(ctx_flat.dtype)
+        return (dx, d_flat, d_xc, d_wup, d_bup, db_fg,
+                dw_fg.to(w_fg.dtype), dw_out.to(w_out.dtype), db_out, None)
+
+
+def fused_stack(x: torch.Tensor, ctx, b_fg, w_fg, w_out, b_out,
+                dilations: Sequence[int],
+                strategy: str = "auto") -> torch.Tensor:
+    """All gated blocks over the embedded input (the JAX package's
+    non-embed ``fused_stack``).
+
+    Args:
+      x: (B, T, R) front-embedding output in the compute dtype, which
+        every output takes.
+      ctx: None, flat (B, T, R) in the compute dtype, or the projection
+        triple (xc (B, T/10, R), wup (R, 10R), bup (10R,)).
+      b_fg: (L*B, 2R); w_fg (L, 2R|3R, 2R); w_out (L, R, R+S); b_out
+        (L, R+S), all float32.
+      strategy: "auto", "save", "recompute" or "replay", resolved as the
+        JAX package resolves it; only "recompute" is ported here.
+    Returns:
+      skip_sum (B, T, S) in the compute dtype.
+    """
+    mode = resolve_strategy(strategy, tuple(x.shape), w_fg.shape[0],
+                            dilations, x.element_size())
+    if mode == "save":
+        raise NotImplementedError(
+            "the non-embed save form of fused_stack (front embedding "
+            "outside the kernel, needed for 2V > 512) is not ported yet "
+            "(ROADMAP.md B.2)")
+    if mode == "replay":
+        raise NotImplementedError(
+            "the replay strategy (the save_h=False forms of the trunk "
+            "kernels) is not ported yet (ROADMAP.md B.2, B.3)")
+    xc = wup = bup = ctx_flat = None
+    if ctx_is_proj(ctx):
+        xc, wup, bup = ctx
+    else:
+        ctx_flat = ctx
+    return _FusedStackTails.apply(x, ctx_flat, xc, wup, bup, b_fg, w_fg,
+                                  w_out, b_out, tuple(dilations))
+
+
 __all__ = [
     "pick_stack_tile", "supports_recompute", "resolve_strategy",
-    "ctx_is_proj", "ctx_flatten", "stack_fwd_plain", "stack_bwd_plain",
-    "fused_stack_embed",
+    "ctx_is_proj", "ctx_flatten", "ctx_proj_fold", "front_embed",
+    "stack_fwd_plain", "stack_bwd_plain", "stack_fwd_tails_plain",
+    "stack_bwd_tails_plain", "fused_stack_embed", "fused_stack",
+    "TAILS_TILE",
 ]
 

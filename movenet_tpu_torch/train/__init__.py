@@ -1,9 +1,13 @@
 """Training layer of the port: optimizers, the train and eval steps, and
-parameter checkpoints."""
+checkpoints (the trainer and its CLI are ``train.trainer`` and
+``train.cli``)."""
 
 from movenet_tpu_torch.train.checkpoint import (
+    CheckpointManager,
     latest_step,
+    restore_checkpoint,
     restore_params,
+    save_checkpoint,
     save_params,
 )
 from movenet_tpu_torch.train.loop import (
@@ -15,6 +19,7 @@ from movenet_tpu_torch.train.loop import (
 )
 from movenet_tpu_torch.train.optim import make_optimizer
 
-__all__ = ["latest_step", "restore_params", "save_params", "Batch",
+__all__ = ["CheckpointManager", "latest_step", "restore_checkpoint",
+           "restore_params", "save_checkpoint", "save_params", "Batch",
            "TrainState", "create_train_state", "make_eval_step",
            "make_train_step", "make_optimizer"]

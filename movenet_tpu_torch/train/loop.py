@@ -7,7 +7,8 @@ quirk, ``parity_softmax_output``) or on the logits, over the targets
 ``config.fused_blocks`` the loss runs through the fused trunk and
 head/CE ops (``models/fused.fused_train_loss``): CUDA kernels for a
 model on the card, their plain versions on the CPU.  Without it the
-unfused ``WaveNet.train_logits`` runs in float32.
+unfused ``WaveNet.train_logits`` runs in the compute dtype and the loss
+in float32.
 
 A step takes the mean of the microbatch gradients
 (``accumulation_steps``), measures their global norm before clipping,
@@ -64,16 +65,22 @@ class TrainState:
     lr_schedule: Optional[Callable] = None
 
 
-def create_train_state(model: WaveNet, config, optimizer=None,
-                       lr_schedule=None, device="cuda") -> TrainState:
-    """Moves the model to ``device`` (the card unless the caller asks for
-    the CPU; no card raises) and builds ``make_optimizer(config)``."""
+def training_device(device="cuda") -> torch.device:
+    """``device`` as a torch device; a CUDA device without a card
+    raises (the CPU only when the caller asks for it)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} requested but no CUDA device is "
             "available (pass device='cpu' to train on the CPU)")
-    model = model.to(device)
+    return device
+
+
+def create_train_state(model: WaveNet, config, optimizer=None,
+                       lr_schedule=None, device="cuda") -> TrainState:
+    """Moves the model to ``device`` (the card unless the caller asks for
+    the CPU; no card raises) and builds ``make_optimizer(config)``."""
+    model = model.to(training_device(device))
     if optimizer is None:
         optimizer = make_optimizer(config, model.parameters())
     return TrainState(module=model, optimizer=optimizer, step=0,

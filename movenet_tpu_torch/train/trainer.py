@@ -1,0 +1,387 @@
+"""The epoch loop: config -> data -> train/eval steps -> checkpoints ->
+metrics -> sample export.
+
+The counterpart of ``movenet_tpu.train.trainer`` on one device.  Per
+epoch: the train loop (optional step cap), validation, periodic
+generation and sample export, and a periodic checkpoint (and a final
+one).  ``--auto_resume`` continues from the run's latest checkpoint; a
+SIGTERM or SIGINT checkpoints and stops at the next step boundary.
+
+Data parallelism (a mesh of more than one device, several processes) is
+not ported yet (ROADMAP.md A.8), nor are multi-step calls
+(``scan_steps`` > 1, ROADMAP.md A.3): both raise.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from movenet_tpu_torch.config import TrainingConfig
+from movenet_tpu_torch.data.pipeline import DataLoader, get_dataloader
+from movenet_tpu_torch.models.sampler import fast_generate
+from movenet_tpu_torch.models.wavenet import WaveNet, make_wavenet
+from movenet_tpu_torch.ops import jax_random
+from movenet_tpu_torch.train.checkpoint import CheckpointManager, latest_step
+from movenet_tpu_torch.train.loop import (
+    Batch,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    training_device,
+)
+from movenet_tpu_torch.utils.observability import make_writer, process_index
+from movenet_tpu_torch.utils.samples import export_samples
+
+logger = logging.getLogger(__name__)
+
+
+class PreemptionGuard:
+    """SIGTERM/SIGINT set a flag; the epoch loop checkpoints and exits at
+    the next step boundary, and ``--auto_resume`` continues the run."""
+
+    def __init__(self, install: bool = True):
+        import signal
+
+        self.requested = False
+        self._prev = {}
+        if not install:
+            return
+        import threading
+        if threading.current_thread() is not threading.main_thread():
+            return  # signals only installable from the main thread
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev[sig] = signal.signal(sig, self._handler)
+            except (ValueError, OSError):  # pragma: no cover
+                pass
+
+    def _handler(self, signum, frame):
+        logger.warning("received signal %s: will checkpoint and exit "
+                       "at the next step boundary", signum)
+        self.requested = True
+
+    def restore(self):
+        import signal
+
+        for sig, prev in self._prev.items():
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, OSError):  # pragma: no cover
+                pass
+
+
+def _device_prefetch(batches, device, depth: int = 2):
+    """Move host batches to ``device`` on a thread, ``depth`` batches ahead
+    of the train step."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        # never block forever: the consumer may stop early (step caps,
+        # preemption) and the producer must not leak a blocked thread
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for b in batches:
+                if not _put(b.to(device)):
+                    return
+        except Exception as e:  # surface on the consumer side
+            _put(e)
+        finally:
+            _put(None)
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def _stack_batches(bs) -> Batch:
+    def stack(name):
+        vals = [getattr(b, name) for b in bs]
+        return None if vals[0] is None else torch.stack(vals)
+
+    return Batch(codes=stack("codes"), video=stack("video"),
+                 labels=stack("labels"), codes_pack=stack("codes_pack"))
+
+
+def _chunk_batches(batches, n: int, max_steps: Optional[int] = None):
+    """Group host batches into stacked (n, ...) chunks for a multi-step
+    call; the tail that does not fill a chunk (epoch end, step cap) is
+    yielded as plain per-step batches."""
+    buf = []
+    produced = 0
+    for b in batches:
+        if max_steps is not None and produced >= max_steps:
+            break
+        buf.append(b)
+        produced += 1
+        if len(buf) == n:
+            yield _stack_batches(buf)
+            buf = []
+    for b in buf:
+        yield b
+
+
+def _mean_metrics(metrics_list) -> Dict[str, float]:
+    if not metrics_list:
+        return {}
+    keys = metrics_list[0].keys()
+    return {k: float(np.mean([float(m[k]) for m in metrics_list]))
+            for k in keys}
+
+
+def _resolve_run_dir(exp_name: str, out_dir: Path) -> Path:
+    """``--pretrained_run_exp_name`` -> a local run directory holding
+    checkpoints: the name as a path, or a sibling run under out_dir's
+    parent.  Fails loudly."""
+    candidates = [Path(exp_name), out_dir.parent / exp_name]
+    tried = []
+    for cand in candidates:
+        tried.append(str(cand))
+        if cand.is_dir() and latest_step(cand) is not None:
+            return cand
+    raise FileNotFoundError(
+        f"pretrained_run_exp_name={exp_name!r}: no run directory with "
+        f"checkpoints found (tried: {', '.join(tried)})")
+
+
+def _check_single_device(config: TrainingConfig) -> None:
+    mesh = config.mesh
+    if mesh.data > 1 or mesh.seq > 1 or (config.num_processes or 1) > 1 \
+            or config.coordinator_address:
+        raise NotImplementedError(
+            f"mesh data={mesh.data} seq={mesh.seq}, num_processes="
+            f"{config.num_processes}: data-parallel training is not ported "
+            "yet (ROADMAP.md A.8); the port trains on one device")
+    if max(1, int(config.scan_steps)) > 1:
+        raise NotImplementedError(
+            f"scan_steps={config.scan_steps}: multi-step calls are not "
+            "ported yet (ROADMAP.md A.3); use scan_steps 1")
+
+
+def train_model(
+    dataset_fp: str,
+    config: TrainingConfig,
+    train_loader: Optional[DataLoader] = None,
+    val_loader: Optional[DataLoader] = None,
+    device="cuda",
+):
+    """Train a WaveNet per the config on ``device`` (the card unless the
+    caller asks for the CPU; no card raises); returns the final
+    TrainState.  ``train_loader``/``val_loader`` may be injected; by
+    default they come from the dataset tree at ``dataset_fp``."""
+    device = training_device(device)
+    _check_single_device(config)
+    mc = config.model_config
+    loader_kwargs = dict(
+        input_channels=mc.input_channels,
+        batch_size=config.batch_size,
+        use_video=config.use_video,
+        accumulation_steps=config.accumulation_steps,
+        max_audio_frames=mc.max_audio_frames,
+        max_video_frames=mc.max_video_frames,
+        process_index=0,
+        process_count=1,
+    )
+    if train_loader is None:
+        train_loader = get_dataloader(
+            dataset_fp, train=True, num_workers=config.num_workers,
+            batch_subsample_frac=config.batch_subsample_frac,
+            **loader_kwargs)
+    if val_loader is None:
+        vkw = dict(loader_kwargs)
+        vkw.update(batch_size=config.val_batch_size,
+                   accumulation_steps=1)
+        val_loader = get_dataloader(
+            dataset_fp, train=False, num_workers=config.val_num_workers,
+            batch_subsample_frac=config.val_batch_subsample_frac,
+            shuffle=False, **vkw)
+
+    steps_per_epoch = train_loader.steps_per_epoch()
+    if config.n_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, config.n_steps_per_epoch)
+
+    # a run without video never feeds context: drop the per-block context
+    # convs so they carry no dead optimizer state or decay
+    mc.use_context = mc.use_context and config.use_video
+    if mc.global_classes == -1:
+        # auto: one class per dataset category
+        mc.global_classes = max(1, len(train_loader.context_to_id))
+        logger.info("global conditioning over %d classes",
+                    mc.global_classes)
+    model = make_wavenet(
+        mc, generator=torch.Generator().manual_seed(config.seed))
+    logger.info("model receptive field: %d", model.receptive_fields)
+    state = create_train_state(model, config, device=device)
+
+    out_dir = Path(config.model_output_path)
+    ckpt = CheckpointManager(out_dir)
+    start_epoch = 0
+    pretrained_path = config.pretrained_model_path
+    if pretrained_path is None and config.pretrained_run_exp_name:
+        pretrained_path = _resolve_run_dir(
+            config.pretrained_run_exp_name, out_dir)
+        logger.info("resolved pretrained run %r -> %s",
+                    config.pretrained_run_exp_name, pretrained_path)
+    if pretrained_path:
+        state = CheckpointManager(Path(pretrained_path)).restore(state)
+        logger.info("restored pretrained state (step %d) from %s",
+                    state.step, pretrained_path)
+    elif config.auto_resume and ckpt.latest_step() is not None:
+        start_epoch = int(ckpt.latest_step()) + 1
+        state = ckpt.restore(state)
+        logger.info("auto-resumed at epoch %d (step %d)", start_epoch,
+                    state.step)
+
+    if process_index() == 0:
+        config.save(out_dir / "config.json")
+    writer = make_writer(config)
+
+    train_step = make_train_step(model, config)
+    eval_step = make_eval_step(model, config)
+    guard = PreemptionGuard()
+    log_every = max(1, config.log_every_n_steps)
+
+    for epoch in range(start_epoch, config.n_epochs):
+        t_epoch = time.perf_counter()
+        # the metric sums stay on the device between log points: float()
+        # synchronises with the card
+        metric_sums = None
+        n_steps = 0
+        t_window = time.perf_counter()
+        window_start = 0
+        last_log = 0
+        for batch in _device_prefetch(train_loader.epoch(epoch), device):
+            if n_steps >= steps_per_epoch or guard.requested:
+                break
+            state, metrics = train_step(state, batch)
+            n_steps += 1
+            metric_sums = metrics if metric_sums is None else {
+                k: metric_sums[k] + v for k, v in metrics.items()}
+            if n_steps - last_log >= log_every or \
+                    n_steps >= steps_per_epoch:
+                last_log = n_steps
+                vals = {k: float(v) for k, v in metrics.items()}
+                now = time.perf_counter()
+                vals["steps_per_sec"] = ((n_steps - window_start)
+                                         / max(now - t_window, 1e-9))
+                t_window, window_start = now, n_steps
+                writer.scalars("train", vals, state.step)
+        train_mean = {} if metric_sums is None else {
+            k: float(v) / n_steps for k, v in metric_sums.items()}
+
+        if guard.requested:
+            logger.warning("preempted: checkpointing at epoch %d", epoch)
+            ckpt.save(epoch, state)
+            break
+
+        val_metrics = []
+        for batch in val_loader.epoch(epoch):
+            m = eval_step(state, batch)
+            val_metrics.append({k: float(v) for k, v in m.items()})
+        if val_metrics:
+            writer.scalars("val", _mean_metrics(val_metrics), state.step)
+
+        epoch_summary = {
+            "epoch": epoch,
+            "epoch_seconds": time.perf_counter() - t_epoch,
+            **{f"train_{k}": v for k, v in train_mean.items()},
+            **{f"val_{k}": v
+               for k, v in _mean_metrics(val_metrics).items()},
+        }
+        writer.scalars("epoch", epoch_summary, epoch)
+        logger.info("epoch %d: %s", epoch, {
+            k: round(v, 5) for k, v in epoch_summary.items()})
+
+        if config.log_samples_every and \
+                (epoch + 1) % config.log_samples_every == 0:
+            _log_samples(model, config, val_loader, out_dir, epoch, writer)
+
+        is_last = epoch == config.n_epochs - 1
+        if is_last or (epoch + 1) % config.checkpoint_every == 0:
+            ckpt.save(epoch, state)
+
+    guard.restore()
+    writer.close()
+    return state
+
+
+def _log_samples(model: WaveNet, config, val_loader, out_dir, epoch,
+                 writer=None) -> None:
+    """Teacher-forced predictions and free-running generation (the cached
+    sampler) on one validation batch, exported as WAVs."""
+    if process_index() != 0:
+        return
+    # meta_batches carries each row's file path (the tensor loader
+    # substitutes failed decodes, which would shift a positional mapping)
+    group = next(val_loader.meta_batches(), None)
+    if group is None:
+        return
+    dev = model.front_cur.device
+    codes = torch.from_numpy(np.stack([ex.codes for ex in group])).to(dev)
+    video = None
+    if val_loader.use_video and group[0].video is not None:
+        video = torch.from_numpy(np.stack([ex.video for ex in group])).to(dev)
+    labels = None
+    if model.global_classes:
+        labels = torch.tensor([ex.label for ex in group], device=dev)
+    sources = [ex.filepath for ex in group]
+    rf = model.receptive_fields
+
+    with torch.no_grad():
+        logits = model.train_logits(codes, video, labels)
+    predicted = logits.argmax(-1).cpu().numpy()
+
+    n = config.generate_n_samples or codes.shape[-1]
+    generated = None
+    if n > rf:
+        t0 = time.perf_counter()
+        generated = fast_generate(
+            model, codes[:, :rf], int(n),
+            temperature=config.generate_temperature,
+            rng=jax_random.PRNGKey(epoch), video=video,
+            labels=labels).cpu().numpy()
+        logger.info("sample generation took %.2f seconds",
+                    time.perf_counter() - t0)
+
+    kinds = {"original": codes.cpu().numpy(), "predicted": predicted}
+    if generated is not None:
+        kinds["generated"] = generated
+    model_rate = int(16_000 * config.model_config.max_audio_frames
+                     / 160_000)
+    written = export_samples(Path(out_dir) / "samples", epoch, "val", kinds,
+                             config.model_config.input_channels,
+                             model_rate=max(model_rate, 1),
+                             source_paths=sources)
+    if writer is not None:
+        from movenet_tpu_torch.utils.samples import log_samples_table
+
+        log_samples_table(writer, "val", epoch, written, filepaths=sources,
+                          videos=sources if config.log_video else None)
+
+
+__all__ = ["PreemptionGuard", "train_model"]

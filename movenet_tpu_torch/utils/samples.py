@@ -2,10 +2,10 @@
 original rate, write WAV files.
 
 The counterpart of ``movenet_tpu.utils.samples`` (``write_wav``,
-``encode_mp3``, ``export_samples``): decode with ``ops/mulaw``, resample
-with ``ops/resample``, write 16-bit PCM with the stdlib ``wave`` module,
-and encode mp3 with the ffmpeg CLI where there is one.  The W&B samples
-table waits for the port of the metric writers.
+``encode_mp3``, ``export_samples``, ``log_samples_table``): decode with
+``ops/mulaw``, resample with ``ops/resample``, write 16-bit PCM with the
+stdlib ``wave`` module, encode mp3 with the ffmpeg CLI where there is one,
+and log a W&B table of the files when the writer stack has a wandb run.
 """
 
 from __future__ import annotations
@@ -128,3 +128,46 @@ def export_samples(
     logger.info("exported %s samples to %s",
                 {k: len(v) for k, v in written.items()}, out)
     return written
+
+
+_VIDEO_SUFFIXES = {".mp4", ".gif", ".webm", ".mov", ".avi"}
+
+
+def log_samples_table(writer, split: str, epoch: int,
+                      written: Dict[str, list],
+                      filepaths: Optional[list] = None,
+                      videos: Optional[list] = None) -> None:
+    """Log a W&B table of sample files (original, predicted, generated
+    audio; with ``videos``, the source clips whose suffix W&B plays) when
+    the writer stack has a live wandb run; a no-op otherwise."""
+    from movenet_tpu_torch.utils.observability import MultiWriter, WandbWriter
+
+    writers = writer.writers if isinstance(writer, MultiWriter) else \
+        [writer]
+    for w in writers:
+        if not isinstance(w, WandbWriter):
+            continue
+        wandb = w._wandb
+        kinds = [k for k in ("original", "predicted", "generated")
+                 if written.get(k)]
+        columns = ["split", "epoch", "idx", "fp"]
+        if videos:
+            columns.append("video")
+        columns += [f"{k}_audio" for k in kinds]
+        n = max(len(written[k]) for k in kinds)
+        data = []
+        for i in range(n):
+            row = [split, epoch, i,
+                   str(filepaths[i]) if filepaths and i < len(filepaths)
+                   else ""]
+            if videos:
+                v = videos[i] if i < len(videos) else None
+                ok = v is not None and \
+                    Path(v).suffix.lower() in _VIDEO_SUFFIXES and \
+                    Path(v).exists()
+                row.append(wandb.Video(str(v)) if ok else None)
+            for k in kinds:
+                row.append(wandb.Audio(str(written[k][i])))
+            data.append(row)
+        w._run.log({"sample_output": wandb.Table(columns=columns,
+                                                 data=data)})

@@ -1,9 +1,11 @@
-"""The port's whole-stack trunk op (ops/stack_kernel.fused_stack_embed) on
-the CPU, where it runs its plain versions, against the JAX package's
-Pallas op in interpret mode: the forward (skip_sum, hsave, tfsg) and every
-gradient, without ctx, with the flat ctx and with the projection triple,
-in float32 and bfloat16.  Plus the geometry helpers and the paths the port
-refuses.
+"""The port's whole-stack trunk ops on the CPU, where they run their plain
+versions, against the JAX package's Pallas ops in interpret mode: the
+save strategy's ``fused_stack_embed`` (the forward, skip_sum, hsave, tfsg,
+and every gradient, without ctx, with the flat ctx and with the
+projection triple) and the recompute strategy's non-embed ``fused_stack``
+(skip_sum and every gradient, without and with ctx), in float32 and
+bfloat16; ``front_embed`` and ``ctx_proj_fold`` against their XLA
+counterparts.  Plus the geometry helpers and the paths the port refuses.
 
 Tolerances: float32 forward rtol 1e-5; gradients within 1% of each leaf's
 largest magnitude plus a gate on the mean difference (a systematic bias),
@@ -221,9 +223,147 @@ def test_unported_strategies_raise():
     ts = {n: torch.tensor(v) for n, v in a.items()}
     args = (torch.from_numpy(pack), ts["table2"], None, ts["b_fg"],
             ts["w_fg"], ts["w_out"], ts["b_out"], DIL)
+    # the embed-folded op is the save strategy only, as in the JAX package
     for strategy in ("recompute", "replay"):
-        with pytest.raises(NotImplementedError, match="B.5"):
+        with pytest.raises(ValueError, match="fused_stack"):
             sk.fused_stack_embed(*args, strategy=strategy)
     big = torch.zeros(2 * 300, R)
     with pytest.raises(NotImplementedError, match="B.2"):
         sk.fused_stack_embed(args[0], big, *args[2:])
+    x = torch.zeros(B, 1024, R)
+    for strategy, label in (("save", "B.2"), ("replay", "B.3")):
+        with pytest.raises(NotImplementedError, match=label):
+            sk.fused_stack(x, None, *args[3:], strategy=strategy)
+
+
+# --------------------------------------------- recompute (tails) route
+def _tails_inputs(t, has_ctx, seed=1):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    win = (3 if has_ctx else 2) * R
+    a = dict(
+        x=(rng.standard_normal((B, t, R)) * 0.5).astype(f),
+        b_fg=(rng.standard_normal((L * B, 2 * R)) * 0.1).astype(f),
+        w_fg=(rng.standard_normal((L, win, 2 * R)) / np.sqrt(win)).astype(f),
+        w_out=(rng.standard_normal((L, R, R + S)) / np.sqrt(R)).astype(f),
+        b_out=(rng.standard_normal((L, R + S)) * 0.1).astype(f),
+        dskip=(rng.standard_normal((B, t, S)) * 0.1).astype(f))
+    if has_ctx:
+        a["ctx"] = (rng.standard_normal((B, t, R)) * 0.5).astype(f)
+    return a
+
+
+@pytest.mark.parametrize("has_ctx", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_stack_recompute_matches_jax(has_ctx, dtype):
+    """fused_stack(strategy="recompute"), plain versions on the CPU,
+    against JAX's tails kernels in interpret mode at T=512: the forward
+    and every gradient, at the module's tolerances."""
+    t = 512
+    a = _tails_inputs(t, has_ctx)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    names = ["x"] + (["ctx"] if has_ctx else []) + \
+        ["b_fg", "w_fg", "w_out", "b_out"]
+    cast = {"x", "ctx"}
+    jargs = [jnp.asarray(a[n], jdt if n in cast else jnp.float32)
+             for n in names]
+
+    def op(*xs):
+        d = dict(zip(names, xs))
+        return jsk.fused_stack(d["x"], d.get("ctx"), d["b_fg"], d["w_fg"],
+                               d["w_out"], d["b_out"], DIL, True,
+                               "recompute")
+
+    want_skip, vjp = jax.vjp(op, *jargs)
+    want_g = {n: np.asarray(g, np.float32) for n, g in
+              zip(names, vjp(jnp.asarray(a["dskip"], jdt)))}
+    want_skip = np.asarray(want_skip, np.float32)
+
+    ts = {n: torch.tensor(a[n], dtype=tdt if n in cast else torch.float32,
+                          requires_grad=True) for n in names}
+    skip = sk.fused_stack(ts["x"], ts.get("ctx"), ts["b_fg"], ts["w_fg"],
+                          ts["w_out"], ts["b_out"], DIL,
+                          strategy="recompute")
+    skip.backward(torch.tensor(a["dskip"], dtype=tdt))
+    got_skip = skip.detach().float().numpy()
+    scale = float(np.max(np.abs(want_skip)))
+    f32 = dtype == "float32"
+    np.testing.assert_allclose(got_skip, want_skip, rtol=0,
+                               atol=(1e-5 if f32 else 2e-2) * scale)
+    for n in names:
+        got = ts[n].grad.float().numpy()
+        if f32:
+            _close_grad(n, got, want_g[n], 1e-2, 2e-4)
+        else:
+            _close_grad(n, got, want_g[n], 5e-2, 5e-3)
+
+
+def test_tails_snapshot_holds_the_layer_inputs():
+    """Each snapshot row is the layer input h_l at the d_l rows before its
+    tile (zero before t = 0), in the compute dtype."""
+    a = _tails_inputs(256, True)
+    ts = {n: torch.tensor(v) for n, v in a.items()}
+    x = ts["x"].to(torch.bfloat16)
+    ctx = ts["ctx"].to(torch.bfloat16)
+    skip, tails = sk.stack_fwd_tails_plain(
+        x, ctx, ts["b_fg"], ts["w_fg"], ts["w_out"], ts["b_out"], DIL)
+    hs, _ = sk._tails_rebuild(x, ctx, ts["b_fg"], ts["w_fg"], ts["w_out"],
+                              ts["b_out"], DIL)
+    tile = sk.TAILS_TILE
+    assert tails.shape == (B, 256 // tile, sum(DIL), R)
+    assert skip.dtype == tails.dtype == torch.bfloat16
+    offs, _ = sk._ring_offsets(DIL)
+    for l, d in enumerate(DIL):
+        assert torch.equal(hs[l], hs[l].to(torch.bfloat16).float())
+        assert not tails[:, 0, offs[l]:offs[l] + d].any()
+        for i in range(1, 256 // tile):
+            np.testing.assert_array_equal(
+                tails[:, i, offs[l]:offs[l] + d].float().numpy(),
+                hs[l][:, i * tile - d:i * tile].numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_front_embed_matches_jax(dtype):
+    from movenet_tpu.models import fused as jfused
+
+    rng = np.random.default_rng(4)
+    v, t = 32, 200
+    cur = rng.standard_normal((v, R)).astype(np.float32)
+    past = rng.standard_normal((v, R)).astype(np.float32)
+    codes = rng.integers(0, v, size=(B, t)).astype(np.int32)
+    dh = rng.standard_normal((B, t, R)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    want, vjp = jax.vjp(
+        lambda c, p: jfused._front_embed(c, p, jnp.asarray(codes), jdt, v),
+        jnp.asarray(cur), jnp.asarray(past))
+    want_dc, want_dp = vjp(jnp.asarray(dh, jdt))
+    tc = torch.tensor(cur, requires_grad=True)
+    tp = torch.tensor(past, requires_grad=True)
+    got = sk.front_embed(tc, tp, torch.from_numpy(codes), tdt)
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.detach().float().numpy(),
+                                  np.asarray(want, np.float32))
+    got.backward(torch.tensor(dh, dtype=tdt))
+    for g, w in ((tc.grad, want_dc), (tp.grad, want_dp)):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_ctx_proj_fold_matches_jax():
+    rng = np.random.default_rng(5)
+    tc = 12
+    xc = rng.standard_normal((B, tc, R)).astype(np.float32)
+    wup = rng.standard_normal((R, 10 * R)).astype(np.float32)
+    bup = rng.standard_normal((10 * R,)).astype(np.float32)
+    dctx = rng.standard_normal((B, 10 * tc, R)).astype(np.float32)
+    want = jsk._ctx_proj_fold_xla(
+        jnp.asarray(dctx), (jnp.asarray(xc), jnp.asarray(wup),
+                            jnp.asarray(bup)))
+    got = sk.ctx_proj_fold(torch.from_numpy(dctx),
+                           tuple(torch.from_numpy(x) for x in (xc, wup, bup)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)

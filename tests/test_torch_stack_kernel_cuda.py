@@ -8,7 +8,8 @@ Without a card every test skips.  Tolerances: the forward outputs are
 bf16 values whose float32 sums the kernel and torch add in different
 orders, so a stored value may sit one bf16 step away: within 2% of each
 output's scale.  The backward takes the same saved tensors in both
-versions and sums in float32: within 1e-4 of each gradient's scale."""
+versions and sums in float32: within 1e-4 of each gradient's scale.  The
+recompute kernels' tolerances are stated at their test."""
 
 import numpy as np
 import pytest
@@ -96,6 +97,73 @@ def test_stack_kernels_match_plain(cuda, r, s, t, ctx_kind):
         x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
         tol = (2e-2 if name == "dctx" else 1e-4) * np.abs(y).max()
         np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,t,has_ctx", [
+    (16, 16, 1280, False), (16, 16, 1280, True), (64, 8, 1280, True),
+    (64, 8, 640, False),
+])
+def test_tails_kernels_match_plain(cuda, r, s, t, has_ctx):
+    """The recompute kernels against their plain versions.  The forward
+    as the save forward (2% of scale); the backward rebuilds h with its
+    own float32 sums, so a rebuilt bf16 value may sit one step from the
+    plain version's: the gradients within 1e-2 of their scale, dx and
+    dctx (bf16) within 2%."""
+    a, ctx, _, batch = _inputs(cuda, t, r, s, 64, "flat" if has_ctx
+                               else None)
+    g = torch.Generator().manual_seed(7)
+    x = (torch.randn(batch, t, r, generator=g) * 0.5).to(
+        torch.bfloat16).to(cuda)
+    args = (x, ctx, a["b_fg"], a["w_fg"], a["w_out"], a["b_out"], DIL)
+    before = dict(ks.launch_counts)
+    got = ks.stack_fwd_tails(*args)
+    torch.cuda.synchronize()
+    assert ks.launch_counts["stack_fwd_tails"] == \
+        before["stack_fwd_tails"] + 1
+    want = sk.stack_fwd_tails_plain(*args)
+    for name, u, w in zip(("skip", "tails"), got, want):
+        u, w = u.float().cpu().numpy(), w.float().cpu().numpy()
+        np.testing.assert_allclose(u, w, rtol=0, atol=2e-2 * np.abs(w).max(),
+                                   err_msg=name)
+    bargs = (x, want[1], ctx, a["b_fg"], a["w_fg"], a["w_out"], a["b_out"],
+             a["dskip"], DIL)
+    got = ks.stack_bwd_tails(*bargs)
+    torch.cuda.synchronize()
+    assert ks.launch_counts["stack_bwd_tails"] == \
+        before["stack_bwd_tails"] + 1
+    want = sk.stack_bwd_tails_plain(*bargs)
+    for name, u, w in zip(("dx", "dctx", "db_fg", "dw_fg", "dw_out",
+                           "db_out"), got, want):
+        if w is None:
+            assert u is None, name
+            continue
+        u, w = u.float().cpu().numpy(), w.float().cpu().numpy()
+        tol = (2e-2 if name in ("dx", "dctx") else 1e-2) * np.abs(w).max()
+        np.testing.assert_allclose(u, w, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_tails_wrapper_rejects_wrong_inputs(cuda):
+    a, ctx, _, batch = _inputs(cuda, 1280, 16, 16, 64, "flat")
+    x = torch.zeros(batch, 1280, 16, dtype=torch.bfloat16, device=cuda)
+    args = (ctx, a["b_fg"], a["w_fg"], a["w_out"], a["b_out"], DIL)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ks.stack_fwd_tails(x.float(), *args)
+    with pytest.raises(ValueError, match="multiple"):
+        ks.stack_fwd_tails(x[:, :1000].contiguous(), ctx[:, :1000]
+                           .contiguous(), *args[1:])
+    # a halo of sum(d) rows per layer that shared memory cannot hold
+    big = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+    n = len(big)
+    r = 64
+    with pytest.raises(NotImplementedError, match="B.5"):
+        ks.stack_fwd_tails(
+            torch.zeros(batch, 1280, r, dtype=torch.bfloat16, device=cuda),
+            None, torch.zeros(n * batch, 2 * r, device=cuda),
+            torch.zeros(n, 2 * r, 2 * r, device=cuda),
+            torch.zeros(n, r, r + 8, device=cuda),
+            torch.zeros(n, r + 8, device=cuda), big)
 
 
 @pytest.mark.cuda

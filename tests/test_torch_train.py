@@ -55,8 +55,9 @@ def _model_kw(dtype, glob, maf=12800, mvf=128):
                 max_video_frames=mvf)
 
 
-def _setup(dtype, t, video, glob, maf=12800, mvf=128, seed=0, lead=()):
-    kw = _model_kw(dtype, glob, maf, mvf)
+def _setup(dtype, t, video, glob, maf=12800, mvf=128, seed=0, lead=(),
+           **extra):
+    kw = dict(_model_kw(dtype, glob, maf, mvf), **extra)
     jm = j_make(JModelConfig(**kw))
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, C, size=lead + (2, t)).astype(np.int32)
@@ -133,6 +134,112 @@ def test_fused_train_loss_matches_jax(dtype, t, video, glob, maf, parity):
     assert abs(float(acc) - float(want_a)) <= 1.0 / n_valid + 1e-7
     _close_grads(_port_grads(tm), flatten_tree(want_g),
                  1e-2 if f32 else 1e-1, 2e-4 if f32 else 5e-3)
+
+
+@pytest.mark.parametrize("dtype,t,extra", [
+    ("float32", 12800, dict(fused_strategy="recompute")),  # triple
+    ("bfloat16", 1280, dict(fused_strategy="recompute")),  # flat ctx
+    ("float32", 1280, dict(remat=True)),
+])
+def test_fused_train_loss_recompute_matches_jax(dtype, t, extra,
+                                                monkeypatch):
+    """The recompute strategy (asked for, or implied by remat) through
+    front_embed and the non-embed trunk, against JAX's tails kernels in
+    interpret mode: the loss and every parameter gradient, at the
+    module's tolerances."""
+    from movenet_tpu_torch.ops import stack_kernel as sk
+
+    kw, jm, params, tm, codes, vid, labels = _setup(dtype, t, True, 0, t,
+                                                    **extra)
+    _, ctx, _, _ = jfused._prepare_trunk(jm, params, _j(codes), _j(vid),
+                                         None)
+    assert isinstance(ctx, tuple) == (t == 12800)
+    calls = []
+    for name in ("stack_fwd_tails_plain", "stack_fwd_plain"):
+        fn = getattr(sk, name)
+        monkeypatch.setattr(sk, name, lambda *a, _f=fn, _n=name: (
+            calls.append(_n), _f(*a))[1])
+
+    def jloss(p):
+        return jfused.fused_train_loss(jm, p, _j(codes), _j(vid),
+                                       interpret=True)
+
+    (want_l, want_a), want_g = jax.value_and_grad(jloss, has_aux=True)(
+        params)
+    loss, acc = fused.fused_train_loss(tm, _t(codes), _t(vid))
+    loss.backward()
+    assert calls == ["stack_fwd_tails_plain"]
+    f32 = dtype == "float32"
+    np.testing.assert_allclose(float(loss.detach()), float(want_l),
+                               rtol=1e-5 if f32 else 1e-4)
+    n_valid = 2 * (t - tm.receptive_fields)
+    assert abs(float(acc) - float(want_a)) <= 1.0 / n_valid + 1e-7
+    _close_grads(_port_grads(tm), flatten_tree(want_g),
+                 1e-2 if f32 else 1e-1, 2e-4 if f32 else 5e-3)
+
+
+def test_unfused_bf16_logits_match_jax():
+    """The unfused model computes in its compute dtype, rounding where the
+    JAX model rounds: bf16 train_logits with video and global labels
+    against JAX's within 1e-2 of the logits' scale at any position (a
+    video-encoder sum rounded one bf16 step apart moves a few) and 2e-4 of
+    it on average (float32 compute sits near 1.4e-3 there); the loss
+    within rtol 1e-5."""
+    from movenet_tpu.train.loop import Batch as JB
+    from movenet_tpu.train.loop import _loss_and_metrics as j_loss
+    from movenet_tpu_torch.train.loop import _loss_and_metrics as t_loss
+
+    kw, jm, params, tm, codes, vid, labels = _setup("bfloat16", 1280, True,
+                                                    3, 1280)
+    want = np.asarray(jm.apply({"params": params}, _j(codes), _j(vid),
+                               _j(labels), method=JWaveNet.train_logits),
+                      np.float32)
+    with torch.no_grad():
+        got = tm.train_logits(_t(codes), _t(vid), _t(labels, True))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    scale = float(np.abs(want).max())
+    err = np.abs(got - want)
+    assert err.max() <= 1e-2 * scale and err.mean() <= 2e-4 * scale, \
+        (err.max() / scale, err.mean() / scale)
+    want_l, _ = j_loss(jm, True)(params, JB(codes=_j(codes), video=_j(vid),
+                                            labels=_j(labels)))
+    with torch.no_grad():
+        loss, _ = t_loss(tm, True)(Batch(codes=_t(codes), video=_t(vid),
+                                         labels=_t(labels, True)))
+    np.testing.assert_allclose(float(loss), float(want_l), rtol=1e-5)
+
+
+def test_unfused_remat_checkpoints_each_block():
+    """remat=True: the same gradients as without (within 1e-6 of each
+    leaf's scale: autograd adds the recomputed graph's terms in another
+    order), and every block runs a second time in the backward
+    (torch.utils.checkpoint)."""
+    grads, calls = {}, {}
+    for remat in (False, True):
+        kw, _, _, tm, codes, vid, labels = _setup("float32", 1280, True, 3,
+                                                  1280)
+        tm.remat = remat
+        real = tm._block
+        n = []
+
+        def counted(*a, _real=real, _n=n):
+            _n.append(1)
+            return _real(*a)
+
+        tm._block = counted
+        loss = tm.train_logits(_t(codes), _t(vid),
+                               _t(labels, True)).float().square().mean()
+        forward = len(n)
+        loss.backward()
+        calls[remat] = (forward, len(n))
+        grads[remat] = _port_grads(tm)
+    n_layers = len(tm.dilations)
+    assert calls[False] == (n_layers, n_layers)
+    assert calls[True] == (n_layers, 2 * n_layers)
+    for name, g in grads[False].items():
+        np.testing.assert_allclose(grads[True][name], g, rtol=0,
+                                   atol=1e-6 * np.abs(g).max(), err_msg=name)
 
 
 def test_fused_host_pack_and_logits(rng_np):
