@@ -64,21 +64,36 @@ Phases (any failure exits non-zero and prints no result):
      ``fused_train_loss`` loss + backward through the recompute strategy
      against the save strategy (loss and every gradient within the
      tolerance stated there), and each one's peak device memory;
-  12. the trainer CLI (the main path of this form): synthetic train and
+  12. merged head: at the breakdancing shapes the merged trunk + head
+     kernels (stack_kernel.py:464 / :624) against their plain versions on
+     the merged loss's own inputs (flat ctx); ``fused_train_loss`` with
+     ``merge_head=True`` (the main path of this form: each merged kernel
+     launched once, no split-route kernel) against the split route from
+     the same weights, loss and every gradient at the tolerances stated
+     there; 1 + 5 AdamW steps on each route (per-step losses within
+     1e-3); times and peak memory of both routes;
+  13. gated block: the gated-block kernels (gated_block.py:91 / :168)
+     against their plain versions at R=S=64, B=2, T=160000, bf16, flat
+     ctx, d=1 and d=512; the per-block trunk (``_per_block_trunk``, one
+     gated block per layer of the breakdancing stack, forward and
+     backward: the main path of this form) against the whole-stack save
+     trunk's non-embed form on the same inputs; their times;
+  14. the trainer CLI (the main path of this form): synthetic train and
      valid splits at the real clip format (8 + 4 clips), then
      ``movenet_tpu_torch.train.cli.main`` with experiment 02's flags and
      --fused_strategy recompute for 1 epoch of 4 steps: the trunk runs
      only the tails kernels (one forward per train step and validation
      batch, one backward per step), the losses in metrics.jsonl are
      finite, checkpoint 0 holds params, optimizer state and step 4;
-  13. resume: the same command with --n_epochs 2 --auto_resume 1 starts
+  15. resume: the same command with --n_epochs 2 --auto_resume 1 starts
      at epoch 1 and ends at step 8; an uninterrupted 2-epoch run from
      the same seed ends with the same params and optimizer state;
-  14. times: samples/s of the AR kernels and the plain versions (video
+  16. times: samples/s of the AR kernels and the plain versions (video
      and audio-only side by side), the speculative kernel's time per
-     generated sample beside the standard kernel's, and the train step
-     and kernel times;
-  15. the kernels line (with each kernel's bound from this run's shapes),
+     generated sample beside the standard kernel's, the train step and
+     kernel times, the merged route's against the split route's, the
+     gated block's and the per-block trunk's;
+  17. the kernels line (with each kernel's bound from this run's shapes),
      then the card line, then the result line.
 
 The last line of standard output is
@@ -123,6 +138,21 @@ TAILS_KERNELS = {
     "stack_bwd_tails": ("movenet_tpu_torch/csrc/stack_kernel.cu",
                         "movenet_tpu/ops/pallas/stack_kernel.py:1031"),
 }
+MERGED_KERNELS = {
+    "stack_head_fwd": ("movenet_tpu_torch/csrc/stack_kernel.cu",
+                       "movenet_tpu/ops/pallas/stack_kernel.py:464"),
+    "stack_head_bwd": ("movenet_tpu_torch/csrc/stack_kernel.cu",
+                       "movenet_tpu/ops/pallas/stack_kernel.py:624"),
+}
+GATED_KERNELS = {
+    "gated_block_fwd": ("movenet_tpu_torch/csrc/gated_block.cu",
+                        "movenet_tpu/ops/pallas/gated_block.py:91"),
+    "gated_block_bwd": ("movenet_tpu_torch/csrc/gated_block.cu",
+                        "movenet_tpu/ops/pallas/gated_block.py:168"),
+}
+# dilations of the gated-block phase: the breakdancing stack's first and
+# the flagship stack's largest
+GATED_DILATIONS = (1, 512)
 # experiment 02 (experiments/02_kinetics_breakdancing.sh) through the CLI:
 # its flags, with the CLI's default skip width 8
 EXP02_FLAGS = ["--use_video", "1", "--n_epochs", "10", "--batch_size", "2",
@@ -641,6 +671,55 @@ def tails_bounds(b, t, l, r, s, win, sum_d, tile):
                                      * 1e3)}
 
 
+def merged_bounds(b, t, l, r, s, c, win):
+    """(bound_ms, bound_by) of the merged kernels: the save trunk's bytes
+    from x (hsave, tfsg, skip written; x, ctx, weights, targets read) and
+    the head's; operations: the trunk's and the head's products on bf16
+    operands (989 TF/s) forward; backward the head's rebuild on bf16, its
+    gradient products and the layer sweep's on float32 (67 TF/s)."""
+    m = b * t
+    w_bytes = 4 * l * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
+    hw = 4 * (s * c + c * c + 2 * c)
+    ctx = 2 * m * r if win == 3 * r else 0
+    saved = 2 * l * m * r + 2 * l * m * 2 * r + 2 * m * s
+    fwd_bytes = 2 * m * r + ctx + w_bytes + hw + 4 * m + saved
+    bwd_bytes = saved + ctx + 4 * m + w_bytes + hw + 2 * m * r + ctx \
+        + w_bytes + hw
+    head_ops = 2 * m * (s * c + c * c)
+    fwd_ops = 2 * m * l * (win * 2 * r + r * (r + s)) + head_ops
+    bwd_f32 = 2 * m * (2 * c * c + 2 * s * c) + 2 * m * l * (
+        (r + s) * r + 2 * r * win + (win + 1) * 2 * r + (r + 1) * (r + s))
+
+    def bound(nbytes, ops_ms):
+        tb = nbytes / HBM_BYTES_S * 1e3
+        return (tb, "bytes") if tb >= ops_ms else (ops_ms, "operations")
+
+    return {"stack_head_fwd": bound(fwd_bytes, fwd_ops / BF16_OPS_S * 1e3),
+            "stack_head_bwd": bound(bwd_bytes, (head_ops / BF16_OPS_S
+                                                + bwd_f32 / F32_OPS_S) * 1e3)}
+
+
+def gated_bounds(b, t, r, s, win):
+    """(bound_ms, bound_by) of one gated block: h, ctx and the weights
+    read, res and skip written (backward: dres, dskip read too, dh, dctx
+    and the gradients written); every product on float32 operands."""
+    m = b * t
+    w_bytes = 4 * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
+    ctx = 2 * m * r if win == 3 * r else 0
+    fwd_bytes = 2 * m * r + ctx + w_bytes + 2 * m * r + 2 * m * s
+    bwd_bytes = 2 * m * r + ctx + w_bytes + 2 * m * r + 2 * m * s \
+        + 2 * m * r + ctx + w_bytes
+    fwd_ops = 2 * m * (win * 2 * r + r * (r + s))
+    bwd_ops = 2 * m * (2 * win * 2 * r + 2 * r * (r + s) + 2 * r * win)
+
+    def bound(nbytes, ops):
+        tb, to = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    return {"gated_block_fwd": bound(fwd_bytes, fwd_ops),
+            "gated_block_bwd": bound(bwd_bytes, bwd_ops)}
+
+
 def ar_bound(model, batch, steps, video=False):
     """(bound_ms, bound_by) of one AR sampler launch: the weights read
     once (with video W_ctx too, and the context rows of every step)
@@ -1034,6 +1113,368 @@ def phase_recompute_vs_save(torch, np, model, batch):
                 peak_save=s["peak_gb"], peak_recompute=r["peak_gb"])
 
 
+class merged_route:
+    """Within the block the train step's fused loss takes ``merge_head``
+    (neither package's trainer has an option for it)."""
+
+    def __init__(self, merge: bool):
+        self.merge = merge
+
+    def __enter__(self):
+        import functools
+
+        from movenet_tpu_torch.models import fused
+
+        self.real = fused.fused_train_loss
+        fused.fused_train_loss = functools.partial(self.real,
+                                                   merge_head=self.merge)
+        return self
+
+    def __exit__(self, *exc):
+        from movenet_tpu_torch.models import fused
+
+        fused.fused_train_loss = self.real
+        return False
+
+
+def phase_merged_head(torch, np, cfg, model, batch):
+    """The merged trunk + head kernels against their plain versions on the
+    merged loss's own inputs; fused_train_loss(merge_head=True) against
+    the split route from the same weights; 1 + N_TRAIN AdamW steps on each
+    route.  Returns (records by kernel, main-path launches, summary)."""
+    import copy
+
+    from movenet_tpu_torch.models import fused
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.train import create_train_state, make_train_step
+
+    b, t = batch.codes.shape
+    dil = tuple(model.dilations)
+    rf = model.receptive_fields
+    head = (model.head1.kernel, model.head1.bias, model.head2.kernel,
+            model.head2.bias)
+    rec = {}
+    with torch.no_grad():
+        inputs = fused._merged_inputs(model, batch.codes, batch.video, None)
+        check(inputs is not None, "the merged route does not apply at the "
+              "breakdancing shapes")
+        x, ctx, _, w_fg, w_out, _, tgt = inputs
+        fargs = (*inputs, *head, dil, rf, True)
+        # tolerance: the save forward's (phase 9): bf16 outputs whose
+        # float32 sums the kernel and torch add in other orders may sit one
+        # bf16 step apart, 2% of each output's scale (the bit-equal share
+        # is printed); the loss sum rtol 1e-5; the match count within 10
+        # rows (first-argmax ties within float32 noise), as the head phase
+        loss, match, *got = ks.stack_head_fwd(*fargs)
+        wl, wm, *want = sk.stack_head_fwd_plain(*fargs)
+        errs = {"loss": abs(float(loss) - float(wl)) / abs(float(wl)),
+                "match": abs(float(match) - float(wm))}
+        check(errs["loss"] <= 1e-5, f"stack_head_fwd loss {float(loss)} vs "
+              f"plain {float(wl)}")
+        check(errs["match"] <= 10, f"stack_head_fwd match {float(match)} vs "
+              f"plain {float(wm)}")
+        equal = {}
+        for name, u, w in zip(("skip", "hsave", "tfsg"), got, want):
+            errs[name] = _err(u, w)
+            equal[name] = float((u == w).float().mean())
+            check(errs[name] <= 2e-2 * _scale(w), f"stack_head_fwd {name}: "
+                  f"max err {errs[name]:.3g}, scale {_scale(w):.3g}")
+        del got
+        rec["stack_head_fwd"] = dict(
+            max_abs_err=max(errs[n] for n in ("skip", "hsave", "tfsg")),
+            errs=errs, equal=equal,
+            ms=time_cuda(torch, lambda: ks.run_head_fwd(
+                ks.library(), *fargs, stream=ks._stream(x)), 5),
+            plain_ms=time_cuda(torch, lambda: sk.stack_head_fwd_plain(
+                *fargs), 2))
+        # backward from the plain forward's saved tensors, as the save
+        # backward's phase: float32 sums over 320000 rows in other orders,
+        # 1e-3 of each gradient's scale; dx and dctx (bf16) 2%
+        skip, hsave, tfsg = want
+        dloss = torch.tensor(1.0 / (b * (t - rf)), device="cuda")
+        bargs = (hsave, tfsg, ctx, w_fg, w_out, skip, tgt, *head, dloss, dil,
+                 rf, True)
+        got = ks.stack_head_bwd(*bargs)
+        want = sk.stack_head_bwd_plain(*bargs)
+        errs = {}
+        for name, u, w in zip(("dx", "dctx", "db_fg", "dw_fg", "dw_out",
+                               "db_out", "dw1", "db1", "dw2", "db2"), got,
+                              want):
+            errs[name] = _err(u, w)
+            tol = (2e-2 if name in ("dx", "dctx") else 1e-3) * _scale(w)
+            check(errs[name] <= tol, f"stack_head_bwd {name}: max err "
+                  f"{errs[name]:.3g}, scale {_scale(w):.3g}")
+        del got, want
+        rec["stack_head_bwd"] = dict(
+            max_abs_err=max(errs.values()), errs=errs,
+            ms=time_cuda(torch, lambda: ks.run_head_bwd(
+                ks.library(), *bargs, stream=ks._stream(x)), 5),
+            plain_ms=time_cuda(torch, lambda: sk.stack_head_bwd_plain(
+                *bargs), 2))
+        del inputs, fargs, bargs, x, ctx, skip, hsave, tfsg
+    for name, r in rec.items():
+        errs = ", ".join(f"{k} {v:.3g}" for k, v in r["errs"].items())
+        extra = ""
+        if "equal" in r:
+            extra = "; bit-equal share " + ", ".join(
+                f"{k} {v:.6f}" for k, v in r["equal"].items())
+        print(f"merged kernel {name} vs plain: {errs}{extra}; kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
+
+    # the main path: fused_train_loss with merge_head=True, and the split
+    # route from the same weights
+    launches = {k: 0 for k in MERGED_KERNELS}
+    runs = {}
+    for merge in (True, False):
+        model.zero_grad(set_to_none=True)
+        ks.reset_launch_counts()
+        kh.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = fused.fused_train_loss(model, batch.codes, batch.video,
+                                         merge_head=merge)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = {**ks.launch_counts, **kh.launch_counts}
+        runs[merge] = dict(
+            loss=float(loss.detach()), counts=counts,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            grads={n: p.grad.detach().float().clone()
+                   for n, p in model.named_parameters()
+                   if p.grad is not None})
+    model.zero_grad(set_to_none=True)
+    m, sp = runs[True], runs[False]
+    want_m = {"stack_head_fwd": 1, "stack_head_bwd": 1, "stack_fwd": 0,
+              "stack_bwd": 0, "head_fwd": 0, "head_bwd": 0}
+    want_s = {"stack_head_fwd": 0, "stack_head_bwd": 0, "stack_fwd": 1,
+              "stack_bwd": 1, "head_fwd": 1, "head_bwd": 1}
+    check(all(m["counts"][k] == v for k, v in want_m.items()),
+          f"merged route launches {m['counts']}")
+    check(all(sp["counts"][k] == v for k, v in want_s.items()),
+          f"split route launches {sp['counts']}")
+    for k in MERGED_KERNELS:
+        launches[k] += m["counts"][k]
+    # tolerance: both routes start from the same embedding and trunk
+    # weights; the loss within 1e-6 relative.  JAX defines the two routes'
+    # gradients differently in bf16 (the merged forward gates from the
+    # unrounded taps, its head backward takes float32 operands and its
+    # dskip stays float32): with the plain versions on the CPU at these
+    # widths (T=12800) every leaf differs by up to 9.9% of its scale (9.3%
+    # of its norm, 0.38% of the scale on average) and the routes agree to
+    # 1e-7 in float32.  So each leaf within 20% of its norm and its mean
+    # difference within 1% of its scale (the recompute phase's bar).
+    loss_rel = abs(m["loss"] - sp["loss"]) / abs(sp["loss"])
+    check(np.isfinite(m["loss"]) and loss_rel <= 1e-6,
+          f"merged loss {m['loss']} vs split {sp['loss']}")
+    check(set(m["grads"]) == set(sp["grads"]), "gradient leaves differ")
+    worst = dict(norm=(0.0, ""), scale=(0.0, ""), mean=(0.0, ""))
+    for name, gs in sp["grads"].items():
+        d = m["grads"][name] - gs
+        scale = float(gs.abs().max()) + 1e-30
+        vals = dict(norm=float(d.norm() / (gs.norm() + 1e-30)),
+                    scale=float(d.abs().max()) / scale,
+                    mean=abs(float(d.mean())) / scale)
+        check(vals["norm"] <= 0.2 and vals["mean"] <= 1e-2,
+              f"merged vs split gradient {name}: {vals}")
+        for k, v in vals.items():
+            if v > worst[k][0]:
+                worst[k] = (v, name)
+    print(f"merged vs split route (breakdancing, bf16): loss "
+          f"{m['loss']:.7f} vs {sp['loss']:.7f} (relative {loss_rel:.3g}); "
+          f"largest gradient difference {worst['norm'][0]:.3g} of the norm "
+          f"({worst['norm'][1]}), {worst['scale'][0]:.3g} of the scale "
+          f"({worst['scale'][1]}), mean {worst['mean'][0]:.3g} of the scale "
+          f"({worst['mean'][1]}); peak memory of a loss + backward "
+          f"{m['peak_gb']:.3f} GB vs {sp['peak_gb']:.3f} GB", flush=True)
+    del runs
+
+    # 1 warm-up + N_TRAIN AdamW steps on each route from the same weights
+    steps = {}
+    for merge in (True, False):
+        mod = copy.deepcopy(model)
+        state = create_train_state(mod, cfg, device="cuda")
+        step = make_train_step(mod, cfg)
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with merged_route(merge):
+            for i in range(N_TRAIN + 1):
+                ks.reset_launch_counts()
+                kh.reset_launch_counts()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                counts = {**ks.launch_counts, **kh.launch_counts}
+                want = want_m if merge else want_s
+                check(all(counts[k] == v for k, v in want.items()),
+                      f"merge_head={merge} step {i}: launches {counts}")
+                if merge:
+                    for k in MERGED_KERNELS:
+                        launches[k] += counts[k]
+                loss = float(metrics["loss"])
+                check(np.isfinite(loss), f"merge_head={merge} step {i}: "
+                      f"loss {loss}")
+                losses.append(loss)
+        steps[merge] = dict(losses=losses,
+                            step_ms=float(np.median(times[1:])),
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del mod, state, step
+    # tolerance: as the train phase, 1e-3 relative per step (the routes'
+    # losses agreed within 1.4e-6 over 6 steps with the plain versions on
+    # the CPU at T=12800)
+    for i, (a, w) in enumerate(zip(steps[True]["losses"],
+                                   steps[False]["losses"])):
+        check(abs(a - w) <= 1e-3 * abs(w),
+              f"step {i}: merged loss {a} vs split {w}")
+    step_rel = max(abs(a - w) / abs(w) for a, w in zip(
+        steps[True]["losses"], steps[False]["losses"]))
+    mk, sl = steps[True], steps[False]
+    print(f"merged vs split train steps: losses {mk['losses']} vs "
+          f"{sl['losses']} (largest relative difference {step_rel:.3g}); "
+          f"step {mk['step_ms']:.2f} ms vs {sl['step_ms']:.2f} ms (median of "
+          f"{N_TRAIN} after a warm-up); peak memory {mk['peak_gb']:.2f} GB "
+          f"vs {sl['peak_gb']:.2f} GB", flush=True)
+    return rec, launches, dict(loss_rel=loss_rel, worst=worst,
+                               step_rel=step_rel, steps=steps)
+
+
+def phase_gated_block(torch, np, model, batch):
+    """The gated-block kernels against their plain versions at R=S=64,
+    B=2, T=160000, bf16, flat ctx, d in GATED_DILATIONS, with their times;
+    then the per-block trunk (one fused_gated_block per layer, forward
+    and backward) against the whole-stack save trunk on the same inputs.
+    Returns (records by kernel, main-path launches, summary)."""
+    from movenet_tpu_torch.models import fused
+    from movenet_tpu_torch.ops import gated_block as gb
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    b, t = batch.codes.shape
+    dil = tuple(model.dilations)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        ctx, (b_fg, w_fg, w_out, b_out) = fused._prepare_trunk(
+            model, batch.codes, batch.video, None)
+        ctx = sk.ctx_flatten(ctx, bf)
+        x = sk.front_embed(model.front_cur, model.front_past, batch.codes,
+                           bf)
+    n_layers, r = len(dil), x.shape[-1]
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dres = (torch.randn(x.shape, generator=g, device="cuda") * 1e-3).to(bf)
+    dskip = (torch.randn(b, t, w_out.shape[2] - r, generator=g,
+                         device="cuda") * 1e-3).to(bf)
+    args = (x, ctx, b_fg.reshape(n_layers, b, -1)[0].contiguous(), w_fg[0],
+            w_out[0])
+    b_out0 = b_out[0].reshape(1, -1)
+    rec = {}
+    with torch.no_grad():
+        for d in GATED_DILATIONS:
+            # tolerance: float32 sums in other orders rounded to bf16 may
+            # sit one bf16 step apart: res, skip, dh and dctx within 1% of
+            # their scale; the float32 gradients, sums over 320000 rows,
+            # within 1e-3 of their scale, as the save backward's phase
+            got = kg.gated_block_fwd(*args, b_out0, d)
+            want = gb.gated_block_fwd_plain(*args, b_out0, d)
+            errs = {}
+            for name, u, w in zip(("res", "skip"), got, want):
+                errs[name] = _err(u, w)
+                check(errs[name] <= 1e-2 * _scale(w), f"gated_block_fwd "
+                      f"d={d} {name}: max err {errs[name]:.3g}, scale "
+                      f"{_scale(w):.3g}")
+            rec[("gated_block_fwd", d)] = dict(
+                max_abs_err=max(errs.values()), errs=errs,
+                ms=time_cuda(torch, lambda: kg.run_fwd(
+                    kg.library(), *args, b_out0, d, kg._stream(x)), 5),
+                plain_ms=time_cuda(torch, lambda: gb.gated_block_fwd_plain(
+                    *args, b_out0, d), 2))
+            got = kg.gated_block_bwd(*args, dres, dskip, d)
+            want = gb.gated_block_bwd_plain(*args, dres, dskip, d)
+            errs = {}
+            for name, u, w in zip(("dh", "dctx", "db_fg", "dw_fg", "dw_out",
+                                   "db_out"), got, want):
+                errs[name] = _err(u, w)
+                tol = (1e-2 if name in ("dh", "dctx") else 1e-3) * _scale(w)
+                check(errs[name] <= tol, f"gated_block_bwd d={d} {name}: "
+                      f"max err {errs[name]:.3g}, scale {_scale(w):.3g}")
+            rec[("gated_block_bwd", d)] = dict(
+                max_abs_err=max(errs.values()), errs=errs,
+                ms=time_cuda(torch, lambda: kg.run_bwd(
+                    kg.library(), *args, dres, dskip, d, kg._stream(x)), 5),
+                plain_ms=time_cuda(torch, lambda: gb.gated_block_bwd_plain(
+                    *args, dres, dskip, d), 2))
+    for (name, d), r_ in rec.items():
+        errs = ", ".join(f"{k} {v:.3g}" for k, v in r_["errs"].items())
+        print(f"gated kernel {name} d={d} vs plain: {errs}; kernel "
+              f"{r_['ms']:.3f} ms, plain {r_['plain_ms']:.3f} ms",
+              flush=True)
+
+    # the main path of the per-block route, forward and backward, against
+    # the whole-stack save trunk (its non-embed form) on the same inputs
+    leaves = (x, ctx, b_fg, w_fg, w_out, b_out)
+    gskip = (torch.randn(b, t, w_out.shape[2] - r, generator=g,
+                         device="cuda") * 1e-3).to(bf)
+    out = {}
+    for route in ("per-block", "whole-stack"):
+        ls = [v.detach().clone().requires_grad_() for v in leaves]
+        kg.reset_launch_counts()
+        ks.reset_launch_counts()
+
+        def run():
+            if route == "per-block":
+                return fused._per_block_trunk(*ls, dil)
+            return sk.fused_stack(*ls, dil, strategy="save")
+
+        skip = run()
+        skip.backward(gskip)
+        torch.cuda.synchronize()
+        counts = {**kg.launch_counts, **ks.launch_counts}
+        out[route] = (skip.detach().float(), [v.grad.float() for v in ls],
+                      counts)
+
+        def fwd_bwd():
+            for v in ls:
+                v.grad = None
+            run().backward(gskip)
+
+        out[route] += (time_cuda(torch, fwd_bwd, 3),)
+    pb, ws = out["per-block"], out["whole-stack"]
+    check(pb[2]["gated_block_fwd"] == n_layers
+          and pb[2]["gated_block_bwd"] == n_layers
+          and pb[2]["stack_fwd"] == 0,
+          f"per-block trunk launches {pb[2]}")
+    check(ws[2]["stack_fwd"] == 1 and ws[2]["stack_bwd"] == 1
+          and ws[2]["gated_block_fwd"] == 0,
+          f"whole-stack trunk launches {ws[2]}")
+    launches = {k: pb[2][k] for k in GATED_KERNELS}
+    # tolerance: the per-block route rounds h to bf16 after every block
+    # and takes float32 operands; the whole-stack trunk keeps h float32
+    # and rounds its product operands to bf16.  With the plain versions on
+    # the CPU at these widths (T=12800) the skip sums differ by up to 0.9%
+    # of their scale and every gradient by up to 1.4% (the two agree
+    # exactly in float32): skip within 3% of its scale, each gradient
+    # within 5% of its scale and its mean difference within 5e-4
+    diffs = {"skip": _err(pb[0], ws[0]) / _scale(ws[0])}
+    check(diffs["skip"] <= 3e-2, f"per-block skip {diffs['skip']:.3g} of "
+          "the scale from the whole-stack trunk")
+    for name, u, w in zip(("x", "ctx", "b_fg", "w_fg", "w_out", "b_out"),
+                          pb[1], ws[1]):
+        diffs[name] = _err(u, w) / _scale(w)
+        mean = abs(float((u - w).mean())) / _scale(w)
+        check(diffs[name] <= 5e-2 and mean <= 5e-4, f"per-block gradient "
+              f"{name}: {diffs[name]:.3g} of the scale, mean {mean:.3g}")
+    print("per-block vs whole-stack trunk (9 layers, B=2, T=160000, bf16, "
+          "flat ctx): largest difference of the scale " + ", ".join(
+              f"{k} {v:.3g}" for k, v in diffs.items())
+          + f"; forward + backward {pb[3]:.3f} ms vs {ws[3]:.3f} ms",
+          flush=True)
+    return rec, launches, dict(diffs=diffs, per_block_ms=pb[3],
+                               whole_stack_ms=ws[3])
+
+
 class timed_train_steps:
     """Within the block the trainer's train steps are timed, each to a
     synchronised card (observation only)."""
@@ -1254,6 +1695,18 @@ def main() -> int:
         tails_recs = phase_tails_kernels(torch, np, e2_model, e2_batch)
         rvs = phase_recompute_vs_save(torch, np, e2_model, e2_batch)
         del e2_model, e2_batch
+
+        phase = "merged head"
+        t0 = time.perf_counter()
+        merged_recs, merged_launches, merged = phase_merged_head(
+            torch, np, cfg, bd_model, bd_batch)
+        launches.update(merged_launches)
+        phase = "gated block"
+        gated_recs, gated_launches, gated = phase_gated_block(
+            torch, np, bd_model, bd_batch)
+        launches.update(gated_launches)
+        print(f"merged head + gated block phases: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         with tempfile.TemporaryDirectory() as tmp:
             phase = "trainer CLI"
             cli_launches, cli_step_ms, ds = phase_trainer_cli(
@@ -1264,6 +1717,22 @@ def main() -> int:
             phase_resume(torch, np, Path(tmp), ds)
 
         phase = "times"
+        sr = {k: train_recs[k]["ms"] for k in TRAIN_KERNELS}
+        print(f"time merged (breakdancing, B=2, T=160000, bf16): forward "
+              f"{merged_recs['stack_head_fwd']['ms']:.3f} ms against the "
+              f"split route's trunk + head {sr['stack_fwd'] + sr['head_fwd']:.3f}"
+              f" ms, backward {merged_recs['stack_head_bwd']['ms']:.3f} ms "
+              f"against {sr['stack_bwd'] + sr['head_bwd']:.3f} ms; train step "
+              f"{merged['steps'][True]['step_ms']:.2f} ms against "
+              f"{merged['steps'][False]['step_ms']:.2f} ms; {card}",
+              flush=True)
+        for (name, d), r in gated_recs.items():
+            print(f"time {name} d={d} (B=2, T=160000, R=S=64, bf16, flat "
+                  f"ctx): kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms; {card}", flush=True)
+        print(f"time per-block trunk forward + backward "
+              f"{gated['per_block_ms']:.3f} ms, whole-stack save trunk "
+              f"{gated['whole_stack_ms']:.3f} ms; {card}", flush=True)
         print(f"time recompute (experiment 02 CLI, B=2, T=160000, S=8, "
               f"bf16): trainer step {cli_step_ms:.2f} ms (median), peak "
               f"memory of a loss + backward {rvs['peak_recompute']:.3f} GB "
@@ -1347,6 +1816,35 @@ def main() -> int:
                 "matches_plain": True,
                 "shape": "experiment 02 CLI: B=2, T=160000, L=9, R=C=64, "
                          "S=8, bf16, flat ctx"})
+        mb = merged_bounds(2, mc.max_audio_frames, len(bd_model.dilations),
+                           mc.residual_channels, mc.skip_channels,
+                           mc.input_channels, 3 * mc.residual_channels)
+        for name, (source, replaces) in MERGED_KERNELS.items():
+            r = merged_recs[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": mb[name][0],
+                "bound_by": mb[name][1], "library_ms": None,
+                "matches_plain": True,
+                "shape": "breakdancing, merged: B=2, T=160000, L=9, "
+                         "R=S=C=64, bf16, flat ctx"})
+        gbd = gated_bounds(2, mc.max_audio_frames, mc.residual_channels,
+                           mc.skip_channels, 3 * mc.residual_channels)
+        for name, (source, replaces) in GATED_KERNELS.items():
+            mine = [r for (n, _), r in gated_recs.items() if n == name]
+            r = gated_recs[(name, GATED_DILATIONS[0])]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max(x["max_abs_err"] for x in mine),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": gbd[name][0], "bound_by": gbd[name][1],
+                "library_ms": None, "matches_plain": True,
+                "shape": f"one block: B=2, T=160000, R=S=64, bf16, flat "
+                         f"ctx, d={GATED_DILATIONS[0]} (ms; max_abs_err "
+                         f"over d in {list(GATED_DILATIONS)})"})
         check(all(k["launches"] > 0 for k in kernels),
               "a kernel of the path was not launched")
         print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@
 //     p, the two products backwards, the head weight and bias gradients
 //     and dskip (bf16).
 // Products take bf16 operands (the skip's dtype) and sum in float32 with
-// fmaf; the softmax and the probability algebra are float32.
+// fmaf; the softmax and the probability algebra are float32.  The tile
+// products and the per-row softmax and CE live in head_core.cuh, which
+// the merged trunk + head kernels of stack_kernel.cu share.
 //
 // Design.  The TPU grid runs (batch, time tile) in order and keeps the
 // loss, the match count and the weight gradients in scratch across grid
@@ -31,26 +33,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "head_core.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;   // rows per tile
+using head_core::dleaky;
+using head_core::leaky;
+using head_core::rnd;
+using head_core::row_dz;
+using head_core::row_nll;
+using head_core::tile_product;
+using head_core::tile_wgrad;
+
+constexpr int kThreads = head_core::kHeadThreads;
+constexpr int kRows = head_core::kHeadRows;   // rows per tile
 typedef unsigned short bf16_t;
 
 __device__ __forceinline__ float bf2f(bf16_t u) {
   return __uint_as_float(static_cast<unsigned>(u) << 16);
 }
-__device__ __forceinline__ float rnd(float x) {
-  return bf2f(__bfloat16_as_ushort(__float2bfloat16(x)));
-}
 __device__ __forceinline__ bf16_t f2bf(float x) {
   return __bfloat16_as_ushort(__float2bfloat16(x));
-}
-__device__ __forceinline__ float leaky(float x) {
-  return x > 0.f ? x : 0.01f * x;
-}
-__device__ __forceinline__ float dleaky(float x) {
-  return x > 0.f ? 1.f : 0.01f;
 }
 
 struct HeadArgs {
@@ -69,61 +72,6 @@ struct HeadArgs {
   long m_total, rows_per_block;
   int t_len, s, c, rf, parity;
 };
-
-// out[r, n] (+)= sum_k A[r, k] B[k, n] over a kRows tile: A row-major with
-// stride lda, B row-major (K, N); each thread a 4x4 register tile.
-// Returns through fn(row, col, value).
-template <typename Fn>
-__device__ __forceinline__ void tile_product(const float* A, int lda,
-                                             const float* B, int K, int N,
-                                             Fn fn) {
-  const int nc = N / 4;
-  for (int tile = threadIdx.x; tile < (kRows / 4) * nc; tile += kThreads) {
-    const int r0 = (tile / nc) * 4, c0 = (tile % nc) * 4;
-    float acc[4][4] = {};
-    for (int k = 0; k < K; ++k) {
-      const float4 bv = *reinterpret_cast<const float4*>(B + k * N + c0);
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float av = A[(r0 + i) * lda + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av, bj[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) fn(r0 + i, c0 + j, acc[i][j]);
-  }
-}
-
-// acc[k, n] += sum_r A[r, k] B[r, n] over the tile's rows (A, B row-major
-// with strides lda, ldb); acc (K, N) in shared memory, each 4x4 block
-// owned by one thread.
-__device__ __forceinline__ void tile_wgrad(const float* A, int lda,
-                                           const float* B, int ldb, int K,
-                                           int N, int rows, float* acc) {
-  const int nc = N / 4;
-  for (int tile = threadIdx.x; tile < (K / 4) * nc; tile += kThreads) {
-    const int k0 = (tile / nc) * 4, c0 = (tile % nc) * 4;
-    float s[4][4] = {};
-    for (int r = 0; r < rows; ++r) {
-      const float4 av = *reinterpret_cast<const float4*>(A + r * lda + k0);
-      const float4 bv = *reinterpret_cast<const float4*>(B + r * ldb + c0);
-      const float ai[4] = {av.x, av.y, av.z, av.w};
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(ai[i], bj[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[(k0 + i) * N + c0 + j] += s[i][j];
-  }
-}
 
 __device__ __forceinline__ int target_of(const HeadArgs& a, long m) {
   const int b = static_cast<int>(m / a.t_len);
@@ -165,46 +113,24 @@ __global__ void __launch_bounds__(kThreads) head_fwd_kernel(HeadArgs a) {
       act[r * lds + k] = m < hi ? rnd(leaky(bf2f(a.skip[m * S + k]))) : 0.f;
     }
     __syncthreads();
-    tile_product(act, lds, w1, S, C, [&](int r, int c, float v) {
+    tile_product<false>(act, lds, w1, S, C, [&](int r, int c, float v) {
       ly[r * ldc + c] = rnd(leaky(v + b1[c]));
     });
     __syncthreads();
-    tile_product(ly, ldc, w2, C, C, [&](int r, int c, float v) {
+    tile_product<false>(ly, ldc, w2, C, C, [&](int r, int c, float v) {
       z[r * ldc + c] = v + b2[c];
     });
     __syncthreads();
     if (tid < kRows && m0 + tid < hi) {
       const long m = m0 + tid;
-      float* zr = z + tid * ldc;
-      float zmax = zr[0];
-      int first = 0;
-      for (int c = 1; c < C; ++c)
-        if (zr[c] > zmax) {
-          zmax = zr[c];
-          first = c;
-        }
-      float esum = 0.f;
-      for (int c = 0; c < C; ++c) esum += expf(zr[c] - zmax);
-      const int tgt = target_of(a, m);
-      float nll;
-      if (a.parity) {
-        float sep = 0.f, picked = 0.f;
-        for (int c = 0; c < C; ++c) {
-          const float p = expf(zr[c] - zmax) / esum;
-          sep += expf(p);
-          if (c == tgt) picked = p;
-        }
-        nll = logf(sep) - picked;
-      } else {
-        const float picked = (tgt >= 0 && tgt < C) ? zr[tgt] : 0.f;
-        nll = logf(esum) + zmax - picked;
-      }
+      bool hit;
+      // p replaces z in shared memory for a coalesced store
+      const float nll = row_nll(z + tid * ldc, C, target_of(a, m), a.parity,
+                                a.p_out != nullptr, &hit);
       if (valid_row(a, m)) {
         loss += nll;
-        match += first == tgt ? 1.f : 0.f;
+        match += hit ? 1.f : 0.f;
       }
-      if (a.p_out)   // p replaces z in shared memory for a coalesced store
-        for (int c = 0; c < C; ++c) zr[c] = expf(zr[c] - zmax) / esum;
     }
     if (a.p_out) {
       __syncthreads();
@@ -275,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) head_bwd_kernel(HeadArgs a) {
       lsk[r * lds + k] = r < rows ? rnd(leaky(bf2f(a.skip[m * S + k]))) : 0.f;
     }
     __syncthreads();
-    tile_product(lsk, lds, w1, S, C, [&](int r, int c, float v) {
+    tile_product<false>(lsk, lds, w1, S, C, [&](int r, int c, float v) {
       const float y = v + b1[c];
       ys[r * ldc + c] = y;
       ly[r * ldc + c] = rnd(leaky(y));
@@ -288,28 +214,8 @@ __global__ void __launch_bounds__(kThreads) head_bwd_kernel(HeadArgs a) {
         const long m = m0 + tid;
         const float* p = a.p_in + m * C;
         const int tgt = target_of(a, m);
-        const float scale = valid_row(a, m) ? dloss : 0.f;
-        if (a.parity) {
-          float es = 0.f;
-          for (int c = 0; c < C; ++c) es += expf(p[c]);
-          float pg = 0.f;
-          for (int c = 0; c < C; ++c) {
-            const float g = expf(p[c]) / es - (c == tgt ? 1.f : 0.f);
-            pg += p[c] * g;
-          }
-          for (int c = 0; c < C; ++c) {
-            const float g = expf(p[c]) / es - (c == tgt ? 1.f : 0.f);
-            const float v = (p[c] * g - p[c] * pg) * scale;
-            dr[c] = v;
-            drr[c] = rnd(v);
-          }
-        } else {
-          for (int c = 0; c < C; ++c) {
-            const float v = (p[c] - (c == tgt ? 1.f : 0.f)) * scale;
-            dr[c] = v;
-            drr[c] = rnd(v);
-          }
-        }
+        row_dz(p, C, tgt, valid_row(a, m) ? dloss : 0.f, a.parity, dr);
+        for (int c = 0; c < C; ++c) drr[c] = rnd(dr[c]);
       } else {
         for (int c = 0; c < C; ++c) dr[c] = drr[c] = 0.f;
       }
@@ -318,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) head_bwd_kernel(HeadArgs a) {
     if (tid < C)
       for (int r = 0; r < rows; ++r) gb += dz[r * ldc + tid];
     tile_wgrad(ly, ldc, dzr, ldc, C, C, rows, gw2);
-    tile_product(dzr, ldc, w2t, C, C, [&](int r, int c, float v) {
+    tile_product<false>(dzr, ldc, w2t, C, C, [&](int r, int c, float v) {
       const float d = v * dleaky(ys[r * ldc + c]);
       dy[r * ldc + c] = d;
       dyr[r * ldc + c] = rnd(d);
@@ -327,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) head_bwd_kernel(HeadArgs a) {
     if (tid >= C && tid < 2 * C)
       for (int r = 0; r < rows; ++r) gb += dy[r * ldc + tid - C];
     tile_wgrad(lsk, lds, dyr, ldc, S, C, rows, gw1);
-    tile_product(dyr, ldc, w1t, C, S, [&](int r, int k, float v) {
+    tile_product<false>(dyr, ldc, w1t, C, S, [&](int r, int k, float v) {
       // leaky(skip) and skip have the same sign
       if (r < rows)
         a.dskip[(m0 + r) * S + k] = f2bf(v * dleaky(lsk[r * lds + k]));

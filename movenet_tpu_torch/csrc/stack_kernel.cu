@@ -8,9 +8,15 @@
 //     backward from hsave/tfsg, with the embedding-table gradient and the
 //     stride-10 video-projection backward folded in;
 //   _fwd_kernel_tails (stack_kernel.py:929) and _bwd_kernel_tails (:1031),
-//     the "recompute" strategy: see the section of that name below.
-// Only the bf16 compute dtype is built here (the operands of the forward
-// products are bf16, the backward's are f32, as on the TPU).
+//     the "recompute" strategy: see the section of that name below;
+//   _fwd_kernel_head (stack_kernel.py:464, pallas_call at :576) and
+//     _bwd_kernel_head (:624, pallas_call at :822), the trunk merged with
+//     the output head and the CE loss.
+// The save kernels also run in their non-embed form (x in, dx out; the
+// JAX package's fused_stack with strategy "save"), which the merged
+// kernels build on.  Only the bf16 compute dtype is built here (the
+// operands of the forward products are bf16, the backward's are f32, as
+// on the TPU).
 //
 // Design.  The TPU runs a (batch, time tile) grid in order and carries the
 // dilation rings and the weight-gradient sums from one grid step to the
@@ -42,6 +48,17 @@
 //             (order not fixed), then a fixed-order reduction; the
 //             projection backward is one more weight-gradient launch (dwup,
 //             dbup) and one product for dxc.
+// The merged form is the non-embed save form with two changes.  Its
+// forward forms gated from the unrounded taps, and the last layer's launch
+// runs the head on each tile once the tile's skip sum is final (rounded to
+// bf16, stored, then leaky, W1, leaky, W2 on bf16 operands, the NLL and
+// the argmax match per valid row), at one block per SM for the head's
+// weights and tiles in shared memory; the logits never reach global
+// memory, and the blocks' loss and match sums are added in a fixed order.
+// Its backward starts with a head launch (the layer launch's shared memory
+// has no room for the head): y and z rebuilt from the saved skip, dz, the
+// head's weight gradients as per-block partials, and dskip in float32,
+// which the layer launches and the W_out gradient read unrounded.
 // The TPU's per-tile ring snapshots (tails) are not produced: hsave holds
 // those rows.  Every product is a sequence of fmaf in float32 over operands
 // held in shared memory; nothing uses tensor cores yet (later work).
@@ -58,6 +75,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "head_core.cuh"
 
 namespace {
 
@@ -131,6 +150,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The non-embed forms start from x (B, T, R) instead of the embedding:
+// h = x widened to float32, hsave[0] = x.
+__global__ void __launch_bounds__(kThreads)
+    stack_x_kernel(const bf16_t* x, long total, float* h, bf16_t* hsave0) {
+  for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
+       i < total; i += static_cast<long>(gridDim.x) * kThreads) {
+    h[i] = bf2f(x[i]);
+    hsave0[i] = x[i];
+  }
+}
+
+// The merged head on the last layer's tiles (stack_kernel.py:519-539): the
+// tile's finished skip sum, rounded to bf16, through leaky, W1, leaky, W2
+// (bf16 operands), then the NLL and the first-argmax match of each valid
+// row [RF-1, T-1), summed per block.
+struct HeadEpilogue {
+  const int* tgt;        // (T, B) targets, or null: no head
+  const float* w1;       // (S, C)
+  const float* b1;       // (C)
+  const float* w2;       // (C, C)
+  const float* b2;       // (C)
+  float* part;           // (gridDim.x, 2): the block's loss and match sums
+  int batch, c, rf, parity;
+};
+
 struct FwdLayerArgs {
   float* h;              // (M, R) residual stream, float32, in place
   const bf16_t* hs;      // (M, R) hsave[l]
@@ -145,6 +189,8 @@ struct FwdLayerArgs {
   bf16_t* skip;          // (M, S) skip_sum, stored by the last layer
   long m_total;
   int t_len, d, first, last;
+  int raw_gate;          // gated from the unrounded taps (the merged form)
+  HeadEpilogue hd;
 };
 
 template <int R, int S>
@@ -154,9 +200,15 @@ struct FwdShape {
   static constexpr int kLd = kRows + 8;           // row stride of the
                                                   // transposed operands
   static constexpr int kNo = R + S;
-  static size_t smem() {
-    return (3 * R * kLd + 3 * R * 2 * R + R * kLd + R * kNo) * 2 +
-           kNo * 4;
+  // c > 0: the last layer's launch with the merged head (c classes)
+  static size_t smem(int c = 0) {
+    size_t n = (3 * R * kLd + 3 * R * 2 * R + R * kLd + R * kNo) * 2 +
+               kNo * 4;
+    if (c > 0)
+      n += static_cast<size_t>(S * c + c * c + 2 * c + kRows * (S + 4) +
+                               2 * head_core::kHeadRows * (c + 4) +
+                               2 * head_core::kHeadRows) * 4;
+    return n;
   }
 };
 
@@ -173,12 +225,36 @@ __global__ void __launch_bounds__(kThreads)
   bf16_t* wo = gt + R * LD;                         // (R, NO)
   float* bo = reinterpret_cast<float*>(wo + R * NO);
   const int tid = threadIdx.x;
+  // the merged head (last layer only): rounded weights, the tile's
+  // rnd(leaky(skip)) rows, and one 64-row head tile's y and z
+  constexpr int HR = head_core::kHeadRows;
+  const bool head = a.hd.tgt != nullptr;
+  const int C = a.hd.c, lds = S + 4, ldc = C + 4;
+  float* hw1 = bo + NO;                             // (S, C)
+  float* hw2 = hw1 + S * C;                         // (C, C)
+  float* hb1 = hw2 + C * C;
+  float* hb2 = hb1 + C;
+  float* act = hb2 + C;                             // (ROWS, lds)
+  float* hly = act + ROWS * lds;                    // (HR, ldc)
+  float* hz = hly + HR * ldc;                       // (HR, ldc)
+  float* red = hz + HR * ldc;                       // (2, HR)
+  float loss = 0.f, match = 0.f;                    // per row-thread
 
   // weights rounded to bf16, as the TPU kernel's _mdot rounds operands;
   // staged once, then the block walks its tiles (grid = the SM count)
   for (int i = tid; i < kin * 2 * R; i += kThreads) wf[i] = f2bf(a.w_fg[i]);
   for (int i = tid; i < R * NO; i += kThreads) wo[i] = f2bf(a.w_out[i]);
   for (int i = tid; i < NO; i += kThreads) bo[i] = a.b_out[i];
+  if (head) {
+    for (int i = tid; i < S * C; i += kThreads)
+      hw1[i] = head_core::rnd(a.hd.w1[i]);
+    for (int i = tid; i < C * C; i += kThreads)
+      hw2[i] = head_core::rnd(a.hd.w2[i]);
+    for (int i = tid; i < C; i += kThreads) {
+      hb1[i] = a.hd.b1[i];
+      hb2[i] = a.hd.b2[i];
+    }
+  }
   const long n_tiles = (a.m_total + ROWS - 1) / ROWS;
   for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
   const long m0 = tile_i * ROWS;
@@ -239,10 +315,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) {
         const float f = acc[i][j] + bf[c0 + j];
         const float g = acc[i][4 + j] + bf[R + c0 + j];
-        vf[j] = bf2f(f2bf(tanhf(f)));
-        vg[j] = bf2f(f2bf(1.f / (1.f + expf(-g))));
-        // gated from the rounded taps, rounded again as a product operand
-        gt[(c0 + j) * LD + row] = f2bf(vf[j] * vg[j]);
+        const float tf = tanhf(f), sg = 1.f / (1.f + expf(-g));
+        vf[j] = bf2f(f2bf(tf));
+        vg[j] = bf2f(f2bf(sg));
+        // gated from the rounded taps (or the unrounded ones in the merged
+        // form), rounded again as a product operand
+        gt[(c0 + j) * LD + row] = f2bf(a.raw_gate ? tf * sg : vf[j] * vg[j]);
       }
       if (ok) {
         store4_bf(a.tfsg + m * 2 * R + c0, vf);
@@ -274,7 +352,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < MR; ++i) {
       const long m = m0 + r0 + i;
-      if (m >= a.m_total) continue;
+      if (m >= a.m_total) {
+        if (head && c0 >= R)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) act[(r0 + i) * lds + c0 - R + j] = 0.f;
+        continue;
+      }
       float v[8];
       float* dst = c0 < R ? a.h + m * R + c0 : a.skacc + m * S + c0 - R;
       const bool add = c0 < R || !a.first;
@@ -293,6 +376,11 @@ __global__ void __launch_bounds__(kThreads)
         if (a.hs_next) store8_bf(a.hs_next + m * R + c0, v);
       } else if (a.last) {
         store8_bf(a.skip + m * S + c0 - R, v);
+        if (head)   // the head's first operand: leaky of the rounded skip
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            act[(r0 + i) * lds + c0 - R + j] =
+                head_core::rnd(head_core::leaky(bf2f(f2bf(v[j]))));
       } else {
         *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
         *reinterpret_cast<float4*>(dst + 4) =
@@ -300,7 +388,54 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+  if (head) {
+    // the head over the tile's rows, 64 at a time
+    for (int sub = 0; sub < ROWS; sub += HR) {
+      __syncthreads();
+      head_core::tile_product<false>(
+          act + sub * lds, lds, hw1, S, C, [&](int r, int c, float v) {
+            hly[r * ldc + c] = head_core::rnd(head_core::leaky(v + hb1[c]));
+          });
+      __syncthreads();
+      head_core::tile_product<false>(hly, ldc, hw2, C, C,
+                                     [&](int r, int c, float v) {
+                                       hz[r * ldc + c] = v + hb2[c];
+                                     });
+      __syncthreads();
+      const long m = m0 + sub + tid;
+      if (tid < HR && m < a.m_total) {
+        const int b = static_cast<int>(m / a.t_len);
+        const int t = static_cast<int>(m % a.t_len);
+        bool hit;
+        const float nll = head_core::row_nll(
+            hz + tid * ldc, C, a.hd.tgt[static_cast<long>(t) * a.hd.batch + b],
+            a.hd.parity, false, &hit);
+        if (t >= a.hd.rf - 1 && t < a.t_len - 1) {
+          loss += nll;
+          match += hit ? 1.f : 0.f;
+        }
+      }
+    }
+  }
   }  // tiles
+  if (head) {
+    // the block's sums, in row-thread order
+    __syncthreads();
+    if (tid < HR) {
+      red[tid] = loss;
+      red[HR + tid] = match;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float sl = 0.f, sm = 0.f;
+      for (int r = 0; r < HR; ++r) {
+        sl += red[r];
+        sm += red[HR + r];
+      }
+      a.hd.part[2 * blockIdx.x] = sl;
+      a.hd.part[2 * blockIdx.x + 1] = sm;
+    }
+  }
 }
 
 // ----------------------------------------------------------- backward
@@ -312,7 +447,8 @@ struct BwdLayerArgs {
   float* dfg;            // (M, 2R) out
   float* dctx;           // (M, R) float32 accumulator, or null
   bf16_t* dctx_bf;       // (M, R) flat dctx, stored by layer 0, or null
-  const bf16_t* dskip;   // (M, S)
+  const bf16_t* dskip;   // (M, S), or null when dskip_f is given
+  const float* dskip_f;  // (M, S) float32 dskip (the merged head's)
   const bf16_t* tfsg;    // (M, 2R)
   const float* w_out;    // (R, R+S)
   const float* w_fg;     // (W_in, 2R)
@@ -381,7 +517,18 @@ __global__ void __launch_bounds__(kThreads)
     const int row = i % ROWS, j0 = (i / ROWS) * 4;
     const long m = m0 + row;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (m < a.m_total) load4(a.dskip + m * S + j0, v);
+    if (m < a.m_total) {
+      if (a.dskip_f) {
+        const float4 q =
+            *reinterpret_cast<const float4*>(a.dskip_f + m * S + j0);
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+      } else {
+        load4(a.dskip + m * S + j0, v);
+      }
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) dt[(R + j0 + e) * LD + row] = v[e];
   }
@@ -491,6 +638,7 @@ struct WgradArgs {
   const bf16_t* tfsg;
   const float* dh;
   const bf16_t* dskip;
+  const float* dskip_f;  // float32 dskip in place of dskip, or null
   const bf16_t* xc;
   const float* dctx;
   int n, rows_per_batch, chunks, d;
@@ -543,6 +691,8 @@ __device__ __forceinline__ float4 wg_b4(const WgradArgs& a, long row, int c) {
     return *reinterpret_cast<const float4*>(a.dfg + row * 2 * R + c);
   if (MODE == 1) {
     if (c < R) return *reinterpret_cast<const float4*>(a.dh + row * R + c);
+    if (a.dskip_f)
+      return *reinterpret_cast<const float4*>(a.dskip_f + row * S + c - R);
     float v[4];
     load4(a.dskip + row * S + c - R, v);
     return make_float4(v[0], v[1], v[2], v[3]);
@@ -745,6 +895,157 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// dx of the non-embed forms: layer 0's dh + dfg_w_h, plus its carry
+// dfg_w_p(t + d0), rounded to bf16.
+__global__ void __launch_bounds__(kThreads)
+    stack_dx_kernel(const float* dhp, const float* p, int d0, int t_len,
+                    int r, long total, bf16_t* dx) {
+  for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
+       i < total; i += static_cast<long>(gridDim.x) * kThreads) {
+    const long m = i / r;
+    float v = dhp[i];
+    if (static_cast<int>(m % t_len) + d0 < t_len) v += p[i + d0 * r];
+    dx[i] = f2bf(v);
+  }
+}
+
+// The merged backward's head (stack_kernel.py:667-697), ahead of the layer
+// launches: per 64-row tile, y and z rebuilt from the saved skip with bf16
+// operands, the softmax p, dz, then with float32 operands dW2 += leaky(y)^T
+// dz, dy = dz W2^T * leaky'(y), dW1 += leaky(skip)^T dy and the float32
+// dskip = dy W1^T * leaky'(skip), stored unrounded for the layer launches.
+// Each block walks a contiguous range of rows and writes its partial
+// weight and bias gradients; a fixed-order reduction adds them up.
+struct HeadBwdArgs {
+  const bf16_t* skip;    // (M, S)
+  const int* tgt;        // (T, B)
+  const float* w1;       // (S, C)
+  const float* b1;       // (C)
+  const float* w2;       // (C, C)
+  const float* b2;       // (C)
+  const float* dloss;    // (1) gradient of the loss sum
+  float* dskip;          // (M, S) float32
+  float* part;           // (gridDim.x, S*C + C + C*C + C)
+  long m_total, rows_per_block;
+  int batch, t_len, s, c, rf, parity;
+};
+
+size_t head_bwd_smem(int s, int c) {
+  const int hr = head_core::kHeadRows;
+  return static_cast<size_t>(3 * s * c + 3 * c * c + 2 * c + hr * (s + 4) +
+                             5 * hr * (c + 4)) * 4;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    stack_head_bwd_kernel(HeadBwdArgs a) {
+  using head_core::dleaky;
+  using head_core::leaky;
+  constexpr int HR = head_core::kHeadRows;
+  const int S = a.s, C = a.c, lds = S + 4, ldc = C + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* w1 = reinterpret_cast<float*>(smem);   // (S, C)
+  float* w2 = w1 + S * C;                         // (C, C)
+  float* w1t = w2 + C * C;                        // (C, S) W1^T
+  float* w2t = w1t + C * S;                       // (C, C) W2^T
+  float* b1 = w2t + C * C;
+  float* b2 = b1 + C;
+  float* lsk = b2 + C;                            // (HR, lds) leaky(skip)
+  float* ys = lsk + HR * lds;                     // (HR, ldc) y
+  float* ly = ys + HR * ldc;                      // (HR, ldc) leaky(y)
+  float* zp = ly + HR * ldc;                      // (HR, ldc) z, then p
+  float* dz = zp + HR * ldc;                      // (HR, ldc)
+  float* dy = dz + HR * ldc;                      // (HR, ldc)
+  float* gw1 = dy + HR * ldc;                     // (S, C)
+  float* gw2 = gw1 + S * C;                       // (C, C)
+  const int tid = threadIdx.x;
+  for (int i = tid; i < S * C; i += kThreads) {
+    const int k = i / C, c = i % C;
+    w1[i] = a.w1[i];
+    w1t[c * S + k] = a.w1[i];
+    gw1[i] = 0.f;
+  }
+  for (int i = tid; i < C * C; i += kThreads) {
+    const int k = i / C, c = i % C;
+    w2[i] = a.w2[i];
+    w2t[c * C + k] = a.w2[i];
+    gw2[i] = 0.f;
+  }
+  for (int i = tid; i < C; i += kThreads) {
+    b1[i] = a.b1[i];
+    b2[i] = a.b2[i];
+  }
+  const float dloss = a.dloss[0];
+  const long lo = blockIdx.x * a.rows_per_block;
+  const long hi_raw = lo + a.rows_per_block;
+  const long hi = hi_raw < a.m_total ? hi_raw : a.m_total;
+  float gb = 0.f;   // db2 (threads [0, C)) or db1 (threads [C, 2C))
+  for (long m0 = lo; m0 < hi; m0 += HR) {
+    const int rows = static_cast<int>(hi - m0 < HR ? hi - m0 : HR);
+    __syncthreads();
+    for (int i = tid; i < HR * S; i += kThreads) {
+      const int r = i / S, k = i % S;
+      lsk[r * lds + k] = r < rows ? leaky(bf2f(a.skip[(m0 + r) * S + k])) : 0.f;
+    }
+    __syncthreads();
+    // the forward's products, bf16 operands (rounded as they load)
+    head_core::tile_product<true>(lsk, lds, w1, S, C,
+                                  [&](int r, int c, float v) {
+                                    const float y = v + b1[c];
+                                    ys[r * ldc + c] = y;
+                                    ly[r * ldc + c] = leaky(y);
+                                  });
+    __syncthreads();
+    head_core::tile_product<true>(ly, ldc, w2, C, C,
+                                  [&](int r, int c, float v) {
+                                    zp[r * ldc + c] = v + b2[c];
+                                  });
+    __syncthreads();
+    // the softmax replaces z (row_nll's write_p), then dz, a row per thread
+    if (tid < HR) {
+      float* dr = dz + tid * ldc;
+      if (tid < rows) {
+        const long m = m0 + tid;
+        const int b = static_cast<int>(m / a.t_len);
+        const int t = static_cast<int>(m % a.t_len);
+        const int tgt = a.tgt[static_cast<long>(t) * a.batch + b];
+        bool hit;
+        head_core::row_nll(zp + tid * ldc, C, tgt, a.parity, true, &hit);
+        const bool valid = t >= a.rf - 1 && t < a.t_len - 1;
+        head_core::row_dz(zp + tid * ldc, C, tgt, valid ? dloss : 0.f,
+                          a.parity, dr);
+      } else {
+        for (int c = 0; c < C; ++c) dr[c] = 0.f;
+      }
+    }
+    __syncthreads();
+    // the gradient products, float32 operands
+    if (tid < C)
+      for (int r = 0; r < rows; ++r) gb += dz[r * ldc + tid];
+    head_core::tile_wgrad(ly, ldc, dz, ldc, C, C, rows, gw2);
+    head_core::tile_product<false>(dz, ldc, w2t, C, C,
+                                   [&](int r, int c, float v) {
+                                     dy[r * ldc + c] = v * dleaky(ys[r * ldc + c]);
+                                   });
+    __syncthreads();
+    if (tid >= C && tid < 2 * C)
+      for (int r = 0; r < rows; ++r) gb += dy[r * ldc + tid - C];
+    head_core::tile_wgrad(lsk, lds, dy, ldc, S, C, rows, gw1);
+    head_core::tile_product<false>(
+        dy, ldc, w1t, C, S, [&](int r, int k, float v) {
+          // leaky(skip) and skip have the same sign
+          if (r < rows)
+            a.dskip[(m0 + r) * S + k] = v * dleaky(lsk[r * lds + k]);
+        });
+  }
+  __syncthreads();
+  // partial: dw1 (S*C) | db1 (C) | dw2 (C*C) | db2 (C)
+  float* out = a.part + static_cast<long>(blockIdx.x) * (S * C + C * C + 2 * C);
+  for (int i = tid; i < S * C; i += kThreads) out[i] = gw1[i];
+  for (int i = tid; i < C * C; i += kThreads) out[S * C + C + i] = gw2[i];
+  if (tid < C) out[S * C + C + C * C + tid] = gb;
+  if (tid >= C && tid < 2 * C) out[S * C + tid - C] = gb;
+}
+
 // ------------------------------------------------------------- host side
 int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -769,27 +1070,50 @@ int grid_for(long n) {
   return static_cast<int>(g < 8192 ? (g < 1 ? 1 : g) : 8192);
 }
 
+// The forward's source: the embedding (pack, table2) or, in the non-embed
+// forms, x; raw_gate and the head epilogue are the merged form's.
+struct FwdSource {
+  const int* pack;
+  int pack_cols;
+  const bf16_t* table2;
+  int vocab;
+  const bf16_t* x;       // non-null: start from x
+  int raw_gate;
+  HeadEpilogue hd;       // hd.tgt non-null: the head on the last layer
+  float* out;            // (2) the head's loss sum and match count
+};
+
 template <int R, int S>
-int fwd_impl(const int* pack, int pack_cols, const bf16_t* table2, int vocab,
-             const bf16_t* ctx, const float* b_fg, const float* w_fg,
-             const float* w_out, const float* b_out, const int* dil, float* h,
-             float* skacc, bf16_t* hsave, bf16_t* tfsg, bf16_t* skip,
-             int batch, int t_len, int n_layers, cudaStream_t st) {
+int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
+             const float* w_fg, const float* w_out, const float* b_out,
+             const int* dil, float* h, float* skacc, bf16_t* hsave,
+             bf16_t* tfsg, bf16_t* skip, int batch, int t_len, int n_layers,
+             cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const int win = ctx ? 3 * R : 2 * R;
-  stack_embed_kernel<<<grid_for(m_total * R), kThreads, 0, st>>>(
-      pack, pack_cols, table2, vocab, batch, t_len, R, h, hsave);
+  if (src.x)
+    stack_x_kernel<<<grid_for(m_total * R), kThreads, 0, st>>>(
+        src.x, m_total * R, h, hsave);
+  else
+    stack_embed_kernel<<<grid_for(m_total * R), kThreads, 0, st>>>(
+        src.pack, src.pack_cols, src.table2, src.vocab, batch, t_len, R, h,
+        hsave);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  const bool head = src.hd.tgt != nullptr;
   const size_t smem = FwdShape<R, S>::smem();
+  const size_t head_smem = FwdShape<R, S>::smem(head ? src.hd.c : 0);
   int err = set_smem(reinterpret_cast<const void*>(
-                         stack_fwd_layer_kernel<R, S>), smem);
+                         stack_fwd_layer_kernel<R, S>), head_smem);
   if (err) return err;
   const int rows = FwdShape<R, S>::kRows;
-  // two blocks fit an SM (about 100 KB of shared memory each at R = 64)
+  // two blocks fit an SM (about 100 KB of shared memory each at R = 64);
+  // the last layer's launch with the head, one (about 190 KB)
   const long tiles = (m_total + rows - 1) / rows;
   const int grid =
       static_cast<int>(tiles < 2 * sm_count() ? tiles : 2 * sm_count());
+  const int head_grid =
+      static_cast<int>(tiles < sm_count() ? tiles : sm_count());
   for (int l = 0; l < n_layers; ++l) {
     FwdLayerArgs a;
     a.h = h;
@@ -808,7 +1132,20 @@ int fwd_impl(const int* pack, int pack_cols, const bf16_t* table2, int vocab,
     a.d = dil[l];
     a.first = l == 0;
     a.last = l == n_layers - 1;
-    stack_fwd_layer_kernel<R, S><<<grid, kThreads, smem, st>>>(a);
+    a.raw_gate = src.raw_gate;
+    a.hd = src.hd;
+    if (a.last && head) {
+      stack_fwd_layer_kernel<R, S><<<head_grid, kThreads, head_smem, st>>>(a);
+    } else {
+      a.hd.tgt = nullptr;
+      stack_fwd_layer_kernel<R, S><<<grid, kThreads, smem, st>>>(a);
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (head) {
+    reduce_kernel<<<1, kThreads, 0, st>>>(src.hd.part, src.out, 2, 1,
+                                          head_grid);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -838,14 +1175,24 @@ int wgrad_launch(WgradArgs a, int batch, float* out_w, float* out_b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward's input gradient: the table gradient (pack, vocab, dtab)
+// or, in the non-embed forms, dx; and dskip in bf16 or float32.
+struct BwdEnds {
+  const bf16_t* dskip;
+  const float* dskip_f;
+  const int* pack;
+  int pack_cols, vocab, embed_blocks;
+  float* dtab;
+  bf16_t* dx;            // non-null: dx in place of dtab
+};
+
 template <int R, int S>
-int bwd_impl(const bf16_t* hsave, const bf16_t* tfsg, const bf16_t* ctx,
-             const float* w_fg, const float* w_out, const bf16_t* dskip,
-             const int* pack, int pack_cols, int vocab, const int* dil,
-             const bf16_t* xc, const float* wup, float* scratch, int chunks,
-             float* dtab, bf16_t* dctx_out, float* db_fg, float* dw_fg,
-             float* dw_out, float* db_out, float* dwup, float* dbup,
-             int batch, int t_len, int n_layers, int embed_blocks,
+int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
+             const bf16_t* ctx, const float* w_fg, const float* w_out,
+             const int* dil, const bf16_t* xc, const float* wup,
+             float* scratch, int chunks, bf16_t* dctx_out, float* db_fg,
+             float* dw_fg, float* dw_out, float* db_out, float* dwup,
+             float* dbup, int batch, int t_len, int n_layers,
              cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const int win = ctx ? 3 * R : 2 * R;
@@ -873,7 +1220,8 @@ int bwd_impl(const bf16_t* hsave, const bf16_t* tfsg, const bf16_t* ctx,
     a.dfg = dfg;
     a.dctx = ctx ? dctx : nullptr;
     a.dctx_bf = (ctx && !proj && l == 0) ? dctx_out : nullptr;
-    a.dskip = dskip;
+    a.dskip = ends.dskip;
+    a.dskip_f = ends.dskip_f;
     a.tfsg = tfsg + l * m_total * 2 * R;
     a.w_out = w_out + static_cast<long>(l) * R * (R + S);
     a.w_fg = w_fg + static_cast<long>(l) * win * 2 * R;
@@ -892,7 +1240,8 @@ int bwd_impl(const bf16_t* hsave, const bf16_t* tfsg, const bf16_t* ctx,
     w.dfg = dfg;
     w.tfsg = tfsg + l * m_total * 2 * R;
     w.dh = dh;
-    w.dskip = dskip;
+    w.dskip = ends.dskip;
+    w.dskip_f = ends.dskip_f;
     w.rows_per_batch = t_len;
     w.chunks = chunks;
     w.d = dil[l];
@@ -911,20 +1260,26 @@ int bwd_impl(const bf16_t* hsave, const bf16_t* tfsg, const bf16_t* ctx,
         db_out + static_cast<long>(l) * (R + S), 1, st);
     if (err) return err;
   }
-  // table gradient
-  const long per = (m_total + embed_blocks - 1) / embed_blocks;
-  const size_t tsmem = static_cast<size_t>(2 * vocab * R) * 4;
-  err = set_smem(reinterpret_cast<const void*>(stack_embed_grad_kernel),
-                 tsmem);
-  if (err) return err;
-  stack_embed_grad_kernel<<<embed_blocks, kThreads, tsmem, st>>>(
-      dhp, pbuf[0], dil[0], pack, pack_cols, batch, t_len, vocab, R, per,
-      part);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long nt = 2L * vocab * R;
-  reduce_kernel<<<grid_for(nt), kThreads, 0, st>>>(part, dtab, nt, 1,
-                                                   embed_blocks);
+  if (ends.dx) {
+    stack_dx_kernel<<<grid_for(m_total * R), kThreads, 0, st>>>(
+        dhp, pbuf[0], dil[0], t_len, R, m_total * R, ends.dx);
+  } else {
+    // table gradient
+    const int blocks = ends.embed_blocks, vocab = ends.vocab;
+    const long per = (m_total + blocks - 1) / blocks;
+    const size_t tsmem = static_cast<size_t>(2 * vocab * R) * 4;
+    err = set_smem(reinterpret_cast<const void*>(stack_embed_grad_kernel),
+                   tsmem);
+    if (err) return err;
+    stack_embed_grad_kernel<<<blocks, kThreads, tsmem, st>>>(
+        dhp, pbuf[0], dil[0], ends.pack, ends.pack_cols, batch, t_len, vocab,
+        R, per, part);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long nt = 2L * vocab * R;
+    reduce_kernel<<<grid_for(nt), kThreads, 0, st>>>(part, ends.dtab, nt, 1,
+                                                     blocks);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (proj) {
@@ -1618,6 +1973,48 @@ long tails_n_part(int r, int s, int win, int n_layers, int batch) {
 
 #define MOVENET_STACK_WIDTHS(X) X(16, 16) X(32, 32) X(64, 64) X(64, 8)
 
+namespace {
+
+// shared memory one block may use on sm_90
+constexpr size_t kSmemLimit = 232448;
+
+int fwd_dispatch(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
+                 const float* w_fg, const float* w_out, const float* b_out,
+                 const int* dil, float* h, float* skacc, bf16_t* hsave,
+                 bf16_t* tfsg, bf16_t* skip, int batch, int t_len,
+                 int n_layers, int r, int s, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define X(R_, S_)                                                           \
+  if (r == R_ && s == S_)                                                   \
+    return fwd_impl<R_, S_>(src, ctx, b_fg, w_fg, w_out, b_out, dil, h,     \
+                            skacc, hsave, tfsg, skip, batch, t_len,         \
+                            n_layers, st);
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int bwd_dispatch(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
+                 const bf16_t* ctx, const float* w_fg, const float* w_out,
+                 const int* dil, const bf16_t* xc, const float* wup,
+                 float* scratch, int chunks, bf16_t* dctx_out, float* db_fg,
+                 float* dw_fg, float* dw_out, float* db_out, float* dwup,
+                 float* dbup, int batch, int t_len, int n_layers, int r,
+                 int s, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define X(R_, S_)                                                           \
+  if (r == R_ && s == S_)                                                   \
+    return bwd_impl<R_, S_>(ends, hsave, tfsg, ctx, w_fg, w_out, dil, xc,   \
+                            wup, scratch, chunks, dctx_out, db_fg, dw_fg,   \
+                            dw_out, db_out, dwup, dbup, batch, t_len,       \
+                            n_layers, st);
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
 extern "C" {
 
 // 1 if the kernels are built for residual width r and skip width s
@@ -1652,40 +2049,149 @@ int movenet_stack_fwd(const int* pack, int pack_cols, const bf16_t* table2,
                       float* skacc, bf16_t* hsave, bf16_t* tfsg,
                       bf16_t* skip, int batch, int t_len, int n_layers, int r,
                       int s, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define X(R_, S_)                                                          \
-  if (r == R_ && s == S_)                                                  \
-    return fwd_impl<R_, S_>(pack, pack_cols, table2, vocab, ctx, b_fg,     \
-                            w_fg, w_out, b_out, dil, h, skacc, hsave, tfsg, \
-                            skip, batch, t_len, n_layers, st);
-  MOVENET_STACK_WIDTHS(X)
-#undef X
-  return static_cast<int>(cudaErrorInvalidValue);
+  FwdSource src = {};
+  src.pack = pack;
+  src.pack_cols = pack_cols;
+  src.table2 = table2;
+  src.vocab = vocab;
+  return fwd_dispatch(src, ctx, b_fg, w_fg, w_out, b_out, dil, h, skacc,
+                      hsave, tfsg, skip, batch, t_len, n_layers, r, s,
+                      stream);
+}
+
+// The non-embed save forward (h from x): as movenet_stack_fwd.
+int movenet_stack_fwd_x(const bf16_t* x, const bf16_t* ctx,
+                        const float* b_fg, const float* w_fg,
+                        const float* w_out, const float* b_out,
+                        const int* dil, float* h, float* skacc,
+                        bf16_t* hsave, bf16_t* tfsg, bf16_t* skip, int batch,
+                        int t_len, int n_layers, int r, int s, void* stream) {
+  FwdSource src = {};
+  src.x = x;
+  return fwd_dispatch(src, ctx, b_fg, w_fg, w_out, b_out, dil, h, skacc,
+                      hsave, tfsg, skip, batch, t_len, n_layers, r, s,
+                      stream);
+}
+
+// The merged forward: the non-embed save forward with gated from the
+// unrounded taps and the head + CE in the last layer's launch; out[0] the
+// loss sum, out[1] the match count; part holds movenet_stack_blocks() x 2
+// floats.  tgt is (T, B).
+int movenet_stack_head_fwd(const bf16_t* x, const bf16_t* ctx,
+                           const float* b_fg, const float* w_fg,
+                           const float* w_out, const float* b_out,
+                           const int* dil, const int* tgt, const float* w1,
+                           const float* b1, const float* w2, const float* b2,
+                           float* h, float* skacc, bf16_t* hsave,
+                           bf16_t* tfsg, bf16_t* skip, float* part,
+                           float* out, int batch, int t_len, int n_layers,
+                           int r, int s, int c, int rf, int parity,
+                           void* stream) {
+  FwdSource src = {};
+  src.x = x;
+  src.raw_gate = 1;
+  src.hd.tgt = tgt;
+  src.hd.w1 = w1;
+  src.hd.b1 = b1;
+  src.hd.w2 = w2;
+  src.hd.b2 = b2;
+  src.hd.part = part;
+  src.hd.batch = batch;
+  src.hd.c = c;
+  src.hd.rf = rf;
+  src.hd.parity = parity;
+  src.out = out;
+  return fwd_dispatch(src, ctx, b_fg, w_fg, w_out, b_out, dil, h, skacc,
+                      hsave, tfsg, skip, batch, t_len, n_layers, r, s,
+                      stream);
 }
 
 // Backward of the whole stack; returns the first cudaError_t.  dil is a
 // host array.  xc/wup are null unless the projection backward is folded in.
+// dskip is bf16, or dskip_f float32 (the merged head's), the other null.
+// With dx null the table gradient goes to dtab (pack, vocab, embed_blocks
+// as the forward's); with dx (the non-embed form) dx is stored instead,
+// and pack, dtab are null, vocab and embed_blocks 0.
 int movenet_stack_bwd(const bf16_t* hsave, const bf16_t* tfsg,
                       const bf16_t* ctx, const float* w_fg,
                       const float* w_out, const bf16_t* dskip,
-                      const int* pack, int pack_cols, int vocab,
-                      const int* dil, const bf16_t* xc, const float* wup,
-                      float* scratch, int chunks, float* dtab,
-                      bf16_t* dctx_out, float* db_fg, float* dw_fg,
-                      float* dw_out, float* db_out, float* dwup, float* dbup,
-                      int batch, int t_len, int n_layers, int r, int s,
+                      const float* dskip_f, const int* pack, int pack_cols,
+                      int vocab, const int* dil, const bf16_t* xc,
+                      const float* wup, float* scratch, int chunks,
+                      float* dtab, bf16_t* dx, bf16_t* dctx_out,
+                      float* db_fg, float* dw_fg, float* dw_out,
+                      float* db_out, float* dwup, float* dbup, int batch,
+                      int t_len, int n_layers, int r, int s,
                       int embed_blocks, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define X(R_, S_)                                                            \
-  if (r == R_ && s == S_)                                                    \
-    return bwd_impl<R_, S_>(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,       \
-                            pack_cols, vocab, dil, xc, wup, scratch, chunks, \
-                            dtab, dctx_out, db_fg, dw_fg, dw_out, db_out,    \
-                            dwup, dbup, batch, t_len, n_layers,              \
-                            embed_blocks, st);
+  BwdEnds ends = {};
+  ends.dskip = dskip;
+  ends.dskip_f = dskip_f;
+  ends.pack = pack;
+  ends.pack_cols = pack_cols;
+  ends.vocab = vocab;
+  ends.embed_blocks = embed_blocks;
+  ends.dtab = dtab;
+  ends.dx = dx;
+  return bwd_dispatch(ends, hsave, tfsg, ctx, w_fg, w_out, dil, xc, wup,
+                      scratch, chunks, dctx_out, db_fg, dw_fg, dw_out, db_out,
+                      dwup, dbup, batch, t_len, n_layers, r, s, stream);
+}
+
+// Blocks of the merged head's launches: one per SM.
+int movenet_stack_blocks() { return sm_count(); }
+
+// 1 if the merged kernels take (R, S) and C classes.
+int movenet_stack_head_supports(int r, int s, int c) {
+  if (!movenet_stack_supports(r, s) || c < 4 || c > 64 || c % 4) return 0;
+  if (head_bwd_smem(s, c) > kSmemLimit) return 0;
+#define X(R_, S_) \
+  if (r == R_ && s == S_) return FwdShape<R_, S_>::smem(c) <= kSmemLimit;
   MOVENET_STACK_WIDTHS(X)
 #undef X
-  return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// The merged backward's head: dskip (float32, (B, T, S)) for
+// movenet_stack_bwd, and grads = dw1 (S*C) | db1 (C) | dw2 (C*C) | db2
+// (C); part holds `blocks` x that many floats.  tgt is (T, B).
+int movenet_stack_head_bwd(const bf16_t* skip, const int* tgt,
+                           const float* w1, const float* b1, const float* w2,
+                           const float* b2, const float* dloss, float* dskip,
+                           float* part, float* grads, int batch, int t_len,
+                           int s, int c, int rf, int parity, int blocks,
+                           void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  HeadBwdArgs a = {};
+  a.skip = skip;
+  a.tgt = tgt;
+  a.w1 = w1;
+  a.b1 = b1;
+  a.w2 = w2;
+  a.b2 = b2;
+  a.dloss = dloss;
+  a.dskip = dskip;
+  a.part = part;
+  a.m_total = static_cast<long>(batch) * t_len;
+  const long per = (a.m_total + blocks - 1) / blocks;
+  const int hr = head_core::kHeadRows;
+  a.rows_per_block = (per + hr - 1) / hr * hr;
+  a.batch = batch;
+  a.t_len = t_len;
+  a.s = s;
+  a.c = c;
+  a.rf = rf;
+  a.parity = parity;
+  const size_t smem = head_bwd_smem(s, c);
+  int err = set_smem(reinterpret_cast<const void*>(stack_head_bwd_kernel),
+                     smem);
+  if (err) return err;
+  stack_head_bwd_kernel<<<blocks, kThreads, smem, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long n_el = static_cast<long>(s) * c + c * c + 2 * c;
+  reduce_kernel<<<grid_for(n_el), kThreads, 0, st>>>(part, grads, n_el, 1,
+                                                     blocks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Rows per tile of the recompute kernels' snapshots.

@@ -1,11 +1,14 @@
 """Fused training forward: codes -> skip sum through the whole-stack
 trunk op, then the head/CE op, so logits never exist in full.
 
-The counterpart of ``movenet_tpu.models.fused`` for its default split
-pipeline (trunk op + head/CE op): the save strategy with the front
-embedding folded into the trunk, the recompute strategy (``remat`` or
-``fused_strategy``) through ``front_embed`` and the non-embed trunk.  The
-ops (``ops/stack_kernel.fused_stack_embed`` / ``fused_stack``,
+The counterpart of ``movenet_tpu.models.fused``, every route of it: the
+split pipeline (trunk op + head/CE op) with the save strategy and the
+front embedding folded into the trunk, or with the recompute strategy
+(``remat`` or ``fused_strategy``) through ``front_embed`` and the
+non-embed trunk; one gated-block op per layer where no common stack tile
+exists; and with ``merge_head=True`` the merged trunk + head/CE op.  The
+ops (``ops/stack_kernel.fused_stack_embed`` / ``fused_stack`` /
+``fused_stack_head_loss``, ``ops/gated_block.fused_gated_block``,
 ``ops/head_loss.fused_head_loss``) run their CUDA kernels on tensors on
 the card and their plain versions on the CPU; gradients reach the
 module's parameters through their autograd functions.
@@ -23,11 +26,15 @@ from movenet_tpu_torch.models.wavenet import (
     WaveNet,
     video_upsample_sizes,
 )
+from movenet_tpu_torch.ops.gated_block import fused_gated_block
 from movenet_tpu_torch.ops.stack_kernel import (
     EMBED_MAX_2V,
+    ctx_flatten,
+    ctx_is_proj,
     front_embed,
     fused_stack,
     fused_stack_embed,
+    fused_stack_head_loss,
     pick_stack_tile,
     resolve_strategy,
     supports_recompute,
@@ -140,28 +147,59 @@ def codes_pack_np(codes) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([c, prev, tgt], axis=0).T)
 
 
+def _has_stack_tile(t: int, dilations) -> bool:
+    try:
+        pick_stack_tile(t, dilations)
+    except ValueError:
+        return False
+    return True
+
+
+def _strategy(model: WaveNet, t: int) -> str:
+    """The trunk's VJP strategy: the model's override, else "recompute"
+    under remat where it applies, else "auto"."""
+    if model.fused_strategy is not None:
+        return model.fused_strategy
+    if model.remat and supports_recompute(t, tuple(model.dilations)):
+        return "recompute"
+    return "auto"
+
+
+def _per_block_trunk(h, ctx, b_fg, w_fg, w_out, b_out, dilations
+                     ) -> torch.Tensor:
+    """skip_sum = the sum of every block's skip, one ``fused_gated_block``
+    per layer (the JAX package's per-block route, fused.py:244-258); ctx is
+    None or flat; b_fg (L*B, 2R) and the stacked weights as
+    ``_prepare_trunk`` gives them.  The skips add in h's dtype."""
+    n_layers = len(dilations)
+    b_fg = b_fg.reshape(n_layers, -1, b_fg.shape[-1])
+    skip_sum = None
+    for i, d in enumerate(dilations):
+        h, skip = fused_gated_block(h, ctx, b_fg[i], w_fg[i], w_out[i],
+                                    b_out[i].reshape(1, -1), d)
+        skip_sum = skip if skip_sum is None else skip_sum + skip
+    return skip_sum
+
+
 def _fused_trunk(model: WaveNet, codes: torch.Tensor, video, labels,
                  codes_pack=None) -> torch.Tensor:
     """codes (+video/labels) -> skip_sum (B, T, S) in the compute dtype.
 
     Routed as the JAX package routes it: the save strategy with 2V <= 512
     through the whole-stack op with the embedding folded in; any other
-    strategy through ``front_embed`` and the non-embed ``fused_stack``."""
+    strategy through ``front_embed`` and the non-embed ``fused_stack``;
+    without a common stack tile, one gated-block op per layer."""
     b, t = codes.shape
     dt = model.dtype
     dilations = tuple(model.dilations)
-    try:
-        pick_stack_tile(t, dilations)
-    except ValueError:
-        raise NotImplementedError(
-            f"no common stack tile for T={t}: the per-block fallback "
-            "(gated_block kernels) is not ported yet (ROADMAP.md B.7)")
     ctx, (b_fg, w_fg, w_out, b_out) = _prepare_trunk(model, codes, video,
                                                      labels)
-    strategy = model.fused_strategy
-    if strategy is None:
-        strategy = "recompute" if (
-            model.remat and supports_recompute(t, dilations)) else "auto"
+    if not _has_stack_tile(t, dilations):
+        h = front_embed(model.front_cur, model.front_past, codes, dt)
+        if ctx_is_proj(ctx):
+            ctx = ctx_flatten(ctx, dt)
+        return _per_block_trunk(h, ctx, b_fg, w_fg, w_out, b_out, dilations)
+    strategy = _strategy(model, t)
     vocab = model.front_cur.shape[0]
     mode = resolve_strategy(strategy, (b, t, model.residual_channels),
                             len(dilations), dilations,
@@ -178,20 +216,58 @@ def _fused_trunk(model: WaveNet, codes: torch.Tensor, video, labels,
                        strategy)
 
 
+def _merged_inputs(model: WaveNet, codes: torch.Tensor, video, labels):
+    """The merged op's inputs (x, flat ctx, b_fg, w_fg, w_out, b_out,
+    targets_tb), or None where the JAX package's ``_merged_loss`` returns
+    None: no common stack tile, or a strategy that is not "save"."""
+    b, t = codes.shape
+    dt = model.dtype
+    dilations = tuple(model.dilations)
+    if not _has_stack_tile(t, dilations):
+        return None
+    ctx, (b_fg, w_fg, w_out, b_out) = _prepare_trunk(model, codes, video,
+                                                     labels)
+    if resolve_strategy(_strategy(model, t),
+                        (b, t, model.residual_channels), len(dilations),
+                        dilations, torch.finfo(dt).bits // 8) != "save":
+        return None
+    x = front_embed(model.front_cur, model.front_past, codes, dt)
+    if ctx_is_proj(ctx):      # the merged op runs on the flat ctx
+        ctx = ctx_flatten(ctx, dt)
+    targets_tb = torch.roll(codes.to(torch.int32), -1, dims=1).t()
+    return (x, ctx, b_fg, w_fg, w_out, b_out, targets_tb.contiguous())
+
+
+def _merged_loss(model: WaveNet, codes: torch.Tensor, video, labels,
+                 parity: bool):
+    """(loss_sum, match) through the merged trunk + head/CE op, or None
+    (the split pipeline then runs, as in the JAX package)."""
+    inputs = _merged_inputs(model, codes, video, labels)
+    if inputs is None:
+        return None
+    return fused_stack_head_loss(
+        *inputs, model.head1.kernel, model.head1.bias, model.head2.kernel,
+        model.head2.bias, tuple(model.dilations), model.receptive_fields,
+        parity)
+
+
 def fused_train_loss(model: WaveNet, codes: torch.Tensor, video=None,
                      labels=None, parity: bool = True,
                      merge_head: bool = False, codes_pack=None):
     """codes -> (mean NLL, accuracy), trunk op + head/CE op.
 
-    ``merge_head=True`` (the trunk and head merged in one kernel, JAX's
-    ``fused_stack_head_loss``) is not ported (ROADMAP.md B.6)."""
+    ``merge_head=True`` merges the head and CE into the trunk op (JAX's
+    ``fused_stack_head_loss``) where the save strategy applies; elsewhere
+    the split pipeline runs, as in the JAX package."""
     from movenet_tpu_torch.ops.head_loss import fused_head_loss
 
-    if merge_head:
-        raise NotImplementedError(
-            "merge_head=True (the merged trunk + head/CE kernel) is not "
-            "ported yet (ROADMAP.md B.6)")
     b, t = codes.shape
+    if merge_head and supports_fused(model, t):
+        merged = _merged_loss(model, codes, video, labels, parity)
+        if merged is not None:
+            loss_sum, match = merged
+            n_valid = b * (t - model.receptive_fields)
+            return loss_sum / n_valid, match / n_valid
     if codes_pack is not None and tuple(codes_pack.shape) == (t, 3 * b):
         pack3 = codes_pack.to(codes.device, torch.int32)
     else:

@@ -1,4 +1,6 @@
-"""Core numeric ops of the port: mu-law codec and causal-conv geometry."""
+"""Core numeric ops of the port: mu-law codec, causal-conv geometry, and
+the training path's fused ops (trunk, merged trunk + head/CE, gated
+block, head/CE), whose CUDA kernels live in ``ops/cuda``."""
 
 from movenet_tpu_torch.ops.mulaw import mu_law_decode, mu_law_encode
 from movenet_tpu_torch.ops.conv import (
@@ -7,6 +9,13 @@ from movenet_tpu_torch.ops.conv import (
     receptive_field,
     upsample_kernel_size,
     wavenet_dilations,
+)
+from movenet_tpu_torch.ops.gated_block import fused_gated_block
+from movenet_tpu_torch.ops.head_loss import fused_head_loss
+from movenet_tpu_torch.ops.stack_kernel import (
+    fused_stack,
+    fused_stack_embed,
+    fused_stack_head_loss,
 )
 
 __all__ = [
@@ -17,4 +26,9 @@ __all__ = [
     "receptive_field",
     "upsample_kernel_size",
     "wavenet_dilations",
+    "fused_stack",
+    "fused_stack_embed",
+    "fused_stack_head_loss",
+    "fused_gated_block",
+    "fused_head_loss",
 ]

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own by ``nvcc`` into ``build/movenet_tpu_torch/<name>-<hash>.so`` (the
-hash covers the source and the flags, so an edited source rebuilds), at
-first use.  Several sources build in parallel, one ``nvcc`` each.  The
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags,
+so an edited source or header rebuilds), at first use.  Several sources build in parallel, one ``nvcc`` each.  The
 library is then opened with ``ctypes``.  Nothing here runs at import.
 
     python -m movenet_tpu_torch.ops.cuda.build    # build every source
@@ -56,9 +56,13 @@ def sources() -> Dict[str, Path]:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"{src.stem}-{digest[:16]}.so"
+    """The library path of ``src``, named by a hash of the source, every
+    shared header beside it (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

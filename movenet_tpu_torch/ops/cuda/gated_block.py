@@ -1,0 +1,156 @@
+"""Gated-block kernels: wrappers and launch counts.
+
+``gated_block_fwd`` and ``gated_block_bwd`` are the wrappers of the
+kernels in ``csrc/gated_block.cu`` (which replace ``gated_block.py:91
+_fwd_kernel`` and ``:168 _bwd_kernel``).  For tensors on the CPU they
+return the plain versions (``ops/gated_block.gated_block_fwd_plain`` /
+``gated_block_bwd_plain``); for CUDA tensors they launch the kernels or
+raise.  A forward call is one grid launch; a backward call three (the
+tile sweep, the anti-causal carry pass, the fixed-order reduction of the
+per-block weight-gradient partials).  Each call counts one launch in
+``launch_counts``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from movenet_tpu_torch.ops import gated_block as gb
+from movenet_tpu_torch.ops.cuda.stack_kernel import _check, _ptr, _raise
+
+KERNEL_SOURCE = "movenet_tpu_torch/csrc/gated_block.cu"
+launch_counts: Dict[str, int] = {"gated_block_fwd": 0, "gated_block_bwd": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_long
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def library():
+    global _lib
+    if _lib is None:
+        from movenet_tpu_torch.ops.cuda import build
+
+        _lib = bind(build.load("gated_block"))
+    return _lib
+
+
+def bind(lib):
+    lib.movenet_gated_supports.argtypes = [_I, _I]
+    lib.movenet_gated_supports.restype = _I
+    lib.movenet_gated_blocks.argtypes = []
+    lib.movenet_gated_blocks.restype = _I
+    lib.movenet_gated_bwd_part.argtypes = [_I, _I, _I, _I]
+    lib.movenet_gated_bwd_part.restype = _L
+    lib.movenet_gated_fwd.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.movenet_gated_fwd.restype = _I
+    lib.movenet_gated_bwd.argtypes = [_P] * 11 + [_I] + [_P] * 3 \
+        + [_I] * 5 + [_P]
+    lib.movenet_gated_bwd.restype = _I
+    return lib
+
+
+def _common(lib, h, ctx, b_fg, w_fg, w_out):
+    """Checks of both directions: (B, T, R, S, W_in)."""
+    batch, t, r = h.shape
+    s = w_out.shape[1] - r
+    dev = h.device
+    if h.dtype != torch.bfloat16:
+        raise ValueError(
+            f"the gated-block kernels take the bfloat16 compute dtype, got "
+            f"{h.dtype}; float32 on the card is not built (ROADMAP.md B.2)")
+    _check("h", h, torch.bfloat16, device=dev)
+    win = (3 if ctx is not None else 2) * r
+    if ctx is not None:
+        _check("ctx", ctx, torch.bfloat16, (batch, t, r), dev)
+    _check("b_fg", b_fg, torch.float32, (batch, 2 * r), dev)
+    _check("w_fg", w_fg, torch.float32, (win, 2 * r), dev)
+    _check("w_out", w_out, torch.float32, (r, r + s), dev)
+    if not lib.movenet_gated_supports(r, s):
+        raise NotImplementedError(
+            f"the gated-block kernels are built for (R, S) in (16, 16), "
+            f"(32, 32), (64, 64), (64, 8); got ({r}, {s}) (ROADMAP.md B.2)")
+    return batch, t, r, s, win
+
+
+def run_fwd(lib, h, ctx, b_fg, w_fg, w_out, b_out, d, stream=None):
+    """Launch the forward; returns (res, skip) as the plain version."""
+    batch, t, r, s, _ = _common(lib, h, ctx, b_fg, w_fg, w_out)
+    _check("b_out", b_out, torch.float32, (1, r + s), h.device)
+    res = torch.empty_like(h)
+    skip = torch.empty(batch, t, s, dtype=h.dtype, device=h.device)
+    err = lib.movenet_gated_fwd(
+        _ptr(h), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
+        _ptr(res), _ptr(skip), batch, t, r, s, d, stream)
+    _raise(err, "gated_block_fwd")
+    return res, skip
+
+
+def run_bwd(lib, h, ctx, b_fg, w_fg, w_out, dres, dskip, d, stream=None):
+    """Launch the backward (outputs and scratch allocated here); returns
+    as the plain version."""
+    batch, t, r, s, win = _common(lib, h, ctx, b_fg, w_fg, w_out)
+    dev, f32 = h.device, torch.float32
+    _check("dres", dres, torch.bfloat16, (batch, t, r), dev)
+    _check("dskip", dskip, torch.bfloat16, (batch, t, s), dev)
+    # the gradient products read W^T rows: (2R, W_in) and (R+S, R)
+    w_fg_t = w_fg.t().contiguous()
+    w_out_t = w_out.t().contiguous()
+    blocks = lib.movenet_gated_blocks()
+    n_part = lib.movenet_gated_bwd_part(r, s, win, batch)
+    part = torch.empty(blocks, n_part, dtype=f32, device=dev)
+    dh_part = torch.empty(batch, t, r, dtype=f32, device=dev)
+    past = torch.empty_like(dh_part)
+    dh = torch.empty_like(h)
+    dctx = torch.empty_like(h) if ctx is not None else None
+    grads = torch.empty(n_part, dtype=f32, device=dev)
+    err = lib.movenet_gated_bwd(
+        _ptr(h), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_fg_t),
+        _ptr(w_out_t), _ptr(dres), _ptr(dskip), _ptr(dh_part), _ptr(past),
+        _ptr(part), blocks, _ptr(dh), _ptr(dctx), _ptr(grads), batch, t, r,
+        s, d, stream)
+    _raise(err, "gated_block_bwd")
+    sizes = [win * 2 * r, r * (r + s), r + s, batch * 2 * r]
+    dw_fg, dw_out, db_out, db_fg = torch.split(grads, sizes)
+    return (dh, dctx, db_fg.view(batch, 2 * r), dw_fg.view(win, 2 * r),
+            dw_out.view(r, r + s), db_out.view(1, r + s))
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def gated_block_fwd(h, ctx, b_fg, w_fg, w_out, b_out, d: int):
+    """(res, skip): the plain version for CPU tensors, the forward kernel
+    for CUDA tensors."""
+    if not h.is_cuda:
+        return gb.gated_block_fwd_plain(h, ctx, b_fg, w_fg, w_out, b_out, d)
+    out = run_fwd(library(), h, ctx, b_fg, w_fg, w_out, b_out, d,
+                  _stream(h))
+    launch_counts["gated_block_fwd"] += 1
+    return out
+
+
+def gated_block_bwd(h, ctx, b_fg, w_fg, w_out, dres, dskip, d: int):
+    """The VJP: the plain version for CPU tensors, the backward kernels
+    for CUDA tensors."""
+    if not h.is_cuda:
+        return gb.gated_block_bwd_plain(h, ctx, b_fg, w_fg, w_out, dres,
+                                        dskip, d)
+    out = run_bwd(library(), h, ctx, b_fg, w_fg, w_out, dres, dskip, d,
+                  _stream(h))
+    launch_counts["gated_block_bwd"] += 1
+    return out
+
+
+__all__ = ["gated_block_fwd", "gated_block_bwd", "launch_counts",
+           "reset_launch_counts", "KERNEL_SOURCE"]

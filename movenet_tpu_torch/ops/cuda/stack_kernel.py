@@ -3,6 +3,10 @@
 ``stack_fwd`` and ``stack_bwd`` are the wrappers of the save strategy's
 forward and backward kernels in ``csrc/stack_kernel.cu`` (which replace
 ``stack_kernel.py:280 _fwd_kernel`` and ``:1486 _bwd_kernel_padded``);
+``stack_fwd_x`` and ``stack_bwd_x`` the same kernels' non-embed form
+(h in, dx out; counted with them); ``stack_head_fwd`` and
+``stack_head_bwd`` those of the merged trunk + head + CE (which replace
+``:464 _fwd_kernel_head`` and ``:624 _bwd_kernel_head``);
 ``stack_fwd_tails`` and ``stack_bwd_tails`` those of the recompute
 strategy's (``:929 _fwd_kernel_tails`` and ``:1031 _bwd_kernel_tails``).
 For tensors on the CPU they return the plain versions
@@ -12,8 +16,11 @@ embedding, then one per layer); one call of ``stack_bwd`` is 5L+2 (plus 3
 with the video projection): per layer the layer launch and two
 weight-gradient launches with their reductions.  ``stack_fwd_tails`` is
 one launch; ``stack_bwd_tails`` two (the tile sweep and the fixed-order
-reduction of its per-block weight-gradient partials).  Each call counts
-one launch in ``launch_counts``.
+reduction of its per-block weight-gradient partials).  ``stack_head_fwd``
+is ``stack_fwd``'s grids with x in place of the embedding and the head in
+the last layer's, plus one reduction; ``stack_head_bwd`` is the head's
+backward grid and its reduction, then ``stack_bwd_x``'s grids.  Each call
+counts one launch in ``launch_counts``.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from movenet_tpu_torch.ops import stack_kernel as sk
 KERNEL_SOURCE = "movenet_tpu_torch/csrc/stack_kernel.cu"
 # kernel calls by wrapper, counted where the kernels launch
 launch_counts: Dict[str, int] = {"stack_fwd": 0, "stack_bwd": 0,
-                                 "stack_fwd_tails": 0, "stack_bwd_tails": 0}
+                                 "stack_fwd_tails": 0, "stack_bwd_tails": 0,
+                                 "stack_head_fwd": 0, "stack_head_bwd": 0}
 # blocks of the time-reduction launches: two per SM of an H100
 REDUCE_BLOCKS = 264
 # shared memory one block may use on sm_90
@@ -65,10 +73,8 @@ def bind(lib):
                                       _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _I, _P]
     lib.movenet_stack_fwd.restype = _I
-    lib.movenet_stack_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                      _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                      _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _P]
+    lib.movenet_stack_bwd.argtypes = [_P] * 8 + [_I, _I] + [_P] * 4 \
+        + [_I] + [_P] * 9 + [_I] * 6 + [_P]
     lib.movenet_stack_bwd.restype = _I
     lib.movenet_tails_tile.argtypes = []
     lib.movenet_tails_tile.restype = _I
@@ -85,6 +91,16 @@ def bind(lib):
                                             _P, _P, _P, _P, _I, _P, _P, _P,
                                             _I, _I, _I, _I, _I, _P]
     lib.movenet_stack_bwd_tails.restype = _I
+    lib.movenet_stack_blocks.argtypes = []
+    lib.movenet_stack_blocks.restype = _I
+    lib.movenet_stack_head_supports.argtypes = [_I, _I, _I]
+    lib.movenet_stack_head_supports.restype = _I
+    lib.movenet_stack_fwd_x.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+    lib.movenet_stack_fwd_x.restype = _I
+    lib.movenet_stack_head_fwd.argtypes = [_P] * 19 + [_I] * 8 + [_P]
+    lib.movenet_stack_head_fwd.restype = _I
+    lib.movenet_stack_head_bwd.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+    lib.movenet_stack_head_bwd.restype = _I
     return lib
 
 
@@ -148,13 +164,8 @@ def run_fwd(lib, pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
         raise NotImplementedError(
             f"the trunk kernels are built for (R, S) in (16, 16), (32, "
             f"32), (64, 64), (64, 8); got ({r}, {s})")
-    dev, bf = table2.device, torch.bfloat16
-    m = batch * t
-    h = torch.empty(m, r, dtype=torch.float32, device=dev)
-    skacc = torch.empty(m, s, dtype=torch.float32, device=dev)
-    hsave = torch.empty(n_layers, batch, t, r, dtype=bf, device=dev)
-    tfsg = torch.empty(n_layers, batch, t, 2 * r, dtype=bf, device=dev)
-    skip = torch.empty(batch, t, s, dtype=bf, device=dev)
+    h, skacc, hsave, tfsg, skip = _fwd_buffers(table2.device, batch, t,
+                                               n_layers, r, s)
     err = lib.movenet_stack_fwd(
         _ptr(pack), pack.shape[1], _ptr(table2), table2.shape[0] // 2,
         _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
@@ -164,10 +175,12 @@ def run_fwd(lib, pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
     return skip, hsave, tfsg
 
 
-def run_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab,
-            dilations, proj=None, stream=None):
-    """Launch the backward on given tensors (outputs allocated here);
-    same returns as ``stack_bwd_plain``."""
+def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
+                stream, pack=None, vocab=0):
+    """The save backward: with ``pack`` the table gradient (2V, R) float32
+    leads the returns, without it dx (B, T, R) in bf16 (the non-embed
+    form).  dskip is bf16, or float32 from the merged head.  Returns as
+    the plain versions."""
     n_layers, batch, t, two_r = tfsg.shape
     r = two_r // 2
     s = w_out.shape[2] - r
@@ -179,11 +192,16 @@ def run_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab,
         _check("ctx", ctx, torch.bfloat16, (batch, t, r), dev)
     _check("w_fg", w_fg, torch.float32, (n_layers, win, 2 * r), dev)
     _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
-    _check("dskip", dskip, torch.bfloat16, (batch, t, s), dev)
-    _check("codes_pack", pack, torch.int32, device=dev)
+    if dskip.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dskip is {dskip.dtype}, the kernel takes "
+                         "bfloat16 or float32")
+    _check("dskip", dskip, dskip.dtype, (batch, t, s), dev)
+    if pack is not None:
+        _check("codes_pack", pack, torch.int32, device=dev)
     if not lib.movenet_stack_supports(r, s):
         raise NotImplementedError(
-            f"the trunk kernels are not built for (R, S) = ({r}, {s})")
+            f"the trunk kernels are not built for (R, S) = ({r}, {s}) "
+            "(ROADMAP.md B.2)")
     xc = wup = None
     if proj is not None:
         xc, wup_t = proj
@@ -192,12 +210,16 @@ def run_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab,
         wup = wup_t.permute(2, 0, 1).reshape(r, 10 * r).contiguous()
         _check("wup", wup, torch.float32, device=dev)
     chunks = max(1, REDUCE_BLOCKS // batch)
-    embed_blocks = REDUCE_BLOCKS
+    embed_blocks = REDUCE_BLOCKS if pack is not None else 0
     f32 = torch.float32
     n_scratch = lib.movenet_stack_bwd_scratch(batch, t, r, s, win, chunks,
                                               vocab, embed_blocks)
     scratch = torch.empty(n_scratch, dtype=f32, device=dev)
-    dtab = torch.empty(2 * vocab, r, dtype=f32, device=dev)
+    dtab = dx = None
+    if pack is not None:
+        dtab = torch.empty(2 * vocab, r, dtype=f32, device=dev)
+    else:
+        dx = torch.empty(batch, t, r, dtype=torch.bfloat16, device=dev)
     dctx = None
     if proj is not None:
         dctx = torch.empty(batch, t // 10, r, dtype=torch.bfloat16,
@@ -212,43 +234,38 @@ def run_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab,
     if proj is not None:
         dwup = torch.empty(r, 10 * r, dtype=f32, device=dev)
         dbup = torch.empty(10 * r, dtype=f32, device=dev)
+    bf = dskip.dtype == torch.bfloat16
     err = lib.movenet_stack_bwd(
         _ptr(hsave), _ptr(tfsg), _ptr(ctx), _ptr(w_fg), _ptr(w_out),
-        _ptr(dskip), _ptr(pack), pack.shape[1], vocab, _dils(dilations),
-        _ptr(xc), _ptr(wup), _ptr(scratch), chunks, _ptr(dtab), _ptr(dctx),
-        _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), _ptr(dwup),
-        _ptr(dbup), batch, t, n_layers, r, s, embed_blocks, stream)
+        _ptr(dskip) if bf else None, None if bf else _ptr(dskip), _ptr(pack),
+        0 if pack is None else pack.shape[1], vocab, _dils(dilations),
+        _ptr(xc), _ptr(wup), _ptr(scratch), chunks, _ptr(dtab), _ptr(dx),
+        _ptr(dctx), _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out),
+        _ptr(dwup), _ptr(dbup), batch, t, n_layers, r, s, embed_blocks,
+        stream)
     _raise(err, "stack_bwd")
     dwup_aug = None
     if proj is not None:
         dwup_aug = torch.cat(
             [dwup.reshape(r, 10, r).permute(1, 0, 2),
              dbup.reshape(10, 1, r)], dim=1)
-    return dtab, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug
+    return (dtab if pack is not None else dx, dctx, db_fg, dw_fg, dw_out,
+            db_out, dwup_aug)
+
+
+def run_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab,
+            dilations, proj=None, stream=None):
+    """Launch the backward on given tensors (outputs allocated here);
+    same returns as ``stack_bwd_plain``."""
+    return _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
+                       proj, stream, pack, vocab)
 
 
 def _tails_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations):
     """Shape checks of the recompute kernels: (B, T, L, R, S, W_in)."""
-    batch, t, r = x.shape
-    n_layers = len(dilations)
-    s = w_out.shape[2] - r
-    dev = x.device
-    if x.dtype != torch.bfloat16:
-        raise ValueError(
-            f"the trunk kernels take the bfloat16 compute dtype, got "
-            f"{x.dtype}; float32 on the card is not built (ROADMAP.md B.2)")
-    _check("x", x, torch.bfloat16, device=dev)
-    win = (3 if ctx is not None else 2) * r
-    if ctx is not None:
-        _check("ctx", ctx, torch.bfloat16, (batch, t, r), dev)
-    _check("b_fg", b_fg, torch.float32, (n_layers * batch, 2 * r), dev)
-    _check("w_fg", w_fg, torch.float32, (n_layers, win, 2 * r), dev)
-    _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
-    _check("b_out", b_out, torch.float32, (n_layers, r + s), dev)
-    if not lib.movenet_stack_supports(r, s):
-        raise NotImplementedError(
-            f"the trunk kernels are built for (R, S) in (16, 16), (32, "
-            f"32), (64, 64), (64, 8); got ({r}, {s}) (ROADMAP.md B.2)")
+    dims = _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
+                    "the trunk kernels")
+    batch, t, n_layers, r, s, win = dims
     tile = lib.movenet_tails_tile()
     if tile != sk.TAILS_TILE or t % tile:
         raise ValueError(f"T={t} is not a multiple of the recompute tile "
@@ -261,7 +278,7 @@ def _tails_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations):
             f"its halo of sum(dilations) = {sum(dilations)} rows in shared "
             f"memory: {smem} bytes at L={n_layers}, R={r}, more than "
             f"{SMEM_LIMIT} (ROADMAP.md B.5)")
-    return batch, t, n_layers, r, s, win
+    return dims
 
 
 def run_fwd_tails(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
@@ -321,6 +338,137 @@ def run_bwd_tails(lib, x, tails, ctx, b_fg, w_fg, w_out, b_out, dskip,
             dw_out.view(n_layers, r, r + s), db_out.view(n_layers, r + s))
 
 
+def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what):
+    """Checks of the kernels that start from x (the non-embed save form,
+    the merged and the recompute kernels): (B, T, L, R, S, W_in)."""
+    batch, t, r = x.shape
+    n_layers = len(dilations)
+    s = w_out.shape[2] - r
+    dev = x.device
+    if x.dtype != torch.bfloat16:
+        raise ValueError(
+            f"{what} take the bfloat16 compute dtype, got {x.dtype}; "
+            "float32 on the card is not built (ROADMAP.md B.2)")
+    _check("x", x, torch.bfloat16, device=dev)
+    win = (3 if ctx is not None else 2) * r
+    if ctx is not None:
+        _check("ctx", ctx, torch.bfloat16, (batch, t, r), dev)
+    _check("b_fg", b_fg, torch.float32, (n_layers * batch, 2 * r), dev)
+    _check("w_fg", w_fg, torch.float32, (n_layers, win, 2 * r), dev)
+    _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
+    _check("b_out", b_out, torch.float32, (n_layers, r + s), dev)
+    if not lib.movenet_stack_supports(r, s):
+        raise NotImplementedError(
+            f"the trunk kernels are built for (R, S) in (16, 16), (32, "
+            f"32), (64, 64), (64, 8); got ({r}, {s}) (ROADMAP.md B.2)")
+    return batch, t, n_layers, r, s, win
+
+
+def run_fwd_x(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
+              stream=None):
+    """Launch the non-embed save forward (B.2(a)); returns (skip_sum,
+    hsave, tfsg) as ``stack_fwd_x_plain``."""
+    batch, t, n_layers, r, s, _ = _x_check(lib, x, ctx, b_fg, w_fg, w_out,
+                                           b_out, dilations,
+                                           "the trunk kernels")
+    h, skacc, hsave, tfsg, skip = _fwd_buffers(x.device, batch, t,
+                                               n_layers, r, s)
+    err = lib.movenet_stack_fwd_x(
+        _ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
+        _dils(dilations), _ptr(h), _ptr(skacc), _ptr(hsave), _ptr(tfsg),
+        _ptr(skip), batch, t, n_layers, r, s, stream)
+    _raise(err, "stack_fwd_x")
+    return skip, hsave, tfsg
+
+
+def _fwd_buffers(dev, batch, t, n_layers, r, s):
+    """(h, skip accumulator) float32 scratch and (hsave, tfsg, skip)."""
+    m, bf = batch * t, torch.bfloat16
+    return (torch.empty(m, r, dtype=torch.float32, device=dev),
+            torch.empty(m, s, dtype=torch.float32, device=dev),
+            torch.empty(n_layers, batch, t, r, dtype=bf, device=dev),
+            torch.empty(n_layers, batch, t, 2 * r, dtype=bf, device=dev),
+            torch.empty(batch, t, s, dtype=bf, device=dev))
+
+
+def run_bwd_x(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
+              proj=None, stream=None):
+    """Launch the non-embed save backward (B.2(a)); dskip in bf16 or, for
+    the merged head, float32.  Returns as ``stack_bwd_x_plain``."""
+    return _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
+                       proj, stream)
+
+
+def _head_check(lib, batch, t, r, s, targets_tb, w1, b1, w2, b2, dev):
+    c = w2.shape[1]
+    _check("targets_tb", targets_tb, torch.int32, (t, batch), dev)
+    _check("w1", w1, torch.float32, (s, c), dev)
+    _check("b1", b1, torch.float32, (c,), dev)
+    _check("w2", w2, torch.float32, (c, c), dev)
+    _check("b2", b2, torch.float32, (c,), dev)
+    if not lib.movenet_stack_head_supports(r, s, c):
+        raise NotImplementedError(
+            f"the merged head kernels take C <= 64, a multiple of 4, at "
+            f"the trunk's built widths; got R={r}, S={s}, C={c} "
+            "(ROADMAP.md B.4)")
+    return c
+
+
+def run_head_fwd(lib, x, ctx, b_fg, w_fg, w_out, b_out, targets_tb, w1, b1,
+                 w2, b2, dilations, rf, parity, stream=None):
+    """Launch the merged forward (B.6); returns (loss_sum, match_count,
+    skip, hsave, tfsg) as ``stack_head_fwd_plain``."""
+    batch, t, n_layers, r, s, _ = _x_check(
+        lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
+        "the merged kernels")
+    dev = x.device
+    c = _head_check(lib, batch, t, r, s, targets_tb, w1, b1, w2, b2, dev)
+    h, skacc, hsave, tfsg, skip = _fwd_buffers(dev, batch, t, n_layers, r,
+                                               s)
+    part = torch.empty(lib.movenet_stack_blocks(), 2, dtype=torch.float32,
+                       device=dev)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    err = lib.movenet_stack_head_fwd(
+        _ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
+        _dils(dilations), _ptr(targets_tb), _ptr(w1), _ptr(b1), _ptr(w2),
+        _ptr(b2), _ptr(h), _ptr(skacc), _ptr(hsave), _ptr(tfsg), _ptr(skip),
+        _ptr(part), _ptr(out), batch, t, n_layers, r, s, c, rf, int(parity),
+        stream)
+    _raise(err, "stack_head_fwd")
+    return out[0], out[1], skip, hsave, tfsg
+
+
+def run_head_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, skip, targets_tb, w1,
+                 b1, w2, b2, dloss, dilations, rf, parity, stream=None):
+    """Launch the merged backward (B.6): the head backward into a float32
+    dskip, then the layer sweep from it.  Returns as
+    ``stack_head_bwd_plain``."""
+    n_layers, batch, t, two_r = tfsg.shape
+    r = two_r // 2
+    s = w_out.shape[2] - r
+    dev = tfsg.device
+    _check("skip", skip, torch.bfloat16, (batch, t, s), dev)
+    c = _head_check(lib, batch, t, r, s, targets_tb, w1, b1, w2, b2, dev)
+    f32 = torch.float32
+    dloss = torch.as_tensor(dloss, dtype=f32, device=dev).reshape(1) \
+        .contiguous()
+    blocks = lib.movenet_stack_blocks()
+    n = s * c + c + c * c + c
+    part = torch.empty(blocks, n, dtype=f32, device=dev)
+    grads = torch.empty(n, dtype=f32, device=dev)
+    dskip = torch.empty(batch, t, s, dtype=f32, device=dev)
+    err = lib.movenet_stack_head_bwd(
+        _ptr(skip), _ptr(targets_tb), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2),
+        _ptr(dloss), _ptr(dskip), _ptr(part), _ptr(grads), batch,
+        t, s, c, rf, int(parity), blocks, stream)
+    _raise(err, "stack_head_bwd")
+    dx, dctx, db_fg, dw_fg, dw_out, db_out, _ = run_bwd_x(
+        lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, None, stream)
+    dw1, db1, dw2, db2 = torch.split(grads, [s * c, c, c * c, c])
+    return (dx, dctx, db_fg, dw_fg, dw_out, db_out, dw1.view(s, c), db1,
+            dw2.view(c, c), db2)
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -377,5 +525,63 @@ def stack_bwd_tails(x, tails, ctx, b_fg, w_fg, w_out, b_out, dskip,
     return out
 
 
+def stack_fwd_x(x, ctx, b_fg, w_fg, w_out, b_out, dilations: Sequence[int]):
+    """(skip_sum, hsave, tfsg) of the non-embed save form: the plain
+    version for CPU tensors, the forward kernels for CUDA tensors
+    (counted with ``stack_fwd``)."""
+    if not x.is_cuda:
+        return sk.stack_fwd_x_plain(x, ctx, b_fg, w_fg, w_out, b_out,
+                                    dilations)
+    out = run_fwd_x(library(), x, ctx, b_fg, w_fg, w_out, b_out, dilations,
+                    _stream(x))
+    launch_counts["stack_fwd"] += 1
+    return out
+
+
+def stack_bwd_x(hsave, tfsg, ctx, w_fg, w_out, dskip,
+                dilations: Sequence[int], proj=None):
+    """The non-embed save backward: the plain version for CPU tensors,
+    the backward kernels for CUDA tensors (counted with ``stack_bwd``)."""
+    if not tfsg.is_cuda:
+        return sk.stack_bwd_x_plain(hsave, tfsg, ctx, w_fg, w_out, dskip,
+                                    dilations, proj)
+    out = run_bwd_x(library(), hsave, tfsg, ctx, w_fg, w_out, dskip,
+                    dilations, proj, _stream(tfsg))
+    launch_counts["stack_bwd"] += 1
+    return out
+
+
+def stack_head_fwd(x, ctx, b_fg, w_fg, w_out, b_out, targets_tb, w1, b1, w2,
+                   b2, dilations: Sequence[int], rf: int, parity: bool):
+    """(loss_sum, match, skip, hsave, tfsg) of the merged trunk + head:
+    the plain version for CPU tensors, the kernels for CUDA tensors."""
+    if not x.is_cuda:
+        return sk.stack_head_fwd_plain(x, ctx, b_fg, w_fg, w_out, b_out,
+                                       targets_tb, w1, b1, w2, b2, dilations,
+                                       rf, parity)
+    out = run_head_fwd(library(), x, ctx, b_fg, w_fg, w_out, b_out,
+                       targets_tb, w1, b1, w2, b2, dilations, rf, parity,
+                       _stream(x))
+    launch_counts["stack_head_fwd"] += 1
+    return out
+
+
+def stack_head_bwd(hsave, tfsg, ctx, w_fg, w_out, skip, targets_tb, w1, b1,
+                   w2, b2, dloss, dilations: Sequence[int], rf: int,
+                   parity: bool):
+    """The merged backward: the plain version for CPU tensors, the kernels
+    for CUDA tensors (returns as ``stack_head_bwd_plain``)."""
+    if not tfsg.is_cuda:
+        return sk.stack_head_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, skip,
+                                       targets_tb, w1, b1, w2, b2, dloss,
+                                       dilations, rf, parity)
+    out = run_head_bwd(library(), hsave, tfsg, ctx, w_fg, w_out, skip,
+                       targets_tb, w1, b1, w2, b2, dloss, dilations, rf,
+                       parity, _stream(tfsg))
+    launch_counts["stack_head_bwd"] += 1
+    return out
+
+
 __all__ = ["stack_fwd", "stack_bwd", "stack_fwd_tails", "stack_bwd_tails",
+           "stack_fwd_x", "stack_bwd_x", "stack_head_fwd", "stack_head_bwd",
            "launch_counts", "reset_launch_counts", "KERNEL_SOURCE"]

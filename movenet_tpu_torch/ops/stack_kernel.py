@@ -4,22 +4,24 @@ versions and the autograd ops.
 The counterpart of ``movenet_tpu.ops.pallas.stack_kernel`` for two VJP
 strategies:
 
-  save       ``fused_stack_embed``, the front embedding folded in.  The
-             forward runs every gated block over the whole sequence and
-             keeps each layer's input ``hsave`` (L, B, T, R) and its packed
-             gating taps ``tfsg`` = [tanh f | sigmoid g] (L, B, T, 2R) for
-             the backward, both in the compute dtype;
-  recompute  ``fused_stack``, which takes the embedded h (``front_embed``)
-             and returns dx.  The forward keeps only per-tile ring
-             snapshots ``tails`` (B, n_tiles, sum(d), R): for each tile of
-             ``TAILS_TILE`` rows and each layer l, h_l at the d_l rows
-             before the tile.  The backward rebuilds every layer input of
-             a tile from x and its snapshot.
+  save       ``fused_stack_embed``, the front embedding folded in, or
+             ``fused_stack``, which takes the embedded h (``front_embed``)
+             and returns dx.  The forward runs every gated block over the
+             whole sequence and keeps each layer's input ``hsave`` (L, B,
+             T, R) and its packed gating taps ``tfsg`` = [tanh f | sigmoid
+             g] (L, B, T, 2R) for the backward, both in the compute dtype;
+  recompute  ``fused_stack`` with that strategy.  The forward keeps only
+             per-tile ring snapshots ``tails`` (B, n_tiles, sum(d), R):
+             for each tile of ``TAILS_TILE`` rows and each layer l, h_l at
+             the d_l rows before the tile.  The backward rebuilds every
+             layer input of a tile from x and its snapshot.
 
 The kernels live in ``csrc/stack_kernel.cu`` behind
 ``ops/cuda/stack_kernel.py``; tensors on the CPU take the plain versions
-here (``stack_fwd_plain``, ``stack_bwd_plain``, ``stack_fwd_tails_plain``,
-``stack_bwd_tails_plain``), which compute the same functions with torch
+here (``stack_fwd_plain`` / ``stack_bwd_plain``, ``stack_fwd_x_plain`` /
+``stack_bwd_x_plain``, ``stack_fwd_tails_plain`` /
+``stack_bwd_tails_plain``, ``stack_head_fwd_plain`` /
+``stack_head_bwd_plain``), which compute the same functions with torch
 ops over whole sequences.
 
 Numerics of the save strategy are the TPU kernels' (stack_kernel.py:280
@@ -49,6 +51,13 @@ The recompute strategy's differ (stack_kernel.py:929 and :1031):
             (``ctx_proj_fold``).
 
 So a recompute step is not bit-equal to a save step.
+
+``fused_stack_head_loss`` merges the save trunk with the output head and
+the CE loss (stack_kernel.py:464 and :624): its forward forms ``gated``
+from the unrounded taps (as the recompute forward does) and runs the head
+on the skip sum rounded to the compute dtype; its backward rebuilds the
+head from the saved skip, forms dskip in float32 with float32 operands
+and feeds it to the save layer sweep unrounded.
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+from movenet_tpu_torch.ops import head_loss as hl
 
 UPSAMPLE_STRIDE = 10
 # hsave above this many bytes makes the auto strategy pick "recompute"
@@ -281,20 +292,19 @@ def _unshift(x: torch.Tensor, d: int) -> torch.Tensor:
     return F.pad(x[:, d:], (0, 0, 0, d))
 
 
-def stack_fwd_plain(pack, table2, ctx, b_fg, w_fg, w_out, b_out,
-                    dilations: Sequence[int], batch: int):
-    """(skip_sum (B,T,S), hsave (L,B,T,R), tfsg (L,B,T,2R)), all in
-    table2's dtype (the compute dtype); ctx is None or flat (B,T,R)."""
-    dt = table2.dtype
-
+def _save_fwd(h, ctx, b_fg, w_fg, w_out, b_out, dilations, dt,
+              raw_gate: bool):
+    """The save forward from the float32 input h: (skip_sum float32,
+    hsave, tfsg in ``dt``).  ``gated`` is formed from the rounded taps
+    (``_fwd_kernel``), or from the unrounded ones with ``raw_gate``
+    (``_fwd_kernel_head``, stack_kernel.py:513)."""
     def rnd(x):
         return x.to(dt).to(torch.float32)
 
-    r = table2.shape[1]
+    batch, _, r = h.shape
     n_layers = len(dilations)
     bfg = b_fg.to(torch.float32).reshape(n_layers, batch, 1, 2 * r)
     ctxf = ctx.to(torch.float32) if ctx is not None else None
-    h = rnd(_embed(pack, table2, batch))
     skip = None
     hsave, tfsg = [], []
     for l, d in enumerate(dilations):
@@ -303,27 +313,45 @@ def stack_fwd_plain(pack, table2, ctx, b_fg, w_fg, w_out, b_out,
         parts = [hr, rnd(_shift(h, d))] + ([ctxf] if ctxf is not None
                                             else [])
         fg = torch.matmul(torch.cat(parts, dim=-1), rnd(w_fg[l])) + bfg[l]
-        v = rnd(torch.cat([torch.tanh(fg[..., :r]),
-                           torch.sigmoid(fg[..., r:])], dim=-1))
+        raw = torch.cat([torch.tanh(fg[..., :r]),
+                         torch.sigmoid(fg[..., r:])], dim=-1)
+        v = rnd(raw)
         tfsg.append(v.to(dt))
-        gated = v[..., :r] * v[..., r:]
+        g = raw if raw_gate else v
+        gated = g[..., :r] * g[..., r:]
         out = torch.matmul(rnd(gated), rnd(w_out[l])) \
             + b_out[l].to(torch.float32)
         skip = out[..., r:] if skip is None else skip + out[..., r:]
         h = out[..., :r] + h
-    return skip.to(dt), torch.stack(hsave), torch.stack(tfsg)
+    return skip, torch.stack(hsave), torch.stack(tfsg)
 
 
-def stack_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
-                    vocab: int, dilations: Sequence[int], proj=None):
-    """The backward of ``stack_fwd_plain`` from its saved tensors.
+def stack_fwd_plain(pack, table2, ctx, b_fg, w_fg, w_out, b_out,
+                    dilations: Sequence[int], batch: int):
+    """(skip_sum (B,T,S), hsave (L,B,T,R), tfsg (L,B,T,2R)), all in
+    table2's dtype (the compute dtype); ctx is None or flat (B,T,R)."""
+    dt = table2.dtype
+    h = _embed(pack, table2, batch).to(dt).to(torch.float32)
+    skip, hsave, tfsg = _save_fwd(h, ctx, b_fg, w_fg, w_out, b_out,
+                                  dilations, dt, raw_gate=False)
+    return skip.to(dt), hsave, tfsg
 
-    ``proj`` = (xc, wup_t) folds the stride-10 projection's backward in.
-    Returns (dtab (2V, R), dctx, db_fg (L*B, 2R), dw_fg (L, W_in, 2R),
-    dw_out (L, R, R+S), db_out (L, R+S), dwup_aug (10, R+1, R) or None),
-    float32 except dctx: flat (B, T, R) or coarse dxc (B, T/10, R) in the
-    compute dtype, or None without ctx."""
-    dt = tfsg.dtype
+
+def stack_fwd_x_plain(x, ctx, b_fg, w_fg, w_out, b_out,
+                      dilations: Sequence[int]):
+    """The non-embed save forward (B.2(a)): ``stack_fwd_plain`` from the
+    embedded input x (B, T, R) in the compute dtype instead of the
+    codes; the same returns, in x's dtype."""
+    skip, hsave, tfsg = _save_fwd(x.to(torch.float32), ctx, b_fg, w_fg,
+                                  w_out, b_out, dilations, x.dtype,
+                                  raw_gate=False)
+    return skip.to(x.dtype), hsave, tfsg
+
+
+def _save_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, dilations):
+    """The layer sweep of the save backward: (dh of the stack's input,
+    dctx or None, db_fg (L, B, 2R), dw_fg, dw_out, db_out), float32.
+    dskip may be in the compute dtype or float32 (the merged head's)."""
     n_layers, batch, t, two_r = tfsg.shape
     r = two_r // 2
     f32 = torch.float32
@@ -355,24 +383,126 @@ def stack_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
         dh = dh + dfg_w[..., :r] + _unshift(dfg_w[..., r:2 * r], d)
         if dctx is not None:
             dctx = dctx + dfg_w[..., 2 * r:]
+    return (dh, dctx, db_fg, torch.stack(dw_fg), torch.stack(dw_out),
+            torch.stack(db_out))
+
+
+def _dctx_out(dctx, proj, dt):
+    """(dctx out, dwup_aug): the flat dctx in ``dt``, or with ``proj`` =
+    (xc, wup_t) the stride-10 projection's backward folded in: coarse
+    dxc (B, T/10, R) in ``dt`` and the ones-augmented (10, R+1, R)."""
+    if proj is None:
+        return (dctx.to(dt) if dctx is not None else None), None
+    f32 = torch.float32
+    xc, wup_t = proj
+    batch, t, r = dctx.shape
+    tc = t // UPSAMPLE_STRIDE
+    dz = dctx.reshape(batch, tc, UPSAMPLE_STRIDE, r)
+    xc1 = torch.cat([xc.to(f32),
+                     torch.ones(batch, tc, 1, dtype=f32, device=xc.device)],
+                    dim=-1)
+    dwup_aug = torch.einsum("bqe,bqpr->per", xc1, dz)
+    dxc = torch.einsum("bqpj,pje->bqe", dz, wup_t.to(f32))
+    return dxc.to(dt), dwup_aug
+
+
+def stack_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
+                    vocab: int, dilations: Sequence[int], proj=None):
+    """The backward of ``stack_fwd_plain`` from its saved tensors.
+
+    ``proj`` = (xc, wup_t) folds the stride-10 projection's backward in.
+    Returns (dtab (2V, R), dctx, db_fg (L*B, 2R), dw_fg (L, W_in, 2R),
+    dw_out (L, R, R+S), db_out (L, R+S), dwup_aug (10, R+1, R) or None),
+    float32 except dctx: flat (B, T, R) or coarse dxc (B, T/10, R) in the
+    compute dtype, or None without ctx."""
+    n_layers, batch, _, two_r = tfsg.shape
+    dh, dctx, db_fg, dw_fg, dw_out, db_out = _save_bwd(
+        hsave, tfsg, ctx, w_fg, w_out, dskip, dilations)
     onehot = _embed_onehot(pack, batch, vocab)
     dtab = torch.einsum("btv,btr->vr", onehot, dh)
-    dwup_aug = None
-    if proj is not None:
-        xc, wup_t = proj
-        tc = t // UPSAMPLE_STRIDE
-        dz = dctx.reshape(batch, tc, UPSAMPLE_STRIDE, r)
-        xc1 = torch.cat([xc.to(f32),
-                         torch.ones(batch, tc, 1, dtype=f32,
-                                    device=xc.device)], dim=-1)
-        dwup_aug = torch.einsum("bqe,bqpr->per", xc1, dz)
-        dxc = torch.einsum("bqpj,pje->bqe", dz, wup_t.to(f32))
-        dctx_out = dxc.to(dt)
-    else:
-        dctx_out = dctx.to(dt) if dctx is not None else None
+    dctx_out, dwup_aug = _dctx_out(dctx, proj, tfsg.dtype)
     return (dtab, dctx_out, db_fg.reshape(n_layers * batch, two_r),
-            torch.stack(dw_fg), torch.stack(dw_out), torch.stack(db_out),
+            dw_fg, dw_out, db_out, dwup_aug)
+
+
+def stack_bwd_x_plain(hsave, tfsg, ctx, w_fg, w_out, dskip,
+                      dilations: Sequence[int], proj=None):
+    """The backward of ``stack_fwd_x_plain``: as ``stack_bwd_plain`` with
+    dx (B, T, R) in the compute dtype in place of the table gradient."""
+    n_layers, batch, _, two_r = tfsg.shape
+    dh, dctx, db_fg, dw_fg, dw_out, db_out = _save_bwd(
+        hsave, tfsg, ctx, w_fg, w_out, dskip, dilations)
+    dctx_out, dwup_aug = _dctx_out(dctx, proj, tfsg.dtype)
+    return (dh.to(tfsg.dtype), dctx_out,
+            db_fg.reshape(n_layers * batch, two_r), dw_fg, dw_out, db_out,
             dwup_aug)
+
+
+# ------------------------------------------- merged trunk + head + CE
+def stack_head_fwd_plain(x, ctx, b_fg, w_fg, w_out, b_out, targets_tb,
+                         w1, b1, w2, b2, dilations: Sequence[int], rf: int,
+                         parity: bool):
+    """The merged forward (``_fwd_kernel_head``): the save trunk from x
+    with ``gated`` from the unrounded taps, then the head and CE on the
+    skip sum rounded to x's dtype, over the valid rows [RF-1, T-1).
+    Returns (loss_sum, match_count, skip (B,T,S), hsave, tfsg)."""
+    skip, hsave, tfsg = _save_fwd(x.to(torch.float32), ctx, b_fg, w_fg,
+                                  w_out, b_out, dilations, x.dtype,
+                                  raw_gate=True)
+    skip = skip.to(x.dtype)
+    # targets_tb (T, B) is a head pack with its targets at column 0
+    loss, match, _ = hl.head_fwd_plain(skip, targets_tb, w1, b1, w2, b2, rf,
+                                       parity, 0, save_p=False)
+    return loss, match, skip, hsave, tfsg
+
+
+def _head_bwd_merged(skip, targets_tb, w1, b1, w2, b2, dloss, rf: int,
+                     parity: bool):
+    """The head backward of ``_bwd_kernel_head`` (stack_kernel.py:667-697):
+    y and z rebuilt from the saved skip with compute-dtype operands, the
+    softmax, dz, then every gradient product with float32 operands.
+    Returns (dskip float32, dw1, db1, dw2, db2)."""
+    f32 = torch.float32
+    batch, t, _ = skip.shape
+    sk = skip.to(f32)
+    tgt = targets_tb.t()
+    y, z, onehot, zmax = hl._core(sk, tgt, w1, b1, w2, b2, skip.dtype)
+    e = torch.exp(z - zmax)
+    p = e / e.sum(dim=-1, keepdim=True)
+    scale = (torch.as_tensor(dloss, dtype=f32, device=skip.device)
+             * hl._valid(t, rf, skip.device))[:, None]
+    if parity:
+        ep = torch.exp(p)
+        q = ep / ep.sum(dim=-1, keepdim=True)
+        g = q - onehot
+        dz = p * g - p * (p * g).sum(dim=-1, keepdim=True)
+    else:
+        dz = p - onehot
+    dz = dz * scale
+    ly = hl._leaky(y)
+    dw2 = torch.einsum("btk,btj->kj", ly, dz)
+    db2 = dz.sum(dim=(0, 1))
+    dy = torch.matmul(dz, w2.to(f32).t()) * hl._dleaky(y)
+    lskip = hl._leaky(sk)
+    dw1 = torch.einsum("btk,btj->kj", lskip, dy)
+    db1 = dy.sum(dim=(0, 1))
+    dskip = torch.matmul(dy, w1.to(f32).t()) * hl._dleaky(sk)
+    return dskip, dw1, db1, dw2, db2
+
+
+def stack_head_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, skip, targets_tb,
+                         w1, b1, w2, b2, dloss, dilations: Sequence[int],
+                         rf: int, parity: bool):
+    """The merged backward (``_bwd_kernel_head``): the head backward from
+    the saved skip, then the save layer sweep from its float32 dskip
+    (unrounded, unlike the split route's).  Returns (dx, dctx or None in
+    the compute dtype; db_fg (L*B, 2R), dw_fg, dw_out, db_out, dw1 (S, C),
+    db1 (C,), dw2 (C, C), db2 (C,) float32)."""
+    dskip, dw1, db1, dw2, db2 = _head_bwd_merged(
+        skip, targets_tb, w1, b1, w2, b2, dloss, rf, parity)
+    dx, dctx, db_fg, dw_fg, dw_out, db_out, _ = stack_bwd_x_plain(
+        hsave, tfsg, ctx, w_fg, w_out, dskip, dilations)
+    return dx, dctx, db_fg, dw_fg, dw_out, db_out, dw1, db1, dw2, db2
 
 
 def _tails_rebuild(x, ctx, b_fg, w_fg, w_out, b_out, dilations):
@@ -621,17 +751,12 @@ def fused_stack(x: torch.Tensor, ctx, b_fg, w_fg, w_out, b_out,
       b_fg: (L*B, 2R); w_fg (L, 2R|3R, 2R); w_out (L, R, R+S); b_out
         (L, R+S), all float32.
       strategy: "auto", "save", "recompute" or "replay", resolved as the
-        JAX package resolves it; only "recompute" is ported here.
+        JAX package resolves it; "replay" is not ported.
     Returns:
       skip_sum (B, T, S) in the compute dtype.
     """
     mode = resolve_strategy(strategy, tuple(x.shape), w_fg.shape[0],
                             dilations, x.element_size())
-    if mode == "save":
-        raise NotImplementedError(
-            "the non-embed save form of fused_stack (front embedding "
-            "outside the kernel, needed for 2V > 512) is not ported yet "
-            "(ROADMAP.md B.2)")
     if mode == "replay":
         raise NotImplementedError(
             "the replay strategy (the save_h=False forms of the trunk "
@@ -641,15 +766,115 @@ def fused_stack(x: torch.Tensor, ctx, b_fg, w_fg, w_out, b_out,
         xc, wup, bup = ctx
     else:
         ctx_flat = ctx
-    return _FusedStackTails.apply(x, ctx_flat, xc, wup, bup, b_fg, w_fg,
-                                  w_out, b_out, tuple(dilations))
+    op = _FusedStackSave if mode == "save" else _FusedStackTails
+    return op.apply(x, ctx_flat, xc, wup, bup, b_fg, w_fg, w_out, b_out,
+                    tuple(dilations))
+
+
+class _FusedStackSave(torch.autograd.Function):
+    """skip_sum = trunk(x) through the save strategy's non-embed form
+    (B.2(a)): the forward keeps hsave and tfsg, the backward returns dx;
+    a projection triple is flattened here and its backward runs in the
+    backward kernels, as in ``_FusedStackEmbed``."""
+
+    @staticmethod
+    def forward(fctx, x, ctx_flat, xc, wup, bup, b_fg, w_fg, w_out, b_out,
+                dilations):
+        from movenet_tpu_torch.ops.cuda import stack_kernel as kern
+
+        proj = xc is not None
+        if proj:
+            ctx_flat = ctx_flatten((xc, wup, bup), x.dtype)
+        skip, hsave, tfsg = kern.stack_fwd_x(x, ctx_flat, b_fg, w_fg, w_out,
+                                             b_out, dilations)
+        fctx.dilations = tuple(dilations)
+        fctx.proj = proj
+        fctx.has_ctx = ctx_flat is not None
+        fctx.save_for_backward(hsave, tfsg, ctx_flat, w_fg, w_out, xc, wup,
+                               bup)
+        return skip
+
+    @staticmethod
+    def backward(fctx, dskip):
+        from movenet_tpu_torch.ops.cuda import stack_kernel as kern
+
+        hsave, tfsg, ctx_flat, w_fg, w_out, xc, wup, bup = \
+            fctx.saved_tensors
+        proj = _ctx_proj_args((xc, wup, bup)) if fctx.proj else None
+        dx, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug = kern.stack_bwd_x(
+            hsave, tfsg, ctx_flat, w_fg, w_out,
+            dskip.to(tfsg.dtype).contiguous(), fctx.dilations, proj)
+        d_flat = d_xc = d_wup = d_bup = None
+        if fctx.proj:
+            d_xc = dctx.to(xc.dtype)
+            d_wup, d_bup = _ctx_proj_grads(dwup_aug, (xc, wup, bup))
+        elif fctx.has_ctx:
+            d_flat = dctx.to(ctx_flat.dtype)
+        return (dx, d_flat, d_xc, d_wup, d_bup, db_fg,
+                dw_fg.to(w_fg.dtype), dw_out.to(w_out.dtype), db_out, None)
+
+
+class _FusedStackHeadLoss(torch.autograd.Function):
+    """(loss_sum, match) through the merged kernels; the match count is
+    not differentiated."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, b_fg, w_fg, w_out, b_out, targets_tb, w1, b1,
+                w2, b2, dilations, rf, parity):
+        from movenet_tpu_torch.ops.cuda import stack_kernel as kern
+
+        loss, match, skip, hsave, tfsg = kern.stack_head_fwd(
+            x, ctx, b_fg, w_fg, w_out, b_out, targets_tb, w1, b1, w2, b2,
+            dilations, rf, parity)
+        fctx.dilations, fctx.rf, fctx.parity = tuple(dilations), rf, parity
+        fctx.save_for_backward(hsave, tfsg, ctx, w_fg, w_out, skip,
+                               targets_tb, w1, b1, w2, b2)
+        fctx.mark_non_differentiable(match)
+        return loss, match
+
+    @staticmethod
+    def backward(fctx, dloss, _dmatch):
+        from movenet_tpu_torch.ops.cuda import stack_kernel as kern
+
+        (hsave, tfsg, ctx, w_fg, w_out, skip, targets_tb, w1, b1, w2,
+         b2) = fctx.saved_tensors
+        (dx, dctx, db_fg, dw_fg, dw_out, db_out, dw1, db1, dw2,
+         db2) = kern.stack_head_bwd(
+            hsave, tfsg, ctx, w_fg, w_out, skip, targets_tb, w1, b1, w2, b2,
+            dloss, fctx.dilations, fctx.rf, fctx.parity)
+        return (dx, dctx, db_fg, dw_fg.to(w_fg.dtype), dw_out.to(w_out.dtype),
+                db_out, None, dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(b2.dtype), None, None, None)
+
+
+def fused_stack_head_loss(x, ctx, b_fg, w_fg, w_out, b_out, targets_tb, w1,
+                          b1, w2, b2, dilations: Sequence[int], rf: int,
+                          parity: bool):
+    """Whole trunk + output head + CE, merged (the JAX package's
+    ``fused_stack_head_loss``, save strategy): (loss_sum, match_count)
+    over the valid rows [RF-1, T-1).
+
+    Args:
+      x: (B, T, R) front-embedding output in the compute dtype.
+      ctx: None or flat (B, T, R) in the compute dtype.
+      b_fg, w_fg, w_out, b_out: as ``fused_stack``.
+      targets_tb: (T, B) int targets, codes rolled one step left (the last
+        row is masked).
+      w1 (S, C), b1 (C,), w2 (C, C), b2 (C,): the head.
+    The backward forms dskip in float32 and feeds it to the layer sweep
+    unrounded, so in bf16 its gradients differ slightly from the split
+    pipeline's (``fused_stack`` + ``fused_head_loss``)."""
+    return _FusedStackHeadLoss.apply(x, ctx, b_fg, w_fg, w_out, b_out,
+                                     targets_tb, w1, b1, w2, b2,
+                                     tuple(dilations), rf, parity)
 
 
 __all__ = [
     "pick_stack_tile", "supports_recompute", "resolve_strategy",
     "ctx_is_proj", "ctx_flatten", "ctx_proj_fold", "front_embed",
-    "stack_fwd_plain", "stack_bwd_plain", "stack_fwd_tails_plain",
-    "stack_bwd_tails_plain", "fused_stack_embed", "fused_stack",
-    "TAILS_TILE",
+    "stack_fwd_plain", "stack_bwd_plain", "stack_fwd_x_plain",
+    "stack_bwd_x_plain", "stack_head_fwd_plain", "stack_head_bwd_plain",
+    "stack_fwd_tails_plain", "stack_bwd_tails_plain", "fused_stack_embed",
+    "fused_stack", "fused_stack_head_loss", "TAILS_TILE",
 ]
 

@@ -231,9 +231,8 @@ def test_unported_strategies_raise():
     with pytest.raises(NotImplementedError, match="B.2"):
         sk.fused_stack_embed(args[0], big, *args[2:])
     x = torch.zeros(B, 1024, R)
-    for strategy, label in (("save", "B.2"), ("replay", "B.3")):
-        with pytest.raises(NotImplementedError, match=label):
-            sk.fused_stack(x, None, *args[3:], strategy=strategy)
+    with pytest.raises(NotImplementedError, match="B.3"):
+        sk.fused_stack(x, None, *args[3:], strategy="replay")
 
 
 # --------------------------------------------- recompute (tails) route

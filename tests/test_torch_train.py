@@ -260,8 +260,14 @@ def test_fused_host_pack_and_logits(rng_np):
         want = tm.train_logits(_t(codes))
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
                                atol=2e-4)
-    with pytest.raises(NotImplementedError, match="B.6"):
-        fused.fused_train_loss(tm, _t(codes), merge_head=True)
+    # merge_head=True runs the merged trunk + head/CE op, as JAX's does
+    with torch.no_grad():
+        got = fused.fused_train_loss(tm, _t(codes), merge_head=True)
+    want = jfused.fused_train_loss(jm, params, _j(codes), interpret=True,
+                                   merge_head=True)
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
+    assert abs(float(got[1]) - float(want[1])) <= 1.0 / (
+        2 * (1024 - tm.receptive_fields)) + 1e-7
     assert fused.supports_fused(tm, 1024) and not fused.supports_fused(
         tm, 1000)
 
