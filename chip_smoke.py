@@ -88,13 +88,40 @@ Phases (any failure exits non-zero and prints no result):
   15. resume: the same command with --n_epochs 2 --auto_resume 1 starts
      at epoch 1 and ends at step 8; an uninterrupted 2-epoch run from
      the same seed ends with the same params and optimizer state;
-  16. times: samples/s of the AR kernels and the plain versions (video
+  16. packed head: with PACKED_HEAD on, at the breakdancing head shapes
+     (B=2, T=160000, S=C=64, bf16 skip, seeded), parity on and off, the
+     packed kernels (head_loss.py:169 / :218) against their plain
+     versions (loss, equal match, every gradient) and loosely against
+     the unpacked kernels; ``fused_head_loss`` at tgt_off 0 forward +
+     backward (the main path of this form) launches each packed kernel
+     once and no unpacked one;
+  17. wide head: the head kernels at (S, C) = (8, 128) with B=3 and B=2
+     (experiments 03 and 04) and (16, 256) with B=2, T=160000, bf16,
+     against their plain versions;
+  18. narrow trunk: the save kernels (embed form, video triple) at
+     experiment 03's shapes (B=3, L=4, dilations (1,2,1,2), R=32, S=8,
+     V=128) and experiment 04's (B=2, L=14, dilations 1..8192, R=16, S=8,
+     V=128), T=160000, forward and backward against their plain versions;
+  19. experiments 03 and 04 (the main path of these widths): the trainer
+     CLI with the flags of experiments/torch/03_*.sh and 04_*.sh on
+     synthetic clips at the real format (30 train + 3 valid), cut only in
+     epochs (2), steps per epoch (1 and 2) and clips; per-update losses
+     finite, the LR and beta1 of every update equal to the port's
+     schedule at that run's total steps, step ms, launch counts (head
+     kernels at C=128, trunk kernels at the new widths, no recompute
+     kernel); experiment 04 cut at the end of epoch 0 and resumed equals
+     the uninterrupted run bit for bit (params, optimizer state, LR and
+     beta1);
+  20. times: samples/s of the AR kernels and the plain versions (video
      and audio-only side by side), the speculative kernel's time per
      generated sample beside the standard kernel's, the train step and
      kernel times, the merged route's against the split route's, the
-     gated block's and the per-block trunk's;
-  17. the kernels line (with each kernel's bound from this run's shapes),
-     then the card line, then the result line.
+     gated block's and the per-block trunk's, the new forms' and the
+     experiments' update times;
+  21. the kernels line (18 entries, every form of the fourteen TPU kernel
+     functions, each with its bound from this run's shapes; the new
+     widths' readings under "widths"), then the card line, then the
+     result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1604,6 +1631,528 @@ def phase_resume(torch, np, root, ds):
           "uninterrupted run's")
 
 
+PACKED_KERNELS = {
+    "head_fwd_packed": ("movenet_tpu_torch/csrc/head_loss.cu",
+                        "movenet_tpu/ops/pallas/head_loss.py:169"),
+    "head_bwd_packed": ("movenet_tpu_torch/csrc/head_loss.cu",
+                        "movenet_tpu/ops/pallas/head_loss.py:218"),
+}
+# the head kernels at experiment 03's and 04's C = 128 (S = 8, B = 3 and
+# 2) and at the flagship's C = 256 (S = 16, B = 2)
+WIDE_HEADS = ((8, 128, 3), (8, 128, 2), (16, 256, 2))
+
+
+def packed_bounds(m, s, c, b, t):
+    """(bound_ms, bound_by) of the packed head kernels: skip, targets and
+    the weights read (backward: dskip and the gradients written too);
+    every product on float32 operands (67 TF/s), the backward rebuilding
+    y and z."""
+    hw = 4 * (s * c + c * c + 2 * c)
+    fwd_bytes = 2 * m * s + 4 * t * b + hw
+    bwd_bytes = fwd_bytes + 2 * m * s + hw
+    fwd_ops = 2 * m * (s * c + c * c)
+    bwd_ops = 2 * m * (3 * s * c + 3 * c * c)
+
+    def bound(nbytes, ops):
+        tb, to = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    return {"head_fwd_packed": bound(fwd_bytes, fwd_ops),
+            "head_bwd_packed": bound(bwd_bytes, bwd_ops)}
+
+
+def _check_grads(label, got, want, tols):
+    errs = {}
+    for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"), got, want):
+        errs[name] = _err(x, y)
+        check(errs[name] <= tols[name] * _scale(y),
+              f"{label} {name}: max err {errs[name]:.3g}, scale "
+              f"{_scale(y):.3g}")
+    return errs
+
+
+def phase_packed_head(torch, np, model, batch):
+    """PACKED_HEAD on at the breakdancing head shapes (B=2, T=160000,
+    S=C=64, bf16 skip, seeded), parity on and off: the packed kernels
+    against their plain versions and, loosely, against the unpacked
+    kernels (which round the product operands to bf16); their times; and
+    the op's route (fused_head_loss at tgt_off 0, forward + backward, the
+    main path of this form) through each packed kernel once."""
+    from movenet_tpu_torch.ops import head_loss as hl
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+
+    b, t = batch.codes.shape
+    s, c = model.skip_channels, model.input_channels
+    rf = model.receptive_fields
+    g = torch.Generator(device="cuda").manual_seed(9)
+    skip = torch.randn(b, t, s, generator=g, device="cuda").to(torch.bfloat16)
+    tgt = torch.roll(batch.codes.int(), -1, 1).t().contiguous()
+    w = tuple(x.detach() for x in (model.head1.kernel, model.head1.bias,
+                                   model.head2.kernel, model.head2.bias))
+    dloss = torch.tensor(1.0 / (b * (t - rf)), device="cuda")
+    lib, st = kh.library(), kh._stream(skip)
+    rec = {"head_fwd_packed": {}, "head_bwd_packed": {}}
+    with torch.no_grad():
+        for parity in (True, False):
+            args = (skip, tgt, *w, rf, parity)
+            # tolerance: float32 sums of 320000 rows in other orders, loss
+            # rtol 1e-4; both sides form z from float32 operands, so the
+            # match counts are equal
+            loss, match = kh.head_fwd_packed(*args)
+            wl, wm = hl.head_fwd_packed_plain(*args)
+            check(abs(float(loss) - float(wl)) <= 1e-4 * abs(float(wl)),
+                  f"head_fwd_packed parity={parity}: loss {float(loss)} vs "
+                  f"plain {float(wl)}")
+            check(float(match) == float(wm),
+                  f"head_fwd_packed parity={parity}: match {float(match)} vs "
+                  f"plain {float(wm)}")
+            # against the unpacked kernel (bf16 operands): within 1e-2
+            ul, um, up = kh.head_fwd(skip, tgt, *w, rf, parity, 0)
+            unpacked_rel = abs(float(ul) - float(loss)) / abs(float(loss))
+            check(unpacked_rel <= 1e-2, f"packed vs unpacked loss "
+                  f"{float(loss)} vs {float(ul)}")
+            # gradients: float32 sums in other orders, 1e-3 of each
+            # gradient's scale, dskip (bf16) 1%; against the unpacked
+            # kernels, whose operands are rounded to bf16 and whose parity
+            # gradients cancel, each within 20% of its norm (the
+            # recompute-vs-save bar of phase 11)
+            got = kh.head_bwd_packed(*args, dloss)
+            want = hl.head_bwd_packed_plain(*args, dloss)
+            errs = _check_grads("head_bwd_packed", got, want,
+                                dict(dskip=1e-2, dw1=1e-3, db1=1e-3,
+                                     dw2=1e-3, db2=1e-3))
+            unpacked = kh.head_bwd(skip, tgt, up, *w, rf, parity, dloss, 0)
+            un_errs = {}
+            for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"),
+                                  got, unpacked):
+                x, y = x.float(), y.float()
+                un_errs[name] = float((x - y).norm() / (y.norm() + 1e-30))
+                check(un_errs[name] <= 0.2, f"packed vs unpacked {name}: "
+                      f"{un_errs[name]:.3g} of the norm")
+            key = f"parity={parity}"
+            rec["head_fwd_packed"][key] = dict(
+                max_abs_err=abs(float(loss) - float(wl)),
+                loss=float(loss), match=float(match),
+                unpacked_loss_rel=unpacked_rel,
+                ms=time_cuda(torch, lambda: kh.run_fwd(
+                    lib, skip, tgt, *w, rf, parity, 0, False, st,
+                    packed=True), 5),
+                plain_ms=time_cuda(
+                    torch, lambda: hl.head_fwd_packed_plain(*args), 2))
+            rec["head_bwd_packed"][key] = dict(
+                max_abs_err=max(errs.values()), errs=errs,
+                unpacked_errs=un_errs,
+                ms=time_cuda(torch, lambda: kh.run_bwd(
+                    lib, skip, tgt, None, *w, rf, parity, dloss, 0, st), 5),
+                plain_ms=time_cuda(
+                    torch, lambda: hl.head_bwd_packed_plain(*args, dloss), 2))
+    # the op with the switch on: forward + backward through the packed
+    # kernels, no softmax saved, no unpacked launch
+    saved = hl.PACKED_HEAD
+    hl.PACKED_HEAD = True
+    try:
+        leaves = [x.clone().requires_grad_(True) for x in (skip, *w)]
+        kh.reset_launch_counts()
+        loss, _ = hl.fused_head_loss(leaves[0], tgt, *leaves[1:], rf, True, 0)
+        (loss / (b * (t - rf))).backward()
+        torch.cuda.synchronize()
+        launches = dict(kh.launch_counts)
+    finally:
+        hl.PACKED_HEAD = saved
+    check(launches == {"head_fwd": 0, "head_bwd": 0, "head_fwd_packed": 1,
+                       "head_bwd_packed": 1},
+          f"packed route launches {launches}")
+    want = hl.head_bwd_packed_plain(skip, tgt, *w, rf, True, dloss)
+    _check_grads("packed route", [x.grad for x in leaves], want,
+                 dict(dskip=1e-2, dw1=1e-3, db1=1e-3, dw2=1e-3, db2=1e-3))
+    for name, byp in rec.items():
+        for key, r in byp.items():
+            print(f"packed {name} {key} vs plain: max err "
+                  f"{r['max_abs_err']:.3g}; kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms"
+                  + (f"; match {r['match']:.0f} equal; loss within "
+                     f"{r['unpacked_loss_rel']:.3g} of the unpacked kernel's"
+                     if "match" in r else
+                     "; against the unpacked kernels, of the norm: "
+                     + ", ".join(f"{k} {v:.3g}"
+                                 for k, v in r["unpacked_errs"].items())),
+                  flush=True)
+    print(f"packed route (PACKED_HEAD on, fused_head_loss tgt_off 0): "
+          f"launches {launches}", flush=True)
+    return rec, {k: launches[k] for k in PACKED_KERNELS}
+
+
+def phase_wide_head(torch, np):
+    """The head kernels at (S, C) = (8, 128) with B = 3 and 2, and
+    (16, 256) with B = 2 (T = 160000, bf16, parity CE, targets in the
+    codes pack; seeded random skip, codes and weights) against their
+    plain versions, with their times; records by (name, S, C, B)."""
+    from movenet_tpu_torch.ops import head_loss as hl
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+
+    t, rf = 160_000, 24
+    rec = {}
+    for s, c, b in WIDE_HEADS:
+        g = torch.Generator(device="cuda").manual_seed(s * c + b)
+        codes = torch.randint(0, c, (b, t), generator=g, device="cuda",
+                              dtype=torch.int32)
+        prev = torch.cat([torch.full_like(codes[:, :1], -1), codes[:, :-1]],
+                         1)
+        pack = torch.cat([codes, prev, torch.roll(codes, -1, 1)],
+                         0).t().contiguous()
+        skip = torch.randn(b, t, s, generator=g, device="cuda").to(
+            torch.bfloat16)
+        w1 = torch.randn(s, c, generator=g, device="cuda") / 4
+        b1 = torch.randn(c, generator=g, device="cuda") * 0.1
+        w2 = torch.randn(c, c, generator=g, device="cuda") * (2.5 / c ** 0.5)
+        b2 = torch.randn(c, generator=g, device="cuda") * 0.1
+        hargs = (skip, pack, w1, b1, w2, b2, rf, True, 2 * b)
+        with torch.no_grad():
+            # tolerances as the train kernels' phase: loss rtol 1e-4,
+            # matches within 10 rows, p 2e-4, gradients 1e-3 of their
+            # scale, dskip (bf16) 1%
+            loss, match, p = kh.head_fwd(*hargs)
+            wl, wm, wp = hl.head_fwd_plain(*hargs)
+            check(abs(float(loss) - float(wl)) <= 1e-4 * abs(float(wl)),
+                  f"head_fwd S={s} C={c} B={b}: loss {float(loss)} vs "
+                  f"{float(wl)}")
+            check(abs(float(match) - float(wm)) <= 10,
+                  f"head_fwd S={s} C={c} B={b}: match {float(match)} vs "
+                  f"{float(wm)}")
+            perr = _err(p, wp)
+            check(perr <= 2e-4, f"head_fwd S={s} C={c}: p err {perr:.3g}")
+            del wp
+            dloss = torch.tensor(1.0 / (b * (t - rf)), device="cuda")
+            hb = (skip, pack, p, w1, b1, w2, b2, rf, True, dloss, 2 * b)
+            errs = _check_grads(f"head_bwd S={s} C={c} B={b}",
+                                kh.head_bwd(*hb), hl.head_bwd_plain(*hb),
+                                dict(dskip=1e-2, dw1=1e-3, db1=1e-3,
+                                     dw2=1e-3, db2=1e-3))
+            lib, st = kh.library(), kh._stream(skip)
+            rec[("head_fwd", s, c, b)] = dict(
+                max_abs_err=perr, ms=time_cuda(
+                    torch, lambda: kh.run_fwd(lib, *hargs, stream=st), 5),
+                plain_ms=time_cuda(torch, lambda: hl.head_fwd_plain(*hargs),
+                                   2))
+            rec[("head_bwd", s, c, b)] = dict(
+                max_abs_err=max(errs.values()), errs=errs, ms=time_cuda(
+                    torch, lambda: kh.run_bwd(lib, *hb, stream=st), 5),
+                plain_ms=time_cuda(torch, lambda: hl.head_bwd_plain(*hb), 2))
+            del p, hb
+    for (name, s, c, b), r in rec.items():
+        print(f"wide head {name} S={s} C={c} B={b} (T=160000, bf16) vs "
+              f"plain: max err {r['max_abs_err']:.3g}; kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
+    return rec
+
+
+# the save kernels at the experiments' widths (B, R, S, dilations); V =
+# their --input_channels 128
+NARROW_TRUNKS = {"exp03": (3, 32, 8, (1, 2, 1, 2)),
+                 "exp04": (2, 16, 8, tuple(2 ** i for i in range(14)))}
+
+
+def phase_narrow_trunk(torch, np):
+    """The save kernels (embed form, the video as the stride-10 projection
+    triple) at experiment 03's and 04's shapes, T = 160000, bf16, seeded
+    random codes, table, triple and weights, forward and backward against
+    their plain versions, with their times; records by (name, exp)."""
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    t, v, bf = 160_000, 128, torch.bfloat16
+    rec = {}
+    for exp, (b, r, s, dil) in NARROW_TRUNKS.items():
+        g = torch.Generator(device="cuda").manual_seed(r + len(dil))
+        n = len(dil)
+
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+
+        codes = torch.randint(0, v, (b, t), generator=g, device="cuda",
+                              dtype=torch.int32)
+        prev = torch.cat([torch.full_like(codes[:, :1], -1), codes[:, :-1]],
+                         1)
+        pack = torch.cat([codes, prev, torch.roll(codes, -1, 1)],
+                         0).t().contiguous()
+        trip = (rn(b, t // 10, r, scale=0.5).to(bf),
+                rn(r, 10 * r, scale=r ** -0.5), rn(10 * r, scale=0.1))
+        with torch.no_grad():
+            ctx = sk.ctx_flatten(trip, bf)
+            proj = sk._ctx_proj_args(trip)
+            win = 3 * r
+            fargs = (pack, rn(2 * v, r, scale=0.5).to(bf),
+                     ctx, rn(n * b, 2 * r, scale=0.1),
+                     rn(n, win, 2 * r, scale=win ** -0.5),
+                     rn(n, r, r + s, scale=r ** -0.5),
+                     rn(n, r + s, scale=0.1), dil, b)
+            # tolerances as the train kernels' phase: forward 2% of each
+            # output's scale, backward 1e-3 of each gradient's, dxc 2%
+            got, want = ks.stack_fwd(*fargs), sk.stack_fwd_plain(*fargs)
+            errs = {}
+            for name, x, y in zip(("skip", "hsave", "tfsg"), got, want):
+                errs[name] = _err(x, y)
+                check(errs[name] <= 2e-2 * _scale(y),
+                      f"stack_fwd {exp} {name}: max err {errs[name]:.3g}")
+            del got
+            lib, st = ks.library(), ks._stream(pack)
+            rec[("stack_fwd", exp)] = dict(
+                max_abs_err=max(errs.values()), errs=errs,
+                ms=time_cuda(torch, lambda: ks.run_fwd(lib, *fargs, st), 5),
+                plain_ms=time_cuda(torch, lambda: sk.stack_fwd_plain(*fargs),
+                                   2))
+            _, hsave, tfsg = want
+            dskip = rn(b, t, s, scale=1e-3).to(bf)
+            bargs = (hsave, tfsg, ctx, fargs[4], fargs[5], dskip, pack, v,
+                     dil, proj)
+            got, want = ks.stack_bwd(*bargs), sk.stack_bwd_plain(*bargs)
+            errs = {}
+            for name, x, y in zip(("dtab", "dxc", "db_fg", "dw_fg", "dw_out",
+                                   "db_out", "dwup_aug"), got, want):
+                errs[name] = _err(x, y)
+                tol = (2e-2 if name == "dxc" else 1e-3) * _scale(y)
+                check(errs[name] <= tol, f"stack_bwd {exp} {name}: max err "
+                      f"{errs[name]:.3g}, scale {_scale(y):.3g}")
+            del got, want
+            rec[("stack_bwd", exp)] = dict(
+                max_abs_err=max(errs.values()), errs=errs,
+                ms=time_cuda(torch, lambda: ks.run_bwd(lib, *bargs,
+                                                       stream=st), 5),
+                plain_ms=time_cuda(torch, lambda: sk.stack_bwd_plain(*bargs),
+                                   2),
+                bound=train_bounds(b, t, n, r, s, 128, v, win, True))
+            rec[("stack_fwd", exp)]["bound"] = rec[("stack_bwd", exp)][
+                "bound"]
+            del hsave, tfsg, bargs, fargs
+    for (name, exp), r in rec.items():
+        b, rr, s, dil = NARROW_TRUNKS[exp]
+        print(f"narrow trunk {name} {exp} (B={b}, T=160000, L={len(dil)}, "
+              f"R={rr}, S={s}, V=128, bf16, video triple) vs plain: "
+              + ", ".join(f"{k} {x:.3g}" for k, x in r["errs"].items())
+              + f"; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms",
+              flush=True)
+    return rec
+
+
+def script_flags(name):
+    """The trainer flags of experiments/torch/<name>.sh, without the
+    dataset and "$@"."""
+    import shlex
+
+    text = (ROOT / "experiments" / "torch" / f"{name}.sh").read_text()
+    check("movenet_tpu_torch.train.cli" in text, f"{name}.sh does not call "
+          "the port's trainer CLI")
+    body = text[text.index(".train.cli"):].split("\n", 1)[1]
+    flags = [f for f in shlex.split(body.replace("\\\n", " ")) if f != "$@"]
+    i = flags.index("--dataset")
+    return flags[:i] + flags[i + 2:]
+
+
+class recorded_schedule:
+    """Within the block each update's LR and beta1 (as the optimizer holds
+    them when it steps) are recorded (observation only)."""
+
+    def __enter__(self):
+        from movenet_tpu_torch.train import optim
+
+        self.real = optim.Schedules.apply
+        seen = self.seen = []
+        real = self.real
+
+        def apply(sched, optimizer, step):
+            real(sched, optimizer, step)
+            group = optimizer.param_groups[0]
+            seen.append((step, group["lr"], group["betas"][0]))
+
+        optim.Schedules.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        from movenet_tpu_torch.train import optim
+
+        optim.Schedules.apply = self.real
+        return False
+
+
+def preempt_after(n):
+    """A PreemptionGuard class whose flag rises at its n-th read (the
+    resume check's cut at the end of epoch 0)."""
+    from movenet_tpu_torch.train import trainer
+
+    class Guard(trainer.PreemptionGuard):
+        def __init__(self, install=True):
+            super().__init__(install=False)
+            self.reads = 0
+
+        @property
+        def requested(self):
+            self.reads += 1
+            return self.reads >= n
+
+        @requested.setter
+        def requested(self, value):
+            pass
+
+    return Guard
+
+
+def exp_run(name, ds, out, logs, extra):
+    from movenet_tpu_torch.train import cli
+
+    return cli.main(["--dataset", str(ds), *script_flags(name),
+                     "--model_output_path", str(out), "--logger", "jsonl",
+                     "--training_logs_path", str(logs),
+                     "--log_every_n_steps", "1", *extra])
+
+
+EXP_NAMES = {"exp03": "03_kinetics_scale_up",
+             "exp04": "04_kinetics_receptive_field"}
+# cuts: epochs, steps per epoch and the clip count only
+EXP_CUTS = {"exp03": ["--n_epochs", "2", "--n_steps_per_epoch", "1"],
+            "exp04": ["--n_epochs", "2", "--n_steps_per_epoch", "2"]}
+
+
+def phase_experiments(torch, np, root):
+    """Experiments 03 and 04 through the trainer CLI with their scripts'
+    flags on synthetic clips at the real format; per run the per-update
+    losses, the LR and beta1 of every update against the port's schedule
+    at that run's total steps, step ms and launch counts (the head kernels
+    at C = 128 and the save trunk kernels at the new widths launched, no
+    recompute kernel).  Then experiment 04 is cut at the end of epoch 0
+    and resumed: params, optimizer state, LR and beta1 equal the
+    uninterrupted run's bit for bit.  Returns (records, launches)."""
+    import math
+
+    from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.data import kinetics_index, make_synthetic_dataset
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.train import optim, trainer
+
+    t0 = time.perf_counter()
+    ds = root / "exp_clips"
+    make_synthetic_dataset(ds, splits=("train",), categories=["breakdancing"],
+                           clips_per_category=30, seed=0)
+    make_synthetic_dataset(ds, splits=("valid",), categories=["breakdancing"],
+                           clips_per_category=6, seed=1)
+    n_train = len(kinetics_index(ds, train=True))
+    n_val = len(kinetics_index(ds, train=False))
+    print(f"experiment data: {n_train} train + {n_val} valid clips (16 kHz, "
+          f"16 fps, 10 s, 96x96) written in {time.perf_counter() - t0:.1f} "
+          f"s; cuts: the clip count, " + "; ".join(
+              f"{k} {' '.join(v)}" for k, v in EXP_CUTS.items()), flush=True)
+    recs, launches = {}, {}
+    for exp, name in EXP_NAMES.items():
+        cfg = config_from_args(arg_parser().parse_args(
+            ["--dataset", str(ds), *script_flags(name), *EXP_CUTS[exp]]))
+        mc = cfg.model_config
+        ks.reset_launch_counts()
+        kh.reset_launch_counts()
+        t1 = time.perf_counter()
+        with timed_train_steps(torch) as steps, recorded_schedule() as sch:
+            state = exp_run(name, ds, root / exp, root / f"{exp}_logs",
+                            EXP_CUTS[exp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = {**ks.launch_counts, **kh.launch_counts}
+        lines = [json.loads(l) for l in (root / f"{exp}_logs" /
+                                         "metrics.jsonl").read_text()
+                 .splitlines()]
+        train = [l for l in lines if l["tag"] == "train"]
+        spe = min(n_train // (cfg.batch_size * cfg.accumulation_steps),
+                  cfg.n_steps_per_epoch)
+        n_updates = cfg.n_epochs * spe
+        check(state.step == n_updates and len(train) == n_updates,
+              f"{exp}: {state.step} updates, {len(train)} logged, expected "
+              f"{n_updates}")
+        losses = [l["loss"] for l in train]
+        check(all(np.isfinite(losses)), f"{exp}: losses {losses}")
+        # the LR and beta1 of every update: the port's schedule at this
+        # run's total steps (OneCycleLR: n_epochs * ceil(steps per epoch /
+        # accumulation steps)), or the config's constant LR and 0.9
+        total = cfg.n_epochs * math.ceil(spe / cfg.accumulation_steps)
+        if cfg.scheduler == "OneCycleLR":
+            lr_f = optim.onecycle_schedule(cfg.max_learning_rate, total,
+                                           cfg.lr_pct_start)
+            b1_f = optim.onecycle_momentum_schedule(total, cfg.lr_pct_start)
+            want = [(i, float(lr_f(i)), float(b1_f(i)))
+                    for i in range(n_updates)]
+        else:
+            check(cfg.scheduler is None, f"{exp}: scheduler {cfg.scheduler}")
+            want = [(i, cfg.learning_rate, 0.9) for i in range(n_updates)]
+        check(sch.seen == want, f"{exp}: LR/beta1 {sch.seen}, expected "
+              f"{want}")
+        logged = [l["learning_rate"] for l in train]
+        check(all(abs(a - w[1]) <= 1e-6 * w[1] for a, w in zip(logged, want)),
+              f"{exp}: logged learning_rate {logged}")
+        micro = n_updates * cfg.accumulation_steps
+        val_batches = n_val // cfg.val_batch_size
+        want_counts = {"stack_fwd": micro + cfg.n_epochs * val_batches,
+                       "stack_bwd": micro, "head_bwd": micro,
+                       "head_fwd": micro + cfg.n_epochs * val_batches,
+                       "stack_fwd_tails": 0, "stack_bwd_tails": 0,
+                       "head_fwd_packed": 0, "head_bwd_packed": 0}
+        check(all(counts[k] == v for k, v in want_counts.items()),
+              f"{exp}: launches {counts}, expected {want_counts}")
+        median = float(np.median(steps.ms[1:] if len(steps.ms) > 1
+                                 else steps.ms))
+        recs[exp] = dict(
+            losses=losses, lr_beta1=sch.seen, step_ms=steps.ms,
+            median_ms=median, wall_s=wall,
+            shape=f"B={cfg.batch_size} x {cfg.accumulation_steps} "
+                  f"microbatches, T=160000, L={len(state.module.dilations)}, "
+                  f"R={mc.residual_channels}, S={mc.skip_channels}, "
+                  f"C={mc.input_channels}, bf16, video")
+        for k in ("stack_fwd", "stack_bwd", "head_fwd", "head_bwd"):
+            launches[k] = launches.get(k, 0) + counts[k]
+        print(f"{exp} trainer CLI ({name}.sh flags + {' '.join(EXP_CUTS[exp])}"
+              f"; {recs[exp]['shape']}): {n_updates} updates + "
+              f"{cfg.n_epochs * val_batches} validation batches in "
+              f"{wall:.1f} s with the data; losses "
+              f"{[round(v, 6) for v in losses]}; LR, beta1 per update "
+              f"{[(round(a, 9), round(b, 6)) for _, a, b in sch.seen]}; "
+              f"step ms {[round(v, 1) for v in steps.ms]} (median after the "
+              f"first {median:.1f}); launches {counts}", flush=True)
+    # experiment 04 cut at the end of epoch 0 (the guard's third read),
+    # resumed with --auto_resume 1, against the uninterrupted run above
+    whole = state
+    real_guard = trainer.PreemptionGuard
+    trainer.PreemptionGuard = preempt_after(3)
+    try:
+        cut = exp_run(EXP_NAMES["exp04"], ds, root / "exp04_cut",
+                      root / "exp04_cut_logs", EXP_CUTS["exp04"])
+    finally:
+        trainer.PreemptionGuard = real_guard
+    check(cut.step == 2, f"experiment 04 cut at step {cut.step}, not 2")
+    resumed = exp_run(EXP_NAMES["exp04"], ds, root / "exp04_cut",
+                      root / "exp04_cut_logs",
+                      EXP_CUTS["exp04"] + ["--auto_resume", "1"])
+    check(resumed.step == whole.step, f"resumed run ended at step "
+          f"{resumed.step}, the uninterrupted at {whole.step}")
+    diff = 0.0
+    pr = resumed.module.state_dict()
+    for name, w in whole.module.state_dict().items():
+        diff = max(diff, _err(pr[name], w))
+    ow, orr = whole.optimizer.state_dict(), resumed.optimizer.state_dict()
+    groups_equal = ow["param_groups"] == orr["param_groups"]
+    check(groups_equal and set(ow["state"]) == set(orr["state"]),
+          f"optimizer param groups (LR, beta1) or state layout differ: "
+          f"{[(g['lr'], g['betas']) for g in orr['param_groups']]} vs "
+          f"{[(g['lr'], g['betas']) for g in ow['param_groups']]}")
+    opt_diff = 0.0
+    for i, st in ow["state"].items():
+        for k, v in st.items():
+            opt_diff = max(opt_diff, _err(orr["state"][i][k], v))
+    g = ow["param_groups"][0]
+    print(f"experiment 04 resume: cut at step 2, resumed to step "
+          f"{resumed.step}; against the uninterrupted run: params max "
+          f"difference {diff:.3g}, optimizer state {opt_diff:.3g}, LR "
+          f"{g['lr']!r} and beta1 {g['betas'][0]!r} equal", flush=True)
+    check(diff == 0.0 and opt_diff == 0.0, "the resumed run's params or "
+          "optimizer state differ from the uninterrupted run's")
+    return recs, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1716,7 +2265,36 @@ def main() -> int:
             phase = "resume"
             phase_resume(torch, np, Path(tmp), ds)
 
+        phase = "packed head"
+        packed_recs, packed_launches = phase_packed_head(torch, np, bd_model,
+                                                         bd_batch)
+        launches.update(packed_launches)
+        phase = "wide head"
+        wide_recs = phase_wide_head(torch, np)
+        phase = "narrow trunk"
+        narrow_recs = phase_narrow_trunk(torch, np)
+        with tempfile.TemporaryDirectory() as tmp:
+            phase = "experiments 03 and 04"
+            exp_recs, exp_launches = phase_experiments(torch, np, Path(tmp))
+        for k, v in exp_launches.items():
+            launches[k] += v
+
         phase = "times"
+        for exp, r in exp_recs.items():
+            print(f"time {exp} trainer CLI ({r['shape']}): update "
+                  f"{r['median_ms']:.2f} ms (median after the first, "
+                  f"{len(r['step_ms'])} updates); {card}", flush=True)
+        for (name, exp), r in narrow_recs.items():
+            print(f"time {name} {exp}: kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms; {card}", flush=True)
+        for (name, s_, c_, b_), r in wide_recs.items():
+            print(f"time {name} S={s_} C={c_} B={b_}: kernel {r['ms']:.3f} "
+                  f"ms, plain {r['plain_ms']:.3f} ms; {card}", flush=True)
+        for name, byp in packed_recs.items():
+            for key, r in byp.items():
+                print(f"time {name} {key} (B=2, T=160000, S=C=64, bf16 "
+                      f"skip): kernel {r['ms']:.3f} ms, plain "
+                      f"{r['plain_ms']:.3f} ms; {card}", flush=True)
         sr = {k: train_recs[k]["ms"] for k in TRAIN_KERNELS}
         print(f"time merged (breakdancing, B=2, T=160000, bf16): forward "
               f"{merged_recs['stack_head_fwd']['ms']:.3f} ms against the "
@@ -1795,14 +2373,37 @@ def main() -> int:
             mc.input_channels, 3 * mc.residual_channels, True)
         for name, (source, replaces) in TRAIN_KERNELS.items():
             r = train_recs[name]
+            widths = []
+            for (n, exp), x in narrow_recs.items():
+                if n == name:
+                    b_, r_, s_, dil = NARROW_TRUNKS[exp]
+                    widths.append(dict(
+                        shape=f"{exp}: B={b_}, T=160000, L={len(dil)}, "
+                              f"R={r_}, S={s_}, V=128, bf16, video triple",
+                        ms=x["ms"], plain_ms=x["plain_ms"],
+                        max_abs_err=x["max_abs_err"],
+                        bound_ms=x["bound"][name][0],
+                        bound_by=x["bound"][name][1]))
+            for (n, s_, c_, b_), x in wide_recs.items():
+                if n == name:
+                    hb = train_bounds(b_, 160_000, 1, 8, s_, c_, c_, 16,
+                                      False)[name]
+                    widths.append(dict(
+                        shape=f"S={s_}, C={c_}, B={b_}, T=160000, bf16",
+                        ms=x["ms"], plain_ms=x["plain_ms"],
+                        max_abs_err=x["max_abs_err"], bound_ms=hb[0],
+                        bound_by=hb[1]))
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "max_abs_err": max([r["max_abs_err"]]
+                                   + [w["max_abs_err"] for w in widths]),
+                "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1], "library_ms": None,
                 "matches_plain": True,
-                "shape": "breakdancing: B=2, T=160000, L=9, R=S=C=64, bf16"})
+                "shape": "breakdancing: B=2, T=160000, L=9, R=S=C=64, bf16",
+                "widths": widths})
         from movenet_tpu_torch.ops.stack_kernel import TAILS_TILE
         tb = tails_bounds(2, 160_000, 9, 64, 8, 3 * 64, 21, TAILS_TILE)
         for name, (source, replaces) in TAILS_KERNELS.items():
@@ -1845,6 +2446,25 @@ def main() -> int:
                 "shape": f"one block: B=2, T=160000, R=S=64, bf16, flat "
                          f"ctx, d={GATED_DILATIONS[0]} (ms; max_abs_err "
                          f"over d in {list(GATED_DILATIONS)})"})
+        pb = packed_bounds(2 * mc.max_audio_frames, 64, 64, 2,
+                           mc.max_audio_frames)
+        for name, (source, replaces) in PACKED_KERNELS.items():
+            byp = packed_recs[name]
+            r = byp["parity=True"]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max(x["max_abs_err"] for x in byp.values()),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": pb[name][0], "bound_by": pb[name][1],
+                "library_ms": None, "matches_plain": True,
+                "shape": "PACKED_HEAD on, breakdancing head: B=2, T=160000, "
+                         "S=C=64, bf16 skip, parity CE (max_abs_err over "
+                         "parity on and off)"})
+        # every form of the fourteen TPU kernel functions: the AR kernel's
+        # four and the speculative kernel's two, the ten training kernels
+        # and the two packed ones
+        check(len(kernels) == 18, f"{len(kernels)} kernels in the line")
         check(all(k["launches"] > 0 for k in kernels),
               "a kernel of the path was not launched")
         print(json.dumps({"kernels": kernels}))

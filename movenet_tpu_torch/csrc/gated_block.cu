@@ -473,7 +473,8 @@ int bwd_impl(const GatedBwdArgs& a, int blocks, bf16_t* dh, float* grads,
 
 }  // namespace
 
-#define MOVENET_GATED_WIDTHS(X) X(16, 16) X(32, 32) X(64, 64) X(64, 8)
+#define MOVENET_GATED_WIDTHS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(64, 8) X(32, 8) X(16, 8)
 
 extern "C" {
 

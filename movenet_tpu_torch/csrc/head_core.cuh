@@ -1,8 +1,9 @@
 // Output head + cross-entropy building blocks, shared by head_loss.cu (the
 // split pipeline's head kernels) and stack_kernel.cu (the merged trunk +
 // head kernels).  A block of kHeadThreads threads works on tiles of
-// kHeadRows rows held in shared memory; each product is a sequence of fmaf
-// in float32 over a 4x4 register tile per thread.
+// kHeadRows rows (or fewer, as the caller's shared-memory plan gives) held
+// in shared memory; each product is a sequence of fmaf in float32 over a
+// 4x4 register tile per thread.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,17 +22,24 @@ __device__ __forceinline__ float leaky(float x) {
 __device__ __forceinline__ float dleaky(float x) {
   return x > 0.f ? 1.f : 0.01f;
 }
+// A product operand: rounded to bf16 (the TPU's _mdot, operands in the
+// compute dtype) or kept in float32 (its _dot).
+template <bool ROUND>
+__device__ __forceinline__ float operand(float x) {
+  return ROUND ? rnd(x) : x;
+}
 
-// out[r, n] = sum_k A[r, k] B[k, n] over a kHeadRows tile: A row-major with
-// stride lda, B row-major (K, N).  ROUND rounds both operands to bf16 as
-// they load (a product on compute-dtype operands, the TPU's _mdot).
-// Returns through fn(row, col, value).
+// out[r, n] = sum_k A[r, k] B[k, n] over a tile of `rows` rows (a multiple
+// of 4): A row-major with stride lda, B row-major (K, N), in shared or
+// global memory.  ROUND rounds both operands to bf16 as they load (a
+// product on compute-dtype operands, the TPU's _mdot).  Returns through
+// fn(row, col, value).
 template <bool ROUND, typename Fn>
 __device__ __forceinline__ void tile_product(const float* A, int lda,
                                              const float* B, int K, int N,
-                                             Fn fn) {
+                                             Fn fn, int rows = kHeadRows) {
   const int nc = N / 4;
-  for (int tile = threadIdx.x; tile < (kHeadRows / 4) * nc;
+  for (int tile = threadIdx.x; tile < (rows / 4) * nc;
        tile += kHeadThreads) {
     const int r0 = (tile / nc) * 4, c0 = (tile % nc) * 4;
     float acc[4][4] = {};
@@ -58,8 +66,9 @@ __device__ __forceinline__ void tile_product(const float* A, int lda,
 }
 
 // acc[k, n] += sum_r A[r, k] B[r, n] over the tile's rows (A, B row-major
-// with strides lda, ldb); acc (K, N) in shared memory, each 4x4 block owned
-// by one thread.
+// with strides lda, ldb); acc (K, N) in shared or global memory, each 4x4
+// block owned by one thread (the same one on every call, so a block's
+// partial sums in global memory need no barrier).
 __device__ __forceinline__ void tile_wgrad(const float* A, int lda,
                                            const float* B, int ldb, int K,
                                            int N, int rows, float* acc) {
@@ -120,7 +129,18 @@ __device__ __forceinline__ float row_nll(float* zr, int C, int tgt,
   return nll;
 }
 
-// dL/dz of one row from its softmax p, times scale: parity p g - p (p.g)
+// The softmax of one row in place: p = exp(z - max z) / sum, the values
+// row_nll's write_p stores.
+__device__ __forceinline__ void row_softmax(float* zr, int C) {
+  float zmax = zr[0];
+  for (int c = 1; c < C; ++c) zmax = zr[c] > zmax ? zr[c] : zmax;
+  float esum = 0.f;
+  for (int c = 0; c < C; ++c) esum += expf(zr[c] - zmax);
+  for (int c = 0; c < C; ++c) zr[c] = expf(zr[c] - zmax) / esum;
+}
+
+// dL/dz of one row from its softmax p, times scale (p and dz may be the
+// same row): parity p g - p (p.g)
 // with g = softmax(p) - onehot(tgt); clean p - onehot(tgt).
 __device__ __forceinline__ void row_dz(const float* p, int C, int tgt,
                                        float scale, bool parity, float* dz) {

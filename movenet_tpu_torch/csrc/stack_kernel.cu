@@ -44,8 +44,8 @@
 //             per-block partial sums, added by a second pass in fixed
 //             order: deterministic, no atomics.  The bias gradients are
 //             the column sums of the same operands.  The table gradient
-//             adds dh rows by code with shared-memory atomics per block
-//             (order not fixed), then a fixed-order reduction; the
+//             adds dh rows by code into a per-block table, each column's
+//             rows in order, then a fixed-order reduction; the
 //             projection backward is one more weight-gradient launch (dwup,
 //             dbup) and one product for dxc.
 // The merged form is the non-embed save form with two changes.  Its
@@ -810,36 +810,66 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Table gradient: dh of layer 0 (its partial + the carry) added by code
-// into a per-block (2V, R) table in shared memory.
+// into per-block (2V, R) tables in shared memory.  The block's rows are cut
+// into `groups` contiguous chunks, each with a table of its own; one
+// thread per (chunk, column) adds its rows in order (loads grouped ahead
+// of the adds), and the chunks' tables are added in chunk order: the sums
+// are deterministic, so a resumed run trains bit for bit as an
+// uninterrupted one.
 __global__ void __launch_bounds__(kThreads)
     stack_embed_grad_kernel(const float* dhp, const float* p, int d0,
                             const int* pack, int pack_cols, int batch,
                             int t_len, int vocab, int r, long rows_per_block,
-                            float* part) {
+                            int groups, float* part) {
+  constexpr int U = 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* tab = reinterpret_cast<float*>(smem);
+  float* tabs = reinterpret_cast<float*>(smem);   // (groups, 2V, R)
   const int tid = threadIdx.x;
   const int n_tab = 2 * vocab * r;
-  for (int i = tid; i < n_tab; i += kThreads) tab[i] = 0.f;
+  for (int i = tid; i < groups * n_tab; i += kThreads) tabs[i] = 0.f;
   __syncthreads();
   const long m_total = static_cast<long>(batch) * t_len;
   const long lo = blockIdx.x * rows_per_block;
   const long hi = lo + rows_per_block < m_total ? lo + rows_per_block
                                                 : m_total;
-  for (long i = lo * r + tid; i < hi * r; i += kThreads) {
-    const long m = i / r;
-    const int j = static_cast<int>(i % r);
-    const int b = static_cast<int>(m / t_len), t = static_cast<int>(m % t_len);
-    float v = dhp[i];
-    if (t + d0 < t_len) v = v + p[(m + d0) * r + j];
-    const int cur = pack[static_cast<long>(t) * pack_cols + b];
-    const int prev = pack[static_cast<long>(t) * pack_cols + batch + b];
-    if (cur >= 0 && cur < vocab) atomicAdd(&tab[cur * r + j], v);
-    if (prev >= 0 && prev < vocab) atomicAdd(&tab[(vocab + prev) * r + j], v);
+  const long chunk = (hi - lo + groups - 1) / groups;
+  const int g = tid / r, j = tid % r;
+  if (g < groups && hi > lo) {
+    float* tab = tabs + static_cast<long>(g) * n_tab;
+    const long c_lo = lo + g * chunk;
+    const long c_hi = c_lo + chunk < hi ? c_lo + chunk : hi;
+    for (long m0 = c_lo; m0 < c_hi; m0 += U) {
+      float v[U];
+      int cur[U], prev[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long m = m0 + u;
+        cur[u] = prev[u] = -1;
+        v[u] = 0.f;
+        if (m < c_hi) {
+          const int b = static_cast<int>(m / t_len);
+          const int t = static_cast<int>(m % t_len);
+          v[u] = dhp[m * r + j];
+          if (t + d0 < t_len) v[u] = v[u] + p[(m + d0) * r + j];
+          cur[u] = pack[static_cast<long>(t) * pack_cols + b];
+          prev[u] = pack[static_cast<long>(t) * pack_cols + batch + b];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (cur[u] >= 0 && cur[u] < vocab) tab[cur[u] * r + j] += v[u];
+        if (prev[u] >= 0 && prev[u] < vocab)
+          tab[(vocab + prev[u]) * r + j] += v[u];
+      }
+    }
   }
   __syncthreads();
-  for (int i = tid; i < n_tab; i += kThreads)
-    part[static_cast<long>(blockIdx.x) * n_tab + i] = tab[i];
+  for (int i = tid; i < n_tab; i += kThreads) {
+    float sum = tabs[i];
+    for (int c = 1; c < groups; ++c)
+      sum += tabs[static_cast<long>(c) * n_tab + i];
+    part[static_cast<long>(blockIdx.x) * n_tab + i] = sum;
+  }
 }
 
 // dxc = dz wup^T over rows of dz = dctx as (B*T/10, 10R): the coarse
@@ -1267,13 +1297,19 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
     // table gradient
     const int blocks = ends.embed_blocks, vocab = ends.vocab;
     const long per = (m_total + blocks - 1) / blocks;
-    const size_t tsmem = static_cast<size_t>(2 * vocab * R) * 4;
+    // chunks per block: a thread per (chunk, column), their tables within
+    // 112 KB (two blocks per SM)
+    const size_t tab_bytes = static_cast<size_t>(2 * vocab * R) * 4;
+    int groups = static_cast<int>((112 * 1024) / tab_bytes);
+    groups = groups < kThreads / R ? groups : kThreads / R;
+    groups = groups < 1 ? 1 : groups;
+    const size_t tsmem = tab_bytes * groups;
     err = set_smem(reinterpret_cast<const void*>(stack_embed_grad_kernel),
                    tsmem);
     if (err) return err;
     stack_embed_grad_kernel<<<blocks, kThreads, tsmem, st>>>(
         dhp, pbuf[0], dil[0], ends.pack, ends.pack_cols, batch, t_len, vocab,
-        R, per, part);
+        R, per, groups, part);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     const long nt = 2L * vocab * R;
@@ -1971,7 +2007,8 @@ long tails_n_part(int r, int s, int win, int n_layers, int batch) {
 
 }  // namespace
 
-#define MOVENET_STACK_WIDTHS(X) X(16, 16) X(32, 32) X(64, 64) X(64, 8)
+#define MOVENET_STACK_WIDTHS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(64, 8) X(32, 8) X(16, 8)
 
 namespace {
 

@@ -78,7 +78,8 @@ def _common(lib, h, ctx, b_fg, w_fg, w_out):
     if not lib.movenet_gated_supports(r, s):
         raise NotImplementedError(
             f"the gated-block kernels are built for (R, S) in (16, 16), "
-            f"(32, 32), (64, 64), (64, 8); got ({r}, {s}) (ROADMAP.md B.2)")
+            f"(32, 32), (64, 64), (64, 8), (32, 8), (16, 8); got ({r}, "
+            f"{s}) (ROADMAP.md B.2)")
     return batch, t, r, s, win
 
 

@@ -2,11 +2,15 @@
 
 ``head_fwd`` and ``head_bwd`` are the wrappers of the kernels in
 ``csrc/head_loss.cu`` (which replace ``head_loss.py:281 _fwd_kernel``
-and ``:336 _bwd_kernel``).  For tensors on the CPU they return the plain
-versions (``ops/head_loss.head_fwd_plain`` / ``head_bwd_plain``); for
-CUDA tensors they launch the kernels or raise.  Each call is one kernel
-launch and one launch of the fixed-order reduction of the per-block
-partial sums, and counts one launch in ``launch_counts``.
+and ``:336 _bwd_kernel``), ``head_fwd_packed`` and ``head_bwd_packed``
+those of their packed forms (``:169 _fwd_kernel_packed`` and ``:218
+_bwd_kernel_packed``).  For tensors on the CPU they return the plain
+versions (``ops/head_loss.head_fwd_plain`` ...); for CUDA tensors they
+launch the kernels or raise.  Each call is the kernel launch (after one
+that prepares a weight copy where the kernels' shared-memory plan keeps
+a weight in global memory, C > 64) and one launch of the fixed-order
+reduction of the per-block partial sums, and counts one launch in
+``launch_counts``.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from movenet_tpu_torch.ops import head_loss as hl
 from movenet_tpu_torch.ops.cuda.stack_kernel import _check, _ptr, _raise
 
 KERNEL_SOURCE = "movenet_tpu_torch/csrc/head_loss.cu"
-launch_counts: Dict[str, int] = {"head_fwd": 0, "head_bwd": 0}
+launch_counts: Dict[str, int] = {"head_fwd": 0, "head_bwd": 0,
+                                 "head_fwd_packed": 0, "head_bwd_packed": 0}
 # blocks per launch: two per SM of an H100
 BLOCKS = 264
 
@@ -46,17 +51,18 @@ def library():
 def bind(lib):
     lib.movenet_head_supports.argtypes = [_I, _I]
     lib.movenet_head_supports.restype = _I
-    lib.movenet_head_fwd.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _P,
-                                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.movenet_head_wbuf.argtypes = [_I, _I]
+    lib.movenet_head_wbuf.restype = ctypes.c_long
+    lib.movenet_head_fwd.argtypes = [_P, _P, _I, _I] + [_P] * 8 + [_I] * 8 \
+        + [_P]
     lib.movenet_head_fwd.restype = _I
-    lib.movenet_head_bwd.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _P,
-                                     _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _I, _P]
+    lib.movenet_head_bwd.argtypes = [_P, _P, _I, _I] + [_P] * 10 \
+        + [_I] * 8 + [_P]
     lib.movenet_head_bwd.restype = _I
     return lib
 
 
-def _common(lib, skip, pack, w1, b1, w2, tgt_off):
+def _common(lib, skip, pack, w1, b1, w2, b2, tgt_off):
     batch, t, s = skip.shape
     c = w2.shape[1]
     dev = skip.device
@@ -73,33 +79,54 @@ def _common(lib, skip, pack, w1, b1, w2, tgt_off):
     _check("w1", w1, torch.float32, (s, c), dev)
     _check("b1", b1, torch.float32, (c,), dev)
     _check("w2", w2, torch.float32, (c, c), dev)
+    _check("b2", b2, torch.float32, (c,), dev)
     if not lib.movenet_head_supports(s, c):
         raise NotImplementedError(
-            f"the head kernels take S, C <= 64, multiples of 4; got S={s}, "
-            f"C={c} (ROADMAP.md B.4)")
-    return batch, t, s, c, dev
+            f"the head kernels take 4 <= S <= 64 and 4 <= C <= 256, "
+            f"multiples of 4; got S={s}, C={c} (ROADMAP.md B.4)")
+    wbuf = torch.empty(lib.movenet_head_wbuf(s, c), dtype=torch.float32,
+                       device=dev)
+    return batch, t, s, c, dev, wbuf
+
+
+def _packed_check(skip, pack, c):
+    batch, t, s = skip.shape
+    if not (s == 64 and c == 64 and t % 2 == 0 and pack.shape[1] == batch):
+        raise ValueError(
+            f"the packed head kernels take S = C = 64, an even T and "
+            f"targets exactly B wide; got S={s}, C={c}, T={t}, targets "
+            f"{tuple(pack.shape)}")
 
 
 def run_fwd(lib, skip, pack, w1, b1, w2, b2, rf, parity, tgt_off=0,
-            save_p=True, stream=None, blocks=BLOCKS):
-    batch, t, s, c, dev = _common(lib, skip, pack, w1, b1, w2, tgt_off)
-    _check("b2", b2, torch.float32, (c,), dev)
+            save_p=True, stream=None, blocks=BLOCKS, packed=False):
+    """The forward (``packed``: its packed form, which saves no p)."""
+    batch, t, s, c, dev, wbuf = _common(lib, skip, pack, w1, b1, w2, b2,
+                                        tgt_off)
+    if packed:
+        _packed_check(skip, pack, c)
     p = torch.empty(batch, t, c, dtype=torch.float32, device=dev) \
-        if save_p else None
+        if save_p and not packed else None
     part = torch.empty(blocks, 2, dtype=torch.float32, device=dev)
     out = torch.empty(2, dtype=torch.float32, device=dev)
     err = lib.movenet_head_fwd(
         _ptr(skip), _ptr(pack), pack.shape[1], tgt_off, _ptr(w1), _ptr(b1),
-        _ptr(w2), _ptr(b2), _ptr(p), _ptr(part), _ptr(out), batch, t, s, c,
-        rf, int(parity), blocks, stream)
-    _raise(err, "head_fwd")
+        _ptr(w2), _ptr(b2), _ptr(p), _ptr(wbuf), _ptr(part), _ptr(out),
+        batch, t, s, c, rf, int(parity), int(packed), blocks, stream)
+    _raise(err, "head_fwd_packed" if packed else "head_fwd")
     return out[0], out[1], p
 
 
 def run_bwd(lib, skip, pack, p, w1, b1, w2, b2, rf, parity, dloss,
             tgt_off=0, stream=None, blocks=BLOCKS):
-    batch, t, s, c, dev = _common(lib, skip, pack, w1, b1, w2, tgt_off)
-    _check("p", p, torch.float32, (batch, t, c), dev)
+    """The backward; ``p`` None runs its packed form, which rebuilds the
+    softmax from skip."""
+    batch, t, s, c, dev, wbuf = _common(lib, skip, pack, w1, b1, w2, b2,
+                                        tgt_off)
+    if p is None:
+        _packed_check(skip, pack, c)
+    else:
+        _check("p", p, torch.float32, (batch, t, c), dev)
     dloss = torch.as_tensor(dloss, dtype=torch.float32,
                             device=dev).reshape(1).contiguous()
     dskip = torch.empty_like(skip)
@@ -108,9 +135,10 @@ def run_bwd(lib, skip, pack, p, w1, b1, w2, b2, rf, parity, dloss,
     grads = torch.empty(n, dtype=torch.float32, device=dev)
     err = lib.movenet_head_bwd(
         _ptr(skip), _ptr(pack), pack.shape[1], tgt_off, _ptr(p), _ptr(w1),
-        _ptr(b1), _ptr(w2), _ptr(dloss), _ptr(dskip), _ptr(part),
-        _ptr(grads), batch, t, s, c, rf, int(parity), blocks, stream)
-    _raise(err, "head_bwd")
+        _ptr(b1), _ptr(w2), _ptr(b2), _ptr(dloss), _ptr(dskip), _ptr(wbuf),
+        _ptr(part), _ptr(grads), batch, t, s, c, rf, int(parity),
+        int(p is None), blocks, stream)
+    _raise(err, "head_bwd_packed" if p is None else "head_bwd")
     dw1 = grads[:s * c].reshape(s, c)
     db1 = grads[s * c:s * c + c]
     dw2 = grads[s * c + c:s * c + c + c * c].reshape(c, c)
@@ -148,5 +176,30 @@ def head_bwd(skip, pack, p, w1, b1, w2, b2, rf: int, parity: bool, dloss,
     return out
 
 
-__all__ = ["head_fwd", "head_bwd", "launch_counts", "reset_launch_counts",
-           "KERNEL_SOURCE"]
+def head_fwd_packed(skip, pack, w1, b1, w2, b2, rf: int, parity: bool):
+    """(loss_sum, match_count) of the packed route: plain on the CPU, the
+    packed forward kernel on CUDA tensors."""
+    if not skip.is_cuda:
+        return hl.head_fwd_packed_plain(skip, pack, w1, b1, w2, b2, rf,
+                                        parity)
+    loss, match, _ = run_fwd(library(), skip, pack, w1, b1, w2, b2, rf,
+                             parity, 0, False, _stream(skip), packed=True)
+    launch_counts["head_fwd_packed"] += 1
+    return loss, match
+
+
+def head_bwd_packed(skip, pack, w1, b1, w2, b2, rf: int, parity: bool,
+                    dloss):
+    """(dskip, dw1, db1, dw2, db2) of the packed route: plain on the CPU,
+    the packed backward kernel on CUDA tensors."""
+    if not skip.is_cuda:
+        return hl.head_bwd_packed_plain(skip, pack, w1, b1, w2, b2, rf,
+                                        parity, dloss)
+    out = run_bwd(library(), skip, pack, None, w1, b1, w2, b2, rf, parity,
+                  dloss, 0, _stream(skip))
+    launch_counts["head_bwd_packed"] += 1
+    return out
+
+
+__all__ = ["head_fwd", "head_bwd", "head_fwd_packed", "head_bwd_packed",
+           "launch_counts", "reset_launch_counts", "KERNEL_SOURCE"]

@@ -163,7 +163,8 @@ def run_fwd(lib, pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
     if not lib.movenet_stack_supports(r, s):
         raise NotImplementedError(
             f"the trunk kernels are built for (R, S) in (16, 16), (32, "
-            f"32), (64, 64), (64, 8); got ({r}, {s})")
+            f"32), (64, 64), (64, 8), (32, 8), (16, 8); got ({r}, {s}) "
+            "(ROADMAP.md B.2)")
     h, skacc, hsave, tfsg, skip = _fwd_buffers(table2.device, batch, t,
                                                n_layers, r, s)
     err = lib.movenet_stack_fwd(
@@ -360,7 +361,8 @@ def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what):
     if not lib.movenet_stack_supports(r, s):
         raise NotImplementedError(
             f"the trunk kernels are built for (R, S) in (16, 16), (32, "
-            f"32), (64, 64), (64, 8); got ({r}, {s}) (ROADMAP.md B.2)")
+            f"32), (64, 64), (64, 8), (32, 8), (16, 8); got ({r}, {s}) "
+            "(ROADMAP.md B.2)")
     return batch, t, n_layers, r, s, win
 
 

@@ -1,8 +1,11 @@
 """Output head + cross-entropy of the training path: plain versions and
 the autograd op.
 
-The counterpart of ``movenet_tpu.ops.pallas.head_loss`` (the unpacked
-kernels ``_fwd_kernel`` at head_loss.py:281 and ``_bwd_kernel`` at :336).
+The counterpart of ``movenet_tpu.ops.pallas.head_loss``: the unpacked
+kernels ``_fwd_kernel`` at head_loss.py:281 and ``_bwd_kernel`` at :336,
+and, behind the same module switch ``PACKED_HEAD`` (off by default, as
+there), the packed ones ``_fwd_kernel_packed`` (:169) and
+``_bwd_kernel_packed`` (:218).
 From the skip sum the head computes y = leaky(skip) W1 + b1 and
 z = leaky(y) W2 + b2, then per position the NLL (parity: log sum exp(p)
 - p[y] on p = softmax(z), with no max subtraction since p lies in [0, 1];
@@ -13,9 +16,13 @@ float32 for the backward, which forms dz from it alone.
 Numerics are the TPU kernels': the products take operands in the skip's
 dtype (the compute dtype) and sum in float32, biases are added in
 float32, the softmax and every probability step are float32, and dskip
-is stored in the compute dtype.  The kernels live in
+is stored in the compute dtype.  The packed route (S = C = 64, T even,
+targets exactly B wide from column 0) computes the same head and CE with
+float32 product operands, saves no softmax, and its backward rebuilds y,
+z and the softmax from the skip sum.  The kernels live in
 ``csrc/head_loss.cu`` behind ``ops/cuda/head_loss.py``; CPU tensors take
-``head_fwd_plain`` / ``head_bwd_plain``.
+``head_fwd_plain`` / ``head_bwd_plain`` (``head_fwd_packed_plain`` /
+``head_bwd_packed_plain`` on the packed route).
 """
 
 from __future__ import annotations
@@ -23,6 +30,45 @@ from __future__ import annotations
 import torch
 
 f32 = torch.float32
+
+# The JAX package's switch (head_loss.py:412), off there: with it on, the
+# calls that JAX sends to its packed kernels take the packed route here.
+PACKED_HEAD = False
+
+
+def _pick_tile(t: int, d: int, cap: int = 4000) -> int:
+    """The JAX package's tile rule (gated_block.py:42-53): the largest
+    tile that divides T, is a multiple of 8, fits the dilation ring and
+    is at most ``cap`` rows."""
+    for tile in (16000, 8000, 4000, 2000, 1600, 1000, 800, 512, 500,
+                 400, 256, 200, 128, 64, 32, 16, 8):
+        if tile > cap or t % tile or tile % 8:
+            continue
+        if d < tile or d % tile == 0:
+            return tile
+    raise ValueError(f"no valid tile for T={t}, dilation={d}")
+
+
+def _use_packed(t_total: int, s: int, c: int) -> bool:
+    """JAX's ``_use_packed`` (head_loss.py:415): the switch, S = C = 64,
+    T even, and a packed tile exists."""
+    if not PACKED_HEAD:
+        return False
+    if not (s == 64 and c == 64 and t_total % 2 == 0):
+        return False
+    try:
+        _pick_tile(t_total // 2, 1, cap=2000)
+    except ValueError:
+        return False
+    return True
+
+
+def packed_route(skip, pack, w2, tgt_off: int) -> bool:
+    """Whether a call takes the packed kernels, as JAX's ``_fwd_pallas`` /
+    ``_bwd_pallas`` decide (:522-523, :570-571)."""
+    batch, t, s = skip.shape
+    return tgt_off == 0 and pack.shape[1] == batch and \
+        _use_packed(t, s, w2.shape[1])
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
@@ -125,13 +171,69 @@ def head_bwd_plain(skip, pack, p, w1, b1, w2, b2, rf: int, parity: bool,
     return dskip, dw1, db1, dw2, db2
 
 
+def head_fwd_packed_plain(skip, pack, w1, b1, w2, b2, rf: int,
+                          parity: bool):
+    """(loss_sum, match_count) of the packed route: the head with float32
+    operands (JAX's ``_dot``), no softmax saved; targets are ``pack``'s
+    B columns."""
+    batch, t, _ = skip.shape
+    tgt = _targets(pack, batch, 0)
+    _, z, onehot, zmax = _core(skip.to(f32), tgt, w1, b1, w2, b2, f32)
+    e = torch.exp(z - zmax)
+    p = e / e.sum(dim=-1, keepdim=True)
+    valid = _valid(t, rf, skip.device)
+    nll = _nll_rows(z, p, onehot, parity, zmax)
+    match = _match_rows(z, tgt, zmax)
+    return (nll * valid).sum(), (match * valid).sum()
+
+
+def head_bwd_packed_plain(skip, pack, w1, b1, w2, b2, rf: int,
+                          parity: bool, dloss):
+    """(dskip in skip's dtype, dw1, db1, dw2, db2) of the packed route:
+    y, z, e, seg and p rebuilt from skip with float32 operands, then dz as
+    JAX's ``_bwd_kernel_packed`` forms it (head_loss.py:248-255)."""
+    batch, t, _ = skip.shape
+    sk = skip.to(f32)
+    tgt = _targets(pack, batch, 0)
+    y, z, onehot, m = _core(sk, tgt, w1, b1, w2, b2, f32)
+    e = torch.exp(z - m)
+    seg = e.sum(dim=-1, keepdim=True)
+    scale = (torch.as_tensor(dloss, dtype=f32, device=skip.device)
+             * _valid(t, rf, skip.device))[:, None]
+    if parity:
+        p = e / seg
+        ep = torch.exp(p)
+        q = ep / ep.sum(dim=-1, keepdim=True)
+        g = q - onehot
+        dz = (p * g - p * (p * g).sum(dim=-1, keepdim=True)) * scale
+    else:
+        dz = (e / seg - onehot) * scale
+    ly = _leaky(y)
+    dw2 = torch.einsum("btk,btj->kj", ly, dz)
+    db2 = dz.sum(dim=(0, 1))
+    dy = torch.matmul(dz, w2.to(f32).t()) * _dleaky(y)
+    dw1 = torch.einsum("btk,btj->kj", _leaky(sk), dy)
+    db1 = dy.sum(dim=(0, 1))
+    dskip = (torch.matmul(dy, w1.to(f32).t()) * _dleaky(sk)).to(skip.dtype)
+    return dskip, dw1, db1, dw2, db2
+
+
 class _FusedHeadLoss(torch.autograd.Function):
+    """The head/CE op; on the packed route no softmax is saved and the
+    backward rebuilds it."""
+
     @staticmethod
     def forward(fctx, skip, pack, w1, b1, w2, b2, rf, parity, tgt_off):
         from movenet_tpu_torch.ops.cuda import head_loss as kern
 
-        loss, match, p = kern.head_fwd(skip, pack, w1, b1, w2, b2, rf,
-                                       parity, tgt_off, save_p=True)
+        fctx.packed = packed_route(skip, pack, w2, tgt_off)
+        if fctx.packed:
+            loss, match = kern.head_fwd_packed(skip, pack, w1, b1, w2, b2,
+                                               rf, parity)
+            p = None
+        else:
+            loss, match, p = kern.head_fwd(skip, pack, w1, b1, w2, b2, rf,
+                                           parity, tgt_off, save_p=True)
         fctx.rf, fctx.parity, fctx.tgt_off = rf, parity, tgt_off
         fctx.save_for_backward(skip, pack, p, w1, b1, w2, b2)
         fctx.mark_non_differentiable(match)
@@ -142,9 +244,13 @@ class _FusedHeadLoss(torch.autograd.Function):
         from movenet_tpu_torch.ops.cuda import head_loss as kern
 
         skip, pack, p, w1, b1, w2, b2 = fctx.saved_tensors
-        dskip, dw1, db1, dw2, db2 = kern.head_bwd(
-            skip, pack, p, w1, b1, w2, b2, fctx.rf, fctx.parity, dloss,
-            fctx.tgt_off)
+        if fctx.packed:
+            dskip, dw1, db1, dw2, db2 = kern.head_bwd_packed(
+                skip, pack, w1, b1, w2, b2, fctx.rf, fctx.parity, dloss)
+        else:
+            dskip, dw1, db1, dw2, db2 = kern.head_bwd(
+                skip, pack, p, w1, b1, w2, b2, fctx.rf, fctx.parity, dloss,
+                fctx.tgt_off)
         return (dskip, None, dw1.to(w1.dtype), db1.to(b1.dtype),
                 dw2.to(w2.dtype), db2.to(b2.dtype), None, None, None)
 
@@ -155,12 +261,16 @@ def fused_head_loss(skip_sum, targets_pack, w1, b1, w2, b2, rf: int,
 
     ``targets_pack`` (T, >= tgt_off + B): row t of column tgt_off + b
     holds codes[b, t+1] (the last row is masked).  Without autograd (the
-    eval call) the softmax is not saved."""
+    eval call) the softmax is not saved.  With ``PACKED_HEAD`` on, the
+    calls JAX routes to its packed kernels take the packed route."""
     needs_grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (skip_sum, w1, b1, w2, b2))
     if not needs_grad:
         from movenet_tpu_torch.ops.cuda import head_loss as kern
 
+        if packed_route(skip_sum, targets_pack, w2, tgt_off):
+            return kern.head_fwd_packed(skip_sum, targets_pack, w1, b1, w2,
+                                        b2, rf, parity)
         loss, match, _ = kern.head_fwd(skip_sum, targets_pack, w1, b1, w2,
                                        b2, rf, parity, tgt_off,
                                        save_p=False)
@@ -169,4 +279,6 @@ def fused_head_loss(skip_sum, targets_pack, w1, b1, w2, b2, rf: int,
                                 rf, parity, tgt_off)
 
 
-__all__ = ["head_fwd_plain", "head_bwd_plain", "fused_head_loss"]
+__all__ = ["PACKED_HEAD", "head_fwd_plain", "head_bwd_plain",
+           "head_fwd_packed_plain", "head_bwd_packed_plain",
+           "fused_head_loss"]

@@ -15,11 +15,13 @@ from movenet_tpu_torch.train.loop import (
     TrainState,
     create_train_state,
     make_eval_step,
+    make_scan_train_step,
     make_train_step,
 )
-from movenet_tpu_torch.train.optim import make_optimizer
+from movenet_tpu_torch.train.optim import Schedules, make_optimizer
 
 __all__ = ["CheckpointManager", "latest_step", "restore_checkpoint",
            "restore_params", "save_checkpoint", "save_params", "Batch",
            "TrainState", "create_train_state", "make_eval_step",
-           "make_train_step", "make_optimizer"]
+           "make_scan_train_step", "make_train_step", "make_optimizer",
+           "Schedules"]

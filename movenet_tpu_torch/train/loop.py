@@ -12,7 +12,9 @@ in float32.
 
 A step takes the mean of the microbatch gradients
 (``accumulation_steps``), measures their global norm before clipping,
-clips by optax's rule and applies one optimizer update.
+clips by optax's rule, sets the LR (and beta1/momentum) of the update
+count from the schedule and applies one optimizer update.
+``make_scan_train_step`` runs N such steps per call.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from movenet_tpu_torch.models.wavenet import WaveNet
 from movenet_tpu_torch.train.optim import (
+    Schedules,
     clip_by_global_norm,
     global_norm,
     make_optimizer,
@@ -57,7 +60,8 @@ class Batch:
 @dataclass
 class TrainState:
     """The module (its parameters), the optimizer, the update count and
-    the LR schedule (None: constant, no ``learning_rate`` metric)."""
+    the LR schedule (a ``Schedules``, or any step -> LR callable; None:
+    the optimizer's own LR, no ``learning_rate`` metric)."""
 
     module: WaveNet
     optimizer: torch.optim.Optimizer
@@ -77,12 +81,18 @@ def training_device(device="cuda") -> torch.device:
 
 
 def create_train_state(model: WaveNet, config, optimizer=None,
-                       lr_schedule=None, device="cuda") -> TrainState:
+                       lr_schedule=None, device="cuda",
+                       steps_per_epoch: Optional[int] = None) -> TrainState:
     """Moves the model to ``device`` (the card unless the caller asks for
-    the CPU; no card raises) and builds ``make_optimizer(config)``."""
+    the CPU; no card raises) and builds ``make_optimizer(config)``.  With
+    a scheduler in the config and no ``lr_schedule`` given, the config's
+    ``Schedules`` (OneCycleLR needs ``steps_per_epoch``)."""
     model = model.to(training_device(device))
     if optimizer is None:
-        optimizer = make_optimizer(config, model.parameters())
+        optimizer = make_optimizer(config, model.parameters(),
+                                   steps_per_epoch)
+    if lr_schedule is None and config.scheduler is not None:
+        lr_schedule = Schedules(config, steps_per_epoch)
     return TrainState(module=model, optimizer=optimizer, step=0,
                       lr_schedule=lr_schedule)
 
@@ -165,13 +175,35 @@ def make_train_step(model: WaveNet, config):
                 clip_by_global_norm(grads, clip, grad_norm)
         metrics = {"loss": loss.detach(), "accuracy": acc.detach(),
                    "grad_norm": grad_norm}
-        if state.lr_schedule is not None:
-            metrics["learning_rate"] = torch.as_tensor(
-                state.lr_schedule(state.step))
+        sched = state.lr_schedule
+        if sched is not None:
+            if hasattr(sched, "apply"):
+                sched.apply(state.optimizer, state.step)
+            metrics["learning_rate"] = torch.as_tensor(sched(state.step))
         state.optimizer.step()
         return replace(state, step=state.step + 1), metrics
 
     return train_step
+
+
+def make_scan_train_step(model: WaveNet, config, n_steps: int):
+    """``multi_step(state, batches) -> (state, metrics)``: ``n_steps``
+    optimizer steps in one call, on batches stacked on a leading
+    (n_steps, ...) axis; every metric comes back stacked (n_steps,), the
+    same values as n_steps calls of the train step (the JAX package's
+    ``make_scan_train_step``, a ``lax.scan`` there)."""
+    step = make_train_step(model, config)
+
+    def multi_step(state: TrainState, batches: Batch):
+        per_step = []
+        for i in range(n_steps):
+            state, m = step(state, batches.micro(i))
+            per_step.append(m)
+        return state, {k: torch.stack([torch.as_tensor(m[k]).to(
+            per_step[0]["loss"].device) for m in per_step])
+            for k in per_step[0]}
+
+    return multi_step
 
 
 def make_eval_step(model: WaveNet, config):
@@ -188,4 +220,4 @@ def make_eval_step(model: WaveNet, config):
 
 
 __all__ = ["Batch", "TrainState", "create_train_state", "make_train_step",
-           "make_eval_step"]
+           "make_scan_train_step", "make_eval_step"]

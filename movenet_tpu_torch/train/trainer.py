@@ -7,9 +7,12 @@ generation and sample export, and a periodic checkpoint (and a final
 one).  ``--auto_resume`` continues from the run's latest checkpoint; a
 SIGTERM or SIGINT checkpoints and stops at the next step boundary.
 
-Data parallelism (a mesh of more than one device, several processes) is
-not ported yet (ROADMAP.md A.8), nor are multi-step calls
-(``scan_steps`` > 1, ROADMAP.md A.3): both raise.
+The LR schedule (and the momentum cycling it brings) follows the update
+count, and every train step logs its ``learning_rate``.  ``scan_steps`` >
+1 runs that many optimizer steps per call (``make_scan_train_step``) and
+logs each step's metrics at its own step.  Data parallelism (a mesh of
+more than one device, several processes) is not ported yet (ROADMAP.md
+A.8) and raises; ``--mesh_data -1`` (every device) is the one card.
 """
 
 from __future__ import annotations
@@ -32,9 +35,11 @@ from movenet_tpu_torch.train.loop import (
     Batch,
     create_train_state,
     make_eval_step,
+    make_scan_train_step,
     make_train_step,
     training_device,
 )
+from movenet_tpu_torch.train.optim import Schedules
 from movenet_tpu_torch.utils.observability import make_writer, process_index
 from movenet_tpu_torch.utils.samples import export_samples
 
@@ -170,6 +175,8 @@ def _resolve_run_dir(exp_name: str, out_dir: Path) -> Path:
 
 
 def _check_single_device(config: TrainingConfig) -> None:
+    """One device: a mesh axis of -1 (every device) or 1 is the one
+    card; more raises."""
     mesh = config.mesh
     if mesh.data > 1 or mesh.seq > 1 or (config.num_processes or 1) > 1 \
             or config.coordinator_address:
@@ -177,10 +184,6 @@ def _check_single_device(config: TrainingConfig) -> None:
             f"mesh data={mesh.data} seq={mesh.seq}, num_processes="
             f"{config.num_processes}: data-parallel training is not ported "
             "yet (ROADMAP.md A.8); the port trains on one device")
-    if max(1, int(config.scan_steps)) > 1:
-        raise NotImplementedError(
-            f"scan_steps={config.scan_steps}: multi-step calls are not "
-            "ported yet (ROADMAP.md A.3); use scan_steps 1")
 
 
 def train_model(
@@ -236,7 +239,9 @@ def train_model(
     model = make_wavenet(
         mc, generator=torch.Generator().manual_seed(config.seed))
     logger.info("model receptive field: %d", model.receptive_fields)
-    state = create_train_state(model, config, device=device)
+    state = create_train_state(
+        model, config, device=device, steps_per_epoch=steps_per_epoch,
+        lr_schedule=Schedules(config, steps_per_epoch))
 
     out_dir = Path(config.model_output_path)
     ckpt = CheckpointManager(out_dir)
@@ -262,6 +267,12 @@ def train_model(
     writer = make_writer(config)
 
     train_step = make_train_step(model, config)
+    scan_n = max(1, int(config.scan_steps))
+    scan_step = make_scan_train_step(model, config, scan_n) \
+        if scan_n > 1 else None
+    # a chunk carries one leading axis over the plain (accumulation-aware)
+    # batch rank
+    base_ndim = 2 + (config.accumulation_steps > 1)
     eval_step = make_eval_step(model, config)
     guard = PreemptionGuard()
     log_every = max(1, config.log_every_n_steps)
@@ -275,22 +286,40 @@ def train_model(
         t_window = time.perf_counter()
         window_start = 0
         last_log = 0
-        for batch in _device_prefetch(train_loader.epoch(epoch), device):
+        source = train_loader.epoch(epoch)
+        if scan_step is not None:
+            source = _chunk_batches(source, scan_n, steps_per_epoch)
+        for batch in _device_prefetch(source, device):
             if n_steps >= steps_per_epoch or guard.requested:
                 break
-            state, metrics = train_step(state, batch)
-            n_steps += 1
-            metric_sums = metrics if metric_sums is None else {
-                k: metric_sums[k] + v for k, v in metrics.items()}
+            if scan_step is not None and batch.codes.dim() == base_ndim + 1:
+                # a full chunk: scan_n steps in one call, metrics (scan_n,)
+                state, metrics = scan_step(state, batch)
+                n_steps += scan_n
+                call_sums = {k: v.sum(0) for k, v in metrics.items()}
+            else:
+                state, metrics = train_step(state, batch)
+                n_steps += 1
+                call_sums = metrics
+            # per-step sums: the epoch mean divides by n_steps
+            metric_sums = call_sums if metric_sums is None else {
+                k: metric_sums[k] + v for k, v in call_sums.items()}
             if n_steps - last_log >= log_every or \
                     n_steps >= steps_per_epoch:
                 last_log = n_steps
-                vals = {k: float(v) for k, v in metrics.items()}
+                # every step of a chunk is logged at its own step
+                host = {k: torch.as_tensor(v).reshape(-1).tolist()
+                        for k, v in metrics.items()}
+                n_in_call = len(next(iter(host.values())))
                 now = time.perf_counter()
-                vals["steps_per_sec"] = ((n_steps - window_start)
-                                         / max(now - t_window, 1e-9))
+                sps = ((n_steps - window_start) / max(now - t_window, 1e-9))
                 t_window, window_start = now, n_steps
-                writer.scalars("train", vals, state.step)
+                for i in range(n_in_call):
+                    vals = {k: float(v[i]) for k, v in host.items()}
+                    if i == n_in_call - 1:
+                        vals["steps_per_sec"] = sps
+                    writer.scalars("train", vals,
+                                   state.step - n_in_call + 1 + i)
         train_mean = {} if metric_sums is None else {
             k: float(v) / n_steps for k, v in metric_sums.items()}
 

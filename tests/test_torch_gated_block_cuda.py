@@ -55,6 +55,7 @@ def _close(name, got, want, rel):
     (16, 16, 1280, 1, True), (16, 16, 1000, 4, False),
     (32, 32, 1280, 128, True), (64, 64, 3200, 512, True),
     (64, 8, 1280, 256, False), (64, 64, 640, 1024, True),
+    (32, 8, 1280, 2, True), (16, 8, 1280, 512, False),
 ])
 def test_gated_kernels_match_plain(cuda, r, s, t, d, has_ctx):
     a = _inputs(cuda, t, r, s, has_ctx)

@@ -9,7 +9,14 @@ largest magnitude plus the mean-difference gate of
 tests/test_fused_model.py; bfloat16 loss rtol 1e-4 and gradients within
 2% (the frameworks round equal float32 sums that were added in different
 orders to different bf16 neighbours); the match count equal or off by at
-most one flipped position."""
+most one flipped position.
+
+The packed route (both packages' ``PACKED_HEAD`` switched on, S = C = 64,
+targets exactly B wide at tgt_off 0) is held to the same tolerances,
+with the match count equal: both packages compute it from float32
+operands; the loss differs only by JAX's sum over group-replicated
+values times 1/64.  The head at C = 128 and C = 256 is held to the
+unpacked tolerances."""
 
 import numpy as np
 import pytest
@@ -26,19 +33,110 @@ torch.set_num_threads(2)
 B, T, S, C, RF = 2, 1024, 16, 64, 15
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, s=S, c=C, t=T):
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, C, size=(B, T)).astype(np.int32)
+    codes = rng.integers(0, c, size=(B, t)).astype(np.int32)
     prev = np.concatenate([np.full((B, 1), -1, np.int32), codes[:, :-1]], 1)
     pack = np.ascontiguousarray(
         np.concatenate([codes, prev, np.roll(codes, -1, 1)], 0).T)
     f = np.float32
     return pack, dict(
-        skip=rng.standard_normal((B, T, S)).astype(f),
-        w1=(rng.standard_normal((S, C)) / 4).astype(f),
-        b1=(rng.standard_normal((C,)) * 0.1).astype(f),
-        w2=(rng.standard_normal((C, C)) / 3).astype(f),
-        b2=(rng.standard_normal((C,)) * 0.1).astype(f))
+        skip=rng.standard_normal((B, t, s)).astype(f),
+        w1=(rng.standard_normal((s, c)) / 4).astype(f),
+        b1=(rng.standard_normal((c,)) * 0.1).astype(f),
+        w2=(rng.standard_normal((c, c)) / 3 * (8 / np.sqrt(c))).astype(f),
+        b2=(rng.standard_normal((c,)) * 0.1).astype(f))
+
+
+def _compare(pack, a, parity, dtype, tgt_off, match_equal=False):
+    """fused_head_loss of both packages on the same inputs: loss, match
+    and the five gradients at the module docstring's tolerances."""
+    t = a["skip"].shape[1]
+    n_valid = B * (t - RF)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    names = ("skip", "w1", "b1", "w2", "b2")
+
+    def jloss(skip, w1, b1, w2, b2):
+        loss, match = jhl.fused_head_loss(skip, jnp.asarray(pack), w1, b1,
+                                          w2, b2, RF, parity, True, tgt_off)
+        return loss / n_valid, match
+
+    jargs = [jnp.asarray(a[n], jdt if n == "skip" else jnp.float32)
+             for n in names]
+    (want_l, want_m), want_g = jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True)(*jargs)
+    ts = {n: torch.tensor(a[n], dtype=tdt if n == "skip" else torch.float32,
+                          requires_grad=True) for n in names}
+    loss, match = hl.fused_head_loss(ts["skip"], torch.from_numpy(pack),
+                                     ts["w1"], ts["b1"], ts["w2"], ts["b2"],
+                                     RF, parity, tgt_off=tgt_off)
+    (loss / n_valid).backward()
+    f32 = dtype == "float32"
+    np.testing.assert_allclose(float(loss.detach()) / n_valid, float(want_l),
+                               rtol=1e-5 if f32 else 1e-4)
+    if match_equal:
+        assert float(match) == float(want_m)
+    else:
+        assert abs(float(match) - float(want_m)) <= 1
+    for n, want in zip(names, want_g):
+        got = ts[n].grad.float().numpy()
+        want = np.asarray(want, np.float32)
+        scale = float(np.max(np.abs(want))) + 1e-12
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=(1e-2 if f32 else 2e-2) * scale,
+                                   err_msg=n)
+        bias = abs(float(np.mean(got - want)))
+        assert bias <= (2e-4 if f32 else 2e-3) * scale + 1e-10, n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("parity", [True, False])
+def test_packed_head_matches_jax(parity, dtype, monkeypatch):
+    """PACKED_HEAD on in both packages: JAX's _fwd_kernel_packed /
+    _bwd_kernel_packed (interpret mode) against the port's packed route."""
+    monkeypatch.setattr(jhl, "PACKED_HEAD", True)
+    monkeypatch.setattr(hl, "PACKED_HEAD", True)
+    pack3, a = _inputs(3, s=64, c=64, t=512)
+    tgt = np.ascontiguousarray(pack3[:, 2 * B:])      # exactly B wide
+    assert jhl._use_packed(512, 64, 64) and hl._use_packed(512, 64, 64)
+    seen = []
+    from movenet_tpu_torch.ops.cuda import head_loss as kern
+
+    for name in ("head_fwd", "head_fwd_packed", "head_bwd_packed"):
+        real = getattr(kern, name)
+        monkeypatch.setattr(kern, name, lambda *x, _r=real, _n=name, **k: (
+            seen.append(_n), _r(*x, **k))[1])
+    _compare(tgt, a, parity, dtype, 0, match_equal=True)
+    assert seen == ["head_fwd_packed", "head_bwd_packed"]
+
+
+@pytest.mark.parametrize("t,s,c", [(512, 64, 64), (1024, 64, 64),
+                                   (1000, 64, 64), (510, 64, 64),
+                                   (512, 16, 64), (512, 64, 128),
+                                   (7, 64, 64)])
+def test_use_packed_decides_as_jax(t, s, c, monkeypatch):
+    for on in (False, True):
+        monkeypatch.setattr(jhl, "PACKED_HEAD", on)
+        monkeypatch.setattr(hl, "PACKED_HEAD", on)
+        assert hl._use_packed(t, s, c) == jhl._use_packed(t, s, c)
+    # the route also needs tgt_off 0 and targets exactly B wide
+    monkeypatch.setattr(hl, "PACKED_HEAD", True)
+    skip = torch.zeros(2, t, s)
+    w2 = torch.zeros(c, c)
+    want = jhl._use_packed(t, s, c)
+    assert hl.packed_route(skip, torch.zeros(t, 2), w2, 0) == want
+    assert not hl.packed_route(skip, torch.zeros(t, 6), w2, 4)
+    assert not hl.packed_route(skip, torch.zeros(t, 3), w2, 0)
+
+
+@pytest.mark.parametrize("s,c,t", [(8, 128, 512), (16, 256, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_head_matches_jax(s, c, t, dtype):
+    """The head at experiment 03/04's C = 128 (S = 8) and at the
+    flagship's C = 256 (S = 16), unpacked, targets in the codes pack."""
+    pack, a = _inputs(4, s=s, c=c, t=t)
+    _compare(pack, a, True, dtype, 2 * B)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -9,7 +9,12 @@ sums in another order), match count within one position; p within 2e-4
 lands on the other side of a rounding boundary moves z by one bf16 step
 of that operand); the float32 gradients within 1e-4 of their scale;
 dskip is stored in bf16 and may sit one bf16 step away: within 1% of its
-scale."""
+scale.  The packed kernels (float32 operands, no p) take the same
+tolerances against their plain versions.  At C = 128 and 256 the float32
+gradients are held within 1e-3 of their scale: with 128-256 columns per
+row more bf16 operands of dy land one rounding step from the plain
+version's (measured on the H100: two of 4096 elements of dW1 at 1.8e-4
+of the scale, at S=16, C=256)."""
 
 import numpy as np
 import pytest
@@ -77,6 +82,35 @@ def test_head_kernels_match_plain(cuda, s, c, t, parity):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,c,t", [(8, 128, 4000), (16, 256, 2000),
+                                   (64, 256, 1000)])
+@pytest.mark.parametrize("parity", [True, False])
+def test_wide_head_kernels_match_plain(cuda, s, c, t, parity):
+    """C = 128 (experiments 03/04) and 256 (the flagship width): the
+    shared-memory plan keeps W2^T (and at C = 256 W2 and the dW2 sums) in
+    global memory."""
+    batch, rf = 2, 24
+    a = _inputs(cuda, batch, t, s, c)
+    a = {k: v.to(cuda) for k, v in a.items()}
+    args = (a["skip"], a["pack"], a["w1"], a["b1"], a["w2"], a["b2"], rf,
+            parity, 2 * batch)
+    loss, match, p = kh.head_fwd(*args)
+    wl, wm, wp = hl.head_fwd_plain(*args)
+    np.testing.assert_allclose(float(loss), float(wl), rtol=1e-5)
+    assert abs(float(match) - float(wm)) <= 1
+    np.testing.assert_allclose(p.cpu().numpy(), wp.cpu().numpy(), rtol=0,
+                               atol=2e-4)
+    dloss = torch.tensor(1.0 / (batch * (t - rf)), device=cuda)
+    bargs = (a["skip"], a["pack"], wp, a["w1"], a["b1"], a["w2"], a["b2"],
+             rf, parity, dloss, 2 * batch)
+    got, want = kh.head_bwd(*bargs), hl.head_bwd_plain(*bargs)
+    for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"), got, want):
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        tol = (1e-2 if name == "dskip" else 1e-3) * np.abs(y).max()
+        np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
 def test_head_wrapper_rejects_wrong_inputs(cuda):
     a = _inputs(cuda, 2, 500, 16, 64)
     a = {k: v.to(cuda) for k, v in a.items()}
@@ -84,7 +118,73 @@ def test_head_wrapper_rejects_wrong_inputs(cuda):
         kh.head_fwd(a["skip"].float(), a["pack"], a["w1"], a["b1"], a["w2"],
                     a["b2"], 24, True, 4)
     with pytest.raises(NotImplementedError, match="B.4"):
-        w2 = torch.zeros(128, 128, device=cuda)
-        w1 = torch.zeros(16, 128, device=cuda)
-        b = torch.zeros(128, device=cuda)
+        w2 = torch.zeros(512, 512, device=cuda)
+        w1 = torch.zeros(16, 512, device=cuda)
+        b = torch.zeros(512, device=cuda)
         kh.head_fwd(a["skip"], a["pack"], w1, b, w2, b, 24, True, 4)
+    with pytest.raises(ValueError, match="packed"):
+        kh.head_fwd_packed(a["skip"], a["pack"][:, 4:6].contiguous(),
+                           a["w1"], a["b1"], a["w2"], a["b2"], 24, True)
+
+
+def _packed_args(cuda, t, seed=0):
+    """Targets exactly B wide from column 0, as the packed route takes."""
+    batch = 2
+    a = _inputs(cuda, batch, t, 64, 64, seed)
+    a = {k: v.to(cuda) for k, v in a.items()}
+    a["tgt"] = a["pack"][:, 2 * batch:].contiguous()
+    return a, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4000, 1282])
+@pytest.mark.parametrize("parity", [True, False])
+def test_packed_head_kernels_match_plain(cuda, t, parity):
+    a, batch = _packed_args(cuda, t)
+    rf = 24
+    args = (a["skip"], a["tgt"], a["w1"], a["b1"], a["w2"], a["b2"], rf,
+            parity)
+    n0 = dict(kh.launch_counts)
+    loss, match = kh.head_fwd_packed(*args)
+    torch.cuda.synchronize()
+    assert kh.launch_counts["head_fwd_packed"] == n0["head_fwd_packed"] + 1
+    wl, wm = hl.head_fwd_packed_plain(*args)
+    np.testing.assert_allclose(float(loss), float(wl), rtol=1e-5)
+    assert abs(float(match) - float(wm)) <= 1
+    dloss = torch.tensor(1.0 / (batch * (t - rf)), device=cuda)
+    got = kh.head_bwd_packed(*args, dloss)
+    torch.cuda.synchronize()
+    assert kh.launch_counts["head_bwd_packed"] == n0["head_bwd_packed"] + 1
+    want = hl.head_bwd_packed_plain(*args, dloss)
+    for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"), got, want):
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        tol = (1e-2 if name == "dskip" else 1e-4) * np.abs(y).max()
+        np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+    # against the unpacked kernels, which round the product operands to
+    # bf16: the loss within 1e-2 relative
+    ul, _, _ = kh.head_fwd(a["skip"], a["tgt"], a["w1"], a["b1"], a["w2"],
+                           a["b2"], rf, parity, 0)
+    np.testing.assert_allclose(float(ul), float(loss), rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_packed_route_through_the_op(cuda, monkeypatch):
+    """With PACKED_HEAD on, fused_head_loss at tgt_off 0 takes the packed
+    kernels (no softmax saved) and its gradients match the plain packed
+    backward."""
+    monkeypatch.setattr(hl, "PACKED_HEAD", True)
+    a, batch = _packed_args(cuda, 2000, seed=3)
+    w = [a[k].clone().requires_grad_(True) for k in ("w1", "b1", "w2", "b2")]
+    skip = a["skip"].clone().requires_grad_(True)
+    n0 = dict(kh.launch_counts)
+    loss, _ = hl.fused_head_loss(skip, a["tgt"], *w, 24, True, 0)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert kh.launch_counts["head_fwd_packed"] == n0["head_fwd_packed"] + 1
+    assert kh.launch_counts["head_bwd_packed"] == n0["head_bwd_packed"] + 1
+    assert kh.launch_counts["head_fwd"] == n0["head_fwd"]
+    want = hl.head_bwd_packed_plain(a["skip"], a["tgt"], a["w1"], a["b1"],
+                                    a["w2"], a["b2"], 24, True, 1.0)
+    for x, y in zip([skip.grad] + [v.grad for v in w], want):
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=0, atol=1e-2 * np.abs(y).max())

@@ -178,8 +178,8 @@ def test_merged_wrappers_reject_wrong_inputs(cuda):
         ks.stack_head_fwd(a["x"].float(), *args[1:])
     with pytest.raises(ValueError, match="B.2"):
         ks.stack_fwd_x(a["x"].float(), *args[1:6], DIL)
-    w_out = torch.zeros(len(DIL), 16, 24, device=cuda)
-    b_out = torch.zeros(len(DIL), 24, device=cuda)
+    w_out = torch.zeros(len(DIL), 16, 20, device=cuda)
+    b_out = torch.zeros(len(DIL), 20, device=cuda)
     with pytest.raises(NotImplementedError, match="B.2"):
         ks.stack_fwd_x(a["x"], None, a["b_fg"], a["w_fg"], w_out, b_out, DIL)
     big = torch.zeros(16, 128, device=cuda)

@@ -67,6 +67,7 @@ def _inputs(dev, t, r, s, v, ctx_kind, batch=2, seed=0):
 @pytest.mark.parametrize("r,s,t,ctx_kind", [
     (16, 16, 1280, None), (16, 16, 1280, "flat"), (16, 16, 1280, "proj"),
     (32, 32, 2000, "proj"), (64, 64, 3200, "proj"), (64, 8, 1000, "flat"),
+    (32, 8, 1280, "proj"), (16, 8, 1280, "proj"), (16, 8, 1000, None),
 ])
 def test_stack_kernels_match_plain(cuda, r, s, t, ctx_kind):
     a, ctx, proj, batch = _inputs(cuda, t, r, s, 64, ctx_kind)
@@ -100,9 +101,27 @@ def test_stack_kernels_match_plain(cuda, r, s, t, ctx_kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(64, 64), (16, 8)])
+def test_stack_bwd_is_deterministic(cuda, r, s):
+    """Two backward calls on the same inputs give the same bits (the
+    table gradient adds each column's rows in order): a resumed run then
+    trains as an uninterrupted one."""
+    a, ctx, proj, batch = _inputs(cuda, 1280, r, s, 64, "proj")
+    args = (a["pack"], a["table2"], ctx, a["b_fg"], a["w_fg"], a["w_out"],
+            a["b_out"], DIL, batch)
+    _, hsave, tfsg = sk.stack_fwd_plain(*args)
+    bargs = (hsave, tfsg, ctx, a["w_fg"], a["w_out"], a["dskip"], a["pack"],
+             64, DIL, proj)
+    first = ks.stack_bwd(*bargs)
+    second = ks.stack_bwd(*bargs)
+    for x, y in zip(first, second):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("r,s,t,has_ctx", [
     (16, 16, 1280, False), (16, 16, 1280, True), (64, 8, 1280, True),
-    (64, 8, 640, False),
+    (64, 8, 640, False), (32, 8, 1280, True), (16, 8, 640, False),
 ])
 def test_tails_kernels_match_plain(cuda, r, s, t, has_ctx):
     """The recompute kernels against their plain versions.  The forward
@@ -176,7 +195,7 @@ def test_stack_wrapper_rejects_wrong_inputs(cuda):
         ks.stack_fwd(a["pack"], a["table2"], None, a["b_fg"].double(),
                      a["w_fg"], a["w_out"], a["b_out"], DIL, batch)
     with pytest.raises(NotImplementedError, match="built"):
-        w_out = torch.zeros(len(DIL), 16, 24, device=cuda)
-        b_out = torch.zeros(len(DIL), 24, device=cuda)
+        w_out = torch.zeros(len(DIL), 16, 20, device=cuda)
+        b_out = torch.zeros(len(DIL), 20, device=cuda)
         ks.stack_fwd(a["pack"], a["table2"], None, a["b_fg"], a["w_fg"],
                      w_out, b_out, DIL, batch)

@@ -371,8 +371,12 @@ def test_optimizer_semantics():
         opt = make_optimizer(cfg, [p])
         assert isinstance(opt, cls)
         assert opt.param_groups[0]["weight_decay"] == 0.0
-    with pytest.raises(NotImplementedError, match="A.3"):
-        make_optimizer(TrainingConfig(), [p])      # OneCycleLR default
+    # OneCycleLR (the dataclass default) needs the epoch's length, as in
+    # the JAX package, and starts at max_lr / 25
+    with pytest.raises(ValueError, match="steps_per_epoch"):
+        make_optimizer(TrainingConfig(), [p])
+    opt = make_optimizer(TrainingConfig(), [p], steps_per_epoch=4)
+    assert opt.param_groups[0]["lr"] == pytest.approx(0.003 / 25, rel=1e-6)
     with pytest.raises(ValueError, match="not recognized"):
         make_optimizer(TrainingConfig(optimizer="Lion", scheduler=None),
                        [p])

@@ -260,8 +260,7 @@ def test_unported_trainer_options_raise(tmp_path):
     from movenet_tpu_torch.config import arg_parser, config_from_args
     from movenet_tpu_torch.train.trainer import train_model
 
-    for extra, label in ((["--scan_steps", "2"], "A.3"),
-                         (["--mesh_data", "2"], "A.8"),
+    for extra, label in ((["--mesh_data", "2"], "A.8"),
                          (["--num_processes", "2"], "A.8")):
         cfg = config_from_args(arg_parser().parse_args(
             ["--dataset", "d", "--model_output_path", str(tmp_path), *extra]))
@@ -288,3 +287,82 @@ def test_cli_needs_cuda_by_default(dataset_root, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(_no_samples(_args(dataset_root, tmp_path / "m",
                                tmp_path / "l")))
+
+
+def _script_flags(path):
+    """The trainer flags an experiment script passes, "$@" dropped."""
+    import shlex
+    from pathlib import Path
+
+    text = Path(path).read_text()
+    body = text[text.index(".train.cli"):].split("\n", 1)[1]
+    flags = shlex.split(body.replace("\\\n", " "))
+    return [f for f in flags if f != "$@"]
+
+
+@pytest.mark.parametrize("name", ["03_kinetics_scale_up",
+                                  "04_kinetics_receptive_field"])
+def test_experiment_scripts_match_jax(name, tmp_path):
+    """experiments/torch/<name>.sh passes the JAX script's flags, to the
+    port's CLI, and both parse into the same TrainingConfig; the port
+    takes it on one device (03's --mesh_data -1 is the one card)."""
+    from pathlib import Path
+
+    from movenet_tpu.config import arg_parser as j_parser
+    from movenet_tpu.config import config_from_args as j_config
+
+    from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.train.trainer import _check_single_device
+
+    root = Path(__file__).resolve().parents[1] / "experiments"
+    flags = _script_flags(root / "torch" / f"{name}.sh")
+    assert flags == _script_flags(root / f"{name}.sh")
+    assert "movenet_tpu_torch.train.cli" in \
+        (root / "torch" / f"{name}.sh").read_text()
+    argv = [f if f != "$DATASET" else "d" for f in flags] + [
+        "--model_output_path", str(tmp_path / "m")]
+    cfg = config_from_args(arg_parser().parse_args(argv))
+    assert cfg.to_dict() == j_config(j_parser().parse_args(argv)).to_dict()
+    _check_single_device(cfg)
+    mc = cfg.model_config
+    assert (mc.input_channels, mc.skip_channels) == (128, 8)
+    assert mc.residual_channels == (32 if name.startswith("03") else 16)
+
+
+def test_cli_schedule_and_scan_steps(dataset_root, tmp_path, monkeypatch):
+    """OneCycleLR with --scan_steps 2: every step logs its learning_rate
+    at its own step, and the run ends where single steps end, bit for
+    bit."""
+    from movenet_tpu_torch.train.cli import main
+    from movenet_tpu_torch.train.optim import Schedules
+
+    _shrink(monkeypatch, use_video=False)
+    runs = {}
+    for scan in ("1", "2"):
+        logs = tmp_path / f"l{scan}"
+        extra = ["--scheduler", "OneCycleLR", "--max_learning_rate", "0.003",
+                 "--scan_steps", scan, "--log_every_n_steps", "1",
+                 "--batch_size", "1", "--n_epochs", "1"]
+        state = main(_no_samples(_args(dataset_root, tmp_path / f"m{scan}",
+                                       logs, extra)), device="cpu")
+        lines = [json.loads(l) for l in
+                 (logs / "metrics.jsonl").read_text().splitlines()]
+        runs[scan] = (state, [l for l in lines if l["tag"] == "train"])
+    (s1, l1), (s2, l2) = runs["1"], runs["2"]
+    assert s1.step == s2.step == 4
+    assert [l["step"] for l in l2] == [l["step"] for l in l1] == [1, 2, 3, 4]
+    sched = Schedules(_cfg_of(tmp_path / "m1"), 4)
+    for a, b in zip(l1, l2):
+        assert a["loss"] == b["loss"]
+        assert a["learning_rate"] == b["learning_rate"] == \
+            pytest.approx(float(sched(a["step"] - 1)), rel=1e-7)
+    for (n, a), b in zip(s1.module.named_parameters(),
+                         s2.module.parameters()):
+        assert torch.equal(a, b), n
+
+
+def _cfg_of(run_dir):
+    from movenet_tpu_torch.config import TrainingConfig
+
+    return TrainingConfig.from_json((run_dir / "config.json").read_text())
+
