@@ -5,7 +5,10 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. device: a CUDA card is present; its name and power limit;
-  2. build: every csrc/*.cu kernel is compiled with nvcc;
+  2. build: every csrc/*.cu kernel is compiled with nvcc; ptxas'
+     registers and spills of every kernel, and for the save backward's
+     tensor-core kernels (stack_bwd_layer_kernel, stack_wgrad_kernel)
+     their dynamic shared memory too;
   3. kernel vs plain: the AR sampler kernel and its plain torch version
      give equal codes at the flagship sampler width (layer 10 x stack 3,
      C=256, R=S=64, RF=3072; seeded random weights, head2 x 10) for
@@ -50,7 +53,9 @@ Phases (any failure exits non-zero and prints no result):
      forward (skip, hsave, tfsg), the trunk backward for a seeded dskip
      (every gradient), the head forward (loss, match, p) and backward
      (dskip, head gradients) each against its plain version, with the
-     tolerances stated there, and each kernel's time by CUDA events;
+     tolerances stated there, and each kernel's time by CUDA events; the
+     trunk backward's device time by grid (torch.profiler): the layer
+     launches, the weight-gradient launches, their reductions, the rest;
   10. train (the main training path): ``make_train_step`` (AdamW, lr 3e-4)
      for 1 warm-up + 5 steps through the kernels, each step launching
      each of the four training kernels once, then the same steps through
@@ -71,7 +76,8 @@ Phases (any failure exits non-zero and prints no result):
      launched once, no split-route kernel) against the split route from
      the same weights, loss and every gradient at the tolerances stated
      there; 1 + 5 AdamW steps on each route (per-step losses within
-     1e-3); times and peak memory of both routes;
+     1e-3); times and peak memory of both routes; the merged
+     backward's device time by grid, as phase 9's;
   13. gated block: the gated-block kernels (gated_block.py:91 / :168)
      against their plain versions at R=S=64, B=2, T=160000, bf16, flat
      ctx, d=1 and d=512; the per-block trunk (``_per_block_trunk``, one
@@ -101,7 +107,8 @@ Phases (any failure exits non-zero and prints no result):
   18. narrow trunk: the save kernels (embed form, video triple) at
      experiment 03's shapes (B=3, L=4, dilations (1,2,1,2), R=32, S=8,
      V=128) and experiment 04's (B=2, L=14, dilations 1..8192, R=16, S=8,
-     V=128), T=160000, forward and backward against their plain versions;
+     V=128), T=160000, forward and backward against their plain versions,
+     the backward's device time by grid;
   19. experiments 03 and 04 (the main path of these widths): the trainer
      CLI with the flags of experiments/torch/03_*.sh and 04_*.sh on
      synthetic clips at the real format (30 train + 3 valid), cut only in
@@ -131,6 +138,7 @@ from __future__ import annotations
 
 import base64
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -144,10 +152,11 @@ FLAGSHIP = dict(layer_size=10, stack_size=3, input_channels=256,
 N_COMPARE = 2048          # generated samples per kernel-vs-plain case
 N_SERVE = 16_000          # generated samples of the B=1 serve request
 N_TRAIN = 5               # timed train steps after one warm-up step
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
-# and float32 (no tensor core) operations/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 and TF32
+# tensor-core and float32 (no tensor core) operations/s
 HBM_BYTES_S = 3.35e12
 BF16_OPS_S = 989e12
+TF32_OPS_S = 495e12
 F32_OPS_S = 67e12
 TRAIN_KERNELS = {
     "stack_fwd": ("movenet_tpu_torch/csrc/stack_kernel.cu",
@@ -637,8 +646,10 @@ def phase_dataset_cli(torch, np, mc, model, rf, run_dir, ds):
 def train_bounds(b, t, l, r, s, c, v, win, proj):
     """(bound_ms, bound_by) of each training kernel from its shapes:
     bytes (each input read once, each output written once) over 3.35 TB/s
-    against operations over the operands' peak (bf16 989 TF/s, float32
-    67 TF/s without tensor cores), the larger."""
+    against operations over the peak of the units that can run them (bf16
+    operands 989 TF/s; the trunk backward's float32 operands on the
+    tensor cores, 495 TF/s TF32, counted once: the split passes are the
+    design's cost, not the work), the larger."""
     m = b * t
     w_bytes = 4 * l * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
     pack = 4 * t * 3 * b
@@ -664,7 +675,7 @@ def train_bounds(b, t, l, r, s, c, v, win, proj):
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     return {"stack_fwd": bound(fwd_bytes, fwd_ops, BF16_OPS_S),
-            "stack_bwd": bound(bwd_bytes, bwd_ops, F32_OPS_S),
+            "stack_bwd": bound(bwd_bytes, bwd_ops, TF32_OPS_S),
             "head_fwd": bound(head_fwd_bytes, head_fwd_ops, BF16_OPS_S),
             "head_bwd": bound(head_bwd_bytes, head_bwd_ops, BF16_OPS_S)}
 
@@ -703,7 +714,8 @@ def merged_bounds(b, t, l, r, s, c, win):
     from x (hsave, tfsg, skip written; x, ctx, weights, targets read) and
     the head's; operations: the trunk's and the head's products on bf16
     operands (989 TF/s) forward; backward the head's rebuild on bf16, its
-    gradient products and the layer sweep's on float32 (67 TF/s)."""
+    gradient products on float32 (67 TF/s: its kernel keeps fmaf) and the
+    layer sweep's on the tensor cores (495 TF/s TF32, as train_bounds)."""
     m = b * t
     w_bytes = 4 * l * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
     hw = 4 * (s * c + c * c + 2 * c)
@@ -714,7 +726,8 @@ def merged_bounds(b, t, l, r, s, c, win):
         + w_bytes + hw
     head_ops = 2 * m * (s * c + c * c)
     fwd_ops = 2 * m * l * (win * 2 * r + r * (r + s)) + head_ops
-    bwd_f32 = 2 * m * (2 * c * c + 2 * s * c) + 2 * m * l * (
+    head_f32 = 2 * m * (2 * c * c + 2 * s * c)
+    sweep = 2 * m * l * (
         (r + s) * r + 2 * r * win + (win + 1) * 2 * r + (r + 1) * (r + s))
 
     def bound(nbytes, ops_ms):
@@ -723,7 +736,8 @@ def merged_bounds(b, t, l, r, s, c, win):
 
     return {"stack_head_fwd": bound(fwd_bytes, fwd_ops / BF16_OPS_S * 1e3),
             "stack_head_bwd": bound(bwd_bytes, (head_ops / BF16_OPS_S
-                                                + bwd_f32 / F32_OPS_S) * 1e3)}
+                                                + head_f32 / F32_OPS_S
+                                                + sweep / TF32_OPS_S) * 1e3)}
 
 
 def gated_bounds(b, t, r, s, win):
@@ -765,6 +779,75 @@ def ar_bound(model, batch, steps, video=False):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def kernel_name(mangled: str) -> str:
+    """name<template ints> of a mangled kernel name, far enough to read
+    (the mangled name where it does not parse)."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = ""
+    while True:   # the nested names (namespaces, then the kernel's)
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            break
+        n = int(m.group())
+        i += m.end()
+        name, i = mangled[i:i + n], i + n
+    if not name:
+        return mangled
+    rest = mangled[i:]
+    args = re.match(r"I((?:L[ib]n?\d+E)+)E", rest)
+    if args:
+        name += "<" + ",".join(re.findall(r"L[ib](n?\d+)E",
+                                          args.group(1))) + ">"
+    return name.replace("<n", "<-").replace(",n", ",-")
+
+
+def ptxas_report(log: str):
+    """[(kernel, what ptxas says of it)]: its registers and spills from an
+    nvcc -Xptxas -v log."""
+    info = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            cur = m.group(1)
+            info.setdefault(cur, [])
+        elif cur and ("registers" in line or "spill" in line):
+            info[cur].append(line.split("info    :")[-1].strip())
+    return [(kernel_name(k), "; ".join(v)) for k, v in info.items() if v]
+
+
+def bwd_smem_note(lib, kernel: str) -> str:
+    """The dynamic shared memory of a save-backward kernel instance
+    (stack_bwd_layer_kernel<R,S> at win = 3R, stack_wgrad_kernel<MODE,R,
+    S,KA>), from the library's own sizes; "" for another kernel."""
+    m = re.match(r"stack_bwd_layer_kernel<(\d+),(\d+)>$", kernel)
+    if m:
+        r, s_ = int(m.group(1)), int(m.group(2))
+        return (f"; dynamic shared memory "
+                f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -1)} bytes "
+                f"(win = 3R)")
+    m = re.match(r"stack_wgrad_kernel<(\d),(\d+),(\d+),(\d+)>$", kernel)
+    if m:
+        mode, r, s_, ka = (int(x) for x in m.groups())
+        win = ka if mode == 0 else 3 * r
+        return (f"; dynamic shared memory "
+                f"{lib.movenet_stack_bwd_smem(r, s_, win, mode)} bytes")
+    return ""
+
+
+def grid_line(label: str, by: dict) -> str:
+    total = sum(by.values())
+    if total <= 0:
+        return f"{label} by grid: not measured (no device time in the trace)"
+    parts = ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                      for k, v in by.items() if v > 0)
+    return (f"{label} by grid (torch.profiler, one call): {parts}; device "
+            f"total {total:.3f} ms")
+
+
 def _err(got, want):
     return float((got.float() - want.float()).abs().max())
 
@@ -781,6 +864,7 @@ def phase_train_kernels(torch, np, cfg, model, batch):
     from movenet_tpu_torch.ops import stack_kernel as sk
     from movenet_tpu_torch.ops.cuda import head_loss as kh
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
 
     b, t = batch.codes.shape
     dil = tuple(model.dilations)
@@ -835,7 +919,11 @@ def phase_train_kernels(torch, np, cfg, model, batch):
             ms=time_cuda(torch, lambda: ks.run_bwd(
                 ks.library(), *bargs, stream=ks._stream(tfsg)), 5),
             plain_ms=time_cuda(torch, lambda: sk.stack_bwd_plain(*bargs),
-                                 2))
+                                 2),
+            by_grid=by_grid(torch, lambda: ks.run_bwd(
+                ks.library(), *bargs, stream=ks._stream(tfsg))))
+        print(grid_line("train kernel stack_bwd (breakdancing)",
+                        rec["stack_bwd"]["by_grid"]), flush=True)
         # head forward and backward on the kernel's skip sum; loss rtol
         # 1e-4 (float32 sums of 320000 rows), matches within 10 rows
         # (first-argmax ties of z within float32 noise), p 2e-4 (the bf16
@@ -1176,6 +1264,7 @@ def phase_merged_head(torch, np, cfg, model, batch):
     from movenet_tpu_torch.ops.cuda import head_loss as kh
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
     from movenet_tpu_torch.train import create_train_state, make_train_step
+    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
 
     b, t = batch.codes.shape
     dil = tuple(model.dilations)
@@ -1239,7 +1328,11 @@ def phase_merged_head(torch, np, cfg, model, batch):
             ms=time_cuda(torch, lambda: ks.run_head_bwd(
                 ks.library(), *bargs, stream=ks._stream(x)), 5),
             plain_ms=time_cuda(torch, lambda: sk.stack_head_bwd_plain(
-                *bargs), 2))
+                *bargs), 2),
+            by_grid=by_grid(torch, lambda: ks.run_head_bwd(
+                ks.library(), *bargs, stream=ks._stream(x))))
+        print(grid_line("merged kernel stack_head_bwd (breakdancing)",
+                        rec["stack_head_bwd"]["by_grid"]), flush=True)
         del inputs, fargs, bargs, x, ctx, skip, hsave, tfsg
     for name, r in rec.items():
         errs = ", ".join(f"{k} {v:.3g}" for k, v in r["errs"].items())
@@ -1859,6 +1952,7 @@ def phase_narrow_trunk(torch, np):
     their plain versions, with their times; records by (name, exp)."""
     from movenet_tpu_torch.ops import stack_kernel as sk
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
 
     t, v, bf = 160_000, 128, torch.bfloat16
     rec = {}
@@ -1920,7 +2014,11 @@ def phase_narrow_trunk(torch, np):
                                                        stream=st), 5),
                 plain_ms=time_cuda(torch, lambda: sk.stack_bwd_plain(*bargs),
                                    2),
+                by_grid=by_grid(torch, lambda: ks.run_bwd(lib, *bargs,
+                                                          stream=st)),
                 bound=train_bounds(b, t, n, r, s, 128, v, win, True))
+            print(grid_line(f"narrow trunk stack_bwd {exp}",
+                            rec[("stack_bwd", exp)]["by_grid"]), flush=True)
             rec[("stack_fwd", exp)]["bound"] = rec[("stack_bwd", exp)][
                 "bound"]
             del hsave, tfsg, bargs, fargs
@@ -2184,10 +2282,12 @@ def main() -> int:
         libs = build.build()
         print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
               flush=True)
+        from movenet_tpu_torch.ops.cuda import stack_kernel as ks
         for name, log in build.build_logs.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  nvcc {name}: {line.strip()}")
+            for kernel, what in ptxas_report(log):
+                note = bwd_smem_note(ks.library(), kernel) \
+                    if name == "stack_kernel" else ""
+                print(f"  nvcc {name}: {kernel}: {what}{note}")
 
         phase = "kernel vs plain"
         mc, model = flagship_model(torch)
@@ -2383,7 +2483,9 @@ def main() -> int:
                         ms=x["ms"], plain_ms=x["plain_ms"],
                         max_abs_err=x["max_abs_err"],
                         bound_ms=x["bound"][name][0],
-                        bound_by=x["bound"][name][1]))
+                        bound_by=x["bound"][name][1],
+                        **({"by_grid_ms": x["by_grid"]} if "by_grid" in x
+                           else {})))
             for (n, s_, c_, b_), x in wide_recs.items():
                 if n == name:
                     hb = train_bounds(b_, 160_000, 1, 8, s_, c_, c_, 16,
@@ -2403,7 +2505,8 @@ def main() -> int:
                 "bound_by": bounds[name][1], "library_ms": None,
                 "matches_plain": True,
                 "shape": "breakdancing: B=2, T=160000, L=9, R=S=C=64, bf16",
-                "widths": widths})
+                "widths": widths,
+                **({"by_grid_ms": r["by_grid"]} if "by_grid" in r else {})})
         from movenet_tpu_torch.ops.stack_kernel import TAILS_TILE
         tb = tails_bounds(2, 160_000, 9, 64, 8, 3 * 64, 21, TAILS_TILE)
         for name, (source, replaces) in TAILS_KERNELS.items():
@@ -2430,7 +2533,8 @@ def main() -> int:
                 "bound_by": mb[name][1], "library_ms": None,
                 "matches_plain": True,
                 "shape": "breakdancing, merged: B=2, T=160000, L=9, "
-                         "R=S=C=64, bf16, flat ctx"})
+                         "R=S=C=64, bf16, flat ctx",
+                **({"by_grid_ms": r["by_grid"]} if "by_grid" in r else {})})
         gbd = gated_bounds(2, mc.max_audio_frames, mc.residual_channels,
                            mc.skip_channels, 3 * mc.residual_channels)
         for name, (source, replaces) in GATED_KERNELS.items():

@@ -33,21 +33,21 @@
 //             gate in registers; gated (rounded) and W_out in shared
 //             memory; the output product, the residual and skip updates.
 //   backward  one launch per layer, top down (one persistent block per SM,
-//             64-row tiles, W_out^T and W_fg^T staged once in float32),
-//             each followed by two weight-gradient launches and their
-//             fixed-order reductions.  The anti-causal carry dfg_p(t+d)
-//             crosses blocks, so the layer launch stores dh + dfg_w_h and
-//             dfg_w_p apart; the next launch adds them up row by row (two
-//             buffers for dfg_w_p).  dfg (f32) is stored for the weight-
-//             gradient launches, which keep their 4x8 tiles of the sum in
-//             registers over a (batch, chunk) range of rows and write
-//             per-block partial sums, added by a second pass in fixed
-//             order: deterministic, no atomics.  The bias gradients are
-//             the column sums of the same operands.  The table gradient
-//             adds dh rows by code into a per-block table, each column's
-//             rows in order, then a fixed-order reduction; the
-//             projection backward is one more weight-gradient launch (dwup,
-//             dbup) and one product for dxc.
+//             64-row tiles, W_out and W_fg staged once in float32 as they
+//             lie in global memory), each followed by two weight-gradient
+//             launches and their fixed-order reductions.  The anti-causal
+//             carry dfg_p(t+d) crosses blocks, so the layer launch stores
+//             dh + dfg_w_h and dfg_w_p apart; the next launch adds them up
+//             row by row (two buffers for dfg_w_p).  dfg (f32) is stored
+//             for the weight-gradient launches, which keep their tiles of
+//             the sum in registers over a (batch, chunk) range of rows and
+//             write per-block partial sums, added by a second pass in fixed
+//             order: deterministic, no atomics.  The bias gradients are the
+//             column sums of the same operands.  The table gradient adds dh
+//             rows by code into a per-block table, each column's rows in
+//             order, then a fixed-order reduction; the projection backward
+//             is one more weight-gradient launch (dwup, dbup) and one
+//             product for dxc.
 // The merged form is the non-embed save form with two changes.  Its
 // forward forms gated from the unrounded taps, and the last layer's launch
 // runs the head on each tile once the tile's skip sum is final (rounded to
@@ -60,17 +60,29 @@
 // head's weight gradients as per-block partials, and dskip in float32,
 // which the layer launches and the W_out gradient read unrounded.
 // The TPU's per-tile ring snapshots (tails) are not produced: hsave holds
-// those rows.  Every product is a sequence of fmaf in float32 over operands
-// held in shared memory; nothing uses tensor cores yet (later work).
+// those rows.
+//
+// Products.  The forward's are fmaf in float32 over bf16 operands in
+// shared memory.  The save backward's take float32 operands, as the TPU
+// kernel's (stack_kernel.py:199 _BWD_OPERAND_DT, a multi-pass MXU product
+// there); here they run on the tensor cores as split-TF32 mma.sync
+// (m16n8k8, float32 sums; see "backward" below): the layer launch's
+// dgated = [dh | dskip] W_out^T and dfg_w = dfg W_fg^T in three passes,
+// the weight gradients dW_out = gated^T [dh | dskip] in three and dW_fg =
+// [hsave | hsave(t-d) | ctx]^T dfg and dW_up = xc^T dctx in two.  Every
+// warp walks its rows and k in a fixed order: two calls give the same
+// bits.  The recompute, merged-head and dxc products keep fmaf.
 //
 // Bound (breakdancing shape: B=2, T=160000, L=9, R=S=64, ctx): forward
 // about 1.9e11 flop in bf16 operands and 1.19 GB of compulsory traffic
 // (hsave, tfsg, skip, ctx), so the tensor-core bound is 0.36 ms, memory;
-// backward about 3.9e11 flop on f32 operands, 5.7 ms at the 67 TF/s of the
-// f32 units.  This version runs on those f32 units for both directions and
-// adds float32 intermediates in global memory (h, the skip sum, dh, dfg),
-// so it is bound by the fmaf rate and by latency, far from the forward's
-// bound.
+// backward about 3.9e11 flop counted once, 0.78 ms at the 495 TF/s of
+// TF32 (the split passes, about 2.6 per product, are the design's
+// cost), against 0.33 ms of compulsory traffic: bound by operations.
+// Beside the compulsory traffic the backward moves float32 intermediates
+// through global memory (dh, the carry, dfg, dctx: about 1.35 GB a layer
+// at that shape), a floor of about 3.6 ms over 9 layers until the weight
+// gradients are fused into the layer launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -439,6 +451,95 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ----------------------------------------------------------- backward
+// The backward's products take float32 operands (stack_kernel.py:199
+// _BWD_OPERAND_DT).  They run on the tensor cores as mma.sync m16n8k8
+// TF32 with float32 sums, float32-accurate by a split of the operands in
+// registers as fragments are loaded: x = big + small, big = tf32(x) and
+// small = tf32(x - big), each rounded to nearest with ties away from
+// zero as cvt.rna rounds; a product is small*big + big*small + big*big
+// (the small*small term, about 2^-22 of it, is left out).  An operand
+// exact in TF32 takes no split: bf16 values (8 significant bits of TF32's
+// 11) and gated = tf*sg (at most 16 bits: big and small are both exact).
+// Three passes where both operands are float32, two where one is exact.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a b for one 16x8 tile, k = 8 (fragments as the PTX ISA lays out
+// mma.m16n8k8 with .tf32 operands)
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
+                                         const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int N>
+struct Frag {
+  unsigned big[N], small[N];
+};
+
+template <bool SPLIT, int N>
+__device__ __forceinline__ void frag_set(Frag<N>& f, const float* v) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (SPLIT) {
+      f.big[i] = tf32_rna(v[i]);
+      f.small[i] = tf32_rna(v[i] - __uint_as_float(f.big[i]));
+    } else {
+      f.big[i] = __float_as_uint(v[i]);   // exact in TF32
+    }
+  }
+}
+
+// The A fragment (16 x 8) at p: element (row i, k) at p[i * ld + k]
+// (row-major) or at p[k * ld + i] (k-major).  Lane (g, q) = (lane / 4,
+// lane % 4) holds (g, q), (g + 8, q), (g, q + 4), (g + 8, q + 4).
+template <bool SPLIT>
+__device__ __forceinline__ void load_a_rows(const float* p, int ld,
+                                            Frag<4>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float v[4] = {p[g * ld + q], p[(g + 8) * ld + q], p[g * ld + q + 4],
+                      p[(g + 8) * ld + q + 4]};
+  frag_set<SPLIT>(f, v);
+}
+template <bool SPLIT>
+__device__ __forceinline__ void load_a_kmajor(const float* p, int ld,
+                                              Frag<4>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float v[4] = {p[q * ld + g], p[q * ld + g + 8], p[(q + 4) * ld + g],
+                      p[(q + 4) * ld + g + 8]};
+  frag_set<SPLIT>(f, v);
+}
+// The B fragment (8 x 8) at p: element (k, column j) at p[j * ld + k]
+// (a weight row per column) or at p[k * ld + j] (k-major).  Lane (g, q)
+// holds (q, g) and (q + 4, g).
+__device__ __forceinline__ void load_b_cols(const float* p, int ld,
+                                            Frag<2>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float v[2] = {p[g * ld + q], p[g * ld + q + 4]};
+  frag_set<true>(f, v);
+}
+__device__ __forceinline__ void load_b_kmajor(const float* p, int ld,
+                                              Frag<2>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float v[2] = {p[q * ld + g], p[(q + 4) * ld + g]};
+  frag_set<true>(f, v);
+}
+
+// d += a b in float32 accuracy: the passes that the splits need, the
+// small terms first
+template <bool SPLIT_A>
+__device__ __forceinline__ void mma_split(float* d, const Frag<4>& a,
+                                          const Frag<2>& b) {
+  if (SPLIT_A) mma_tf32(d, a.small, b.big);
+  mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
 struct BwdLayerArgs {
   float* dhp;            // (M, R) in: layer l+1's dh + dfg_w_h; out: layer l's
   const float* p_in;     // (M, R) layer l+1's dfg_w past part (not at top)
@@ -456,47 +557,67 @@ struct BwdLayerArgs {
   int t_len, d_in, top, win;
 };
 
-constexpr int kBwdRows = 64;
-constexpr int kBwdLd = kBwdRows + 4;
-
+// Each SM runs two tile pipelines of 8 warps, so that one pipeline's
+// loads and stores overlap the other's products: at R = 64 two halves of
+// one 512-thread block (the weights staged once in shared memory for
+// both), each walking 32-row tiles with a barrier of its own; at R <= 32
+// two 256-thread blocks of 64-row tiles.
 template <int R, int S>
-size_t bwd_smem(int win) {
-  return ((R + S) * kBwdLd + (R + S) * R + 2 * R * kBwdLd + 2 * R * win) * 4;
+struct BwdShape {
+  static constexpr int kHalves = R >= 64 ? 2 : 1;   // pipelines per block
+  static constexpr int kThreads = 256 * kHalves;
+  static constexpr int kRows = 64 / kHalves;        // rows per tile
+  static constexpr int kMt = kRows / 16;            // row tiles of 16
+  static constexpr int kTpw = R / 8 / (8 / kMt);    // n tiles of 8 per warp
+  // row-major, row strides of 4 mod 8 floats (8 mod 16 bf16), so that
+  // the fragment loads of a warp fall in 32 distinct banks
+  static constexpr int kNo = R + S;
+  static constexpr int kLdd = kNo + 4;     // [dh | dskip] rows, W_out rows
+  static constexpr int kLdf = 2 * R + 4;   // dfg rows, W_fg rows
+  static constexpr int kLdt = 2 * R + 8;   // tfsg rows (bf16)
+  // one pipeline's tiles, in bytes
+  static constexpr size_t kTile =
+      static_cast<size_t>(kRows * kLdd + kRows * kLdf) * 4 +
+      static_cast<size_t>(kRows * kLdt) * 2;
+  static size_t smem(int win) {
+    return static_cast<size_t>(R * kLdd + win * kLdf) * 4 + kHalves * kTile;
+  }
+};
+
+// A barrier over one pipeline's 256 threads.
+template <int HALVES>
+__device__ __forceinline__ void pipe_sync(int h) {
+  if (HALVES == 1)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, 256;" ::"r"(h + 1) : "memory");
 }
 
+// One tile's global inputs of one thread, held in registers from the
+// tile before it: dh (the layer above's dh + dfg_w_h with the carry
+// added), dskip and the taps, each 16 bytes of one row.
 template <int R, int S>
-__global__ void __launch_bounds__(kThreads)
-    stack_bwd_layer_kernel(BwdLayerArgs a) {
-  constexpr int NO = R + S, LD = kBwdLd, ROWS = kBwdRows;
-  const int win = a.win;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dt = reinterpret_cast<float*>(smem);   // (NO, LD) [dh | dskip]^T
-  float* wot = dt + NO * LD;                      // (NO, R) W_out^T
-  float* ft = wot + NO * R;                       // (2R, LD) dfg^T
-  float* wft = ft + 2 * R * LD;                   // (2R, W_in) W_fg^T
-  const int tid = threadIdx.x;
+struct BwdTileRegs {
+  static constexpr int kRows = BwdShape<R, S>::kRows;
+  static constexpr int kNh = kRows * (R / 4) / 256;   // exact
+  static constexpr int kNs = (kRows * (S / 4) + 255) / 256;
+  float4 dh[kNh];
+  float4 sk[kNs];
+  uint4 tg[kNh];      // 8 taps per item: 2R per row, as many items as dh
+};
 
-  // transposed weights, staged once (stores in order, loads strided);
-  // then the block walks its tiles (grid = the SM count)
-  for (int i = tid; i < R * NO; i += kThreads) {
-    const int k = i / R, j = i % R;
-    wot[i] = a.w_out[j * NO + k];
-  }
-  for (int i = tid; i < win * 2 * R; i += kThreads) {
-    const int k = i / win, j = i % win;
-    wft[i] = a.w_fg[j * 2 * R + k];
-  }
-  const long n_tiles = (a.m_total + ROWS - 1) / ROWS;
-  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
-  const long m0 = tile_i * ROWS;
-  __syncthreads();
-  // dh of this layer's output: the layer above's dh + dfg_w_h, plus its
-  // anti-causal carry dfg_w_p(t + d)
-  // 4 channels of one row per thread, rows fastest across threads
-  for (int i = tid; i < ROWS * (R / 4); i += kThreads) {
-    const int row = i % ROWS, j0 = (i / ROWS) * 4;
+// ht: the thread's index in its pipeline
+template <int R, int S>
+__device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
+                                          int ht, BwdTileRegs<R, S>& f) {
+  using Regs = BwdTileRegs<R, S>;
+#pragma unroll
+  for (int u = 0; u < Regs::kNh; ++u) {
+    const int i = ht + u * 256;
+    const int row = i / (R / 4), j0 = 4 * (i % (R / 4));
     const long m = m0 + row;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    uint4 tg = make_uint4(0, 0, 0, 0);
     if (m < a.m_total) {
       if (!a.top) {
         v = *reinterpret_cast<const float4*>(a.dhp + m * R + j0);
@@ -506,18 +627,18 @@ __global__ void __launch_bounds__(kThreads)
           v = make_float4(v.x + c.x, v.y + c.y, v.z + c.z, v.w + c.w);
         }
       }
-      *reinterpret_cast<float4*>(a.dh + m * R + j0) = v;
+      tg = *reinterpret_cast<const uint4*>(a.tfsg + m * 2 * R + 2 * j0);
     }
-    dt[j0 * LD + row] = v.x;
-    dt[(j0 + 1) * LD + row] = v.y;
-    dt[(j0 + 2) * LD + row] = v.z;
-    dt[(j0 + 3) * LD + row] = v.w;
+    f.dh[u] = v;
+    f.tg[u] = tg;
   }
-  for (int i = tid; i < ROWS * (S / 4); i += kThreads) {
-    const int row = i % ROWS, j0 = (i / ROWS) * 4;
+#pragma unroll
+  for (int u = 0; u < Regs::kNs; ++u) {
+    const int i = ht + u * 256;
+    const int row = i / (S / 4), j0 = 4 * (i % (S / 4));
     const long m = m0 + row;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (m < a.m_total) {
+    if (i < Regs::kRows * (S / 4) && m < a.m_total) {
       if (a.dskip_f) {
         const float4 q =
             *reinterpret_cast<const float4*>(a.dskip_f + m * S + j0);
@@ -529,95 +650,191 @@ __global__ void __launch_bounds__(kThreads)
         load4(a.dskip + m * S + j0, v);
       }
     }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dt[(R + j0 + e) * LD + row] = v[e];
+    f.sk[u] = make_float4(v[0], v[1], v[2], v[3]);
   }
-  __syncthreads();
+}
 
-  // dgated = [dh | dskip] W_out^T, then dfg from the saved taps
-  for (int tile = tid; tile < (ROWS / 4) * (R / 4); tile += kThreads) {
-    const int r0 = (tile / (R / 4)) * 4, c0 = (tile % (R / 4)) * 4;
-    float acc[4][4] = {};
-    for (int k = 0; k < NO; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(dt + k * LD + r0);
-      const float4 bv = *reinterpret_cast<const float4*>(wot + k * R + c0);
-      const float ai[4] = {av.x, av.y, av.z, av.w};
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
+// Persistent blocks walk the tiles (pipeline h of block b takes tiles
+// b * halves + h, then every gridDim.x * halves-th); the next tile's
+// inputs are loaded into registers while this one computes.  A
+// pipeline's 8 warps: warp w takes rows 16 (w % kMt) .. +16 and a
+// contiguous 1 / (8 / kMt) of each product's columns (kTpw n tiles of
+// dgated, W_in / 8 / (8 / kMt) of dfg_w), k in order: fixed sums.
+template <int R, int S>
+__global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
+                                  BwdShape<R, S>::kHalves == 2 ? 1 : 2)
+    stack_bwd_layer_kernel(BwdLayerArgs a) {
+  using Sh = BwdShape<R, S>;
+  using Regs = BwdTileRegs<R, S>;
+  constexpr int NO = Sh::kNo, LDD = Sh::kLdd, LDF = Sh::kLdf;
+  constexpr int LDT = Sh::kLdt, ROWS = Sh::kRows, TPW = Sh::kTpw;
+  constexpr int H = Sh::kHalves, MT = Sh::kMt;
+  constexpr int NP = 3 * R / 8 / (8 / MT);   // product 2's n tiles, at most
+  static_assert(R % 16 == 0 && S % 8 == 0 && TPW >= 1,
+                "8 warps per pipeline over 16-row, 8-column tiles");
+  const int win = a.win;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* wo = reinterpret_cast<float*>(smem);   // (R, LDD) W_out
+  float* wf = wo + R * LDD;                       // (win, LDF) W_fg
+  const int tid = threadIdx.x, h = tid / 256, ht = tid % 256;
+  unsigned char* mine = reinterpret_cast<unsigned char*>(wf + win * LDF) +
+                        h * Sh::kTile;
+  float* dd = reinterpret_cast<float*>(mine);   // (ROWS, LDD) [dh | dskip]
+  float* ff = dd + ROWS * LDD;                    // (ROWS, LDF) dfg
+  bf16_t* ts = reinterpret_cast<bf16_t*>(ff + ROWS * LDF);   // (ROWS, LDT)
+  const int warp = ht >> 5, g = (ht & 31) >> 2, q = ht & 3;
+  const int r0 = (warp % MT) * 16;                // the warp's rows
+  const int n0 = (warp / MT) * TPW * 8;           // and dgated columns
+  const bool ctx_sum = a.dctx != nullptr && !a.top;
+
+  // the weights as they lie in global memory (one row per output
+  // column, k along the row), staged once for both pipelines
+  for (int i = tid; i < R * NO; i += Sh::kThreads)
+    wo[(i / NO) * LDD + i % NO] = a.w_out[i];
+  for (int i = tid; i < win * 2 * R; i += Sh::kThreads)
+    wf[(i / (2 * R)) * LDF + i % (2 * R)] = a.w_fg[i];
+  __syncthreads();
+  const long n_tiles = (a.m_total + ROWS - 1) / ROWS;
+  const long step = static_cast<long>(gridDim.x) * H;
+  const long first = static_cast<long>(blockIdx.x) * H + h;
+  Regs nx;
+  if (first < n_tiles) bwd_fetch<R, S>(a, first * ROWS, ht, nx);
+  for (long tile_i = first; tile_i < n_tiles; tile_i += step) {
+  const long m0 = tile_i * ROWS;
+  pipe_sync<H>(h);
+  // dh of this layer's output (the layer above's dh + dfg_w_h, plus its
+  // anti-causal carry dfg_w_p(t + d)), dskip and the taps into shared
+  // memory; dh to global memory for the W_out gradient
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int u = 0; u < Regs::kNh; ++u) {
+    const int i = ht + u * 256;
+    const int row = i / (R / 4), j0 = 4 * (i % (R / 4));
+    const long m = m0 + row;
+    if (m < a.m_total)
+      *reinterpret_cast<float4*>(a.dh + m * R + j0) = nx.dh[u];
+    *reinterpret_cast<float4*>(dd + row * LDD + j0) = nx.dh[u];
+    *reinterpret_cast<uint4*>(ts + row * LDT + 2 * j0) = nx.tg[u];
+  }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
+  for (int u = 0; u < Regs::kNs; ++u) {
+    const int i = ht + u * 256;
+    if (i < ROWS * (S / 4))
+      *reinterpret_cast<float4*>(dd + (i / (S / 4)) * LDD + R +
+                                 4 * (i % (S / 4))) = nx.sk[u];
+  }
+  pipe_sync<H>(h);
+  // in flight while this tile computes: the next tile's inputs
+  if (tile_i + step < n_tiles)
+    bwd_fetch<R, S>(a, m0 + step * ROWS, ht, nx);
+
+  // dgated = [dh | dskip] W_out^T (3 passes), then dfg from the taps
+  {
+    float acc[TPW][4] = {};
+#pragma unroll 2
+    for (int k0 = 0; k0 < NO; k0 += 8) {
+      Frag<4> fa;
+      load_a_rows<true>(dd + r0 * LDD + k0, LDD, fa);
+#pragma unroll
+      for (int j = 0; j < TPW; ++j) {
+        Frag<2> fb;
+        load_b_cols(wo + (n0 + 8 * j) * LDD + k0, LDD, fb);
+        mma_split<true>(acc[j], fa, fb);
+      }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + i;
-      const long m = m0 + row;
-      const bool ok = m < a.m_total;
-      float tf[4] = {0.f, 0.f, 0.f, 0.f}, sg[4] = {0.f, 0.f, 0.f, 0.f};
-      if (ok) {
-        load4(a.tfsg + m * 2 * R + c0, tf);
-        load4(a.tfsg + m * 2 * R + R + c0, sg);
-      }
-      float df[4], dq[4];
+    for (int j = 0; j < TPW; ++j) {
+      const int c = n0 + 8 * j + 2 * q;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float dg = acc[i][j];
-        df[j] = dg * (sg[j] * (1.f - tf[j] * tf[j]));
-        dq[j] = dg * (tf[j] * (sg[j] - sg[j] * sg[j]));
-        ft[(c0 + j) * LD + row] = df[j];
-        ft[(R + c0 + j) * LD + row] = dq[j];
-      }
-      if (ok) {
-        *reinterpret_cast<float4*>(a.dfg + m * 2 * R + c0) =
-            make_float4(df[0], df[1], df[2], df[3]);
-        *reinterpret_cast<float4*>(a.dfg + m * 2 * R + R + c0) =
-            make_float4(dq[0], dq[1], dq[2], dq[3]);
+      for (int e = 0; e < 2; ++e) {
+        const int row = r0 + g + 8 * e;
+        const unsigned tw =
+            *reinterpret_cast<const unsigned*>(ts + row * LDT + c);
+        const unsigned sw =
+            *reinterpret_cast<const unsigned*>(ts + row * LDT + R + c);
+        const float tf[2] = {__uint_as_float(tw << 16),
+                             __uint_as_float(tw & 0xffff0000u)};
+        const float sg[2] = {__uint_as_float(sw << 16),
+                             __uint_as_float(sw & 0xffff0000u)};
+        float df[2], dq[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float dg = acc[j][2 * e + k];
+          df[k] = dg * (sg[k] * (1.f - tf[k] * tf[k]));
+          dq[k] = dg * (tf[k] * (sg[k] - sg[k] * sg[k]));
+        }
+        *reinterpret_cast<float2*>(ff + row * LDF + c) =
+            make_float2(df[0], df[1]);
+        *reinterpret_cast<float2*>(ff + row * LDF + R + c) =
+            make_float2(dq[0], dq[1]);
       }
     }
   }
-  __syncthreads();
+  pipe_sync<H>(h);
+  for (int i = ht; i < ROWS * (R / 2); i += 256) {
+    const int row = i / (R / 2), j0 = 4 * (i % (R / 2));
+    const long m = m0 + row;
+    if (m < a.m_total)
+      *reinterpret_cast<float4*>(a.dfg + m * 2 * R + j0) =
+          *reinterpret_cast<const float4*>(ff + row * LDF + j0);
+  }
 
-  // dfg_w = dfg W_fg^T: [dh part | past part | ctx part]
-  const int wc = win / 4;
-  for (int tile = tid; tile < (ROWS / 4) * wc; tile += kThreads) {
-    const int r0 = (tile / wc) * 4, c0 = (tile % wc) * 4;
-    float acc[4][4] = {};
-    for (int k = 0; k < 2 * R; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(ft + k * LD + r0);
-      const float4 bv = *reinterpret_cast<const float4*>(wft + k * win + c0);
-      const float ai[4] = {av.x, av.y, av.z, av.w};
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
+  // dfg_w = dfg W_fg^T (3 passes) over all W_in columns at once: the
+  // warp's NP n tiles lie in the dh part, the past part (the carry) or
+  // the ctx part; its old dctx sums are loaded first
+  {
+    const int np = win / 8 / (8 / MT);             // n tiles of this warp
+    const int c0 = (warp / MT) * np * 8;
+    float2 dco[NP][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NP; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 8 * j + 2 * q - 2 * R;
+        const long m = m0 + r0 + g + 8 * e;
+        dco[j][e] = j < np && c >= 0 && ctx_sum && m < a.m_total
+                        ? *reinterpret_cast<const float2*>(a.dctx + m * R + c)
+                        : make_float2(0.f, 0.f);
+      }
+    float acc[NP][4] = {};
+#pragma unroll 2
+    for (int k0 = 0; k0 < 2 * R; k0 += 8) {
+      Frag<4> fa;
+      load_a_rows<true>(ff + r0 * LDF + k0, LDF, fa);
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        if (j >= np) break;
+        Frag<2> fb;
+        load_b_cols(wf + (c0 + 8 * j) * LDF + k0, LDF, fb);
+        mma_split<true>(acc[j], fa, fb);
+      }
     }
-    // 4 columns lie wholly in one part (R % 4 == 0)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + i;
-      const long m = m0 + row;
-      if (m >= a.m_total) continue;
-      float x[4];
-      if (c0 < R) {
+    for (int j = 0; j < NP; ++j) {
+      if (j >= np) break;
+      const int cw = c0 + 8 * j + 2 * q, p = cw / R, c = cw % R;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) x[j] = dt[(c0 + j) * LD + row] + acc[i][j];
-        *reinterpret_cast<float4*>(a.dhp + m * R + c0) =
-            make_float4(x[0], x[1], x[2], x[3]);
-      } else if (c0 < 2 * R) {
-        *reinterpret_cast<float4*>(a.p_out + m * R + c0 - R) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      } else {
-        float* dc = a.dctx + m * R + c0 - 2 * R;
-        float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (!a.top) o = *reinterpret_cast<const float4*>(dc);
-        const float old[4] = {o.x, o.y, o.z, o.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) x[j] = a.top ? acc[i][j] : old[j] + acc[i][j];
-        if (a.dctx_bf)
-          store4_bf(a.dctx_bf + m * R + c0 - 2 * R, x);
-        else
-          *reinterpret_cast<float4*>(dc) = make_float4(x[0], x[1], x[2], x[3]);
+      for (int e = 0; e < 2; ++e) {
+        const int row = r0 + g + 8 * e;
+        const long m = m0 + row;
+        if (m >= a.m_total) continue;
+        const float x0 = acc[j][2 * e], x1 = acc[j][2 * e + 1];
+        if (p == 0) {
+          const float2 d = *reinterpret_cast<const float2*>(dd + row * LDD + c);
+          *reinterpret_cast<float2*>(a.dhp + m * R + c) =
+              make_float2(d.x + x0, d.y + x1);
+        } else if (p == 1) {
+          *reinterpret_cast<float2*>(a.p_out + m * R + c) =
+              make_float2(x0, x1);
+        } else {
+          const float y0 = ctx_sum ? dco[j][e].x + x0 : x0;
+          const float y1 = ctx_sum ? dco[j][e].y + x1 : x1;
+          if (a.dctx_bf)
+            *reinterpret_cast<unsigned*>(a.dctx_bf + m * R + c) =
+                pack2(y0, y1);
+          else
+            *reinterpret_cast<float2*>(a.dctx + m * R + c) =
+                make_float2(y0, y1);
+        }
       }
     }
   }
@@ -655,33 +872,26 @@ __device__ __forceinline__ void store8(float* dst, const float* v) {
   *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// One row of A, 8 columns (group q) at a time.
-template <int MODE, int R, int KA>
-__device__ __forceinline__ void wg_a8(const WgradArgs& a, long row, int t,
-                                      int q, float* v) {
+// One row of A, 8 columns (group q), as raw bf16: hsave, hsave(t-d) or
+// ctx (MODE 0), tf with sg in *sg (MODE 1: A = tf * sg), xc (MODE 2).
+template <int MODE, int R>
+__device__ __forceinline__ uint4 wg_a_raw(const WgradArgs& a, long row,
+                                          int t, int q, uint4* sg) {
   constexpr int G = R / 8;
+  const uint4 z = make_uint4(0, 0, 0, 0);
   if (MODE == 0) {
-    if (q < G) {
-      load8(a.hs + row * R + 8 * q, v);
-    } else if (q < 2 * G) {
-      if (t >= a.d) {
-        load8(a.hs + (row - a.d) * R + 8 * (q - G), v);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = 0.f;
-      }
-    } else {
-      load8(a.ctx + row * R + 8 * (q - 2 * G), v);
-    }
-  } else if (MODE == 1) {
-    float sg[8];
-    load8(a.tfsg + row * 2 * R + 8 * q, v);
-    load8(a.tfsg + row * 2 * R + R + 8 * q, sg);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = v[j] * sg[j];
-  } else {
-    load8(a.xc + row * R + 8 * q, v);
+    if (q < G) return *reinterpret_cast<const uint4*>(a.hs + row * R + 8 * q);
+    if (q < 2 * G)
+      return t >= a.d ? *reinterpret_cast<const uint4*>(
+                            a.hs + (row - a.d) * R + 8 * (q - G))
+                      : z;
+    return *reinterpret_cast<const uint4*>(a.ctx + row * R + 8 * (q - 2 * G));
   }
+  if (MODE == 1) {
+    *sg = *reinterpret_cast<const uint4*>(a.tfsg + row * 2 * R + R + 8 * q);
+    return *reinterpret_cast<const uint4*>(a.tfsg + row * 2 * R + 8 * q);
+  }
+  return *reinterpret_cast<const uint4*>(a.xc + row * R + 8 * q);
 }
 
 // One row of B, 4 columns (c, c+1, c+2, c+3) at a time.
@@ -700,88 +910,219 @@ __device__ __forceinline__ float4 wg_b4(const WgradArgs& a, long row, int c) {
   return *reinterpret_cast<const float4*>(a.dctx + row * 10 * R + c);
 }
 
-template <int MODE, int R, int S>
+__device__ __forceinline__ void unpack8(const uint4 v, float* o) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// The 8 warps over the (KA/16) x (NB/8) output tiles: wm x wn tile
+// groups, the rest split k (time rows) into groups whose sums are added
+// in order at the end.  The most warps on tiles, then the fewest
+// fragment loads (A: ca, B: cb each) per k step.
+struct WgSplit {
+  int wm, wn;
+};
+constexpr WgSplit wg_split(int km, int kn, int ca, int cb) {
+  WgSplit best = {1, 1};
+  int best_w = 0, best_cost = 1 << 30;
+  for (int wm = 1; wm <= 8; wm *= 2)
+    for (int wn = 1; wm * wn <= 8; wn *= 2) {
+      if (km % wm || kn % wn) continue;
+      const int w = wm * wn, cost = km / wm * ca + kn / wn * cb;
+      if (w > best_w || (w == best_w && cost < best_cost)) {
+        best = {wm, wn};
+        best_w = w;
+        best_cost = cost;
+      }
+    }
+  return best;
+}
+
+template <int MODE, int R, int S, int KA>
 struct WgShape {
   static constexpr int kN = MODE == 0 ? 2 * R : MODE == 1 ? R + S : 10 * R;
   static constexpr int kNb = kN < kWgSlab ? kN : kWgSlab;   // slab width
+  // row strides of 8 mod 16 floats: conflict-free k-major fragments
+  static constexpr int kLda = (KA + 15) / 16 * 16 + 8;
+  static constexpr int kLdb = (kNb + 15) / 16 * 16 + 8;
+  static constexpr bool kSplitA = MODE == 1;   // gated; else bf16 values
+  static constexpr WgSplit kW =
+      wg_split(KA / 16, kNb / 8, kSplitA ? 12 : 4, 6);
+  static constexpr int kWk = 8 / (kW.wm * kW.wn);     // k groups
+  static constexpr int kMt = KA / 16 / kW.wm, kNt = kNb / 8 / kW.wn;
+  // 16-byte items of one 64-row chunk per thread: A (8 bf16), B (4 f32)
+  static constexpr int kGa = KA / 8, kGb = kNb / 4;
+  static constexpr int kIa = (kWgRows * kGa + kThreads - 1) / kThreads;
+  static constexpr int kIb = (kWgRows * kGb + kThreads - 1) / kThreads;
+  static size_t smem() {
+    const size_t tiles = static_cast<size_t>(kWgRows) * (kLda + kLdb);
+    const size_t red = static_cast<size_t>(kWk - 1) * KA * kNb;
+    return (tiles > red ? tiles : red) * 4;
+  }
 };
 
-// Each thread keeps its 4x8 tiles of the (KA, slab) sum in registers over
-// the block's rows; about 80 KB of shared memory at R = 64, two blocks
-// per SM.
+// One 64-row chunk's A and B items of one thread, in registers.
 template <int MODE, int R, int S, int KA>
-__global__ void __launch_bounds__(kThreads) stack_wgrad_kernel(WgradArgs a) {
-  constexpr int N = WgShape<MODE, R, S>::kN, NB = WgShape<MODE, R, S>::kNb;
-  constexpr int GA = KA / 8, GB = NB / 4, NC = NB / 8;
-  constexpr int TILES = (KA / 4) * NC;
-  constexpr int TPT = (TILES + kThreads - 1) / kThreads;
+struct WgChunkRegs {
+  using Sh = WgShape<MODE, R, S, KA>;
+  uint4 a[Sh::kIa];
+  uint4 sg[MODE == 1 ? Sh::kIa : 1];
+  float4 b[Sh::kIb];
+};
+
+template <int MODE, int R, int S, int KA>
+__device__ __forceinline__ void wg_fetch(const WgradArgs& a, long base,
+                                         int t0, int rows, int col0,
+                                         WgChunkRegs<MODE, R, S, KA>& f) {
+  using Sh = WgShape<MODE, R, S, KA>;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < Sh::kIa; ++u) {
+    const int i = tid + u * kThreads, rr = i / Sh::kGa, c = i % Sh::kGa;
+    f.a[u] = make_uint4(0, 0, 0, 0);
+    if (MODE == 1) f.sg[u] = f.a[u];
+    if (i < kWgRows * Sh::kGa && rr < rows)
+      f.a[u] = wg_a_raw<MODE, R>(a, base + t0 + rr, t0 + rr, c,
+                                 &f.sg[MODE == 1 ? u : 0]);
+  }
+#pragma unroll
+  for (int u = 0; u < Sh::kIb; ++u) {
+    const int i = tid + u * kThreads, rr = i / Sh::kGb;
+    const int c = col0 + 4 * (i % Sh::kGb);
+    f.b[u] = i < kWgRows * Sh::kGb && rr < rows && c < Sh::kN
+                 ? wg_b4<MODE, R, S>(a, base + t0 + rr, c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Each warp keeps its kMt x kNt mma tiles of the (KA, slab) sum in
+// registers over the block's rows, 64 rows staged at a time; the next
+// chunk's rows are loaded into registers while this one computes.  The
+// W_out and W_up sums fit two blocks per SM (128 registers), so that
+// one block's loads overlap the other's products; W_fg's take more.
+template <int MODE, int R, int S, int KA>
+__global__ void __launch_bounds__(kThreads, MODE == 0 ? 1 : 2)
+    stack_wgrad_kernel(WgradArgs a) {
+  using Sh = WgShape<MODE, R, S, KA>;
+  constexpr int N = Sh::kN, NB = Sh::kNb, LDA = Sh::kLda, LDB = Sh::kLdb;
+  constexpr int GA = Sh::kGa, GB = Sh::kGb;
+  constexpr int MT = Sh::kMt, NT = Sh::kNt, WK = Sh::kWk, WN = Sh::kW.wn;
+  static_assert(kThreads == 256 && KA % 16 == 0 && NB % 8 == 0,
+                "8 warps over 16 x 8 tiles");
   const int col0 = blockIdx.y * NB;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* as = reinterpret_cast<float*>(smem);   // (kWgRows, KA)
-  float* bs = as + kWgRows * KA;                  // (kWgRows, NB)
-  const int tid = threadIdx.x;
+  float* as = reinterpret_cast<float*>(smem);   // (kWgRows, LDA)
+  float* bs = as + kWgRows * LDA;                 // (kWgRows, LDB)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kg = warp % WK, wt = warp / WK;      // k group, tile group
+  const int i0 = (wt / WN) * MT * 16, j0 = (wt % WN) * NT * 8;
   const int g = blockIdx.x;
   const int b = g / a.chunks, ch = g % a.chunks;
   const int per = (a.rows_per_batch + a.chunks - 1) / a.chunks;
   const int t_lo = ch * per;
   const int t_hi = min(a.rows_per_batch, t_lo + per);
   const long base = static_cast<long>(b) * a.rows_per_batch;
-  float acc[TPT][4][8] = {};
+  float acc[MT][NT][4] = {};
   float bsum = 0.f;
+  WgChunkRegs<MODE, R, S, KA> nx;
+  if (t_lo < t_hi)
+    wg_fetch<MODE, R, S, KA>(a, base, t_lo, min(kWgRows, t_hi - t_lo), col0,
+                             nx);
   for (int t0 = t_lo; t0 < t_hi; t0 += kWgRows) {
     const int rows = min(kWgRows, t_hi - t0);
     __syncthreads();
-    for (int i = tid; i < kWgRows * GA; i += kThreads) {
-      const int rr = i / GA, q = i % GA;
-      float v[8];
-      if (rr < rows) {
-        wg_a8<MODE, R, KA>(a, base + t0 + rr, t0 + rr, q, v);
-      } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = 0.f;
+    for (int u = 0; u < Sh::kIa; ++u) {
+      const int i = tid + u * kThreads;
+      if (i >= kWgRows * GA) break;
+      float v[8];
+      unpack8(nx.a[u], v);
+      if (MODE == 1) {
+        float sg[8];
+        unpack8(nx.sg[u], sg);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = v[j] * sg[j];
       }
-      store8(as + rr * KA + 8 * q, v);
+      store8(as + (i / GA) * LDA + 8 * (i % GA), v);
     }
-    for (int i = tid; i < kWgRows * GB; i += kThreads) {
-      const int rr = i / GB, c = col0 + 4 * (i % GB);
-      *reinterpret_cast<float4*>(bs + i * 4) =
-          rr < rows && c < N ? wg_b4<MODE, R, S>(a, base + t0 + rr, c)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < Sh::kIb; ++u) {
+      const int i = tid + u * kThreads;
+      if (i >= kWgRows * GB) break;
+      *reinterpret_cast<float4*>(bs + (i / GB) * LDB + 4 * (i % GB)) =
+          nx.b[u];
     }
     __syncthreads();
-    if (tid < NB)
-      for (int rr = 0; rr < rows; ++rr) bsum += bs[rr * NB + tid];
+    if (t0 + kWgRows < t_hi)
+      wg_fetch<MODE, R, S, KA>(a, base, t0 + kWgRows,
+                               min(kWgRows, t_hi - t0 - kWgRows), col0, nx);
+    if (tid < NB) {
+#pragma unroll 8
+      for (int rr = 0; rr < rows; ++rr) bsum += bs[rr * LDB + tid];
+    }
+    // rows past `rows` are zero; k steps of 8 rows, this warp's group's
+    for (int k0 = 8 * kg; k0 < rows; k0 += 8 * WK) {
+      Frag<2> fb[NT];
 #pragma unroll
-    for (int u = 0; u < TPT; ++u) {
-      const int tile = tid + u * kThreads;
-      if (tile >= TILES) break;
-      const int k0 = (tile / NC) * 4, c0 = (tile % NC) * 8;
-      for (int rr = 0; rr < rows; ++rr) {
-        const float4 av = *reinterpret_cast<const float4*>(as + rr * KA + k0);
-        const float4 b0 = *reinterpret_cast<const float4*>(bs + rr * NB + c0);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(bs + rr * NB + c0 + 4);
-        const float ai[4] = {av.x, av.y, av.z, av.w};
-        const float bj[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int j = 0; j < NT; ++j)
+        load_b_kmajor(bs + k0 * LDB + j0 + 8 * j, LDB, fb[j]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MT; ++i) {
+        Frag<4> fa;
+        load_a_kmajor<Sh::kSplitA>(as + k0 * LDA + i0 + 16 * i, LDA, fa);
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-            acc[u][i][j] = fmaf(ai[i], bj[j], acc[u][i][j]);
+        for (int j = 0; j < NT; ++j)
+          mma_split<Sh::kSplitA>(acc[i][j], fa, fb[j]);
       }
     }
   }
-  float* out = a.part + static_cast<long>(g) * KA * N;
+  if (WK > 1) {
+    // the k groups' sums, added in group order (the tiles are free now)
+    constexpr int PER = MT * NT * 4 * 32;
+    float* red = as;
+    __syncthreads();
+    if (kg > 0) {
+      float* dst = red + ((kg - 1) * (8 / WK) + wt) * PER;
 #pragma unroll
-  for (int u = 0; u < TPT; ++u) {
-    const int tile = tid + u * kThreads;
-    if (tile >= TILES) break;
-    const int k0 = (tile / NC) * 4, c0 = (tile % NC) * 8;
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (col0 + c0 + j < N) out[(k0 + i) * N + col0 + c0 + j] = acc[u][i][j];
+          for (int e = 0; e < 4; ++e)
+            dst[((i * NT + j) * 4 + e) * 32 + lane] = acc[i][j][e];
+    }
+    __syncthreads();
+    if (kg == 0)
+      for (int k = 1; k < WK; ++k) {
+        const float* src = red + ((k - 1) * (8 / WK) + wt) * PER;
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][j][e] += src[((i * NT + j) * 4 + e) * 32 + lane];
+      }
+  }
+  if (kg == 0) {
+    float* out = a.part + static_cast<long>(g) * KA * N;
+    const int gr = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = col0 + j0 + 8 * j + 2 * q;
+        if (c >= N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(out + (i0 + 16 * i + gr + 8 * h) * N +
+                                     c) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
   }
   if (tid < NB && col0 + tid < N)
     a.part_b[static_cast<long>(g) * N + col0 + tid] = bsum;
@@ -1185,9 +1526,9 @@ int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
 template <int MODE, int R, int S, int KA>
 int wgrad_launch(WgradArgs a, int batch, float* out_w, float* out_b,
                  int bias_groups, cudaStream_t st) {
-  constexpr int NB = WgShape<MODE, R, S>::kNb;
-  const int slabs = (a.n + NB - 1) / NB;
-  const size_t smem = static_cast<size_t>(kWgRows * (KA + NB)) * 4;
+  using Sh = WgShape<MODE, R, S, KA>;
+  const int slabs = (a.n + Sh::kNb - 1) / Sh::kNb;
+  const size_t smem = Sh::smem();
   int err = set_smem(reinterpret_cast<const void*>(
                          stack_wgrad_kernel<MODE, R, S, KA>), smem);
   if (err) return err;
@@ -1234,13 +1575,22 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
   float* dfg = dhp + 4 * m_total * R;
   float* dctx = dhp + 6 * m_total * R;
   float* part = dhp + 7 * m_total * R;
-  const size_t smem = bwd_smem<R, S>(win);
-  int err = set_smem(reinterpret_cast<const void*>(
-                         stack_bwd_layer_kernel<R, S>), smem);
+  using Sh = BwdShape<R, S>;
+  const size_t smem = Sh::smem(win);
+  const void* layer = reinterpret_cast<const void*>(
+      stack_bwd_layer_kernel<R, S>);
+  int err = set_smem(layer, smem);
   if (err) return err;
-  const long tiles = (m_total + kBwdRows - 1) / kBwdRows;
-  const int grid = static_cast<int>(tiles < sm_count() ? tiles : sm_count());
-  cudaError_t e;
+  // persistent blocks: as many as fit on the card, at most one per
+  // (tile, pipeline) pair
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, layer, Sh::kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long tiles = (m_total + Sh::kRows - 1) / Sh::kRows;
+  const long pairs = (tiles + Sh::kHalves - 1) / Sh::kHalves;
+  const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
+  const int grid = static_cast<int>(pairs < fit ? pairs : fit);
   for (int l = n_layers - 1; l >= 0; --l) {
     BwdLayerArgs a;
     a.dhp = dhp;
@@ -1260,7 +1610,7 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
     a.d_in = l + 1 < n_layers ? dil[l + 1] : 0;
     a.top = l == n_layers - 1;
     a.win = win;
-    stack_bwd_layer_kernel<R, S><<<grid, kThreads, smem, st>>>(a);
+    stack_bwd_layer_kernel<R, S><<<grid, Sh::kThreads, smem, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
 
@@ -2075,6 +2425,26 @@ long movenet_stack_bwd_scratch(int batch, int t_len, int r, int s, int win,
   if (p_proj > part) part = p_proj;
   if (p_tab > part) part = p_tab;
   return 7 * m_total * r + part;
+}
+
+// Dynamic shared memory of the save backward's launches, in bytes: the
+// layer launch (kind -1) or the weight-gradient launch of mode kind (0:
+// W_fg with W_in = win, 1: W_out, 2: the projection's W_up); -1 where
+// (r, s) is not built.
+long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
+#define X(R_, S_)                                                      \
+  if (r == R_ && s == S_) {                                            \
+    if (kind == -1) return static_cast<long>(BwdShape<R_, S_>::smem(win)); \
+    if (kind == 0)                                                     \
+      return static_cast<long>(win == 3 * R_                           \
+                                   ? WgShape<0, R_, S_, 3 * R_>::smem() \
+                                   : WgShape<0, R_, S_, 2 * R_>::smem()); \
+    if (kind == 1) return static_cast<long>(WgShape<1, R_, S_, R_>::smem()); \
+    return static_cast<long>(WgShape<2, R_, S_, R_>::smem());          \
+  }
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return -1;
 }
 
 // Forward of the whole stack; returns the first cudaError_t.  dil is a

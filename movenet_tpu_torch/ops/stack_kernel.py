@@ -505,6 +505,60 @@ def stack_head_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, skip, targets_tb,
     return dx, dctx, db_fg, dw_fg, dw_out, db_out, dw1, db1, dw2, db2
 
 
+# --------------------------------------- split-TF32 operand handling
+# The save backward's kernels (csrc/stack_kernel.cu) run its float32
+# products on the tensor cores in TF32, each float32 operand split into a
+# big and a small TF32 part as it is loaded.  Per product, whether each
+# operand is split (an operand exact in TF32 is not): (A split, B split)
+# for the product A B.  Two splits take three passes, one split two.
+BWD_SPLIT_PASSES = {
+    "dgated": (True, True),    # [dh | dskip] W_out^T (layer launch)
+    "dfg_w": (True, True),     # dfg W_fg^T (layer launch)
+    "dw_fg": (False, True),    # [hsave | hsave(t-d) | ctx]^T dfg (bf16 A)
+    "dw_out": (True, True),    # gated^T [dh | dskip], gated = tf * sg
+    "dw_up": (False, True),    # xc^T dctx, the projection (bf16 A)
+}
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 explicit significand bits) to
+    nearest, ties away from zero, as ``cvt.rna.tf32.f32`` rounds: half a
+    TF32 unit added to the magnitude bits, then the 13 low bits cleared."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(big, small), both TF32 values: big = tf32(x), small = tf32(x -
+    big).  big + small is x to about 2^-22 of |x|, and exactly x where x
+    has at most 22 significant bits (a bf16 value, or a product of two)."""
+    big = tf32_rna(x)
+    return big, tf32_rna(x.to(torch.float32) - big)
+
+
+def tf32_split_matmul(a: torch.Tensor, b: torch.Tensor, split_a: bool,
+                      split_b: bool) -> torch.Tensor:
+    """``a @ b`` (float32) as the kernels form it: each split operand as
+    big + small, the other rounded to TF32 once; the passes small*big,
+    big*small (those the splits call for) and big*big, each an exact sum
+    of TF32 products rounded to float32, added in float32 in that order.
+    With neither operand split this is one-pass TF32."""
+    f64 = torch.float64
+    ab, a_s = tf32_split(a) if split_a else (tf32_rna(a), None)
+    bb, b_s = tf32_split(b) if split_b else (tf32_rna(b), None)
+    passes = []
+    if a_s is not None:
+        passes.append((a_s, bb))
+    if b_s is not None:
+        passes.append((ab, b_s))
+    passes.append((ab, bb))
+    out = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32,
+                      device=a.device)
+    for u, v in passes:
+        out = out + torch.matmul(u.to(f64), v.to(f64)).to(torch.float32)
+    return out
+
+
 def _tails_rebuild(x, ctx, b_fg, w_fg, w_out, b_out, dilations):
     """Every layer's input h_l (float32 holding compute-dtype values) and
     the skip sum, as the recompute forward computes them: h rounded after

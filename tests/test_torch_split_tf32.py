@@ -1,0 +1,110 @@
+"""The save backward's split-TF32 products (csrc/stack_kernel.cu) on the
+CPU, through the plain emulation of the kernels' operand handling in
+``ops/stack_kernel`` (TF32 rounding as ``cvt.rna.tf32.f32`` rounds, the
+big/small split, each product's passes).  Inputs from a numpy seed at
+the breakdancing widths (R = S = 64: K = R+S = 2R = 128, W_in = 3R =
+192) over 4096 rows.  Every product must lie within 1e-4 of its scale of
+the float64 product, the bar the CUDA tests hold the kernels' gradients
+to; one-pass TF32 must not, which is why the split exists."""
+
+import numpy as np
+import pytest
+import torch
+
+from movenet_tpu_torch.ops import stack_kernel as sk
+
+R, S, WIN, ROWS = 64, 64, 192, 4096
+
+
+def _bf16(x):
+    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).to(
+        torch.float32)
+
+
+def _f32(x):
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _operands(seed=0):
+    """(A, B) of each product of the backward, float32 tensors holding
+    what the kernels load: activations widened from bf16, gradients and
+    weights in float32."""
+    rng = np.random.default_rng(seed)
+    hp = _bf16(rng.normal(0, 0.5, (ROWS, WIN)))           # [h | h(t-d) | ctx]
+    tf = _bf16(np.tanh(rng.normal(0, 1, (ROWS, R))))
+    sg = _bf16(1 / (1 + np.exp(-rng.normal(0, 1, (ROWS, R)))))
+    gated = tf * sg
+    dout = _f32(rng.normal(0, 1e-3, (ROWS, R + S)))        # [dh | dskip]
+    dfg = _f32(rng.normal(0, 1e-3, (ROWS, 2 * R)))
+    w_out = _f32(rng.normal(0, R ** -0.5, (R, R + S)))
+    w_fg = _f32(rng.normal(0, WIN ** -0.5, (WIN, 2 * R)))
+    xc = _bf16(rng.normal(0, 0.5, (ROWS // 10, R)))
+    dctx = _f32(rng.normal(0, 1e-3, (ROWS // 10, 10 * R)))
+    return {"dgated": (dout, w_out.t()), "dfg_w": (dfg, w_fg.t()),
+            "dw_fg": (hp.t(), dfg), "dw_out": (gated.t(), dout),
+            "dw_up": (xc.t(), dctx)}
+
+
+def _rel_err(got, a, b):
+    want = torch.matmul(a.double(), b.double())
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10          # a TF32 step above 1
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -20, 1.0 + 2.0 ** -10,
+                      1.0 + 3 * 2.0 ** -11, 0.0], dtype=torch.float32)
+    got = sk.tf32_rna(x).tolist()
+    assert got == [one, -one, 1.0, one, 1.0 + 2.0 ** -9, 0.0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_values_and_their_products_split_exactly(seed):
+    """An operand of at most 16 significant bits (bf16, or tf * sg) is
+    big + small exactly, each part in TF32; a bf16 value is its own
+    big part (no second pass)."""
+    rng = np.random.default_rng(seed)
+    x = _bf16(rng.normal(0, 1, 20000))
+    y = _bf16(rng.normal(0, 1, 20000))
+    big, small = sk.tf32_split(x)
+    assert torch.equal(big, x) and not small.any()
+    prod = x * y
+    assert torch.equal(prod.double(), x.double() * y.double())
+    big, small = sk.tf32_split(prod)
+    assert torch.equal(big + small, prod)
+    assert torch.equal(big.double() + small.double(), prod.double())
+    assert torch.equal(sk.tf32_rna(small), small)
+    assert torch.equal(sk.tf32_rna(big), big)
+
+
+def test_float32_split_leaves_about_2_to_the_minus_22():
+    x = _f32(np.random.default_rng(3).normal(0, 1, 20000))
+    big, small = sk.tf32_split(x)
+    rest = (x.double() - big.double() - small.double()).abs()
+    assert float((rest / x.double().abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("name", sorted(sk.BWD_SPLIT_PASSES))
+def test_split_products_hold_float32_tolerance(name):
+    a, b = _operands()[name]
+    split_a, split_b = sk.BWD_SPLIT_PASSES[name]
+    got = sk.tf32_split_matmul(a, b, split_a, split_b)
+    assert _rel_err(got, a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("name", sorted(sk.BWD_SPLIT_PASSES))
+def test_one_pass_tf32_misses_the_tolerance(name):
+    a, b = _operands()[name]
+    got = sk.tf32_split_matmul(a, b, False, False)
+    assert _rel_err(got, a, b) > 1e-4
+
+
+def test_exact_operands_need_no_split():
+    """A bf16 operand split or not gives the same product bits: the
+    two-pass products lose nothing to the missing pass."""
+    ops = _operands()
+    for name in ("dw_fg", "dw_up"):
+        a, b = ops[name]
+        assert torch.equal(sk.tf32_split_matmul(a, b, False, True),
+                           sk.tf32_split_matmul(a, b, True, True))

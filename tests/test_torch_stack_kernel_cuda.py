@@ -9,7 +9,16 @@ bf16 values whose float32 sums the kernel and torch add in different
 orders, so a stored value may sit one bf16 step away: within 2% of each
 output's scale.  The backward takes the same saved tensors in both
 versions and sums in float32: within 1e-4 of each gradient's scale.  The
-recompute kernels' tolerances are stated at their test."""
+recompute kernels' tolerances are stated at their test.
+
+The save backward's products run on the tensor cores (mma.sync m16n8k8
+TF32, float32 sums) with each float32 operand split into two TF32 parts,
+big and small, as it is loaded: dgated = [dh | dskip] W_out^T and dfg_w =
+dfg W_fg^T in the layer launch take three passes (small*big, big*small,
+big*big), as does dW_out = gated^T [dh | dskip] (gated = tf*sg splits
+exactly); dW_fg = [hsave | hsave(t-d) | ctx]^T dfg and the projection's
+dW_up = xc^T dctx take two (their bf16 operand is exact in TF32).  One
+pass of TF32 would miss 1e-4 (tests/test_torch_split_tf32.py)."""
 
 import numpy as np
 import pytest
@@ -101,7 +110,7 @@ def test_stack_kernels_match_plain(cuda, r, s, t, ctx_kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,s", [(64, 64), (16, 8)])
+@pytest.mark.parametrize("r,s", [(64, 64), (16, 8), (32, 8), (64, 8)])
 def test_stack_bwd_is_deterministic(cuda, r, s):
     """Two backward calls on the same inputs give the same bits (the
     table gradient adds each column's rows in order): a resumed run then
@@ -114,6 +123,37 @@ def test_stack_bwd_is_deterministic(cuda, r, s):
              64, DIL, proj)
     first = ks.stack_bwd(*bargs)
     second = ks.stack_bwd(*bargs)
+    for x, y in zip(first, second):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_stack_head_bwd_is_deterministic(cuda):
+    """The merged route's backward (the head launch, then the layer sweep
+    from its float32 dskip) gives the same bits twice."""
+    r, s, c, t, batch, rf = 64, 64, 64, 1280, 2, 15
+    g = torch.Generator().manual_seed(1)
+    n_layers, win, bf = len(DIL), 3 * r, torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(cuda)
+
+    codes = torch.randint(0, c, (batch, t), generator=g, dtype=torch.int32)
+    tgt = torch.roll(codes, -1, 1).t().contiguous().to(cuda)
+    ctx = rn(batch, t, r, scale=0.5).to(bf)
+    w_fg = rn(n_layers, win, 2 * r, scale=win ** -0.5)
+    w_out = rn(n_layers, r, r + s, scale=r ** -0.5)
+    head = (rn(s, c, scale=s ** -0.5), rn(c, scale=0.1),
+            rn(c, c, scale=c ** -0.5), rn(c, scale=0.1))
+    args = (rn(batch, t, r, scale=0.5).to(bf), ctx,
+            rn(n_layers * batch, 2 * r, scale=0.1), w_fg, w_out,
+            rn(n_layers, r + s, scale=0.1), tgt, *head, DIL, rf, True)
+    _, _, skip, hsave, tfsg = sk.stack_head_fwd_plain(*args)
+    dloss = torch.tensor(1.0 / (batch * (t - rf)), device=cuda)
+    bargs = (hsave, tfsg, ctx, w_fg, w_out, skip, tgt, *head, dloss, DIL,
+             rf, True)
+    first = ks.stack_head_bwd(*bargs)
+    second = ks.stack_head_bwd(*bargs)
     for x, y in zip(first, second):
         assert (x is None and y is None) or torch.equal(x, y)
 
