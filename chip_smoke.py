@@ -64,7 +64,9 @@ Phases (any failure exits non-zero and prints no result):
   11. recompute kernels vs plain: at experiment 02's CLI widths (layer 3
      x stack 3, C=R=64, S=8, bf16, B=2, T=160000, seeded random weights,
      codes and video (2, 160, 64, 64, 1) through the encoder, flat ctx)
-     the tails forward (skip, snapshots) and backward (dx, dctx, every
+     and at the flagship width (layer 10 x stack 3, R=S=64, B=2,
+     T=160000, no ctx, seeded random x and weights) the recompute
+     forward (skip, layer checkpoints) and backward (dx, dctx, every
      gradient) against their plain versions, with their times; one
      ``fused_train_loss`` loss + backward through the recompute strategy
      against the save strategy (loss and every gradient within the
@@ -88,28 +90,35 @@ Phases (any failure exits non-zero and prints no result):
      valid splits at the real clip format (8 + 4 clips), then
      ``movenet_tpu_torch.train.cli.main`` with experiment 02's flags and
      --fused_strategy recompute for 1 epoch of 4 steps: the trunk runs
-     only the tails kernels (one forward per train step and validation
+     only the recompute kernels (one forward per train step and validation
      batch, one backward per step), the losses in metrics.jsonl are
      finite, checkpoint 0 holds params, optimizer state and step 4;
   15. resume: the same command with --n_epochs 2 --auto_resume 1 starts
      at epoch 1 and ends at step 8; an uninterrupted 2-epoch run from
      the same seed ends with the same params and optimizer state;
-  16. packed head: with PACKED_HEAD on, at the breakdancing head shapes
+  16. flagship trainer CLI: synthetic clips at the real format (8 + 4),
+     then the trainer CLI with the flagship widths (layer 10 x stack 3,
+     C=256, R=S=64, batch 2, --fused_blocks 1, the default strategy)
+     for 1 epoch of 4 steps: the strategy resolves to recompute (only
+     the recompute kernels run the trunk), the losses are finite; then
+     one loss + backward of the trained model through each strategy:
+     its peak device memory;
+  17. packed head: with PACKED_HEAD on, at the breakdancing head shapes
      (B=2, T=160000, S=C=64, bf16 skip, seeded), parity on and off, the
      packed kernels (head_loss.py:169 / :218) against their plain
      versions (loss, equal match, every gradient) and loosely against
      the unpacked kernels; ``fused_head_loss`` at tgt_off 0 forward +
      backward (the main path of this form) launches each packed kernel
      once and no unpacked one;
-  17. wide head: the head kernels at (S, C) = (8, 128) with B=3 and B=2
+  18. wide head: the head kernels at (S, C) = (8, 128) with B=3 and B=2
      (experiments 03 and 04) and (16, 256) with B=2, T=160000, bf16,
      against their plain versions;
-  18. narrow trunk: the save kernels (embed form, video triple) at
+  19. narrow trunk: the save kernels (embed form, video triple) at
      experiment 03's shapes (B=3, L=4, dilations (1,2,1,2), R=32, S=8,
      V=128) and experiment 04's (B=2, L=14, dilations 1..8192, R=16, S=8,
      V=128), T=160000, forward and backward against their plain versions,
      the backward's device time by grid;
-  19. experiments 03 and 04 (the main path of these widths): the trainer
+  20. experiments 03 and 04 (the main path of these widths): the trainer
      CLI with the flags of experiments/torch/03_*.sh and 04_*.sh on
      synthetic clips at the real format (30 train + 3 valid), cut only in
      epochs (2), steps per epoch (1 and 2) and clips; per-update losses
@@ -119,13 +128,13 @@ Phases (any failure exits non-zero and prints no result):
      kernel); experiment 04 cut at the end of epoch 0 and resumed equals
      the uninterrupted run bit for bit (params, optimizer state, LR and
      beta1);
-  20. times: samples/s of the AR kernels and the plain versions (video
+  21. times: samples/s of the AR kernels and the plain versions (video
      and audio-only side by side), the speculative kernel's time per
      generated sample beside the standard kernel's, the train step and
      kernel times, the merged route's against the split route's, the
      gated block's and the per-block trunk's, the new forms' and the
-     experiments' update times;
-  21. the kernels line (18 entries, every form of the fourteen TPU kernel
+     experiments' update times, the flagship trainer step;
+  22. the kernels line (18 entries, every form of the fourteen TPU kernel
      functions, each with its bound from this run's shapes; the new
      widths' readings under "widths"), then the card line, then the
      result line.
@@ -215,6 +224,21 @@ class PhaseFailed(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseFailed(msg)
+
+
+def trainer_cli(argv):
+    """``movenet_tpu_torch.train.cli.main(argv)``; fails unless every
+    thread its loaders started has ended when it returns (a loader thread
+    left copying to the card aborts the interpreter at exit)."""
+    from movenet_tpu_torch.train import cli
+
+    before = set(threading.enumerate())
+    state = cli.main(argv)
+    left = [t.name for t in set(threading.enumerate()) - before
+            if t.is_alive()]
+    check(not left, f"threads still running after the trainer CLI "
+          f"returned: {left}")
+    return state
 
 
 def card_line() -> str:
@@ -680,22 +704,27 @@ def train_bounds(b, t, l, r, s, c, v, win, proj):
             "head_bwd": bound(head_bwd_bytes, head_bwd_ops, BF16_OPS_S)}
 
 
-def tails_bounds(b, t, l, r, s, win, sum_d, tile):
+def tails_bounds(b, t, l, r, s, win, every):
     """(bound_ms, bound_by) of the recompute kernels: the forward reads x
-    and ctx and writes skip and the snapshots; the backward also reads
-    dskip and writes dx, dctx and the gradients.  Operations: the
-    forward's products on bf16 operands (the backward recomputes them
-    once more), and the backward's gradient products on float32 operands
-    (67 TF/s without tensor cores)."""
+    and ctx and writes skip and the layer checkpoints; the backward reads
+    x, the checkpoints, ctx and dskip and writes dx, dctx and the
+    gradients.  Operations: the forward's products on bf16 operands at
+    989 TF/s; the backward's bf16 products (the rebuilt layers, L -
+    ceil(L/every), and fg of every layer) at 989 TF/s plus its gradient
+    products on float32 operands on the tensor cores at the TF32 peak,
+    counted once, as for the save backward."""
     m = b * t
     w_bytes = 4 * l * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
     ctx = 2 * m * r if win == 3 * r else 0
-    snap = 2 * b * (t // tile) * sum_d * r
+    ckpt = 2 * m * r * len(range(every, l, every))
     grads = 4 * l * (win * 2 * r + r * (r + s) + r + s + b * 2 * r)
-    fwd_bytes = 2 * m * r + ctx + w_bytes + 2 * m * s + snap
-    bwd_bytes = 2 * m * r + ctx + snap + 2 * m * s + w_bytes \
+    fwd_bytes = 2 * m * r + ctx + w_bytes + 2 * m * s + ckpt
+    bwd_bytes = 2 * m * r + ckpt + ctx + 2 * m * s + w_bytes \
         + 2 * m * r + ctx + grads
-    fwd_ops = 2 * m * l * (win * 2 * r + r * (r + s))
+    layer_ops = 2 * m * (win * 2 * r + r * (r + s))
+    fwd_ops = l * layer_ops
+    rebuilt = l - len(range(0, l, every))
+    bf16_ops = rebuilt * layer_ops + l * 2 * m * win * 2 * r
     grad_ops = 2 * m * l * ((r + s) * r + 2 * r * win + win * 2 * r
                             + r * (r + s))
 
@@ -704,8 +733,8 @@ def tails_bounds(b, t, l, r, s, win, sum_d, tile):
         return (tb, "bytes") if tb >= ops_ms else (ops_ms, "operations")
 
     return {"stack_fwd_tails": bound(fwd_bytes, fwd_ops / BF16_OPS_S * 1e3),
-            "stack_bwd_tails": bound(bwd_bytes, (fwd_ops / BF16_OPS_S
-                                                 + grad_ops / F32_OPS_S)
+            "stack_bwd_tails": bound(bwd_bytes, (bf16_ops / BF16_OPS_S
+                                                 + grad_ops / TF32_OPS_S)
                                      * 1e3)}
 
 
@@ -820,15 +849,16 @@ def ptxas_report(log: str):
 
 
 def bwd_smem_note(lib, kernel: str) -> str:
-    """The dynamic shared memory of a save-backward kernel instance
-    (stack_bwd_layer_kernel<R,S> at win = 3R, stack_wgrad_kernel<MODE,R,
-    S,KA>), from the library's own sizes; "" for another kernel."""
-    m = re.match(r"stack_bwd_layer_kernel<(\d+),(\d+)>$", kernel)
+    """The dynamic shared memory of a backward kernel instance
+    (stack_bwd_layer_kernel<R,S,RC> at win = 3R, its recompute form RC=1
+    too, stack_wgrad_kernel<MODE,R,S,KA>), from the library's own sizes;
+    "" for another kernel."""
+    m = re.match(r"stack_bwd_layer_kernel<(\d+),(\d+),([01])>$", kernel)
     if m:
-        r, s_ = int(m.group(1)), int(m.group(2))
+        r, s_, rc = (int(x) for x in m.groups())
         return (f"; dynamic shared memory "
-                f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -1)} bytes "
-                f"(win = 3R)")
+                f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -2 if rc else -1)}"
+                f" bytes (win = 3R)")
     m = re.match(r"stack_wgrad_kernel<(\d),(\d+),(\d+),(\d+)>$", kernel)
     if m:
         mode, r, s_, ka = (int(x) for x in m.groups())
@@ -1088,16 +1118,78 @@ def exp02_setup(torch, np, seed=0):
     return cfg, model.to("cuda"), batch.to("cuda")
 
 
-def phase_tails_kernels(torch, np, model, batch):
-    """The recompute kernels against their plain versions at experiment
-    02's widths, and their times; returns records by kernel."""
-    from movenet_tpu_torch.models import fused
+def tails_compare(torch, args, dskip, label, grad_tol):
+    """The recompute kernels against their plain versions on ``args`` =
+    (x, ctx, b_fg, w_fg, w_out, b_out, dilations) and dskip, and their
+    times; returns records by kernel."""
     from movenet_tpu_torch.ops import stack_kernel as sk
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
 
-    dil = tuple(model.dilations)
-    bf = torch.bfloat16
+    x = args[0]
     rec = {}
+    # tolerance: bf16 outputs whose float32 sums the kernel and torch add
+    # in other orders may sit one bf16 step apart, and a step in h moves
+    # the layers above: 2% of each output's scale, as the save forward
+    got = ks.stack_fwd_tails(*args)
+    want = sk.stack_fwd_tails_plain(*args)
+    errs, equal = {}, {}
+    for name, u, w in zip(("skip", "ckpt"), got, want):
+        if not w.numel():
+            continue
+        errs[name] = _err(u, w)
+        equal[name] = float((u == w).float().mean())
+        check(errs[name] <= 2e-2 * _scale(w),
+              f"stack_fwd_tails {label} {name}: max err {errs[name]:.3g}, "
+              f"scale {_scale(w):.3g}")
+    rec["stack_fwd_tails"] = dict(
+        max_abs_err=max(errs.values()), errs=errs, equal=equal,
+        ms=time_cuda(torch, lambda: ks.run_fwd_tails(
+            ks.library(), *args, stream=ks._stream(x)), 5),
+        plain_ms=time_cuda(torch, lambda: sk.stack_fwd_tails_plain(*args),
+                           2))
+    # backward from the plain checkpoints and the seeded dskip: dx and
+    # dctx (bf16) within 2%, every gradient within grad_tol of its scale
+    bargs = (x, want[1], *args[1:-1], dskip, args[-1])
+    got = ks.stack_bwd_tails(*bargs)
+    want = sk.stack_bwd_tails_plain(*bargs)
+    errs = {}
+    for name, u, w in zip(("dx", "dctx", "db_fg", "dw_fg", "dw_out",
+                           "db_out"), got, want):
+        if w is None:
+            continue
+        errs[name] = _err(u, w)
+        tol = (2e-2 if name in ("dx", "dctx") else grad_tol) * _scale(w)
+        check(errs[name] <= tol, f"stack_bwd_tails {label} {name}: max "
+              f"err {errs[name]:.3g}, scale {_scale(w):.3g}")
+    rec["stack_bwd_tails"] = dict(
+        max_abs_err=max(errs.values()), errs=errs,
+        ms=time_cuda(torch, lambda: ks.run_bwd_tails(
+            ks.library(), *bargs, stream=ks._stream(x)), 5),
+        plain_ms=time_cuda(torch, lambda: sk.stack_bwd_tails_plain(*bargs),
+                           2))
+    for name, r in rec.items():
+        errs = ", ".join(f"{k} {v:.3g}" for k, v in r["errs"].items())
+        extra = ""
+        if "equal" in r:
+            extra = "; bit-equal share " + ", ".join(
+                f"{k} {v:.6f}" for k, v in r["equal"].items())
+        print(f"recompute kernel {name} {label} vs plain: {errs}{extra}; "
+              f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms",
+              flush=True)
+    return rec
+
+
+def phase_tails_kernels(torch, np, model, batch):
+    """The recompute kernels against their plain versions at experiment
+    02's widths on the model's own inputs, then at the flagship width
+    (layer 10 x stack 3, R=S=64, B=2, T=160000, no ctx, seeded random x
+    and weights); returns (records by kernel at experiment 02, records at
+    the flagship)."""
+    from movenet_tpu_torch.models import fused
+    from movenet_tpu_torch.ops import stack_kernel as sk
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(5)
     with torch.no_grad():
         ctx, (b_fg, w_fg, w_out, b_out) = fused._prepare_trunk(
             model, batch.codes, batch.video, None)
@@ -1105,57 +1197,29 @@ def phase_tails_kernels(torch, np, model, batch):
         ctx = sk.ctx_flatten(ctx, bf) if sk.ctx_is_proj(ctx) else ctx
         x = sk.front_embed(model.front_cur, model.front_past, batch.codes,
                            bf)
-        fargs = (x, ctx, b_fg, w_fg, w_out, b_out, dil)
-        # tolerance: bf16 outputs whose float32 sums the kernel and torch
-        # add in other orders may sit one bf16 step apart, and a step in h
-        # moves the layers above: 2% of each output's scale, as the save
-        # forward
-        got = ks.stack_fwd_tails(*fargs)
-        want = sk.stack_fwd_tails_plain(*fargs)
-        errs, equal = {}, {}
-        for name, u, w in zip(("skip", "tails"), got, want):
-            errs[name] = _err(u, w)
-            equal[name] = float((u == w).float().mean())
-            check(errs[name] <= 2e-2 * _scale(w),
-                  f"stack_fwd_tails {name}: max err {errs[name]:.3g}, "
-                  f"scale {_scale(w):.3g}")
-        rec["stack_fwd_tails"] = dict(
-            max_abs_err=max(errs.values()), errs=errs, equal=equal,
-            ms=time_cuda(torch, lambda: ks.run_fwd_tails(
-                ks.library(), *fargs, stream=ks._stream(x)), 5),
-            plain_ms=time_cuda(torch, lambda: sk.stack_fwd_tails_plain(
-                *fargs), 2))
-        # backward from the plain snapshots and a seeded dskip; float32
-        # sums over 320000 rows in other orders: 1e-3 of each gradient's
-        # scale, dx and dctx (bf16) 2%, as phase_train_kernels
-        g = torch.Generator(device="cuda").manual_seed(5)
-        dskip = (torch.randn(want[0].shape, generator=g, device="cuda")
+        t, s = x.shape[1], w_out.shape[2] - x.shape[2]
+        dskip = (torch.randn(2, t, s, generator=g, device="cuda")
                  * 1e-3).to(bf)
-        bargs = (x, want[1], ctx, b_fg, w_fg, w_out, b_out, dskip, dil)
-        got = ks.stack_bwd_tails(*bargs)
-        want = sk.stack_bwd_tails_plain(*bargs)
-        errs = {}
-        for name, u, w in zip(("dx", "dctx", "db_fg", "dw_fg", "dw_out",
-                               "db_out"), got, want):
-            errs[name] = _err(u, w)
-            tol = (2e-2 if name in ("dx", "dctx") else 1e-3) * _scale(w)
-            check(errs[name] <= tol, f"stack_bwd_tails {name}: max err "
-                  f"{errs[name]:.3g}, scale {_scale(w):.3g}")
-        rec["stack_bwd_tails"] = dict(
-            max_abs_err=max(errs.values()), errs=errs,
-            ms=time_cuda(torch, lambda: ks.run_bwd_tails(
-                ks.library(), *bargs, stream=ks._stream(x)), 5),
-            plain_ms=time_cuda(torch, lambda: sk.stack_bwd_tails_plain(
-                *bargs), 2))
-    for name, r in rec.items():
-        errs = ", ".join(f"{k} {v:.3g}" for k, v in r["errs"].items())
-        extra = ""
-        if "equal" in r:
-            extra = "; bit-equal share " + ", ".join(
-                f"{k} {v:.6f}" for k, v in r["equal"].items())
-        print(f"recompute kernel {name} vs plain: {errs}{extra}; kernel "
-              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
-    return rec
+        # float32 sums over 320000 rows in other orders: 1e-3 of each
+        # gradient's scale, as phase_train_kernels
+        exp02 = tails_compare(torch, (x, ctx, b_fg, w_fg, w_out, b_out,
+                                      tuple(model.dilations)), dskip,
+                              "experiment 02", 1e-3)
+        del x, ctx
+        dil = tuple(2 ** i for i in range(10)) * 3
+        n, r = len(dil), 64
+
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+
+        args = (rn(2, t, r, scale=0.5).to(bf), None,
+                rn(n * 2, 2 * r, scale=0.1),
+                rn(n, 2 * r, 2 * r, scale=(2 * r) ** -0.5),
+                rn(n, r, 2 * r, scale=r ** -0.5), rn(n, 2 * r, scale=0.1),
+                dil)
+        dskip = (rn(2, t, r) * 1e-3).to(bf)
+        flagship = tails_compare(torch, args, dskip, "flagship", 1e-3)
+    return exp02, flagship
 
 
 def phase_recompute_vs_save(torch, np, model, batch):
@@ -1635,9 +1699,7 @@ class timed_train_steps:
 def cli_run(ds, out, logs, extra):
     """The trainer CLI with experiment 02's flags and the recompute
     strategy."""
-    from movenet_tpu_torch.train import cli
-
-    return cli.main(["--dataset", str(ds), *EXP02_FLAGS, "--fused_strategy",
+    return trainer_cli(["--dataset", str(ds), *EXP02_FLAGS, "--fused_strategy",
                      "recompute", "--val_batch_size", "2",
                      "--n_steps_per_epoch", "4", "--model_output_path",
                      str(out), "--logger", "jsonl", "--training_logs_path",
@@ -1722,6 +1784,91 @@ def phase_resume(torch, np, root, ds):
     check(diff == 0.0 and opt_diff == 0.0,
           "the resumed run's params or optimizer state differ from the "
           "uninterrupted run's")
+
+
+# the flagship widths through the trainer CLI (README's flagship: layer 10
+# x stack 3, C=256, R=S=64) at batch 2 with the fused blocks and the
+# default strategy: hsave would be 30*2*160000*64*2 = 1.23 GB, so "auto"
+# resolves to recompute, as in the JAX package
+FLAGSHIP_FLAGS = ["--layer_size", "10", "--stack_size", "3",
+                  "--residual_channels", "64", "--skip_channels", "64",
+                  "--input_channels", "256", "--batch_size", "2",
+                  "--fused_blocks", "1"]
+
+
+def phase_flagship_cli(torch, np, root):
+    """The trainer CLI at FLAGSHIP_FLAGS for 1 epoch of 4 steps on
+    synthetic clips at the real format: the trunk runs only the recompute
+    kernels and the losses are finite; then one loss + backward of the
+    trained model on seeded random codes and video through each strategy
+    for its peak device memory.  Returns a summary."""
+    from movenet_tpu_torch.data import kinetics_index, make_synthetic_dataset
+    from movenet_tpu_torch.models import fused
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.train import Batch
+
+    ds = root / "flagship_clips"
+    make_synthetic_dataset(ds, splits=("train", "valid"),
+                           categories=["breakdancing"], clips_per_category=8)
+    n_val = len(kinetics_index(ds, train=False)) // 2
+    ks.reset_launch_counts()
+    kh.reset_launch_counts()
+    with timed_train_steps(torch) as steps:
+        state = trainer_cli(["--dataset", str(ds), *FLAGSHIP_FLAGS,
+                          "--n_epochs", "1", "--n_steps_per_epoch", "4",
+                          "--val_batch_size", "2", "--model_output_path",
+                          str(root / "flagship_run"), "--logger", "jsonl",
+                          "--training_logs_path",
+                          str(root / "flagship_logs")])
+    torch.cuda.synchronize()
+    launches = {**ks.launch_counts, **kh.launch_counts}
+    check(state.step == 4, f"flagship CLI took {state.step} steps, not 4")
+    want = {"stack_fwd_tails": 4 + n_val, "stack_bwd_tails": 4,
+            "stack_fwd": 0, "stack_bwd": 0}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"flagship CLI launches {launches}, expected {want} (the default "
+          "strategy must resolve to recompute)")
+    lines = [json.loads(l) for l in (root / "flagship_logs" / "metrics.jsonl")
+             .read_text().splitlines()]
+    losses = [l["loss"] for l in lines if l["tag"] in ("train", "val")]
+    check(losses and all(np.isfinite(losses)), f"flagship losses {losses}")
+    median = float(np.median(steps.ms[1:]))
+    model = state.module
+    rng = np.random.default_rng(0)
+    batch = Batch(
+        codes=torch.from_numpy(rng.integers(
+            0, 256, size=(2, model.max_audio_frames))).int(),
+        video=torch.from_numpy(rng.standard_normal(
+            (2, model.max_video_frames, 64, 64, 1)).astype(np.float32))
+    ).to("cuda")
+    peaks, ms = {}, {}
+    for strategy in ("save", "recompute"):
+        model.fused_strategy = strategy
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ks.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _ = fused.fused_train_loss(model, batch.codes, batch.video)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms[strategy] = (time.perf_counter() - t0) * 1e3
+        peaks[strategy] = torch.cuda.max_memory_allocated() / 1e9
+        check(np.isfinite(float(loss.detach())), f"{strategy} loss")
+        key = "stack_fwd" if strategy == "save" else "stack_fwd_tails"
+        check(ks.launch_counts[key] == 1, f"{strategy}: {ks.launch_counts}")
+    model.fused_strategy = None
+    model.zero_grad(set_to_none=True)
+    print(f"flagship trainer CLI ({' '.join(FLAGSHIP_FLAGS)}, default "
+          f"strategy: recompute): 4 steps + {n_val} validation batches; step "
+          f"ms {[round(v, 2) for v in steps.ms]} (median after the first "
+          f"{median:.2f}); losses {[round(v, 6) for v in losses]}; launches "
+          f"{launches}; one loss + backward: peak memory recompute "
+          f"{peaks['recompute']:.3f} GB, save {peaks['save']:.3f} GB; "
+          f"{ms['recompute']:.1f} ms vs {ms['save']:.1f} ms (first calls)",
+          flush=True)
+    return dict(step_ms=median, peaks=peaks, launches=launches)
 
 
 PACKED_KERNELS = {
@@ -2095,9 +2242,7 @@ def preempt_after(n):
 
 
 def exp_run(name, ds, out, logs, extra):
-    from movenet_tpu_torch.train import cli
-
-    return cli.main(["--dataset", str(ds), *script_flags(name),
+    return trainer_cli(["--dataset", str(ds), *script_flags(name),
                      "--model_output_path", str(out), "--logger", "jsonl",
                      "--training_logs_path", str(logs),
                      "--log_every_n_steps", "1", *extra])
@@ -2341,7 +2486,8 @@ def main() -> int:
 
         phase = "recompute kernels vs plain"
         _, e2_model, e2_batch = exp02_setup(torch, np)
-        tails_recs = phase_tails_kernels(torch, np, e2_model, e2_batch)
+        tails_recs, tails_flagship = phase_tails_kernels(torch, np, e2_model,
+                                                         e2_batch)
         rvs = phase_recompute_vs_save(torch, np, e2_model, e2_batch)
         del e2_model, e2_batch
 
@@ -2364,6 +2510,10 @@ def main() -> int:
                 launches[k] = cli_launches[k]
             phase = "resume"
             phase_resume(torch, np, Path(tmp), ds)
+            phase = "flagship trainer CLI"
+            flag_cli = phase_flagship_cli(torch, np, Path(tmp))
+            for k in TAILS_KERNELS:
+                launches[k] += flag_cli["launches"][k]
 
         phase = "packed head"
         packed_recs, packed_launches = phase_packed_head(torch, np, bd_model,
@@ -2417,7 +2567,14 @@ def main() -> int:
               f"(save {rvs['peak_save']:.3f} GB); {card}", flush=True)
         for name, r in tails_recs.items():
             print(f"time {name}: kernel {r['ms']:.3f} ms, plain "
-                  f"{r['plain_ms']:.3f} ms; {card}", flush=True)
+                  f"{r['plain_ms']:.3f} ms; flagship (L=30, R=S=64, B=2, "
+                  f"T=160000, no ctx) kernel {tails_flagship[name]['ms']:.3f}"
+                  f" ms, plain {tails_flagship[name]['plain_ms']:.3f} ms; "
+                  f"{card}", flush=True)
+        print(f"time flagship trainer CLI (recompute): step "
+              f"{flag_cli['step_ms']:.2f} ms (median), peak memory of a loss "
+              f"+ backward {flag_cli['peaks']['recompute']:.3f} GB (save "
+              f"{flag_cli['peaks']['save']:.3f} GB); {card}", flush=True)
         k, pl = runs["kernels"], runs["plain"]
         print(f"time train (breakdancing, B=2, T=160000, bf16): step "
               f"{k['step_ms']:.2f} ms, {1e3 / k['step_ms']:.3f} steps/s, "
@@ -2507,19 +2664,27 @@ def main() -> int:
                 "shape": "breakdancing: B=2, T=160000, L=9, R=S=C=64, bf16",
                 "widths": widths,
                 **({"by_grid_ms": r["by_grid"]} if "by_grid" in r else {})})
-        from movenet_tpu_torch.ops.stack_kernel import TAILS_TILE
-        tb = tails_bounds(2, 160_000, 9, 64, 8, 3 * 64, 21, TAILS_TILE)
+        from movenet_tpu_torch.ops.stack_kernel import tails_every
+        tb = tails_bounds(2, 160_000, 9, 64, 8, 3 * 64, tails_every(9))
+        tbf = tails_bounds(2, 160_000, 30, 64, 64, 2 * 64, tails_every(30))
         for name, (source, replaces) in TAILS_KERNELS.items():
-            r = tails_recs[name]
+            r, f = tails_recs[name], tails_flagship[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "max_abs_err": max(r["max_abs_err"], f["max_abs_err"]),
+                "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": tb[name][0],
                 "bound_by": tb[name][1], "library_ms": None,
                 "matches_plain": True,
                 "shape": "experiment 02 CLI: B=2, T=160000, L=9, R=C=64, "
-                         "S=8, bf16, flat ctx"})
+                         "S=8, bf16, flat ctx",
+                "widths": [dict(
+                    shape="flagship: B=2, T=160000, L=30 (dilations 1..512 "
+                          "x 3), R=S=64, bf16, no ctx",
+                    ms=f["ms"], plain_ms=f["plain_ms"],
+                    max_abs_err=f["max_abs_err"], bound_ms=tbf[name][0],
+                    bound_by=tbf[name][1])]})
         mb = merged_bounds(2, mc.max_audio_frames, len(bd_model.dilations),
                            mc.residual_channels, mc.skip_channels,
                            mc.input_channels, 3 * mc.residual_channels)

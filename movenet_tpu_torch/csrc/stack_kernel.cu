@@ -8,7 +8,8 @@
 //     backward from hsave/tfsg, with the embedding-table gradient and the
 //     stride-10 video-projection backward folded in;
 //   _fwd_kernel_tails (stack_kernel.py:929) and _bwd_kernel_tails (:1031),
-//     the "recompute" strategy: see the section of that name below;
+//     the "recompute" strategy: layer-major launches with layer
+//     checkpoints, see the section of that name below;
 //   _fwd_kernel_head (stack_kernel.py:464, pallas_call at :576) and
 //     _bwd_kernel_head (:624, pallas_call at :822), the trunk merged with
 //     the output head and the CE loss.
@@ -60,7 +61,7 @@
 // head's weight gradients as per-block partials, and dskip in float32,
 // which the layer launches and the W_out gradient read unrounded.
 // The TPU's per-tile ring snapshots (tails) are not produced: hsave holds
-// those rows.
+// those rows (the recompute strategy keeps layer checkpoints instead).
 //
 // Products.  The forward's are fmaf in float32 over bf16 operands in
 // shared memory.  The save backward's take float32 operands, as the TPU
@@ -71,7 +72,9 @@
 // the weight gradients dW_out = gated^T [dh | dskip] in three and dW_fg =
 // [hsave | hsave(t-d) | ctx]^T dfg and dW_up = xc^T dctx in two.  Every
 // warp walks its rows and k in a fixed order: two calls give the same
-// bits.  The recompute, merged-head and dxc products keep fmaf.
+// bits.  The recompute strategy's products run on the tensor cores too
+// (bf16 mma for its forward products, the save backward's split-TF32
+// ones for its gradients); the merged head and dxc keep fmaf.
 //
 // Bound (breakdancing shape: B=2, T=160000, L=9, R=S=64, ctx): forward
 // about 1.9e11 flop in bf16 operands and 1.19 GB of compulsory traffic
@@ -477,6 +480,85 @@ __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d += a b for one 16x8 tile, k = 16, bf16 operands (fragments as the
+// PTX ISA lays out mma.m16n8k16 with .bf16 operands: A lane (g, q) holds
+// the pairs (g, 2q), (g + 8, 2q), (g, 2q + 8), (g + 8, 2q + 8); B the
+// pairs (k = 2q, g), (2q + 8, g); the lower column or k in the low half)
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned ld32(const bf16_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// 16 bytes (8 bf16) of one row of the recompute product's operand [h |
+// h(t-d) | ctx], from column c8 of its W_in: zero past the rows, and for
+// the tap before t = d.  Row indices fit 32 bits (B*T < 2^31).
+template <int R>
+__device__ __forceinline__ uint4 hp_item(const bf16_t* h, const bf16_t* ctx,
+                                         long m, long m_total, int t_len,
+                                         int d, int c8) {
+  const uint4 z = make_uint4(0, 0, 0, 0);
+  if (m >= m_total) return z;
+  const int part = c8 / R, j0 = c8 % R;
+  if (part == 0) return *reinterpret_cast<const uint4*>(h + m * R + j0);
+  if (part == 1)
+    return static_cast<int>(static_cast<unsigned>(m) %
+                            static_cast<unsigned>(t_len)) >= d
+               ? *reinterpret_cast<const uint4*>(h + (m - d) * R + j0)
+               : z;
+  return *reinterpret_cast<const uint4*>(ctx + m * R + j0);
+}
+
+// d += a b over one 16-wide k step, its 16 products summed by the tensor
+// core from zero and added to d in float32 (round to nearest): the tensor
+// core's own accumulation truncates, and over a long k loop that drifts
+// from the float32 sums of the plain version.
+__device__ __forceinline__ void mma_bf16_add(float* d, const unsigned* a,
+                                             const unsigned* b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(t, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// fg = [h | h(t-d) | ctx] W_fg of the recompute strategy, bf16 operands and
+// float32 sums, for one warp's 16 rows of an operand tile hp (bf16, row
+// stride LDH) and NT n tiles: k over W_in in order, each n tile's sum from
+// zero.  bfrag(kk, j, b) gives the B fragment of k step kk and n tile j
+// (W_fg rounded to bf16).  The layer forward, its rebuild in the backward
+// and the layer backward's recompute all sum through here with the same
+// operand values, so they give the same bits.
+template <int NT, int LDH, typename BF>
+__device__ __forceinline__ void fg_mma(float (&acc)[NT][4], const bf16_t* hp,
+                                       int r0, int win, BF bfrag) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int kk = 0; kk < win / 16; ++kk) {
+    const bf16_t* p = hp + (r0 + g) * LDH + 16 * kk + 2 * q;
+    const unsigned af[4] = {ld32(p), ld32(p + 8 * LDH), ld32(p + 8),
+                            ld32(p + 8 * LDH + 8)};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      unsigned b[2];
+      bfrag(kk, j, b);
+      mma_bf16_add(acc[j], af, b);
+    }
+  }
+}
+
+__device__ __forceinline__ float sigmoidf(float g) {
+  return 1.f / (1.f + expf(-g));
+}
+
 template <int N>
 struct Frag {
   unsigned big[N], small[N];
@@ -555,6 +637,13 @@ struct BwdLayerArgs {
   const float* w_fg;     // (W_in, 2R)
   long m_total;
   int t_len, d_in, top, win;
+  // the recompute form (no tfsg): the taps recomputed from this layer's
+  // input, its fg bias rows and the layer's dilation; gated = tf * sg out
+  const bf16_t* hs;      // (M, R) h_l
+  const bf16_t* cx;      // (M, R) ctx, or null
+  const float* b_fg;     // (B, 2R)
+  float* gated;          // (M, R) float32
+  int d;
 };
 
 // Each SM runs two tile pipelines of 8 warps, so that one pipeline's
@@ -582,6 +671,16 @@ struct BwdShape {
   static size_t smem(int win) {
     return static_cast<size_t>(R * kLdd + win * kLdf) * 4 + kHalves * kTile;
   }
+  // the recompute form: the [h | h(t-d) | ctx] rows (bf16, stride 8 mod 16
+  // as kLdt) in place of the taps
+  static constexpr int kLdh = 3 * R + 8;
+  static constexpr size_t kTileRc =
+      static_cast<size_t>(kRows * kLdd + kRows * kLdf) * 4 +
+      static_cast<size_t>(kRows * kLdh) * 2;
+  static size_t smem_rc(int win) {
+    return static_cast<size_t>(R * kLdd + win * kLdf) * 4 +
+           kHalves * kTileRc;
+  }
 };
 
 // A barrier over one pipeline's 256 threads.
@@ -596,21 +695,23 @@ __device__ __forceinline__ void pipe_sync(int h) {
 // One tile's global inputs of one thread, held in registers from the
 // tile before it: dh (the layer above's dh + dfg_w_h with the carry
 // added), dskip and the taps, each 16 bytes of one row.
-template <int R, int S>
+template <int R, int S, bool RC>
 struct BwdTileRegs {
   static constexpr int kRows = BwdShape<R, S>::kRows;
   static constexpr int kNh = kRows * (R / 4) / 256;   // exact
   static constexpr int kNs = (kRows * (S / 4) + 255) / 256;
+  static constexpr int kNp = (kRows * (3 * R / 8) + 255) / 256;
   float4 dh[kNh];
   float4 sk[kNs];
-  uint4 tg[kNh];      // 8 taps per item: 2R per row, as many items as dh
+  uint4 tg[RC ? 1 : kNh];   // 8 taps per item: 2R per row, as many as dh
+  uint4 hp[RC ? kNp : 1];   // the recompute form: [h | h(t-d) | ctx] items
 };
 
 // ht: the thread's index in its pipeline
-template <int R, int S>
+template <int R, int S, bool RC>
 __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
-                                          int ht, BwdTileRegs<R, S>& f) {
-  using Regs = BwdTileRegs<R, S>;
+                                          int ht, BwdTileRegs<R, S, RC>& f) {
+  using Regs = BwdTileRegs<R, S, RC>;
 #pragma unroll
   for (int u = 0; u < Regs::kNh; ++u) {
     const int i = ht + u * 256;
@@ -627,10 +728,21 @@ __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
           v = make_float4(v.x + c.x, v.y + c.y, v.z + c.z, v.w + c.w);
         }
       }
-      tg = *reinterpret_cast<const uint4*>(a.tfsg + m * 2 * R + 2 * j0);
+      if (!RC)
+        tg = *reinterpret_cast<const uint4*>(a.tfsg + m * 2 * R + 2 * j0);
     }
     f.dh[u] = v;
-    f.tg[u] = tg;
+    if (!RC) f.tg[u] = tg;
+  }
+  if (RC) {
+    const int per_row = a.win / 8;
+#pragma unroll
+    for (int u = 0; u < Regs::kNp; ++u) {
+      const int i = ht + u * 256;
+      if (i < Regs::kRows * per_row)
+        f.hp[u] = hp_item<R>(a.hs, a.cx, m0 + i / per_row, a.m_total,
+                             a.t_len, a.d, 8 * (i % per_row));
+    }
   }
 #pragma unroll
   for (int u = 0; u < Regs::kNs; ++u) {
@@ -660,12 +772,18 @@ __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
 // pipeline's 8 warps: warp w takes rows 16 (w % kMt) .. +16 and a
 // contiguous 1 / (8 / kMt) of each product's columns (kTpw n tiles of
 // dgated, W_in / 8 / (8 / kMt) of dfg_w), k in order: fixed sums.
-template <int R, int S>
+// RC: the recompute form (stack_bwd_tails).  Its tile holds [h | h(t-d) |
+// ctx] in place of the taps; each warp recomputes fg for its dgated
+// columns (filter and gate, bf16 mma through fg_mma from W_fg in shared
+// memory rounded as it loads), keeps tf and sg in float32 registers at
+// the places of its dgated sums, and stores gated = tf * sg (float32) for
+// the W_out gradient.
+template <int R, int S, bool RC>
 __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
                                   BwdShape<R, S>::kHalves == 2 ? 1 : 2)
     stack_bwd_layer_kernel(BwdLayerArgs a) {
   using Sh = BwdShape<R, S>;
-  using Regs = BwdTileRegs<R, S>;
+  using Regs = BwdTileRegs<R, S, RC>;
   constexpr int NO = Sh::kNo, LDD = Sh::kLdd, LDF = Sh::kLdf;
   constexpr int LDT = Sh::kLdt, ROWS = Sh::kRows, TPW = Sh::kTpw;
   constexpr int H = Sh::kHalves, MT = Sh::kMt;
@@ -678,10 +796,11 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
   float* wf = wo + R * LDD;                       // (win, LDF) W_fg
   const int tid = threadIdx.x, h = tid / 256, ht = tid % 256;
   unsigned char* mine = reinterpret_cast<unsigned char*>(wf + win * LDF) +
-                        h * Sh::kTile;
+                        h * (RC ? Sh::kTileRc : Sh::kTile);
   float* dd = reinterpret_cast<float*>(mine);   // (ROWS, LDD) [dh | dskip]
   float* ff = dd + ROWS * LDD;                    // (ROWS, LDF) dfg
   bf16_t* ts = reinterpret_cast<bf16_t*>(ff + ROWS * LDF);   // (ROWS, LDT)
+  bf16_t* hq = ts;                 // RC: (ROWS, kLdh) [h | h(t-d) | ctx]
   const int warp = ht >> 5, g = (ht & 31) >> 2, q = ht & 3;
   const int r0 = (warp % MT) * 16;                // the warp's rows
   const int n0 = (warp / MT) * TPW * 8;           // and dgated columns
@@ -698,7 +817,7 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
   const long step = static_cast<long>(gridDim.x) * H;
   const long first = static_cast<long>(blockIdx.x) * H + h;
   Regs nx;
-  if (first < n_tiles) bwd_fetch<R, S>(a, first * ROWS, ht, nx);
+  if (first < n_tiles) bwd_fetch<R, S, RC>(a, first * ROWS, ht, nx);
   for (long tile_i = first; tile_i < n_tiles; tile_i += step) {
   const long m0 = tile_i * ROWS;
   pipe_sync<H>(h);
@@ -713,7 +832,17 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
     if (m < a.m_total)
       *reinterpret_cast<float4*>(a.dh + m * R + j0) = nx.dh[u];
     *reinterpret_cast<float4*>(dd + row * LDD + j0) = nx.dh[u];
-    *reinterpret_cast<uint4*>(ts + row * LDT + 2 * j0) = nx.tg[u];
+    if (!RC) *reinterpret_cast<uint4*>(ts + row * LDT + 2 * j0) = nx.tg[u];
+  }
+  if (RC) {
+    const int per_row = win / 8;
+#pragma unroll
+    for (int u = 0; u < Regs::kNp; ++u) {
+      const int i = ht + u * 256;
+      if (i < ROWS * per_row)
+        *reinterpret_cast<uint4*>(hq + (i / per_row) * Sh::kLdh +
+                                  8 * (i % per_row)) = nx.hp[u];
+    }
   }
 #pragma unroll
   for (int u = 0; u < Regs::kNs; ++u) {
@@ -725,7 +854,36 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
   pipe_sync<H>(h);
   // in flight while this tile computes: the next tile's inputs
   if (tile_i + step < n_tiles)
-    bwd_fetch<R, S>(a, m0 + step * ROWS, ht, nx);
+    bwd_fetch<R, S, RC>(a, m0 + step * ROWS, ht, nx);
+
+  // RC: tf and sg of the warp's dgated places, from fg recomputed
+  float tfv[RC ? TPW : 1][4], sgv[RC ? TPW : 1][4];
+  if (RC) {
+    float fa[RC ? 2 * TPW : 1][4];
+    fg_mma<RC ? 2 * TPW : 1, Sh::kLdh>(
+        fa, hq, r0, win, [&](int kk, int j, unsigned* b) {
+          const int n = (j < TPW ? n0 + 8 * j : R + n0 + 8 * (j - TPW)) + g;
+          const float* p = wf + (16 * kk + 2 * q) * LDF + n;
+          b[0] = pack2(p[0], p[LDF]);
+          b[1] = pack2(p[8 * LDF], p[9 * LDF]);
+        });
+    const float* bfr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long m = m0 + r0 + g + 8 * hh;
+      bfr[hh] = a.b_fg + (m < a.m_total ? m / a.t_len : 0) * 2 * R;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* bf = bfr[e >> 1];
+#pragma unroll
+      for (int j = 0; j < TPW; ++j) {
+        const int c = n0 + 8 * j + 2 * q + (e & 1);
+        tfv[j][e] = tanhf(fa[j][e] + __ldg(bf + c));
+        sgv[j][e] = sigmoidf(fa[TPW + j][e] + __ldg(bf + R + c));
+      }
+    }
+  }
 
   // dgated = [dh | dskip] W_out^T (3 passes), then dfg from the taps
   {
@@ -747,14 +905,26 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = r0 + g + 8 * e;
-        const unsigned tw =
-            *reinterpret_cast<const unsigned*>(ts + row * LDT + c);
-        const unsigned sw =
-            *reinterpret_cast<const unsigned*>(ts + row * LDT + R + c);
-        const float tf[2] = {__uint_as_float(tw << 16),
-                             __uint_as_float(tw & 0xffff0000u)};
-        const float sg[2] = {__uint_as_float(sw << 16),
-                             __uint_as_float(sw & 0xffff0000u)};
+        float tf[2], sg[2];
+        if (RC) {
+          tf[0] = tfv[RC ? j : 0][2 * e];
+          tf[1] = tfv[RC ? j : 0][2 * e + 1];
+          sg[0] = sgv[RC ? j : 0][2 * e];
+          sg[1] = sgv[RC ? j : 0][2 * e + 1];
+          const long m = m0 + row;
+          if (m < a.m_total)
+            *reinterpret_cast<float2*>(a.gated + m * R + c) =
+                make_float2(tf[0] * sg[0], tf[1] * sg[1]);
+        } else {
+          const unsigned tw =
+              *reinterpret_cast<const unsigned*>(ts + row * LDT + c);
+          const unsigned sw =
+              *reinterpret_cast<const unsigned*>(ts + row * LDT + R + c);
+          tf[0] = __uint_as_float(tw << 16);
+          tf[1] = __uint_as_float(tw & 0xffff0000u);
+          sg[0] = __uint_as_float(sw << 16);
+          sg[1] = __uint_as_float(sw & 0xffff0000u);
+        }
         float df[2], dq[2];
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
@@ -847,6 +1017,7 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
 //   MODE 0: A = [hsave | hsave(t-d) | ctx] (W_in), B = dfg (2R)
 //   MODE 1: A = tf * sg (R), B = [dh | dskip] (R+S)
 //   MODE 2: A = xc rows (R), B = dctx as (T/10, 10R) rows
+//   MODE 3: A = gated (R, float32: the recompute form's tf * sg), B as 1
 // Loads move 8 bf16 or 4 floats at a time; shapes are template constants.
 struct WgradArgs {
   const bf16_t* hs;
@@ -861,6 +1032,7 @@ struct WgradArgs {
   int n, rows_per_batch, chunks, d;
   float* part;     // (batch * chunks, KA, n)
   float* part_b;   // (batch * chunks, n)
+  const float* gated;   // MODE 3: (M, R)
 };
 
 constexpr int kWgRows = 64;
@@ -899,7 +1071,7 @@ template <int MODE, int R, int S>
 __device__ __forceinline__ float4 wg_b4(const WgradArgs& a, long row, int c) {
   if (MODE == 0)
     return *reinterpret_cast<const float4*>(a.dfg + row * 2 * R + c);
-  if (MODE == 1) {
+  if (MODE == 1 || MODE == 3) {
     if (c < R) return *reinterpret_cast<const float4*>(a.dh + row * R + c);
     if (a.dskip_f)
       return *reinterpret_cast<const float4*>(a.dskip_f + row * S + c - R);
@@ -944,12 +1116,13 @@ constexpr WgSplit wg_split(int km, int kn, int ca, int cb) {
 
 template <int MODE, int R, int S, int KA>
 struct WgShape {
-  static constexpr int kN = MODE == 0 ? 2 * R : MODE == 1 ? R + S : 10 * R;
+  static constexpr int kN = MODE == 0 ? 2 * R : MODE == 2 ? 10 * R : R + S;
   static constexpr int kNb = kN < kWgSlab ? kN : kWgSlab;   // slab width
   // row strides of 8 mod 16 floats: conflict-free k-major fragments
   static constexpr int kLda = (KA + 15) / 16 * 16 + 8;
   static constexpr int kLdb = (kNb + 15) / 16 * 16 + 8;
-  static constexpr bool kSplitA = MODE == 1;   // gated; else bf16 values
+  // gated; else bf16 values
+  static constexpr bool kSplitA = MODE == 1 || MODE == 3;
   static constexpr WgSplit kW =
       wg_split(KA / 16, kNb / 8, kSplitA ? 12 : 4, 6);
   static constexpr int kWk = 8 / (kW.wm * kW.wn);     // k groups
@@ -966,11 +1139,12 @@ struct WgShape {
 };
 
 // One 64-row chunk's A and B items of one thread, in registers.
+// MODE 3: a and sg hold an item's 8 float32 values, 4 each.
 template <int MODE, int R, int S, int KA>
 struct WgChunkRegs {
   using Sh = WgShape<MODE, R, S, KA>;
   uint4 a[Sh::kIa];
-  uint4 sg[MODE == 1 ? Sh::kIa : 1];
+  uint4 sg[MODE == 1 || MODE == 3 ? Sh::kIa : 1];
   float4 b[Sh::kIb];
 };
 
@@ -984,10 +1158,17 @@ __device__ __forceinline__ void wg_fetch(const WgradArgs& a, long base,
   for (int u = 0; u < Sh::kIa; ++u) {
     const int i = tid + u * kThreads, rr = i / Sh::kGa, c = i % Sh::kGa;
     f.a[u] = make_uint4(0, 0, 0, 0);
-    if (MODE == 1) f.sg[u] = f.a[u];
-    if (i < kWgRows * Sh::kGa && rr < rows)
+    if (MODE == 1 || MODE == 3) f.sg[u] = f.a[u];
+    if (MODE == 3) {
+      if (i < kWgRows * Sh::kGa && rr < rows) {
+        const float* p = a.gated + (base + t0 + rr) * R + 8 * c;
+        f.a[u] = *reinterpret_cast<const uint4*>(p);
+        f.sg[u] = *reinterpret_cast<const uint4*>(p + 4);
+      }
+    } else if (i < kWgRows * Sh::kGa && rr < rows) {
       f.a[u] = wg_a_raw<MODE, R>(a, base + t0 + rr, t0 + rr, c,
                                  &f.sg[MODE == 1 ? u : 0]);
+    }
   }
 #pragma unroll
   for (int u = 0; u < Sh::kIb; ++u) {
@@ -1040,12 +1221,20 @@ __global__ void __launch_bounds__(kThreads, MODE == 0 ? 1 : 2)
       const int i = tid + u * kThreads;
       if (i >= kWgRows * GA) break;
       float v[8];
-      unpack8(nx.a[u], v);
-      if (MODE == 1) {
-        float sg[8];
-        unpack8(nx.sg[u], sg);
+      if (MODE == 3) {
+        const unsigned w[8] = {nx.a[u].x,  nx.a[u].y,  nx.a[u].z,
+                               nx.a[u].w,  nx.sg[u].x, nx.sg[u].y,
+                               nx.sg[u].z, nx.sg[u].w};
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = v[j] * sg[j];
+        for (int j = 0; j < 8; ++j) v[j] = __uint_as_float(w[j]);
+      } else {
+        unpack8(nx.a[u], v);
+        if (MODE == 1) {
+          float sg[8];
+          unpack8(nx.sg[u], sg);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = v[j] * sg[j];
+        }
       }
       store8(as + (i / GA) * LDA + 8 * (i % GA), v);
     }
@@ -1578,7 +1767,7 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
   using Sh = BwdShape<R, S>;
   const size_t smem = Sh::smem(win);
   const void* layer = reinterpret_cast<const void*>(
-      stack_bwd_layer_kernel<R, S>);
+      stack_bwd_layer_kernel<R, S, false>);
   int err = set_smem(layer, smem);
   if (err) return err;
   // persistent blocks: as many as fit on the card, at most one per
@@ -1610,7 +1799,7 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
     a.d_in = l + 1 < n_layers ? dil[l + 1] : 0;
     a.top = l == n_layers - 1;
     a.win = win;
-    stack_bwd_layer_kernel<R, S><<<grid, Sh::kThreads, smem, st>>>(a);
+    stack_bwd_layer_kernel<R, S, false><<<grid, Sh::kThreads, smem, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
 
@@ -1695,664 +1884,402 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
 // ------------------------------------------------- recompute strategy
 // Replaces _fwd_kernel_tails (stack_kernel.py:929, pallas_call at :1003)
 // and _bwd_kernel_tails (:1031, pallas_call at :1190).  The TPU walks one
-// batch row's time tiles in order and carries each layer's dilation ring
-// from tile to tile; between forward and backward it keeps only the ring
-// at each tile start (the "tails").  Blocks here run in no order, so
-// nothing is carried between them; each block recomputes a halo instead:
-//   forward   one block per (batch row, tile of kTailsTile rows).  It runs
-//             all L layers over rows [t0 - HP, t0 + tile), HP = sum(d)
-//             rounded up to 4, from x (rows before t = 0 are zero).  The
-//             first rows of the window lack their taps, but layer l's
-//             error front advances by d_l only, so rows >= t0 are exact
-//             and so are the snapshot rows h_l[t0 - d_l, t0).  h is
-//             rounded to bf16 after every layer, as on the TPU; gated is
-//             tanh * sigmoid of the unrounded float32 taps.
-//   backward  persistent blocks (one of 16 warps per SM; shared memory
-//             allows one) walk tiles.  A tile rebuilds h_0..h_{L-1} for rows [t0, t0 +
-//             tile + HB) from x and its snapshot (bit for bit: the same
-//             fmaf chains as the forward), keeps them in shared memory as
-//             bf16, and sweeps the layers top down: dfg_l at row t needs
-//             dh at t, and dh_l at t needs dfg_l at t + d_l, so after the
-//             sweep the tile's own rows are exact.  It writes dx and dctx
-//             for its own rows, and adds the weight and bias gradients of
-//             its own rows to the block's partial sums in global memory
-//             (read-modify-write: only this block touches them, tiles in a
-//             fixed order).  A fixed-order reduction launch adds the
-//             blocks' partials.  Deterministic, no atomics.
-// Weights: the forward stages each layer's W_fg and W_out in bf16 in
-// shared memory; the backward's shared memory holds the activations, so
-// its products read the weights from global memory (L2) in rows: the
-// recompute products bf16 copies (rounded as the forward rounds them),
-// the gradient products float32 W_fg^T and W_out^T (float32 operands,
-// _BWD_OPERAND_DT on the TPU).
+// batch row's time tiles in order, carries each layer's dilation ring from
+// tile to tile and keeps only the ring at each tile start (the "tails").
+// Blocks here run in no order, so the schedule is layer-major instead, as
+// the save kernels': every launch is one layer over all B*T rows and reads
+// the tap h(t-d) of the layer's input from global memory, so no halo and
+// no shared memory that grows with sum(d).
+//   forward   L launches of stack_tails_layer_kernel over a ping-pong pair
+//             of (M, R) bf16 buffers: h is rounded to bf16 after every
+//             layer, as on the TPU; the skip sum accumulates in float32.
+//             It keeps the input of every k-th layer (k about sqrt(L), the
+//             wrapper's choice): (ceil(L/k) - 1) checkpoints of (M, R).
+//   backward  the groups of k layers from the top: each group's layer
+//             inputs rebuilt from its checkpoint (x for the first) by the
+//             same layer kernel, so bit for bit as the forward computed
+//             them; then per layer, top down, the save backward's layer
+//             launch in its recompute form (stack_bwd_layer_kernel<R, S,
+//             true>: fg recomputed on the tensor cores from h_l, tf and sg
+//             in float32, gated = tf * sg stored in float32) and its weight
+//             gradient launches (W_fg as the save's, W_out from the float32
+//             gated: MODE 3) with their fixed-order reductions.  The
+//             anti-causal carry crosses launches through global memory as
+//             in the save backward.  Deterministic, no atomics.
+// Products.  The layer kernel's fg = [h | h(t-d) | ctx] W_fg and out =
+// gated W_out run as bf16 mma.sync m16n8k16 with float32 sums: the
+// operands are exact bf16 values (the weights rounded as the TPU's _mdot
+// rounds them), and each k step's sum is added in float32 (mma_bf16_add),
+// so only the summation order differs from the plain version.  The fg
+// sums feed the gate in registers, and the gate's fragments are the out
+// product's A fragments (no shared-memory round trip).  The backward's
+// gradient products are the save backward's split-TF32 ones.
 //
 // Bound (experiment 02 through the CLI: B=2, T=160000, L=9, R=64, S=8,
-// flat ctx): the forward does about 1.7e11 operations on bf16 operands and
-// moves 0.16 GB (x, ctx, skip, 13 MB of snapshots): 0.17 ms of tensor-core
-// work; the backward's recompute and gradient products are about 5.6e11
-// operations, 4.2 ms of float32 work without tensor cores.  These kernels
-// are plain fmaf over shared-memory operands, with a halo of HP/tile extra
-// rows per tile and weights from L2, so fmaf issue and latency bound them,
-// far above those bounds.
-constexpr int kTailsTile = 64;
-constexpr int kMaxLayers = 64;
-// the backward's one block per SM runs 16 warps
-constexpr int kTailsBwdThreads = 512;
+// flat ctx): the forward does about 1.7e11 operations on bf16 operands
+// (0.17 ms at 989 TF/s) and must move x, ctx, skip and the checkpoints
+// (0.15 GB, 0.05 ms): bound by operations.  As launched it moves about
+// 0.18 GB a layer (h, h(t-d), ctx, h_next, the skip sum), a floor of
+// about 0.5 ms, and its mma.sync issue, not the tensor cores' rate, sets
+// its time (PERF.md).  The backward recomputes the rebuilt layers and
+// every fg in bf16 and runs the gradient products in float32 on the
+// tensor cores (about 4.5e11 operations counted once at the TF32 peak,
+// 0.94 ms in all: bound by operations); as launched it moves the save
+// backward's float32 intermediates and gated (about 1.3 GB a layer).
 
-__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
-
-struct TailsGeom {
-  int dil[kMaxLayers];
-  int offs[kMaxLayers];   // ring offsets: sum of the dilations before l
-  int need[kMaxLayers];   // backward rows of layer l: tile + sum_{k<=l} d_k
-};
-
-// fg of 4 rows x (4 filter + 4 gate) columns c0.., over [h | h(t-d) | ctx]
-// in k order; a row pointer per row and part (bf16), W from wf(k, c0, w8)
-// (bf16 values).  The forward and the backward's rebuild share it, so the
-// rebuilt h is bit-identical to the forward's.
-template <int R, typename WF>
-__device__ __forceinline__ void fg_tile(float (&acc)[4][8],
-                                        const bf16_t* (&rows)[3][4],
-                                        int parts, WF wf) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int p = 0; p < parts; ++p) {
-    for (int k = 0; k < R; k += 2) {
-      float a0[4], a1[4], w0[8], w1[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const unsigned v = *reinterpret_cast<const unsigned*>(rows[p][i] + k);
-        a0[i] = __uint_as_float(v << 16);
-        a1[i] = __uint_as_float(v & 0xffff0000u);
-      }
-      wf(p * R + k, w0);
-      wf(p * R + k + 1, w1);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a0[i], w0[j], acc[i][j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a1[i], w1[j], acc[i][j]);
-    }
-  }
-}
-
-__device__ __forceinline__ float sigmoidf(float g) {
-  return 1.f / (1.f + expf(-g));
-}
-
-struct TailsFwdArgs {
-  const bf16_t* x;       // (B, T, R)
-  const bf16_t* ctx;     // (B, T, R) or null
-  const float* b_fg;     // (L*B, 2R)
-  const float* w_fg;     // (L, W_in, 2R)
-  const float* w_out;    // (L, R, R+S)
-  const float* b_out;    // (L, R+S)
-  bf16_t* skip;          // (B, T, S)
-  bf16_t* tails;         // (B, n_tiles, sum_d, R)
-  int batch, t_len, n_layers, halo, sum_d;
-  TailsGeom g;
-};
+// the layer kernel's block: 16 warps of 16 rows each per tile (one block
+// per SM: the tile and the weights fill its shared memory)
+constexpr int kTlWarps = 16;
+constexpr int kTlThreads = 32 * kTlWarps;
+constexpr int kTlRows = 16 * kTlWarps;
 
 template <int R, int S>
-struct TailsFwdShape {
+struct TlShape {
   static constexpr int kNo = R + S;
-  static size_t smem(int halo, bool ctx) {
-    const int n = kTailsTile + halo;
-    const int win = (ctx ? 3 : 2) * R;
-    return static_cast<size_t>(2) * ((ctx ? 3 : 2) * n * R + R +
-                                     win * 2 * R + R * kNo) +
-           4 * (kNo + 2 * R + kTailsTile * S);
+  // row strides of 8 mod 16 bf16: conflict-free fragment loads
+  static constexpr int kLdh = 3 * R + 8;   // [h | h(t-d) | ctx] rows
+  static constexpr int kLdw = 3 * R + 8;   // W_fg^T rows (one per column)
+  static constexpr int kLdo = R + 8;       // W_out^T rows
+  // 16-byte operand items of one tile per thread
+  static constexpr int kNp = (kTlRows * (3 * R / 8) + kTlThreads - 1) /
+                             kTlThreads;
+  static size_t smem() {
+    return static_cast<size_t>(kTlRows * kLdh + 2 * R * kLdw +
+                               kNo * kLdo) * 2;
   }
 };
 
+struct TailsLayerArgs {
+  const bf16_t* h;       // (M, R) this layer's input
+  bf16_t* h_next;        // (M, R) its output, or null (not needed)
+  const bf16_t* ctx;     // (M, R) or null
+  const float* b_fg;     // (B, 2R) this layer's rows
+  const float* w_fg;     // (W_in, 2R)
+  const float* w_out;    // (R, R+S)
+  const float* b_out;    // (R+S)
+  float* skacc;          // (M, S) float32 skip sum, or null (a rebuild)
+  bf16_t* skip;          // (M, S) skip_sum, stored by the last layer
+  long m_total;
+  int t_len, d, first, last;
+};
+
+// One layer of the recompute forward.  Persistent blocks of 16 warps walk
+// 256-row tiles (their operand rows staged in shared memory, all loads of
+// a tile in flight at once).  Warp w takes rows 16w .. 16w + 15 of the
+// tile: fg over all 2R columns (fg_mma), the gate in registers, gated
+// rounded to bf16 as the out product's A fragments, out over R+S columns,
+// then h_next = bf16(out + b_out + h) and the skip sum.
 template <int R, int S>
-__global__ void __launch_bounds__(kThreads)
-    stack_tails_fwd_kernel(TailsFwdArgs a) {
-  constexpr int NO = R + S;
-  const int hp = a.halo, n = kTailsTile + hp;
-  const bool has_ctx = a.ctx != nullptr;
-  const int win = (has_ctx ? 3 : 2) * R;
-  const int b = blockIdx.y, ti = blockIdx.x;
-  const int n_tiles = a.t_len / kTailsTile;
-  const int t0 = ti * kTailsTile;
+__global__ void __launch_bounds__(kTlThreads, 1)
+    stack_tails_layer_kernel(TailsLayerArgs a) {
+  using Sh = TlShape<R, S>;
+  constexpr int NO = Sh::kNo, LDH = Sh::kLdh, LDW = Sh::kLdw;
+  constexpr int LDO = Sh::kLdo, NF = 2 * R / 8, NOT = NO / 8;
+  static_assert(R % 16 == 0 && S % 8 == 0, "16-wide k steps, 8-wide tiles");
+  const int win = a.ctx ? 3 * R : 2 * R, per_row = win / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* bo = reinterpret_cast<float*>(smem);        // (R+S)
-  float* bfg = bo + NO;                                // (2R)
-  float* sk = bfg + 2 * R;                             // (tile, S) skip sum
-  bf16_t* hs = reinterpret_cast<bf16_t*>(sk + kTailsTile * S);  // (n, R)
-  bf16_t* gs = hs + n * R;                             // (n, R) gated
-  bf16_t* zero = gs + n * R;                           // (R) zero row
-  bf16_t* wf = zero + R;                               // (W_in, 2R)
-  bf16_t* wo = wf + win * 2 * R;                       // (R, R+S)
-  bf16_t* cs = wo + R * NO;                            // (n, R) ctx
-  const int tid = threadIdx.x;
+  bf16_t* hp = reinterpret_cast<bf16_t*>(smem);   // (kTlRows, LDH)
+  bf16_t* wf = hp + kTlRows * LDH;                  // (2R, LDW) W_fg^T
+  bf16_t* wo = wf + 2 * R * LDW;                    // (NO, LDO) W_out^T
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, q = tid & 3, r0 = 16 * warp;
 
-  // window row i is time t0 - hp + i; rows outside [0, T) are zero
-  for (int i = tid; i < n * (R / 8); i += kThreads) {
-    const int row = i / (R / 8), j0 = (i % (R / 8)) * 8;
-    const int t = t0 - hp + row;
-    uint4 hv = make_uint4(0, 0, 0, 0), cv = hv;
-    if (t >= 0 && t < a.t_len) {
-      const long m = static_cast<long>(b) * a.t_len + t;
-      hv = *reinterpret_cast<const uint4*>(a.x + m * R + j0);
-      if (has_ctx) cv = *reinterpret_cast<const uint4*>(a.ctx + m * R + j0);
-    }
-    *reinterpret_cast<uint4*>(hs + row * R + j0) = hv;
-    if (has_ctx) *reinterpret_cast<uint4*>(cs + row * R + j0) = cv;
-  }
-  for (int i = tid; i < R; i += kThreads) zero[i] = 0;
-  for (int i = tid; i < kTailsTile * S; i += kThreads) sk[i] = 0.f;
-
-  for (int l = 0; l < a.n_layers; ++l) {
-    const int d = a.g.dil[l];
+  // the weights rounded to bf16, as the TPU kernel's _mdot rounds
+  // operands, one row per output column; staged once per block
+  for (int i = tid; i < win * 2 * R; i += kTlThreads)
+    wf[(i % (2 * R)) * LDW + i / (2 * R)] = f2bf(a.w_fg[i]);
+  for (int i = tid; i < R * NO; i += kTlThreads)
+    wo[(i % NO) * LDO + i / NO] = f2bf(a.w_out[i]);
+  const long n_tiles = (a.m_total + kTlRows - 1) / kTlRows;
+  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    const long m0 = tile_i * kTlRows;
     __syncthreads();
-    // the snapshot: this layer's input at the d rows before the tile
-    bf16_t* snap = a.tails +
-        ((static_cast<long>(b) * n_tiles + ti) * a.sum_d + a.g.offs[l]) * R;
-    for (int i = tid; i < d * R; i += kThreads)
-      snap[i] = hs[(hp - d) * R + i];
-    // weights rounded to bf16, as the TPU kernel's _mdot rounds operands
-    const float* wfl = a.w_fg + static_cast<long>(l) * win * 2 * R;
-    const float* wol = a.w_out + static_cast<long>(l) * R * NO;
-    for (int i = tid; i < win * 2 * R; i += kThreads) wf[i] = f2bf(wfl[i]);
-    for (int i = tid; i < R * NO; i += kThreads) wo[i] = f2bf(wol[i]);
-    for (int i = tid; i < NO; i += kThreads)
-      bo[i] = a.b_out[static_cast<long>(l) * NO + i];
-    for (int i = tid; i < 2 * R; i += kThreads)
-      bfg[i] = a.b_fg[(static_cast<long>(l) * a.batch + b) * 2 * R + i];
-    __syncthreads();
-
-    // fg, the gate in registers, gated (rounded as a product operand)
-    for (int tile = tid; tile < (n / 4) * (R / 4); tile += kThreads) {
-      const int r0 = (tile / (R / 4)) * 4, c0 = (tile % (R / 4)) * 4;
-      const bf16_t* rows[3][4];
+    uint4 nx[Sh::kNp];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = r0 + i;
-        rows[0][i] = hs + r * R;
-        rows[1][i] = r >= d ? hs + (r - d) * R : zero;
-        rows[2][i] = cs + r * R;
-      }
-      float acc[4][8];
-      fg_tile<R>(acc, rows, has_ctx ? 3 : 2, [&](int k, float* w) {
-        load4(wf + k * 2 * R + c0, w);
-        load4(wf + k * 2 * R + R + c0, w + 4);
+    for (int u = 0; u < Sh::kNp; ++u) {
+      const int i = tid + u * kTlThreads;
+      if (i < kTlRows * per_row)
+        nx[u] = hp_item<R>(a.h, a.ctx, m0 + i / per_row, a.m_total,
+                           a.t_len, a.d, 8 * (i % per_row));
+    }
+#pragma unroll
+    for (int u = 0; u < Sh::kNp; ++u) {
+      const int i = tid + u * kTlThreads;
+      if (i < kTlRows * per_row)
+        *reinterpret_cast<uint4*>(hp + (i / per_row) * LDH +
+                                  8 * (i % per_row)) = nx[u];
+    }
+    __syncthreads();
+
+    // fg, then the gate: tile j (filter) and j + R/8 (gate) lie in the
+    // same registers of a lane; gated rounded to bf16 in the A fragment
+    // layout of the out product (its k step kk = n tiles 2kk, 2kk + 1)
+    unsigned ga[R / 16][4];
+    {
+      float fg[NF][4];
+      fg_mma<NF, LDH>(fg, hp, r0, win, [&](int kk, int j, unsigned* b) {
+        const bf16_t* p = wf + (8 * j + g) * LDW + 16 * kk + 2 * q;
+        b[0] = ld32(p);
+        b[1] = ld32(p + 8);
       });
+      // the fg bias rows of the lane's two rows' batch rows
+      const float* bfr[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float f = acc[i][j] + bfg[c0 + j];
-          const float gg = acc[i][4 + j] + bfg[R + c0 + j];
-          gs[(r0 + i) * R + c0 + j] = f2bf(tanhf(f) * sigmoidf(gg));
-        }
-    }
-    __syncthreads();
-
-    // out = gated W_out + b_out; h = bf16(out_res + h); skip += out_skip
-    constexpr int OC = NO / 8;
-    for (int tile = tid; tile < (n / 4) * OC; tile += kThreads) {
-      const int r0 = (tile / OC) * 4, c0 = (tile % OC) * 8;
-      float acc[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int k = 0; k < R; ++k) {
-        float w[8];
-        load8(wo + k * NO + c0, w);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = bf2f(gs[(r0 + i) * R + k]);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, w[j], acc[i][j]);
-        }
+      for (int h = 0; h < 2; ++h) {
+        const long m = m0 + r0 + g + 8 * h;
+        bfr[h] = a.b_fg + (m < a.m_total ? m / a.t_len : 0) * 2 * R;
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = r0 + i, t = t0 - hp + r;
-        if (t < 0) continue;                  // stays zero
+      for (int j = 0; j < R / 8; ++j) {
+        float v[4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float v = acc[i][j] + bo[c0 + j];
-          const int c = c0 + j;
-          if (c < R) {
-            hs[r * R + c] = f2bf(v + bf2f(hs[r * R + c]));
-          } else if (r >= hp) {
-            sk[(r - hp) * S + c - R] += v;
+        for (int e = 0; e < 4; ++e) {
+          const float* bf = bfr[e >> 1];
+          const int c = 8 * j + 2 * q + (e & 1);
+          v[e] = tanhf(fg[j][e] + __ldg(bf + c)) *
+                 sigmoidf(fg[j + R / 8][e] + __ldg(bf + R + c));
+        }
+        ga[j / 2][2 * (j & 1)] = pack2(v[0], v[1]);
+        ga[j / 2][2 * (j & 1) + 1] = pack2(v[2], v[3]);
+      }
+    }
+    float oc[NOT][4];
+#pragma unroll
+    for (int j = 0; j < NOT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < NOT; ++j) {
+        const bf16_t* p = wo + (8 * j + g) * LDO + 16 * kk + 2 * q;
+        const unsigned b[2] = {ld32(p), ld32(p + 8)};
+        mma_bf16_add(oc[j], ga[kk], b);
+      }
+    // out + b_out: the residual (8 columns lie wholly in it or in the
+    // skip part), then the skip sum in layer order
+#pragma unroll
+    for (int j = 0; j < NOT; ++j) {
+      const int c = 8 * j + 2 * q;
+      const float b0 = __ldg(a.b_out + c), b1 = __ldg(a.b_out + c + 1);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = r0 + g + 8 * e;
+        const long m = m0 + row;
+        if (m >= a.m_total) continue;
+        const float v0 = oc[j][2 * e] + b0, v1 = oc[j][2 * e + 1] + b1;
+        if (c < R) {
+          if (a.h_next) {
+            const unsigned hw = ld32(hp + row * LDH + c);
+            *reinterpret_cast<unsigned*>(a.h_next + m * R + c) =
+                pack2(v0 + __uint_as_float(hw << 16),
+                      v1 + __uint_as_float(hw & 0xffff0000u));
           }
+        } else if (a.skacc) {
+          float* sp = a.skacc + m * S + c - R;
+          float2 s = make_float2(v0, v1);
+          if (!a.first) {
+            const float2 o = *reinterpret_cast<const float2*>(sp);
+            s = make_float2(o.x + v0, o.y + v1);
+          }
+          if (a.last)
+            *reinterpret_cast<unsigned*>(a.skip + m * S + c - R) =
+                pack2(s.x, s.y);
+          else
+            *reinterpret_cast<float2*>(sp) = s;
         }
       }
     }
-  }
-  __syncthreads();
-  for (int i = tid; i < kTailsTile * S; i += kThreads)
-    a.skip[(static_cast<long>(b) * a.t_len + t0) * S + i] = f2bf(sk[i]);
+  }  // tiles
 }
 
-struct TailsBwdArgs {
-  const bf16_t* x;       // (B, T, R)
-  const bf16_t* tails;   // (B, n_tiles, sum_d, R)
-  const bf16_t* ctx;     // (B, T, R) or null
-  const float* b_fg;     // (L*B, 2R)
-  const bf16_t* w_fg_bf;   // (L, W_in, 2R) rounded to bf16
-  const float* w_fg_t;     // (L, 2R, W_in)
-  const bf16_t* w_out_bf;  // (L, R, R+S) rounded to bf16
-  const float* w_out_t;    // (L, R+S, R)
-  const float* b_out;    // (L, R+S)
-  const bf16_t* dskip;   // (B, T, S)
-  bf16_t* dx;            // (B, T, R)
-  bf16_t* dctx;          // (B, T, R) or null
-  float* part;           // (gridDim.x, n_part): [dw_fg | dw_out | db_out |
-                         // db_fg (L, B, 2R)]
-  long n_part;
-  int batch, t_len, n_layers, halo, sum_d;
-  TailsGeom g;
-};
-
+// Launches of the layer kernel: its shared memory set once, the grid (as
+// many persistent blocks as fit, at most one per tile) for every layer.
 template <int R, int S>
-struct TailsBwdShape {
-  static size_t smem(int halo, bool ctx, int n_layers) {
-    const long n = kTailsTile + halo;
-    return 4 * (n * R + n * 2 * R + n * R + (ctx ? kTailsTile * R : 0)) +
-           2 * (static_cast<long>(n_layers) * n * R + (ctx ? n * R : 0) +
-                n * S);
+struct TailsLayers {
+  size_t smem = 0;
+  int grid = 0;
+  int setup(long m_total) {
+    smem = TlShape<R, S>::smem();
+    const void* fn = reinterpret_cast<const void*>(
+        stack_tails_layer_kernel<R, S>);
+    int err = set_smem(fn, smem);
+    if (err) return err;
+    int per_sm = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fn, kTlThreads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long tiles = (m_total + kTlRows - 1) / kTlRows;
+    const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
+    grid = static_cast<int>(tiles < fit ? tiles : fit);
+    return 0;
+  }
+  int launch(const TailsLayerArgs& a, cudaStream_t st) const {
+    stack_tails_layer_kernel<R, S><<<grid, kTlThreads, smem, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
 };
 
+// The layer arguments of layer l (skip sum off).
 template <int R, int S>
-__global__ void __launch_bounds__(kTailsBwdThreads)
-    stack_tails_bwd_kernel(TailsBwdArgs a) {
-  constexpr int NO = R + S, TB = kTailsTile;
-  const int n = TB + a.halo;
-  const bool has_ctx = a.ctx != nullptr;
-  const int win = (has_ctx ? 3 : 2) * R;
-  const int n_tiles = a.t_len / TB;
-  const int nl = a.n_layers;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dh = reinterpret_cast<float*>(smem);   // (n, R) dL/d(layer output)
-  float* dfg = dh + n * R;                        // (n, 2R)
-  float* xb = dfg + n * 2 * R;                    // (n, R) gated, then carry
-  float* dcx = xb + n * R;                        // (tile, R) if ctx
-  bf16_t* hl = reinterpret_cast<bf16_t*>(dcx + (has_ctx ? TB * R : 0));
-  bf16_t* cs = hl + static_cast<long>(nl) * n * R;  // (n, R) if ctx
-  bf16_t* dsk = cs + (has_ctx ? n * R : 0);         // (n, S)
-  const int tid = threadIdx.x;
-  float* part = a.part + blockIdx.x * a.n_part;
-  float* p_dwfg = part;
-  float* p_dwout = p_dwfg + static_cast<long>(nl) * win * 2 * R;
-  float* p_dbout = p_dwout + static_cast<long>(nl) * R * NO;
-  float* p_dbfg = p_dbout + static_cast<long>(nl) * NO;
-
-  for (int tile_i = blockIdx.x; tile_i < a.batch * n_tiles;
-       tile_i += gridDim.x) {
-    const int b = tile_i / n_tiles, ti = tile_i % n_tiles;
-    const int t0 = ti * TB;
-    const long m0 = static_cast<long>(b) * a.t_len + t0;
-    const bf16_t* snap = a.tails +
-        (static_cast<long>(b) * n_tiles + ti) * a.sum_d * R;
-    __syncthreads();
-    // window row r is time t0 + r; rows at or past T are zero
-    for (int i = tid; i < n * (R / 8); i += kTailsBwdThreads) {
-      const int row = i / (R / 8), j0 = (i % (R / 8)) * 8;
-      uint4 hv = make_uint4(0, 0, 0, 0), cv = hv;
-      if (t0 + row < a.t_len) {
-        hv = *reinterpret_cast<const uint4*>(a.x + (m0 + row) * R + j0);
-        if (has_ctx)
-          cv = *reinterpret_cast<const uint4*>(a.ctx + (m0 + row) * R + j0);
-      }
-      *reinterpret_cast<uint4*>(hl + row * R + j0) = hv;
-      if (has_ctx) *reinterpret_cast<uint4*>(cs + row * R + j0) = cv;
-    }
-    for (int i = tid; i < n * S; i += kTailsBwdThreads) {
-      const int row = i / S;
-      dsk[i] = t0 + row < a.t_len ? a.dskip[m0 * S + i] : bf16_t(0);
-    }
-    for (int i = tid; i < n * R; i += kTailsBwdThreads) dh[i] = 0.f;
-    if (has_ctx)
-      for (int i = tid; i < TB * R; i += kTailsBwdThreads) dcx[i] = 0.f;
-    __syncthreads();
-
-    // [h | h(t-d) | ctx] row pointers of layer l: the tap comes from the
-    // snapshot for the first d rows
-    auto row_ptrs = [&](int l, int r0, const bf16_t* (&rows)[3][4]) {
-      const int d = a.g.dil[l];
-      const bf16_t* h = hl + static_cast<long>(l) * n * R;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = r0 + i;
-        rows[0][i] = h + r * R;
-        rows[1][i] = r >= d ? h + (r - d) * R : snap + (a.g.offs[l] + r) * R;
-        rows[2][i] = cs + r * R;
-      }
-    };
-
-    // ---- rebuild h_1 .. h_{L-1} over the whole window (the top layer's
-    // sweep needs every row, and each layer's rows need the layer below's)
-    for (int l = 0; l + 1 < nl; ++l) {
-      const int rows_n = n;
-      const bf16_t* wfl = a.w_fg_bf + static_cast<long>(l) * win * 2 * R;
-      const float* bfl = a.b_fg + (static_cast<long>(l) * a.batch + b) * 2 * R;
-      for (int tile = tid; tile < (rows_n / 4) * (R / 4); tile += kTailsBwdThreads) {
-        const int r0 = (tile / (R / 4)) * 4, c0 = (tile % (R / 4)) * 4;
-        const bf16_t* rows[3][4];
-        row_ptrs(l, r0, rows);
-        float acc[4][8];
-        fg_tile<R>(acc, rows, has_ctx ? 3 : 2, [&](int k, float* w) {
-          load4(wfl + k * 2 * R + c0, w);
-          load4(wfl + k * 2 * R + R + c0, w + 4);
-        });
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float f = acc[i][j] + bfl[c0 + j];
-            const float gg = acc[i][4 + j] + bfl[R + c0 + j];
-            xb[(r0 + i) * R + c0 + j] = bf2f(f2bf(tanhf(f) * sigmoidf(gg)));
-          }
-      }
-      __syncthreads();
-      const bf16_t* wol = a.w_out_bf + static_cast<long>(l) * R * NO;
-      const float* bol = a.b_out + static_cast<long>(l) * NO;
-      const bf16_t* h = hl + static_cast<long>(l) * n * R;
-      bf16_t* hn = hl + static_cast<long>(l + 1) * n * R;
-      for (int tile = tid; tile < (rows_n / 4) * (R / 8); tile += kTailsBwdThreads) {
-        const int r0 = (tile / (R / 8)) * 4, c0 = (tile % (R / 8)) * 8;
-        float acc[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-        for (int k = 0; k < R; ++k) {
-          float w[8];
-          load8(wol + k * NO + c0, w);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float av = xb[(r0 + i) * R + k];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, w[j], acc[i][j]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = r0 + i;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int c = c0 + j;
-            const float v = acc[i][j] + bol[c];
-            hn[r * R + c] = t0 + r < a.t_len
-                                ? f2bf(v + bf2f(h[r * R + c])) : bf16_t(0);
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // ---- top-down gradient sweep
-    for (int l = nl - 1; l >= 0; --l) {
-      const int d = a.g.dil[l];
-      const int rows_n = a.g.need[l];
-      const bf16_t* wfl = a.w_fg_bf + static_cast<long>(l) * win * 2 * R;
-      const float* wftl = a.w_fg_t + static_cast<long>(l) * 2 * R * win;
-      const float* wotl = a.w_out_t + static_cast<long>(l) * NO * R;
-      const float* bfl = a.b_fg + (static_cast<long>(l) * a.batch + b) * 2 * R;
-      // fg recomputed (bf16 operands), the unrounded gate, dgated =
-      // [dh | dskip] W_out^T and dfg (float32 operands)
-      for (int tile = tid; tile < (rows_n / 4) * (R / 4); tile += kTailsBwdThreads) {
-        const int r0 = (tile / (R / 4)) * 4, c0 = (tile % (R / 4)) * 4;
-        const bf16_t* rows[3][4];
-        row_ptrs(l, r0, rows);
-        float acc[4][8];
-        fg_tile<R>(acc, rows, has_ctx ? 3 : 2, [&](int k, float* w) {
-          load4(wfl + k * 2 * R + c0, w);
-          load4(wfl + k * 2 * R + R + c0, w + 4);
-        });
-        float dg[4][4] = {};
-        for (int k = 0; k < NO; ++k) {
-          const float4 wv = __ldg(reinterpret_cast<const float4*>(
-              wotl + k * R + c0));
-          const float w[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = r0 + i;
-            const float av = k < R ? dh[r * R + k] : bf2f(dsk[r * S + k - R]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) dg[i][j] = fmaf(av, w[j], dg[i][j]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = r0 + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float tf = tanhf(acc[i][j] + bfl[c0 + j]);
-            const float sg = sigmoidf(acc[i][4 + j] + bfl[R + c0 + j]);
-            dfg[r * 2 * R + c0 + j] = dg[i][j] * (sg * (1.f - tf * tf));
-            dfg[r * 2 * R + R + c0 + j] = dg[i][j] * (tf * (sg - sg * sg));
-            xb[r * R + c0 + j] = tf * sg;
-          }
-        }
-      }
-      __syncthreads();
-
-      // the tile's own rows into the block's partial sums
-      {
-        float* pw = p_dwfg + static_cast<long>(l) * win * 2 * R;
-        constexpr int NC = 2 * R / 8;
-        for (int tile = tid; tile < (win / 4) * NC; tile += kTailsBwdThreads) {
-          const int k0 = (tile / NC) * 4, c0 = (tile % NC) * 8;
-          const int part_i = k0 / R, kk = k0 % R;
-          float acc[4][8] = {};
-          for (int r = 0; r < TB; ++r) {
-            const bf16_t* src;
-            if (part_i == 0) src = hl + (static_cast<long>(l) * n + r) * R;
-            else if (part_i == 1)
-              src = r >= d ? hl + (static_cast<long>(l) * n + r - d) * R
-                           : snap + (a.g.offs[l] + r) * R;
-            else src = cs + r * R;
-            float av[4];
-            load4(src + kk, av);
-            const float4 b0 = *reinterpret_cast<const float4*>(
-                dfg + r * 2 * R + c0);
-            const float4 b1 = *reinterpret_cast<const float4*>(
-                dfg + r * 2 * R + c0 + 4);
-            const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) pw[(k0 + i) * 2 * R + c0 + j] += acc[i][j];
-        }
-        float* po = p_dwout + static_cast<long>(l) * R * NO;
-        constexpr int OC = NO / 8;
-        for (int tile = tid; tile < (R / 4) * OC; tile += kTailsBwdThreads) {
-          const int k0 = (tile / OC) * 4, c0 = (tile % OC) * 8;
-          float acc[4][8] = {};
-          for (int r = 0; r < TB; ++r) {
-            const float4 av4 = *reinterpret_cast<const float4*>(xb + r * R + k0);
-            const float av[4] = {av4.x, av4.y, av4.z, av4.w};
-            float bv[8];
-            if (c0 < R) {
-              const float4 b0 = *reinterpret_cast<const float4*>(dh + r * R + c0);
-              const float4 b1 =
-                  *reinterpret_cast<const float4*>(dh + r * R + c0 + 4);
-              bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-              bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-            } else {
-              load8(dsk + r * S + c0 - R, bv);
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) po[(k0 + i) * NO + c0 + j] += acc[i][j];
-        }
-        if (tid < 2 * R) {
-          float s = 0.f;
-          for (int r = 0; r < TB; ++r) s += dfg[r * 2 * R + tid];
-          p_dbfg[(static_cast<long>(l) * a.batch + b) * 2 * R + tid] += s;
-        } else if (tid - 2 * R < NO) {
-          const int c = tid - 2 * R;
-          float s = 0.f;
-          for (int r = 0; r < TB; ++r)
-            s += c < R ? dh[r * R + c] : bf2f(dsk[r * S + c - R]);
-          p_dbout[static_cast<long>(l) * NO + c] += s;
-        }
-      }
-      __syncthreads();
-
-      // dfg_w = dfg W_fg^T: dh += its h part; its past part to xb (the
-      // carry); dctx += its ctx part (own rows)
-      const int wc = win / 4;
-      for (int tile = tid; tile < (rows_n / 4) * wc; tile += kTailsBwdThreads) {
-        const int r0 = (tile / wc) * 4, c0 = (tile % wc) * 4;
-        float acc[4][4] = {};
-        for (int k = 0; k < 2 * R; ++k) {
-          const float4 wv = __ldg(reinterpret_cast<const float4*>(
-              wftl + k * win + c0));
-          const float w[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float av = dfg[(r0 + i) * 2 * R + k];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av, w[j], acc[i][j]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = r0 + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = c0 + j;
-            if (c < R) dh[r * R + c] = dh[r * R + c] + acc[i][j];
-            else if (c < 2 * R) xb[r * R + c - R] = acc[i][j];
-            else if (r < TB) dcx[r * R + c - 2 * R] += acc[i][j];
-          }
-        }
-      }
-      __syncthreads();
-      // the anti-causal carry: dh(t) += dfg_w_past(t + d)
-      for (int i = tid; i < rows_n * R; i += kTailsBwdThreads) {
-        const int r = i / R;
-        if (r + d < rows_n) dh[i] = dh[i] + xb[i + d * R];
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < TB * R; i += kTailsBwdThreads) {
-      a.dx[m0 * R + i] = f2bf(dh[i]);
-      if (has_ctx) a.dctx[m0 * R + i] = f2bf(dcx[i]);
-    }
-  }
+TailsLayerArgs tails_layer_args(const bf16_t* h, bf16_t* h_next,
+                                const bf16_t* ctx, const float* b_fg,
+                                const float* w_fg, const float* w_out,
+                                const float* b_out, const int* dil, int l,
+                                int batch, int t_len) {
+  const int win = ctx ? 3 * R : 2 * R;
+  TailsLayerArgs a = {};
+  a.h = h;
+  a.h_next = h_next;
+  a.ctx = ctx;
+  a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
+  a.w_fg = w_fg + static_cast<long>(l) * win * 2 * R;
+  a.w_out = w_out + static_cast<long>(l) * R * (R + S);
+  a.b_out = b_out + static_cast<long>(l) * (R + S);
+  a.m_total = static_cast<long>(batch) * t_len;
+  a.t_len = t_len;
+  a.d = dil[l];
+  return a;
 }
 
 template <int R, int S>
 int fwd_tails_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
                    const float* w_fg, const float* w_out, const float* b_out,
-                   const TailsGeom& g, bf16_t* skip, bf16_t* tails, int batch,
-                   int t_len, int n_layers, int sum_d, cudaStream_t st) {
-  TailsFwdArgs a;
-  a.x = x;
-  a.ctx = ctx;
-  a.b_fg = b_fg;
-  a.w_fg = w_fg;
-  a.w_out = w_out;
-  a.b_out = b_out;
-  a.skip = skip;
-  a.tails = tails;
-  a.batch = batch;
-  a.t_len = t_len;
-  a.n_layers = n_layers;
-  a.halo = round4(sum_d);
-  a.sum_d = sum_d;
-  a.g = g;
-  const size_t smem = TailsFwdShape<R, S>::smem(a.halo, ctx != nullptr);
-  int err = set_smem(reinterpret_cast<const void*>(
-                         stack_tails_fwd_kernel<R, S>), smem);
+                   const int* dil, int every, bf16_t* skip, bf16_t* ckpt,
+                   bf16_t* work, float* skacc, int batch, int t_len,
+                   int n_layers, cudaStream_t st) {
+  const long mr = static_cast<long>(batch) * t_len * R;
+  TailsLayers<R, S> tl;
+  int err = tl.setup(static_cast<long>(batch) * t_len);
   if (err) return err;
-  stack_tails_fwd_kernel<R, S>
-      <<<dim3(t_len / kTailsTile, batch), kThreads, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  // the input of layer l: x, a checkpoint (l a multiple of every) or one
+  // of the two work buffers
+  auto input = [&](int l) -> bf16_t* {
+    if (l % every == 0) return ckpt + (l / every - 1) * mr;
+    return work + (l & 1) * mr;
+  };
+  for (int l = 0; l < n_layers; ++l) {
+    TailsLayerArgs a = tails_layer_args<R, S>(
+        l == 0 ? x : input(l), l + 1 < n_layers ? input(l + 1) : nullptr,
+        ctx, b_fg, w_fg, w_out, b_out, dil, l, batch, t_len);
+    a.skacc = skacc;
+    a.skip = skip;
+    a.first = l == 0;
+    a.last = l == n_layers - 1;
+    err = tl.launch(a, st);
+    if (err) return err;
+  }
+  return 0;
 }
 
 template <int R, int S>
-int bwd_tails_impl(const bf16_t* x, const bf16_t* tails, const bf16_t* ctx,
-                   const float* b_fg, const bf16_t* w_fg_bf,
-                   const float* w_fg_t, const bf16_t* w_out_bf,
-                   const float* w_out_t,
-                   const float* b_out, const bf16_t* dskip,
-                   const TailsGeom& g, float* scratch, int blocks,
-                   bf16_t* dx, bf16_t* dctx, float* grads, int batch,
-                   int t_len, int n_layers, int sum_d, long n_part,
-                   cudaStream_t st) {
-  TailsBwdArgs a;
-  a.x = x;
-  a.tails = tails;
-  a.ctx = ctx;
-  a.b_fg = b_fg;
-  a.w_fg_bf = w_fg_bf;
-  a.w_fg_t = w_fg_t;
-  a.w_out_bf = w_out_bf;
-  a.w_out_t = w_out_t;
-  a.b_out = b_out;
-  a.dskip = dskip;
-  a.dx = dx;
-  a.dctx = dctx;
-  a.part = scratch;
-  a.n_part = n_part;
-  a.batch = batch;
-  a.t_len = t_len;
-  a.n_layers = n_layers;
-  a.halo = round4(sum_d);
-  a.sum_d = sum_d;
-  a.g = g;
-  const size_t smem =
-      TailsBwdShape<R, S>::smem(a.halo, ctx != nullptr, n_layers);
-  int err = set_smem(reinterpret_cast<const void*>(
-                         stack_tails_bwd_kernel<R, S>), smem);
+int bwd_tails_impl(const bf16_t* x, const bf16_t* ckpt, const bf16_t* ctx,
+                   const float* b_fg, const float* w_fg, const float* w_out,
+                   const float* b_out, const bf16_t* dskip, const int* dil,
+                   int every, bf16_t* group, float* scratch, int chunks,
+                   bf16_t* dx, bf16_t* dctx_out, float* db_fg, float* dw_fg,
+                   float* dw_out, float* db_out, int batch, int t_len,
+                   int n_layers, cudaStream_t st) {
+  const long m_total = static_cast<long>(batch) * t_len;
+  const long mr = m_total * R;
+  const int win = ctx ? 3 * R : 2 * R;
+  // float32 scratch: the save backward's dhp, p[2], dh, dfg, dctx, then
+  // gated, then the partials
+  float* dhp = scratch;
+  float* pbuf[2] = {dhp + mr, dhp + 2 * mr};
+  float* dh = dhp + 3 * mr;
+  float* dfg = dhp + 4 * mr;
+  float* dctx = dhp + 6 * mr;
+  float* gated = dhp + 7 * mr;
+  float* part = dhp + 8 * mr;
+  TailsLayers<R, S> tl;
+  int err = tl.setup(m_total);
   if (err) return err;
-  cudaError_t e = cudaMemsetAsync(
-      scratch, 0, static_cast<size_t>(blocks) * n_part * sizeof(float), st);
+  using Sh = BwdShape<R, S>;
+  const size_t smem = Sh::smem_rc(win);
+  const void* layer = reinterpret_cast<const void*>(
+      stack_bwd_layer_kernel<R, S, true>);
+  err = set_smem(layer, smem);
+  if (err) return err;
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, layer, Sh::kThreads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  stack_tails_bwd_kernel<R, S><<<blocks, kTailsBwdThreads, smem, st>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  reduce_kernel<<<grid_for(n_part), kThreads, 0, st>>>(scratch, grads, n_part,
-                                                       1, blocks);
-  return static_cast<int>(cudaGetLastError());
-}
+  const long tiles = (m_total + Sh::kRows - 1) / Sh::kRows;
+  const long pairs = (tiles + Sh::kHalves - 1) / Sh::kHalves;
+  const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
+  const int grid = static_cast<int>(pairs < fit ? pairs : fit);
+  for (int lo = (n_layers - 1) / every * every; lo >= 0; lo -= every) {
+    const int hi = lo + every < n_layers ? lo + every : n_layers;
+    // the group's inputs: h_lo from x or its checkpoint, h_{lo+1} ..
+    // rebuilt into the group buffers (slot i holds h_{lo+1+i}) by the
+    // forward's layer kernel, skip sum off
+    const bf16_t* h_lo = lo == 0 ? x : ckpt + (lo / every - 1) * mr;
+    auto input = [&](int l) {
+      return l == lo ? h_lo : group + (l - lo - 1) * mr;
+    };
+    for (int l = lo; l + 1 < hi; ++l) {
+      err = tl.launch(tails_layer_args<R, S>(
+          input(l), group + (l - lo) * mr, ctx, b_fg, w_fg, w_out, b_out,
+          dil, l, batch, t_len), st);
+      if (err) return err;
+    }
+    for (int l = hi - 1; l >= lo; --l) {
+      const bf16_t* hs = input(l);
+      BwdLayerArgs a = {};
+      a.dhp = dhp;
+      a.p_in = pbuf[(l + 1) & 1];
+      a.p_out = pbuf[l & 1];
+      a.dh = dh;
+      a.dfg = dfg;
+      a.dctx = ctx ? dctx : nullptr;
+      a.dctx_bf = (ctx && l == 0) ? dctx_out : nullptr;
+      a.dskip = dskip;
+      a.w_out = w_out + static_cast<long>(l) * R * (R + S);
+      a.w_fg = w_fg + static_cast<long>(l) * win * 2 * R;
+      a.m_total = m_total;
+      a.t_len = t_len;
+      a.d_in = l + 1 < n_layers ? dil[l + 1] : 0;
+      a.top = l == n_layers - 1;
+      a.win = win;
+      a.hs = hs;
+      a.cx = ctx;
+      a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
+      a.gated = gated;
+      a.d = dil[l];
+      stack_bwd_layer_kernel<R, S, true><<<grid, Sh::kThreads, smem, st>>>(a);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
 
-// geometry of the recompute kernels; false if there are too many layers
-bool tails_geom(const int* dil, int n_layers, TailsGeom* g, int* sum_d) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return false;
-  int total = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    g->dil[l] = dil[l];
-    g->offs[l] = total;
-    total += dil[l];
-    g->need[l] = round4(kTailsTile + total);
+      WgradArgs w = {};
+      w.hs = hs;
+      w.ctx = ctx;
+      w.dfg = dfg;
+      w.dh = dh;
+      w.dskip = dskip;
+      w.gated = gated;
+      w.rows_per_batch = t_len;
+      w.chunks = chunks;
+      w.d = dil[l];
+      w.part = part;
+      w.part_b = part + static_cast<long>(batch) * chunks * win * 2 * R;
+      w.n = 2 * R;
+      float* dwf = dw_fg + static_cast<long>(l) * win * 2 * R;
+      float* dbf = db_fg + static_cast<long>(l) * batch * 2 * R;
+      err = ctx ? wgrad_launch<0, R, S, 3 * R>(w, batch, dwf, dbf, batch, st)
+                : wgrad_launch<0, R, S, 2 * R>(w, batch, dwf, dbf, batch, st);
+      if (err) return err;
+      w.n = R + S;
+      w.part_b = part + static_cast<long>(batch) * chunks * R * (R + S);
+      err = wgrad_launch<3, R, S, R>(
+          w, batch, dw_out + static_cast<long>(l) * R * (R + S),
+          db_out + static_cast<long>(l) * (R + S), 1, st);
+      if (err) return err;
+    }
   }
-  *sum_d = total;
-  return true;
-}
-
-long tails_n_part(int r, int s, int win, int n_layers, int batch) {
-  return static_cast<long>(n_layers) *
-         (static_cast<long>(win) * 2 * r + r * (r + s) + (r + s) +
-          static_cast<long>(batch) * 2 * r);
+  stack_dx_kernel<<<grid_for(mr), kThreads, 0, st>>>(dhp, pbuf[0], dil[0],
+                                                      t_len, R, mr, dx);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -2427,14 +2354,17 @@ long movenet_stack_bwd_scratch(int batch, int t_len, int r, int s, int win,
   return 7 * m_total * r + part;
 }
 
-// Dynamic shared memory of the save backward's launches, in bytes: the
-// layer launch (kind -1) or the weight-gradient launch of mode kind (0:
-// W_fg with W_in = win, 1: W_out, 2: the projection's W_up); -1 where
-// (r, s) is not built.
+// Dynamic shared memory of the backward's launches, in bytes: the layer
+// launch (kind -1; -2 its recompute form) or the weight-gradient launch of
+// mode kind (0: W_fg with W_in = win, 1: W_out, 2: the projection's W_up,
+// 3: W_out from the float32 gated); -1 where (r, s) is not built.
 long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
 #define X(R_, S_)                                                      \
   if (r == R_ && s == S_) {                                            \
     if (kind == -1) return static_cast<long>(BwdShape<R_, S_>::smem(win)); \
+    if (kind == -2)                                                    \
+      return static_cast<long>(BwdShape<R_, S_>::smem_rc(win));        \
+    if (kind == 3) return static_cast<long>(WgShape<3, R_, S_, R_>::smem()); \
     if (kind == 0)                                                     \
       return static_cast<long>(win == 3 * R_                           \
                                    ? WgShape<0, R_, S_, 3 * R_>::smem() \
@@ -2601,83 +2531,61 @@ int movenet_stack_head_bwd(const bf16_t* skip, const int* tgt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows per tile of the recompute kernels' snapshots.
-int movenet_tails_tile() { return kTailsTile; }
-
-// Shared memory of the recompute backward (it exceeds the forward's).
-long movenet_tails_bwd_smem(int r, int s, int win, int n_layers, int sum_d) {
-  const long n = kTailsTile + round4(sum_d);
-  const bool ctx = win == 3 * r;
-  return 4 * (n * r + n * 2 * r + n * r + (ctx ? kTailsTile * r : 0)) +
-         2 * (static_cast<long>(n_layers) * n * r + (ctx ? n * r : 0) +
-              n * s);
+// Float32 scratch elements of the recompute backward (see
+// bwd_tails_impl): eight (M, R) arrays and the weight-gradient partials.
+long movenet_tails_bwd_scratch(int batch, int t_len, int r, int s, int win,
+                               int chunks) {
+  const long p_fg = static_cast<long>(batch) * chunks * (win + 1) * 2 * r;
+  const long p_out = static_cast<long>(batch) * chunks * (r + 1) * (r + s);
+  return 8L * batch * t_len * r + (p_fg > p_out ? p_fg : p_out);
 }
 
-// Persistent blocks of the recompute backward: one per SM (its shared
-// memory allows one), at most one per tile.
-int movenet_tails_bwd_blocks(int n_tiles) {
-  const int sm = sm_count();
-  return n_tiles < sm ? (n_tiles < 1 ? 1 : n_tiles) : sm;
-}
-
-// Float32 scratch elements of the recompute backward: each block's
-// partial weight and bias gradients.
-long movenet_tails_bwd_scratch(int r, int s, int win, int n_layers,
-                               int batch, int blocks) {
-  return static_cast<long>(blocks) *
-         tails_n_part(r, s, win, n_layers, batch);
-}
-
-// Recompute forward: skip_sum (B,T,S) and the snapshots (B, T/tile,
-// sum(d), R); returns the first cudaError_t.  dil is a host array.
+// Recompute forward: skip_sum (B,T,S) and the checkpoints ckpt (ceil(L /
+// every) - 1, B, T, R), ckpt[i] the input of layer (i + 1) * every; work
+// holds two (B, T, R) bf16 buffers and skacc (B*T, S) floats.  Returns the
+// first cudaError_t.  dil is a host array.
 int movenet_stack_fwd_tails(const bf16_t* x, const bf16_t* ctx,
                             const float* b_fg, const float* w_fg,
                             const float* w_out, const float* b_out,
-                            const int* dil, bf16_t* skip, bf16_t* tails,
+                            const int* dil, int every, bf16_t* skip,
+                            bf16_t* ckpt, bf16_t* work, float* skacc,
                             int batch, int t_len, int n_layers, int r, int s,
                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  TailsGeom g;
-  int sum_d = 0;
-  if (t_len % kTailsTile || !tails_geom(dil, n_layers, &g, &sum_d))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define X(R_, S_)                                                         \
   if (r == R_ && s == S_)                                                 \
-    return fwd_tails_impl<R_, S_>(x, ctx, b_fg, w_fg, w_out, b_out, g,    \
-                                  skip, tails, batch, t_len, n_layers,    \
-                                  sum_d, st);
+    return fwd_tails_impl<R_, S_>(x, ctx, b_fg, w_fg, w_out, b_out, dil,  \
+                                  every, skip, ckpt, work, skacc, batch,  \
+                                  t_len, n_layers, st);
   MOVENET_STACK_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Recompute backward: dx, dctx (bf16, null without ctx) and grads =
-// [dw_fg (L, W_in, 2R) | dw_out (L, R, R+S) | db_out (L, R+S) | db_fg
-// (L*B, 2R)] in float32; scratch holds movenet_tails_bwd_scratch floats
-// for `blocks` blocks.  Returns the first cudaError_t.
-int movenet_stack_bwd_tails(const bf16_t* x, const bf16_t* tails,
+// Recompute backward: dx, dctx (bf16, null without ctx), db_fg (L*B, 2R),
+// dw_fg (L, W_in, 2R), dw_out (L, R, R+S), db_out (L, R+S) in float32,
+// from x and the forward's checkpoints; group holds every - 1 (B, T, R)
+// bf16 buffers, scratch movenet_tails_bwd_scratch floats.  Returns the
+// first cudaError_t.  dil is a host array.
+int movenet_stack_bwd_tails(const bf16_t* x, const bf16_t* ckpt,
                             const bf16_t* ctx, const float* b_fg,
-                            const bf16_t* w_fg_bf, const float* w_fg_t,
-                            const bf16_t* w_out_bf, const float* w_out_t,
+                            const float* w_fg, const float* w_out,
                             const float* b_out, const bf16_t* dskip,
-                            const int* dil, float* scratch, int blocks,
-                            bf16_t* dx, bf16_t* dctx, float* grads,
-                            int batch, int t_len, int n_layers, int r,
-                            int s, void* stream) {
+                            const int* dil, int every, bf16_t* group,
+                            float* scratch, int chunks, bf16_t* dx,
+                            bf16_t* dctx, float* db_fg, float* dw_fg,
+                            float* dw_out, float* db_out, int batch,
+                            int t_len, int n_layers, int r, int s,
+                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  TailsGeom g;
-  int sum_d = 0;
-  if (t_len % kTailsTile || !tails_geom(dil, n_layers, &g, &sum_d))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long n_part =
-      tails_n_part(r, s, ctx ? 3 * r : 2 * r, n_layers, batch);
+  if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define X(R_, S_)                                                            \
   if (r == R_ && s == S_)                                                    \
-    return bwd_tails_impl<R_, S_>(x, tails, ctx, b_fg, w_fg_bf, w_fg_t,      \
-                                  w_out_bf, w_out_t, b_out, dskip, g,        \
-                                  scratch, blocks,                           \
-                                  dx, dctx, grads, batch, t_len, n_layers,   \
-                                  sum_d, n_part, st);
+    return bwd_tails_impl<R_, S_>(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,    \
+                                  dskip, dil, every, group, scratch, chunks, \
+                                  dx, dctx, db_fg, dw_fg, dw_out, db_out,    \
+                                  batch, t_len, n_layers, st);
   MOVENET_STACK_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);

@@ -24,6 +24,7 @@ import logging
 import math
 import queue
 import random
+import sys
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -293,20 +294,22 @@ class DataLoader:
 
                     refill()
                     group: List[Example] = []
-                    while in_flight:
-                        if stop.is_set():
-                            for f in in_flight:
-                                f.cancel()
-                            return
-                        ex = in_flight.popleft().result()
-                        refill()
-                        if ex is None:
-                            continue  # substitute: next clip fills slot
-                        group.append(ex)
-                        if len(group) == self.examples_per_step:
-                            if not put(self._assemble(group, rng)):
-                                return
-                            group = []
+                    try:
+                        while in_flight and not stop.is_set():
+                            ex = in_flight.popleft().result()
+                            refill()
+                            if ex is None:
+                                continue  # substitute: next clip fills
+                            group.append(ex)
+                            if len(group) == self.examples_per_step:
+                                if not put(self._assemble(group, rng)):
+                                    return
+                                group = []
+                    finally:
+                        # a stopped consumer waits only for the decodes
+                        # already running, not for the queued ones
+                        for f in in_flight:
+                            f.cancel()
             except Exception as e:  # surface errors on the consumer side
                 put(e)
             finally:
@@ -326,6 +329,11 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
+            # the producer sees the stop within one decode: no decode
+            # outlives the epoch (its files may be gone after it), and no
+            # thread is left inside torch when the interpreter exits
+            if not sys.is_finalizing():
+                thread.join()
 
     def _assemble(self, group: List[Example], rng: random.Random) -> Batch:
         codes = np.stack([ex.codes for ex in group]).astype(np.int32)

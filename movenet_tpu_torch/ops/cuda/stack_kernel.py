@@ -8,15 +8,18 @@ forward and backward kernels in ``csrc/stack_kernel.cu`` (which replace
 ``stack_head_bwd`` those of the merged trunk + head + CE (which replace
 ``:464 _fwd_kernel_head`` and ``:624 _bwd_kernel_head``);
 ``stack_fwd_tails`` and ``stack_bwd_tails`` those of the recompute
-strategy's (``:929 _fwd_kernel_tails`` and ``:1031 _bwd_kernel_tails``).
+strategy's (``:929 _fwd_kernel_tails`` and ``:1031 _bwd_kernel_tails``),
+layer-major with layer checkpoints (``ops/stack_kernel.tails_every``).
 For tensors on the CPU they return the plain versions
 (``ops/stack_kernel.stack_fwd_plain`` ...); for CUDA tensors they launch
 the kernels or raise.  One call of ``stack_fwd`` is L+1 grid launches (the
 embedding, then one per layer); one call of ``stack_bwd`` is 5L+2 (plus 3
 with the video projection): per layer the layer launch and two
 weight-gradient launches with their reductions.  ``stack_fwd_tails`` is
-one launch; ``stack_bwd_tails`` two (the tile sweep and the fixed-order
-reduction of its per-block weight-gradient partials).  ``stack_head_fwd``
+L grid launches (one per layer); ``stack_bwd_tails`` is per group of k
+layers k - 1 rebuild launches of the same layer kernel, then per layer the
+save backward's grids in their recompute form (the layer launch, two
+weight-gradient launches and their reductions), then dx.  ``stack_head_fwd``
 is ``stack_fwd``'s grids with x in place of the embedding and the head in
 the last layer's, plus one reduction; ``stack_head_bwd`` is the head's
 backward grid and its reduction, then ``stack_bwd_x``'s grids.  Each call
@@ -39,8 +42,6 @@ launch_counts: Dict[str, int] = {"stack_fwd": 0, "stack_bwd": 0,
                                  "stack_head_fwd": 0, "stack_head_bwd": 0}
 # blocks of the time-reduction launches: two per SM of an H100
 REDUCE_BLOCKS = 264
-# shared memory one block may use on sm_90
-SMEM_LIMIT = 232_448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,20 +79,13 @@ def bind(lib):
     lib.movenet_stack_bwd.argtypes = [_P] * 8 + [_I, _I] + [_P] * 4 \
         + [_I] + [_P] * 9 + [_I] * 6 + [_P]
     lib.movenet_stack_bwd.restype = _I
-    lib.movenet_tails_tile.argtypes = []
-    lib.movenet_tails_tile.restype = _I
-    lib.movenet_tails_bwd_smem.argtypes = [_I, _I, _I, _I, _I]
-    lib.movenet_tails_bwd_smem.restype = _L
-    lib.movenet_tails_bwd_blocks.argtypes = [_I]
-    lib.movenet_tails_bwd_blocks.restype = _I
-    lib.movenet_tails_bwd_scratch.argtypes = [_I, _I, _I, _I, _I, _I]
+    lib.movenet_tails_bwd_scratch.argtypes = [_I] * 6
     lib.movenet_tails_bwd_scratch.restype = _L
-    lib.movenet_stack_fwd_tails.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
-                                            _P, _I, _I, _I, _I, _I, _P]
+    lib.movenet_stack_fwd_tails.argtypes = [_P] * 7 + [_I] + [_P] * 4 \
+        + [_I] * 5 + [_P]
     lib.movenet_stack_fwd_tails.restype = _I
-    lib.movenet_stack_bwd_tails.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
-                                            _P, _P, _P, _P, _I, _P, _P, _P,
-                                            _I, _I, _I, _I, _I, _P]
+    lib.movenet_stack_bwd_tails.argtypes = [_P] * 9 + [_I, _P, _P, _I] \
+        + [_P] * 6 + [_I] * 5 + [_P]
     lib.movenet_stack_bwd_tails.restype = _I
     lib.movenet_stack_blocks.argtypes = []
     lib.movenet_stack_blocks.restype = _I
@@ -265,80 +259,67 @@ def run_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab,
 
 
 def _tails_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations):
-    """Shape checks of the recompute kernels: (B, T, L, R, S, W_in)."""
+    """Checks of the recompute kernels: (B, T, L, R, S, W_in)."""
     dims = _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
                     "the trunk kernels")
-    batch, t, n_layers, r, s, win = dims
-    tile = lib.movenet_tails_tile()
-    if tile != sk.TAILS_TILE or t % tile:
-        raise ValueError(f"T={t} is not a multiple of the recompute tile "
-                         f"{tile} (ops/stack_kernel.TAILS_TILE "
-                         f"{sk.TAILS_TILE})")
-    smem = lib.movenet_tails_bwd_smem(r, s, win, n_layers, sum(dilations))
-    if smem > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"the recompute backward keeps every layer input of a tile and "
-            f"its halo of sum(dilations) = {sum(dilations)} rows in shared "
-            f"memory: {smem} bytes at L={n_layers}, R={r}, more than "
-            f"{SMEM_LIMIT} (ROADMAP.md B.5)")
+    if dims[0] * dims[1] >= 2 ** 31:
+        raise ValueError(f"B*T = {dims[0] * dims[1]}: the recompute "
+                         "kernels index rows in 32 bits")
     return dims
 
 
 def run_fwd_tails(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
-                  stream=None):
+                  stream=None, every=0):
     """Launch the recompute forward (outputs allocated here); returns
-    (skip_sum, tails) as ``stack_fwd_tails_plain``."""
+    (skip_sum, ckpt) as ``stack_fwd_tails_plain``."""
     batch, t, n_layers, r, s, _ = _tails_check(lib, x, ctx, b_fg, w_fg,
                                                w_out, b_out, dilations)
-    bf = torch.bfloat16
-    skip = torch.empty(batch, t, s, dtype=bf, device=x.device)
-    tails = torch.empty(batch, t // sk.TAILS_TILE, sum(dilations), r,
-                        dtype=bf, device=x.device)
+    every = every or sk.tails_every(n_layers)
+    dev, bf = x.device, torch.bfloat16
+    skip = torch.empty(batch, t, s, dtype=bf, device=dev)
+    ckpt = torch.empty(len(sk.ckpt_layers(n_layers, every)), batch, t, r,
+                       dtype=bf, device=dev)
+    work = torch.empty(2, batch, t, r, dtype=bf, device=dev)
+    skacc = torch.empty(batch * t, s, dtype=torch.float32, device=dev)
     err = lib.movenet_stack_fwd_tails(
         _ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
-        _dils(dilations), _ptr(skip), _ptr(tails), batch, t, n_layers, r, s,
-        stream)
+        _dils(dilations), every, _ptr(skip), _ptr(ckpt), _ptr(work),
+        _ptr(skacc), batch, t, n_layers, r, s, stream)
     _raise(err, "stack_fwd_tails")
-    return skip, tails
+    return skip, ckpt
 
 
-def run_bwd_tails(lib, x, tails, ctx, b_fg, w_fg, w_out, b_out, dskip,
-                  dilations, stream=None):
+def run_bwd_tails(lib, x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
+                  dilations, stream=None, every=0):
     """Launch the recompute backward (outputs and scratch allocated
     here); returns as ``stack_bwd_tails_plain``."""
     batch, t, n_layers, r, s, win = _tails_check(lib, x, ctx, b_fg, w_fg,
                                                  w_out, b_out, dilations)
+    every = every or sk.tails_every(n_layers)
     dev, f32 = x.device, torch.float32
-    _check("tails", tails, torch.bfloat16,
-           (batch, t // sk.TAILS_TILE, sum(dilations), r), dev)
+    _check("ckpt", ckpt, torch.bfloat16,
+           (len(sk.ckpt_layers(n_layers, every)), batch, t, r), dev)
     _check("dskip", dskip, torch.bfloat16, (batch, t, s), dev)
-    # the recompute products read bf16 copies of the weights (rounded as
-    # the forward rounds them); the gradient products read W^T rows:
-    # float32 transposed copies (L, 2R, W_in) and (L, R+S, R)
-    w_fg_bf = w_fg.to(torch.bfloat16)
-    w_out_bf = w_out.to(torch.bfloat16)
-    w_fg_t = w_fg.transpose(1, 2).contiguous()
-    w_out_t = w_out.transpose(1, 2).contiguous()
-    blocks = lib.movenet_tails_bwd_blocks(batch * (t // sk.TAILS_TILE))
+    chunks = max(1, REDUCE_BLOCKS // batch)
     scratch = torch.empty(
-        lib.movenet_tails_bwd_scratch(r, s, win, n_layers, batch, blocks),
+        lib.movenet_tails_bwd_scratch(batch, t, r, s, win, chunks),
         dtype=f32, device=dev)
+    group = torch.empty(max(every - 1, 1), batch, t, r, dtype=torch.bfloat16,
+                        device=dev)
     dx = torch.empty(batch, t, r, dtype=torch.bfloat16, device=dev)
     dctx = torch.empty_like(dx) if ctx is not None else None
-    sizes = [n_layers * win * 2 * r, n_layers * r * (r + s),
-             n_layers * (r + s), n_layers * batch * 2 * r]
-    grads = torch.empty(sum(sizes), dtype=f32, device=dev)
+    db_fg = torch.empty(n_layers * batch, 2 * r, dtype=f32, device=dev)
+    dw_fg = torch.empty(n_layers, win, 2 * r, dtype=f32, device=dev)
+    dw_out = torch.empty(n_layers, r, r + s, dtype=f32, device=dev)
+    db_out = torch.empty(n_layers, r + s, dtype=f32, device=dev)
     err = lib.movenet_stack_bwd_tails(
-        _ptr(x), _ptr(tails), _ptr(ctx), _ptr(b_fg), _ptr(w_fg_bf),
-        _ptr(w_fg_t), _ptr(w_out_bf), _ptr(w_out_t), _ptr(b_out),
-        _ptr(dskip),
-        _dils(dilations), _ptr(scratch), blocks, _ptr(dx), _ptr(dctx),
-        _ptr(grads), batch, t, n_layers, r, s, stream)
+        _ptr(x), _ptr(ckpt), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out),
+        _ptr(b_out), _ptr(dskip), _dils(dilations), every, _ptr(group),
+        _ptr(scratch), chunks, _ptr(dx), _ptr(dctx), _ptr(db_fg),
+        _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), batch, t, n_layers, r, s,
+        stream)
     _raise(err, "stack_bwd_tails")
-    dw_fg, dw_out, db_out, db_fg = torch.split(grads, sizes)
-    return (dx, dctx, db_fg.view(n_layers * batch, 2 * r),
-            dw_fg.view(n_layers, win, 2 * r),
-            dw_out.view(n_layers, r, r + s), db_out.view(n_layers, r + s))
+    return dx, dctx, db_fg, dw_fg, dw_out, db_out
 
 
 def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what):
@@ -505,8 +486,8 @@ def stack_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab: int,
 
 def stack_fwd_tails(x, ctx, b_fg, w_fg, w_out, b_out,
                     dilations: Sequence[int]):
-    """(skip_sum, tails): the plain version for CPU tensors, the recompute
-    forward kernel for CUDA tensors."""
+    """(skip_sum, ckpt): the plain version for CPU tensors, the recompute
+    forward kernels for CUDA tensors."""
     if not x.is_cuda:
         return sk.stack_fwd_tails_plain(x, ctx, b_fg, w_fg, w_out, b_out,
                                         dilations)
@@ -516,14 +497,14 @@ def stack_fwd_tails(x, ctx, b_fg, w_fg, w_out, b_out,
     return out
 
 
-def stack_bwd_tails(x, tails, ctx, b_fg, w_fg, w_out, b_out, dskip,
+def stack_bwd_tails(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
                     dilations: Sequence[int]):
     """The recompute backward: the plain version for CPU tensors, the
     kernels for CUDA tensors (returns as ``stack_bwd_tails_plain``)."""
     if not x.is_cuda:
-        return sk.stack_bwd_tails_plain(x, tails, ctx, b_fg, w_fg, w_out,
+        return sk.stack_bwd_tails_plain(x, ckpt, ctx, b_fg, w_fg, w_out,
                                         b_out, dskip, dilations)
-    out = run_bwd_tails(library(), x, tails, ctx, b_fg, w_fg, w_out, b_out,
+    out = run_bwd_tails(library(), x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
                         dskip, dilations, _stream(x))
     launch_counts["stack_bwd_tails"] += 1
     return out

@@ -11,10 +11,12 @@ strategies:
              T, R) and its packed gating taps ``tfsg`` = [tanh f | sigmoid
              g] (L, B, T, 2R) for the backward, both in the compute dtype;
   recompute  ``fused_stack`` with that strategy.  The forward keeps only
-             per-tile ring snapshots ``tails`` (B, n_tiles, sum(d), R):
-             for each tile of ``TAILS_TILE`` rows and each layer l, h_l at
-             the d_l rows before the tile.  The backward rebuilds every
-             layer input of a tile from x and its snapshot.
+             layer checkpoints ``ckpt`` (n_ckpt, B, T, R): the input h_l
+             of every k-th layer, l = k, 2k, ... < L, k =
+             ``tails_every(L)`` (about sqrt(L); h_0 is x, kept anyway).
+             The backward walks the groups of k layers from the top,
+             rebuilds each group's layer inputs from its checkpoint and
+             sweeps the group's layers top down.
 
 The kernels live in ``csrc/stack_kernel.cu`` behind
 ``ops/cuda/stack_kernel.py``; tensors on the CPU take the plain versions
@@ -62,6 +64,7 @@ and feeds it to the save layer sweep unrounded.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Sequence
 
@@ -75,9 +78,6 @@ UPSAMPLE_STRIDE = 10
 _SAVE_ALL_BUDGET_BYTES = 1 << 30
 # the front embedding is folded into the kernel up to this 2V
 EMBED_MAX_2V = 512
-# rows per tile of the recompute strategy's snapshots (the port's own
-# tile: the snapshots never leave the op)
-TAILS_TILE = 64
 
 
 # ------------------------------------------------------------ geometry
@@ -105,29 +105,10 @@ def pick_stack_tile(t: int, dilations, ctx: bool = False) -> int:
     raise ValueError(f"no stack tile for T={t}, dilations={dilations}")
 
 
-def _ring_offsets(dilations):
-    offs, total = [], 0
-    for d in dilations:
-        offs.append(total)
-        total += d
-    return offs, total
-
-
-def _split_ring_offsets(dilations, tile: int):
-    """Ring offsets with the d < tile layers first; (offs, small_total,
-    total)."""
-    order = [l for l, d in enumerate(dilations) if d < tile] + \
-            [l for l, d in enumerate(dilations) if d >= tile]
-    offs, tot = [0] * len(dilations), 0
-    for l in order:
-        offs[l] = tot
-        tot += dilations[l]
-    small_total = sum(d for d in dilations if d < tile)
-    return offs, small_total, tot
-
-
 def supports_recompute(t: int, dilations) -> bool:
-    """The tails-recompute VJP needs every dilation inside one tile."""
+    """The JAX package's tails-recompute VJP needs every dilation inside
+    one of its tiles; the port's layer-major kernels take any dilation
+    but apply the same condition, so both packages pick one strategy."""
     try:
         tile = pick_stack_tile(t, dilations)
     except ValueError:
@@ -559,99 +540,119 @@ def tf32_split_matmul(a: torch.Tensor, b: torch.Tensor, split_a: bool,
     return out
 
 
-def _tails_rebuild(x, ctx, b_fg, w_fg, w_out, b_out, dilations):
-    """Every layer's input h_l (float32 holding compute-dtype values) and
-    the skip sum, as the recompute forward computes them: h rounded after
-    every layer, gated from the unrounded taps."""
-    dt = x.dtype
+def tails_every(n_layers: int) -> int:
+    """Layers per checkpoint group of the recompute strategy, about
+    sqrt(L): the forward keeps ceil(L/k) - 1 checkpoints and the backward
+    k - 1 rebuilt layer inputs at a time, (B, T, R) each."""
+    return math.isqrt(max(n_layers, 1) - 1) + 1
+
+
+def ckpt_layers(n_layers: int, every: int) -> range:
+    """The layers whose input the recompute forward keeps: k, 2k, ..."""
+    return range(every, n_layers, every)
+
+
+def _tails_layer(h, ctxf, bfg, w_fg, w_out, b_out, d, dt):
+    """One layer of the recompute forward from h (float32 holding
+    compute-dtype values): (the next h, rounded; the skip part), with
+    the weights rounded to ``dt`` and ``gated`` from the unrounded
+    taps, rounded as a product operand."""
     f32 = torch.float32
 
     def rnd(v):
         return v.to(dt).to(f32)
 
-    batch, _, r = x.shape
-    n_layers = len(dilations)
-    bfg = b_fg.to(f32).reshape(n_layers, batch, 1, 2 * r)
-    ctxf = ctx.to(f32) if ctx is not None else None
-    h = x.to(f32)
+    r = h.shape[-1]
+    parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
+    fg = torch.matmul(torch.cat(parts, dim=-1), rnd(w_fg)) + bfg
+    gated = torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:])
+    out = torch.matmul(rnd(gated), rnd(w_out)) + b_out.to(f32)
+    return rnd(out[..., :r] + h), out[..., r:]
+
+
+def _tails_rebuild(h, ctxf, bfg, w_fg, w_out, b_out, dilations, dt,
+                   lo: int, hi: int):
+    """The inputs h_lo .. h_{hi-1} of layers [lo, hi) from h = h_lo, and
+    the skip sum of those layers (float32)."""
     hs, skip = [], None
-    for l, d in enumerate(dilations):
+    for l in range(lo, hi):
         hs.append(h)
-        parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
-        fg = torch.matmul(torch.cat(parts, dim=-1), rnd(w_fg[l])) + bfg[l]
-        gated = torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:])
-        out = torch.matmul(rnd(gated), rnd(w_out[l])) \
-            + b_out[l].to(f32)
-        skip = out[..., r:] if skip is None else skip + out[..., r:]
-        h = rnd(out[..., :r] + h)
+        h, sk = _tails_layer(h, ctxf, bfg[l], w_fg[l], w_out[l], b_out[l],
+                             dilations[l], dt)
+        skip = sk if skip is None else skip + sk
     return hs, skip
 
 
-def _tails_snapshot(hs, dilations) -> torch.Tensor:
-    """(B, n_tiles, sum(d), R): for tile i and layer l, h_l at the d_l
-    rows before the tile (zero before t = 0), at the ring offsets."""
-    batch, t, r = hs[0].shape
-    tile = TAILS_TILE
-    n_tiles = t // tile
-    offs, total = _ring_offsets(dilations)
-    out = hs[0].new_zeros(batch, n_tiles, total, r)
-    starts = torch.arange(n_tiles, device=hs[0].device) * tile
-    for l, d in enumerate(dilations):
-        rows = starts[:, None] - d + torch.arange(d, device=starts.device)
-        ok = (rows >= 0)[None, :, :, None]
-        out[:, :, offs[l]:offs[l] + d] = torch.where(
-            ok, hs[l][:, rows.clamp(min=0)], 0.0)
-    return out
+def _tails_consts(x, ctx, b_fg, dilations):
+    batch, _, r = x.shape
+    bfg = b_fg.to(torch.float32).reshape(len(dilations), batch, 1, 2 * r)
+    ctxf = ctx.to(torch.float32) if ctx is not None else None
+    return bfg, ctxf
 
 
 def stack_fwd_tails_plain(x, ctx, b_fg, w_fg, w_out, b_out,
-                          dilations: Sequence[int]):
-    """(skip_sum (B,T,S), tails (B, T/TAILS_TILE, sum(d), R)), both in x's
-    dtype (the compute dtype); ctx is None or flat (B,T,R) in that
-    dtype."""
-    hs, skip = _tails_rebuild(x, ctx, b_fg, w_fg, w_out, b_out, dilations)
-    return skip.to(x.dtype), _tails_snapshot(hs, dilations).to(x.dtype)
+                          dilations: Sequence[int], every: int = 0):
+    """(skip_sum (B,T,S), ckpt (n_ckpt, B, T, R)), both in x's dtype (the
+    compute dtype): ckpt[i] is the input of layer (i + 1) k, k = every or
+    ``tails_every(L)``.  ctx is None or flat (B,T,R) in that dtype."""
+    n_layers = len(dilations)
+    every = every or tails_every(n_layers)
+    bfg, ctxf = _tails_consts(x, ctx, b_fg, dilations)
+    hs, skip = _tails_rebuild(x.to(torch.float32), ctxf, bfg, w_fg, w_out,
+                              b_out, dilations, x.dtype, 0, n_layers)
+    keep = [hs[l] for l in ckpt_layers(n_layers, every)]
+    ckpt = torch.stack(keep) if keep else x.new_zeros((0,) + x.shape)
+    return skip.to(x.dtype), ckpt.to(x.dtype)
 
 
-def stack_bwd_tails_plain(x, tails, ctx, b_fg, w_fg, w_out, b_out, dskip,
-                          dilations: Sequence[int]):
+def stack_bwd_tails_plain(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
+                          dilations: Sequence[int], every: int = 0):
     """The backward of ``stack_fwd_tails_plain``: (dx (B,T,R), dctx (B,T,R)
     or None, both in x's dtype; db_fg (L*B, 2R), dw_fg (L, W_in, 2R),
-    dw_out (L, R, R+S), db_out (L, R+S) in float32).
+    dw_out (L, R+S), db_out (L, R+S) in float32).
 
-    Over whole sequences the layer inputs are rebuilt from x alone; the
-    snapshot rows ``tails`` equal the rebuilt ones, so it is not read."""
+    Group by group from the top, as the kernels: each group's layer
+    inputs rebuilt from its checkpoint (x for the first), then its layers
+    swept top down."""
     dt = x.dtype
     f32 = torch.float32
     batch, t, r = x.shape
     n_layers = len(dilations)
-    hs, _ = _tails_rebuild(x, ctx, b_fg, w_fg, w_out, b_out, dilations)
-    bfg = b_fg.to(f32).reshape(n_layers, batch, 1, 2 * r)
-    ctxf = ctx.to(f32) if ctx is not None else None
+    every = every or tails_every(n_layers)
+    if ckpt.shape[0] != len(ckpt_layers(n_layers, every)):
+        raise ValueError(f"{ckpt.shape[0]} checkpoints, expected "
+                         f"{len(ckpt_layers(n_layers, every))} for L="
+                         f"{n_layers}, every {every}")
+    bfg, ctxf = _tails_consts(x, ctx, b_fg, dilations)
     dsk = dskip.to(f32)
     dh = torch.zeros(batch, t, r, dtype=f32, device=x.device)
     dctx = torch.zeros_like(dh) if ctx is not None else None
     db_fg, dw_fg, dw_out, db_out = ([None] * n_layers for _ in range(4))
-    for l in reversed(range(n_layers)):
-        d = dilations[l]
-        h = hs[l]
-        parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
-        hp = torch.cat(parts, dim=-1)
-        fg = torch.matmul(hp, w_fg[l].to(dt).to(f32)) + bfg[l]
-        tf, sg = torch.tanh(fg[..., :r]), torch.sigmoid(fg[..., r:])
-        dout = torch.cat([dh, dsk], dim=-1)
-        dgated = torch.matmul(dout, w_out[l].to(f32).t())
-        dfg = torch.cat([dgated * (sg * (1.0 - tf * tf)),
-                         dgated * (tf * (sg - sg * sg))], dim=-1)
-        dw_fg[l] = torch.einsum("btk,btj->kj", hp, dfg)
-        db_fg[l] = dfg.sum(dim=1)
-        dw_out[l] = torch.einsum("btk,btj->kj", tf * sg, dout)
-        db_out[l] = dout.sum(dim=(0, 1))
-        dfg_w = torch.matmul(dfg, w_fg[l].to(f32).t())
-        dh = dh + dfg_w[..., :r]
-        dh = dh + _unshift(dfg_w[..., r:2 * r], d)
-        if dctx is not None:
-            dctx = dctx + dfg_w[..., 2 * r:]
+    for lo in reversed(range(0, n_layers, every)):
+        hi = min(lo + every, n_layers)
+        h0 = x if lo == 0 else ckpt[lo // every - 1]
+        hs, _ = _tails_rebuild(h0.to(f32), ctxf, bfg, w_fg, w_out, b_out,
+                               dilations, dt, lo, hi)
+        for l in reversed(range(lo, hi)):
+            d = dilations[l]
+            h = hs[l - lo]
+            parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
+            hp = torch.cat(parts, dim=-1)
+            fg = torch.matmul(hp, w_fg[l].to(dt).to(f32)) + bfg[l]
+            tf, sg = torch.tanh(fg[..., :r]), torch.sigmoid(fg[..., r:])
+            dout = torch.cat([dh, dsk], dim=-1)
+            dgated = torch.matmul(dout, w_out[l].to(f32).t())
+            dfg = torch.cat([dgated * (sg * (1.0 - tf * tf)),
+                             dgated * (tf * (sg - sg * sg))], dim=-1)
+            dw_fg[l] = torch.einsum("btk,btj->kj", hp, dfg)
+            db_fg[l] = dfg.sum(dim=1)
+            dw_out[l] = torch.einsum("btk,btj->kj", tf * sg, dout)
+            db_out[l] = dout.sum(dim=(0, 1))
+            dfg_w = torch.matmul(dfg, w_fg[l].to(f32).t())
+            dh = dh + dfg_w[..., :r]
+            dh = dh + _unshift(dfg_w[..., r:2 * r], d)
+            if dctx is not None:
+                dctx = dctx + dfg_w[..., 2 * r:]
     return (dh.to(dt), dctx.to(dt) if dctx is not None else None,
             torch.stack(db_fg).reshape(n_layers * batch, 2 * r),
             torch.stack(dw_fg), torch.stack(dw_out), torch.stack(db_out))
@@ -727,17 +728,20 @@ def fused_stack_embed(codes_pack: torch.Tensor, table2: torch.Tensor,
     n_layers = w_fg.shape[0]
     batch = b_fg.shape[0] // n_layers
     t, r = codes_pack.shape[0], table2.shape[1]
-    if table2.shape[0] > EMBED_MAX_2V:
-        raise NotImplementedError(
-            f"2V = {table2.shape[0]} > {EMBED_MAX_2V}: the non-embed "
-            "fused_stack (front embedding outside the kernel) is not "
-            "ported yet (ROADMAP.md B.2)")
     mode = resolve_strategy(strategy, (batch, t, r), n_layers, dilations,
                             table2.element_size())
     if mode != "save":
         raise ValueError(
             f"fused_stack_embed is the save strategy only; {mode!r} runs "
             "through front_embed + fused_stack (models/fused routes it)")
+    if table2.shape[0] > EMBED_MAX_2V:
+        # the kernel's table gradient keeps per-block tables of 2V rows;
+        # a larger vocabulary embeds outside it, as models/fused does
+        vocab = table2.shape[0] // 2
+        h = front_embed(table2[:vocab], table2[vocab:],
+                        codes_pack[:, :batch].t().contiguous(), table2.dtype)
+        return fused_stack(h, ctx, b_fg, w_fg, w_out, b_out, dilations,
+                           strategy="save")
     xc = wup = bup = ctx_flat = None
     if ctx_is_proj(ctx):
         xc, wup, bup = ctx
@@ -750,9 +754,9 @@ def fused_stack_embed(codes_pack: torch.Tensor, table2: torch.Tensor,
 
 class _FusedStackTails(torch.autograd.Function):
     """skip_sum = trunk(x) through the recompute strategy: the forward
-    keeps x and the ring snapshots, the backward rebuilds the layer
-    inputs; a projection triple is flattened here and its backward folded
-    by ``ctx_proj_fold``."""
+    keeps x and the layer checkpoints, the backward rebuilds the layer
+    inputs group by group; a projection triple is flattened here and its
+    backward folded by ``ctx_proj_fold``."""
 
     @staticmethod
     def forward(fctx, x, ctx_flat, xc, wup, bup, b_fg, w_fg, w_out, b_out,
@@ -762,12 +766,12 @@ class _FusedStackTails(torch.autograd.Function):
         proj = xc is not None
         if proj:
             ctx_flat = ctx_flatten((xc, wup, bup), x.dtype)
-        skip, tails = kern.stack_fwd_tails(x, ctx_flat, b_fg, w_fg, w_out,
-                                           b_out, dilations)
+        skip, ckpt = kern.stack_fwd_tails(x, ctx_flat, b_fg, w_fg, w_out,
+                                          b_out, dilations)
         fctx.dilations = tuple(dilations)
         fctx.proj = proj
         fctx.has_ctx = ctx_flat is not None
-        fctx.save_for_backward(x, tails, ctx_flat, b_fg, w_fg, w_out, b_out,
+        fctx.save_for_backward(x, ckpt, ctx_flat, b_fg, w_fg, w_out, b_out,
                                xc, wup, bup)
         return skip
 
@@ -775,10 +779,10 @@ class _FusedStackTails(torch.autograd.Function):
     def backward(fctx, dskip):
         from movenet_tpu_torch.ops.cuda import stack_kernel as kern
 
-        (x, tails, ctx_flat, b_fg, w_fg, w_out, b_out, xc, wup,
+        (x, ckpt, ctx_flat, b_fg, w_fg, w_out, b_out, xc, wup,
          bup) = fctx.saved_tensors
         dx, dctx, db_fg, dw_fg, dw_out, db_out = kern.stack_bwd_tails(
-            x, tails, ctx_flat, b_fg, w_fg, w_out, b_out,
+            x, ckpt, ctx_flat, b_fg, w_fg, w_out, b_out,
             dskip.to(x.dtype).contiguous(), fctx.dilations)
         d_flat = d_xc = d_wup = d_bup = None
         if fctx.proj:
@@ -929,6 +933,6 @@ __all__ = [
     "stack_fwd_plain", "stack_bwd_plain", "stack_fwd_x_plain",
     "stack_bwd_x_plain", "stack_head_fwd_plain", "stack_head_bwd_plain",
     "stack_fwd_tails_plain", "stack_bwd_tails_plain", "fused_stack_embed",
-    "fused_stack", "fused_stack_head_loss", "TAILS_TILE",
+    "fused_stack", "fused_stack_head_loss", "tails_every",
 ]
 

@@ -18,6 +18,7 @@ A.8) and raises; ``--mesh_data -1`` (every device) is the one card.
 from __future__ import annotations
 
 import logging
+import sys
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -111,7 +112,8 @@ def _device_prefetch(batches, device, depth: int = 2):
         finally:
             _put(None)
 
-    threading.Thread(target=worker, daemon=True).start()
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -122,6 +124,14 @@ def _device_prefetch(batches, device, depth: int = 2):
             yield item
     finally:
         stop.set()
+        # the worker ends after at most one more batch; then the source
+        # is closed here, so the loader's threads end with the epoch and
+        # none is left copying to the device when the interpreter exits
+        if not sys.is_finalizing():
+            thread.join()
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()
 
 
 def _stack_batches(bs) -> Batch:
@@ -176,7 +186,8 @@ def _resolve_run_dir(exp_name: str, out_dir: Path) -> Path:
 
 def _check_single_device(config: TrainingConfig) -> None:
     """One device: a mesh axis of -1 (every device) or 1 is the one
-    card; more raises."""
+    card; more raises.  Under -1 the card count is logged, with a warning
+    when the host has more than one."""
     mesh = config.mesh
     if mesh.data > 1 or mesh.seq > 1 or (config.num_processes or 1) > 1 \
             or config.coordinator_address:
@@ -184,6 +195,14 @@ def _check_single_device(config: TrainingConfig) -> None:
             f"mesh data={mesh.data} seq={mesh.seq}, num_processes="
             f"{config.num_processes}: data-parallel training is not ported "
             "yet (ROADMAP.md A.8); the port trains on one device")
+    if mesh.data == -1:
+        n = torch.cuda.device_count()
+        logger.info("--mesh_data -1: %d CUDA device(s) visible", n)
+        if n > 1:
+            logger.warning(
+                "--mesh_data -1 asks for every device, but data-parallel "
+                "training is not ported yet (ROADMAP.md A.8): training on "
+                "one of the %d CUDA devices", n)
 
 
 def train_model(

@@ -1,9 +1,13 @@
 """Device time of the save-strategy trunk backward (``stack_bwd``), by
 call and by grid, at the training shapes, optionally against another
-copy of the kernel source on the same card.
+copy of the kernel source on the same card; with ``--recompute``, of the
+recompute strategy's forward and backward (``stack_fwd_tails``,
+``stack_bwd_tails``) instead.
 
     python -m movenet_tpu_torch.utils.time_stack_bwd [--parent DIR]
         [--shapes breakdancing,exp03,exp04] [--repeats 5]
+    python -m movenet_tpu_torch.utils.time_stack_bwd --recompute
+        [--parent DIR] [--shapes exp02,flagship] [--repeats 5]
 
 Shapes (T = 160,000, bf16, video as the stride-10 projection triple,
 seeded random codes, table, triple, weights and dskip):
@@ -20,8 +24,15 @@ difference over each gradient's scale).  With ``--variants``, two
 diagnostic builds of this checkout's source are timed beside it by grid:
 ``no_mma`` (the tensor-core products left out: the loads, stores and
 epilogues alone) and ``one_pass`` (big*big only, no split passes); their
-gradients are wrong by design and are not compared.  Prints the card's
-name and power limit.  Needs a CUDA device and nvcc.
+gradients are wrong by design and are not compared.
+
+``--recompute`` shapes (T = 160,000, bf16, seeded random x, weights and
+dskip): exp02 (experiment 02 through the CLI: B=2, dilations (1,2,4) x
+3, R=64, S=8, flat ctx) and flagship (B=2, dilations 1..512 x 3, R=S=64,
+no ctx).  Each side's backward takes its own forward's saved tensors
+(the parent's layout may differ); the outputs are compared as above.  A
+parent that raises at a shape is reported and not timed.  Prints the
+card's name and power limit.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -37,13 +48,19 @@ from pathlib import Path
 SHAPES = {"breakdancing": (2, 64, 64, (1, 2, 4) * 3, 64),
           "exp03": (3, 32, 8, (1, 2, 1, 2), 128),
           "exp04": (2, 16, 8, tuple(2 ** i for i in range(14)), 128)}
+RECOMPUTE_SHAPES = {"exp02": (2, 64, 8, (1, 2, 4) * 3, True),
+                    "flagship": (2, 64, 64, tuple(2 ** i for i in range(10))
+                                 * 3, False)}
 T = 160_000
 # the grids of the save backward (and the merged backward's head
-# launch), by the kernel name each launch carries
+# launch, and the recompute strategy's layer-forward and W_out launches),
+# by the kernel name each launch carries
 GRIDS = (("layer", "stack_bwd_layer_kernel"),
          ("wgrad W_fg", "stack_wgrad_kernel<0"),
          ("wgrad W_out", "stack_wgrad_kernel<1"),
          ("wgrad W_up", "stack_wgrad_kernel<2"),
+         ("wgrad W_out (gated)", "stack_wgrad_kernel<3"),
+         ("layer forward", "stack_tails_layer_kernel"),
          ("reductions", "reduce_kernel"),
          ("head", "stack_head_bwd_kernel"))
 
@@ -77,16 +94,22 @@ def compile_source(text: str, include: Path, tag: str) -> Path:
     return out
 
 
-def parent_kernels(parent: Path):
-    """(bound library, wrapper module) of ``parent``'s trunk kernels."""
-    csrc = parent / "movenet_tpu_torch" / "csrc"
-    out = compile_source((csrc / "stack_kernel.cu").read_text(), csrc,
-                         "parent")
-    spec = importlib.util.spec_from_file_location(
-        "parent_stack_kernel",
-        parent / "movenet_tpu_torch" / "ops" / "cuda" / "stack_kernel.py")
+def _load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def parent_kernels(parent: Path):
+    """(bound library, wrapper module) of ``parent``'s trunk kernels; the
+    wrapper sees the parent's own ``ops/stack_kernel.py`` (its layouts)."""
+    pkg = parent / "movenet_tpu_torch"
+    csrc = pkg / "csrc"
+    out = compile_source((csrc / "stack_kernel.cu").read_text(), csrc,
+                         "parent")
+    mod = _load("parent_stack_kernel", pkg / "ops" / "cuda" / "stack_kernel.py")
+    mod.sk = _load("parent_ops_stack_kernel", pkg / "ops" / "stack_kernel.py")
     return mod.bind(ctypes.CDLL(str(out))), mod
 
 
@@ -138,6 +161,78 @@ def inputs(torch, name: str, seed: int = 0):
             sk._ctx_proj_args(trip))
 
 
+def recompute_inputs(torch, name: str, seed: int = 0):
+    """(forward args (x, ctx, b_fg, w_fg, w_out, b_out, dilations), dskip)
+    of the recompute kernels at shape ``name``."""
+    b, r, s, dil, has_ctx = RECOMPUTE_SHAPES[name]
+    n, bf = len(dil), torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    win = (3 if has_ctx else 2) * r
+    fargs = (rn(b, T, r, scale=0.5).to(bf),
+             rn(b, T, r, scale=0.5).to(bf) if has_ctx else None,
+             rn(n * b, 2 * r, scale=0.1), rn(n, win, 2 * r, scale=win ** -0.5),
+             rn(n, r, r + s, scale=r ** -0.5), rn(n, r + s, scale=0.1), dil)
+    return fargs, rn(b, T, s, scale=1e-3).to(bf)
+
+
+def time_recompute(torch, lib, old, name: str, repeats: int,
+                   card: str) -> None:
+    """Print the recompute forward's and backward's times at ``name``
+    (against ``old`` = (library, wrapper module) of another source)."""
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    fargs, dskip = recompute_inputs(torch, name)
+    st = ks._stream(fargs[0])
+    sides = {"this": (lib, ks)}
+    if old is not None:
+        try:
+            old[1].run_fwd_tails(old[0], *fargs, stream=st)
+            sides["parent"] = old
+        except NotImplementedError as e:
+            print(f"recompute {name}: the parent raises: {e}", flush=True)
+    fns = {"fwd": {}, "bwd": {}}
+    for side, (slib, smod) in sides.items():
+        saved = smod.run_fwd_tails(slib, *fargs, stream=st)[1]
+        fns["fwd"][side] = (lambda slib=slib, smod=smod: smod.run_fwd_tails(
+            slib, *fargs, stream=st))
+        fns["bwd"][side] = (lambda slib=slib, smod=smod, saved=saved:
+                            smod.run_bwd_tails(slib, fargs[0], saved,
+                                               *fargs[1:-1], dskip,
+                                               fargs[-1], stream=st))
+    names = {"fwd": ("skip",),
+             "bwd": ("dx", "dctx", "db_fg", "dw_fg", "dw_out", "db_out")}
+    for kind, by_side in fns.items():
+        order = ("parent", "this", "this", "parent") if len(by_side) > 1 \
+            else ("this",)
+        ms = {}
+        for side in order:
+            ms.setdefault(side, []).append(events_ms(torch, by_side[side],
+                                                     repeats))
+        line = f"stack_{kind}_tails {name}: " + "; ".join(
+            f"{side} " + ", ".join(f"{v:.3f}" for v in vals) + " ms"
+            for side, vals in ms.items())
+        if len(by_side) > 1:
+            line += "; " + diff_text(names[kind], by_side["this"](),
+                                     by_side["parent"]())
+        print(f"{line}; {grid_text(torch, by_side['this'])}; {card}",
+              flush=True)
+
+
+def diff_text(names, new, old) -> str:
+    """Each output's largest difference over its scale (None skipped)."""
+    diff = []
+    for label, x, y in zip(names, new, old):
+        if x is None:
+            continue
+        err = float((x.float() - y.float()).abs().max())
+        diff.append(f"{label} {err / float(y.float().abs().max()):.2e}")
+    return "difference over scale: " + ", ".join(diff)
+
+
 def events_ms(torch, fn, repeats: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -184,6 +279,7 @@ def main(argv=None) -> None:
     ap.add_argument("--shapes", default=",".join(SHAPES))
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--recompute", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_stack_bwd needs a CUDA device")
@@ -193,6 +289,12 @@ def main(argv=None) -> None:
         timeout=60).stdout.strip()
     lib = ks.library()
     old = parent_kernels(args.parent) if args.parent else None
+    if args.recompute:
+        shapes = args.shapes if args.shapes != ",".join(SHAPES) \
+            else ",".join(RECOMPUTE_SHAPES)
+        for name in shapes.split(","):
+            time_recompute(torch, lib, old, name, args.repeats, card)
+        return
     variants = {n: variant_kernels(n) for n in VARIANTS} if args.variants \
         else {}
     for name in args.shapes.split(","):
@@ -213,15 +315,10 @@ def main(argv=None) -> None:
             n1 = events_ms(torch, new, args.repeats)
             n2 = events_ms(torch, new, args.repeats)
             p2 = events_ms(torch, parent, args.repeats)
-            diff = []
-            for label, x, y in zip(("dtab", "dxc", "db_fg", "dw_fg",
-                                    "dw_out", "db_out", "dwup_aug"),
-                                   new(), parent()):
-                scale = float(y.float().abs().max())
-                diff.append(f"{label} {float((x.float() - y.float()).abs().max()) / scale:.2e}")
             line += (f"this {n1:.3f}, {n2:.3f} ms; parent {p1:.3f}, "
-                     f"{p2:.3f} ms; difference over scale: "
-                     + ", ".join(diff))
+                     f"{p2:.3f} ms; " + diff_text(
+                         ("dtab", "dxc", "db_fg", "dw_fg", "dw_out",
+                          "db_out", "dwup_aug"), new(), parent()))
         print(f"{line}; {grid_text(torch, new)}; {card}", flush=True)
         for vname, vlib in variants.items():
             def variant():

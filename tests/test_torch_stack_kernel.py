@@ -2,10 +2,12 @@
 versions, against the JAX package's Pallas ops in interpret mode: the
 save strategy's ``fused_stack_embed`` (the forward, skip_sum, hsave, tfsg,
 and every gradient, without ctx, with the flat ctx and with the
-projection triple) and the recompute strategy's non-embed ``fused_stack``
-(skip_sum and every gradient, without and with ctx), in float32 and
+projection triple; and at V = 512, above the kernel's 2V) and the
+recompute strategy's non-embed ``fused_stack`` (skip_sum and every
+gradient, without and with ctx, at sum(d) = 14 and 510), in float32 and
 bfloat16; ``front_embed`` and ``ctx_proj_fold`` against their XLA
-counterparts.  Plus the geometry helpers and the paths the port refuses.
+counterparts.  Plus the recompute strategy's layer checkpoints, the
+geometry helpers and the paths the port refuses.
 
 Tolerances: float32 forward rtol 1e-5; gradients within 1% of each leaf's
 largest magnitude plus a gate on the mean difference (a systematic bias),
@@ -169,14 +171,6 @@ def test_pick_stack_tile_matches_jax(t, ctx):
         assert sk.pick_stack_tile(t, dil, ctx=ctx) == want
 
 
-@pytest.mark.parametrize("tile", [8, 16, 1600])
-def test_ring_offsets_match_jax(tile):
-    for dil in (DIL, (1, 2, 4) * 3, tuple(2 ** i for i in range(10)) * 3):
-        assert sk._ring_offsets(dil) == jsk._ring_offsets(dil)
-        assert sk._split_ring_offsets(dil, tile) == \
-            jsk._split_ring_offsets(dil, tile)
-
-
 @pytest.mark.parametrize("strategy", ["auto", "save", "recompute",
                                       "replay"])
 @pytest.mark.parametrize("shape", [(2, 160_000, 64), (8, 160_000, 64),
@@ -227,39 +221,43 @@ def test_unported_strategies_raise():
     for strategy in ("recompute", "replay"):
         with pytest.raises(ValueError, match="fused_stack"):
             sk.fused_stack_embed(*args, strategy=strategy)
-    big = torch.zeros(2 * 300, R)
-    with pytest.raises(NotImplementedError, match="B.2"):
-        sk.fused_stack_embed(args[0], big, *args[2:])
     x = torch.zeros(B, 1024, R)
     with pytest.raises(NotImplementedError, match="B.3"):
         sk.fused_stack(x, None, *args[3:], strategy="replay")
 
 
 # --------------------------------------------- recompute (tails) route
-def _tails_inputs(t, has_ctx, seed=1):
+def _tails_inputs(t, has_ctx, seed=1, n_layers=L):
     rng = np.random.default_rng(seed)
     f = np.float32
     win = (3 if has_ctx else 2) * R
+    n = n_layers
     a = dict(
         x=(rng.standard_normal((B, t, R)) * 0.5).astype(f),
-        b_fg=(rng.standard_normal((L * B, 2 * R)) * 0.1).astype(f),
-        w_fg=(rng.standard_normal((L, win, 2 * R)) / np.sqrt(win)).astype(f),
-        w_out=(rng.standard_normal((L, R, R + S)) / np.sqrt(R)).astype(f),
-        b_out=(rng.standard_normal((L, R + S)) * 0.1).astype(f),
+        b_fg=(rng.standard_normal((n * B, 2 * R)) * 0.1).astype(f),
+        w_fg=(rng.standard_normal((n, win, 2 * R)) / np.sqrt(win)).astype(f),
+        w_out=(rng.standard_normal((n, R, R + S)) / np.sqrt(R)).astype(f),
+        b_out=(rng.standard_normal((n, R + S)) * 0.1).astype(f),
         dskip=(rng.standard_normal((B, t, S)) * 0.1).astype(f))
     if has_ctx:
         a["ctx"] = (rng.standard_normal((B, t, R)) * 0.5).astype(f)
     return a
 
 
+# layer 8 x stack 2: sum(d) = 510 rows of halo, which the port's tiled
+# recompute kernels could not hold; JAX's tile at T=1280 is 256
+DIL_WIDE = tuple(2 ** i for i in range(8)) * 2
+
+
 @pytest.mark.parametrize("has_ctx", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_stack_recompute_matches_jax(has_ctx, dtype):
+@pytest.mark.parametrize("dil,t", [(DIL, 512), (DIL_WIDE, 1280)])
+def test_fused_stack_recompute_matches_jax(has_ctx, dtype, dil, t):
     """fused_stack(strategy="recompute"), plain versions on the CPU,
-    against JAX's tails kernels in interpret mode at T=512: the forward
-    and every gradient, at the module's tolerances."""
-    t = 512
-    a = _tails_inputs(t, has_ctx)
+    against JAX's tails kernels in interpret mode: the forward and every
+    gradient, at the module's tolerances, at T=512 and at layer 8 x
+    stack 2 (sum(d) = 510) with T=1280."""
+    a = _tails_inputs(t, has_ctx, n_layers=len(dil))
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     names = ["x"] + (["ctx"] if has_ctx else []) + \
@@ -271,7 +269,7 @@ def test_fused_stack_recompute_matches_jax(has_ctx, dtype):
     def op(*xs):
         d = dict(zip(names, xs))
         return jsk.fused_stack(d["x"], d.get("ctx"), d["b_fg"], d["w_fg"],
-                               d["w_out"], d["b_out"], DIL, True,
+                               d["w_out"], d["b_out"], dil, True,
                                "recompute")
 
     want_skip, vjp = jax.vjp(op, *jargs)
@@ -282,7 +280,7 @@ def test_fused_stack_recompute_matches_jax(has_ctx, dtype):
     ts = {n: torch.tensor(a[n], dtype=tdt if n in cast else torch.float32,
                           requires_grad=True) for n in names}
     skip = sk.fused_stack(ts["x"], ts.get("ctx"), ts["b_fg"], ts["w_fg"],
-                          ts["w_out"], ts["b_out"], DIL,
+                          ts["w_out"], ts["b_out"], dil,
                           strategy="recompute")
     skip.backward(torch.tensor(a["dskip"], dtype=tdt))
     got_skip = skip.detach().float().numpy()
@@ -298,28 +296,121 @@ def test_fused_stack_recompute_matches_jax(has_ctx, dtype):
             _close_grad(n, got, want_g[n], 5e-2, 5e-3)
 
 
-def test_tails_snapshot_holds_the_layer_inputs():
-    """Each snapshot row is the layer input h_l at the d_l rows before its
-    tile (zero before t = 0), in the compute dtype."""
-    a = _tails_inputs(256, True)
+@pytest.mark.parametrize("n_layers,every", [(6, 0), (6, 1), (9, 0),
+                                             (16, 0), (16, 5), (30, 0)])
+def test_tails_checkpoints_hold_the_layer_inputs(n_layers, every):
+    """The recompute forward keeps the input h_l of layers k, 2k, ... < L
+    (k = every, or tails_every(L) = ceil(sqrt(L))), in the compute dtype,
+    equal to the layer inputs of the whole forward."""
+    t = 128
+    dil = ((1, 2, 4, 8) * 8)[:n_layers]
+    a = _tails_inputs(t, True, n_layers=n_layers)
     ts = {n: torch.tensor(v) for n, v in a.items()}
     x = ts["x"].to(torch.bfloat16)
     ctx = ts["ctx"].to(torch.bfloat16)
-    skip, tails = sk.stack_fwd_tails_plain(
-        x, ctx, ts["b_fg"], ts["w_fg"], ts["w_out"], ts["b_out"], DIL)
-    hs, _ = sk._tails_rebuild(x, ctx, ts["b_fg"], ts["w_fg"], ts["w_out"],
-                              ts["b_out"], DIL)
-    tile = sk.TAILS_TILE
-    assert tails.shape == (B, 256 // tile, sum(DIL), R)
-    assert skip.dtype == tails.dtype == torch.bfloat16
-    offs, _ = sk._ring_offsets(DIL)
-    for l, d in enumerate(DIL):
+    k = every or sk.tails_every(n_layers)
+    assert k == (every or int(np.ceil(np.sqrt(n_layers))))
+    skip, ckpt = sk.stack_fwd_tails_plain(
+        x, ctx, ts["b_fg"], ts["w_fg"], ts["w_out"], ts["b_out"], dil,
+        every)
+    bfg, ctxf = sk._tails_consts(x, ctx, ts["b_fg"], dil)
+    hs, want_skip = sk._tails_rebuild(
+        x.float(), ctxf, bfg, ts["w_fg"], ts["w_out"], ts["b_out"], dil,
+        torch.bfloat16, 0, n_layers)
+    layers = list(range(k, n_layers, k))
+    assert ckpt.shape == (len(layers), B, t, R)
+    assert skip.dtype == ckpt.dtype == torch.bfloat16
+    assert torch.equal(skip, want_skip.to(torch.bfloat16))
+    for i, l in enumerate(layers):
         assert torch.equal(hs[l], hs[l].to(torch.bfloat16).float())
-        assert not tails[:, 0, offs[l]:offs[l] + d].any()
-        for i in range(1, 256 // tile):
-            np.testing.assert_array_equal(
-                tails[:, i, offs[l]:offs[l] + d].float().numpy(),
-                hs[l][:, i * tile - d:i * tile].numpy())
+        assert torch.equal(ckpt[i].float(), hs[l])
+
+
+@pytest.mark.parametrize("has_ctx", [False, True])
+def test_tails_backward_is_the_same_for_every_group_size(has_ctx):
+    """The plain recompute backward from checkpoints every 1, 2, 4 or 16
+    layers (one group: x alone) gives the same bits: each group's rebuilt
+    inputs equal the forward's."""
+    t, n = 256, 16
+    dil = DIL_WIDE[:n]
+    a = _tails_inputs(t, has_ctx, n_layers=n)
+    ts = {k: torch.tensor(v) for k, v in a.items()}
+    bf = torch.bfloat16
+    x = ts["x"].to(bf)
+    ctx = ts["ctx"].to(bf) if has_ctx else None
+    w = (ts["b_fg"], ts["w_fg"], ts["w_out"], ts["b_out"])
+    first = None
+    for every in (1, 2, 4, 16):
+        skip, ckpt = sk.stack_fwd_tails_plain(x, ctx, *w, dil, every)
+        got = sk.stack_bwd_tails_plain(x, ckpt, ctx, *w,
+                                       ts["dskip"].to(bf), dil, every)
+        if first is None:
+            first = (skip, got)
+            continue
+        assert torch.equal(skip, first[0])
+        for u, v in zip(got, first[1]):
+            assert (u is None and v is None) or torch.equal(u, v)
+    # every=16 kept no checkpoint; every=2 needs seven
+    with pytest.raises(ValueError, match="checkpoints"):
+        sk.stack_bwd_tails_plain(x, ckpt, ctx, *w, ts["dskip"].to(bf), dil,
+                                 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_stack_embed_wide_vocab_matches_jax(dtype):
+    """fused_stack_embed at V = 512 (2V above the kernel's EMBED_MAX_2V,
+    so the op embeds with front_embed and runs the non-embed fused_stack)
+    against JAX's fused_stack_embed in interpret mode: the forward and
+    every gradient at the module's tolerances."""
+    v, t = 512, 1024
+    rng = np.random.default_rng(6)
+    codes = rng.integers(0, v, size=(B, t)).astype(np.int32)
+    prev = np.concatenate([np.full((B, 1), -1, np.int32), codes[:, :-1]], 1)
+    pack = np.ascontiguousarray(np.concatenate([codes, prev], 0).T)
+    f = np.float32
+    win = 3 * R
+    a = dict(
+        table2=(rng.standard_normal((2 * v, R)) * 0.5).astype(f),
+        ctx=(rng.standard_normal((B, t, R)) * 0.5).astype(f),
+        b_fg=(rng.standard_normal((L * B, 2 * R)) * 0.1).astype(f),
+        w_fg=(rng.standard_normal((L, win, 2 * R)) / np.sqrt(win)).astype(f),
+        w_out=(rng.standard_normal((L, R, R + S)) / np.sqrt(R)).astype(f),
+        b_out=(rng.standard_normal((L, R + S)) * 0.1).astype(f))
+    dskip = (rng.standard_normal((B, t, S)) * 0.1).astype(f)
+    assert 2 * v > sk.EMBED_MAX_2V
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    cast = {"table2", "ctx"}
+    names = list(a)
+    jargs = [jnp.asarray(a[n], jdt if n in cast else jnp.float32)
+             for n in names]
+
+    def op(*xs):
+        d = dict(zip(names, xs))
+        return jsk.fused_stack_embed(jnp.asarray(pack), d["table2"],
+                                     d["ctx"], d["b_fg"], d["w_fg"],
+                                     d["w_out"], d["b_out"], DIL, jdt, True)
+
+    want_skip, vjp = jax.vjp(op, *jargs)
+    want_g = dict(zip(names, vjp(jnp.asarray(dskip, jdt))))
+    ts = {n: torch.tensor(x, dtype=tdt if n in cast else torch.float32,
+                          requires_grad=True) for n, x in a.items()}
+    skip = sk.fused_stack_embed(torch.from_numpy(pack), ts["table2"],
+                                ts["ctx"], ts["b_fg"], ts["w_fg"],
+                                ts["w_out"], ts["b_out"], DIL)
+    skip.backward(torch.tensor(dskip, dtype=tdt))
+    want_skip = np.asarray(want_skip, np.float32)
+    f32 = dtype == "float32"
+    np.testing.assert_allclose(skip.detach().float().numpy(), want_skip,
+                               rtol=0, atol=(1e-5 if f32 else 2e-2)
+                               * float(np.max(np.abs(want_skip))))
+    for n in names:
+        got = ts[n].grad.float().numpy()
+        want = np.asarray(want_g[n], np.float32)
+        if f32:
+            _close_grad(n, got, want, 1e-2, 2e-4)
+        else:
+            _close_grad(n, got, want, 5e-2, 5e-3)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

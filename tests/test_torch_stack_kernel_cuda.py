@@ -158,35 +158,56 @@ def test_stack_head_bwd_is_deterministic(cuda):
         assert (x is None and y is None) or torch.equal(x, y)
 
 
+# layer 8 x stack 2 (sum(d) = 510) and the flagship's layer 10 x stack 3
+# (sum(d) = 3069): halos the tiled recompute kernels could not hold
+DIL_WIDE = tuple(2 ** i for i in range(8)) * 2
+DIL_FLAGSHIP = tuple(2 ** i for i in range(10)) * 3
+
+
+def _tails_args(dev, t, r, s, has_ctx, dil, batch=2, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    n, win, bf = len(dil), (3 if has_ctx else 2) * r, torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    x = rn(batch, t, r, scale=0.5).to(bf)
+    ctx = rn(batch, t, r, scale=0.5).to(bf) if has_ctx else None
+    args = (x, ctx, rn(n * batch, 2 * r, scale=0.1),
+            rn(n, win, 2 * r, scale=win ** -0.5),
+            rn(n, r, r + s, scale=r ** -0.5), rn(n, r + s, scale=0.1), dil)
+    return args, rn(batch, t, s, scale=0.1).to(bf)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,s,t,has_ctx", [
-    (16, 16, 1280, False), (16, 16, 1280, True), (64, 8, 1280, True),
-    (64, 8, 640, False), (32, 8, 1280, True), (16, 8, 640, False),
+@pytest.mark.parametrize("r,s,t,has_ctx,dil", [
+    (16, 16, 1280, False, DIL_WIDE), (32, 32, 1280, True, DIL_WIDE),
+    (64, 64, 1280, True, DIL_WIDE), (64, 8, 1280, False, DIL_WIDE),
+    (32, 8, 1280, False, DIL_WIDE), (16, 8, 1280, True, DIL_WIDE),
+    (64, 8, 1000, True, DIL), (64, 64, 3200, False, DIL_FLAGSHIP),
 ])
-def test_tails_kernels_match_plain(cuda, r, s, t, has_ctx):
-    """The recompute kernels against their plain versions.  The forward
-    as the save forward (2% of scale); the backward rebuilds h with its
-    own float32 sums, so a rebuilt bf16 value may sit one step from the
-    plain version's: the gradients within 1e-2 of their scale, dx and
-    dctx (bf16) within 2%."""
-    a, ctx, _, batch = _inputs(cuda, t, r, s, 64, "flat" if has_ctx
-                               else None)
-    g = torch.Generator().manual_seed(7)
-    x = (torch.randn(batch, t, r, generator=g) * 0.5).to(
-        torch.bfloat16).to(cuda)
-    args = (x, ctx, a["b_fg"], a["w_fg"], a["w_out"], a["b_out"], DIL)
+def test_tails_kernels_match_plain(cuda, r, s, t, has_ctx, dil):
+    """The recompute kernels against their plain versions at the six
+    built (R, S) pairs, at L = 16 (sum(d) = 510) and the flagship's
+    dilations (sum(d) = 3069).  The forward as the save forward (2% of
+    scale); the backward rebuilds h with its own float32 sums, so a
+    rebuilt bf16 value may sit one step from the plain version's: the
+    gradients within 1e-2 of their scale, dx and dctx (bf16) within 2%."""
+    args, dskip = _tails_args(cuda, t, r, s, has_ctx, dil)
     before = dict(ks.launch_counts)
     got = ks.stack_fwd_tails(*args)
     torch.cuda.synchronize()
     assert ks.launch_counts["stack_fwd_tails"] == \
         before["stack_fwd_tails"] + 1
     want = sk.stack_fwd_tails_plain(*args)
-    for name, u, w in zip(("skip", "tails"), got, want):
+    assert got[1].shape == want[1].shape == (
+        len(sk.ckpt_layers(len(dil), sk.tails_every(len(dil)))),
+        *args[0].shape)
+    for name, u, w in zip(("skip", "ckpt"), got, want):
         u, w = u.float().cpu().numpy(), w.float().cpu().numpy()
         np.testing.assert_allclose(u, w, rtol=0, atol=2e-2 * np.abs(w).max(),
                                    err_msg=name)
-    bargs = (x, want[1], ctx, a["b_fg"], a["w_fg"], a["w_out"], a["b_out"],
-             a["dskip"], DIL)
+    bargs = (args[0], want[1], *args[1:-1], dskip, dil)
     got = ks.stack_bwd_tails(*bargs)
     torch.cuda.synchronize()
     assert ks.launch_counts["stack_bwd_tails"] == \
@@ -203,26 +224,134 @@ def test_tails_kernels_match_plain(cuda, r, s, t, has_ctx):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,s,has_ctx,dil", [
+    (64, 8, True, DIL_WIDE), (64, 64, False, DIL_FLAGSHIP),
+    (16, 8, False, DIL_WIDE),
+])
+def test_tails_rebuild_is_bit_equal_to_the_forward(cuda, r, s, has_ctx,
+                                                   dil):
+    """The forward with a checkpoint at every layer keeps every layer
+    input, and its default checkpoints are the same bits.  The backward
+    from every layer's input (no rebuild) and the default backward (each
+    group rebuilt from its checkpoint by the same layer kernel) give the
+    same bits: the rebuild is the forward, bit for bit."""
+    args, dskip = _tails_args(cuda, 1600, r, s, has_ctx, dil)
+    n = len(dil)
+    lib = ks.library()
+    skip, every_layer = ks.run_fwd_tails(lib, *args, every=1)
+    assert every_layer.shape[0] == n - 1
+    skip_k, ckpt = ks.run_fwd_tails(lib, *args)
+    assert torch.equal(skip_k, skip)
+    for i, l in enumerate(sk.ckpt_layers(n, sk.tails_every(n))):
+        assert torch.equal(ckpt[i], every_layer[l - 1])
+    tail = (*args[1:-1], dskip, dil)
+    no_rebuild = ks.run_bwd_tails(lib, args[0], every_layer, *tail, every=1)
+    rebuilt = ks.run_bwd_tails(lib, args[0], ckpt, *tail)
+    for u, v in zip(no_rebuild, rebuilt):
+        assert (u is None and v is None) or torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,has_ctx", [(64, 8, True), (64, 64, False),
+                                         (32, 8, False)])
+def test_tails_kernels_are_deterministic(cuda, r, s, has_ctx):
+    """Two forward and two backward calls on the same inputs give the same
+    bits (fixed fragment ownership, fixed-order reductions)."""
+    args, dskip = _tails_args(cuda, 1280, r, s, has_ctx, DIL_WIDE)
+    first = ks.stack_fwd_tails(*args)
+    second = ks.stack_fwd_tails(*args)
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)
+    bargs = (args[0], first[1], *args[1:-1], dskip, args[-1])
+    first = ks.stack_bwd_tails(*bargs)
+    second = ks.stack_bwd_tails(*bargs)
+    for u, v in zip(first, second):
+        assert (u is None and v is None) or torch.equal(u, v)
+
+
+@pytest.mark.cuda
 def test_tails_wrapper_rejects_wrong_inputs(cuda):
-    a, ctx, _, batch = _inputs(cuda, 1280, 16, 16, 64, "flat")
-    x = torch.zeros(batch, 1280, 16, dtype=torch.bfloat16, device=cuda)
-    args = (ctx, a["b_fg"], a["w_fg"], a["w_out"], a["b_out"], DIL)
+    args, dskip = _tails_args(cuda, 1280, 16, 16, True, DIL)
+    x = args[0]
     with pytest.raises(ValueError, match="bfloat16"):
-        ks.stack_fwd_tails(x.float(), *args)
-    with pytest.raises(ValueError, match="multiple"):
-        ks.stack_fwd_tails(x[:, :1000].contiguous(), ctx[:, :1000]
-                           .contiguous(), *args[1:])
-    # a halo of sum(d) rows per layer that shared memory cannot hold
-    big = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
-    n = len(big)
-    r = 64
-    with pytest.raises(NotImplementedError, match="B.5"):
-        ks.stack_fwd_tails(
-            torch.zeros(batch, 1280, r, dtype=torch.bfloat16, device=cuda),
-            None, torch.zeros(n * batch, 2 * r, device=cuda),
-            torch.zeros(n, 2 * r, 2 * r, device=cuda),
-            torch.zeros(n, r, r + 8, device=cuda),
-            torch.zeros(n, r + 8, device=cuda), big)
+        ks.stack_fwd_tails(x.float(), *args[1:])
+    _, ckpt = ks.stack_fwd_tails(*args)
+    with pytest.raises(ValueError, match="ckpt"):
+        ks.stack_bwd_tails(x, ckpt[:0], *args[1:-1], dskip, args[-1])
+    with pytest.raises(NotImplementedError, match="built"):
+        n = len(DIL)
+        ks.stack_fwd_tails(x, args[1], args[2], args[3],
+                           torch.zeros(n, 16, 20, device=cuda),
+                           torch.zeros(n, 20, device=cuda), DIL)
+
+
+def _save_digest(kmod, lib, r, s, ctx_kind):
+    """sha256 of the save kernels' outputs (forward with the embedding,
+    backward with the projection triple or the flat ctx) on inputs made
+    with numpy from a fixed seed: the same bits give the same digest on
+    any card that runs the same kernels."""
+    import hashlib
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(11)
+    t, batch, v, n = 1280, 2, 64, len(DIL)
+    win = (3 if ctx_kind else 2) * r
+
+    def rn(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    codes = rng.integers(0, v, size=(batch, t)).astype(np.int32)
+    prev = np.concatenate([np.full((batch, 1), -1, np.int32),
+                           codes[:, :-1]], 1)
+    pack = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([codes, prev], 0).T)).to(dev)
+    table2 = rn(2 * v, r, scale=0.5).to(bf)
+    w = (rn(n * batch, 2 * r, scale=0.1), rn(n, win, 2 * r, scale=0.1),
+         rn(n, r, r + s, scale=0.1), rn(n, r + s, scale=0.1))
+    proj = ctx = None
+    if ctx_kind == "proj":
+        trip = (rn(batch, t // 10, r, scale=0.5).to(bf),
+                rn(r, 10 * r, scale=0.1), rn(10 * r, scale=0.1))
+        ctx = sk.ctx_flatten(trip, bf)
+        proj = sk._ctx_proj_args(trip)
+    elif ctx_kind == "flat":
+        ctx = rn(batch, t, r, scale=0.5).to(bf)
+    dskip = rn(batch, t, s, scale=0.1).to(bf)
+    out = kmod.run_fwd(lib, pack, table2, ctx, *w, DIL, batch)
+    out += tuple(kmod.run_bwd(lib, out[1], out[2], ctx, w[1], w[2], dskip,
+                              pack, v, DIL, proj))
+    x = sk.front_embed(table2[:v], table2[v:],
+                       pack[:, :batch].t().contiguous(), bf)
+    out += tuple(kmod.run_fwd_x(lib, x, ctx, *w, DIL))
+    out += tuple(kmod.run_bwd_x(lib, out[-2], out[-1], ctx, w[1], w[2],
+                                dskip, DIL))
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for o in out:
+        if o is not None:
+            h.update(o.contiguous().cpu().view(torch.uint8).numpy()
+                     .tobytes())
+    return h.hexdigest()[:32]
+
+
+# the save kernels' digests as the parent source (before the recompute
+# redesign) gave them on an NVIDIA H100 80GB HBM3
+SAVE_DIGESTS = {
+    (64, 64, "proj"): "f5f5774d3b7e75826bf06cbae16bc974",
+    (64, 8, "flat"): "44341d09b27291b1d60383a202b7b057",
+    (16, 8, None): "2dd56d959d35b64780843c75f68c0679",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,ctx_kind", list(SAVE_DIGESTS))
+def test_save_kernels_keep_their_bits(cuda, r, s, ctx_kind):
+    """The save kernels (embed and non-embed forward, backward), which
+    share code with the recompute backward, give the bits they gave
+    before it was added."""
+    assert _save_digest(ks, ks.library(), r, s, ctx_kind) == \
+        SAVE_DIGESTS[(r, s, ctx_kind)]
 
 
 @pytest.mark.cuda

@@ -300,6 +300,66 @@ def _script_flags(path):
     return [f for f in flags if f != "$@"]
 
 
+@pytest.mark.parametrize("count,warns", [(0, False), (1, False),
+                                          (4, True)])
+def test_mesh_data_all_logs_the_device_count(count, warns, monkeypatch,
+                                             caplog):
+    """--mesh_data -1 trains on one card: the trainer logs how many the
+    host has and warns when there are more than one."""
+    import logging
+
+    from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.train import trainer
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    cfg = config_from_args(arg_parser().parse_args(
+        ["--dataset", "d", "--mesh_data", "-1"]))
+    with caplog.at_level(logging.INFO, logger=trainer.logger.name):
+        trainer._check_single_device(cfg)
+    assert f"{count} CUDA device(s) visible" in caplog.text
+    warned = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert bool(warned) == warns
+    if warns:
+        assert "A.8" in warned[0].getMessage()
+        assert f"one of the {count} CUDA devices" in warned[0].getMessage()
+
+
+def test_trainer_leaves_no_loader_thread_running(tmp_path, monkeypatch):
+    """A run cut by its step cap while clips are still being decoded:
+    when main() returns, every thread the loaders started has ended (none
+    goes on reading clips whose directory the caller may remove, or sits
+    in torch when the interpreter exits)."""
+    import threading
+    import time
+
+    from movenet_tpu_torch.data import make_synthetic_dataset
+    from movenet_tpu_torch.data.pipeline import DataLoader
+    from movenet_tpu_torch.train.cli import main
+
+    _shrink(monkeypatch, use_video=False)
+    root = tmp_path / "ds"
+    make_synthetic_dataset(
+        root, categories=["breakdancing"], clips_per_category=40,
+        audio_fps=2000, video_fps=2, duration_s=1.0, frame_hw=(48, 48),
+        seed=5)
+    load = DataLoader._load_example
+
+    def slow_load(self, meta):
+        time.sleep(0.05)
+        return load(self, meta)
+
+    monkeypatch.setattr(DataLoader, "_load_example", slow_load)
+    args = _no_samples(_args(root, tmp_path / "out", tmp_path / "logs",
+                             extra=["--use_video", "0", "--n_epochs", "1",
+                                    "--n_steps_per_epoch", "1",
+                                    "--num_workers", "2"]))
+    before = set(threading.enumerate())
+    assert main(args, device="cpu").step == 1
+    left = [t.name for t in set(threading.enumerate()) - before
+            if t.is_alive()]
+    assert not left, left
+
+
 @pytest.mark.parametrize("name", ["03_kinetics_scale_up",
                                   "04_kinetics_receptive_field"])
 def test_experiment_scripts_match_jax(name, tmp_path):
