@@ -111,8 +111,8 @@ Phases (any failure exits non-zero and prints no result):
      backward (the main path of this form) launches each packed kernel
      once and no unpacked one;
   18. wide head: the head kernels at (S, C) = (8, 128) with B=3 and B=2
-     (experiments 03 and 04) and (16, 256) with B=2, T=160000, bf16,
-     against their plain versions;
+     (experiments 03 and 04), (16, 256) and the flagship's (64, 256) with
+     B=2, T=160000, bf16, against their plain versions;
   19. narrow trunk: the save kernels (embed form, video triple) at
      experiment 03's shapes (B=3, L=4, dilations (1,2,1,2), R=32, S=8,
      V=128) and experiment 04's (B=2, L=14, dilations 1..8192, R=16, S=8,
@@ -1878,8 +1878,8 @@ PACKED_KERNELS = {
                         "movenet_tpu/ops/pallas/head_loss.py:218"),
 }
 # the head kernels at experiment 03's and 04's C = 128 (S = 8, B = 3 and
-# 2) and at the flagship's C = 256 (S = 16, B = 2)
-WIDE_HEADS = ((8, 128, 3), (8, 128, 2), (16, 256, 2))
+# 2) and at C = 256 with S = 16 and with the flagship's S = 64 (B = 2)
+WIDE_HEADS = ((8, 128, 3), (8, 128, 2), (16, 256, 2), (64, 256, 2))
 
 
 def packed_bounds(m, s, c, b, t):
@@ -2023,10 +2023,10 @@ def phase_packed_head(torch, np, model, batch):
 
 
 def phase_wide_head(torch, np):
-    """The head kernels at (S, C) = (8, 128) with B = 3 and 2, and
-    (16, 256) with B = 2 (T = 160000, bf16, parity CE, targets in the
-    codes pack; seeded random skip, codes and weights) against their
-    plain versions, with their times; records by (name, S, C, B)."""
+    """The head kernels at WIDE_HEADS (T = 160000, bf16, parity CE,
+    targets in the codes pack; seeded random skip, codes and weights)
+    against their plain versions, with their times; records by (name, S,
+    C, B)."""
     from movenet_tpu_torch.ops import head_loss as hl
     from movenet_tpu_torch.ops.cuda import head_loss as kh
 
@@ -2575,6 +2575,14 @@ def main() -> int:
               f"{flag_cli['step_ms']:.2f} ms (median), peak memory of a loss "
               f"+ backward {flag_cli['peaks']['recompute']:.3f} GB (save "
               f"{flag_cli['peaks']['save']:.3f} GB); {card}", flush=True)
+        trunk = sum(tails_flagship[k]["ms"] for k in TAILS_KERNELS)
+        head = sum(wide_recs[(k, 64, 256, 2)]["ms"]
+                   for k in ("head_fwd", "head_bwd"))
+        print(f"time flagship trainer step by part: {flag_cli['step_ms']:.2f}"
+              f" ms = recompute trunk kernels {trunk:.3f} ms (phase 11, no "
+              f"ctx) + head kernels at (64, 256, 2) {head:.3f} ms (phase 18)"
+              f" + the rest {flag_cli['step_ms'] - trunk - head:.2f} ms; "
+              f"{card}", flush=True)
         k, pl = runs["kernels"], runs["plain"]
         print(f"time train (breakdancing, B=2, T=160000, bf16): step "
               f"{k['step_ms']:.2f} ms, {1e3 / k['step_ms']:.3f} steps/s, "

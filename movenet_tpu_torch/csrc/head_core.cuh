@@ -1,6 +1,6 @@
 // Output head + cross-entropy building blocks, shared by head_loss.cu (the
-// split pipeline's head kernels) and stack_kernel.cu (the merged trunk +
-// head kernels).  A block of kHeadThreads threads works on tiles of
+// packed head kernels) and stack_kernel.cu (the merged trunk + head
+// kernels).  A block of kHeadThreads threads works on tiles of
 // kHeadRows rows (or fewer, as the caller's shared-memory plan gives) held
 // in shared memory; each product is a sequence of fmaf in float32 over a
 // 4x4 register tile per thread.
@@ -22,13 +22,6 @@ __device__ __forceinline__ float leaky(float x) {
 __device__ __forceinline__ float dleaky(float x) {
   return x > 0.f ? 1.f : 0.01f;
 }
-// A product operand: rounded to bf16 (the TPU's _mdot, operands in the
-// compute dtype) or kept in float32 (its _dot).
-template <bool ROUND>
-__device__ __forceinline__ float operand(float x) {
-  return ROUND ? rnd(x) : x;
-}
-
 // out[r, n] = sum_k A[r, k] B[k, n] over a tile of `rows` rows (a multiple
 // of 4): A row-major with stride lda, B row-major (K, N), in shared or
 // global memory.  ROUND rounds both operands to bf16 as they load (a

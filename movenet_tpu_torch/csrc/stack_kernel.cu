@@ -92,6 +92,7 @@
 #include <stdint.h>
 
 #include "head_core.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -480,18 +481,6 @@ __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a b for one 16x8 tile, k = 16, bf16 operands (fragments as the
-// PTX ISA lays out mma.m16n8k16 with .bf16 operands: A lane (g, q) holds
-// the pairs (g, 2q), (g + 8, 2q), (g, 2q + 8), (g + 8, 2q + 8); B the
-// pairs (k = 2q, g), (2q + 8, g); the lower column or k in the low half)
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         const unsigned* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ unsigned ld32(const bf16_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
@@ -513,18 +502,6 @@ __device__ __forceinline__ uint4 hp_item(const bf16_t* h, const bf16_t* ctx,
                ? *reinterpret_cast<const uint4*>(h + (m - d) * R + j0)
                : z;
   return *reinterpret_cast<const uint4*>(ctx + m * R + j0);
-}
-
-// d += a b over one 16-wide k step, its 16 products summed by the tensor
-// core from zero and added to d in float32 (round to nearest): the tensor
-// core's own accumulation truncates, and over a long k loop that drifts
-// from the float32 sums of the plain version.
-__device__ __forceinline__ void mma_bf16_add(float* d, const unsigned* a,
-                                             const unsigned* b) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_bf16(t, a, b);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += t[e];
 }
 
 // fg = [h | h(t-d) | ctx] W_fg of the recompute strategy, bf16 operands and

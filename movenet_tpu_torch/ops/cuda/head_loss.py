@@ -6,11 +6,10 @@ and ``:336 _bwd_kernel``), ``head_fwd_packed`` and ``head_bwd_packed``
 those of their packed forms (``:169 _fwd_kernel_packed`` and ``:218
 _bwd_kernel_packed``).  For tensors on the CPU they return the plain
 versions (``ops/head_loss.head_fwd_plain`` ...); for CUDA tensors they
-launch the kernels or raise.  Each call is the kernel launch (after one
-that prepares a weight copy where the kernels' shared-memory plan keeps
-a weight in global memory, C > 64) and one launch of the fixed-order
-reduction of the per-block partial sums, and counts one launch in
-``launch_counts``.
+launch the kernels or raise.  Each call is the kernel launch (the
+unpacked backward: two, the row pass and the weight-gradient GEMM over
+its bf16 scratch) and one launch of the fixed-order reduction of the
+per-block partial sums, and counts one launch in ``launch_counts``.
 """
 
 from __future__ import annotations
@@ -51,9 +50,9 @@ def library():
 def bind(lib):
     lib.movenet_head_supports.argtypes = [_I, _I]
     lib.movenet_head_supports.restype = _I
-    lib.movenet_head_wbuf.argtypes = [_I, _I]
-    lib.movenet_head_wbuf.restype = ctypes.c_long
-    lib.movenet_head_fwd.argtypes = [_P, _P, _I, _I] + [_P] * 8 + [_I] * 8 \
+    lib.movenet_head_inter.argtypes = [_I, _I, ctypes.c_long]
+    lib.movenet_head_inter.restype = ctypes.c_long
+    lib.movenet_head_fwd.argtypes = [_P, _P, _I, _I] + [_P] * 7 + [_I] * 8 \
         + [_P]
     lib.movenet_head_fwd.restype = _I
     lib.movenet_head_bwd.argtypes = [_P, _P, _I, _I] + [_P] * 10 \
@@ -80,13 +79,14 @@ def _common(lib, skip, pack, w1, b1, w2, b2, tgt_off):
     _check("b1", b1, torch.float32, (c,), dev)
     _check("w2", w2, torch.float32, (c, c), dev)
     _check("b2", b2, torch.float32, (c,), dev)
+    if batch * t >= 2 ** 31:
+        raise ValueError(f"the head kernels take B*T < 2^31 rows, got "
+                         f"{batch * t}")
     if not lib.movenet_head_supports(s, c):
         raise NotImplementedError(
             f"the head kernels take 4 <= S <= 64 and 4 <= C <= 256, "
             f"multiples of 4; got S={s}, C={c} (ROADMAP.md B.4)")
-    wbuf = torch.empty(lib.movenet_head_wbuf(s, c), dtype=torch.float32,
-                       device=dev)
-    return batch, t, s, c, dev, wbuf
+    return batch, t, s, c, dev
 
 
 def _packed_check(skip, pack, c):
@@ -101,8 +101,7 @@ def _packed_check(skip, pack, c):
 def run_fwd(lib, skip, pack, w1, b1, w2, b2, rf, parity, tgt_off=0,
             save_p=True, stream=None, blocks=BLOCKS, packed=False):
     """The forward (``packed``: its packed form, which saves no p)."""
-    batch, t, s, c, dev, wbuf = _common(lib, skip, pack, w1, b1, w2, b2,
-                                        tgt_off)
+    batch, t, s, c, dev = _common(lib, skip, pack, w1, b1, w2, b2, tgt_off)
     if packed:
         _packed_check(skip, pack, c)
     p = torch.empty(batch, t, c, dtype=torch.float32, device=dev) \
@@ -111,7 +110,7 @@ def run_fwd(lib, skip, pack, w1, b1, w2, b2, rf, parity, tgt_off=0,
     out = torch.empty(2, dtype=torch.float32, device=dev)
     err = lib.movenet_head_fwd(
         _ptr(skip), _ptr(pack), pack.shape[1], tgt_off, _ptr(w1), _ptr(b1),
-        _ptr(w2), _ptr(b2), _ptr(p), _ptr(wbuf), _ptr(part), _ptr(out),
+        _ptr(w2), _ptr(b2), _ptr(p), _ptr(part), _ptr(out),
         batch, t, s, c, rf, int(parity), int(packed), blocks, stream)
     _raise(err, "head_fwd_packed" if packed else "head_fwd")
     return out[0], out[1], p
@@ -121,12 +120,14 @@ def run_bwd(lib, skip, pack, p, w1, b1, w2, b2, rf, parity, dloss,
             tgt_off=0, stream=None, blocks=BLOCKS):
     """The backward; ``p`` None runs its packed form, which rebuilds the
     softmax from skip."""
-    batch, t, s, c, dev, wbuf = _common(lib, skip, pack, w1, b1, w2, b2,
-                                        tgt_off)
+    batch, t, s, c, dev = _common(lib, skip, pack, w1, b1, w2, b2, tgt_off)
+    inter = None
     if p is None:
         _packed_check(skip, pack, c)
     else:
         _check("p", p, torch.float32, (batch, t, c), dev)
+        inter = torch.empty(lib.movenet_head_inter(s, c, batch * t),
+                            dtype=torch.bfloat16, device=dev)
     dloss = torch.as_tensor(dloss, dtype=torch.float32,
                             device=dev).reshape(1).contiguous()
     dskip = torch.empty_like(skip)
@@ -135,7 +136,7 @@ def run_bwd(lib, skip, pack, p, w1, b1, w2, b2, rf, parity, dloss,
     grads = torch.empty(n, dtype=torch.float32, device=dev)
     err = lib.movenet_head_bwd(
         _ptr(skip), _ptr(pack), pack.shape[1], tgt_off, _ptr(p), _ptr(w1),
-        _ptr(b1), _ptr(w2), _ptr(b2), _ptr(dloss), _ptr(dskip), _ptr(wbuf),
+        _ptr(b1), _ptr(w2), _ptr(b2), _ptr(dloss), _ptr(dskip), _ptr(inter),
         _ptr(part), _ptr(grads), batch, t, s, c, rf, int(parity),
         int(p is None), blocks, stream)
     _raise(err, "head_bwd_packed" if p is None else "head_bwd")

@@ -64,17 +64,23 @@ BREAKDANCING = dict(layer_size=3, stack_size=3, input_channels=64,
                     max_video_frames=160)
 
 
-def breakdancing(seed: int = 0, device="cuda"):
+# the flagship widths at the same clip format (chip_smoke's flagship
+# trainer CLI: layer 10 x stack 3, C=256, R=S=64, video)
+FLAGSHIP_TRAIN = dict(BREAKDANCING, layer_size=10, input_channels=256)
+
+
+def breakdancing(seed: int = 0, device="cuda", widths=None):
     """(config, model, batch) of the breakdancing train step: layer 3 x
     stack 3, C=R=S=64, bf16, ``fused_blocks``, AdamW lr 3e-4 without a
     schedule; B=2 clips of T=160000 codes with video (2, 160, 64, 64, 1).
-    Weights and data are random from ``seed``; model and batch are on
-    ``device``."""
+    ``widths`` (a ModelConfig dict such as FLAGSHIP_TRAIN) replaces the
+    model's.  Weights and data are random from ``seed``; model and batch
+    are on ``device``."""
     from movenet_tpu_torch.config import ModelConfig, TrainingConfig
     from movenet_tpu_torch.models.wavenet import make_wavenet
     from movenet_tpu_torch.train import Batch
 
-    mc = ModelConfig(**BREAKDANCING)
+    mc = ModelConfig(**(widths or BREAKDANCING))
     cfg = TrainingConfig(model_config=mc, optimizer="AdamW",
                          learning_rate=3e-4, scheduler=None, batch_size=2,
                          fused_blocks=True, weight_decay=0.0)

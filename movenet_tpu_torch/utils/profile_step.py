@@ -1,9 +1,12 @@
-"""Device time of one breakdancing train step, by kernel.
+"""Device time of one train step, by kernel.
 
     python -m movenet_tpu_torch.utils.profile_step [--steps 2] [--rows 20]
+        [--widths breakdancing|flagship]
 
-Runs ``make_train_step`` on the breakdancing config (utils/fixtures) on
-the CUDA device: two warm-up steps, then ``--steps`` steps under
+Runs ``make_train_step`` on the breakdancing config (utils/fixtures; with
+``--widths flagship`` at the flagship widths, layer 10 x stack 3, C=256,
+R=S=64, where the default strategy is the recompute one) on the CUDA
+device: two warm-up steps, then ``--steps`` steps under
 ``torch.profiler``, and prints the device time of each kernel (total
 and per call, divided by the step count) with the card's name and power
 limit.  Needs a CUDA device.
@@ -20,19 +23,22 @@ def main(argv=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from movenet_tpu_torch.train import create_train_state, make_train_step
-    from movenet_tpu_torch.utils.fixtures import breakdancing
+    from movenet_tpu_torch.utils.fixtures import FLAGSHIP_TRAIN, breakdancing
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--rows", type=int, default=20,
                     help="kernels to list, largest first")
+    ap.add_argument("--widths", choices=("breakdancing", "flagship"),
+                    default="breakdancing")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
-    cfg, model, batch = breakdancing()
+    cfg, model, batch = breakdancing(
+        widths=FLAGSHIP_TRAIN if args.widths == "flagship" else None)
     state = create_train_state(model, cfg)
     step = make_train_step(model, cfg)
     for _ in range(2):

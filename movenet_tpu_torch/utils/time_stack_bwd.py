@@ -75,15 +75,17 @@ VARIANTS = {
 }
 
 
-def compile_source(text: str, include: Path, tag: str) -> Path:
-    """``text`` (a stack_kernel.cu) compiled with the build's nvcc flags
-    into ``build/movenet_tpu_torch/<tag>/``, named by its hash."""
+def compile_source(text: str, include: Path, tag: str,
+                   name: str = "stack_kernel") -> Path:
+    """``text`` (a ``<name>.cu``, including headers from ``include``)
+    compiled with the build's nvcc flags into
+    ``build/movenet_tpu_torch/<tag>/``, named by its hash."""
     from movenet_tpu_torch.ops.cuda import build
 
     h = hashlib.sha256(text.encode())
     for header in sorted(include.glob("*.cuh")):
         h.update(header.read_bytes())
-    out = build.build_dir() / tag / f"stack_kernel-{h.hexdigest()[:16]}.so"
+    out = build.build_dir() / tag / f"{name}-{h.hexdigest()[:16]}.so"
     if not out.is_file():
         out.parent.mkdir(parents=True, exist_ok=True)
         src = out.with_suffix(".cu")
@@ -246,9 +248,10 @@ def events_ms(torch, fn, repeats: int) -> float:
     return start.elapsed_time(stop) / repeats
 
 
-def by_grid(torch, fn) -> dict:
+def by_grid(torch, fn, grids=GRIDS) -> dict:
     """Device ms of one call of ``fn`` (after a warm call) by grid:
-    GRIDS, the rest under "other"."""
+    ``grids`` ((label, kernel name part) pairs), the rest under
+    "other"."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -257,14 +260,14 @@ def by_grid(torch, fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {k: 0.0 for k, _ in GRIDS}
+    out = {k: 0.0 for k, _ in grids}
     out["other"] = 0.0
     for e in prof.key_averages():
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or e.device_time_total <= 0):
             continue
         name = re.sub(r"\s+", "", e.key)
-        group = next((k for k, pat in GRIDS if pat in name), "other")
+        group = next((k for k, pat in grids if pat in name), "other")
         out[group] += e.device_time_total / 1e3
     return out
 

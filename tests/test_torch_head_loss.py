@@ -130,11 +130,13 @@ def test_use_packed_decides_as_jax(t, s, c, monkeypatch):
     assert not hl.packed_route(skip, torch.zeros(t, 3), w2, 0)
 
 
-@pytest.mark.parametrize("s,c,t", [(8, 128, 512), (16, 256, 256)])
+@pytest.mark.parametrize("s,c,t", [(8, 128, 512), (16, 256, 256),
+                                   (64, 256, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wide_head_matches_jax(s, c, t, dtype):
-    """The head at experiment 03/04's C = 128 (S = 8) and at the
-    flagship's C = 256 (S = 16), unpacked, targets in the codes pack."""
+    """The head at experiment 03/04's C = 128 (S = 8) and at C = 256 with
+    S = 16 and with the flagship's S = 64, unpacked, targets in the codes
+    pack."""
     pack, a = _inputs(4, s=s, c=c, t=t)
     _compare(pack, a, True, dtype, 2 * B)
 
@@ -210,3 +212,16 @@ def test_match_is_first_argmax():
     zmax = z.max(dim=-1, keepdim=True).values
     assert hl._match_rows(z, torch.tensor([1]), zmax).item() == 1.0
     assert hl._match_rows(z, torch.tensor([2]), zmax).item() == 0.0
+
+
+def test_time_head_variant_edits_apply():
+    """Each diagnostic edit of ``utils/time_head.py`` still finds its text
+    in ``csrc/head_loss.cu`` (an edit that no longer applies would stop
+    the timer on the card)."""
+    from movenet_tpu_torch.ops.cuda import build
+    from movenet_tpu_torch.utils.time_head import VARIANTS
+
+    text = (build.CSRC / "head_loss.cu").read_text()
+    for name, edits in VARIANTS.items():
+        for old, _ in edits:
+            assert old in text, name

@@ -14,7 +14,13 @@ tolerances against their plain versions.  At C = 128 and 256 the float32
 gradients are held within 1e-3 of their scale: with 128-256 columns per
 row more bf16 operands of dy land one rounding step from the plain
 version's (measured on the H100: two of 4096 elements of dW1 at 1.8e-4
-of the scale, at S=16, C=256)."""
+of the scale, at S=16, C=256).  (12, 132) is a width that is not a
+multiple of 16: the kernels pad it with zeros in shared memory.  Two
+calls give the same bits (fixed-order sums, no atomics); the packed
+kernels and the merged trunk + head kernels keep the bits of the source
+before the unpacked kernels moved to the tensor cores (digests)."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -22,6 +28,7 @@ import torch
 
 from movenet_tpu_torch.ops import head_loss as hl
 from movenet_tpu_torch.ops.cuda import head_loss as kh
+from movenet_tpu_torch.ops.cuda import stack_kernel as ks
 
 
 @pytest.fixture
@@ -83,12 +90,11 @@ def test_head_kernels_match_plain(cuda, s, c, t, parity):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,c,t", [(8, 128, 4000), (16, 256, 2000),
-                                   (64, 256, 1000)])
+                                   (64, 256, 1000), (12, 132, 2000)])
 @pytest.mark.parametrize("parity", [True, False])
 def test_wide_head_kernels_match_plain(cuda, s, c, t, parity):
-    """C = 128 (experiments 03/04) and 256 (the flagship width): the
-    shared-memory plan keeps W2^T (and at C = 256 W2 and the dW2 sums) in
-    global memory."""
+    """C = 128 (experiments 03/04), 256 (the flagship width) and 132 with
+    S = 12 (zero-padded to 144 and 16 in shared memory)."""
     batch, rf = 2, 24
     a = _inputs(cuda, batch, t, s, c)
     a = {k: v.to(cuda) for k, v in a.items()}
@@ -108,6 +114,94 @@ def test_wide_head_kernels_match_plain(cuda, s, c, t, parity):
         x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
         tol = (1e-2 if name == "dskip" else 1e-3) * np.abs(y).max()
         np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c", [(16, 64), (8, 128), (64, 256)])
+def test_head_kernels_repeat_bit_equal(cuda, s, c):
+    """Two calls of each kernel on the same inputs give the same bits."""
+    batch, t, rf = 2, 3000, 24
+    a = {k: v.to(cuda) for k, v in _inputs(cuda, batch, t, s, c).items()}
+    args = (a["skip"], a["pack"], a["w1"], a["b1"], a["w2"], a["b2"], rf,
+            True, 2 * batch)
+    l1, m1, p1 = kh.head_fwd(*args)
+    l2, m2, p2 = kh.head_fwd(*args)
+    assert float(l1) == float(l2) and float(m1) == float(m2)
+    assert torch.equal(p1, p2)
+    bargs = (a["skip"], a["pack"], p1, a["w1"], a["b1"], a["w2"], a["b2"],
+             rf, True, torch.tensor(1e-4, device=cuda), 2 * batch)
+    for x, y in zip(kh.head_bwd(*bargs), kh.head_bwd(*bargs)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_head_supports_as_before(cuda):
+    """The widths the kernels take are the ones they took before the
+    tensor-core redesign: 4 <= S <= 64, 4 <= C <= 256, multiples of 4."""
+    lib = kh.library()
+    for s in range(4, 69):
+        for c in range(4, 261):
+            old = s % 4 == 0 and c % 4 == 0 and s <= 64 and c <= 256
+            assert bool(lib.movenet_head_supports(s, c)) == old, (s, c)
+
+
+def _head_digest(kmod, klib, smod, slib):
+    """sha256 of the packed head kernels' outputs (both CE forms) and the
+    merged trunk + head kernels' (forward and backward) on inputs made
+    with numpy from a fixed seed."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(13)
+    batch, t, rf = 2, 2000, 24
+
+    def rn(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    def tgt(c):
+        return torch.from_numpy(rng.integers(0, c, size=(t, batch))
+                                .astype(np.int32)).to(dev)
+
+    out = []
+    skip, tg = rn(batch, t, 64).to(bf), tgt(64)
+    w = (rn(64, 64, scale=0.25), rn(64, scale=0.1), rn(64, 64, scale=0.3),
+         rn(64, scale=0.1))
+    dloss = torch.tensor(1e-3, device=dev)
+    for parity in (True, False):
+        out += kmod.run_fwd(klib, skip, tg, *w, rf, parity, 0, False,
+                            packed=True)[:2]
+        out += kmod.run_bwd(klib, skip, tg, None, *w, rf, parity, dloss)
+    dil = (1, 2, 4, 1, 2, 4)
+    n, r, s, c = len(dil), 64, 64, 64
+    x, ctx = rn(batch, t, r, scale=0.5).to(bf), rn(batch, t, r,
+                                                   scale=0.5).to(bf)
+    tw = (rn(n * batch, 2 * r, scale=0.1), rn(n, 3 * r, 2 * r, scale=0.07),
+          rn(n, r, r + s, scale=0.12), rn(n, r + s, scale=0.1))
+    hw = (rn(s, c, scale=0.12), rn(c, scale=0.1), rn(c, c, scale=0.12),
+          rn(c, scale=0.1))
+    tg = tgt(c)
+    loss, match, sk_, hsave, tfsg = smod.run_head_fwd(
+        slib, x, ctx, *tw, tg, *hw, dil, rf, True)
+    out += [loss, match, sk_, hsave, tfsg]
+    out += smod.run_head_bwd(slib, hsave, tfsg, ctx, tw[1], tw[2], sk_, tg,
+                             *hw, dloss, dil, rf, True)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for o in out:
+        if o is not None:
+            h.update(o.reshape(-1).contiguous().cpu().view(torch.uint8).numpy()
+                     .tobytes())
+    return h.hexdigest()[:32]
+
+
+# the packed and merged head kernels' digest as the source before the
+# unpacked head kernels moved to the tensor cores gave it on an NVIDIA
+# H100 80GB HBM3
+HEAD_DIGEST = "07d129b6d97e2d48805bd9a8d49ea146"
+
+
+@pytest.mark.cuda
+def test_packed_and_merged_heads_keep_their_bits(cuda):
+    assert _head_digest(kh, kh.library(), ks, ks.library()) == HEAD_DIGEST
 
 
 @pytest.mark.cuda
