@@ -8,7 +8,10 @@ Phases (any failure exits non-zero and prints no result):
   2. build: every csrc/*.cu kernel is compiled with nvcc; ptxas'
      registers and spills of every kernel, and for the save backward's
      tensor-core kernels (stack_bwd_layer_kernel, stack_wgrad_kernel)
-     their dynamic shared memory too;
+     their dynamic shared memory too; the dynamic shared memory of the
+     four ar_sampler_spec_kernel instantiations at the flagship width
+     (their ring of stages beside the chain buffers, the kernel's and the
+     wrapper's sizes equal);
   3. kernel vs plain: the AR sampler kernel and its plain torch version
      give equal codes at the flagship sampler width (layer 10 x stack 3,
      C=256, R=S=64, RF=3072; seeded random weights, head2 x 10) for
@@ -20,7 +23,13 @@ Phases (any failure exits non-zero and prints no result):
      fast o2 d2, and T=1.0 parity fast o3 d1 seed 3; the codes equal the
      standard kernel's and the hits equal the utils/spec_sim replay; and
      the same on a hit-rich model (utils/fixtures.train_overfit, trained
-     on the card at the fixture's width), where hits must be > 0;
+     on the card at the fixture's width), where hits must be > 0; each
+     case's time per iteration (generated samples less hits) beside the
+     standard kernel's step of the same form, and its stream bound: the
+     iteration's packed weight stream times the iterations over the rate
+     at which one block moves that stream into its SM, measured here
+     (ops/cuda/ar_sampler.stream_probe: bulk copies and grouped __ldg,
+     the faster);
   5. serve (the main path): ``serve()`` on a flagship checkpoint in a
      temp dir, once with the default options (fast sampler, speculative
      1) and once with the exact sampler; after warmup speculation must be
@@ -136,8 +145,8 @@ Phases (any failure exits non-zero and prints no result):
      experiments' update times, the flagship trainer step;
   22. the kernels line (18 entries, every form of the fourteen TPU kernel
      functions, each with its bound from this run's shapes; the new
-     widths' readings under "widths"), then the card line, then the
-     result line.
+     widths' readings under "widths"; the speculative rows also with
+     their stream bound), then the card line, then the result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -333,8 +342,9 @@ def phase_compare(torch, np, model, rf, clips=None):
     return records
 
 
-def spec_case(torch, np, ars, spec_sim, label, inp, order, depth):
-    """One speculative kernel-vs-plain case; returns its record."""
+def spec_case(torch, np, ars, spec_sim, label, inp, order, depth, rate):
+    """One speculative kernel-vs-plain case; returns its record.  ``rate``
+    (GB/s) is the single-block stream rate behind the stream bound."""
     got, hits = ars.ar_sampler_spec(inp, order, depth)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -349,6 +359,11 @@ def spec_case(torch, np, ars, spec_sim, label, inp, order, depth):
     replay, iters = spec_sim.simulate_spec_hits(
         codes, inp.weights["front_cur"].shape[0], inp.rf, order, depth)
     generated = inp.n_samples - inp.rf
+    # each iteration emits one code and one per committed guess
+    iters_k = generated - int(hits)
+    check(iters_k == iters, f"{label}: {iters_k} iterations against the "
+          f"replay's {iters}")
+    nbytes = 4 * ars.pack_spec_stream(inp, depth + 1).numel()
     rec = dict(label=label, name=inp.spec_name, batch=1, fast=inp.fast,
                equal=bool(torch.equal(got, want)) and int(hits) == int(
                    want_hits),
@@ -358,7 +373,9 @@ def spec_case(torch, np, ars, spec_sim, label, inp, order, depth):
                ms=kernel_ms, plain_ms=plain_ms, standard_ms=standard_ms,
                us_per_sample=kernel_ms * 1e3 / generated,
                standard_us_per_sample=standard_ms * 1e3 / generated,
-               steps_per_iter=generated / iters)
+               steps_per_iter=generated / iters, iters=iters,
+               us_per_iter=kernel_ms * 1e3 / iters, stream_bytes=nbytes,
+               stream_bound_ms=nbytes * iters / (rate * 1e6))
     print(f"spec {label}: equal={rec['equal']} hits kernel {rec['hits']} "
           f"plain {rec['plain_hits']} replay {replay} "
           f"(x{rec['steps_per_iter']:.3f} steps/iteration), codes == "
@@ -367,6 +384,11 @@ def spec_case(torch, np, ars, spec_sim, label, inp, order, depth):
           f"standard kernel {standard_ms:.2f} ms "
           f"({rec['standard_us_per_sample']:.2f} us/sample), plain "
           f"{plain_ms:.1f} ms", flush=True)
+    print(f"spec {label}: {rec['us_per_iter']:.2f} us per iteration over "
+          f"{iters} iterations, {rec['us_per_iter'] / rec['standard_us_per_sample']:.2f}"
+          f"x the standard step ({rec['standard_us_per_sample']:.2f} us); "
+          f"stream bound {rec['stream_bound_ms']:.3f} ms ({nbytes} bytes x "
+          f"{iters} iterations / {rate:.1f} GB/s)", flush=True)
     return rec
 
 
@@ -380,6 +402,22 @@ def phase_spec_compare(torch, np, model, rf):
              ("greedy fast o3 d1", 0.0, True, 3, 1, 0),
              ("greedy fast o2 d2", 0.0, True, 2, 2, 0),
              ("T=1.0 parity fast o3 d1", 1.0, True, 3, 1, 3)]
+    # how fast one block moves the flagship's fast stream into its SM, in
+    # a ring of the kernel's stages and with grouped __ldg
+    lay = ars.spec_smem_layout(True, 2, model.input_channels,
+                               model.residual_channels, model.skip_channels,
+                               len(model.dilations))
+    nbytes = 4 * ars._stream_index(
+        True, 2, tuple(model.dilations), model.residual_channels,
+        model.skip_channels, model.input_channels).numel()
+    rates = {mode: ars.stream_probe(nbytes, mode, n_stages=lay["n_stages"],
+                                    slab_bytes=lay["stage_bytes"])
+             for mode in ("bulk copy", "grouped __ldg")}
+    rate = max(rates.values())
+    print("spec stream rate of one block: " + ", ".join(
+        f"{m} {v:.1f} GB/s" for m, v in rates.items())
+        + f" ({nbytes} bytes, {lay['n_stages']} stages of "
+        f"{lay['stage_bytes']} bytes)", flush=True)
     rng = np.random.default_rng(2)
     records = []
     for label, temp, fast, order, depth, seed in cases:
@@ -389,7 +427,7 @@ def phase_spec_compare(torch, np, model, rf):
                           speculative=True, spec_order=order,
                           spec_depth=depth)
         records.append(spec_case(torch, np, ars, spec_sim, label, inp,
-                                 order, depth))
+                                 order, depth, rate))
     # hit-rich: the sine fixture trained on the card
     t0 = time.perf_counter()
     trained, codes = fixtures.train_overfit(
@@ -403,7 +441,7 @@ def phase_spec_compare(torch, np, model, rf):
                           fast=True, speculative=True, spec_depth=depth)
         rec = spec_case(torch, np, ars, spec_sim,
                         f"trained fixture greedy fast o3 d{depth}", inp, 3,
-                        depth)
+                        depth, rate)
         check(rec["hits"] > 0, f"{rec['label']}: no guess committed")
         records.append(rec)
     return records
@@ -866,6 +904,29 @@ def bwd_smem_note(lib, kernel: str) -> str:
         return (f"; dynamic shared memory "
                 f"{lib.movenet_stack_bwd_smem(r, s_, win, mode)} bytes")
     return ""
+
+
+def spec_smem_report() -> None:
+    """The dynamic shared memory of the four speculative instantiations at
+    the flagship width: the wrapper's layout, its fixed part checked
+    against the kernel library's own size."""
+    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+
+    lib = ars._kernel_lib()
+    n_layers = FLAGSHIP["layer_size"] * FLAGSHIP["stack_size"]
+    c, r, s = (FLAGSHIP[k] for k in ("input_channels", "residual_channels",
+                                     "skip_channels"))
+    for fast in (False, True):
+        for depth in (1, 2):
+            lay = ars.spec_smem_layout(fast, depth + 1, c, r, s, n_layers)
+            fixed = lib.movenet_ar_spec_fixed_bytes(depth, c, r, s, n_layers)
+            check(fixed == lay["fixed"],
+                  f"spec shared memory: kernel {fixed}, wrapper "
+                  f"{lay['fixed']} bytes")
+            print(f"  ar_sampler_spec_kernel<{int(fast)},{depth + 1}>: dynamic "
+                  f"shared memory {lay['total']} bytes at the flagship width "
+                  f"({lay['n_stages']} stages of {lay['stage_bytes']} bytes + "
+                  f"{fixed} for the chains, biases and tables)")
 
 
 def grid_line(label: str, by: dict) -> str:
@@ -2433,6 +2494,7 @@ def main() -> int:
                 note = bwd_smem_note(ks.library(), kernel) \
                     if name == "stack_kernel" else ""
                 print(f"  nvcc {name}: {kernel}: {what}{note}")
+        spec_smem_report()
 
         phase = "kernel vs plain"
         mc, model = flagship_model(torch)
@@ -2605,10 +2667,12 @@ def main() -> int:
                   f"{beside}; {card}", flush=True)
         for r in spec_records:
             print(f"time spec {r['label']}: {r['us_per_sample']:.3f} us per "
-                  f"generated sample, standard kernel "
-                  f"{r['standard_us_per_sample']:.3f}; hits {r['hits']}"
-                  f"/{N_COMPARE}; plain {r['plain_ms']:.1f} ms; {card}",
-                  flush=True)
+                  f"generated sample, {r['us_per_iter']:.3f} us per "
+                  f"iteration, standard kernel "
+                  f"{r['standard_us_per_sample']:.3f} us per step; hits "
+                  f"{r['hits']}/{N_COMPARE}; stream bound "
+                  f"{r['stream_bound_ms']:.3f} ms; plain {r['plain_ms']:.1f} "
+                  f"ms; {card}", flush=True)
 
         phase = "kernels line"
         from movenet_tpu_torch.ops.cuda import ar_sampler as ars
@@ -2630,7 +2694,10 @@ def main() -> int:
                 "library_ms": None,
                 "matches_plain": all(r["equal"] for r in mine),
                 "shape": f"B=1, n=RF+{N_COMPARE}"
-                + (", video (160 frames)" if video else "")})
+                + (", video (160 frames)" if video else ""),
+                **({"stream_bound_ms": timed["stream_bound_ms"],
+                    "us_per_iteration": timed["us_per_iter"]}
+                   if "stream_bound_ms" in timed else {})})
         mc = cfg.model_config
         bounds = train_bounds(
             2, mc.max_audio_frames, len(bd_model.dilations),

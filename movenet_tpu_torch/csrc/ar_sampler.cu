@@ -72,16 +72,38 @@
 // then, they are what the standard kernel would have written.  So the
 // codes equal the standard kernel's for any guess sequence provided
 // every chain runs the standard kernel's float32 operations in its
-// order: the same fmaf chains (dots<N> gives each chain its own
-// accumulator over one shared weight load, so an iteration reads the
-// weights once for all chains), the same __fadd_rn/__fmul_rn steps, the
-// same block reductions, and the Gumbel noise of position t+k.  In fast
-// mode the next layer's [h|tap] product of a speculative chain whose tap
-// is another chain's fresh h (d(l+1) <= k) waits for one more phase
-// after phase M; that happens at the first two layers of each stack.
-// Bound: as the standard kernel, by L2 reads of the weights per step, of
-// which a hit saves one or two steps' worth; the extra chains add FMAs
-// per load and one barrier phase at those layers.
+// order: the same fmaf chains (one accumulator per chain over one read
+// of each weight, so an iteration reads the weights once for all
+// chains), the same __fadd_rn/__fmul_rn steps, the same 8-warp block
+// reductions, and the Gumbel noise of position t+k.  In fast mode the
+// next layer's [h|tap] product of a speculative chain whose tap is
+// another chain's fresh h (d(l+1) < NCH) is redone in one more phase
+// (M2) after phase M; that happens at the first layers of each stack.
+//
+// Weight stream.  An iteration reads the same weights in the same order
+// whatever the codes: 3.3 MB exact, 4.3 MB fast at the flagship width,
+// far more than one SM can hold, and each phase could start its L2 loads
+// only after its barrier.  So the wrapper packs them once per request
+// into one buffer in the order the phases consume them (pack_spec_stream
+// in ops/cuda/ar_sampler.py): in a phase of n dots, consumer thread tid
+// runs dots tid, tid + 256, ... as the standard kernel's loops do, and
+// the phase is cut into slabs of ks rows of every thread's current dot,
+// four rows of a thread in 16 bytes beside its neighbours'.  One producer
+// warp beside the 8 consumer warps walks that stream with 1-D bulk
+// copies (TMA) into a ring of shared-memory stages, each with a `full`
+// and an `empty` mbarrier, across phases, layers, the head and into the
+// next iteration; the consumers' phase barriers are a named barrier over
+// their 256 threads alone.  One block moved the stream into its SM at
+// 167-173 GB/s in 32 KB copies against 110 GB/s with 16 grouped __ldg's a
+// thread, and copies of one SM complete one after another at about 185 ns
+// each (utils/time_spec --probe, H100 80GB HBM3 at 700 W); the consumers
+// pay a fixed cost per slab whatever the ring's depth, so slabs are as
+// large as the widths allow up to 64 KB, in two stages.  The biases live
+// in shared memory and each layer's ring taps are read one phase ahead,
+// so no phase waits on L2 but the front.  Bound: the stream is not (the copies can
+// be left out at no gain); the phase chain is: about 90 barrier-separated
+// phases an iteration, each a dependent fmaf chain over its dots' rows
+// (64 to 256), and a gate; a hit saves one or two iterations' worth.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -454,7 +476,77 @@ int launch_standard(const Params& p, size_t smem, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- bulk copies and mbarriers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// the producer's arrival, announcing the bytes its copy will bring
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// whether the phase of `bar` with this parity has completed
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n\t.reg .pred done;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, done;\n\t}"
+      : "=r"(ok) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// one 1-D bulk copy (TMA) of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
 // ------------------------------------------------------- speculative form
+
+// Kinds of the phases that read the weight stream (spec_phase_dots in
+// ops/cuda/ar_sampler.py): A, C exact; F0, M, ML (the last layer's M),
+// M2 fast; H1, H2 the head.
+enum PhaseKind { kA, kC, kH1, kH2, kF0, kM, kML, kM2, kKinds };
+
+constexpr int kConsumers = kThreads;             // 8 consumer warps
+constexpr int kSpecThreads = kConsumers + 32;    // + one producer warp
+constexpr int kMaxStages = 32;
+constexpr int kSmemLimit = 232448;               // bytes a block can have
+
+// One phase of the stream: n dots, slabs of ks rows, kv virtual rows (the
+// longest thread's), ncols = min(n, 256) columns; a slab is 4 ks ncols
+// bytes and the phase kv / ks slabs.
+struct PhaseShape {
+  int n, ks, kv, ncols;
+};
 
 struct SpecParams {
   int* t2;        // (C)    successor table, -1 unseen; read once, kept in smem
@@ -462,48 +554,54 @@ struct SpecParams {
   int* hits;      // (1)    committed guesses
   int order;      // 2 or 3
   int adaptive;   // learn the tables from the committed codes
+  const float* stream;  // one iteration's weights in consumption order
+  int stage_bytes;      // bytes of a ring stage: the largest slab
+  int n_stages;         // stages of the ring
+  PhaseShape shape[kKinds];
 };
 
-// acc[c] = xa[c][0:k1] . w[0:k1, col] continued over xb[c][0:k2] . w[k1:k1+k2,
-// col], one fmaf chain per c in the order dot_col sums: so chain c gets
-// the bits dot_col gives it over the concatenated [xa | xb], and every
-// weight is loaded once for all N chains.
-template <int N>
-__device__ __forceinline__ void dots(const float* const* xa,
-                                     const float* const* xb, const float* w,
-                                     int k1, int k2, int stride, float* acc) {
-  float a[N];
-#pragma unroll
-  for (int c = 0; c < N; ++c) a[c] = 0.f;
-#pragma unroll 16
-  for (int i = 0; i < k1; ++i) {
-    const float wv = __ldg(w + i * stride);
-#pragma unroll
-    for (int c = 0; c < N; ++c) a[c] = fmaf(xa[c][i], wv, a[c]);
+// dots of a phase of kind `kind`, and the rows of dot i
+__host__ __device__ __forceinline__ int phase_dots(int kind, int R, int S,
+                                                   int C) {
+  switch (kind) {
+    case kA: return 4 * R;
+    case kH1: case kH2: return C;
+    case kF0: case kM2: return 2 * R;
+    case kM: return 4 * R + R + S;
+    default: return R + S;   // kC, kML
   }
-  w += static_cast<size_t>(k1) * stride;
-#pragma unroll 16
-  for (int i = 0; i < k2; ++i) {
-    const float wv = __ldg(w + i * stride);
-#pragma unroll
-    for (int c = 0; c < N; ++c) a[c] = fmaf(xb[c][i], wv, a[c]);
-  }
-#pragma unroll
-  for (int c = 0; c < N; ++c) acc[c] = a[c];
 }
 
-// dots<n> for a run-time n in [1, NMAX]
-template <int NMAX>
-__device__ __forceinline__ void dots_n(int n, const float* const* xa,
-                                       const float* const* xb, const float* w,
-                                       int k1, int k2, int stride, float* acc) {
-  if (n == 1) {
-    dots<1>(xa, xb, w, k1, k2, stride, acc);
-  } else if (n == 2) {
-    dots<2>(xa, xb, w, k1, k2, stride, acc);
-  } else if constexpr (NMAX >= 3) {
-    dots<3>(xa, xb, w, k1, k2, stride, acc);
+__host__ __device__ __forceinline__ int dot_rows(int kind, int i, int R,
+                                                 int S, int C) {
+  switch (kind) {
+    case kH1: return S;
+    case kH2: return C;
+    case kM2: return 2 * R;
+    case kM: return i >= 2 * R && i < 4 * R ? 2 * R : R;
+    default: return R;
   }
+}
+
+// n, kv and ncols of a phase whose slabs have ks rows; false when ks does
+// not divide every dot's rows (and, in M2, the split at R between a
+// chain's h and another chain's h_next)
+bool phase_shape(int kind, int ks, int R, int S, int C, PhaseShape* out) {
+  const int n = phase_dots(kind, R, S, C);
+  if (ks <= 0 || ks % 4 != 0 || (kind == kM2 && R % ks != 0)) return false;
+  const int ncols = n < kConsumers ? n : kConsumers;
+  int kv = 0;
+  for (int c = 0; c < ncols; ++c) {
+    int rows = 0;
+    for (int i = c; i < n; i += kConsumers) {
+      const int k = dot_rows(kind, i, R, S, C);
+      if (k % ks != 0) return false;
+      rows += k;
+    }
+    kv = rows > kv ? rows : kv;
+  }
+  *out = PhaseShape{n, ks, kv, ncols};
+  return true;
 }
 
 __device__ __forceinline__ bool code_ok(int c, int C) { return c >= 0 && c < C; }
@@ -537,164 +635,446 @@ __host__ __device__ __forceinline__ int chain_floats(int c_in, int r, int s) {
   return 2 * r + r + 2 * r + 2 * r + r + s + 2 * c_in;
 }
 
-size_t spec_shared_bytes(int nch, int c_in, int r, int s, int n_layers) {
+// floats of the biases, kept in shared memory: b_fg (L, 2R), b_out (L,
+// R+S), h1_b (C), h2_b (C)
+__host__ __device__ __forceinline__ int bias_floats(int c_in, int r, int s,
+                                                   int n_layers) {
+  return n_layers * (2 * r + r + s) + 2 * c_in;
+}
+
+// bytes of everything but the ring: the chain buffers, the deferred spec
+// writes, the biases, the reductions, t2, the guesses and the end flag,
+// the dilations and offsets, the phase sequence (spec_smem_layout in the
+// wrapper computes the same)
+size_t spec_fixed_bytes(int nch, int c_in, int r, int s, int n_layers) {
   return sizeof(float) * (static_cast<size_t>(nch) * chain_floats(c_in, r, s)
-                          + static_cast<size_t>(nch - 1) * n_layers * r + kWarps)
-         + sizeof(int) * (kWarps + c_in + 2);
+                          + static_cast<size_t>(nch - 1) * n_layers * r
+                          + bias_floats(c_in, r, s, n_layers) + kWarps)
+         + sizeof(int) * (kWarps + c_in + 4 + 2 * n_layers
+                          + 3 * n_layers + 4);
+}
+
+// The consumers' phase barrier: named barrier 1 over the 256 consumer
+// threads, so the producer warp never waits at a phase boundary.
+__device__ __forceinline__ void csync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// block_max, block_sum, block_argmax over the consumer warps (the same
+// 8-warp shapes, so the same sums; csync in place of __syncthreads)
+__device__ float spec_block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  if (lane == 0) red[warp] = v;
+  csync();
+  float m = red[0];
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
+  csync();
+  return m;
+}
+
+__device__ float spec_block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
+  if (lane == 0) red[warp] = v;
+  csync();
+  float s = red[0];
+  for (int w = 1; w < kWarps; ++w) s += red[w];
+  csync();
+  return s;
+}
+
+__device__ int spec_block_argmax(float v, int i, float* red_v, int* red_i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(~0u, v, o);
+    const int oi = __shfl_xor_sync(~0u, i, o);
+    if (better(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+  if (lane == 0) { red_v[warp] = v; red_i[warp] = i; }
+  csync();
+  float bv = red_v[0];
+  int bi = red_i[0];
+  for (int w = 1; w < kWarps; ++w)
+    if (better(red_v[w], red_i[w], bv, bi)) { bv = red_v[w]; bi = red_i[w]; }
+  csync();
+  return bi;
+}
+
+// The producer: one lane walks the stream slab by slab, iteration after
+// iteration, keeping every free stage filled: it waits for the stage to
+// be released (sleeping between polls, as it shares a scheduler with
+// two consumer warps), posts the slab's bytes on its `full` barrier and
+// issues one bulk copy.  The consumers decide when the sampling ends; they set
+// *done, which the producer reads while it waits, and it then waits for
+// every copy it issued to land before it exits.
+__device__ void spec_producer(const SpecParams& q, const int* seq, int n_seq,
+                              unsigned char* ring, uint64_t* full,
+                              uint64_t* empty, volatile int* done) {
+  const char* src = reinterpret_cast<const char*>(q.stream);
+  size_t off = 0;
+  int ph = 0;
+  PhaseShape sh = q.shape[seq[0]];
+  int left = sh.kv / sh.ks;
+  uint32_t bytes = 4u * sh.ks * sh.ncols;
+  int stage = 0;
+  uint32_t parity = 0;
+  bool wrapped = false;
+  for (;;) {
+    bool end = false;
+    while (!mbar_try_wait(empty + stage, parity ^ 1)) {
+      if (*done) { end = true; break; }
+      // the ring is full: leave the issue slots to the consumer warps
+      __nanosleep(200);
+    }
+    if (end) break;
+    mbar_expect_tx(full + stage, bytes);
+    bulk_copy(ring + static_cast<size_t>(stage) * q.stage_bytes, src + off,
+              bytes, full + stage);
+    off += bytes;
+    if (--left == 0) {
+      if (++ph == n_seq) { ph = 0; off = 0; }
+      sh = q.shape[seq[ph]];
+      left = sh.kv / sh.ks;
+      bytes = 4u * sh.ks * sh.ncols;
+    }
+    if (++stage == q.n_stages) { stage = 0; parity ^= 1; wrapped = true; }
+  }
+  // stages before `stage` hold this lap's copies, the rest the last lap's
+  for (int s = 0; s < q.n_stages; ++s) {
+    if (s < stage) mbar_wait(full + s, parity);
+    else if (wrapped) mbar_wait(full + s, parity ^ 1);
+  }
+}
+
+// A consumer's place in the ring.
+struct Pipe {
+  const float4* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stage_f4, n_stages, stage;
+  uint32_t parity;
+};
+
+__device__ __forceinline__ const float4* pipe_wait(Pipe& pp) {
+  mbar_wait(pp.full + pp.stage, pp.parity);
+  return pp.ring + static_cast<size_t>(pp.stage) * pp.stage_f4;
+}
+
+// every lane is done with the slab; one arrival per warp
+__device__ __forceinline__ void pipe_release(Pipe& pp) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(pp.empty + pp.stage);
+  if (++pp.stage == pp.n_stages) { pp.stage = 0; pp.parity ^= 1; }
+}
+
+__device__ __forceinline__ float4 leaky4(float4 v) {
+  return make_float4(leaky(v.x), leaky(v.y), leaky(v.z), leaky(v.w));
+}
+
+// acc[k] += x[k][4q .. 4q+3] . w (one quad of rows), in row order
+template <int NCH, bool LEAKY>
+__device__ __forceinline__ void quad_fma(const float* const* x, int q,
+                                         float4 w, float* acc) {
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    float4 v = *reinterpret_cast<const float4*>(x[k] + 4 * q);
+    if (LEAKY) v = leaky4(v);
+    acc[k] = fmaf(v.x, w.x, acc[k]);
+    acc[k] = fmaf(v.y, w.y, acc[k]);
+    acc[k] = fmaf(v.z, w.z, acc[k]);
+    acc[k] = fmaf(v.w, w.w, acc[k]);
+  }
+}
+
+// One phase of the stream.  Consumer thread tid runs dots tid, tid + 256,
+// ... < sh.n in turn, as the standard kernel's loops do; for each slab it
+// takes sh.ks rows of its current dot from its own column (four rows in
+// 16 bytes, beside its neighbours'), one fmaf chain per chain k in row
+// order, the sum dot_col forms.  Every warp waits on and releases every
+// slab of the phase, whether it reads it or not.
+//   xs(i, row, x)   each chain's operand from row `row` on
+//   done(i, acc)    the dot's epilogue
+template <int NCH, int KIND, bool LEAKY, class Xs, class Done>
+__device__ __forceinline__ void run_phase(Pipe& pp, const PhaseShape& sh,
+                                          int R, int S, int C, Xs xs,
+                                          Done done) {
+  const int tid = threadIdx.x;
+  int i = tid, row = 0;
+  int len = i < sh.n ? dot_rows(KIND, i, R, S, C) : 0;
+  float acc[NCH];
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) acc[k] = 0.f;
+  const int nq = sh.ks >> 2;
+  for (int v = 0; v < sh.kv; v += sh.ks) {
+    const float4* slab = pipe_wait(pp) + tid;
+    if (i < sh.n) {
+      const float* x[NCH];
+      xs(i, row, x);
+      int q = 0;
+      for (; q + 4 <= nq; q += 4) {
+        float4 w[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) w[u] = slab[(q + u) * sh.ncols];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) quad_fma<NCH, LEAKY>(x, q + u, w[u], acc);
+      }
+      for (; q < nq; ++q) quad_fma<NCH, LEAKY>(x, q, slab[q * sh.ncols], acc);
+      row += sh.ks;
+      if (row == len) {
+        done(i, acc);
+        i += kConsumers;
+        row = 0;
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) acc[k] = 0.f;
+        if (i < sh.n) len = dot_rows(KIND, i, R, S, C);
+      }
+    }
+    pipe_release(pp);
+  }
 }
 
 template <bool FAST, int NCH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSpecThreads, 1)
 ar_sampler_spec_kernel(Params p, SpecParams q) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char spec_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int C = p.c_in, R = p.r, R2 = 2 * p.r, S = p.s, RS = p.r + p.s;
   const int L = p.n_layers, LR = p.n_layers * p.r;
   const int cs = chain_floats(C, R, S);
-  // chain k's buffers start at smem + k * cs
+  // [ring | full, empty barriers | chain k's buffers at k * cs | spec | ...]
+  unsigned char* ring = spec_smem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ring + static_cast<size_t>(q.n_stages) * q.stage_bytes);
+  uint64_t* empty = full + q.n_stages;
+  float* fl = reinterpret_cast<float*>(empty + q.n_stages);
   constexpr int oX = 0;
   const int oHN = R2, oP0 = oHN + R, oP1 = oP0 + R2, oG = oP1 + R2,
             oSk = oG + R, oAct = oSk + S, oSc = oAct + C;
-#define CH(k, o) (smem + (k) * cs + (o))
-  float* spec = smem + NCH * cs;             // chain k>=1 at (k-1) * LR
-  float* red_v = spec + (NCH - 1) * LR;
+#define CH(k, o) (fl + (k) * cs + (o))
+  float* spec = fl + NCH * cs;               // chain k>=1 at (k-1) * LR
+  float* bfg = spec + (NCH - 1) * LR;        // b_fg (L, 2R)
+  float* bout = bfg + L * R2;                // b_out (L, R+S)
+  float* b1 = bout + L * RS;                 // h1_b (C)
+  float* b2 = b1 + C;                        // h2_b (C)
+  float* red_v = b2 + C;
   int* red_i = reinterpret_cast<int*>(red_v + kWarps);
   int* t2s = red_i + kWarps;                 // C
-  int* guess = t2s + C;                      // g1, g2
+  int* misc = t2s + C;                       // g1, g2, done, phases
+  int* dil_s = misc + 4;                     // L
+  int* off_s = dil_s + L;                    // L
+  int* seq = off_s + L;                      // the phase kinds in stream order
 
-  float* ring = p.ring;
+  for (int c = tid; c < C; c += kSpecThreads) {
+    t2s[c] = q.t2[c];
+    b1[c] = p.h1_b[c];
+    b2[c] = p.h2_b[c];
+  }
+  for (int i = tid; i < L * R2; i += kSpecThreads) bfg[i] = p.b_fg[i];
+  for (int i = tid; i < L * RS; i += kSpecThreads) bout[i] = p.b_out[i];
+  for (int l = tid; l < L; l += kSpecThreads) {
+    dil_s[l] = p.dil[l];
+    off_s[l] = p.off[l];
+  }
+  if (tid == 0) {
+    for (int s = 0; s < q.n_stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kWarps);
+    }
+    fence_mbar_init();
+    misc[2] = 0;
+  }
+  float* ringg = p.ring;
   const int n = p.n_samples;
   int prev = p.init_codes[0];
   int cur = p.init_codes[1];
-  for (int c = tid; c < C; c += kThreads) t2s[c] = q.t2[c];
   __syncthreads();
   if (tid == 0) {
+    // one iteration's phases (spec_phases in the wrapper)
+    int ns = 0;
+    if (!FAST) {
+      for (int l = 0; l < L; ++l) { seq[ns++] = kA; seq[ns++] = kC; }
+    } else {
+      seq[ns++] = kF0;
+      for (int l = 0; l < L; ++l) {
+        if (l + 1 < L) {
+          seq[ns++] = kM;
+          if (dil_s[l + 1] < NCH) seq[ns++] = kM2;
+        } else {
+          seq[ns++] = kML;
+        }
+      }
+    }
+    seq[ns++] = kH1;
+    seq[ns++] = kH2;
+    misc[3] = ns;
     const int g1 = spec_guess1(prev, cur, t2s, q.t3, C, q.order);
-    guess[0] = g1;
-    guess[1] = NCH == 3 ? spec_guess2(cur, g1, t2s, q.t3, C, q.order) : 0;
+    misc[0] = g1;
+    misc[1] = NCH == 3 ? spec_guess2(cur, g1, t2s, q.t3, C, q.order) : 0;
   }
   __syncthreads();
+  if (warp == kWarps) {
+    if (tid == kConsumers)
+      spec_producer(q, seq, misc[3], ring, full, empty, misc + 2);
+    return;
+  }
 
+  Pipe pp{reinterpret_cast<const float4*>(ring), full, empty,
+          q.stage_bytes / 16, q.n_stages, 0, 0u};
   int t = p.rf;
   int hits = 0;
   while (t < n) {
-    const int g1 = guess[0], g2 = guess[1];
+    const int g1 = misc[0], g2 = misc[1];
     // chain k embeds (cc[k], pc[k]): (x_t, x_{t-1}), (g1, x_t), (g2, g1)
     const int cc[3] = {cur, g1, g2};
     const int pc[3] = {prev, cur, g1};
 
-    // ---- front: each chain's h; layer 0's taps
-    const int d0 = __ldg(p.dil), o0 = __ldg(p.off);
-    for (int j = tid; j < R; j += kThreads) {
+    // ---- front: each chain's h; layer 0's taps; fast: the embedding
+    // products of layer 0 (part0 = fc0[c], part1 holds fp0[p] until F0)
+    const int d0 = dil_s[0], o0 = off_s[0];
+    for (int j = tid; j < R; j += kConsumers) {
 #pragma unroll
       for (int k = 0; k < NCH; ++k) {
         CH(k, oX)[j] =
             (code_ok(cc[k], C) ? __ldg(p.front_cur + cc[k] * R + j) : 0.f)
             + (code_ok(pc[k], C) ? __ldg(p.front_past + pc[k] * R + j) : 0.f);
         CH(k, oX)[R + j] = d0 <= k ? CH(k - d0, oX)[j]
-                                   : ring[(o0 + (t + k) % d0) * R + j];
+                                   : ringg[(o0 + (t + k) % d0) * R + j];
       }
     }
-    for (int j = tid; j < S; j += kThreads) {
+    for (int j = tid; j < S; j += kConsumers) {
 #pragma unroll
       for (int k = 0; k < NCH; ++k) CH(k, oSk)[j] = 0.f;
     }
-    __syncthreads();
-
-    const float* xs[NCH];
-    const float* xb[NCH];
-    float acc[NCH];
-    if (!FAST) {
-      for (int l = 0; l < L; ++l) {
-        const int slot = __ldg(p.off + l) + t % __ldg(p.dil + l);
-        // phase A: fg partial sums over the h rows and the tap rows
-        const float* w = p.w_fg + static_cast<size_t>(l) * R2 * R2;
-        for (int i = tid; i < 2 * R2; i += kThreads) {
-          const int half = i / R2, j = i - half * R2;
-#pragma unroll
-          for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oX) + half * R;
-          dots<NCH>(xs, xs, w + half * R * R2 + j, R, 0, R2, acc);
-#pragma unroll
-          for (int k = 0; k < NCH; ++k) CH(k, half ? oP1 : oP0)[j] = acc[k];
-        }
-        __syncthreads();
-        // phase B: gate
-        const float* bl = p.b_fg + l * R2;
-        for (int i = tid; i < R; i += kThreads) {
-#pragma unroll
-          for (int k = 0; k < NCH; ++k) {
-            const float f = __fadd_rn(__fadd_rn(CH(k, oP0)[i], CH(k, oP1)[i]),
-                                      __ldg(bl + i));
-            const float g = __fadd_rn(
-                __fadd_rn(CH(k, oP0)[R + i], CH(k, oP1)[R + i]),
-                __ldg(bl + R + i));
-            CH(k, oG)[i] = __fmul_rn(tanhf(f), sigmoidf_(g));
-          }
-        }
-        __syncthreads();
-        // phase C: res/skip outputs; the real ring write and the deferred
-        // spec ones; the next layer's taps
-        const float* wo = p.w_out + static_cast<size_t>(l) * R * RS;
-        const float* bo = p.b_out + l * RS;
-        const bool more = l + 1 < L;
-        const int dn = more ? __ldg(p.dil + l + 1) : 1;
-        const int on = more ? __ldg(p.off + l + 1) : 0;
-        for (int i = tid; i < RS + R; i += kThreads) {
-          if (i < RS) {
-#pragma unroll
-            for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oG);
-            dots<NCH>(xs, xs, wo + i, R, 0, RS, acc);
-#pragma unroll
-            for (int k = 0; k < NCH; ++k) {
-              const float o = __fadd_rn(acc[k], __ldg(bo + i));
-              if (i < R) {
-                if (k == 0) ring[slot * R + i] = CH(0, oX)[i];
-                else spec[(k - 1) * LR + l * R + i] = CH(k, oX)[i];
-                CH(k, oX)[i] = __fadd_rn(o, CH(k, oX)[i]);
-              } else {
-                CH(k, oSk)[i - R] = __fadd_rn(CH(k, oSk)[i - R], o);
-              }
-            }
-            if (i < R && more) {
-#pragma unroll
-              for (int k = 1; k < NCH; ++k)
-                if (dn <= k) CH(k, oX)[R + i] = CH(k - dn, oX)[i];
-            }
-          } else if (more) {
-            const int j = i - RS;
-#pragma unroll
-            for (int k = 0; k < NCH; ++k)
-              if (dn > k) CH(k, oX)[R + j] = ring[(on + (t + k) % dn) * R + j];
-          }
-        }
-        __syncthreads();
-      }
-    } else {
-      // layer 0's fg: fc0[c] + ((fp0[p] + tap0 @ w_p0c) + b_fg[0])
-      for (int j = tid; j < R2; j += kThreads) {
-#pragma unroll
-        for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oX) + R;
-        dots<NCH>(xs, xs, p.w_p0c + j, R, 0, R2, acc);
+    if (FAST) {
+      for (int j = tid; j < R2; j += kConsumers) {
 #pragma unroll
         for (int k = 0; k < NCH; ++k) {
           CH(k, oP0)[j] =
               code_ok(cc[k], C) ? __ldg(p.fc0 + cc[k] * R2 + j) : 0.f;
-          const float pre = __fadd_rn(
-              code_ok(pc[k], C) ? __ldg(p.fp0 + pc[k] * R2 + j) : 0.f, acc[k]);
-          CH(k, oP1)[j] = __fadd_rn(pre, __ldg(p.b_fg + j));
+          CH(k, oP1)[j] =
+              code_ok(pc[k], C) ? __ldg(p.fp0 + pc[k] * R2 + j) : 0.f;
         }
       }
-      __syncthreads();
+    }
+    csync();
+
+    if (!FAST) {
       for (int l = 0; l < L; ++l) {
-        const int slot = __ldg(p.off + l) + t % __ldg(p.dil + l);
+        const int slot = off_s[l] + t % dil_s[l];
         const bool more = l + 1 < L;
-        const int dn = more ? __ldg(p.dil + l + 1) : 1;
-        const int on = more ? __ldg(p.off + l + 1) : 0;
+        const int dn = more ? dil_s[l + 1] : 1;
+        const int on = more ? off_s[l + 1] : 0;
+        // the next layer's ring taps that phase C stores, read now so that
+        // their L2 latency hides behind phases A and B
+        const int jt = tid - RS;
+        float tapn[NCH];
+#pragma unroll
+        for (int k = 0; k < NCH; ++k)
+          tapn[k] = more && jt >= 0 && jt < R && dn > k
+              ? ringg[(on + (t + k) % dn) * R + jt] : 0.f;
+        // phase A: fg partial sums over the h rows and the tap rows
+        run_phase<NCH, kA, false>(
+            pp, q.shape[kA], R, S, C,
+            [&](int i, int row, const float** x) {
+              const int half = i / R2;
+#pragma unroll
+              for (int k = 0; k < NCH; ++k) x[k] = CH(k, oX) + half * R + row;
+            },
+            [&](int i, const float* acc) {
+              const int half = i / R2, j = i - half * R2;
+#pragma unroll
+              for (int k = 0; k < NCH; ++k) CH(k, half ? oP1 : oP0)[j] = acc[k];
+            });
+        csync();
+        // phase B: gate
+        const float* bl = bfg + l * R2;
+        for (int i = tid; i < R; i += kConsumers) {
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) {
+            const float f = __fadd_rn(__fadd_rn(CH(k, oP0)[i], CH(k, oP1)[i]),
+                                      bl[i]);
+            const float g = __fadd_rn(
+                __fadd_rn(CH(k, oP0)[R + i], CH(k, oP1)[R + i]), bl[R + i]);
+            CH(k, oG)[i] = __fmul_rn(tanhf(f), sigmoidf_(g));
+          }
+        }
+        csync();
+        // phase C: the next layer's ring taps; res/skip outputs; the real
+        // ring write and the deferred spec ones
+        const float* bo = bout + l * RS;
+        for (int i = tid; i < RS + R; i += kConsumers) {
+          if (i >= RS && more) {
+            const int j = i - RS;
+#pragma unroll
+            for (int k = 0; k < NCH; ++k)
+              if (dn > k)
+                CH(k, oX)[R + j] = i == tid ? tapn[k]
+                                            : ringg[(on + (t + k) % dn) * R + j];
+          }
+        }
+        run_phase<NCH, kC, false>(
+            pp, q.shape[kC], R, S, C,
+            [&](int, int row, const float** x) {
+#pragma unroll
+              for (int k = 0; k < NCH; ++k) x[k] = CH(k, oG) + row;
+            },
+            [&](int i, const float* acc) {
+#pragma unroll
+              for (int k = 0; k < NCH; ++k) {
+                const float o = __fadd_rn(acc[k], bo[i]);
+                if (i < R) {
+                  if (k == 0) ringg[slot * R + i] = CH(0, oX)[i];
+                  else spec[(k - 1) * LR + l * R + i] = CH(k, oX)[i];
+                  CH(k, oX)[i] = __fadd_rn(o, CH(k, oX)[i]);
+                } else {
+                  CH(k, oSk)[i - R] = __fadd_rn(CH(k, oSk)[i - R], o);
+                }
+              }
+              if (i < R && more) {
+#pragma unroll
+                for (int k = 1; k < NCH; ++k)
+                  if (dn <= k) CH(k, oX)[R + i] = CH(k - dn, oX)[i];
+              }
+            });
+        csync();
+      }
+    } else {
+      // the ring taps of layer l + 1 that phase G(l) stores, read one long
+      // phase ahead (F0 or M(l - 1)) so that their L2 latency hides there
+      float tapn[NCH];
+      auto fetch_taps = [&](int l1) {
+        const bool ok = l1 < L && tid < R;
+        const int d = ok ? dil_s[l1] : 1, o = ok ? off_s[l1] : 0;
+#pragma unroll
+        for (int k = 0; k < NCH; ++k)
+          tapn[k] = ok && k < d ? ringg[(o + (t + k) % d) * R + tid] : 0.f;
+      };
+      fetch_taps(1);
+      // layer 0's fg: fc0[c] + ((fp0[p] + tap0 @ w_p0c) + b_fg[0])
+      run_phase<NCH, kF0, false>(
+          pp, q.shape[kF0], R, S, C,
+          [&](int, int row, const float** x) {
+#pragma unroll
+            for (int k = 0; k < NCH; ++k) x[k] = CH(k, oX) + R + row;
+          },
+          [&](int j, const float* acc) {
+#pragma unroll
+            for (int k = 0; k < NCH; ++k)
+              CH(k, oP1)[j] = __fadd_rn(__fadd_rn(CH(k, oP1)[j], acc[k]),
+                                        bfg[j]);
+          });
+      csync();
+      for (int l = 0; l < L; ++l) {
+        const int slot = off_s[l] + t % dil_s[l];
+        const bool more = l + 1 < L;
+        const int dn = more ? dil_s[l + 1] : 1;
+        const int on = more ? off_s[l + 1] : 0;
         // chains 0..ready-1 read their next tap from the ring; chain k >=
         // ready reads chain (k - dn)'s h_next, known only after phase M
         const int ready = more ? (dn < NCH ? dn : NCH) : NCH;
-        // phase G: packed-tanh gates; move in h; fetch the ring taps
-        for (int i = tid; i < R; i += kThreads) {
+        // phase G: packed-tanh gates; move in h; store the ring taps
+        for (int i = tid; i < R; i += kConsumers) {
 #pragma unroll
           for (int k = 0; k < NCH; ++k) {
             const float v0 = tanhf(__fadd_rn(CH(k, oP0)[i], CH(k, oP1)[i]));
@@ -703,108 +1083,115 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
             CH(k, oG)[i] = __fadd_rn(__fmul_rn(v0, v1), v0);
             if (l > 0) CH(k, oX)[i] = CH(k, oHN)[i];
             if (more && k < ready)
-              CH(k, oX)[R + i] = ring[(on + (t + k) % dn) * R + i];
+              CH(k, oX)[R + i] = i == tid ? tapn[k]
+                                          : ringg[(on + (t + k) % dn) * R + i];
           }
         }
-        __syncthreads();
-        // phase M: gated @ w_prod, the ready chains' next [h|tap] product,
-        // and the res/skip outputs, side by side
-        const float* wp = p.w_prod + static_cast<size_t>(l) * R * R2;
-        const float* wn = p.w_fg + static_cast<size_t>(l + 1) * R2 * R2;
-        const float* bn = p.b_fg + (l + 1) * R2;
-        const float* wo = p.w_out + static_cast<size_t>(l) * R * RS;
-        const float* bo = p.b_out + l * RS;
-        for (int i = tid; i < 2 * R2 + RS; i += kThreads) {
-          if (i < R2) {
-            if (more) {
+        csync();
+        fetch_taps(l + 2);
+        // phase M: gated @ w_prod, the next [h|tap] product (every chain
+        // is computed; the late ones' are dropped and redone in M2), and
+        // the res/skip outputs, side by side
+        const float* bn = bfg + (l + 1) * R2;
+        const float* bo = bout + l * RS;
+        auto out = [&](int j, const float* acc) {
 #pragma unroll
-              for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oG);
-              dots<NCH>(xs, xs, wp + i, R, 0, R2, acc);
-#pragma unroll
-              for (int k = 0; k < NCH; ++k) CH(k, oP0)[i] = acc[k];
-            }
-          } else if (i < 2 * R2) {
-            const int j = i - R2;
-            if (more) {
-#pragma unroll
-              for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oX);
-              dots_n<NCH>(ready, xs, xs, wn + j, R2, 0, R2, acc);
-#pragma unroll
-              for (int k = 0; k < NCH; ++k)
-                if (k < ready) CH(k, oP1)[j] = __fadd_rn(acc[k], __ldg(bn + j));
-            }
-          } else {
-            const int j = i - 2 * R2;
-#pragma unroll
-            for (int k = 0; k < NCH; ++k) xs[k] = CH(k, oG);
-            dots<NCH>(xs, xs, wo + j, R, 0, RS, acc);
-#pragma unroll
-            for (int k = 0; k < NCH; ++k) {
-              const float o = __fadd_rn(acc[k], __ldg(bo + j));
-              if (j < R) {
-                if (k == 0) ring[slot * R + j] = CH(0, oX)[j];
-                else spec[(k - 1) * LR + l * R + j] = CH(k, oX)[j];
-                CH(k, oHN)[j] = __fadd_rn(o, CH(k, oX)[j]);
-              } else {
-                CH(k, oSk)[j - R] = __fadd_rn(CH(k, oSk)[j - R], o);
-              }
+          for (int k = 0; k < NCH; ++k) {
+            const float o = __fadd_rn(acc[k], bo[j]);
+            if (j < R) {
+              if (k == 0) ringg[slot * R + j] = CH(0, oX)[j];
+              else spec[(k - 1) * LR + l * R + j] = CH(k, oX)[j];
+              CH(k, oHN)[j] = __fadd_rn(o, CH(k, oX)[j]);
+            } else {
+              CH(k, oSk)[j - R] = __fadd_rn(CH(k, oSk)[j - R], o);
             }
           }
+        };
+        if (more) {
+          run_phase<NCH, kM, false>(
+              pp, q.shape[kM], R, S, C,
+              [&](int i, int row, const float** x) {
+                const int o = i >= R2 && i < 2 * R2 ? oX : oG;
+#pragma unroll
+                for (int k = 0; k < NCH; ++k) x[k] = CH(k, o) + row;
+              },
+              [&](int i, const float* acc) {
+                if (i < R2) {
+#pragma unroll
+                  for (int k = 0; k < NCH; ++k) CH(k, oP0)[i] = acc[k];
+                } else if (i < 2 * R2) {
+#pragma unroll
+                  for (int k = 0; k < NCH; ++k)
+                    if (k < ready)
+                      CH(k, oP1)[i - R2] = __fadd_rn(acc[k], bn[i - R2]);
+                } else {
+                  out(i - 2 * R2, acc);
+                }
+              });
+        } else {
+          run_phase<NCH, kML, false>(
+              pp, q.shape[kML], R, S, C,
+              [&](int, int row, const float** x) {
+#pragma unroll
+                for (int k = 0; k < NCH; ++k) x[k] = CH(k, oG) + row;
+              },
+              out);
         }
-        __syncthreads();
+        csync();
         // phase M2: the late chains' next product over [h | h_next of
-        // chain k - dn], the same fmaf chain as over a copied tap
+        // chain k - dn], the same fmaf chain as over a copied tap (slot c
+        // >= late repeats the last chain and is dropped)
         if (more && ready < NCH) {
           const int late = NCH - ready;
-          for (int j = tid; j < R2; j += kThreads) {
+          run_phase<NCH, kM2, false>(
+              pp, q.shape[kM2], R, S, C,
+              [&](int, int row, const float** x) {
 #pragma unroll
-            for (int c = 0; c < NCH; ++c) {
-              const int k = ready + c < NCH ? ready + c : NCH - 1;
-              xs[c] = CH(k, oX);
-              xb[c] = CH(k - dn, oHN);
-            }
-            dots_n<NCH>(late, xs, xb, wn + j, R, R, R2, acc);
+                for (int c = 0; c < NCH; ++c) {
+                  const int k = ready + c < NCH ? ready + c : NCH - 1;
+                  x[c] = row < R ? CH(k, oX) + row : CH(k - dn, oHN) + (row - R);
+                }
+              },
+              [&](int j, const float* acc) {
 #pragma unroll
-            for (int c = 0; c < NCH; ++c)
-              if (c < late)
-                CH(ready + c, oP1)[j] = __fadd_rn(acc[c], __ldg(bn + j));
-          }
-          __syncthreads();
+                for (int c = 0; c < NCH; ++c)
+                  if (c < late) CH(ready + c, oP1)[j] = __fadd_rn(acc[c], bn[j]);
+              });
+          csync();
         }
       }
     }
 
     // ---- heads: y = leaky(skip) @ W1 + b1; logits = leaky(y) @ W2 + b2
-    for (int c = tid; c < C; c += kThreads) {
-      float a[NCH];
+    run_phase<NCH, kH1, true>(
+        pp, q.shape[kH1], R, S, C,
+        [&](int, int row, const float** x) {
 #pragma unroll
-      for (int k = 0; k < NCH; ++k) a[k] = 0.f;
-#pragma unroll 16
-      for (int kk = 0; kk < S; ++kk) {
-        const float wv = __ldg(p.h1_w + kk * C + c);
+          for (int k = 0; k < NCH; ++k) x[k] = CH(k, oSk) + row;
+        },
+        [&](int c, const float* acc) {
 #pragma unroll
-        for (int k = 0; k < NCH; ++k) a[k] = fmaf(leaky(CH(k, oSk)[kk]), wv, a[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < NCH; ++k)
-        CH(k, oAct)[c] = leaky(__fadd_rn(a[k], __ldg(p.h1_b + c)));
-    }
-    __syncthreads();
+          for (int k = 0; k < NCH; ++k)
+            CH(k, oAct)[c] = leaky(__fadd_rn(acc[k], b1[c]));
+        });
+    csync();
     float local_max[NCH];
 #pragma unroll
-    for (int k = 0; k < NCH; ++k) {
-      local_max[k] = -CUDART_INF_F;
-      xs[k] = CH(k, oAct);
-    }
-    for (int c = tid; c < C; c += kThreads) {
-      dots<NCH>(xs, xs, p.h2_w + c, C, 0, C, acc);
+    for (int k = 0; k < NCH; ++k) local_max[k] = -CUDART_INF_F;
+    run_phase<NCH, kH2, false>(
+        pp, q.shape[kH2], R, S, C,
+        [&](int, int row, const float** x) {
 #pragma unroll
-      for (int k = 0; k < NCH; ++k) {
-        const float logit = __fadd_rn(acc[k], __ldg(p.h2_b + c));
-        CH(k, oSc)[c] = logit;
-        local_max[k] = fmaxf(local_max[k], logit);
-      }
-    }
+          for (int k = 0; k < NCH; ++k) x[k] = CH(k, oAct) + row;
+        },
+        [&](int c, const float* acc) {
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) {
+            const float logit = __fadd_rn(acc[k], b2[c]);
+            CH(k, oSc)[c] = logit;
+            local_max[k] = fmaxf(local_max[k], logit);
+          }
+        });
 
     // ---- sampling of chain k at position t+k, as the standard kernel
     int nxt[NCH];
@@ -814,22 +1201,22 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
       float best_v = -CUDART_INF_F;
       int best_i = C;
       if (p.temperature == 0.f) {
-        for (int c = tid; c < C; c += kThreads)
+        for (int c = tid; c < C; c += kConsumers)
           if (better(scores[c], c, best_v, best_i)) { best_v = scores[c]; best_i = c; }
       } else {
         float denom = 1.f;
         float m = 0.f;
         if (p.parity) {
-          m = block_max(local_max[k], red_v);
+          m = spec_block_max(local_max[k], red_v);
           float local_sum = 0.f;
-          for (int c = tid; c < C; c += kThreads) {
+          for (int c = tid; c < C; c += kConsumers) {
             const float e = expf(__fsub_rn(scores[c], m));
             scores[c] = e;
             local_sum = __fadd_rn(local_sum, e);
           }
-          denom = block_sum(local_sum, red_v);
+          denom = spec_block_sum(local_sum, red_v);
         }
-        for (int c = tid; c < C; c += kThreads) {
+        for (int c = tid; c < C; c += kConsumers) {
           const float base = p.parity
               ? __fdiv_rn(__fdiv_rn(scores[c], denom), p.temperature)
               : __fdiv_rn(scores[c], p.temperature);
@@ -840,19 +1227,19 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
           if (better(v, c, best_v, best_i)) { best_v = v; best_i = c; }
         }
       }
-      nxt[k] = block_argmax(best_v, best_i, red_v, red_i);
+      nxt[k] = spec_block_argmax(best_v, best_i, red_v, red_i);
     }
 
     // ---- commit: a guess holds only if the real code equals it
     const bool hit = nxt[0] == g1 && t + 1 < n;
     const bool hit2 = NCH == 3 && hit && nxt[NCH - 2] == g2 && t + 2 < n;
     if (hit) {
-      for (int i = tid; i < LR; i += kThreads) {
+      for (int i = tid; i < LR; i += kConsumers) {
         const int l = i / R, j = i - l * R;
-        const int d = __ldg(p.dil + l), o = __ldg(p.off + l);
-        ring[(o + (t + 1) % d) * R + j] = spec[i];
+        const int d = dil_s[l], o = off_s[l];
+        ringg[(o + (t + 1) % d) * R + j] = spec[i];
         // s2 after s1: at d <= 2 the slots coincide, the later time wins
-        if (hit2) ring[(o + (t + 2) % d) * R + j] = spec[LR + i];
+        if (hit2) ringg[(o + (t + 2) % d) * R + j] = spec[LR + i];
       }
     }
     if (tid == 0) {
@@ -884,26 +1271,126 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
     }
     if (tid == 0) {
       const int ng1 = spec_guess1(prev, cur, t2s, q.t3, C, q.order);
-      guess[0] = ng1;
-      guess[1] = NCH == 3 ? spec_guess2(cur, ng1, t2s, q.t3, C, q.order) : 0;
+      misc[0] = ng1;
+      misc[1] = NCH == 3 ? spec_guess2(cur, ng1, t2s, q.t3, C, q.order) : 0;
     }
-    __syncthreads();
+    csync();
   }
-  if (tid == 0) *q.hits = hits;
+  if (tid == 0) {
+    *q.hits = hits;
+    *reinterpret_cast<volatile int*>(misc + 2) = 1;   // the producer ends
+  }
 #undef CH
 }
 
+// The shapes of the form's phases from their slab rows `ks` (by kind),
+// the stage size and the stage count; cudaErrorInvalidValue when a slab
+// row count does not divide its dots, a slab does not fit a stage, or
+// the ring and the rest pass the shared memory a block can have.
 template <bool FAST, int NCH>
-int launch_spec(const Params& p, const SpecParams& q, size_t smem,
+int launch_spec(const Params& p, SpecParams q, const int* ks,
                 cudaStream_t st) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ar_sampler_spec_kernel<FAST, NCH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const int kinds_exact[] = {kA, kC, kH1, kH2};
+  const int kinds_fast[] = {kF0, kM, kML, kM2, kH1, kH2};
+  const int* kinds = FAST ? kinds_fast : kinds_exact;
+  const int n_kinds = FAST ? 6 : 4;
+  for (int i = 0; i < n_kinds; ++i) {
+    const int kind = kinds[i];
+    if (!phase_shape(kind, ks[kind], p.r, p.s, p.c_in, &q.shape[kind])
+        || 4 * ks[kind] * q.shape[kind].ncols > q.stage_bytes)
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  ar_sampler_spec_kernel<FAST, NCH><<<1, kThreads, smem, st>>>(p, q);
+  const size_t smem = spec_fixed_bytes(NCH, p.c_in, p.r, p.s, p.n_layers)
+      + static_cast<size_t>(q.n_stages) * (q.stage_bytes + 2 * sizeof(uint64_t));
+  if (q.stage_bytes % 16 != 0 || q.n_stages < 2 || q.n_stages > kMaxStages
+      || smem > static_cast<size_t>(kSmemLimit)
+      || reinterpret_cast<uintptr_t>(q.stream) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      ar_sampler_spec_kernel<FAST, NCH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ar_sampler_spec_kernel<FAST, NCH><<<1, kSpecThreads, smem, st>>>(p, q);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------ stream probe
+
+// How fast one block, alone on the card, moves a stream of n_slabs slabs
+// of slab_bytes (L2-resident after the first pass) into its SM, passes
+// times over: mode 0, bulk copies by one producer lane into a ring of
+// n_stages shared-memory stages that the 8 consumer warps only release;
+// mode 2, the same with the consumers reading every float of each slab
+// (16 bytes a thread at a time); mode 1, the 256 consumer threads
+// reading the stream themselves, 16 __ldg's a thread in flight, as
+// dot_col does.  The design of the speculative kernel's weight stream
+// rests on mode 0 beating mode 1.
+__global__ void __launch_bounds__(kSpecThreads, 1)
+stream_probe_kernel(const float* src, int slab_bytes, int n_slabs,
+                    int passes, int mode, int n_stages, float* out) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float acc = 0.f;
+  if (mode == 1) {
+    if (tid < kThreads) {
+      const size_t n = static_cast<size_t>(n_slabs) * slab_bytes / 4;
+      for (int ps = 0; ps < passes; ++ps) {
+        for (size_t base = 0; base + 16 * kThreads <= n;
+             base += 16 * kThreads) {
+          float wv[16];
+#pragma unroll
+          for (int u = 0; u < 16; ++u) wv[u] = __ldg(src + base + u * kThreads + tid);
+#pragma unroll
+          for (int u = 0; u < 16; ++u) acc = fmaf(1.f, wv[u], acc);
+        }
+      }
+      out[tid] = acc;
+    }
+    return;
+  }
+  const int slab_floats = slab_bytes / 4;
+  float* ring = smem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + n_stages * slab_floats);
+  uint64_t* empty = full + n_stages;
+  if (tid == 0) {
+    for (int s = 0; s < n_stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kWarps);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  const int total = passes * n_slabs;
+  if (warp == kWarps) {
+    // the consumers take every slab, so none is in flight when they end
+    if (lane == 0) {
+      for (int i = 0; i < total; ++i) {
+        const int st = i % n_stages;
+        const uint32_t parity = (i / n_stages) & 1;
+        mbar_wait(empty + st, parity ^ 1);
+        mbar_expect_tx(full + st, slab_bytes);
+        bulk_copy(ring + st * slab_floats,
+                  reinterpret_cast<const char*>(src)
+                      + static_cast<size_t>(i % n_slabs) * slab_bytes,
+                  slab_bytes, full + st);
+      }
+    }
+    return;
+  }
+  for (int i = 0; i < total; ++i) {
+    const int st = i % n_stages;
+    mbar_wait(full + st, (i / n_stages) & 1);
+    if (mode == 2) {
+      const float4* s4 = reinterpret_cast<const float4*>(ring + st * slab_floats);
+      for (int j = tid; j < slab_floats / 4; j += kThreads) {
+        const float4 v = s4[j];
+        acc = fmaf(1.f, v.x, fmaf(1.f, v.y, fmaf(1.f, v.z, fmaf(1.f, v.w, acc))));
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+  }
+  out[tid] = acc;
 }
 
 }  // namespace
@@ -936,8 +1423,11 @@ int movenet_ar_sampler_launch(
 }
 
 // Launches the speculative sampler (B=1, one block) on `stream`; t2 and t3
-// are per-launch copies that it updates in place.  Returns the
-// cudaError_t of the launch.
+// are per-launch copies that it updates in place.  `wstream` is the
+// packed weight stream of one iteration (pack_spec_stream in the
+// wrapper), `ks` (host, by PhaseKind) the slab rows of each phase, and
+// the ring has n_stages stages of stage_bytes.  Returns the cudaError_t
+// of the launch.
 int movenet_ar_sampler_spec_launch(
     int fast, int order, int depth, int adaptive, const float* front_cur,
     const float* front_past, const float* w_fg, const float* b_fg,
@@ -945,25 +1435,54 @@ int movenet_ar_sampler_spec_launch(
     const float* h1_b, const float* h2_w, const float* h2_b, const float* fc0,
     const float* fp0, const float* w_p0c, const float* w_prod, const int* dil,
     const int* off, float* ring, const int* init_codes, int* t2, int* t3,
-    int* out, int* hits, int c_in, int r, int s, int n_layers, int sum_d,
-    int rf, int n_samples, int seed, int parity, float temperature,
-    void* stream) {
+    int* out, int* hits, const float* wstream, const int* ks,
+    int stage_bytes, int n_stages, int c_in, int r, int s, int n_layers,
+    int sum_d, int rf, int n_samples, int seed, int parity,
+    float temperature, void* stream) {
   if ((order != 2 && order != 3) || (depth != 1 && depth != 2)
-      || (order == 3 && t3 == nullptr))
+      || (order == 3 && t3 == nullptr) || wstream == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{front_cur, front_past, w_fg, b_fg, w_out, b_out, h1_w, h1_b,
            h2_w, h2_b, fc0, fp0, w_p0c, w_prod, dil, off, ring, init_codes,
            out, 1, c_in, r, s, n_layers, sum_d, rf, n_samples,
            static_cast<uint32_t>(seed), parity, temperature, nullptr};
-  SpecParams q{t2, t3, hits, order, adaptive};
-  const int nch = depth + 1;
-  const size_t smem = spec_shared_bytes(nch, c_in, r, s, n_layers);
+  SpecParams q{t2, t3, hits, order, adaptive, wstream, stage_bytes, n_stages,
+               {}};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fast)
-    return nch == 2 ? launch_spec<true, 2>(p, q, smem, st)
-                    : launch_spec<true, 3>(p, q, smem, st);
-  return nch == 2 ? launch_spec<false, 2>(p, q, smem, st)
-                  : launch_spec<false, 3>(p, q, smem, st);
+    return depth == 1 ? launch_spec<true, 2>(p, q, ks, st)
+                      : launch_spec<true, 3>(p, q, ks, st);
+  return depth == 1 ? launch_spec<false, 2>(p, q, ks, st)
+                    : launch_spec<false, 3>(p, q, ks, st);
+}
+
+// Shared memory of the speculative kernel beside its ring, in bytes.
+long long movenet_ar_spec_fixed_bytes(int depth, int c_in, int r, int s,
+                                      int n_layers) {
+  return static_cast<long long>(
+      spec_fixed_bytes(depth + 1, c_in, r, s, n_layers));
+}
+
+// Launches the stream probe (one block) on `stream`; `out` takes 288
+// floats.  Returns the cudaError_t of the launch.
+int movenet_ar_stream_probe(const float* src, int slab_bytes, int n_slabs,
+                            int passes, int mode, int n_stages, float* out,
+                            void* stream) {
+  if (slab_bytes <= 0 || slab_bytes % 16 != 0 || n_slabs <= 0
+      || passes <= 0 || n_stages <= 0 || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = mode == 1 ? 0
+      : static_cast<size_t>(n_stages) * (slab_bytes + 2 * sizeof(uint64_t));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stream_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  stream_probe_kernel<<<1, kSpecThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      src, slab_bytes, n_slabs, passes, mode, n_stages, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* movenet_cuda_error_string(int err) {

@@ -44,8 +44,9 @@ give the JAX package's codes.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+import functools
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -229,6 +230,10 @@ class SamplerInputs:
     t3: Optional[np.ndarray] = None
     # video context (B, n_samples, R) float32: row t conditions step t
     ctx: Optional[torch.Tensor] = None
+    # the speculative kernel's packed weight streams by (chain count,
+    # slab bytes), on the weights' device (``pack_spec_stream``)
+    spec_stream: Dict[Tuple[int, int], torch.Tensor] = field(
+        default_factory=dict)
 
     @property
     def batch(self) -> int:
@@ -365,7 +370,7 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
         if ctx.shape[1] < n:
             ctx = F.pad(ctx, (0, 0, 0, n - ctx.shape[1]))
         ctx = ctx[:, :n].contiguous()
-    return SamplerInputs(
+    inp = SamplerInputs(
         fast=fast, rf=rf, n_samples=int(n_samples),
         temperature=float(temperature), parity_sampling=parity_sampling,
         seed=int(seed), dilations=list(dil),
@@ -376,6 +381,218 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
         init_codes=torch.stack([prompt[:, -1],
                                 first.to(torch.int32)]).contiguous(),
         prompt=prompt, ctx=ctx, **spec)
+    s = model.skip_channels
+    if speculative and r % 4 == 0 and s % 4 == 0 and c_in % 4 == 0:
+        # the speculative kernel's weight stream, once per request
+        pack_spec_stream(inp, spec_depth + 1)
+    return inp
+
+
+# ------------------------------------------- speculative weight stream
+# The speculative kernel reads its weights from a stream that a producer
+# warp copies, slab by slab, into a ring of shared-memory stages (1-D
+# bulk copies).  An iteration reads the same bytes in the same order
+# every time, so the stream is packed once per request, in the order the
+# kernel's phases consume it.  In a phase of n dot products, consumer
+# thread tid (of 256) runs dots tid, tid + 256, ... in turn, each over its
+# rows in index order; a thread's "virtual rows" are its dots' rows one
+# after the other, and the phase is kv virtual rows (the longest thread's
+# count) by ncols = min(n, 256) columns, cut into slabs of ks rows.  A
+# slab is (ks / 4, ncols, 4) floats: four rows of a thread lie in 16
+# bytes, and neighbouring threads read neighbouring 16 bytes.  Rows past a
+# thread's count are zero (never read).
+SPEC_CONSUMERS = 256
+SPEC_SMEM_LIMIT = 232_448      # bytes of shared memory a block can have
+SPEC_MAX_STAGES = 32
+# a slab's bytes where the widths allow.  One SM's bulk copies complete
+# one after another, so larger copies move more bytes a second (about 170
+# GB/s at 32 KB against 88 at 16 KB), and each slab costs the consumers a
+# fixed time whatever the ring's depth: at the flagship width an exact
+# iteration took 96.7 us with 16 KB slabs, 74.6 with 32 KB (in 2, 3 or 5
+# stages alike) and 67.7 with 64 KB in two stages (H100 80GB HBM3 at 700
+# W, utils/time_spec --probe and --variants)
+SPEC_SLAB_BYTES = 65536
+# the kernel's PhaseKind order
+SPEC_KINDS = ("A", "C", "H1", "H2", "F0", "M", "ML", "M2")
+_FORM_KINDS = {False: ("A", "C", "H1", "H2"),
+               True: ("F0", "M", "ML", "M2", "H1", "H2")}
+_KWARPS = 8
+
+
+def spec_phase_dots(kind: str, r: int, s: int, c: int):
+    """[(first dot, end, rows)]: the dot products of one phase, by index,
+    with their lengths.  A: exact fg over [h | tap] (the two halves of
+    W_fg as separate dots); C: exact res/skip outputs; H1, H2: the head;
+    F0: fast layer 0's tap product; M: fast gated @ w_prod, the next
+    layer's [h | tap] @ W_fg, the res/skip outputs; ML: the last layer's
+    M (outputs only); M2: the late chains' next W_fg product."""
+    r2, rs = 2 * r, r + s
+    return {"A": [(0, 2 * r2, r)], "C": [(0, rs, r)], "H1": [(0, c, s)],
+            "H2": [(0, c, c)], "F0": [(0, r2, r)],
+            "M": [(0, r2, r), (r2, 2 * r2, r2), (2 * r2, 2 * r2 + rs, r)],
+            "ML": [(0, rs, r)], "M2": [(0, r2, r2)]}[kind]
+
+
+@functools.lru_cache(maxsize=None)
+def spec_phase_shape(kind: str, r: int, s: int, c: int,
+                     slab_bytes: int = SPEC_SLAB_BYTES) -> dict:
+    """n dots, slab rows ks, virtual rows kv, columns, bytes of a slab and
+    slabs of one phase (the kernel checks the same in phase_shape).  ks is
+    the largest of 128, 64, ..., 4 that divides every dot's rows (in M2
+    also R, where a chain's h ends and another chain's h_next begins)
+    and keeps a slab within ``slab_bytes``, else 4."""
+    ranges = spec_phase_dots(kind, r, s, c)
+    n = ranges[-1][1]
+    lens = [k for _, _, k in ranges] + ([r] if kind == "M2" else [])
+    ncols = min(n, SPEC_CONSUMERS)
+    ks = next((q for q in (128, 64, 32, 16, 8) if all(k % q == 0 for k in lens)
+               and 4 * q * ncols <= slab_bytes), 4)
+    rows = np.zeros(-(-n // SPEC_CONSUMERS) * SPEC_CONSUMERS, np.int64)
+    for a, b, k in ranges:
+        rows[a:b] = k
+    kv = int(rows.reshape(-1, SPEC_CONSUMERS).sum(0)[:ncols].max())
+    return dict(n=n, ks=ks, kv=kv, ncols=ncols, slab_bytes=4 * ks * ncols,
+                n_slabs=kv // ks)
+
+
+def spec_phases(fast: bool, nch: int, dilations) -> List[Tuple[str, int]]:
+    """The phases of one speculative iteration that read the stream, in
+    the kernel's order, as (kind, layer).  Fast layer l's late chains
+    (those whose next tap is another chain's fresh h: d(l+1) < nch) read
+    W_fg[l+1] a second time in M2, so those rows are in the stream
+    twice."""
+    n_layers = len(dilations)
+    if not fast:
+        out = [(k, l) for l in range(n_layers) for k in ("A", "C")]
+    else:
+        out = [("F0", 0)]
+        for l in range(n_layers):
+            if l + 1 < n_layers:
+                out.append(("M", l))
+                if dilations[l + 1] < nch:
+                    out.append(("M2", l))
+            else:
+                out.append(("ML", l))
+    return out + [("H1", -1), ("H2", -1)]
+
+
+def _check_spec_widths(r: int, s: int, c: int) -> None:
+    if r % 4 or s % 4 or c % 4:
+        raise ValueError(
+            "the speculative kernel's weight stream needs R, S and C to be "
+            f"multiples of 4 (got R={r}, S={s}, C={c}); use the standard "
+            "sampler (speculative=False)")
+
+
+def spec_smem_layout(fast: bool, nch: int, c: int, r: int, s: int,
+                     n_layers: int, slab_bytes: int = SPEC_SLAB_BYTES,
+                     max_stages: int = SPEC_MAX_STAGES) -> dict:
+    """Shared memory of the speculative kernel: the chain buffers, biases
+    and tables (``fixed`` bytes, ``spec_fixed_bytes`` in the kernel source),
+    the ring's stages (each the form's largest slab, with its two
+    mbarriers) and as many of them as fit, up to ``max_stages``; raises
+    when two stages do not fit beside the rest."""
+    _check_spec_widths(r, s, c)
+    chain = 2 * r + r + 2 * r + 2 * r + r + s + 2 * c
+    stage = max(spec_phase_shape(k, r, s, c, slab_bytes)["slab_bytes"]
+                for k in _FORM_KINDS[fast])
+    biases = n_layers * (2 * r + r + s) + 2 * c
+    fixed = 4 * (nch * chain + (nch - 1) * n_layers * r + biases + _KWARPS) \
+        + 4 * (_KWARPS + c + 4 + 2 * n_layers + 3 * n_layers + 4)
+    per_stage = stage + 16
+    n_stages = min(max_stages, SPEC_MAX_STAGES,
+                   (SPEC_SMEM_LIMIT - fixed) // per_stage)
+    if n_stages < 2:
+        raise ValueError(
+            f"the speculative kernel needs {fixed + 2 * per_stage} bytes of "
+            f"shared memory at C={c}, R={r}, S={s}, L={n_layers}, depth "
+            f"{nch - 1} (chain buffers {fixed} + two ring stages of "
+            f"{per_stage}), above the {SPEC_SMEM_LIMIT:,} bytes a block "
+            "can have on this card")
+    return dict(fixed=fixed, stage_bytes=stage, n_stages=n_stages,
+                total=fixed + n_stages * per_stage)
+
+
+@functools.lru_cache(maxsize=16)
+def _stream_index(fast: bool, nch: int, dilations: Tuple[int, ...], r: int,
+                  s: int, c: int, slab_bytes: int = SPEC_SLAB_BYTES
+                  ) -> torch.Tensor:
+    """int32 index (CPU) of every stream float into the flat
+    concatenation of w_fg, w_out, h1_w, h2_w (fast: then w_p0c, w_prod)
+    and one zero."""
+    n_layers = len(dilations)
+    r2, rs = 2 * r, r + s
+    sizes = [n_layers * r2 * r2, n_layers * r * rs, s * c, c * c]
+    if fast:
+        sizes += [r * r2, n_layers * r * r2]
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    o_fg, o_out, o_h1, o_h2 = offs[:4]
+    zero = offs[len(sizes)]
+
+    def source(kind, l, a, i):
+        """(first element of dot i's column, row stride)."""
+        if kind == "A":
+            half, j = i // r2, i % r2
+            return o_fg + l * r2 * r2 + half * r * r2 + j, r2
+        if kind in ("C", "ML"):
+            return o_out + l * r * rs + i, rs
+        if kind in ("H1", "H2"):
+            return (o_h1 if kind == "H1" else o_h2) + i, c
+        if kind == "F0":
+            return offs[4] + i, r2
+        if kind == "M2":
+            return o_fg + (l + 1) * r2 * r2 + i, r2
+        if a == 0:                     # M: gated @ w_prod[l]
+            return offs[5] + l * r * r2 + i, r2
+        if a == r2:                    # M: [h | tap] @ W_fg[l + 1]
+            return o_fg + (l + 1) * r2 * r2 + (i - r2), r2
+        return o_out + l * r * rs + (i - 2 * r2), rs
+
+    parts = []
+    for kind, l in spec_phases(fast, nch, dilations):
+        sh = spec_phase_shape(kind, r, s, c, slab_bytes)
+        rows = np.zeros(-(-sh["n"] // SPEC_CONSUMERS) * SPEC_CONSUMERS,
+                        np.int64)
+        ranges = spec_phase_dots(kind, r, s, c)
+        for a, b, k in ranges:
+            rows[a:b] = k
+        grid = rows.reshape(-1, SPEC_CONSUMERS)
+        start = (np.cumsum(grid, 0) - grid).ravel()   # a dot's first row
+        v = np.full((sh["kv"], sh["ncols"]), zero, np.int64)
+        for a, b, k in ranges:
+            dots = np.arange(a, b)
+            base, stride = source(kind, l, a, dots)
+            kk = np.arange(k)[:, None]
+            v[start[dots][None, :] + kk, (dots % SPEC_CONSUMERS)[None, :]] = \
+                base[None, :] + kk * stride
+        ks = sh["ks"]
+        parts.append(v.reshape(sh["n_slabs"], ks // 4, 4, sh["ncols"])
+                     .transpose(0, 1, 3, 2).ravel())
+    return torch.from_numpy(np.concatenate(parts).astype(np.int32))
+
+
+def pack_spec_stream(inp: "SamplerInputs", nch: int,
+                     slab_bytes: int = SPEC_SLAB_BYTES) -> torch.Tensor:
+    """The speculative kernel's weight stream for ``nch`` chains (depth +
+    1): one float32 tensor on the weights' device, every weight bit for
+    bit, in the order and layout the kernel consumes it; cached on
+    ``inp``."""
+    got = inp.spec_stream.get((nch, slab_bytes))
+    if got is not None:
+        return got
+    w = inp.weights
+    c_in, r = w["front_cur"].shape
+    s = w["w_out"].shape[2] - r
+    _check_spec_widths(r, s, c_in)
+    names = ["w_fg", "w_out", "h1_w", "h2_w"] \
+        + (["w_p0c", "w_prod"] if inp.fast else [])
+    flat = torch.cat([w[k].reshape(-1) for k in names]
+                     + [w["w_fg"].new_zeros(1)])
+    idx = _stream_index(inp.fast, nch, tuple(inp.dilations), r, s, c_in,
+                        slab_bytes)
+    stream = flat.index_select(0, idx.to(flat.device))
+    inp.spec_stream[(nch, slab_bytes)] = stream
+    return stream
 
 
 # ---------------------------------------------------------- plain version
@@ -663,8 +880,10 @@ def ar_sampler_spec_plain(inp: SamplerInputs, order: Optional[int] = None,
 # ---------------------------------------------------------------- kernel
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
-_SPEC_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 22
-                  + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+_SPEC_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 24
+                  + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
+_PROBE_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2)
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -676,6 +895,10 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.movenet_ar_sampler_launch.restype = ctypes.c_int
         lib.movenet_ar_sampler_spec_launch.argtypes = _SPEC_ARGTYPES
         lib.movenet_ar_sampler_spec_launch.restype = ctypes.c_int
+        lib.movenet_ar_stream_probe.argtypes = _PROBE_ARGTYPES
+        lib.movenet_ar_stream_probe.restype = ctypes.c_int
+        lib.movenet_ar_spec_fixed_bytes.argtypes = [ctypes.c_int] * 5
+        lib.movenet_ar_spec_fixed_bytes.restype = ctypes.c_longlong
         lib.movenet_cuda_error_string.argtypes = [ctypes.c_int]
         lib.movenet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -796,30 +1019,90 @@ def ar_sampler_spec(inp: SamplerInputs, order: Optional[int] = None,
     dev = _device_of(inp, "ar_sampler_spec")
     if dev.type == "cpu":
         return ar_sampler_spec_plain(inp, order, depth, adaptive)
+    with torch.cuda.device(dev):  # launch on the tensors' own card
+        got = run_spec(_kernel_lib(), inp, order, depth, adaptive,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    launch_counts[inp.spec_name] += 1
+    return got
+
+
+def run_spec(lib, inp: SamplerInputs, order: Optional[int] = None,
+             depth: Optional[int] = None, adaptive: Optional[bool] = None,
+             stream=None, slab_bytes: int = SPEC_SLAB_BYTES,
+             max_stages: int = SPEC_MAX_STAGES):
+    """One launch of the speculative kernel through ``lib`` (a library
+    with the C interface of ``csrc/ar_sampler.cu``) on ``stream``, on
+    the inputs' device: ((1, n - RF) int32 codes, 0-d int32 hits).
+    ``ar_sampler_spec`` calls it for CUDA tensors; it takes CPU tensors
+    with ``stream=None`` for a library built for the CPU (an emulation
+    of the kernel).  Raises where the ring and the chain buffers do not
+    fit the shared memory of a block.  ``slab_bytes`` and ``max_stages``
+    reshape the ring (for measurements)."""
+    dev = inp.ring.device
     order, depth, adaptive = _spec_options(inp, order, depth, adaptive)
     c_in, r, s, n_layers, sum_d = _check_inputs(inp, dev)
+    lay = spec_smem_layout(inp.fast, depth + 1, c_in, r, s, n_layers,
+                           slab_bytes, max_stages)
+    wstream = pack_spec_stream(inp, depth + 1, slab_bytes)
+    ks = (ctypes.c_int * len(SPEC_KINDS))(*(
+        spec_phase_shape(k, r, s, c_in, slab_bytes)["ks"]
+        for k in SPEC_KINDS))
     i32 = torch.int32
     out = torch.empty(1, inp.n_samples - inp.rf, dtype=i32, device=dev)
     hits = torch.zeros((), dtype=i32, device=dev)
-    ring = torch.empty_like(inp.ring)
-    ring.copy_(inp.ring)
+    ring = inp.ring.clone()
     dil = torch.tensor(inp.dilations, dtype=i32, device=dev)
     off = torch.tensor(inp.offsets, dtype=i32, device=dev)
-    t2 = torch.from_numpy(inp.t2).to(dev)
-    t3 = torch.from_numpy(inp.t3).to(dev) if order == 3 else None
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        err = lib.movenet_ar_sampler_spec_launch(
-            int(inp.fast), order, depth, int(adaptive), *_weight_ptrs(inp),
-            dil.data_ptr(), off.data_ptr(), ring.data_ptr(),
-            inp.init_codes.data_ptr(), t2.data_ptr(),
-            None if t3 is None else t3.data_ptr(), out.data_ptr(),
-            hits.data_ptr(), c_in, r, s, n_layers, sum_d, inp.rf,
-            inp.n_samples, _seed32(inp.seed), int(inp.parity_sampling),
-            inp.temperature, torch.cuda.current_stream(dev).cuda_stream)
+    # per-launch copies: the kernel updates them in place
+    t2 = torch.tensor(inp.t2, device=dev)
+    t3 = torch.tensor(inp.t3, device=dev) if order == 3 else None
+    err = lib.movenet_ar_sampler_spec_launch(
+        int(inp.fast), order, depth, int(adaptive), *_weight_ptrs(inp),
+        dil.data_ptr(), off.data_ptr(), ring.data_ptr(),
+        inp.init_codes.data_ptr(), t2.data_ptr(),
+        None if t3 is None else t3.data_ptr(), out.data_ptr(),
+        hits.data_ptr(), wstream.data_ptr(), ks, lay["stage_bytes"],
+        lay["n_stages"], c_in, r, s, n_layers, sum_d, inp.rf,
+        inp.n_samples, _seed32(inp.seed), int(inp.parity_sampling),
+        inp.temperature, stream)
     _raise_on(lib, err, "ar_sampler_spec")
-    launch_counts[inp.spec_name] += 1
     return out, hits
+
+
+PROBE_MODES = {"bulk copy": 0, "bulk copy + smem reads": 2,
+               "grouped __ldg": 1}
+
+
+def stream_probe(n_bytes: int, mode: str, passes: int = 8,
+                 slab_bytes: int = 16384, n_stages: int = 12) -> float:
+    """GB/s at which one block, alone on the current card, moves a stream
+    of ``n_bytes`` (in slabs of ``slab_bytes``, L2-resident after a warm
+    pass) into its SM, timed by CUDA events over ``passes`` passes:
+    ``mode`` "bulk copy" (one producer lane, a ring of ``n_stages``
+    shared-memory stages), "bulk copy + smem reads" (the consumers also
+    read every float) or "grouped __ldg" (256 threads, 16 loads each in
+    flight).  Measurement only; no entry point calls it."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n_slabs = -(-int(n_bytes) // slab_bytes)
+    src = torch.randn(n_slabs * slab_bytes // 4, device=dev)
+    out = torch.empty(SPEC_CONSUMERS + 32, device=dev)
+    lib = _kernel_lib()
+    st = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(k):
+        _raise_on(lib, lib.movenet_ar_stream_probe(
+            src.data_ptr(), slab_bytes, n_slabs, k, PROBE_MODES[mode],
+            n_stages, out.data_ptr(), st), "stream probe")
+
+    run(1)
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(passes)
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return passes * n_slabs * slab_bytes / (start.elapsed_time(stop) * 1e6)
 
 
 # ----------------------------------------------------------- entry points

@@ -43,6 +43,7 @@ import hashlib
 import importlib.util
 import re
 import subprocess
+import sys
 from pathlib import Path
 
 SHAPES = {"breakdancing": (2, 64, 64, (1, 2, 4) * 3, 64),
@@ -97,8 +98,11 @@ def compile_source(text: str, include: Path, tag: str,
 
 
 def _load(name: str, path: Path):
+    """The module at ``path`` under ``name``, registered in sys.modules
+    (dataclasses need that)."""
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
 

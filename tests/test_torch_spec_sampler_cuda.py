@@ -36,6 +36,33 @@ def gpu_model():
     return _gpu_model(sharpen=True)
 
 
+def _wide_model(sharpen: bool):
+    """Layer 3 x stack 2, R=S=64, C=256: one iteration's weight stream
+    (0.9 MB exact, 1.3 MB fast) is several times the kernel's ring of
+    stages (about 192 KB), and h2_w alone (256 KB) is larger than it, so
+    the stages wrap within an iteration and across iterations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(layer_size=3, stack_size=2, input_channels=256,
+                      residual_channels=64, skip_channels=64)
+    model = make_wavenet(cfg, generator=torch.Generator().manual_seed(1))
+    if sharpen:
+        with torch.no_grad():
+            model.head2.kernel.mul_(10.0)
+    return model.to("cuda").eval()
+
+
+@pytest.fixture(scope="module")
+def wide_model():
+    return _wide_model(sharpen=True)
+
+
+@pytest.fixture(scope="module")
+def wide_model_plain_head():
+    return _wide_model(sharpen=False)
+
+
 @pytest.fixture
 def gpu_model_plain_head():
     return _gpu_model(sharpen=False)
@@ -88,6 +115,51 @@ def test_spec_kernel_codes_equal_standard_kernel(gpu_model_plain_head,
                                   spec_depth=depth, return_stats=True, **kw)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     assert int(hits) == simulate_spec_hits(got[0].cpu().numpy(), 32, rf,
+                                           3, depth)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_spec_kernel_matches_plain_where_the_stream_wraps_the_ring(
+        wide_model, order, depth, fast, temperature):
+    model = wide_model
+    rf = model.receptive_fields
+    prompt = np.random.default_rng(order * 10 + depth).integers(
+        0, 256, size=(1, rf))
+    inp = ars.prepare(model, prompt, rf + 201, temperature=temperature,
+                      seed=3, fast=fast, speculative=True,
+                      spec_order=order, spec_depth=depth)
+    lay = ars.spec_smem_layout(fast, depth + 1, 256, 64, 64,
+                               len(model.dilations))
+    stream = inp.spec_stream[(depth + 1, ars.SPEC_SLAB_BYTES)]
+    ring_bytes = lay["n_stages"] * lay["stage_bytes"]
+    assert 4 * stream.numel() > 4 * ring_bytes     # several times the ring
+    got, hits = ars.ar_sampler_spec(inp)
+    want, want_hits = ars.ar_sampler_spec_plain(inp)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert int(hits) == int(want_hits)
+    codes = torch.cat([inp.prompt, got], dim=1)[0].cpu().numpy()
+    assert int(hits) == simulate_spec_hits(codes, 256, rf, order, depth)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_spec_kernel_codes_equal_standard_kernel_where_the_stream_wraps(
+        wide_model_plain_head, fast, depth, temperature):
+    model = wide_model_plain_head
+    rf = model.receptive_fields
+    prompt = np.random.default_rng(11).integers(0, 256, size=(1, rf))
+    kw = dict(temperature=temperature, seed=5, fast=fast)
+    want = ars.cuda_generate(model, prompt, rf + 300, **kw)
+    got, hits = ars.cuda_generate(model, prompt, rf + 300, speculative=True,
+                                  spec_depth=depth, return_stats=True, **kw)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert int(hits) == simulate_spec_hits(got[0].cpu().numpy(), 256, rf,
                                            3, depth)[0]
 
 
