@@ -1,136 +1,112 @@
 // Autoregressive WaveNet sampler: the whole generation loop in one launch.
 //
-// Replaces the TPU kernel movenet_tpu/ops/pallas/ar_sampler.py:_make_kernel
-// (launched by pallas_call at ar_sampler.py:1088 from pallas_generate), in
-// both its forms:
+// Replaces two TPU kernels of movenet_tpu/ops/pallas/ar_sampler.py with
+// one kernel, ar_sampler_kernel<FAST, NCH, HAS_CTX>:
+//   NCH = 1     _make_kernel (pallas_call at ar_sampler.py:1088, from
+//               pallas_generate): B streams, one block each, with or
+//               without video context;
+//   NCH = 2, 3  _make_spec_kernel (pallas_call at ar_sampler.py:1054):
+//               the speculative form, B=1 without video.
+// Both TPU kernels come in two forms:
 //   FAST=false  the exact chain: per layer fg = [h|past] @ W_fg + b_fg,
 //               gated = tanh(f) * sigmoid(g), out = gated @ W_out + b_out;
-//   FAST=true   the reassociated chain of stack_fast_weights: one product
-//               of gated with W_res W_cur(l+1) per layer, the next layer's
-//               [h|past] product beside it, and the packed-tanh gate
-//               v0*v1 + v0 (the 0.5 and 2x factors live in the weights).
-// and with or without video context (has_ctx):
-//   HAS_CTX     W_fg is (L, 3R, 2R) = [W_cur; W_past; W_ctx] and step t
-//               reads its stream's context row ctx_t (R floats).  ctx_t is
-//               the same for every layer, so the step starts with one
-//               phase that folds it into a per-step fg bias,
-//               cb[l] = b_fg[l, b] + ctx_t @ W_ctx[l] (fast layer 0: the
-//               ctx rows of w_p0c), for all L layers at once; the chain
-//               then runs the audio-only form with cb in place of b_fg.
-//               The ctx products are off the dependency chain, as the
-//               TPU kernel's `pre` term is.
-// Both are float32 throughout.  The TPU's lane packing of the output codes,
-// its double-buffered 512-step DMA of ctx slabs with their 128-lane
-// padding, and its single-pass-MXU precision in fast mode are not carried
-// over.
+//   FAST=true   the reassociated chain of stack_fast_weights: one
+//               product of gated with W_res W_cur(l+1) per layer, the
+//               next layer's [h|past] product beside it, and the
+//               packed-tanh gate v0*v1 + v0 (the 0.5 and 2x factors live
+//               in the weights).
+// and the standard one with or without video context (HAS_CTX): W_fg is
+// (L, 3R, 2R) = [W_cur; W_past; W_ctx] and step t reads its stream's
+// context row ctx_t (R floats).  ctx_t is the same for every layer, so
+// the step starts with one phase (P) that folds it into a per-step fg
+// bias, cb[l] = b_fg[l, b] + ctx_t @ W_ctx[l] (fast layer 0: the ctx rows
+// of w_p0c), for all L layers at once; the chain then runs the
+// audio-only form with cb in place of b_fg.  The ctx products are off
+// the dependency chain, as the TPU kernel's `pre` term is.
+// Everything is float32.  The TPU's lane packing of the output codes, its
+// double-buffered 512-step DMA of ctx slabs with their 128-lane padding,
+// and its single-pass-MXU precision in fast mode are not carried over.
 //
-// Design.  One block per stream (grid = B) and 256 threads; the TPU's
-// sequential grid becomes the step loop inside the block.  Weights are
-// read from global memory through the read-only path (__ldg): 3.7 MB for
-// the exact chain at C=256, R=S=64, L=30, about 1.2 MB more in fast mode,
-// so they stay in the 50 MB L2 for every block.  Each stream's dilation
-// rings live in global memory (sum(d) * R * 4 bytes: 785 KB at the
-// flagship width, far above shared memory); the current h, the ring tap,
-// fg, gated, the skip sum, the head activations and the scores live in
-// shared memory.  Every sum is a sequential fmaf chain in a fixed order,
-// reductions over the C classes are fixed-shape block reductions, and no
-// atomics are used, so a launch is deterministic.  Argmax breaks ties
-// toward the lower index, as jnp.argmax does.
+// Every sum is a sequential fmaf chain in row order, reductions over the
+// C classes are fixed-shape 8-warp block reductions, and no atomics are
+// used, so a launch is deterministic.  Argmax breaks ties toward the
+// lower index, as jnp.argmax does.  Sampling at temperature > 0 adds
+// counter-based Gumbel noise, a pure function of (seed, t, b, c) with
+// counter (t*B + b)*C + c over the whole batch B
+// (ar_sampler.py:_positional_gumbel); logf, never __logf.
 //
-// Sampling at temperature > 0 adds counter-based Gumbel noise, a pure
-// function of (seed, t, b, c) with counter (t*B + b)*C + c over the whole
-// batch B (ar_sampler.py:_positional_gumbel); logf, never __logf.
+// Design.  One block per stream (grid = B): 8 consumer warps that run the
+// chain and one producer warp that feeds them the weights.  A step reads
+// the same weights in the same order whatever the codes: 3.3 MB exact,
+// 4.2 MB fast at the flagship width (C=256, R=S=64, L=30), 0.98 MB more
+// with video, far more than one SM can hold.  So the wrapper packs them
+// once per request into one buffer in the order the phases consume them
+// (pack_stream in ops/cuda/ar_sampler.py): in a phase of n dots, consumer
+// thread tid runs dots tid, tid + 256, ... in turn, and the phase is cut
+// into slabs of ks rows of every thread's current dot, four rows of a
+// thread in 16 bytes beside its neighbours'; a dot's rows are padded to
+// a multiple of 4 (the consumer stops at the dot's own length, so padding
+// never enters an fmaf).  The producer walks that stream with 1-D bulk
+// copies (TMA) into a ring of two 64 KB shared-memory stages, each with a
+// `full` and an `empty` mbarrier, across phases, layers, the head and
+// into the next step; the consumers' phase barriers are a named barrier
+// over their 256 threads alone.  All B producers read the same buffer,
+// which L2 serves to every block.  The biases of the block's stream, the
+// chain buffers, the reductions, the dilations and, with video, cb and
+// the ctx row live in shared memory; each layer's ring taps (the
+// dilation rings live in global memory: sum(d) * R * 4 bytes a stream,
+// 785 KB at the flagship width) are read one phase ahead, and ctx row
+// t+1 during step t, so no phase waits on global memory but its first
+// slab.
 //
-// Bound.  Every step re-reads all weights from L2 in every block (3.3 MB
-// exact), with only 8 warps per SM to keep loads in flight, and a step is
-// a chain of barrier-separated phases: 3 per layer exact, 2 per layer
-// fast, over 30 layers, plus the head and the reductions.  So the kernel
-// is bound by the latency of its L2 reads and by barrier latency, not by
-// arithmetic; B streams cost about what one does, on B SMs.  The dot
-// products issue 16 loads at a time per thread, and the kernel is built
-// for one block per SM (__launch_bounds__(256, 1)) so that ptxas may
-// spend registers on them.
-// With video the cb phase reads W_ctx too (L*R*2R*4 bytes, 0.98 MB at the
-// flagship width) in L*2R independent dot products, 15 per thread, and
-// the ctx row (R floats) comes from global memory once per step.
-// Staging weights in shared memory, streaming ctx ahead with cp.async or
-// TMA, splitting a stream over a
-// thread-block cluster, and sharing one block among the B streams are
-// later work.
+// Bound.  Not the arithmetic: a step is a chain of barrier-separated
+// phases (2 per layer exact, 1-2 fast, over 30 layers, plus the head,
+// the sampling reductions and, with video, P), each a dependent fmaf
+// chain over its dots' rows (64 to 256) and an epilogue.  The stream
+// bounds a step from below at its bytes over one SM's bulk-copy rate
+// (about 184 GB/s: 17.8 us exact, 22.8 fast, 5.3 more with video at the
+// flagship width); the phase chain sets the rest.  B streams cost about
+// what one does, on B SMs, while L2 keeps up with B copies of the stream.
 //
-// Speculative form.  ar_sampler_spec_kernel<FAST, NCH> replaces the TPU
-// kernel ar_sampler.py:_make_spec_kernel (pallas_call at ar_sampler.py:
-// 1054): B=1 without video, in both forms.  Each iteration runs the real
-// chain at step t and NCH-1 speculative chains at t+1 (and t+2), under
-// guesses from n-gram tables (t2 (C) in shared memory; the (C, C) pair
-// table t3 in a per-launch global copy, read and written by thread 0
-// only).  Chain k feeds on the codes (x_t, x_{t-1}) shifted by k guesses
-// and its layer-l ring tap at time t+k-d is chain k-d's layer input when
-// d <= k and the untouched ring slot of t+k otherwise.  Its ring writes
-// wait in shared memory (L*R floats per chain) and commit, in time
-// order, only when the real code equals the guess: then, and only
-// then, they are what the standard kernel would have written.  So the
-// codes equal the standard kernel's for any guess sequence provided
-// every chain runs the standard kernel's float32 operations in its
-// order: the same fmaf chains (one accumulator per chain over one read
-// of each weight, so an iteration reads the weights once for all
-// chains), the same __fadd_rn/__fmul_rn steps, the same 8-warp block
-// reductions, and the Gumbel noise of position t+k.  In fast mode the
-// next layer's [h|tap] product of a speculative chain whose tap is
-// another chain's fresh h (d(l+1) < NCH) is redone in one more phase
-// (M2) after phase M; that happens at the first layers of each stack.
-//
-// Weight stream.  An iteration reads the same weights in the same order
-// whatever the codes: 3.3 MB exact, 4.3 MB fast at the flagship width,
-// far more than one SM can hold, and each phase could start its L2 loads
-// only after its barrier.  So the wrapper packs them once per request
-// into one buffer in the order the phases consume them (pack_spec_stream
-// in ops/cuda/ar_sampler.py): in a phase of n dots, consumer thread tid
-// runs dots tid, tid + 256, ... as the standard kernel's loops do, and
-// the phase is cut into slabs of ks rows of every thread's current dot,
-// four rows of a thread in 16 bytes beside its neighbours'.  One producer
-// warp beside the 8 consumer warps walks that stream with 1-D bulk
-// copies (TMA) into a ring of shared-memory stages, each with a `full`
-// and an `empty` mbarrier, across phases, layers, the head and into the
-// next iteration; the consumers' phase barriers are a named barrier over
-// their 256 threads alone.  One block moved the stream into its SM at
-// 167-173 GB/s in 32 KB copies against 110 GB/s with 16 grouped __ldg's a
-// thread, and copies of one SM complete one after another at about 185 ns
-// each (utils/time_spec --probe, H100 80GB HBM3 at 700 W); the consumers
-// pay a fixed cost per slab whatever the ring's depth, so slabs are as
-// large as the widths allow up to 64 KB, in two stages.  The biases live
-// in shared memory and each layer's ring taps are read one phase ahead,
-// so no phase waits on L2 but the front.  Bound: the stream is not (the copies can
-// be left out at no gain); the phase chain is: about 90 barrier-separated
-// phases an iteration, each a dependent fmaf chain over its dots' rows
-// (64 to 256), and a gate; a hit saves one or two iterations' worth.
+// Speculative form (NCH > 1).  Each iteration runs the real chain at step
+// t and NCH-1 speculative chains at t+1 (and t+2), under guesses from
+// n-gram tables (t2 (C) in shared memory; the (C, C) pair table t3 in a
+// per-launch global copy, read and written by thread 0 only).  Chain k
+// feeds on the codes (x_t, x_{t-1}) shifted by k guesses and its layer-l
+// ring tap at time t+k-d is chain k-d's layer input when d <= k and the
+// untouched ring slot of t+k otherwise.  Its ring writes wait in shared
+// memory (L*R floats per chain) and commit, in time order, only when the
+// real code equals the guess: then, and only then, they are what the
+// standard form would have written.  So the codes equal the standard
+// form's for any guess sequence, since every chain runs the standard
+// form's float32 operations in its order: one accumulator per chain over
+// one read of each weight (an iteration streams the weights once for all
+// chains), the same epilogues and reductions, and the Gumbel noise of
+// position t+k.  In fast mode the next layer's [h|tap] product of a
+// speculative chain whose tap is another chain's fresh h (d(l+1) < NCH)
+// is redone in one more phase (M2) after phase M; that happens at the
+// first layers of each stack, and those W_fg rows are in the stream
+// twice.  A hit saves one or two iterations' worth.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "ar_layout.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace ar_layout;
 
 struct Params {
   const float* front_cur;   // (C, R)
   const float* front_past;  // (C, R)
-  const float* w_fg;        // (L, 2R, 2R), with ctx (L, 3R, 2R); fast:
-                            //   gate columns halved
   const float* b_fg;        // (L, B, 2R)    fast: + b_corr, columns scaled
-  const float* w_out;       // (L, R, R+S)   fast: halved
   const float* b_out;       // (L, R+S)
-  const float* h1_w;        // (S, C)
   const float* h1_b;        // (C)
-  const float* h2_w;        // (C, C)
   const float* h2_b;        // (C)
   const float* fc0;         // (C, 2R)       fast only
   const float* fp0;         // (C, 2R)       fast only
-  const float* w_p0c;       // (R, 2R) fast only; with ctx (2R, 2R) =
-                            //   [W_past_0; W_ctx_0]
-  const float* w_prod;      // (L, R, 2R)    fast only
   const int* dil;           // (L)
   const int* off;           // (L) ring offset of each layer, in rows
   float* ring;              // (B, sum_d, R) updated in place
@@ -143,32 +119,25 @@ struct Params {
   const float* ctx;         // (B, n_samples, R) video context; null: none
 };
 
+// The weight stream, its ring, and the speculative form's tables.
+struct RingParams {
+  const float* stream;  // one step's weights in consumption order
+  int stage_bytes;      // bytes of a ring stage: the largest slab
+  int n_stages;         // stages of the ring
+  PhaseShape shape[kKinds];
+  int* t2;        // (C)    successor table, -1 unseen; read once, kept in smem
+  int* t3;        // (C, C) pair table, -1 unseen; null for order 2
+  int* hits;      // (1)    committed guesses
+  int order;      // 2 or 3
+  int adaptive;   // learn the tables from the committed codes
+};
+
 __device__ __forceinline__ float leaky(float x) {
   return x >= 0.f ? x : __fmul_rn(0.01f, x);
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
-}
-
-// dot(x[0:k], w[0:k, col]) for a row-major w with `stride` columns.  The
-// weight loads are L2 hits whose latency bounds the loop, so they are
-// issued 16 at a time into registers ahead of their fmaf's (a loop that
-// is only unrolled let nvcc interleave each fmaf with the next loads,
-// leaving few in flight); the sum stays one fmaf chain in index order.
-__device__ __forceinline__ float dot_col(const float* x, const float* w,
-                                         int k, int stride) {
-  float acc = 0.f;
-  int i = 0;
-  for (; i + 16 <= k; i += 16) {
-    float wv[16];
-#pragma unroll
-    for (int u = 0; u < 16; ++u) wv[u] = __ldg(w + (i + u) * stride);
-#pragma unroll
-    for (int u = 0; u < 16; ++u) acc = fmaf(x[i + u], wv[u], acc);
-  }
-  for (; i < k; ++i) acc = fmaf(x[i], __ldg(w + i * stride), acc);
-  return acc;
 }
 
 __device__ __forceinline__ float positional_gumbel(uint32_t seed, uint32_t t,
@@ -187,293 +156,8 @@ __device__ __forceinline__ float positional_gumbel(uint32_t seed, uint32_t t,
   return -logf(__fadd_rn(-logf(__fadd_rn(u, 1e-20f)), 1e-20f));
 }
 
-__device__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();
-  return m;
-}
-
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = red[0];
-  for (int w = 1; w < kWarps; ++w) s += red[w];
-  __syncthreads();
-  return s;
-}
-
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
-}
-
-// first index of the maximum over the block's (value, index) pairs
-__device__ int block_argmax(float v, int i, float* red_v, int* red_i) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(~0u, v, o);
-    const int oi = __shfl_xor_sync(~0u, i, o);
-    if (better(ov, oi, v, i)) { v = ov; i = oi; }
-  }
-  if (lane == 0) { red_v[warp] = v; red_i[warp] = i; }
-  __syncthreads();
-  float bv = red_v[0];
-  int bi = red_i[0];
-  for (int w = 1; w < kWarps; ++w)
-    if (better(red_v[w], red_i[w], bv, bi)) { bv = red_v[w]; bi = red_i[w]; }
-  __syncthreads();
-  return bi;
-}
-
-template <bool FAST, bool HAS_CTX>
-__global__ void __launch_bounds__(kThreads, 1) ar_sampler_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int C = p.c_in, R = p.r, R2 = 2 * p.r, S = p.s, RS = p.r + p.s;
-  const int L = p.n_layers;
-
-  float* x = smem;             // 2R: [h | ring tap of the current layer]
-  float* h_next = x + R2;      // R   (fast) h of the next layer
-  float* part0 = h_next + R;   // 2R  exact: fg over h;    fast: gated @ w_prod
-  float* part1 = part0 + R2;   // 2R  exact: fg over tap;  fast: next [h|tap] @ w_fg + b
-  float* gated = part1 + R2;   // R
-  float* skip = gated + R;     // S
-  float* act = skip + S;       // C   leaky(head1 output)
-  float* scores = act + C;     // C
-  float* red_v = scores + C;   // kWarps
-  int* red_i = reinterpret_cast<int*>(red_v + kWarps);  // kWarps
-  float* xc = reinterpret_cast<float*>(red_i + kWarps);  // R    (ctx) ctx_t
-  float* cb = xc + R;          // L*2R (ctx) the step's fg bias per layer
-
-  float* ring = p.ring + static_cast<size_t>(b) * p.sum_d * R;
-  const float* b_fg_b = p.b_fg + static_cast<size_t>(b) * R2;  // + l*B*2R
-  const size_t b_fg_layer = static_cast<size_t>(p.batch) * R2;
-  const float* ctx_b =
-      HAS_CTX ? p.ctx + static_cast<size_t>(b) * p.n_samples * R : nullptr;
-  // layer l's fg taps: (2R, 2R), with ctx (3R, 2R)
-#define W_FG(l) \
-  (p.w_fg + static_cast<size_t>(l) * (HAS_CTX ? 3 * R : R2) * R2)
-  // the fg bias rows of layer l for the current step, and element i of
-  // them: b_fg[l, b] through the read-only path, or with video the
-  // step's cb[l] in shared memory
-#define FG_ROW(l) (HAS_CTX ? cb + (l) * R2 : b_fg_b + (l) * b_fg_layer)
-#define FG_B(row, i) (HAS_CTX ? (row)[i] : __ldg((row) + (i)))
-  const int n_out = p.n_samples - p.rf;
-  int prev = p.init_codes[b];
-  int cur = p.init_codes[p.batch + b];
-
-  for (int t = p.rf; t < p.n_samples; ++t) {
-    // ---- front: h = E_cur[cur] + E_past[prev]; tap of layer 0
-    // a code outside [0, C) (only from NaN scores) embeds as zeros, as
-    // the one-hot product of the TPU kernel does
-    const bool cur_ok = cur >= 0 && cur < C, prev_ok = prev >= 0 && prev < C;
-    const int slot0 = __ldg(p.off) + t % __ldg(p.dil);
-    for (int j = tid; j < R; j += kThreads) {
-      x[j] = (cur_ok ? __ldg(p.front_cur + cur * R + j) : 0.f)
-           + (prev_ok ? __ldg(p.front_past + prev * R + j) : 0.f);
-      x[R + j] = ring[slot0 * R + j];
-    }
-    for (int j = tid; j < S; j += kThreads) skip[j] = 0.f;
-    if constexpr (HAS_CTX) {
-      for (int j = tid; j < R; j += kThreads)
-        xc[j] = __ldg(ctx_b + static_cast<size_t>(t) * R + j);
-    }
-    __syncthreads();
-
-    if constexpr (HAS_CTX) {
-      // phase P: cb[l] = ctx_t @ W_ctx[l] + b_fg[l, b] for every layer;
-      // fast layer 0 takes W_ctx_0 from the ctx rows of w_p0c
-      for (int i = tid; i < L * R2; i += kThreads) {
-        const int l = i / R2, j = i - l * R2;
-        const float* wc = FAST && l == 0 ? p.w_p0c + R * R2
-                                         : W_FG(l) + R2 * R2;
-        cb[i] = __fadd_rn(dot_col(xc, wc + j, R, R2),
-                          __ldg(b_fg_b + l * b_fg_layer + j));
-      }
-      __syncthreads();
-    }
-
-    if (!FAST) {
-      for (int l = 0; l < L; ++l) {
-        const int slot = __ldg(p.off + l) + t % __ldg(p.dil + l);
-        // phase A: fg partial sums over the h rows and the tap rows
-        const float* w = W_FG(l);
-        for (int i = tid; i < 2 * R2; i += kThreads) {
-          const int half = i / R2, j = i - half * R2;
-          const float acc = dot_col(x + half * R, w + half * R * R2 + j, R, R2);
-          (half ? part1 : part0)[j] = acc;
-        }
-        __syncthreads();
-        // phase B: gate
-        const float* bl = FG_ROW(l);
-        for (int i = tid; i < R; i += kThreads) {
-          const float f = __fadd_rn(__fadd_rn(part0[i], part1[i]),
-                                    FG_B(bl, i));
-          const float g = __fadd_rn(__fadd_rn(part0[R + i], part1[R + i]),
-                                    FG_B(bl, R + i));
-          gated[i] = __fmul_rn(tanhf(f), sigmoidf_(g));
-        }
-        __syncthreads();
-        // phase C: res/skip outputs; ring write of the old h; next tap
-        const float* wo = p.w_out + static_cast<size_t>(l) * R * RS;
-        const float* bo = p.b_out + l * RS;
-        const int next_slot = l + 1 < L
-            ? __ldg(p.off + l + 1) + t % __ldg(p.dil + l + 1) : 0;
-        for (int i = tid; i < RS + R; i += kThreads) {
-          if (i < RS) {
-            const float o = __fadd_rn(dot_col(gated, wo + i, R, RS), __ldg(bo + i));
-            if (i < R) {
-              ring[slot * R + i] = x[i];
-              x[i] = __fadd_rn(o, x[i]);
-            } else {
-              skip[i - R] = __fadd_rn(skip[i - R], o);
-            }
-          } else if (l + 1 < L) {
-            const int j = i - RS;
-            x[R + j] = ring[next_slot * R + j];
-          }
-        }
-        __syncthreads();
-      }
-    } else {
-      // layer 0's fg: fc0[cur] + ((fp0[prev] + tap0 @ w_p0c) + b_fg[0]);
-      // with video the bias is cb[0], which holds the ctx rows' product
-      const float* b0 = FG_ROW(0);
-      for (int j = tid; j < R2; j += kThreads) {
-        part0[j] = cur_ok ? __ldg(p.fc0 + cur * R2 + j) : 0.f;
-        const float pre = __fadd_rn(prev_ok ? __ldg(p.fp0 + prev * R2 + j) : 0.f,
-                                    dot_col(x + R, p.w_p0c + j, R, R2));
-        part1[j] = __fadd_rn(pre, FG_B(b0, j));
-      }
-      __syncthreads();
-      for (int l = 0; l < L; ++l) {
-        const int slot = __ldg(p.off + l) + t % __ldg(p.dil + l);
-        const bool more = l + 1 < L;
-        // phase G: packed-tanh gate on fg = part0 + part1; move in the
-        // previous layer's h; fetch the next layer's tap
-        const int next_slot = more
-            ? __ldg(p.off + l + 1) + t % __ldg(p.dil + l + 1) : 0;
-        for (int i = tid; i < R; i += kThreads) {
-          const float v0 = tanhf(__fadd_rn(part0[i], part1[i]));
-          const float v1 = tanhf(__fadd_rn(part0[R + i], part1[R + i]));
-          gated[i] = __fadd_rn(__fmul_rn(v0, v1), v0);
-          if (l > 0) x[i] = h_next[i];
-          if (more) x[R + i] = ring[next_slot * R + i];
-        }
-        __syncthreads();
-        // phase M: the dependent product gated @ w_prod, the next layer's
-        // [h|tap] product, and the res/skip outputs, side by side
-        const float* wp = p.w_prod + static_cast<size_t>(l) * R * R2;
-        const float* wn = W_FG(l + 1);
-        const float* bn = FG_ROW(l + 1);
-        const float* wo = p.w_out + static_cast<size_t>(l) * R * RS;
-        const float* bo = p.b_out + l * RS;
-        for (int i = tid; i < 2 * R2 + RS; i += kThreads) {
-          if (i < R2) {
-            if (more) part0[i] = dot_col(gated, wp + i, R, R2);
-          } else if (i < 2 * R2) {
-            const int j = i - R2;
-            if (more)
-              part1[j] = __fadd_rn(dot_col(x, wn + j, R2, R2),
-                                   FG_B(bn, j));
-          } else {
-            const int j = i - 2 * R2;
-            const float o = __fadd_rn(dot_col(gated, wo + j, R, RS), __ldg(bo + j));
-            if (j < R) {
-              ring[slot * R + j] = x[j];
-              h_next[j] = __fadd_rn(o, x[j]);
-            } else {
-              skip[j - R] = __fadd_rn(skip[j - R], o);
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-
-    // ---- head: y = leaky(skip) @ W1 + b1; logits = leaky(y) @ W2 + b2
-    for (int c = tid; c < C; c += kThreads) {
-      float acc = 0.f;
-#pragma unroll 16
-      for (int k = 0; k < S; ++k)
-        acc = fmaf(leaky(skip[k]), __ldg(p.h1_w + k * C + c), acc);
-      act[c] = leaky(__fadd_rn(acc, __ldg(p.h1_b + c)));
-    }
-    __syncthreads();
-    float local_max = -CUDART_INF_F;
-    for (int c = tid; c < C; c += kThreads) {
-      const float logit = __fadd_rn(dot_col(act, p.h2_w + c, C, C), __ldg(p.h2_b + c));
-      scores[c] = logit;
-      local_max = fmaxf(local_max, logit);
-    }
-
-    // ---- sampling: greedy, or Gumbel-max on logits/T or softmax/T
-    float best_v = -CUDART_INF_F;
-    int best_i = C;
-    if (p.temperature == 0.f) {
-      for (int c = tid; c < C; c += kThreads)
-        if (better(scores[c], c, best_v, best_i)) { best_v = scores[c]; best_i = c; }
-    } else {
-      float denom = 1.f;
-      float m = 0.f;
-      if (p.parity) {
-        m = block_max(local_max, red_v);
-        float local_sum = 0.f;
-        for (int c = tid; c < C; c += kThreads) {
-          const float e = expf(__fsub_rn(scores[c], m));
-          scores[c] = e;
-          local_sum = __fadd_rn(local_sum, e);
-        }
-        denom = block_sum(local_sum, red_v);
-      }
-      for (int c = tid; c < C; c += kThreads) {
-        const float base = p.parity
-            ? __fdiv_rn(__fdiv_rn(scores[c], denom), p.temperature)
-            : __fdiv_rn(scores[c], p.temperature);
-        const float v = __fadd_rn(
-            base, positional_gumbel(p.seed, static_cast<uint32_t>(t),
-                                    static_cast<uint32_t>(p.batch),
-                                    static_cast<uint32_t>(b),
-                                    static_cast<uint32_t>(C),
-                                    static_cast<uint32_t>(c)));
-        if (better(v, c, best_v, best_i)) { best_v = v; best_i = c; }
-      }
-    }
-    const int nxt = block_argmax(best_v, best_i, red_v, red_i);
-    if (tid == 0) p.out[static_cast<size_t>(b) * n_out + (t - p.rf)] = cur;
-    prev = cur;
-    cur = nxt;
-  }
-#undef W_FG
-#undef FG_ROW
-#undef FG_B
-}
-
-size_t shared_bytes(int c_in, int r, int s, int n_layers, bool has_ctx) {
-  const size_t ctx_floats =
-      has_ctx ? static_cast<size_t>(r) + static_cast<size_t>(n_layers) * 2 * r
-              : 0;
-  return sizeof(float) * (2 * r + r + 2 * r + 2 * r + r + s + 2 * c_in + kWarps
-                          + ctx_floats)
-         + sizeof(int) * kWarps;
-}
-
-template <bool FAST, bool HAS_CTX>
-int launch_standard(const Params& p, size_t smem, cudaStream_t st) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ar_sampler_kernel<FAST, HAS_CTX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  ar_sampler_kernel<FAST, HAS_CTX><<<p.batch, kThreads, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------- bulk copies and mbarriers
@@ -529,80 +213,7 @@ __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
-// ------------------------------------------------------- speculative form
-
-// Kinds of the phases that read the weight stream (spec_phase_dots in
-// ops/cuda/ar_sampler.py): A, C exact; F0, M, ML (the last layer's M),
-// M2 fast; H1, H2 the head.
-enum PhaseKind { kA, kC, kH1, kH2, kF0, kM, kML, kM2, kKinds };
-
-constexpr int kConsumers = kThreads;             // 8 consumer warps
-constexpr int kSpecThreads = kConsumers + 32;    // + one producer warp
-constexpr int kMaxStages = 32;
-constexpr int kSmemLimit = 232448;               // bytes a block can have
-
-// One phase of the stream: n dots, slabs of ks rows, kv virtual rows (the
-// longest thread's), ncols = min(n, 256) columns; a slab is 4 ks ncols
-// bytes and the phase kv / ks slabs.
-struct PhaseShape {
-  int n, ks, kv, ncols;
-};
-
-struct SpecParams {
-  int* t2;        // (C)    successor table, -1 unseen; read once, kept in smem
-  int* t3;        // (C, C) pair table, -1 unseen; null for order 2
-  int* hits;      // (1)    committed guesses
-  int order;      // 2 or 3
-  int adaptive;   // learn the tables from the committed codes
-  const float* stream;  // one iteration's weights in consumption order
-  int stage_bytes;      // bytes of a ring stage: the largest slab
-  int n_stages;         // stages of the ring
-  PhaseShape shape[kKinds];
-};
-
-// dots of a phase of kind `kind`, and the rows of dot i
-__host__ __device__ __forceinline__ int phase_dots(int kind, int R, int S,
-                                                   int C) {
-  switch (kind) {
-    case kA: return 4 * R;
-    case kH1: case kH2: return C;
-    case kF0: case kM2: return 2 * R;
-    case kM: return 4 * R + R + S;
-    default: return R + S;   // kC, kML
-  }
-}
-
-__host__ __device__ __forceinline__ int dot_rows(int kind, int i, int R,
-                                                 int S, int C) {
-  switch (kind) {
-    case kH1: return S;
-    case kH2: return C;
-    case kM2: return 2 * R;
-    case kM: return i >= 2 * R && i < 4 * R ? 2 * R : R;
-    default: return R;
-  }
-}
-
-// n, kv and ncols of a phase whose slabs have ks rows; false when ks does
-// not divide every dot's rows (and, in M2, the split at R between a
-// chain's h and another chain's h_next)
-bool phase_shape(int kind, int ks, int R, int S, int C, PhaseShape* out) {
-  const int n = phase_dots(kind, R, S, C);
-  if (ks <= 0 || ks % 4 != 0 || (kind == kM2 && R % ks != 0)) return false;
-  const int ncols = n < kConsumers ? n : kConsumers;
-  int kv = 0;
-  for (int c = 0; c < ncols; ++c) {
-    int rows = 0;
-    for (int i = c; i < n; i += kConsumers) {
-      const int k = dot_rows(kind, i, R, S, C);
-      if (k % ks != 0) return false;
-      rows += k;
-    }
-    kv = rows > kv ? rows : kv;
-  }
-  *out = PhaseShape{n, ks, kv, ncols};
-  return true;
-}
+// ------------------------------------------------------ the ring kernel
 
 __device__ __forceinline__ bool code_ok(int c, int C) { return c >= 0 && c < C; }
 
@@ -629,40 +240,15 @@ __device__ int spec_guess2(int cur, int g1, const int* t2s, const int* t3,
   return g;
 }
 
-// floats of one chain's buffers: x [h|tap] 2R, h_next R, part0 2R, part1
-// 2R, gated R, skip S, act C, scores C
-__host__ __device__ __forceinline__ int chain_floats(int c_in, int r, int s) {
-  return 2 * r + r + 2 * r + 2 * r + r + s + 2 * c_in;
-}
-
-// floats of the biases, kept in shared memory: b_fg (L, 2R), b_out (L,
-// R+S), h1_b (C), h2_b (C)
-__host__ __device__ __forceinline__ int bias_floats(int c_in, int r, int s,
-                                                   int n_layers) {
-  return n_layers * (2 * r + r + s) + 2 * c_in;
-}
-
-// bytes of everything but the ring: the chain buffers, the deferred spec
-// writes, the biases, the reductions, t2, the guesses and the end flag,
-// the dilations and offsets, the phase sequence (spec_smem_layout in the
-// wrapper computes the same)
-size_t spec_fixed_bytes(int nch, int c_in, int r, int s, int n_layers) {
-  return sizeof(float) * (static_cast<size_t>(nch) * chain_floats(c_in, r, s)
-                          + static_cast<size_t>(nch - 1) * n_layers * r
-                          + bias_floats(c_in, r, s, n_layers) + kWarps)
-         + sizeof(int) * (kWarps + c_in + 4 + 2 * n_layers
-                          + 3 * n_layers + 4);
-}
-
 // The consumers' phase barrier: named barrier 1 over the 256 consumer
 // threads, so the producer warp never waits at a phase boundary.
 __device__ __forceinline__ void csync() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
 }
 
-// block_max, block_sum, block_argmax over the consumer warps (the same
-// 8-warp shapes, so the same sums; csync in place of __syncthreads)
-__device__ float spec_block_max(float v, float* red) {
+// max, sum and first-index argmax over the consumer warps: warp shuffles,
+// then warp 0..7's results in order, the same sums in every form
+__device__ float block_max(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
   if (lane == 0) red[warp] = v;
@@ -673,7 +259,7 @@ __device__ float spec_block_max(float v, float* red) {
   return m;
 }
 
-__device__ float spec_block_sum(float v, float* red) {
+__device__ float block_sum(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
   if (lane == 0) red[warp] = v;
@@ -684,7 +270,7 @@ __device__ float spec_block_sum(float v, float* red) {
   return s;
 }
 
-__device__ int spec_block_argmax(float v, int i, float* red_v, int* red_i) {
+__device__ int block_argmax(float v, int i, float* red_v, int* red_i) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int o = 16; o > 0; o >>= 1) {
     const float ov = __shfl_xor_sync(~0u, v, o);
@@ -701,14 +287,14 @@ __device__ int spec_block_argmax(float v, int i, float* red_v, int* red_i) {
   return bi;
 }
 
-// The producer: one lane walks the stream slab by slab, iteration after
-// iteration, keeping every free stage filled: it waits for the stage to
-// be released (sleeping between polls, as it shares a scheduler with
-// two consumer warps), posts the slab's bytes on its `full` barrier and
-// issues one bulk copy.  The consumers decide when the sampling ends; they set
-// *done, which the producer reads while it waits, and it then waits for
-// every copy it issued to land before it exits.
-__device__ void spec_producer(const SpecParams& q, const int* seq, int n_seq,
+// The producer: one lane walks the stream slab by slab, step after step,
+// keeping every free stage filled: it waits for the stage to be released
+// (sleeping between polls, as it shares a scheduler with two consumer
+// warps), posts the slab's bytes on its `full` barrier and issues one
+// bulk copy.  The block's consumers decide when the sampling ends; they
+// set *done, which the producer reads while it waits, and it then waits
+// for every copy it issued to land before it exits.
+__device__ void ring_producer(const RingParams& q, const int* seq, int n_seq,
                               unsigned char* ring, uint64_t* full,
                               uint64_t* empty, volatile int* done) {
   const char* src = reinterpret_cast<const char*>(q.stream);
@@ -787,30 +373,50 @@ __device__ __forceinline__ void quad_fma(const float* const* x, int q,
   }
 }
 
+// the first m (1 to 3) rows of a quad, the last of a segment whose rows
+// are not a multiple of 4; the padding rows never enter an fmaf
+template <int NCH, bool LEAKY>
+__device__ __forceinline__ void quad_fma_part(const float* const* x, int q,
+                                              int m, float4 w, float* acc) {
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    const float* v = x[k] + 4 * q;
+    acc[k] = fmaf(LEAKY ? leaky(v[0]) : v[0], w.x, acc[k]);
+    if (m > 1) acc[k] = fmaf(LEAKY ? leaky(v[1]) : v[1], w.y, acc[k]);
+    if (m > 2) acc[k] = fmaf(LEAKY ? leaky(v[2]) : v[2], w.z, acc[k]);
+  }
+}
+
 // One phase of the stream.  Consumer thread tid runs dots tid, tid + 256,
-// ... < sh.n in turn, as the standard kernel's loops do; for each slab it
-// takes sh.ks rows of its current dot from its own column (four rows in
-// 16 bytes, beside its neighbours'), one fmaf chain per chain k in row
-// order, the sum dot_col forms.  Every warp waits on and releases every
-// slab of the phase, whether it reads it or not.
-//   xs(i, row, x)   each chain's operand from row `row` on
+// ... < sh.n in turn; for each slab it takes sh.ks rows of its current
+// dot from its own column (four rows in 16 bytes, beside its
+// neighbours'), one fmaf chain per chain k in row order.  A dot is one or
+// two segments of `seg` rows, each padded to segp = round4(seg) rows in
+// the stream; the fmaf's stop at the segment's own rows.  Every warp waits
+// on and releases every slab of the phase, whether it reads it or not.
+//   xs(i, row, x)   each chain's operand from virtual row `row` on (a
+//                   second segment's operand starts at segp)
 //   done(i, acc)    the dot's epilogue
 template <int NCH, int KIND, bool LEAKY, class Xs, class Done>
 __device__ __forceinline__ void run_phase(Pipe& pp, const PhaseShape& sh,
                                           int R, int S, int C, Xs xs,
                                           Done done) {
   const int tid = threadIdx.x;
+  const int seg = seg_rows(KIND, R, S, C), segp = round4(seg);
   int i = tid, row = 0;
-  int len = i < sh.n ? dot_rows(KIND, i, R, S, C) : 0;
+  int len = i < sh.n ? dot_segs(KIND, i, R) * segp : 0;
   float acc[NCH];
 #pragma unroll
   for (int k = 0; k < NCH; ++k) acc[k] = 0.f;
-  const int nq = sh.ks >> 2;
   for (int v = 0; v < sh.kv; v += sh.ks) {
     const float4* slab = pipe_wait(pp) + tid;
     if (i < sh.n) {
       const float* x[NCH];
       xs(i, row, x);
+      // the rows of this slab that its segment owns
+      const int o = row >= segp ? row - segp : row;
+      const int nv = seg - o < sh.ks ? seg - o : sh.ks;
+      const int nq = nv >> 2;
       int q = 0;
       for (; q + 4 <= nq; q += 4) {
         float4 w[4];
@@ -820,6 +426,8 @@ __device__ __forceinline__ void run_phase(Pipe& pp, const PhaseShape& sh,
         for (int u = 0; u < 4; ++u) quad_fma<NCH, LEAKY>(x, q + u, w[u], acc);
       }
       for (; q < nq; ++q) quad_fma<NCH, LEAKY>(x, q, slab[q * sh.ncols], acc);
+      if (nv & 3)
+        quad_fma_part<NCH, LEAKY>(x, nq, nv & 3, slab[nq * sh.ncols], acc);
       row += sh.ks;
       if (row == len) {
         done(i, acc);
@@ -827,33 +435,37 @@ __device__ __forceinline__ void run_phase(Pipe& pp, const PhaseShape& sh,
         row = 0;
 #pragma unroll
         for (int k = 0; k < NCH; ++k) acc[k] = 0.f;
-        if (i < sh.n) len = dot_rows(KIND, i, R, S, C);
+        if (i < sh.n) len = dot_segs(KIND, i, R) * segp;
       }
     }
     pipe_release(pp);
   }
 }
 
-template <bool FAST, int NCH>
-__global__ void __launch_bounds__(kSpecThreads, 1)
-ar_sampler_spec_kernel(Params p, SpecParams q) {
-  extern __shared__ __align__(16) unsigned char spec_smem[];
-  const int tid = threadIdx.x, warp = tid >> 5;
+template <bool FAST, int NCH, bool HAS_CTX>
+__global__ void __launch_bounds__(kRingThreads, 1)
+ar_sampler_kernel(Params p, RingParams q) {
+  static_assert(NCH == 1 || !HAS_CTX, "the speculative form has no video");
+  extern __shared__ __align__(16) unsigned char ring_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, b = blockIdx.x;
   const int C = p.c_in, R = p.r, R2 = 2 * p.r, S = p.s, RS = p.r + p.s;
-  const int L = p.n_layers, LR = p.n_layers * p.r;
-  const int cs = chain_floats(C, R, S);
-  // [ring | full, empty barriers | chain k's buffers at k * cs | spec | ...]
-  unsigned char* ring = spec_smem;
+  const int L = p.n_layers, LR = p.n_layers * p.r, R4 = round4(p.r);
+  const ChainOffsets co = chain_offsets(C, R, S);
+  // [ring | full, empty barriers | chain k's buffers at k * co.size |
+  //  (video) ctx row, cb | spec | biases | ...]
+  unsigned char* ring = ring_smem;
   uint64_t* full = reinterpret_cast<uint64_t*>(
       ring + static_cast<size_t>(q.n_stages) * q.stage_bytes);
   uint64_t* empty = full + q.n_stages;
   float* fl = reinterpret_cast<float*>(empty + q.n_stages);
   constexpr int oX = 0;
-  const int oHN = R2, oP0 = oHN + R, oP1 = oP0 + R2, oG = oP1 + R2,
-            oSk = oG + R, oAct = oSk + S, oSc = oAct + C;
-#define CH(k, o) (fl + (k) * cs + (o))
-  float* spec = fl + NCH * cs;               // chain k>=1 at (k-1) * LR
-  float* bfg = spec + (NCH - 1) * LR;        // b_fg (L, 2R)
+  const int oHN = co.hn, oP0 = co.p0, oP1 = co.p1, oG = co.g, oSk = co.sk,
+            oAct = co.act, oSc = co.sc;
+#define CH(k, o) (fl + (k) * co.size + (o))
+  float* xc = fl + NCH * co.size;            // (video) ctx_t: R
+  float* cb = xc + (HAS_CTX ? R4 : 0);       // (video) the step's fg bias (L, 2R)
+  float* spec = cb + (HAS_CTX ? L * R2 : 0); // chain k>=1 at (k-1) * LR
+  float* bfg = spec + (NCH - 1) * LR;        // b_fg[:, b] (L, 2R)
   float* bout = bfg + L * R2;                // b_out (L, R+S)
   float* b1 = bout + L * RS;                 // h1_b (C)
   float* b2 = b1 + C;                        // h2_b (C)
@@ -864,18 +476,29 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
   int* dil_s = misc + 4;                     // L
   int* off_s = dil_s + L;                    // L
   int* seq = off_s + L;                      // the phase kinds in stream order
+  // the chain's fg bias: b_fg[:, b], or with video the step's cb
+  const float* fgb = HAS_CTX ? cb : bfg;
 
-  for (int c = tid; c < C; c += kSpecThreads) {
-    t2s[c] = q.t2[c];
+  for (int c = tid; c < C; c += kRingThreads) {
+    if (NCH > 1) t2s[c] = q.t2[c];
     b1[c] = p.h1_b[c];
     b2[c] = p.h2_b[c];
   }
-  for (int i = tid; i < L * R2; i += kSpecThreads) bfg[i] = p.b_fg[i];
-  for (int i = tid; i < L * RS; i += kSpecThreads) bout[i] = p.b_out[i];
-  for (int l = tid; l < L; l += kSpecThreads) {
+  for (int i = tid; i < L * R2; i += kRingThreads) {
+    const int l = i / R2;
+    bfg[i] = p.b_fg[(static_cast<size_t>(l) * p.batch + b) * R2 + (i - l * R2)];
+  }
+  for (int i = tid; i < L * RS; i += kRingThreads) bout[i] = p.b_out[i];
+  for (int l = tid; l < L; l += kRingThreads) {
     dil_s[l] = p.dil[l];
     off_s[l] = p.off[l];
   }
+  const int n = p.n_samples;
+  const float* ctx_b =
+      HAS_CTX ? p.ctx + static_cast<size_t>(b) * n * R : nullptr;
+  if (HAS_CTX)
+    for (int j = tid; j < R; j += kRingThreads)
+      xc[j] = ctx_b[static_cast<size_t>(p.rf) * R + j];
   if (tid == 0) {
     for (int s = 0; s < q.n_stages; ++s) {
       mbar_init(full + s, 1);
@@ -884,14 +507,15 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
     fence_mbar_init();
     misc[2] = 0;
   }
-  float* ringg = p.ring;
-  const int n = p.n_samples;
-  int prev = p.init_codes[0];
-  int cur = p.init_codes[1];
+  float* ringg = p.ring + static_cast<size_t>(b) * p.sum_d * R;
+  int* out = p.out + static_cast<size_t>(b) * (n - p.rf);
+  int prev = p.init_codes[b];
+  int cur = p.init_codes[p.batch + b];
   __syncthreads();
   if (tid == 0) {
-    // one iteration's phases (spec_phases in the wrapper)
+    // one step's phases (stream_phases in the wrapper)
     int ns = 0;
+    if (HAS_CTX) seq[ns++] = kP;
     if (!FAST) {
       for (int l = 0; l < L; ++l) { seq[ns++] = kA; seq[ns++] = kC; }
     } else {
@@ -908,14 +532,16 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
     seq[ns++] = kH1;
     seq[ns++] = kH2;
     misc[3] = ns;
-    const int g1 = spec_guess1(prev, cur, t2s, q.t3, C, q.order);
-    misc[0] = g1;
-    misc[1] = NCH == 3 ? spec_guess2(cur, g1, t2s, q.t3, C, q.order) : 0;
+    if (NCH > 1) {
+      const int g1 = spec_guess1(prev, cur, t2s, q.t3, C, q.order);
+      misc[0] = g1;
+      misc[1] = NCH == 3 ? spec_guess2(cur, g1, t2s, q.t3, C, q.order) : 0;
+    }
   }
   __syncthreads();
   if (warp == kWarps) {
     if (tid == kConsumers)
-      spec_producer(q, seq, misc[3], ring, full, empty, misc + 2);
+      ring_producer(q, seq, misc[3], ring, full, empty, misc + 2);
     return;
   }
 
@@ -924,10 +550,13 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
   int t = p.rf;
   int hits = 0;
   while (t < n) {
-    const int g1 = misc[0], g2 = misc[1];
+    const int g1 = NCH > 1 ? misc[0] : 0, g2 = NCH > 1 ? misc[1] : 0;
     // chain k embeds (cc[k], pc[k]): (x_t, x_{t-1}), (g1, x_t), (g2, g1)
     const int cc[3] = {cur, g1, g2};
     const int pc[3] = {prev, cur, g1};
+    // (video) ctx row t+1, stored after phase P has read row t
+    const float ctxn = HAS_CTX && tid < R && t + 1 < n
+        ? __ldg(ctx_b + static_cast<size_t>(t + 1) * R + tid) : 0.f;
 
     // ---- front: each chain's h; layer 0's taps; fast: the embedding
     // products of layer 0 (part0 = fc0[c], part1 holds fp0[p] until F0)
@@ -938,8 +567,8 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
         CH(k, oX)[j] =
             (code_ok(cc[k], C) ? __ldg(p.front_cur + cc[k] * R + j) : 0.f)
             + (code_ok(pc[k], C) ? __ldg(p.front_past + pc[k] * R + j) : 0.f);
-        CH(k, oX)[R + j] = d0 <= k ? CH(k - d0, oX)[j]
-                                   : ringg[(o0 + (t + k) % d0) * R + j];
+        CH(k, oX)[R4 + j] = d0 <= k ? CH(k - d0, oX)[j]
+                                    : ringg[(o0 + (t + k) % d0) * R + j];
       }
     }
     for (int j = tid; j < S; j += kConsumers) {
@@ -958,6 +587,21 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
       }
     }
     csync();
+
+    if (HAS_CTX) {
+      // phase P: cb[l] = ctx_t @ W_ctx[l] + b_fg[l, b] for every layer;
+      // fast layer 0 takes W_ctx_0 from the ctx rows of w_p0c
+      run_phase<1, kP, false>(
+          pp, q.shape[kP], R, S, C,
+          [&](int, int row, const float** x) { x[0] = xc + row; },
+          [&](int i, const float* acc) { cb[i] = __fadd_rn(acc[0], bfg[i]); });
+      csync();
+      // the next step's ctx row; read again only after many barriers
+      if (t + 1 < n)
+        for (int j = tid; j < R; j += kConsumers)
+          xc[j] = j == tid ? ctxn
+                           : __ldg(ctx_b + static_cast<size_t>(t + 1) * R + j);
+    }
 
     if (!FAST) {
       for (int l = 0; l < L; ++l) {
@@ -979,7 +623,7 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
             [&](int i, int row, const float** x) {
               const int half = i / R2;
 #pragma unroll
-              for (int k = 0; k < NCH; ++k) x[k] = CH(k, oX) + half * R + row;
+              for (int k = 0; k < NCH; ++k) x[k] = CH(k, oX) + half * R4 + row;
             },
             [&](int i, const float* acc) {
               const int half = i / R2, j = i - half * R2;
@@ -988,7 +632,7 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
             });
         csync();
         // phase B: gate
-        const float* bl = bfg + l * R2;
+        const float* bl = fgb + l * R2;
         for (int i = tid; i < R; i += kConsumers) {
 #pragma unroll
           for (int k = 0; k < NCH; ++k) {
@@ -1009,8 +653,8 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
 #pragma unroll
             for (int k = 0; k < NCH; ++k)
               if (dn > k)
-                CH(k, oX)[R + j] = i == tid ? tapn[k]
-                                            : ringg[(on + (t + k) % dn) * R + j];
+                CH(k, oX)[R4 + j] = i == tid ? tapn[k]
+                                             : ringg[(on + (t + k) % dn) * R + j];
           }
         }
         run_phase<NCH, kC, false>(
@@ -1034,7 +678,7 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
               if (i < R && more) {
 #pragma unroll
                 for (int k = 1; k < NCH; ++k)
-                  if (dn <= k) CH(k, oX)[R + i] = CH(k - dn, oX)[i];
+                  if (dn <= k) CH(k, oX)[R4 + i] = CH(k - dn, oX)[i];
               }
             });
         csync();
@@ -1051,18 +695,19 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
           tapn[k] = ok && k < d ? ringg[(o + (t + k) % d) * R + tid] : 0.f;
       };
       fetch_taps(1);
-      // layer 0's fg: fc0[c] + ((fp0[p] + tap0 @ w_p0c) + b_fg[0])
+      // layer 0's fg: fc0[c] + ((fp0[p] + tap0 @ w_p0c) + b_fg[0]); with
+      // video the bias is cb[0], which holds the ctx rows' product
       run_phase<NCH, kF0, false>(
           pp, q.shape[kF0], R, S, C,
           [&](int, int row, const float** x) {
 #pragma unroll
-            for (int k = 0; k < NCH; ++k) x[k] = CH(k, oX) + R + row;
+            for (int k = 0; k < NCH; ++k) x[k] = CH(k, oX) + R4 + row;
           },
           [&](int j, const float* acc) {
 #pragma unroll
             for (int k = 0; k < NCH; ++k)
               CH(k, oP1)[j] = __fadd_rn(__fadd_rn(CH(k, oP1)[j], acc[k]),
-                                        bfg[j]);
+                                        fgb[j]);
           });
       csync();
       for (int l = 0; l < L; ++l) {
@@ -1083,8 +728,8 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
             CH(k, oG)[i] = __fadd_rn(__fmul_rn(v0, v1), v0);
             if (l > 0) CH(k, oX)[i] = CH(k, oHN)[i];
             if (more && k < ready)
-              CH(k, oX)[R + i] = i == tid ? tapn[k]
-                                          : ringg[(on + (t + k) % dn) * R + i];
+              CH(k, oX)[R4 + i] = i == tid ? tapn[k]
+                                           : ringg[(on + (t + k) % dn) * R + i];
           }
         }
         csync();
@@ -1092,9 +737,9 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
         // phase M: gated @ w_prod, the next [h|tap] product (every chain
         // is computed; the late ones' are dropped and redone in M2), and
         // the res/skip outputs, side by side
-        const float* bn = bfg + (l + 1) * R2;
+        const float* bn = fgb + (l + 1) * R2;
         const float* bo = bout + l * RS;
-        auto out = [&](int j, const float* acc) {
+        auto outs = [&](int j, const float* acc) {
 #pragma unroll
           for (int k = 0; k < NCH; ++k) {
             const float o = __fadd_rn(acc[k], bo[j]);
@@ -1125,7 +770,7 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
                     if (k < ready)
                       CH(k, oP1)[i - R2] = __fadd_rn(acc[k], bn[i - R2]);
                 } else {
-                  out(i - 2 * R2, acc);
+                  outs(i - 2 * R2, acc);
                 }
               });
         } else {
@@ -1135,13 +780,13 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
 #pragma unroll
                 for (int k = 0; k < NCH; ++k) x[k] = CH(k, oG) + row;
               },
-              out);
+              outs);
         }
         csync();
         // phase M2: the late chains' next product over [h | h_next of
         // chain k - dn], the same fmaf chain as over a copied tap (slot c
         // >= late repeats the last chain and is dropped)
-        if (more && ready < NCH) {
+        if (NCH > 1 && more && ready < NCH) {
           const int late = NCH - ready;
           run_phase<NCH, kM2, false>(
               pp, q.shape[kM2], R, S, C,
@@ -1149,7 +794,8 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
 #pragma unroll
                 for (int c = 0; c < NCH; ++c) {
                   const int k = ready + c < NCH ? ready + c : NCH - 1;
-                  x[c] = row < R ? CH(k, oX) + row : CH(k - dn, oHN) + (row - R);
+                  x[c] = row < R4 ? CH(k, oX) + row
+                                  : CH(k - dn, oHN) + (row - R4);
                 }
               },
               [&](int j, const float* acc) {
@@ -1193,7 +839,8 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
           }
         });
 
-    // ---- sampling of chain k at position t+k, as the standard kernel
+    // ---- sampling of chain k at position t+k: greedy, or Gumbel-max on
+    // logits/T or softmax/T
     int nxt[NCH];
 #pragma unroll
     for (int k = 0; k < NCH; ++k) {
@@ -1207,31 +854,33 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
         float denom = 1.f;
         float m = 0.f;
         if (p.parity) {
-          m = spec_block_max(local_max[k], red_v);
+          m = block_max(local_max[k], red_v);
           float local_sum = 0.f;
           for (int c = tid; c < C; c += kConsumers) {
             const float e = expf(__fsub_rn(scores[c], m));
             scores[c] = e;
             local_sum = __fadd_rn(local_sum, e);
           }
-          denom = spec_block_sum(local_sum, red_v);
+          denom = block_sum(local_sum, red_v);
         }
         for (int c = tid; c < C; c += kConsumers) {
           const float base = p.parity
               ? __fdiv_rn(__fdiv_rn(scores[c], denom), p.temperature)
               : __fdiv_rn(scores[c], p.temperature);
           const float v = __fadd_rn(
-              base, positional_gumbel(p.seed, static_cast<uint32_t>(t + k), 1u,
-                                      0u, static_cast<uint32_t>(C),
+              base, positional_gumbel(p.seed, static_cast<uint32_t>(t + k),
+                                      static_cast<uint32_t>(p.batch),
+                                      static_cast<uint32_t>(b),
+                                      static_cast<uint32_t>(C),
                                       static_cast<uint32_t>(c)));
           if (better(v, c, best_v, best_i)) { best_v = v; best_i = c; }
         }
       }
-      nxt[k] = spec_block_argmax(best_v, best_i, red_v, red_i);
+      nxt[k] = block_argmax(best_v, best_i, red_v, red_i);
     }
 
     // ---- commit: a guess holds only if the real code equals it
-    const bool hit = nxt[0] == g1 && t + 1 < n;
+    const bool hit = NCH > 1 && nxt[0] == g1 && t + 1 < n;
     const bool hit2 = NCH == 3 && hit && nxt[NCH - 2] == g2 && t + 2 < n;
     if (hit) {
       for (int i = tid; i < LR; i += kConsumers) {
@@ -1243,41 +892,44 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
       }
     }
     if (tid == 0) {
-      if (q.adaptive) {
+      if (NCH > 1 && q.adaptive) {
         // later writes win: x_t -> x_{t+1}, then the committed ones
         if (code_ok(cur, C)) t2s[cur] = nxt[0];
-        if (hit && code_ok(g1, C)) t2s[g1] = nxt[1];
+        if (hit && code_ok(g1, C)) t2s[g1] = nxt[NCH > 1 ? 1 : 0];
         if (hit2 && code_ok(g2, C)) t2s[g2] = nxt[NCH - 1];
         if (q.order == 3) {
           // the TPU kernel keys the row on prev's one-hot: row 0 when
           // prev lies outside [0, C)
           if (code_ok(cur, C)) q.t3[(code_ok(prev, C) ? prev : 0) * C + cur] = nxt[0];
-          if (hit && code_ok(cur, C) && code_ok(g1, C)) q.t3[cur * C + g1] = nxt[1];
+          if (hit && code_ok(cur, C) && code_ok(g1, C))
+            q.t3[cur * C + g1] = nxt[NCH > 1 ? 1 : 0];
           if (hit2 && code_ok(g1, C) && code_ok(g2, C))
             q.t3[g1 * C + g2] = nxt[NCH - 1];
         }
       }
-      p.out[t - p.rf] = cur;
-      if (hit) p.out[t + 1 - p.rf] = g1;
-      if (hit2) p.out[t + 2 - p.rf] = g2;
+      out[t - p.rf] = cur;
+      if (hit) out[t + 1 - p.rf] = g1;
+      if (hit2) out[t + 2 - p.rf] = g2;
     }
     hits += static_cast<int>(hit) + static_cast<int>(hit2);
     if (hit2) {
       t += 3; prev = g2; cur = nxt[NCH - 1];
     } else if (hit) {
-      t += 2; prev = g1; cur = nxt[1];
+      t += 2; prev = g1; cur = nxt[NCH > 1 ? 1 : 0];
     } else {
       t += 1; prev = cur; cur = nxt[0];
     }
-    if (tid == 0) {
-      const int ng1 = spec_guess1(prev, cur, t2s, q.t3, C, q.order);
-      misc[0] = ng1;
-      misc[1] = NCH == 3 ? spec_guess2(cur, ng1, t2s, q.t3, C, q.order) : 0;
+    if (NCH > 1) {
+      if (tid == 0) {
+        const int ng1 = spec_guess1(prev, cur, t2s, q.t3, C, q.order);
+        misc[0] = ng1;
+        misc[1] = NCH == 3 ? spec_guess2(cur, ng1, t2s, q.t3, C, q.order) : 0;
+      }
+      csync();
     }
-    csync();
   }
   if (tid == 0) {
-    *q.hits = hits;
+    if (NCH > 1) *q.hits = hits;
     *reinterpret_cast<volatile int*>(misc + 2) = 1;   // the producer ends
   }
 #undef CH
@@ -1285,32 +937,36 @@ ar_sampler_spec_kernel(Params p, SpecParams q) {
 
 // The shapes of the form's phases from their slab rows `ks` (by kind),
 // the stage size and the stage count; cudaErrorInvalidValue when a slab
-// row count does not divide its dots, a slab does not fit a stage, or
-// the ring and the rest pass the shared memory a block can have.
-template <bool FAST, int NCH>
-int launch_spec(const Params& p, SpecParams q, const int* ks,
+// row count does not divide its phase's padded segments, a slab does not
+// fit a stage, or the ring and the rest pass the shared memory a block
+// can have.
+template <bool FAST, int NCH, bool HAS_CTX>
+int launch_ring(const Params& p, RingParams q, const int* ks,
                 cudaStream_t st) {
-  const int kinds_exact[] = {kA, kC, kH1, kH2};
-  const int kinds_fast[] = {kF0, kM, kML, kM2, kH1, kH2};
+  const int kinds_exact[] = {kA, kC, kH1, kH2, kP};
+  const int kinds_fast[] = {kF0, kM, kML, kM2, kH1, kH2, kP};
   const int* kinds = FAST ? kinds_fast : kinds_exact;
-  const int n_kinds = FAST ? 6 : 4;
+  const int n_kinds = (FAST ? 7 : 5) - (HAS_CTX ? 0 : 1);
   for (int i = 0; i < n_kinds; ++i) {
     const int kind = kinds[i];
-    if (!phase_shape(kind, ks[kind], p.r, p.s, p.c_in, &q.shape[kind])
+    if (!phase_shape(kind, ks[kind], p.r, p.s, p.c_in, p.n_layers,
+                     &q.shape[kind])
         || 4 * ks[kind] * q.shape[kind].ncols > q.stage_bytes)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = spec_fixed_bytes(NCH, p.c_in, p.r, p.s, p.n_layers)
+  const size_t smem =
+      ring_fixed_bytes(NCH, HAS_CTX, p.c_in, p.r, p.s, p.n_layers)
       + static_cast<size_t>(q.n_stages) * (q.stage_bytes + 2 * sizeof(uint64_t));
   if (q.stage_bytes % 16 != 0 || q.n_stages < 2 || q.n_stages > kMaxStages
       || smem > static_cast<size_t>(kSmemLimit)
       || reinterpret_cast<uintptr_t>(q.stream) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaFuncSetAttribute(
-      ar_sampler_spec_kernel<FAST, NCH>,
+      ar_sampler_kernel<FAST, NCH, HAS_CTX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  ar_sampler_spec_kernel<FAST, NCH><<<1, kSpecThreads, smem, st>>>(p, q);
+  ar_sampler_kernel<FAST, NCH, HAS_CTX>
+      <<<p.batch, kRingThreads, smem, st>>>(p, q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1322,24 +978,23 @@ int launch_spec(const Params& p, SpecParams q, const int* ks,
 // n_stages shared-memory stages that the 8 consumer warps only release;
 // mode 2, the same with the consumers reading every float of each slab
 // (16 bytes a thread at a time); mode 1, the 256 consumer threads
-// reading the stream themselves, 16 __ldg's a thread in flight, as
-// dot_col does.  The design of the speculative kernel's weight stream
-// rests on mode 0 beating mode 1.
-__global__ void __launch_bounds__(kSpecThreads, 1)
+// reading the stream themselves, 16 __ldg's a thread in flight.  The
+// design of the kernel's weight stream rests on mode 0 beating mode 1.
+__global__ void __launch_bounds__(kRingThreads, 1)
 stream_probe_kernel(const float* src, int slab_bytes, int n_slabs,
                     int passes, int mode, int n_stages, float* out) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float acc = 0.f;
   if (mode == 1) {
-    if (tid < kThreads) {
+    if (tid < kConsumers) {
       const size_t n = static_cast<size_t>(n_slabs) * slab_bytes / 4;
       for (int ps = 0; ps < passes; ++ps) {
-        for (size_t base = 0; base + 16 * kThreads <= n;
-             base += 16 * kThreads) {
+        for (size_t base = 0; base + 16 * kConsumers <= n;
+             base += 16 * kConsumers) {
           float wv[16];
 #pragma unroll
-          for (int u = 0; u < 16; ++u) wv[u] = __ldg(src + base + u * kThreads + tid);
+          for (int u = 0; u < 16; ++u) wv[u] = __ldg(src + base + u * kConsumers + tid);
 #pragma unroll
           for (int u = 0; u < 16; ++u) acc = fmaf(1.f, wv[u], acc);
         }
@@ -1382,7 +1037,7 @@ stream_probe_kernel(const float* src, int slab_bytes, int n_slabs,
     mbar_wait(full + st, (i / n_stages) & 1);
     if (mode == 2) {
       const float4* s4 = reinterpret_cast<const float4*>(ring + st * slab_floats);
-      for (int j = tid; j < slab_floats / 4; j += kThreads) {
+      for (int j = tid; j < slab_floats / 4; j += kConsumers) {
         const float4 v = s4[j];
         acc = fmaf(1.f, v.x, fmaf(1.f, v.y, fmaf(1.f, v.z, fmaf(1.f, v.w, acc))));
       }
@@ -1397,70 +1052,56 @@ stream_probe_kernel(const float* src, int slab_bytes, int n_slabs,
 
 extern "C" {
 
-// Launches the sampler on `stream`; returns the cudaError_t of the launch.
-// `ctx` is the (batch, n_samples, r) video context, or null without video.
+// Launches the sampler (grid = batch, one block a stream) on `stream`.
+// depth 0 is the standard form (any batch; `ctx` the (batch, n_samples,
+// r) video context, or null without video); depth 1 or 2 the
+// speculative form (batch 1, no video) with guess tables t2 and t3
+// (per-launch copies that it updates in place; t3 null at order 2) and
+// the hit counter `hits`.  `wstream` is the packed weight stream of one
+// step (pack_stream in the wrapper), `ks` (host, by PhaseKind) the slab
+// rows of each phase, and the ring has n_stages stages of stage_bytes.
+// Returns the cudaError_t of the launch.
 int movenet_ar_sampler_launch(
-    int fast, const float* front_cur, const float* front_past,
-    const float* w_fg, const float* b_fg, const float* w_out,
-    const float* b_out, const float* h1_w, const float* h1_b,
-    const float* h2_w, const float* h2_b, const float* fc0, const float* fp0,
-    const float* w_p0c, const float* w_prod, const int* dil, const int* off,
-    float* ring, const int* init_codes, int* out, const float* ctx, int batch,
-    int c_in, int r, int s, int n_layers, int sum_d, int rf, int n_samples,
-    int seed, int parity, float temperature, void* stream) {
+    int fast, int depth, int order, int adaptive, const float* front_cur,
+    const float* front_past, const float* b_fg, const float* b_out,
+    const float* h1_b, const float* h2_b, const float* fc0, const float* fp0,
+    const int* dil, const int* off, float* ring, const int* init_codes,
+    int* t2, int* t3, int* out, int* hits, const float* ctx,
+    const float* wstream, const int* ks, int stage_bytes, int n_stages,
+    int batch, int c_in, int r, int s, int n_layers, int sum_d, int rf,
+    int n_samples, int seed, int parity, float temperature, void* stream) {
   const bool has_ctx = ctx != nullptr;
-  Params p{front_cur, front_past, w_fg, b_fg, w_out, b_out, h1_w, h1_b,
-           h2_w, h2_b, fc0, fp0, w_p0c, w_prod, dil, off, ring, init_codes,
-           out, batch, c_in, r, s, n_layers, sum_d, rf, n_samples,
-           static_cast<uint32_t>(seed), parity, temperature, ctx};
-  const size_t smem = shared_bytes(c_in, r, s, n_layers, has_ctx);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (has_ctx)
-    return fast ? launch_standard<true, true>(p, smem, st)
-                : launch_standard<false, true>(p, smem, st);
-  return fast ? launch_standard<true, false>(p, smem, st)
-              : launch_standard<false, false>(p, smem, st);
-}
-
-// Launches the speculative sampler (B=1, one block) on `stream`; t2 and t3
-// are per-launch copies that it updates in place.  `wstream` is the
-// packed weight stream of one iteration (pack_spec_stream in the
-// wrapper), `ks` (host, by PhaseKind) the slab rows of each phase, and
-// the ring has n_stages stages of stage_bytes.  Returns the cudaError_t
-// of the launch.
-int movenet_ar_sampler_spec_launch(
-    int fast, int order, int depth, int adaptive, const float* front_cur,
-    const float* front_past, const float* w_fg, const float* b_fg,
-    const float* w_out, const float* b_out, const float* h1_w,
-    const float* h1_b, const float* h2_w, const float* h2_b, const float* fc0,
-    const float* fp0, const float* w_p0c, const float* w_prod, const int* dil,
-    const int* off, float* ring, const int* init_codes, int* t2, int* t3,
-    int* out, int* hits, const float* wstream, const int* ks,
-    int stage_bytes, int n_stages, int c_in, int r, int s, int n_layers,
-    int sum_d, int rf, int n_samples, int seed, int parity,
-    float temperature, void* stream) {
-  if ((order != 2 && order != 3) || (depth != 1 && depth != 2)
-      || (order == 3 && t3 == nullptr) || wstream == nullptr)
+  if (depth < 0 || depth > 2 || wstream == nullptr
+      || (depth > 0
+          && (batch != 1 || has_ctx || (order != 2 && order != 3)
+              || t2 == nullptr || hits == nullptr
+              || (order == 3 && t3 == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{front_cur, front_past, w_fg, b_fg, w_out, b_out, h1_w, h1_b,
-           h2_w, h2_b, fc0, fp0, w_p0c, w_prod, dil, off, ring, init_codes,
-           out, 1, c_in, r, s, n_layers, sum_d, rf, n_samples,
-           static_cast<uint32_t>(seed), parity, temperature, nullptr};
-  SpecParams q{t2, t3, hits, order, adaptive, wstream, stage_bytes, n_stages,
-               {}};
+  Params p{front_cur, front_past, b_fg, b_out, h1_b, h2_b, fc0, fp0, dil,
+           off, ring, init_codes, out, batch, c_in, r, s, n_layers, sum_d,
+           rf, n_samples, static_cast<uint32_t>(seed), parity, temperature,
+           ctx};
+  RingParams q{wstream, stage_bytes, n_stages, {}, t2, t3, hits, order,
+               adaptive};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fast)
-    return depth == 1 ? launch_spec<true, 2>(p, q, ks, st)
-                      : launch_spec<true, 3>(p, q, ks, st);
-  return depth == 1 ? launch_spec<false, 2>(p, q, ks, st)
-                    : launch_spec<false, 3>(p, q, ks, st);
+  switch (depth * 4 + (fast ? 2 : 0) + (has_ctx ? 1 : 0)) {
+    case 0: return launch_ring<false, 1, false>(p, q, ks, st);
+    case 1: return launch_ring<false, 1, true>(p, q, ks, st);
+    case 2: return launch_ring<true, 1, false>(p, q, ks, st);
+    case 3: return launch_ring<true, 1, true>(p, q, ks, st);
+    case 4: return launch_ring<false, 2, false>(p, q, ks, st);
+    case 6: return launch_ring<true, 2, false>(p, q, ks, st);
+    case 8: return launch_ring<false, 3, false>(p, q, ks, st);
+    default: return launch_ring<true, 3, false>(p, q, ks, st);
+  }
 }
 
-// Shared memory of the speculative kernel beside its ring, in bytes.
-long long movenet_ar_spec_fixed_bytes(int depth, int c_in, int r, int s,
-                                      int n_layers) {
+// Shared memory of the sampler beside its ring, in bytes (smem_layout's
+// "fixed" in the wrapper).
+long long movenet_ar_ring_fixed_bytes(int depth, int video, int c_in, int r,
+                                      int s, int n_layers) {
   return static_cast<long long>(
-      spec_fixed_bytes(depth + 1, c_in, r, s, n_layers));
+      ring_fixed_bytes(depth + 1, video != 0, c_in, r, s, n_layers));
 }
 
 // Launches the stream probe (one block) on `stream`; `out` takes 288
@@ -1479,7 +1120,7 @@ int movenet_ar_stream_probe(const float* src, int slab_bytes, int n_slabs,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  stream_probe_kernel<<<1, kSpecThreads, smem,
+  stream_probe_kernel<<<1, kRingThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       src, slab_bytes, n_slabs, passes, mode, n_stages, out);
   return static_cast<int>(cudaGetLastError());

@@ -230,9 +230,9 @@ class SamplerInputs:
     t3: Optional[np.ndarray] = None
     # video context (B, n_samples, R) float32: row t conditions step t
     ctx: Optional[torch.Tensor] = None
-    # the speculative kernel's packed weight streams by (chain count,
-    # slab bytes), on the weights' device (``pack_spec_stream``)
-    spec_stream: Dict[Tuple[int, int], torch.Tensor] = field(
+    # the kernel's packed weight streams by (chain count, slab bytes), on
+    # the weights' device (``pack_stream``)
+    streams: Dict[Tuple[int, int], torch.Tensor] = field(
         default_factory=dict)
 
     @property
@@ -381,91 +381,102 @@ def prepare(model: WaveNet, prompt_codes, n_samples: int,
         init_codes=torch.stack([prompt[:, -1],
                                 first.to(torch.int32)]).contiguous(),
         prompt=prompt, ctx=ctx, **spec)
-    s = model.skip_channels
-    if speculative and r % 4 == 0 and s % 4 == 0 and c_in % 4 == 0:
-        # the speculative kernel's weight stream, once per request
-        pack_spec_stream(inp, spec_depth + 1)
+    # the kernel's weight stream, once per request
+    pack_stream(inp, spec_depth + 1 if speculative else 1)
     return inp
 
 
-# ------------------------------------------- speculative weight stream
-# The speculative kernel reads its weights from a stream that a producer
-# warp copies, slab by slab, into a ring of shared-memory stages (1-D
-# bulk copies).  An iteration reads the same bytes in the same order
-# every time, so the stream is packed once per request, in the order the
-# kernel's phases consume it.  In a phase of n dot products, consumer
-# thread tid (of 256) runs dots tid, tid + 256, ... in turn, each over its
-# rows in index order; a thread's "virtual rows" are its dots' rows one
-# after the other, and the phase is kv virtual rows (the longest thread's
-# count) by ncols = min(n, 256) columns, cut into slabs of ks rows.  A
-# slab is (ks / 4, ncols, 4) floats: four rows of a thread lie in 16
-# bytes, and neighbouring threads read neighbouring 16 bytes.  Rows past a
-# thread's count are zero (never read).
-SPEC_CONSUMERS = 256
-SPEC_SMEM_LIMIT = 232_448      # bytes of shared memory a block can have
-SPEC_MAX_STAGES = 32
+# ------------------------------------------------------ the weight stream
+# The kernel reads its weights from a stream that a producer warp copies,
+# slab by slab, into a ring of shared-memory stages (1-D bulk copies).  A
+# step (an iteration of the speculative form) reads the same bytes in the
+# same order every time, so the stream is packed once per request, in the
+# order the kernel's phases consume it.  In a phase of n dot products,
+# consumer thread tid (of 256) runs dots tid, tid + 256, ... in turn, each
+# over its rows in index order; a dot is one or two segments (operand
+# vectors) of the same length, each padded to a multiple of 4 rows.  A
+# thread's "virtual rows" are its dots' padded rows one after the other,
+# and the phase is kv virtual rows (the longest thread's count) by ncols =
+# min(n, 256) columns, cut into slabs of ks rows.  A slab is (ks / 4,
+# ncols, 4) floats: four rows of a thread lie in 16 bytes, and
+# neighbouring threads read neighbouring 16 bytes.  Padding rows and rows
+# past a thread's count are zero (never read).
+CONSUMERS = 256
+SMEM_LIMIT = 232_448           # bytes of shared memory a block can have
+MAX_STAGES = 32
 # a slab's bytes where the widths allow.  One SM's bulk copies complete
 # one after another, so larger copies move more bytes a second (about 170
 # GB/s at 32 KB against 88 at 16 KB), and each slab costs the consumers a
 # fixed time whatever the ring's depth: at the flagship width an exact
-# iteration took 96.7 us with 16 KB slabs, 74.6 with 32 KB (in 2, 3 or 5
-# stages alike) and 67.7 with 64 KB in two stages (H100 80GB HBM3 at 700
-# W, utils/time_spec --probe and --variants)
-SPEC_SLAB_BYTES = 65536
-# the kernel's PhaseKind order
-SPEC_KINDS = ("A", "C", "H1", "H2", "F0", "M", "ML", "M2")
+# speculative iteration took 96.7 us with 16 KB slabs, 74.6 with 32 KB
+# (in 2, 3 or 5 stages alike) and 67.7 with 64 KB in two stages (H100
+# 80GB HBM3 at 700 W, utils/time_spec --probe and --variants)
+SLAB_BYTES = 65536
+# the kernel's PhaseKind order (csrc/ar_layout.cuh)
+KINDS = ("A", "C", "H1", "H2", "F0", "M", "ML", "M2", "P")
 _FORM_KINDS = {False: ("A", "C", "H1", "H2"),
                True: ("F0", "M", "ML", "M2", "H1", "H2")}
 _KWARPS = 8
 
 
-def spec_phase_dots(kind: str, r: int, s: int, c: int):
-    """[(first dot, end, rows)]: the dot products of one phase, by index,
-    with their lengths.  A: exact fg over [h | tap] (the two halves of
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def phase_dots(kind: str, r: int, s: int, c: int, n_layers: int):
+    """[(first dot, end, rows of a segment, segments)]: the dot products
+    of one phase, by index.  A: exact fg over [h | tap] (the two halves of
     W_fg as separate dots); C: exact res/skip outputs; H1, H2: the head;
     F0: fast layer 0's tap product; M: fast gated @ w_prod, the next
-    layer's [h | tap] @ W_fg, the res/skip outputs; ML: the last layer's
-    M (outputs only); M2: the late chains' next W_fg product."""
+    layer's [h | tap] @ W_fg (two segments), the res/skip outputs; ML:
+    the last layer's M (outputs only); M2: the late speculative chains'
+    next W_fg product over [h | another chain's h_next]; P: the video
+    context's product ctx_t @ W_ctx[l] of every layer."""
     r2, rs = 2 * r, r + s
-    return {"A": [(0, 2 * r2, r)], "C": [(0, rs, r)], "H1": [(0, c, s)],
-            "H2": [(0, c, c)], "F0": [(0, r2, r)],
-            "M": [(0, r2, r), (r2, 2 * r2, r2), (2 * r2, 2 * r2 + rs, r)],
-            "ML": [(0, rs, r)], "M2": [(0, r2, r2)]}[kind]
+    return {"A": [(0, 2 * r2, r, 1)], "C": [(0, rs, r, 1)],
+            "H1": [(0, c, s, 1)], "H2": [(0, c, c, 1)],
+            "F0": [(0, r2, r, 1)],
+            "M": [(0, r2, r, 1), (r2, 2 * r2, r, 2),
+                  (2 * r2, 2 * r2 + rs, r, 1)],
+            "ML": [(0, rs, r, 1)], "M2": [(0, r2, r, 2)],
+            "P": [(0, n_layers * r2, r, 1)]}[kind]
 
 
 @functools.lru_cache(maxsize=None)
-def spec_phase_shape(kind: str, r: int, s: int, c: int,
-                     slab_bytes: int = SPEC_SLAB_BYTES) -> dict:
+def phase_shape(kind: str, r: int, s: int, c: int, n_layers: int,
+                slab_bytes: int = SLAB_BYTES) -> dict:
     """n dots, slab rows ks, virtual rows kv, columns, bytes of a slab and
-    slabs of one phase (the kernel checks the same in phase_shape).  ks is
-    the largest of 128, 64, ..., 4 that divides every dot's rows (in M2
-    also R, where a chain's h ends and another chain's h_next begins)
-    and keeps a slab within ``slab_bytes``, else 4."""
-    ranges = spec_phase_dots(kind, r, s, c)
+    slabs of one phase (the kernel checks the same in phase_shape of
+    csrc/ar_layout.cuh).  ks is the largest of 128, 64, ..., 8 that
+    divides the phase's padded segment (so that no slab spans two
+    segments) and keeps a slab within ``slab_bytes``, else 4."""
+    ranges = phase_dots(kind, r, s, c, n_layers)
     n = ranges[-1][1]
-    lens = [k for _, _, k in ranges] + ([r] if kind == "M2" else [])
-    ncols = min(n, SPEC_CONSUMERS)
-    ks = next((q for q in (128, 64, 32, 16, 8) if all(k % q == 0 for k in lens)
+    segp = _round4(ranges[0][2])     # one segment length per phase
+    ncols = min(n, CONSUMERS)
+    ks = next((q for q in (128, 64, 32, 16, 8) if segp % q == 0
                and 4 * q * ncols <= slab_bytes), 4)
-    rows = np.zeros(-(-n // SPEC_CONSUMERS) * SPEC_CONSUMERS, np.int64)
-    for a, b, k in ranges:
-        rows[a:b] = k
-    kv = int(rows.reshape(-1, SPEC_CONSUMERS).sum(0)[:ncols].max())
+    rows = np.zeros(-(-n // CONSUMERS) * CONSUMERS, np.int64)
+    for a, b, _, m in ranges:
+        rows[a:b] = m * segp
+    kv = int(rows.reshape(-1, CONSUMERS).sum(0)[:ncols].max())
     return dict(n=n, ks=ks, kv=kv, ncols=ncols, slab_bytes=4 * ks * ncols,
                 n_slabs=kv // ks)
 
 
-def spec_phases(fast: bool, nch: int, dilations) -> List[Tuple[str, int]]:
-    """The phases of one speculative iteration that read the stream, in
-    the kernel's order, as (kind, layer).  Fast layer l's late chains
-    (those whose next tap is another chain's fresh h: d(l+1) < nch) read
-    W_fg[l+1] a second time in M2, so those rows are in the stream
-    twice."""
+def stream_phases(fast: bool, nch: int, dilations, video: bool = False
+                  ) -> List[Tuple[str, int]]:
+    """The phases of one step (speculative: iteration) that read the
+    stream, in the kernel's order, as (kind, layer).  With video, P
+    first.  Fast layer l's late speculative chains (those whose next tap
+    is another chain's fresh h: d(l+1) < nch) read W_fg[l+1] a second
+    time in M2, so those rows are in the stream twice."""
     n_layers = len(dilations)
+    out = [("P", -1)] if video else []
     if not fast:
-        out = [(k, l) for l in range(n_layers) for k in ("A", "C")]
+        out += [(k, l) for l in range(n_layers) for k in ("A", "C")]
     else:
-        out = [("F0", 0)]
+        out.append(("F0", 0))
         for l in range(n_layers):
             if l + 1 < n_layers:
                 out.append(("M", l))
@@ -476,55 +487,62 @@ def spec_phases(fast: bool, nch: int, dilations) -> List[Tuple[str, int]]:
     return out + [("H1", -1), ("H2", -1)]
 
 
-def _check_spec_widths(r: int, s: int, c: int) -> None:
-    if r % 4 or s % 4 or c % 4:
-        raise ValueError(
-            "the speculative kernel's weight stream needs R, S and C to be "
-            f"multiples of 4 (got R={r}, S={s}, C={c}); use the standard "
-            "sampler (speculative=False)")
+def chain_floats(c: int, r: int, s: int) -> int:
+    """Floats of one chain's buffers (chain_offsets in
+    csrc/ar_layout.cuh): x = [h | tap], h_next, part0, part1, gated,
+    skip, act, scores, each rounded up to a multiple of 4."""
+    r4 = _round4(r)
+    return 4 * r4 + 2 * _round4(2 * r) + _round4(s) + 2 * _round4(c)
 
 
-def spec_smem_layout(fast: bool, nch: int, c: int, r: int, s: int,
-                     n_layers: int, slab_bytes: int = SPEC_SLAB_BYTES,
-                     max_stages: int = SPEC_MAX_STAGES) -> dict:
-    """Shared memory of the speculative kernel: the chain buffers, biases
-    and tables (``fixed`` bytes, ``spec_fixed_bytes`` in the kernel source),
-    the ring's stages (each the form's largest slab, with its two
-    mbarriers) and as many of them as fit, up to ``max_stages``; raises
-    when two stages do not fit beside the rest."""
-    _check_spec_widths(r, s, c)
-    chain = 2 * r + r + 2 * r + 2 * r + r + s + 2 * c
-    stage = max(spec_phase_shape(k, r, s, c, slab_bytes)["slab_bytes"]
-                for k in _FORM_KINDS[fast])
+def smem_layout(fast: bool, nch: int, c: int, r: int, s: int,
+                n_layers: int, video: bool = False,
+                slab_bytes: int = SLAB_BYTES,
+                max_stages: int = MAX_STAGES) -> dict:
+    """Shared memory of the kernel for ``nch`` chains (1: the standard
+    form): the chain buffers, the video context's row and per-step bias,
+    the biases and tables (``fixed`` bytes, ring_fixed_bytes in
+    csrc/ar_layout.cuh), the ring's stages (each the form's largest slab,
+    with its two mbarriers) and as many of them as fit, up to
+    ``max_stages``; raises, with the byte counts, when two stages do not
+    fit beside the rest."""
+    kinds = _FORM_KINDS[fast] + (("P",) if video else ())
+    stage = max(phase_shape(k, r, s, c, n_layers, slab_bytes)["slab_bytes"]
+                for k in kinds)
+    ctx = _round4(r) + n_layers * 2 * r if video else 0
     biases = n_layers * (2 * r + r + s) + 2 * c
-    fixed = 4 * (nch * chain + (nch - 1) * n_layers * r + biases + _KWARPS) \
+    fixed = 4 * (nch * chain_floats(c, r, s) + ctx + (nch - 1) * n_layers * r
+                 + biases + _KWARPS) \
         + 4 * (_KWARPS + c + 4 + 2 * n_layers + 3 * n_layers + 4)
     per_stage = stage + 16
-    n_stages = min(max_stages, SPEC_MAX_STAGES,
-                   (SPEC_SMEM_LIMIT - fixed) // per_stage)
+    n_stages = min(max_stages, MAX_STAGES,
+                   (SMEM_LIMIT - fixed) // per_stage)
     if n_stages < 2:
+        form = ("speculative, depth %d" % (nch - 1) if nch > 1
+                else "standard") + (", video" if video else "")
         raise ValueError(
-            f"the speculative kernel needs {fixed + 2 * per_stage} bytes of "
-            f"shared memory at C={c}, R={r}, S={s}, L={n_layers}, depth "
-            f"{nch - 1} (chain buffers {fixed} + two ring stages of "
-            f"{per_stage}), above the {SPEC_SMEM_LIMIT:,} bytes a block "
-            "can have on this card")
+            f"the AR sampler kernel ({form}) needs {fixed + 2 * per_stage} "
+            f"bytes of shared memory at C={c}, R={r}, S={s}, L={n_layers} "
+            f"(chain buffers, biases and tables {fixed} + two ring stages "
+            f"of {per_stage}), above the {SMEM_LIMIT:,} bytes a block can "
+            "have on this card")
     return dict(fixed=fixed, stage_bytes=stage, n_stages=n_stages,
                 total=fixed + n_stages * per_stage)
 
 
 @functools.lru_cache(maxsize=16)
 def _stream_index(fast: bool, nch: int, dilations: Tuple[int, ...], r: int,
-                  s: int, c: int, slab_bytes: int = SPEC_SLAB_BYTES
-                  ) -> torch.Tensor:
+                  s: int, c: int, slab_bytes: int = SLAB_BYTES,
+                  video: bool = False) -> torch.Tensor:
     """int32 index (CPU) of every stream float into the flat
     concatenation of w_fg, w_out, h1_w, h2_w (fast: then w_p0c, w_prod)
-    and one zero."""
+    and one zero.  With video W_fg is (L, 3R, 2R) and w_p0c (2R, 2R)."""
     n_layers = len(dilations)
     r2, rs = 2 * r, r + s
-    sizes = [n_layers * r2 * r2, n_layers * r * rs, s * c, c * c]
+    kin = 3 * r if video else r2           # rows of a layer's W_fg
+    sizes = [n_layers * kin * r2, n_layers * r * rs, s * c, c * c]
     if fast:
-        sizes += [r * r2, n_layers * r * r2]
+        sizes += [(kin - r) * r2, n_layers * r * r2]
     offs = np.concatenate([[0], np.cumsum(sizes)])
     o_fg, o_out, o_h1, o_h2 = offs[:4]
     zero = offs[len(sizes)]
@@ -533,7 +551,7 @@ def _stream_index(fast: bool, nch: int, dilations: Tuple[int, ...], r: int,
         """(first element of dot i's column, row stride)."""
         if kind == "A":
             half, j = i // r2, i % r2
-            return o_fg + l * r2 * r2 + half * r * r2 + j, r2
+            return o_fg + l * kin * r2 + half * r * r2 + j, r2
         if kind in ("C", "ML"):
             return o_out + l * r * rs + i, rs
         if kind in ("H1", "H2"):
@@ -541,29 +559,38 @@ def _stream_index(fast: bool, nch: int, dilations: Tuple[int, ...], r: int,
         if kind == "F0":
             return offs[4] + i, r2
         if kind == "M2":
-            return o_fg + (l + 1) * r2 * r2 + i, r2
+            return o_fg + (l + 1) * kin * r2 + i, r2
+        if kind == "P":               # W_ctx[l]; fast layer 0: w_p0c[R:]
+            ll, j = i // r2, i % r2
+            w_ctx = o_fg + ll * kin * r2 + r2 * r2 + j
+            if fast:
+                w_ctx = np.where(ll == 0, offs[4] + r * r2 + j, w_ctx)
+            return w_ctx, r2
         if a == 0:                     # M: gated @ w_prod[l]
             return offs[5] + l * r * r2 + i, r2
         if a == r2:                    # M: [h | tap] @ W_fg[l + 1]
-            return o_fg + (l + 1) * r2 * r2 + (i - r2), r2
+            return o_fg + (l + 1) * kin * r2 + (i - r2), r2
         return o_out + l * r * rs + (i - 2 * r2), rs
 
     parts = []
-    for kind, l in spec_phases(fast, nch, dilations):
-        sh = spec_phase_shape(kind, r, s, c, slab_bytes)
-        rows = np.zeros(-(-sh["n"] // SPEC_CONSUMERS) * SPEC_CONSUMERS,
-                        np.int64)
-        ranges = spec_phase_dots(kind, r, s, c)
-        for a, b, k in ranges:
-            rows[a:b] = k
-        grid = rows.reshape(-1, SPEC_CONSUMERS)
+    for kind, l in stream_phases(fast, nch, dilations, video):
+        sh = phase_shape(kind, r, s, c, n_layers, slab_bytes)
+        ranges = phase_dots(kind, r, s, c, n_layers)
+        segp = _round4(ranges[0][2])
+        rows = np.zeros(-(-sh["n"] // CONSUMERS) * CONSUMERS, np.int64)
+        for a, b, _, m in ranges:
+            rows[a:b] = m * segp
+        grid = rows.reshape(-1, CONSUMERS)
         start = (np.cumsum(grid, 0) - grid).ravel()   # a dot's first row
         v = np.full((sh["kv"], sh["ncols"]), zero, np.int64)
-        for a, b, k in ranges:
+        for a, b, k, m in ranges:
             dots = np.arange(a, b)
             base, stride = source(kind, l, a, dots)
-            kk = np.arange(k)[:, None]
-            v[start[dots][None, :] + kk, (dots % SPEC_CONSUMERS)[None, :]] = \
+            # virtual row -> the dot's own row; padding keeps the zero
+            seg, o = np.divmod(np.arange(m * segp), segp)
+            own = o < k
+            vr, kk = np.nonzero(own)[0][:, None], (seg * k + o)[own][:, None]
+            v[start[dots][None, :] + vr, (dots % CONSUMERS)[None, :]] = \
                 base[None, :] + kk * stride
         ks = sh["ks"]
         parts.append(v.reshape(sh["n_slabs"], ks // 4, 4, sh["ncols"])
@@ -571,27 +598,26 @@ def _stream_index(fast: bool, nch: int, dilations: Tuple[int, ...], r: int,
     return torch.from_numpy(np.concatenate(parts).astype(np.int32))
 
 
-def pack_spec_stream(inp: "SamplerInputs", nch: int,
-                     slab_bytes: int = SPEC_SLAB_BYTES) -> torch.Tensor:
-    """The speculative kernel's weight stream for ``nch`` chains (depth +
-    1): one float32 tensor on the weights' device, every weight bit for
-    bit, in the order and layout the kernel consumes it; cached on
-    ``inp``."""
-    got = inp.spec_stream.get((nch, slab_bytes))
+def pack_stream(inp: "SamplerInputs", nch: int,
+                slab_bytes: int = SLAB_BYTES) -> torch.Tensor:
+    """The kernel's weight stream for ``nch`` chains (1: the standard
+    form; speculative depth + 1): one float32 tensor on the weights'
+    device, every weight bit for bit, in the order and layout the kernel
+    consumes it; cached on ``inp``."""
+    got = inp.streams.get((nch, slab_bytes))
     if got is not None:
         return got
     w = inp.weights
     c_in, r = w["front_cur"].shape
     s = w["w_out"].shape[2] - r
-    _check_spec_widths(r, s, c_in)
     names = ["w_fg", "w_out", "h1_w", "h2_w"] \
         + (["w_p0c", "w_prod"] if inp.fast else [])
     flat = torch.cat([w[k].reshape(-1) for k in names]
                      + [w["w_fg"].new_zeros(1)])
     idx = _stream_index(inp.fast, nch, tuple(inp.dilations), r, s, c_in,
-                        slab_bytes)
+                        slab_bytes, inp.ctx is not None)
     stream = flat.index_select(0, idx.to(flat.device))
-    inp.spec_stream[(nch, slab_bytes)] = stream
+    inp.streams[(nch, slab_bytes)] = stream
     return stream
 
 
@@ -878,10 +904,8 @@ def ar_sampler_spec_plain(inp: SamplerInputs, order: Optional[int] = None,
 
 
 # ---------------------------------------------------------------- kernel
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
-             + [ctypes.c_float, ctypes.c_void_p])
-_SPEC_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 24
-                  + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 19
+             + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p])
 _PROBE_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 2)
 
@@ -891,16 +915,22 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = build.load("ar_sampler")
     if lib.movenet_ar_sampler_launch.argtypes is None:
-        lib.movenet_ar_sampler_launch.argtypes = _ARGTYPES
-        lib.movenet_ar_sampler_launch.restype = ctypes.c_int
-        lib.movenet_ar_sampler_spec_launch.argtypes = _SPEC_ARGTYPES
-        lib.movenet_ar_sampler_spec_launch.restype = ctypes.c_int
+        bind_library(lib)
+    return lib
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/ar_sampler.cu`` on ``lib`` (a
+    build of it for the card, or for the CPU: an emulation)."""
+    lib.movenet_ar_sampler_launch.argtypes = _ARGTYPES
+    lib.movenet_ar_sampler_launch.restype = ctypes.c_int
+    lib.movenet_ar_ring_fixed_bytes.argtypes = [ctypes.c_int] * 6
+    lib.movenet_ar_ring_fixed_bytes.restype = ctypes.c_longlong
+    lib.movenet_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.movenet_cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "movenet_ar_stream_probe"):
         lib.movenet_ar_stream_probe.argtypes = _PROBE_ARGTYPES
         lib.movenet_ar_stream_probe.restype = ctypes.c_int
-        lib.movenet_ar_spec_fixed_bytes.argtypes = [ctypes.c_int] * 5
-        lib.movenet_ar_spec_fixed_bytes.restype = ctypes.c_longlong
-        lib.movenet_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.movenet_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -943,20 +973,6 @@ def _check_inputs(inp: SamplerInputs, dev) -> tuple:
     return c_in, r, s, n_layers, sum_d
 
 
-def _weight_ptrs(inp: SamplerInputs) -> list:
-    """The 14 weight pointers of a launch, None for the fast-only ones in
-    exact mode."""
-    w = inp.weights
-
-    def ptr(k):
-        return w[k].data_ptr() if k in w else None
-
-    return [ptr("front_cur"), ptr("front_past"), ptr("w_fg"),
-            inp.b_fg.data_ptr(), ptr("w_out"), ptr("b_out"), ptr("h1_w"),
-            ptr("h1_b"), ptr("h2_w"), ptr("h2_b"), ptr("fc0"), ptr("fp0"),
-            ptr("w_p0c"), ptr("w_prod")]
-
-
 def _seed32(seed: int) -> int:
     seed = seed & _M32  # the kernel reads the int32 as uint32
     return seed - (1 << 32) if seed >= 1 << 31 else seed
@@ -977,33 +993,74 @@ def _device_of(inp: SamplerInputs, what: str):
     return dev
 
 
+def run_ring(lib, inp: SamplerInputs, depth: int = 0, order: int = 3,
+             adaptive: bool = False, stream=None,
+             slab_bytes: int = SLAB_BYTES, max_stages: int = MAX_STAGES):
+    """One launch of ``ar_sampler_kernel`` through ``lib`` (a library with
+    the C interface of ``csrc/ar_sampler.cu``) on ``stream``, on the
+    inputs' device: ((B, n - RF) int32 codes, 0-d int32 hits).  Depth 0
+    is the standard form (hits stay 0); depth 1 or 2 the speculative one
+    with ``order`` and ``adaptive``.  The launch copies the rings and, for
+    the speculative form, the guess tables (the kernel updates both in
+    place).  It takes CPU tensors with ``stream=None`` for a library built
+    for the CPU (an emulation of the kernel).  Raises where the ring and
+    the chain buffers do not fit the shared memory of a block;
+    ``slab_bytes`` and ``max_stages`` reshape the ring (for
+    measurements)."""
+    dev = inp.ring.device
+    c_in, r, s, n_layers, sum_d = _check_inputs(inp, dev)
+    nch = depth + 1
+    lay = smem_layout(inp.fast, nch, c_in, r, s, n_layers,
+                      inp.ctx is not None, slab_bytes, max_stages)
+    wstream = pack_stream(inp, nch, slab_bytes)
+    ks = (ctypes.c_int * len(KINDS))(*(
+        phase_shape(k, r, s, c_in, n_layers, slab_bytes)["ks"]
+        for k in KINDS))
+    i32 = torch.int32
+    out = torch.empty(inp.batch, inp.n_samples - inp.rf, dtype=i32,
+                      device=dev)
+    hits = torch.zeros((), dtype=i32, device=dev)
+    ring = inp.ring.clone()
+    dil = torch.tensor(inp.dilations, dtype=i32, device=dev)
+    off = torch.tensor(inp.offsets, dtype=i32, device=dev)
+    t2 = t3 = None
+    if depth:
+        t2 = torch.tensor(inp.t2, device=dev)
+        t3 = torch.tensor(inp.t3, device=dev) if order == 3 else None
+    w = inp.weights
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = lib.movenet_ar_sampler_launch(
+        int(inp.fast), depth, order, int(adaptive), ptr(w["front_cur"]),
+        ptr(w["front_past"]), ptr(inp.b_fg), ptr(w["b_out"]),
+        ptr(w["h1_b"]), ptr(w["h2_b"]), ptr(w.get("fc0")),
+        ptr(w.get("fp0")), ptr(dil), ptr(off), ptr(ring),
+        ptr(inp.init_codes), ptr(t2), ptr(t3), ptr(out), ptr(hits),
+        ptr(inp.ctx), ptr(wstream), ks, lay["stage_bytes"], lay["n_stages"],
+        inp.batch, c_in, r, s, n_layers, sum_d, inp.rf, inp.n_samples,
+        _seed32(inp.seed), int(inp.parity_sampling), inp.temperature,
+        stream)
+    _raise_on(lib, err, "ar_sampler")
+    return out, hits
+
+
 def ar_sampler(inp: SamplerInputs) -> torch.Tensor:
     """The kernel's wrapper: (B, n - RF) int32 codes.  Tensors on the CPU
     take ``ar_sampler_plain``; CUDA tensors take one launch of
-    ``csrc/ar_sampler.cu`` on the current stream (the ``HAS_CTX`` form
-    when the inputs carry video context)."""
+    ``csrc/ar_sampler.cu``'s ``ar_sampler_kernel`` in its standard form
+    (one block a stream, the ``HAS_CTX`` form when the inputs carry video
+    context) on the current stream: a producer warp bulk-copies the
+    request's packed weight stream (``pack_stream``, cached on ``inp``)
+    through a ring of shared-memory stages to 8 consumer warps.  Raises
+    where that ring does not fit a block's shared memory."""
     dev = _device_of(inp, "ar_sampler")
     if dev.type == "cpu":
         return ar_sampler_plain(inp)
-    c_in, r, s, n_layers, sum_d = _check_inputs(inp, dev)
-    i32 = torch.int32
-    batch = inp.batch
-    out = torch.empty(batch, inp.n_samples - inp.rf, dtype=i32, device=dev)
-    ring = torch.empty_like(inp.ring)
-    ring.copy_(inp.ring)
-    dil = torch.tensor(inp.dilations, dtype=i32, device=dev)
-    off = torch.tensor(inp.offsets, dtype=i32, device=dev)
-    lib = _kernel_lib()
     with torch.cuda.device(dev):  # launch on the tensors' own card
-        err = lib.movenet_ar_sampler_launch(
-            int(inp.fast), *_weight_ptrs(inp),
-            dil.data_ptr(), off.data_ptr(), ring.data_ptr(),
-            inp.init_codes.data_ptr(), out.data_ptr(),
-            None if inp.ctx is None else inp.ctx.data_ptr(), batch, c_in,
-            r, s, n_layers, sum_d, inp.rf, inp.n_samples, _seed32(inp.seed),
-            int(inp.parity_sampling), inp.temperature,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "ar_sampler")
+        out, _ = run_ring(_kernel_lib(), inp,
+                          stream=torch.cuda.current_stream(dev).cuda_stream)
     launch_counts[inp.name] += 1
     return out
 
@@ -1014,8 +1071,9 @@ def ar_sampler_spec(inp: SamplerInputs, order: Optional[int] = None,
     """The speculative kernel's wrapper: ((1, n - RF) int32 codes, 0-d
     int32 hits).  Tensors on the CPU take ``ar_sampler_spec_plain``; CUDA
     tensors take one launch of ``csrc/ar_sampler.cu``'s
-    ``ar_sampler_spec_kernel`` on the current stream, with per-launch
-    device copies of the guess tables, which it updates in place."""
+    ``ar_sampler_kernel`` in its speculative form on the current stream,
+    with per-launch device copies of the guess tables, which it updates
+    in place."""
     dev = _device_of(inp, "ar_sampler_spec")
     if dev.type == "cpu":
         return ar_sampler_spec_plain(inp, order, depth, adaptive)
@@ -1028,45 +1086,14 @@ def ar_sampler_spec(inp: SamplerInputs, order: Optional[int] = None,
 
 def run_spec(lib, inp: SamplerInputs, order: Optional[int] = None,
              depth: Optional[int] = None, adaptive: Optional[bool] = None,
-             stream=None, slab_bytes: int = SPEC_SLAB_BYTES,
-             max_stages: int = SPEC_MAX_STAGES):
-    """One launch of the speculative kernel through ``lib`` (a library
-    with the C interface of ``csrc/ar_sampler.cu``) on ``stream``, on
-    the inputs' device: ((1, n - RF) int32 codes, 0-d int32 hits).
-    ``ar_sampler_spec`` calls it for CUDA tensors; it takes CPU tensors
-    with ``stream=None`` for a library built for the CPU (an emulation
-    of the kernel).  Raises where the ring and the chain buffers do not
-    fit the shared memory of a block.  ``slab_bytes`` and ``max_stages``
-    reshape the ring (for measurements)."""
-    dev = inp.ring.device
+             stream=None, slab_bytes: int = SLAB_BYTES,
+             max_stages: int = MAX_STAGES):
+    """``run_ring`` in the speculative form, with order, depth and
+    adaptivity defaulting to the ones ``prepare`` was given: ((1, n - RF)
+    int32 codes, 0-d int32 hits)."""
     order, depth, adaptive = _spec_options(inp, order, depth, adaptive)
-    c_in, r, s, n_layers, sum_d = _check_inputs(inp, dev)
-    lay = spec_smem_layout(inp.fast, depth + 1, c_in, r, s, n_layers,
-                           slab_bytes, max_stages)
-    wstream = pack_spec_stream(inp, depth + 1, slab_bytes)
-    ks = (ctypes.c_int * len(SPEC_KINDS))(*(
-        spec_phase_shape(k, r, s, c_in, slab_bytes)["ks"]
-        for k in SPEC_KINDS))
-    i32 = torch.int32
-    out = torch.empty(1, inp.n_samples - inp.rf, dtype=i32, device=dev)
-    hits = torch.zeros((), dtype=i32, device=dev)
-    ring = inp.ring.clone()
-    dil = torch.tensor(inp.dilations, dtype=i32, device=dev)
-    off = torch.tensor(inp.offsets, dtype=i32, device=dev)
-    # per-launch copies: the kernel updates them in place
-    t2 = torch.tensor(inp.t2, device=dev)
-    t3 = torch.tensor(inp.t3, device=dev) if order == 3 else None
-    err = lib.movenet_ar_sampler_spec_launch(
-        int(inp.fast), order, depth, int(adaptive), *_weight_ptrs(inp),
-        dil.data_ptr(), off.data_ptr(), ring.data_ptr(),
-        inp.init_codes.data_ptr(), t2.data_ptr(),
-        None if t3 is None else t3.data_ptr(), out.data_ptr(),
-        hits.data_ptr(), wstream.data_ptr(), ks, lay["stage_bytes"],
-        lay["n_stages"], c_in, r, s, n_layers, sum_d, inp.rf,
-        inp.n_samples, _seed32(inp.seed), int(inp.parity_sampling),
-        inp.temperature, stream)
-    _raise_on(lib, err, "ar_sampler_spec")
-    return out, hits
+    return run_ring(lib, inp, depth, order, adaptive, stream, slab_bytes,
+                    max_stages)
 
 
 PROBE_MODES = {"bulk copy": 0, "bulk copy + smem reads": 2,
@@ -1085,7 +1112,7 @@ def stream_probe(n_bytes: int, mode: str, passes: int = 8,
     dev = torch.device("cuda", torch.cuda.current_device())
     n_slabs = -(-int(n_bytes) // slab_bytes)
     src = torch.randn(n_slabs * slab_bytes // 4, device=dev)
-    out = torch.empty(SPEC_CONSUMERS + 32, device=dev)
+    out = torch.empty(CONSUMERS + 32, device=dev)
     lib = _kernel_lib()
     st = torch.cuda.current_stream(dev).cuda_stream
 

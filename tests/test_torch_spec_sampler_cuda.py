@@ -1,5 +1,5 @@
 """The speculative sampler kernel (csrc/ar_sampler.cu,
-ar_sampler_spec_kernel) against its plain torch version and against the
+ar_sampler_kernel<FAST, NCH > 1, false>) against its plain torch version and against the
 standard kernel, on a CUDA GPU.  Imports only torch and the port, so that
 it runs on a machine without JAX:
 
@@ -132,9 +132,8 @@ def test_spec_kernel_matches_plain_where_the_stream_wraps_the_ring(
     inp = ars.prepare(model, prompt, rf + 201, temperature=temperature,
                       seed=3, fast=fast, speculative=True,
                       spec_order=order, spec_depth=depth)
-    lay = ars.spec_smem_layout(fast, depth + 1, 256, 64, 64,
-                               len(model.dilations))
-    stream = inp.spec_stream[(depth + 1, ars.SPEC_SLAB_BYTES)]
+    lay = ars.smem_layout(fast, depth + 1, 256, 64, 64, len(model.dilations))
+    stream = inp.streams[(depth + 1, ars.SLAB_BYTES)]
     ring_bytes = lay["n_stages"] * lay["stage_bytes"]
     assert 4 * stream.numel() > 4 * ring_bytes     # several times the ring
     got, hits = ars.ar_sampler_spec(inp)
@@ -161,6 +160,34 @@ def test_spec_kernel_codes_equal_standard_kernel_where_the_stream_wraps(
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     assert int(hits) == simulate_spec_hits(got[0].cpu().numpy(), 256, rf,
                                            3, depth)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order,depth", [(3, 1), (2, 2)])
+@pytest.mark.parametrize("fast", [False, True])
+def test_spec_kernel_at_widths_not_multiples_of_4(order, depth, fast):
+    """C=30, R=10, S=6: the stream pads each dot's segments to 4 rows, and
+    the chains' codes still equal the plain version's and the standard
+    kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(layer_size=3, stack_size=2, input_channels=30,
+                      residual_channels=10, skip_channels=6)
+    model = make_wavenet(cfg, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        model.head2.kernel.mul_(10.0)
+    model = model.to("cuda").eval()
+    rf = model.receptive_fields
+    prompt = np.random.default_rng(5).integers(0, 30, size=(1, rf))
+    inp = ars.prepare(model, prompt, rf + 301, fast=fast, speculative=True,
+                      spec_order=order, spec_depth=depth)
+    got, hits = ars.ar_sampler_spec(inp)
+    want, want_hits = ars.ar_sampler_spec_plain(inp)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert int(hits) == int(want_hits)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  ars.ar_sampler(inp).cpu().numpy())
 
 
 @pytest.mark.cuda
