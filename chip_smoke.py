@@ -9,14 +9,20 @@ Phases (any failure exits non-zero and prints no result):
      registers and spills of every kernel, and for the save backward's
      tensor-core kernels (stack_bwd_layer_kernel, stack_wgrad_kernel)
      their dynamic shared memory too; the dynamic shared memory of the
-     four ar_sampler_spec_kernel instantiations at the flagship width
-     (their ring of stages beside the chain buffers, the kernel's and the
-     wrapper's sizes equal);
+     eight ar_sampler_kernel instantiations (the standard form, exact and
+     fast, with and without video; the speculative one at depths 1 and 2)
+     at the flagship width (their ring of stages beside the chain
+     buffers, the kernel's and the wrapper's sizes equal);
   3. kernel vs plain: the AR sampler kernel and its plain torch version
      give equal codes at the flagship sampler width (layer 10 x stack 3,
      C=256, R=S=64, RF=3072; seeded random weights, head2 x 10) for
      n = RF + 2048: greedy B=1 and B=8, exact and fast, and T=1.0 with
-     parity sampling at B=8, fast, seed 3;
+     parity sampling at B=8, fast, seed 3; each case's us per step and
+     its stream bound: the step's packed weight stream times the steps
+     over the rate at which one block moves that stream into its SM,
+     measured here (ops/cuda/ar_sampler.stream_probe: bulk copies into
+     the kernel's two 64 KB stages and grouped __ldg, the faster), once
+     for the standard and speculative cases alike;
   4. spec kernel vs plain: the speculative kernel and its plain version
      give equal (codes, hits) at the same width and n, B=1: greedy exact
      order 3 depth 1, greedy fast o3 d1 (the serve default form), greedy
@@ -26,10 +32,8 @@ Phases (any failure exits non-zero and prints no result):
      on the card at the fixture's width), where hits must be > 0; each
      case's time per iteration (generated samples less hits) beside the
      standard kernel's step of the same form, and its stream bound: the
-     iteration's packed weight stream times the iterations over the rate
-     at which one block moves that stream into its SM, measured here
-     (ops/cuda/ar_sampler.stream_probe: bulk copies and grouped __ldg,
-     the faster);
+     iteration's packed weight stream times the iterations over the
+     single-block rate of phase 3;
   5. serve (the main path): ``serve()`` on a flagship checkpoint in a
      temp dir, once with the default options (fast sampler, speculative
      1) and once with the exact sampler; after warmup speculation must be
@@ -48,7 +52,8 @@ Phases (any failure exits non-zero and prints no result):
      plain version give equal codes at the flagship width (its video
      encoder maps 160 frames to 160,000 samples) for n = RF + 2048:
      greedy B=1 and B=8, exact and fast, and T=1.0 parity B=8 fast seed
-     3, prompted and conditioned by the clips;
+     3, prompted and conditioned by the clips; us per step and stream
+     bound as in phase 3;
   8. generate CLI with --dataset (the main path of this form): a
      ``use_video`` checkpoint of the same weights; greedy B=8 writes 8
      WAVs of n frames with one ``ar_sampler_ctx_fast`` launch and the
@@ -287,11 +292,12 @@ def time_cuda(torch, fn, repeats: int) -> float:
     return start.elapsed_time(stop) / repeats
 
 
-def phase_compare(torch, np, model, rf, clips=None):
+def phase_compare(torch, np, model, rf, rate, clips=None):
     """Kernel vs plain on the same inputs; returns per-case records.
     Prompts are seeded random codes, or with ``clips`` (a loader batch
     of 8) the clips' first RF codes, and their video conditions the
-    steps."""
+    steps.  ``rate`` (GB/s) is the single-block stream rate behind each
+    case's stream bound."""
     from movenet_tpu_torch.ops.cuda import ar_sampler as ars
 
     cases = [("greedy B=1 exact", 1, 0.0, False, 0),
@@ -323,14 +329,22 @@ def phase_compare(torch, np, model, rf, clips=None):
         diff = (got != want).nonzero()
         err = int((got.long() - want.long()).abs().max())
         generated = batch * N_COMPARE
+        nbytes = 4 * ars.pack_stream(inp, 1).numel()
         rec = dict(label=label, name=inp.name, batch=batch, fast=fast,
                    equal=diff.shape[0] == 0, max_abs_err=err,
                    ms=kernel_ms, plain_ms=plain_ms,
                    sps=generated / kernel_ms * 1e3,
-                   plain_sps=generated / plain_ms * 1e3)
+                   plain_sps=generated / plain_ms * 1e3,
+                   us_per_step=kernel_ms * 1e3 / N_COMPARE,
+                   stream_bytes=nbytes,
+                   stream_bound_ms=stream_bound_ms(nbytes, N_COMPARE, rate))
         records.append(rec)
         msg = (f"compare {label}: equal={rec['equal']} kernel "
-               f"{kernel_ms:.2f} ms, plain {plain_ms:.1f} ms")
+               f"{kernel_ms:.2f} ms ({rec['us_per_step']:.2f} us/step), "
+               f"stream bound {rec['stream_bound_ms']:.3f} ms "
+               f"({rec['stream_bound_ms'] * 1e3 / N_COMPARE:.2f} us/step: "
+               f"{nbytes} bytes x {N_COMPARE} steps / {rate:.1f} GB/s), "
+               f"plain {plain_ms:.1f} ms")
         if diff.shape[0]:
             b, i = (int(v) for v in diff[0])
             margin = float(margins[b, i - 1]) if i > 0 else float("nan")
@@ -363,7 +377,7 @@ def spec_case(torch, np, ars, spec_sim, label, inp, order, depth, rate):
     iters_k = generated - int(hits)
     check(iters_k == iters, f"{label}: {iters_k} iterations against the "
           f"replay's {iters}")
-    nbytes = 4 * ars.pack_spec_stream(inp, depth + 1).numel()
+    nbytes = 4 * ars.pack_stream(inp, depth + 1).numel()
     rec = dict(label=label, name=inp.spec_name, batch=1, fast=inp.fast,
                equal=bool(torch.equal(got, want)) and int(hits) == int(
                    want_hits),
@@ -375,7 +389,7 @@ def spec_case(torch, np, ars, spec_sim, label, inp, order, depth, rate):
                standard_us_per_sample=standard_ms * 1e3 / generated,
                steps_per_iter=generated / iters, iters=iters,
                us_per_iter=kernel_ms * 1e3 / iters, stream_bytes=nbytes,
-               stream_bound_ms=nbytes * iters / (rate * 1e6))
+               stream_bound_ms=stream_bound_ms(nbytes, iters, rate))
     print(f"spec {label}: equal={rec['equal']} hits kernel {rec['hits']} "
           f"plain {rec['plain_hits']} replay {replay} "
           f"(x{rec['steps_per_iter']:.3f} steps/iteration), codes == "
@@ -392,9 +406,40 @@ def spec_case(torch, np, ars, spec_sim, label, inp, order, depth, rate):
     return rec
 
 
-def phase_spec_compare(torch, np, model, rf):
+def stream_rate(model) -> float:
+    """GB/s at which one block moves the flagship's fast stream (depth 1)
+    into its SM, the faster of bulk copies into a ring of the kernel's
+    stages and grouped __ldg: the rate behind every stream bound."""
+    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+
+    lay = ars.smem_layout(True, 2, model.input_channels,
+                          model.residual_channels, model.skip_channels,
+                          len(model.dilations))
+    nbytes = 4 * ars._stream_index(
+        True, 2, tuple(model.dilations), model.residual_channels,
+        model.skip_channels, model.input_channels).numel()
+    rates = {mode: ars.stream_probe(nbytes, mode, n_stages=lay["n_stages"],
+                                    slab_bytes=lay["stage_bytes"])
+             for mode in ("bulk copy", "grouped __ldg")}
+    print("stream rate of one block: " + ", ".join(
+        f"{m} {v:.1f} GB/s" for m, v in rates.items())
+        + f" ({nbytes} bytes, {lay['n_stages']} stages of "
+        f"{lay['stage_bytes']} bytes)", flush=True)
+    return max(rates.values())
+
+
+def stream_bound_ms(nbytes: int, steps: int, rate: float) -> float:
+    """The least time one SM could take to bring a stream of ``nbytes``
+    in ``steps`` times at ``rate`` GB/s: the stream bound of an AR launch
+    (each of B blocks streams the weights on its own SM, so B does not
+    enter while L2 keeps up)."""
+    return nbytes * steps / (rate * 1e6)
+
+
+def phase_spec_compare(torch, np, model, rf, rate):
     """Speculative kernel vs plain, at flagship width and on the card-
-    trained fixture; returns per-case records."""
+    trained fixture; returns per-case records.  ``rate`` as in
+    ``phase_compare``."""
     from movenet_tpu_torch.ops.cuda import ar_sampler as ars
     from movenet_tpu_torch.utils import fixtures, spec_sim
 
@@ -402,22 +447,6 @@ def phase_spec_compare(torch, np, model, rf):
              ("greedy fast o3 d1", 0.0, True, 3, 1, 0),
              ("greedy fast o2 d2", 0.0, True, 2, 2, 0),
              ("T=1.0 parity fast o3 d1", 1.0, True, 3, 1, 3)]
-    # how fast one block moves the flagship's fast stream into its SM, in
-    # a ring of the kernel's stages and with grouped __ldg
-    lay = ars.spec_smem_layout(True, 2, model.input_channels,
-                               model.residual_channels, model.skip_channels,
-                               len(model.dilations))
-    nbytes = 4 * ars._stream_index(
-        True, 2, tuple(model.dilations), model.residual_channels,
-        model.skip_channels, model.input_channels).numel()
-    rates = {mode: ars.stream_probe(nbytes, mode, n_stages=lay["n_stages"],
-                                    slab_bytes=lay["stage_bytes"])
-             for mode in ("bulk copy", "grouped __ldg")}
-    rate = max(rates.values())
-    print("spec stream rate of one block: " + ", ".join(
-        f"{m} {v:.1f} GB/s" for m, v in rates.items())
-        + f" ({nbytes} bytes, {lay['n_stages']} stages of "
-        f"{lay['stage_bytes']} bytes)", flush=True)
     rng = np.random.default_rng(2)
     records = []
     for label, temp, fast, order, depth, seed in cases:
@@ -829,9 +858,12 @@ def gated_bounds(b, t, r, s, win):
 
 
 def ar_bound(model, batch, steps, video=False):
-    """(bound_ms, bound_by) of one AR sampler launch: the weights read
-    once (with video W_ctx too, and the context rows of every step)
-    against the float32 operations of every step."""
+    """(bound_ms, bound_by) of one AR sampler launch on the whole card:
+    the weights read once (with video W_ctx too, and the context rows of
+    every step) against the float32 operations of every step.  Each
+    record's ``stream_bound_ms`` (``stream_bound_ms``) is the one-SM
+    bound of the standard and speculative forms alike, beside it in the
+    kernels line."""
     r, s, c = (model.residual_channels, model.skip_channels,
                model.input_channels)
     n_layers = len(model.dilations)
@@ -906,8 +938,8 @@ def bwd_smem_note(lib, kernel: str) -> str:
     return ""
 
 
-def spec_smem_report() -> None:
-    """The dynamic shared memory of the four speculative instantiations at
+def ring_smem_report() -> None:
+    """The dynamic shared memory of the eight AR kernel instantiations at
     the flagship width: the wrapper's layout, its fixed part checked
     against the kernel library's own size."""
     from movenet_tpu_torch.ops.cuda import ar_sampler as ars
@@ -916,17 +948,21 @@ def spec_smem_report() -> None:
     n_layers = FLAGSHIP["layer_size"] * FLAGSHIP["stack_size"]
     c, r, s = (FLAGSHIP[k] for k in ("input_channels", "residual_channels",
                                      "skip_channels"))
+    forms = [(depth, video) for depth in (0, 1, 2)
+             for video in ((False, True) if depth == 0 else (False,))]
     for fast in (False, True):
-        for depth in (1, 2):
-            lay = ars.spec_smem_layout(fast, depth + 1, c, r, s, n_layers)
-            fixed = lib.movenet_ar_spec_fixed_bytes(depth, c, r, s, n_layers)
+        for depth, video in forms:
+            lay = ars.smem_layout(fast, depth + 1, c, r, s, n_layers, video)
+            fixed = lib.movenet_ar_ring_fixed_bytes(depth, int(video), c, r,
+                                                    s, n_layers)
             check(fixed == lay["fixed"],
-                  f"spec shared memory: kernel {fixed}, wrapper "
+                  f"AR kernel shared memory: kernel {fixed}, wrapper "
                   f"{lay['fixed']} bytes")
-            print(f"  ar_sampler_spec_kernel<{int(fast)},{depth + 1}>: dynamic "
-                  f"shared memory {lay['total']} bytes at the flagship width "
-                  f"({lay['n_stages']} stages of {lay['stage_bytes']} bytes + "
-                  f"{fixed} for the chains, biases and tables)")
+            print(f"  ar_sampler_kernel<{int(fast)},{depth + 1},{int(video)}>:"
+                  f" dynamic shared memory {lay['total']} bytes at the "
+                  f"flagship width ({lay['n_stages']} stages of "
+                  f"{lay['stage_bytes']} bytes + {fixed} for the chains, "
+                  f"biases and tables)")
 
 
 def grid_line(label: str, by: dict) -> str:
@@ -2494,18 +2530,19 @@ def main() -> int:
                 note = bwd_smem_note(ks.library(), kernel) \
                     if name == "stack_kernel" else ""
                 print(f"  nvcc {name}: {kernel}: {what}{note}")
-        spec_smem_report()
+        ring_smem_report()
 
         phase = "kernel vs plain"
         mc, model = flagship_model(torch)
         rf = model.receptive_fields
         check(rf == 3072, f"flagship RF is {rf}")
-        records = phase_compare(torch, np, model, rf)
+        rate = stream_rate(model)
+        records = phase_compare(torch, np, model, rf, rate)
         bad = [r["label"] for r in records if not r["equal"]]
         check(not bad, f"kernel and plain disagree: {bad}")
 
         phase = "spec kernel vs plain"
-        spec_records = phase_spec_compare(torch, np, model, rf)
+        spec_records = phase_spec_compare(torch, np, model, rf, rate)
         bad = [r["label"] for r in spec_records
                if not (r["equal"] and r["hits"] == r["plain_hits"]
                        and r["equal_standard"]
@@ -2525,7 +2562,8 @@ def main() -> int:
             phase = "video kernel vs plain"
             ds = Path(tmp) / "clips"
             clips = video_clips(torch, np, ds, mc)
-            video_records = phase_compare(torch, np, model, rf, clips)
+            video_records = phase_compare(torch, np, model, rf, rate,
+                                          clips)
             bad = [r["label"] for r in video_records if not r["equal"]]
             check(not bad, f"video kernel and plain disagree: {bad}")
 
@@ -2662,9 +2700,10 @@ def main() -> int:
                           f"({twin['ms'] * 1e3 / N_COMPARE:.1f} us/step)")
             print(f"time {r['label']}: kernel {r['sps']:.0f} samples/s "
                   f"({r['ms']:.2f} ms for {r['batch']}x{N_COMPARE}, "
-                  f"{r['ms'] * 1e3 / N_COMPARE:.1f} us/step), plain "
-                  f"{r['plain_sps']:.0f} samples/s ({r['plain_ms']:.1f} ms)"
-                  f"{beside}; {card}", flush=True)
+                  f"{r['us_per_step']:.2f} us/step; stream bound "
+                  f"{r['stream_bound_ms'] * 1e3 / N_COMPARE:.2f} us/step), "
+                  f"plain {r['plain_sps']:.0f} samples/s ({r['plain_ms']:.1f}"
+                  f" ms){beside}; {card}", flush=True)
         for r in spec_records:
             print(f"time spec {r['label']}: {r['us_per_sample']:.3f} us per "
                   f"generated sample, {r['us_per_iter']:.3f} us per "
@@ -2695,9 +2734,10 @@ def main() -> int:
                 "matches_plain": all(r["equal"] for r in mine),
                 "shape": f"B=1, n=RF+{N_COMPARE}"
                 + (", video (160 frames)" if video else ""),
-                **({"stream_bound_ms": timed["stream_bound_ms"],
-                    "us_per_iteration": timed["us_per_iter"]}
-                   if "stream_bound_ms" in timed else {})})
+                "stream_bound_ms": timed["stream_bound_ms"],
+                **({"us_per_iteration": timed["us_per_iter"]}
+                   if "us_per_iter" in timed
+                   else {"us_per_step": timed["us_per_step"]})})
         mc = cfg.model_config
         bounds = train_bounds(
             2, mc.max_audio_frames, len(bd_model.dilations),

@@ -1,10 +1,12 @@
-"""Device time of the speculative AR kernel per iteration, beside the
-standard kernel's step, optionally against another copy of the kernel
-source on the same card; and the single-block stream rates that the
-kernel's design rests on.
+"""Device time of the AR kernel: the speculative form per iteration,
+beside the standard form's step, or (``--standard``) the standard form
+per step at B = 1, 8 and 32, optionally against another copy of the
+kernel source on the same card; and the single-block stream rates that
+the kernel's design rests on.
 
     python -m movenet_tpu_torch.utils.time_spec [--parent [DIR]]
         [--probe] [--variants] [--repeats 3] [--no-fixture]
+    python -m movenet_tpu_torch.utils.time_spec --standard [--parent [DIR]]
     python -m movenet_tpu_torch.utils.time_spec --fetch-parent [DIR]
 
 Cases: the four flagship cases of ``chip_smoke.py``'s phase 4 (layer 10 x
@@ -19,6 +21,14 @@ replays from the codes; per-iteration time is kernel time over them.
 The standard kernel (same form, same inputs) gives the step it is
 compared with.  Times by CUDA events, mean of ``--repeats`` after a warm
 call.
+
+``--standard``: the four standard forms (exact, fast, and both with
+video: seeded random frames at the flagship's 160) at the flagship width,
+greedy, at B = 1, 8 and 32, n = RF + 2048, seeded prompts; per case the
+kernel ms and us per step of each side, and the stream bound per step:
+the packed stream's bytes over the single-block bulk-copy rate measured
+in the same run (two 64 KB stages, as the kernel's ring).  No speculative
+case runs.
 
 ``--parent DIR``: DIR holds another copy of ``ar_sampler.cu`` and its
 wrapper ``ar_sampler.py`` (default ``build/ab``; where they are missing,
@@ -125,13 +135,17 @@ def fetch_parent(parent: Path) -> None:
 
 def bind(mod, lib: ctypes.CDLL):
     """``mod`` (a copy of ``ops/cuda/ar_sampler.py``) launching through
-    ``lib``."""
-    lib.movenet_ar_sampler_launch.argtypes = mod._ARGTYPES
-    lib.movenet_ar_sampler_launch.restype = ctypes.c_int
-    lib.movenet_ar_sampler_spec_launch.argtypes = mod._SPEC_ARGTYPES
-    lib.movenet_ar_sampler_spec_launch.restype = ctypes.c_int
-    lib.movenet_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.movenet_cuda_error_string.restype = ctypes.c_char_p
+    ``lib``.  A copy with ``bind_library`` declares its own C interface;
+    an older one (one launch function per form) is declared here."""
+    if hasattr(mod, "bind_library"):
+        mod.bind_library(lib)
+    else:
+        lib.movenet_ar_sampler_launch.argtypes = mod._ARGTYPES
+        lib.movenet_ar_sampler_launch.restype = ctypes.c_int
+        lib.movenet_ar_sampler_spec_launch.argtypes = mod._SPEC_ARGTYPES
+        lib.movenet_ar_sampler_spec_launch.restype = ctypes.c_int
+        lib.movenet_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.movenet_cuda_error_string.restype = ctypes.c_char_p
     mod._kernel_lib = lambda: lib
     return mod
 
@@ -169,7 +183,7 @@ def variant_sides():
         return dict(zip(VARIANTS, ex.map(one, VARIANTS)))
 
 
-def ptxas_text(log: str, kernel: str = "ar_sampler_spec_kernel") -> str:
+def ptxas_text(log: str, kernel: str = "ar_sampler_kernel") -> str:
     """ptxas' registers, spills and shared memory of each instantiation
     of ``kernel`` in an ``nvcc -Xptxas -v`` log."""
     out, cur = [], None
@@ -272,8 +286,8 @@ def time_case(torch, sides, variants, label, inp, order, depth, repeats,
         c_in, r = inp.weights["front_cur"].shape
         s = inp.weights["w_out"].shape[2] - r
         for slab, most in RINGS:
-            lay = ars.spec_smem_layout(inp.fast, depth + 1, c_in, r, s,
-                                       len(inp.dilations), slab, most)
+            lay = ars.smem_layout(inp.fast, depth + 1, c_in, r, s,
+                                  len(inp.dilations), False, slab, most)
             runs[f"ring {lay['n_stages']} x {lay['stage_bytes']}"] = (
                 lambda slab=slab, most=most: ars.run_spec(
                     lib, inp, order, depth, None,
@@ -288,6 +302,77 @@ def time_case(torch, sides, variants, label, inp, order, depth, repeats,
     if not equal:
         raise RuntimeError(f"{label}: codes or hits differ across sides")
     return dict(ms=ms, iters=iters, std_us=std_us, gen=gen)
+
+
+# --standard: (label, fast, video) of the forms, and the batch sizes
+STANDARD_FORMS = (("exact", False, False), ("fast", True, False),
+                  ("video exact", False, True), ("video fast", True, True))
+STANDARD_BATCHES = (1, 8, 32)
+
+
+def ring_rate(torch) -> float:
+    """GB/s at which one block moves the flagship's fast stream into its
+    SM by bulk copies into two 64 KB stages, the kernel's ring."""
+    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+
+    dil = tuple([2 ** i for i in range(10)] * 3)
+    nbytes = ars._stream_index(True, 1, dil, 64, 64, 256).numel() * 4
+    lay = ars.smem_layout(True, 1, 256, 64, 64, len(dil))
+    return ars.stream_probe(nbytes, "bulk copy", n_stages=lay["n_stages"],
+                            slab_bytes=lay["stage_bytes"])
+
+
+def standard_inputs(torch, np, model):
+    """(label, prepared inputs) of each --standard case, in turn."""
+    from movenet_tpu_torch.config import ModelConfig
+    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+
+    rf = model.receptive_fields
+    frames = ModelConfig(**FLAGSHIP).max_video_frames
+    for batch in STANDARD_BATCHES:
+        prompt = np.random.default_rng(batch).integers(
+            0, model.input_channels, size=(batch, rf))
+        gen = torch.Generator(device="cuda").manual_seed(batch)
+        video = torch.rand(batch, frames, 64, 64, 1, generator=gen,
+                           device="cuda") * 255.0
+        for label, fast, with_video in STANDARD_FORMS:
+            yield f"{label} B={batch}", ars.prepare(
+                model, prompt, rf + N_GEN, fast=fast,
+                video=video if with_video else None)
+
+
+def time_standard(torch, sides, label, inp, repeats, rate, card) -> dict:
+    """Print one standard case's times; the codes of every side must be
+    bit-equal.  Returns {side: [ms, ...]}."""
+    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+
+    gen = inp.n_samples - inp.rf
+    runs = {side: (lambda m=m: m.ar_sampler(inp)) for side, m in sides.items()}
+    got = {side: fn() for side, fn in runs.items()}
+    torch.cuda.synchronize()
+    equal = all(torch.equal(c, got["this"]) for c in got.values())
+    parents = [side for side in sides if side != "this"]
+    ms = {}
+    for side in parents + ["this", "this"] + parents[::-1]:
+        ms.setdefault(side, []).append(events_ms(torch, runs[side], repeats))
+    nbytes = 4 * ars.pack_stream(inp, 1).numel()
+    bound_us = nbytes / (rate * 1e3)
+    parts = []
+    for side, vals in ms.items():
+        mean = sum(vals) / len(vals)
+        parts.append(f"{side} " + ", ".join(f"{v:.3f}" for v in vals)
+                     + f" ms ({mean * 1e3 / gen:.2f} us/step)")
+    for side in parents:
+        speed = (sum(ms[side]) / len(ms[side])) / (
+            sum(ms["this"]) / len(ms["this"]))
+        parts.append(f"this is {speed:.3f}x faster than {side}")
+    print(f"standard {label} (n = RF + {gen}, greedy): " + "; ".join(parts)
+          + f"; stream bound {bound_us:.2f} us/step ({nbytes} bytes / "
+          f"{rate:.1f} GB/s); codes {'bit-equal' if equal else 'DIFFER'} "
+          f"across sides; {card}", flush=True)
+    if not equal:
+        raise RuntimeError(f"standard {label}: codes differ across sides")
+    return ms
 
 
 def probe(torch, card) -> dict:
@@ -324,6 +409,7 @@ def main(argv=None) -> None:
     ap.add_argument("--probe", action="store_true")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--no-fixture", action="store_true")
+    ap.add_argument("--standard", action="store_true")
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args(argv)
     if args.fetch_parent:
@@ -349,6 +435,16 @@ def main(argv=None) -> None:
     sides = {"this": ars}
     for parent in args.parent or ():
         sides[parent.name] = parent_side(parent)
+    if args.standard:
+        rate = ring_rate(torch)
+        print(f"single-block bulk-copy rate into two 64 KB stages: "
+              f"{rate:.1f} GB/s; {card}", flush=True)
+        model = flagship_model(torch)
+        for label, inp in standard_inputs(torch, np, model):
+            with torch.no_grad():
+                time_standard(torch, sides, label, inp, args.repeats, rate,
+                              card)
+        return
     variants = variant_sides() if args.variants else {}
     for label, inp, order, depth in cases(torch, np, not args.no_fixture):
         with torch.no_grad():
