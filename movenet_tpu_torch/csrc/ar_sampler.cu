@@ -1,7 +1,8 @@
 // Autoregressive WaveNet sampler: the whole generation loop in one launch.
 //
 // Replaces two TPU kernels of movenet_tpu/ops/pallas/ar_sampler.py with
-// one kernel, ar_sampler_kernel<FAST, NCH, HAS_CTX>:
+// one kernel, ar_sampler_kernel<FAST, NCH, HAS_CTX, RAGGED> (RAGGED: a
+// width that is not a multiple of 4, see run_phase):
 //   NCH = 1     _make_kernel (pallas_call at ar_sampler.py:1088, from
 //               pallas_generate): B streams, one block each, with or
 //               without video context;
@@ -46,7 +47,8 @@
 // into slabs of ks rows of every thread's current dot, four rows of a
 // thread in 16 bytes beside its neighbours'; a dot's rows are padded to
 // a multiple of 4 (the consumer stops at the dot's own length, so padding
-// never enters an fmaf).  The producer walks that stream with 1-D bulk
+// never enters an fmaf; the chain buffers are padded alike, so every
+// operand starts 16-byte aligned).  The producer walks that stream with 1-D bulk
 // copies (TMA) into a ring of two 64 KB shared-memory stages, each with a
 // `full` and an `empty` mbarrier, across phases, layers, the head and
 // into the next step; the consumers' phase barriers are a named barrier
@@ -392,12 +394,15 @@ __device__ __forceinline__ void quad_fma_part(const float* const* x, int q,
 // dot from its own column (four rows in 16 bytes, beside its
 // neighbours'), one fmaf chain per chain k in row order.  A dot is one or
 // two segments of `seg` rows, each padded to segp = round4(seg) rows in
-// the stream; the fmaf's stop at the segment's own rows.  Every warp waits
-// on and releases every slab of the phase, whether it reads it or not.
+// the stream; the fmaf's stop at the segment's own rows.  Only a RAGGED
+// form (a width not a multiple of 4) has a segment that ends inside a
+// slab; the others take every slab whole (working out each slab's own
+// rows cost 2-5% of a step at the flagship width).  Every warp waits on
+// and releases every slab of the phase, whether it reads it or not.
 //   xs(i, row, x)   each chain's operand from virtual row `row` on (a
 //                   second segment's operand starts at segp)
 //   done(i, acc)    the dot's epilogue
-template <int NCH, int KIND, bool LEAKY, class Xs, class Done>
+template <int NCH, int KIND, bool LEAKY, bool RAGGED, class Xs, class Done>
 __device__ __forceinline__ void run_phase(Pipe& pp, const PhaseShape& sh,
                                           int R, int S, int C, Xs xs,
                                           Done done) {
@@ -414,8 +419,11 @@ __device__ __forceinline__ void run_phase(Pipe& pp, const PhaseShape& sh,
       const float* x[NCH];
       xs(i, row, x);
       // the rows of this slab that its segment owns
-      const int o = row >= segp ? row - segp : row;
-      const int nv = seg - o < sh.ks ? seg - o : sh.ks;
+      int nv = sh.ks;
+      if (RAGGED) {
+        const int o = row >= segp ? row - segp : row;
+        nv = seg - o < sh.ks ? seg - o : sh.ks;
+      }
       const int nq = nv >> 2;
       int q = 0;
       for (; q + 4 <= nq; q += 4) {
@@ -426,7 +434,7 @@ __device__ __forceinline__ void run_phase(Pipe& pp, const PhaseShape& sh,
         for (int u = 0; u < 4; ++u) quad_fma<NCH, LEAKY>(x, q + u, w[u], acc);
       }
       for (; q < nq; ++q) quad_fma<NCH, LEAKY>(x, q, slab[q * sh.ncols], acc);
-      if (nv & 3)
+      if (RAGGED && (nv & 3))
         quad_fma_part<NCH, LEAKY>(x, nq, nv & 3, slab[nq * sh.ncols], acc);
       row += sh.ks;
       if (row == len) {
@@ -442,7 +450,7 @@ __device__ __forceinline__ void run_phase(Pipe& pp, const PhaseShape& sh,
   }
 }
 
-template <bool FAST, int NCH, bool HAS_CTX>
+template <bool FAST, int NCH, bool HAS_CTX, bool RAGGED>
 __global__ void __launch_bounds__(kRingThreads, 1)
 ar_sampler_kernel(Params p, RingParams q) {
   static_assert(NCH == 1 || !HAS_CTX, "the speculative form has no video");
@@ -591,7 +599,7 @@ ar_sampler_kernel(Params p, RingParams q) {
     if (HAS_CTX) {
       // phase P: cb[l] = ctx_t @ W_ctx[l] + b_fg[l, b] for every layer;
       // fast layer 0 takes W_ctx_0 from the ctx rows of w_p0c
-      run_phase<1, kP, false>(
+      run_phase<1, kP, false, RAGGED>(
           pp, q.shape[kP], R, S, C,
           [&](int, int row, const float** x) { x[0] = xc + row; },
           [&](int i, const float* acc) { cb[i] = __fadd_rn(acc[0], bfg[i]); });
@@ -618,7 +626,7 @@ ar_sampler_kernel(Params p, RingParams q) {
           tapn[k] = more && jt >= 0 && jt < R && dn > k
               ? ringg[(on + (t + k) % dn) * R + jt] : 0.f;
         // phase A: fg partial sums over the h rows and the tap rows
-        run_phase<NCH, kA, false>(
+        run_phase<NCH, kA, false, RAGGED>(
             pp, q.shape[kA], R, S, C,
             [&](int i, int row, const float** x) {
               const int half = i / R2;
@@ -657,7 +665,7 @@ ar_sampler_kernel(Params p, RingParams q) {
                                              : ringg[(on + (t + k) % dn) * R + j];
           }
         }
-        run_phase<NCH, kC, false>(
+        run_phase<NCH, kC, false, RAGGED>(
             pp, q.shape[kC], R, S, C,
             [&](int, int row, const float** x) {
 #pragma unroll
@@ -697,7 +705,7 @@ ar_sampler_kernel(Params p, RingParams q) {
       fetch_taps(1);
       // layer 0's fg: fc0[c] + ((fp0[p] + tap0 @ w_p0c) + b_fg[0]); with
       // video the bias is cb[0], which holds the ctx rows' product
-      run_phase<NCH, kF0, false>(
+      run_phase<NCH, kF0, false, RAGGED>(
           pp, q.shape[kF0], R, S, C,
           [&](int, int row, const float** x) {
 #pragma unroll
@@ -753,7 +761,7 @@ ar_sampler_kernel(Params p, RingParams q) {
           }
         };
         if (more) {
-          run_phase<NCH, kM, false>(
+          run_phase<NCH, kM, false, RAGGED>(
               pp, q.shape[kM], R, S, C,
               [&](int i, int row, const float** x) {
                 const int o = i >= R2 && i < 2 * R2 ? oX : oG;
@@ -774,7 +782,7 @@ ar_sampler_kernel(Params p, RingParams q) {
                 }
               });
         } else {
-          run_phase<NCH, kML, false>(
+          run_phase<NCH, kML, false, RAGGED>(
               pp, q.shape[kML], R, S, C,
               [&](int, int row, const float** x) {
 #pragma unroll
@@ -788,7 +796,7 @@ ar_sampler_kernel(Params p, RingParams q) {
         // >= late repeats the last chain and is dropped)
         if (NCH > 1 && more && ready < NCH) {
           const int late = NCH - ready;
-          run_phase<NCH, kM2, false>(
+          run_phase<NCH, kM2, false, RAGGED>(
               pp, q.shape[kM2], R, S, C,
               [&](int, int row, const float** x) {
 #pragma unroll
@@ -809,7 +817,7 @@ ar_sampler_kernel(Params p, RingParams q) {
     }
 
     // ---- heads: y = leaky(skip) @ W1 + b1; logits = leaky(y) @ W2 + b2
-    run_phase<NCH, kH1, true>(
+    run_phase<NCH, kH1, true, RAGGED>(
         pp, q.shape[kH1], R, S, C,
         [&](int, int row, const float** x) {
 #pragma unroll
@@ -824,7 +832,7 @@ ar_sampler_kernel(Params p, RingParams q) {
     float local_max[NCH];
 #pragma unroll
     for (int k = 0; k < NCH; ++k) local_max[k] = -CUDART_INF_F;
-    run_phase<NCH, kH2, false>(
+    run_phase<NCH, kH2, false, RAGGED>(
         pp, q.shape[kH2], R, S, C,
         [&](int, int row, const float** x) {
 #pragma unroll
@@ -940,7 +948,7 @@ ar_sampler_kernel(Params p, RingParams q) {
 // row count does not divide its phase's padded segments, a slab does not
 // fit a stage, or the ring and the rest pass the shared memory a block
 // can have.
-template <bool FAST, int NCH, bool HAS_CTX>
+template <bool FAST, int NCH, bool HAS_CTX, bool RAGGED>
 int launch_ring(const Params& p, RingParams q, const int* ks,
                 cudaStream_t st) {
   const int kinds_exact[] = {kA, kC, kH1, kH2, kP};
@@ -962,12 +970,21 @@ int launch_ring(const Params& p, RingParams q, const int* ks,
       || reinterpret_cast<uintptr_t>(q.stream) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaFuncSetAttribute(
-      ar_sampler_kernel<FAST, NCH, HAS_CTX>,
+      ar_sampler_kernel<FAST, NCH, HAS_CTX, RAGGED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  ar_sampler_kernel<FAST, NCH, HAS_CTX>
+  ar_sampler_kernel<FAST, NCH, HAS_CTX, RAGGED>
       <<<p.batch, kRingThreads, smem, st>>>(p, q);
   return static_cast<int>(cudaGetLastError());
+}
+
+// RAGGED where a dot's segments (R, S or C rows) are not a multiple of 4
+template <bool FAST, int NCH, bool HAS_CTX>
+int launch_form(const Params& p, const RingParams& q, const int* ks,
+                cudaStream_t st) {
+  return (p.r | p.s | p.c_in) & 3
+      ? launch_ring<FAST, NCH, HAS_CTX, true>(p, q, ks, st)
+      : launch_ring<FAST, NCH, HAS_CTX, false>(p, q, ks, st);
 }
 
 // ------------------------------------------------------ stream probe
@@ -1085,14 +1102,14 @@ int movenet_ar_sampler_launch(
                adaptive};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (depth * 4 + (fast ? 2 : 0) + (has_ctx ? 1 : 0)) {
-    case 0: return launch_ring<false, 1, false>(p, q, ks, st);
-    case 1: return launch_ring<false, 1, true>(p, q, ks, st);
-    case 2: return launch_ring<true, 1, false>(p, q, ks, st);
-    case 3: return launch_ring<true, 1, true>(p, q, ks, st);
-    case 4: return launch_ring<false, 2, false>(p, q, ks, st);
-    case 6: return launch_ring<true, 2, false>(p, q, ks, st);
-    case 8: return launch_ring<false, 3, false>(p, q, ks, st);
-    default: return launch_ring<true, 3, false>(p, q, ks, st);
+    case 0: return launch_form<false, 1, false>(p, q, ks, st);
+    case 1: return launch_form<false, 1, true>(p, q, ks, st);
+    case 2: return launch_form<true, 1, false>(p, q, ks, st);
+    case 3: return launch_form<true, 1, true>(p, q, ks, st);
+    case 4: return launch_form<false, 2, false>(p, q, ks, st);
+    case 6: return launch_form<true, 2, false>(p, q, ks, st);
+    case 8: return launch_form<false, 3, false>(p, q, ks, st);
+    default: return launch_form<true, 3, false>(p, q, ks, st);
   }
 }
 

@@ -928,9 +928,8 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.movenet_ar_ring_fixed_bytes.restype = ctypes.c_longlong
     lib.movenet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.movenet_cuda_error_string.restype = ctypes.c_char_p
-    if hasattr(lib, "movenet_ar_stream_probe"):
-        lib.movenet_ar_stream_probe.argtypes = _PROBE_ARGTYPES
-        lib.movenet_ar_stream_probe.restype = ctypes.c_int
+    lib.movenet_ar_stream_probe.argtypes = _PROBE_ARGTYPES
+    lib.movenet_ar_stream_probe.restype = ctypes.c_int
     return lib
 
 

@@ -47,9 +47,10 @@ every float, and 256 threads with 16 grouped ``__ldg`` each
 (``ops/cuda/ar_sampler.stream_probe``).
 
 ``--variants``: diagnostic builds of this checkout's source with one part
-left out (VARIANTS), timed beside it, and this source with other rings
-(RINGS: slab size and stage count); the variants' codes are wrong by
-design and their per-iteration times use their own hit counts.
+left out (VARIANTS), timed beside it (with ``--standard``, in each
+standard case), and this source with other rings (RINGS: slab size and
+stage count); the variants' codes are wrong by design, and their
+per-iteration times use their own hit counts.
 
 Prints the card's name and power limit.  Needs a CUDA device and nvcc.
 """
@@ -58,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -188,8 +190,10 @@ def ptxas_text(log: str, kernel: str = "ar_sampler_kernel") -> str:
     of ``kernel`` in an ``nvcc -Xptxas -v`` log."""
     out, cur = [], None
     for line in log.splitlines():
-        if "Compiling entry function" in line or "Function properties" in line:
-            cur = line.split("'")[1] if "'" in line else None
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = m.group(1)
             continue
         if cur and kernel in cur and ("registers" in line or "spill" in line):
             out.append(f"{cur}: {line.split('info    :')[-1].strip()}")
@@ -243,6 +247,9 @@ def time_case(torch, sides, variants, label, inp, order, depth, repeats,
     from movenet_tpu_torch.utils.spec_sim import simulate_spec_hits
 
     gen = inp.n_samples - inp.rf
+    # a wrapper copy older than the standard form's ring caches its
+    # speculative stream on the inputs as spec_stream
+    inp.spec_stream = {}
     runs = {side: (lambda m=m: m.ar_sampler_spec(inp, order, depth))
             for side, m in sides.items()}
     got = {side: fn() for side, fn in runs.items()}
@@ -440,10 +447,18 @@ def main(argv=None) -> None:
         print(f"single-block bulk-copy rate into two 64 KB stages: "
               f"{rate:.1f} GB/s; {card}", flush=True)
         model = flagship_model(torch)
+        variants = variant_sides() if args.variants else {}
         for label, inp in standard_inputs(torch, np, model):
             with torch.no_grad():
                 time_standard(torch, sides, label, inp, args.repeats, rate,
                               card)
+                gen = inp.n_samples - inp.rf
+                for vname, m in variants.items():
+                    vms = events_ms(torch, lambda m=m: m.ar_sampler(inp),
+                                    args.repeats)
+                    print(f"variant {vname} standard {label}: {vms:.3f} ms "
+                          f"({vms * 1e3 / gen:.2f} us/step); {card}",
+                          flush=True)
         return
     variants = variant_sides() if args.variants else {}
     for label, inp, order, depth in cases(torch, np, not args.no_fixture):
