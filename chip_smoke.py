@@ -919,10 +919,16 @@ def ptxas_report(log: str):
 
 
 def bwd_smem_note(lib, kernel: str) -> str:
-    """The dynamic shared memory of a backward kernel instance
-    (stack_bwd_layer_kernel<R,S,RC> at win = 3R, its recompute form RC=1
-    too, stack_wgrad_kernel<MODE,R,S,KA>), from the library's own sizes;
-    "" for another kernel."""
+    """The dynamic shared memory of a trunk kernel instance (the layer
+    forward stack_layer_kernel<R,S,FORM>; stack_bwd_layer_kernel<R,S,RC> at
+    win = 3R, its
+    recompute form RC=1 too, stack_wgrad_kernel<MODE,R,S,KA>), from the
+    library's own sizes; "" for another kernel."""
+    m = re.match(r"stack_layer_kernel<(\d+),(\d+),(\d)>$", kernel)
+    if m:
+        r, s_, form = (int(x) for x in m.groups())
+        return (f"; dynamic shared memory "
+                f"{lib.movenet_stack_layer_smem(r, s_, form)} bytes")
     m = re.match(r"stack_bwd_layer_kernel<(\d+),(\d+),([01])>$", kernel)
     if m:
         r, s_, rc = (int(x) for x in m.groups())
@@ -991,7 +997,7 @@ def phase_train_kernels(torch, np, cfg, model, batch):
     from movenet_tpu_torch.ops import stack_kernel as sk
     from movenet_tpu_torch.ops.cuda import head_loss as kh
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
-    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
+    from movenet_tpu_torch.utils.time_stack_bwd import FWD_GRIDS, by_grid
 
     b, t = batch.codes.shape
     dil = tuple(model.dilations)
@@ -1009,20 +1015,29 @@ def phase_train_kernels(torch, np, cfg, model, batch):
         rec = {}
         # stack forward; tolerance: bf16 outputs whose float32 sums differ
         # in order may sit one bf16 step apart: 2% of each output's scale
+        # (the bit-equal share is printed)
         got = ks.stack_fwd(*fargs)
         want = sk.stack_fwd_plain(*fargs)
-        errs = {}
+        errs, equal = {}, {}
         for name, x, y in zip(("skip", "hsave", "tfsg"), got, want):
             errs[name] = _err(x, y)
+            equal[name] = float((x == y).float().mean())
             check(errs[name] <= 2e-2 * _scale(y),
                   f"stack_fwd {name}: max err {errs[name]:.3g}, scale "
                   f"{_scale(y):.3g}")
+        del got
+
+        def fwd():
+            return ks.run_fwd(ks.library(), *fargs, ks._stream(table2))
+
         rec["stack_fwd"] = dict(
-            max_abs_err=max(errs.values()), errs=errs,
-            ms=time_cuda(torch, lambda: ks.run_fwd(
-                ks.library(), *fargs, ks._stream(table2)), 5),
+            max_abs_err=max(errs.values()), errs=errs, equal=equal,
+            ms=time_cuda(torch, fwd, 5),
             plain_ms=time_cuda(torch, lambda: sk.stack_fwd_plain(*fargs),
-                                 2))
+                                 2),
+            by_grid=by_grid(torch, fwd, FWD_GRIDS))
+        print(grid_line("train kernel stack_fwd (breakdancing)",
+                        rec["stack_fwd"]["by_grid"]), flush=True)
         # stack backward from the plain forward's saved tensors and a
         # seeded dskip; float32 sums over 320000 rows in other orders:
         # 1e-3 of each gradient's scale, dxc (bf16) 2%
@@ -1095,6 +1110,9 @@ def phase_train_kernels(torch, np, cfg, model, batch):
             plain_ms=time_cuda(torch, lambda: hl.head_bwd_plain(*hb), 2))
     for name, r in rec.items():
         errs = ", ".join(f"{k} {v:.3g}" for k, v in r["errs"].items())
+        if "equal" in r:
+            errs += "; bit-equal share " + ", ".join(
+                f"{k} {v:.6f}" for k, v in r["equal"].items())
         print(f"train kernel {name} vs plain: {errs}; kernel "
               f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
     return rec
@@ -1425,7 +1443,7 @@ def phase_merged_head(torch, np, cfg, model, batch):
     from movenet_tpu_torch.ops.cuda import head_loss as kh
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
     from movenet_tpu_torch.train import create_train_state, make_train_step
-    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
+    from movenet_tpu_torch.utils.time_stack_bwd import FWD_GRIDS, by_grid
 
     b, t = batch.codes.shape
     dil = tuple(model.dilations)
@@ -1459,13 +1477,20 @@ def phase_merged_head(torch, np, cfg, model, batch):
             check(errs[name] <= 2e-2 * _scale(w), f"stack_head_fwd {name}: "
                   f"max err {errs[name]:.3g}, scale {_scale(w):.3g}")
         del got
+
+        def head_fwd():
+            return ks.run_head_fwd(ks.library(), *fargs,
+                                   stream=ks._stream(x))
+
         rec["stack_head_fwd"] = dict(
             max_abs_err=max(errs[n] for n in ("skip", "hsave", "tfsg")),
             errs=errs, equal=equal,
-            ms=time_cuda(torch, lambda: ks.run_head_fwd(
-                ks.library(), *fargs, stream=ks._stream(x)), 5),
+            ms=time_cuda(torch, head_fwd, 5),
             plain_ms=time_cuda(torch, lambda: sk.stack_head_fwd_plain(
-                *fargs), 2))
+                *fargs), 2),
+            by_grid=by_grid(torch, head_fwd, FWD_GRIDS))
+        print(grid_line("merged kernel stack_head_fwd (breakdancing)",
+                        rec["stack_head_fwd"]["by_grid"]), flush=True)
         # backward from the plain forward's saved tensors, as the save
         # backward's phase: float32 sums over 320000 rows in other orders,
         # 1e-3 of each gradient's scale; dx and dctx (bf16) 2%
@@ -2196,7 +2221,7 @@ def phase_narrow_trunk(torch, np):
     their plain versions, with their times; records by (name, exp)."""
     from movenet_tpu_torch.ops import stack_kernel as sk
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
-    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
+    from movenet_tpu_torch.utils.time_stack_bwd import FWD_GRIDS, by_grid
 
     t, v, bf = 160_000, 128, torch.bfloat16
     rec = {}
@@ -2227,18 +2252,26 @@ def phase_narrow_trunk(torch, np):
             # tolerances as the train kernels' phase: forward 2% of each
             # output's scale, backward 1e-3 of each gradient's, dxc 2%
             got, want = ks.stack_fwd(*fargs), sk.stack_fwd_plain(*fargs)
-            errs = {}
+            errs, equal = {}, {}
             for name, x, y in zip(("skip", "hsave", "tfsg"), got, want):
                 errs[name] = _err(x, y)
+                equal[name] = float((x == y).float().mean())
                 check(errs[name] <= 2e-2 * _scale(y),
                       f"stack_fwd {exp} {name}: max err {errs[name]:.3g}")
             del got
             lib, st = ks.library(), ks._stream(pack)
+
+            def fwd():
+                return ks.run_fwd(lib, *fargs, st)
+
             rec[("stack_fwd", exp)] = dict(
-                max_abs_err=max(errs.values()), errs=errs,
-                ms=time_cuda(torch, lambda: ks.run_fwd(lib, *fargs, st), 5),
+                max_abs_err=max(errs.values()), errs=errs, equal=equal,
+                ms=time_cuda(torch, fwd, 5),
                 plain_ms=time_cuda(torch, lambda: sk.stack_fwd_plain(*fargs),
-                                   2))
+                                   2),
+                by_grid=by_grid(torch, fwd, FWD_GRIDS))
+            print(grid_line(f"narrow trunk stack_fwd {exp}",
+                            rec[("stack_fwd", exp)]["by_grid"]), flush=True)
             _, hsave, tfsg = want
             dskip = rn(b, t, s, scale=1e-3).to(bf)
             bargs = (hsave, tfsg, ctx, fargs[4], fargs[5], dskip, pack, v,
@@ -2268,11 +2301,15 @@ def phase_narrow_trunk(torch, np):
             del hsave, tfsg, bargs, fargs
     for (name, exp), r in rec.items():
         b, rr, s, dil = NARROW_TRUNKS[exp]
+        equal = ""
+        if "equal" in r:
+            equal = "; bit-equal share " + ", ".join(
+                f"{k} {x:.6f}" for k, x in r["equal"].items())
         print(f"narrow trunk {name} {exp} (B={b}, T=160000, L={len(dil)}, "
               f"R={rr}, S={s}, V=128, bf16, video triple) vs plain: "
               + ", ".join(f"{k} {x:.3g}" for k, x in r["errs"].items())
-              + f"; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms",
-              flush=True)
+              + f"{equal}; kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms", flush=True)
     return rec
 
 

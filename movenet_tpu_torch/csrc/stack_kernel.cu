@@ -9,7 +9,7 @@
 //     stride-10 video-projection backward folded in;
 //   _fwd_kernel_tails (stack_kernel.py:929) and _bwd_kernel_tails (:1031),
 //     the "recompute" strategy: layer-major launches with layer
-//     checkpoints, see the section of that name below;
+//     checkpoints, see "the layer kernel" below;
 //   _fwd_kernel_head (stack_kernel.py:464, pallas_call at :576) and
 //     _bwd_kernel_head (:624, pallas_call at :822), the trunk merged with
 //     the output head and the CE loss.
@@ -22,17 +22,23 @@
 // Design.  The TPU runs a (batch, time tile) grid in order and carries the
 // dilation rings and the weight-gradient sums from one grid step to the
 // next.  Here every launch is parallel over time instead:
-//   forward   one launch for the embedding, then one per layer (layer-
-//             major).  Blocks are persistent (two per SM) and walk tiles
-//             of 4096/R consecutive rows; the tap h(t-d) is read back from
-//             hsave[l], which the previous launch wrote, so no ring and no
-//             halo is needed for any d.  h stays float32 in global memory
-//             between launches; the skip sum accumulates there in float32
-//             and the last layer stores it in bf16.  Per tile: [h | h(t-d)
-//             | ctx] (transposed) and W_fg, staged once per block, in bf16
-//             in shared memory; fg by fmaf over 4x8 register tiles; the
-//             gate in registers; gated (rounded) and W_out in shared
-//             memory; the output product, the residual and skip updates.
+//   forward   one launch for the embedding (or x), then one per layer
+//             (layer-major) of the layer kernel, stack_layer_kernel<R, S,
+//             FORM>: one launch template over two bodies, see "the layer
+//             kernel" below.  The recompute strategy's body runs 16 warps a
+//             block on 256-row tiles and keeps h in bf16 between layers;
+//             the save forms' body (the save strategy's layers, and the
+//             merged form's, whose last layer runs the head) runs 8 warps a
+//             block on 128-row tiles and keeps h and the skip sum in
+//             float32 in global memory between launches.  The two share
+//             the fg product on the tensor cores (fg_mma) and W_fg^T's
+//             layout; both walk tiles with persistent blocks.  The tap
+//             h(t-d) is read back from the layer's input, which the previous
+//             launch wrote, so no ring and no halo is needed for any d.
+//             Per tile: [h | h(t-d) | ctx] staged in bf16 in shared memory
+//             beside W_fg^T and W_out^T (staged once per block); each warp
+//             takes 16 rows through fg, the gate, out, the residual and
+//             the skip sum.
 //   backward  one launch per layer, top down (one persistent block per SM,
 //             64-row tiles, W_out and W_fg staged once in float32 as they
 //             lie in global memory), each followed by two weight-gradient
@@ -51,10 +57,9 @@
 //             product for dxc.
 // The merged form is the non-embed save form with two changes.  Its
 // forward forms gated from the unrounded taps, and the last layer's launch
-// runs the head on each tile once the tile's skip sum is final (rounded to
-// bf16, stored, then leaky, W1, leaky, W2 on bf16 operands, the NLL and
-// the argmax match per valid row), at one block per SM for the head's
-// weights and tiles in shared memory; the logits never reach global
+// runs the head on each warp's rows once their skip sums are final
+// (rounded to bf16, stored, then leaky, W1, leaky, W2 on bf16 operands, the
+// NLL and the argmax match per valid row); the logits never reach global
 // memory, and the blocks' loss and match sums are added in a fixed order.
 // Its backward starts with a head launch (the layer launch's shared memory
 // has no room for the head): y and z rebuilt from the saved skip, dz, the
@@ -63,18 +68,24 @@
 // The TPU's per-tile ring snapshots (tails) are not produced: hsave holds
 // those rows (the recompute strategy keeps layer checkpoints instead).
 //
-// Products.  The forward's are fmaf in float32 over bf16 operands in
-// shared memory.  The save backward's take float32 operands, as the TPU
-// kernel's (stack_kernel.py:199 _BWD_OPERAND_DT, a multi-pass MXU product
-// there); here they run on the tensor cores as split-TF32 mma.sync
-// (m16n8k8, float32 sums; see "backward" below): the layer launch's
-// dgated = [dh | dskip] W_out^T and dfg_w = dfg W_fg^T in three passes,
-// the weight gradients dW_out = gated^T [dh | dskip] in three and dW_fg =
-// [hsave | hsave(t-d) | ctx]^T dfg and dW_up = xc^T dctx in two.  Every
-// warp walks its rows and k in a fixed order: two calls give the same
-// bits.  The recompute strategy's products run on the tensor cores too
-// (bf16 mma for its forward products, the save backward's split-TF32
-// ones for its gradients); the merged head and dxc keep fmaf.
+// Products.  The forward's run as bf16 mma.sync m16n8k16 on the tensor
+// cores with float32 sums, each 16-wide k step summed from zero and added
+// in float32 (mma_bf16_add): fg, out and the merged head's y and z.  The
+// operands are exact bf16 values, as the TPU kernel's _mdot rounds them,
+// so only the order of the float32 sums differs from the plain version.
+// The save forms keep the plain version's bits, and with them two fmaf
+// products: the residual's out = gated W_out[:, :R], and fg again for
+// the elements near a bf16 rounding tie (see the layer kernel).
+// The save backward's take float32 operands, as the TPU kernel's
+// (stack_kernel.py:199 _BWD_OPERAND_DT, a multi-pass MXU product there);
+// here they run on the tensor cores as split-TF32 mma.sync (m16n8k8,
+// float32 sums; see "backward" below): the layer launch's dgated = [dh |
+// dskip] W_out^T and dfg_w = dfg W_fg^T in three passes, the weight
+// gradients dW_out = gated^T [dh | dskip] in three and dW_fg = [hsave |
+// hsave(t-d) | ctx]^T dfg and dW_up = xc^T dctx in two.  Every warp walks
+// its rows and k in a fixed order: two calls give the same bits.  The
+// recompute strategy's gradients are the save backward's split-TF32 ones;
+// the merged backward's head launch and dxc keep fmaf.
 //
 // Bound (breakdancing shape: B=2, T=160000, L=9, R=S=64, ctx): forward
 // about 1.9e11 flop in bf16 operands and 1.19 GB of compulsory traffic
@@ -89,6 +100,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "head_core.cuh"
@@ -106,17 +118,6 @@ __device__ __forceinline__ bf16_t f2bf(float x) {
   return __bfloat16_as_ushort(__float2bfloat16(x));
 }
 
-// 8 bf16 from a 16-byte aligned address
-__device__ __forceinline__ void load8(const bf16_t* p, float* o) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    o[2 * i] = __uint_as_float(w[i] << 16);
-    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 // 4 bf16 from an 8-byte aligned address
 __device__ __forceinline__ void load4(const bf16_t* p, float* o) {
   const uint2 v = *reinterpret_cast<const uint2*>(p);
@@ -131,23 +132,10 @@ __device__ __forceinline__ unsigned pack2(float lo, float hi) {
          (static_cast<unsigned>(f2bf(hi)) << 16);
 }
 
-// 4 floats rounded to bf16 at an 8-byte aligned address
-__device__ __forceinline__ void store4_bf(bf16_t* p, const float* v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack2(v[0], v[1]),
-                                            pack2(v[2], v[3]));
-}
-
-// 8 floats rounded to bf16 at a 16-byte aligned address
-__device__ __forceinline__ void store8_bf(bf16_t* p, const float* v) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(
-      pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
-      pack2(v[6], v[7]));
-}
-
 // ------------------------------------------------------------ forward
 __global__ void __launch_bounds__(kThreads)
     stack_embed_kernel(const int* pack, int pack_cols, const bf16_t* table2,
-                       int vocab, int batch, int t_len, int r, float* h,
+                       int vocab, int batch, int t_len, int r,
                        bf16_t* hsave0) {
   const long total = static_cast<long>(batch) * t_len * r;
   for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
@@ -160,298 +148,17 @@ __global__ void __launch_bounds__(kThreads)
     float v = 0.f;
     if (cur >= 0 && cur < vocab) v += bf2f(table2[cur * r + j]);
     if (prev >= 0 && prev < vocab) v += bf2f(table2[(vocab + prev) * r + j]);
-    const bf16_t vb = f2bf(v);        // the embedded h is rounded
-    h[i] = bf2f(vb);
-    hsave0[i] = vb;
+    hsave0[i] = f2bf(v);              // the embedded h is rounded
   }
 }
 
 // The non-embed forms start from x (B, T, R) instead of the embedding:
-// h = x widened to float32, hsave[0] = x.
+// hsave[0] = x.
 __global__ void __launch_bounds__(kThreads)
-    stack_x_kernel(const bf16_t* x, long total, float* h, bf16_t* hsave0) {
+    stack_x_kernel(const bf16_t* x, long total, bf16_t* hsave0) {
   for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
-       i < total; i += static_cast<long>(gridDim.x) * kThreads) {
-    h[i] = bf2f(x[i]);
+       i < total; i += static_cast<long>(gridDim.x) * kThreads)
     hsave0[i] = x[i];
-  }
-}
-
-// The merged head on the last layer's tiles (stack_kernel.py:519-539): the
-// tile's finished skip sum, rounded to bf16, through leaky, W1, leaky, W2
-// (bf16 operands), then the NLL and the first-argmax match of each valid
-// row [RF-1, T-1), summed per block.
-struct HeadEpilogue {
-  const int* tgt;        // (T, B) targets, or null: no head
-  const float* w1;       // (S, C)
-  const float* b1;       // (C)
-  const float* w2;       // (C, C)
-  const float* b2;       // (C)
-  float* part;           // (gridDim.x, 2): the block's loss and match sums
-  int batch, c, rf, parity;
-};
-
-struct FwdLayerArgs {
-  float* h;              // (M, R) residual stream, float32, in place
-  const bf16_t* hs;      // (M, R) hsave[l]
-  bf16_t* hs_next;       // (M, R) hsave[l+1], or null at the last layer
-  const bf16_t* ctx;     // (M, R) or null
-  const float* b_fg;     // (B, 2R) this layer's fg bias rows
-  const float* w_fg;     // (W_in, 2R)
-  const float* w_out;    // (R, R+S)
-  const float* b_out;    // (R+S)
-  bf16_t* tfsg;          // (M, 2R) this layer's taps
-  float* skacc;          // (M, S) float32 skip accumulator
-  bf16_t* skip;          // (M, S) skip_sum, stored by the last layer
-  long m_total;
-  int t_len, d, first, last;
-  int raw_gate;          // gated from the unrounded taps (the merged form)
-  HeadEpilogue hd;
-};
-
-template <int R, int S>
-struct FwdShape {
-  static constexpr int kMr = 4;                   // rows per thread
-  static constexpr int kRows = kMr * (1024 / R);  // rows per block
-  static constexpr int kLd = kRows + 8;           // row stride of the
-                                                  // transposed operands
-  static constexpr int kNo = R + S;
-  // c > 0: the last layer's launch with the merged head (c classes)
-  static size_t smem(int c = 0) {
-    size_t n = (3 * R * kLd + 3 * R * 2 * R + R * kLd + R * kNo) * 2 +
-               kNo * 4;
-    if (c > 0)
-      n += static_cast<size_t>(S * c + c * c + 2 * c + kRows * (S + 4) +
-                               2 * head_core::kHeadRows * (c + 4) +
-                               2 * head_core::kHeadRows) * 4;
-    return n;
-  }
-};
-
-template <int R, int S>
-__global__ void __launch_bounds__(kThreads)
-    stack_fwd_layer_kernel(FwdLayerArgs a) {
-  constexpr int ROWS = FwdShape<R, S>::kRows, LD = FwdShape<R, S>::kLd;
-  constexpr int NO = FwdShape<R, S>::kNo, MR = FwdShape<R, S>::kMr;
-  const int kin = a.ctx ? 3 * R : 2 * R;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16_t* at = reinterpret_cast<bf16_t*>(smem);   // (3R, LD) operands^T
-  bf16_t* wf = at + 3 * R * LD;                     // (3R, 2R)
-  bf16_t* gt = wf + 3 * R * 2 * R;                  // (R, LD) gated^T
-  bf16_t* wo = gt + R * LD;                         // (R, NO)
-  float* bo = reinterpret_cast<float*>(wo + R * NO);
-  const int tid = threadIdx.x;
-  // the merged head (last layer only): rounded weights, the tile's
-  // rnd(leaky(skip)) rows, and one 64-row head tile's y and z
-  constexpr int HR = head_core::kHeadRows;
-  const bool head = a.hd.tgt != nullptr;
-  const int C = a.hd.c, lds = S + 4, ldc = C + 4;
-  float* hw1 = bo + NO;                             // (S, C)
-  float* hw2 = hw1 + S * C;                         // (C, C)
-  float* hb1 = hw2 + C * C;
-  float* hb2 = hb1 + C;
-  float* act = hb2 + C;                             // (ROWS, lds)
-  float* hly = act + ROWS * lds;                    // (HR, ldc)
-  float* hz = hly + HR * ldc;                       // (HR, ldc)
-  float* red = hz + HR * ldc;                       // (2, HR)
-  float loss = 0.f, match = 0.f;                    // per row-thread
-
-  // weights rounded to bf16, as the TPU kernel's _mdot rounds operands;
-  // staged once, then the block walks its tiles (grid = the SM count)
-  for (int i = tid; i < kin * 2 * R; i += kThreads) wf[i] = f2bf(a.w_fg[i]);
-  for (int i = tid; i < R * NO; i += kThreads) wo[i] = f2bf(a.w_out[i]);
-  for (int i = tid; i < NO; i += kThreads) bo[i] = a.b_out[i];
-  if (head) {
-    for (int i = tid; i < S * C; i += kThreads)
-      hw1[i] = head_core::rnd(a.hd.w1[i]);
-    for (int i = tid; i < C * C; i += kThreads)
-      hw2[i] = head_core::rnd(a.hd.w2[i]);
-    for (int i = tid; i < C; i += kThreads) {
-      hb1[i] = a.hd.b1[i];
-      hb2[i] = a.hd.b2[i];
-    }
-  }
-  const long n_tiles = (a.m_total + ROWS - 1) / ROWS;
-  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
-  const long m0 = tile_i * ROWS;
-  __syncthreads();
-  // 8 channels of one row per thread, rows fastest across threads so
-  // that the transposed stores fall in consecutive shared addresses
-  for (int i = tid; i < ROWS * (R / 8); i += kThreads) {
-    const int row = i % ROWS, j0 = (i / ROWS) * 8;
-    const long m = m0 + row;
-    uint4 hv = make_uint4(0, 0, 0, 0), tv = hv, cv = hv;
-    if (m < a.m_total) {
-      hv = *reinterpret_cast<const uint4*>(a.hs + m * R + j0);
-      if (static_cast<int>(m % a.t_len) >= a.d)
-        tv = *reinterpret_cast<const uint4*>(a.hs + (m - a.d) * R + j0);
-      if (a.ctx) cv = *reinterpret_cast<const uint4*>(a.ctx + m * R + j0);
-    }
-    const bf16_t* hb = reinterpret_cast<const bf16_t*>(&hv);
-    const bf16_t* tb = reinterpret_cast<const bf16_t*>(&tv);
-    const bf16_t* cb = reinterpret_cast<const bf16_t*>(&cv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      at[(j0 + e) * LD + row] = hb[e];
-      at[(R + j0 + e) * LD + row] = tb[e];
-      if (a.ctx) at[(2 * R + j0 + e) * LD + row] = cb[e];
-    }
-  }
-  __syncthreads();
-
-  // fg = [h | h(t-d) | ctx] W_fg + b_fg: each thread MR rows x (4 filter
-  // + 4 gate) columns, so the gate is formed in registers
-  {
-    constexpr int CG = R / 4;
-    const int cg = tid % CG, r0 = (tid / CG) * MR, c0 = cg * 4;
-    float acc[MR][8];
-#pragma unroll
-    for (int i = 0; i < MR; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < kin; ++k) {
-      float av[MR], bv[8];
-      load4(at + k * LD + r0, av);
-      load4(wf + k * 2 * R + c0, bv);
-      load4(wf + k * 2 * R + R + c0, bv + 4);
-#pragma unroll
-      for (int i = 0; i < MR; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < MR; ++i) {
-      const int row = r0 + i;
-      const long m = m0 + row;
-      const bool ok = m < a.m_total;
-      const int b = ok ? static_cast<int>(m / a.t_len) : 0;
-      const float* bf = a.b_fg + b * 2 * R;
-      float vf[4], vg[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float f = acc[i][j] + bf[c0 + j];
-        const float g = acc[i][4 + j] + bf[R + c0 + j];
-        const float tf = tanhf(f), sg = 1.f / (1.f + expf(-g));
-        vf[j] = bf2f(f2bf(tf));
-        vg[j] = bf2f(f2bf(sg));
-        // gated from the rounded taps (or the unrounded ones in the merged
-        // form), rounded again as a product operand
-        gt[(c0 + j) * LD + row] = f2bf(a.raw_gate ? tf * sg : vf[j] * vg[j]);
-      }
-      if (ok) {
-        store4_bf(a.tfsg + m * 2 * R + c0, vf);
-        store4_bf(a.tfsg + m * 2 * R + R + c0, vg);
-      }
-    }
-  }
-  __syncthreads();
-
-  // out = gated W_out + b_out; residual and skip updates
-  constexpr int OC = NO / 8, TILES = (ROWS / MR) * OC;
-  for (int tile = tid; tile < TILES; tile += kThreads) {
-    const int r0 = (tile / OC) * MR, c0 = (tile % OC) * 8;
-    float acc[MR][8];
-#pragma unroll
-    for (int i = 0; i < MR; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < R; ++k) {
-      float av[MR], bv[8];
-      load4(gt + k * LD + r0, av);
-      load8(wo + k * NO + c0, bv);
-#pragma unroll
-      for (int i = 0; i < MR; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    // 8 columns lie wholly in the residual or the skip part (R % 8 == 0)
-#pragma unroll
-    for (int i = 0; i < MR; ++i) {
-      const long m = m0 + r0 + i;
-      if (m >= a.m_total) {
-        if (head && c0 >= R)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) act[(r0 + i) * lds + c0 - R + j] = 0.f;
-        continue;
-      }
-      float v[8];
-      float* dst = c0 < R ? a.h + m * R + c0 : a.skacc + m * S + c0 - R;
-      const bool add = c0 < R || !a.first;
-      float4 o0 = make_float4(0.f, 0.f, 0.f, 0.f), o1 = o0;
-      if (add) {
-        o0 = *reinterpret_cast<const float4*>(dst);
-        o1 = *reinterpret_cast<const float4*>(dst + 4);
-      }
-      const float old[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = (acc[i][j] + bo[c0 + j]) + old[j];
-      if (c0 < R) {
-        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<float4*>(dst + 4) =
-            make_float4(v[4], v[5], v[6], v[7]);
-        if (a.hs_next) store8_bf(a.hs_next + m * R + c0, v);
-      } else if (a.last) {
-        store8_bf(a.skip + m * S + c0 - R, v);
-        if (head)   // the head's first operand: leaky of the rounded skip
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            act[(r0 + i) * lds + c0 - R + j] =
-                head_core::rnd(head_core::leaky(bf2f(f2bf(v[j]))));
-      } else {
-        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<float4*>(dst + 4) =
-            make_float4(v[4], v[5], v[6], v[7]);
-      }
-    }
-  }
-  if (head) {
-    // the head over the tile's rows, 64 at a time
-    for (int sub = 0; sub < ROWS; sub += HR) {
-      __syncthreads();
-      head_core::tile_product<false>(
-          act + sub * lds, lds, hw1, S, C, [&](int r, int c, float v) {
-            hly[r * ldc + c] = head_core::rnd(head_core::leaky(v + hb1[c]));
-          });
-      __syncthreads();
-      head_core::tile_product<false>(hly, ldc, hw2, C, C,
-                                     [&](int r, int c, float v) {
-                                       hz[r * ldc + c] = v + hb2[c];
-                                     });
-      __syncthreads();
-      const long m = m0 + sub + tid;
-      if (tid < HR && m < a.m_total) {
-        const int b = static_cast<int>(m / a.t_len);
-        const int t = static_cast<int>(m % a.t_len);
-        bool hit;
-        const float nll = head_core::row_nll(
-            hz + tid * ldc, C, a.hd.tgt[static_cast<long>(t) * a.hd.batch + b],
-            a.hd.parity, false, &hit);
-        if (t >= a.hd.rf - 1 && t < a.t_len - 1) {
-          loss += nll;
-          match += hit ? 1.f : 0.f;
-        }
-      }
-    }
-  }
-  }  // tiles
-  if (head) {
-    // the block's sums, in row-thread order
-    __syncthreads();
-    if (tid < HR) {
-      red[tid] = loss;
-      red[HR + tid] = match;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float sl = 0.f, sm = 0.f;
-      for (int r = 0; r < HR; ++r) {
-        sl += red[r];
-        sm += red[HR + r];
-      }
-      a.hd.part[2 * blockIdx.x] = sl;
-      a.hd.part[2 * blockIdx.x + 1] = sm;
-    }
-  }
 }
 
 // ----------------------------------------------------------- backward
@@ -504,13 +211,13 @@ __device__ __forceinline__ uint4 hp_item(const bf16_t* h, const bf16_t* ctx,
   return *reinterpret_cast<const uint4*>(ctx + m * R + j0);
 }
 
-// fg = [h | h(t-d) | ctx] W_fg of the recompute strategy, bf16 operands and
+// fg = [h | h(t-d) | ctx] W_fg of the layer kernel, bf16 operands and
 // float32 sums, for one warp's 16 rows of an operand tile hp (bf16, row
 // stride LDH) and NT n tiles: k over W_in in order, each n tile's sum from
 // zero.  bfrag(kk, j, b) gives the B fragment of k step kk and n tile j
-// (W_fg rounded to bf16).  The layer forward, its rebuild in the backward
-// and the layer backward's recompute all sum through here with the same
-// operand values, so they give the same bits.
+// (W_fg rounded to bf16).  Every form of the layer forward, the recompute
+// strategy's rebuild in the backward and the layer backward's recompute
+// all sum through here, so the same operand values give the same bits.
 template <int NT, int LDH, typename BF>
 __device__ __forceinline__ void fg_mma(float (&acc)[NT][4], const bf16_t* hp,
                                        int r0, int win, BF bfrag) {
@@ -1607,88 +1314,6 @@ int grid_for(long n) {
   return static_cast<int>(g < 8192 ? (g < 1 ? 1 : g) : 8192);
 }
 
-// The forward's source: the embedding (pack, table2) or, in the non-embed
-// forms, x; raw_gate and the head epilogue are the merged form's.
-struct FwdSource {
-  const int* pack;
-  int pack_cols;
-  const bf16_t* table2;
-  int vocab;
-  const bf16_t* x;       // non-null: start from x
-  int raw_gate;
-  HeadEpilogue hd;       // hd.tgt non-null: the head on the last layer
-  float* out;            // (2) the head's loss sum and match count
-};
-
-template <int R, int S>
-int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
-             const float* w_fg, const float* w_out, const float* b_out,
-             const int* dil, float* h, float* skacc, bf16_t* hsave,
-             bf16_t* tfsg, bf16_t* skip, int batch, int t_len, int n_layers,
-             cudaStream_t st) {
-  const long m_total = static_cast<long>(batch) * t_len;
-  const int win = ctx ? 3 * R : 2 * R;
-  if (src.x)
-    stack_x_kernel<<<grid_for(m_total * R), kThreads, 0, st>>>(
-        src.x, m_total * R, h, hsave);
-  else
-    stack_embed_kernel<<<grid_for(m_total * R), kThreads, 0, st>>>(
-        src.pack, src.pack_cols, src.table2, src.vocab, batch, t_len, R, h,
-        hsave);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const bool head = src.hd.tgt != nullptr;
-  const size_t smem = FwdShape<R, S>::smem();
-  const size_t head_smem = FwdShape<R, S>::smem(head ? src.hd.c : 0);
-  int err = set_smem(reinterpret_cast<const void*>(
-                         stack_fwd_layer_kernel<R, S>), head_smem);
-  if (err) return err;
-  const int rows = FwdShape<R, S>::kRows;
-  // two blocks fit an SM (about 100 KB of shared memory each at R = 64);
-  // the last layer's launch with the head, one (about 190 KB)
-  const long tiles = (m_total + rows - 1) / rows;
-  const int grid =
-      static_cast<int>(tiles < 2 * sm_count() ? tiles : 2 * sm_count());
-  const int head_grid =
-      static_cast<int>(tiles < sm_count() ? tiles : sm_count());
-  for (int l = 0; l < n_layers; ++l) {
-    FwdLayerArgs a;
-    a.h = h;
-    a.hs = hsave + l * m_total * R;
-    a.hs_next = l + 1 < n_layers ? hsave + (l + 1) * m_total * R : nullptr;
-    a.ctx = ctx;
-    a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
-    a.w_fg = w_fg + static_cast<long>(l) * win * 2 * R;
-    a.w_out = w_out + static_cast<long>(l) * R * (R + S);
-    a.b_out = b_out + static_cast<long>(l) * (R + S);
-    a.tfsg = tfsg + l * m_total * 2 * R;
-    a.skacc = skacc;
-    a.skip = skip;
-    a.m_total = m_total;
-    a.t_len = t_len;
-    a.d = dil[l];
-    a.first = l == 0;
-    a.last = l == n_layers - 1;
-    a.raw_gate = src.raw_gate;
-    a.hd = src.hd;
-    if (a.last && head) {
-      stack_fwd_layer_kernel<R, S><<<head_grid, kThreads, head_smem, st>>>(a);
-    } else {
-      a.hd.tgt = nullptr;
-      stack_fwd_layer_kernel<R, S><<<grid, kThreads, smem, st>>>(a);
-    }
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (head) {
-    reduce_kernel<<<1, kThreads, 0, st>>>(src.hd.part, src.out, 2, 1,
-                                          head_grid);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
-}
-
 template <int MODE, int R, int S, int KA>
 int wgrad_launch(WgradArgs a, int batch, float* out_w, float* out_b,
                  int bias_groups, cudaStream_t st) {
@@ -1858,54 +1483,86 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
   return 0;
 }
 
-// ------------------------------------------------- recompute strategy
-// Replaces _fwd_kernel_tails (stack_kernel.py:929, pallas_call at :1003)
-// and _bwd_kernel_tails (:1031, pallas_call at :1190).  The TPU walks one
-// batch row's time tiles in order, carries each layer's dilation ring from
-// tile to tile and keeps only the ring at each tile start (the "tails").
-// Blocks here run in no order, so the schedule is layer-major instead, as
-// the save kernels': every launch is one layer over all B*T rows and reads
-// the tap h(t-d) of the layer's input from global memory, so no halo and
-// no shared memory that grows with sum(d).
-//   forward   L launches of stack_tails_layer_kernel over a ping-pong pair
-//             of (M, R) bf16 buffers: h is rounded to bf16 after every
-//             layer, as on the TPU; the skip sum accumulates in float32.
-//             It keeps the input of every k-th layer (k about sqrt(L), the
-//             wrapper's choice): (ceil(L/k) - 1) checkpoints of (M, R).
-//   backward  the groups of k layers from the top: each group's layer
-//             inputs rebuilt from its checkpoint (x for the first) by the
-//             same layer kernel, so bit for bit as the forward computed
-//             them; then per layer, top down, the save backward's layer
-//             launch in its recompute form (stack_bwd_layer_kernel<R, S,
-//             true>: fg recomputed on the tensor cores from h_l, tf and sg
-//             in float32, gated = tf * sg stored in float32) and its weight
-//             gradient launches (W_fg as the save's, W_out from the float32
-//             gated: MODE 3) with their fixed-order reductions.  The
-//             anti-causal carry crosses launches through global memory as
-//             in the save backward.  Deterministic, no atomics.
-// Products.  The layer kernel's fg = [h | h(t-d) | ctx] W_fg and out =
-// gated W_out run as bf16 mma.sync m16n8k16 with float32 sums: the
-// operands are exact bf16 values (the weights rounded as the TPU's _mdot
-// rounds them), and each k step's sum is added in float32 (mma_bf16_add),
-// so only the summation order differs from the plain version.  The fg
-// sums feed the gate in registers, and the gate's fragments are the out
-// product's A fragments (no shared-memory round trip).  The backward's
-// gradient products are the save backward's split-TF32 ones.
+// ----------------------------------------------------- the layer kernel
+// One launch template, stack_layer_kernel<R, S, FORM>, runs one layer of
+// every trunk forward, in two bodies: FORM kRecompute, and the save forms
+// kSave and kSaveHead.  The bodies share fg_mma and the layout of W_fg^T
+// in shared memory; each has its own block shape, arguments, tile walk
+// and epilogue.  The forms are the recompute strategy's (_fwd_kernel_tails,
+// stack_kernel.py:929, pallas_call at :1003), the save strategy's
+// (_fwd_kernel, :280, pallas_call at :424) and the merged form's
+// (_fwd_kernel_head, :464, pallas_call at :576), whose last layer also runs
+// the head and the CE.  The TPU walks one batch row's time tiles in order
+// and carries each layer's dilation ring from tile to tile.  Blocks here run
+// in no order, so every launch is one layer over all B*T rows and reads the
+// tap h(t-d) of the layer's input from global memory: no halo, and no
+// shared memory that grows with sum(d).
+//   kRecompute  h in and out in bf16 (a ping-pong pair of (M, R) buffers):
+//               rounded after every layer, as on the TPU; the skip sum in
+//               float32.  The wrapper keeps the input of every k-th layer
+//               (k about sqrt(L)) as a checkpoint: ceil(L/k) - 1 of (M, R).
+//   kSave       the input is hsave[l] (bf16); the residual stream h stays
+//               float32 in global memory between launches (the first layer
+//               takes it from its bf16 input) and hsave[l+1] = bf16(h); the
+//               taps tfsg (rounded tf | sg) are stored; gated from the
+//               rounded taps, or from the unrounded ones in the merged form
+//               (raw_gate, stack_kernel.py:513).
+//   kSaveHead   the merged form's last layer: kSave, then the head on the
+//               finished skip sums (below).
+//   backward    (recompute) the groups of k layers from the top: each
+//               group's layer inputs rebuilt from its checkpoint (x for the
+//               first) by the kRecompute form, so bit for bit as the forward
+//               computed them; then per layer, top down, the save backward's
+//               layer launch in its recompute form (stack_bwd_layer_kernel<R,
+//               S, true>: fg recomputed on the tensor cores from h_l, tf and
+//               sg in float32, gated = tf * sg stored in float32) and its
+//               weight gradient launches (W_fg as the save's, W_out from the
+//               float32 gated: MODE 3) with their fixed-order reductions.
+//               The anti-causal carry crosses launches through global memory
+//               as in the save backward.  Deterministic, no atomics.
+// Products.  fg = [h | h(t-d) | ctx] W_fg and out = gated W_out run as bf16
+// mma.sync m16n8k16 with float32 sums: the operands are exact bf16 values
+// (the weights rounded as the TPU's _mdot rounds them), and each 16-wide k
+// step's sum is added in float32 (mma_bf16_add), so only the summation
+// order differs from the plain version (ops/stack_kernel.mma_order_matmul
+// models it).  The fg sums feed the gate in registers, and the gate's
+// fragments, rounded, are the out product's A fragments (no shared-memory
+// round trip).  The save forms keep the plain version's bits in hsave and
+// tfsg (see the kernel): their fg elements near a bf16 rounding tie are
+// summed again in the plain version's order, and their residual's out is
+// that order (an fmaf chain) from the start; the skip part stays on the
+// tensor cores.  The merged head takes the warp's finished skip sums the
+// same way: rnd(leaky(rnd(skip))) are the A fragments of y = . W1, and
+// rnd(leaky(y + b1)) those of z = . W2 (W1^T, W2^T in bf16 in shared
+// memory, zero-padded to multiples of 16); each row of z lies in one quad
+// of lanes, so its max, first argmax, exp sum and NLL are quad shuffles
+// (head_core::row_nll's semantics); the logits never reach global memory.
+// The backward's gradient products are the save backward's split-TF32
+// ones.
 //
-// Bound (experiment 02 through the CLI: B=2, T=160000, L=9, R=64, S=8,
-// flat ctx): the forward does about 1.7e11 operations on bf16 operands
-// (0.17 ms at 989 TF/s) and must move x, ctx, skip and the checkpoints
-// (0.15 GB, 0.05 ms): bound by operations.  As launched it moves about
-// 0.18 GB a layer (h, h(t-d), ctx, h_next, the skip sum), a floor of
-// about 0.5 ms, and its mma.sync issue, not the tensor cores' rate, sets
-// its time (PERF.md).  The backward recomputes the rebuilt layers and
-// every fg in bf16 and runs the gradient products in float32 on the
-// tensor cores (about 4.5e11 operations counted once at the TF32 peak,
-// 0.94 ms in all: bound by operations); as launched it moves the save
-// backward's float32 intermediates and gated (about 1.3 GB a layer).
+// Bound.  Recompute forward (experiment 02 through the CLI: B=2, T=160000,
+// L=9, R=64, S=8, flat ctx): about 1.7e11 operations on bf16 operands
+// (0.17 ms at 989 TF/s) and x, ctx, skip and the checkpoints to move (0.15
+// GB, 0.05 ms): bound by operations.  As launched it moves about 0.18 GB a
+// layer (h, h(t-d), ctx, h_next, the skip sum), a floor of about 0.5 ms,
+// and its mma.sync issue, not the tensor cores' rate, sets its time
+// (PERF.md).  Save forward (breakdancing: B=2, T=160000, L=9, R=S=64, ctx):
+// about 1.9e11 operations (0.19 ms) against 1.19 GB of compulsory traffic
+// (hsave, tfsg, skip, ctx): 0.36 ms, bound by bytes; as launched each layer
+// also moves the float32 h and skip sum (about 0.33 GB), about 0.53 GB a
+// layer in all, and the residual's chain (4096 fmaf a row at R = 64) and
+// the re-sums add float32 work and latency (PERF.md).  The recompute
+// backward
+// recomputes the rebuilt layers and every fg in bf16 and runs the
+// gradient products in float32 on the tensor cores (about 4.5e11
+// operations counted once at the TF32 peak, 0.94 ms in all: bound by
+// operations); as launched it moves the save backward's float32
+// intermediates and gated (about 1.3 GB a layer).
 
-// the layer kernel's block: 16 warps of 16 rows each per tile (one block
-// per SM: the tile and the weights fill its shared memory)
+// the layer kernel's forms
+constexpr int kRecompute = 0, kSave = 1, kSaveHead = 2;
+// the recompute form's block: 16 warps of 16 rows each per tile (one
+// block per SM: the tile and the weights fill its shared memory)
 constexpr int kTlWarps = 16;
 constexpr int kTlThreads = 32 * kTlWarps;
 constexpr int kTlRows = 16 * kTlWarps;
@@ -1926,9 +1583,79 @@ struct TlShape {
   }
 };
 
+// The save forms' block: 8 warps of 16 rows, and kMinBlocks blocks an SM
+// (ptxas keeps a thread's registers to what that many need): two where R
+// + S <= 48, so 128 registers, where a tile's serial steps (the queue, the
+// chain, the barriers) are short of work and another block's warps fill
+// them; else one, so the sums stay in up to 255 registers (R = 64; and
+// (32, 32), which spills in 128).  Their shared memory, byte offsets in
+// this order: the operand tile hp (kRows, kLdh) bf16; W_fg^T wf (2R,
+// kLdw) bf16; W_out^T's skip rows wos (S, kLdo) bf16; the tile's float32
+// skip sums sb (kRows, kLdsf); each warp's queue of fg elements to sum
+// again in the plain version's order (keys, then values, kQcap each, then
+// the fg bias row offset of each of its 16 rows); the L2 norms of W_fg's
+// columns wn (2R) f32; then what only a layer with a residual uses:
+// W_out's residual columns k-major wk (R, kLdk) bf16, each warp's gated
+// rows k-major gt (R, 16) bf16, and the tile's float32 h rows hb (kRows,
+// kLdhf).  The merged form's last layer has no residual and keeps the
+// head's weights there.
+template <int R, int S>
+struct SaveShape {
+  static constexpr int kWarps = 8, kThreads = 32 * kWarps;
+  static constexpr int kMinBlocks = R + S <= 48 ? 2 : 1;
+  static constexpr int kRows = 16 * kWarps;
+  static constexpr int kLdh = 3 * R + 8, kLdw = 3 * R + 8, kLdo = R + 8;
+  static constexpr int kLdk = R + 8;
+  // float32 rows: conflict-free float2 / float4 reads
+  static constexpr int kLdhf = R + 8, kLdsf = S + 8;
+  static constexpr int kQcap = 128;
+  static constexpr size_t kWf = static_cast<size_t>(kRows) * kLdh * 2;
+  static constexpr size_t kWos = kWf + static_cast<size_t>(2 * R) * kLdw * 2;
+  static constexpr size_t kSb = kWos + static_cast<size_t>(S) * kLdo * 2;
+  static constexpr size_t kQk = kSb + static_cast<size_t>(kRows) * kLdsf * 4;
+  static constexpr size_t kQv = kQk + static_cast<size_t>(kWarps) * kQcap * 4;
+  static constexpr size_t kQb =
+      kQv + static_cast<size_t>(kWarps) * kQcap * 4;
+  static constexpr size_t kWn = kQb + static_cast<size_t>(kWarps) * 16 * 4;
+  static constexpr size_t kWk = kWn + static_cast<size_t>(2 * R) * 4;
+  static constexpr size_t kGt = kWk + static_cast<size_t>(R) * kLdk * 2;
+  static constexpr size_t kHb = kGt + static_cast<size_t>(kWarps) * R * 16 * 2;
+  static constexpr size_t kEnd = kHb + static_cast<size_t>(kRows) * kLdhf * 4;
+  static size_t smem() { return kEnd; }
+};
+
+// The merged head's weights after the layer's shared memory: W1^T (CP, SP
+// + 8) and W2^T (CP, CP + 8) in bf16, then b1 and b2 (CP floats each), zero
+// past S and C; SP and CP are S and C rounded up to 16.
+struct HeadSmem {
+  int sp, cp, ld1, ld2;
+  __host__ __device__ explicit HeadSmem(int s, int c)
+      : sp((s + 15) / 16 * 16), cp((c + 15) / 16 * 16), ld1(sp + 8),
+        ld2(cp + 8) {}
+  __host__ __device__ size_t bytes() const {
+    return static_cast<size_t>(cp * ld1 + cp * ld2) * 2 + 2 * cp * 4;
+  }
+};
+
+// The merged head (stack_kernel.py:519-539) on the last layer's skip sums:
+// rounded to bf16, through leaky, W1, leaky, W2 (bf16 operands), then the
+// NLL and the first-argmax match of each valid row [RF-1, T-1), summed
+// per block.
+struct HeadEpilogue {
+  const int* tgt;        // (T, B) targets, or null: no head
+  const float* w1;       // (S, C)
+  const float* b1;       // (C)
+  const float* w2;       // (C, C)
+  const float* b2;       // (C)
+  float* part;           // (gridDim.x, 2): the block's loss and match sums
+  int batch, c, rf, parity;
+};
+
+// The recompute form's arguments (kernel parameters of that form alone)
 struct TailsLayerArgs {
-  const bf16_t* h;       // (M, R) this layer's input
-  bf16_t* h_next;        // (M, R) its output, or null (not needed)
+  const bf16_t* h;       // (M, R) this layer's input (the save forms:
+                         // hsave[l])
+  bf16_t* h_next;        // (M, R) its output (hsave[l+1]), or null
   const bf16_t* ctx;     // (M, R) or null
   const float* b_fg;     // (B, 2R) this layer's rows
   const float* w_fg;     // (W_in, 2R)
@@ -1940,26 +1667,327 @@ struct TailsLayerArgs {
   int t_len, d, first, last;
 };
 
-// One layer of the recompute forward.  Persistent blocks of 16 warps walk
-// 256-row tiles (their operand rows staged in shared memory, all loads of
-// a tile in flight at once).  Warp w takes rows 16w .. 16w + 15 of the
-// tile: fg over all 2R columns (fg_mma), the gate in registers, gated
-// rounded to bf16 as the out product's A fragments, out over R+S columns,
-// then h_next = bf16(out + b_out + h) and the skip sum.
-template <int R, int S>
-__global__ void __launch_bounds__(kTlThreads, 1)
-    stack_tails_layer_kernel(TailsLayerArgs a) {
-  using Sh = TlShape<R, S>;
-  constexpr int NO = Sh::kNo, LDH = Sh::kLdh, LDW = Sh::kLdw;
-  constexpr int LDO = Sh::kLdo, NF = 2 * R / 8, NOT = NO / 8;
+// the save forms'
+struct LayerArgs : TailsLayerArgs {
+  float* hf;             // (M, R) float32 residual stream, in place
+  bf16_t* tfsg;          // (M, 2R) this layer's taps
+  int keep_h;            // store hf (a later layer reads it)
+  int raw_gate;          // gated from the unrounded taps (the merged form)
+  HeadEpilogue hd;       // kSaveHead
+};
+
+template <int FORM>
+struct FormArgs {
+  using type = LayerArgs;
+};
+template <>
+struct FormArgs<kRecompute> {
+  using type = TailsLayerArgs;
+};
+
+__device__ __forceinline__ void st32(bf16_t* p, unsigned v) {
+  *reinterpret_cast<unsigned*>(p) = v;
+}
+__device__ __forceinline__ float rnd_bf(float x) { return bf2f(f2bf(x)); }
+// the sum over a quad of lanes (one row of a C fragment), the same bits in
+// each of them
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// out = gated W_out for NT n tiles from tile j0 (W_out^T in wo, row stride
+// LDO), each tile's sum in float32 over the k steps in order.
+template <int NT, int R, int LDO>
+__device__ __forceinline__ void out_mma(float (&oc)[NT][4],
+                                        const unsigned (&ga)[R / 16][4],
+                                        const bf16_t* wo, int j0) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < R / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const bf16_t* p = wo + (8 * (j0 + j) + g) * LDO + 16 * kk + 2 * q;
+      const unsigned b[2] = {ld32(p), ld32(p + 8)};
+      mma_bf16_add(oc[j], ga[kk], b);
+    }
+}
+
+// The merged head over one warp's 16 rows [mr, mr + 16) from the A
+// fragments as of rnd(leaky(skip)) (SK k steps): y = . W1 + b1 sixteen
+// columns at a time, rnd(leaky(y)) as the A fragment of the next k step of
+// z = . W2 + b2 (z in registers, C <= 64), then each row's NLL and
+// first-argmax match in its quad of lanes, added to loss and match (lane
+// q = 0) over the valid rows.
+template <int SK>
+__device__ __forceinline__ void head_slab(const HeadEpilogue& hd,
+                                          const HeadSmem& hs,
+                                          const bf16_t* w1t,
+                                          const bf16_t* w2t, const float* b1,
+                                          const float* b2,
+                                          const unsigned (&as)[SK][4],
+                                          long mr, long m_total, int t_len,
+                                          float& loss, float& match) {
+  constexpr int NT = 8;   // z's n tiles at C <= 64
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const int C = hd.c, nt = hs.cp / 8;
+  float z[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[j][e] = 0.f;
+  for (int kk = 0; kk < hs.cp / 16; ++kk) {
+    float y[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[h][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < SK; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bf16_t* bp =
+            w1t + (16 * kk + 8 * h + g) * hs.ld1 + 16 * ks + 2 * q;
+        const unsigned b[2] = {ld32(bp), ld32(bp + 8)};
+        mma_bf16_add(y[h], as[ks], b);
+      }
+    float ly[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ly[h][e] = head_core::leaky(y[h][e] +
+                                    b1[16 * kk + 8 * h + 2 * q + (e & 1)]);
+    const unsigned af[4] = {pack2(ly[0][0], ly[0][1]),
+                            pack2(ly[0][2], ly[0][3]),
+                            pack2(ly[1][0], ly[1][1]),
+                            pack2(ly[1][2], ly[1][3])};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (j < nt) {
+        const bf16_t* bp = w2t + (8 * j + g) * hs.ld2 + 16 * kk + 2 * q;
+        const unsigned b[2] = {ld32(bp), ld32(bp + 8)};
+        mma_bf16_add(z[j], af, b);
+      }
+  }
+  // per row (h: rows mr + g, mr + g + 8): max, first argmax, z at the
+  // target, over the lane's columns in order, then across the quad
+  int tg[2], am[2] = {C, C};
+  float mx[2] = {-INFINITY, -INFINITY}, zt[2] = {0.f, 0.f};
+  bool valid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long m = mr + g + 8 * h;
+    const int b = m < m_total ? static_cast<int>(m / t_len) : 0;
+    const int t = m < m_total ? static_cast<int>(m % t_len) : 0;
+    valid[h] = m < m_total && t >= hd.rf - 1 && t < t_len - 1;
+    tg[h] = m < m_total ? hd.tgt[static_cast<long>(t) * hd.batch + b] : -1;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+      if (j < nt && col < C) {
+        const float v = z[j][e] + b2[col];
+        z[j][e] = v;
+        if (v > mx[h]) {
+          mx[h] = v;
+          am[h] = col;
+        }
+        if (col == tg[h]) zt[h] = v;
+      }
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, mx[h], off);
+      const int oa = __shfl_xor_sync(0xffffffffu, am[h], off);
+      if (om > mx[h] || (om == mx[h] && oa < am[h])) {
+        mx[h] = om;
+        am[h] = oa;
+      }
+    }
+    zt[h] = quad_sum(zt[h]);
+  }
+  float es[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+      const float v = j < nt && col < C ? expf(z[j][e] - mx[h]) : 0.f;
+      z[j][e] = v;
+      es[h] += v;
+    }
+  es[0] = quad_sum(es[0]);
+  es[1] = quad_sum(es[1]);
+  float sep[2] = {0.f, 0.f}, pt[2] = {0.f, 0.f};
+  if (hd.parity) {
+    // p = e / sum, then sum exp(p) and p at the target
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+        if (j < nt && col < C) {
+          const float p = z[j][e] / es[h];
+          sep[h] += expf(p);
+          if (col == tg[h]) pt[h] = p;
+        }
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float nll = hd.parity ? logf(quad_sum(sep[h])) - quad_sum(pt[h])
+                                : logf(es[h]) + mx[h] - zt[h];
+    if (q == 0 && valid[h]) {
+      loss += nll;
+      match += am[h] == tg[h] ? 1.f : 0.f;
+    }
+  }
+}
+
+// cp.async: 16 bytes from global to shared memory, zero-filled where
+// !valid (src is then any valid address and is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// waits until at most N of this thread's cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The operand rows [h | h(t-d) | ctx] of the tile at row m0 into hp (row
+// stride LDH) by cp.async: zero past the rows and for the tap before t = d,
+// as hp_item.  Row indices fit 32 bits (B*T < 2^31).
+template <int R, int LDH, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_operands(bf16_t* hp, const bf16_t* h,
+                                               const bf16_t* ctx, long m0,
+                                               long m_total, int t_len,
+                                               int d, int per_row) {
+  for (int i = threadIdx.x; i < ROWS * per_row; i += THREADS) {
+    const int row = i / per_row, c8 = 8 * (i % per_row);
+    const int part = c8 / R, j0 = c8 % R;
+    const long m = m0 + row;
+    bool ok = m < m_total;
+    const bf16_t* src = h + m * R + j0;
+    if (part == 1) {
+      ok = ok && static_cast<int>(static_cast<unsigned>(m) %
+                                  static_cast<unsigned>(t_len)) >= d;
+      src -= static_cast<long>(d) * R;
+    } else if (part == 2) {
+      src = ctx + m * R + j0;
+    }
+    cp_async16(hp + row * LDH + c8, ok ? src : h, ok);
+  }
+}
+
+// This warp's 16 rows from row m of a float32 (M, N) array into buf (row
+// stride LD) by cp.async, zero past the rows.
+template <int N, int LD>
+__device__ __forceinline__ void stage_rows_f32(float* buf, const float* src,
+                                               long m, long m_total) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < 16 * (N / 4); i += 32) {
+    const int row = i / (N / 4), c4 = 4 * (i % (N / 4));
+    const bool ok = m + row < m_total;
+    cp_async16(buf + row * LD + c4, ok ? src + (m + row) * N + c4 : src, ok);
+  }
+}
+
+// Whether float32 v lies within tau of the bf16 rounding tie (the midpoint
+// between two bf16 values) inside its bf16 interval, or tau is too large
+// to tell: then a value tau away may round to another bf16 value.
+__device__ __forceinline__ bool near_bf16_tie(float v, float tau) {
+  const unsigned u = __float_as_uint(v) & 0xffff0000u;
+  const float lo = __uint_as_float(u), mid = __uint_as_float(u | 0x8000u);
+  return fabsf(v - mid) < tau || tau > 0.25f * fabsf(mid - lo);
+}
+
+// One element of fg = [h | h(t-d) | ctx] W_fg as the plain version's
+// float32 product sums it (cuBLAS on the card): k over W_in in order, one
+// fmaf per term from zero, over the bf16 operand row and W_fg^T row.
+template <int LDH, int LDW>
+__device__ __forceinline__ float fg_chain(const bf16_t* hp, const bf16_t* wf,
+                                          int row, int col, int win) {
+  const bf16_t* a = hp + row * LDH;
+  const bf16_t* w = wf + col * LDW;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < win; k += 2) {
+    const unsigned av = ld32(a + k), wv = ld32(w + k);
+    acc = fmaf(__uint_as_float(av << 16), __uint_as_float(wv << 16), acc);
+    acc = fmaf(__uint_as_float(av & 0xffff0000u),
+               __uint_as_float(wv & 0xffff0000u), acc);
+  }
+  return acc;
+}
+
+// One layer of the trunk forward, in the form FORM (see above).  Persistent
+// blocks walk tiles of 16 rows a warp, W_fg^T and W_out staged once.  Warp
+// w takes rows 16w .. 16w + 15 of the tile: fg over all 2R columns on the
+// tensor cores (fg_mma), the gate in registers, gated rounded to bf16,
+// out over R+S columns, then the residual and the skip sum.
+//   The recompute form (16 warps) stages each tile's operands with all
+// their loads in flight at once and runs out on the tensor cores from the
+// gate's fragments.
+//   The save forms (8 warps) give the bits of the plain version wherever
+// a bf16 rounding of theirs feeds a later layer: a sum in another order
+// moves a value by a float32 ulp or so, and where that flips a rounding
+// the flip spreads through the layers above (at the breakdancing shape
+// about 4% of tfsg's bf16 values differed after 9 layers, some by 7
+// steps).  So (1) each tf, sg (and, in the merged form, tf * sg) whose
+// tensor-core fg lies within a margin of its rounding tie has that fg
+// summed again as the plain version sums it (fg_chain), the warp's lanes
+// sharing the flagged elements through a queue; and (2) the residual's
+// out = gated W_out[:, :R] is that fmaf chain from the start (4 rows by
+// R/8 columns a lane, from gated and W_out k-major in shared memory), so
+// the float32 residual stream and hsave equal the plain version's.  These
+// are the save forms' only fmaf products; the skip part of out stays on
+// the tensor cores (the skip sum feeds no layer).  The margin, 8 float32
+// rounding units (2^-24) of |a|_2 |w|_2 (the operand row's and W_fg
+// column's L2 norms), is empirical, not a bound: two orders of K terms
+// may differ by up to about K units of sum |a_i w_i|.  On seeded inputs
+// at the three training widths the largest gap seen was 2.8 units of
+// |a|_2 |w|_2, and 1-2% of the tf and 0.1-0.2% of the sg elements are
+// flagged (utils/fwd_order.py).  It also rests on the plain version's
+// float32 product being that chain, as cuBLAS's is on the H100 at these
+// shapes; a flip that escapes it spreads as above.  The tile is
+// pipelined by cp.async: the warp's float32 rows of h and of the skip sum
+// land in shared memory while it runs fg and the gate, and the next tile's
+// operands while it runs out and the stores.
+template <int R, int S, int FORM>
+__global__ void __launch_bounds__(
+    FORM == kRecompute ? kTlThreads : SaveShape<R, S>::kThreads,
+    FORM == kRecompute ? 1 : SaveShape<R, S>::kMinBlocks)
+    stack_layer_kernel(typename FormArgs<FORM>::type a) {
   static_assert(R % 16 == 0 && S % 8 == 0, "16-wide k steps, 8-wide tiles");
   const int win = a.ctx ? 3 * R : 2 * R, per_row = win / 8;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = tid & 3, r0 = 16 * warp;
+  const long m_total = a.m_total;
+  if constexpr (FORM == kRecompute) {
+  using Sh = TlShape<R, S>;
+  constexpr int NO = Sh::kNo, LDH = Sh::kLdh, LDW = Sh::kLdw;
+  constexpr int LDO = Sh::kLdo, NF = 2 * R / 8, NOT = NO / 8;
   bf16_t* hp = reinterpret_cast<bf16_t*>(smem);   // (kTlRows, LDH)
   bf16_t* wf = hp + kTlRows * LDH;                  // (2R, LDW) W_fg^T
   bf16_t* wo = wf + 2 * R * LDW;                    // (NO, LDO) W_out^T
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int g = (tid & 31) >> 2, q = tid & 3, r0 = 16 * warp;
 
   // the weights rounded to bf16, as the TPU kernel's _mdot rounds
   // operands, one row per output column; staged once per block
@@ -1967,7 +1995,7 @@ __global__ void __launch_bounds__(kTlThreads, 1)
     wf[(i % (2 * R)) * LDW + i / (2 * R)] = f2bf(a.w_fg[i]);
   for (int i = tid; i < R * NO; i += kTlThreads)
     wo[(i % NO) * LDO + i / NO] = f2bf(a.w_out[i]);
-  const long n_tiles = (a.m_total + kTlRows - 1) / kTlRows;
+  const long n_tiles = (m_total + kTlRows - 1) / kTlRows;
   for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
     const long m0 = tile_i * kTlRows;
     __syncthreads();
@@ -2068,44 +2096,433 @@ __global__ void __launch_bounds__(kTlThreads, 1)
       }
     }
   }  // tiles
+  } else {
+  using Sh = SaveShape<R, S>;
+  constexpr int ROWS = Sh::kRows, THREADS = Sh::kThreads, QCAP = Sh::kQcap;
+  constexpr int LDH = Sh::kLdh, LDW = Sh::kLdw, LDO = Sh::kLdo;
+  constexpr int LDK = Sh::kLdk, LDHF = Sh::kLdhf, LDSF = Sh::kLdsf;
+  constexpr int NO = R + S, CW = R / 8;   // CW: residual columns a lane
+  bf16_t* hp = reinterpret_cast<bf16_t*>(smem);
+  bf16_t* wf = reinterpret_cast<bf16_t*>(smem + Sh::kWf);
+  bf16_t* wos = reinterpret_cast<bf16_t*>(smem + Sh::kWos);
+  float* sb = reinterpret_cast<float*>(smem + Sh::kSb);
+  unsigned* qk = reinterpret_cast<unsigned*>(smem + Sh::kQk) + warp * QCAP;
+  float* qv = reinterpret_cast<float*>(smem + Sh::kQv) + warp * QCAP;
+  int* qb = reinterpret_cast<int*>(smem + Sh::kQb) + warp * 16;
+  float* wn = reinterpret_cast<float*>(smem + Sh::kWn);
+  bf16_t* wk = reinterpret_cast<bf16_t*>(smem + Sh::kWk);
+  bf16_t* gt = reinterpret_cast<bf16_t*>(smem + Sh::kGt) + warp * R * 16;
+  float* hb = reinterpret_cast<float*>(smem + Sh::kHb);
+  // the merged form's last layer: the head's weights in the residual's
+  // place, zero-padded
+  const HeadSmem hs(S, FORM == kSaveHead ? a.hd.c : 0);
+  bf16_t* w1t = wk;                                   // (CP, ld1) W1^T
+  bf16_t* w2t = w1t + hs.cp * hs.ld1;                 // (CP, ld2) W2^T
+  float* hb1 = reinterpret_cast<float*>(w2t + hs.cp * hs.ld2);
+  float* hb2 = hb1 + hs.cp;
+
+  // the weights rounded to bf16, as the TPU kernel's _mdot rounds
+  // operands; staged once per block
+  for (int i = tid; i < win * 2 * R; i += THREADS)
+    wf[(i % (2 * R)) * LDW + i / (2 * R)] = f2bf(a.w_fg[i]);
+  for (int i = tid; i < R * S; i += THREADS)
+    wos[(i % S) * LDO + i / S] = f2bf(a.w_out[(i / S) * NO + R + i % S]);
+  if constexpr (FORM == kSaveHead) {
+    const int C = a.hd.c;
+    for (int i = tid; i < hs.cp * hs.sp; i += THREADS) {
+      const int c = i / hs.sp, k = i % hs.sp;
+      w1t[c * hs.ld1 + k] = f2bf(c < C && k < S ? a.hd.w1[k * C + c] : 0.f);
+    }
+    for (int i = tid; i < hs.cp * hs.cp; i += THREADS) {
+      const int c = i / hs.cp, k = i % hs.cp;
+      w2t[c * hs.ld2 + k] = f2bf(c < C && k < C ? a.hd.w2[k * C + c] : 0.f);
+    }
+    for (int i = tid; i < hs.cp; i += THREADS) {
+      hb1[i] = i < C ? a.hd.b1[i] : 0.f;
+      hb2[i] = i < C ? a.hd.b2[i] : 0.f;
+    }
+  } else {
+    for (int i = tid; i < R * R; i += THREADS)
+      wk[(i / R) * LDK + i % R] = f2bf(a.w_out[(i / R) * NO + i % R]);
+  }
+  __syncthreads();
+  for (int c = tid; c < 2 * R; c += THREADS) {
+    float ss = 0.f;
+    for (int k = 0; k < win; ++k) {
+      const float w = bf2f(wf[c * LDW + k]);
+      ss = fmaf(w, w, ss);
+    }
+    wn[c] = sqrtf(ss);
+  }
+  float loss = 0.f, match = 0.f;   // the merged head's, lanes q = 0
+  // the float32 h is read from the second layer on, and written for the
+  // layers after the next; the skip sum read from the second layer on
+  const bool read_h = !a.first && a.h_next, read_s = !a.first;
+  const long n_tiles = (m_total + ROWS - 1) / ROWS;
+  if (blockIdx.x < n_tiles)
+    stage_operands<R, LDH, ROWS, THREADS>(hp, a.h, a.ctx,
+                                          static_cast<long>(blockIdx.x) * ROWS,
+                                          m_total, a.t_len, a.d, per_row);
+  cp_async_commit();
+  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    const long m0 = tile_i * ROWS, mr = m0 + r0;
+    // the warp's rows of h and of the skip sum, in flight during fg (once
+    // every lane has read the last tile's)
+    __syncwarp();
+    if (read_h) stage_rows_f32<R, LDHF>(hb + r0 * LDHF, a.hf, mr, m_total);
+    if (read_s)
+      stage_rows_f32<S, LDSF>(sb + r0 * LDSF, a.skacc, mr, m_total);
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile's operands
+    __syncthreads();
+
+    // the L2 norms of the lane's two operand rows, for the ties' bounds
+    float rn[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bf16_t* p = hp + (r0 + g + 8 * h) * LDH;
+      float ss = 0.f;
+      for (int k = 2 * q; k < win; k += 8) {
+        const unsigned u = ld32(p + k);
+        const float x0 = __uint_as_float(u << 16);
+        const float x1 = __uint_as_float(u & 0xffff0000u);
+        ss = fmaf(x1, x1, fmaf(x0, x0, ss));
+      }
+      rn[h] = sqrtf(quad_sum(ss));
+    }
+    // the fg bias rows of the lane's two rows' batch rows (their offsets
+    // also in qb, for the queue)
+    const float* bfr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long m = mr + g + 8 * h;
+      const int off = static_cast<int>(m < m_total ? m / a.t_len : 0) * 2 * R;
+      bfr[h] = a.b_fg + off;
+      if (q == 0) qb[g + 8 * h] = off;
+    }
+    // fg and the gate in FP passes (two from R = 32, so that the sums
+    // stay in registers: up to 255 at R = 64, 128 at R = 32), each over NP
+    // filter tiles and their gate tiles; tf and sg rounded into tfsg,
+    // gated into the A fragments of the skip product and, for the
+    // residual's chain, into gt
+    constexpr int FP = R >= 32 ? 2 : 1, NP = R / 8 / FP;
+    constexpr float kTie = 8.f / 16777216.f;   // 8 float32 rounding units
+    const float rk[2] = {kTie * rn[0], kTie * rn[1]};
+    unsigned ga[R / 16][4];
+#pragma unroll
+    for (int p = 0; p < FP; ++p) {
+      float fg[2 * NP][4];
+      fg_mma<2 * NP, LDH>(fg, hp, r0, win, [&](int kk, int j, unsigned* b) {
+        const int col = j < NP ? p * NP + j : R / 8 + p * NP + j - NP;
+        const bf16_t* bp = wf + (8 * col + g) * LDW + 16 * kk + 2 * q;
+        b[0] = ld32(bp);
+        b[1] = ld32(bp + 8);
+      });
+      // the gate, and the elements whose fg is summed again: bit 8 jj + 2e
+      // + (0: f, 1: g) of flags
+      float tv[NP][4], sv[NP][4];
+      unsigned flags = 0;
+#pragma unroll
+      for (int jj = 0; jj < NP; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = p * NP + jj, c = 8 * j + 2 * q + (e & 1);
+          const float* bf = bfr[e >> 1];
+          const float t = tanhf(fg[jj][e] + __ldg(bf + c));
+          const float s = sigmoidf(fg[NP + jj][e] + __ldg(bf + R + c));
+          tv[jj][e] = t;
+          sv[jj][e] = s;
+          const float tt = (1.f - t * t) * rk[e >> 1] * wn[c] +
+                           4.f * kTie * fabsf(t);
+          const float ts = s * (1.f - s) * rk[e >> 1] * wn[R + c] +
+                           4.f * kTie * s;
+          bool ff = near_bf16_tie(t, tt), fs = near_bf16_tie(s, ts);
+          if (a.raw_gate) {
+            const float tp =
+                fabsf(s) * tt + fabsf(t) * ts + 4.f * kTie * fabsf(t * s);
+            const bool fp = near_bf16_tie(t * s, tp);
+            ff = ff || fp;
+            fs = fs || fp;
+          }
+          flags |= (ff ? 1u : 0u) << (8 * jj + 2 * e) |
+                   (fs ? 1u : 0u) << (8 * jj + 2 * e + 1);
+        }
+      // The flagged elements go through the warp's queue, in rounds of
+      // QCAP, in the order of lanes, then bits: the warp's lanes sum them
+      // as the plain version does and apply the gate, and each owner takes
+      // its values back.
+      const int n_own = __popc(flags);
+      int first = n_own;   // the lane's first queue index (a lane scan)
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, first, off);
+        if (lane >= off) first += v;
+      }
+      const int n_q = __shfl_sync(0xffffffffu, first, 31);
+      first -= n_own;
+      for (int rb = 0; rb < n_q; rb += QCAP) {
+        // push: the lane's flagged elements, one pass over its set bits
+        int slot = first - rb;
+        for (unsigned f = flags; f; f &= f - 1u, ++slot) {
+          const int bit = __ffs(f) - 1;
+          if (slot >= 0 && slot < QCAP) {
+            const int e = bit % 8 / 2, w = bit & 1;
+            const int c = 8 * (p * NP + bit / 8) + 2 * q + (e & 1);
+            qk[slot] = static_cast<unsigned>((r0 + g + 8 * (e >> 1)) << 8 |
+                                             (w * R + c));
+          }
+        }
+        __syncwarp();
+        for (int i = lane; i < min(n_q - rb, QCAP); i += 32) {
+          const int row = static_cast<int>(qk[i] >> 8);
+          const int col = static_cast<int>(qk[i] & 0xffu);
+          const float v = fg_chain<LDH, LDW>(hp, wf, row, col, win) +
+                          __ldg(a.b_fg + qb[row - r0] + col);
+          qv[i] = col < R ? tanhf(v) : sigmoidf(v);
+        }
+        __syncwarp();
+        // pickup, without branches: every bit reads a slot, the flagged
+        // ones in this round take it
+#pragma unroll
+        for (int bit = 0; bit < 8 * NP; ++bit) {
+          const int at = first + __popc(flags & ((1u << bit) - 1u)) - rb;
+          const bool take = (flags >> bit & 1u) && at >= 0 && at < QCAP;
+          const float v = qv[min(max(at, 0), QCAP - 1)];
+          const int jj = bit / 8, e = bit % 8 / 2;
+          if (bit & 1)
+            sv[jj][e] = take ? v : sv[jj][e];
+          else
+            tv[jj][e] = take ? v : tv[jj][e];
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int jj = 0; jj < NP; ++jj) {
+        const int j = p * NP + jj;
+        float vf[4], vg[4], gv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float t = tv[jj][e], s = sv[jj][e];
+          vf[e] = rnd_bf(t);
+          vg[e] = rnd_bf(s);
+          gv[e] = a.raw_gate ? t * s : vf[e] * vg[e];
+          if (a.h_next)
+            gt[(8 * j + 2 * q + (e & 1)) * 16 + g + 8 * (e >> 1)] =
+                f2bf(gv[e]);
+        }
+        ga[j / 2][2 * (j & 1)] = pack2(gv[0], gv[1]);
+        ga[j / 2][2 * (j & 1) + 1] = pack2(gv[2], gv[3]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long m = mr + g + 8 * h;
+          if (m < m_total) {
+            bf16_t* tp = a.tfsg + m * 2 * R + 8 * j + 2 * q;
+            st32(tp, pack2(vf[2 * h], vf[2 * h + 1]));
+            st32(tp + R, pack2(vg[2 * h], vg[2 * h + 1]));
+          }
+        }
+      }
+    }
+    // the residual's chain tile of the lane: rows 4 rg .. 4 rg + 3 of the
+    // warp's, columns CW cg .. CW cg + CW - 1; the first layer's h is its
+    // bf16 input, taken from hp before hp takes the next tile's operands
+    const int rg = lane >> 3, cg = lane & 7;
+    float h0[4][CW];
+    if (a.first && a.h_next) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < CW; ++jj)
+          h0[i][jj] = bf2f(hp[(r0 + 4 * rg + i) * LDH + CW * cg + jj]);
+    }
+    __syncthreads();      // every warp is done with hp
+    if (tile_i + gridDim.x < n_tiles)
+      stage_operands<R, LDH, ROWS, THREADS>(
+          hp, a.h, a.ctx, (tile_i + gridDim.x) * ROWS, m_total, a.t_len, a.d,
+          per_row);
+    cp_async_commit();
+    cp_async_wait<1>();   // the warp's rows of h and of the skip sum
+    __syncwarp();
+
+    // out + b_out over the residual's R columns, as the plain version
+    // sums it (k in order, one fmaf per term): h = (out + b_out) + h in
+    // float32, hsave[l+1] = bf16(h)
+    if (a.h_next) {
+      float acc[4][CW];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < CW; ++jj) acc[i][jj] = 0.f;
+      const bf16_t* gp = gt + 4 * rg;
+      const bf16_t* wp = wk + CW * cg;
+#pragma unroll 4
+      for (int k = 0; k < R; ++k) {
+        const uint2 au = *reinterpret_cast<const uint2*>(gp + k * 16);
+        const float av[4] = {__uint_as_float(au.x << 16),
+                             __uint_as_float(au.x & 0xffff0000u),
+                             __uint_as_float(au.y << 16),
+                             __uint_as_float(au.y & 0xffff0000u)};
+        // CW bf16 of W_out's row k in one load (CW * 2 bytes, aligned)
+        unsigned wu[CW / 2];
+        if constexpr (CW == 8) {
+          const uint4 u = *reinterpret_cast<const uint4*>(wp + k * LDK);
+          wu[0] = u.x, wu[1] = u.y, wu[2] = u.z, wu[3] = u.w;
+        } else if constexpr (CW == 4) {
+          const uint2 u = *reinterpret_cast<const uint2*>(wp + k * LDK);
+          wu[0] = u.x, wu[1] = u.y;
+        } else {
+          wu[0] = ld32(wp + k * LDK);
+        }
+        float wv[CW];
+#pragma unroll
+        for (int jj = 0; jj < CW; jj += 2) {
+          wv[jj] = __uint_as_float(wu[jj / 2] << 16);
+          wv[jj + 1] = __uint_as_float(wu[jj / 2] & 0xffff0000u);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < CW; ++jj)
+            acc[i][jj] = fmaf(av[i], wv[jj], acc[i][jj]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + 4 * rg + i;
+        const long m = m0 + row;
+        if (m >= m_total) continue;
+        float v[CW];
+#pragma unroll
+        for (int jj = 0; jj < CW; ++jj) {
+          const int c = CW * cg + jj;
+          const float o = a.first ? h0[i][jj] : hb[row * LDHF + c];
+          v[jj] = (acc[i][jj] + __ldg(a.b_out + c)) + o;
+        }
+#pragma unroll
+        for (int jj = 0; jj < CW; jj += 2) {
+          const int c = CW * cg + jj;
+          if (a.keep_h)
+            *reinterpret_cast<float2*>(a.hf + m * R + c) =
+                make_float2(v[jj], v[jj + 1]);
+          st32(a.h_next + m * R + c, pack2(v[jj], v[jj + 1]));
+        }
+      }
+    }
+    // the skip part on the tensor cores: the sum over layers in float32,
+    // stored in bf16 by the last layer; the merged head's rows keep the
+    // finished sums
+    {
+      float oc[S / 8][4];
+      out_mma<S / 8, R, LDO>(oc, ga, wos, 0);
+#pragma unroll
+      for (int j = 0; j < S / 8; ++j) {
+        const int c = 8 * j + 2 * q;
+        const float b0 = __ldg(a.b_out + R + c);
+        const float b1 = __ldg(a.b_out + R + c + 1);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = r0 + g + 8 * e;
+          const long m = m0 + row;
+          float2 s = make_float2(0.f, 0.f);
+          if (m < m_total) {
+            s = make_float2(oc[j][2 * e] + b0, oc[j][2 * e + 1] + b1);
+            if (read_s) {
+              const float2 o =
+                  *reinterpret_cast<const float2*>(sb + row * LDSF + c);
+              s = make_float2(o.x + s.x, o.y + s.y);
+            }
+            if (a.last)
+              st32(a.skip + m * S + c, pack2(s.x, s.y));
+            else
+              *reinterpret_cast<float2*>(a.skacc + m * S + c) = s;
+          }
+          oc[j][2 * e] = s.x;
+          oc[j][2 * e + 1] = s.y;
+        }
+      }
+      if constexpr (FORM == kSaveHead) {
+        // rnd(leaky(rnd(skip))) as the A fragments of y (k step ks = the
+        // skip's n tiles 2ks, 2ks + 1; zero past S)
+        constexpr int SK = (S + 15) / 16;
+        unsigned as[SK][4];
+#pragma unroll
+        for (int ks = 0; ks < SK; ++ks)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j = 2 * ks + (i >> 1), e = 2 * (i & 1);
+            as[ks][i] = j < S / 8
+                            ? pack2(head_core::leaky(rnd_bf(oc[j][e])),
+                                    head_core::leaky(rnd_bf(oc[j][e + 1])))
+                            : 0u;
+          }
+        head_slab<SK>(a.hd, hs, w1t, w2t, hb1, hb2, as, mr, m_total,
+                      a.t_len, loss, match);
+      }
+    }
+  }  // tiles
+  cp_async_wait<0>();
+  if constexpr (FORM == kSaveHead) {
+    // the block's sums, in thread order (hp is free after the tiles)
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(hp);
+    red[tid] = loss;
+    red[THREADS + tid] = match;
+    __syncthreads();
+    if (tid == 0) {
+      float sl = 0.f, sm = 0.f;
+      for (int i = 0; i < THREADS; ++i) {
+        sl += red[i];
+        sm += red[THREADS + i];
+      }
+      a.hd.part[2 * blockIdx.x] = sl;
+      a.hd.part[2 * blockIdx.x + 1] = sm;
+    }
+  }
+  }
 }
 
-// Launches of the layer kernel: its shared memory set once, the grid (as
-// many persistent blocks as fit, at most one per tile) for every layer.
-template <int R, int S>
-struct TailsLayers {
+// Launches of the layer kernel in one form: its shared memory set once,
+// the grid (as many persistent blocks as fit, at most one per tile and at
+// most max_grid) for every layer.
+template <int R, int S, int FORM>
+struct LayerLaunch {
+  static constexpr int kThreads =
+      FORM == kRecompute ? kTlThreads : SaveShape<R, S>::kThreads;
+  static constexpr int kRows =
+      FORM == kRecompute ? kTlRows : SaveShape<R, S>::kRows;
   size_t smem = 0;
   int grid = 0;
-  int setup(long m_total) {
-    smem = TlShape<R, S>::smem();
+  int setup(long m_total, long max_grid = 0) {
+    smem = FORM == kRecompute ? TlShape<R, S>::smem()
+                              : SaveShape<R, S>::smem();
     const void* fn = reinterpret_cast<const void*>(
-        stack_tails_layer_kernel<R, S>);
+        stack_layer_kernel<R, S, FORM>);
     int err = set_smem(fn, smem);
     if (err) return err;
     int per_sm = 0;
     cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fn, kTlThreads, smem);
+        &per_sm, fn, kThreads, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const long tiles = (m_total + kTlRows - 1) / kTlRows;
-    const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
+    const long tiles = (m_total + kRows - 1) / kRows;
+    long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
+    if (max_grid > 0 && fit > max_grid) fit = max_grid;
     grid = static_cast<int>(tiles < fit ? tiles : fit);
     return 0;
   }
-  int launch(const TailsLayerArgs& a, cudaStream_t st) const {
-    stack_tails_layer_kernel<R, S><<<grid, kTlThreads, smem, st>>>(a);
+  int launch(const typename FormArgs<FORM>::type& a,
+             cudaStream_t st) const {
+    stack_layer_kernel<R, S, FORM><<<grid, kThreads, smem, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
 // The layer arguments of layer l (skip sum off).
 template <int R, int S>
-TailsLayerArgs tails_layer_args(const bf16_t* h, bf16_t* h_next,
-                                const bf16_t* ctx, const float* b_fg,
-                                const float* w_fg, const float* w_out,
-                                const float* b_out, const int* dil, int l,
-                                int batch, int t_len) {
+LayerArgs layer_args(const bf16_t* h, bf16_t* h_next, const bf16_t* ctx,
+                     const float* b_fg, const float* w_fg,
+                     const float* w_out, const float* b_out, const int* dil,
+                     int l, int batch, int t_len) {
   const int win = ctx ? 3 * R : 2 * R;
-  TailsLayerArgs a = {};
+  LayerArgs a = {};
   a.h = h;
   a.h_next = h_next;
   a.ctx = ctx;
@@ -2119,6 +2536,81 @@ TailsLayerArgs tails_layer_args(const bf16_t* h, bf16_t* h_next,
   return a;
 }
 
+// The forward's source: the embedding (pack, table2) or, in the non-embed
+// forms, x; raw_gate and the head epilogue are the merged form's.
+struct FwdSource {
+  const int* pack;
+  int pack_cols;
+  const bf16_t* table2;
+  int vocab;
+  const bf16_t* x;       // non-null: start from x
+  int raw_gate;
+  HeadEpilogue hd;       // hd.tgt non-null: the head on the last layer
+  float* out;            // (2) the head's loss sum and match count
+};
+
+// The save forward: hsave[0] from the embedding or x, then one launch of
+// the layer kernel per layer (kSave; the merged form's last layer
+// kSaveHead, at most one block per SM, and a fixed-order reduction of the
+// blocks' loss and match sums).
+template <int R, int S>
+int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
+             const float* w_fg, const float* w_out, const float* b_out,
+             const int* dil, float* h, float* skacc, bf16_t* hsave,
+             bf16_t* tfsg, bf16_t* skip, int batch, int t_len, int n_layers,
+             cudaStream_t st) {
+  const long m_total = static_cast<long>(batch) * t_len;
+  const long mr = m_total * R;
+  if (src.x)
+    stack_x_kernel<<<grid_for(mr), kThreads, 0, st>>>(src.x, mr, hsave);
+  else
+    stack_embed_kernel<<<grid_for(mr), kThreads, 0, st>>>(
+        src.pack, src.pack_cols, src.table2, src.vocab, batch, t_len, R,
+        hsave);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool head = src.hd.tgt != nullptr;
+  LayerLaunch<R, S, kSave> body;
+  int err = body.setup(m_total);
+  if (err) return err;
+  LayerLaunch<R, S, kSaveHead> top;
+  if (head) {
+    if (HeadSmem(S, src.hd.c).bytes() > SaveShape<R, S>::kEnd -
+                                            SaveShape<R, S>::kWk)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // part holds one row per SM
+    err = top.setup(m_total, sm_count());
+    if (err) return err;
+  }
+  for (int l = 0; l < n_layers; ++l) {
+    LayerArgs a = layer_args<R, S>(
+        hsave + l * mr, l + 1 < n_layers ? hsave + (l + 1) * mr : nullptr,
+        ctx, b_fg, w_fg, w_out, b_out, dil, l, batch, t_len);
+    a.skacc = skacc;
+    a.skip = skip;
+    a.first = l == 0;
+    a.last = l == n_layers - 1;
+    a.hf = h;
+    a.tfsg = tfsg + l * m_total * 2 * R;
+    a.keep_h = l + 2 < n_layers;
+    a.raw_gate = src.raw_gate;
+    if (a.last && head) {
+      a.hd = src.hd;
+      err = top.launch(a, st);
+    } else {
+      err = body.launch(a, st);
+    }
+    if (err) return err;
+  }
+  if (head) {
+    reduce_kernel<<<1, kThreads, 0, st>>>(src.hd.part, src.out, 2, 1,
+                                          top.grid);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
 template <int R, int S>
 int fwd_tails_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
                    const float* w_fg, const float* w_out, const float* b_out,
@@ -2126,7 +2618,7 @@ int fwd_tails_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
                    bf16_t* work, float* skacc, int batch, int t_len,
                    int n_layers, cudaStream_t st) {
   const long mr = static_cast<long>(batch) * t_len * R;
-  TailsLayers<R, S> tl;
+  LayerLaunch<R, S, kRecompute> tl;
   int err = tl.setup(static_cast<long>(batch) * t_len);
   if (err) return err;
   // the input of layer l: x, a checkpoint (l a multiple of every) or one
@@ -2136,7 +2628,7 @@ int fwd_tails_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
     return work + (l & 1) * mr;
   };
   for (int l = 0; l < n_layers; ++l) {
-    TailsLayerArgs a = tails_layer_args<R, S>(
+    LayerArgs a = layer_args<R, S>(
         l == 0 ? x : input(l), l + 1 < n_layers ? input(l + 1) : nullptr,
         ctx, b_fg, w_fg, w_out, b_out, dil, l, batch, t_len);
     a.skacc = skacc;
@@ -2169,7 +2661,7 @@ int bwd_tails_impl(const bf16_t* x, const bf16_t* ckpt, const bf16_t* ctx,
   float* dctx = dhp + 6 * mr;
   float* gated = dhp + 7 * mr;
   float* part = dhp + 8 * mr;
-  TailsLayers<R, S> tl;
+  LayerLaunch<R, S, kRecompute> tl;
   int err = tl.setup(m_total);
   if (err) return err;
   using Sh = BwdShape<R, S>;
@@ -2196,7 +2688,7 @@ int bwd_tails_impl(const bf16_t* x, const bf16_t* ckpt, const bf16_t* ctx,
       return l == lo ? h_lo : group + (l - lo - 1) * mr;
     };
     for (int l = lo; l + 1 < hi; ++l) {
-      err = tl.launch(tails_layer_args<R, S>(
+      err = tl.launch(layer_args<R, S>(
           input(l), group + (l - lo) * mr, ctx, b_fg, w_fg, w_out, b_out,
           dil, l, batch, t_len), st);
       if (err) return err;
@@ -2451,6 +2943,20 @@ int movenet_stack_bwd(const bf16_t* hsave, const bf16_t* tfsg,
                       dwup, dbup, batch, t_len, n_layers, r, s, stream);
 }
 
+// Dynamic shared memory of the layer kernel's launches in form `form`, in
+// bytes (the merged form's last layer, form 2, keeps its head's weights in
+// the residual's place); -1 where (r, s) is not built.
+long movenet_stack_layer_smem(int r, int s, int form) {
+#define X(R_, S_)                                                        \
+  if (r == R_ && s == S_)                                                \
+    return static_cast<long>(form == kRecompute                          \
+                                 ? TlShape<R_, S_>::smem()               \
+                                 : SaveShape<R_, S_>::smem());
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return -1;
+}
+
 // Blocks of the merged head's launches: one per SM.
 int movenet_stack_blocks() { return sm_count(); }
 
@@ -2458,8 +2964,11 @@ int movenet_stack_blocks() { return sm_count(); }
 int movenet_stack_head_supports(int r, int s, int c) {
   if (!movenet_stack_supports(r, s) || c < 4 || c > 64 || c % 4) return 0;
   if (head_bwd_smem(s, c) > kSmemLimit) return 0;
-#define X(R_, S_) \
-  if (r == R_ && s == S_) return FwdShape<R_, S_>::smem(c) <= kSmemLimit;
+#define X(R_, S_)                                                        \
+  if (r == R_ && s == S_)                                                \
+    return SaveShape<R_, S_>::smem() <= kSmemLimit &&                    \
+           HeadSmem(S_, c).bytes() <=                                    \
+               SaveShape<R_, S_>::kEnd - SaveShape<R_, S_>::kWk;
   MOVENET_STACK_WIDTHS(X)
 #undef X
   return 0;

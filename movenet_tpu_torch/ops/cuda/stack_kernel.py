@@ -72,6 +72,8 @@ def bind(lib):
     lib.movenet_stack_bwd_scratch.restype = _L
     lib.movenet_stack_bwd_smem.argtypes = [_I, _I, _I, _I]
     lib.movenet_stack_bwd_smem.restype = _L
+    lib.movenet_stack_layer_smem.argtypes = [_I, _I, _I]
+    lib.movenet_stack_layer_smem.restype = _L
     lib.movenet_stack_fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _P,
                                       _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _I, _P]

@@ -274,18 +274,21 @@ def _unshift(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _save_fwd(h, ctx, b_fg, w_fg, w_out, b_out, dilations, dt,
-              raw_gate: bool):
+              raw_gate: bool, matmul=torch.matmul, acc=torch.float32):
     """The save forward from the float32 input h: (skip_sum float32,
     hsave, tfsg in ``dt``).  ``gated`` is formed from the rounded taps
     (``_fwd_kernel``), or from the unrounded ones with ``raw_gate``
-    (``_fwd_kernel_head``, stack_kernel.py:513)."""
+    (``_fwd_kernel_head``, stack_kernel.py:513).  ``matmul`` forms both
+    products (``mma_order_matmul``: in the layer kernel's order); ``acc``
+    is the dtype of every sum (float64: a reference for the orders)."""
     def rnd(x):
-        return x.to(dt).to(torch.float32)
+        return x.to(dt).to(acc)
 
     batch, _, r = h.shape
     n_layers = len(dilations)
-    bfg = b_fg.to(torch.float32).reshape(n_layers, batch, 1, 2 * r)
-    ctxf = ctx.to(torch.float32) if ctx is not None else None
+    h = h.to(acc)
+    bfg = b_fg.to(acc).reshape(n_layers, batch, 1, 2 * r)
+    ctxf = ctx.to(acc) if ctx is not None else None
     skip = None
     hsave, tfsg = [], []
     for l, d in enumerate(dilations):
@@ -293,15 +296,14 @@ def _save_fwd(h, ctx, b_fg, w_fg, w_out, b_out, dilations, dt,
         hsave.append(hr.to(dt))
         parts = [hr, rnd(_shift(h, d))] + ([ctxf] if ctxf is not None
                                             else [])
-        fg = torch.matmul(torch.cat(parts, dim=-1), rnd(w_fg[l])) + bfg[l]
+        fg = matmul(torch.cat(parts, dim=-1), rnd(w_fg[l])) + bfg[l]
         raw = torch.cat([torch.tanh(fg[..., :r]),
                          torch.sigmoid(fg[..., r:])], dim=-1)
         v = rnd(raw)
         tfsg.append(v.to(dt))
         g = raw if raw_gate else v
         gated = g[..., :r] * g[..., r:]
-        out = torch.matmul(rnd(gated), rnd(w_out[l])) \
-            + b_out[l].to(torch.float32)
+        out = matmul(rnd(gated), rnd(w_out[l])) + b_out[l].to(acc)
         skip = out[..., r:] if skip is None else skip + out[..., r:]
         h = out[..., :r] + h
     return skip, torch.stack(hsave), torch.stack(tfsg)
@@ -538,6 +540,173 @@ def tf32_split_matmul(a: torch.Tensor, b: torch.Tensor, split_a: bool,
     for u, v in passes:
         out = out + torch.matmul(u.to(f64), v.to(f64)).to(torch.float32)
     return out
+
+
+# ------------------------------------------- tensor-core summation order
+# The trunk's layer kernel (csrc/stack_kernel.cu stack_layer_kernel, every
+# forward form) runs its products as bf16 mma.sync m16n8k16: each 16-wide k
+# step's products of bf16 values, exact in float32, are summed by the
+# tensor core from zero and the step's sum is added to the float32 running
+# sum in k order (mma_bf16_add).  The merged head's y and z sum the same
+# way, and its row reductions run across a quad of lanes.  On the card the
+# plain versions' float32 products (cuBLAS at these shapes) are one fmaf
+# chain over k per element instead.  In the save forms the kernel keeps the
+# plain version's bits wherever a bf16 rounding feeds a later layer: fg
+# elements near a rounding tie are summed again as the chain sums them, and
+# the residual's out is the chain.  The functions below model these
+# orders on the CPU (a tensor-core step's sum taken exactly, then rounded
+# to float32).
+MMA_K_STEP = 16
+# the kernel's re-sum margin (empirical, not a bound), in float32
+# rounding units of |a|_2 |w|_2 (kTie)
+MMA_TIE_UNITS = 8
+
+
+def mma_order_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (float32 operands holding compute-dtype values) summed as
+    the layer kernel sums it: each 16-wide k step's sum of products in
+    float64, rounded to float32, added to the float32 sum in k order."""
+    f32, f64 = torch.float32, torch.float64
+    out = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=f32,
+                      device=a.device)
+    for k0 in range(0, a.shape[-1], MMA_K_STEP):
+        step = torch.matmul(a[..., k0:k0 + MMA_K_STEP].to(f64),
+                            b[k0:k0 + MMA_K_STEP].to(f64))
+        out = out + step.to(f32)
+    return out
+
+
+def chain_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (float32 operands holding compute-dtype values) as one
+    fmaf chain over k per element, from zero: the products are exact in
+    float32, so each step is a float32 add."""
+    out = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32,
+                      device=a.device)
+    for k in range(a.shape[-1]):
+        out = out + a[..., k:k + 1] * b[k]
+    return out
+
+
+def _near_bf16_tie(v: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """The kernel's near_bf16_tie: v within tau of the bf16 rounding tie
+    inside its bf16 interval, or tau above a quarter of half the interval."""
+    u = v.contiguous().view(torch.int32) & -65536
+    lo = u.view(torch.float32)
+    mid = (u | 0x8000).view(torch.float32)
+    return ((v - mid).abs() < tau) | (tau > 0.25 * (mid - lo).abs())
+
+
+def _gate_kernel_order(a, w, bias, r: int, raw_gate: bool,
+                       exact_ties: bool):
+    """[tanh f | sigmoid g] (float32) of fg = a w + bias as the save layer
+    kernel forms it: fg in ``mma_order_matmul``'s order and, with
+    ``exact_ties``, the elements near a rounding tie of tf, sg (or of tf *
+    sg with ``raw_gate``) summed again as ``chain_matmul``."""
+    fg = mma_order_matmul(a, w) + bias
+    t, s = torch.tanh(fg[..., :r]), torch.sigmoid(fg[..., r:])
+    if not exact_ties:
+        return torch.cat([t, s], dim=-1)
+    unit = MMA_TIE_UNITS * 2.0 ** -24
+    bound = a.norm(dim=-1, keepdim=True) * w.norm(dim=0)
+    tt = (1 - t * t) * unit * bound[..., :r] + 4 * unit * t.abs()
+    ts = s * (1 - s) * unit * bound[..., r:] + 4 * unit * s
+    ff, fs = _near_bf16_tie(t, tt), _near_bf16_tie(s, ts)
+    if raw_gate:
+        fp = _near_bf16_tie(t * s, s.abs() * tt + t.abs() * ts
+                            + 4 * unit * (t * s).abs())
+        ff, fs = ff | fp, fs | fp
+    exact = chain_matmul(a, w) + bias
+    t = torch.where(ff, torch.tanh(exact[..., :r]), t)
+    s = torch.where(fs, torch.sigmoid(exact[..., r:]), s)
+    return torch.cat([t, s], dim=-1)
+
+
+def stack_fwd_x_mma_order(x, ctx, b_fg, w_fg, w_out, b_out,
+                          dilations: Sequence[int], raw_gate: bool = False,
+                          exact_ties: bool = True):
+    """``stack_fwd_x_plain`` (``raw_gate``: the merged form's layers) as
+    the save layer kernel computes it: (skip_sum, hsave, tfsg) in x's
+    dtype.  fg in ``mma_order_matmul``'s order with the elements near a
+    tie summed again (``exact_ties``), the residual's out as
+    ``chain_matmul``, the skip part's in ``mma_order_matmul``'s order.
+    Without ``exact_ties`` every product is in the tensor-core order."""
+    f32, dt = torch.float32, x.dtype
+
+    def rnd(v):
+        return v.to(dt).to(f32)
+
+    h = x.to(f32)
+    batch, _, r = h.shape
+    n_layers = len(dilations)
+    bfg = b_fg.to(f32).reshape(n_layers, batch, 1, 2 * r)
+    ctxf = ctx.to(f32) if ctx is not None else None
+    skip, hsave, tfsg = None, [], []
+    for l, d in enumerate(dilations):
+        hr = rnd(h)
+        hsave.append(hr.to(dt))
+        parts = [hr, rnd(_shift(h, d))] + ([ctxf] if ctxf is not None
+                                            else [])
+        raw = _gate_kernel_order(torch.cat(parts, dim=-1), rnd(w_fg[l]),
+                                 bfg[l], r, raw_gate, exact_ties)
+        v = rnd(raw)
+        tfsg.append(v.to(dt))
+        g = raw if raw_gate else v
+        gated = rnd(g[..., :r] * g[..., r:])
+        wo, bo = rnd(w_out[l]), b_out[l].to(f32)
+        res = (chain_matmul if exact_ties else mma_order_matmul)(
+            gated, wo[:, :r])
+        out_s = mma_order_matmul(gated, wo[:, r:]) + bo[r:]
+        skip = out_s if skip is None else skip + out_s
+        h = (res + bo[:r]) + h
+    return skip.to(dt), torch.stack(hsave), torch.stack(tfsg)
+
+
+def quad_order_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dim (C columns, zero-padded to a multiple of
+    16) as the merged head's quad of lanes forms it: lane q adds columns
+    8j + 2q and 8j + 2q + 1 in order of j, then the quad adds (q0 + q1) +
+    (q2 + q3)."""
+    c = v.shape[-1]
+    cp = -(-c // MMA_K_STEP) * MMA_K_STEP
+    w = F.pad(v, (0, cp - c)).reshape(*v.shape[:-1], cp // 8, 4, 2)
+    lane = torch.zeros(*v.shape[:-1], 4, dtype=v.dtype, device=v.device)
+    for j in range(cp // 8):
+        for e in range(2):
+            lane = lane + w[..., j, :, e]
+    return (lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3])
+
+
+def head_fwd_quad_order(skip, targets_tb, w1, b1, w2, b2, rf: int,
+                        parity: bool):
+    """(loss_sum, match_count) of the merged head on skip (B, T, S) in the
+    compute dtype, as the layer kernel's last merged layer forms them: y
+    and z in ``mma_order_matmul``'s order, each row's max, first argmax,
+    exp sum and (parity) sum of exp(p) over its quad of lanes
+    (``quad_order_sum``); ``head_core::row_nll``'s semantics."""
+    f32, dt = torch.float32, skip.dtype
+
+    def rnd(v):
+        return v.to(dt).to(f32)
+
+    batch, t, _ = skip.shape
+    y = mma_order_matmul(rnd(hl._leaky(skip.to(f32))), rnd(w1)) \
+        + b1.to(f32)
+    z = mma_order_matmul(rnd(hl._leaky(y)), rnd(w2)) + b2.to(f32)
+    tgt = targets_tb.t().long()
+    zmax = z.max(dim=-1, keepdim=True).values
+    col = torch.arange(z.shape[-1], device=z.device)
+    first = torch.where(z == zmax, col, z.shape[-1]).min(dim=-1).values
+    e = torch.exp(z - zmax)
+    es = quad_order_sum(e)
+    if parity:
+        p = e / es[..., None]
+        nll = torch.log(quad_order_sum(torch.exp(p))) \
+            - p.gather(-1, tgt[..., None])[..., 0]
+    else:
+        nll = torch.log(es) + zmax[..., 0] \
+            - z.gather(-1, tgt[..., None])[..., 0]
+    valid = hl._valid(t, rf, skip.device)
+    return (nll * valid).sum(), ((first == tgt).to(f32) * valid).sum()
 
 
 def tails_every(n_layers: int) -> int:

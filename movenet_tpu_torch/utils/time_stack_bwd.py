@@ -1,11 +1,14 @@
 """Device time of the save-strategy trunk backward (``stack_bwd``), by
 call and by grid, at the training shapes, optionally against another
-copy of the kernel source on the same card; with ``--recompute``, of the
-recompute strategy's forward and backward (``stack_fwd_tails``,
-``stack_bwd_tails``) instead.
+copy of the kernel source on the same card; with ``--forward``, of the
+save forward (``stack_fwd``) and the merged forward (``stack_head_fwd``)
+instead; with ``--recompute``, of the recompute strategy's forward and
+backward (``stack_fwd_tails``, ``stack_bwd_tails``).
 
     python -m movenet_tpu_torch.utils.time_stack_bwd [--parent DIR]
         [--shapes breakdancing,exp03,exp04] [--repeats 5]
+    python -m movenet_tpu_torch.utils.time_stack_bwd --forward
+        [--parent DIR] [--shapes breakdancing,exp03,exp04] [--repeats 5]
     python -m movenet_tpu_torch.utils.time_stack_bwd --recompute
         [--parent DIR] [--shapes exp02,flagship] [--repeats 5]
 
@@ -26,13 +29,23 @@ diagnostic builds of this checkout's source are timed beside it by grid:
 epilogues alone) and ``one_pass`` (big*big only, no split passes); their
 gradients are wrong by design and are not compared.
 
+``--forward`` times ``stack_fwd`` at the same shapes from the same
+seeded codes, table, triple and weights, and ``stack_head_fwd`` (the
+merged trunk + head + CE, parity CE) at the breakdancing widths with C =
+64 and seeded x, ctx, targets and head weights: by call (CUDA events) and
+by grid, the two copies in turns (parent, this, this, parent), their
+outputs compared (max difference over scale and the bit-equal share of
+each output; the loss as a relative difference, the match count as a
+difference).
+
 ``--recompute`` shapes (T = 160,000, bf16, seeded random x, weights and
 dskip): exp02 (experiment 02 through the CLI: B=2, dilations (1,2,4) x
 3, R=64, S=8, flat ctx) and flagship (B=2, dilations 1..512 x 3, R=S=64,
 no ctx).  Each side's backward takes its own forward's saved tensors
-(the parent's layout may differ); the outputs are compared as above.  A
-parent that raises at a shape is reported and not timed.  Prints the
-card's name and power limit.  Needs a CUDA device and nvcc.
+(the parent's layout may differ); the outputs are compared as above and
+said bit-equal or not.  A parent that raises at a shape is reported and
+not timed.  Prints the card's name and power limit.  Needs a CUDA device
+and nvcc.
 """
 
 from __future__ import annotations
@@ -55,24 +68,75 @@ RECOMPUTE_SHAPES = {"exp02": (2, 64, 8, (1, 2, 4) * 3, True),
 T = 160_000
 # the grids of the save backward (and the merged backward's head
 # launch, and the recompute strategy's layer-forward and W_out launches),
-# by the kernel name each launch carries
+# by a pattern (re.search) of the kernel name each launch carries
 GRIDS = (("layer", "stack_bwd_layer_kernel"),
          ("wgrad W_fg", "stack_wgrad_kernel<0"),
          ("wgrad W_out", "stack_wgrad_kernel<1"),
          ("wgrad W_up", "stack_wgrad_kernel<2"),
          ("wgrad W_out (gated)", "stack_wgrad_kernel<3"),
-         ("layer forward", "stack_tails_layer_kernel"),
+         ("layer forward", "stack_layer_kernel"),
          ("reductions", "reduce_kernel"),
          ("head", "stack_head_bwd_kernel"))
+# the save and merged forwards' grids (the parent's layer kernel under its
+# own name)
+FWD_GRIDS = (("last layer + head", r"stack_layer_kernel<\d+,\d+,2>"),
+             ("layers", "stack_layer_kernel|stack_fwd_layer_kernel"),
+             ("embed or x", "stack_embed_kernel|stack_x_kernel"),
+             ("reductions", "reduce_kernel"))
 
 
-# diagnostic edits of csrc/stack_kernel.cu: (text, replacement)
+# diagnostic edits of csrc/stack_kernel.cu: (text, replacement) pairs,
+# each applying once; of the backward, and of the save forward
 VARIANTS = {
-    "no_mma": ('  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "',
-               '  if (0) asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32'
-               '.f32 "'),
-    "one_pass": ("  if (SPLIT_A) mma_tf32(d, a.small, b.big);\n"
-                 "  mma_tf32(d, a.big, b.small);\n", ""),
+    "no_mma": (('  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "',
+                '  if (0) asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32'
+                '.f32 "'),),
+    "one_pass": (("  if (SPLIT_A) mma_tf32(d, a.small, b.big);\n"
+                  "  mma_tf32(d, a.big, b.small);\n", ""),),
+}
+FWD_VARIANTS = {
+    # the save form's exactness work left out: no fg summed again in the
+    # plain version's order (no ties flagged; flagged but the queue not
+    # run); the residual's fmaf chain not run
+    "no_resum": (("bool ff = near_bf16_tie(t, tt), fs = near_bf16_tie(s, ts);",
+                  "bool ff = false, fs = false;"),
+                 ("          if (a.raw_gate) {\n            const float tp",
+                  "          if (0) {\n            const float tp")),
+    "no_queue": (("    for (int rb = 0; rb < n_q; rb += QCAP) {",
+                  "    for (int rb = 0; rb < n_q && n_q < 0; rb += QCAP) {"),),
+    # the queue's parts left out: the chain sums, the gate
+    "q_nochain": (("fg_chain<LDH, LDW>(hp, wf, row, col, win) +\n",
+                   "0.f +\n"),),
+    "q_nogate": (("          qv[i] = col < R ? tanhf(v) : sigmoidf(v);",
+                  "          qv[i] = v;"),),
+    "no_chain": (("#pragma unroll 4\n      for (int k = 0; k < R; ++k) {",
+                  "#pragma unroll 4\n      for (int k = 0; k < 0; ++k) {"),),
+    # parts of the save form's traffic left out: the tfsg stores, the
+    # float32 residual's loads and stores, the skip sum's
+    "no_tfsg": (("st32(tp, pack2(vf[2 * h], vf[2 * h + 1]));", "(void)tp;"),
+                ("st32(tp + R, pack2(vg[2 * h], vg[2 * h + 1]));", "")),
+    "no_h32": (("    if (read_h) stage_rows_f32<R, LDHF>(", "    if (0) "
+                "stage_rows_f32<R, LDHF>("),
+               ("          if (a.keep_h)\n            *reinterpret_cast<"
+                "float2*>(a.hf + m * R + c) =", "          if (0)\n"
+                "            *reinterpret_cast<float2*>(a.hf + m * R + c) =")),
+    "no_skacc": (("    if (read_s)\n      stage_rows_f32<S, LDSF>(",
+                  "    if (0)\n      stage_rows_f32<S, LDSF>("),
+                 ("              *reinterpret_cast<float2*>(a.skacc + m * S "
+                  "+ c) = s;", "              ;")),
+    # the save forms' occupancy: one block an SM at every width (up to 255
+    # registers a thread), three at R = 16, or blocks of 4 warps, four an
+    # SM, where two blocks of 8 run
+    "blocks1": (("kMinBlocks = R + S <= 48 ? 2 : 1;", "kMinBlocks = 1;"),),
+    "blocks3": (("kMinBlocks = R + S <= 48 ? 2 : 1;",
+                 "kMinBlocks = R <= 16 ? 3 : R + S <= 48 ? 2 : 1;"),),
+    "warps4": (("kWarps = 8, kThreads",
+                "kWarps = R + S <= 48 ? 4 : 8, kThreads"),
+               ("kMinBlocks = R + S <= 48 ? 2 : 1;",
+                "kMinBlocks = R + S <= 48 ? 4 : 1;")),
+    # fg in one pass at R = 32 (its sums and taps all live at once)
+    "one_fg_pass": (("constexpr int FP = R >= 32 ? 2 : 1,",
+                     "constexpr int FP = R >= 64 ? 2 : 1,"),),
 }
 
 
@@ -81,20 +145,36 @@ def compile_source(text: str, include: Path, tag: str,
     """``text`` (a ``<name>.cu``, including headers from ``include``)
     compiled with the build's nvcc flags into
     ``build/movenet_tpu_torch/<tag>/``, named by its hash."""
+    return compile_sources([text], include, tag, name)[0]
+
+
+def compile_sources(texts, include: Path, tag: str,
+                    name: str = "stack_kernel"):
+    """``compile_source`` of each of ``texts``, one nvcc each, all started
+    together; their library paths (nvcc's output beside each, ``.log``)."""
     from movenet_tpu_torch.ops.cuda import build
 
-    h = hashlib.sha256(text.encode())
-    for header in sorted(include.glob("*.cuh")):
-        h.update(header.read_bytes())
-    out = build.build_dir() / tag / f"{name}-{h.hexdigest()[:16]}.so"
-    if not out.is_file():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        src = out.with_suffix(".cu")
-        src.write_text(text)
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
-                        str(include), "-o", str(out), str(src)], check=True,
-                       capture_output=True)
-    return out
+    outs, procs = [], []
+    for text in texts:
+        h = hashlib.sha256(text.encode())
+        for header in sorted(include.glob("*.cuh")):
+            h.update(header.read_bytes())
+        out = build.build_dir() / tag / f"{name}-{h.hexdigest()[:16]}.so"
+        outs.append(out)
+        if not out.is_file():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            src = out.with_suffix(".cu")
+            src.write_text(text)
+            procs.append((out, subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(include),
+                 "-o", str(out), str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    for out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        out.with_suffix(".log").write_text(log)
+    return outs
 
 
 def _load(name: str, path: Path):
@@ -119,24 +199,46 @@ def parent_kernels(parent: Path):
     return mod.bind(ctypes.CDLL(str(out))), mod
 
 
-def variant_kernels(name: str):
-    """The bound library of this checkout's source with VARIANTS[name]."""
+def variant_kernels(table, names=None) -> dict:
+    """{name: bound library} of this checkout's source with each variant
+    of ``table`` (VARIANTS or FWD_VARIANTS; those in ``names`` if given),
+    compiled in parallel.  Prints ptxas' registers and spills of each
+    variant's save-form layer kernels."""
     from movenet_tpu_torch.ops.cuda import build
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.utils.time_spec import ptxas_text
 
-    text = (build.CSRC / "stack_kernel.cu").read_text()
-    old, new = VARIANTS[name]
-    if text.count(old) != 1:
-        raise RuntimeError(f"variant {name}: its edit does not apply")
-    return ks.bind(ctypes.CDLL(str(compile_source(
-        text.replace(old, new), build.CSRC, "variants"))))
+    if names is not None:
+        unknown = set(names) - set(table)
+        if unknown:
+            raise SystemExit(f"unknown variants: {sorted(unknown)}")
+        table = {k: v for k, v in table.items() if k in names}
+    base = (build.CSRC / "stack_kernel.cu").read_text()
+    texts = []
+    for name, edits in table.items():
+        text = base
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: its edit does not apply")
+            text = text.replace(old, new)
+        texts.append(text)
+    libs = compile_sources(texts, build.CSRC, "variants")
+    for name, lib in zip(table, libs):
+        log = lib.with_suffix(".log")
+        text = ptxas_text(log.read_text() if log.is_file() else "",
+                          "stack_layer_kernel")
+        for line in text.splitlines():
+            if "ELi0EE" not in line:   # the save forms, not the recompute
+                print(f"variant {name}: {line}", flush=True)
+    return {name: ks.bind(ctypes.CDLL(str(lib)))
+            for name, lib in zip(table, libs)}
 
 
-def inputs(torch, name: str, seed: int = 0):
-    """The backward's arguments (hsave, tfsg, ctx, w_fg, w_out, dskip,
-    pack, vocab, dilations, proj) at shape ``name``."""
+def fwd_inputs(torch, name: str, seed: int = 0):
+    """(the save forward's arguments (pack, table2, ctx, b_fg, w_fg, w_out,
+    b_out, dilations, batch), the projection triple, generator) at shape
+    ``name``."""
     from movenet_tpu_torch.ops import stack_kernel as sk
-    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
 
     b, r, s, dil, v = SHAPES[name]
     n, bf = len(dil), torch.bfloat16
@@ -157,14 +259,48 @@ def inputs(torch, name: str, seed: int = 0):
         ctx = sk.ctx_flatten(trip, bf)
         w_fg = rn(n, win, 2 * r, scale=win ** -0.5)
         w_out = rn(n, r, r + s, scale=r ** -0.5)
-        _, hsave, tfsg = ks.run_fwd(
-            ks.library(), pack, rn(2 * v, r, scale=0.5).to(bf), ctx,
-            rn(n * b, 2 * r, scale=0.1), w_fg, w_out, rn(n, r + s,
-                                                         scale=0.1),
-            dil, b, ks._stream(pack))
-    dskip = rn(b, T, s, scale=1e-3).to(bf)
-    return (hsave, tfsg, ctx, w_fg, w_out, dskip, pack, v, dil,
+        table2 = rn(2 * v, r, scale=0.5).to(bf)
+        b_fg = rn(n * b, 2 * r, scale=0.1)
+        b_out = rn(n, r + s, scale=0.1)
+    return (pack, table2, ctx, b_fg, w_fg, w_out, b_out, dil, b), trip, g
+
+
+def inputs(torch, name: str, seed: int = 0):
+    """The backward's arguments (hsave, tfsg, ctx, w_fg, w_out, dskip,
+    pack, vocab, dilations, proj) at shape ``name``."""
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    fargs, trip, g = fwd_inputs(torch, name, seed)
+    pack, _, ctx, _, w_fg, w_out, _, dil, b = fargs
+    with torch.no_grad():
+        _, hsave, tfsg = ks.run_fwd(ks.library(), *fargs, ks._stream(pack))
+    s = w_out.shape[2] - w_out.shape[1]
+    dskip = (torch.randn(b, T, s, generator=g, device="cuda")
+             * 1e-3).to(torch.bfloat16)
+    return (hsave, tfsg, ctx, w_fg, w_out, dskip, pack, SHAPES[name][4], dil,
             sk._ctx_proj_args(trip))
+
+
+def head_inputs(torch, seed: int = 0, c: int = 64):
+    """The merged forward's arguments (x, ctx, b_fg, w_fg, w_out, b_out,
+    targets (T, B), w1, b1, w2, b2, dilations, rf, parity) at the
+    breakdancing widths with C classes."""
+    b, r, s, dil, _ = SHAPES["breakdancing"]
+    n, bf, win = len(dil), torch.bfloat16, 3 * r
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    tgt = torch.randint(0, c, (T, b), generator=g, device="cuda",
+                        dtype=torch.int32)
+    return (rn(b, T, r, scale=0.5).to(bf), rn(b, T, r, scale=0.5).to(bf),
+            rn(n * b, 2 * r, scale=0.1), rn(n, win, 2 * r, scale=win ** -0.5),
+            rn(n, r, r + s, scale=r ** -0.5), rn(n, r + s, scale=0.1), tgt,
+            rn(s, c, scale=s ** -0.5), rn(c, scale=0.1),
+            rn(c, c, scale=c ** -0.5), rn(c, scale=0.1), dil, sum(dil) + 1,
+            True)
 
 
 def recompute_inputs(torch, name: str, seed: int = 0):
@@ -222,10 +358,64 @@ def time_recompute(torch, lib, old, name: str, repeats: int,
             f"{side} " + ", ".join(f"{v:.3f}" for v in vals) + " ms"
             for side, vals in ms.items())
         if len(by_side) > 1:
-            line += "; " + diff_text(names[kind], by_side["this"](),
-                                     by_side["parent"]())
+            new, old_out = by_side["this"](), by_side["parent"]()
+            equal = all((u is None and v is None) or torch.equal(u, v)
+                        for u, v in zip(new, old_out))
+            line += (f"; bit-equal to the parent: {equal}; "
+                     + diff_text(names[kind], new, old_out))
         print(f"{line}; {grid_text(torch, by_side['this'])}; {card}",
               flush=True)
+
+
+def time_forward(torch, lib, old, name: str, repeats: int, card: str,
+                 tag: str = "") -> None:
+    """Print the save forward's (``name`` a shape of SHAPES) or the merged
+    forward's (``name`` "merged") time by call and by grid, against
+    ``old`` = (library, wrapper module) of another source; ``tag`` follows
+    the label."""
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    if name == "merged":
+        args = head_inputs(torch)
+        label, outs = "stack_head_fwd breakdancing C=64", (
+            "loss", "match", "skip", "hsave", "tfsg")
+        st = ks._stream(args[0])
+        sides = {"this": lambda: ks.run_head_fwd(lib, *args, stream=st)}
+        if old is not None:
+            sides["parent"] = lambda: old[1].run_head_fwd(old[0], *args,
+                                                          stream=st)
+    else:
+        args = fwd_inputs(torch, name)[0]
+        label, outs = f"stack_fwd {name}", ("skip", "hsave", "tfsg")
+        st = ks._stream(args[0])
+        sides = {"this": lambda: ks.run_fwd(lib, *args, st)}
+        if old is not None:
+            sides["parent"] = lambda: old[1].run_fwd(old[0], *args, st)
+    order = ("parent", "this", "this", "parent") if old is not None \
+        else ("this",)
+    ms = {}
+    for side in order:
+        ms.setdefault(side, []).append(events_ms(torch, sides[side],
+                                                 repeats))
+    line = f"{label}{tag}: " + "; ".join(
+        f"{side} " + ", ".join(f"{v:.3f}" for v in vals) + " ms"
+        for side, vals in ms.items())
+    if old is not None:
+        new, prev = sides["this"](), sides["parent"]()
+        if name == "merged":
+            rel = abs(float(new[0]) - float(prev[0])) / abs(float(prev[0]))
+            line += (f"; loss relative difference {rel:.3g}, match "
+                     f"{float(new[1]):.0f} vs {float(prev[1]):.0f}")
+            new, prev, outs = new[2:], prev[2:], outs[2:]
+        line += "; " + diff_text(outs, new, prev) + "; bit-equal share " \
+            + ", ".join(f"{n} {float((u == v).float().mean()):.4f}"
+                        for n, u, v in zip(outs, new, prev))
+    for side, fn in sides.items():
+        grids = by_grid(torch, fn, FWD_GRIDS)
+        line += f"; by grid ({side}) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in grids.items() if v > 0) \
+            + f" (device {sum(grids.values()):.3f} ms)"
+    print(f"{line}; {card}", flush=True)
 
 
 def diff_text(names, new, old) -> str:
@@ -271,7 +461,8 @@ def by_grid(torch, fn, grids=GRIDS) -> dict:
                 or e.device_time_total <= 0):
             continue
         name = re.sub(r"\s+", "", e.key)
-        group = next((k for k, pat in grids if pat in name), "other")
+        group = next((k for k, pat in grids if re.search(pat, name)),
+                     "other")
         out[group] += e.device_time_total / 1e3
     return out
 
@@ -285,8 +476,11 @@ def main(argv=None) -> None:
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--shapes", default=",".join(SHAPES))
     ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--variants", nargs="?", const="", default=None,
+                    help="time the diagnostic builds too (all, or those "
+                    "named, comma-separated)")
     ap.add_argument("--recompute", action="store_true")
+    ap.add_argument("--forward", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_stack_bwd needs a CUDA device")
@@ -302,8 +496,20 @@ def main(argv=None) -> None:
         for name in shapes.split(","):
             time_recompute(torch, lib, old, name, args.repeats, card)
         return
-    variants = {n: variant_kernels(n) for n in VARIANTS} if args.variants \
-        else {}
+    names = args.variants.split(",") if args.variants else None
+    if args.forward:
+        variants = variant_kernels(FWD_VARIANTS, names) \
+            if args.variants is not None else {}
+        shapes = args.shapes if args.shapes != ",".join(SHAPES) \
+            else ",".join(SHAPES) + ",merged"
+        for name in shapes.split(","):
+            time_forward(torch, lib, old, name, args.repeats, card)
+            for vname, vlib in variants.items():
+                time_forward(torch, vlib, None, name, args.repeats, card,
+                             f" variant {vname}")
+        return
+    variants = variant_kernels(VARIANTS, names) \
+        if args.variants is not None else {}
     for name in args.shapes.split(","):
         bargs = inputs(torch, name)
         st = ks._stream(bargs[1])

@@ -145,31 +145,33 @@ def test_head_supports_as_before(cuda):
             assert bool(lib.movenet_head_supports(s, c)) == old, (s, c)
 
 
-def _head_digest(kmod, klib, smod, slib):
-    """sha256 of the packed head kernels' outputs (both CE forms) and the
-    merged trunk + head kernels' (forward and backward) on inputs made
-    with numpy from a fixed seed."""
+def _head_digests(kmod, klib, smod, slib):
+    """(forward, backward) sha256 digests on inputs made with numpy from
+    fixed seeds: the merged trunk + head forward's outputs; and those of
+    the packed head kernels (both CE forms) and the merged backward, on
+    saved tensors (hsave, tfsg, skip) drawn with numpy too, so that the
+    second does not move with the forward kernel."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     rng = np.random.default_rng(13)
     batch, t, rf = 2, 2000, 24
 
-    def rn(*shape, scale=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * scale)
+    def rn(*shape, scale=1.0, gen=rng):
+        return torch.from_numpy((gen.standard_normal(shape) * scale)
                                 .astype(np.float32)).to(dev)
 
     def tgt(c):
         return torch.from_numpy(rng.integers(0, c, size=(t, batch))
                                 .astype(np.int32)).to(dev)
 
-    out = []
+    bwd = []
     skip, tg = rn(batch, t, 64).to(bf), tgt(64)
     w = (rn(64, 64, scale=0.25), rn(64, scale=0.1), rn(64, 64, scale=0.3),
          rn(64, scale=0.1))
     dloss = torch.tensor(1e-3, device=dev)
     for parity in (True, False):
-        out += kmod.run_fwd(klib, skip, tg, *w, rf, parity, 0, False,
+        bwd += kmod.run_fwd(klib, skip, tg, *w, rf, parity, 0, False,
                             packed=True)[:2]
-        out += kmod.run_bwd(klib, skip, tg, None, *w, rf, parity, dloss)
+        bwd += kmod.run_bwd(klib, skip, tg, None, *w, rf, parity, dloss)
     dil = (1, 2, 4, 1, 2, 4)
     n, r, s, c = len(dil), 64, 64, 64
     x, ctx = rn(batch, t, r, scale=0.5).to(bf), rn(batch, t, r,
@@ -179,29 +181,38 @@ def _head_digest(kmod, klib, smod, slib):
     hw = (rn(s, c, scale=0.12), rn(c, scale=0.1), rn(c, c, scale=0.12),
           rn(c, scale=0.1))
     tg = tgt(c)
-    loss, match, sk_, hsave, tfsg = smod.run_head_fwd(
-        slib, x, ctx, *tw, tg, *hw, dil, rf, True)
-    out += [loss, match, sk_, hsave, tfsg]
-    out += smod.run_head_bwd(slib, hsave, tfsg, ctx, tw[1], tw[2], sk_, tg,
+    fwd = smod.run_head_fwd(slib, x, ctx, *tw, tg, *hw, dil, rf, True)
+    saved = np.random.default_rng(14)
+    hsave = rn(n, batch, t, r, scale=0.5, gen=saved).to(bf)
+    tfsg = torch.cat([torch.tanh(rn(n, batch, t, r, gen=saved)),
+                      torch.sigmoid(rn(n, batch, t, r, gen=saved))],
+                     -1).to(bf)
+    sk_ = rn(batch, t, s, gen=saved).to(bf)
+    bwd += smod.run_head_bwd(slib, hsave, tfsg, ctx, tw[1], tw[2], sk_, tg,
                              *hw, dloss, dil, rf, True)
     torch.cuda.synchronize()
-    h = hashlib.sha256()
-    for o in out:
-        if o is not None:
-            h.update(o.reshape(-1).contiguous().cpu().view(torch.uint8).numpy()
-                     .tobytes())
-    return h.hexdigest()[:32]
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for o in outs:
+            if o is not None:
+                h.update(o.reshape(-1).contiguous().cpu().view(torch.uint8)
+                         .numpy().tobytes())
+        return h.hexdigest()[:32]
+
+    return digest(fwd), digest(bwd)
 
 
-# the packed and merged head kernels' digest as the source before the
-# unpacked head kernels moved to the tensor cores gave it on an NVIDIA
-# H100 80GB HBM3
-HEAD_DIGEST = "07d129b6d97e2d48805bd9a8d49ea146"
+# the merged forward's digest as the layer kernel on the tensor cores gives
+# it, and the packed head and merged backward kernels' digest as both it
+# and the source before it give it, on an NVIDIA H100 80GB HBM3
+HEAD_DIGESTS = ("f7474cd24d1364699385c4ff91fe1dd9",
+                "f1f75cec951f993af5de2f696da6b3cd")
 
 
 @pytest.mark.cuda
 def test_packed_and_merged_heads_keep_their_bits(cuda):
-    assert _head_digest(kh, kh.library(), ks, ks.library()) == HEAD_DIGEST
+    assert _head_digests(kh, kh.library(), ks, ks.library()) == HEAD_DIGESTS
 
 
 @pytest.mark.cuda

@@ -285,20 +285,32 @@ def test_tails_wrapper_rejects_wrong_inputs(cuda):
                            torch.zeros(n, 20, device=cuda), DIL)
 
 
-def _save_digest(kmod, lib, r, s, ctx_kind):
-    """sha256 of the save kernels' outputs (forward with the embedding,
-    backward with the projection triple or the flat ctx) on inputs made
-    with numpy from a fixed seed: the same bits give the same digest on
-    any card that runs the same kernels."""
+def _digest(outs):
     import hashlib
 
+    h = hashlib.sha256()
+    for o in outs:
+        if o is not None:
+            h.update(o.contiguous().cpu().view(torch.uint8).numpy()
+                     .tobytes())
+    return h.hexdigest()[:32]
+
+
+def _save_digests(kmod, lib, r, s, ctx_kind):
+    """(forward, backward) sha256 digests of the save kernels' outputs on
+    inputs made with numpy from fixed seeds: the same bits give the same
+    digests on any card that runs the same kernels.  The forward's: with
+    the embedding and from x.  The backward's (with the projection triple
+    or the flat ctx, and the non-embed form): on saved tensors hsave and
+    tfsg drawn with numpy too, so that it does not move with the forward
+    kernel."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     rng = np.random.default_rng(11)
     t, batch, v, n = 1280, 2, 64, len(DIL)
     win = (3 if ctx_kind else 2) * r
 
-    def rn(*shape, scale=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * scale)
+    def rn(*shape, scale=1.0, gen=rng):
+        return torch.from_numpy((gen.standard_normal(shape) * scale)
                                 .astype(np.float32)).to(dev)
 
     codes = rng.integers(0, v, size=(batch, t)).astype(np.int32)
@@ -318,29 +330,33 @@ def _save_digest(kmod, lib, r, s, ctx_kind):
     elif ctx_kind == "flat":
         ctx = rn(batch, t, r, scale=0.5).to(bf)
     dskip = rn(batch, t, s, scale=0.1).to(bf)
-    out = kmod.run_fwd(lib, pack, table2, ctx, *w, DIL, batch)
-    out += tuple(kmod.run_bwd(lib, out[1], out[2], ctx, w[1], w[2], dskip,
-                              pack, v, DIL, proj))
+    fwd = kmod.run_fwd(lib, pack, table2, ctx, *w, DIL, batch)
     x = sk.front_embed(table2[:v], table2[v:],
                        pack[:, :batch].t().contiguous(), bf)
-    out += tuple(kmod.run_fwd_x(lib, x, ctx, *w, DIL))
-    out += tuple(kmod.run_bwd_x(lib, out[-2], out[-1], ctx, w[1], w[2],
-                                dskip, DIL))
+    fwd += tuple(kmod.run_fwd_x(lib, x, ctx, *w, DIL))
+    saved = np.random.default_rng(12)
+    hsave = rn(n, batch, t, r, scale=0.5, gen=saved).to(bf)
+    tfsg = torch.cat([torch.tanh(rn(n, batch, t, r, gen=saved)),
+                      torch.sigmoid(rn(n, batch, t, r, gen=saved))],
+                     -1).to(bf)
+    bwd = tuple(kmod.run_bwd(lib, hsave, tfsg, ctx, w[1], w[2], dskip, pack,
+                             v, DIL, proj))
+    bwd += tuple(kmod.run_bwd_x(lib, hsave, tfsg, ctx, w[1], w[2], dskip,
+                                DIL))
     torch.cuda.synchronize()
-    h = hashlib.sha256()
-    for o in out:
-        if o is not None:
-            h.update(o.contiguous().cpu().view(torch.uint8).numpy()
-                     .tobytes())
-    return h.hexdigest()[:32]
+    return _digest(fwd), _digest(bwd)
 
 
-# the save kernels' digests as the parent source (before the recompute
-# redesign) gave them on an NVIDIA H100 80GB HBM3
+# the save kernels' (forward, backward) digests on an NVIDIA H100 80GB
+# HBM3: the forward's as the layer kernel on the tensor cores gives them,
+# the backward's as both it and the source before it give them
 SAVE_DIGESTS = {
-    (64, 64, "proj"): "f5f5774d3b7e75826bf06cbae16bc974",
-    (64, 8, "flat"): "44341d09b27291b1d60383a202b7b057",
-    (16, 8, None): "2dd56d959d35b64780843c75f68c0679",
+    (64, 64, "proj"): ("08414367ff0e52be99e93edcf40a3b75",
+                       "2cf5537bc8bf61915fb90003ff76790d"),
+    (64, 8, "flat"): ("bbeaee2e88b2d75d79a9c13f615c0f7d",
+                      "ee05138a8efa3d8e9324790b49dc59a6"),
+    (16, 8, None): ("99965dcd7fef44d3c9f765b22fe0145a",
+                    "73cde4796c525f61d4a7b3f1d255bcb2"),
 }
 
 
@@ -348,9 +364,9 @@ SAVE_DIGESTS = {
 @pytest.mark.parametrize("r,s,ctx_kind", list(SAVE_DIGESTS))
 def test_save_kernels_keep_their_bits(cuda, r, s, ctx_kind):
     """The save kernels (embed and non-embed forward, backward), which
-    share code with the recompute backward, give the bits they gave
-    before it was added."""
-    assert _save_digest(ks, ks.library(), r, s, ctx_kind) == \
+    share code with the recompute kernels, give the bits they gave when
+    their digests were recorded."""
+    assert _save_digests(ks, ks.library(), r, s, ctx_kind) == \
         SAVE_DIGESTS[(r, s, ctx_kind)]
 
 
