@@ -839,7 +839,10 @@ def merged_bounds(b, t, l, r, s, c, win):
 def gated_bounds(b, t, r, s, win):
     """(bound_ms, bound_by) of one gated block: h, ctx and the weights
     read, res and skip written (backward: dres, dskip read too, dh, dctx
-    and the gradients written); every product on float32 operands."""
+    and the gradients written); every product on float32 operands on the
+    tensor cores, at the TF32 peak counted once (the split passes are the
+    design's cost, not the work), as train_bounds counts the save
+    backward's."""
     m = b * t
     w_bytes = 4 * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
     ctx = 2 * m * r if win == 3 * r else 0
@@ -850,7 +853,7 @@ def gated_bounds(b, t, r, s, win):
     bwd_ops = 2 * m * (2 * win * 2 * r + 2 * r * (r + s) + 2 * r * win)
 
     def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+        tb, to = nbytes / HBM_BYTES_S * 1e3, ops / TF32_OPS_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     return {"gated_block_fwd": bound(fwd_bytes, fwd_ops),

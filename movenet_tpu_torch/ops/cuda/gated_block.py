@@ -5,10 +5,11 @@ kernels in ``csrc/gated_block.cu`` (which replace ``gated_block.py:91
 _fwd_kernel`` and ``:168 _bwd_kernel``).  For tensors on the CPU they
 return the plain versions (``ops/gated_block.gated_block_fwd_plain`` /
 ``gated_block_bwd_plain``); for CUDA tensors they launch the kernels or
-raise.  A forward call is one grid launch; a backward call three (the
-tile sweep, the anti-causal carry pass, the fixed-order reduction of the
-per-block weight-gradient partials).  Each call counts one launch in
-``launch_counts``.
+raise.  A forward call is one grid launch; a backward call six (the
+layer sweep, the W_fg and W_out weight-gradient grids, the anti-causal
+carry pass, and the fixed-order reductions of the per-block partials).
+Each call counts one launch in ``launch_counts``.  ``run_fwd`` and
+``run_bwd`` launch through any library with the kernels' C interface.
 """
 
 from __future__ import annotations
@@ -47,14 +48,13 @@ def library():
 def bind(lib):
     lib.movenet_gated_supports.argtypes = [_I, _I]
     lib.movenet_gated_supports.restype = _I
-    lib.movenet_gated_blocks.argtypes = []
-    lib.movenet_gated_blocks.restype = _I
     lib.movenet_gated_bwd_part.argtypes = [_I, _I, _I, _I]
     lib.movenet_gated_bwd_part.restype = _L
+    lib.movenet_gated_bwd_scratch.argtypes = [_I] * 5
+    lib.movenet_gated_bwd_scratch.restype = _L
     lib.movenet_gated_fwd.argtypes = [_P] * 8 + [_I] * 5 + [_P]
     lib.movenet_gated_fwd.restype = _I
-    lib.movenet_gated_bwd.argtypes = [_P] * 11 + [_I] + [_P] * 3 \
-        + [_I] * 5 + [_P]
+    lib.movenet_gated_bwd.argtypes = [_P] * 11 + [_I] * 5 + [_P]
     lib.movenet_gated_bwd.restype = _I
     return lib
 
@@ -103,22 +103,17 @@ def run_bwd(lib, h, ctx, b_fg, w_fg, w_out, dres, dskip, d, stream=None):
     dev, f32 = h.device, torch.float32
     _check("dres", dres, torch.bfloat16, (batch, t, r), dev)
     _check("dskip", dskip, torch.bfloat16, (batch, t, s), dev)
-    # the gradient products read W^T rows: (2R, W_in) and (R+S, R)
-    w_fg_t = w_fg.t().contiguous()
-    w_out_t = w_out.t().contiguous()
-    blocks = lib.movenet_gated_blocks()
-    n_part = lib.movenet_gated_bwd_part(r, s, win, batch)
-    part = torch.empty(blocks, n_part, dtype=f32, device=dev)
-    dh_part = torch.empty(batch, t, r, dtype=f32, device=dev)
-    past = torch.empty_like(dh_part)
+    # own, past, dfg, gated and the per-block partials (float32)
+    scratch = torch.empty(lib.movenet_gated_bwd_scratch(batch, t, r, s, win),
+                          dtype=f32, device=dev)
     dh = torch.empty_like(h)
     dctx = torch.empty_like(h) if ctx is not None else None
-    grads = torch.empty(n_part, dtype=f32, device=dev)
+    grads = torch.empty(lib.movenet_gated_bwd_part(r, s, win, batch),
+                        dtype=f32, device=dev)
     err = lib.movenet_gated_bwd(
-        _ptr(h), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_fg_t),
-        _ptr(w_out_t), _ptr(dres), _ptr(dskip), _ptr(dh_part), _ptr(past),
-        _ptr(part), blocks, _ptr(dh), _ptr(dctx), _ptr(grads), batch, t, r,
-        s, d, stream)
+        _ptr(h), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(dres),
+        _ptr(dskip), _ptr(scratch), _ptr(dh), _ptr(dctx), _ptr(grads), batch,
+        t, r, s, d, stream)
     _raise(err, "gated_block_bwd")
     sizes = [win * 2 * r, r * (r + s), r + s, batch * 2 * r]
     dw_fg, dw_out, db_out, db_fg = torch.split(grads, sizes)

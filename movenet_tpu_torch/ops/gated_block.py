@@ -31,6 +31,19 @@ from movenet_tpu_torch.ops.stack_kernel import _shift, _unshift
 # fused path asks T % TILE == 0; the port's kernels take any T
 TILE = 128
 
+# (split A, split B) of each product of the kernels (csrc/gated_block.cu),
+# split-TF32 mma.sync as ops/stack_kernel.tf32_split_matmul models it: a
+# float32 operand (W_fg, W_out, the unrounded gated, dfg) is split, a
+# bf16 one ([h | h(t-d) | ctx], dout = [dres | dskip]) is exact
+SPLIT_PASSES = {
+    "fg": (False, True),       # [h | h(t-d) | ctx] W_fg
+    "out": (True, True),       # gated W_out
+    "dgated": (False, True),   # dout W_out^T
+    "dfg_w": (True, True),     # dfg W_fg^T
+    "dw_fg": (False, True),    # [h | h(t-d) | ctx]^T dfg
+    "dw_out": (True, False),   # gated^T dout
+}
+
 
 def _hp(h, ctx, d):
     f32 = torch.float32
@@ -114,5 +127,5 @@ def fused_gated_block(h, ctx, b_fg, w_fg, w_out, b_out, dilation: int):
                                   int(dilation))
 
 
-__all__ = ["TILE", "gated_block_fwd_plain", "gated_block_bwd_plain",
-           "fused_gated_block"]
+__all__ = ["TILE", "SPLIT_PASSES", "gated_block_fwd_plain",
+           "gated_block_bwd_plain", "fused_gated_block"]

@@ -3,7 +3,8 @@ call and by grid, at the training shapes, optionally against another
 copy of the kernel source on the same card; with ``--forward``, of the
 save forward (``stack_fwd``) and the merged forward (``stack_head_fwd``)
 instead; with ``--recompute``, of the recompute strategy's forward and
-backward (``stack_fwd_tails``, ``stack_bwd_tails``).
+backward (``stack_fwd_tails``, ``stack_bwd_tails``); with ``--gated``, of
+the gated-block kernels (``gated_block_fwd``, ``gated_block_bwd``).
 
     python -m movenet_tpu_torch.utils.time_stack_bwd [--parent DIR]
         [--shapes breakdancing,exp03,exp04] [--repeats 5]
@@ -11,6 +12,8 @@ backward (``stack_fwd_tails``, ``stack_bwd_tails``).
         [--parent DIR] [--shapes breakdancing,exp03,exp04] [--repeats 5]
     python -m movenet_tpu_torch.utils.time_stack_bwd --recompute
         [--parent DIR] [--shapes exp02,flagship] [--repeats 5]
+    python -m movenet_tpu_torch.utils.time_stack_bwd --gated
+        [--parent DIR] [--shapes 64x64_d1,64x64_d512,32x8,16x8]
 
 Shapes (T = 160,000, bf16, video as the stride-10 projection triple,
 seeded random codes, table, triple, weights and dskip):
@@ -23,7 +26,10 @@ commit, e.g. ``git archive`` unpacked under ``build/``), that copy's
 ``csrc/stack_kernel.cu`` is compiled with the same nvcc flags and bound
 by its own ``ops/cuda/stack_kernel.py``; the two are timed in turns
 (parent, this, this, parent) and their gradients compared (max
-difference over each gradient's scale).  With ``--variants``, two
+difference over each gradient's scale, and whether all are bit-equal);
+the merged backward (``stack_head_bwd``, breakdancing widths, C = 64,
+parity CE, from the kernel's merged forward) likewise.  With
+``--variants``, two
 diagnostic builds of this checkout's source are timed beside it by grid:
 ``no_mma`` (the tensor-core products left out: the loads, stores and
 epilogues alone) and ``one_pass`` (big*big only, no split passes); their
@@ -44,8 +50,20 @@ dskip): exp02 (experiment 02 through the CLI: B=2, dilations (1,2,4) x
 no ctx).  Each side's backward takes its own forward's saved tensors
 (the parent's layout may differ); the outputs are compared as above and
 said bit-equal or not.  A parent that raises at a shape is reported and
-not timed.  Prints the card's name and power limit.  Needs a CUDA device
-and nvcc.
+not timed.
+
+``--gated`` shapes (T = 160,000, bf16, flat ctx, seeded random h, ctx,
+weights, dres and dskip): one block at R = S = 64, B = 2, d = 1 and d =
+512 (the breakdancing widths), (32, 8) at B = 3 and (16, 8) at B = 2,
+d = 1.  Each kernel by call (CUDA events) and by grid; with ``--parent``
+the parent's ``csrc/gated_block.cu`` and wrapper in turns (parent, this,
+this, parent), the outputs compared as above; whether two calls of this
+source give the same bits.  ``--variants`` times builds of this source
+with GATED_VARIANTS' edits after them (``warps16``: 16 warps a block at
+R >= 32; ``mt4``: a warp takes all 64 rows of a tile at R = 64;
+``no_mma``: the tensor-core products left out, outputs wrong by design
+and not compared).  Prints the card's name and power limit.
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -65,6 +83,8 @@ SHAPES = {"breakdancing": (2, 64, 64, (1, 2, 4) * 3, 64),
 RECOMPUTE_SHAPES = {"exp02": (2, 64, 8, (1, 2, 4) * 3, True),
                     "flagship": (2, 64, 64, tuple(2 ** i for i in range(10))
                                  * 3, False)}
+GATED_SHAPES = {"64x64_d1": (2, 64, 64, 1), "64x64_d512": (2, 64, 64, 512),
+                "32x8": (3, 32, 8, 1), "16x8": (2, 16, 8, 1)}
 T = 160_000
 # the grids of the save backward (and the merged backward's head
 # launch, and the recompute strategy's layer-forward and W_out launches),
@@ -77,6 +97,14 @@ GRIDS = (("layer", "stack_bwd_layer_kernel"),
          ("layer forward", "stack_layer_kernel"),
          ("reductions", "reduce_kernel"),
          ("head", "stack_head_bwd_kernel"))
+# the gated-block kernels' grids (the parent's backward sweep under its
+# own name)
+GATED_GRIDS = (("forward", "gated_fwd_kernel"),
+               ("layer", "gated_bwd_kernel"),
+               ("wgrad W_fg", "gated_wgrad_kernel<0"),
+               ("wgrad W_out", "gated_wgrad_kernel<1"),
+               ("carry", "gated_carry_kernel"),
+               ("reductions", "reduce_kernel"))
 # the save and merged forwards' grids (the parent's layer kernel under its
 # own name)
 FWD_GRIDS = (("last layer + head", r"stack_layer_kernel<\d+,\d+,2>"),
@@ -93,6 +121,16 @@ VARIANTS = {
                 '.f32 "'),),
     "one_pass": (("  if (SPLIT_A) mma_tf32(d, a.small, b.big);\n"
                   "  mma_tf32(d, a.big, b.small);\n", ""),),
+}
+GATED_VARIANTS = {
+    # blocks of 16 warps at R >= 32 (a 16-row m tile a warp)
+    "warps16": (("static constexpr int kWarps = 8, kThreads",
+                 "static constexpr int kWarps = R >= 32 ? 16 : 8, kThreads"),),
+    # 64 rows a warp at R = 64 (W fragments split once for four m tiles)
+    "mt4": (("static constexpr int kMt = kWarps == 16 || R < 32 ? 1 : 2;",
+             "static constexpr int kMt = kWarps == 16 || R < 32 ? 1 : "
+             "R >= 64 ? 4 : 2;"),),
+    "no_mma": VARIANTS["no_mma"],
 }
 FWD_VARIANTS = {
     # the save form's exactness work left out: no fg summed again in the
@@ -199,6 +237,58 @@ def parent_kernels(parent: Path):
     return mod.bind(ctypes.CDLL(str(out))), mod
 
 
+def parent_gated_kernels(parent: Path):
+    """(bound library, wrapper module) of ``parent``'s gated-block
+    kernels."""
+    pkg = parent / "movenet_tpu_torch"
+    csrc = pkg / "csrc"
+    out = compile_source((csrc / "gated_block.cu").read_text(), csrc,
+                         "parent", "gated_block")
+    mod = _load("parent_gated_block", pkg / "ops" / "cuda" / "gated_block.py")
+    return mod.bind(ctypes.CDLL(str(out))), mod
+
+
+def inlined_source(name: str) -> str:
+    """``csrc/<name>.cu`` with the split-TF32 header inlined, so that a
+    variant's edit may reach its helpers."""
+    from movenet_tpu_torch.ops.cuda import build
+
+    header = (build.CSRC / "mma_tf32.cuh").read_text()
+    return (build.CSRC / f"{name}.cu").read_text().replace(
+        '#include "mma_tf32.cuh"\n', header.replace("#pragma once\n", ""))
+
+
+def apply_edits(text: str, name: str, edits) -> str:
+    """``text`` with each (old, new) edit of variant ``name``, each old
+    text found exactly once."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: its edit does not apply")
+        text = text.replace(old, new)
+    return text
+
+
+def gated_variant_kernels(names=None) -> dict:
+    """{name: (bound library, wrapper module)} of this checkout's
+    ``gated_block.cu`` with each of GATED_VARIANTS (those in ``names`` if
+    given), compiled in parallel; prints ptxas' registers of each."""
+    from movenet_tpu_torch.ops.cuda import build
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+
+    table = {k: v for k, v in GATED_VARIANTS.items()
+             if names is None or k in names}
+    base = inlined_source("gated_block")
+    texts = [apply_edits(base, name, edits) for name, edits in table.items()]
+    libs = compile_sources(texts, build.CSRC, "variants", "gated_block")
+    for name, lib in zip(table, libs):
+        log = lib.with_suffix(".log")
+        regs = re.findall(r"Used (\d+) registers", log.read_text()) \
+            if log.is_file() else []
+        print(f"variant {name}: registers {' '.join(regs)}", flush=True)
+    return {name: (kg.bind(ctypes.CDLL(str(lib))), kg)
+            for name, lib in zip(table, libs)}
+
+
 def variant_kernels(table, names=None) -> dict:
     """{name: bound library} of this checkout's source with each variant
     of ``table`` (VARIANTS or FWD_VARIANTS; those in ``names`` if given),
@@ -213,15 +303,8 @@ def variant_kernels(table, names=None) -> dict:
         if unknown:
             raise SystemExit(f"unknown variants: {sorted(unknown)}")
         table = {k: v for k, v in table.items() if k in names}
-    base = (build.CSRC / "stack_kernel.cu").read_text()
-    texts = []
-    for name, edits in table.items():
-        text = base
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: its edit does not apply")
-            text = text.replace(old, new)
-        texts.append(text)
+    base = inlined_source("stack_kernel")
+    texts = [apply_edits(base, name, edits) for name, edits in table.items()]
     libs = compile_sources(texts, build.CSRC, "variants")
     for name, lib in zip(table, libs):
         log = lib.with_suffix(".log")
@@ -319,6 +402,103 @@ def recompute_inputs(torch, name: str, seed: int = 0):
              rn(n * b, 2 * r, scale=0.1), rn(n, win, 2 * r, scale=win ** -0.5),
              rn(n, r, r + s, scale=r ** -0.5), rn(n, r + s, scale=0.1), dil)
     return fargs, rn(b, T, s, scale=1e-3).to(bf)
+
+
+def gated_inputs(torch, name: str, seed: int = 0):
+    """((h, ctx, b_fg, w_fg, w_out), b_out, dres, dskip, d) of one gated
+    block at shape ``name`` of GATED_SHAPES."""
+    b, r, s, d = GATED_SHAPES[name]
+    win, bf = 3 * r, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    args = (rn(b, T, r, scale=0.5).to(bf), rn(b, T, r, scale=0.5).to(bf),
+            rn(b, 2 * r, scale=0.1), rn(win, 2 * r, scale=win ** -0.5),
+            rn(r, r + s, scale=r ** -0.5))
+    return (args, rn(1, r + s, scale=0.1), rn(b, T, r, scale=1e-3).to(bf),
+            rn(b, T, s, scale=1e-3).to(bf), d)
+
+
+def time_gated(torch, old, name: str, repeats: int, card: str,
+               variants=None) -> None:
+    """Print the gated-block kernels' times at ``name`` by call and by
+    grid (against ``old`` = (library, wrapper module) of another source,
+    in turns; each of ``variants`` beside them)."""
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+
+    args, b_out, dres, dskip, d = gated_inputs(torch, name)
+    st = kg._stream(args[0])
+    sides = {"this": (kg.library(), kg)}
+    if old is not None:
+        sides["parent"] = old
+    for vname, v in (variants or {}).items():
+        sides[f"variant {vname}"] = v
+    fns = {"fwd": {k: (lambda lib=lib, mod=mod: mod.run_fwd(
+                       lib, *args, b_out, d, st))
+                   for k, (lib, mod) in sides.items()},
+           "bwd": {k: (lambda lib=lib, mod=mod: mod.run_bwd(
+                       lib, *args, dres, dskip, d, st))
+                   for k, (lib, mod) in sides.items()}}
+    names = {"fwd": ("res", "skip"),
+             "bwd": ("dh", "dctx", "db_fg", "dw_fg", "dw_out", "db_out")}
+    for kind, by_side in fns.items():
+        order = ("parent", "this", "this", "parent") if old is not None \
+            else ("this",)
+        order += tuple(k for k in by_side if k.startswith("variant"))
+        ms = {}
+        for side in order:
+            ms.setdefault(side, []).append(events_ms(torch, by_side[side],
+                                                     repeats))
+        line = f"gated_block_{kind} {name}: " + "; ".join(
+            f"{side} " + ", ".join(f"{v:.3f}" for v in vals) + " ms"
+            for side, vals in ms.items())
+        new, again = by_side["this"](), by_side["this"]()
+        line += "; two calls bit-equal: " + str(all(
+            torch.equal(u, v) for u, v in zip(new, again) if u is not None))
+        for side, fn in by_side.items():
+            if side != "this" and "no_mma" not in side:
+                line += f"; against {side}: " + diff_text(names[kind], new,
+                                                           fn())
+        for side, fn in by_side.items():
+            grids = by_grid(torch, fn, GATED_GRIDS)
+            line += f"; by grid ({side}) " + ", ".join(
+                f"{k} {v:.3f}" for k, v in grids.items() if v > 0) \
+                + f" (device {sum(grids.values()):.3f} ms)"
+        print(f"{line}; {card}", flush=True)
+
+
+def time_merged_bwd(torch, lib, old, repeats: int, card: str) -> None:
+    """Print the merged backward's time at the breakdancing widths (C =
+    64, parity CE) against ``old``, and whether the two give the same
+    bits."""
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    args = head_inputs(torch)
+    x, ctx, _, w_fg, w_out, _, tgt, w1, b1, w2, b2, dil, rf, parity = args
+    st = ks._stream(x)
+    with torch.no_grad():
+        skip, hsave, tfsg = ks.run_head_fwd(lib, *args, stream=st)[2:]
+
+    def side(slib, smod):
+        return lambda: smod.run_head_bwd(
+            slib, hsave, tfsg, ctx, w_fg, w_out, skip, tgt, w1, b1, w2, b2,
+            1.0, dil, rf, parity, stream=st)
+
+    fns = {"this": side(lib, ks), "parent": side(*old)}
+    ms = {}
+    for name in ("parent", "this", "this", "parent"):
+        ms.setdefault(name, []).append(events_ms(torch, fns[name], repeats))
+    new, prev = fns["this"](), fns["parent"]()
+    equal = all(torch.equal(u, v) for u, v in zip(new, prev)
+                if u is not None)
+    print("stack_head_bwd breakdancing C=64: " + "; ".join(
+        f"{k} " + ", ".join(f"{v:.3f}" for v in vals) + " ms"
+        for k, vals in ms.items()) + f"; bit-equal to the parent: {equal}; "
+        + diff_text(("dx", "dctx", "db_fg", "dw_fg", "dw_out", "db_out",
+                     "dw1", "db1", "dw2", "db2"), new, prev) + f"; {card}",
+        flush=True)
 
 
 def time_recompute(torch, lib, old, name: str, repeats: int,
@@ -481,6 +661,7 @@ def main(argv=None) -> None:
                     "named, comma-separated)")
     ap.add_argument("--recompute", action="store_true")
     ap.add_argument("--forward", action="store_true")
+    ap.add_argument("--gated", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_stack_bwd needs a CUDA device")
@@ -488,6 +669,16 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    names = args.variants.split(",") if args.variants else None
+    if args.gated:
+        old = parent_gated_kernels(args.parent) if args.parent else None
+        variants = gated_variant_kernels(names) \
+            if args.variants is not None else {}
+        shapes = args.shapes if args.shapes != ",".join(SHAPES) \
+            else ",".join(GATED_SHAPES)
+        for name in shapes.split(","):
+            time_gated(torch, old, name, args.repeats, card, variants)
+        return
     lib = ks.library()
     old = parent_kernels(args.parent) if args.parent else None
     if args.recompute:
@@ -496,7 +687,6 @@ def main(argv=None) -> None:
         for name in shapes.split(","):
             time_recompute(torch, lib, old, name, args.repeats, card)
         return
-    names = args.variants.split(",") if args.variants else None
     if args.forward:
         variants = variant_kernels(FWD_VARIANTS, names) \
             if args.variants is not None else {}
@@ -528,10 +718,13 @@ def main(argv=None) -> None:
             n1 = events_ms(torch, new, args.repeats)
             n2 = events_ms(torch, new, args.repeats)
             p2 = events_ms(torch, parent, args.repeats)
+            got, want = new(), parent()
+            equal = all((u is None and v is None) or torch.equal(u, v)
+                        for u, v in zip(got, want))
             line += (f"this {n1:.3f}, {n2:.3f} ms; parent {p1:.3f}, "
-                     f"{p2:.3f} ms; " + diff_text(
-                         ("dtab", "dxc", "db_fg", "dw_fg", "dw_out",
-                          "db_out", "dwup_aug"), new(), parent()))
+                     f"{p2:.3f} ms; bit-equal to the parent: {equal}; "
+                     + diff_text(("dtab", "dxc", "db_fg", "dw_fg", "dw_out",
+                                  "db_out", "dwup_aug"), got, want))
         print(f"{line}; {grid_text(torch, new)}; {card}", flush=True)
         for vname, vlib in variants.items():
             def variant():
@@ -541,6 +734,8 @@ def main(argv=None) -> None:
                   f"{events_ms(torch, variant, args.repeats):.3f} ms; "
                   f"{grid_text(torch, variant)}; {card}", flush=True)
         del bargs
+    if old is not None:
+        time_merged_bwd(torch, lib, old, args.repeats, card)
 
 
 def grid_text(torch, fn) -> str:

@@ -50,6 +50,9 @@ def _close(name, got, want, rel):
                                atol=rel * np.abs(want).max(), err_msg=name)
 
 
+WIDTHS = [(16, 16), (32, 32), (64, 64), (64, 8), (32, 8), (16, 8)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,s,t,d,has_ctx", [
     (16, 16, 1280, 1, True), (16, 16, 1000, 4, False),
@@ -58,7 +61,40 @@ def _close(name, got, want, rel):
     (32, 8, 1280, 2, True), (16, 8, 1280, 512, False),
 ])
 def test_gated_kernels_match_plain(cuda, r, s, t, d, has_ctx):
-    a = _inputs(cuda, t, r, s, has_ctx)
+    _match_plain(cuda, r, s, t, d, has_ctx, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,t,d,has_ctx,batch", [
+    (64, 64, 1000, 600, True, 2), (32, 8, 999, 500, False, 2),
+    (16, 16, 1000, 700, True, 3), (64, 8, 1283, 4, True, 3),
+    (32, 32, 3001, 1, False, 3), (16, 8, 777, 388, True, 3),
+])
+def test_gated_kernels_match_plain_ragged(cuda, r, s, t, d, has_ctx, batch):
+    """T not a multiple of the 64-row tile, d at least T/2 (the tap and the
+    carry cross most of a batch row), and B = 3 (b_fg and db_fg per batch
+    row over more than two rows)."""
+    _match_plain(cuda, r, s, t, d, has_ctx, batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s", WIDTHS)
+def test_gated_kernels_repeat_their_bits(cuda, r, s):
+    """Two calls of each kernel give the same bits (fixed-order sums, no
+    atomics), at a T where each persistent block walks several tiles."""
+    a = _inputs(cuda, 20000, r, s, True, batch=2, seed=1)
+    args = (a["h"], a["ctx"], a["b_fg"], a["w_fg"], a["w_out"])
+    calls = [kg.gated_block_fwd(*args, a["b_out"], 3) for _ in range(2)]
+    calls += [kg.gated_block_bwd(*args, a["dres"], a["dskip"], 3)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in (calls[:2], calls[2:]):
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
+
+
+def _match_plain(cuda, r, s, t, d, has_ctx, batch):
+    a = _inputs(cuda, t, r, s, has_ctx, batch=batch)
     args = (a["h"], a["ctx"], a["b_fg"], a["w_fg"], a["w_out"])
     before = dict(kg.launch_counts)
     got = kg.gated_block_fwd(*args, a["b_out"], d)

@@ -1,16 +1,18 @@
-"""The save backward's split-TF32 products (csrc/stack_kernel.cu) on the
-CPU, through the plain emulation of the kernels' operand handling in
-``ops/stack_kernel`` (TF32 rounding as ``cvt.rna.tf32.f32`` rounds, the
-big/small split, each product's passes).  Inputs from a numpy seed at
-the breakdancing widths (R = S = 64: K = R+S = 2R = 128, W_in = 3R =
-192) over 4096 rows.  Every product must lie within 1e-4 of its scale of
-the float64 product, the bar the CUDA tests hold the kernels' gradients
-to; one-pass TF32 must not, which is why the split exists."""
+"""The save backward's split-TF32 products (csrc/stack_kernel.cu) and the
+gated-block kernels' (csrc/gated_block.cu) on the CPU, through the plain
+emulation of the kernels' operand handling in ``ops/stack_kernel`` (TF32
+rounding as ``cvt.rna.tf32.f32`` rounds, the big/small split, each
+product's passes).  Inputs from a numpy seed at the breakdancing widths
+(R = S = 64: K = R+S = 2R = 128, W_in = 3R = 192) over 4096 rows.  Every
+product must lie within 1e-4 of its scale of the float64 product, the
+bar the CUDA tests hold the kernels' gradients to; one-pass TF32 must
+not, which is why the split exists."""
 
 import numpy as np
 import pytest
 import torch
 
+from movenet_tpu_torch.ops import gated_block as gb
 from movenet_tpu_torch.ops import stack_kernel as sk
 
 R, S, WIN, ROWS = 64, 64, 192, 4096
@@ -43,6 +45,27 @@ def _operands(seed=0):
     return {"dgated": (dout, w_out.t()), "dfg_w": (dfg, w_fg.t()),
             "dw_fg": (hp.t(), dfg), "dw_out": (gated.t(), dout),
             "dw_up": (xc.t(), dctx)}
+
+
+def _gated_operands(seed=0):
+    """(A, B) of each product of the gated-block kernels, as they load
+    them: [h | h(t-d) | ctx] and dout = [dres | dskip] widened from bf16,
+    W_fg and W_out in float32, gated = tanh(f) sigmoid(g) unrounded from
+    a float32 fg, and dfg from dgated in float32."""
+    rng = np.random.default_rng(seed)
+    hp = _bf16(rng.normal(0, 0.5, (ROWS, WIN)))
+    w_fg = _f32(rng.normal(0, WIN ** -0.5, (WIN, 2 * R)))
+    w_out = _f32(rng.normal(0, R ** -0.5, (R, R + S)))
+    fg = torch.matmul(hp, w_fg) + _f32(rng.normal(0, 0.1, (1, 2 * R)))
+    tf, sg = torch.tanh(fg[:, :R]), torch.sigmoid(fg[:, R:])
+    gated = tf * sg
+    dout = _bf16(rng.normal(0, 1e-3, (ROWS, R + S)))
+    dgated = torch.matmul(dout, w_out.t())
+    dfg = torch.cat([dgated * sg * (1 - tf * tf),
+                     dgated * tf * sg * (1 - sg)], dim=1)
+    return {"fg": (hp, w_fg), "out": (gated, w_out),
+            "dgated": (dout, w_out.t()), "dfg_w": (dfg, w_fg.t()),
+            "dw_fg": (hp.t(), dfg), "dw_out": (gated.t(), dout)}
 
 
 def _rel_err(got, a, b):
@@ -108,3 +131,27 @@ def test_exact_operands_need_no_split():
         a, b = ops[name]
         assert torch.equal(sk.tf32_split_matmul(a, b, False, True),
                            sk.tf32_split_matmul(a, b, True, True))
+
+
+def test_gated_operands_are_as_the_kernels_load_them():
+    """bf16 operands need no split (one TF32 part); gated and dfg are
+    float32 values that do."""
+    ops = _gated_operands()
+    for name, (a, b) in ops.items():
+        for x, split in zip((a, b), gb.SPLIT_PASSES[name]):
+            exact = torch.equal(sk.tf32_rna(x), x)
+            assert exact != split, name
+
+
+@pytest.mark.parametrize("name", sorted(gb.SPLIT_PASSES))
+def test_gated_split_products_hold_float32_tolerance(name):
+    a, b = _gated_operands()[name]
+    got = sk.tf32_split_matmul(a, b, *gb.SPLIT_PASSES[name])
+    assert _rel_err(got, a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("name", sorted(gb.SPLIT_PASSES))
+def test_gated_one_pass_tf32_misses_the_tolerance(name):
+    a, b = _gated_operands()[name]
+    got = sk.tf32_split_matmul(a, b, False, False)
+    assert _rel_err(got, a, b) > 1e-4

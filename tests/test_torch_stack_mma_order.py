@@ -198,14 +198,18 @@ def test_save_fwd_in_float64_is_the_same_forward():
 
 def test_time_stack_bwd_variant_edits_apply():
     """Each diagnostic edit of the timing tool applies once to the
-    kernel source, as the tool requires."""
-    from movenet_tpu_torch.ops.cuda import build
+    kernel source it builds (the split-TF32 header inlined), as the tool
+    requires: the trunk's edits to stack_kernel.cu, the gated block's to
+    gated_block.cu."""
     from movenet_tpu_torch.utils import time_stack_bwd as tsb
 
-    src = (build.CSRC / "stack_kernel.cu").read_text()
-    for table in (tsb.VARIANTS, tsb.FWD_VARIANTS):
-        for name, edits in table.items():
-            text = src
-            for old, new in edits:
-                assert text.count(old) == 1, (name, old)
-                text = text.replace(old, new)
+    for source, tables in (("stack_kernel", (tsb.VARIANTS, tsb.FWD_VARIANTS)),
+                           ("gated_block", (tsb.GATED_VARIANTS,))):
+        src = tsb.inlined_source(source)
+        assert '#include "mma_tf32.cuh"' not in src
+        for table in tables:
+            for name, edits in table.items():
+                text = src
+                for old, new in edits:
+                    assert text.count(old) == 1, (source, name, old)
+                    text = text.replace(old, new)
