@@ -119,9 +119,11 @@ Phases (any failure exits non-zero and prints no result):
      its peak device memory;
   17. packed head: with PACKED_HEAD on, at the breakdancing head shapes
      (B=2, T=160000, S=C=64, bf16 skip, seeded), parity on and off, the
-     packed kernels (head_loss.py:169 / :218) against their plain
-     versions (loss, equal match, every gradient) and loosely against
-     the unpacked kernels; ``fused_head_loss`` at tgt_off 0 forward +
+     packed kernels (head_loss.py:169 / :218; split-TF32 tensor cores)
+     against their plain versions (loss, equal match, every gradient)
+     and loosely against the unpacked kernels; their times beside the
+     unpacked pair's on the same inputs, their registers, spills and
+     shared memory a block; ``fused_head_loss`` at tgt_off 0 forward +
      backward (the main path of this form) launches each packed kernel
      once and no unpacked one;
   18. wide head: the head kernels at (S, C) = (8, 128) with B=3 and B=2
@@ -2010,8 +2012,9 @@ WIDE_HEADS = ((8, 128, 3), (8, 128, 2), (16, 256, 2), (64, 256, 2))
 def packed_bounds(m, s, c, b, t):
     """(bound_ms, bound_by) of the packed head kernels: skip, targets and
     the weights read (backward: dskip and the gradients written too);
-    every product on float32 operands (67 TF/s), the backward rebuilding
-    y and z."""
+    every product on float32 operands on the tensor cores, at the TF32
+    peak counted once (the split passes are the design's cost, not the
+    work), the backward rebuilding y and z."""
     hw = 4 * (s * c + c * c + 2 * c)
     fwd_bytes = 2 * m * s + 4 * t * b + hw
     bwd_bytes = fwd_bytes + 2 * m * s + hw
@@ -2019,7 +2022,7 @@ def packed_bounds(m, s, c, b, t):
     bwd_ops = 2 * m * (3 * s * c + 3 * c * c)
 
     def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+        tb, to = nbytes / HBM_BYTES_S * 1e3, ops / TF32_OPS_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     return {"head_fwd_packed": bound(fwd_bytes, fwd_ops),
@@ -2040,9 +2043,11 @@ def phase_packed_head(torch, np, model, batch):
     """PACKED_HEAD on at the breakdancing head shapes (B=2, T=160000,
     S=C=64, bf16 skip, seeded), parity on and off: the packed kernels
     against their plain versions and, loosely, against the unpacked
-    kernels (which round the product operands to bf16); their times; and
-    the op's route (fused_head_loss at tgt_off 0, forward + backward, the
-    main path of this form) through each packed kernel once."""
+    kernels (which round the product operands to bf16); their times
+    beside the unpacked pair's on the same inputs, with the packed
+    kernels' registers, spills and shared memory; and the op's route
+    (fused_head_loss at tgt_off 0, forward + backward, the main path of
+    this form) through each packed kernel once."""
     from movenet_tpu_torch.ops import head_loss as hl
     from movenet_tpu_torch.ops.cuda import head_loss as kh
 
@@ -2111,6 +2116,14 @@ def phase_packed_head(torch, np, model, batch):
                     lib, skip, tgt, None, *w, rf, parity, dloss, 0, st), 5),
                 plain_ms=time_cuda(
                     torch, lambda: hl.head_bwd_packed_plain(*args, dloss), 2))
+    # the unpacked pair on the same inputs (parity CE), timed beside them
+    with torch.no_grad():
+        unpacked_ms = time_cuda(torch, lambda: kh.run_fwd(
+            lib, skip, tgt, *w, rf, True, 0, True, st), 5)
+        up = kh.run_fwd(lib, skip, tgt, *w, rf, True, 0, True, st)[2]
+        unpacked_ms += time_cuda(torch, lambda: kh.run_bwd(
+            lib, skip, tgt, up, *w, rf, True, dloss, 0, st), 5)
+        del up
     # the op with the switch on: forward + backward through the packed
     # kernels, no softmax saved, no unpacked launch
     saved = hl.PACKED_HEAD
@@ -2144,6 +2157,20 @@ def phase_packed_head(torch, np, model, batch):
                   flush=True)
     print(f"packed route (PACKED_HEAD on, fused_head_loss tgt_off 0): "
           f"launches {launches}", flush=True)
+    from movenet_tpu_torch.ops.cuda import build
+    ptxas = dict(ptxas_report(build.build_logs.get("head_loss", "")))
+    for bwd, name in enumerate(PACKED_KERNELS):
+        kernel = f"{name}_kernel"
+        print(f"packed {kernel}: {ptxas.get(kernel, 'not in the nvcc log')}"
+              f"; dynamic shared memory "
+              f"{lib.movenet_head_packed_smem(bwd)} bytes a block",
+              flush=True)
+    packed_ms = sum(rec[k]["parity=True"]["ms"] for k in PACKED_KERNELS)
+    print(f"packed pair (parity): {packed_ms:.3f} ms against the unpacked "
+          f"pair's {unpacked_ms:.3f} ms (head_fwd + head_bwd) on the same "
+          f"inputs", flush=True)
+    for r in rec.values():
+        r["parity=True"]["unpacked_pair_ms"] = unpacked_ms
     return rec, {k: launches[k] for k in PACKED_KERNELS}
 
 
@@ -2684,7 +2711,10 @@ def main() -> int:
             for key, r in byp.items():
                 print(f"time {name} {key} (B=2, T=160000, S=C=64, bf16 "
                       f"skip): kernel {r['ms']:.3f} ms, plain "
-                      f"{r['plain_ms']:.3f} ms; {card}", flush=True)
+                      f"{r['plain_ms']:.3f} ms"
+                      + (f", unpacked pair {r['unpacked_pair_ms']:.3f} ms"
+                         if "unpacked_pair_ms" in r else "")
+                      + f"; {card}", flush=True)
         sr = {k: train_recs[k]["ms"] for k in TRAIN_KERNELS}
         print(f"time merged (breakdancing, B=2, T=160000, bf16): forward "
               f"{merged_recs['stack_head_fwd']['ms']:.3f} ms against the "
@@ -2882,6 +2912,7 @@ def main() -> int:
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": pb[name][0], "bound_by": pb[name][1],
                 "library_ms": None, "matches_plain": True,
+                "unpacked_pair_ms": r["unpacked_pair_ms"],
                 "shape": "PACKED_HEAD on, breakdancing head: B=2, T=160000, "
                          "S=C=64, bf16 skip, parity CE (max_abs_err over "
                          "parity on and off)"})

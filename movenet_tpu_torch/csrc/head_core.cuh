@@ -1,9 +1,9 @@
-// Output head + cross-entropy building blocks, shared by head_loss.cu (the
-// packed head kernels) and stack_kernel.cu (the merged trunk + head
-// kernels).  A block of kHeadThreads threads works on tiles of
-// kHeadRows rows (or fewer, as the caller's shared-memory plan gives) held
-// in shared memory; each product is a sequence of fmaf in float32 over a
-// 4x4 register tile per thread.
+// Output head + cross-entropy building blocks of stack_kernel.cu's merged
+// trunk + head kernels (head_loss.cu takes only leaky and kHeadThreads
+// from here: its kernels run on the tensor cores).  A block of
+// kHeadThreads threads works on tiles of kHeadRows rows (or fewer, as the
+// caller's shared-memory plan gives) held in shared memory; each product
+// is a sequence of fmaf in float32 over a 4x4 register tile per thread.
 #pragma once
 
 #include <cuda_bf16.h>

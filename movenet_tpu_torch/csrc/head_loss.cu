@@ -14,9 +14,8 @@
 //     (the TPU's _dot, not _mdot), no softmax save, and a backward that
 //     rebuilds y, z and the softmax per tile from skip.  The TPU's two
 //     positions per 128 lanes is a layout of that chip; here they are
-//     head_fwd_packed_kernel and head_bwd_packed_kernel, fmaf over
-//     shared-memory tiles (head_core.cuh, shared with the merged trunk +
-//     head kernels of stack_kernel.cu).
+//     head_fwd_packed_kernel and head_bwd_packed_kernel on split-TF32
+//     tensor cores (see "Packed design" below).
 //
 // The unpacked kernels (head_fwd_kernel<NT>, head_bwd_kernel<NT, KS>,
 // head_wgrad_kernel; 4 <= S <= 64, 4 <= C <= 256, multiples of 4).  Every
@@ -65,15 +64,46 @@
 // partial sums, which reduce_kernel adds in a fixed order: deterministic,
 // no atomics.
 //
-// Bound (the larger of bytes over 3.35 TB/s and bf16 operations over 989
-// TF/s).  Forward: skip read, p written (4C bytes a row): 0.038 ms at the
-// breakdancing shape (B*T = 320000, S = C = 64), 0.077 at (8, 128, B = 3).
-// Backward: skip and p read, dskip written: 0.050 and 0.080 ms.  Beside
-// these the backward moves ly, dz_r and dy_r (6 CP bytes a row written,
-// read again by the weight-gradient GEMM: 1.5x the p bytes at C = 128)
-// and the forward and backward stage the weights once per block.  The
-// packed form moves no p, so float32 operations bound it (about 5.2e9
-// forward and 1.6e10 backward, 0.08 and 0.23 ms at 67 TF/s).
+// Packed design (S = C = 64).  Every product takes float32 operands and
+// runs as split-TF32 mma.sync m16n8k8 (mma_tf32.cuh), three passes each
+// (kPass*, the table PACKED_SPLIT_PASSES of ops/head_loss.py).  A block of
+// 8 warps stages W1 and W2 once as float32 (rows of 8 mod 32 floats, rows
+// 4-7 of every 8 swapped in pairs) and reads each copy both as W and, k
+// paired, as W^T, with no bank conflict either way.  Fragments pair k
+// (slot q holds k0 + 2q, slot q + 4 holds k0 + 2q + 1), so the C
+// fragment of one product is the A fragment of the next in registers.
+// Forward: each warp walks 16-row slabs, its next slab of skip arriving
+// by cp.async; y, leaky(y) and z stay in registers, and each row of z
+// lies in a quad of lanes, whose shuffles give its max, first argmax,
+// exp sums and NLL.  A row whose two largest logits lie within 2^-14 (1 +
+// |max|) of each other takes its argmax again from y and z formed as the
+// plain version forms them (a chain of fmaf over k in order, then the
+// bias: cuBLAS's float32 order), the warp on one row at a time, so that
+// the match count is the plain version's; the loss keeps the tensor-core
+// z.  Backward: tiles of 128 rows, a slab a warp.  Per slab y and z are
+// rebuilt, dz formed in quads, dy = dz W2^T * dleaky(y) and dskip = dy
+// W1^T * dleaky(skip) in registers (dskip rounded to bf16 and stored 16
+// bytes a lane through the warp's rows of shared memory); leaky(y), dz
+// and dy go to the tile in shared memory.  After a barrier each warp adds
+// its 16 x 32 slice of dW2 = leaky(y)^T dz and dW1 = leaky(skip)^T dy
+// into registers, which hold the sums over all of the block's rows; db2
+// and db1 are column sums of the unrounded dz and dy in each lane's
+// registers, shuffle trees at the end.  One partial a block, added by
+// reduce_kernel in a fixed order.
+//
+// Bound (the larger of bytes over 3.35 TB/s and operations over the peak
+// of their units: bf16 989 TF/s; float32 products on the tensor cores at
+// the TF32 495 TF/s, counted once).  Forward: skip read, p written (4C
+// bytes a row): 0.038 ms at the breakdancing shape (B*T = 320000, S = C =
+// 64), 0.077 at (8, 128, B = 3).  Backward: skip and p read, dskip
+// written: 0.050 and 0.080 ms.  Beside these the backward moves ly, dz_r
+// and dy_r (6 CP bytes a row written, read again by the weight-gradient
+// GEMM: 1.5x the p bytes at C = 128) and the forward and backward stage
+// the weights once per block.  The packed form moves no p: its forward
+// is bound by bytes (skip and targets, 42.3 MB: 0.0126 ms at the
+// breakdancing shape), its backward by operations (y and z rebuilt, dy,
+// dskip, dW2, dW1: 1.57e10, 0.0318 ms); the split passes (three a
+// product) are the design's cost.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,21 +112,15 @@
 
 #include "head_core.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 
 namespace {
 
-using head_core::dleaky;
 using head_core::leaky;
-using head_core::row_dz;
-using head_core::row_nll;
-using head_core::row_softmax;
-using head_core::tile_product;
-using head_core::tile_wgrad;
 
 constexpr int kThreads = head_core::kHeadThreads;   // 256: 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = head_core::kHeadRows;      // packed row tile
 // shared memory one block may use on sm_90
 constexpr size_t kSmemLimit = 232448;
 // the weight-gradient GEMM: 4 warps, 64x64 output tiles, 32-row stages
@@ -848,179 +872,744 @@ __global__ void __launch_bounds__(kWgThreads)
       }
 }
 
-// --------------------------------------------------- packed (float32 fmaf)
+// ------------------------------------- packed (split-TF32 tensor cores)
+//
+// S = C = 64.  Every product takes float32 operands (the TPU's _dot) and
+// runs as split-TF32 mma.sync m16n8k8 (mma_tf32.cuh) at the passes of
+// PACKED_SPLIT_PASSES in ops/head_loss.py, which this table mirrors:
+// (split A, split B) of each product.  No operand is exact in TF32 (W1
+// and W2 are float32, and leaky(skip) is 0.01 x where the bf16 skip is
+// negative), so every product takes three passes.
+struct Passes {
+  bool a, b;
+};
+constexpr Passes kPassY = {true, true};       // y = leaky(skip) W1
+constexpr Passes kPassZ = {true, true};       // z = leaky(y) W2
+constexpr Passes kPassDy = {true, true};      // dy = dz W2^T
+constexpr Passes kPassDskip = {true, true};   // dskip = dy W1^T
+constexpr Passes kPassDw2 = {true, true};     // dW2 = leaky(y)^T dz
+constexpr Passes kPassDw1 = {true, true};     // dW1 = leaky(skip)^T dy
 
-// A (K, N) weight staged in shared memory at *next (advanced), transposed
-// with TRANS.
-template <bool TRANS>
-__device__ __forceinline__ const float* stage(const float* w, int K, int N,
-                                              float*& next) {
-  float* dst = next;
-  for (int i = threadIdx.x; i < K * N; i += kThreads) {
-    const float v = w[i];
-    if (TRANS)
-      dst[(i % N) * K + i / N] = v;
-    else
-      dst[i] = v;
-  }
-  next += K * N;
-  return dst;
+constexpr int kP = 64;                   // S = C
+constexpr int kPLd = kP + 8;             // float32 rows (8 mod 32 floats)
+constexpr int kPLdh = kP + 8;            // bf16 skip rows (elements)
+constexpr int kBwdRows = 16 * kWarps;    // the backward's tile: a slab a warp
+// Where the function jumps, the plain version's float32 order decides:
+// a row whose two largest logits lie within this share of (1 + |max|)
+// takes its argmax (the forward) from z formed again as the plain
+// version forms it, and an element of y within this share of (1 + the
+// row's largest |y|) of zero its value, whose sign dleaky reads (the
+// backward).  The split sums lie about 1e-2 of this margin from the plain
+// version's y and z (tests/test_torch_head_loss.py::
+// test_tie_margin_covers_the_split_error), so everywhere else the
+// argmax and the sign are the plain version's.
+constexpr float kTieMargin = 1.f / 16384.f;
+
+// d += a b at the passes SA, SB call for, the small terms first
+template <bool SA, bool SB>
+__device__ __forceinline__ void mma_passes(float* d, const Frag<4>& a,
+                                           const Frag<2>& b) {
+  if (SA) mma_tf32(d, a.small, b.big);
+  if (SB) mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
 }
 
-__global__ void __launch_bounds__(kThreads) head_fwd_packed_kernel(HeadArgs a) {
-  constexpr int RT = kMaxRows;
-  const int S = a.s, C = a.c, lds = S + 4, ldc = C + 4;
+// cp.async: 16 bytes from global to shared memory, zero-filled where
+// !valid (src is then any valid address and is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// waits until at most N of this thread's cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ROWS rows of skip from row m0 into buf (row stride kPLdh) by cp.async,
+// THREADS threads from thread index `me`, zero at or past hi
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void stage_skip(bf16_t* buf, const bf16_t* skip,
+                                           long m0, long hi, int me) {
+#pragma unroll
+  for (int i = 0; i < ROWS * 8 / THREADS; ++i) {
+    const int c = me + THREADS * i, row = c >> 3, c8 = 8 * (c & 7);
+    const bool ok = m0 + row < hi;
+    cp_async16(buf + row * kPLdh + c8,
+               ok ? skip + (m0 + row) * kP + c8 : skip, ok);
+  }
+}
+
+// Weight row k lies at row wrow(k): rows 4-7 of every 8 swap in pairs, so
+// that the loads of both B fragment forms below (x W: rows k0 + 2q and
+// k0 + 2q + 1 at column n0 + g; x W^T: columns k0 + 2q, + 1 of row n0 + g)
+// fall in 32 distinct banks with rows of 8 mod 32 floats.
+__device__ __forceinline__ int wrow(int k) { return k ^ ((k >> 2) & 1); }
+
+// w (64, 64) float32 into shared memory at rows wrow(k) of kPLd floats
+__device__ __forceinline__ void stage_w64(const float* w, float* dst) {
+  for (int i = threadIdx.x; i < kP * kP / 4; i += kThreads) {
+    const int k = i / (kP / 4), c4 = 4 * (i % (kP / 4));
+    *reinterpret_cast<float4*>(dst + wrow(k) * kPLd + c4) =
+        __ldg(reinterpret_cast<const float4*>(w + k * kP + c4));
+  }
+}
+
+// Fragments with k paired: slot q holds k0 + 2q and slot q + 4 holds
+// k0 + 2q + 1 (A and B alike, so the sum over k is the same), so that the
+// C fragment of one n tile (columns 2q, 2q + 1 of rows g, g + 8) is the A
+// fragment of the next product's k step as it stands.
+// B of x W (element (k, n) = W[k][n]) at the k step k0 and n tile n0:
+template <bool SPLIT>
+__device__ __forceinline__ void load_b_w(const float* ws, int k0, int n0,
+                                         Frag<2>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float v[2] = {ws[wrow(k0 + 2 * q) * kPLd + n0 + g],
+                      ws[wrow(k0 + 2 * q + 1) * kPLd + n0 + g]};
+  frag_set<SPLIT>(f, v);
+}
+// B of x W^T (element (k, n) = W[n][k]):
+template <bool SPLIT>
+__device__ __forceinline__ void load_b_wt(const float* ws, int k0, int n0,
+                                          Frag<2>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float2 u =
+      *reinterpret_cast<const float2*>(ws + wrow(n0 + g) * kPLd + k0 + 2 * q);
+  const float v[2] = {u.x, u.y};
+  frag_set<SPLIT>(f, v);
+}
+// A from the C fragment c of an n tile:
+template <bool SPLIT>
+__device__ __forceinline__ void a_from_c(const float (&c)[4], Frag<4>& f) {
+  const float v[4] = {c[0], c[2], c[1], c[3]};
+  frag_set<SPLIT>(f, v);
+}
+// A from a warp's 16 float32 rows at p (row stride kPLd):
+template <bool SPLIT>
+__device__ __forceinline__ void a_from_rows(const float* p, int k0,
+                                            Frag<4>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float2 u =
+      *reinterpret_cast<const float2*>(p + g * kPLd + k0 + 2 * q);
+  const float2 v =
+      *reinterpret_cast<const float2*>(p + (g + 8) * kPLd + k0 + 2 * q);
+  const float x[4] = {u.x, v.x, u.y, v.y};
+  frag_set<SPLIT>(f, x);
+}
+// A of leaky(skip) from a warp's 16 rows of bf16 skip at p:
+template <bool SPLIT>
+__device__ __forceinline__ void a_from_skip(const bf16_t* p, int k0,
+                                            Frag<4>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const unsigned u0 = ld32(p + g * kPLdh + k0 + 2 * q);
+  const unsigned u1 = ld32(p + (g + 8) * kPLdh + k0 + 2 * q);
+  const float v[4] = {leaky(bf2f(static_cast<bf16_t>(u0 & 0xffffu))),
+                      leaky(bf2f(static_cast<bf16_t>(u1 & 0xffffu))),
+                      leaky(bf2f(static_cast<bf16_t>(u0 >> 16))),
+                      leaky(bf2f(static_cast<bf16_t>(u1 >> 16)))};
+  frag_set<SPLIT>(f, v);
+}
+
+// The A fragment of leaky(skip) with k along rows (the weight gradients,
+// k = the tile's rows; slots q and q + 4 as the PTX ISA lays them out):
+// element (i, k) = leaky(skip[k][i]) at p[k * kPLdh + i], bf16.
+template <bool SPLIT>
+__device__ __forceinline__ void a_skip_rows(const bf16_t* p, Frag<4>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float v[4] = {leaky(bf2f(p[q * kPLdh + g])),
+                      leaky(bf2f(p[q * kPLdh + g + 8])),
+                      leaky(bf2f(p[(q + 4) * kPLdh + g])),
+                      leaky(bf2f(p[(q + 4) * kPLdh + g + 8]))};
+  frag_set<SPLIT>(f, v);
+}
+
+// y = leaky(skip) W1 + b1 over a warp's 16 rows of skip at p (C fragments
+// of the 8 n tiles)
+__device__ __forceinline__ void packed_y(const bf16_t* p, const float* w1s,
+                                         const float* b1s, float (&y)[8][4]) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[j][e] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kP; k0 += 8) {
+    Frag<4> fa;
+    a_from_skip<kPassY.a>(p, k0, fa);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      Frag<2> fb;
+      load_b_w<kPassY.b>(w1s, k0, 8 * j, fb);
+      mma_passes<kPassY.a, kPassY.b>(y[j], fa, fb);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[j][e] += b1s[8 * j + 2 * q + (e & 1)];
+}
+
+// out = x W over a warp's 16 rows, x as C fragments
+template <bool SA, bool SB>
+__device__ __forceinline__ void packed_product(const float (&x)[8][4],
+                                               const float* ws,
+                                               float (&out)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    Frag<4> fa;
+    a_from_c<SA>(x[kk], fa);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      Frag<2> fb;
+      load_b_w<SB>(ws, 8 * kk, 8 * j, fb);
+      mma_passes<SA, SB>(out[j], fa, fb);
+    }
+  }
+}
+
+// out = x W (WT: x W^T) over a warp's 16 rows of x in shared memory at
+// p (row stride kPLd)
+template <bool WT, bool SA, bool SB>
+__device__ __forceinline__ void rows_product(const float* p, const float* ws,
+                                             float (&out)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[j][e] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kP; k0 += 8) {
+    Frag<4> fa;
+    a_from_rows<SA>(p, k0, fa);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      Frag<2> fb;
+      if (WT)
+        load_b_wt<SB>(ws, k0, 8 * j, fb);
+      else
+        load_b_w<SB>(ws, k0, 8 * j, fb);
+      mma_passes<SA, SB>(out[j], fa, fb);
+    }
+  }
+}
+
+// y at column c of the row whose skip is skr, formed as the plain version
+// forms it: a float32 product on the card is, per element, a chain of
+// fmaf over k in order from zero; then the bias is added.
+__device__ float exact_y(const bf16_t* skr, const float* w1s,
+                         const float* b1s, int c) {
+  float acc = 0.f;
+  for (int s = 0; s < kP; ++s)
+    acc = fmaf(leaky(bf2f(skr[s])), w1s[wrow(s) * kPLd + c], acc);
+  return acc + b1s[c];
+}
+
+// The first argmax of one row's logits formed as the plain version forms
+// them: y, then z, two columns a lane.  skr is the row's skip, scratch 64
+// floats of the warp.  Warp-collective; every lane returns the column.
+__device__ int exact_argmax(const bf16_t* skr, const float* w1s,
+                            const float* w2s, const float* b1s,
+                            const float* b2s, float* scratch) {
+  const int lane = threadIdx.x & 31, c0 = 2 * lane;
+  *reinterpret_cast<float2*>(scratch + c0) =
+      make_float2(leaky(exact_y(skr, w1s, b1s, c0)),
+                  leaky(exact_y(skr, w1s, b1s, c0 + 1)));
+  __syncwarp();
+  float z0 = 0.f, z1 = 0.f;
+  for (int k = 0; k < kP; ++k) {
+    const float v = scratch[k];
+    const float2 w =
+        *reinterpret_cast<const float2*>(w2s + wrow(k) * kPLd + c0);
+    z0 = fmaf(v, w.x, z0);
+    z1 = fmaf(v, w.y, z1);
+  }
+  __syncwarp();
+  z0 += b2s[c0];
+  z1 += b2s[c0 + 1];
+  float v = z0;
+  int col = c0;
+  if (z1 > z0) {
+    v = z1;
+    col = c0 + 1;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oc = __shfl_xor_sync(0xffffffffu, col, off);
+    if (ov > v || (ov == v && oc < col)) {
+      v = ov;
+      col = oc;
+    }
+  }
+  return col;
+}
+
+// Forward: each warp walks 16-row slabs of the block's rows, its next
+// slab of skip arriving by cp.async while it computes this one.
+__global__ void __launch_bounds__(kThreads, 2)
+    head_fwd_packed_kernel(HeadArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* act = reinterpret_cast<float*>(smem);   // (RT, lds)
-  float* ly = act + RT * lds;                     // (RT, ldc)
-  float* z = ly + RT * ldc;                       // (RT, ldc)
-  float* b1 = z + RT * ldc;
-  float* b2 = b1 + C;
-  float* next = b2 + C;
-  const int tid = threadIdx.x;
-  const float* w1 = stage<false>(a.w1, S, C, next);
-  const float* w2 = stage<false>(a.w2, C, C, next);
-  for (int i = tid; i < C; i += kThreads) {
-    b1[i] = a.b1[i];
-    b2[i] = a.b2[i];
+  float* w1s = reinterpret_cast<float*>(smem);   // (kP, kPLd) W1, wrow
+  float* w2s = w1s + kP * kPLd;                   // (kP, kPLd) W2, wrow
+  float* b1s = w2s + kP * kPLd;
+  float* b2s = b1s + kP;
+  float* red = b2s + kP;                          // (2, kThreads)
+  float* scr = red + 2 * kThreads;                // (kWarps, kP)
+  bf16_t* tiles = reinterpret_cast<bf16_t*>(scr + kWarps * kP);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  bf16_t* buf0 = tiles + warp * 2 * 16 * kPLdh;   // two (16, kPLdh) slabs
+  bf16_t* buf1 = buf0 + 16 * kPLdh;
+  float* wscr = scr + warp * kP;
+  stage_w64(a.w1, w1s);
+  stage_w64(a.w2, w2s);
+  for (int i = tid; i < kP; i += kThreads) {
+    b1s[i] = a.b1[i];
+    b2s[i] = a.b2[i];
   }
   const long lo = blockIdx.x * a.rows_per_block;
   const long hi = min_l(lo + a.rows_per_block, a.m_total);
-  float loss = 0.f, match = 0.f;   // per row-thread, over the block
-  for (long m0 = lo; m0 < hi; m0 += RT) {
-    __syncthreads();
-    for (int i = tid; i < RT * S; i += kThreads) {
-      const int r = i / S, k = i % S;
-      const long m = m0 + r;
-      act[r * lds + k] = m < hi ? leaky(bf2f(a.skip[m * S + k])) : 0.f;
+  long m0 = lo + 16 * warp;
+  if (m0 < hi) stage_skip<16, 32>(buf0, a.skip, m0, hi, lane);
+  cp_async_commit();
+  __syncthreads();
+  float loss = 0.f, match = 0.f;   // lanes q = 0, over the warp's slabs
+  for (int it = 0; m0 < hi; m0 += 16 * kWarps, ++it) {
+    const bf16_t* cur = it & 1 ? buf1 : buf0;
+    if (m0 + 16 * kWarps < hi)
+      stage_skip<16, 32>(it & 1 ? buf0 : buf1, a.skip, m0 + 16 * kWarps, hi,
+                         lane);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    float y[8][4], z[8][4];
+    packed_y(cur, w1s, b1s, y);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[j][e] = leaky(y[j][e]);
+    packed_product<kPassZ.a, kPassZ.b>(y, w2s, z);
+    // per row (h: rows r0, r0 + 8): the two largest logits, the first
+    // argmax, z at the target
+    const long r0 = m0 + g;
+    int tg[2], am[2] = {kP, kP};
+    float mx[2] = {-INFINITY, -INFINITY}, m2[2] = {-INFINITY, -INFINITY};
+    float zt[2] = {0.f, 0.f};
+    tg[0] = r0 < hi ? target_of(a, r0) : -1;
+    tg[1] = r0 + 8 < hi ? target_of(a, r0 + 8) : -1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+        const float v = z[j][e] + b2s[col];
+        z[j][e] = v;
+        if (v > mx[h]) {
+          m2[h] = mx[h];
+          mx[h] = v;
+          am[h] = col;
+        } else if (v > m2[h]) {
+          m2[h] = v;
+        }
+        if (col == tg[h]) zt[h] = v;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, mx[h], off);
+        const float o2 = __shfl_xor_sync(0xffffffffu, m2[h], off);
+        const int oa = __shfl_xor_sync(0xffffffffu, am[h], off);
+        const float second = fmaxf(fmaxf(m2[h], o2), fminf(mx[h], om));
+        if (om > mx[h] || (om == mx[h] && oa < am[h])) {
+          mx[h] = om;
+          am[h] = oa;
+        }
+        m2[h] = second;
+      }
+      zt[h] = quad_sum(zt[h]);
     }
-    __syncthreads();
-    tile_product<false>(act, lds, w1, S, C, [&](int r, int c, float v) {
-      ly[r * ldc + c] = leaky(v + b1[c]);
-    }, RT);
-    __syncthreads();
-    tile_product<false>(ly, ldc, w2, C, C, [&](int r, int c, float v) {
-      z[r * ldc + c] = v + b2[c];
-    }, RT);
-    __syncthreads();
-    if (tid < RT && m0 + tid < hi) {
-      const long m = m0 + tid;
-      bool hit;
-      const float nll = row_nll(z + tid * ldc, C, target_of(a, m), a.parity,
-                                false, &hit);
-      if (valid_row(a, m)) {
-        loss += nll;
-        match += hit ? 1.f : 0.f;
+    float es[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = expf(z[j][e] - mx[e >> 1]);
+        z[j][e] = v;
+        es[e >> 1] += v;
+      }
+    es[0] = quad_sum(es[0]);
+    es[1] = quad_sum(es[1]);
+    // parity: sum exp(p) and p at the target, p = e times the row's
+    // reciprocal (no division, and so no branch, per element)
+    const float inv[2] = {1.f / es[0], 1.f / es[1]};
+    float sep[2] = {0.f, 0.f}, pt[2] = {0.f, 0.f};
+    if (a.parity) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+          const float p = z[j][e] * inv[h];
+          sep[h] += expf(p);
+          if (col == tg[h]) pt[h] = p;
+        }
+    }
+    bool take[2], tie[2];
+    float nll[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long r = r0 + 8 * h;
+      nll[h] = a.parity ? logf(quad_sum(sep[h])) - quad_sum(pt[h])
+                        : logf(es[h]) + mx[h] - zt[h];
+      take[h] = q == 0 && r < hi && valid_row(a, r);
+      tie[h] = take[h] && mx[h] - m2[h] <= kTieMargin * (1.f + fabsf(mx[h]));
+    }
+    // near-tied rows: the argmax of the plain version's logits, the warp
+    // on one row at a time
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned ties = __ballot_sync(0xffffffffu, tie[h]);
+      while (ties) {
+        const int src = __ffs(ties) - 1, row = (src >> 2) + 8 * h;
+        ties &= ties - 1;
+        const int col =
+            exact_argmax(cur + row * kPLdh, w1s, w2s, b1s, b2s, wscr);
+        if (g == (src >> 2)) am[h] = col;
       }
     }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (take[h]) {
+        loss += nll[h];
+        match += am[h] == tg[h] ? 1.f : 0.f;
+      }
+    __syncwarp();   // cur is staged again two slabs on
   }
-  // block sums, in row-thread order
-  __syncthreads();
-  if (tid < RT) {
-    act[tid] = loss;
-    act[RT + tid] = match;
-  }
+  // block sums, in thread order
+  red[tid] = loss;
+  red[kThreads + tid] = match;
   __syncthreads();
   if (tid == 0) {
     float sl = 0.f, sm = 0.f;
-    for (int r = 0; r < RT; ++r) {
-      sl += act[r];
-      sm += act[RT + r];
+    for (int i = 0; i < kThreads; ++i) {
+      sl += red[i];
+      sm += red[kThreads + i];
     }
     a.part[2 * blockIdx.x] = sl;
     a.part[2 * blockIdx.x + 1] = sm;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) head_bwd_packed_kernel(HeadArgs a) {
-  constexpr int RT = kMaxRows;
-  const int S = a.s, C = a.c, lds = S + 4, ldc = C + 4;
+// Backward: tiles of kBwdRows rows, a 16-row slab a warp; the next tile
+// of skip arrives by cp.async while this one computes.  Per slab: y and z
+// rebuilt, dz from the softmax in quads, dy = dz W2^T * dleaky(y), dskip
+// = dy W1^T * dleaky(skip), all in registers; leaky(y), dz and dy go to
+// the tile's rows in shared memory.  Then every warp adds its 16 x 32
+// slice of dW2 = leaky(y)^T dz and of dW1 = leaky(skip)^T dy over the
+// tile's rows into registers; the bias gradients are per-lane column sums
+// of the unrounded dz and dy.  One partial a block.
+__global__ void __launch_bounds__(kThreads, 1)
+    head_bwd_packed_kernel(HeadArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* next = reinterpret_cast<float*>(smem);
-  const int tid = threadIdx.x;
-  const float* w1 = stage<false>(a.w1, S, C, next);
-  const float* w1t = stage<true>(a.w1, S, C, next);
-  const float* w2t = stage<true>(a.w2, C, C, next);
-  const float* w2 = stage<false>(a.w2, C, C, next);
-  float* b1 = next;
-  float* b2 = b1 + C;
-  float* lsk = b2 + C;                            // (RT, lds) leaky(skip)
-  float* ys = lsk + RT * lds;                     // (RT, ldc) y
-  float* ly = ys + RT * ldc;                      // (RT, ldc) leaky(y)
-  float* dz = ly + RT * ldc;                      // (RT, ldc) z, p, dz
-  float* dy = dz + RT * ldc;                      // (RT, ldc)
-  float* gw1 = dy + RT * ldc;                     // (S, C)
-  float* gw2 = gw1 + S * C;                       // (C, C)
-  for (int i = tid; i < S * C; i += kThreads) gw1[i] = 0.f;
-  for (int i = tid; i < C * C; i += kThreads) gw2[i] = 0.f;
-  for (int i = tid; i < C; i += kThreads) {
-    b1[i] = a.b1[i];
-    b2[i] = a.b2[i];
+  float* w1s = reinterpret_cast<float*>(smem);   // (kP, kPLd) W1, wrow
+  float* w2s = w1s + kP * kPLd;                   // (kP, kPLd) W2, wrow
+  float* b1s = w2s + kP * kPLd;
+  float* b2s = b1s + kP;
+  float* lyt = b2s + kP;                          // (kBwdRows, kPLd) ly
+  float* dzt = lyt + kBwdRows * kPLd;             // dz
+  float* dyt = dzt + kBwdRows * kPLd;             // dy
+  bf16_t* sk0 = reinterpret_cast<bf16_t*>(dyt + kBwdRows * kPLd);
+  bf16_t* sk1 = sk0 + kBwdRows * kPLdh;           // two skip tiles
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  bf16_t* stg = sk1 + kBwdRows * kPLdh + warp * 16 * kPLdh;   // dskip rows
+  const int mw = warp & 3, nw = warp >> 2;   // the warp's dW slices
+  stage_w64(a.w1, w1s);
+  stage_w64(a.w2, w2s);
+  for (int i = tid; i < kP; i += kThreads) {
+    b1s[i] = a.b1[i];
+    b2s[i] = a.b2[i];
   }
   const float dloss = a.dloss[0];
   const long lo = blockIdx.x * a.rows_per_block;
   const long hi = min_l(lo + a.rows_per_block, a.m_total);
-  float gb1 = 0.f, gb2 = 0.f;   // db1, db2 of one column each
-  for (long m0 = lo; m0 < hi; m0 += RT) {
-    const int rows = static_cast<int>(hi - m0 < RT ? hi - m0 : RT);
-    __syncthreads();
-    for (int i = tid; i < RT * S; i += kThreads) {
-      const int r = i / S, k = i % S;
-      const long m = m0 + r;
-      lsk[r * lds + k] = r < rows ? leaky(bf2f(a.skip[m * S + k])) : 0.f;
-    }
-    __syncthreads();
-    tile_product<false>(lsk, lds, w1, S, C, [&](int r, int c, float v) {
-      const float y = v + b1[c];
-      ys[r * ldc + c] = y;
-      ly[r * ldc + c] = leaky(y);
-    }, RT);
-    // z rebuilt, then its softmax in place, then dz in place
-    __syncthreads();
-    tile_product<false>(ly, ldc, w2, C, C, [&](int r, int c, float v) {
-      dz[r * ldc + c] = v + b2[c];
-    }, RT);
-    __syncthreads();
-    // dz, one thread per row
-    if (tid < RT) {
-      float* dr = dz + tid * ldc;
-      if (tid < rows) {
-        const long m = m0 + tid;
-        row_softmax(dr, C);
-        row_dz(dr, C, target_of(a, m), valid_row(a, m) ? dloss : 0.f,
-               a.parity, dr);
+  float gw1[4][4], gw2[4][4], cs1[8][2], cs2[8][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gw1[j][e] = gw2[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    cs1[j][0] = cs1[j][1] = cs2[j][0] = cs2[j][1] = 0.f;
+  if (lo < hi) stage_skip<kBwdRows, kThreads>(sk0, a.skip, lo, hi, tid);
+  cp_async_commit();
+  int it = 0;
+  for (long t0 = lo; t0 < hi; t0 += kBwdRows, ++it) {
+    const bf16_t* cur = it & 1 ? sk1 : sk0;
+    cp_async_wait<0>();
+    __syncthreads();   // this tile (and the weights) in; the last tile's
+                       // weight gradients done
+    if (t0 + kBwdRows < hi)
+      stage_skip<kBwdRows, kThreads>(it & 1 ? sk0 : sk1, a.skip,
+                                     t0 + kBwdRows, hi, tid);
+    cp_async_commit();
+    const int s0 = 16 * warp;
+    const long m0 = t0 + s0, r0 = m0 + g;
+    if (m0 < hi) {
+      const bf16_t* sk = cur + s0 * kPLdh;
+      float y[8][4], d[8][4];
+      packed_y(sk, w1s, b1s, y);
+      // y near zero formed again in the plain version's order (kTieMargin)
+      float ymax[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ymax[e >> 1] = fmaxf(ymax[e >> 1], fabsf(y[j][e]));
+      unsigned near = 0u;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ymax[h] = fmaxf(ymax[h], __shfl_xor_sync(0xffffffffu, ymax[h], 1));
+        ymax[h] = fmaxf(ymax[h], __shfl_xor_sync(0xffffffffu, ymax[h], 2));
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool n = fabsf(y[j][e]) <= kTieMargin * (1.f + ymax[e >> 1]);
+          near |= (n ? 1u : 0u) << (4 * j + e);
+        }
+      while (near) {
+        const int i = __ffs(near) - 1;
+        near &= near - 1;
+        const float v = exact_y(sk + (g + 8 * ((i & 3) >> 1)) * kPLdh, w1s,
+                                b1s, 8 * (i >> 2) + 2 * q + (i & 1));
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (4 * j + e == i) y[j][e] = v;
+      }
+      // y > 0 as bit 4 j + e (n tile j, element e); leaky(y) to lyt
+      unsigned ypos = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ypos |= (y[j][e] > 0.f ? 1u : 0u) << (4 * j + e);
+          y[j][e] = leaky(y[j][e]);
+        }
+        float* p = lyt + (s0 + g) * kPLd + 8 * j + 2 * q;
+        *reinterpret_cast<float2*>(p) = make_float2(y[j][0], y[j][1]);
+        *reinterpret_cast<float2*>(p + 8 * kPLd) =
+            make_float2(y[j][2], y[j][3]);
+      }
+      __syncwarp();
+      // each product's A from the warp's rows of the tiles: fewer
+      // registers than from the last product's fragments
+      rows_product<false, kPassZ.a, kPassZ.b>(lyt + s0 * kPLd, w2s, d);
+      // dz from the softmax of z, per row in a quad
+      int tg[2];
+      float sc[2], mx[2] = {-INFINITY, -INFINITY};
+      tg[0] = r0 < hi ? target_of(a, r0) : -1;
+      tg[1] = r0 + 8 < hi ? target_of(a, r0 + 8) : -1;
+      sc[0] = r0 < hi && valid_row(a, r0) ? dloss : 0.f;
+      sc[1] = r0 + 8 < hi && valid_row(a, r0 + 8) ? dloss : 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = d[j][e] + b2s[8 * j + 2 * q + (e & 1)];
+          d[j][e] = v;
+          mx[e >> 1] = fmaxf(mx[e >> 1], v);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      }
+      float es[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = expf(d[j][e] - mx[e >> 1]);
+          d[j][e] = v;
+          es[e >> 1] += v;
+        }
+      const float inv[2] = {1.f / quad_sum(es[0]), 1.f / quad_sum(es[1])};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[j][e] *= inv[e >> 1];   // p
+      if (a.parity) {
+        // g = softmax(p) - onehot, dz = p g - p (p.g); exp(p) in y
+        float ep[2] = {0.f, 0.f}, pg[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            y[j][e] = expf(d[j][e]);
+            ep[e >> 1] += y[j][e];
+          }
+        const float inv2[2] = {1.f / quad_sum(ep[0]),
+                               1.f / quad_sum(ep[1])};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+            y[j][e] = y[j][e] * inv2[h] - (col == tg[h] ? 1.f : 0.f);
+            pg[h] += d[j][e] * y[j][e];
+          }
+        pg[0] = quad_sum(pg[0]);
+        pg[1] = quad_sum(pg[1]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            d[j][e] = (d[j][e] * y[j][e] - d[j][e] * pg[h]) * sc[h];
+          }
       } else {
-        for (int c = 0; c < C; ++c) dr[c] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+            d[j][e] = (d[j][e] - (col == tg[h] ? 1.f : 0.f)) * sc[h];
+          }
+      }
+      // dz: column sums, dzt
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cs2[j][0] += d[j][0] + d[j][2];
+        cs2[j][1] += d[j][1] + d[j][3];
+        float* p = dzt + (s0 + g) * kPLd + 8 * j + 2 * q;
+        *reinterpret_cast<float2*>(p) = make_float2(d[j][0], d[j][1]);
+        *reinterpret_cast<float2*>(p + 8 * kPLd) =
+            make_float2(d[j][2], d[j][3]);
+      }
+      // dy = dz W2^T * dleaky(y) into y: column sums, dyt
+      __syncwarp();
+      rows_product<true, kPassDy.a, kPassDy.b>(dzt + s0 * kPLd, w2s, y);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[j][e] *= (ypos >> (4 * j + e)) & 1u ? 1.f : 0.01f;
+        cs1[j][0] += y[j][0] + y[j][2];
+        cs1[j][1] += y[j][1] + y[j][3];
+        float* p = dyt + (s0 + g) * kPLd + 8 * j + 2 * q;
+        *reinterpret_cast<float2*>(p) = make_float2(y[j][0], y[j][1]);
+        *reinterpret_cast<float2*>(p + 8 * kPLd) =
+            make_float2(y[j][2], y[j][3]);
+      }
+      // dskip = dy W1^T * dleaky(skip) into d (leaky(skip) and skip have
+      // the same sign), rounded to bf16 through the warp's rows of stg,
+      // then 16 bytes a lane
+      __syncwarp();
+      rows_product<true, kPassDskip.a, kPassDskip.b>(dyt + s0 * kPLd, w1s,
+                                                     d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * q;
+        const unsigned s0v = ld32(sk + g * kPLdh + col);
+        const unsigned s1v = ld32(sk + (g + 8) * kPLdh + col);
+        st32(stg + g * kPLdh + col, pack2(d[j][0] * dleaky_bits(s0v),
+                                          d[j][1] * dleaky_bits(s0v >> 16)));
+        st32(stg + (g + 8) * kPLdh + col,
+             pack2(d[j][2] * dleaky_bits(s1v),
+                   d[j][3] * dleaky_bits(s1v >> 16)));
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = lane + 32 * i, row = c >> 3, c8 = 8 * (c & 7);
+        if (m0 + row < hi)
+          *reinterpret_cast<uint4*>(a.dskip + (m0 + row) * kP + c8) =
+              *reinterpret_cast<const uint4*>(stg + row * kPLdh + c8);
+      }
+      __syncwarp();
+    } else {
+      // past the rows: dz and dy zero (leaky(skip) is zero there too)
+      for (int i = lane; i < 16 * kP / 4; i += 32) {
+        const int row = s0 + i / (kP / 4), c4 = 4 * (i % (kP / 4));
+        *reinterpret_cast<float4*>(dzt + row * kPLd + c4) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dyt + row * kPLd + c4) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
     __syncthreads();
-    // db2 (one thread per column)
-    if (tid < C)
-      for (int r = 0; r < rows; ++r) gb2 += dz[r * ldc + tid];
-    tile_wgrad(ly, ldc, dz, ldc, C, C, rows, gw2);
-    tile_product<false>(dz, ldc, w2t, C, C, [&](int r, int c, float v) {
-      dy[r * ldc + c] = v * dleaky(ys[r * ldc + c]);
-    }, RT);
-    __syncthreads();
-    // db1 the same way, on the threads after db2's where there are enough
-    const int c1 = 2 * C <= kThreads ? tid - C : tid;
-    if (c1 >= 0 && c1 < C)
-      for (int r = 0; r < rows; ++r) gb1 += dy[r * ldc + c1];
-    tile_wgrad(lsk, lds, dy, ldc, S, C, rows, gw1);
-    tile_product<false>(dy, ldc, w1t, C, S, [&](int r, int k, float v) {
-      // leaky(skip) and skip have the same sign
-      if (r < rows)
-        a.dskip[(m0 + r) * S + k] = f2bf(v * dleaky(lsk[r * lds + k]));
-    }, RT);
+    // the warp's slices: dW2 rows 16 mw (leaky(y) columns), dW1 rows 16 mw
+    // (skip columns), columns 32 nw, over the tile's rows in k steps of 8
+#pragma unroll 2
+    for (int k0 = 0; k0 < kBwdRows; k0 += 8) {
+      Frag<4> fa;
+      load_a_kmajor<kPassDw2.a>(lyt + k0 * kPLd + 16 * mw, kPLd, fa);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Frag<2> fb;
+        load_b_kmajor(dzt + k0 * kPLd + 32 * nw + 8 * j, kPLd, fb);
+        mma_passes<kPassDw2.a, kPassDw2.b>(gw2[j], fa, fb);
+      }
+      a_skip_rows<kPassDw1.a>(cur + k0 * kPLdh + 16 * mw, fa);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Frag<2> fb;
+        load_b_kmajor(dyt + k0 * kPLd + 32 * nw + 8 * j, kPLd, fb);
+        mma_passes<kPassDw1.a, kPassDw1.b>(gw1[j], fa, fb);
+      }
+    }
   }
+  // the bias sums: a shuffle tree over g, then the warps' rows (in lyt)
+  // added in warp order
+  __syncthreads();
+  float* cs = lyt;   // (kWarps, 2, kP): db2, db1
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v2 = cs2[j][e], v1 = cs1[j][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+      }
+      if (g == 0) {
+        cs[warp * 2 * kP + 8 * j + 2 * q + e] = v2;
+        cs[warp * 2 * kP + kP + 8 * j + 2 * q + e] = v1;
+      }
+    }
   __syncthreads();
   // partial: dw1 (S*C) | db1 (C) | dw2 (C*C) | db2 (C)
-  float* out = a.part + static_cast<long>(blockIdx.x) * (S * C + C * C + 2 * C);
-  for (int i = tid; i < S * C; i += kThreads) out[i] = gw1[i];
-  for (int i = tid; i < C * C; i += kThreads) out[S * C + C + i] = gw2[i];
-  if (tid < C) out[S * C + C + C * C + tid] = gb2;
-  const int c1 = 2 * C <= kThreads ? tid - C : tid;
-  if (c1 >= 0 && c1 < C) out[S * C + c1] = gb1;
+  float* out = a.part + blockIdx.x * a.n_el;
+  if (tid < 2 * kP) {
+    const int c = tid % kP, which = tid / kP;   // 0: db2, 1: db1
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += cs[w * 2 * kP + which * kP + c];
+    out[which ? kP * kP + c : 2 * kP * kP + kP + c] = s;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 16 * mw + g + 8 * (e >> 1);
+      const int n = 32 * nw + 8 * j + 2 * q + (e & 1);
+      out[i * kP + n] = gw1[j][e];
+      out[kP * kP + kP + i * kP + n] = gw2[j][e];
+    }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -1048,12 +1637,17 @@ size_t bwd_smem(int s, int c) {
   return 2 * (cp * (sp + 8) + sp * (cp + 8) + cp * (cp + 8)) +
          4 * (cp + kWarps * 2 * cp) + 2 * kWarps * 16 * kBufLd;
 }
-// Shared memory of the packed kernels (S = C = 64, 64-row tiles): the
-// tiles, biases, weights and (backward) weight-gradient sums.
-size_t packed_smem(int s, int c, bool bwd) {
-  const size_t sc = static_cast<size_t>(s) * c, cc = static_cast<size_t>(c) * c;
-  const size_t tiles = kMaxRows * (s + 4) + (bwd ? 4 : 2) * kMaxRows * (c + 4);
-  return (tiles + 2 * c + (bwd ? 3 * (sc + cc) : sc + cc)) * 4;
+// Shared memory of the packed kernels (S = C = 64; see their layouts):
+// the weights and biases, then the forward's block sums, per-warp scratch
+// and two skip slabs a warp, or the backward's ly, dz and dy tiles, two
+// skip tiles and per-warp dskip rows.
+size_t packed_smem(bool bwd) {
+  const size_t common = (2 * kP * kPLd + 2 * kP) * 4;
+  if (bwd)
+    return common + 3 * kBwdRows * kPLd * 4 +
+           (2 * kBwdRows + 16 * kWarps) * kPLdh * 2;
+  return common + (2 * kThreads + kWarps * kP) * 4 +
+         kWarps * 2 * 16 * kPLdh * 2;
 }
 
 int set_smem(const void* fn, size_t bytes) {
@@ -1147,6 +1741,12 @@ int movenet_head_supports(int s, int c) {
          bwd_smem(s, c) <= kSmemLimit;
 }
 
+// Dynamic shared memory a block of the packed forward (bwd = 0) or
+// backward (bwd = 1) takes
+long movenet_head_packed_smem(int bwd) {
+  return static_cast<long>(packed_smem(bwd != 0));
+}
+
 // bf16 elements of the backward's scratch (ly, dz_r, dy_r) over m rows
 long movenet_head_inter(int s, int c, long m) {
   (void)s;
@@ -1167,12 +1767,10 @@ int movenet_head_fwd(const bf16_t* skip, const int* pack, int pack_cols,
     return static_cast<int>(cudaErrorInvalidValue);
   const long m = static_cast<long>(batch) * t_len;
   HeadArgs a = make_args(skip, pack, pack_cols, tgt_off, w1, b1, w2, b2, m,
-                         blocks, packed ? kMaxRows : 16, t_len, s, c, rf,
-                         parity, part);
+                         blocks, 16, t_len, s, c, rf, parity, part);
   int err;
   if (packed) {
-    err = launch(head_fwd_packed_kernel, a, packed_smem(s, c, false), blocks,
-                 st);
+    err = launch(head_fwd_packed_kernel, a, packed_smem(false), blocks, st);
   } else {
     a.p_out = p_out;
     err = dispatch(a.sp, a.cp, FwdLaunch{a, blocks, st});
@@ -1199,14 +1797,13 @@ int movenet_head_bwd(const bf16_t* skip, const int* pack, int pack_cols,
     return static_cast<int>(cudaErrorInvalidValue);
   const long m = static_cast<long>(batch) * t_len;
   HeadArgs a = make_args(skip, pack, pack_cols, tgt_off, w1, b1, w2, b2, m,
-                         blocks, packed ? kMaxRows : 16, t_len, s, c, rf,
+                         blocks, packed ? kBwdRows : 16, t_len, s, c, rf,
                          parity, part);
   a.dloss = dloss;
   a.dskip = dskip;
   int err;
   if (packed) {
-    err = launch(head_bwd_packed_kernel, a, packed_smem(s, c, true), blocks,
-                 st);
+    err = launch(head_bwd_packed_kernel, a, packed_smem(true), blocks, st);
   } else {
     a.p_in = p_in;
     a.ly = inter;

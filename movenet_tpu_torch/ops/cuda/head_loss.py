@@ -52,6 +52,8 @@ def bind(lib):
     lib.movenet_head_supports.restype = _I
     lib.movenet_head_inter.argtypes = [_I, _I, ctypes.c_long]
     lib.movenet_head_inter.restype = ctypes.c_long
+    lib.movenet_head_packed_smem.argtypes = [_I]
+    lib.movenet_head_packed_smem.restype = ctypes.c_long
     lib.movenet_head_fwd.argtypes = [_P, _P, _I, _I] + [_P] * 7 + [_I] * 8 \
         + [_P]
     lib.movenet_head_fwd.restype = _I

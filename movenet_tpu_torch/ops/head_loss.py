@@ -35,6 +35,20 @@ f32 = torch.float32
 # calls that JAX sends to its packed kernels take the packed route here.
 PACKED_HEAD = False
 
+# (split A, split B) of each product of the packed kernels
+# (csrc/head_loss.cu kPass*, split-TF32 mma.sync as
+# ops/stack_kernel.tf32_split_matmul models it).  Every operand is float32
+# and none is exact in TF32: W1 and W2, leaky(skip) (0.01 x where the
+# bf16 skip is negative), leaky(y), dz and dy; so three passes each.
+PACKED_SPLIT_PASSES = {
+    "y": (True, True),        # leaky(skip) W1
+    "z": (True, True),        # leaky(y) W2
+    "dy": (True, True),       # dz W2^T
+    "dskip": (True, True),    # dy W1^T
+    "dw2": (True, True),      # leaky(y)^T dz
+    "dw1": (True, True),      # leaky(skip)^T dy
+}
+
 
 def _pick_tile(t: int, d: int, cap: int = 4000) -> int:
     """The JAX package's tile rule (gated_block.py:42-53): the largest
@@ -279,6 +293,6 @@ def fused_head_loss(skip_sum, targets_pack, w1, b1, w2, b2, rf: int,
                                 rf, parity, tgt_off)
 
 
-__all__ = ["PACKED_HEAD", "head_fwd_plain", "head_bwd_plain",
-           "head_fwd_packed_plain", "head_bwd_packed_plain",
-           "fused_head_loss"]
+__all__ = ["PACKED_HEAD", "PACKED_SPLIT_PASSES", "head_fwd_plain",
+           "head_bwd_plain", "head_fwd_packed_plain",
+           "head_bwd_packed_plain", "fused_head_loss"]

@@ -1,9 +1,12 @@
-"""Device time of the unpacked head/CE kernels (``head_fwd``,
-``head_bwd``) at the training shapes, optionally against another copy of
-the kernel source on the same card.
+"""Device time of the head/CE kernels (``head_fwd``, ``head_bwd``; with
+``--packed`` ``head_fwd_packed``, ``head_bwd_packed``) at the training
+shapes, optionally against another copy of the kernel source on the same
+card.
 
     python -m movenet_tpu_torch.utils.time_head [--parent DIR]
         [--shapes 64,64,2,8,128,3,...] [--repeats 5] [--variants]
+    python -m movenet_tpu_torch.utils.time_head --packed [--parent DIR]
+        [--repeats 5] [--variants]
     python -m movenet_tpu_torch.utils.time_head --sass
 
 Shapes (S, C, B), T = 160,000, bf16, parity CE, targets in the codes
@@ -21,6 +24,13 @@ printed (the backward of each side takes the forward's p of this
 checkout).  With ``--variants``, diagnostic builds of this checkout's
 source, each with one part of the kernels left out (VARIANTS), are
 timed beside it; their outputs are wrong by design and are not compared.
+``--packed`` times the packed kernels instead, at the breakdancing head
+(S = C = 64, B = 2, T = 160,000; targets exactly B wide), parity CE and
+clean, in the same turns against ``--parent`` with each output's
+difference over its scale, beside this checkout's unpacked pair on the
+same inputs; it prints each side's registers, spills and dynamic shared
+memory a block of the two packed kernels, and with ``--variants`` times
+PACKED_VARIANTS (parts of the packed kernels left out or changed).
 ``--sass`` prints, for each kernel of the built library, its SASS
 instruction count and the count of each kind that shows where its work
 runs (HMMA: tensor cores; FFMA: float32 fused multiply-adds; LDS, STS,
@@ -33,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -62,6 +73,24 @@ VARIANTS = {
                           ("store_a(a.dzr,", "if (0) store_a(a.dzr,"),
                           ("store_a(a.dyr,", "if (0) store_a(a.dyr,")),
 }
+# diagnostic edits of the packed kernels, as VARIANTS
+PACKED_VARIANTS = {
+    "no_mma": (("  if (SA) mma_tf32(d, a.small, b.big);\n"
+                "  if (SB) mma_tf32(d, a.big, b.small);\n"
+                "  mma_tf32(d, a.big, b.big);\n", ""),),
+    "one_pass": tuple((f"constexpr Passes kPass{n} = {{true, true}};",
+                       f"constexpr Passes kPass{n} = {{false, false}};")
+                      for n in ("Y", "Z", "Dy", "Dskip", "Dw2", "Dw1")),
+    "no_ties": (("constexpr float kTieMargin = 1.f / 16384.f;",
+                 "constexpr float kTieMargin = -1.f;"),),
+    "all_ties": (("constexpr float kTieMargin = 1.f / 16384.f;",
+                  "constexpr float kTieMargin = 1e30f;"),),
+    "no_wgrad": (("for (int k0 = 0; k0 < kBwdRows; k0 += 8) {",
+                  "for (int k0 = 0; k0 < 0; k0 += 8) {"),),
+}
+PACKED_GRIDS = (("forward", "head_fwd_packed_kernel"),
+                ("backward", "head_bwd_packed_kernel"),
+                ("reductions", "reduce_kernel"))
 GRIDS = (("forward", "head_fwd_kernel"), ("backward rows",
                                           "head_bwd_kernel"),
          ("weight gradients", "head_wgrad_kernel"),
@@ -100,9 +129,9 @@ def sass_report() -> None:
             f"{k} {v}" for k, v in counts.items() if v), flush=True)
 
 
-def variant_kernels():
-    """{name: bound library} of this checkout's source with each of
-    VARIANTS, compiled in parallel."""
+def variant_kernels(table=VARIANTS):
+    """{name: bound library} of this checkout's source with each variant
+    of ``table`` (VARIANTS or PACKED_VARIANTS), compiled in parallel."""
     from movenet_tpu_torch.ops.cuda import build
     from movenet_tpu_torch.ops.cuda import head_loss as kh
 
@@ -110,15 +139,42 @@ def variant_kernels():
 
     def one(name):
         text = base
-        for old, new in VARIANTS[name]:
+        for old, new in table[name]:
             if old not in text:
                 raise RuntimeError(f"variant {name}: its edit does not apply")
             text = text.replace(old, new)
         return kh.bind(ctypes.CDLL(str(compile_source(
             text, build.CSRC, "variants", "head_loss"))))
 
-    with ThreadPoolExecutor(len(VARIANTS)) as ex:
-        return dict(zip(VARIANTS, ex.map(one, VARIANTS)))
+    with ThreadPoolExecutor(len(table)) as ex:
+        return dict(zip(table, ex.map(one, table)))
+
+
+def packed_resources(log: Path, lib) -> str:
+    """ptxas' registers and spills of the two packed kernels from an nvcc
+    log, and their dynamic shared memory a block where ``lib`` reports
+    it."""
+    text = log.read_text() if log.is_file() else ""
+    out = []
+    for bwd, kernel in enumerate(("head_fwd_packed_kernel",
+                                  "head_bwd_packed_kernel")):
+        m = re.search(r"Compiling entry function '\S*" + kernel
+                      + r"\S*'(.*?)(?=Compiling entry function|\Z)", text,
+                      re.S)
+        info = "; ".join(
+            line.split("info    :")[-1].strip()
+            for line in m.group(1).splitlines()
+            if "registers" in line or "spill" in line) if m else \
+            "not in the nvcc log"
+        try:
+            fn = lib.movenet_head_packed_smem
+        except AttributeError:
+            smem = "dynamic shared memory not reported by this source"
+        else:
+            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_long
+            smem = f"{fn(bwd)} bytes of dynamic shared memory a block"
+        out.append(f"{kernel}: {info}; {smem}")
+    return "; ".join(out)
 
 
 def inputs(torch, s: int, c: int, b: int):
@@ -189,6 +245,86 @@ def time_shape(torch, sides, s, c, b, repeats, card, variants) -> None:
     del p, bargs, fns
 
 
+def time_packed(torch, parent, repeats, card, variants) -> None:
+    """Print head_fwd_packed's and head_bwd_packed's times at the
+    breakdancing head, parity CE and clean, against ``parent``'s source
+    in turns when given; each side's registers and shared memory; this
+    checkout's unpacked pair on the same inputs; and PACKED_VARIANTS."""
+    from movenet_tpu_torch.ops.cuda import build
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+
+    this = compile_source((build.CSRC / "head_loss.cu").read_text(),
+                          build.CSRC, "this", "head_loss")
+    sides = {"this": (kh.bind(ctypes.CDLL(str(this))), kh)}
+    logs = {"this": this.with_suffix(".log")}
+    if parent:
+        pkg = parent / "movenet_tpu_torch"
+        sides["parent"] = parent_kernels(parent)
+        logs["parent"] = compile_source(
+            (pkg / "csrc" / "head_loss.cu").read_text(), pkg / "csrc",
+            "parent", "head_loss").with_suffix(".log")
+    for side, (slib, _) in sides.items():
+        print(f"packed {side}: {packed_resources(logs[side], slib)}",
+              flush=True)
+    vlibs = variant_kernels(PACKED_VARIANTS) if variants else {}
+    s, c, b = 64, 64, 2
+    skip, pack, w1, b1, w2, b2 = inputs(torch, s, c, b)[:6]
+    tgt = pack[:, 2 * b:].contiguous()
+    st = kh._stream(skip)
+    dloss = torch.tensor(1.0 / (b * (T - RF)), device="cuda")
+    w = (w1, b1, w2, b2)
+    shape = f"S={s} C={c} B={b} T={T}"
+    for parity in (True, False):
+        fns = {"head_fwd_packed": {}, "head_bwd_packed": {}}
+        for side, (slib, smod) in sides.items():
+            fns["head_fwd_packed"][side] = (
+                lambda slib=slib, smod=smod: smod.run_fwd(
+                    slib, skip, tgt, *w, RF, parity, 0, False, st,
+                    packed=True))
+            fns["head_bwd_packed"][side] = (
+                lambda slib=slib, smod=smod: smod.run_bwd(
+                    slib, skip, tgt, None, *w, RF, parity, dloss, 0, st))
+        names = {"head_fwd_packed": ("loss", "match", "p"),
+                 "head_bwd_packed": ("dskip", "dw1", "db1", "dw2", "db2")}
+        for kind, by_side in fns.items():
+            order = ("parent", "this", "this", "parent") \
+                if len(by_side) > 1 else ("this",)
+            ms = {}
+            for side in order:
+                ms.setdefault(side, []).append(
+                    events_ms(torch, by_side[side], repeats))
+            line = f"{kind} parity={parity} {shape}: " + "; ".join(
+                f"{side} " + ", ".join(f"{v:.3f}" for v in vals) + " ms"
+                for side, vals in ms.items())
+            if len(by_side) > 1:
+                line += "; " + diff_text(names[kind], by_side["this"](),
+                                         by_side["parent"]())
+            grids = by_grid(torch, by_side["this"], PACKED_GRIDS)
+            line += "; by grid " + ", ".join(
+                f"{k} {v:.3f}" for k, v in grids.items() if v > 0)
+            print(f"{line}; {card}", flush=True)
+        for vname, vlib in vlibs.items():
+            fwd = events_ms(torch, lambda: kh.run_fwd(
+                vlib, skip, tgt, *w, RF, parity, 0, False, st, packed=True),
+                repeats)
+            bwd = events_ms(torch, lambda: kh.run_bwd(
+                vlib, skip, tgt, None, *w, RF, parity, dloss, 0, st),
+                repeats)
+            print(f"variant {vname} parity={parity} {shape}: "
+                  f"head_fwd_packed {fwd:.3f} ms, head_bwd_packed "
+                  f"{bwd:.3f} ms; {card}", flush=True)
+    # the unpacked pair on the same inputs (targets from column 0)
+    lib = sides["this"][0]
+    fwd = events_ms(torch, lambda: kh.run_fwd(lib, skip, tgt, *w, RF, True,
+                                              0, True, st), repeats)
+    p = kh.run_fwd(lib, skip, tgt, *w, RF, True, 0, True, st)[2]
+    bwd = events_ms(torch, lambda: kh.run_bwd(lib, skip, tgt, p, *w, RF,
+                                              True, dloss, 0, st), repeats)
+    print(f"unpacked pair parity=True {shape}: head_fwd {fwd:.3f} ms, "
+          f"head_bwd {bwd:.3f} ms, together {fwd + bwd:.3f} ms; {card}",
+          flush=True)
+
+
 def main(argv=None) -> None:
     import torch
 
@@ -201,6 +337,7 @@ def main(argv=None) -> None:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--packed", action="store_true")
     args = ap.parse_args(argv)
     if args.sass:
         sass_report()
@@ -212,6 +349,9 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
+    if args.packed:
+        time_packed(torch, args.parent, args.repeats, card, args.variants)
+        return
     sides = {"this": (kh.library(), kh)}
     if args.parent:
         sides["parent"] = parent_kernels(args.parent)

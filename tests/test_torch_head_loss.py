@@ -16,7 +16,9 @@ targets exactly B wide at tgt_off 0) is held to the same tolerances,
 with the match count equal: both packages compute it from float32
 operands; the loss differs only by JAX's sum over group-replicated
 values times 1/64.  The head at C = 128 and C = 256 is held to the
-unpacked tolerances."""
+unpacked tolerances.  A CPU model of the packed kernels' split-TF32
+products (``tf32_split_matmul`` at ``PACKED_SPLIT_PASSES``) is held to
+the plain packed functions at the cuda tests' tolerances."""
 
 import numpy as np
 import pytest
@@ -109,6 +111,97 @@ def test_packed_head_matches_jax(parity, dtype, monkeypatch):
             seen.append(_n), _r(*x, **k))[1])
     _compare(tgt, a, parity, dtype, 0, match_equal=True)
     assert seen == ["head_fwd_packed", "head_bwd_packed"]
+
+
+def _tie_margin() -> float:
+    """The packed kernels' ``kTieMargin`` (csrc/head_loss.cu)."""
+    import re
+
+    from movenet_tpu_torch.ops.cuda import build
+
+    text = (build.CSRC / "head_loss.cu").read_text()
+    return 1 / float(re.search(
+        r"constexpr float kTieMargin = 1\.f / (\d+)\.f;", text).group(1))
+
+
+def _packed_model(skip, tgt, w1, b1, w2, b2, rf, parity, dloss):
+    """The packed kernels' arithmetic (csrc/head_loss.cu) on the CPU: the
+    plain packed functions with each product replaced by
+    ``tf32_split_matmul`` at ``PACKED_SPLIT_PASSES``, and, as there, y
+    near zero and the argmax of near-tied rows taken from the plain
+    version's float32 order (``kTieMargin``).  Returns ((loss, match),
+    (dskip, dw1, db1, dw2, db2))."""
+    from movenet_tpu_torch.ops import stack_kernel as sk
+
+    def mm(name, a, b):
+        return sk.tf32_split_matmul(a, b, *hl.PACKED_SPLIT_PASSES[name])
+
+    batch, t, s = skip.shape
+    c = w2.shape[1]
+    margin = _tie_margin()
+    lsk = hl._leaky(skip.float()).reshape(-1, s)     # rows b T + t
+    tg = tgt.t().reshape(-1).long()
+    valid = hl._valid(t, rf, skip.device).repeat(batch)
+    y_plain = torch.matmul(lsk, w1) + b1
+    y = mm("y", lsk, w1) + b1
+    near = y.abs() <= margin * (1 + y.abs().max(dim=-1, keepdim=True).values)
+    y = torch.where(near, y_plain, y)
+    ly = hl._leaky(y)
+    z = mm("z", ly, w2) + b2
+    onehot = torch.nn.functional.one_hot(tg, c).float()
+    zmax = z.max(dim=-1, keepdim=True).values
+    e = torch.exp(z - zmax)
+    p = e / e.sum(dim=-1, keepdim=True)
+    loss = (hl._nll_rows(z, p, onehot, parity, zmax) * valid).sum()
+    top = z.topk(2, dim=-1).values
+    tie = top[:, 0] - top[:, 1] <= margin * (1 + top[:, 0].abs())
+    z_plain = torch.matmul(hl._leaky(y_plain), w2) + b2
+    match = torch.where(
+        tie, hl._match_rows(z_plain, tg,
+                            z_plain.max(dim=-1, keepdim=True).values),
+        hl._match_rows(z, tg, zmax))
+    match = (match * valid).sum()
+    scale = dloss * valid[:, None]
+    if parity:
+        ep = torch.exp(p)
+        g = ep / ep.sum(dim=-1, keepdim=True) - onehot
+        dz = (p * g - p * (p * g).sum(dim=-1, keepdim=True)) * scale
+    else:
+        dz = (p - onehot) * scale
+    dy = mm("dy", dz, w2.t()) * hl._dleaky(y)
+    dskip = mm("dskip", dy, w1.t()) * hl._dleaky(lsk)
+    grads = (dskip.to(skip.dtype).reshape(skip.shape),
+             mm("dw1", lsk.t(), dy), dy.sum(dim=0),
+             mm("dw2", ly.t(), dz), dz.sum(dim=0))
+    return (loss, match), grads
+
+
+@pytest.mark.parametrize("t", [4000, 1282])
+@pytest.mark.parametrize("parity", [True, False])
+def test_packed_kernel_model_matches_plain(t, parity):
+    """The split-TF32 model of the packed kernels against
+    head_fwd_packed_plain / head_bwd_packed_plain at the tolerances the
+    cuda tests hold the kernels to: loss rtol 1e-5, match within one
+    position, gradients within 1e-4 of their scale, dskip (bf16) 1e-2."""
+    rng = np.random.default_rng(t)
+    rf, f = 24, np.float32
+    codes = rng.integers(0, 64, size=(B, t)).astype(np.int32)
+    tgt = torch.from_numpy(np.ascontiguousarray(np.roll(codes, -1, 1).T))
+    skip = torch.from_numpy(rng.standard_normal((B, t, 64)).astype(f)).to(
+        torch.bfloat16)
+    w = [torch.from_numpy(x.astype(f)) for x in (
+        rng.standard_normal((64, 64)) / 4, rng.standard_normal(64) * 0.1,
+        rng.standard_normal((64, 64)) / 3, rng.standard_normal(64) * 0.1)]
+    dloss = torch.tensor(1.0 / (B * (t - rf)))
+    (loss, match), got = _packed_model(skip, tgt, *w, rf, parity, dloss)
+    wl, wm = hl.head_fwd_packed_plain(skip, tgt, *w, rf, parity)
+    np.testing.assert_allclose(float(loss), float(wl), rtol=1e-5)
+    assert abs(float(match) - float(wm)) <= 1
+    want = hl.head_bwd_packed_plain(skip, tgt, *w, rf, parity, dloss)
+    for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"), got, want):
+        x, y = x.float().numpy(), y.float().numpy()
+        tol = (1e-2 if name == "dskip" else 1e-4) * np.abs(y).max()
+        np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
 
 
 @pytest.mark.parametrize("t,s,c", [(512, 64, 64), (1024, 64, 64),
@@ -225,3 +318,48 @@ def test_time_head_variant_edits_apply():
     for name, edits in VARIANTS.items():
         for old, _ in edits:
             assert old in text, name
+
+
+def test_time_head_packed_flag_and_variant_edits_apply(monkeypatch):
+    """``time_head --packed`` parses its flags (here it stops only for
+    want of a card), and each edit of its PACKED_VARIANTS finds its text
+    exactly once in ``csrc/head_loss.cu``."""
+    from movenet_tpu_torch.ops.cuda import build
+    from movenet_tpu_torch.utils import time_head
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        time_head.main(["--packed", "--parent", "build/parent",
+                        "--variants", "--repeats", "3"])
+    text = (build.CSRC / "head_loss.cu").read_text()
+    for name, edits in time_head.PACKED_VARIANTS.items():
+        for old, _ in edits:
+            assert text.count(old) == 1, name
+
+
+@pytest.mark.parametrize("name", ["y", "z"])
+def test_tie_margin_covers_the_split_error(name):
+    """The packed kernels' ``kTieMargin`` (csrc/head_loss.cu) is at least
+    16 times the largest gap, over (1 + the row's largest magnitude),
+    between y (z) from the split-TF32 products and the plain version's
+    float32 y (z) on 32,000 rows at the packed head's widths: outside the
+    margin the sign of y and the argmax of z are the plain version's."""
+    from movenet_tpu_torch.ops import stack_kernel as sk
+
+    rng = np.random.default_rng(5)
+    f = np.float32
+    skip = torch.from_numpy(rng.standard_normal((32000, 64)).astype(f)).to(
+        torch.bfloat16).float()
+    w1, w2 = (torch.from_numpy((rng.standard_normal((64, 64)) / d)
+                               .astype(f)) for d in (4, 3))
+    b1, b2 = (torch.from_numpy((rng.standard_normal(64) * 0.1).astype(f))
+              for _ in range(2))
+    passes = hl.PACKED_SPLIT_PASSES
+    y = sk.tf32_split_matmul(hl._leaky(skip), w1, *passes["y"]) + b1
+    z = sk.tf32_split_matmul(hl._leaky(y), w2, *passes["z"]) + b2
+    y_plain = torch.matmul(hl._leaky(skip), w1) + b1
+    got, want = {"y": (y, y_plain), "z": (
+        z, torch.matmul(hl._leaky(y_plain), w2) + b2)}[name]
+    top = want.abs().max(dim=-1).values
+    gap = float(((got - want).abs().max(dim=-1).values / (1 + top)).max())
+    assert 16 * gap <= _tie_margin(), gap

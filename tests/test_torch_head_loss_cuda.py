@@ -16,9 +16,11 @@ row more bf16 operands of dy land one rounding step from the plain
 version's (measured on the H100: two of 4096 elements of dW1 at 1.8e-4
 of the scale, at S=16, C=256).  (12, 132) is a width that is not a
 multiple of 16: the kernels pad it with zeros in shared memory.  Two
-calls give the same bits (fixed-order sums, no atomics); the packed
-kernels and the merged trunk + head kernels keep the bits of the source
-before the unpacked kernels moved to the tensor cores (digests)."""
+calls give the same bits (fixed-order sums, no atomics), packed kernels
+too; the merged trunk + head kernels keep the bits of the source before
+the packed kernels moved to the tensor cores (digests).  The packed
+kernels (split-TF32 tensor cores since then) hold the plain versions'
+tolerances above."""
 
 import hashlib
 
@@ -145,15 +147,17 @@ def test_head_supports_as_before(cuda):
             assert bool(lib.movenet_head_supports(s, c)) == old, (s, c)
 
 
-def _head_digests(kmod, klib, smod, slib):
-    """(forward, backward) sha256 digests on inputs made with numpy from
-    fixed seeds: the merged trunk + head forward's outputs; and those of
-    the packed head kernels (both CE forms) and the merged backward, on
-    saved tensors (hsave, tfsg, skip) drawn with numpy too, so that the
-    second does not move with the forward kernel."""
+def _digest_inputs():
+    """The inputs of the bit-keeping checks, made with numpy from fixed
+    seeds: the packed head's (skip, targets, weights; drawn first, as when
+    the digests also covered the packed kernels, so that the merged
+    kernels' inputs are those of before) and the merged trunk + head
+    kernels' (x, ctx, trunk and head weights, targets; and hsave, tfsg
+    and skip saved for the backward, drawn with numpy too, so that the
+    backward does not move with the forward kernel)."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     rng = np.random.default_rng(13)
-    batch, t, rf = 2, 2000, 24
+    batch, t = 2, 2000
 
     def rn(*shape, scale=1.0, gen=rng):
         return torch.from_numpy((gen.standard_normal(shape) * scale)
@@ -163,56 +167,85 @@ def _head_digests(kmod, klib, smod, slib):
         return torch.from_numpy(rng.integers(0, c, size=(t, batch))
                                 .astype(np.int32)).to(dev)
 
-    bwd = []
-    skip, tg = rn(batch, t, 64).to(bf), tgt(64)
-    w = (rn(64, 64, scale=0.25), rn(64, scale=0.1), rn(64, 64, scale=0.3),
-         rn(64, scale=0.1))
-    dloss = torch.tensor(1e-3, device=dev)
-    for parity in (True, False):
-        bwd += kmod.run_fwd(klib, skip, tg, *w, rf, parity, 0, False,
-                            packed=True)[:2]
-        bwd += kmod.run_bwd(klib, skip, tg, None, *w, rf, parity, dloss)
-    dil = (1, 2, 4, 1, 2, 4)
-    n, r, s, c = len(dil), 64, 64, 64
-    x, ctx = rn(batch, t, r, scale=0.5).to(bf), rn(batch, t, r,
-                                                   scale=0.5).to(bf)
-    tw = (rn(n * batch, 2 * r, scale=0.1), rn(n, 3 * r, 2 * r, scale=0.07),
-          rn(n, r, r + s, scale=0.12), rn(n, r + s, scale=0.1))
-    hw = (rn(s, c, scale=0.12), rn(c, scale=0.1), rn(c, c, scale=0.12),
-          rn(c, scale=0.1))
-    tg = tgt(c)
-    fwd = smod.run_head_fwd(slib, x, ctx, *tw, tg, *hw, dil, rf, True)
+    packed = dict(skip=rn(batch, t, 64).to(bf), tgt=tgt(64),
+                  w=(rn(64, 64, scale=0.25), rn(64, scale=0.1),
+                     rn(64, 64, scale=0.3), rn(64, scale=0.1)))
+    n, r, s, c = len(DIGEST_DILATIONS), 64, 64, 64
+    m = dict(x=rn(batch, t, r, scale=0.5).to(bf),
+             ctx=rn(batch, t, r, scale=0.5).to(bf))
+    m["tw"] = (rn(n * batch, 2 * r, scale=0.1),
+               rn(n, 3 * r, 2 * r, scale=0.07),
+               rn(n, r, r + s, scale=0.12), rn(n, r + s, scale=0.1))
+    m["hw"] = (rn(s, c, scale=0.12), rn(c, scale=0.1),
+               rn(c, c, scale=0.12), rn(c, scale=0.1))
+    m["tgt"] = tgt(c)
     saved = np.random.default_rng(14)
-    hsave = rn(n, batch, t, r, scale=0.5, gen=saved).to(bf)
-    tfsg = torch.cat([torch.tanh(rn(n, batch, t, r, gen=saved)),
-                      torch.sigmoid(rn(n, batch, t, r, gen=saved))],
-                     -1).to(bf)
-    sk_ = rn(batch, t, s, gen=saved).to(bf)
-    bwd += smod.run_head_bwd(slib, hsave, tfsg, ctx, tw[1], tw[2], sk_, tg,
-                             *hw, dloss, dil, rf, True)
+    m["hsave"] = rn(n, batch, t, r, scale=0.5, gen=saved).to(bf)
+    m["tfsg"] = torch.cat([torch.tanh(rn(n, batch, t, r, gen=saved)),
+                           torch.sigmoid(rn(n, batch, t, r, gen=saved))],
+                          -1).to(bf)
+    m["skip"] = rn(batch, t, s, gen=saved).to(bf)
+    return packed, m
+
+
+DIGEST_DILATIONS, DIGEST_RF = (1, 2, 4, 1, 2, 4), 24
+
+
+def _digest(outs):
+    h = hashlib.sha256()
+    for o in outs:
+        if o is not None:
+            h.update(o.reshape(-1).contiguous().cpu().view(torch.uint8)
+                     .numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+def _merged_digests(smod, slib):
+    """(forward, backward) sha256 digests of the merged trunk + head
+    kernels' outputs (stack_kernel.cu) on ``_digest_inputs``."""
+    _, m = _digest_inputs()
+    dloss = torch.tensor(1e-3, device="cuda")
+    fwd = smod.run_head_fwd(slib, m["x"], m["ctx"], *m["tw"], m["tgt"],
+                            *m["hw"], DIGEST_DILATIONS, DIGEST_RF, True)
+    bwd = smod.run_head_bwd(slib, m["hsave"], m["tfsg"], m["ctx"],
+                            m["tw"][1], m["tw"][2], m["skip"], m["tgt"],
+                            *m["hw"], dloss, DIGEST_DILATIONS, DIGEST_RF,
+                            True)
     torch.cuda.synchronize()
-
-    def digest(outs):
-        h = hashlib.sha256()
-        for o in outs:
-            if o is not None:
-                h.update(o.reshape(-1).contiguous().cpu().view(torch.uint8)
-                         .numpy().tobytes())
-        return h.hexdigest()[:32]
-
-    return digest(fwd), digest(bwd)
+    return _digest(fwd), _digest(bwd)
 
 
-# the merged forward's digest as the layer kernel on the tensor cores gives
-# it, and the packed head and merged backward kernels' digest as both it
-# and the source before it give it, on an NVIDIA H100 80GB HBM3
+def _packed_outputs(kmod, klib, skip, tgt, w, rf, parity, dloss):
+    """The packed kernels' outputs: (loss, match, dskip, dw1, db1, dw2,
+    db2)."""
+    out = list(kmod.run_fwd(klib, skip, tgt, *w, rf, parity, 0, False,
+                            packed=True)[:2])
+    out += kmod.run_bwd(klib, skip, tgt, None, *w, rf, parity, dloss)
+    torch.cuda.synchronize()
+    return out
+
+
+# the merged trunk + head kernels' (forward, backward) digests as the
+# source before the packed kernels moved to the tensor cores gives them
+# (the forward's as before; the backward's without the packed kernels'
+# outputs), on an NVIDIA H100 80GB HBM3
 HEAD_DIGESTS = ("f7474cd24d1364699385c4ff91fe1dd9",
-                "f1f75cec951f993af5de2f696da6b3cd")
+                "6b34e895045a46bf253207dfc14e9651")
 
 
 @pytest.mark.cuda
 def test_packed_and_merged_heads_keep_their_bits(cuda):
-    assert _head_digests(kh, kh.library(), ks, ks.library()) == HEAD_DIGESTS
+    """The merged kernels give the digests of the source before the
+    packed redesign; the packed kernels give the same bits call after
+    call (both CE forms) on the digests' packed inputs."""
+    assert _merged_digests(ks, ks.library()) == HEAD_DIGESTS
+    p, _ = _digest_inputs()
+    dloss = torch.tensor(1e-3, device=cuda)
+    for parity in (True, False):
+        args = (kh, kh.library(), p["skip"], p["tgt"], p["w"], DIGEST_RF,
+                parity, dloss)
+        first, second = _packed_outputs(*args), _packed_outputs(*args)
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -270,6 +303,53 @@ def test_packed_head_kernels_match_plain(cuda, t, parity):
     ul, _, _ = kh.head_fwd(a["skip"], a["tgt"], a["w1"], a["b1"], a["w2"],
                            a["b2"], rf, parity, 0)
     np.testing.assert_allclose(float(ul), float(loss), rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4000, 1282])
+@pytest.mark.parametrize("parity", [True, False])
+def test_packed_head_kernels_repeat_bit_equal(cuda, t, parity):
+    """Two calls of each packed kernel on the same inputs give the same
+    bits (fixed-order sums, no atomics)."""
+    a, batch = _packed_args(cuda, t)
+    w = (a["w1"], a["b1"], a["w2"], a["b2"])
+    dloss = torch.tensor(1.0 / (batch * (t - 24)), device=cuda)
+    args = (kh, kh.library(), a["skip"], a["tgt"], w, 24, parity, dloss)
+    first, second = _packed_outputs(*args), _packed_outputs(*args)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parity", [True, False])
+def test_packed_kernels_follow_plain_at_the_jumps(cuda, parity):
+    """Where the function jumps, the packed kernels take the plain
+    version's float32 order: with column 9 of W2 one float32 step from
+    column 5 (their logits within rounding of a tie wherever they lead)
+    the match count equals the plain version's; with b1 set so that y is
+    zero in the plain version at one row of every column (dleaky jumps
+    there) the gradients keep the tolerances above."""
+    t, rf = 4000, 24
+    a, batch = _packed_args(cuda, t, seed=4)
+    w2, b2 = a["w2"].clone(), a["b2"].clone()
+    w2[:, 9] = torch.nextafter(w2[:, 5], torch.full_like(w2[:, 5], 1e9))
+    b2[9] = b2[5]
+    args = (a["skip"], a["tgt"], a["w1"], a["b1"], w2, b2, rf, parity)
+    _, match = kh.head_fwd_packed(*args)
+    _, want_match = hl.head_fwd_packed_plain(*args)
+    assert float(match) == float(want_match)
+    y_chain = torch.matmul(hl._leaky(a["skip"].float().reshape(-1, 64)),
+                           a["w1"])
+    col = torch.arange(64, device=cuda)
+    b1 = -y_chain[col * 97, col]
+    args = (a["skip"], a["tgt"], a["w1"], b1, w2, b2, rf, parity)
+    dloss = torch.tensor(1.0 / (batch * (t - rf)), device=cuda)
+    got = kh.head_bwd_packed(*args, dloss)
+    want = hl.head_bwd_packed_plain(*args, dloss)
+    for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"), got, want):
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        tol = (1e-2 if name == "dskip" else 1e-4) * np.abs(y).max()
+        np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
 
 
 @pytest.mark.cuda

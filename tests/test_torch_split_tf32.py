@@ -1,5 +1,6 @@
-"""The save backward's split-TF32 products (csrc/stack_kernel.cu) and the
-gated-block kernels' (csrc/gated_block.cu) on the CPU, through the plain
+"""The save backward's split-TF32 products (csrc/stack_kernel.cu), the
+gated-block kernels' (csrc/gated_block.cu) and the packed head kernels'
+(csrc/head_loss.cu, S = C = 64) on the CPU, through the plain
 emulation of the kernels' operand handling in ``ops/stack_kernel`` (TF32
 rounding as ``cvt.rna.tf32.f32`` rounds, the big/small split, each
 product's passes).  Inputs from a numpy seed at the breakdancing widths
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from movenet_tpu_torch.ops import gated_block as gb
+from movenet_tpu_torch.ops import head_loss as hl
 from movenet_tpu_torch.ops import stack_kernel as sk
 
 R, S, WIN, ROWS = 64, 64, 192, 4096
@@ -153,5 +155,55 @@ def test_gated_split_products_hold_float32_tolerance(name):
 @pytest.mark.parametrize("name", sorted(gb.SPLIT_PASSES))
 def test_gated_one_pass_tf32_misses_the_tolerance(name):
     a, b = _gated_operands()[name]
+    got = sk.tf32_split_matmul(a, b, False, False)
+    assert _rel_err(got, a, b) > 1e-4
+
+
+def _packed_operands(seed=0):
+    """(A, B) of each product of the packed head kernels (S = C = 64), as
+    they load them: leaky of the bf16 skip, W1 and W2 in float32, leaky(y)
+    from a float32 y, dz from the parity softmax of z and dy = dz W2^T *
+    dleaky(y), both float32."""
+    rng = np.random.default_rng(seed)
+    c = 64
+    skip = _bf16(rng.normal(0, 1, (ROWS, c)))
+    w1 = _f32(rng.normal(0, 0.25, (c, c)))
+    w2 = _f32(rng.normal(0, 1 / 3, (c, c)))
+    lskip = torch.where(skip > 0, skip, 0.01 * skip)
+    y = torch.matmul(lskip, w1) + _f32(rng.normal(0, 0.1, (1, c)))
+    ly = torch.where(y > 0, y, 0.01 * y)
+    z = torch.matmul(ly, w2) + _f32(rng.normal(0, 0.1, (1, c)))
+    p = torch.softmax(z, -1)
+    g = torch.softmax(p, -1) - torch.nn.functional.one_hot(
+        torch.from_numpy(rng.integers(0, c, ROWS)), c).float()
+    dz = (p * g - p * (p * g).sum(-1, keepdim=True)) / ROWS
+    dy = torch.matmul(dz, w2.t()) * torch.where(y > 0, 1.0, 0.01)
+    return {"y": (lskip, w1), "z": (ly, w2), "dy": (dz, w2.t()),
+            "dskip": (dy, w1.t()), "dw2": (ly.t(), dz),
+            "dw1": (lskip.t(), dy)}
+
+
+def test_packed_operands_are_as_the_kernels_load_them():
+    """Every operand of the packed kernels is a float32 value that TF32
+    does not hold (leaky(skip) too: 0.01 x of a negative bf16 x), so
+    every product splits both."""
+    ops = _packed_operands()
+    assert sorted(ops) == sorted(hl.PACKED_SPLIT_PASSES)
+    for name, (a, b) in ops.items():
+        for x, split in zip((a, b), hl.PACKED_SPLIT_PASSES[name]):
+            exact = torch.equal(sk.tf32_rna(x), x)
+            assert exact != split, name
+
+
+@pytest.mark.parametrize("name", sorted(hl.PACKED_SPLIT_PASSES))
+def test_packed_split_products_hold_float32_tolerance(name):
+    a, b = _packed_operands()[name]
+    got = sk.tf32_split_matmul(a, b, *hl.PACKED_SPLIT_PASSES[name])
+    assert _rel_err(got, a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("name", sorted(hl.PACKED_SPLIT_PASSES))
+def test_packed_one_pass_tf32_misses_the_tolerance(name):
+    a, b = _packed_operands()[name]
     got = sk.tf32_split_matmul(a, b, False, False)
     assert _rel_err(got, a, b) > 1e-4
