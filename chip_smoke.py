@@ -110,6 +110,24 @@ Phases (any failure exits non-zero and prints no result):
   15. resume: the same command with --n_epochs 2 --auto_resume 1 starts
      at epoch 1 and ends at step 8; an uninterrupted 2-epoch run from
      the same seed ends with the same params and optimizer state;
+  15b. data parallel: (a) ``python -m movenet_tpu_torch.train.cli`` as a
+     subprocess with phase 14's flags and --coordinator_address
+     127.0.0.1:<free port> --num_processes 1 --process_id 0: the
+     launcher spawns one rank, which trains over NCCL at world size 1
+     (its log: the backend, the world size, the mesh, the ranks' params
+     equal); its checkpoint after step 4 (params, optimizer state, step)
+     equals phase 14's bit for bit; (b) two ranks spawned on this card
+     over gloo (NCCL takes no two ranks on one device) through
+     ``initialize_distributed`` and ``make_parallel_train_step``, at the
+     breakdancing shapes (the fixture's model, a seeded global batch of
+     4 rows, T=160000, 2 rows a rank), 1 + 3 steps, against one process
+     on all 4 rows: each step's loss and grad_norm within 1e-3 relative
+     of the one process's step from the ranks' weights before it, and
+     the one process's own 1 + 3 losses within 1e-3 (its grad_norm is
+     printed beside), the ranks' metrics and params' digests equal after
+     every step, each training kernel launched once a step in each rank
+     (their launches count on the kernels line); each rank's step ms and
+     the one process's;
   16. flagship trainer CLI: synthetic clips at the real format (8 + 4),
      then the trainer CLI with the flagship widths (layer 10 x stack 3,
      C=256, R=S=64, batch 2, --fused_blocks 1, the default strategy)
@@ -163,7 +181,9 @@ from __future__ import annotations
 
 import base64
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1800,8 +1820,8 @@ class timed_train_steps:
         self.real = trainer.make_train_step
         torch, ms = self.torch, self.ms
 
-        def make(model, config):
-            step = self.real(model, config)
+        def make(model, config, group=None):
+            step = self.real(model, config, group)
 
             def timed(state, batch):
                 torch.cuda.synchronize()
@@ -1823,14 +1843,19 @@ class timed_train_steps:
         return False
 
 
+def cli_argv(ds, out, logs, extra):
+    """Experiment 02's flags with the recompute strategy, 4 steps an
+    epoch."""
+    return ["--dataset", str(ds), *EXP02_FLAGS, "--fused_strategy",
+            "recompute", "--val_batch_size", "2", "--n_steps_per_epoch", "4",
+            "--model_output_path", str(out), "--logger", "jsonl",
+            "--training_logs_path", str(logs), *extra]
+
+
 def cli_run(ds, out, logs, extra):
     """The trainer CLI with experiment 02's flags and the recompute
     strategy."""
-    return trainer_cli(["--dataset", str(ds), *EXP02_FLAGS, "--fused_strategy",
-                     "recompute", "--val_batch_size", "2",
-                     "--n_steps_per_epoch", "4", "--model_output_path",
-                     str(out), "--logger", "jsonl", "--training_logs_path",
-                     str(logs), *extra])
+    return trainer_cli(cli_argv(ds, out, logs, extra))
 
 
 def phase_trainer_cli(torch, np, root):
@@ -1911,6 +1936,228 @@ def phase_resume(torch, np, root, ds):
     check(diff == 0.0 and opt_diff == 0.0,
           "the resumed run's params or optimizer state differ from the "
           "uninterrupted run's")
+
+
+# the data-parallel phase: 1 + 3 steps on a global batch of 4
+# breakdancing rows, two ranks of 2 rows
+DP_STEPS = 4
+DP_BATCH = 4
+DP_DEADLINE_S = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_batch(torch, np):
+    """The global batch: 4 rows of seeded codes and video at the
+    breakdancing clip format."""
+    from movenet_tpu_torch.train import Batch
+    from movenet_tpu_torch.utils.fixtures import BREAKDANCING
+
+    rng = np.random.default_rng(1)
+    t = BREAKDANCING["max_audio_frames"]
+    f = BREAKDANCING["max_video_frames"]
+    return Batch(
+        codes=torch.from_numpy(rng.integers(0, 64, size=(DP_BATCH, t))).int(),
+        video=torch.from_numpy(rng.standard_normal(
+            (DP_BATCH, f, 64, 64, 1)).astype(np.float32)))
+
+
+def dp_steps(torch, step, state, batch, before=None):
+    """DP_STEPS train steps; per step its loss, accuracy, grad_norm, ms
+    (host clock to a synchronised card), the training kernels' launches
+    and the params' digest after it.  ``before``: a list that gets the
+    weights (a CPU state dict) before each step."""
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.train.trainer import params_digest
+
+    recs = []
+    for _ in range(DP_STEPS):
+        if before is not None:
+            before.append({k: v.detach().cpu().clone()
+                           for k, v in state.module.state_dict().items()})
+        torch.cuda.synchronize()
+        ks.reset_launch_counts()
+        kh.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {**ks.launch_counts, **kh.launch_counts}
+        recs.append(dict(
+            ms=ms, launches={k: counts[k] for k in TRAIN_KERNELS},
+            digest=params_digest(state.module),
+            **{k: float(m[k]) for k in ("loss", "accuracy", "grad_norm")}))
+    return recs
+
+
+def dp_rank(rank, port, out):
+    """One of two data-parallel ranks on cuda:0 over gloo (a spawned
+    worker): the breakdancing model, this rank's 2 rows of the global
+    batch, ``make_parallel_train_step``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from movenet_tpu_torch.config import TrainingConfig
+    from movenet_tpu_torch.parallel import (
+        initialize_distributed,
+        make_parallel_train_step,
+        shard_batch,
+    )
+    from movenet_tpu_torch.train import create_train_state
+    from movenet_tpu_torch.utils.fixtures import breakdancing
+
+    # two "processes" of one rank each, both on card 0: NCCL takes no two
+    # ranks on one device, gloo does
+    initialize_distributed(TrainingConfig(num_processes=2, process_id=rank),
+                           device="cuda", backend="gloo",
+                           address=f"127.0.0.1:{port}")
+    try:
+        cfg, model, _ = breakdancing(device="cuda")
+        shard = shard_batch(dp_batch(torch, np), rank, 2).to("cuda")
+        state = create_train_state(model, cfg, device="cuda")
+        weights = []
+        recs = dp_steps(torch, make_parallel_train_step(model, cfg), state,
+                        shard, weights)
+        Path(out, f"rank{rank}.json").write_text(json.dumps(recs))
+        if rank == 0:
+            torch.save(weights, Path(out, "weights.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_data_parallel(torch, np, root, ds):
+    """(a) The trainer CLI as a user runs it (a subprocess) with phase
+    14's flags and a coordinator at world size 1: the launcher spawns one
+    rank, which joins an NCCL group and all-reduces every step; its
+    checkpoint after step 4 must equal phase 14's, bit for bit.  (b) Two
+    ranks on this card over gloo through the library API, against one
+    process on all 4 rows: each step's loss and grad_norm within 1e-3
+    relative of the one process's step from the weights the ranks held
+    before it, and the loss of the one process's own 1 + 3 steps within
+    1e-3 at each step (its grad_norm is printed beside: Adam moves the
+    elements whose gradient is rounding noise by up to lr, so the two
+    trajectories' gradients part); the ranks' params equal after every
+    step, each training kernel launched once a step in each rank.
+    Returns the ranks' launches."""
+    import torch.multiprocessing as mp
+
+    from movenet_tpu_torch.train import create_train_state, make_train_step
+    from movenet_tpu_torch.utils.fixtures import breakdancing
+
+    t_phase = time.perf_counter()
+    port = free_port()
+    argv = cli_argv(ds, root / "dp_run", root / "dp_logs",
+                    ["--n_epochs", "1", "--coordinator_address",
+                     f"127.0.0.1:{port}", "--num_processes", "1",
+                     "--process_id", "0"])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "movenet_tpu_torch.train.cli", *argv],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=DP_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise PhaseFailed(f"the data-parallel CLI ran past {DP_DEADLINE_S} s")
+    check(proc.returncode == 0, f"the data-parallel CLI exited "
+          f"{proc.returncode}: {log[-3000:]}")
+    wall_a = time.perf_counter() - t_phase
+    want = ["distributed runtime: rank 0 of 1 over nccl", "mesh: data=1 seq=1",
+            "the 1 ranks' params are equal"]
+    found = [next((l for l in log.splitlines() if w in l), None)
+             for w in want]
+    check(all(found), f"the data-parallel CLI's log lacks "
+          f"{[w for w, l in zip(want, found) if l is None]}")
+    a_dir = root / "dp_run" / "checkpoints" / "0"
+    b_dir = root / "run" / "checkpoints" / "0"
+    pa, pb = np.load(a_dir / "params.npz"), np.load(b_dir / "params.npz")
+    check(sorted(pa.files) == sorted(pb.files), "params leaves differ")
+    p_diff = [k for k in pa.files if not np.array_equal(pa[k], pb[k])]
+    oa, ob = (torch.load(d / "optimizer.pt", map_location="cpu",
+                         weights_only=True) for d in (a_dir, b_dir))
+    o_same = oa["param_groups"] == ob["param_groups"] \
+        and set(oa["state"]) == set(ob["state"]) \
+        and all(set(oa["state"][i]) == set(st) and all(
+            torch.equal(torch.as_tensor(oa["state"][i][k]),
+                        torch.as_tensor(v)) for k, v in st.items())
+            for i, st in ob["state"].items())
+    meta = [json.loads((d / "state.json").read_text())
+            for d in (a_dir, b_dir)]
+    for line in found:
+        print(f"data parallel (a): {line.split(': ', 3)[-1]}", flush=True)
+    print(f"data parallel (a): the trainer CLI with --coordinator_address "
+          f"127.0.0.1:{port} --num_processes 1 --process_id 0 (phase 14's "
+          f"flags, 4 steps) in {wall_a:.1f} s with the data; checkpoint 0 "
+          f"{meta[0]} against the in-process run's {meta[1]}: params "
+          f"{'bit-equal' if not p_diff else f'differ in {p_diff}'}, "
+          f"optimizer state {'bit-equal' if o_same else 'differs'}",
+          flush=True)
+    check(not p_diff and o_same and meta[0] == meta[1] == {"step": 4},
+          "the NCCL run's checkpoint differs from the in-process run's")
+
+    t0 = time.perf_counter()
+    out = root / "dp_ranks"
+    out.mkdir()
+    ctx = mp.spawn(dp_rank, args=(free_port(), str(out)), nprocs=2,
+                   join=False)
+    deadline = time.perf_counter() + DP_DEADLINE_S
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise PhaseFailed(f"the gloo ranks ran past {DP_DEADLINE_S} s")
+    wall_b = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in (0, 1)]
+    cfg, model, _ = breakdancing(device="cuda")
+    state = create_train_state(model, cfg, device="cuda")
+    step, batch = make_train_step(model, cfg), dp_batch(torch, np).to("cuda")
+    one = dp_steps(torch, step, state, batch)
+    at_ranks = []
+    for weights in torch.load(out / "weights.pt", weights_only=True):
+        model.load_state_dict(weights)
+        state, m = step(state, batch)
+        at_ranks.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    bad = []
+    for i, (r0, r1, o, a) in enumerate(zip(*ranks, one, at_ranks)):
+        for r, rec in enumerate((r0, r1)):
+            print(f"data parallel (b) rank {r} step {i}: loss "
+                  f"{rec['loss']:.6f} grad_norm {rec['grad_norm']:.6g}; "
+                  f"{rec['ms']:.2f} ms; launches {rec['launches']}; params "
+                  f"sha256 {rec['digest'][:16]}", flush=True)
+            if any(v != 1 for v in rec["launches"].values()):
+                bad.append(f"rank {r} step {i} launches {rec['launches']}")
+        print(f"data parallel (b) one process step {i} (4 rows): loss "
+              f"{o['loss']:.6f} grad_norm {o['grad_norm']:.6g}; "
+              f"{o['ms']:.2f} ms; from the ranks' weights: loss "
+              f"{a['loss']:.6f} grad_norm {a['grad_norm']:.6g}", flush=True)
+        if r0 != {**r1, "ms": r0["ms"]}:
+            bad.append(f"step {i}: the ranks differ")
+        for k, want in (("loss", a), ("grad_norm", a), ("loss", o)):
+            if abs(r0[k] - want[k]) > 1e-3 * abs(want[k]):
+                bad.append(f"step {i}: {k} {r0[k]} against one process's "
+                           f"{want[k]}")
+    med = [float(np.median([r["ms"] for r in recs[1:]]))
+           for recs in (*ranks, one)]
+    print(f"data parallel (b): 2 gloo ranks on one card, 2 rows each (B=2, "
+          f"T=160000, breakdancing, bf16), {DP_STEPS} steps in "
+          f"{wall_b:.1f} s with the spawn; step ms (median after the first) "
+          f"rank 0 {med[0]:.2f}, rank 1 {med[1]:.2f} (both ranks share the "
+          f"card), one process on 4 rows {med[2]:.2f}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(not bad, f"data parallel (b): {bad}")
+    return {k: sum(rec["launches"][k] for recs in ranks for rec in recs)
+            for k in TRAIN_KERNELS}
 
 
 # the flagship widths through the trainer CLI (README's flagship: layer 10
@@ -2677,6 +2924,10 @@ def main() -> int:
                 launches[k] = cli_launches[k]
             phase = "resume"
             phase_resume(torch, np, Path(tmp), ds)
+            phase = "data parallel"
+            for k, v in phase_data_parallel(torch, np, Path(tmp),
+                                            ds).items():
+                launches[k] += v
             phase = "flagship trainer CLI"
             flag_cli = phase_flagship_cli(torch, np, Path(tmp))
             for k in TAILS_KERNELS:

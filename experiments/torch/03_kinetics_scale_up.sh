@@ -2,9 +2,10 @@
 # movenet_tpu_torch twin of experiments/03_kinetics_scale_up.sh: the same flags through
 # the port's trainer CLI, on the CUDA card (it raises without one).
 # Experiment 03: multi-device scale-up (reference: experiments/03_kinetics_scale_up.mk)
-# The reference used 4xV100 DDP; in the port --mesh_data -1 (every
-# device) is the one card, since data parallelism is not ported yet
-# (ROADMAP.md A.8). bs=3, input_ch 128, res_ch 32, layer 2 stack 2 (RF=8),
+# The reference used 4xV100 DDP; in the port --mesh_data -1 fits the data
+# axis to the largest divisor of the batch that the host's cards allow (on
+# four cards: three ranks of one row, one card idle) and spawns one process
+# a rank over NCCL. bs=3, input_ch 128, res_ch 32, layer 2 stack 2 (RF=8),
 # grad accumulation 10.
 set -euo pipefail
 DATASET=${1:?usage: 03_kinetics_scale_up.sh <dataset_dir> [extra flags...]}; shift || true

@@ -16,6 +16,14 @@ Temporal cropping (``subsample_frac``, reference dataset.py:232-242):
 window so the conditioning still matches the waveform;
 ``synchronized=False`` reproduces the reference's two independent
 random starts.
+
+Data parallelism (``rows=(start, stop)``): a rank decodes only its
+columns ``[start, stop)`` of each batch (of each microbatch under
+accumulation), taking the clips those columns would hold in the
+one-process order; the crop draws are made once a batch as there, so
+without failed decodes the ranks' batches, put side by side, are the
+one-process batches bit for bit.  A failed decode is substituted by the
+next clip of the rank's own share.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import sys
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -77,6 +85,7 @@ class DataLoader:
         context_to_id=None,
         native_pipeline: str = "auto",
         host_pack: bool = False,
+        rows: Optional[Tuple[int, int]] = None,
     ):
         if len(index) == 0:
             raise ValueError(f"empty dataset index under {index.root}")
@@ -95,6 +104,9 @@ class DataLoader:
         self.max_video_frames = max_video_frames
         self.prefetch_batches = prefetch_batches
         self.host_pack = host_pack
+        if rows is not None and not 0 <= rows[0] < rows[1] <= batch_size:
+            raise ValueError(f"rows {rows} outside a batch of {batch_size}")
+        self.rows = rows
         # class-id mapping should come from the FULL (unsharded) index so
         # ids are consistent across processes; get_dataloader passes it
         self.context_to_id = (context_to_id if context_to_id is not None
@@ -135,6 +147,21 @@ class DataLoader:
 
     def steps_per_epoch(self) -> int:
         return max(1, len(self))
+
+    @property
+    def _width(self) -> int:
+        """Columns of each batch this loader yields."""
+        return self.batch_size if self.rows is None \
+            else self.rows[1] - self.rows[0]
+
+    def _own_entries(self, entries) -> list:
+        """The clips of this loader's columns, in the one-process order."""
+        if self.rows is None:
+            return list(entries)
+        start, stop = self.rows
+        per = self.examples_per_step
+        return [m for k, m in enumerate(entries)
+                if start <= k % per % self.batch_size < stop]
 
     # ------------------------------------------------------------ decode
     def _load_example(self, meta) -> Optional[Example]:
@@ -205,6 +232,7 @@ class DataLoader:
         if self.shuffle:
             idx = idx.shuffled(self.seed + epoch_index)
         rng = random.Random(self.seed * 1_000_003 + epoch_index)
+        per_step = self._width * self.accumulation_steps
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_batches)
         stop = threading.Event()
@@ -232,7 +260,7 @@ class DataLoader:
                 self.max_audio_frames, self.input_channels,
                 self.normalize_audio, self.use_video)
             try:
-                entries = list(idx.entries)
+                entries = self._own_entries(idx.entries)
                 in_flight = 0
                 pos = 0
                 group: List[Example] = []
@@ -262,7 +290,7 @@ class DataLoader:
                         label = 0
                     group.append(Example(meta.context, meta.filepath,
                                          codes, video, {}, label=label))
-                    if len(group) == self.examples_per_step:
+                    if len(group) == per_step:
                         if not put(self._assemble(group, rng)):
                             return
                         group = []
@@ -281,7 +309,7 @@ class DataLoader:
                 from collections import deque
 
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    entries = iter(idx.entries)
+                    entries = iter(self._own_entries(idx.entries))
                     in_flight: deque = deque()
 
                     def refill():
@@ -301,7 +329,7 @@ class DataLoader:
                             if ex is None:
                                 continue  # substitute: next clip fills
                             group.append(ex)
-                            if len(group) == self.examples_per_step:
+                            if len(group) == per_step:
                                 if not put(self._assemble(group, rng)):
                                     return
                                 group = []
@@ -342,12 +370,12 @@ class DataLoader:
         if self.use_video:
             video = np.stack([ex.video for ex in group])
         codes, video = self._crop(codes, video, rng)
-        a = self.accumulation_steps
+        a, b = self.accumulation_steps, self._width
         if a > 1:
-            codes = codes.reshape(a, self.batch_size, *codes.shape[1:])
-            labels = labels.reshape(a, self.batch_size)
+            codes = codes.reshape(a, b, *codes.shape[1:])
+            labels = labels.reshape(a, b)
             if video is not None:
-                video = video.reshape(a, self.batch_size, *video.shape[1:])
+                video = video.reshape(a, b, *video.shape[1:])
         pack = None
         if self.host_pack:
             # (T, 3B) int32 fused-kernel codes pack, computed on the
@@ -394,7 +422,8 @@ def get_dataloader(
     **kwargs,
 ) -> DataLoader:
     """Reference-shaped factory (dataset.py:59-98): scans the dataset
-    tree, shards the index per process, returns a DataLoader."""
+    tree, shards the index per process, returns a DataLoader (``rows``
+    in ``kwargs``: a rank's columns of each batch)."""
     index = kinetics_index(filepath, train=train)
     context_to_id = index.context_to_id  # before sharding: global ids
     if process_count > 1:

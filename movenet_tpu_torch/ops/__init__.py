@@ -1,11 +1,19 @@
-"""Core numeric ops of the port: mu-law codec, causal-conv geometry, and
+"""Core numeric ops of the port: mu-law codec, audio preprocessing,
+resampling, causal-conv geometry and its matmul form, and
 the training path's fused ops (trunk, merged trunk + head/CE, gated
 block, head/CE), whose CUDA kernels live in ``ops/cuda``."""
 
 from movenet_tpu_torch.ops.mulaw import mu_law_decode, mu_law_encode
+from movenet_tpu_torch.ops.audio import (
+    normalize_audio,
+    one_hot_encode_audio,
+    quantize_audio,
+)
+from movenet_tpu_torch.ops.resample import resample, resample_to_length
 from movenet_tpu_torch.ops.conv import (
     causal_pad_shift,
     compute_output_size,
+    dilated_causal_matmul,
     receptive_field,
     upsample_kernel_size,
     wavenet_dilations,
@@ -21,8 +29,14 @@ from movenet_tpu_torch.ops.stack_kernel import (
 __all__ = [
     "mu_law_encode",
     "mu_law_decode",
+    "normalize_audio",
+    "one_hot_encode_audio",
+    "quantize_audio",
+    "resample",
+    "resample_to_length",
     "causal_pad_shift",
     "compute_output_size",
+    "dilated_causal_matmul",
     "receptive_field",
     "upsample_kernel_size",
     "wavenet_dilations",

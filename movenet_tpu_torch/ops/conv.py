@@ -48,6 +48,24 @@ def causal_pad_shift(x: torch.Tensor, shift: int) -> torch.Tensor:
     return y
 
 
+def dilated_causal_matmul(x: torch.Tensor, w_cur: torch.Tensor,
+                          w_past: torch.Tensor, dilation: int,
+                          preferred_dtype=torch.float32) -> torch.Tensor:
+    """Size-2 dilated causal conv as two matrix products.
+
+    x (batch, time, c_in); w_cur (c_in, c_out), the tap for x[t]; w_past,
+    the tap for x[t - dilation].  Returns (batch, time, c_out), full
+    length (left zero-pad semantics), in ``preferred_dtype``: the
+    operands are widened to it first, so bf16 products are exact and
+    summed in float32, as JAX's ``preferred_element_type`` gives them
+    (None: the operands' own dtype).
+    """
+    if preferred_dtype is not None:
+        x, w_cur, w_past = (t.to(preferred_dtype) for t in (x, w_cur, w_past))
+    return torch.matmul(x, w_cur) + torch.matmul(
+        causal_pad_shift(x, dilation), w_past)
+
+
 def upsample_kernel_size(in_size: int, out_size: int, stride: int = 1,
                          padding: int = 0, output_padding: int = 0,
                          dilation: int = 1) -> int:

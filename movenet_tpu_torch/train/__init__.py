@@ -18,10 +18,19 @@ from movenet_tpu_torch.train.loop import (
     make_scan_train_step,
     make_train_step,
 )
-from movenet_tpu_torch.train.optim import Schedules, make_optimizer
+from movenet_tpu_torch.train.optim import (
+    Schedules,
+    cyclic_schedule,
+    make_optimizer,
+    make_schedule,
+    multistep_schedule,
+    onecycle_schedule,
+    step_schedule,
+)
 
 __all__ = ["CheckpointManager", "latest_step", "restore_checkpoint",
            "restore_params", "save_checkpoint", "save_params", "Batch",
            "TrainState", "create_train_state", "make_eval_step",
            "make_scan_train_step", "make_train_step", "make_optimizer",
-           "Schedules"]
+           "make_schedule", "onecycle_schedule", "cyclic_schedule",
+           "step_schedule", "multistep_schedule", "Schedules"]

@@ -15,6 +15,15 @@ A step takes the mean of the microbatch gradients
 clips by optax's rule, sets the LR (and beta1/momentum) of the update
 count from the schedule and applies one optimizer update.
 ``make_scan_train_step`` runs N such steps per call.
+
+With a process ``group`` (data parallelism, ``movenet_tpu_torch.parallel``)
+each rank's batch is its rows of the global batch; after the backward
+(and the accumulation mean) one all-reduce of a flat float32 buffer sums
+every gradient, the loss and the accuracy over the ranks, and the sums
+are divided by the rank count: the mean of the shard means, as the JAX
+package's ``pmean`` and shard_map transpose give it.  The global norm,
+the clip and the update then see the averaged gradient on every rank.
+Without a group nothing is all-reduced.
 """
 
 from __future__ import annotations
@@ -137,14 +146,32 @@ def _build_loss(model: WaveNet, config):
                              fused=_use_fused(config))
 
 
-def make_train_step(model: WaveNet, config):
+def _mean_over_ranks(tensors, group):
+    """Each tensor's mean over the ranks of ``group``, in float32, as views
+    of one flat buffer: one all-reduce (a SUM, then a division: gloo takes
+    no AVG on CUDA tensors)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat.div_(dist.get_world_size(group))
+    out, offset = [], 0
+    for t in tensors:
+        out.append(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+    return out
+
+
+def make_train_step(model: WaveNet, config, group=None):
     """``train_step(state, batch) -> (state, metrics)``.
 
     accumulation_steps == 1: batch fields are (B, ...); > 1: (A, B, ...),
     and the update uses the mean of the A microbatch gradients.  Metrics
     are 0-dim tensors on the model's device: ``loss``, ``accuracy``,
     ``grad_norm`` (before clipping) and, with a schedule,
-    ``learning_rate``."""
+    ``learning_rate``.  With a process ``group`` the batch is this rank's
+    shard and the gradients, loss and accuracy are the means over the
+    group's ranks (module docstring)."""
     accum = config.accumulation_steps
     clip = config.gradient_clipping
     loss_fn = _build_loss(model, config)
@@ -170,6 +197,11 @@ def make_train_step(model: WaveNet, config):
             if accum > 1:
                 for g in grads:
                     g.div_(accum)
+            if group is not None:
+                *means, loss, acc = _mean_over_ranks(
+                    [*grads, loss.detach(), acc.detach()], group)
+                for g, m in zip(grads, means):
+                    g.copy_(m)
             grad_norm = global_norm(grads)
             if clip and clip > 0:
                 clip_by_global_norm(grads, clip, grad_norm)
@@ -186,13 +218,14 @@ def make_train_step(model: WaveNet, config):
     return train_step
 
 
-def make_scan_train_step(model: WaveNet, config, n_steps: int):
+def make_scan_train_step(model: WaveNet, config, n_steps: int,
+                         group=None):
     """``multi_step(state, batches) -> (state, metrics)``: ``n_steps``
     optimizer steps in one call, on batches stacked on a leading
     (n_steps, ...) axis; every metric comes back stacked (n_steps,), the
     same values as n_steps calls of the train step (the JAX package's
     ``make_scan_train_step``, a ``lax.scan`` there)."""
-    step = make_train_step(model, config)
+    step = make_train_step(model, config, group)
 
     def multi_step(state: TrainState, batches: Batch):
         per_step = []
@@ -206,14 +239,17 @@ def make_scan_train_step(model: WaveNet, config, n_steps: int):
     return multi_step
 
 
-def make_eval_step(model: WaveNet, config):
+def make_eval_step(model: WaveNet, config, group=None):
     """``eval_step(state, batch) -> {"loss", "accuracy"}``, no gradients
-    (the fused head then saves no softmax)."""
+    (the fused head then saves no softmax); with a process ``group``, the
+    means over its ranks."""
     loss_fn = _build_loss(model, config)
 
     def eval_step(state: TrainState, batch: Batch):
         with torch.no_grad():
             loss, acc = loss_fn(batch.to(state.module.front_cur.device))
+            if group is not None:
+                loss, acc = _mean_over_ranks([loss, acc], group)
         return {"loss": loss, "accuracy": acc}
 
     return eval_step

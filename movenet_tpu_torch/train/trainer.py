@@ -10,9 +10,20 @@ SIGTERM or SIGINT checkpoints and stops at the next step boundary.
 The LR schedule (and the momentum cycling it brings) follows the update
 count, and every train step logs its ``learning_rate``.  ``scan_steps`` >
 1 runs that many optimizer steps per call (``make_scan_train_step``) and
-logs each step's metrics at its own step.  Data parallelism (a mesh of
-more than one device, several processes) is not ported yet (ROADMAP.md
-A.8) and raises; ``--mesh_data -1`` (every device) is the one card.
+logs each step's metrics at its own step.
+
+Data parallelism, as the JAX trainer's: ``data_parallel_plan`` resolves
+the mesh over the cards of every process (``--mesh_data -1`` fits the
+data axis to the largest divisor of ``batch_size``), and ``train.cli``
+starts one process per rank.  A process (host, ``--process_id`` of
+``--num_processes``) loads ``batch_size`` rows of its share of the clip
+index a step, as the JAX trainer's processes do, and its ranks split
+them (``DataLoader(rows=...)``); every rank takes the update of the
+whole batch.  Rank 0 alone writes ``config.json``, the metrics,
+checkpoints and samples; the ranks meet at a barrier after each
+checkpoint and at each epoch's end, and agree at each step whether to
+stop (a preemption or an exhausted loader on any rank stops all).  The
+sequence axis (``--mesh_seq`` > 1) is not ported (ROADMAP.md A.11).
 """
 
 from __future__ import annotations
@@ -21,16 +32,26 @@ import logging
 import sys
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from movenet_tpu_torch.config import TrainingConfig
 from movenet_tpu_torch.data.pipeline import DataLoader, get_dataloader
 from movenet_tpu_torch.models.sampler import fast_generate
 from movenet_tpu_torch.models.wavenet import WaveNet, make_wavenet
 from movenet_tpu_torch.ops import jax_random
+from movenet_tpu_torch.parallel.mesh import (
+    TIMEOUT,
+    Mesh,
+    create_mesh,
+    process_count,
+    process_index,
+    sync_global_devices,
+)
+from movenet_tpu_torch.parallel.sharding import replicate
 from movenet_tpu_torch.train.checkpoint import CheckpointManager, latest_step
 from movenet_tpu_torch.train.loop import (
     Batch,
@@ -41,7 +62,7 @@ from movenet_tpu_torch.train.loop import (
     training_device,
 )
 from movenet_tpu_torch.train.optim import Schedules
-from movenet_tpu_torch.utils.observability import make_writer, process_index
+from movenet_tpu_torch.utils.observability import make_writer
 from movenet_tpu_torch.utils.samples import export_samples
 
 logger = logging.getLogger(__name__)
@@ -184,25 +205,77 @@ def _resolve_run_dir(exp_name: str, out_dir: Path) -> Path:
         f"checkpoints found (tried: {', '.join(tried)})")
 
 
-def _check_single_device(config: TrainingConfig) -> None:
-    """One device: a mesh axis of -1 (every device) or 1 is the one
-    card; more raises.  Under -1 the card count is logged, with a warning
-    when the host has more than one."""
-    mesh = config.mesh
-    if mesh.data > 1 or mesh.seq > 1 or (config.num_processes or 1) > 1 \
-            or config.coordinator_address:
+def _host(config: TrainingConfig) -> Tuple[int, int]:
+    """(this process's index, the process count): the coordinator flags,
+    or one process without a coordinator."""
+    if config.coordinator_address:
+        return config.process_id or 0, config.num_processes or 1
+    return 0, 1
+
+
+def data_parallel_plan(config: TrainingConfig, device) -> Tuple[Mesh, int]:
+    """(mesh, ranks per process) of a run on ``device``'s kind of card.
+
+    The devices are the visible cards (the CPU counts as one) of each of
+    ``--num_processes`` processes when a coordinator is named, else of
+    this one; the mesh over them is resolved as the JAX trainer's
+    ``create_mesh(config.mesh, batch_size=config.batch_size)``.  Each
+    process runs ``data / num_processes`` ranks, which must split its
+    ``batch_size`` and ``val_batch_size`` rows evenly."""
+    mesh_config = config.mesh
+    if mesh_config.seq > 1:
         raise NotImplementedError(
-            f"mesh data={mesh.data} seq={mesh.seq}, num_processes="
-            f"{config.num_processes}: data-parallel training is not ported "
-            "yet (ROADMAP.md A.8); the port trains on one device")
-    if mesh.data == -1:
-        n = torch.cuda.device_count()
-        logger.info("--mesh_data -1: %d CUDA device(s) visible", n)
-        if n > 1:
-            logger.warning(
-                "--mesh_data -1 asks for every device, but data-parallel "
-                "training is not ported yet (ROADMAP.md A.8): training on "
-                "one of the %d CUDA devices", n)
+            f"--mesh_seq {mesh_config.seq}: sharding the time axis is not "
+            "ported (ROADMAP.md A.11); the port shards the batch only")
+    procs = _host(config)[1]
+    device = torch.device(device)
+    if device.type == "cuda":
+        local = torch.cuda.device_count()
+        logger.info("--mesh_data %d: %d CUDA device(s) visible to each of "
+                    "%d process(es)", mesh_config.data, local, procs)
+    else:
+        local = 1
+        logger.info("--mesh_data %d: the CPU, one device a process, %d "
+                    "process(es)", mesh_config.data, procs)
+    mesh = create_mesh(mesh_config, local * procs,
+                       batch_size=config.batch_size)
+    if mesh.data % procs:
+        raise ValueError(
+            f"data-axis size {mesh.data} must be a multiple of the process "
+            f"count {procs}")
+    ranks = mesh.data // procs
+    for name in ("batch_size", "val_batch_size"):
+        if getattr(config, name) % ranks:
+            raise ValueError(
+                f"{name} {getattr(config, name)} is not divisible by the "
+                f"{ranks} data-parallel rank(s) of a process (the JAX "
+                "trainer fails there in its sharded step)")
+    logger.info("mesh: data=%d seq=%d over %d device(s), %d rank(s) a "
+                "process", mesh.data, mesh.seq, local * procs, ranks)
+    return mesh, ranks
+
+
+def _with_end(items):
+    """``items``, then None."""
+    yield from items
+    yield None
+
+
+def _agree(control, preempted: bool, kind: int):
+    """(stop, preempted) as every rank sees it.  ``kind`` is what this
+    rank holds for the next call: 0 nothing (its loader is exhausted or
+    the epoch's steps are done), 1 a batch, 2 a chunk of scan steps.  The
+    ranks stop when any was preempted, any holds nothing or they hold
+    different kinds: each call all-reduces the same buffers, so one rank
+    taking a step alone would wait forever.  ``control`` None: this
+    process alone."""
+    if control is None:
+        return preempted or kind == 0, preempted
+    flags = torch.tensor([int(preempted), -kind, kind])
+    dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=control)
+    lo, hi = -int(flags[1]), int(flags[2])
+    preempted = bool(flags[0])
+    return preempted or lo == 0 or lo != hi, preempted
 
 
 def train_model(
@@ -217,7 +290,29 @@ def train_model(
     TrainState.  ``train_loader``/``val_loader`` may be injected; by
     default they come from the dataset tree at ``dataset_fp``."""
     device = training_device(device)
-    _check_single_device(config)
+    if device.type == "cuda" and device.index is None:
+        # explicit, for the prefetch thread: a new thread's current card
+        # is cuda:0, whatever this rank's is
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh, ranks = data_parallel_plan(config, device)
+    group = control = None
+    if dist.is_available() and dist.is_initialized():
+        if process_count() != mesh.data:
+            raise RuntimeError(
+                f"the process group has {process_count()} ranks and the "
+                f"mesh's data axis {mesh.data}")
+        group = dist.group.WORLD
+        # host-side flags and barriers over gloo: they wait on no stream
+        control = group if dist.get_backend() == "gloo" else \
+            dist.new_group(backend="gloo", timeout=TIMEOUT)
+    elif mesh.data > 1:
+        raise RuntimeError(
+            f"mesh data={mesh.data} trains one process per rank: start the "
+            "run with movenet_tpu_torch.train.cli, or join each rank to a "
+            "process group first (parallel.initialize_distributed)")
+    rank = process_index()
+    local_rank = rank % ranks
+    host, hosts = _host(config)
     mc = config.model_config
     loader_kwargs = dict(
         input_channels=mc.input_channels,
@@ -226,14 +321,19 @@ def train_model(
         accumulation_steps=config.accumulation_steps,
         max_audio_frames=mc.max_audio_frames,
         max_video_frames=mc.max_video_frames,
-        process_index=0,
-        process_count=1,
+        process_index=host,
+        process_count=hosts,
     )
+
+    def rows(batch_size):
+        b = batch_size // ranks
+        return None if ranks == 1 else (local_rank * b, (local_rank + 1) * b)
+
     if train_loader is None:
         train_loader = get_dataloader(
             dataset_fp, train=True, num_workers=config.num_workers,
             batch_subsample_frac=config.batch_subsample_frac,
-            **loader_kwargs)
+            rows=rows(config.batch_size), **loader_kwargs)
     if val_loader is None:
         vkw = dict(loader_kwargs)
         vkw.update(batch_size=config.val_batch_size,
@@ -241,11 +341,16 @@ def train_model(
         val_loader = get_dataloader(
             dataset_fp, train=False, num_workers=config.val_num_workers,
             batch_subsample_frac=config.val_batch_subsample_frac,
-            shuffle=False, **vkw)
+            shuffle=False, rows=rows(config.val_batch_size), **vkw)
 
     steps_per_epoch = train_loader.steps_per_epoch()
     if config.n_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, config.n_steps_per_epoch)
+    if control is not None:
+        # the processes' shares of the index may differ in length
+        n = torch.tensor([steps_per_epoch])
+        dist.all_reduce(n, op=dist.ReduceOp.MIN, group=control)
+        steps_per_epoch = int(n)
 
     # a run without video never feeds context: drop the per-block context
     # convs so they carry no dead optimizer state or decay
@@ -280,19 +385,21 @@ def train_model(
         state = ckpt.restore(state)
         logger.info("auto-resumed at epoch %d (step %d)", start_epoch,
                     state.step)
+    if group is not None:
+        replicate(state.module, group)
 
-    if process_index() == 0:
+    if rank == 0:
         config.save(out_dir / "config.json")
     writer = make_writer(config)
 
-    train_step = make_train_step(model, config)
+    train_step = make_train_step(model, config, group)
     scan_n = max(1, int(config.scan_steps))
-    scan_step = make_scan_train_step(model, config, scan_n) \
+    scan_step = make_scan_train_step(model, config, scan_n, group) \
         if scan_n > 1 else None
     # a chunk carries one leading axis over the plain (accumulation-aware)
     # batch rank
     base_ndim = 2 + (config.accumulation_steps > 1)
-    eval_step = make_eval_step(model, config)
+    eval_step = make_eval_step(model, config, group)
     guard = PreemptionGuard()
     log_every = max(1, config.log_every_n_steps)
 
@@ -308,10 +415,18 @@ def train_model(
         source = train_loader.epoch(epoch)
         if scan_step is not None:
             source = _chunk_batches(source, scan_n, steps_per_epoch)
-        for batch in _device_prefetch(source, device):
-            if n_steps >= steps_per_epoch or guard.requested:
+        for batch in _with_end(_device_prefetch(source, device)):
+            chunk = batch is not None and scan_step is not None \
+                and batch.codes.dim() == base_ndim + 1
+            kind = 0 if batch is None or n_steps >= steps_per_epoch \
+                else 1 + chunk
+            stop, preempted = _agree(control, kind != 0 and guard.requested,
+                                     kind)
+            if preempted:
+                guard.requested = True
+            if stop:
                 break
-            if scan_step is not None and batch.codes.dim() == base_ndim + 1:
+            if chunk:
                 # a full chunk: scan_n steps in one call, metrics (scan_n,)
                 state, metrics = scan_step(state, batch)
                 n_steps += scan_n
@@ -342,13 +457,17 @@ def train_model(
         train_mean = {} if metric_sums is None else {
             k: float(v) / n_steps for k, v in metric_sums.items()}
 
-        if guard.requested:
+        if _agree(control, guard.requested, 1)[1]:
             logger.warning("preempted: checkpointing at epoch %d", epoch)
-            ckpt.save(epoch, state)
+            if rank == 0:
+                ckpt.save(epoch, state)
+            sync_global_devices(f"preempted_{epoch}", control)
             break
 
         val_metrics = []
-        for batch in val_loader.epoch(epoch):
+        for batch in _with_end(val_loader.epoch(epoch)):
+            if _agree(control, False, int(batch is not None))[0]:
+                break
             m = eval_step(state, batch)
             val_metrics.append({k: float(v) for k, v in m.items()})
         if val_metrics:
@@ -370,12 +489,42 @@ def train_model(
             _log_samples(model, config, val_loader, out_dir, epoch, writer)
 
         is_last = epoch == config.n_epochs - 1
-        if is_last or (epoch + 1) % config.checkpoint_every == 0:
+        if rank == 0 and (is_last
+                          or (epoch + 1) % config.checkpoint_every == 0):
             ckpt.save(epoch, state)
+        # torch saves are not collective (orbax's are): the other ranks
+        # wait here for rank 0's checkpoint and samples
+        sync_global_devices(f"epoch_{epoch}", control)
 
     guard.restore()
     writer.close()
+    if control is not None:
+        _check_replicas(state.module, control)
     return state
+
+
+def params_digest(module: torch.nn.Module) -> str:
+    """sha256 of every parameter and buffer's bytes, in state-dict order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in module.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _check_replicas(module: torch.nn.Module, control) -> None:
+    """Every rank must end with the same weights: they took the same
+    averaged updates.  Raises on rank 0 when they differ."""
+    digests = [None] * dist.get_world_size(control)
+    dist.all_gather_object(digests, params_digest(module), group=control)
+    if process_index() == 0:
+        if len(set(digests)) != 1:
+            raise RuntimeError(
+                f"the ranks' params differ after training: {digests}")
+        logger.info("the %d ranks' params are equal (sha256 %s)",
+                    len(digests), digests[0])
 
 
 def _log_samples(model: WaveNet, config, val_loader, out_dir, epoch,
@@ -432,4 +581,5 @@ def _log_samples(model: WaveNet, config, val_loader, out_dir, epoch,
                           videos=sources if config.log_video else None)
 
 
-__all__ = ["PreemptionGuard", "train_model"]
+__all__ = ["PreemptionGuard", "data_parallel_plan", "params_digest",
+           "train_model"]

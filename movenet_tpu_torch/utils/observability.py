@@ -15,16 +15,11 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from movenet_tpu_torch.parallel.mesh import process_index
+
 logger = logging.getLogger(__name__)
 
 
-def process_index() -> int:
-    """This process's rank (0 without an initialised process group)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
 
 
 class Writer:

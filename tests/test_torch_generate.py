@@ -3,6 +3,7 @@ against the JAX package's (movenet_tpu/generate.py, utils/samples.py,
 ops/resample.py) on the same checkpoint and signals; ``--dataset`` on a
 video-conditioned checkpoint and a synthetic dataset tree."""
 
+import importlib
 import wave
 
 import jax.numpy as jnp
@@ -29,12 +30,14 @@ import movenet_tpu_torch.native.loader as t_native
 import movenet_tpu_torch.utils.samples as samples
 from movenet_tpu_torch import generate
 from movenet_tpu_torch.config import TrainingConfig as TTrainingConfig
-from movenet_tpu_torch.ops import resample as t_resample
 from movenet_tpu_torch.train.checkpoint import save_params
 # the JAX checkpoint and its port twin, built once per module
 from test_torch_serve import run_dirs  # noqa: F401
 
 torch.set_num_threads(1)
+# the module: ``movenet_tpu_torch.ops`` exports its function ``resample``
+# under the same name, as the JAX package's ``ops`` does
+t_resample = importlib.import_module("movenet_tpu_torch.ops.resample")
 
 
 def _pcm(path):

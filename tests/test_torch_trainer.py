@@ -256,16 +256,25 @@ def test_config_from_args_matches_jax(which, tmp_path):
     assert got == want
 
 
-def test_unported_trainer_options_raise(tmp_path):
+def test_unported_trainer_options_raise(tmp_path, monkeypatch):
+    """--mesh_seq > 1 (time sharding) is not ported and cites A.11;
+    --mesh_data 2 on a host with one card raises JAX's create_mesh error,
+    from the trainer and from the CLI before it spawns anything."""
     from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.train.cli import main
     from movenet_tpu_torch.train.trainer import train_model
 
-    for extra, label in ((["--mesh_data", "2"], "A.8"),
-                         (["--num_processes", "2"], "A.8")):
-        cfg = config_from_args(arg_parser().parse_args(
-            ["--dataset", "d", "--model_output_path", str(tmp_path), *extra]))
-        with pytest.raises(NotImplementedError, match=label):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    base = ["--dataset", "d", "--model_output_path", str(tmp_path)]
+    for extra, err, match in (
+            (["--mesh_seq", "2"], NotImplementedError, "A.11"),
+            (["--mesh_data", "2"], ValueError,
+             "mesh 2x1 does not cover 1 devices")):
+        cfg = config_from_args(arg_parser().parse_args([*base, *extra]))
+        with pytest.raises(err, match=match):
             train_model("d", cfg, device="cpu")
+        with pytest.raises(err, match=match):
+            main([*base, *extra], device="cpu")
 
 
 def test_chunk_batches():
@@ -304,8 +313,9 @@ def _script_flags(path):
                                           (4, True)])
 def test_mesh_data_all_logs_the_device_count(count, warns, monkeypatch,
                                              caplog):
-    """--mesh_data -1 trains on one card: the trainer logs how many the
-    host has and warns when there are more than one."""
+    """--mesh_data -1 at batch 6: the trainer logs how many cards the host
+    has (count 0: a CPU run, one device) and the fitted data axis; on 4
+    cards that is 3 ranks, with JAX's warning for the idle card."""
     import logging
 
     from movenet_tpu_torch.config import arg_parser, config_from_args
@@ -313,15 +323,24 @@ def test_mesh_data_all_logs_the_device_count(count, warns, monkeypatch,
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
     cfg = config_from_args(arg_parser().parse_args(
-        ["--dataset", "d", "--mesh_data", "-1"]))
-    with caplog.at_level(logging.INFO, logger=trainer.logger.name):
-        trainer._check_single_device(cfg)
-    assert f"{count} CUDA device(s) visible" in caplog.text
+        ["--dataset", "d", "--mesh_data", "-1", "--batch_size", "6",
+         "--val_batch_size", "6"]))
+    with caplog.at_level(logging.INFO):
+        mesh, ranks = trainer.data_parallel_plan(
+            cfg, "cuda" if count else "cpu")
+    if count:
+        assert f"{count} CUDA device(s) visible" in caplog.text
+    else:
+        assert "the CPU, one device a process" in caplog.text
+    data = 3 if warns else 1
+    assert (mesh.data, mesh.seq, ranks) == (data, 1, data)
+    assert f"mesh: data={data} seq=1" in caplog.text
     warned = [r for r in caplog.records if r.levelno == logging.WARNING]
     assert bool(warned) == warns
     if warns:
-        assert "A.8" in warned[0].getMessage()
-        assert f"one of the {count} CUDA devices" in warned[0].getMessage()
+        assert warned[0].getMessage() == (
+            "mesh auto-fit: using 3 of 4 devices (data=3, seq=1) so the "
+            "data axis divides batch_size=6")
 
 
 def test_trainer_leaves_no_loader_thread_running(tmp_path, monkeypatch):
@@ -362,17 +381,20 @@ def test_trainer_leaves_no_loader_thread_running(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["03_kinetics_scale_up",
                                   "04_kinetics_receptive_field"])
-def test_experiment_scripts_match_jax(name, tmp_path):
+def test_experiment_scripts_match_jax(name, tmp_path, monkeypatch):
     """experiments/torch/<name>.sh passes the JAX script's flags, to the
     port's CLI, and both parse into the same TrainingConfig; the port
-    takes it on one device (03's --mesh_data -1 is the one card)."""
+    plans it on one device as one rank.  On a host of 4 cards experiment
+    03 (batch 3) trains on three ranks; experiment 04 (batch 2) would
+    take two, whose rows its default validation batch of 3 does not
+    split: it raises at start-up, where JAX fails in its sharded step."""
     from pathlib import Path
 
     from movenet_tpu.config import arg_parser as j_parser
     from movenet_tpu.config import config_from_args as j_config
 
     from movenet_tpu_torch.config import arg_parser, config_from_args
-    from movenet_tpu_torch.train.trainer import _check_single_device
+    from movenet_tpu_torch.train.trainer import data_parallel_plan
 
     root = Path(__file__).resolve().parents[1] / "experiments"
     flags = _script_flags(root / "torch" / f"{name}.sh")
@@ -383,7 +405,14 @@ def test_experiment_scripts_match_jax(name, tmp_path):
         "--model_output_path", str(tmp_path / "m")]
     cfg = config_from_args(arg_parser().parse_args(argv))
     assert cfg.to_dict() == j_config(j_parser().parse_args(argv)).to_dict()
-    _check_single_device(cfg)
+    assert data_parallel_plan(cfg, "cpu")[0].data == 1
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    if name.startswith("03"):
+        assert data_parallel_plan(cfg, "cuda")[0].data == 3
+    else:
+        with pytest.raises(ValueError, match="val_batch_size 3 is not "
+                           "divisible by the 2 data-parallel rank"):
+            data_parallel_plan(cfg, "cuda")
     mc = cfg.model_config
     assert (mc.input_channels, mc.skip_channels) == (128, 8)
     assert mc.residual_channels == (32 if name.startswith("03") else 16)
