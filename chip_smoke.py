@@ -152,22 +152,37 @@ Phases (any failure exits non-zero and prints no result):
      V=128) and experiment 04's (B=2, L=14, dilations 1..8192, R=16, S=8,
      V=128), T=160000, forward and backward against their plain versions,
      the backward's device time by grid;
-  20. experiments 03 and 04 (the main path of these widths): the trainer
-     CLI with the flags of experiments/torch/03_*.sh and 04_*.sh on
-     synthetic clips at the real format (30 train + 3 valid), cut only in
-     epochs (2), steps per epoch (1 and 2) and clips; per-update losses
+  20. experiments 03 and 04 (the main path of these widths) and 00 and
+     01 (the JAX trainer's default unfused route): the trainer CLI with
+     the flags of experiments/torch/0[0-4]_*.sh on synthetic clips at the
+     real format (30 train + 3 valid), cut only in epochs (2, or 1 for
+     00 and 01), steps per epoch (1, 2, 3) and clips; per-update losses
      finite, the LR and beta1 of every update equal to the port's
-     schedule at that run's total steps, step ms, launch counts (head
-     kernels at C=128, trunk kernels at the new widths, no recompute
-     kernel); experiment 04 cut at the end of epoch 0 and resumed equals
-     the uninterrupted run bit for bit (params, optimizer state, LR and
-     beta1);
+     schedule at that run's total steps, step ms, peak device memory,
+     launch counts (03/04: head kernels at C=128, trunk kernels at the
+     new widths, no recompute kernel; 00/01: no training kernel at all);
+     00's and 01's updates run again on the CPU from the run's initial
+     weights on the batches the card saw: each update's loss and the
+     first update's grad_norm within 1e-3 relative (the later grad_norms
+     printed beside); experiment 04 cut at the end of epoch 0 and resumed
+     equals the uninterrupted run bit for bit (params, optimizer state,
+     LR and beta1);
+  20b. sequence parallel: two ranks spawned on this card over gloo on a
+     (data 1, seq 2) mesh through ``make_parallel_train_step``, each on
+     its window of the time axis, with experiment 01's flags at full
+     width (B=3, T=160000, video) on the first 1 + 3 batches of its
+     loader over phase 20's clips: the ranks' batches equal, their
+     metrics and params' digests equal after every step, no training
+     kernel launched, and each step's loss and grad_norm within 1e-3
+     relative of one process's step on the same rows from the ranks'
+     weights before it; each rank's step ms and the one process's;
   21. times: samples/s of the AR kernels and the plain versions (video
      and audio-only side by side), the speculative kernel's time per
      generated sample beside the standard kernel's, the train step and
      kernel times, the merged route's against the split route's, the
      gated block's and the per-block trunk's, the new forms' and the
-     experiments' update times, the flagship trainer step;
+     experiments' update times and peak memory, the flagship trainer
+     step, the sequence-parallel step;
   22. the kernels line (18 entries, every form of the fourteen TPU kernel
      functions, each with its bound from this run's shapes; the new
      widths' readings under "widths"; the speculative rows also with
@@ -1808,11 +1823,16 @@ def phase_gated_block(torch, np, model, batch):
 
 class timed_train_steps:
     """Within the block the trainer's train steps are timed, each to a
-    synchronised card (observation only)."""
+    synchronised card (observation only).  ``record``: for that many
+    first steps also keep the config, the weights the step starts from,
+    its batch and its metrics, on the CPU."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, record=0):
         self.torch = torch
+        self.record = record
         self.ms = []
+        self.weights, self.batches, self.metrics = [], [], []
+        self.config = None
 
     def __enter__(self):
         from movenet_tpu_torch.train import trainer
@@ -1820,15 +1840,25 @@ class timed_train_steps:
         self.real = trainer.make_train_step
         torch, ms = self.torch, self.ms
 
-        def make(model, config, group=None):
-            step = self.real(model, config, group)
+        def make(model, config, group=None, mesh=None):
+            step = self.real(model, config, group, mesh=mesh)
+            self.config = config
 
             def timed(state, batch):
+                keep = len(ms) < self.record
+                if keep:
+                    self.weights.append({
+                        k: v.detach().cpu().clone()
+                        for k, v in state.module.state_dict().items()})
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = step(state, batch)
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
+                if keep:
+                    self.batches.append(batch.to("cpu"))
+                    self.metrics.append({k: float(v)
+                                         for k, v in out[1].items()})
                 return out
 
             return timed
@@ -2590,20 +2620,6 @@ def phase_narrow_trunk(torch, np):
     return rec
 
 
-def script_flags(name):
-    """The trainer flags of experiments/torch/<name>.sh, without the
-    dataset and "$@"."""
-    import shlex
-
-    text = (ROOT / "experiments" / "torch" / f"{name}.sh").read_text()
-    check("movenet_tpu_torch.train.cli" in text, f"{name}.sh does not call "
-          "the port's trainer CLI")
-    body = text[text.index(".train.cli"):].split("\n", 1)[1]
-    flags = [f for f in shlex.split(body.replace("\\\n", " ")) if f != "$@"]
-    i = flags.index("--dataset")
-    return flags[:i] + flags[i + 2:]
-
-
 class recorded_schedule:
     """Within the block each update's LR and beta1 (as the optimizer holds
     them when it steps) are recorded (observation only)."""
@@ -2653,6 +2669,8 @@ def preempt_after(n):
 
 
 def exp_run(name, ds, out, logs, extra):
+    from movenet_tpu_torch.utils.fixtures import script_flags
+
     return trainer_cli(["--dataset", str(ds), *script_flags(name),
                      "--model_output_path", str(out), "--logger", "jsonl",
                      "--training_logs_path", str(logs),
@@ -2660,28 +2678,70 @@ def exp_run(name, ds, out, logs, extra):
 
 
 EXP_NAMES = {"exp03": "03_kinetics_scale_up",
-             "exp04": "04_kinetics_receptive_field"}
+             "exp04": "04_kinetics_receptive_field",
+             "exp00": "00_audio_only_debug",
+             "exp01": "01_audio_video_debug"}
 # cuts: epochs, steps per epoch and the clip count only
 EXP_CUTS = {"exp03": ["--n_epochs", "2", "--n_steps_per_epoch", "1"],
-            "exp04": ["--n_epochs", "2", "--n_steps_per_epoch", "2"]}
+            "exp04": ["--n_epochs", "2", "--n_steps_per_epoch", "2"],
+            "exp00": ["--n_epochs", "1", "--n_steps_per_epoch", "10"],
+            "exp01": ["--n_epochs", "1", "--n_steps_per_epoch", "10"]}
+# the unfused route's first two updates again, each from the card's
+# weights before it on its batch: update 0 on the CPU in the run's bf16,
+# update 1 in float32 on the card and on the CPU (there bf16 rounding
+# alone parts the two grad_norms by 1.2e-3).  Relative bars, PERF.md:
+# bf16, the loss below the spread of a random model's near-uniform
+# losses; float32, the bars of tests/test_torch_parallel.py
+REPLAY_BARS = {"bf16": {"loss": 1e-5, "grad_norm": 1e-3},
+               "float32": {"loss": 1e-5, "grad_norm": 1e-4}}
+
+
+def replay(torch, rec, i, device, dtype=None):
+    """Recorded trainer step ``i`` again on ``device``: the run's config
+    (its compute dtype, or ``dtype``), the step's weights and batch; the
+    metrics and the host ms."""
+    from dataclasses import replace
+
+    from movenet_tpu_torch.models.wavenet import make_wavenet
+    from movenet_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = rec.config
+    if dtype is not None:
+        cfg = replace(cfg, model_config=replace(cfg.model_config,
+                                                compute_dtype=dtype))
+    model = make_wavenet(cfg.model_config)
+    model.load_state_dict(rec.weights[i])
+    # the loss and grad_norm of an update do not depend on the LR
+    state = create_train_state(model, cfg, device=device,
+                               steps_per_epoch=len(rec.batches))
+    t0 = time.perf_counter()
+    _, m = make_train_step(model, cfg)(state, rec.batches[i])
+    return dict(ms=(time.perf_counter() - t0) * 1e3,
+                **{k: float(v) for k, v in m.items()})
 
 
 def phase_experiments(torch, np, root):
-    """Experiments 03 and 04 through the trainer CLI with their scripts'
-    flags on synthetic clips at the real format; per run the per-update
-    losses, the LR and beta1 of every update against the port's schedule
-    at that run's total steps, step ms and launch counts (the head kernels
-    at C = 128 and the save trunk kernels at the new widths launched, no
-    recompute kernel).  Then experiment 04 is cut at the end of epoch 0
-    and resumed: params, optimizer state, LR and beta1 equal the
-    uninterrupted run's bit for bit.  Returns (records, launches)."""
+    """Experiments 03, 04, 00 and 01 through the trainer CLI with their
+    scripts' flags on synthetic clips at the real format; per run the
+    per-update losses, the LR and beta1 of every update against the
+    port's schedule at that run's total steps, step ms, peak memory and
+    launch counts (03/04: the head kernels at C = 128 and the save trunk
+    kernels at the new widths launched, no recompute kernel; 00/01, the
+    unfused route: no training kernel).  00's and 01's first two updates
+    run again from the card's weights before each (``replay``,
+    ``REPLAY_BARS``).
+    Then experiment 04 is cut at the end of epoch 0 and resumed: params,
+    optimizer state, LR and beta1 equal the uninterrupted run's bit for
+    bit.  Returns (records, launches, the clips' directory)."""
     import math
 
     from movenet_tpu_torch.config import arg_parser, config_from_args
     from movenet_tpu_torch.data import kinetics_index, make_synthetic_dataset
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
     from movenet_tpu_torch.ops.cuda import head_loss as kh
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
     from movenet_tpu_torch.train import optim, trainer
+    from movenet_tpu_torch.utils.fixtures import script_flags
 
     t0 = time.perf_counter()
     ds = root / "exp_clips"
@@ -2695,20 +2755,28 @@ def phase_experiments(torch, np, root):
           f"16 fps, 10 s, 96x96) written in {time.perf_counter() - t0:.1f} "
           f"s; cuts: the clip count, " + "; ".join(
               f"{k} {' '.join(v)}" for k, v in EXP_CUTS.items()), flush=True)
-    recs, launches = {}, {}
+    recs, launches, states = {}, {}, {}
     for exp, name in EXP_NAMES.items():
         cfg = config_from_args(arg_parser().parse_args(
             ["--dataset", str(ds), *script_flags(name), *EXP_CUTS[exp]]))
         mc = cfg.model_config
+        unfused = not cfg.fused_blocks
         ks.reset_launch_counts()
         kh.reset_launch_counts()
+        kg.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        with timed_train_steps(torch) as steps, recorded_schedule() as sch:
+        with timed_train_steps(torch, 2 if unfused else 0) as steps, \
+                recorded_schedule() as sch:
             state = exp_run(name, ds, root / exp, root / f"{exp}_logs",
                             EXP_CUTS[exp])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        counts = {**ks.launch_counts, **kh.launch_counts}
+        states[exp] = state
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        counts = {**ks.launch_counts, **kh.launch_counts,
+                  **kg.launch_counts}
         lines = [json.loads(l) for l in (root / f"{exp}_logs" /
                                          "metrics.jsonl").read_text()
                  .splitlines()]
@@ -2741,22 +2809,27 @@ def phase_experiments(torch, np, root):
               f"{exp}: logged learning_rate {logged}")
         micro = n_updates * cfg.accumulation_steps
         val_batches = n_val // cfg.val_batch_size
-        want_counts = {"stack_fwd": micro + cfg.n_epochs * val_batches,
-                       "stack_bwd": micro, "head_bwd": micro,
-                       "head_fwd": micro + cfg.n_epochs * val_batches,
-                       "stack_fwd_tails": 0, "stack_bwd_tails": 0,
-                       "head_fwd_packed": 0, "head_bwd_packed": 0}
+        if unfused:
+            want_counts = {k: 0 for k in counts}
+        else:
+            want_counts = {"stack_fwd": micro + cfg.n_epochs * val_batches,
+                           "stack_bwd": micro, "head_bwd": micro,
+                           "head_fwd": micro + cfg.n_epochs * val_batches,
+                           "stack_fwd_tails": 0, "stack_bwd_tails": 0,
+                           "head_fwd_packed": 0, "head_bwd_packed": 0}
         check(all(counts[k] == v for k, v in want_counts.items()),
               f"{exp}: launches {counts}, expected {want_counts}")
         median = float(np.median(steps.ms[1:] if len(steps.ms) > 1
                                  else steps.ms))
         recs[exp] = dict(
             losses=losses, lr_beta1=sch.seen, step_ms=steps.ms,
-            median_ms=median, wall_s=wall,
+            median_ms=median, wall_s=wall, peak_gb=peak_gb,
             shape=f"B={cfg.batch_size} x {cfg.accumulation_steps} "
                   f"microbatches, T=160000, L={len(state.module.dilations)}, "
                   f"R={mc.residual_channels}, S={mc.skip_channels}, "
-                  f"C={mc.input_channels}, bf16, video")
+                  f"C={mc.input_channels}, bf16, "
+                  + ("video" if cfg.use_video else "no video")
+                  + (", unfused" if unfused else ""))
         for k in ("stack_fwd", "stack_bwd", "head_fwd", "head_bwd"):
             launches[k] = launches.get(k, 0) + counts[k]
         print(f"{exp} trainer CLI ({name}.sh flags + {' '.join(EXP_CUTS[exp])}"
@@ -2766,10 +2839,34 @@ def phase_experiments(torch, np, root):
               f"{[round(v, 6) for v in losses]}; LR, beta1 per update "
               f"{[(round(a, 9), round(b, 6)) for _, a, b in sch.seen]}; "
               f"step ms {[round(v, 1) for v in steps.ms]} (median after the "
-              f"first {median:.1f}); launches {counts}", flush=True)
+              f"first {median:.1f}); peak memory {peak_gb:.3f} GB; launches "
+              f"{counts}", flush=True)
+        if unfused:
+            check(len(steps.batches) == 2,
+                  f"{exp}: {len(steps.batches)} steps recorded")
+            t1 = time.perf_counter()
+            runs = {"bf16": (steps.metrics[0], replay(torch, steps, 0, "cpu")),
+                    "float32": (replay(torch, steps, 1, "cuda", "float32"),
+                                replay(torch, steps, 1, "cpu", "float32"))}
+            bad, read = [], []
+            for kind, (card, cpu) in runs.items():
+                for k, tol in REPLAY_BARS[kind].items():
+                    rel = abs(card[k] - cpu[k]) / abs(cpu[k])
+                    read.append(f"{kind} {k} {card[k]!r} / {cpu[k]!r}, "
+                                f"{rel:.3g} (bar {tol:g})")
+                    if rel > tol:
+                        bad.append(read[-1])
+            recs[exp]["cpu"] = {kind: cpu for kind, (_, cpu) in runs.items()}
+            print(f"{exp} updates 0 (bf16) and 1 (float32) again, each from "
+                  f"the card's weights before it on its batch, whole batch "
+                  f"({time.perf_counter() - t1:.1f} s; CPU host ms "
+                  f"{round(runs['bf16'][1]['ms'])}, "
+                  f"{round(runs['float32'][1]['ms'])}): card / CPU, "
+                  f"relative difference: " + "; ".join(read), flush=True)
+            check(not bad, f"{exp}: {bad}")
     # experiment 04 cut at the end of epoch 0 (the guard's third read),
     # resumed with --auto_resume 1, against the uninterrupted run above
-    whole = state
+    whole = states["exp04"]
     real_guard = trainer.PreemptionGuard
     trainer.PreemptionGuard = preempt_after(3)
     try:
@@ -2804,7 +2901,179 @@ def phase_experiments(torch, np, root):
           f"{g['lr']!r} and beta1 {g['betas'][0]!r} equal", flush=True)
     check(diff == 0.0 and opt_diff == 0.0, "the resumed run's params or "
           "optimizer state differ from the uninterrupted run's")
-    return recs, launches
+    return recs, launches, ds
+
+
+# the sequence-parallel phase: 1 + 3 steps of experiment 01 on a (data 1,
+# seq 2) mesh, two ranks on this card
+SEQ_STEPS = 4
+SEQ_EXP = "01_audio_video_debug"
+
+
+def seq_batches(torch, ds, cfg):
+    """The first SEQ_STEPS batches of experiment 01's train loader over
+    ``ds`` (every row: the one data index's), with each one's sha256."""
+    import hashlib
+    from itertools import islice
+
+    from movenet_tpu_torch.data import get_dataloader
+
+    mc = cfg.model_config
+    loader = get_dataloader(ds, input_channels=mc.input_channels,
+                            batch_size=cfg.batch_size,
+                            use_video=cfg.use_video, num_workers=4,
+                            max_audio_frames=mc.max_audio_frames,
+                            max_video_frames=mc.max_video_frames)
+    epoch = loader.epoch(0)
+    try:
+        batches = list(islice(epoch, SEQ_STEPS))
+    finally:
+        epoch.close()
+    check(len(batches) == SEQ_STEPS, f"{len(batches)} batches loaded")
+    digests = []
+    for b in batches:
+        h = hashlib.sha256()
+        for t in (b.codes, b.video, b.labels):
+            h.update(t.contiguous().view(torch.uint8).numpy())
+        digests.append(h.hexdigest())
+    return batches, digests
+
+
+def seq_rank(rank, port, out, ds):
+    """One of two ranks of a (data 1, seq 2) mesh on cuda:0 over gloo (a
+    spawned worker): experiment 01's model, each loaded batch cut to this
+    rank's window (``shard_batch``), ``make_parallel_train_step``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from movenet_tpu_torch.config import TrainingConfig
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.parallel import (
+        Mesh,
+        initialize_distributed,
+        make_parallel_train_step,
+        shard_batch,
+    )
+    from movenet_tpu_torch.train import create_train_state
+    from movenet_tpu_torch.train.trainer import params_digest
+    from movenet_tpu_torch.utils.fixtures import experiment
+
+    initialize_distributed(TrainingConfig(num_processes=2, process_id=rank),
+                           device="cuda", backend="gloo",
+                           address=f"127.0.0.1:{port}")
+    try:
+        cfg, model = experiment(SEQ_EXP, device="cuda")
+        mesh = Mesh(1, 2)
+        batches, digests = seq_batches(torch, ds, cfg)
+        state = create_train_state(model, cfg, device="cuda")
+        step = make_parallel_train_step(model, cfg, mesh=mesh)
+        weights, recs = [], []
+        for batch, digest in zip(batches, digests):
+            shard = shard_batch(batch, rank, mesh.data, mesh.seq, model)
+            if rank == 0:
+                weights.append({k: v.detach().cpu().clone()
+                                for k, v in model.state_dict().items()})
+            shard = shard.to("cuda")
+            for k in (ks, kh, kg):
+                k.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, shard)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            recs.append(dict(
+                ms=ms, batch=digest, window=list(shard.codes.shape),
+                launches=sum(sum(k.launch_counts.values())
+                             for k in (ks, kh, kg)),
+                digest=params_digest(state.module),
+                **{k: float(m[k]) for k in ("loss", "accuracy",
+                                            "grad_norm")}))
+        Path(out, f"rank{rank}.json").write_text(json.dumps(recs))
+        if rank == 0:
+            torch.save(weights, Path(out, "weights.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_seq_parallel(torch, np, root, ds):
+    """Two gloo ranks on this card at (data 1, seq 2) with experiment 01's
+    flags at full width train SEQ_STEPS steps through the library API;
+    each step's loss and grad_norm against one process on the same rows
+    from the ranks' weights before it.  Returns the step ms (rank 0's
+    median after the first, and the one process's)."""
+    import torch.multiprocessing as mp
+
+    from movenet_tpu_torch.train import create_train_state, make_train_step
+    from movenet_tpu_torch.utils.fixtures import experiment
+
+    t0 = time.perf_counter()
+    out = root / "seq_ranks"
+    out.mkdir()
+    ctx = mp.spawn(seq_rank, args=(free_port(), str(out), str(ds)),
+                   nprocs=2, join=False)
+    deadline = time.perf_counter() + DP_DEADLINE_S
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise PhaseFailed(f"the seq ranks ran past {DP_DEADLINE_S} s")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in (0, 1)]
+    cfg, model = experiment(SEQ_EXP, device="cuda")
+    state = create_train_state(model, cfg, device="cuda")
+    step = make_train_step(model, cfg)
+    batches, digests = seq_batches(torch, ds, cfg)
+    one = []
+    for weights, batch in zip(torch.load(out / "weights.pt",
+                                         weights_only=True), batches):
+        model.load_state_dict(weights)
+        batch = batch.to("cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        one.append(dict(ms=(time.perf_counter() - t1) * 1e3,
+                        **{k: float(m[k]) for k in ("loss", "grad_norm")}))
+    bad = []
+    for i, (r0, r1, o) in enumerate(zip(*ranks, one)):
+        for r, rec in enumerate((r0, r1)):
+            print(f"sequence parallel rank {r} step {i}: window "
+                  f"{rec['window']}; loss {rec['loss']:.6f} grad_norm "
+                  f"{rec['grad_norm']:.6g}; {rec['ms']:.2f} ms; launches "
+                  f"{rec['launches']}; batch sha256 {rec['batch'][:16]}; "
+                  f"params sha256 {rec['digest'][:16]}", flush=True)
+            if rec["launches"]:
+                bad.append(f"rank {r} step {i}: {rec['launches']} "
+                           "training-kernel launches")
+            if rec["batch"] != digests[i]:
+                bad.append(f"rank {r} step {i}: another batch than the "
+                           "one process's")
+        print(f"sequence parallel one process step {i} (3 rows, whole "
+              f"clips) from the ranks' weights: loss {o['loss']:.6f} "
+              f"grad_norm {o['grad_norm']:.6g}; {o['ms']:.2f} ms",
+              flush=True)
+        if {k: v for k, v in r0.items() if k not in ("ms", "window")} != \
+                {k: v for k, v in r1.items() if k not in ("ms", "window")}:
+            bad.append(f"step {i}: the ranks differ")
+        for k in ("loss", "grad_norm"):
+            if abs(r0[k] - o[k]) > 1e-3 * abs(o[k]):
+                bad.append(f"step {i}: {k} {r0[k]} against one process's "
+                           f"{o[k]}")
+    med = [float(np.median([r["ms"] for r in recs[1:]]))
+           for recs in (*ranks, one)]
+    print(f"sequence parallel: 2 gloo ranks on one card at (data 1, seq 2),"
+          f" experiment 01's flags (B=3, T=160000 in two windows, video, "
+          f"bf16, unfused), {SEQ_STEPS} steps in {wall:.1f} s with the "
+          f"spawn; step ms (median after the first) rank 0 {med[0]:.2f}, "
+          f"rank 1 {med[1]:.2f} (both ranks share the card), one process "
+          f"on the whole clips {med[2]:.2f}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(not bad, f"sequence parallel: {bad}")
+    return med
 
 
 def main() -> int:
@@ -2942,8 +3211,11 @@ def main() -> int:
         phase = "narrow trunk"
         narrow_recs = phase_narrow_trunk(torch, np)
         with tempfile.TemporaryDirectory() as tmp:
-            phase = "experiments 03 and 04"
-            exp_recs, exp_launches = phase_experiments(torch, np, Path(tmp))
+            phase = "experiments 03, 04, 00 and 01"
+            exp_recs, exp_launches, exp_ds = phase_experiments(
+                torch, np, Path(tmp))
+            phase = "sequence parallel"
+            seq_ms = phase_seq_parallel(torch, np, Path(tmp), exp_ds)
         for k, v in exp_launches.items():
             launches[k] += v
 
@@ -2951,7 +3223,12 @@ def main() -> int:
         for exp, r in exp_recs.items():
             print(f"time {exp} trainer CLI ({r['shape']}): update "
                   f"{r['median_ms']:.2f} ms (median after the first, "
-                  f"{len(r['step_ms'])} updates); {card}", flush=True)
+                  f"{len(r['step_ms'])} updates), peak memory "
+                  f"{r['peak_gb']:.3f} GB; {card}", flush=True)
+        print(f"time sequence parallel (experiment 01, data 1 x seq 2, two "
+              f"gloo ranks on one card): step {seq_ms[0]:.2f} ms (rank 0, "
+              f"median), one process on the whole clips {seq_ms[2]:.2f} ms; "
+              f"{card}", flush=True)
         for (name, exp), r in narrow_recs.items():
             print(f"time {name} {exp}: kernel {r['ms']:.3f} ms, plain "
                   f"{r['plain_ms']:.3f} ms; {card}", flush=True)

@@ -257,8 +257,9 @@ def arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--flat_optimizer", type=_bool_flag, default=True)
     p.add_argument("--scan_steps", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
-    # distributed: parsed and stored; a mesh of more than one device
-    # raises in the trainer (data parallelism is not ported yet)
+    # distributed: the processes and the (data, seq) mesh, resolved by
+    # train.trainer.data_parallel_plan (--dist_backend, --dist_port:
+    # parsed and stored)
     p.add_argument("--dist_backend", type=str, default=None)
     p.add_argument("--dist_port", type=str, default="8888")
     p.add_argument("--coordinator_address", type=str, default=None)

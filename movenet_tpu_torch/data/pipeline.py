@@ -23,7 +23,10 @@ accumulation), taking the clips those columns would hold in the
 one-process order; the crop draws are made once a batch as there, so
 without failed decodes the ranks' batches, put side by side, are the
 one-process batches bit for bit.  A failed decode is substituted by the
-next clip of the rank's own share.
+next clip of the rank's own share.  The seq ranks of one data index
+pass the same ``rows``: they walk the same clips and make the same
+draws, so they hold the same batches (each then cuts its window of the
+time axis).
 """
 
 from __future__ import annotations

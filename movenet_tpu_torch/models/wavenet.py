@@ -394,9 +394,21 @@ class WaveNet(nn.Module):
             skip_sum = skip if skip_sum is None else skip_sum + skip
         return self._head(skip_sum)
 
-    def _context(self, audio, video):
+    def _context(self, audio, video, start=None):
+        """The upsampled video context of ``audio``'s samples: with
+        ``start`` None the whole clips (equal lengths, at least RF
+        samples), else the window ``[start, start + W)`` of them, cut
+        from the whole clips' context."""
         context = self.encode_video(video) if video is not None else None
         t_in = audio.shape[-1] if audio.ndim == 3 else audio.shape[1]
+        if start is not None:
+            if context is None:
+                return None
+            if context.shape[1] < start + t_in:
+                raise ValueError(
+                    f"a window of samples [{start}, {start + t_in}) past "
+                    f"the upsampled video's {context.shape[1]}")
+            return context[:, start:start + t_in]
         if context is not None and context.shape[1] != t_in:
             raise ValueError(
                 "expected upsampled video and audio to have equal time "
@@ -426,10 +438,27 @@ class WaveNet(nn.Module):
                      video: Optional[torch.Tensor] = None,
                      labels: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-        """(B, T - RF, C) logits; position i predicts ``codes[:, RF+i]``."""
-        context = self._context(audio, video)
+        """(B, T - RF, C) logits; position i predicts ``codes[:, RF+i]``:
+        ``window_logits`` of the whole clips."""
+        return self.window_logits(audio, None, self.receptive_fields - 1,
+                                  video, labels)
+
+    def window_logits(self, audio: torch.Tensor, start: Optional[int],
+                      first: int, video: Optional[torch.Tensor] = None,
+                      labels: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """The logits of a window of the clips (a ``seq`` rank's):
+        ``audio`` (B, W) int codes holds the clips' samples ``[start,
+        start + W)`` (``start`` None: the whole clips) and ``video`` the
+        whole clips.  Returns (B, W - 1 - first, C): row i predicts
+        ``audio[:, first + 1 + i]``.  The rows before ``first`` are the
+        halo, whose own logits see the window's zero fill; a row at or
+        past the stack's reach (1 + the sum of the dilations) sees none.
+        The context is encoded from the whole clip (the encoder's
+        upsampler needs it) and then cut to the window."""
+        context = self._context(audio, video, start)
         logits = self.backbone(audio, context, self.embed_global(labels))
-        return logits[:, self.receptive_fields - 1:-1, :]
+        return logits[:, first:-1, :]
 
     def prompt_state(self, audio: torch.Tensor,
                      context: Optional[torch.Tensor] = None,

@@ -1,14 +1,15 @@
-"""Data parallelism: the mesh's axis sizes, distributed init, sharding
-rules and the data-parallel steps.
+"""Parallelism: the (data, seq) mesh's axis sizes, distributed init,
+sharding rules and the parallel steps.
 
 The JAX package runs one SPMD program over a named device mesh; the
 port runs one process per card (``torch.multiprocessing.spawn`` from
 ``train.cli``, the reference's ``dist_train_model``), each rank training
-on its rows of the batch through the port's CUDA kernels, with the
-gradients averaged over NCCL.
+on its rows of the batch (and, on a ``seq`` axis, its window of the time
+axis) with the gradients averaged over NCCL.
 """
 
 from movenet_tpu_torch.parallel.mesh import (
+    Mesh,
     create_mesh,
     initialize_distributed,
     local_batch_size,
@@ -21,6 +22,8 @@ from movenet_tpu_torch.parallel.sharding import (
     make_parallel_train_step,
     replicate,
     shard_batch,
+    time_window,
+    window_batch,
 )
 
 __all__ = [
@@ -34,4 +37,7 @@ __all__ = [
     "make_parallel_eval_step",
     "replicate",
     "shard_batch",
+    "Mesh",
+    "time_window",
+    "window_batch",
 ]

@@ -1,4 +1,4 @@
-"""The data-parallel layout and the distributed runtime.
+"""The (data, seq) layout and the distributed runtime.
 
 The counterpart of ``movenet_tpu.parallel.mesh`` for one process per
 card.  A ``Mesh`` names the sizes of the JAX mesh's two axes:
@@ -6,10 +6,12 @@ card.  A ``Mesh`` names the sizes of the JAX mesh's two axes:
   * ``data``: the batch is split over the ranks (one process, one card
     each); every rank holds the whole model and the gradients are
     averaged over the ranks before the update;
-  * ``seq``: sharding of the time axis, which the JAX package runs on
-    its unfused XLA path only.  The port does not shard time
-    (ROADMAP.md A.11); ``create_mesh`` still resolves the axis as JAX
-    does, and the trainer refuses it.
+  * ``seq``: the time axis is split over the ranks of each data index,
+    on the unfused route only, as in the JAX package
+    (``parallel.sharding``).
+
+Rank r sits at (data index ``r // seq``, seq index ``r % seq``), the
+order of JAX's ``create_device_mesh((data, seq))``.
 
 ``initialize_distributed`` joins a rank to the run's process group:
 NCCL for CUDA tensors, gloo for the CPU (or, when the caller names it,
@@ -21,7 +23,7 @@ from __future__ import annotations
 import datetime
 import logging
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -46,6 +48,18 @@ class Mesh:
     @property
     def shape(self) -> Dict[str, int]:
         return {DATA_AXIS: self.data, SEQ_AXIS: self.seq}
+
+    @property
+    def size(self) -> int:
+        """The ranks of the mesh."""
+        return self.data * self.seq
+
+    def coords(self, rank: int) -> Tuple[int, int]:
+        """(data index, seq index) of ``rank``."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a {self.data}x{self.seq} "
+                             "mesh")
+        return divmod(rank, self.seq)
 
 
 def process_index() -> int:

@@ -7,17 +7,18 @@ flag.  It trains on the CUDA card and raises without one; only a caller of
 ``main`` or ``train_model`` can ask for the CPU.
 
 Several cards: ``--mesh_data -1`` (the default) fits the data axis to
-the largest divisor of ``--batch_size`` that this host's cards allow,
-``--mesh_data N`` asks for N exactly.  With a data axis of one and no
-coordinator the run trains in this process.  Otherwise the CLI spawns
-one worker process per rank of this host (the reference's
-``dist_train_model`` with ``mp.spawn``), which join one process group
-over NCCL at ``--coordinator_address`` (a free localhost port when none
-is given).  Across hosts, start the CLI once on each host with the same
+the largest divisor of ``--batch_size`` that this host's cards allow
+beside ``--mesh_seq`` (the time axis's ranks, default 1), ``--mesh_data
+N`` asks for N exactly.  With a mesh of one rank and no coordinator the
+run trains in this process.  Otherwise the CLI spawns one worker process
+per rank of this host (the reference's ``dist_train_model`` with
+``mp.spawn``), which join one process group over NCCL at
+``--coordinator_address`` (a free localhost port when none is given).
+Across hosts, start the CLI once on each host with the same
 ``--coordinator_address`` and ``--num_processes`` and its own
 ``--process_id``; host i's ranks are ``i * k .. i * k + k - 1`` of
-``k = data / num_processes`` a host.  A worker that fails ends the
-launcher with an error.
+``k = data * seq / num_processes`` a host.  A worker that fails ends
+the launcher with an error.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def _free_port() -> int:
 
 def _rank_main(local_rank: int, dataset: str, config, device: str,
                address: str, local_ranks: int) -> None:
-    """One data-parallel rank (a spawned worker)."""
+    """One rank of the mesh (a spawned worker)."""
     import torch.distributed as dist
 
     from movenet_tpu_torch.parallel.mesh import initialize_distributed
@@ -71,7 +72,7 @@ def main(argv=None, device="cuda"):
 
     device = training_device(device)
     mesh, ranks = data_parallel_plan(config, device)
-    if mesh.data == 1 and not config.coordinator_address:
+    if mesh.size == 1 and not config.coordinator_address:
         return train_model(args.dataset, config, device=device)
 
     import torch.multiprocessing as mp

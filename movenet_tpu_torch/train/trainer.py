@@ -12,18 +12,21 @@ count, and every train step logs its ``learning_rate``.  ``scan_steps`` >
 1 runs that many optimizer steps per call (``make_scan_train_step``) and
 logs each step's metrics at its own step.
 
-Data parallelism, as the JAX trainer's: ``data_parallel_plan`` resolves
-the mesh over the cards of every process (``--mesh_data -1`` fits the
-data axis to the largest divisor of ``batch_size``), and ``train.cli``
-starts one process per rank.  A process (host, ``--process_id`` of
-``--num_processes``) loads ``batch_size`` rows of its share of the clip
-index a step, as the JAX trainer's processes do, and its ranks split
-them (``DataLoader(rows=...)``); every rank takes the update of the
-whole batch.  Rank 0 alone writes ``config.json``, the metrics,
-checkpoints and samples; the ranks meet at a barrier after each
-checkpoint and at each epoch's end, and agree at each step whether to
-stop (a preemption or an exhausted loader on any rank stops all).  The
-sequence axis (``--mesh_seq`` > 1) is not ported (ROADMAP.md A.11).
+Parallelism, as the JAX trainer's: ``data_parallel_plan`` resolves the
+(data, seq) mesh over the cards of every process (``--mesh_data -1``
+fits the data axis to the largest divisor of ``batch_size`` that the
+cards ``--mesh_seq`` leaves allow), and ``train.cli`` starts one process
+per rank.  A process (host, ``--process_id`` of ``--num_processes``)
+loads ``batch_size`` rows of its share of the clip index a step, as the
+JAX trainer's processes do, and its data indices split them
+(``DataLoader(rows=...)``): the seq ranks of one data index load the
+same rows and each cuts its window of the time axis
+(``parallel.sharding.window_batch``; the fused route is off there, as
+in the JAX trainer).  Every rank takes the update of the whole batch.
+Rank 0 alone writes ``config.json``, the metrics, checkpoints and
+samples; the ranks meet at a barrier after each checkpoint and at each
+epoch's end, and agree at each step whether to stop (a preemption or an
+exhausted loader on any rank stops all).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from movenet_tpu_torch.parallel.mesh import (
     process_index,
     sync_global_devices,
 )
-from movenet_tpu_torch.parallel.sharding import replicate
+from movenet_tpu_torch.parallel.sharding import replicate, window_batch
 from movenet_tpu_torch.train.checkpoint import CheckpointManager, latest_step
 from movenet_tpu_torch.train.loop import (
     Batch,
@@ -161,7 +164,8 @@ def _stack_batches(bs) -> Batch:
         return None if vals[0] is None else torch.stack(vals)
 
     return Batch(codes=stack("codes"), video=stack("video"),
-                 labels=stack("labels"), codes_pack=stack("codes_pack"))
+                 labels=stack("labels"), codes_pack=stack("codes_pack"),
+                 window=bs[0].window)
 
 
 def _chunk_batches(batches, n: int, max_steps: Optional[int] = None):
@@ -220,13 +224,10 @@ def data_parallel_plan(config: TrainingConfig, device) -> Tuple[Mesh, int]:
     ``--num_processes`` processes when a coordinator is named, else of
     this one; the mesh over them is resolved as the JAX trainer's
     ``create_mesh(config.mesh, batch_size=config.batch_size)``.  Each
-    process runs ``data / num_processes`` ranks, which must split its
-    ``batch_size`` and ``val_batch_size`` rows evenly."""
+    process runs ``data * seq / num_processes`` ranks, and its ``data /
+    num_processes`` data indices must split its ``batch_size`` and
+    ``val_batch_size`` rows evenly."""
     mesh_config = config.mesh
-    if mesh_config.seq > 1:
-        raise NotImplementedError(
-            f"--mesh_seq {mesh_config.seq}: sharding the time axis is not "
-            "ported (ROADMAP.md A.11); the port shards the batch only")
     procs = _host(config)[1]
     device = torch.device(device)
     if device.type == "cuda":
@@ -243,16 +244,33 @@ def data_parallel_plan(config: TrainingConfig, device) -> Tuple[Mesh, int]:
         raise ValueError(
             f"data-axis size {mesh.data} must be a multiple of the process "
             f"count {procs}")
-    ranks = mesh.data // procs
+    indices = mesh.data // procs
     for name in ("batch_size", "val_batch_size"):
-        if getattr(config, name) % ranks:
+        if getattr(config, name) % indices:
             raise ValueError(
                 f"{name} {getattr(config, name)} is not divisible by the "
-                f"{ranks} data-parallel rank(s) of a process (the JAX "
+                f"{indices} data-parallel rank(s) of a process (the JAX "
                 "trainer fails there in its sharded step)")
+    ranks = mesh.size // procs
     logger.info("mesh: data=%d seq=%d over %d device(s), %d rank(s) a "
                 "process", mesh.data, mesh.seq, local * procs, ranks)
+    if mesh.seq > 1 and config.fused_blocks:
+        logger.info("--mesh_seq %d: the fused route is off (as in the JAX "
+                    "trainer); the ranks train the unfused route on their "
+                    "windows of the time axis", mesh.seq)
     return mesh, ranks
+
+
+def _mapped(items, fn):
+    """``fn`` of each of ``items``; closes ``items`` when it is closed
+    (a loader's epoch then stops its threads)."""
+    try:
+        for item in items:
+            yield fn(item)
+    finally:
+        close = getattr(items, "close", None)
+        if close is not None:
+            close()
 
 
 def _with_end(items):
@@ -297,22 +315,26 @@ def train_model(
     mesh, ranks = data_parallel_plan(config, device)
     group = control = None
     if dist.is_available() and dist.is_initialized():
-        if process_count() != mesh.data:
+        if process_count() != mesh.size:
             raise RuntimeError(
                 f"the process group has {process_count()} ranks and the "
-                f"mesh's data axis {mesh.data}")
+                f"mesh {mesh.data}x{mesh.seq}")
         group = dist.group.WORLD
         # host-side flags and barriers over gloo: they wait on no stream
         control = group if dist.get_backend() == "gloo" else \
             dist.new_group(backend="gloo", timeout=TIMEOUT)
-    elif mesh.data > 1:
+    elif mesh.size > 1:
         raise RuntimeError(
-            f"mesh data={mesh.data} trains one process per rank: start the "
-            "run with movenet_tpu_torch.train.cli, or join each rank to a "
-            "process group first (parallel.initialize_distributed)")
+            f"mesh data={mesh.data} seq={mesh.seq} trains one process per "
+            "rank: start the run with movenet_tpu_torch.train.cli, or join "
+            "each rank to a process group first "
+            "(parallel.initialize_distributed)")
     rank = process_index()
-    local_rank = rank % ranks
+    # this process's data indices split its rows; its seq ranks of one
+    # data index load the same rows
+    index, seq_index = mesh.coords(rank)
     host, hosts = _host(config)
+    indices = mesh.data // hosts
     mc = config.model_config
     loader_kwargs = dict(
         input_channels=mc.input_channels,
@@ -326,8 +348,8 @@ def train_model(
     )
 
     def rows(batch_size):
-        b = batch_size // ranks
-        return None if ranks == 1 else (local_rank * b, (local_rank + 1) * b)
+        b, i = batch_size // indices, index % indices
+        return None if indices == 1 else (i * b, (i + 1) * b)
 
     if train_loader is None:
         train_loader = get_dataloader(
@@ -392,14 +414,24 @@ def train_model(
         config.save(out_dir / "config.json")
     writer = make_writer(config)
 
-    train_step = make_train_step(model, config, group)
+    train_step = make_train_step(model, config, group, mesh=mesh)
     scan_n = max(1, int(config.scan_steps))
-    scan_step = make_scan_train_step(model, config, scan_n, group) \
-        if scan_n > 1 else None
+    scan_step = make_scan_train_step(model, config, scan_n, group,
+                                     mesh=mesh) if scan_n > 1 else None
     # a chunk carries one leading axis over the plain (accumulation-aware)
     # batch rank
     base_ndim = 2 + (config.accumulation_steps > 1)
-    eval_step = make_eval_step(model, config, group)
+    eval_step = make_eval_step(model, config, group, mesh=mesh)
+
+    def batches(loader, epoch):
+        """The loader's batches of ``epoch``, each cut to this rank's
+        window of the time axis on a seq mesh."""
+        source = loader.epoch(epoch)
+        if mesh.seq == 1:
+            return source
+        return _mapped(source, lambda b: window_batch(b, model, mesh.seq,
+                                                      seq_index))
+
     guard = PreemptionGuard()
     log_every = max(1, config.log_every_n_steps)
 
@@ -412,7 +444,7 @@ def train_model(
         t_window = time.perf_counter()
         window_start = 0
         last_log = 0
-        source = train_loader.epoch(epoch)
+        source = batches(train_loader, epoch)
         if scan_step is not None:
             source = _chunk_batches(source, scan_n, steps_per_epoch)
         for batch in _with_end(_device_prefetch(source, device)):
@@ -465,7 +497,7 @@ def train_model(
             break
 
         val_metrics = []
-        for batch in _with_end(val_loader.epoch(epoch)):
+        for batch in _with_end(batches(val_loader, epoch)):
             if _agree(control, False, int(batch is not None))[0]:
                 break
             m = eval_step(state, batch)

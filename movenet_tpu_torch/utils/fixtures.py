@@ -12,6 +12,8 @@ carry the JAX-trained fixture across with ``load_jax_params`` instead.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -69,6 +71,57 @@ BREAKDANCING = dict(layer_size=3, stack_size=3, input_channels=64,
 FLAGSHIP_TRAIN = dict(BREAKDANCING, layer_size=10, input_channels=256)
 
 
+def random_batch(mc, rows: int, use_video: bool = True, seed: int = 0,
+                 device="cuda"):
+    """A Batch of ``rows`` random clips at ``mc``'s format (a
+    ModelConfig): ``max_audio_frames`` codes below ``input_channels`` and,
+    with ``use_video``, ``max_video_frames`` frames of 64x64, from
+    ``seed``, on ``device``."""
+    from movenet_tpu_torch.train import Batch
+
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(
+        0, mc.input_channels, size=(rows, mc.max_audio_frames))).int()
+    video = torch.from_numpy(rng.standard_normal(
+        (rows, mc.max_video_frames, 64, 64, 1)).astype(np.float32)) \
+        if use_video else None
+    return Batch(codes=codes, video=video).to(device)
+
+
+EXPERIMENTS = Path(__file__).resolve().parents[2] / "experiments" / "torch"
+
+
+def script_flags(name: str) -> list:
+    """The trainer flags of ``experiments/torch/<name>.sh``, without the
+    dataset and "$@"."""
+    import shlex
+
+    text = (EXPERIMENTS / f"{name}.sh").read_text()
+    if "movenet_tpu_torch.train.cli" not in text:
+        raise ValueError(f"{name}.sh does not call the port's trainer CLI")
+    body = text[text.index(".train.cli"):].split("\n", 1)[1]
+    flags = [f for f in shlex.split(body.replace("\\\n", " "))
+             if f != "$@"]
+    i = flags.index("--dataset")
+    return flags[:i] + flags[i + 2:]
+
+
+def experiment(name: str, device="cuda", extra=()):
+    """(config, model) of ``experiments/torch/<name>.sh``'s flags (and
+    ``extra``) as the trainer builds them: the context convs only with
+    video, the weights from the config's seed, the model on ``device``."""
+    from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.models.wavenet import make_wavenet
+
+    cfg = config_from_args(arg_parser().parse_args(
+        ["--dataset", "-", *script_flags(name), *extra]))
+    mc = cfg.model_config
+    mc.use_context = mc.use_context and cfg.use_video
+    model = make_wavenet(
+        mc, generator=torch.Generator().manual_seed(cfg.seed))
+    return cfg, model.to(device)
+
+
 def breakdancing(seed: int = 0, device="cuda", widths=None):
     """(config, model, batch) of the breakdancing train step: layer 3 x
     stack 3, C=R=S=64, bf16, ``fused_blocks``, AdamW lr 3e-4 without a
@@ -78,18 +131,11 @@ def breakdancing(seed: int = 0, device="cuda", widths=None):
     are on ``device``."""
     from movenet_tpu_torch.config import ModelConfig, TrainingConfig
     from movenet_tpu_torch.models.wavenet import make_wavenet
-    from movenet_tpu_torch.train import Batch
 
     mc = ModelConfig(**(widths or BREAKDANCING))
     cfg = TrainingConfig(model_config=mc, optimizer="AdamW",
                          learning_rate=3e-4, scheduler=None, batch_size=2,
                          fused_blocks=True, weight_decay=0.0)
     model = make_wavenet(mc, generator=torch.Generator().manual_seed(seed))
-    rng = np.random.default_rng(seed)
-    t = mc.max_audio_frames
-    batch = Batch(
-        codes=torch.from_numpy(rng.integers(0, mc.input_channels,
-                                            size=(2, t))).int(),
-        video=torch.from_numpy(rng.standard_normal(
-            (2, mc.max_video_frames, 64, 64, 1)).astype(np.float32)))
-    return cfg, model.to(device), batch.to(device)
+    return cfg, model.to(device), random_batch(mc, 2, seed=seed,
+                                               device=device)

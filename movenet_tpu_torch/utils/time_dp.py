@@ -1,20 +1,25 @@
-"""The data-parallel trainer on every card of this host against one card.
+"""The parallel trainer on every card of this host against one card.
 
     python -m movenet_tpu_torch.utils.time_dp [--rows 2] [--steps 6]
+        [--seq 1] [--script 02_kinetics_breakdancing]
 
 Writes synthetic clips at the real format (16 kHz, 16 fps, 10 s, 96x96),
 then runs the trainer CLI with the flags of
-``experiments/torch/02_kinetics_breakdancing.sh`` and the recompute
-strategy at a global batch of ``--rows`` rows a card for one epoch of
-``--steps`` steps, twice: over every visible card
-(``--mesh_data -1``: the CLI spawns one rank a card, which join one NCCL
-group) and on card 0 alone (``CUDA_VISIBLE_DEVICES=0``: one process, no
-group).  Fails unless the multi-card run's ranks end with equal params
-and each step's training loss is within 1e-3 relative of the one-card
-run's.  Prints each run's update time (the trainer's ``steps_per_sec``
-at every step, synchronised by its logging; median after the first
-step) and wall time, with every card's name and power limit; the last
-line is a JSON summary.  Needs two or more CUDA devices.
+``experiments/torch/<script>.sh`` (a fused script's, such as 02, with
+the recompute strategy under ``--seq 1``) at a global batch of
+``--rows`` rows a data index for one epoch of ``--steps`` steps, twice:
+over every visible card (``--mesh_data -1 --mesh_seq <seq>``: a data
+axis of cards / seq indices, the time axis over seq cards each; the CLI
+spawns one rank a card, which join one NCCL group) and on card 0 alone
+(``CUDA_VISIBLE_DEVICES=0``: one process, no group).  Under ``--seq`` >
+1 the fused route is off, so the cards run the unfused route whatever
+the script says.  Fails unless the multi-card run's ranks end with equal
+params and each step's training loss is within 1e-3 relative of the
+one-card run's.  Prints each run's update time (the trainer's
+``steps_per_sec`` at every step, synchronised by its logging; median
+after the first step) and wall time, with every card's name and power
+limit; the last line is a JSON summary.  Needs two or more CUDA
+devices.
 """
 
 from __future__ import annotations
@@ -31,20 +36,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-SCRIPT = ROOT / "experiments" / "torch" / "02_kinetics_breakdancing.sh"
+SCRIPTS = ("00_audio_only_debug", "01_audio_video_debug",
+           "02_kinetics_breakdancing")
 TIMEOUT_S = 900
-
-
-def _script_flags() -> list:
-    """The trainer flags of experiment 02's script, without the dataset
-    and "$@"."""
-    import shlex
-
-    text = SCRIPT.read_text()
-    body = text[text.index(".train.cli"):].split("\n", 1)[1]
-    flags = [f for f in shlex.split(body.replace("\\\n", " ")) if f != "$@"]
-    i = flags.index("--dataset")
-    return flags[:i] + flags[i + 2:]
 
 
 def _run(cmd, env) -> str:
@@ -66,27 +60,43 @@ def _run(cmd, env) -> str:
 def main(argv=None) -> None:
     import torch
 
+    from movenet_tpu_torch.config import arg_parser, config_from_args
     from movenet_tpu_torch.data import make_synthetic_dataset
     from movenet_tpu_torch.ops.cuda import build
+    from movenet_tpu_torch.utils.fixtures import script_flags
 
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--rows", type=int, default=2, help="rows a card")
+    ap.add_argument("--rows", type=int, default=2,
+                    help="rows a data index")
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--seq", type=int, default=1,
+                    help="cards a data index (the time axis)")
+    ap.add_argument("--script", choices=SCRIPTS, default=SCRIPTS[-1])
     args = ap.parse_args(argv)
     cards = torch.cuda.device_count()
     if cards < 2:
         raise SystemExit("time_dp needs two or more CUDA devices")
+    if cards % args.seq:
+        raise SystemExit(f"--seq {args.seq} does not divide {cards} cards")
+    data = cards // args.seq
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().replace("\n", "; ")
-    batch = cards * args.rows
-    t0 = time.perf_counter()
-    build.build()   # once, before the ranks start
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    batch = data * args.rows
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         ds = Path(tmp) / "clips"
+        flags = script_flags(args.script)
+        fused = config_from_args(arg_parser().parse_args(
+            ["--dataset", str(ds), *flags])).fused_blocks and args.seq == 1
+        if fused:
+            # the fused route: the recompute strategy, and its kernels
+            # built once, before the ranks start
+            flags += ["--fused_strategy", "recompute"]
+            t0 = time.perf_counter()
+            build.build()
+            print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
         make_synthetic_dataset(ds, splits=("train", "valid"),
                                categories=["breakdancing"],
                                clips_per_category=batch * args.steps)
@@ -96,11 +106,12 @@ def main(argv=None) -> None:
                 env["CUDA_VISIBLE_DEVICES"] = visible
             out = Path(tmp) / label.replace(" ", "_")
             t0 = time.perf_counter()
+            mesh = [] if visible else ["--mesh_seq", str(args.seq)]
             log = _run([sys.executable, "-m", "movenet_tpu_torch.train.cli",
-                        "--dataset", str(ds), *_script_flags(), "--batch_size",
+                        "--dataset", str(ds), *flags, *mesh, "--batch_size",
                         str(batch), "--val_batch_size", str(batch),
                         "--n_epochs", "1", "--n_steps_per_epoch",
-                        str(args.steps), "--fused_strategy", "recompute",
+                        str(args.steps),
                         "--log_every_n_steps", "1", "--logger", "jsonl",
                         "--model_output_path", str(out / "run"),
                         "--training_logs_path", str(out / "logs")], env)
@@ -115,15 +126,16 @@ def main(argv=None) -> None:
                 wall_s=time.perf_counter() - t0, log=log)
     multi, one = runs["cards"], runs["one card"]
     want = [f"rank 0 of {cards} over nccl",
-            f"mesh: data={cards} seq=1 over {cards} device(s)",
+            f"mesh: data={data} seq={args.seq} over {cards} device(s)",
             f"the {cards} ranks' params are equal"]
     found = [next((l.split(": ", 3)[-1] for l in multi["log"].splitlines()
                    if w in l), None) for w in want]
     for line in found:
         print(f"time_dp: {line}", flush=True)
     for label, r in runs.items():
-        rows = args.rows if label == "cards" else batch
-        print(f"time_dp {label}: batch {batch} ({rows} rows a card), "
+        layout = f"data {data} x seq {args.seq}, {args.rows} rows a data " \
+            "index" if label == "cards" else f"{batch} rows"
+        print(f"time_dp {label} ({args.script}): batch {batch} ({layout}), "
               f"{len(r['ms'])} updates: ms "
               f"{[round(v, 2) for v in r['ms']]} (median after the first "
               f"{r['median_ms']:.2f}); losses "
@@ -136,7 +148,9 @@ def main(argv=None) -> None:
     bad += [f"step {i}: loss {a} against one card's {b}"
             for i, (a, b) in enumerate(zip(multi["loss"], one["loss"]))
             if abs(a - b) > 1e-3 * abs(b)]
-    print(json.dumps({"cards": cards, "batch": batch, "rows_a_card": args.rows,
+    print(json.dumps({"cards": cards, "script": args.script, "data": data,
+                      "seq": args.seq, "batch": batch,
+                      "rows_a_data_index": args.rows,
                       "card": card, "ms": multi["median_ms"],
                       "one_card_ms": one["median_ms"],
                       "loss": multi["loss"], "one_card_loss": one["loss"],

@@ -16,10 +16,25 @@ CPU against the JAX package's ``movenet_tpu.parallel``.
   rtol 1e-5, grad_norm 1e-4, the float32 bars of
   tests/test_torch_train.py.  Both ranks' metrics and params are exactly
   equal after every step.
-- The loader's rank slices, side by side, are the one-process batches.
-- The trainer CLI in two processes (``--num_processes 2``, gloo).
+- The sequence axis: gloo ranks on (data 1, seq 2) meshes (with and
+  without video, stack 1, a T - RF that does not split evenly, fused
+  blocks asked for) and one (data 2, seq 2) mesh in four processes,
+  layer 2 x stack 2, C=32, R=S=16, float32, T=512 (640 with video), B=2,
+  SGD, 2 steps, against JAX's ``make_parallel_train_step`` and
+  ``make_parallel_eval_step`` on ``create_mesh(MeshConfig(data=d,
+  seq=s))`` (the uneven case against JAX's unsharded step, which the
+  mesh equals), each on its own two steps: loss and accuracy
+  rtol 1e-5, grad_norm 1e-4, the same against the port's one process,
+  and the two steps' update of every parameter within 1e-3 of its
+  leaf's largest against both; every rank's metrics and params equal.  ``shard_batch``'s windows for every
+  layout.
+- The loader's rank slices, side by side, are the one-process batches;
+  the seq ranks of one data index load equal batches.
+- The trainer CLI in two processes (``--num_processes 2``, gloo), also
+  on the sequence axis.
 """
 
+import functools
 import json
 import logging
 import os
@@ -43,11 +58,14 @@ from movenet_tpu.models.wavenet import WaveNet as JWaveNet
 from movenet_tpu.models.wavenet import make_wavenet as j_make
 from movenet_tpu.parallel import create_mesh as j_create_mesh
 from movenet_tpu.parallel import local_batch_size as j_local_batch_size
+from movenet_tpu.parallel import make_parallel_eval_step as j_dp_eval
 from movenet_tpu.parallel import make_parallel_train_step as j_dp_step
 from movenet_tpu.parallel import shard_batch as j_shard_batch
 from movenet_tpu.train import create_train_state as j_create
 from movenet_tpu.train import make_optimizer as j_make_optimizer
 from movenet_tpu.train.loop import Batch as JBatch
+from movenet_tpu.train.loop import make_eval_step as j_eval_step
+from movenet_tpu.train.loop import make_train_step as j_train_step
 
 from movenet_tpu_torch.config import MeshConfig, ModelConfig, TrainingConfig
 from movenet_tpu_torch.models.convert import (
@@ -56,9 +74,19 @@ from movenet_tpu_torch.models.convert import (
     params_to_jax,
 )
 from movenet_tpu_torch.models.wavenet import make_wavenet
-from movenet_tpu_torch.parallel import create_mesh, local_batch_size
+from movenet_tpu_torch.parallel import (
+    Mesh,
+    create_mesh,
+    local_batch_size,
+    shard_batch,
+)
 from movenet_tpu_torch.parallel import mesh as t_mesh
-from movenet_tpu_torch.train import Batch, create_train_state, make_train_step
+from movenet_tpu_torch.train import (
+    Batch,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
 
 torch.set_num_threads(2)
 WORKER = Path(__file__).parent / "torch_dp_worker.py"
@@ -193,7 +221,7 @@ def dp_runs(tmp_path_factory):
         cases[name] = {"model": MODEL, "config": cfg}
     (out / "cases.json").write_text(json.dumps(cases))
     port = str(_free_port())
-    _run_workers([["steps", port, str(r), str(out)] for r in (0, 1)])
+    _run_workers([["steps", port, str(r), "2", str(out)] for r in (0, 1)])
     return {name: [dict(np.load(out / f"{name}_rank{r}.npz"))
                    for r in (0, 1)] for name in CASES}
 
@@ -252,6 +280,8 @@ def test_two_ranks_match_one_process_and_jax_mesh(name, dp_runs):
     # the ranks: the same metrics and params after every step, bit for bit
     assert set(r0) == set(r1)
     for k in r0:
+        if k == "shard_codes":
+            continue
         if k.startswith("digest"):
             assert r0[k] == r1[k], k
         else:
@@ -292,6 +322,267 @@ def test_ranks_draw_equal_weights_from_one_seed():
     assert params_digest(a) == params_digest(b)
 
 
+# ---------------------------------------------------------- sequence axis
+SEQ_T = 512
+SEQ_STEPS = 2
+SEQ_CASES = {
+    "seq2": dict(mesh=(1, 2)),
+    "seq2_video_accum2": dict(mesh=(1, 2), video=True, accum=2, t=640,
+                              frames=64),
+    "seq2_stack1": dict(mesh=(1, 2), stack=1),
+    "seq2_uneven": dict(mesh=(1, 2), t=SEQ_T + 1),
+    "seq2_fused": dict(mesh=(1, 2), fused=True),
+    "data2_seq2": dict(mesh=(2, 2)),
+}
+
+
+def _seq_case(name):
+    """(model dict, config dict, global batch) of a sequence-axis case."""
+    c = SEQ_CASES[name]
+    t = c.get("t", SEQ_T)
+    model = dict(layer_size=2, stack_size=c.get("stack", 2),
+                 input_channels=32, residual_channels=16, skip_channels=16,
+                 compute_dtype="float32", max_audio_frames=t,
+                 max_video_frames=c.get("frames", 64))
+    accum = c.get("accum", 1)
+    # SGD: its update is the gradient, so the params after two steps hold
+    # every element of the gradients against the reference (Adam's would
+    # give rounding-noise elements steps of up to lr, as above)
+    cfg = dict(optimizer="SGD", learning_rate=2.0, scheduler=None,
+               batch_size=2, weight_decay=0.0,
+               fused_blocks=c.get("fused", False), accumulation_steps=accum)
+    lead = (accum,) if accum > 1 else ()
+    rng = np.random.default_rng(100 + len(name))
+    data = {"codes": rng.integers(0, 32, size=lead + (2, t)).astype(
+        np.int32)}
+    if c.get("video"):
+        data["video"] = rng.standard_normal(
+            lead + (2, model["max_video_frames"], 64, 64, 1)).astype(
+                np.float32)
+    return model, cfg, data
+
+
+@functools.lru_cache(maxsize=None)
+def _seq_init(name):
+    """(JAX model, its initial params) of a sequence-axis case."""
+    model, _, data = _seq_case(name)
+    first = (0,) * (data["codes"].ndim - 2)
+    jm = j_make(JModelConfig(**model))
+    video = data.get("video")
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(data["codes"][first]),
+                     None if video is None else jnp.asarray(video[first]),
+                     None, method=JWaveNet.init_all)["params"]
+    return jm, params
+
+
+def _seq_workers(tmp_path_factory, world):
+    """Every rank's results of the sequence-axis cases of ``world``
+    ranks (one worker a rank)."""
+    out = tmp_path_factory.mktemp(f"seq_steps{world}")
+    names = [n for n, c in SEQ_CASES.items() if Mesh(*c["mesh"]).size == world]
+    cases = {}
+    for name in names:
+        model, cfg, data = _seq_case(name)
+        np.savez(out / f"{name}_params.npz",
+                 **flatten_tree(jax.device_get(_seq_init(name)[1]), sep="/"))
+        np.savez(out / f"{name}.npz", **data)
+        cases[name] = {"model": model, "config": cfg,
+                       "mesh": SEQ_CASES[name]["mesh"], "steps": SEQ_STEPS}
+    (out / "cases.json").write_text(json.dumps(cases))
+    port = str(_free_port())
+    _run_workers([["steps", port, str(r), str(world), str(out)]
+                  for r in range(world)])
+    return {name: [dict(np.load(out / f"{name}_rank{r}.npz"))
+                   for r in range(world)] for name in names}
+
+
+@pytest.fixture(scope="module")
+def seq_runs2(tmp_path_factory):
+    return _seq_workers(tmp_path_factory, 2)
+
+
+@pytest.fixture(scope="module")
+def seq_runs4(tmp_path_factory):
+    return _seq_workers(tmp_path_factory, 4)
+
+
+def _seq_jax(name):
+    """JAX's eval step and SEQ_STEPS train steps on the case's mesh (the
+    uneven case: unsharded): the eval metrics, each step's metrics and
+    the params after the last step (as the port's named parameters)."""
+    model, cfg, data = _seq_case(name)
+    jm, params = _seq_init(name)
+    jcfg = JTrainingConfig(model_config=JModelConfig(**model),
+                           fused_interpret=cfg["fused_blocks"], **cfg)
+    state = j_create(jm, jcfg, j_make_optimizer(jcfg),
+                     jax.random.PRNGKey(0),
+                     JBatch(codes=jnp.asarray(data["codes"])))
+    state = state.replace(params=params, opt_state=state.tx.init(params))
+    d, s = SEQ_CASES[name]["mesh"]
+    lead = (0,) * (data["codes"].ndim - 2)
+    jb = JBatch(codes=data["codes"], video=data.get("video"))
+    eb = JBatch(codes=data["codes"][lead],
+                video=None if "video" not in data else data["video"][lead])
+    has_video = "video" in data
+    mesh = j_create_mesh(JMeshConfig(data=d, seq=s),
+                         devices=jax.devices()[:d * s])
+    with mesh:
+        if name == "seq2_uneven":
+            step = jax.jit(j_train_step(jm, jcfg))
+            evals = jax.jit(j_eval_step(jm, jcfg))
+            batch, ebatch = (JBatch(codes=jnp.asarray(b.codes))
+                             for b in (jb, eb))
+        else:
+            step = j_dp_step(jm, jcfg, mesh, has_video=has_video)
+            evals = j_dp_eval(jm, jcfg, mesh, has_video=has_video)
+            batch, ebatch = j_shard_batch(mesh, jb), j_shard_batch(mesh, eb)
+        ev = {k: float(v) for k, v in evals(state, ebatch).items()}
+        metrics = []
+        for _ in range(SEQ_STEPS):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+    tm = load_jax_params(make_wavenet(ModelConfig(**model)),
+                         jax.device_get(state.params))
+    return ev, metrics, {n: p.detach().numpy()
+                         for n, p in tm.named_parameters()}
+
+
+def _seq_one_process(name):
+    """The port's one process on the whole batch: SEQ_STEPS steps'
+    metrics, the params before and after them."""
+    model, cfg, data = _seq_case(name)
+    tm = load_jax_params(make_wavenet(ModelConfig(**model)),
+                         _seq_init(name)[1])
+    init = {n: p.detach().numpy().copy() for n, p in tm.named_parameters()}
+    tcfg = TrainingConfig(model_config=ModelConfig(**model), **cfg)
+    state = create_train_state(tm, tcfg, device="cpu")
+    step = make_train_step(tm, tcfg)
+    batch = Batch(**{k: torch.from_numpy(v) for k, v in data.items()})
+    metrics = []
+    for _ in range(SEQ_STEPS):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, init, {n: p.detach().numpy() for n, p in
+                           tm.named_parameters()}
+
+
+@pytest.mark.parametrize("name", list(SEQ_CASES))
+def test_seq_ranks_match_jax_mesh(name, request):
+    ranks = request.getfixturevalue(
+        f"seq_runs{Mesh(*SEQ_CASES[name]['mesh']).size}")[name]
+    r0 = ranks[0]
+    # every rank: the same metrics and params after every step, bit for
+    # bit (the seq ranks' windows differ, their update does not)
+    for r in ranks[1:]:
+        assert set(r) == set(r0)
+        for k in r0:
+            if k not in ("shard_codes", "digest_before", "digest_after"):
+                np.testing.assert_array_equal(r[k], r0[k], err_msg=k)
+    assert all(r["digest_before"] == r["digest_after"] for r in ranks)
+
+    ev, jax_metrics, jax_params = _seq_jax(name)
+    for k in ("loss", "accuracy"):
+        np.testing.assert_allclose(r0[f"eval_{k}"], ev[k], rtol=1e-5,
+                                   err_msg=k)
+    one, init, one_params = _seq_one_process(name)
+    for want in (jax_metrics, one):
+        for i, m in enumerate(want):
+            for k, rtol in (("loss", 1e-5), ("accuracy", 1e-5),
+                            ("grad_norm", 1e-4)):
+                np.testing.assert_allclose(r0[k][i], m[k], rtol=rtol,
+                                           err_msg=f"step {i} {k}")
+    # the two steps' update of every element, to 1e-3 of its leaf's
+    # largest (a halo one row short moves grad_norm by 7e-4)
+    for want in (jax_params, one_params):
+        for n, p in want.items():
+            moved = p - init[n]
+            np.testing.assert_allclose(
+                r0[f"param{SEQ_STEPS - 1}/{n}"] - init[n], moved, rtol=0,
+                atol=1e-3 * np.abs(moved).max(), err_msg=n)
+
+
+@pytest.mark.parametrize("leading", [0, 1, 2])
+@pytest.mark.parametrize("seq", [1, 2])
+def test_batch_sharding_matches_jax(leading, seq):
+    """Each field's axes as JAX's ``batch_sharding`` gives them on a
+    (data 2, seq) mesh: time on ``seq`` when it is above 1, or when
+    asked."""
+    from movenet_tpu.parallel import batch_sharding as j_batch_sharding
+
+    from movenet_tpu_torch.parallel import batch_sharding
+
+    jm = j_create_mesh(JMeshConfig(data=2, seq=seq),
+                       devices=jax.devices()[:2 * seq])
+    for shard_time in (None, True, False):
+        want = j_batch_sharding(jm, leading, shard_time)
+        got = batch_sharding(leading, shard_time, Mesh(2, seq))
+        for field in ("codes", "video", "labels"):
+            assert getattr(got, field) == tuple(getattr(want, field)), field
+
+
+@pytest.mark.parametrize("lead", [(), (2,), (3, 2)])
+@pytest.mark.parametrize("stack,t,seq", [(2, 512, 2), (1, 513, 2),
+                                         (3, 700, 4)])
+def test_shard_batch_windows(lead, stack, t, seq):
+    """Every layout: each rank holds its data rows and a window of the
+    codes whose own positions, joined over the seq ranks, are the clip's
+    T - RF targets once each; its halo is the stack's reach (RF - S + 1)
+    cut at the clip's start; the video and labels are its rows, whole."""
+    model = make_wavenet(ModelConfig(layer_size=3, stack_size=stack,
+                                     input_channels=8, residual_channels=4,
+                                     skip_channels=4, max_audio_frames=t))
+    rf = model.receptive_fields
+    reach = rf - stack + 1
+    data = 2
+    rng = np.random.default_rng(0)
+    codes = torch.from_numpy(rng.integers(0, 8, size=lead + (4, t)))
+    video = torch.randn(lead + (4, 3, 2, 2, 1))
+    labels = torch.arange(4).expand(lead + (4,))
+    batch = Batch(codes=codes, video=video, labels=labels,
+                  codes_pack=torch.zeros(1))
+    for d in range(data):
+        rows = slice(2 * d, 2 * d + 2)
+        owned, shares = [], 0.0
+        for s_ in range(seq):
+            shard = shard_batch(batch, d * seq + s_, data, seq, model)
+            w = shard.window
+            own_from = w.start + w.first
+            assert w.start == max(0, own_from - reach)
+            width = shard.codes.shape[-1]
+            assert torch.equal(shard.codes, codes[..., rows, w.start:
+                                                  w.start + width])
+            assert torch.equal(shard.video, video[..., rows, :, :, :, :])
+            assert torch.equal(shard.labels, labels[..., rows])
+            assert shard.codes_pack is None
+            # logit rows first .. width - 2: targets first+1 .. width-1
+            owned += list(range(own_from + 1 - rf, w.start + width - rf))
+            shares += w.share
+            assert w.share == pytest.approx(
+                (w.start + width - own_from - 1) / (t - rf))
+        assert owned == list(range(t - rf))
+        assert shares == pytest.approx(1.0)
+    with pytest.raises(ValueError, match="needs the model"):
+        shard_batch(batch, 0, data, seq)
+
+
+def test_seq_step_needs_a_window():
+    """A step on a seq mesh refuses whole clips (each rank would count
+    every position), and any other step refuses a window (it would
+    divide the windows' sums by the wrong count)."""
+    mc = ModelConfig(**dict(MODEL, layer_size=2))
+    model = make_wavenet(mc)
+    cfg = TrainingConfig(model_config=mc, optimizer="Adam", scheduler=None)
+    state = create_train_state(model, cfg, device="cpu")
+    batch = Batch(codes=torch.zeros(2, 64, dtype=torch.int32))
+    window = shard_batch(batch, 1, 1, 2, model)
+    for make in (make_train_step, make_eval_step):
+        with pytest.raises(ValueError, match="time window"):
+            make(model, cfg, mesh=Mesh(1, 2))(state, batch)
+        for mesh in (None, Mesh(2, 1)):
+            with pytest.raises(ValueError, match="whole clips"):
+                make(model, cfg, mesh=mesh)(state, window)
+
+
 # --------------------------------------------------------------- loader
 @pytest.fixture(scope="module")
 def clips(tmp_path_factory):
@@ -330,6 +621,26 @@ def test_loader_rank_slices_join_to_one_process_batches(clips, accum,
     # the crop is taken (half of each clip), and the classes differ
     assert whole[0].codes.shape[-1] == 1000
     assert len({int(x) for w in whole for x in w.labels.reshape(-1)}) == 2
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_loader_seq_ranks_load_equal_batches(clips, accum):
+    """On a (data 2, seq 2) mesh at batch 4 the two seq ranks of each data
+    index pass the same rows: their loaders walk the same clips and draw
+    the same crops, so they hold equal batches (which each then cuts to
+    its window)."""
+    from movenet_tpu_torch.data.pipeline import get_dataloader
+
+    kw = dict(input_channels=64, batch_size=4, accumulation_steps=accum,
+              batch_subsample_frac=0.5, max_audio_frames=2000,
+              max_video_frames=2, num_workers=2)
+    for rows in ((0, 2), (2, 4)):
+        first, second = (list(get_dataloader(clips, rows=rows, **kw)
+                              .epoch(3)) for _ in range(2))
+        assert len(first) == len(second) == 12 // (4 * accum)
+        for a, b in zip(first, second):
+            for field in ("codes", "video", "labels"):
+                assert torch.equal(getattr(a, field), getattr(b, field))
 
 
 def test_loader_rows_checked(clips):
@@ -421,3 +732,68 @@ def test_trainer_cli_two_processes(tmp_path):
     assert [l["step"] for l in lines if l["tag"] == "train"] == [2, 4, 6]
     assert json.loads((out / "checkpoints" / "2" / "state.json")
                       .read_text()) == {"step": 6}
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)])
+def test_trainer_seq_ranks_match_one_process(tmp_path, mesh):
+    """The trainer on a (data, seq) mesh of gloo ranks (with video, fused
+    blocks asked for and taken off, cropped clips) logs the losses of the
+    unfused one-process run on the same clips within 1e-5 (accuracies
+    within one position), ends with its params (SGD: no Adam steps on rounding noise), and
+    its ranks end with equal params: the seq ranks of one data index load
+    the same rows and crops."""
+    from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.train.trainer import train_model
+
+    root = _cli_clips(tmp_path / "ds")
+    batch = str(2 * mesh[0])
+
+    def argv(name, extra):
+        return ["--dataset", str(root), "--n_epochs", "1", "--batch_size",
+                batch, "--val_batch_size", batch, "--optimizer", "SGD",
+                "--learning_rate", "0.5",
+                "--input_channels", "64", "--residual_channels", "16",
+                "--skip_channels", "16", "--layer_size", "3",
+                "--stack_size", "2", "--num_workers", "1",
+                "--val_num_workers", "1", "--compute_dtype", "float32",
+                "--use_video", "1", "--batch_subsample_frac", "0.5",
+                "--log_samples_every", "0", "--logger", "jsonl",
+                "--model_output_path", str(tmp_path / name / "m"),
+                "--training_logs_path", str(tmp_path / name / "l"), *extra]
+
+    f = tmp_path / "argv.json"
+    f.write_text(json.dumps(argv("seq", [
+        "--mesh_data", str(mesh[0]), "--mesh_seq", str(mesh[1]),
+        "--fused_blocks", "1"])))
+    port = str(_free_port())
+    outs = _run_workers([["train", port, str(r), str(f)]
+                         for r in range(mesh[0] * mesh[1])])
+    n = mesh[0] * mesh[1]
+    assert f"the {n} ranks' params are equal" in outs[0]
+
+    # the workers' geometry: 1 s clips of 2 frames
+    one = config_from_args(arg_parser().parse_args(argv("one", [])))
+    one.model_config.max_audio_frames = 2000
+    one.model_config.max_video_frames = 2
+    train_model(str(root), one, device="cpu")
+
+    def logged(name):
+        lines = [json.loads(l) for l in (tmp_path / name / "l" /
+                 "metrics.jsonl").read_text().splitlines()]
+        return {tag: [(l["step"], l["loss"], l["accuracy"]) for l in lines
+                      if l["tag"] == tag] for tag in ("train", "val")}
+
+    got, want = logged("seq"), logged("one")
+    # 1 s clips of 2000 samples cropped to half, RF 16: an argmax tie
+    # broken the other way moves the accuracy by one position
+    n_valid = int(batch) * (1000 - 16)
+    for tag in ("train", "val"):
+        assert [s for s, *_ in got[tag]] == [s for s, *_ in want[tag]]
+        assert want[tag]
+        for (_, gl, ga), (_, wl, wa) in zip(got[tag], want[tag]):
+            np.testing.assert_allclose(gl, wl, rtol=1e-5)
+            assert abs(ga - wa) <= 1.0 / n_valid + 1e-7
+    a = np.load(tmp_path / "seq" / "m" / "checkpoints" / "0" / "params.npz")
+    b = np.load(tmp_path / "one" / "m" / "checkpoints" / "0" / "params.npz")
+    for k in b.files:
+        np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-5, err_msg=k)

@@ -257,9 +257,9 @@ def test_config_from_args_matches_jax(which, tmp_path):
 
 
 def test_unported_trainer_options_raise(tmp_path, monkeypatch):
-    """--mesh_seq > 1 (time sharding) is not ported and cites A.11;
-    --mesh_data 2 on a host with one card raises JAX's create_mesh error,
-    from the trainer and from the CLI before it spawns anything."""
+    """--mesh_data 2 on a host with one card raises JAX's create_mesh
+    error, from the trainer and from the CLI before it spawns
+    anything."""
     from movenet_tpu_torch.config import arg_parser, config_from_args
     from movenet_tpu_torch.train.cli import main
     from movenet_tpu_torch.train.trainer import train_model
@@ -267,9 +267,8 @@ def test_unported_trainer_options_raise(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     base = ["--dataset", "d", "--model_output_path", str(tmp_path)]
     for extra, err, match in (
-            (["--mesh_seq", "2"], NotImplementedError, "A.11"),
             (["--mesh_data", "2"], ValueError,
-             "mesh 2x1 does not cover 1 devices")):
+             "mesh 2x1 does not cover 1 devices"),):
         cfg = config_from_args(arg_parser().parse_args([*base, *extra]))
         with pytest.raises(err, match=match):
             train_model("d", cfg, device="cpu")
@@ -455,3 +454,62 @@ def _cfg_of(run_dir):
 
     return TrainingConfig.from_json((run_dir / "config.json").read_text())
 
+
+
+@pytest.mark.parametrize("flags,cards,procs", [
+    (["--mesh_seq", "2"], 4, 1),
+    (["--mesh_seq", "2", "--batch_size", "4"], 4, 1),
+    (["--mesh_data", "-1", "--mesh_seq", "2", "--batch_size", "6"], 8, 1),
+    (["--mesh_data", "2", "--mesh_seq", "2", "--batch_size", "4"], 4, 1),
+    (["--mesh_data", "1", "--mesh_seq", "4"], 4, 1),
+    (["--mesh_data", "2", "--mesh_seq", "2", "--batch_size", "4"], 2, 2),
+    (["--mesh_data", "1", "--mesh_seq", "2"], 1, 2),
+])
+def test_mesh_seq_resolves_as_jax(flags, cards, procs, monkeypatch, caplog):
+    """--mesh_seq resolves to JAX's mesh over the cards of every process
+    (``create_mesh(config.mesh, batch_size=...)`` and its
+    ``local_batch_size`` rule that the data axis spans the processes), and
+    the CLI spawns data x seq / processes ranks a host; fused blocks asked
+    for are logged as off."""
+    import logging
+
+    import jax
+
+    from movenet_tpu.parallel import create_mesh as j_create_mesh
+    from movenet_tpu.parallel import local_batch_size as j_local_batch_size
+
+    from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.train import cli, trainer
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    batch = flags[flags.index("--batch_size") + 1] \
+        if "--batch_size" in flags else "3"
+    argv = ["--dataset", "d", "--val_batch_size", batch, "--fused_blocks",
+            "1", *flags]
+    if procs > 1:
+        argv += ["--coordinator_address", "127.0.0.1:1", "--num_processes",
+                 str(procs), "--process_id", "0"]
+    cfg = config_from_args(arg_parser().parse_args(argv))
+    monkeypatch.setattr(jax, "process_count", lambda: procs)
+    try:
+        jm = j_create_mesh(cfg.mesh, devices=jax.devices()[:cards * procs],
+                           batch_size=cfg.batch_size)
+        j_local_batch_size(cfg.batch_size * procs, jm)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            trainer.data_parallel_plan(cfg, "cuda")
+        assert str(got.value).split(" for ")[0] == str(e).split(" for ")[0]
+        return
+    with caplog.at_level(logging.INFO):
+        mesh, ranks = trainer.data_parallel_plan(cfg, "cuda")
+    assert mesh.shape == dict(jm.shape)
+    assert ranks == mesh.data * mesh.seq // procs
+    assert "the fused route is off" in caplog.text
+
+    spawned = []
+    monkeypatch.setattr("torch.multiprocessing.spawn",
+                        lambda fn, nprocs, join, args: spawned.append(
+                            (nprocs, args[-1])))
+    assert cli.main(argv) is None
+    assert spawned == [(ranks, ranks)]
