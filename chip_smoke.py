@@ -70,6 +70,28 @@ Phases (any failure exits non-zero and prints no result):
      tolerances stated there, and each kernel's time by CUDA events; the
      trunk backward's device time by grid (torch.profiler): the layer
      launches, the weight-gradient launches, their reductions, the rest;
+  9f. float32 (``--compute_dtype float32``): (a) the float32 forms of the
+     save trunk (embed form, video triple) and the unpacked head against
+     their plain versions (TF32 off) at the breakdancing cell (R=S=C=64),
+     experiment 02's CLI widths (S=8), and experiments 03's and 04's
+     shapes, T=160000, seeded float32 inputs: forward outputs within 1e-5
+     of their scale, gradients within 1e-4, the head's loss within 1e-5
+     relative, its match count within 1e-5 of the valid rows, p within
+     1e-5; each form's time beside the bf16 form's on the same shapes,
+     the breakdancing step in float32 (1 + 5 ``make_train_step`` steps,
+     each launching each float32 form once: step ms, peak memory),
+     and the float32 backwards' device time by grid at experiment 02's
+     shapes (the head's at 03's too);
+     (b, after phase 15) the trainer CLI with experiment 02's flags and
+     --compute_dtype float32 for 1 epoch of 4 steps on phase 14's clips:
+     the save strategy in its embed form, exactly the four float32 forms
+     (forwards once a train step and validation batch, backwards once a
+     step), finite losses, checkpoint 0 at step 4, update ms and peak
+     memory; (c) from checkpoint 0 and the run's first batch, one loss +
+     backward through the fused route against the unfused
+     ``window_logits`` route in float32 (torch ops, TF32 off): loss within
+     1e-5 relative, grad_norm within 1e-4, every leaf within 1e-2 of its
+     scale;
   10. train (the main training path): ``make_train_step`` (AdamW, lr 3e-4)
      for 1 warm-up + 5 steps through the kernels, each step launching
      each of the four training kernels once, then the same steps through
@@ -183,8 +205,9 @@ Phases (any failure exits non-zero and prints no result):
      gated block's and the per-block trunk's, the new forms' and the
      experiments' update times and peak memory, the flagship trainer
      step, the sequence-parallel step;
-  22. the kernels line (18 entries, every form of the fourteen TPU kernel
-     functions, each with its bound from this run's shapes; the new
+  22. the kernels line (22 entries, every form of the fourteen TPU kernel
+     functions and the four float32 forms, each with its bound from this
+     run's shapes; the new
      widths' readings under "widths"; the speculative rows also with
      their stream bound), then the card line, then the result line.
 
@@ -246,6 +269,35 @@ GATED_KERNELS = {
     "gated_block_bwd": ("movenet_tpu_torch/csrc/gated_block.cu",
                         "movenet_tpu/ops/pallas/gated_block.py:168"),
 }
+# float32 on the card (phase 9f): the save trunk's embed forms and the
+# unpacked head in float32, counted apart from the bf16 forms
+F32_KERNELS = {f"{k}_f32": v for k, v in TRAIN_KERNELS.items()}
+# phase 9f's shapes, T = 160000, video as the stride-10 projection triple:
+# (B, dilations, R, S, V = C): the breakdancing cell (bench.py:173-200),
+# experiment 02's CLI widths (S = 8) and experiments 03's and 04's
+F32_SHAPES = {"exp02": (2, (1, 2, 4) * 3, 64, 8, 64),
+              "breakdancing": (2, (1, 2, 4) * 3, 64, 64, 64),
+              "exp03": (3, (1, 2, 1, 2), 32, 8, 128),
+              "exp04": (2, tuple(2 ** i for i in range(14)), 16, 8, 128)}
+# its bars, of each output's largest magnitude (the loss relative, the
+# match count of the valid rows): split-TF32 products are float32-accurate
+# (tests/test_torch_f32_kernels.py); the plain side runs with TF32 off
+F32_BARS = {"fwd": 1e-5, "bwd": 1e-4, "loss": 1e-5, "match": 1e-5,
+            "p": 1e-5, "head_bwd": 1e-4}
+# phase 9f (c): the fused route against the unfused one in float32 from
+# the same weights and batch (tests/test_fused_model.py's leaf bar)
+F32_ROUTE_BARS = {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-2}
+# the float32 backwards' grids (torch.profiler): phase 9f's trunk
+# backward at exp02, its head backward at exp02 and exp03
+F32_BWD_GRIDS = (("layer", "stack_bwd_layer_kernel"),
+                 ("wgrad W_fg", "stack_wgrad_kernel<4"),
+                 ("wgrad W_out", "stack_wgrad_kernel<6"),
+                 ("wgrad W_up", "stack_wgrad_kernel<5"),
+                 ("table", "stack_embed_grad_kernel"),
+                 ("dxc", "stack_proj_dx_kernel"),
+                 ("head rows", "head_bwd_f32_kernel"),
+                 ("head weight gradients", "head_wgrad_f32_kernel"),
+                 ("reductions", "reduce_kernel"))
 # dilations of the gated-block phase: the breakdancing stack's first and
 # the flagship stack's largest
 GATED_DILATIONS = (1, 512)
@@ -771,41 +823,43 @@ def phase_dataset_cli(torch, np, mc, model, rf, run_dir, ds):
     return total
 
 
-def train_bounds(b, t, l, r, s, c, v, win, proj):
+def train_bounds(b, t, l, r, s, c, v, win, proj, act=2, peak=BF16_OPS_S):
     """(bound_ms, bound_by) of each training kernel from its shapes:
     bytes (each input read once, each output written once) over 3.35 TB/s
     against operations over the peak of the units that can run them (bf16
     operands 989 TF/s; the trunk backward's float32 operands on the
     tensor cores, 495 TF/s TF32, counted once: the split passes are the
-    design's cost, not the work), the larger."""
+    design's cost, not the work), the larger.  ``act``: bytes of an
+    activation (2, or 4 for the float32 forms, whose every product takes
+    float32 operands: ``peak`` TF32 for the forwards too)."""
     m = b * t
     w_bytes = 4 * l * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
     pack = 4 * t * 3 * b
-    ctx = 2 * m * r
-    fwd_bytes = pack + 2 * 2 * v * r + ctx + w_bytes + 2 * m * s \
-        + 2 * l * m * r + 2 * l * m * 2 * r
+    ctx = act * m * r
+    fwd_bytes = pack + act * 2 * v * r + ctx + w_bytes + act * m * s \
+        + act * l * m * r + act * l * m * 2 * r
     fwd_ops = 2 * m * l * (win * 2 * r + r * (r + s))
-    bwd_bytes = 2 * l * m * r + 2 * l * m * 2 * r + 2 * m * s + pack \
-        + (2 * (m // 10) * r * 2 if proj else ctx * 2) + 2 * w_bytes \
+    bwd_bytes = act * l * m * r + act * l * m * 2 * r + act * m * s + pack \
+        + (act * (m // 10) * r * 2 if proj else ctx * 2) + 2 * w_bytes \
         + 4 * 2 * v * r
     bwd_ops = 2 * m * l * ((r + s) * r + 2 * r * win + (win + 1) * 2 * r
                            + (r + 1) * (r + s)) + 2 * m * r
     if proj:
         bwd_ops += 2 * (m // 10) * (r + 1) * 10 * r + 2 * m * r * r
     hw = 4 * (s * c + c * c + 2 * c)
-    head_fwd_bytes = 2 * m * s + pack + hw + 4 * m * c
+    head_fwd_bytes = act * m * s + pack + hw + 4 * m * c
     head_fwd_ops = 2 * m * (s * c + c * c)
-    head_bwd_bytes = 2 * m * s + pack + 4 * m * c + hw + 2 * m * s + hw
+    head_bwd_bytes = act * m * s + pack + 4 * m * c + hw + act * m * s + hw
     head_bwd_ops = 2 * m * (3 * s * c + 2 * c * c)
 
     def bound(nbytes, ops, peak):
         tb, to = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    return {"stack_fwd": bound(fwd_bytes, fwd_ops, BF16_OPS_S),
+    return {"stack_fwd": bound(fwd_bytes, fwd_ops, peak),
             "stack_bwd": bound(bwd_bytes, bwd_ops, TF32_OPS_S),
-            "head_fwd": bound(head_fwd_bytes, head_fwd_ops, BF16_OPS_S),
-            "head_bwd": bound(head_bwd_bytes, head_bwd_ops, BF16_OPS_S)}
+            "head_fwd": bound(head_fwd_bytes, head_fwd_ops, peak),
+            "head_bwd": bound(head_bwd_bytes, head_bwd_ops, peak)}
 
 
 def tails_bounds(b, t, l, r, s, win, every):
@@ -960,25 +1014,31 @@ def ptxas_report(log: str):
 
 def bwd_smem_note(lib, kernel: str) -> str:
     """The dynamic shared memory of a trunk kernel instance (the layer
-    forward stack_layer_kernel<R,S,FORM>; stack_bwd_layer_kernel<R,S,RC> at
-    win = 3R, its
-    recompute form RC=1 too, stack_wgrad_kernel<MODE,R,S,KA>), from the
-    library's own sizes; "" for another kernel."""
+    forward stack_layer_kernel<R,S,FORM> and its float32 form
+    stack_layer_f32_kernel<R,S>; stack_bwd_layer_kernel<R,S,FORM> at win =
+    3R, FORM 0 save, 1 recompute, 2 float32;
+    stack_wgrad_kernel<MODE,R,S,KA>), from the library's own sizes; "" for
+    another kernel."""
     m = re.match(r"stack_layer_kernel<(\d+),(\d+),(\d)>$", kernel)
     if m:
         r, s_, form = (int(x) for x in m.groups())
         return (f"; dynamic shared memory "
                 f"{lib.movenet_stack_layer_smem(r, s_, form)} bytes")
-    m = re.match(r"stack_bwd_layer_kernel<(\d+),(\d+),([01])>$", kernel)
+    m = re.match(r"stack_layer_f32_kernel<(\d+),(\d+)>$", kernel)
     if m:
-        r, s_, rc = (int(x) for x in m.groups())
+        r, s_ = (int(x) for x in m.groups())
         return (f"; dynamic shared memory "
-                f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -2 if rc else -1)}"
+                f"{lib.movenet_stack_layer_smem(r, s_, 3)} bytes")
+    m = re.match(r"stack_bwd_layer_kernel<(\d+),(\d+),([012])>$", kernel)
+    if m:
+        r, s_, form = (int(x) for x in m.groups())
+        return (f"; dynamic shared memory "
+                f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -1 - form)}"
                 f" bytes (win = 3R)")
     m = re.match(r"stack_wgrad_kernel<(\d),(\d+),(\d+),(\d+)>$", kernel)
     if m:
         mode, r, s_, ka = (int(x) for x in m.groups())
-        win = ka if mode == 0 else 3 * r
+        win = ka if mode in (0, 4) else 3 * r
         return (f"; dynamic shared memory "
                 f"{lib.movenet_stack_bwd_smem(r, s_, win, mode)} bytes")
     return ""
@@ -1248,6 +1308,323 @@ def phase_train(torch, np, cfg, model, batch):
           f"{p['step_ms']:.2f} ms; peak memory {k['peak_gb']:.2f} GB "
           f"(plain {p['peak_gb']:.2f} GB)", flush=True)
     return runs, launches
+
+
+def phase_f32_kernels(torch, np):
+    """Phase 9f (a): the float32 forms of the save trunk (embed form,
+    video triple) and the unpacked head against their plain versions (TF32
+    off) at F32_SHAPES, seeded random float32 inputs (not bf16 values),
+    within F32_BARS; each form's time by CUDA events beside the bf16
+    form's on the same shapes (the inputs rounded to bf16) and the plain
+    version's.  Returns records by (name, shape)."""
+    from movenet_tpu_torch.ops import head_loss as hl
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
+
+    t, f32, bf = 160_000, torch.float32, torch.bfloat16
+    rec = {}
+    for label, (b, dil, r, s, v) in F32_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(100 * len(dil) + r + s)
+        n, win, c = len(dil), 3 * r, v
+
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+
+        codes = torch.randint(0, v, (b, t), generator=g, device="cuda",
+                              dtype=torch.int32)
+        prev = torch.cat([torch.full_like(codes[:, :1], -1), codes[:, :-1]],
+                         1)
+        pack = torch.cat([codes, prev, torch.roll(codes, -1, 1)],
+                         0).t().contiguous()
+        trip = (rn(b, t // 10, r, scale=0.5), rn(r, 10 * r, scale=r ** -0.5),
+                rn(10 * r, scale=0.1))
+        with torch.no_grad():
+            ctx = sk.ctx_flatten(trip, f32)
+            proj = sk._ctx_proj_args(trip)
+            fargs = (pack, rn(2 * v, r, scale=0.5), ctx,
+                     rn(n * b, 2 * r, scale=0.1),
+                     rn(n, win, 2 * r, scale=win ** -0.5),
+                     rn(n, r, r + s, scale=r ** -0.5),
+                     rn(n, r + s, scale=0.1), dil, b)
+            lib, st = ks.library(), ks._stream(pack)
+            got, want = ks.stack_fwd(*fargs), sk.stack_fwd_plain(*fargs)
+            errs = {}
+            for name, x, y in zip(("skip", "hsave", "tfsg"), got, want):
+                check(x.dtype == f32, f"stack_fwd_f32 {label} {name} is "
+                      f"{x.dtype}")
+                errs[name] = _err(x, y)
+                check(errs[name] <= F32_BARS["fwd"] * _scale(y),
+                      f"stack_fwd_f32 {label} {name}: max err "
+                      f"{errs[name]:.3g}, scale {_scale(y):.3g}")
+            skip = got[0]
+            del got
+            bfa = (pack, fargs[1].to(bf), ctx.to(bf), *fargs[3:])
+            rec[("stack_fwd_f32", label)] = dict(
+                errs=errs, max_abs_err=max(errs.values()),
+                ms=time_cuda(torch, lambda: ks.run_fwd(lib, *fargs, st), 3),
+                bf16_ms=time_cuda(torch, lambda: ks.run_fwd(lib, *bfa, st),
+                                  3),
+                plain_ms=time_cuda(torch, lambda: sk.stack_fwd_plain(*fargs),
+                                   1))
+            del bfa
+            _, hsave, tfsg = want
+            del want
+            dskip = rn(b, t, s, scale=1e-3)
+            bargs = (hsave, tfsg, ctx, fargs[4], fargs[5], dskip, pack, v,
+                     dil, proj)
+            got, want = ks.stack_bwd(*bargs), sk.stack_bwd_plain(*bargs)
+            errs = {}
+            for name, x, y in zip(("dtab", "dxc", "db_fg", "dw_fg",
+                                   "dw_out", "db_out", "dwup_aug"), got,
+                                  want):
+                check(x.dtype == f32, f"stack_bwd_f32 {label} {name} is "
+                      f"{x.dtype}")
+                errs[name] = _err(x, y)
+                check(errs[name] <= F32_BARS["bwd"] * _scale(y),
+                      f"stack_bwd_f32 {label} {name}: max err "
+                      f"{errs[name]:.3g}, scale {_scale(y):.3g}")
+            del got, want
+            bfb = (hsave.to(bf), tfsg.to(bf), ctx.to(bf), fargs[4],
+                   fargs[5], dskip.to(bf), pack, v, dil,
+                   (trip[0].to(bf), proj[1]))
+            rec[("stack_bwd_f32", label)] = dict(
+                errs=errs, max_abs_err=max(errs.values()),
+                ms=time_cuda(torch, lambda: ks.run_bwd(lib, *bargs,
+                                                       stream=st), 3),
+                bf16_ms=time_cuda(torch, lambda: ks.run_bwd(lib, *bfb,
+                                                            stream=st), 3),
+                plain_ms=time_cuda(torch, lambda: sk.stack_bwd_plain(*bargs),
+                                   1))
+            if label == "exp02":
+                print(grid_line("f32 kernel stack_bwd_f32 exp02", by_grid(
+                    torch, lambda: ks.run_bwd(lib, *bargs, stream=st),
+                    F32_BWD_GRIDS)), flush=True)
+            del hsave, tfsg, bargs, bfb
+            # the head on the kernel's skip sum
+            rf = sum(dil) + 2
+            n_valid = b * (t - rf)
+            hargs = (skip, pack, rn(s, c, scale=0.25), rn(c, scale=0.1),
+                     rn(c, c, scale=2.5 / c ** 0.5), rn(c, scale=0.1), rf,
+                     True, 2 * b)
+            hlib, hst = kh.library(), kh._stream(skip)
+            loss, match, p = kh.head_fwd(*hargs)
+            wl, wm, wp = hl.head_fwd_plain(*hargs)
+            errs = {"loss": abs(float(loss) - float(wl)) / abs(float(wl)),
+                    "match": abs(float(match) - float(wm)),
+                    "p": _err(p, wp)}
+            check(errs["loss"] <= F32_BARS["loss"],
+                  f"head_fwd_f32 {label}: loss {float(loss)} vs plain "
+                  f"{float(wl)}")
+            check(errs["match"] <= F32_BARS["match"] * n_valid,
+                  f"head_fwd_f32 {label}: match {float(match)} vs plain "
+                  f"{float(wm)} of {n_valid} rows")
+            check(errs["p"] <= F32_BARS["p"], f"head_fwd_f32 {label}: p max "
+                  f"err {errs['p']:.3g}")
+            bfh = (skip.to(bf), *hargs[1:])
+            rec[("head_fwd_f32", label)] = dict(
+                errs=errs, max_abs_err=errs["p"],
+                ms=time_cuda(torch, lambda: kh.run_fwd(hlib, *hargs,
+                                                       stream=hst), 3),
+                bf16_ms=time_cuda(torch, lambda: kh.run_fwd(hlib, *bfh,
+                                                            stream=hst), 3),
+                plain_ms=time_cuda(torch, lambda: hl.head_fwd_plain(*hargs),
+                                   1))
+            dloss = torch.tensor(1.0 / n_valid, device="cuda")
+            hb = (skip, pack, wp, *hargs[2:6], rf, True, dloss, 2 * b)
+            bar = F32_BARS["head_bwd"]
+            errs = _check_grads(f"head_bwd_f32 {label}", kh.head_bwd(*hb),
+                                hl.head_bwd_plain(*hb),
+                                dict(dskip=bar, dw1=bar, db1=bar, dw2=bar,
+                                     db2=bar))
+            bfhb = (skip.to(bf), pack, wp, *hargs[2:6], rf, True, dloss,
+                    2 * b)
+            rec[("head_bwd_f32", label)] = dict(
+                errs=errs, max_abs_err=max(errs.values()),
+                ms=time_cuda(torch, lambda: kh.run_bwd(hlib, *hb,
+                                                       stream=hst), 3),
+                bf16_ms=time_cuda(torch, lambda: kh.run_bwd(hlib, *bfhb,
+                                                            stream=hst), 3),
+                plain_ms=time_cuda(torch, lambda: hl.head_bwd_plain(*hb), 1))
+            if label in ("exp02", "exp03"):
+                print(grid_line(f"f32 kernel head_bwd_f32 {label}", by_grid(
+                    torch, lambda: kh.run_bwd(hlib, *hb, stream=hst),
+                    F32_BWD_GRIDS)), flush=True)
+            del p, wp, hb, bfh, bfhb, skip, fargs
+        bounds = train_bounds(b, t, n, r, s, c, v, win, True, act=4,
+                              peak=TF32_OPS_S)
+        for name in F32_KERNELS:
+            rec[(name, label)]["bound"] = bounds[name[:-4]]
+    for (name, label), r in rec.items():
+        b, dil, rr, s, v = F32_SHAPES[label]
+        print(f"f32 kernel {name} {label} (B={b}, T=160000, L={len(dil)}, "
+              f"R={rr}, S={s}, V=C={v}, float32, video triple) vs plain: "
+              + ", ".join(f"{k} {x:.3g}" for k, x in r["errs"].items())
+              + f"; kernel {r['ms']:.3f} ms, bf16 form {r['bf16_ms']:.3f} "
+              f"ms, plain (TF32 off) {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound'][0]:.3f} ms ({r['bound'][1]})", flush=True)
+    return rec
+
+
+def phase_f32_step(torch, np):
+    """Phase 9f (a): the breakdancing step (bench.py:173-200, S = 64) in
+    float32 through ``make_train_step``: 1 warm-up + N_TRAIN steps, each
+    launching each float32 form once and no other training kernel; step
+    ms (median after the warm-up), peak memory."""
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.train import create_train_state, make_train_step
+    from movenet_tpu_torch.utils.fixtures import BREAKDANCING, breakdancing
+
+    cfg, model, batch = breakdancing(
+        device="cuda", widths=dict(BREAKDANCING, compute_dtype="float32"))
+    state = create_train_state(model, cfg, device="cuda")
+    step = make_train_step(model, cfg)
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(N_TRAIN + 1):
+        ks.reset_launch_counts()
+        kh.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = {**ks.launch_counts, **kh.launch_counts}
+        want = {k: int(k in F32_KERNELS) for k in counts}
+        check(counts == want, f"float32 train step {i}: launches {counts}")
+        check(np.isfinite(float(metrics["loss"])),
+              f"float32 train step {i}: loss {float(metrics['loss'])}")
+    rec = dict(step_ms=float(np.median(times[1:])),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"f32 train (breakdancing, B=2, T=160000, float32): step "
+          f"{rec['step_ms']:.2f} ms (median of {N_TRAIN} after warm-up), "
+          f"losses {float(metrics['loss']):.6f} at the last, peak memory "
+          f"{rec['peak_gb']:.2f} GB", flush=True)
+    return rec
+
+
+def phase_f32_cli(torch, np, root, ds):
+    """Phase 9f (b, c): the trainer CLI with experiment 02's flags and
+    --compute_dtype float32 for 1 epoch of 4 steps on phase 14's clips:
+    the strategy resolves to save in the embed form, each float32 form
+    launches once a train step (the forwards once a validation batch too)
+    and no other training kernel runs; finite losses, checkpoint 0 at step
+    4, the update ms and peak memory.  Then from checkpoint 0's weights
+    and the run's first batch, one loss + backward through the fused
+    route (the four float32 forms) against the unfused route
+    (``window_logits``: torch ops, TF32 off) within F32_ROUTE_BARS.
+    Returns (launches, record)."""
+    from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.data import kinetics_index
+    from movenet_tpu_torch.models.convert import load_jax_params
+    from movenet_tpu_torch.models.wavenet import make_wavenet
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.train import loop
+    from movenet_tpu_torch.train.checkpoint import restore_params
+
+    run, logs = root / "f32_run", root / "f32_logs"
+    argv = ["--dataset", str(ds), *EXP02_FLAGS, "--compute_dtype", "float32",
+            "--val_batch_size", "2", "--n_steps_per_epoch", "4",
+            "--n_epochs", "1", "--model_output_path", str(run), "--logger",
+            "jsonl", "--training_logs_path", str(logs)]
+    cfg = config_from_args(arg_parser().parse_args(argv))
+    mc = cfg.model_config
+    probe = make_wavenet(mc)
+    dil = tuple(probe.dilations)
+    strategy = sk.resolve_strategy(
+        "auto", (cfg.batch_size, mc.max_audio_frames, mc.residual_channels),
+        len(dil), dil, 4)
+    check(strategy == "save" and 2 * mc.input_channels <= sk.EMBED_MAX_2V,
+          f"float32 experiment 02: strategy {strategy}, 2V "
+          f"{2 * mc.input_channels}")
+    n_val = len(kinetics_index(ds, train=False)) // 2
+    mods = (ks, kh, kg)
+    for mod in mods:
+        mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_train_steps(torch, record=1) as steps:
+        state = trainer_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: v for mod in mods for k, v in mod.launch_counts.items()}
+    want = {k: 0 for k in launches}
+    want.update(stack_fwd_f32=4 + n_val, stack_bwd_f32=4,
+                head_fwd_f32=4 + n_val, head_bwd_f32=4)
+    check(launches == want, f"float32 trainer CLI launches {launches}, "
+          f"expected {want}")
+    check(state.step == 4, f"float32 trainer CLI took {state.step} steps")
+    lines = [json.loads(l) for l in (logs / "metrics.jsonl").read_text()
+             .splitlines()]
+    losses = [l["loss"] for l in lines if l["tag"] in ("train", "val")]
+    check(losses and all(np.isfinite(losses)), f"float32 losses {losses}")
+    meta = json.loads((run / "checkpoints" / "0" / "state.json").read_text())
+    check(meta == {"step": 4}, f"float32 checkpoint 0: {meta}")
+    median = float(np.median(steps.ms[1:]))
+    print(f"f32 trainer CLI (experiment 02 flags + --compute_dtype float32;"
+          f" strategy {strategy}, embed form): 4 steps + {n_val} validation "
+          f"batches in {wall:.1f} s; step ms "
+          f"{[round(v, 2) for v in steps.ms]} (median after the first "
+          f"{median:.2f}); peak memory {peak_gb:.3f} GB; losses "
+          f"{[round(v, 6) for v in losses]}; launches {launches}",
+          flush=True)
+    # (c) fused against unfused from checkpoint 0's weights
+    tree, _ = restore_params(run, 0)
+    model = load_jax_params(make_wavenet(mc), tree).to("cuda")
+    batch = steps.batches[0].to("cuda")
+    parity = mc.parity_softmax_output
+    routes = {}
+    for fused in (True, False):
+        model.zero_grad(set_to_none=True)
+        for mod in mods:
+            mod.reset_launch_counts()
+        loss, _ = loop._loss_and_metrics(model, parity, fused)(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {k: q.grad.detach().clone()
+                 for k, q in model.named_parameters() if q.grad is not None}
+        routes[fused] = dict(
+            loss=float(loss.detach()), grads=grads,
+            norm=float(torch.sqrt(sum((x.double() ** 2).sum()
+                                      for x in grads.values()))),
+            launches={k: v for mod in mods
+                      for k, v in mod.launch_counts.items()})
+    f, u = routes[True], routes[False]
+    want = {k: 0 for k in f["launches"]}
+    check(u["launches"] == want, f"unfused route launches {u['launches']}")
+    want.update(stack_fwd_f32=1, stack_bwd_f32=1, head_fwd_f32=1,
+                head_bwd_f32=1)
+    check(f["launches"] == want, f"fused route launches {f['launches']}")
+    check(set(f["grads"]) == set(u["grads"]), "gradient leaves differ")
+    errs = {"loss": abs(f["loss"] - u["loss"]) / abs(u["loss"]),
+            "grad_norm": abs(f["norm"] - u["norm"]) / u["norm"]}
+    check(errs["loss"] <= F32_ROUTE_BARS["loss"],
+          f"float32 fused loss {f['loss']} vs unfused {u['loss']}")
+    check(errs["grad_norm"] <= F32_ROUTE_BARS["grad_norm"],
+          f"float32 fused grad_norm {f['norm']} vs unfused {u['norm']}")
+    leaf, leaf_name = 0.0, ""
+    for k, gu in u["grads"].items():
+        e = _err(f["grads"][k], gu) / max(_scale(gu), 1e-30)
+        check(e <= F32_ROUTE_BARS["leaf"], f"float32 fused vs unfused "
+              f"gradient {k}: {e:.3g} of its scale")
+        if e > leaf:
+            leaf, leaf_name = e, k
+    errs["leaf"] = leaf
+    print(f"f32 fused vs unfused (checkpoint 0, the run's first batch, B=2,"
+          f" T=160000): loss {f['loss']:.8f} vs {u['loss']:.8f} (relative "
+          f"{errs['loss']:.3g}), grad_norm {f['norm']:.8g} vs "
+          f"{u['norm']:.8g} (relative {errs['grad_norm']:.3g}), largest "
+          f"leaf difference {leaf:.3g} of its scale ({leaf_name})",
+          flush=True)
+    return launches, dict(step_ms=median, ms=steps.ms, peak_gb=peak_gb,
+                          wall_s=wall, errs=errs)
 
 
 def exp02_setup(torch, np, seed=0):
@@ -2414,9 +2791,9 @@ def phase_packed_head(torch, np, model, batch):
         launches = dict(kh.launch_counts)
     finally:
         hl.PACKED_HEAD = saved
-    check(launches == {"head_fwd": 0, "head_bwd": 0, "head_fwd_packed": 1,
-                       "head_bwd_packed": 1},
-          f"packed route launches {launches}")
+    want = {k: 0 for k in launches}
+    want.update(head_fwd_packed=1, head_bwd_packed=1)
+    check(launches == want, f"packed route launches {launches}")
     want = hl.head_bwd_packed_plain(skip, tgt, *w, rf, True, dloss)
     _check_grads("packed route", [x.grad for x in leaves], want,
                  dict(dskip=1e-2, dw1=1e-3, db1=1e-3, dw2=1e-3, db2=1e-3))
@@ -3166,6 +3543,11 @@ def main() -> int:
         runs, train_launches = phase_train(torch, np, cfg, bd_model,
                                            bd_batch)
         launches.update(train_launches)
+        phase = "9f (a) float32 kernels vs plain"
+        t0 = time.perf_counter()
+        f32_recs = phase_f32_kernels(torch, np)
+        f32_train = phase_f32_step(torch, np)
+        f32_s = time.perf_counter() - t0
 
         phase = "recompute kernels vs plain"
         _, e2_model, e2_batch = exp02_setup(torch, np)
@@ -3193,6 +3575,13 @@ def main() -> int:
                 launches[k] = cli_launches[k]
             phase = "resume"
             phase_resume(torch, np, Path(tmp), ds)
+            phase = "9f (b, c) float32 trainer CLI"
+            t0 = time.perf_counter()
+            f32_launches, f32_cli = phase_f32_cli(torch, np, Path(tmp), ds)
+            f32_s += time.perf_counter() - t0
+            for k in F32_KERNELS:
+                launches[k] = f32_launches[k]
+            print(f"phase 9f: {f32_s:.1f} s", flush=True)
             phase = "data parallel"
             for k, v in phase_data_parallel(torch, np, Path(tmp),
                                             ds).items():
@@ -3289,6 +3678,17 @@ def main() -> int:
         for name, r in train_recs.items():
             print(f"time {name}: kernel {r['ms']:.3f} ms, plain "
                   f"{r['plain_ms']:.3f} ms; {card}", flush=True)
+        for (name, label), r in f32_recs.items():
+            print(f"time {name} {label}: kernel {r['ms']:.3f} ms, bf16 form "
+                  f"{r['bf16_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                  f"bound {r['bound'][0]:.3f} ms; {card}", flush=True)
+        print(f"time f32 train (breakdancing, B=2, T=160000, float32): step "
+              f"{f32_train['step_ms']:.2f} ms, peak memory "
+              f"{f32_train['peak_gb']:.2f} GB (bf16 {k['step_ms']:.2f} ms); "
+              f"{card}", flush=True)
+        print(f"time f32 trainer CLI (experiment 02 flags, float32): update "
+              f"{f32_cli['step_ms']:.2f} ms (median after the first), peak "
+              f"memory {f32_cli['peak_gb']:.3f} GB; {card}", flush=True)
         audio_only = {r["label"]: r for r in records}
         for r in records:
             beside = ""
@@ -3444,10 +3844,34 @@ def main() -> int:
                 "shape": "PACKED_HEAD on, breakdancing head: B=2, T=160000, "
                          "S=C=64, bf16 skip, parity CE (max_abs_err over "
                          "parity on and off)"})
+        for name, (source, replaces) in F32_KERNELS.items():
+            r = f32_recs[(name, "exp02")]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces + " (float32)",
+                "launches": launches[name],
+                "max_abs_err": max(x["max_abs_err"] for (n, _), x in
+                                   f32_recs.items() if n == name),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None, "matches_plain": True,
+                "bf16_ms": r["bf16_ms"],
+                "shape": "experiment 02 CLI: B=2, T=160000, L=9, R=C=64, S=8, "
+                         "float32, video triple (max_abs_err over the "
+                         "widths)",
+                "widths": [dict(
+                    shape=f"{label}: B={b_}, T=160000, L={len(dil)}, R={r_}, "
+                          f"S={s_}, V=C={v_}, float32, video triple",
+                    ms=x["ms"], bf16_ms=x["bf16_ms"], plain_ms=x["plain_ms"],
+                    max_abs_err=x["max_abs_err"], bound_ms=x["bound"][0],
+                    bound_by=x["bound"][1])
+                    for (n, label), x in f32_recs.items()
+                    if n == name and label != "exp02"
+                    for b_, dil, r_, s_, v_ in [F32_SHAPES[label]]]})
         # every form of the fourteen TPU kernel functions: the AR kernel's
-        # four and the speculative kernel's two, the ten training kernels
-        # and the two packed ones
-        check(len(kernels) == 18, f"{len(kernels)} kernels in the line")
+        # four and the speculative kernel's two, the ten training kernels,
+        # the two packed ones and the four float32 forms
+        check(len(kernels) == 22, f"{len(kernels)} kernels in the line")
         check(all(k["launches"] > 0 for k in kernels),
               "a kernel of the path was not launched")
         print(json.dumps({"kernels": kernels}))

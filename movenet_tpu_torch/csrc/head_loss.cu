@@ -173,6 +173,12 @@ struct HeadArgs {
   bf16_t* ly;           // (M, CP) rnd(leaky(y)) (unpacked backward)
   bf16_t* dzr;          // (M, CP) rnd(dz)
   bf16_t* dyr;          // (M, CP) rnd(dy)
+  // the float32 kernels' (in place of skip, dskip, ly, dzr and dyr)
+  const float* skip_f;  // (M, S)
+  float* dskip_f;       // (M, S)
+  float* ly_f;          // (M, CP') leaky(y), CP' = C rounded up to 8
+  float* dz_f;          // (M, CP') dz
+  float* dy_f;          // (M, CP') dy
   float* part;          // per-block partial sums
   long m_total, rows_per_block, n_el;
   int t_len, s, c, sp, cp, rf, parity;
@@ -1612,6 +1618,705 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
+// --------------------------- float32 (split-TF32 tensor cores, unpacked)
+//
+// The unpacked kernels with the float32 compute dtype (head_loss.py:281
+// _fwd_kernel and :336 _bwd_kernel, whose roundings to in_dtype do nothing
+// in float32): skip, p and dskip float32, and every product with float32
+// operands as split-TF32 mma.sync m16n8k8 in three passes (no operand is
+// exact in TF32).  4 <= S <= 64 and 4 <= C <= 128, multiples of 4: W2 in
+// float32 at C = 256 alone takes 270 KB of shared memory (ROADMAP.md B.4).
+// The design is the bf16 unpacked kernels' with float32 tiles and the
+// packed kernels' fragments: a block of 8 warps stages W1 and W2 once as
+// float32 (SP and CP: S and C rounded up to 8, zero-padded; rows of 8 mod
+// 32 floats at rows wrow(k)), each warp walks 16-row slabs with its
+// leaky(skip) rows in shared memory, and k is paired in the fragments, so
+// that y's C fragments are z's A fragments in registers.
+//   Forward (head_fwd_f32_kernel): z in registers, each row's max, first
+// argmax, exp sums and NLL in its quad of lanes, p stored; a row whose two
+// largest logits lie within kTieMargin takes its argmax from y and z
+// formed as the plain version forms them (an fmaf chain over k in order
+// from zero, then the bias: cuBLAS's float32 order), as the packed
+// forward does.
+//   Backward (head_bwd_f32_kernel): y rebuilt, and each element of y
+// within kTieMargin of zero formed again as the plain version forms it
+// (dleaky reads its sign: a flip moves that dy by 100x); dz from the saved
+// p, dy = dz W2^T * dleaky(y), dskip = dy W1^T * dleaky(skip), stored in
+// float32; leaky(y), dz and dy go to float32 scratch (M, CP), and
+// head_wgrad_f32_kernel forms dW2 = leaky(y)^T dz and dW1 = leaky(skip)^T
+// dy from it as a split-K GEMM; the bias gradients are column sums of dz
+// and dy per warp.  Per-block partials, reduce_kernel: no atomics.
+// Bound at experiment 03's head (B = 3, T = 160000, S = 8, C = 128):
+// forward skip read and p written, 0.26 GB (0.080 ms at 3.35 TB/s);
+// backward skip and p read, dskip written, 0.28 GB (0.084 ms), against 2
+// M (3 S C + 2 C C) = 3.4e10 operations at the TF32 peak counted once
+// (0.070 ms): both bound by bytes.  As launched the backward also moves
+// the scratch (3 x 4 CP bytes a row, written and read again), and the
+// three split passes of k = 8 take six times the mma.sync issue of the
+// bf16 form's k = 16 steps: the row pass sets its time (PERF.md).
+
+// The float32 kernels' shared memory (ops/cuda/head_loss.f32_smem mirrors
+// it): W1 (SP, ldc) and W2 (CP, ldc) at rows wrow(k), then the forward's
+// b1, b2 (CP each), block sums (2, kThreads) and per warp its leaky(skip)
+// rows (16, lds) and a row of CP floats; the backward's b1, the warps'
+// column sums (kWarps, 2, CP) and per warp its leaky(skip) rows.
+struct F32Head {
+  int sp, cp, ldc, lds;
+  __host__ __device__ F32Head(int s, int c)
+      : sp((s + 7) / 8 * 8), cp((c + 7) / 8 * 8),
+        ldc((cp + 31) / 32 * 32 + 8), lds((sp + 31) / 32 * 32 + 8) {}
+  __host__ __device__ size_t weights() const {
+    return static_cast<size_t>(sp + cp) * ldc;
+  }
+  __host__ __device__ size_t fwd_bytes() const {
+    return 4 * (weights() + 2 * cp + 2 * kThreads +
+                static_cast<size_t>(kWarps) * (16 * lds + cp));
+  }
+  __host__ __device__ size_t bwd_bytes() const {
+    return 4 * (weights() + cp + static_cast<size_t>(kWarps) * 2 * cp +
+                static_cast<size_t>(kWarps) * 16 * lds);
+  }
+};
+
+// w (K, N) float32 into dst at rows wrow(k) of ld floats, zero past K and
+// N up to KP rows and NP columns (KP a multiple of 8)
+__device__ __forceinline__ void stage_w_f32(const float* w, int K, int N,
+                                            int KP, int NP, float* dst,
+                                            int ld) {
+  for (int i = threadIdx.x; i < KP * NP; i += kThreads) {
+    const int k = i / NP, n = i % NP;
+    dst[wrow(k) * ld + n] = k < K && n < N ? w[k * N + n] : 0.f;
+  }
+}
+// B of x W (k paired, as load_b_w) from rows of ld floats
+__device__ __forceinline__ void f32_b_w(const float* ws, int ld, int k0,
+                                        int n0, Frag<2>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float v[2] = {ws[wrow(k0 + 2 * q) * ld + n0 + g],
+                      ws[wrow(k0 + 2 * q + 1) * ld + n0 + g]};
+  frag_set<true>(f, v);
+}
+// B of x W^T (k paired, as load_b_wt)
+__device__ __forceinline__ void f32_b_wt(const float* ws, int ld, int k0,
+                                         int n0, Frag<2>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float2 u =
+      *reinterpret_cast<const float2*>(ws + wrow(n0 + g) * ld + k0 + 2 * q);
+  const float v[2] = {u.x, u.y};
+  frag_set<true>(f, v);
+}
+// A from a warp's 16 float32 rows at p (row stride ld; k paired)
+__device__ __forceinline__ void f32_a_rows(const float* p, int ld, int k0,
+                                           Frag<4>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float2 u = *reinterpret_cast<const float2*>(p + g * ld + k0 + 2 * q);
+  const float2 v =
+      *reinterpret_cast<const float2*>(p + (g + 8) * ld + k0 + 2 * q);
+  const float x[4] = {u.x, v.x, u.y, v.y};
+  frag_set<true>(f, x);
+}
+
+// The warp's 16 rows of leaky(skip) from row m0 into lsk (row stride lds),
+// zero at or past hi and past S up to SP
+__device__ __forceinline__ void stage_lskip_f32(const float* skip, int S,
+                                                int SP, long m0, long hi,
+                                                float* lsk, int lds) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  for (int i = lane; i < 16 * SP; i += 32) {
+    const int r = i / SP, k = i % SP;
+    lsk[r * lds + k] =
+        m0 + r < hi && k < S ? leaky(skip[(m0 + r) * S + k]) : 0.f;
+  }
+  __syncwarp();
+}
+
+// y[c] (without b1) of the row whose leaky(skip) is lrow, as the plain
+// version forms it: an fmaf chain over k in order from zero
+__device__ float exact_y_f32(const float* lrow, const float* w1s, int ld,
+                             int S, int c) {
+  float acc = 0.f;
+  for (int k = 0; k < S; ++k) acc = fmaf(lrow[k], w1s[wrow(k) * ld + c], acc);
+  return acc;
+}
+
+// The first argmax of one row's logits formed as the plain version forms
+// them: y (exact_y_f32 + b1), leaky, then z the same way; lrow is the row's
+// leaky(skip), scr CP floats of the warp.  Warp-collective; every lane
+// returns the column.
+__device__ int exact_argmax_f32(const float* lrow, const float* w1s,
+                                const float* w2s, const float* b1,
+                                const float* b2, float* scr, int S, int C,
+                                int ld) {
+  const int lane = threadIdx.x & 31;
+  for (int c = lane; c < C; c += 32)
+    scr[c] = leaky(exact_y_f32(lrow, w1s, ld, S, c) + b1[c]);
+  __syncwarp();
+  float v = -INFINITY;
+  int col = C;
+  for (int c = lane; c < C; c += 32) {
+    float acc = 0.f;
+    for (int k = 0; k < C; ++k)
+      acc = fmaf(scr[k], w2s[wrow(k) * ld + c], acc);
+    acc += b2[c];
+    if (acc > v) {   // c rises: the first of equal maxima stays
+      v = acc;
+      col = c;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oc = __shfl_xor_sync(0xffffffffu, col, off);
+    if (ov > v || (ov == v && oc < col)) {
+      v = ov;
+      col = oc;
+    }
+  }
+  return col;
+}
+
+// Forward.  NT: n tiles of z held (CP <= 8 NT).
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+    head_fwd_f32_kernel(HeadArgs a) {
+  const int S = a.s, C = a.c;
+  const F32Head L(S, C);
+  const int SP = L.sp, CP = L.cp, ldc = L.ldc, lds = L.lds;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* w1s = reinterpret_cast<float*>(smem);   // (SP, ldc) W1, wrow
+  float* w2s = w1s + SP * ldc;                    // (CP, ldc) W2, wrow
+  float* b1 = w2s + CP * ldc;                     // (CP)
+  float* b2 = b1 + CP;                            // (CP)
+  float* red = b2 + CP;                           // (2, kThreads)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  float* lsk = red + 2 * kThreads + warp * (16 * lds + CP);   // (16, lds)
+  float* scr = lsk + 16 * lds;                                 // (CP)
+  stage_w_f32(a.w1, S, C, SP, CP, w1s, ldc);
+  stage_w_f32(a.w2, C, C, CP, CP, w2s, ldc);
+  for (int i = tid; i < CP; i += kThreads) {
+    b1[i] = i < C ? a.b1[i] : 0.f;
+    b2[i] = i < C ? a.b2[i] : 0.f;
+  }
+  __syncthreads();
+  const int nt = CP / 8;
+  const long lo = blockIdx.x * a.rows_per_block;
+  const long hi = min_l(lo + a.rows_per_block, a.m_total);
+  float loss = 0.f, match = 0.f;   // lanes q = 0, over the block's slabs
+  for (long m0 = lo + 16 * warp; m0 < hi; m0 += 16 * kWarps) {
+    const long r0 = m0 + g;
+    stage_lskip_f32(a.skip_f, S, SP, m0, hi, lsk, lds);
+    // y's n tile j, leaky, is z's k step j
+    float z[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[j][e] = 0.f;
+    for (int j = 0; j < nt; ++j) {
+      float y[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k0 = 0; k0 < SP; k0 += 8) {
+        Frag<4> fa;
+        f32_a_rows(lsk, lds, k0, fa);
+        Frag<2> fb;
+        f32_b_w(w1s, ldc, k0, 8 * j, fb);
+        mma_split_add<true>(y, fa, fb);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[e] = leaky(y[e] + b1[8 * j + 2 * q + (e & 1)]);
+      Frag<4> fa;
+      a_from_c<true>(y, fa);
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn)
+        if (jn < nt) {
+          Frag<2> fb;
+          f32_b_w(w2s, ldc, 8 * j, 8 * jn, fb);
+          mma_split_add<true>(z[jn], fa, fb);
+        }
+    }
+    // per row (h: rows r0, r0 + 8): the two largest logits, the first
+    // argmax, z at the target
+    int tg[2], am[2] = {C, C};
+    float mx[2] = {-INFINITY, -INFINITY}, m2[2] = {-INFINITY, -INFINITY};
+    float zt[2] = {0.f, 0.f};
+    tg[0] = r0 < hi ? target_of(a, r0) : -1;
+    tg[1] = r0 + 8 < hi ? target_of(a, r0 + 8) : -1;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+        if (j < nt && col < C) {
+          const float v = z[j][e] + b2[col];
+          z[j][e] = v;
+          if (v > mx[h]) {
+            m2[h] = mx[h];
+            mx[h] = v;
+            am[h] = col;
+          } else if (v > m2[h]) {
+            m2[h] = v;
+          }
+          if (col == tg[h]) zt[h] = v;
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, mx[h], off);
+        const float o2 = __shfl_xor_sync(0xffffffffu, m2[h], off);
+        const int oa = __shfl_xor_sync(0xffffffffu, am[h], off);
+        const float second = fmaxf(fmaxf(m2[h], o2), fminf(mx[h], om));
+        if (om > mx[h] || (om == mx[h] && oa < am[h])) {
+          mx[h] = om;
+          am[h] = oa;
+        }
+        m2[h] = second;
+      }
+      zt[h] = quad_sum(zt[h]);
+    }
+    float es[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+        const float v = j < nt && col < C ? expf(z[j][e] - mx[h]) : 0.f;
+        z[j][e] = v;
+        es[h] += v;
+      }
+    es[0] = quad_sum(es[0]);
+    es[1] = quad_sum(es[1]);
+    // p (times the row's reciprocal: no division, and so no branch, per
+    // element), and for parity sum exp(p) and p at the target
+    const float inv[2] = {1.f / es[0], 1.f / es[1]};
+    float sep[2] = {0.f, 0.f}, pt[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+        if (j < nt && col < C) {
+          const float p = z[j][e] * inv[h];
+          z[j][e] = p;
+          if (a.parity) {
+            sep[h] += expf(p);
+            if (col == tg[h]) pt[h] = p;
+          }
+        }
+      }
+    bool take[2], tie[2];
+    float nll[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long r = r0 + 8 * h;
+      nll[h] = a.parity ? logf(quad_sum(sep[h])) - quad_sum(pt[h])
+                        : logf(es[h]) + mx[h] - zt[h];
+      take[h] = q == 0 && r < hi && valid_row(a, r);
+      tie[h] = take[h] && mx[h] - m2[h] <= kTieMargin * (1.f + fabsf(mx[h]));
+    }
+    // near-tied rows: the argmax of the plain version's logits, the warp
+    // on one row at a time
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned ties = __ballot_sync(0xffffffffu, tie[h]);
+      while (ties) {
+        const int src = __ffs(ties) - 1, row = (src >> 2) + 8 * h;
+        ties &= ties - 1;
+        const int col = exact_argmax_f32(lsk + row * lds, w1s, w2s, b1, b2,
+                                         scr, S, C, ldc);
+        if (g == (src >> 2)) am[h] = col;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (take[h]) {
+        loss += nll[h];
+        match += am[h] == tg[h] ? 1.f : 0.f;
+      }
+    if (a.p_out) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = 8 * j + 2 * q;
+        if (j < nt && col < C) {
+          if (r0 < hi)
+            *reinterpret_cast<float2*>(a.p_out + r0 * C + col) =
+                make_float2(z[j][0], z[j][1]);
+          if (r0 + 8 < hi)
+            *reinterpret_cast<float2*>(a.p_out + (r0 + 8) * C + col) =
+                make_float2(z[j][2], z[j][3]);
+        }
+      }
+    }
+  }
+  // block sums, in thread order
+  red[tid] = loss;
+  red[kThreads + tid] = match;
+  __syncthreads();
+  if (tid == 0) {
+    float sl = 0.f, sm = 0.f;
+    for (int i = 0; i < kThreads; ++i) {
+      sl += red[i];
+      sm += red[kThreads + i];
+    }
+    a.part[2 * blockIdx.x] = sl;
+    a.part[2 * blockIdx.x + 1] = sm;
+  }
+}
+
+// C fragments of rows [m0, m0 + 16) of N n tiles (the first n of them) to
+// x (M, ld) in float32, rows below hi
+template <int N>
+__device__ __forceinline__ void store_rows_f32(float* x, int ld, long m0,
+                                               long hi, int n,
+                                               const float (&d)[N][4]) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < n) {
+      const int col = 8 * j + 2 * q;
+      if (m0 + g < hi)
+        *reinterpret_cast<float2*>(x + (m0 + g) * ld + col) =
+            make_float2(d[j][0], d[j][1]);
+      if (m0 + g + 8 < hi)
+        *reinterpret_cast<float2*>(x + (m0 + g + 8) * ld + col) =
+            make_float2(d[j][2], d[j][3]);
+    }
+}
+
+// Backward: dz, dy, dskip and the bias gradients; leaky(y), dz and dy
+// stored for head_wgrad_f32_kernel.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+    head_bwd_f32_kernel(HeadArgs a) {
+  const int S = a.s, C = a.c;
+  const F32Head L(S, C);
+  const int SP = L.sp, CP = L.cp, ldc = L.ldc, lds = L.lds;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* w1s = reinterpret_cast<float*>(smem);   // (SP, ldc) W1, wrow
+  float* w2s = w1s + SP * ldc;                    // (CP, ldc) W2, wrow
+  float* b1 = w2s + CP * ldc;                     // (CP)
+  float* cs = b1 + CP;   // (kWarps, 2, CP): each warp's db2, db1 sums
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  float* lsk = cs + kWarps * 2 * CP + warp * 16 * lds;   // (16, lds)
+  stage_w_f32(a.w1, S, C, SP, CP, w1s, ldc);
+  stage_w_f32(a.w2, C, C, CP, CP, w2s, ldc);
+  for (int i = tid; i < CP; i += kThreads) b1[i] = i < C ? a.b1[i] : 0.f;
+  for (int i = tid; i < kWarps * 2 * CP; i += kThreads) cs[i] = 0.f;
+  __syncthreads();
+  float* cs2 = cs + warp * 2 * CP;
+  float* cs1 = cs2 + CP;
+  const int nt = CP / 8, ns = SP / 8;
+  const float dloss = a.dloss[0];
+  const long lo = blockIdx.x * a.rows_per_block;
+  const long hi = min_l(lo + a.rows_per_block, a.m_total);
+  for (long m0 = lo + 16 * warp; m0 < hi; m0 += 16 * kWarps) {
+    const long r0 = m0 + g;
+    stage_lskip_f32(a.skip_f, S, SP, m0, hi, lsk, lds);
+    // y rebuilt
+    float y[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[j][e] = 0.f;
+      if (j < nt) {
+        for (int k0 = 0; k0 < SP; k0 += 8) {
+          Frag<4> fa;
+          f32_a_rows(lsk, lds, k0, fa);
+          Frag<2> fb;
+          f32_b_w(w1s, ldc, k0, 8 * j, fb);
+          mma_split_add<true>(y[j], fa, fb);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[j][e] += b1[8 * j + 2 * q + (e & 1)];
+      }
+    }
+    // y near zero formed again in the plain version's order (kTieMargin)
+    float ymax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ymax[e >> 1] = fmaxf(ymax[e >> 1], fabsf(y[j][e]));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ymax[h] = fmaxf(ymax[h], __shfl_xor_sync(0xffffffffu, ymax[h], 1));
+      ymax[h] = fmaxf(ymax[h], __shfl_xor_sync(0xffffffffu, ymax[h], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * q + (e & 1);
+        if (j < nt && c < C &&
+            fabsf(y[j][e]) <= kTieMargin * (1.f + ymax[e >> 1]))
+          y[j][e] = exact_y_f32(lsk + (g + 8 * (e >> 1)) * lds, w1s, ldc, S,
+                                c) + b1[c];
+      }
+    // y > 0 as bit 4 j + e (n tile j, element e); leaky(y) stored
+    unsigned long long ypos = 0ull;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ypos |= (y[j][e] > 0.f ? 1ull : 0ull) << (4 * j + e);
+        y[j][e] = leaky(y[j][e]);
+      }
+    store_rows_f32<NT>(a.ly_f, CP, m0, hi, nt, y);
+    // dz from the saved p, read in the C fragment layout
+    int tg[2];
+    float sc[2];
+    tg[0] = r0 < hi ? target_of(a, r0) : -1;
+    tg[1] = r0 + 8 < hi ? target_of(a, r0 + 8) : -1;
+    sc[0] = r0 < hi && valid_row(a, r0) ? dloss : 0.f;
+    sc[1] = r0 + 8 < hi && valid_row(a, r0 + 8) ? dloss : 0.f;
+    float d[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = 8 * j + 2 * q;
+      float2 v0 = make_float2(0.f, 0.f), v1 = v0;
+      if (j < nt && col < C) {
+        if (r0 < hi)
+          v0 = *reinterpret_cast<const float2*>(a.p_in + r0 * C + col);
+        if (r0 + 8 < hi)
+          v1 = *reinterpret_cast<const float2*>(a.p_in + (r0 + 8) * C + col);
+      }
+      d[j][0] = v0.x;
+      d[j][1] = v0.y;
+      d[j][2] = v1.x;
+      d[j][3] = v1.y;
+    }
+    if (a.parity) {
+      // g = softmax(p) - onehot, dz = p g - p (p.g)
+      float es[2] = {0.f, 0.f}, pg[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j < nt && 8 * j + 2 * q + (e & 1) < C)
+            es[e >> 1] += expf(d[j][e]);
+      const float inv[2] = {1.f / quad_sum(es[0]), 1.f / quad_sum(es[1])};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+          if (j < nt && col < C) {
+            const float gv =
+                expf(d[j][e]) * inv[h] - (col == tg[h] ? 1.f : 0.f);
+            pg[h] += d[j][e] * gv;
+          }
+        }
+      pg[0] = quad_sum(pg[0]);
+      pg[1] = quad_sum(pg[1]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+          float v = 0.f;
+          if (j < nt && col < C) {
+            const float p = d[j][e];
+            const float gv = expf(p) * inv[h] - (col == tg[h] ? 1.f : 0.f);
+            v = (p * gv - p * pg[h]) * sc[h];
+          }
+          d[j][e] = v;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+          d[j][e] = j < nt && col < C
+                        ? (d[j][e] - (col == tg[h] ? 1.f : 0.f)) * sc[h]
+                        : 0.f;
+        }
+    }
+    colsum_add<NT>(d, nt, cs2);
+    store_rows_f32<NT>(a.dz_f, CP, m0, hi, nt, d);
+    // dy = dz W2^T * dleaky(y), into y
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[j][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) break;
+      Frag<4> fa;
+      a_from_c<true>(d[j], fa);
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) {
+        if (jn >= nt) break;
+        Frag<2> fb;
+        f32_b_wt(w2s, ldc, 8 * j, 8 * jn, fb);
+        mma_split_add<true>(y[jn], fa, fb);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[j][e] *= (ypos >> (4 * j + e)) & 1ull ? 1.f : 0.01f;
+    colsum_add<NT>(y, nt, cs1);
+    store_rows_f32<NT>(a.dy_f, CP, m0, hi, nt, y);
+    // dskip = dy W1^T * dleaky(skip) (leaky(skip) and skip have the same
+    // sign)
+    float ds[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[i][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) break;
+      Frag<4> fa;
+      a_from_c<true>(y[j], fa);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (i >= ns) break;
+        Frag<2> fb;
+        f32_b_wt(w1s, ldc, 8 * j, 8 * i, fb);
+        mma_split_add<true>(ds[i], fa, fb);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 8 * i + 2 * q;
+      if (i < ns && col < S) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long r = r0 + 8 * h;
+          if (r >= hi) continue;
+          const float* lr = lsk + (g + 8 * h) * lds + col;
+          *reinterpret_cast<float2*>(a.dskip_f + r * S + col) = make_float2(
+              ds[i][2 * h] * (lr[0] > 0.f ? 1.f : 0.01f),
+              ds[i][2 * h + 1] * (lr[1] > 0.f ? 1.f : 0.01f));
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // partial: dw1 (S*C) | db1 (C) | dw2 (C*C) | db2 (C); the weight
+  // gradients come from head_wgrad_f32_kernel
+  float* out = a.part + blockIdx.x * a.n_el;
+  for (int c = tid; c < C; c += kThreads) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      s2 += cs[w * 2 * CP + c];
+      s1 += cs[w * 2 * CP + CP + c];
+    }
+    out[S * C + c] = s1;
+    out[S * C + C + C * C + c] = s2;
+  }
+}
+
+// dW2 = leaky(y)^T dz (blocks x < tiles_n^2) and dW1 = leaky(skip)^T dy
+// (the next tiles_n blocks) over the rows of split blockIdx.y (the
+// backward's block ranges), split-TF32 on the tensor cores: a 64x64
+// output tile a block, each warp 32x32, 32-row stages of float32 through
+// shared memory (rows of 8 mod 32 floats) with the next stage's loads in
+// flight.
+constexpr int kWgLdf = kWgTile + 8;
+__global__ void __launch_bounds__(kWgThreads)
+    head_wgrad_f32_kernel(HeadArgs a, int tiles_n) {
+  __shared__ __align__(16) float sa[kWgRows * kWgLdf];
+  __shared__ __align__(16) float sb[kWgRows * kWgLdf];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3, wm = warp >> 1, wn = warp & 1;
+  const int tiles2 = tiles_n * tiles_n;
+  const bool is_w1 = static_cast<int>(blockIdx.x) >= tiles2;
+  const int t = is_w1 ? blockIdx.x - tiles2 : blockIdx.x;
+  const int m0 = is_w1 ? 0 : (t / tiles_n) * kWgTile;
+  const int n0 = (t % tiles_n) * kWgTile;
+  const int S = a.s, C = a.c;
+  const F32Head L(S, C);
+  const int CP = L.cp, kc = is_w1 ? S : C, kcp = is_w1 ? L.sp : CP;
+  const float* bsrc = is_w1 ? a.dy_f : a.dz_f;
+  const long lo = blockIdx.y * a.rows_per_block;
+  const long hi = min_l(lo + a.rows_per_block, a.m_total);
+  float4 ra[4], rb[4];
+  // a stage of rows [r, r + 32) into registers: A from leaky(y) or
+  // leaky(skip), B from dz or dy, 4 floats an item
+  auto load = [&](long r) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = tid + kWgThreads * u, row = i >> 4, c4 = (i & 15) * 4;
+      const bool in = r + row < hi;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (is_w1) {
+        if (in && c4 < S) {
+          v = *reinterpret_cast<const float4*>(a.skip_f + (r + row) * S + c4);
+          v = make_float4(leaky(v.x), leaky(v.y), leaky(v.z), leaky(v.w));
+        }
+      } else if (in && m0 + c4 < CP) {
+        v = *reinterpret_cast<const float4*>(a.ly_f + (r + row) * CP + m0 +
+                                             c4);
+      }
+      ra[u] = v;
+      rb[u] = in && n0 + c4 < CP
+                  ? *reinterpret_cast<const float4*>(bsrc + (r + row) * CP +
+                                                     n0 + c4)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  if (lo < hi) load(lo);
+  for (long r = lo; r < hi; r += kWgRows) {
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = tid + kWgThreads * u, row = i >> 4, c4 = (i & 15) * 4;
+      *reinterpret_cast<float4*>(sa + row * kWgLdf + c4) = ra[u];
+      *reinterpret_cast<float4*>(sb + row * kWgLdf + c4) = rb[u];
+    }
+    __syncthreads();
+    if (r + kWgRows < hi) load(r + kWgRows);
+#pragma unroll
+    for (int k0 = 0; k0 < kWgRows; k0 += 8) {
+      Frag<4> fa[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        if (m0 + wm * 32 + mt * 16 < kcp)
+          load_a_kmajor<true>(sa + k0 * kWgLdf + wm * 32 + mt * 16, kWgLdf,
+                              fa[mt]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int nb = wn * 32 + 8 * j;
+        if (n0 + nb < CP) {
+          Frag<2> fb;
+          load_b_kmajor(sb + k0 * kWgLdf + nb, kWgLdf, fb);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            if (m0 + wm * 32 + mt * 16 < kcp)
+              mma_split_add<true>(acc[mt][j], fa[mt], fb);
+        }
+      }
+    }
+  }
+  // partial: dw1 (S*C) | db1 (C) | dw2 (C*C) | db2 (C)
+  float* out = a.part + blockIdx.y * a.n_el + (is_w1 ? 0 : S * C + C);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm * 32 + mt * 16 + g + (e >> 1) * 8;
+        const int n = n0 + wn * 32 + j * 8 + 2 * q + (e & 1);
+        if (m < kc && n < C) out[m * C + n] = acc[mt][j][e];
+      }
+}
+
 __global__ void __launch_bounds__(kThreads)
     reduce_kernel(const float* part, float* out, long n_el, int n_parts) {
   for (long e = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
@@ -1699,6 +2404,43 @@ struct BwdLaunch {
     return launch(head_bwd_kernel<NT, KS>, a, bwd_smem(a.s, a.c), blocks, st);
   }
 };
+
+// The float32 kernel instance for CP: NT = 4, 8 or 16 n tiles.
+template <typename F>
+int dispatch_f32(int cp, const F& f) {
+  if (cp <= 32) return f.template run<4>();
+  if (cp <= 64) return f.template run<8>();
+  return f.template run<16>();
+}
+
+struct FwdF32Launch {
+  const HeadArgs& a;
+  int blocks;
+  cudaStream_t st;
+  template <int NT>
+  int run() const {
+    return launch(head_fwd_f32_kernel<NT>, a, F32Head(a.s, a.c).fwd_bytes(),
+                  blocks, st);
+  }
+};
+
+struct BwdF32Launch {
+  const HeadArgs& a;
+  int blocks;
+  cudaStream_t st;
+  template <int NT>
+  int run() const {
+    return launch(head_bwd_f32_kernel<NT>, a, F32Head(a.s, a.c).bwd_bytes(),
+                  blocks, st);
+  }
+};
+
+bool f32_supports(int s, int c) {
+  const F32Head L(s, c);
+  return s >= 4 && c >= 4 && s % 4 == 0 && c % 4 == 0 && s <= 64 &&
+         c <= 128 && L.fwd_bytes() <= kSmemLimit &&
+         L.bwd_bytes() <= kSmemLimit;
+}
 
 // The arguments every kernel takes; rows_per_block a multiple of `rt`.
 HeadArgs make_args(const bf16_t* skip, const int* pack, int pack_cols,
@@ -1816,6 +2558,80 @@ int movenet_head_bwd(const bf16_t* skip, const int* pack, int pack_cols,
                         kWgThreads, 0, st>>>(a, tiles_n);
     err = static_cast<int>(cudaGetLastError());
   }
+  if (err) return err;
+  reduce_kernel<<<static_cast<int>((a.n_el + kThreads - 1) / kThreads),
+                  kThreads, 0, st>>>(part, grads, a.n_el, blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 1 if the float32 kernels take skip width s and c classes (4 <= S <= 64,
+// 4 <= C <= 128, multiples of 4)
+int movenet_head_f32_supports(int s, int c) { return f32_supports(s, c); }
+
+// Dynamic shared memory a block of the float32 forward (bwd = 0) or
+// backward (bwd = 1) takes at (s, c)
+long movenet_head_f32_smem(int s, int c, int bwd) {
+  const F32Head L(s, c);
+  return static_cast<long>(bwd ? L.bwd_bytes() : L.fwd_bytes());
+}
+
+// float32 elements of the float32 backward's scratch (leaky(y), dz, dy)
+// over m rows
+long movenet_head_f32_inter(int s, int c, long m) {
+  return 3L * m * F32Head(s, c).cp;
+}
+
+// The float32 forward: out[0] = loss sum, out[1] = match count; p_out may
+// be null.  part holds `blocks` x 2 floats.
+int movenet_head_fwd_f32(const float* skip, const int* pack, int pack_cols,
+                         int tgt_off, const float* w1, const float* b1,
+                         const float* w2, const float* b2, float* p_out,
+                         float* part, float* out, int batch, int t_len, int s,
+                         int c, int rf, int parity, int blocks,
+                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!f32_supports(s, c)) return static_cast<int>(cudaErrorInvalidValue);
+  const long m = static_cast<long>(batch) * t_len;
+  HeadArgs a = make_args(nullptr, pack, pack_cols, tgt_off, w1, b1, w2, b2,
+                         m, blocks, 16, t_len, s, c, rf, parity, part);
+  a.skip_f = skip;
+  a.p_out = p_out;
+  int err = dispatch_f32(F32Head(s, c).cp, FwdF32Launch{a, blocks, st});
+  if (err) return err;
+  reduce_kernel<<<1, kThreads, 0, st>>>(part, out, 2, blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 backward: dskip (float32), grads = dw1 (S*C) | db1 (C) | dw2
+// (C*C) | db2 (C); part holds `blocks` x that many floats, inter
+// movenet_head_f32_inter floats.
+int movenet_head_bwd_f32(const float* skip, const int* pack, int pack_cols,
+                         int tgt_off, const float* p_in, const float* w1,
+                         const float* b1, const float* w2, const float* b2,
+                         const float* dloss, float* dskip, float* inter,
+                         float* part, float* grads, int batch, int t_len,
+                         int s, int c, int rf, int parity, int blocks,
+                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!f32_supports(s, c) || !p_in || !inter)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long m = static_cast<long>(batch) * t_len;
+  HeadArgs a = make_args(nullptr, pack, pack_cols, tgt_off, w1, b1, w2, b2,
+                         m, blocks, 16, t_len, s, c, rf, parity, part);
+  const int cp = F32Head(s, c).cp;
+  a.skip_f = skip;
+  a.dskip_f = dskip;
+  a.dloss = dloss;
+  a.p_in = p_in;
+  a.ly_f = inter;
+  a.dz_f = inter + m * cp;
+  a.dy_f = inter + 2 * m * cp;
+  int err = dispatch_f32(cp, BwdF32Launch{a, blocks, st});
+  if (err) return err;
+  const int tiles_n = (cp + kWgTile - 1) / kWgTile;
+  head_wgrad_f32_kernel<<<dim3(tiles_n * tiles_n + tiles_n, blocks),
+                          kWgThreads, 0, st>>>(a, tiles_n);
+  err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   reduce_kernel<<<static_cast<int>((a.n_el + kThreads - 1) / kThreads),
                   kThreads, 0, st>>>(part, grads, a.n_el, blocks);

@@ -93,3 +93,17 @@ __device__ __forceinline__ void mma_split(float* d, const Frag<4>& a,
   mma_tf32(d, a.big, b.small);
   mma_tf32(d, a.big, b.big);
 }
+
+// d += a b as mma_split forms it, the passes summed from zero by the
+// tensor core and added to d in float32 (round to nearest): the tensor
+// core's own accumulation truncates, and over a long k loop (a sum over
+// many rows) that drifts from float32 sums, as mma_bf16_add avoids for
+// bf16 products.  The float32 forms of the training kernels sum so.
+template <bool SPLIT_A>
+__device__ __forceinline__ void mma_split_add(float* d, const Frag<4>& a,
+                                              const Frag<2>& b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_split<SPLIT_A>(t, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}

@@ -15,9 +15,11 @@
 //     the output head and the CE loss.
 // The save kernels also run in their non-embed form (x in, dx out; the
 // JAX package's fused_stack with strategy "save"), which the merged
-// kernels build on.  Only the bf16 compute dtype is built here (the
+// kernels build on.  Every form takes the bf16 compute dtype (the
 // operands of the forward products are bf16, the backward's are f32, as
-// on the TPU).
+// on the TPU); the save strategy's embed form also takes float32 (the
+// float32 compute dtype: stack_layer_f32_kernel and the backward's
+// float32 form, see "the float32 save forward" below).
 //
 // Design.  The TPU runs a (batch, time tile) grid in order and carries the
 // dilation rings and the weight-gradient sums from one grid step to the
@@ -102,6 +104,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "head_core.cuh"
 #include "mma_bf16.cuh"
@@ -231,12 +235,14 @@ struct BwdLayerArgs {
   const bf16_t* dskip;   // (M, S), or null when dskip_f is given
   const float* dskip_f;  // (M, S) float32 dskip (the merged head's)
   const bf16_t* tfsg;    // (M, 2R)
+  const float* tfsg_f;   // (M, 2R) the float32 form's taps
   const float* w_out;    // (R, R+S)
   const float* w_fg;     // (W_in, 2R)
   long m_total;
   int t_len, d_in, top, win;
   // the recompute form (no tfsg): the taps recomputed from this layer's
   // input, its fg bias rows and the layer's dilation; gated = tf * sg out
+  // (the float32 form stores gated too)
   const bf16_t* hs;      // (M, R) h_l
   const bf16_t* cx;      // (M, R) ctx, or null
   const float* b_fg;     // (B, 2R)
@@ -279,7 +285,19 @@ struct BwdShape {
     return static_cast<size_t>(R * kLdd + win * kLdf) * 4 +
            kHalves * kTileRc;
   }
+  // the float32 form: the taps (float32) are staged in the dfg rows, which
+  // their dfg then overwrites place by place
+  static constexpr size_t kTileF32 =
+      static_cast<size_t>(kRows * kLdd + kRows * kLdf) * 4;
+  static size_t smem_f32(int win) {
+    return static_cast<size_t>(R * kLdd + win * kLdf) * 4 +
+           kHalves * kTileF32;
+  }
 };
+
+// the layer backward's forms: the save strategy's (bf16 taps), the
+// recompute strategy's and the float32 save form (float32 taps)
+constexpr int kBwdSave = 0, kBwdRc = 1, kBwdF32 = 2;
 
 // A barrier over one pipeline's 256 threads.
 template <int HALVES>
@@ -293,29 +311,35 @@ __device__ __forceinline__ void pipe_sync(int h) {
 // One tile's global inputs of one thread, held in registers from the
 // tile before it: dh (the layer above's dh + dfg_w_h with the carry
 // added), dskip and the taps, each 16 bytes of one row.
-template <int R, int S, bool RC>
+template <int R, int S, int FORM>
 struct BwdTileRegs {
+  static constexpr bool kTg = FORM == kBwdSave, kF32 = FORM == kBwdF32;
   static constexpr int kRows = BwdShape<R, S>::kRows;
   static constexpr int kNh = kRows * (R / 4) / 256;   // exact
   static constexpr int kNs = (kRows * (S / 4) + 255) / 256;
   static constexpr int kNp = (kRows * (3 * R / 8) + 255) / 256;
   float4 dh[kNh];
   float4 sk[kNs];
-  uint4 tg[RC ? 1 : kNh];   // 8 taps per item: 2R per row, as many as dh
-  uint4 hp[RC ? kNp : 1];   // the recompute form: [h | h(t-d) | ctx] items
+  uint4 tg[kTg ? kNh : 1];   // 8 taps per item: 2R per row, as many as dh
+  uint4 hp[FORM == kBwdRc ? kNp : 1];   // the recompute form: [h | h(t-d)
+                                        // | ctx] items
+  float4 tf[kF32 ? kNh : 1], sg[kF32 ? kNh : 1];   // the float32 taps
 };
 
 // ht: the thread's index in its pipeline
-template <int R, int S, bool RC>
+template <int R, int S, int FORM>
 __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
-                                          int ht, BwdTileRegs<R, S, RC>& f) {
-  using Regs = BwdTileRegs<R, S, RC>;
+                                          int ht,
+                                          BwdTileRegs<R, S, FORM>& f) {
+  using Regs = BwdTileRegs<R, S, FORM>;
+  constexpr bool RC = FORM == kBwdRc, F32 = FORM == kBwdF32;
 #pragma unroll
   for (int u = 0; u < Regs::kNh; ++u) {
     const int i = ht + u * 256;
     const int row = i / (R / 4), j0 = 4 * (i % (R / 4));
     const long m = m0 + row;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 tf = v, sg = v;
     uint4 tg = make_uint4(0, 0, 0, 0);
     if (m < a.m_total) {
       if (!a.top) {
@@ -326,11 +350,19 @@ __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
           v = make_float4(v.x + c.x, v.y + c.y, v.z + c.z, v.w + c.w);
         }
       }
-      if (!RC)
+      if (Regs::kTg)
         tg = *reinterpret_cast<const uint4*>(a.tfsg + m * 2 * R + 2 * j0);
+      if (F32) {
+        tf = *reinterpret_cast<const float4*>(a.tfsg_f + m * 2 * R + j0);
+        sg = *reinterpret_cast<const float4*>(a.tfsg_f + m * 2 * R + R + j0);
+      }
     }
     f.dh[u] = v;
-    if (!RC) f.tg[u] = tg;
+    if (Regs::kTg) f.tg[u] = tg;
+    if (F32) {
+      f.tf[u] = tf;
+      f.sg[u] = sg;
+    }
   }
   if (RC) {
     const int per_row = a.win / 8;
@@ -370,18 +402,22 @@ __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
 // pipeline's 8 warps: warp w takes rows 16 (w % kMt) .. +16 and a
 // contiguous 1 / (8 / kMt) of each product's columns (kTpw n tiles of
 // dgated, W_in / 8 / (8 / kMt) of dfg_w), k in order: fixed sums.
-// RC: the recompute form (stack_bwd_tails).  Its tile holds [h | h(t-d) |
-// ctx] in place of the taps; each warp recomputes fg for its dgated
-// columns (filter and gate, bf16 mma through fg_mma from W_fg in shared
-// memory rounded as it loads), keeps tf and sg in float32 registers at
-// the places of its dgated sums, and stores gated = tf * sg (float32) for
-// the W_out gradient.
-template <int R, int S, bool RC>
+// FORM kBwdRc: the recompute form (stack_bwd_tails).  Its tile holds [h |
+// h(t-d) | ctx] in place of the taps; each warp recomputes fg for its
+// dgated columns (filter and gate, bf16 mma through fg_mma from W_fg in
+// shared memory rounded as it loads), keeps tf and sg in float32 registers
+// at the places of its dgated sums, and stores gated = tf * sg (float32)
+// for the W_out gradient.  FORM kBwdF32: the float32 save form
+// (stack_bwd_f32).  Its float32 taps are staged in the tile's dfg rows,
+// where each thread reads tf and sg of its dgated places, stores gated =
+// tf * sg (float32) for the W_out gradient and overwrites them with dfg.
+template <int R, int S, int FORM>
 __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
                                   BwdShape<R, S>::kHalves == 2 ? 1 : 2)
     stack_bwd_layer_kernel(BwdLayerArgs a) {
   using Sh = BwdShape<R, S>;
-  using Regs = BwdTileRegs<R, S, RC>;
+  using Regs = BwdTileRegs<R, S, FORM>;
+  constexpr bool RC = FORM == kBwdRc, F32 = FORM == kBwdF32;
   constexpr int NO = Sh::kNo, LDD = Sh::kLdd, LDF = Sh::kLdf;
   constexpr int LDT = Sh::kLdt, ROWS = Sh::kRows, TPW = Sh::kTpw;
   constexpr int H = Sh::kHalves, MT = Sh::kMt;
@@ -394,7 +430,8 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
   float* wf = wo + R * LDD;                       // (win, LDF) W_fg
   const int tid = threadIdx.x, h = tid / 256, ht = tid % 256;
   unsigned char* mine = reinterpret_cast<unsigned char*>(wf + win * LDF) +
-                        h * (RC ? Sh::kTileRc : Sh::kTile);
+                        h * (RC ? Sh::kTileRc
+                                : F32 ? Sh::kTileF32 : Sh::kTile);
   float* dd = reinterpret_cast<float*>(mine);   // (ROWS, LDD) [dh | dskip]
   float* ff = dd + ROWS * LDD;                    // (ROWS, LDF) dfg
   bf16_t* ts = reinterpret_cast<bf16_t*>(ff + ROWS * LDF);   // (ROWS, LDT)
@@ -415,7 +452,7 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
   const long step = static_cast<long>(gridDim.x) * H;
   const long first = static_cast<long>(blockIdx.x) * H + h;
   Regs nx;
-  if (first < n_tiles) bwd_fetch<R, S, RC>(a, first * ROWS, ht, nx);
+  if (first < n_tiles) bwd_fetch<R, S, FORM>(a, first * ROWS, ht, nx);
   for (long tile_i = first; tile_i < n_tiles; tile_i += step) {
   const long m0 = tile_i * ROWS;
   pipe_sync<H>(h);
@@ -430,7 +467,12 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
     if (m < a.m_total)
       *reinterpret_cast<float4*>(a.dh + m * R + j0) = nx.dh[u];
     *reinterpret_cast<float4*>(dd + row * LDD + j0) = nx.dh[u];
-    if (!RC) *reinterpret_cast<uint4*>(ts + row * LDT + 2 * j0) = nx.tg[u];
+    if (Regs::kTg)
+      *reinterpret_cast<uint4*>(ts + row * LDT + 2 * j0) = nx.tg[u];
+    if (F32) {
+      *reinterpret_cast<float4*>(ff + row * LDF + j0) = nx.tf[u];
+      *reinterpret_cast<float4*>(ff + row * LDF + R + j0) = nx.sg[u];
+    }
   }
   if (RC) {
     const int per_row = win / 8;
@@ -452,7 +494,7 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
   pipe_sync<H>(h);
   // in flight while this tile computes: the next tile's inputs
   if (tile_i + step < n_tiles)
-    bwd_fetch<R, S, RC>(a, m0 + step * ROWS, ht, nx);
+    bwd_fetch<R, S, FORM>(a, m0 + step * ROWS, ht, nx);
 
   // RC: tf and sg of the warp's dgated places, from fg recomputed
   float tfv[RC ? TPW : 1][4], sgv[RC ? TPW : 1][4];
@@ -494,7 +536,10 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
       for (int j = 0; j < TPW; ++j) {
         Frag<2> fb;
         load_b_cols(wo + (n0 + 8 * j) * LDD + k0, LDD, fb);
-        mma_split<true>(acc[j], fa, fb);
+        if constexpr (F32)
+          mma_split_add<true>(acc[j], fa, fb);
+        else
+          mma_split<true>(acc[j], fa, fb);
       }
     }
 #pragma unroll
@@ -509,6 +554,19 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
           tf[1] = tfv[RC ? j : 0][2 * e + 1];
           sg[0] = sgv[RC ? j : 0][2 * e];
           sg[1] = sgv[RC ? j : 0][2 * e + 1];
+          const long m = m0 + row;
+          if (m < a.m_total)
+            *reinterpret_cast<float2*>(a.gated + m * R + c) =
+                make_float2(tf[0] * sg[0], tf[1] * sg[1]);
+        } else if (F32) {
+          const float2 tw =
+              *reinterpret_cast<const float2*>(ff + row * LDF + c);
+          const float2 sw =
+              *reinterpret_cast<const float2*>(ff + row * LDF + R + c);
+          tf[0] = tw.x;
+          tf[1] = tw.y;
+          sg[0] = sw.x;
+          sg[1] = sw.y;
           const long m = m0 + row;
           if (m < a.m_total)
             *reinterpret_cast<float2*>(a.gated + m * R + c) =
@@ -573,7 +631,10 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
         if (j >= np) break;
         Frag<2> fb;
         load_b_cols(wf + (c0 + 8 * j) * LDF + k0, LDF, fb);
-        mma_split<true>(acc[j], fa, fb);
+        if constexpr (F32)
+          mma_split_add<true>(acc[j], fa, fb);
+        else
+          mma_split<true>(acc[j], fa, fb);
       }
     }
 #pragma unroll
@@ -615,7 +676,15 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
 //   MODE 0: A = [hsave | hsave(t-d) | ctx] (W_in), B = dfg (2R)
 //   MODE 1: A = tf * sg (R), B = [dh | dskip] (R+S)
 //   MODE 2: A = xc rows (R), B = dctx as (T/10, 10R) rows
-//   MODE 3: A = gated (R, float32: the recompute form's tf * sg), B as 1
+//   MODE 3: A = gated (R, float32: the recompute form's tf * sg, and the
+//           float32 form's), B as 1
+//   MODE 4: A = [hsave | hsave(t-d) | ctx] in float32 (the float32 form), B
+//           as 0
+//   MODE 5: A = xc rows in float32 (the float32 form), B as 2
+//   MODE 6: A = gated in float32 (the float32 save form), B as 1
+// The float32 form's modes (4-6) sum each 8-row k step from zero and add
+// it in float32 (mma_split_add): a sum over a block's thousands of rows
+// in the tensor core's own accumulation drifts by 1e-4 of the result.
 // Loads move 8 bf16 or 4 floats at a time; shapes are template constants.
 struct WgradArgs {
   const bf16_t* hs;
@@ -631,6 +700,9 @@ struct WgradArgs {
   float* part;     // (batch * chunks, KA, n)
   float* part_b;   // (batch * chunks, n)
   const float* gated;   // MODE 3: (M, R)
+  const float* hs_f;    // MODE 4: (M, R) float32 hsave
+  const float* ctx_f;   // MODE 4: (M, R) float32 ctx, or null
+  const float* xc_f;    // MODE 5: (M / 10, R) float32 xc
 };
 
 constexpr int kWgRows = 64;
@@ -664,12 +736,26 @@ __device__ __forceinline__ uint4 wg_a_raw(const WgradArgs& a, long row,
   return *reinterpret_cast<const uint4*>(a.xc + row * R + 8 * q);
 }
 
+// Where the 8 float32 values of one row of A, group q, lie (MODE >= 3), or
+// null: zero (the tap before t = d).
+template <int MODE, int R>
+__device__ __forceinline__ const float* wg_a_f32(const WgradArgs& a,
+                                                 long row, int t, int q) {
+  constexpr int G = R / 8;
+  if (MODE == 3 || MODE == 6) return a.gated + row * R + 8 * q;
+  if (MODE == 5) return a.xc_f + row * R + 8 * q;
+  if (q < G) return a.hs_f + row * R + 8 * q;
+  if (q < 2 * G)
+    return t >= a.d ? a.hs_f + (row - a.d) * R + 8 * (q - G) : nullptr;
+  return a.ctx_f + row * R + 8 * (q - 2 * G);
+}
+
 // One row of B, 4 columns (c, c+1, c+2, c+3) at a time.
 template <int MODE, int R, int S>
 __device__ __forceinline__ float4 wg_b4(const WgradArgs& a, long row, int c) {
-  if (MODE == 0)
+  if (MODE == 0 || MODE == 4)
     return *reinterpret_cast<const float4*>(a.dfg + row * 2 * R + c);
-  if (MODE == 1 || MODE == 3) {
+  if (MODE == 1 || MODE == 3 || MODE == 6) {
     if (c < R) return *reinterpret_cast<const float4*>(a.dh + row * R + c);
     if (a.dskip_f)
       return *reinterpret_cast<const float4*>(a.dskip_f + row * S + c - R);
@@ -714,13 +800,15 @@ constexpr WgSplit wg_split(int km, int kn, int ca, int cb) {
 
 template <int MODE, int R, int S, int KA>
 struct WgShape {
-  static constexpr int kN = MODE == 0 ? 2 * R : MODE == 2 ? 10 * R : R + S;
+  static constexpr int kN = MODE == 0 || MODE == 4   ? 2 * R
+                            : MODE == 2 || MODE == 5 ? 10 * R
+                                                     : R + S;
   static constexpr int kNb = kN < kWgSlab ? kN : kWgSlab;   // slab width
   // row strides of 8 mod 16 floats: conflict-free k-major fragments
   static constexpr int kLda = (KA + 15) / 16 * 16 + 8;
   static constexpr int kLdb = (kNb + 15) / 16 * 16 + 8;
-  // gated; else bf16 values
-  static constexpr bool kSplitA = MODE == 1 || MODE == 3;
+  // gated, or float32 activations; else bf16 values
+  static constexpr bool kSplitA = MODE == 1 || MODE >= 3;
   static constexpr WgSplit kW =
       wg_split(KA / 16, kNb / 8, kSplitA ? 12 : 4, 6);
   static constexpr int kWk = 8 / (kW.wm * kW.wn);     // k groups
@@ -737,12 +825,12 @@ struct WgShape {
 };
 
 // One 64-row chunk's A and B items of one thread, in registers.
-// MODE 3: a and sg hold an item's 8 float32 values, 4 each.
+// MODE >= 3: a and sg hold an item's 8 float32 values, 4 each.
 template <int MODE, int R, int S, int KA>
 struct WgChunkRegs {
   using Sh = WgShape<MODE, R, S, KA>;
   uint4 a[Sh::kIa];
-  uint4 sg[MODE == 1 || MODE == 3 ? Sh::kIa : 1];
+  uint4 sg[MODE == 1 || MODE >= 3 ? Sh::kIa : 1];
   float4 b[Sh::kIb];
 };
 
@@ -756,12 +844,14 @@ __device__ __forceinline__ void wg_fetch(const WgradArgs& a, long base,
   for (int u = 0; u < Sh::kIa; ++u) {
     const int i = tid + u * kThreads, rr = i / Sh::kGa, c = i % Sh::kGa;
     f.a[u] = make_uint4(0, 0, 0, 0);
-    if (MODE == 1 || MODE == 3) f.sg[u] = f.a[u];
-    if (MODE == 3) {
+    if (MODE == 1 || MODE >= 3) f.sg[u] = f.a[u];
+    if (MODE >= 3) {
       if (i < kWgRows * Sh::kGa && rr < rows) {
-        const float* p = a.gated + (base + t0 + rr) * R + 8 * c;
-        f.a[u] = *reinterpret_cast<const uint4*>(p);
-        f.sg[u] = *reinterpret_cast<const uint4*>(p + 4);
+        const float* p = wg_a_f32<MODE, R>(a, base + t0 + rr, t0 + rr, c);
+        if (p) {
+          f.a[u] = *reinterpret_cast<const uint4*>(p);
+          f.sg[u] = *reinterpret_cast<const uint4*>(p + 4);
+        }
       }
     } else if (i < kWgRows * Sh::kGa && rr < rows) {
       f.a[u] = wg_a_raw<MODE, R>(a, base + t0 + rr, t0 + rr, c,
@@ -784,7 +874,7 @@ __device__ __forceinline__ void wg_fetch(const WgradArgs& a, long base,
 // W_out and W_up sums fit two blocks per SM (128 registers), so that
 // one block's loads overlap the other's products; W_fg's take more.
 template <int MODE, int R, int S, int KA>
-__global__ void __launch_bounds__(kThreads, MODE == 0 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, MODE == 0 || MODE == 4 ? 1 : 2)
     stack_wgrad_kernel(WgradArgs a) {
   using Sh = WgShape<MODE, R, S, KA>;
   constexpr int N = Sh::kN, NB = Sh::kNb, LDA = Sh::kLda, LDB = Sh::kLdb;
@@ -819,7 +909,7 @@ __global__ void __launch_bounds__(kThreads, MODE == 0 ? 1 : 2)
       const int i = tid + u * kThreads;
       if (i >= kWgRows * GA) break;
       float v[8];
-      if (MODE == 3) {
+      if (MODE >= 3) {
         const unsigned w[8] = {nx.a[u].x,  nx.a[u].y,  nx.a[u].z,
                                nx.a[u].w,  nx.sg[u].x, nx.sg[u].y,
                                nx.sg[u].z, nx.sg[u].w};
@@ -862,8 +952,12 @@ __global__ void __launch_bounds__(kThreads, MODE == 0 ? 1 : 2)
         Frag<4> fa;
         load_a_kmajor<Sh::kSplitA>(as + k0 * LDA + i0 + 16 * i, LDA, fa);
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_split<Sh::kSplitA>(acc[i][j], fa, fb[j]);
+        for (int j = 0; j < NT; ++j) {
+          if constexpr (MODE >= 4)
+            mma_split_add<Sh::kSplitA>(acc[i][j], fa, fb[j]);
+          else
+            mma_split<Sh::kSplitA>(acc[i][j], fa, fb[j]);
+        }
       }
     }
   }
@@ -1000,11 +1094,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__device__ __forceinline__ void store_act(bf16_t* p, float v) {
+  *p = f2bf(v);
+}
+__device__ __forceinline__ void store_act(float* p, float v) { *p = v; }
+
 // dxc = dz wup^T over rows of dz = dctx as (B*T/10, 10R): the coarse
-// input gradient of the stride-10 projection, stored in bf16.
-template <int R>
+// input gradient of the stride-10 projection, stored in the compute
+// dtype (bf16, or float32 in the float32 form).
+template <int R, typename ActT>
 __global__ void __launch_bounds__(kThreads)
-    stack_proj_dx_kernel(const float* dz, const float* wup, bf16_t* dxc,
+    stack_proj_dx_kernel(const float* dz, const float* wup, ActT* dxc,
                          long q_total) {
   constexpr int ROWS = 64, LD = ROWS + 4, KC = 64, K = 10 * R;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1049,7 +1149,7 @@ __global__ void __launch_bounds__(kThreads)
     const long q = q0 + r0 + i;
     if (q >= q_total) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dxc[q * R + c0 + j] = f2bf(acc[i][j]);
+    for (int j = 0; j < 4; ++j) store_act(dxc + q * R + c0 + j, acc[i][j]);
   }
 }
 
@@ -1262,28 +1362,39 @@ struct BwdEnds {
   bf16_t* dx;            // non-null: dx in place of dtab
 };
 
-template <int R, int S>
-int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
-             const bf16_t* ctx, const float* w_fg, const float* w_out,
-             const int* dil, const bf16_t* xc, const float* wup,
-             float* scratch, int chunks, bf16_t* dctx_out, float* db_fg,
-             float* dw_fg, float* dw_out, float* db_out, float* dwup,
-             float* dbup, int batch, int t_len, int n_layers,
-             cudaStream_t st) {
+// The activations' type: bf16, or float in the float32 form.
+template <bool F32>
+using Act = typename std::conditional<F32, float, bf16_t>::type;
+
+// F32: the float32 form (hsave, tfsg, ctx, xc and dctx_out float32, dskip
+// float32 in ends.dskip_f, the table gradient: the embed form only).
+template <int R, int S, bool F32>
+int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
+             const Act<F32>* tfsg, const Act<F32>* ctx, const float* w_fg,
+             const float* w_out, const int* dil, const Act<F32>* xc,
+             const float* wup, float* scratch, int chunks,
+             Act<F32>* dctx_out, float* db_fg, float* dw_fg, float* dw_out,
+             float* db_out, float* dwup, float* dbup, int batch, int t_len,
+             int n_layers, cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const int win = ctx ? 3 * R : 2 * R;
   const bool proj = xc != nullptr;
-  // float32 scratch: dhp, p[2], dh, dfg, dctx, partials
+  // float32 scratch: dhp, p[2], dh, dfg, dctx, (the float32 form: gated,)
+  // partials
   float* dhp = scratch;
   float* pbuf[2] = {dhp + m_total * R, dhp + 2 * m_total * R};
   float* dh = dhp + 3 * m_total * R;
   float* dfg = dhp + 4 * m_total * R;
   float* dctx = dhp + 6 * m_total * R;
-  float* part = dhp + 7 * m_total * R;
+  float* gated = dhp + 7 * m_total * R;
+  float* part = dhp + (F32 ? 8 : 7) * m_total * R;
   using Sh = BwdShape<R, S>;
-  const size_t smem = Sh::smem(win);
+  constexpr int FORM = F32 ? kBwdF32 : kBwdSave;
+  // the weight gradients' modes: W_fg, W_out, W_up
+  constexpr int MFG = F32 ? 4 : 0, MOUT = F32 ? 6 : 1, MUP = F32 ? 5 : 2;
+  const size_t smem = F32 ? Sh::smem_f32(win) : Sh::smem(win);
   const void* layer = reinterpret_cast<const void*>(
-      stack_bwd_layer_kernel<R, S, false>);
+      stack_bwd_layer_kernel<R, S, FORM>);
   int err = set_smem(layer, smem);
   if (err) return err;
   // persistent blocks: as many as fit on the card, at most one per
@@ -1303,11 +1414,19 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
     a.p_out = pbuf[l & 1];
     a.dh = dh;
     a.dfg = dfg;
-    a.dctx = ctx ? dctx : nullptr;
-    a.dctx_bf = (ctx && !proj && l == 0) ? dctx_out : nullptr;
+    if constexpr (F32) {
+      // the flat dctx sums in its output, the projection's in dctx
+      a.dctx = ctx ? (proj ? dctx : dctx_out) : nullptr;
+      a.dctx_bf = nullptr;
+      a.tfsg_f = tfsg + l * m_total * 2 * R;
+      a.gated = gated;
+    } else {
+      a.dctx = ctx ? dctx : nullptr;
+      a.dctx_bf = (ctx && !proj && l == 0) ? dctx_out : nullptr;
+      a.tfsg = tfsg + l * m_total * 2 * R;
+    }
     a.dskip = ends.dskip;
     a.dskip_f = ends.dskip_f;
-    a.tfsg = tfsg + l * m_total * 2 * R;
     a.w_out = w_out + static_cast<long>(l) * R * (R + S);
     a.w_fg = w_fg + static_cast<long>(l) * win * 2 * R;
     a.m_total = m_total;
@@ -1315,15 +1434,21 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
     a.d_in = l + 1 < n_layers ? dil[l + 1] : 0;
     a.top = l == n_layers - 1;
     a.win = win;
-    stack_bwd_layer_kernel<R, S, false><<<grid, Sh::kThreads, smem, st>>>(a);
+    stack_bwd_layer_kernel<R, S, FORM><<<grid, Sh::kThreads, smem, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
 
     WgradArgs w = {};
-    w.hs = hsave + l * m_total * R;
-    w.ctx = ctx;
+    if constexpr (F32) {
+      w.hs_f = hsave + l * m_total * R;
+      w.ctx_f = ctx;
+      w.gated = gated;
+    } else {
+      w.hs = hsave + l * m_total * R;
+      w.ctx = ctx;
+      w.tfsg = tfsg + l * m_total * 2 * R;
+    }
     w.dfg = dfg;
-    w.tfsg = tfsg + l * m_total * 2 * R;
     w.dh = dh;
     w.dskip = ends.dskip;
     w.dskip_f = ends.dskip_f;
@@ -1335,12 +1460,12 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
     w.n = 2 * R;
     float* dwf = dw_fg + static_cast<long>(l) * win * 2 * R;
     float* dbf = db_fg + static_cast<long>(l) * batch * 2 * R;
-    err = ctx ? wgrad_launch<0, R, S, 3 * R>(w, batch, dwf, dbf, batch, st)
-              : wgrad_launch<0, R, S, 2 * R>(w, batch, dwf, dbf, batch, st);
+    err = ctx ? wgrad_launch<MFG, R, S, 3 * R>(w, batch, dwf, dbf, batch, st)
+              : wgrad_launch<MFG, R, S, 2 * R>(w, batch, dwf, dbf, batch, st);
     if (err) return err;
     w.n = R + S;
     w.part_b = part + static_cast<long>(batch) * chunks * R * (R + S);
-    err = wgrad_launch<1, R, S, R>(
+    err = wgrad_launch<MOUT, R, S, R>(
         w, batch, dw_out + static_cast<long>(l) * R * (R + S),
         db_out + static_cast<long>(l) * (R + S), 1, st);
     if (err) return err;
@@ -1375,22 +1500,27 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
   if (e != cudaSuccess) return static_cast<int>(e);
   if (proj) {
     WgradArgs w = {};
-    w.xc = xc;
+    if constexpr (F32)
+      w.xc_f = xc;
+    else
+      w.xc = xc;
     w.dctx = dctx;
     w.n = 10 * R;
     w.rows_per_batch = t_len / 10;
     w.chunks = chunks;
     w.part = part;
     w.part_b = part + static_cast<long>(batch) * chunks * R * 10 * R;
-    err = wgrad_launch<2, R, S, R>(w, batch, dwup, dbup, 1, st);
+    err = wgrad_launch<MUP, R, S, R>(w, batch, dwup, dbup, 1, st);
     if (err) return err;
     const long q_total = m_total / 10;
     const size_t psmem = (64 * 68 + 64 * R) * 4;
-    err = set_smem(reinterpret_cast<const void*>(stack_proj_dx_kernel<R>),
-                   psmem);
+    const void* pdx =
+        reinterpret_cast<const void*>(stack_proj_dx_kernel<R, Act<F32>>);
+    err = set_smem(pdx, psmem);
     if (err) return err;
-    stack_proj_dx_kernel<R><<<static_cast<int>((q_total + 63) / 64), kThreads,
-                              psmem, st>>>(dctx, wup, dctx_out, q_total);
+    stack_proj_dx_kernel<R, Act<F32>>
+        <<<static_cast<int>((q_total + 63) / 64), kThreads, psmem, st>>>(
+            dctx, wup, dctx_out, q_total);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -1428,7 +1558,7 @@ int bwd_impl(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
 //               first) by the kRecompute form, so bit for bit as the forward
 //               computed them; then per layer, top down, the save backward's
 //               layer launch in its recompute form (stack_bwd_layer_kernel<R,
-//               S, true>: fg recomputed on the tensor cores from h_l, tf and
+//               S, kBwdRc>: fg recomputed on the tensor cores from h_l, tf and
 //               sg in float32, gated = tf * sg stored in float32) and its
 //               weight gradient launches (W_fg as the save's, W_out from the
 //               float32 gated: MODE 3) with their fixed-order reductions.
@@ -2394,6 +2524,239 @@ __global__ void __launch_bounds__(
   }
 }
 
+// ------------------------------------------ the float32 save forward
+// The save strategy's forward with the float32 compute dtype
+// (stack_kernel.py:280 _fwd_kernel, whose roundings to out_dtype do
+// nothing in float32): hsave, tfsg and skip in float32, h float32 from
+// layer to layer as it is stored (hsave[l+1] is layer l's output).  One
+// launch for the embedding (stack_embed_f32_kernel), then one launch of
+// stack_layer_f32_kernel<R, S> per layer.  Both products, fg = [h | h(t-d)
+// | ctx] W_fg and out = gated W_out, run as split-TF32 mma.sync
+// (mma_tf32.cuh) in three passes, each k step added in float32
+// (mma_split_add): no operand is exact in TF32.  Nothing is rounded to
+// bf16, so the bf16 save forms' bit-keeping (the tie queue, the residual's
+// fmaf chain) has nothing to keep and is not here; the forward is held to
+// its plain version at a tolerance.
+//
+// Bound at the breakdancing cell (B=2, T=160000, L=9, R=S=64, video):
+// 1.9e11 operations at the TF32 peak counted once (0.38 ms) against 2.4
+// GB of compulsory float32 traffic (hsave, tfsg, skip, ctx: 0.71 ms),
+// bound by bytes.  As launched each layer also reads h, its tap and ctx
+// and moves the skip sum (about 0.65 GB a layer), and the three split
+// passes of k = 8 take six times the mma.sync issue of the bf16 form's k =
+// 16 steps (PERF.md).
+//
+// Block: 8 warps on 64-row tiles, persistent; W_fg^T (2R, 3R+4) and
+// W_out^T (R+S, R+4) staged once in float32 as each product's B fragments
+// read them.  Per tile the operand rows [h | h(t-d) | ctx] (64, 3R+4)
+// arrive by cp.async (zero past the rows and for the tap before t = d).
+// Warp w takes rows 16 (w % 4) .. + 16 and half w / 4 of the filter
+// columns with their gate columns: fg, the gate, tfsg stored, gated = tf
+// sg into the tile's gated rows (64, R+4); after a barrier the same warp
+// takes half of the R+S out columns over all of gated: the residual h +
+// out into hsave[l+1] and the skip sum (float32 between launches, stored
+// by the last layer).  Row strides of 4 times an odd number of floats put
+// the fragment loads of a warp in 32 distinct banks.  At R = S = 64 the
+// block takes 202,752 bytes of shared memory: one block an SM.
+
+__global__ void __launch_bounds__(kThreads)
+    stack_embed_f32_kernel(const int* pack, int pack_cols,
+                           const float* table2, int vocab, int batch,
+                           int t_len, int r, float* hsave0) {
+  const long total = static_cast<long>(batch) * t_len * r;
+  for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
+       i < total; i += static_cast<long>(gridDim.x) * kThreads) {
+    const long m = i / r;
+    const int j = static_cast<int>(i % r);
+    const int b = static_cast<int>(m / t_len), t = static_cast<int>(m % t_len);
+    const int cur = pack[static_cast<long>(t) * pack_cols + b];
+    const int prev = pack[static_cast<long>(t) * pack_cols + batch + b];
+    float v = 0.f;
+    if (cur >= 0 && cur < vocab) v += table2[cur * r + j];
+    if (prev >= 0 && prev < vocab) v += table2[(vocab + prev) * r + j];
+    hsave0[i] = v;
+  }
+}
+
+// The float32 layer kernel's shared memory, byte offsets in this order:
+// the operand tile hp (kRows, kLdh), W_fg^T wf (2R, kLdw), W_out^T wo (R+S,
+// kLdo) and the tile's gated rows gs (kRows, kLdg), all float32
+// (ops/cuda/stack_kernel.f32_smem mirrors it).
+template <int R, int S>
+struct F32Shape {
+  static constexpr int kRows = 64, kThreads = 256;
+  static constexpr int kLdh = 3 * R + 4, kLdw = 3 * R + 4;
+  static constexpr int kLdo = R + 4, kLdg = R + 4;
+  static constexpr size_t kWf = static_cast<size_t>(kRows) * kLdh * 4;
+  static constexpr size_t kWo = kWf + static_cast<size_t>(2 * R) * kLdw * 4;
+  static constexpr size_t kGs = kWo + static_cast<size_t>(R + S) * kLdo * 4;
+  static constexpr size_t kEnd = kGs + static_cast<size_t>(kRows) * kLdg * 4;
+};
+
+struct F32LayerArgs {
+  const float* h;        // (M, R) the layer's input, hsave[l]
+  float* h_next;         // (M, R) its output, hsave[l+1], or null (the last)
+  const float* ctx;      // (M, R) or null
+  const float* b_fg;     // (B, 2R) this layer's rows
+  const float* w_fg;     // (W_in, 2R)
+  const float* w_out;    // (R, R+S)
+  const float* b_out;    // (R+S)
+  float* tfsg;           // (M, 2R) this layer's taps
+  float* skacc;          // (M, S) the skip sum between launches
+  float* skip;           // (M, S) skip_sum, stored by the last layer
+  long m_total;
+  int t_len, d, first, last;
+};
+
+template <int R, int S>
+__global__ void __launch_bounds__(256, 1)
+    stack_layer_f32_kernel(F32LayerArgs a) {
+  using Sh = F32Shape<R, S>;
+  constexpr int ROWS = Sh::kRows, THREADS = Sh::kThreads;
+  constexpr int LDH = Sh::kLdh, LDW = Sh::kLdw, LDO = Sh::kLdo;
+  constexpr int LDG = Sh::kLdg;
+  constexpr int NH = R / 16;                 // filter n tiles a warp
+  constexpr int NOT = (R + S) / 8;           // out n tiles
+  constexpr int NOH = (NOT + 1) / 2;         // a half's, at most
+  static_assert(R % 16 == 0 && S % 8 == 0, "8-wide tiles, two halves");
+  const int win = a.ctx ? 3 * R : 2 * R, per_row = win / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* hp = reinterpret_cast<float*>(smem);
+  float* wf = reinterpret_cast<float*>(smem + Sh::kWf);
+  float* wo = reinterpret_cast<float*>(smem + Sh::kWo);
+  float* gs = reinterpret_cast<float*>(smem + Sh::kGs);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  const int r0 = 16 * (warp & 3), half = warp >> 2;
+  const long m_total = a.m_total;
+  // the weights, one row per output column (k along the row)
+  for (int i = tid; i < win * 2 * R; i += THREADS)
+    wf[(i % (2 * R)) * LDW + i / (2 * R)] = a.w_fg[i];
+  for (int i = tid; i < R * (R + S); i += THREADS)
+    wo[(i % (R + S)) * LDO + i / (R + S)] = a.w_out[i];
+  const long n_tiles = (m_total + ROWS - 1) / ROWS;
+  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    const long m0 = tile_i * ROWS;
+    __syncthreads();   // every warp is done with the last tile's hp and gs
+    for (int i = tid; i < ROWS * per_row; i += THREADS) {
+      const int row = i / per_row, c4 = 4 * (i % per_row);
+      const int part = c4 / R, j0 = c4 % R;
+      const long m = m0 + row;
+      bool ok = m < m_total;
+      const float* src = a.h + m * R + j0;
+      if (part == 1) {
+        ok = ok && static_cast<int>(m % a.t_len) >= a.d;
+        src -= static_cast<long>(a.d) * R;
+      } else if (part == 2) {
+        src = a.ctx + m * R + j0;
+      }
+      cp_async16(hp + row * LDH + c4, ok ? src : a.h, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // fg over the warp's NH filter and NH gate tiles, then the gate
+    {
+      float acc[2 * NH][4];
+#pragma unroll
+      for (int j = 0; j < 2 * NH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < win; k0 += 8) {
+        Frag<4> fa;
+        load_a_rows<true>(hp + r0 * LDH + k0, LDH, fa);
+#pragma unroll
+        for (int j = 0; j < 2 * NH; ++j) {
+          const int col = (j < NH ? 0 : R) + 8 * (half * NH + j % NH);
+          Frag<2> fb;
+          load_b_cols(wf + col * LDW + k0, LDW, fb);
+          mma_split_add<true>(acc[j], fa, fb);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + g + 8 * h;
+        const long m = m0 + row;
+        const float* bf = a.b_fg + (m < m_total ? m / a.t_len : 0) * 2 * R;
+#pragma unroll
+        for (int jj = 0; jj < NH; ++jj) {
+          const int c = 8 * (half * NH + jj) + 2 * q;
+          float tf[2], sg[2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            tf[k] = tanhf(acc[jj][2 * h + k] + __ldg(bf + c + k));
+            sg[k] = sigmoidf(acc[NH + jj][2 * h + k] + __ldg(bf + R + c + k));
+          }
+          *reinterpret_cast<float2*>(gs + row * LDG + c) =
+              make_float2(tf[0] * sg[0], tf[1] * sg[1]);
+          if (m < m_total) {
+            float* tp = a.tfsg + m * 2 * R + c;
+            *reinterpret_cast<float2*>(tp) = make_float2(tf[0], tf[1]);
+            *reinterpret_cast<float2*>(tp + R) = make_float2(sg[0], sg[1]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // out + b_out over the warp's half of the R+S columns: the residual
+    // (8 columns lie wholly in it or in the skip part), then the skip sum
+    {
+      const int j0 = half * NOH;
+      const int nj = NOT - j0 < NOH ? NOT - j0 : NOH;
+      float acc[NOH][4];
+#pragma unroll
+      for (int j = 0; j < NOH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < R; k0 += 8) {
+        Frag<4> fa;
+        load_a_rows<true>(gs + r0 * LDG + k0, LDG, fa);
+#pragma unroll
+        for (int j = 0; j < NOH; ++j) {
+          if (j >= nj) break;
+          Frag<2> fb;
+          load_b_cols(wo + 8 * (j0 + j) * LDO + k0, LDO, fb);
+          mma_split_add<true>(acc[j], fa, fb);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NOH; ++j) {
+        if (j >= nj) break;
+        const int c = 8 * (j0 + j) + 2 * q;
+        const float b0 = __ldg(a.b_out + c), b1 = __ldg(a.b_out + c + 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + g + 8 * h;
+          const long m = m0 + row;
+          if (m >= m_total) continue;
+          const float v0 = acc[j][2 * h] + b0, v1 = acc[j][2 * h + 1] + b1;
+          if (c < R) {
+            if (a.h_next) {
+              const float2 o =
+                  *reinterpret_cast<const float2*>(hp + row * LDH + c);
+              *reinterpret_cast<float2*>(a.h_next + m * R + c) =
+                  make_float2(v0 + o.x, v1 + o.y);
+            }
+          } else {
+            float2 sv = make_float2(v0, v1);
+            float* sp = a.skacc + m * S + c - R;
+            if (!a.first) {
+              const float2 o = *reinterpret_cast<const float2*>(sp);
+              sv = make_float2(o.x + v0, o.y + v1);
+            }
+            *reinterpret_cast<float2*>(a.last ? a.skip + m * S + c - R
+                                              : sp) = sv;
+          }
+        }
+      }
+    }
+  }  // tiles
+}
+
 // Launches of the layer kernel in one form: its shared memory set once,
 // the grid (as many persistent blocks as fit, at most one per tile and at
 // most max_grid) for every layer.
@@ -2525,6 +2888,57 @@ int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
   return 0;
 }
 
+// The float32 save forward: hsave[0] from the embedding, then one launch
+// of stack_layer_f32_kernel per layer.
+template <int R, int S>
+int fwd_f32_impl(const int* pack, int pack_cols, const float* table2,
+                 int vocab, const float* ctx, const float* b_fg,
+                 const float* w_fg, const float* w_out, const float* b_out,
+                 const int* dil, float* skacc, float* hsave, float* tfsg,
+                 float* skip, int batch, int t_len, int n_layers,
+                 cudaStream_t st) {
+  using Sh = F32Shape<R, S>;
+  const long m_total = static_cast<long>(batch) * t_len;
+  const long mr = m_total * R;
+  const int win = ctx ? 3 * R : 2 * R;
+  stack_embed_f32_kernel<<<grid_for(mr), kThreads, 0, st>>>(
+      pack, pack_cols, table2, vocab, batch, t_len, R, hsave);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const void* fn = reinterpret_cast<const void*>(stack_layer_f32_kernel<R, S>);
+  int err = set_smem(fn, Sh::kEnd);
+  if (err) return err;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, Sh::kThreads,
+                                                    Sh::kEnd);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long tiles = (m_total + Sh::kRows - 1) / Sh::kRows;
+  const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
+  const int grid = static_cast<int>(tiles < fit ? tiles : fit);
+  for (int l = 0; l < n_layers; ++l) {
+    F32LayerArgs a = {};
+    a.h = hsave + l * mr;
+    a.h_next = l + 1 < n_layers ? hsave + (l + 1) * mr : nullptr;
+    a.ctx = ctx;
+    a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
+    a.w_fg = w_fg + static_cast<long>(l) * win * 2 * R;
+    a.w_out = w_out + static_cast<long>(l) * R * (R + S);
+    a.b_out = b_out + static_cast<long>(l) * (R + S);
+    a.tfsg = tfsg + l * m_total * 2 * R;
+    a.skacc = skacc;
+    a.skip = skip;
+    a.m_total = m_total;
+    a.t_len = t_len;
+    a.d = dil[l];
+    a.first = l == 0;
+    a.last = l == n_layers - 1;
+    stack_layer_f32_kernel<R, S><<<grid, Sh::kThreads, Sh::kEnd, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
 template <int R, int S>
 int fwd_tails_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
                    const float* w_fg, const float* w_out, const float* b_out,
@@ -2581,7 +2995,7 @@ int bwd_tails_impl(const bf16_t* x, const bf16_t* ckpt, const bf16_t* ctx,
   using Sh = BwdShape<R, S>;
   const size_t smem = Sh::smem_rc(win);
   const void* layer = reinterpret_cast<const void*>(
-      stack_bwd_layer_kernel<R, S, true>);
+      stack_bwd_layer_kernel<R, S, kBwdRc>);
   err = set_smem(layer, smem);
   if (err) return err;
   int per_sm = 0;
@@ -2630,7 +3044,7 @@ int bwd_tails_impl(const bf16_t* x, const bf16_t* ckpt, const bf16_t* ctx,
       a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
       a.gated = gated;
       a.d = dil[l];
-      stack_bwd_layer_kernel<R, S, true><<<grid, Sh::kThreads, smem, st>>>(a);
+      stack_bwd_layer_kernel<R, S, kBwdRc><<<grid, Sh::kThreads, smem, st>>>(a);
       e = cudaGetLastError();
       if (e != cudaSuccess) return static_cast<int>(e);
 
@@ -2691,20 +3105,22 @@ int fwd_dispatch(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int bwd_dispatch(const BwdEnds& ends, const bf16_t* hsave, const bf16_t* tfsg,
-                 const bf16_t* ctx, const float* w_fg, const float* w_out,
-                 const int* dil, const bf16_t* xc, const float* wup,
-                 float* scratch, int chunks, bf16_t* dctx_out, float* db_fg,
-                 float* dw_fg, float* dw_out, float* db_out, float* dwup,
-                 float* dbup, int batch, int t_len, int n_layers, int r,
-                 int s, void* stream) {
+template <bool F32>
+int bwd_dispatch(const BwdEnds& ends, const Act<F32>* hsave,
+                 const Act<F32>* tfsg, const Act<F32>* ctx, const float* w_fg,
+                 const float* w_out, const int* dil, const Act<F32>* xc,
+                 const float* wup, float* scratch, int chunks,
+                 Act<F32>* dctx_out, float* db_fg, float* dw_fg,
+                 float* dw_out, float* db_out, float* dwup, float* dbup,
+                 int batch, int t_len, int n_layers, int r, int s,
+                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define X(R_, S_)                                                           \
   if (r == R_ && s == S_)                                                   \
-    return bwd_impl<R_, S_>(ends, hsave, tfsg, ctx, w_fg, w_out, dil, xc,   \
-                            wup, scratch, chunks, dctx_out, db_fg, dw_fg,   \
-                            dw_out, db_out, dwup, dbup, batch, t_len,       \
-                            n_layers, st);
+    return bwd_impl<R_, S_, F32>(ends, hsave, tfsg, ctx, w_fg, w_out, dil,  \
+                                 xc, wup, scratch, chunks, dctx_out, db_fg, \
+                                 dw_fg, dw_out, db_out, dwup, dbup, batch,  \
+                                 t_len, n_layers, st);
   MOVENET_STACK_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
@@ -2723,9 +3139,11 @@ int movenet_stack_supports(int r, int s) {
   return 0;
 }
 
-// Float32 scratch elements the backward needs (see bwd_impl).
+// Float32 scratch elements the backward needs (see bwd_impl; f32: the
+// float32 form, which also keeps gated).
 long movenet_stack_bwd_scratch(int batch, int t_len, int r, int s, int win,
-                               int chunks, int vocab, int embed_blocks) {
+                               int chunks, int vocab, int embed_blocks,
+                               int f32) {
   const long m_total = static_cast<long>(batch) * t_len;
   long part = static_cast<long>(batch) * chunks * (win + 1) * 2 * r;
   const long p_out = static_cast<long>(batch) * chunks * (r + 1) * (r + s);
@@ -2734,25 +3152,34 @@ long movenet_stack_bwd_scratch(int batch, int t_len, int r, int s, int win,
   if (p_out > part) part = p_out;
   if (p_proj > part) part = p_proj;
   if (p_tab > part) part = p_tab;
-  return 7 * m_total * r + part;
+  return (f32 ? 8 : 7) * m_total * r + part;
 }
 
 // Dynamic shared memory of the backward's launches, in bytes: the layer
-// launch (kind -1; -2 its recompute form) or the weight-gradient launch of
-// mode kind (0: W_fg with W_in = win, 1: W_out, 2: the projection's W_up,
-// 3: W_out from the float32 gated); -1 where (r, s) is not built.
+// launch (kind -1; -2 its recompute form, -3 its float32 form) or the
+// weight-gradient launch of mode kind (0: W_fg with W_in = win, 1: W_out,
+// 2: the projection's W_up, 3: W_out from the float32 gated, 4: W_fg, 5:
+// W_up and 6: W_out in the float32 form); -1 where (r, s) is not built.
 long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
 #define X(R_, S_)                                                      \
   if (r == R_ && s == S_) {                                            \
     if (kind == -1) return static_cast<long>(BwdShape<R_, S_>::smem(win)); \
     if (kind == -2)                                                    \
       return static_cast<long>(BwdShape<R_, S_>::smem_rc(win));        \
+    if (kind == -3)                                                    \
+      return static_cast<long>(BwdShape<R_, S_>::smem_f32(win));       \
     if (kind == 3) return static_cast<long>(WgShape<3, R_, S_, R_>::smem()); \
     if (kind == 0)                                                     \
       return static_cast<long>(win == 3 * R_                           \
                                    ? WgShape<0, R_, S_, 3 * R_>::smem() \
                                    : WgShape<0, R_, S_, 2 * R_>::smem()); \
+    if (kind == 4)                                                     \
+      return static_cast<long>(win == 3 * R_                           \
+                                   ? WgShape<4, R_, S_, 3 * R_>::smem() \
+                                   : WgShape<4, R_, S_, 2 * R_>::smem()); \
     if (kind == 1) return static_cast<long>(WgShape<1, R_, S_, R_>::smem()); \
+    if (kind == 5) return static_cast<long>(WgShape<5, R_, S_, R_>::smem()); \
+    if (kind == 6) return static_cast<long>(WgShape<6, R_, S_, R_>::smem()); \
     return static_cast<long>(WgShape<2, R_, S_, R_>::smem());          \
   }
   MOVENET_STACK_WIDTHS(X)
@@ -2852,20 +3279,69 @@ int movenet_stack_bwd(const bf16_t* hsave, const bf16_t* tfsg,
   ends.embed_blocks = embed_blocks;
   ends.dtab = dtab;
   ends.dx = dx;
-  return bwd_dispatch(ends, hsave, tfsg, ctx, w_fg, w_out, dil, xc, wup,
-                      scratch, chunks, dctx_out, db_fg, dw_fg, dw_out, db_out,
-                      dwup, dbup, batch, t_len, n_layers, r, s, stream);
+  return bwd_dispatch<false>(ends, hsave, tfsg, ctx, w_fg, w_out, dil, xc,
+                             wup, scratch, chunks, dctx_out, db_fg, dw_fg,
+                             dw_out, db_out, dwup, dbup, batch, t_len,
+                             n_layers, r, s, stream);
+}
+
+// The float32 save forward (the embed form): as movenet_stack_fwd with
+// every activation in float32 and no h buffer (hsave holds h).
+int movenet_stack_fwd_f32(const int* pack, int pack_cols,
+                          const float* table2, int vocab, const float* ctx,
+                          const float* b_fg, const float* w_fg,
+                          const float* w_out, const float* b_out,
+                          const int* dil, float* skacc, float* hsave,
+                          float* tfsg, float* skip, int batch, int t_len,
+                          int n_layers, int r, int s, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define X(R_, S_)                                                         \
+  if (r == R_ && s == S_)                                                 \
+    return fwd_f32_impl<R_, S_>(pack, pack_cols, table2, vocab, ctx, b_fg,\
+                                w_fg, w_out, b_out, dil, skacc, hsave,    \
+                                tfsg, skip, batch, t_len, n_layers, st);
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The float32 save backward (the embed form): as movenet_stack_bwd with
+// hsave, tfsg, ctx, xc, dskip and dctx_out in float32; scratch holds
+// movenet_stack_bwd_scratch(..., f32 = 1) floats.
+int movenet_stack_bwd_f32(const float* hsave, const float* tfsg,
+                          const float* ctx, const float* w_fg,
+                          const float* w_out, const float* dskip,
+                          const int* pack, int pack_cols, int vocab,
+                          const int* dil, const float* xc, const float* wup,
+                          float* scratch, int chunks, float* dtab,
+                          float* dctx_out, float* db_fg, float* dw_fg,
+                          float* dw_out, float* db_out, float* dwup,
+                          float* dbup, int batch, int t_len, int n_layers,
+                          int r, int s, int embed_blocks, void* stream) {
+  BwdEnds ends = {};
+  ends.dskip_f = dskip;
+  ends.pack = pack;
+  ends.pack_cols = pack_cols;
+  ends.vocab = vocab;
+  ends.embed_blocks = embed_blocks;
+  ends.dtab = dtab;
+  return bwd_dispatch<true>(ends, hsave, tfsg, ctx, w_fg, w_out, dil, xc, wup,
+                            scratch, chunks, dctx_out, db_fg, dw_fg, dw_out,
+                            db_out, dwup, dbup, batch, t_len, n_layers, r, s,
+                            stream);
 }
 
 // Dynamic shared memory of the layer kernel's launches in form `form`, in
 // bytes (the merged form's last layer, form 2, keeps its head's weights in
-// the residual's place); -1 where (r, s) is not built.
+// the residual's place; form 3: the float32 layer kernel,
+// stack_layer_f32_kernel); -1 where (r, s) is not built.
 long movenet_stack_layer_smem(int r, int s, int form) {
 #define X(R_, S_)                                                        \
   if (r == R_ && s == S_)                                                \
     return static_cast<long>(form == kRecompute                          \
                                  ? TlShape<R_, S_>::smem()               \
-                                 : SaveShape<R_, S_>::smem());
+                             : form == 3 ? F32Shape<R_, S_>::kEnd        \
+                                         : SaveShape<R_, S_>::smem());
   MOVENET_STACK_WIDTHS(X)
 #undef X
   return -1;

@@ -20,7 +20,8 @@ from typing import Dict
 import torch
 
 from movenet_tpu_torch.ops import gated_block as gb
-from movenet_tpu_torch.ops.cuda.stack_kernel import _check, _ptr, _raise
+from movenet_tpu_torch.ops.cuda.stack_kernel import (_check, _ptr, _raise,
+                                                     f32_unbuilt)
 
 KERNEL_SOURCE = "movenet_tpu_torch/csrc/gated_block.cu"
 launch_counts: Dict[str, int] = {"gated_block_fwd": 0, "gated_block_bwd": 0}
@@ -65,9 +66,8 @@ def _common(lib, h, ctx, b_fg, w_fg, w_out):
     s = w_out.shape[1] - r
     dev = h.device
     if h.dtype != torch.bfloat16:
-        raise ValueError(
-            f"the gated-block kernels take the bfloat16 compute dtype, got "
-            f"{h.dtype}; float32 on the card is not built (ROADMAP.md B.2)")
+        raise ValueError(f32_unbuilt("the gated-block kernels", "gated",
+                                     h.dtype))
     _check("h", h, torch.bfloat16, device=dev)
     win = (3 if ctx is not None else 2) * r
     if ctx is not None:

@@ -10,6 +10,12 @@ launch the kernels or raise.  Each call is the kernel launch (the
 unpacked backward: two, the row pass and the weight-gradient GEMM over
 its bf16 scratch) and one launch of the fixed-order reduction of the
 per-block partial sums, and counts one launch in ``launch_counts``.
+
+With a float32 skip ``head_fwd`` and ``head_bwd`` launch the unpacked
+kernels' float32 forms (split-TF32 products; the backward's scratch and
+dskip float32), counted apart as ``head_fwd_f32`` and ``head_bwd_f32``.
+They take 4 <= S <= 64 and 4 <= C <= 128 (``f32_smem``: W2 in float32 at
+C = 256 does not fit a block); the packed kernels take bf16 only.
 """
 
 from __future__ import annotations
@@ -20,11 +26,17 @@ from typing import Dict
 import torch
 
 from movenet_tpu_torch.ops import head_loss as hl
-from movenet_tpu_torch.ops.cuda.stack_kernel import _check, _ptr, _raise
+from movenet_tpu_torch.ops.cuda.stack_kernel import (SMEM_LIMIT, _check,
+                                                     _ptr, _raise,
+                                                     f32_unbuilt)
 
 KERNEL_SOURCE = "movenet_tpu_torch/csrc/head_loss.cu"
 launch_counts: Dict[str, int] = {"head_fwd": 0, "head_bwd": 0,
-                                 "head_fwd_packed": 0, "head_bwd_packed": 0}
+                                 "head_fwd_packed": 0, "head_bwd_packed": 0,
+                                 "head_fwd_f32": 0, "head_bwd_f32": 0}
+# the widest head the float32 kernels hold (z in registers, W2 in shared
+# memory)
+F32_MAX_C = 128
 # blocks per launch: two per SM of an H100
 BLOCKS = 264
 
@@ -60,19 +72,55 @@ def bind(lib):
     lib.movenet_head_bwd.argtypes = [_P, _P, _I, _I] + [_P] * 10 \
         + [_I] * 8 + [_P]
     lib.movenet_head_bwd.restype = _I
+    lib.movenet_head_f32_supports.argtypes = [_I, _I]
+    lib.movenet_head_f32_supports.restype = _I
+    lib.movenet_head_f32_smem.argtypes = [_I, _I, _I]
+    lib.movenet_head_f32_smem.restype = ctypes.c_long
+    lib.movenet_head_f32_inter.argtypes = [_I, _I, ctypes.c_long]
+    lib.movenet_head_f32_inter.restype = ctypes.c_long
+    lib.movenet_head_fwd_f32.argtypes = [_P, _P, _I, _I] + [_P] * 7 \
+        + [_I] * 7 + [_P]
+    lib.movenet_head_fwd_f32.restype = _I
+    lib.movenet_head_bwd_f32.argtypes = [_P, _P, _I, _I] + [_P] * 10 \
+        + [_I] * 7 + [_P]
+    lib.movenet_head_bwd_f32.restype = _I
     return lib
+
+
+def f32_smem(s: int, c: int) -> Dict[str, int]:
+    """Bytes of dynamic shared memory a block of the float32 forward and
+    backward takes, as csrc/head_loss.cu's ``F32Head`` lays them out: W1
+    (SP, ldc) and W2 (CP, ldc) in float32 (SP, CP: S, C rounded up to 8;
+    ldc, lds: CP, SP rounded up to 32, plus 8), then the forward's biases,
+    block sums and per warp 16 rows of leaky(skip) and a row of CP, or the
+    backward's b1, the warps' column sums and their leaky(skip) rows."""
+    sp, cp = -(-s // 8) * 8, -(-c // 8) * 8
+    ldc, lds = -(-cp // 32) * 32 + 8, -(-sp // 32) * 32 + 8
+    weights = (sp + cp) * ldc
+    return {"fwd": 4 * (weights + 2 * cp + 2 * 256 + 8 * (16 * lds + cp)),
+            "bwd": 4 * (weights + cp + 8 * 2 * cp + 8 * 16 * lds)}
+
+
+def _f32_widths(s: int, c: int) -> None:
+    """Raise where the float32 head is not built at (S, C)."""
+    smem = f32_smem(s, c)
+    if c > F32_MAX_C or s > 64 or max(smem.values()) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"the float32 head kernels take 4 <= S <= 64 and 4 <= C <= "
+            f"{F32_MAX_C}; got S={s}, C={c} in torch.float32 (shared memory "
+            f"{smem} bytes; ROADMAP.md B.2/B.4 (1): the C = 256 head in "
+            "float32)")
 
 
 def _common(lib, skip, pack, w1, b1, w2, b2, tgt_off):
     batch, t, s = skip.shape
     c = w2.shape[1]
     dev = skip.device
-    if skip.dtype != torch.bfloat16:
+    if skip.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(
-            f"the head kernels take the bfloat16 compute dtype, got "
-            f"{skip.dtype}; float32 on the card is not built "
-            "(ROADMAP.md B.4)")
-    _check("skip", skip, torch.bfloat16, device=dev)
+            f"the head kernels take the bfloat16 or float32 compute dtype, "
+            f"got {skip.dtype}")
+    _check("skip", skip, skip.dtype, device=dev)
     _check("targets_pack", pack, torch.int32, device=dev)
     if pack.shape[0] != t or pack.shape[1] < tgt_off + batch:
         raise ValueError(f"targets_pack has shape {tuple(pack.shape)}, "
@@ -88,11 +136,16 @@ def _common(lib, skip, pack, w1, b1, w2, b2, tgt_off):
         raise NotImplementedError(
             f"the head kernels take 4 <= S <= 64 and 4 <= C <= 256, "
             f"multiples of 4; got S={s}, C={c} (ROADMAP.md B.4)")
+    if skip.dtype == torch.float32:
+        _f32_widths(s, c)
     return batch, t, s, c, dev
 
 
 def _packed_check(skip, pack, c):
     batch, t, s = skip.shape
+    if skip.dtype != torch.bfloat16:
+        raise ValueError(f32_unbuilt("the packed head kernels", "packed",
+                                     skip.dtype))
     if not (s == 64 and c == 64 and t % 2 == 0 and pack.shape[1] == batch):
         raise ValueError(
             f"the packed head kernels take S = C = 64, an even T and "
@@ -110,6 +163,13 @@ def run_fwd(lib, skip, pack, w1, b1, w2, b2, rf, parity, tgt_off=0,
         if save_p and not packed else None
     part = torch.empty(blocks, 2, dtype=torch.float32, device=dev)
     out = torch.empty(2, dtype=torch.float32, device=dev)
+    if skip.dtype == torch.float32:
+        err = lib.movenet_head_fwd_f32(
+            _ptr(skip), _ptr(pack), pack.shape[1], tgt_off, _ptr(w1),
+            _ptr(b1), _ptr(w2), _ptr(b2), _ptr(p), _ptr(part), _ptr(out),
+            batch, t, s, c, rf, int(parity), blocks, stream)
+        _raise(err, "head_fwd_f32")
+        return out[0], out[1], p
     err = lib.movenet_head_fwd(
         _ptr(skip), _ptr(pack), pack.shape[1], tgt_off, _ptr(w1), _ptr(b1),
         _ptr(w2), _ptr(b2), _ptr(p), _ptr(part), _ptr(out),
@@ -128,20 +188,36 @@ def run_bwd(lib, skip, pack, p, w1, b1, w2, b2, rf, parity, dloss,
         _packed_check(skip, pack, c)
     else:
         _check("p", p, torch.float32, (batch, t, c), dev)
-        inter = torch.empty(lib.movenet_head_inter(s, c, batch * t),
-                            dtype=torch.bfloat16, device=dev)
+    f32 = skip.dtype == torch.float32
+    if p is not None:
+        inter = torch.empty(
+            (lib.movenet_head_f32_inter if f32 else lib.movenet_head_inter)(
+                s, c, batch * t), dtype=skip.dtype, device=dev)
     dloss = torch.as_tensor(dloss, dtype=torch.float32,
                             device=dev).reshape(1).contiguous()
     dskip = torch.empty_like(skip)
     n = s * c + c * c + 2 * c
     part = torch.empty(blocks, n, dtype=torch.float32, device=dev)
     grads = torch.empty(n, dtype=torch.float32, device=dev)
+    if f32:
+        err = lib.movenet_head_bwd_f32(
+            _ptr(skip), _ptr(pack), pack.shape[1], tgt_off, _ptr(p),
+            _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(dloss), _ptr(dskip),
+            _ptr(inter), _ptr(part), _ptr(grads), batch, t, s, c, rf,
+            int(parity), blocks, stream)
+        _raise(err, "head_bwd_f32")
+        return _split_grads(grads, s, c, dskip)
     err = lib.movenet_head_bwd(
         _ptr(skip), _ptr(pack), pack.shape[1], tgt_off, _ptr(p), _ptr(w1),
         _ptr(b1), _ptr(w2), _ptr(b2), _ptr(dloss), _ptr(dskip), _ptr(inter),
         _ptr(part), _ptr(grads), batch, t, s, c, rf, int(parity),
         int(p is None), blocks, stream)
     _raise(err, "head_bwd_packed" if p is None else "head_bwd")
+    return _split_grads(grads, s, c, dskip)
+
+
+def _split_grads(grads, s, c, dskip):
+    """(dskip, dw1, db1, dw2, db2) from the flat dw1 | db1 | dw2 | db2."""
     dw1 = grads[:s * c].reshape(s, c)
     db1 = grads[s * c:s * c + c]
     dw2 = grads[s * c + c:s * c + c + c * c].reshape(c, c)
@@ -162,7 +238,8 @@ def head_fwd(skip, pack, w1, b1, w2, b2, rf: int, parity: bool,
                                  tgt_off, save_p)
     out = run_fwd(library(), skip, pack, w1, b1, w2, b2, rf, parity,
                   tgt_off, save_p, _stream(skip))
-    launch_counts["head_fwd"] += 1
+    launch_counts["head_fwd_f32" if skip.dtype == torch.float32
+                  else "head_fwd"] += 1
     return out
 
 
@@ -175,7 +252,8 @@ def head_bwd(skip, pack, p, w1, b1, w2, b2, rf: int, parity: bool, dloss,
                                  dloss, tgt_off)
     out = run_bwd(library(), skip, pack, p, w1, b1, w2, b2, rf, parity,
                   dloss, tgt_off, _stream(skip))
-    launch_counts["head_bwd"] += 1
+    launch_counts["head_bwd_f32" if skip.dtype == torch.float32
+                  else "head_bwd"] += 1
     return out
 
 

@@ -24,6 +24,15 @@ is ``stack_fwd``'s grids with x in place of the embedding and the head in
 the last layer's, plus one reduction; ``stack_head_bwd`` is the head's
 backward grid and its reduction, then ``stack_bwd_x``'s grids.  Each call
 counts one launch in ``launch_counts``.
+
+With the float32 compute dtype (table2, ctx and dskip float32) ``stack_fwd``
+and ``stack_bwd`` launch the save kernels' float32 forms, counted apart as
+``stack_fwd_f32`` and ``stack_bwd_f32``: the embedding, then one launch of
+``stack_layer_f32_kernel`` per layer; the backward's grids as the bf16
+form's, with the float32 taps, W_fg's gradient from float32 activations
+and W_out's from the float32 gated (``f32_smem`` gives their shared
+memory).  The other kernels take bf16 only, and raise for float32 with
+their ROADMAP.md B.2/B.4 item.
 """
 
 from __future__ import annotations
@@ -39,9 +48,30 @@ KERNEL_SOURCE = "movenet_tpu_torch/csrc/stack_kernel.cu"
 # kernel calls by wrapper, counted where the kernels launch
 launch_counts: Dict[str, int] = {"stack_fwd": 0, "stack_bwd": 0,
                                  "stack_fwd_tails": 0, "stack_bwd_tails": 0,
-                                 "stack_head_fwd": 0, "stack_head_bwd": 0}
+                                 "stack_head_fwd": 0, "stack_head_bwd": 0,
+                                 "stack_fwd_f32": 0, "stack_bwd_f32": 0}
 # blocks of the time-reduction launches: two per SM of an H100
 REDUCE_BLOCKS = 264
+# shared memory one block may use on sm_90
+SMEM_LIMIT = 232448
+# the built (R, S) pairs (MOVENET_STACK_WIDTHS in csrc/stack_kernel.cu)
+WIDTHS = ((16, 16), (32, 32), (64, 64), (64, 8), (32, 8), (16, 8))
+# what float32 on the card does not run yet, by kernel family (the forms
+# still to build under ROADMAP.md B.2/B.4, in its order)
+F32_UNBUILT = {
+    "recompute": "(1) the recompute forms",
+    "non-embed": "(2) the non-embed save form",
+    "merged": "(3) the merged forms",
+    "gated": "(4) the gated forms",
+    "packed": "(5) the packed head",
+}
+
+
+def f32_unbuilt(what: str, family: str, dtype) -> str:
+    """The message of a float32 form that is not built yet."""
+    return (f"{what} take the bfloat16 compute dtype, got {dtype}; float32 "
+            "on the card runs the save embed form and the head at C <= 128 "
+            f"only (ROADMAP.md B.2/B.4 {F32_UNBUILT[family]})")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,8 +97,7 @@ def library():
 def bind(lib):
     lib.movenet_stack_supports.argtypes = [_I, _I]
     lib.movenet_stack_supports.restype = _I
-    lib.movenet_stack_bwd_scratch.argtypes = [_I, _I, _I, _I, _I, _I, _I,
-                                              _I]
+    lib.movenet_stack_bwd_scratch.argtypes = [_I] * 9
     lib.movenet_stack_bwd_scratch.restype = _L
     lib.movenet_stack_bwd_smem.argtypes = [_I, _I, _I, _I]
     lib.movenet_stack_bwd_smem.restype = _L
@@ -81,6 +110,12 @@ def bind(lib):
     lib.movenet_stack_bwd.argtypes = [_P] * 8 + [_I, _I] + [_P] * 4 \
         + [_I] + [_P] * 9 + [_I] * 6 + [_P]
     lib.movenet_stack_bwd.restype = _I
+    lib.movenet_stack_fwd_f32.argtypes = [_P, _I, _P, _I] + [_P] * 10 \
+        + [_I] * 5 + [_P]
+    lib.movenet_stack_fwd_f32.restype = _I
+    lib.movenet_stack_bwd_f32.argtypes = [_P] * 7 + [_I, _I] + [_P] * 4 \
+        + [_I] + [_P] * 8 + [_I] * 6 + [_P]
+    lib.movenet_stack_bwd_f32.restype = _I
     lib.movenet_tails_bwd_scratch.argtypes = [_I] * 6
     lib.movenet_tails_bwd_scratch.restype = _L
     lib.movenet_stack_fwd_tails.argtypes = [_P] * 7 + [_I] + [_P] * 4 \
@@ -127,25 +162,84 @@ def _dils(dilations: Sequence[int]):
     return (ctypes.c_int * len(dilations))(*dilations)
 
 
+def _wg_split(km: int, kn: int, ca: int, cb: int):
+    """``wg_split`` of csrc/stack_kernel.cu: the (wm, wn) warp tiling of a
+    weight-gradient launch."""
+    best, best_w, best_cost = (1, 1), 0, 1 << 30
+    wm = 1
+    while wm <= 8:
+        wn = 1
+        while wm * wn <= 8:
+            if km % wm == 0 and kn % wn == 0:
+                w, cost = wm * wn, km // wm * ca + kn // wn * cb
+                if w > best_w or (w == best_w and cost < best_cost):
+                    best, best_w, best_cost = (wm, wn), w, cost
+            wn *= 2
+        wm *= 2
+    return best
+
+
+def _wg_smem(n: int, ka: int, split_a: bool) -> int:
+    """``WgShape<MODE, R, S, KA>::smem()``: the weight-gradient launch's
+    bytes for an output of KA x n columns."""
+    nb = min(n, 128)
+    lda, ldb = (ka + 15) // 16 * 16 + 8, (nb + 15) // 16 * 16 + 8
+    wm, wn = _wg_split(ka // 16, nb // 8, 12 if split_a else 4, 6)
+    red = (8 // (wm * wn) - 1) * ka * nb
+    return 4 * max(64 * (lda + ldb), red)
+
+
+def f32_smem(r: int, s: int, win: int) -> Dict[str, int]:
+    """Bytes of dynamic shared memory a block of each float32 save launch
+    takes, as csrc/stack_kernel.cu lays them out: the forward's layer
+    kernel (``F32Shape``: the 64-row operand tile, W_fg^T, W_out^T and the
+    gated rows, float32), the backward's layer kernel (``BwdShape``: W_out
+    and W_fg, then per pipeline the [dh | dskip] and dfg rows, whose dfg
+    rows hold the float32 taps first) and its weight-gradient launches
+    (W_fg from float32 activations, W_out from the float32 gated, W_up
+    from float32 xc).  ``win`` is W_in: 2R, or 3R with ctx."""
+    halves = 2 if r >= 64 else 1
+    rows = 64 // halves
+    ldd, ldf = r + s + 4, 2 * r + 4
+    return {
+        "layer_fwd": 4 * (64 * (3 * r + 4) + 2 * r * (3 * r + 4)
+                          + (r + s) * (r + 4) + 64 * (r + 4)),
+        "layer_bwd": 4 * (r * ldd + win * ldf
+                          + halves * rows * (ldd + ldf)),
+        "wgrad_fg": _wg_smem(2 * r, win, True),
+        "wgrad_out": _wg_smem(r + s, r, True),
+        "wgrad_up": _wg_smem(10 * r, r, True),
+    }
+
+
+def _f32_fits(r: int, s: int, win: int) -> None:
+    over = {k: v for k, v in f32_smem(r, s, win).items() if v > SMEM_LIMIT}
+    if over:
+        raise NotImplementedError(
+            f"the float32 save kernels at (R, S) = ({r}, {s}) need {over} "
+            f"bytes of shared memory, above {SMEM_LIMIT} (ROADMAP.md B.2)")
+
+
 def _fwd_check(pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
                batch):
     t = pack.shape[0]
     n_layers, r = len(dilations), table2.shape[1]
     s = w_out.shape[2] - r
     dev = table2.device
-    if table2.dtype != torch.bfloat16:
+    if table2.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(
-            f"the trunk kernels take the bfloat16 compute dtype, got "
-            f"{table2.dtype}; float32 on the card is not built "
-            "(ROADMAP.md B.2)")
+            f"the trunk kernels take the bfloat16 or float32 compute dtype, "
+            f"got {table2.dtype}")
+    dt = table2.dtype
     _check("codes_pack", pack, torch.int32, device=dev)
     if pack.shape[1] < 2 * batch:
         raise ValueError(f"codes_pack has {pack.shape[1]} columns, needs "
                          f">= {2 * batch}")
-    _check("table2", table2, torch.bfloat16, device=dev)
+    _check("table2", table2, dt, device=dev)
     win = (3 if ctx is not None else 2) * r
     if ctx is not None:
-        _check("ctx", ctx, torch.bfloat16, (batch, t, r), dev)
+        _same_dtype(("table2", table2), ("ctx", ctx))
+        _check("ctx", ctx, dt, (batch, t, r), dev)
     _check("b_fg", b_fg, torch.float32, (n_layers * batch, 2 * r), dev)
     _check("w_fg", w_fg, torch.float32, (n_layers, win, 2 * r), dev)
     _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
@@ -153,9 +247,19 @@ def _fwd_check(pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
     return t, n_layers, r, s
 
 
+def _same_dtype(*named):
+    """Raise, naming the tensors, where the activations' dtypes differ."""
+    dts = {n: t.dtype for n, t in named if t is not None}
+    if len(set(dts.values())) > 1:
+        raise ValueError(
+            "the trunk kernels take one compute dtype for the activations, "
+            "got " + ", ".join(f"{n} {d}" for n, d in dts.items()))
+
+
 def run_fwd(lib, pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
             batch, stream=None):
-    """Launch the forward on given tensors (outputs allocated here)."""
+    """Launch the forward on given tensors (outputs allocated here);
+    float32 table2 and ctx take the float32 form."""
     t, n_layers, r, s = _fwd_check(pack, table2, ctx, b_fg, w_fg, w_out,
                                    b_out, dilations, batch)
     if not lib.movenet_stack_supports(r, s):
@@ -163,6 +267,10 @@ def run_fwd(lib, pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
             f"the trunk kernels are built for (R, S) in (16, 16), (32, "
             f"32), (64, 64), (64, 8), (32, 8), (16, 8); got ({r}, {s}) "
             "(ROADMAP.md B.2)")
+    if table2.dtype == torch.float32:
+        return _run_fwd_f32(lib, pack, table2, ctx, b_fg, w_fg, w_out,
+                            b_out, dilations, batch, t, n_layers, r, s,
+                            stream)
     h, skacc, hsave, tfsg, skip = _fwd_buffers(table2.device, batch, t,
                                                n_layers, r, s)
     err = lib.movenet_stack_fwd(
@@ -174,21 +282,49 @@ def run_fwd(lib, pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
     return skip, hsave, tfsg
 
 
+def _run_fwd_f32(lib, pack, table2, ctx, b_fg, w_fg, w_out, b_out,
+                 dilations, batch, t, n_layers, r, s, stream):
+    """The float32 save forward: (skip_sum, hsave, tfsg) in float32."""
+    _f32_fits(r, s, (3 if ctx is not None else 2) * r)
+    dev, f32, m = table2.device, torch.float32, batch * t
+    skacc = torch.empty(m, s, dtype=f32, device=dev)
+    hsave = torch.empty(n_layers, batch, t, r, dtype=f32, device=dev)
+    tfsg = torch.empty(n_layers, batch, t, 2 * r, dtype=f32, device=dev)
+    skip = torch.empty(batch, t, s, dtype=f32, device=dev)
+    err = lib.movenet_stack_fwd_f32(
+        _ptr(pack), pack.shape[1], _ptr(table2), table2.shape[0] // 2,
+        _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
+        _dils(dilations), _ptr(skacc), _ptr(hsave), _ptr(tfsg), _ptr(skip),
+        batch, t, n_layers, r, s, stream)
+    _raise(err, "stack_fwd_f32")
+    return skip, hsave, tfsg
+
+
 def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
                 stream, pack=None, vocab=0):
     """The save backward: with ``pack`` the table gradient (2V, R) float32
     leads the returns, without it dx (B, T, R) in bf16 (the non-embed
-    form).  dskip is bf16, or float32 from the merged head.  Returns as
-    the plain versions."""
+    form).  dskip is bf16, or float32 from the merged head.  float32
+    hsave takes the float32 form (the embed form only): every activation,
+    dskip and dctx in float32.  Returns as the plain versions."""
     n_layers, batch, t, two_r = tfsg.shape
     r = two_r // 2
     s = w_out.shape[2] - r
     dev = tfsg.device
     win = (3 if ctx is not None else 2) * r
-    _check("hsave", hsave, torch.bfloat16, (n_layers, batch, t, r), dev)
-    _check("tfsg", tfsg, torch.bfloat16, device=dev)
+    f32_form = hsave.dtype == torch.float32
+    if f32_form:
+        # the float32 form: every activation and dskip in float32
+        _same_dtype(("hsave", hsave), ("tfsg", tfsg), ("ctx", ctx),
+                    ("dskip", dskip))
+        if pack is None:
+            raise ValueError(f32_unbuilt("the non-embed save kernels",
+                                         "non-embed", hsave.dtype))
+    act = torch.float32 if f32_form else torch.bfloat16
+    _check("hsave", hsave, act, (n_layers, batch, t, r), dev)
+    _check("tfsg", tfsg, act, device=dev)
     if ctx is not None:
-        _check("ctx", ctx, torch.bfloat16, (batch, t, r), dev)
+        _check("ctx", ctx, act, (batch, t, r), dev)
     _check("w_fg", w_fg, torch.float32, (n_layers, win, 2 * r), dev)
     _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
     if dskip.dtype not in (torch.bfloat16, torch.float32):
@@ -201,18 +337,23 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
         raise NotImplementedError(
             f"the trunk kernels are not built for (R, S) = ({r}, {s}) "
             "(ROADMAP.md B.2)")
+    if f32_form:
+        _f32_fits(r, s, win)
     xc = wup = None
     if proj is not None:
         xc, wup_t = proj
-        _check("xc", xc, torch.bfloat16, (batch, t // 10, r), dev)
+        if f32_form:
+            _same_dtype(("hsave", hsave), ("xc", xc))
+        _check("xc", xc, act, (batch, t // 10, r), dev)
         # the kernel reads the projection in its (R, 10R) layout
         wup = wup_t.permute(2, 0, 1).reshape(r, 10 * r).contiguous()
         _check("wup", wup, torch.float32, device=dev)
     chunks = max(1, REDUCE_BLOCKS // batch)
     embed_blocks = REDUCE_BLOCKS if pack is not None else 0
-    f32 = torch.float32
     n_scratch = lib.movenet_stack_bwd_scratch(batch, t, r, s, win, chunks,
-                                              vocab, embed_blocks)
+                                              vocab, embed_blocks,
+                                              int(f32_form))
+    f32 = torch.float32
     scratch = torch.empty(n_scratch, dtype=f32, device=dev)
     dtab = dx = None
     if pack is not None:
@@ -221,10 +362,9 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
         dx = torch.empty(batch, t, r, dtype=torch.bfloat16, device=dev)
     dctx = None
     if proj is not None:
-        dctx = torch.empty(batch, t // 10, r, dtype=torch.bfloat16,
-                           device=dev)
+        dctx = torch.empty(batch, t // 10, r, dtype=act, device=dev)
     elif ctx is not None:
-        dctx = torch.empty(batch, t, r, dtype=torch.bfloat16, device=dev)
+        dctx = torch.empty(batch, t, r, dtype=act, device=dev)
     db_fg = torch.empty(n_layers * batch, 2 * r, dtype=f32, device=dev)
     dw_fg = torch.empty(n_layers, win, 2 * r, dtype=f32, device=dev)
     dw_out = torch.empty(n_layers, r, r + s, dtype=f32, device=dev)
@@ -233,16 +373,26 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
     if proj is not None:
         dwup = torch.empty(r, 10 * r, dtype=f32, device=dev)
         dbup = torch.empty(10 * r, dtype=f32, device=dev)
-    bf = dskip.dtype == torch.bfloat16
-    err = lib.movenet_stack_bwd(
-        _ptr(hsave), _ptr(tfsg), _ptr(ctx), _ptr(w_fg), _ptr(w_out),
-        _ptr(dskip) if bf else None, None if bf else _ptr(dskip), _ptr(pack),
-        0 if pack is None else pack.shape[1], vocab, _dils(dilations),
-        _ptr(xc), _ptr(wup), _ptr(scratch), chunks, _ptr(dtab), _ptr(dx),
-        _ptr(dctx), _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out),
-        _ptr(dwup), _ptr(dbup), batch, t, n_layers, r, s, embed_blocks,
-        stream)
-    _raise(err, "stack_bwd")
+    if f32_form:
+        err = lib.movenet_stack_bwd_f32(
+            _ptr(hsave), _ptr(tfsg), _ptr(ctx), _ptr(w_fg), _ptr(w_out),
+            _ptr(dskip), _ptr(pack), pack.shape[1], vocab, _dils(dilations),
+            _ptr(xc), _ptr(wup), _ptr(scratch), chunks, _ptr(dtab),
+            _ptr(dctx), _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out),
+            _ptr(dwup), _ptr(dbup), batch, t, n_layers, r, s, embed_blocks,
+            stream)
+        _raise(err, "stack_bwd_f32")
+    else:
+        bf = dskip.dtype == torch.bfloat16
+        err = lib.movenet_stack_bwd(
+            _ptr(hsave), _ptr(tfsg), _ptr(ctx), _ptr(w_fg), _ptr(w_out),
+            _ptr(dskip) if bf else None, None if bf else _ptr(dskip),
+            _ptr(pack), 0 if pack is None else pack.shape[1], vocab,
+            _dils(dilations), _ptr(xc), _ptr(wup), _ptr(scratch), chunks,
+            _ptr(dtab), _ptr(dx), _ptr(dctx), _ptr(db_fg), _ptr(dw_fg),
+            _ptr(dw_out), _ptr(db_out), _ptr(dwup), _ptr(dbup), batch, t,
+            n_layers, r, s, embed_blocks, stream)
+        _raise(err, "stack_bwd")
     dwup_aug = None
     if proj is not None:
         dwup_aug = torch.cat(
@@ -263,7 +413,7 @@ def run_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab,
 def _tails_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations):
     """Checks of the recompute kernels: (B, T, L, R, S, W_in)."""
     dims = _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
-                    "the trunk kernels")
+                    "the recompute kernels", "recompute")
     if dims[0] * dims[1] >= 2 ** 31:
         raise ValueError(f"B*T = {dims[0] * dims[1]}: the recompute "
                          "kernels index rows in 32 bits")
@@ -324,17 +474,17 @@ def run_bwd_tails(lib, x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
     return dx, dctx, db_fg, dw_fg, dw_out, db_out
 
 
-def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what):
+def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what,
+             family):
     """Checks of the kernels that start from x (the non-embed save form,
-    the merged and the recompute kernels): (B, T, L, R, S, W_in)."""
+    the merged and the recompute kernels; ``family`` names their float32
+    item in ``F32_UNBUILT``): (B, T, L, R, S, W_in)."""
     batch, t, r = x.shape
     n_layers = len(dilations)
     s = w_out.shape[2] - r
     dev = x.device
     if x.dtype != torch.bfloat16:
-        raise ValueError(
-            f"{what} take the bfloat16 compute dtype, got {x.dtype}; "
-            "float32 on the card is not built (ROADMAP.md B.2)")
+        raise ValueError(f32_unbuilt(what, family, x.dtype))
     _check("x", x, torch.bfloat16, device=dev)
     win = (3 if ctx is not None else 2) * r
     if ctx is not None:
@@ -357,7 +507,8 @@ def run_fwd_x(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
     hsave, tfsg) as ``stack_fwd_x_plain``."""
     batch, t, n_layers, r, s, _ = _x_check(lib, x, ctx, b_fg, w_fg, w_out,
                                            b_out, dilations,
-                                           "the trunk kernels")
+                                           "the non-embed save kernels",
+                                           "non-embed")
     h, skacc, hsave, tfsg, skip = _fwd_buffers(x.device, batch, t,
                                                n_layers, r, s)
     err = lib.movenet_stack_fwd_x(
@@ -407,7 +558,7 @@ def run_head_fwd(lib, x, ctx, b_fg, w_fg, w_out, b_out, targets_tb, w1, b1,
     skip, hsave, tfsg) as ``stack_head_fwd_plain``."""
     batch, t, n_layers, r, s, _ = _x_check(
         lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
-        "the merged kernels")
+        "the merged kernels", "merged")
     dev = x.device
     c = _head_check(lib, batch, t, r, s, targets_tb, w1, b1, w2, b2, dev)
     h, skacc, hsave, tfsg, skip = _fwd_buffers(dev, batch, t, n_layers, r,
@@ -434,6 +585,9 @@ def run_head_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, skip, targets_tb, w1,
     r = two_r // 2
     s = w_out.shape[2] - r
     dev = tfsg.device
+    if skip.dtype != torch.bfloat16:
+        raise ValueError(f32_unbuilt("the merged kernels", "merged",
+                                     skip.dtype))
     _check("skip", skip, torch.bfloat16, (batch, t, s), dev)
     c = _head_check(lib, batch, t, r, s, targets_tb, w1, b1, w2, b2, dev)
     f32 = torch.float32
@@ -469,7 +623,8 @@ def stack_fwd(pack, table2, ctx, b_fg, w_fg, w_out, b_out,
                                   b_out, dilations, batch)
     out = run_fwd(library(), pack, table2, ctx, b_fg, w_fg, w_out, b_out,
                   dilations, batch, _stream(table2))
-    launch_counts["stack_fwd"] += 1
+    launch_counts["stack_fwd_f32" if table2.dtype == torch.float32
+                  else "stack_fwd"] += 1
     return out
 
 
@@ -482,7 +637,8 @@ def stack_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab: int,
                                   pack, vocab, dilations, proj)
     out = run_bwd(library(), hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
                   vocab, dilations, proj, _stream(tfsg))
-    launch_counts["stack_bwd"] += 1
+    launch_counts["stack_bwd_f32" if tfsg.dtype == torch.float32
+                  else "stack_bwd"] += 1
     return out
 
 

@@ -93,13 +93,26 @@ def _dleaky(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, 1.0, 0.01)
 
 
-def _core(skip, tgt, w1, b1, w2, b2, op_dt):
-    """(y, z, onehot, zmax) over rows of skip (..., S) in float32."""
+def row_products(mm=None):
+    """(prod, wgrad) of the plain versions: prod(a, b) = a @ b and
+    wgrad(a, b) = the sum over the leading dims of a^T b, by torch, or
+    both by ``mm(a, b)`` (a (..., K), b (K, N)) when given: the float32
+    kernels' products through ``ops/stack_kernel.split_matmul``."""
+    if mm is None:
+        return torch.matmul, lambda a, b: torch.einsum("btk,btj->kj", a, b)
+    return mm, lambda a, b: mm(a.reshape(-1, a.shape[-1]).t(),
+                               b.reshape(-1, b.shape[-1]))
+
+
+def _core(skip, tgt, w1, b1, w2, b2, op_dt, mm=None):
+    """(y, z, onehot, zmax) over rows of skip (..., S) in float32; ``mm``
+    forms the products (``row_products``)."""
     def rnd(x):
         return x.to(op_dt).to(f32)
 
-    y = torch.matmul(rnd(_leaky(skip)), rnd(w1)) + b1.to(f32)
-    z = torch.matmul(rnd(_leaky(y)), rnd(w2)) + b2.to(f32)
+    mm, _ = row_products(mm)
+    y = mm(rnd(_leaky(skip)), rnd(w1)) + b1.to(f32)
+    z = mm(rnd(_leaky(y)), rnd(w2)) + b2.to(f32)
     onehot = torch.nn.functional.one_hot(tgt.long(), z.shape[-1]).to(f32)
     zmax = z.max(dim=-1, keepdim=True).values
     return y, z, onehot, zmax
@@ -135,12 +148,14 @@ def _valid(t: int, rf: int, device) -> torch.Tensor:
 
 
 def head_fwd_plain(skip, pack, w1, b1, w2, b2, rf: int, parity: bool,
-                   tgt_off: int = 0, save_p: bool = True):
-    """(loss_sum, match_count, p (B, T, C) float32 or None)."""
+                   tgt_off: int = 0, save_p: bool = True, mm=None):
+    """(loss_sum, match_count, p (B, T, C) float32 or None); ``mm`` forms
+    the products (``ops/stack_kernel.split_matmul``: as the float32
+    kernels do)."""
     batch, t, _ = skip.shape
     tgt = _targets(pack, batch, tgt_off)
     _, z, onehot, zmax = _core(skip.to(f32), tgt, w1, b1, w2, b2,
-                               skip.dtype)
+                               skip.dtype, mm)
     e = torch.exp(z - zmax)
     p = e / e.sum(dim=-1, keepdim=True)
     valid = _valid(t, rf, skip.device)
@@ -152,19 +167,21 @@ def head_fwd_plain(skip, pack, w1, b1, w2, b2, rf: int, parity: bool,
 
 
 def head_bwd_plain(skip, pack, p, w1, b1, w2, b2, rf: int, parity: bool,
-                   dloss, tgt_off: int = 0):
+                   dloss, tgt_off: int = 0, mm=None):
     """(dskip in skip's dtype, dw1 (S, C), db1 (C,), dw2 (C, C), db2 (C,))
-    float32 weight grads."""
+    float32 weight grads; ``mm`` forms the products
+    (``ops/stack_kernel.split_matmul``: as the float32 kernels do)."""
     batch, t, _ = skip.shape
     dt = skip.dtype
 
     def rnd(x):
         return x.to(dt).to(f32)
 
+    prod, wgrad = row_products(mm)
     sk = skip.to(f32)
     tgt = _targets(pack, batch, tgt_off)
     onehot = torch.nn.functional.one_hot(tgt.long(), p.shape[-1]).to(f32)
-    y = torch.matmul(rnd(_leaky(sk)), rnd(w1)) + b1.to(f32)
+    y = prod(rnd(_leaky(sk)), rnd(w1)) + b1.to(f32)
     scale = (torch.as_tensor(dloss, dtype=f32, device=skip.device)
              * _valid(t, rf, skip.device))[:, None]
     if parity:
@@ -176,12 +193,12 @@ def head_bwd_plain(skip, pack, p, w1, b1, w2, b2, rf: int, parity: bool,
         dz = p - onehot
     dz = dz * scale
     ly = _leaky(y)
-    dw2 = torch.einsum("btk,btj->kj", rnd(ly), rnd(dz))
+    dw2 = wgrad(rnd(ly), rnd(dz))
     db2 = dz.sum(dim=(0, 1))
-    dy = torch.matmul(rnd(dz), rnd(w2).t()) * _dleaky(y)
-    dw1 = torch.einsum("btk,btj->kj", rnd(_leaky(sk)), rnd(dy))
+    dy = prod(rnd(dz), rnd(w2).t()) * _dleaky(y)
+    dw1 = wgrad(rnd(_leaky(sk)), rnd(dy))
     db1 = dy.sum(dim=(0, 1))
-    dskip = (torch.matmul(rnd(dy), rnd(w1).t()) * _dleaky(sk)).to(dt)
+    dskip = (prod(rnd(dy), rnd(w1).t()) * _dleaky(sk)).to(dt)
     return dskip, dw1, db1, dw2, db2
 
 

@@ -331,13 +331,17 @@ def stack_fwd_x_plain(x, ctx, b_fg, w_fg, w_out, b_out,
     return skip.to(x.dtype), hsave, tfsg
 
 
-def _save_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, dilations):
+def _save_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, mm=None):
     """The layer sweep of the save backward: (dh of the stack's input,
     dctx or None, db_fg (L, B, 2R), dw_fg, dw_out, db_out), float32.
-    dskip may be in the compute dtype or float32 (the merged head's)."""
+    dskip may be in the compute dtype or float32 (the merged head's).
+    ``mm(a, b)`` forms the four products in place of torch's
+    (``split_matmul``: as the float32 kernels form them)."""
     n_layers, batch, t, two_r = tfsg.shape
     r = two_r // 2
     f32 = torch.float32
+    prod, wgrad = hl.row_products(mm)
+
     ctxf = ctx.to(f32) if ctx is not None else None
     dsk = dskip.to(f32)
     dh = torch.zeros(batch, t, r, dtype=f32, device=tfsg.device)
@@ -354,15 +358,15 @@ def _save_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, dilations):
         v = tfsg[l].to(f32)
         tf, sg = v[..., :r], v[..., r:]
         dout = torch.cat([dh, dsk], dim=-1)
-        dgated = torch.matmul(dout, w_out[l].to(f32).t())
+        dgated = prod(dout, w_out[l].to(f32).t())
         dfg = torch.cat([dgated * (sg * (1.0 - tf * tf)),
                          dgated * (tf * (sg - sg * sg))], dim=-1)
         gated = tf * sg
-        dw_fg[l] = torch.einsum("btk,btj->kj", hp, dfg)
+        dw_fg[l] = wgrad(hp, dfg)
         db_fg[l] = dfg.sum(dim=1)
-        dw_out[l] = torch.einsum("btk,btj->kj", gated, dout)
+        dw_out[l] = wgrad(gated, dout)
         db_out[l] = dout.sum(dim=(0, 1))
-        dfg_w = torch.matmul(dfg, w_fg[l].to(f32).t())
+        dfg_w = prod(dfg, w_fg[l].to(f32).t())
         dh = dh + dfg_w[..., :r] + _unshift(dfg_w[..., r:2 * r], d)
         if dctx is not None:
             dctx = dctx + dfg_w[..., 2 * r:]
@@ -501,6 +505,19 @@ BWD_SPLIT_PASSES = {
     "dw_out": (True, True),    # gated^T [dh | dskip], gated = tf * sg
     "dw_up": (False, True),    # xc^T dctx, the projection (bf16 A)
 }
+# The float32 save kernels' products (stack_layer_f32_kernel, and the
+# backward's float32 form): every operand is float32 and none is exact in
+# TF32 (hsave, ctx, gated and xc are no longer bf16 values), so every
+# product splits both operands: three passes.
+F32_SPLIT_PASSES = {
+    "fg": (True, True),        # [h | h(t-d) | ctx] W_fg (forward)
+    "out": (True, True),       # gated W_out (forward)
+    "dgated": (True, True),    # [dh | dskip] W_out^T
+    "dfg_w": (True, True),     # dfg W_fg^T
+    "dw_fg": (True, True),     # [hsave | hsave(t-d) | ctx]^T dfg
+    "dw_out": (True, True),    # gated^T [dh | dskip]
+    "dw_up": (True, True),     # xc^T dctx
+}
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -540,6 +557,46 @@ def tf32_split_matmul(a: torch.Tensor, b: torch.Tensor, split_a: bool,
     for u, v in passes:
         out = out + torch.matmul(u.to(f64), v.to(f64)).to(torch.float32)
     return out
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (a (..., K) and b (K, N), float32) as the float32 kernels
+    form it: both operands split, three passes (``tf32_split_matmul``)."""
+    out = tf32_split_matmul(a.reshape(-1, a.shape[-1]), b, True, True)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def stack_fwd_f32_split(pack, table2, ctx, b_fg, w_fg, w_out, b_out,
+                        dilations: Sequence[int], batch: int):
+    """``stack_fwd_plain`` in float32 as the float32 save forward kernels
+    compute it: fg and out from split-TF32 products, layer by layer
+    (skip_sum, hsave, tfsg in float32)."""
+    h = _embed(pack, table2.float(), batch)
+    ctx = ctx.float() if ctx is not None else None
+    return _save_fwd(h, ctx, b_fg, w_fg, w_out, b_out, dilations,
+                     torch.float32, raw_gate=False, matmul=split_matmul)
+
+
+def stack_bwd_f32_split(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
+                        vocab: int, dilations: Sequence[int], proj=None):
+    """``stack_bwd_plain`` in float32 as the float32 save backward kernels
+    compute it: the four products of every layer and the projection's
+    weight gradient split-TF32; the table gradient, dxc and the bias
+    gradients float32 sums as the kernels' (same returns)."""
+    n_layers, batch, _, two_r = tfsg.shape
+    dh, dctx, db_fg, dw_fg, dw_out, db_out = _save_bwd(
+        hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, mm=split_matmul)
+    dtab = torch.einsum("btv,btr->vr", _embed_onehot(pack, batch, vocab), dh)
+    dctx_out, dwup_aug = _dctx_out(dctx, proj, torch.float32)
+    if proj is not None:
+        xc, _ = proj
+        r = xc.shape[-1]
+        dz = dctx.reshape(-1, UPSAMPLE_STRIDE * r)
+        dwup = split_matmul(xc.reshape(-1, r).float().t(), dz)
+        dwup_aug = torch.cat([dwup.reshape(r, UPSAMPLE_STRIDE, r)
+                              .permute(1, 0, 2), dwup_aug[:, r:]], dim=1)
+    return (dtab, dctx_out, db_fg.reshape(n_layers * batch, two_r), dw_fg,
+            dw_out, db_out, dwup_aug)
 
 
 # ------------------------------------------- tensor-core summation order

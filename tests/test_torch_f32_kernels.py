@@ -1,0 +1,285 @@
+"""The float32 forms of the save trunk and unpacked head kernels
+(csrc/stack_kernel.cu ``stack_layer_f32_kernel`` and the backward's float32
+form, csrc/head_loss.cu ``head_fwd_f32_kernel`` / ``head_bwd_f32_kernel``)
+on the CPU, where no card runs them: their product scheme, their shared
+memory and their refusals.
+
+* The split product with both operands float32.  Each of the kernels'
+  products (``ops/stack_kernel.F32_SPLIT_PASSES``) emulated with
+  ``tf32_split_matmul``, both operands split, lies within 1e-5 of its
+  scale of the float64 product; one-pass TF32, and the bf16 forms'
+  shortcut of leaving the activation unsplit (exact only for bf16
+  values), miss that bar, which is why the float32 forms split both.
+* The emulated float32 trunk (``stack_fwd_f32_split`` /
+  ``stack_bwd_f32_split``: split-TF32 products layer by layer) against the
+  JAX package's ``fused_stack_embed`` in float32 (the Pallas kernels in
+  interpret mode) at R = S = 16, T = 1280 without ctx and 1600 with the
+  projection triple: skip, hsave and tfsg within 1e-5 of each output's
+  scale, every gradient within 1e-4 of its scale, the bars chip_smoke.py
+  holds the kernels to on the card.
+* The emulated float32 head (``head_fwd_plain`` / ``head_bwd_plain`` with
+  ``split_matmul``) against JAX's ``fused_head_loss`` in float32 at (S,
+  C) = (8, 64) and (8, 128), parity on and off: loss rtol 1e-5, the match
+  count equal, every gradient within 1e-4 of its scale.
+* The byte counts (``f32_smem``): every built (R, S) pair's float32 save
+  launches and every float32 head at S <= 64, C <= 128 fit a block's
+  232,448 bytes; the float32 head at C = 256 is refused with the B.4
+  label; mixed activation dtypes are refused, naming the tensors.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from movenet_tpu.ops.pallas import head_loss as jhl
+from movenet_tpu.ops.pallas import stack_kernel as jsk
+
+from movenet_tpu_torch.ops import head_loss as hl
+from movenet_tpu_torch.ops import stack_kernel as sk
+from movenet_tpu_torch.ops.cuda import head_loss as kh
+from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+torch.set_num_threads(2)
+B, R, S, V = 2, 16, 16, 64
+DIL = (1, 2, 4, 1, 2, 4)
+L = len(DIL)
+ROWS = 4096
+
+
+def _f32(x):
+    return torch.from_numpy(np.asarray(x, np.float32))
+
+
+def _operands(seed=0, r=64, s=64):
+    """(A, B) of each product of the float32 kernels at the breakdancing
+    widths: float32 activations (not bf16 values), weights and
+    gradients."""
+    rng = np.random.default_rng(seed)
+    win = 3 * r
+    hp = _f32(rng.normal(0, 0.5, (ROWS, win)))
+    w_fg = _f32(rng.normal(0, win ** -0.5, (win, 2 * r)))
+    w_out = _f32(rng.normal(0, r ** -0.5, (r, r + s)))
+    fg = torch.matmul(hp, w_fg)
+    gated = torch.tanh(fg[:, :r]) * torch.sigmoid(fg[:, r:])
+    dout = _f32(rng.normal(0, 1e-3, (ROWS, r + s)))
+    dfg = _f32(rng.normal(0, 1e-3, (ROWS, 2 * r)))
+    xc = _f32(rng.normal(0, 0.5, (ROWS // 10, r)))
+    dctx = _f32(rng.normal(0, 1e-3, (ROWS // 10, 10 * r)))
+    return {"fg": (hp, w_fg), "out": (gated, w_out),
+            "dgated": (dout, w_out.t()), "dfg_w": (dfg, w_fg.t()),
+            "dw_fg": (hp.t(), dfg), "dw_out": (gated.t(), dout),
+            "dw_up": (xc.t(), dctx)}
+
+
+def _rel_err(got, a, b):
+    want = torch.matmul(a.double(), b.double())
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("name", sorted(sk.F32_SPLIT_PASSES))
+def test_f32_split_products_hold_1e5(name):
+    a, b = _operands()[name]
+    assert sk.F32_SPLIT_PASSES[name] == (True, True)
+    assert _rel_err(sk.split_matmul(a, b), a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("name", sorted(sk.F32_SPLIT_PASSES))
+def test_one_pass_and_unsplit_activation_miss_1e5(name):
+    """One-pass TF32 misses the bar on every product; so does leaving the
+    activation operand unsplit, the bf16 forms' shortcut (A of every
+    product but the two whose A is a gradient, dgated and dfg_w)."""
+    a, b = _operands()[name]
+    assert _rel_err(sk.tf32_split_matmul(a, b, False, False), a, b) > 1e-5
+    if name not in ("dgated", "dfg_w"):
+        assert _rel_err(sk.tf32_split_matmul(a, b, False, True), a, b) > 1e-5
+
+
+# ------------------------------------------------ the trunk against JAX
+def _trunk_inputs(t, proj, seed=0):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, V, size=(B, t)).astype(np.int32)
+    prev = np.concatenate([np.full((B, 1), -1, np.int32), codes[:, :-1]], 1)
+    pack = np.ascontiguousarray(
+        np.concatenate([codes, prev, np.roll(codes, -1, 1)], 0).T)
+    f = np.float32
+    win = (3 if proj else 2) * R
+    a = dict(
+        table2=(rng.standard_normal((2 * V, R)) * 0.5).astype(f),
+        b_fg=(rng.standard_normal((L * B, 2 * R)) * 0.1).astype(f),
+        w_fg=(rng.standard_normal((L, win, 2 * R)) / np.sqrt(win)).astype(f),
+        w_out=(rng.standard_normal((L, R, R + S)) / np.sqrt(R)).astype(f),
+        b_out=(rng.standard_normal((L, R + S)) * 0.1).astype(f),
+        dskip=(rng.standard_normal((B, t, S)) * 0.1).astype(f))
+    if proj:
+        a["xc"] = (rng.standard_normal((B, t // 10, R)) * 0.5).astype(f)
+        a["wup"] = (rng.standard_normal((R, 10 * R)) / 4).astype(f)
+        a["bup"] = (rng.standard_normal((10 * R,)) * 0.1).astype(f)
+    return pack, a
+
+
+def _trunk_jax(pack, a):
+    """JAX's fused_stack_embed in float32 (interpret mode): skip, the
+    gradients by input name, and the saved hsave and tfsg."""
+    names = ["table2"] + [k for k in ("xc", "wup", "bup") if k in a] \
+        + ["b_fg", "w_fg", "w_out", "b_out"]
+    args = [jnp.asarray(a[n]) for n in names]
+    pack_j = jnp.asarray(pack)
+
+    def op(*xs):
+        d = dict(zip(names, xs))
+        ctx = (d["xc"], d["wup"], d["bup"]) if "xc" in d else None
+        return jsk.fused_stack_embed(pack_j, d["table2"], ctx, d["b_fg"],
+                                     d["w_fg"], d["w_out"], d["b_out"], DIL,
+                                     jnp.float32, True)
+
+    skip, vjp = jax.vjp(op, *args)
+    grads = vjp(jnp.asarray(a["dskip"]))
+    ctx = jsk.ctx_flatten(tuple(args[1:4]), jnp.float32) if "xc" in a \
+        else None
+    _, hsave, tfsg, _ = jsk._fwd_pallas(
+        None, ctx, args[-4], args[-3], args[-2], args[-1], DIL, True,
+        embed=(pack_j, args[0], B), dtype=jnp.float32)
+    return (np.asarray(skip), {n: np.asarray(g) for n, g in
+                               zip(names, grads)},
+            (np.asarray(hsave), np.asarray(tfsg)))
+
+
+def _close(name, got, want, bar):
+    got = np.asarray(got, np.float32)
+    scale = float(np.max(np.abs(want)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=bar * scale,
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("proj,t", [(False, 1280), (True, 1600)])
+def test_f32_trunk_emulation_matches_jax(proj, t):
+    """T = 1600 with the triple: JAX's projection backward needs a time
+    tile that is a multiple of 10, which T = 1280 does not give it."""
+    pack, a = _trunk_inputs(t, proj)
+    want_skip, want_g, (want_h, want_tf) = _trunk_jax(pack, a)
+    ts = {n: torch.from_numpy(v) for n, v in a.items()}
+    tpack = torch.from_numpy(pack)
+    trip = (ts["xc"], ts["wup"], ts["bup"]) if proj else None
+    ctx = sk.ctx_flatten(trip, torch.float32) if proj else None
+    skip, hsave, tfsg = sk.stack_fwd_f32_split(
+        tpack, ts["table2"], ctx, ts["b_fg"], ts["w_fg"], ts["w_out"],
+        ts["b_out"], DIL, B)
+    for name, got, want in (("skip", skip, want_skip),
+                            ("hsave", hsave, want_h),
+                            ("tfsg", tfsg, want_tf)):
+        assert got.dtype == torch.float32
+        _close(name, got, want, 1e-5)
+    dtab, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug = \
+        sk.stack_bwd_f32_split(hsave, tfsg, ctx, ts["w_fg"], ts["w_out"],
+                               ts["dskip"], tpack, V, DIL,
+                               sk._ctx_proj_args(trip) if proj else None)
+    got = {"table2": dtab, "b_fg": db_fg, "w_fg": dw_fg, "w_out": dw_out,
+           "b_out": db_out}
+    if proj:
+        got["xc"] = dctx
+        got["wup"], got["bup"] = sk._ctx_proj_grads(dwup_aug, trip)
+    assert set(got) == set(want_g)
+    for name, want in want_g.items():
+        _close(name, got[name], want, 1e-4)
+
+
+# ------------------------------------------------- the head against JAX
+@pytest.mark.parametrize("s,c", [(8, 64), (8, 128)])
+@pytest.mark.parametrize("parity", [True, False])
+def test_f32_head_emulation_matches_jax(s, c, parity):
+    t, rf = 1024, 15
+    rng = np.random.default_rng(s + c)
+    codes = rng.integers(0, c, size=(B, t)).astype(np.int32)
+    prev = np.concatenate([np.full((B, 1), -1, np.int32), codes[:, :-1]], 1)
+    pack = np.ascontiguousarray(
+        np.concatenate([codes, prev, np.roll(codes, -1, 1)], 0).T)
+    f = np.float32
+    a = dict(skip=rng.standard_normal((B, t, s)).astype(f),
+             w1=(rng.standard_normal((s, c)) / 4).astype(f),
+             b1=(rng.standard_normal((c,)) * 0.1).astype(f),
+             w2=(rng.standard_normal((c, c)) * (2.5 / np.sqrt(c))).astype(f),
+             b2=(rng.standard_normal((c,)) * 0.1).astype(f))
+    names = ("skip", "w1", "b1", "w2", "b2")
+    n_valid = B * (t - rf)
+
+    def jloss(*xs):
+        loss, match = jhl.fused_head_loss(xs[0], jnp.asarray(pack), *xs[1:],
+                                          rf, parity, True, 2 * B)
+        return loss / n_valid, match
+
+    (want_l, want_m), want_g = jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True)(
+            *[jnp.asarray(a[n]) for n in names])
+    ts = {n: torch.from_numpy(a[n]) for n in names}
+    tpack = torch.from_numpy(pack)
+    hargs = (ts["skip"], tpack, ts["w1"], ts["b1"], ts["w2"], ts["b2"], rf,
+             parity, 2 * B)
+    loss, match, p = hl.head_fwd_plain(*hargs, mm=sk.split_matmul)
+    np.testing.assert_allclose(float(loss) / n_valid, float(want_l),
+                               rtol=1e-5)
+    assert float(match) == float(want_m)
+    got = hl.head_bwd_plain(ts["skip"], tpack, p, ts["w1"], ts["b1"],
+                            ts["w2"], ts["b2"], rf, parity,
+                            torch.tensor(1.0 / n_valid), 2 * B,
+                            mm=sk.split_matmul)
+    for name, x, want in zip(names, got, want_g):
+        assert x.dtype == torch.float32
+        _close(name, x, np.asarray(want), 1e-4)
+
+
+# ------------------------------------------------ byte counts, refusals
+@pytest.mark.parametrize("r,s", ks.WIDTHS)
+def test_f32_save_launches_fit_a_block(r, s):
+    for win in (2 * r, 3 * r):
+        smem = ks.f32_smem(r, s, win)
+        assert set(smem) == {"layer_fwd", "layer_bwd", "wgrad_fg",
+                             "wgrad_out", "wgrad_up"}
+        assert max(smem.values()) <= ks.SMEM_LIMIT, (win, smem)
+        ks._f32_fits(r, s, win)
+
+
+def test_f32_heads_fit_a_block_up_to_c128():
+    for s in range(4, 65, 4):
+        for c in range(4, 129, 4):
+            assert max(kh.f32_smem(s, c).values()) <= ks.SMEM_LIMIT, (s, c)
+            kh._f32_widths(s, c)
+    # W2 alone, (256, 264) floats, is 270,336 bytes
+    assert kh.f32_smem(8, 256)["fwd"] > ks.SMEM_LIMIT
+    for s, c in ((8, 256), (64, 256), (8, 132)):
+        with pytest.raises(NotImplementedError, match=r"B\.4"):
+            kh._f32_widths(s, c)
+
+
+def test_mixed_activation_dtypes_are_refused():
+    pack, a = _trunk_inputs(1280, False)
+    ts = {n: torch.from_numpy(v) for n, v in a.items()}
+    ctx = torch.zeros(B, 1280, R, dtype=torch.bfloat16)
+    w_fg = torch.zeros(L, 3 * R, 2 * R)
+    with pytest.raises(ValueError, match="table2 torch.float32, ctx "
+                                         "torch.bfloat16"):
+        ks._fwd_check(torch.from_numpy(pack), ts["table2"], ctx, ts["b_fg"],
+                      w_fg, ts["w_out"], ts["b_out"], DIL, B)
+
+
+def test_unbuilt_f32_forms_name_their_roadmap_item():
+    for family, item in ks.F32_UNBUILT.items():
+        msg = ks.f32_unbuilt("the kernels", family, torch.float32)
+        assert "torch.float32" in msg and "bfloat16" in msg
+        assert f"ROADMAP.md B.2/B.4 {item}" in msg
+
+
+def test_f32_on_the_cpu_runs_the_plain_versions():
+    """The wrappers take the plain versions for float32 CPU tensors and
+    count no launch."""
+    pack, a = _trunk_inputs(1280, False)
+    ts = {n: torch.from_numpy(v) for n, v in a.items()}
+    before = {**ks.launch_counts, **kh.launch_counts}
+    args = (torch.from_numpy(pack), ts["table2"], None, ts["b_fg"],
+            ts["w_fg"], ts["w_out"], ts["b_out"], DIL, B)
+    got = ks.stack_fwd(*args)
+    for x, y in zip(got, sk.stack_fwd_plain(*args)):
+        assert torch.equal(x, y)
+    assert {**ks.launch_counts, **kh.launch_counts} == before

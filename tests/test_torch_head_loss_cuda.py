@@ -20,7 +20,12 @@ calls give the same bits (fixed-order sums, no atomics), packed kernels
 too; the merged trunk + head kernels keep the bits of the source before
 the packed kernels moved to the tensor cores (digests).  The packed
 kernels (split-TF32 tensor cores since then) hold the plain versions'
-tolerances above."""
+tolerances above.
+
+The float32 forms (a float32 skip, S <= 64, C <= 128) take float32 inputs
+that are not bf16 values: loss rtol 1e-5, the match count equal, p within
+1e-5, every gradient (dskip too) within 1e-4 of its scale, two calls
+bit-equal."""
 
 import hashlib
 
@@ -41,14 +46,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, batch, t, s, c, seed=0):
+def _inputs(dev, batch, t, s, c, seed=0, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
     codes = torch.randint(0, c, (batch, t), generator=g, dtype=torch.int32)
     prev = torch.cat([torch.full((batch, 1), -1, dtype=torch.int32),
                       codes[:, :-1]], 1)
     pack = torch.cat([codes, prev, torch.roll(codes, -1, 1)], 0).t()
     return dict(
-        skip=torch.randn(batch, t, s, generator=g).to(torch.bfloat16),
+        skip=torch.randn(batch, t, s, generator=g).to(dtype),
         pack=pack.contiguous(),
         w1=torch.randn(s, c, generator=g) / 4,
         b1=torch.randn(c, generator=g) * 0.1,
@@ -116,6 +121,78 @@ def test_wide_head_kernels_match_plain(cuda, s, c, t, parity):
         x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
         tol = (1e-2 if name == "dskip" else 1e-3) * np.abs(y).max()
         np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c,t", [(16, 64, 4000), (64, 64, 10000),
+                                   (8, 64, 999), (8, 128, 4000),
+                                   (64, 128, 2000), (12, 36, 2000),
+                                   (4, 4, 1000)])
+@pytest.mark.parametrize("parity", [True, False])
+def test_head_kernels_match_plain_f32(cuda, s, c, t, parity):
+    batch, rf = 2, 24
+    a = _inputs(cuda, batch, t, s, c, dtype=torch.float32)
+    a = {k: v.to(cuda) for k, v in a.items()}
+    args = (a["skip"], a["pack"], a["w1"], a["b1"], a["w2"], a["b2"], rf,
+            parity, 2 * batch)
+    n0 = dict(kh.launch_counts)
+    loss, match, p = kh.head_fwd(*args)
+    torch.cuda.synchronize()
+    assert kh.launch_counts["head_fwd_f32"] == n0["head_fwd_f32"] + 1
+    assert kh.launch_counts["head_fwd"] == n0["head_fwd"]
+    wl, wm, wp = hl.head_fwd_plain(*args)
+    np.testing.assert_allclose(float(loss), float(wl), rtol=1e-5)
+    assert float(match) == float(wm)
+    np.testing.assert_allclose(p.cpu().numpy(), wp.cpu().numpy(), rtol=0,
+                               atol=1e-5)
+    l2, m2, p2 = kh.head_fwd(*args, save_p=False)
+    assert p2 is None and float(l2) == float(loss)
+    dloss = torch.tensor(1.0 / (batch * (t - rf)), device=cuda)
+    bargs = (a["skip"], a["pack"], wp, a["w1"], a["b1"], a["w2"], a["b2"],
+             rf, parity, dloss, 2 * batch)
+    got = kh.head_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert kh.launch_counts["head_bwd_f32"] == n0["head_bwd_f32"] + 1
+    assert kh.launch_counts["head_bwd"] == n0["head_bwd"]
+    want = hl.head_bwd_plain(*bargs)
+    for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"), got, want):
+        assert x.dtype == torch.float32, name
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=0, atol=1e-4 * np.abs(y).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c", [(16, 64), (8, 128)])
+def test_head_f32_kernels_repeat_bit_equal(cuda, s, c):
+    """Two calls of each float32 kernel give the same bits."""
+    batch, t, rf = 2, 3000, 24
+    a = {k: v.to(cuda) for k, v in
+         _inputs(cuda, batch, t, s, c, dtype=torch.float32).items()}
+    args = (a["skip"], a["pack"], a["w1"], a["b1"], a["w2"], a["b2"], rf,
+            True, 2 * batch)
+    l1, m1, p1 = kh.head_fwd(*args)
+    l2, m2, p2 = kh.head_fwd(*args)
+    assert float(l1) == float(l2) and float(m1) == float(m2)
+    assert torch.equal(p1, p2)
+    bargs = (a["skip"], a["pack"], p1, a["w1"], a["b1"], a["w2"], a["b2"],
+             rf, True, torch.tensor(1e-4, device=cuda), 2 * batch)
+    for x, y in zip(kh.head_bwd(*bargs), kh.head_bwd(*bargs)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_head_f32_smem_mirrors_the_library(cuda):
+    """ops/cuda/head_loss.f32_smem gives the library's own sizes, and the
+    float32 kernels take exactly S <= 64, C <= 128 (multiples of 4)."""
+    lib = kh.library()
+    for s in range(4, 69, 4):
+        for c in range(4, 261, 4):
+            want = kh.f32_smem(s, c)
+            assert lib.movenet_head_f32_smem(s, c, 0) == want["fwd"], (s, c)
+            assert lib.movenet_head_f32_smem(s, c, 1) == want["bwd"], (s, c)
+            assert bool(lib.movenet_head_f32_supports(s, c)) == \
+                (s <= 64 and c <= 128), (s, c)
 
 
 @pytest.mark.cuda
@@ -252,9 +329,18 @@ def test_packed_and_merged_heads_keep_their_bits(cuda):
 def test_head_wrapper_rejects_wrong_inputs(cuda):
     a = _inputs(cuda, 2, 500, 16, 64)
     a = {k: v.to(cuda) for k, v in a.items()}
-    with pytest.raises(ValueError, match="bfloat16"):
-        kh.head_fwd(a["skip"].float(), a["pack"], a["w1"], a["b1"], a["w2"],
-                    a["b2"], 24, True, 4)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        kh.head_fwd(a["skip"].double(), a["pack"], a["w1"], a["b1"],
+                    a["w2"], a["b2"], 24, True, 4)
+    # the float32 head at C = 256 is not built (W2 alone takes 270 KB)
+    with pytest.raises(NotImplementedError, match="B.4"):
+        w2 = torch.zeros(256, 256, device=cuda)
+        w1 = torch.zeros(16, 256, device=cuda)
+        b = torch.zeros(256, device=cuda)
+        kh.head_fwd(a["skip"].float(), a["pack"], w1, b, w2, b, 24, True, 4)
+    with pytest.raises(ValueError, match=r"B.2/B.4 \(5\)"):
+        kh.head_fwd_packed(a["skip"].float(), a["pack"][:, :2].contiguous(),
+                           a["w1"], a["b1"], a["w2"], a["b2"], 24, True)
     with pytest.raises(NotImplementedError, match="B.4"):
         w2 = torch.zeros(512, 512, device=cuda)
         w1 = torch.zeros(16, 512, device=cuda)

@@ -18,7 +18,12 @@ dfg W_fg^T in the layer launch take three passes (small*big, big*small,
 big*big), as does dW_out = gated^T [dh | dskip] (gated = tf*sg splits
 exactly); dW_fg = [hsave | hsave(t-d) | ctx]^T dfg and the projection's
 dW_up = xc^T dctx take two (their bf16 operand is exact in TF32).  One
-pass of TF32 would miss 1e-4 (tests/test_torch_split_tf32.py)."""
+pass of TF32 would miss 1e-4 (tests/test_torch_split_tf32.py).
+
+The float32 forms (the float32 compute dtype: table2, ctx and dskip in
+float32) take float32 inputs that are not bf16 values, so that every split
+counts: the forward within 1e-5 of each output's scale, every gradient
+(dctx too) within 1e-4 of its scale, two calls bit-equal."""
 
 import numpy as np
 import pytest
@@ -39,7 +44,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, t, r, s, v, ctx_kind, batch=2, seed=0):
+def _inputs(dev, t, r, s, v, ctx_kind, batch=2, seed=0,
+            dtype=torch.bfloat16):
+    """Seeded inputs, the activations (table2, ctx, xc, dskip) in dtype."""
     g = torch.Generator().manual_seed(seed)
     n_layers = len(DIL)
     codes = torch.randint(0, v, (batch, t), generator=g, dtype=torch.int32)
@@ -47,7 +54,7 @@ def _inputs(dev, t, r, s, v, ctx_kind, batch=2, seed=0):
                       codes[:, :-1]], 1)
     pack = torch.cat([codes, prev, torch.roll(codes, -1, 1)], 0).t()
     win = (3 if ctx_kind else 2) * r
-    bf = torch.bfloat16
+    bf = dtype
 
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g) * scale
@@ -107,6 +114,88 @@ def test_stack_kernels_match_plain(cuda, r, s, t, ctx_kind):
         x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
         tol = (2e-2 if name == "dctx" else 1e-4) * np.abs(y).max()
         np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+
+
+# the float32 forms at the six built (R, S) pairs, with each ctx form
+F32_CASES = [(16, 16, 1280, None), (16, 16, 1280, "flat"),
+             (32, 32, 2000, "proj"), (64, 64, 3200, "proj"),
+             (64, 8, 1000, "flat"), (64, 8, 1280, "proj"),
+             (32, 8, 1280, "proj"), (16, 8, 1280, "proj"),
+             (16, 8, 1000, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,t,ctx_kind", F32_CASES)
+def test_stack_kernels_match_plain_f32(cuda, r, s, t, ctx_kind):
+    a, ctx, proj, batch = _inputs(cuda, t, r, s, 64, ctx_kind,
+                                  dtype=torch.float32)
+    args = (a["pack"], a["table2"], ctx, a["b_fg"], a["w_fg"], a["w_out"],
+            a["b_out"], DIL, batch)
+    before = dict(ks.launch_counts)
+    got = ks.stack_fwd(*args)
+    torch.cuda.synchronize()
+    assert ks.launch_counts["stack_fwd_f32"] == before["stack_fwd_f32"] + 1
+    assert ks.launch_counts["stack_fwd"] == before["stack_fwd"]
+    want = sk.stack_fwd_plain(*args)
+    for name, x, y in zip(("skip", "hsave", "tfsg"), got, want):
+        assert x.dtype == torch.float32, name
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=0,
+                                   atol=1e-5 * np.abs(y).max(), err_msg=name)
+    hsave, tfsg = want[1], want[2]
+    bargs = (hsave, tfsg, ctx, a["w_fg"], a["w_out"], a["dskip"], a["pack"],
+             64, DIL, proj)
+    got = ks.stack_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert ks.launch_counts["stack_bwd_f32"] == before["stack_bwd_f32"] + 1
+    assert ks.launch_counts["stack_bwd"] == before["stack_bwd"]
+    want = sk.stack_bwd_plain(*bargs)
+    names = ("dtab", "dctx", "db_fg", "dw_fg", "dw_out", "db_out",
+             "dwup_aug")
+    for name, x, y in zip(names, got, want):
+        if y is None:
+            assert x is None, name
+            continue
+        assert x.dtype == torch.float32, name
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=0,
+                                   atol=1e-4 * np.abs(y).max(), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,ctx_kind", [(64, 64, "proj"), (64, 8, "proj"),
+                                          (32, 8, "flat"), (16, 8, None)])
+def test_stack_f32_kernels_repeat_bit_equal(cuda, r, s, ctx_kind):
+    """Two calls of each float32 form on the same inputs give the same
+    bits."""
+    a, ctx, proj, batch = _inputs(cuda, 1280, r, s, 64, ctx_kind,
+                                  dtype=torch.float32)
+    args = (a["pack"], a["table2"], ctx, a["b_fg"], a["w_fg"], a["w_out"],
+            a["b_out"], DIL, batch)
+    first, second = ks.stack_fwd(*args), ks.stack_fwd(*args)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    bargs = (first[1], first[2], ctx, a["w_fg"], a["w_out"], a["dskip"],
+             a["pack"], 64, DIL, proj)
+    for x, y in zip(ks.stack_bwd(*bargs), ks.stack_bwd(*bargs)):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_f32_smem_mirrors_the_library(cuda):
+    """ops/cuda/stack_kernel.f32_smem gives the library's own sizes of
+    every float32 launch, and every one fits a block."""
+    lib = ks.library()
+    for r, s in ks.WIDTHS:
+        for win in (2 * r, 3 * r):
+            want = ks.f32_smem(r, s, win)
+            got = {"layer_fwd": lib.movenet_stack_layer_smem(r, s, 3),
+                   "layer_bwd": lib.movenet_stack_bwd_smem(r, s, win, -3),
+                   "wgrad_fg": lib.movenet_stack_bwd_smem(r, s, win, 4),
+                   "wgrad_out": lib.movenet_stack_bwd_smem(r, s, win, 6),
+                   "wgrad_up": lib.movenet_stack_bwd_smem(r, s, win, 5)}
+            assert got == want, (r, s, win)
+            assert max(got.values()) <= ks.SMEM_LIMIT
 
 
 @pytest.mark.cuda
@@ -373,9 +462,28 @@ def test_save_kernels_keep_their_bits(cuda, r, s, ctx_kind):
 @pytest.mark.cuda
 def test_stack_wrapper_rejects_wrong_inputs(cuda):
     a, ctx, _, batch = _inputs(cuda, 1280, 16, 16, 64, None)
-    with pytest.raises(ValueError, match="bfloat16"):
-        ks.stack_fwd(a["pack"], a["table2"].float(), None, a["b_fg"],
+    # mixed activation dtypes raise, naming the tensors
+    bf_ctx = torch.zeros(batch, 1280, 16, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="table2 torch.float32, ctx "
+                                         "torch.bfloat16"):
+        ks.stack_fwd(a["pack"], a["table2"].float(), bf_ctx, a["b_fg"],
                      a["w_fg"], a["w_out"], a["b_out"], DIL, batch)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        ks.stack_fwd(a["pack"], a["table2"].double(), None, a["b_fg"],
+                     a["w_fg"], a["w_out"], a["b_out"], DIL, batch)
+    _, hsave, tfsg = sk.stack_fwd_plain(
+        a["pack"], a["table2"].float(), None, a["b_fg"], a["w_fg"],
+        a["w_out"], a["b_out"], DIL, batch)
+    with pytest.raises(ValueError, match="tfsg torch.bfloat16"):
+        ks.stack_bwd(hsave, tfsg.bfloat16(), None, a["w_fg"], a["w_out"],
+                     a["dskip"].float(), a["pack"], 64, DIL)
+    with pytest.raises(ValueError, match="dskip torch.bfloat16"):
+        ks.stack_bwd(hsave, tfsg, None, a["w_fg"], a["w_out"], a["dskip"],
+                     a["pack"], 64, DIL)
+    # the float32 forms not built yet raise with their ROADMAP item
+    with pytest.raises(ValueError, match=r"B.2/B.4 \(2\)"):
+        ks.stack_bwd_x(hsave, tfsg, None, a["w_fg"], a["w_out"],
+                       a["dskip"].float(), DIL)
     with pytest.raises(ValueError, match="b_fg"):
         ks.stack_fwd(a["pack"], a["table2"], None, a["b_fg"].double(),
                      a["w_fg"], a["w_out"], a["b_out"], DIL, batch)
