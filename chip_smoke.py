@@ -107,6 +107,22 @@ Phases (any failure exits non-zero and prints no result):
      ``fused_train_loss`` loss + backward through the recompute strategy
      against the save strategy (loss and every gradient within the
      tolerance stated there), and each one's peak device memory;
+  9g. the flagship trainer in float32: (a, after phase 11) the float32
+     recompute forms against their plain versions (TF32 off) at the
+     flagship's trunk (L=30, R=S=64, B=2, T=160000, flat ctx) and
+     experiment 02's CLI widths (S=8), and the wide float32 head (W2
+     through a ring) at (S, C, B) = (64, 256, 2) and (16, 256, 2), seeded
+     float32 inputs, within phase 9f's bars; each form's time beside the
+     bf16 form's on the same shapes; (b, after phase 16) the trainer CLI
+     with the flagship flags and --compute_dtype float32 for 1 epoch of 4
+     steps on phase 16's clips: the default strategy resolves to
+     recompute, only the float32 recompute forms and the wide float32 head
+     run (forwards once a train step and validation batch, backwards once
+     a step), finite losses, update ms and peak memory; (c) from
+     checkpoint 0 and the run's first batch the fused route against the
+     unfused one in float32 within phase 9f's route bars (on one row where
+     the unfused route does not fit the card at B=2), each route's peak
+     memory;
   12. merged head: at the breakdancing shapes the merged trunk + head
      kernels (stack_kernel.py:464 / :624) against their plain versions on
      the merged loss's own inputs (flat ctx); ``fused_train_loss`` with
@@ -205,8 +221,8 @@ Phases (any failure exits non-zero and prints no result):
      gated block's and the per-block trunk's, the new forms' and the
      experiments' update times and peak memory, the flagship trainer
      step, the sequence-parallel step;
-  22. the kernels line (22 entries, every form of the fourteen TPU kernel
-     functions and the four float32 forms, each with its bound from this
+  22. the kernels line (26 entries, every form of the fourteen TPU kernel
+     functions and the eight float32 forms, each with its bound from this
      run's shapes; the new
      widths' readings under "widths"; the speculative rows also with
      their stream bound), then the card line, then the result line.
@@ -298,6 +314,27 @@ F32_BWD_GRIDS = (("layer", "stack_bwd_layer_kernel"),
                  ("head rows", "head_bwd_f32_kernel"),
                  ("head weight gradients", "head_wgrad_f32_kernel"),
                  ("reductions", "reduce_kernel"))
+# phase 9g: the flagship trainer in float32: the recompute kernels' float32
+# forms and the wide float32 head (C = 256), counted apart
+F32_TAILS_KERNELS = {f"{k}_f32": v for k, v in TAILS_KERNELS.items()}
+F32_WIDE_KERNELS = {"head_fwd_f32_wide": TRAIN_KERNELS["head_fwd"],
+                    "head_bwd_f32_wide": TRAIN_KERNELS["head_bwd"]}
+# its shapes, T = 160000, flat float32 ctx: (B, dilations, R, S), the
+# flagship's (layer 10 x stack 3) and experiment 02's CLI widths; the
+# head's (S, C, B), the flagship's and experiment 03's S at C = 256
+F32_TAILS_SHAPES = {"flagship": (2, tuple(2 ** i for i in range(10)) * 3,
+                                 64, 64),
+                    "exp02": (2, (1, 2, 4) * 3, 64, 8)}
+F32_WIDE_HEADS = ((64, 256, 2), (16, 256, 2))
+# the grids of phase 9g's backwards at the flagship's shapes
+F32_TAILS_GRIDS = (("rebuild", "stack_layer_f32_kernel"),
+                   ("layer", "stack_bwd_layer_kernel"),
+                   ("wgrad W_fg", "stack_wgrad_kernel<4"),
+                   ("wgrad W_out", "stack_wgrad_kernel<6"),
+                   ("dx", "stack_dx_kernel"),
+                   ("head rows", "head_bwd_f32_wide_kernel"),
+                   ("head weight gradients", "head_wgrad_f32_kernel"),
+                   ("reductions", "reduce_kernel"))
 # dilations of the gated-block phase: the breakdancing stack's first and
 # the flagship stack's largest
 GATED_DILATIONS = (1, 512)
@@ -862,7 +899,7 @@ def train_bounds(b, t, l, r, s, c, v, win, proj, act=2, peak=BF16_OPS_S):
             "head_bwd": bound(head_bwd_bytes, head_bwd_ops, peak)}
 
 
-def tails_bounds(b, t, l, r, s, win, every):
+def tails_bounds(b, t, l, r, s, win, every, act=2):
     """(bound_ms, bound_by) of the recompute kernels: the forward reads x
     and ctx and writes skip and the layer checkpoints; the backward reads
     x, the checkpoints, ctx and dskip and writes dx, dctx and the
@@ -870,15 +907,17 @@ def tails_bounds(b, t, l, r, s, win, every):
     989 TF/s; the backward's bf16 products (the rebuilt layers, L -
     ceil(L/every), and fg of every layer) at 989 TF/s plus its gradient
     products on float32 operands on the tensor cores at the TF32 peak,
-    counted once, as for the save backward."""
+    counted once, as for the save backward.  ``act``: bytes of an
+    activation (4 for the float32 forms, whose every product takes
+    float32 operands: all at the TF32 peak, counted once)."""
     m = b * t
     w_bytes = 4 * l * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
-    ctx = 2 * m * r if win == 3 * r else 0
-    ckpt = 2 * m * r * len(range(every, l, every))
+    ctx = act * m * r if win == 3 * r else 0
+    ckpt = act * m * r * len(range(every, l, every))
     grads = 4 * l * (win * 2 * r + r * (r + s) + r + s + b * 2 * r)
-    fwd_bytes = 2 * m * r + ctx + w_bytes + 2 * m * s + ckpt
-    bwd_bytes = 2 * m * r + ckpt + ctx + 2 * m * s + w_bytes \
-        + 2 * m * r + ctx + grads
+    fwd_bytes = act * m * r + ctx + w_bytes + act * m * s + ckpt
+    bwd_bytes = act * m * r + ckpt + ctx + act * m * s + w_bytes \
+        + act * m * r + ctx + grads
     layer_ops = 2 * m * (win * 2 * r + r * (r + s))
     fwd_ops = l * layer_ops
     rebuilt = l - len(range(0, l, every))
@@ -890,8 +929,9 @@ def tails_bounds(b, t, l, r, s, win, every):
         tb = nbytes / HBM_BYTES_S * 1e3
         return (tb, "bytes") if tb >= ops_ms else (ops_ms, "operations")
 
-    return {"stack_fwd_tails": bound(fwd_bytes, fwd_ops / BF16_OPS_S * 1e3),
-            "stack_bwd_tails": bound(bwd_bytes, (bf16_ops / BF16_OPS_S
+    low = TF32_OPS_S if act == 4 else BF16_OPS_S
+    return {"stack_fwd_tails": bound(fwd_bytes, fwd_ops / low * 1e3),
+            "stack_bwd_tails": bound(bwd_bytes, (bf16_ops / low
                                                  + grad_ops / TF32_OPS_S)
                                      * 1e3)}
 
@@ -1518,14 +1558,11 @@ def phase_f32_cli(torch, np, root, ds):
     Returns (launches, record)."""
     from movenet_tpu_torch.config import arg_parser, config_from_args
     from movenet_tpu_torch.data import kinetics_index
-    from movenet_tpu_torch.models.convert import load_jax_params
     from movenet_tpu_torch.models.wavenet import make_wavenet
     from movenet_tpu_torch.ops import stack_kernel as sk
     from movenet_tpu_torch.ops.cuda import gated_block as kg
     from movenet_tpu_torch.ops.cuda import head_loss as kh
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
-    from movenet_tpu_torch.train import loop
-    from movenet_tpu_torch.train.checkpoint import restore_params
 
     run, logs = root / "f32_run", root / "f32_logs"
     argv = ["--dataset", str(ds), *EXP02_FLAGS, "--compute_dtype", "float32",
@@ -1576,53 +1613,12 @@ def phase_f32_cli(torch, np, root, ds):
           f"{[round(v, 6) for v in losses]}; launches {launches}",
           flush=True)
     # (c) fused against unfused from checkpoint 0's weights
-    tree, _ = restore_params(run, 0)
-    model = load_jax_params(make_wavenet(mc), tree).to("cuda")
-    batch = steps.batches[0].to("cuda")
-    parity = mc.parity_softmax_output
-    routes = {}
-    for fused in (True, False):
-        model.zero_grad(set_to_none=True)
-        for mod in mods:
-            mod.reset_launch_counts()
-        loss, _ = loop._loss_and_metrics(model, parity, fused)(batch)
-        loss.backward()
-        torch.cuda.synchronize()
-        grads = {k: q.grad.detach().clone()
-                 for k, q in model.named_parameters() if q.grad is not None}
-        routes[fused] = dict(
-            loss=float(loss.detach()), grads=grads,
-            norm=float(torch.sqrt(sum((x.double() ** 2).sum()
-                                      for x in grads.values()))),
-            launches={k: v for mod in mods
-                      for k, v in mod.launch_counts.items()})
-    f, u = routes[True], routes[False]
-    want = {k: 0 for k in f["launches"]}
-    check(u["launches"] == want, f"unfused route launches {u['launches']}")
-    want.update(stack_fwd_f32=1, stack_bwd_f32=1, head_fwd_f32=1,
-                head_bwd_f32=1)
-    check(f["launches"] == want, f"fused route launches {f['launches']}")
-    check(set(f["grads"]) == set(u["grads"]), "gradient leaves differ")
-    errs = {"loss": abs(f["loss"] - u["loss"]) / abs(u["loss"]),
-            "grad_norm": abs(f["norm"] - u["norm"]) / u["norm"]}
-    check(errs["loss"] <= F32_ROUTE_BARS["loss"],
-          f"float32 fused loss {f['loss']} vs unfused {u['loss']}")
-    check(errs["grad_norm"] <= F32_ROUTE_BARS["grad_norm"],
-          f"float32 fused grad_norm {f['norm']} vs unfused {u['norm']}")
-    leaf, leaf_name = 0.0, ""
-    for k, gu in u["grads"].items():
-        e = _err(f["grads"][k], gu) / max(_scale(gu), 1e-30)
-        check(e <= F32_ROUTE_BARS["leaf"], f"float32 fused vs unfused "
-              f"gradient {k}: {e:.3g} of its scale")
-        if e > leaf:
-            leaf, leaf_name = e, k
-    errs["leaf"] = leaf
-    print(f"f32 fused vs unfused (checkpoint 0, the run's first batch, B=2,"
-          f" T=160000): loss {f['loss']:.8f} vs {u['loss']:.8f} (relative "
-          f"{errs['loss']:.3g}), grad_norm {f['norm']:.8g} vs "
-          f"{u['norm']:.8g} (relative {errs['grad_norm']:.3g}), largest "
-          f"leaf difference {leaf:.3g} of its scale ({leaf_name})",
-          flush=True)
+    errs, _ = f32_routes(
+        torch, np, mc, run, steps.batches[0],
+        dict(stack_fwd_f32=1, stack_bwd_f32=1, head_fwd_f32=1,
+             head_bwd_f32=1),
+        "f32 fused vs unfused (checkpoint 0, the run's first batch, B=2, "
+        "T=160000)")
     return launches, dict(step_ms=median, ms=steps.ms, peak_gb=peak_gb,
                           wall_s=wall, errs=errs)
 
@@ -2652,6 +2648,342 @@ def phase_flagship_cli(torch, np, root):
     return dict(step_ms=median, peaks=peaks, launches=launches)
 
 
+def phase_f32_tails_kernels(torch, np):
+    """Phase 9g (a): the float32 recompute forms against their plain
+    versions (TF32 off) at F32_TAILS_SHAPES (seeded float32 x, flat ctx,
+    weights and dskip; the backward from the plain checkpoints), and the
+    wide float32 head at F32_WIDE_HEADS (seeded skip, parity CE, RF 3072),
+    within F32_BARS; each form's time by CUDA events beside the bf16 form's
+    on the same shapes (the activations rounded to bf16) and the plain
+    version's; the backwards' device time by grid at the flagship's
+    shapes.  Returns records by (name, shape label)."""
+    from movenet_tpu_torch.ops import head_loss as hl
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
+
+    t, f32, bf = 160_000, torch.float32, torch.bfloat16
+    lib = ks.library()
+    rec = {}
+    for label, (b, dil, r, s) in F32_TAILS_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(7 + len(dil) + s)
+        n, win = len(dil), 3 * r
+
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+
+        with torch.no_grad():
+            args = (rn(b, t, r, scale=0.5), rn(b, t, r, scale=0.5),
+                    rn(n * b, 2 * r, scale=0.1),
+                    rn(n, win, 2 * r, scale=win ** -0.5),
+                    rn(n, r, r + s, scale=r ** -0.5), rn(n, r + s, scale=0.1),
+                    dil)
+            st = ks._stream(args[0])
+            got = ks.stack_fwd_tails(*args)
+            want = sk.stack_fwd_tails_plain(*args)
+            errs = {}
+            for name, u, w in zip(("skip", "ckpt"), got, want):
+                check(u.dtype == f32, f"stack_fwd_tails_f32 {label} {name} "
+                      f"is {u.dtype}")
+                errs[name] = _err(u, w)
+                check(errs[name] <= F32_BARS["fwd"] * _scale(w),
+                      f"stack_fwd_tails_f32 {label} {name}: max err "
+                      f"{errs[name]:.3g}, scale {_scale(w):.3g}")
+            ckpt = want[1]
+            del got, want
+            bfa = (args[0].to(bf), args[1].to(bf), *args[2:])
+            rec[("stack_fwd_tails_f32", label)] = dict(
+                errs=errs, max_abs_err=max(errs.values()),
+                ms=time_cuda(torch, lambda: ks.run_fwd_tails(
+                    lib, *args, stream=st), 3),
+                bf16_ms=time_cuda(torch, lambda: ks.run_fwd_tails(
+                    lib, *bfa, stream=st), 3),
+                plain_ms=time_cuda(
+                    torch, lambda: sk.stack_fwd_tails_plain(*args), 1))
+            dskip = rn(b, t, s, scale=1e-3)
+            bargs = (args[0], ckpt, *args[1:-1], dskip, dil)
+            got = ks.stack_bwd_tails(*bargs)
+            want = sk.stack_bwd_tails_plain(*bargs)
+            errs = {}
+            for name, u, w in zip(("dx", "dctx", "db_fg", "dw_fg",
+                                   "dw_out", "db_out"), got, want):
+                check(u.dtype == f32, f"stack_bwd_tails_f32 {label} {name} "
+                      f"is {u.dtype}")
+                errs[name] = _err(u, w)
+                check(errs[name] <= F32_BARS["bwd"] * _scale(w),
+                      f"stack_bwd_tails_f32 {label} {name}: max err "
+                      f"{errs[name]:.3g}, scale {_scale(w):.3g}")
+            del got, want
+            _, ckpt_bf = ks.run_fwd_tails(lib, *bfa, stream=st)
+            bfb = (bfa[0], ckpt_bf, *bfa[1:-1], dskip.to(bf), dil)
+            rec[("stack_bwd_tails_f32", label)] = dict(
+                errs=errs, max_abs_err=max(errs.values()),
+                ms=time_cuda(torch, lambda: ks.run_bwd_tails(
+                    lib, *bargs, stream=st), 3),
+                bf16_ms=time_cuda(torch, lambda: ks.run_bwd_tails(
+                    lib, *bfb, stream=st), 3),
+                plain_ms=time_cuda(
+                    torch, lambda: sk.stack_bwd_tails_plain(*bargs), 1))
+            if label == "flagship":
+                print(grid_line("f32 kernel stack_bwd_tails_f32 flagship",
+                                by_grid(torch, lambda: ks.run_bwd_tails(
+                                    lib, *bargs, stream=st),
+                                    F32_TAILS_GRIDS)), flush=True)
+            del args, bfa, bargs, bfb, ckpt, ckpt_bf
+        bounds = tails_bounds(b, t, n, r, s, win, sk.tails_every(n), act=4)
+        for name in F32_TAILS_KERNELS:
+            rec[(name, label)]["bound"] = bounds[name[:-4]]
+    hlib = kh.library()
+    for s, c, b in F32_WIDE_HEADS:
+        label = f"S={s} C={c} B={b}"
+        g = torch.Generator(device="cuda").manual_seed(s * c + b)
+        rf = 3072
+        n_valid = b * (t - rf)
+
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+
+        codes = torch.randint(0, c, (b, t), generator=g, device="cuda",
+                              dtype=torch.int32)
+        prev = torch.cat([torch.full_like(codes[:, :1], -1), codes[:, :-1]],
+                         1)
+        pack = torch.cat([codes, prev, torch.roll(codes, -1, 1)],
+                         0).t().contiguous()
+        with torch.no_grad():
+            skip = rn(b, t, s)
+            hargs = (skip, pack, rn(s, c, scale=0.25), rn(c, scale=0.1),
+                     rn(c, c, scale=2.5 / c ** 0.5), rn(c, scale=0.1), rf,
+                     True, 2 * b)
+            hst = kh._stream(skip)
+            loss, match, p = kh.head_fwd(*hargs)
+            wl, wm, wp = hl.head_fwd_plain(*hargs)
+            errs = {"loss": abs(float(loss) - float(wl)) / abs(float(wl)),
+                    "match": abs(float(match) - float(wm)),
+                    "p": _err(p, wp)}
+            check(errs["loss"] <= F32_BARS["loss"],
+                  f"head_fwd_f32_wide {label}: loss {float(loss)} vs plain "
+                  f"{float(wl)}")
+            check(errs["match"] <= F32_BARS["match"] * n_valid,
+                  f"head_fwd_f32_wide {label}: match {float(match)} vs "
+                  f"plain {float(wm)} of {n_valid} rows")
+            check(errs["p"] <= F32_BARS["p"], f"head_fwd_f32_wide {label}: "
+                  f"p max err {errs['p']:.3g}")
+            del p
+            bfh = (skip.to(bf), *hargs[1:])
+            rec[("head_fwd_f32_wide", label)] = dict(
+                errs=errs, max_abs_err=errs["p"],
+                ms=time_cuda(torch, lambda: kh.run_fwd(hlib, *hargs,
+                                                       stream=hst), 3),
+                bf16_ms=time_cuda(torch, lambda: kh.run_fwd(hlib, *bfh,
+                                                            stream=hst), 3),
+                plain_ms=time_cuda(torch, lambda: hl.head_fwd_plain(*hargs),
+                                   1))
+            dloss = torch.tensor(1.0 / n_valid, device="cuda")
+            hb = (skip, pack, wp, *hargs[2:6], rf, True, dloss, 2 * b)
+            bar = F32_BARS["head_bwd"]
+            errs = _check_grads(f"head_bwd_f32_wide {label}",
+                                kh.head_bwd(*hb), hl.head_bwd_plain(*hb),
+                                dict(dskip=bar, dw1=bar, db1=bar, dw2=bar,
+                                     db2=bar))
+            bfhb = (skip.to(bf), pack, wp, *hargs[2:6], rf, True, dloss,
+                    2 * b)
+            rec[("head_bwd_f32_wide", label)] = dict(
+                errs=errs, max_abs_err=max(errs.values()),
+                ms=time_cuda(torch, lambda: kh.run_bwd(hlib, *hb,
+                                                       stream=hst), 3),
+                bf16_ms=time_cuda(torch, lambda: kh.run_bwd(hlib, *bfhb,
+                                                            stream=hst), 3),
+                plain_ms=time_cuda(torch, lambda: hl.head_bwd_plain(*hb), 1))
+            if (s, c, b) == F32_WIDE_HEADS[0]:
+                print(grid_line(f"f32 kernel head_bwd_f32_wide {label}",
+                                by_grid(torch, lambda: kh.run_bwd(
+                                    hlib, *hb, stream=hst),
+                                    F32_TAILS_GRIDS)), flush=True)
+            del wp, hb, bfh, bfhb, skip
+        bounds = train_bounds(b, t, 1, 8, s, c, c, 16, False, act=4,
+                              peak=TF32_OPS_S)
+        for name in F32_WIDE_KERNELS:
+            rec[(name, label)]["bound"] = bounds[name[:8]]
+    for (name, label), r in rec.items():
+        shape = label
+        if label in F32_TAILS_SHAPES:
+            b, dil, rr, s = F32_TAILS_SHAPES[label]
+            shape = (f"{label}: B={b}, T=160000, L={len(dil)}, R={rr}, "
+                     f"S={s}, flat ctx")
+        print(f"f32 kernel {name} {shape} (float32) vs plain: "
+              + ", ".join(f"{k} {x:.3g}" for k, x in r["errs"].items())
+              + f"; kernel {r['ms']:.3f} ms, bf16 form {r['bf16_ms']:.3f} "
+              f"ms, plain (TF32 off) {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound'][0]:.3f} ms ({r['bound'][1]})", flush=True)
+    return rec
+
+
+def f32_routes(torch, np, mc, run, batch, fused_want, label):
+    """From checkpoint 0 of ``run``: one loss + backward through the fused
+    route, which must launch exactly ``fused_want``, and through the
+    unfused route (``window_logits``: torch ops, TF32 off), which must
+    launch no training kernel; their losses, grad norms and every leaf
+    within F32_ROUTE_BARS.  Returns (errs, the unfused route's peak GB)."""
+    from movenet_tpu_torch.models.convert import load_jax_params
+    from movenet_tpu_torch.models.wavenet import make_wavenet
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.train import loop
+    from movenet_tpu_torch.train.checkpoint import restore_params
+
+    mods = (ks, kh, kg)
+    tree, _ = restore_params(run, 0)
+    model = load_jax_params(make_wavenet(mc), tree).to("cuda")
+    batch = batch.to("cuda")
+    parity = mc.parity_softmax_output
+    routes = {}
+    for fused in (True, False):
+        model.zero_grad(set_to_none=True)
+        for mod in mods:
+            mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = loop._loss_and_metrics(model, parity, fused)(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {k: q.grad.detach().clone()
+                 for k, q in model.named_parameters() if q.grad is not None}
+        routes[fused] = dict(
+            loss=float(loss.detach()), grads=grads,
+            norm=float(torch.sqrt(sum((x.double() ** 2).sum()
+                                      for x in grads.values()))),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches={k: v for mod in mods
+                      for k, v in mod.launch_counts.items()})
+        del loss
+    f, u = routes[True], routes[False]
+    want = {k: 0 for k in f["launches"]}
+    check(u["launches"] == want, f"{label}: unfused route launches "
+          f"{u['launches']}")
+    want.update(fused_want)
+    check(f["launches"] == want, f"{label}: fused route launches "
+          f"{f['launches']}")
+    check(set(f["grads"]) == set(u["grads"]), "gradient leaves differ")
+    errs = {"loss": abs(f["loss"] - u["loss"]) / abs(u["loss"]),
+            "grad_norm": abs(f["norm"] - u["norm"]) / u["norm"]}
+    check(errs["loss"] <= F32_ROUTE_BARS["loss"],
+          f"{label}: fused loss {f['loss']} vs unfused {u['loss']}")
+    check(errs["grad_norm"] <= F32_ROUTE_BARS["grad_norm"],
+          f"{label}: fused grad_norm {f['norm']} vs unfused {u['norm']}")
+    leaf, leaf_name = 0.0, ""
+    for k, gu in u["grads"].items():
+        e = _err(f["grads"][k], gu) / max(_scale(gu), 1e-30)
+        check(e <= F32_ROUTE_BARS["leaf"], f"{label}: fused vs unfused "
+              f"gradient {k}: {e:.3g} of its scale")
+        if e > leaf:
+            leaf, leaf_name = e, k
+    errs["leaf"] = leaf
+    print(f"{label}: loss {f['loss']:.8f} vs {u['loss']:.8f} (relative "
+          f"{errs['loss']:.3g}), grad_norm {f['norm']:.8g} vs "
+          f"{u['norm']:.8g} (relative {errs['grad_norm']:.3g}), largest "
+          f"leaf difference {leaf:.3g} of its scale ({leaf_name}); peak "
+          f"memory fused {f['peak_gb']:.3f} GB, unfused {u['peak_gb']:.3f} "
+          "GB", flush=True)
+    del model, routes
+    torch.cuda.empty_cache()
+    return errs, u["peak_gb"]
+
+
+def phase_f32_flagship_cli(torch, np, root):
+    """Phase 9g (b, c): the trainer CLI with FLAGSHIP_FLAGS and
+    --compute_dtype float32 for 1 epoch of 4 steps on phase 16's clips: the
+    default strategy resolves to recompute (hsave 2.46 GB in float32), the
+    trunk runs only the float32 recompute forms and the head only the
+    wide float32 forms (the forwards once a train step and validation
+    batch, the backwards once a step), finite losses, the update ms and
+    peak memory.  Then from checkpoint 0's weights and the run's first
+    batch the fused route against the unfused one (``f32_routes``); where
+    the unfused route does not fit the card at B = 2, on the batch's first
+    row.  Returns (launches, record)."""
+    from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.data import kinetics_index
+    from movenet_tpu_torch.models.wavenet import make_wavenet
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    ds = root / "flagship_clips"
+    run, logs = root / "f32_flagship_run", root / "f32_flagship_logs"
+    argv = ["--dataset", str(ds), *FLAGSHIP_FLAGS, "--compute_dtype",
+            "float32", "--n_epochs", "1", "--n_steps_per_epoch", "4",
+            "--val_batch_size", "2", "--model_output_path", str(run),
+            "--logger", "jsonl", "--training_logs_path", str(logs)]
+    cfg = config_from_args(arg_parser().parse_args(argv))
+    mc = cfg.model_config
+    dil = tuple(make_wavenet(mc).dilations)
+    strategy = sk.resolve_strategy(
+        "auto", (cfg.batch_size, mc.max_audio_frames, mc.residual_channels),
+        len(dil), dil, 4)
+    check(strategy == "recompute", f"float32 flagship: strategy {strategy}")
+    n_val = len(kinetics_index(ds, train=False)) // 2
+    mods = (ks, kh, kg)
+    for mod in mods:
+        mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_train_steps(torch, record=1) as steps:
+        state = trainer_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: v for mod in mods for k, v in mod.launch_counts.items()}
+    want = {k: 0 for k in launches}
+    want.update(stack_fwd_tails_f32=4 + n_val, stack_bwd_tails_f32=4,
+                head_fwd_f32_wide=4 + n_val, head_bwd_f32_wide=4)
+    check(launches == want, f"float32 flagship CLI launches {launches}, "
+          f"expected {want}")
+    check(state.step == 4, f"float32 flagship CLI took {state.step} steps")
+    lines = [json.loads(l) for l in (logs / "metrics.jsonl").read_text()
+             .splitlines()]
+    losses = [l["loss"] for l in lines if l["tag"] in ("train", "val")]
+    check(losses and all(np.isfinite(losses)),
+          f"float32 flagship losses {losses}")
+    median = float(np.median(steps.ms[1:]))
+    print(f"f32 flagship trainer CLI ({' '.join(FLAGSHIP_FLAGS)} "
+          f"--compute_dtype float32; strategy {strategy}): 4 steps + {n_val}"
+          f" validation batches in {wall:.1f} s; step ms "
+          f"{[round(v, 2) for v in steps.ms]} (median after the first "
+          f"{median:.2f}); peak memory {peak_gb:.3f} GB; losses "
+          f"{[round(v, 6) for v in losses]}; launches {launches}",
+          flush=True)
+    del state
+    torch.cuda.empty_cache()
+    fused_want = dict(stack_fwd_tails_f32=1, stack_bwd_tails_f32=1,
+                      head_fwd_f32_wide=1, head_bwd_f32_wide=1)
+    batch, rows = steps.batches[0], 2
+    try:
+        errs, unfused_gb = f32_routes(
+            torch, np, mc, run, batch, fused_want,
+            "f32 flagship fused vs unfused (checkpoint 0, the run's first "
+            "batch, B=2, T=160000)")
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        rows = 1
+        # the first row; its codes pack formed again from its codes
+        one = type(batch)(codes=batch.codes[:1],
+                          video=None if batch.video is None
+                          else batch.video[:1],
+                          labels=None if batch.labels is None
+                          else batch.labels[:1])
+        errs, unfused_gb = f32_routes(
+            torch, np, mc, run, one, fused_want,
+            "f32 flagship fused vs unfused (checkpoint 0, the first row of "
+            "the run's first batch: the unfused route does not fit the "
+            "card at B=2)")
+    return launches, dict(step_ms=median, ms=steps.ms, peak_gb=peak_gb,
+                          wall_s=wall, errs=errs, rows=rows,
+                          unfused_gb=unfused_gb)
+
+
 PACKED_KERNELS = {
     "head_fwd_packed": ("movenet_tpu_torch/csrc/head_loss.cu",
                         "movenet_tpu/ops/pallas/head_loss.py:169"),
@@ -3555,6 +3887,10 @@ def main() -> int:
                                                          e2_batch)
         rvs = phase_recompute_vs_save(torch, np, e2_model, e2_batch)
         del e2_model, e2_batch
+        phase = "9g (a) float32 recompute and wide head kernels vs plain"
+        t0 = time.perf_counter()
+        f32_tails_recs = phase_f32_tails_kernels(torch, np)
+        f32g_s = time.perf_counter() - t0
 
         phase = "merged head"
         t0 = time.perf_counter()
@@ -3590,6 +3926,14 @@ def main() -> int:
             flag_cli = phase_flagship_cli(torch, np, Path(tmp))
             for k in TAILS_KERNELS:
                 launches[k] += flag_cli["launches"][k]
+            phase = "9g (b, c) float32 flagship trainer CLI"
+            t0 = time.perf_counter()
+            f32g_launches, f32g_cli = phase_f32_flagship_cli(torch, np,
+                                                             Path(tmp))
+            f32g_s += time.perf_counter() - t0
+            for k in {**F32_TAILS_KERNELS, **F32_WIDE_KERNELS}:
+                launches[k] = f32g_launches[k]
+            print(f"phase 9g: {f32g_s:.1f} s", flush=True)
 
         phase = "packed head"
         packed_recs, packed_launches = phase_packed_head(torch, np, bd_model,
@@ -3689,6 +4033,16 @@ def main() -> int:
         print(f"time f32 trainer CLI (experiment 02 flags, float32): update "
               f"{f32_cli['step_ms']:.2f} ms (median after the first), peak "
               f"memory {f32_cli['peak_gb']:.3f} GB; {card}", flush=True)
+        for (name, label), r in f32_tails_recs.items():
+            print(f"time {name} {label}: kernel {r['ms']:.3f} ms, bf16 form "
+                  f"{r['bf16_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                  f"bound {r['bound'][0]:.3f} ms; {card}", flush=True)
+        print(f"time f32 flagship trainer CLI (float32, recompute, C=256): "
+              f"update {f32g_cli['step_ms']:.2f} ms (median after the "
+              f"first; bf16 {flag_cli['step_ms']:.2f} ms), peak memory "
+              f"{f32g_cli['peak_gb']:.3f} GB; the unfused route's loss + "
+              f"backward on {f32g_cli['rows']} row(s) peaked at "
+              f"{f32g_cli['unfused_gb']:.3f} GB; {card}", flush=True)
         audio_only = {r["label"]: r for r in records}
         for r in records:
             beside = ""
@@ -3868,10 +4222,40 @@ def main() -> int:
                     for (n, label), x in f32_recs.items()
                     if n == name and label != "exp02"
                     for b_, dil, r_, s_, v_ in [F32_SHAPES[label]]]})
+        main_shape = {"stack_fwd_tails_f32": "flagship",
+                      "stack_bwd_tails_f32": "flagship",
+                      "head_fwd_f32_wide": "S=64 C=256 B=2",
+                      "head_bwd_f32_wide": "S=64 C=256 B=2"}
+        for name, (source, replaces) in {**F32_TAILS_KERNELS,
+                                         **F32_WIDE_KERNELS}.items():
+            r = f32_tails_recs[(name, main_shape[name])]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces + " (float32"
+                + (", C = 256)" if "wide" in name else ")"),
+                "launches": launches[name],
+                "max_abs_err": max(x["max_abs_err"] for (n, _), x in
+                                   f32_tails_recs.items() if n == name),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None, "matches_plain": True,
+                "bf16_ms": r["bf16_ms"],
+                "shape": ("flagship: B=2, T=160000, L=30 (dilations 1..512 "
+                          "x 3), R=S=64, float32, flat ctx"
+                          if "tails" in name else
+                          "S=64, C=256, B=2, T=160000, float32, parity CE")
+                + " (max_abs_err over the widths)",
+                "widths": [dict(
+                    shape=label, ms=x["ms"], bf16_ms=x["bf16_ms"],
+                    plain_ms=x["plain_ms"], max_abs_err=x["max_abs_err"],
+                    bound_ms=x["bound"][0], bound_by=x["bound"][1])
+                    for (n, label), x in f32_tails_recs.items()
+                    if n == name and label != main_shape[name]]})
         # every form of the fourteen TPU kernel functions: the AR kernel's
         # four and the speculative kernel's two, the ten training kernels,
-        # the two packed ones and the four float32 forms
-        check(len(kernels) == 22, f"{len(kernels)} kernels in the line")
+        # the two packed ones, the four float32 save and C <= 128 head
+        # forms and the four float32 recompute and wide head forms
+        check(len(kernels) == 26, f"{len(kernels)} kernels in the line")
         check(all(k["launches"] > 0 for k in kernels),
               "a kernel of the path was not launched")
         print(json.dumps({"kernels": kernels}))

@@ -1624,8 +1624,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // _fwd_kernel and :336 _bwd_kernel, whose roundings to in_dtype do nothing
 // in float32): skip, p and dskip float32, and every product with float32
 // operands as split-TF32 mma.sync m16n8k8 in three passes (no operand is
-// exact in TF32).  4 <= S <= 64 and 4 <= C <= 128, multiples of 4: W2 in
-// float32 at C = 256 alone takes 270 KB of shared memory (ROADMAP.md B.4).
+// exact in TF32).  4 <= S <= 64 and 4 <= C <= 128, multiples of 4, here;
+// above C = 128 the wide kernels below, whose W2 streams through a ring.
 // The design is the bf16 unpacked kernels' with float32 tiles and the
 // packed kernels' fragments: a block of 8 warps stages W1 and W2 once as
 // float32 (SP and CP: S and C rounded up to 8, zero-padded; rows of 8 mod
@@ -1742,12 +1742,14 @@ __device__ float exact_y_f32(const float* lrow, const float* w1s, int ld,
 
 // The first argmax of one row's logits formed as the plain version forms
 // them: y (exact_y_f32 + b1), leaky, then z the same way; lrow is the row's
-// leaky(skip), scr CP floats of the warp.  Warp-collective; every lane
-// returns the column.
+// leaky(skip), scr CP floats of the warp.  W2's element (k, c) lies at
+// w2[wrow(k) * ld2 + c] (staged in shared memory) or, with !w2_wrow, at
+// w2[k * ld2 + c] (the wide kernels read it from global memory).
+// Warp-collective; every lane returns the column.
 __device__ int exact_argmax_f32(const float* lrow, const float* w1s,
-                                const float* w2s, const float* b1,
+                                const float* w2, const float* b1,
                                 const float* b2, float* scr, int S, int C,
-                                int ld) {
+                                int ld, int ld2, bool w2_wrow) {
   const int lane = threadIdx.x & 31;
   for (int c = lane; c < C; c += 32)
     scr[c] = leaky(exact_y_f32(lrow, w1s, ld, S, c) + b1[c]);
@@ -1757,7 +1759,7 @@ __device__ int exact_argmax_f32(const float* lrow, const float* w1s,
   for (int c = lane; c < C; c += 32) {
     float acc = 0.f;
     for (int k = 0; k < C; ++k)
-      acc = fmaf(scr[k], w2s[wrow(k) * ld + c], acc);
+      acc = fmaf(scr[k], w2[(w2_wrow ? wrow(k) : k) * ld2 + c], acc);
     acc += b2[c];
     if (acc > v) {   // c rises: the first of equal maxima stays
       v = acc;
@@ -1775,6 +1777,154 @@ __device__ int exact_argmax_f32(const float* lrow, const float* w1s,
     }
   }
   return col;
+}
+
+// The forward's rows from z (without b2; NT n tiles, the first nt of
+// them) of a warp's slab [r0 - g, + 16): the two largest logits and the
+// first argmax of each row, the NLL, p; near-tied rows take the argmax of
+// exact_argmax_f32; loss and match gain the valid rows (lanes q = 0) and p
+// is stored (a.p_out).
+template <int NT>
+__device__ __forceinline__ void fwd_rows_f32(
+    const HeadArgs& a, float (&z)[NT][4], int nt, long r0, long hi,
+    const float* lsk, int lds, const float* w1s, int ldc, const float* w2,
+    int ld2, bool w2_wrow, const float* b1, const float* b2, float* scr,
+    float& loss, float& match) {
+  const int C = a.c, S = a.s;
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  // per row (h: rows r0, r0 + 8): the two largest logits, the first
+  // argmax, z at the target
+  int tg[2], am[2] = {C, C};
+  float mx[2] = {-INFINITY, -INFINITY}, m2[2] = {-INFINITY, -INFINITY};
+  float zt[2] = {0.f, 0.f};
+  tg[0] = r0 < hi ? target_of(a, r0) : -1;
+  tg[1] = r0 + 8 < hi ? target_of(a, r0 + 8) : -1;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+      if (j < nt && col < C) {
+        const float v = z[j][e] + b2[col];
+        z[j][e] = v;
+        if (v > mx[h]) {
+          m2[h] = mx[h];
+          mx[h] = v;
+          am[h] = col;
+        } else if (v > m2[h]) {
+          m2[h] = v;
+        }
+        if (col == tg[h]) zt[h] = v;
+      }
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, mx[h], off);
+      const float o2 = __shfl_xor_sync(0xffffffffu, m2[h], off);
+      const int oa = __shfl_xor_sync(0xffffffffu, am[h], off);
+      const float second = fmaxf(fmaxf(m2[h], o2), fminf(mx[h], om));
+      if (om > mx[h] || (om == mx[h] && oa < am[h])) {
+        mx[h] = om;
+        am[h] = oa;
+      }
+      m2[h] = second;
+    }
+    zt[h] = quad_sum(zt[h]);
+  }
+  float es[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+      const float v = j < nt && col < C ? expf(z[j][e] - mx[h]) : 0.f;
+      z[j][e] = v;
+      es[h] += v;
+    }
+  es[0] = quad_sum(es[0]);
+  es[1] = quad_sum(es[1]);
+  // p (times the row's reciprocal: no division, and so no branch, per
+  // element), and for parity sum exp(p) and p at the target
+  const float inv[2] = {1.f / es[0], 1.f / es[1]};
+  float sep[2] = {0.f, 0.f}, pt[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+      if (j < nt && col < C) {
+        const float p = z[j][e] * inv[h];
+        z[j][e] = p;
+        if (a.parity) {
+          sep[h] += expf(p);
+          if (col == tg[h]) pt[h] = p;
+        }
+      }
+    }
+  bool take[2], tie[2];
+  float nll[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long r = r0 + 8 * h;
+    nll[h] = a.parity ? logf(quad_sum(sep[h])) - quad_sum(pt[h])
+                      : logf(es[h]) + mx[h] - zt[h];
+    take[h] = q == 0 && r < hi && valid_row(a, r);
+    tie[h] = take[h] && mx[h] - m2[h] <= kTieMargin * (1.f + fabsf(mx[h]));
+  }
+  // near-tied rows: the argmax of the plain version's logits, the warp
+  // on one row at a time
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    unsigned ties = __ballot_sync(0xffffffffu, tie[h]);
+    while (ties) {
+      const int src = __ffs(ties) - 1, row = (src >> 2) + 8 * h;
+      ties &= ties - 1;
+      const int col = exact_argmax_f32(lsk + row * lds, w1s, w2, b1, b2, scr,
+                                       S, C, ldc, ld2, w2_wrow);
+      if (g == (src >> 2)) am[h] = col;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (take[h]) {
+      loss += nll[h];
+      match += am[h] == tg[h] ? 1.f : 0.f;
+    }
+  if (a.p_out) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = 8 * j + 2 * q;
+      if (j < nt && col < C) {
+        if (r0 < hi)
+          *reinterpret_cast<float2*>(a.p_out + r0 * C + col) =
+              make_float2(z[j][0], z[j][1]);
+        if (r0 + 8 < hi)
+          *reinterpret_cast<float2*>(a.p_out + (r0 + 8) * C + col) =
+              make_float2(z[j][2], z[j][3]);
+      }
+    }
+  }
+}
+
+// The block's loss and match sums, in thread order, into its partial
+// (red: 2 kThreads floats of shared memory)
+__device__ __forceinline__ void block_sums_f32(const HeadArgs& a, float* red,
+                                               float loss, float match) {
+  const int tid = threadIdx.x;
+  red[tid] = loss;
+  red[kThreads + tid] = match;
+  __syncthreads();
+  if (tid == 0) {
+    float sl = 0.f, sm = 0.f;
+    for (int i = 0; i < kThreads; ++i) {
+      sl += red[i];
+      sm += red[kThreads + i];
+    }
+    a.part[2 * blockIdx.x] = sl;
+    a.part[2 * blockIdx.x + 1] = sm;
+  }
 }
 
 // Forward.  NT: n tiles of z held (CP <= 8 NT).
@@ -1836,134 +1986,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           mma_split_add<true>(z[jn], fa, fb);
         }
     }
-    // per row (h: rows r0, r0 + 8): the two largest logits, the first
-    // argmax, z at the target
-    int tg[2], am[2] = {C, C};
-    float mx[2] = {-INFINITY, -INFINITY}, m2[2] = {-INFINITY, -INFINITY};
-    float zt[2] = {0.f, 0.f};
-    tg[0] = r0 < hi ? target_of(a, r0) : -1;
-    tg[1] = r0 + 8 < hi ? target_of(a, r0 + 8) : -1;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
-        if (j < nt && col < C) {
-          const float v = z[j][e] + b2[col];
-          z[j][e] = v;
-          if (v > mx[h]) {
-            m2[h] = mx[h];
-            mx[h] = v;
-            am[h] = col;
-          } else if (v > m2[h]) {
-            m2[h] = v;
-          }
-          if (col == tg[h]) zt[h] = v;
-        }
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float om = __shfl_xor_sync(0xffffffffu, mx[h], off);
-        const float o2 = __shfl_xor_sync(0xffffffffu, m2[h], off);
-        const int oa = __shfl_xor_sync(0xffffffffu, am[h], off);
-        const float second = fmaxf(fmaxf(m2[h], o2), fminf(mx[h], om));
-        if (om > mx[h] || (om == mx[h] && oa < am[h])) {
-          mx[h] = om;
-          am[h] = oa;
-        }
-        m2[h] = second;
-      }
-      zt[h] = quad_sum(zt[h]);
-    }
-    float es[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
-        const float v = j < nt && col < C ? expf(z[j][e] - mx[h]) : 0.f;
-        z[j][e] = v;
-        es[h] += v;
-      }
-    es[0] = quad_sum(es[0]);
-    es[1] = quad_sum(es[1]);
-    // p (times the row's reciprocal: no division, and so no branch, per
-    // element), and for parity sum exp(p) and p at the target
-    const float inv[2] = {1.f / es[0], 1.f / es[1]};
-    float sep[2] = {0.f, 0.f}, pt[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
-        if (j < nt && col < C) {
-          const float p = z[j][e] * inv[h];
-          z[j][e] = p;
-          if (a.parity) {
-            sep[h] += expf(p);
-            if (col == tg[h]) pt[h] = p;
-          }
-        }
-      }
-    bool take[2], tie[2];
-    float nll[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long r = r0 + 8 * h;
-      nll[h] = a.parity ? logf(quad_sum(sep[h])) - quad_sum(pt[h])
-                        : logf(es[h]) + mx[h] - zt[h];
-      take[h] = q == 0 && r < hi && valid_row(a, r);
-      tie[h] = take[h] && mx[h] - m2[h] <= kTieMargin * (1.f + fabsf(mx[h]));
-    }
-    // near-tied rows: the argmax of the plain version's logits, the warp
-    // on one row at a time
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      unsigned ties = __ballot_sync(0xffffffffu, tie[h]);
-      while (ties) {
-        const int src = __ffs(ties) - 1, row = (src >> 2) + 8 * h;
-        ties &= ties - 1;
-        const int col = exact_argmax_f32(lsk + row * lds, w1s, w2s, b1, b2,
-                                         scr, S, C, ldc);
-        if (g == (src >> 2)) am[h] = col;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (take[h]) {
-        loss += nll[h];
-        match += am[h] == tg[h] ? 1.f : 0.f;
-      }
-    if (a.p_out) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = 8 * j + 2 * q;
-        if (j < nt && col < C) {
-          if (r0 < hi)
-            *reinterpret_cast<float2*>(a.p_out + r0 * C + col) =
-                make_float2(z[j][0], z[j][1]);
-          if (r0 + 8 < hi)
-            *reinterpret_cast<float2*>(a.p_out + (r0 + 8) * C + col) =
-                make_float2(z[j][2], z[j][3]);
-        }
-      }
-    }
+    fwd_rows_f32<NT>(a, z, nt, r0, hi, lsk, lds, w1s, ldc, w2s, ldc, true,
+                     b1, b2, scr, loss, match);
   }
-  // block sums, in thread order
-  red[tid] = loss;
-  red[kThreads + tid] = match;
-  __syncthreads();
-  if (tid == 0) {
-    float sl = 0.f, sm = 0.f;
-    for (int i = 0; i < kThreads; ++i) {
-      sl += red[i];
-      sm += red[kThreads + i];
-    }
-    a.part[2 * blockIdx.x] = sl;
-    a.part[2 * blockIdx.x + 1] = sm;
-  }
+  block_sums_f32(a, red, loss, match);
 }
 
 // C fragments of rows [m0, m0 + 16) of N n tiles (the first n of them) to
@@ -1986,6 +2012,199 @@ __device__ __forceinline__ void store_rows_f32(float* x, int ld, long m0,
     }
 }
 
+// The backward's y of a warp's slab (NT n tiles, the first nt of them):
+// rebuilt on the tensor cores from its leaky(skip) rows lsk, each element
+// within kTieMargin of zero formed again in the plain version's order
+// (dleaky reads its sign: a flip moves that dy by 100x); y > 0 as bit 4 j
+// + e (n tile j, element e) of yp, leaky(y) stored to a.ly_f, and y left
+// as leaky(y).
+template <int NT>
+__device__ __forceinline__ void rebuild_y_f32(const HeadArgs& a,
+                                              float (&y)[NT][4],
+                                              unsigned (&yp)[(NT + 7) / 8],
+                                              int nt, long m0, long hi,
+                                              const float* lsk, int lds,
+                                              const float* w1s, int ldc,
+                                              const float* b1) {
+  const int S = a.s, C = a.c;
+  const F32Head L(S, C);
+  const int SP = L.sp, CP = L.cp;
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[j][e] = 0.f;
+    if (j < nt) {
+      for (int k0 = 0; k0 < SP; k0 += 8) {
+        Frag<4> fa;
+        f32_a_rows(lsk, lds, k0, fa);
+        Frag<2> fb;
+        f32_b_w(w1s, ldc, k0, 8 * j, fb);
+        mma_split_add<true>(y[j], fa, fb);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[j][e] += b1[8 * j + 2 * q + (e & 1)];
+    }
+  }
+  float ymax[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ymax[e >> 1] = fmaxf(ymax[e >> 1], fabsf(y[j][e]));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    ymax[h] = fmaxf(ymax[h], __shfl_xor_sync(0xffffffffu, ymax[h], 1));
+    ymax[h] = fmaxf(ymax[h], __shfl_xor_sync(0xffffffffu, ymax[h], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * q + (e & 1);
+      if (j < nt && c < C &&
+          fabsf(y[j][e]) <= kTieMargin * (1.f + ymax[e >> 1]))
+        y[j][e] = exact_y_f32(lsk + (g + 8 * (e >> 1)) * lds, w1s, ldc, S,
+                              c) + b1[c];
+    }
+#pragma unroll
+  for (int i = 0; i < (NT + 7) / 8; ++i) yp[i] = 0u;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      yp[j / 8] |= (y[j][e] > 0.f ? 1u : 0u) << (4 * (j % 8) + e);
+      y[j][e] = leaky(y[j][e]);
+    }
+  store_rows_f32<NT>(a.ly_f, CP, m0, hi, nt, y);
+}
+
+// dleaky(y) of n tile j, element e, from the bits of rebuild_y_f32
+template <int NW>
+__device__ __forceinline__ float dleaky_bit(const unsigned (&yp)[NW], int j,
+                                            int e) {
+  return (yp[j / 8] >> (4 * (j % 8) + e)) & 1u ? 1.f : 0.01f;
+}
+
+// dz of a warp's slab from the saved p (read in the C fragment layout;
+// NT n tiles, the first nt of them), times dloss on the valid rows
+template <int NT>
+__device__ __forceinline__ void dz_from_p_f32(const HeadArgs& a,
+                                              float (&d)[NT][4], int nt,
+                                              long r0, long hi, float dloss) {
+  const int C = a.c, q = threadIdx.x & 3;
+  int tg[2];
+  float sc[2];
+  tg[0] = r0 < hi ? target_of(a, r0) : -1;
+  tg[1] = r0 + 8 < hi ? target_of(a, r0 + 8) : -1;
+  sc[0] = r0 < hi && valid_row(a, r0) ? dloss : 0.f;
+  sc[1] = r0 + 8 < hi && valid_row(a, r0 + 8) ? dloss : 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = 8 * j + 2 * q;
+    float2 v0 = make_float2(0.f, 0.f), v1 = v0;
+    if (j < nt && col < C) {
+      if (r0 < hi)
+        v0 = *reinterpret_cast<const float2*>(a.p_in + r0 * C + col);
+      if (r0 + 8 < hi)
+        v1 = *reinterpret_cast<const float2*>(a.p_in + (r0 + 8) * C + col);
+    }
+    d[j][0] = v0.x;
+    d[j][1] = v0.y;
+    d[j][2] = v1.x;
+    d[j][3] = v1.y;
+  }
+  if (a.parity) {
+    // g = softmax(p) - onehot, dz = p g - p (p.g)
+    float es[2] = {0.f, 0.f}, pg[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j < nt && 8 * j + 2 * q + (e & 1) < C)
+          es[e >> 1] += expf(d[j][e]);
+    const float inv[2] = {1.f / quad_sum(es[0]), 1.f / quad_sum(es[1])};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+        if (j < nt && col < C) {
+          const float gv =
+              expf(d[j][e]) * inv[h] - (col == tg[h] ? 1.f : 0.f);
+          pg[h] += d[j][e] * gv;
+        }
+      }
+    pg[0] = quad_sum(pg[0]);
+    pg[1] = quad_sum(pg[1]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+        float v = 0.f;
+        if (j < nt && col < C) {
+          const float p = d[j][e];
+          const float gv = expf(p) * inv[h] - (col == tg[h] ? 1.f : 0.f);
+          v = (p * gv - p * pg[h]) * sc[h];
+        }
+        d[j][e] = v;
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
+        d[j][e] = j < nt && col < C
+                      ? (d[j][e] - (col == tg[h] ? 1.f : 0.f)) * sc[h]
+                      : 0.f;
+      }
+  }
+}
+
+// dskip = ds * dleaky(skip) of a warp's slab (ds: the 8 n tiles of dy
+// W1^T), stored in float32 (leaky(skip) and skip have the same sign)
+__device__ __forceinline__ void store_dskip_f32(const HeadArgs& a,
+                                                const float (&ds)[8][4],
+                                                int ns, long r0, long hi,
+                                                const float* lsk, int lds) {
+  const int S = a.s;
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = 8 * i + 2 * q;
+    if (i < ns && col < S) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long r = r0 + 8 * h;
+        if (r >= hi) continue;
+        const float* lr = lsk + (g + 8 * h) * lds + col;
+        *reinterpret_cast<float2*>(a.dskip_f + r * S + col) = make_float2(
+            ds[i][2 * h] * (lr[0] > 0.f ? 1.f : 0.01f),
+            ds[i][2 * h + 1] * (lr[1] > 0.f ? 1.f : 0.01f));
+      }
+    }
+  }
+}
+
+// The bias gradients of the block's partial from the warps' column sums cs
+// (kWarps, 2, CP: db2 then db1), added in warp order
+__device__ __forceinline__ void bias_partial_f32(const HeadArgs& a,
+                                                 const float* cs, int CP) {
+  const int S = a.s, C = a.c;
+  float* out = a.part + blockIdx.x * a.n_el;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      s2 += cs[w * 2 * CP + c];
+      s1 += cs[w * 2 * CP + CP + c];
+    }
+    out[S * C + c] = s1;
+    out[S * C + C + C * C + c] = s2;
+  }
+}
+
 // Backward: dz, dy, dskip and the bias gradients; leaky(y), dz and dy
 // stored for head_wgrad_f32_kernel.
 template <int NT>
@@ -2000,7 +2219,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* b1 = w2s + CP * ldc;                     // (CP)
   float* cs = b1 + CP;   // (kWarps, 2, CP): each warp's db2, db1 sums
   const int tid = threadIdx.x, warp = tid >> 5;
-  const int g = (tid & 31) >> 2, q = tid & 3;
+  const int g = (tid & 31) >> 2;
   float* lsk = cs + kWarps * 2 * CP + warp * 16 * lds;   // (16, lds)
   stage_w_f32(a.w1, S, C, SP, CP, w1s, ldc);
   stage_w_f32(a.w2, C, C, CP, CP, w2s, ldc);
@@ -2016,126 +2235,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (long m0 = lo + 16 * warp; m0 < hi; m0 += 16 * kWarps) {
     const long r0 = m0 + g;
     stage_lskip_f32(a.skip_f, S, SP, m0, hi, lsk, lds);
-    // y rebuilt
     float y[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) y[j][e] = 0.f;
-      if (j < nt) {
-        for (int k0 = 0; k0 < SP; k0 += 8) {
-          Frag<4> fa;
-          f32_a_rows(lsk, lds, k0, fa);
-          Frag<2> fb;
-          f32_b_w(w1s, ldc, k0, 8 * j, fb);
-          mma_split_add<true>(y[j], fa, fb);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) y[j][e] += b1[8 * j + 2 * q + (e & 1)];
-      }
-    }
-    // y near zero formed again in the plain version's order (kTieMargin)
-    float ymax[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ymax[e >> 1] = fmaxf(ymax[e >> 1], fabsf(y[j][e]));
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ymax[h] = fmaxf(ymax[h], __shfl_xor_sync(0xffffffffu, ymax[h], 1));
-      ymax[h] = fmaxf(ymax[h], __shfl_xor_sync(0xffffffffu, ymax[h], 2));
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * q + (e & 1);
-        if (j < nt && c < C &&
-            fabsf(y[j][e]) <= kTieMargin * (1.f + ymax[e >> 1]))
-          y[j][e] = exact_y_f32(lsk + (g + 8 * (e >> 1)) * lds, w1s, ldc, S,
-                                c) + b1[c];
-      }
-    // y > 0 as bit 4 j + e (n tile j, element e); leaky(y) stored
-    unsigned long long ypos = 0ull;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ypos |= (y[j][e] > 0.f ? 1ull : 0ull) << (4 * j + e);
-        y[j][e] = leaky(y[j][e]);
-      }
-    store_rows_f32<NT>(a.ly_f, CP, m0, hi, nt, y);
-    // dz from the saved p, read in the C fragment layout
-    int tg[2];
-    float sc[2];
-    tg[0] = r0 < hi ? target_of(a, r0) : -1;
-    tg[1] = r0 + 8 < hi ? target_of(a, r0 + 8) : -1;
-    sc[0] = r0 < hi && valid_row(a, r0) ? dloss : 0.f;
-    sc[1] = r0 + 8 < hi && valid_row(a, r0 + 8) ? dloss : 0.f;
+    unsigned yp[(NT + 7) / 8];
+    rebuild_y_f32<NT>(a, y, yp, nt, m0, hi, lsk, lds, w1s, ldc, b1);
     float d[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = 8 * j + 2 * q;
-      float2 v0 = make_float2(0.f, 0.f), v1 = v0;
-      if (j < nt && col < C) {
-        if (r0 < hi)
-          v0 = *reinterpret_cast<const float2*>(a.p_in + r0 * C + col);
-        if (r0 + 8 < hi)
-          v1 = *reinterpret_cast<const float2*>(a.p_in + (r0 + 8) * C + col);
-      }
-      d[j][0] = v0.x;
-      d[j][1] = v0.y;
-      d[j][2] = v1.x;
-      d[j][3] = v1.y;
-    }
-    if (a.parity) {
-      // g = softmax(p) - onehot, dz = p g - p (p.g)
-      float es[2] = {0.f, 0.f}, pg[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j < nt && 8 * j + 2 * q + (e & 1) < C)
-            es[e >> 1] += expf(d[j][e]);
-      const float inv[2] = {1.f / quad_sum(es[0]), 1.f / quad_sum(es[1])};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
-          if (j < nt && col < C) {
-            const float gv =
-                expf(d[j][e]) * inv[h] - (col == tg[h] ? 1.f : 0.f);
-            pg[h] += d[j][e] * gv;
-          }
-        }
-      pg[0] = quad_sum(pg[0]);
-      pg[1] = quad_sum(pg[1]);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
-          float v = 0.f;
-          if (j < nt && col < C) {
-            const float p = d[j][e];
-            const float gv = expf(p) * inv[h] - (col == tg[h] ? 1.f : 0.f);
-            v = (p * gv - p * pg[h]) * sc[h];
-          }
-          d[j][e] = v;
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * q + (e & 1), h = e >> 1;
-          d[j][e] = j < nt && col < C
-                        ? (d[j][e] - (col == tg[h] ? 1.f : 0.f)) * sc[h]
-                        : 0.f;
-        }
-    }
+    dz_from_p_f32<NT>(a, d, nt, r0, hi, dloss);
     colsum_add<NT>(d, nt, cs2);
     store_rows_f32<NT>(a.dz_f, CP, m0, hi, nt, d);
     // dy = dz W2^T * dleaky(y), into y
@@ -2159,12 +2263,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        y[j][e] *= (ypos >> (4 * j + e)) & 1ull ? 1.f : 0.01f;
+      for (int e = 0; e < 4; ++e) y[j][e] *= dleaky_bit(yp, j, e);
     colsum_add<NT>(y, nt, cs1);
     store_rows_f32<NT>(a.dy_f, CP, m0, hi, nt, y);
-    // dskip = dy W1^T * dleaky(skip) (leaky(skip) and skip have the same
-    // sign)
+    // dskip = dy W1^T * dleaky(skip)
     float ds[8][4];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -2183,35 +2285,236 @@ __global__ void __launch_bounds__(kThreads, 1)
         mma_split_add<true>(ds[i], fa, fb);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int col = 8 * i + 2 * q;
-      if (i < ns && col < S) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long r = r0 + 8 * h;
-          if (r >= hi) continue;
-          const float* lr = lsk + (g + 8 * h) * lds + col;
-          *reinterpret_cast<float2*>(a.dskip_f + r * S + col) = make_float2(
-              ds[i][2 * h] * (lr[0] > 0.f ? 1.f : 0.01f),
-              ds[i][2 * h + 1] * (lr[1] > 0.f ? 1.f : 0.01f));
-        }
-      }
-    }
+    store_dskip_f32(a, ds, ns, r0, hi, lsk, lds);
   }
   __syncthreads();
   // partial: dw1 (S*C) | db1 (C) | dw2 (C*C) | db2 (C); the weight
   // gradients come from head_wgrad_f32_kernel
-  float* out = a.part + blockIdx.x * a.n_el;
-  for (int c = tid; c < C; c += kThreads) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      s2 += cs[w * 2 * CP + c];
-      s1 += cs[w * 2 * CP + CP + c];
-    }
-    out[S * C + c] = s1;
-    out[S * C + C + C * C + c] = s2;
+  bias_partial_f32(a, cs, CP);
+}
+
+// ---------------------- float32 at 128 < C <= 256 (W2 through a ring)
+//
+// The wide float32 kernels (head_fwd_f32_wide_kernel,
+// head_bwd_f32_wide_kernel; 4 <= S <= 64, 128 < C <= 256, multiples of 4):
+// W2 in float32 at C = 256 takes 270 KB with its row padding, more than a
+// block's shared memory, so only W1 is staged once; W2 streams through a
+// ring of two stages of kRing rows (cp.async, at rows wrow(k) as above)
+// that all 8 warps walk in step, a barrier a stage.  The block takes 128
+// rows at a time (a 16-row slab a warp; a warp past the block's rows
+// takes zero rows and still keeps step).  Forward: stage s holds W2's rows
+// [kRing s, + kRing), the k steps of z = leaky(y) W2 whose leaky(y)
+// columns are formed from W1 just then, so z (NT = 32 n tiles, 128
+// registers a lane) is summed in the order of the C <= 128 kernel; the
+// rows' softmax, NLL and argmax are fwd_rows_f32, the plain-order argmax
+// of a near-tied row reading W2 from global memory.  Backward: y rebuilt
+// and dz formed as the C <= 128 kernel forms them (dz held in 128
+// registers); stage s holds the rows of W2 that give dy's columns [kRing
+// s, + kRing): dy = dz W2^T there, times dleaky(y), stored, its column
+// sums added, and dskip += dy W1^T at once (dskip's 8 n tiles in
+// registers).  The weight gradients are head_wgrad_f32_kernel's, as for C
+// <= 128.
+constexpr int kRing = 32;
+
+// The float32 wide kernels' shared memory (ops/cuda/head_loss.f32_smem
+// mirrors it): W1 (SP, ldc) at rows wrow(k), the ring (2, kRing, ldc),
+// then the forward's b1, b2 (CP each), block sums (2, kThreads) and per warp
+// its leaky(skip) rows (16, lds) and a row of CP floats; the backward's b1,
+// the warps' column sums (kWarps, 2, CP) and per warp its leaky(skip)
+// rows.
+struct F32Wide {
+  F32Head h;
+  __host__ __device__ F32Wide(int s, int c) : h(s, c) {}
+  __host__ __device__ size_t ring() const {
+    return static_cast<size_t>(2) * kRing * h.ldc;
   }
+  __host__ __device__ size_t fwd_bytes() const {
+    return 4 * (static_cast<size_t>(h.sp) * h.ldc + ring() + 2 * h.cp +
+                2 * kThreads +
+                static_cast<size_t>(kWarps) * (16 * h.lds + h.cp));
+  }
+  __host__ __device__ size_t bwd_bytes() const {
+    return 4 * (static_cast<size_t>(h.sp) * h.ldc + ring() + h.cp +
+                static_cast<size_t>(kWarps) * 2 * h.cp +
+                static_cast<size_t>(kWarps) * 16 * h.lds);
+  }
+};
+
+// W2's rows [kRing slab, + kRing) into the ring stage dst by cp.async (one
+// commit group), zero past C; the block's threads
+__device__ __forceinline__ void ring_fetch(const float* w2, int C, int CP,
+                                           int ldc, int slab, float* dst) {
+  const int per = CP / 4;
+  for (int i = threadIdx.x; i < kRing * per; i += kThreads) {
+    const int kl = i / per, c4 = 4 * (i % per), k = kRing * slab + kl;
+    const bool ok = k < C && c4 < C;
+    cp_async16(dst + wrow(kl) * ldc + c4, ok ? w2 + k * C + c4 : w2, ok);
+  }
+  cp_async_commit();
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+    head_fwd_f32_wide_kernel(HeadArgs a) {
+  const int S = a.s, C = a.c;
+  const F32Head L(S, C);
+  const int SP = L.sp, CP = L.cp, ldc = L.ldc, lds = L.lds;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* w1s = reinterpret_cast<float*>(smem);   // (SP, ldc) W1, wrow
+  float* ring = w1s + SP * ldc;                   // (2, kRing, ldc) W2 rows
+  float* b1 = ring + 2 * kRing * ldc;             // (CP)
+  float* b2 = b1 + CP;                            // (CP)
+  float* red = b2 + CP;                           // (2, kThreads)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  float* lsk = red + 2 * kThreads + warp * (16 * lds + CP);   // (16, lds)
+  float* scr = lsk + 16 * lds;                                 // (CP)
+  const int nt = CP / 8, nslab = (CP + kRing - 1) / kRing;
+  ring_fetch(a.w2, C, CP, ldc, 0, ring);
+  stage_w_f32(a.w1, S, C, SP, CP, w1s, ldc);
+  for (int i = tid; i < CP; i += kThreads) {
+    b1[i] = i < C ? a.b1[i] : 0.f;
+    b2[i] = i < C ? a.b2[i] : 0.f;
+  }
+  const long lo = blockIdx.x * a.rows_per_block;
+  const long hi = min_l(lo + a.rows_per_block, a.m_total);
+  float loss = 0.f, match = 0.f;   // lanes q = 0, over the block's slabs
+  int it = 0;                      // ring stages taken: stage it & 1
+  for (long mb = lo; mb < hi; mb += 16 * kWarps) {
+    const long m0 = mb + 16 * warp, r0 = m0 + g;
+    stage_lskip_f32(a.skip_f, S, SP, m0, hi, lsk, lds);
+    float z[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[j][e] = 0.f;
+    for (int sl = 0; sl < nslab; ++sl, ++it) {
+      // the stage has landed, and every warp is done with the other one
+      cp_async_wait<0>();
+      __syncthreads();
+      ring_fetch(a.w2, C, CP, ldc, sl + 1 < nslab ? sl + 1 : 0,
+                 ring + ((it + 1) & 1) * kRing * ldc);
+      const float* w2s = ring + (it & 1) * kRing * ldc;
+      for (int jl = 0; jl < kRing / 8; ++jl) {
+        const int j = sl * (kRing / 8) + jl;   // y's n tile, z's k step
+        if (j >= nt) break;
+        float y[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int k0 = 0; k0 < SP; k0 += 8) {
+          Frag<4> fa;
+          f32_a_rows(lsk, lds, k0, fa);
+          Frag<2> fb;
+          f32_b_w(w1s, ldc, k0, 8 * j, fb);
+          mma_split_add<true>(y, fa, fb);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[e] = leaky(y[e] + b1[8 * j + 2 * q + (e & 1)]);
+        Frag<4> fa;
+        a_from_c<true>(y, fa);
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+          if (jn < nt) {
+            Frag<2> fb;
+            f32_b_w(w2s, ldc, 8 * jl, 8 * jn, fb);
+            mma_split_add<true>(z[jn], fa, fb);
+          }
+      }
+    }
+    fwd_rows_f32<NT>(a, z, nt, r0, hi, lsk, lds, w1s, ldc, a.w2, C, false,
+                     b1, b2, scr, loss, match);
+  }
+  // the last stage fetched lands before the block's shared memory goes
+  cp_async_wait<0>();
+  __syncthreads();
+  block_sums_f32(a, red, loss, match);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+    head_bwd_f32_wide_kernel(HeadArgs a) {
+  const int S = a.s, C = a.c;
+  const F32Head L(S, C);
+  const int SP = L.sp, CP = L.cp, ldc = L.ldc, lds = L.lds;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* w1s = reinterpret_cast<float*>(smem);   // (SP, ldc) W1, wrow
+  float* ring = w1s + SP * ldc;                   // (2, kRing, ldc) W2 rows
+  float* b1 = ring + 2 * kRing * ldc;             // (CP)
+  float* cs = b1 + CP;   // (kWarps, 2, CP): each warp's db2, db1 sums
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  float* lsk = cs + kWarps * 2 * CP + warp * 16 * lds;   // (16, lds)
+  const int nt = CP / 8, ns = SP / 8, nslab = (CP + kRing - 1) / kRing;
+  ring_fetch(a.w2, C, CP, ldc, 0, ring);
+  stage_w_f32(a.w1, S, C, SP, CP, w1s, ldc);
+  for (int i = tid; i < CP; i += kThreads) b1[i] = i < C ? a.b1[i] : 0.f;
+  for (int i = tid; i < kWarps * 2 * CP; i += kThreads) cs[i] = 0.f;
+  __syncthreads();
+  float* cs2 = cs + warp * 2 * CP;
+  float* cs1 = cs2 + CP;
+  const float dloss = a.dloss[0];
+  const long lo = blockIdx.x * a.rows_per_block;
+  const long hi = min_l(lo + a.rows_per_block, a.m_total);
+  int it = 0;                      // ring stages taken: stage it & 1
+  for (long mb = lo; mb < hi; mb += 16 * kWarps) {
+    const long m0 = mb + 16 * warp, r0 = m0 + g;
+    stage_lskip_f32(a.skip_f, S, SP, m0, hi, lsk, lds);
+    unsigned yp[(NT + 7) / 8];
+    float d[NT][4];
+    {
+      float y[NT][4];
+      rebuild_y_f32<NT>(a, y, yp, nt, m0, hi, lsk, lds, w1s, ldc, b1);
+    }
+    dz_from_p_f32<NT>(a, d, nt, r0, hi, dloss);
+    colsum_add<NT>(d, nt, cs2);
+    store_rows_f32<NT>(a.dz_f, CP, m0, hi, nt, d);
+    float ds[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[i][e] = 0.f;
+    for (int sl = 0; sl < nslab; ++sl, ++it) {
+      cp_async_wait<0>();
+      __syncthreads();
+      ring_fetch(a.w2, C, CP, ldc, sl + 1 < nslab ? sl + 1 : 0,
+                 ring + ((it + 1) & 1) * kRing * ldc);
+      const float* w2s = ring + (it & 1) * kRing * ldc;
+      for (int jl = 0; jl < kRing / 8; ++jl) {
+        const int jn = sl * (kRing / 8) + jl;   // dy's n tile
+        if (jn >= nt) break;
+        // dy = dz W2^T * dleaky(y) over this n tile
+        float dy[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j >= nt) break;
+          Frag<4> fa;
+          a_from_c<true>(d[j], fa);
+          Frag<2> fb;
+          f32_b_wt(w2s, ldc, 8 * j, 8 * jl, fb);
+          mma_split_add<true>(dy[0], fa, fb);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dy[0][e] *= dleaky_bit(yp, jn, e);
+        colsum_add<1>(dy, 1, cs1 + 8 * jn);
+        store_rows_f32<1>(a.dy_f + 8 * jn, CP, m0, hi, 1, dy);
+        // dskip += dy W1^T over this n tile's k step
+        Frag<4> fa;
+        a_from_c<true>(dy[0], fa);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (i >= ns) break;
+          Frag<2> fb;
+          f32_b_wt(w1s, ldc, 8 * jn, 8 * i, fb);
+          mma_split_add<true>(ds[i], fa, fb);
+        }
+      }
+    }
+    store_dskip_f32(a, ds, ns, r0, hi, lsk, lds);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // partial: dw1 (S*C) | db1 (C) | dw2 (C*C) | db2 (C); the weight
+  // gradients come from head_wgrad_f32_kernel
+  bias_partial_f32(a, cs, CP);
 }
 
 // dW2 = leaky(y)^T dz (blocks x < tiles_n^2) and dW1 = leaky(skip)^T dy
@@ -2405,12 +2708,14 @@ struct BwdLaunch {
   }
 };
 
-// The float32 kernel instance for CP: NT = 4, 8 or 16 n tiles.
+// The float32 kernel instance for CP: NT = 4, 8 or 16 n tiles, or the
+// wide kernels' 32 above 128.
 template <typename F>
 int dispatch_f32(int cp, const F& f) {
   if (cp <= 32) return f.template run<4>();
   if (cp <= 64) return f.template run<8>();
-  return f.template run<16>();
+  if (cp <= 128) return f.template run<16>();
+  return f.template run<32>();
 }
 
 struct FwdF32Launch {
@@ -2419,8 +2724,12 @@ struct FwdF32Launch {
   cudaStream_t st;
   template <int NT>
   int run() const {
-    return launch(head_fwd_f32_kernel<NT>, a, F32Head(a.s, a.c).fwd_bytes(),
-                  blocks, st);
+    if constexpr (NT > 16)
+      return launch(head_fwd_f32_wide_kernel<NT>, a,
+                    F32Wide(a.s, a.c).fwd_bytes(), blocks, st);
+    else
+      return launch(head_fwd_f32_kernel<NT>, a,
+                    F32Head(a.s, a.c).fwd_bytes(), blocks, st);
   }
 };
 
@@ -2430,16 +2739,30 @@ struct BwdF32Launch {
   cudaStream_t st;
   template <int NT>
   int run() const {
-    return launch(head_bwd_f32_kernel<NT>, a, F32Head(a.s, a.c).bwd_bytes(),
-                  blocks, st);
+    if constexpr (NT > 16)
+      return launch(head_bwd_f32_wide_kernel<NT>, a,
+                    F32Wide(a.s, a.c).bwd_bytes(), blocks, st);
+    else
+      return launch(head_bwd_f32_kernel<NT>, a,
+                    F32Head(a.s, a.c).bwd_bytes(), blocks, st);
   }
 };
 
-bool f32_supports(int s, int c) {
+// Dynamic shared memory of the float32 forward (bwd = 0) or backward (bwd =
+// 1) at (s, c): the C <= 128 kernels' or the wide kernels'
+size_t f32_bytes(int s, int c, bool bwd) {
+  if (c > 128) {
+    const F32Wide W(s, c);
+    return bwd ? W.bwd_bytes() : W.fwd_bytes();
+  }
   const F32Head L(s, c);
+  return bwd ? L.bwd_bytes() : L.fwd_bytes();
+}
+
+bool f32_supports(int s, int c) {
   return s >= 4 && c >= 4 && s % 4 == 0 && c % 4 == 0 && s <= 64 &&
-         c <= 128 && L.fwd_bytes() <= kSmemLimit &&
-         L.bwd_bytes() <= kSmemLimit;
+         c <= 256 && f32_bytes(s, c, false) <= kSmemLimit &&
+         f32_bytes(s, c, true) <= kSmemLimit;
 }
 
 // The arguments every kernel takes; rows_per_block a multiple of `rt`.
@@ -2565,14 +2888,13 @@ int movenet_head_bwd(const bf16_t* skip, const int* pack, int pack_cols,
 }
 
 // 1 if the float32 kernels take skip width s and c classes (4 <= S <= 64,
-// 4 <= C <= 128, multiples of 4)
+// 4 <= C <= 256, multiples of 4)
 int movenet_head_f32_supports(int s, int c) { return f32_supports(s, c); }
 
 // Dynamic shared memory a block of the float32 forward (bwd = 0) or
 // backward (bwd = 1) takes at (s, c)
 long movenet_head_f32_smem(int s, int c, int bwd) {
-  const F32Head L(s, c);
-  return static_cast<long>(bwd ? L.bwd_bytes() : L.fwd_bytes());
+  return static_cast<long>(f32_bytes(s, c, bwd != 0));
 }
 
 // float32 elements of the float32 backward's scratch (leaky(y), dz, dy)

@@ -17,9 +17,10 @@
 // JAX package's fused_stack with strategy "save"), which the merged
 // kernels build on.  Every form takes the bf16 compute dtype (the
 // operands of the forward products are bf16, the backward's are f32, as
-// on the TPU); the save strategy's embed form also takes float32 (the
-// float32 compute dtype: stack_layer_f32_kernel and the backward's
-// float32 form, see "the float32 save forward" below).
+// on the TPU); the save strategy's embed form and the recompute forms
+// also take float32 (the float32 compute dtype: stack_layer_f32_kernel
+// and the backward's float32 forms, see "the float32 save forward"
+// below).
 //
 // Design.  The TPU runs a (batch, time tile) grid in order and carries the
 // dilation rings and the weight-gradient sums from one grid step to the
@@ -224,6 +225,24 @@ __device__ __forceinline__ float sigmoidf(float g) {
   return 1.f / (1.f + expf(-g));
 }
 
+// cp.async: 16 bytes from global to shared memory, zero-filled where
+// !valid (src is then any valid address and is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// waits until at most N of this thread's cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 struct BwdLayerArgs {
   float* dhp;            // (M, R) in: layer l+1's dh + dfg_w_h; out: layer l's
   const float* p_in;     // (M, R) layer l+1's dfg_w past part (not at top)
@@ -248,6 +267,9 @@ struct BwdLayerArgs {
   const float* b_fg;     // (B, 2R)
   float* gated;          // (M, R) float32
   int d;
+  // the recompute form in float32: h_l and ctx in float32
+  const float* hs_f;     // (M, R)
+  const float* cx_f;     // (M, R), or null
 };
 
 // Each SM runs two tile pipelines of 8 warps, so that one pipeline's
@@ -293,11 +315,19 @@ struct BwdShape {
     return static_cast<size_t>(R * kLdd + win * kLdf) * 4 +
            kHalves * kTileF32;
   }
+  // the recompute form in float32: the [h | h(t-d) | ctx] rows (float32,
+  // stride 4 mod 32 floats) lie over the tile's [dh | dskip] and dfg rows,
+  // which take their values only once fg is formed; the same bytes as the
+  // float32 form
+  static constexpr int kLdhf = 3 * R + 4;
+  static_assert(kLdhf <= kLdd + kLdf, "the operand rows fit the tile");
+  static size_t smem_rcf32(int win) { return smem_f32(win); }
 };
 
 // the layer backward's forms: the save strategy's (bf16 taps), the
-// recompute strategy's and the float32 save form (float32 taps)
-constexpr int kBwdSave = 0, kBwdRc = 1, kBwdF32 = 2;
+// recompute strategy's, the float32 save form (float32 taps) and the
+// recompute strategy's in float32
+constexpr int kBwdSave = 0, kBwdRc = 1, kBwdF32 = 2, kBwdRcF32 = 3;
 
 // A barrier over one pipeline's 256 threads.
 template <int HALVES>
@@ -411,6 +441,12 @@ __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
 // (stack_bwd_f32).  Its float32 taps are staged in the tile's dfg rows,
 // where each thread reads tf and sg of its dgated places, stores gated =
 // tf * sg (float32) for the W_out gradient and overwrites them with dfg.
+// FORM kBwdRcF32: the recompute form in float32 (stack_bwd_tails_f32).
+// Each tile's [h | h(t-d) | ctx] rows (float32) land by cp.async in the
+// bytes of its [dh | dskip] and dfg rows; each warp forms fg for its dgated
+// columns as split-TF32 mma.sync from W_fg in shared memory (its float32
+// values), keeps tf and sg in registers as kBwdRc does, and after a barrier
+// the tile's dh and dskip take those bytes.
 template <int R, int S, int FORM>
 __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
                                   BwdShape<R, S>::kHalves == 2 ? 1 : 2)
@@ -418,6 +454,9 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
   using Sh = BwdShape<R, S>;
   using Regs = BwdTileRegs<R, S, FORM>;
   constexpr bool RC = FORM == kBwdRc, F32 = FORM == kBwdF32;
+  constexpr bool RCF = FORM == kBwdRcF32;
+  // the float32 forms add each k step in float32 (mma_split_add)
+  constexpr bool ADD = F32 || RCF;
   constexpr int NO = Sh::kNo, LDD = Sh::kLdd, LDF = Sh::kLdf;
   constexpr int LDT = Sh::kLdt, ROWS = Sh::kRows, TPW = Sh::kTpw;
   constexpr int H = Sh::kHalves, MT = Sh::kMt;
@@ -431,11 +470,12 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
   const int tid = threadIdx.x, h = tid / 256, ht = tid % 256;
   unsigned char* mine = reinterpret_cast<unsigned char*>(wf + win * LDF) +
                         h * (RC ? Sh::kTileRc
-                                : F32 ? Sh::kTileF32 : Sh::kTile);
+                                : F32 || RCF ? Sh::kTileF32 : Sh::kTile);
   float* dd = reinterpret_cast<float*>(mine);   // (ROWS, LDD) [dh | dskip]
   float* ff = dd + ROWS * LDD;                    // (ROWS, LDF) dfg
   bf16_t* ts = reinterpret_cast<bf16_t*>(ff + ROWS * LDF);   // (ROWS, LDT)
   bf16_t* hq = ts;                 // RC: (ROWS, kLdh) [h | h(t-d) | ctx]
+  float* hf = dd;                  // RCF: (ROWS, kLdhf) [h | h(t-d) | ctx]
   const int warp = ht >> 5, g = (ht & 31) >> 2, q = ht & 3;
   const int r0 = (warp % MT) * 16;                // the warp's rows
   const int n0 = (warp / MT) * TPW * 8;           // and dgated columns
@@ -456,6 +496,60 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
   for (long tile_i = first; tile_i < n_tiles; tile_i += step) {
   const long m0 = tile_i * ROWS;
   pipe_sync<H>(h);
+  // RCF: tf and sg of the warp's dgated places, from fg formed again in
+  // float32 from the tile's operand rows
+  float tfr[RCF ? TPW : 1][4], sgr[RCF ? TPW : 1][4];
+  if constexpr (RCF) {
+    constexpr int LDHF = Sh::kLdhf;
+    const int per_row = win / 4;
+    for (int i = ht; i < ROWS * per_row; i += 256) {
+      const int row = i / per_row, c4 = 4 * (i % per_row);
+      const int part = c4 / R, j0 = c4 % R;
+      const long m = m0 + row;
+      bool ok = m < a.m_total;
+      const float* src = a.hs_f + m * R + j0;
+      if (part == 1) {
+        ok = ok && static_cast<int>(m % a.t_len) >= a.d;
+        src -= static_cast<long>(a.d) * R;
+      } else if (part == 2) {
+        src = a.cx_f + m * R + j0;
+      }
+      cp_async16(hf + row * LDHF + c4, ok ? src : a.hs_f, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    pipe_sync<H>(h);
+    float fa[2 * TPW][4];
+#pragma unroll
+    for (int j = 0; j < 2 * TPW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) fa[j][e] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < win; k0 += 8) {
+      Frag<4> ha;
+      load_a_rows<true>(hf + r0 * LDHF + k0, LDHF, ha);
+#pragma unroll
+      for (int j = 0; j < 2 * TPW; ++j) {
+        const int n = j < TPW ? n0 + 8 * j : R + n0 + 8 * (j - TPW);
+        Frag<2> fb;
+        load_b_kmajor(wf + k0 * LDF + n, LDF, fb);
+        mma_split_add<true>(fa[j], ha, fb);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long m = m0 + r0 + g + 8 * (e >> 1);
+      const float* bf = a.b_fg + (m < a.m_total ? m / a.t_len : 0) * 2 * R;
+#pragma unroll
+      for (int j = 0; j < TPW; ++j) {
+        const int c = n0 + 8 * j + 2 * q + (e & 1);
+        tfr[j][e] = tanhf(fa[j][e] + __ldg(bf + c));
+        sgr[j][e] = sigmoidf(fa[TPW + j][e] + __ldg(bf + R + c));
+      }
+    }
+    // every warp is done with the operand rows before dh and dskip land
+    pipe_sync<H>(h);
+  }
   // dh of this layer's output (the layer above's dh + dfg_w_h, plus its
   // anti-causal carry dfg_w_p(t + d)), dskip and the taps into shared
   // memory; dh to global memory for the W_out gradient
@@ -536,7 +630,7 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
       for (int j = 0; j < TPW; ++j) {
         Frag<2> fb;
         load_b_cols(wo + (n0 + 8 * j) * LDD + k0, LDD, fb);
-        if constexpr (F32)
+        if constexpr (ADD)
           mma_split_add<true>(acc[j], fa, fb);
         else
           mma_split<true>(acc[j], fa, fb);
@@ -549,11 +643,18 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
       for (int e = 0; e < 2; ++e) {
         const int row = r0 + g + 8 * e;
         float tf[2], sg[2];
-        if (RC) {
-          tf[0] = tfv[RC ? j : 0][2 * e];
-          tf[1] = tfv[RC ? j : 0][2 * e + 1];
-          sg[0] = sgv[RC ? j : 0][2 * e];
-          sg[1] = sgv[RC ? j : 0][2 * e + 1];
+        if (RC || RCF) {
+          if (RC) {
+            tf[0] = tfv[RC ? j : 0][2 * e];
+            tf[1] = tfv[RC ? j : 0][2 * e + 1];
+            sg[0] = sgv[RC ? j : 0][2 * e];
+            sg[1] = sgv[RC ? j : 0][2 * e + 1];
+          } else {
+            tf[0] = tfr[RCF ? j : 0][2 * e];
+            tf[1] = tfr[RCF ? j : 0][2 * e + 1];
+            sg[0] = sgr[RCF ? j : 0][2 * e];
+            sg[1] = sgr[RCF ? j : 0][2 * e + 1];
+          }
           const long m = m0 + row;
           if (m < a.m_total)
             *reinterpret_cast<float2*>(a.gated + m * R + c) =
@@ -631,7 +732,7 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
         if (j >= np) break;
         Frag<2> fb;
         load_b_cols(wf + (c0 + 8 * j) * LDF + k0, LDF, fb);
-        if constexpr (F32)
+        if constexpr (ADD)
           mma_split_add<true>(acc[j], fa, fb);
         else
           mma_split<true>(acc[j], fa, fb);
@@ -1154,16 +1255,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // dx of the non-embed forms: layer 0's dh + dfg_w_h, plus its carry
-// dfg_w_p(t + d0), rounded to bf16.
+// dfg_w_p(t + d0), in the compute dtype (rounded to bf16, or float32).
+template <typename ActT>
 __global__ void __launch_bounds__(kThreads)
     stack_dx_kernel(const float* dhp, const float* p, int d0, int t_len,
-                    int r, long total, bf16_t* dx) {
+                    int r, long total, ActT* dx) {
   for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
        i < total; i += static_cast<long>(gridDim.x) * kThreads) {
     const long m = i / r;
     float v = dhp[i];
     if (static_cast<int>(m % t_len) + d0 < t_len) v += p[i + d0 * r];
-    dx[i] = f2bf(v);
+    store_act(dx + i, v);
   }
 }
 
@@ -1471,7 +1573,7 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
     if (err) return err;
   }
   if (ends.dx) {
-    stack_dx_kernel<<<grid_for(m_total * R), kThreads, 0, st>>>(
+    stack_dx_kernel<bf16_t><<<grid_for(m_total * R), kThreads, 0, st>>>(
         dhp, pbuf[0], dil[0], t_len, R, m_total * R, ends.dx);
   } else {
     // table gradient
@@ -1563,7 +1665,11 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
 //               weight gradient launches (W_fg as the save's, W_out from the
 //               float32 gated: MODE 3) with their fixed-order reductions.
 //               The anti-causal carry crosses launches through global memory
-//               as in the save backward.  Deterministic, no atomics.
+//               as in the save backward.  Deterministic, no atomics.  In
+//               float32 the same walk runs stack_layer_f32_kernel for the
+//               rebuilds and the layer backward's kBwdRcF32 form (fg formed
+//               again split-TF32), W_fg's and W_out's gradients from float32
+//               activations and gated (MODE 4 and 6).
 // Products.  fg = [h | h(t-d) | ctx] W_fg and out = gated W_out run as bf16
 // mma.sync m16n8k16 with float32 sums: the operands are exact bf16 values
 // (the weights rounded as the TPU's _mdot rounds them), and each 16-wide k
@@ -1895,24 +2001,6 @@ __device__ __forceinline__ void head_slab(const HeadEpilogue& hd,
       match += am[h] == tg[h] ? 1.f : 0.f;
     }
   }
-}
-
-// cp.async: 16 bytes from global to shared memory, zero-filled where
-// !valid (src is then any valid address and is not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-// waits until at most N of this thread's cp.async groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // The operand rows [h | h(t-d) | ctx] of the tile at row m0 into hp (row
@@ -2538,6 +2626,11 @@ __global__ void __launch_bounds__(
 // fmaf chain) has nothing to keep and is not here; the forward is held to
 // its plain version at a tolerance.
 //
+// The recompute strategy's float32 forms launch the same layer kernel
+// with no taps (tfsg null) for the forward and its checkpoints, and with
+// no skip sum either (skacc null) for the backward's rebuilds; their
+// layer backward is stack_bwd_layer_kernel's kBwdRcF32 form.
+//
 // Bound at the breakdancing cell (B=2, T=160000, L=9, R=S=64, video):
 // 1.9e11 operations at the TF32 peak counted once (0.38 ms) against 2.4
 // GB of compulsory float32 traffic (hsave, tfsg, skip, ctx: 0.71 ms),
@@ -2601,8 +2694,9 @@ struct F32LayerArgs {
   const float* w_fg;     // (W_in, 2R)
   const float* w_out;    // (R, R+S)
   const float* b_out;    // (R+S)
-  float* tfsg;           // (M, 2R) this layer's taps
-  float* skacc;          // (M, S) the skip sum between launches
+  float* tfsg;           // (M, 2R) this layer's taps, or null (recompute)
+  float* skacc;          // (M, S) the skip sum between launches, or null
+                         // (a rebuild in the recompute backward)
   float* skip;           // (M, S) skip_sum, stored by the last layer
   long m_total;
   int t_len, d, first, last;
@@ -2691,7 +2785,7 @@ __global__ void __launch_bounds__(256, 1)
           }
           *reinterpret_cast<float2*>(gs + row * LDG + c) =
               make_float2(tf[0] * sg[0], tf[1] * sg[1]);
-          if (m < m_total) {
+          if (a.tfsg && m < m_total) {
             float* tp = a.tfsg + m * 2 * R + c;
             *reinterpret_cast<float2*>(tp) = make_float2(tf[0], tf[1]);
             *reinterpret_cast<float2*>(tp + R) = make_float2(sg[0], sg[1]);
@@ -2741,7 +2835,7 @@ __global__ void __launch_bounds__(256, 1)
               *reinterpret_cast<float2*>(a.h_next + m * R + c) =
                   make_float2(v0 + o.x, v1 + o.y);
             }
-          } else {
+          } else if (a.skacc) {
             float2 sv = make_float2(v0, v1);
             float* sp = a.skacc + m * S + c - R;
             if (!a.first) {
@@ -2888,6 +2982,53 @@ int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
   return 0;
 }
 
+// Launches of stack_layer_f32_kernel: its shared memory set once, the grid
+// (as many persistent blocks as fit, at most one per tile) for every layer.
+template <int R, int S>
+struct F32LayerLaunch {
+  using Sh = F32Shape<R, S>;
+  int grid = 0;
+  int setup(long m_total) {
+    const void* fn =
+        reinterpret_cast<const void*>(stack_layer_f32_kernel<R, S>);
+    int err = set_smem(fn, Sh::kEnd);
+    if (err) return err;
+    int per_sm = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fn, Sh::kThreads, Sh::kEnd);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long tiles = (m_total + Sh::kRows - 1) / Sh::kRows;
+    const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
+    grid = static_cast<int>(tiles < fit ? tiles : fit);
+    return 0;
+  }
+  int launch(const F32LayerArgs& a, cudaStream_t st) const {
+    stack_layer_f32_kernel<R, S><<<grid, Sh::kThreads, Sh::kEnd, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// The float32 layer arguments of layer l (no taps, skip sum off).
+template <int R, int S>
+F32LayerArgs f32_layer_args(const float* h, float* h_next, const float* ctx,
+                            const float* b_fg, const float* w_fg,
+                            const float* w_out, const float* b_out,
+                            const int* dil, int l, int batch, int t_len) {
+  const int win = ctx ? 3 * R : 2 * R;
+  F32LayerArgs a = {};
+  a.h = h;
+  a.h_next = h_next;
+  a.ctx = ctx;
+  a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
+  a.w_fg = w_fg + static_cast<long>(l) * win * 2 * R;
+  a.w_out = w_out + static_cast<long>(l) * R * (R + S);
+  a.b_out = b_out + static_cast<long>(l) * (R + S);
+  a.m_total = static_cast<long>(batch) * t_len;
+  a.t_len = t_len;
+  a.d = dil[l];
+  return a;
+}
+
 // The float32 save forward: hsave[0] from the embedding, then one launch
 // of stack_layer_f32_kernel per layer.
 template <int R, int S>
@@ -2897,68 +3038,61 @@ int fwd_f32_impl(const int* pack, int pack_cols, const float* table2,
                  const int* dil, float* skacc, float* hsave, float* tfsg,
                  float* skip, int batch, int t_len, int n_layers,
                  cudaStream_t st) {
-  using Sh = F32Shape<R, S>;
   const long m_total = static_cast<long>(batch) * t_len;
   const long mr = m_total * R;
-  const int win = ctx ? 3 * R : 2 * R;
   stack_embed_f32_kernel<<<grid_for(mr), kThreads, 0, st>>>(
       pack, pack_cols, table2, vocab, batch, t_len, R, hsave);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const void* fn = reinterpret_cast<const void*>(stack_layer_f32_kernel<R, S>);
-  int err = set_smem(fn, Sh::kEnd);
+  F32LayerLaunch<R, S> fl;
+  int err = fl.setup(m_total);
   if (err) return err;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, Sh::kThreads,
-                                                    Sh::kEnd);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long tiles = (m_total + Sh::kRows - 1) / Sh::kRows;
-  const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
-  const int grid = static_cast<int>(tiles < fit ? tiles : fit);
   for (int l = 0; l < n_layers; ++l) {
-    F32LayerArgs a = {};
-    a.h = hsave + l * mr;
-    a.h_next = l + 1 < n_layers ? hsave + (l + 1) * mr : nullptr;
-    a.ctx = ctx;
-    a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
-    a.w_fg = w_fg + static_cast<long>(l) * win * 2 * R;
-    a.w_out = w_out + static_cast<long>(l) * R * (R + S);
-    a.b_out = b_out + static_cast<long>(l) * (R + S);
+    F32LayerArgs a = f32_layer_args<R, S>(
+        hsave + l * mr, l + 1 < n_layers ? hsave + (l + 1) * mr : nullptr,
+        ctx, b_fg, w_fg, w_out, b_out, dil, l, batch, t_len);
     a.tfsg = tfsg + l * m_total * 2 * R;
     a.skacc = skacc;
     a.skip = skip;
-    a.m_total = m_total;
-    a.t_len = t_len;
-    a.d = dil[l];
     a.first = l == 0;
     a.last = l == n_layers - 1;
-    stack_layer_f32_kernel<R, S><<<grid, Sh::kThreads, Sh::kEnd, st>>>(a);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
+    err = fl.launch(a, st);
+    if (err) return err;
   }
   return 0;
 }
 
-template <int R, int S>
-int fwd_tails_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
+// The recompute forward (F32: its float32 form, stack_layer_f32_kernel with
+// no taps): one launch of the layer kernel per layer, the input of every
+// every-th layer kept as a checkpoint.
+template <int R, int S, bool F32>
+int fwd_tails_impl(const Act<F32>* x, const Act<F32>* ctx, const float* b_fg,
                    const float* w_fg, const float* w_out, const float* b_out,
-                   const int* dil, int every, bf16_t* skip, bf16_t* ckpt,
-                   bf16_t* work, float* skacc, int batch, int t_len,
+                   const int* dil, int every, Act<F32>* skip, Act<F32>* ckpt,
+                   Act<F32>* work, float* skacc, int batch, int t_len,
                    int n_layers, cudaStream_t st) {
   const long mr = static_cast<long>(batch) * t_len * R;
-  LayerLaunch<R, S, kRecompute> tl;
+  std::conditional_t<F32, F32LayerLaunch<R, S>,
+                     LayerLaunch<R, S, kRecompute>> tl;
   int err = tl.setup(static_cast<long>(batch) * t_len);
   if (err) return err;
   // the input of layer l: x, a checkpoint (l a multiple of every) or one
   // of the two work buffers
-  auto input = [&](int l) -> bf16_t* {
+  auto input = [&](int l) -> Act<F32>* {
     if (l % every == 0) return ckpt + (l / every - 1) * mr;
     return work + (l & 1) * mr;
   };
   for (int l = 0; l < n_layers; ++l) {
-    LayerArgs a = layer_args<R, S>(
-        l == 0 ? x : input(l), l + 1 < n_layers ? input(l + 1) : nullptr,
-        ctx, b_fg, w_fg, w_out, b_out, dil, l, batch, t_len);
+    const Act<F32>* h = l == 0 ? x : input(l);
+    Act<F32>* h_next = l + 1 < n_layers ? input(l + 1) : nullptr;
+    auto a = [&] {
+      if constexpr (F32)
+        return f32_layer_args<R, S>(h, h_next, ctx, b_fg, w_fg, w_out, b_out,
+                                    dil, l, batch, t_len);
+      else
+        return layer_args<R, S>(h, h_next, ctx, b_fg, w_fg, w_out, b_out,
+                                dil, l, batch, t_len);
+    }();
     a.skacc = skacc;
     a.skip = skip;
     a.first = l == 0;
@@ -2969,19 +3103,24 @@ int fwd_tails_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
   return 0;
 }
 
-template <int R, int S>
-int bwd_tails_impl(const bf16_t* x, const bf16_t* ckpt, const bf16_t* ctx,
-                   const float* b_fg, const float* w_fg, const float* w_out,
-                   const float* b_out, const bf16_t* dskip, const int* dil,
-                   int every, bf16_t* group, float* scratch, int chunks,
-                   bf16_t* dx, bf16_t* dctx_out, float* db_fg, float* dw_fg,
+// The recompute backward (F32: its float32 form: the rebuilds by
+// stack_layer_f32_kernel, the layer launches in form kBwdRcF32, the weight
+// gradients from float32 activations and gated, MODE 4 and 6; dskip, dx and
+// dctx float32).
+template <int R, int S, bool F32>
+int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
+                   const Act<F32>* ctx, const float* b_fg, const float* w_fg,
+                   const float* w_out, const float* b_out,
+                   const Act<F32>* dskip, const int* dil, int every,
+                   Act<F32>* group, float* scratch, int chunks, Act<F32>* dx,
+                   Act<F32>* dctx_out, float* db_fg, float* dw_fg,
                    float* dw_out, float* db_out, int batch, int t_len,
                    int n_layers, cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const long mr = m_total * R;
   const int win = ctx ? 3 * R : 2 * R;
   // float32 scratch: the save backward's dhp, p[2], dh, dfg, dctx, then
-  // gated, then the partials
+  // gated, then the partials (the float32 form sums dctx in its output)
   float* dhp = scratch;
   float* pbuf[2] = {dhp + mr, dhp + 2 * mr};
   float* dh = dhp + 3 * mr;
@@ -2989,13 +3128,17 @@ int bwd_tails_impl(const bf16_t* x, const bf16_t* ckpt, const bf16_t* ctx,
   float* dctx = dhp + 6 * mr;
   float* gated = dhp + 7 * mr;
   float* part = dhp + 8 * mr;
-  LayerLaunch<R, S, kRecompute> tl;
+  std::conditional_t<F32, F32LayerLaunch<R, S>,
+                     LayerLaunch<R, S, kRecompute>> tl;
   int err = tl.setup(m_total);
   if (err) return err;
   using Sh = BwdShape<R, S>;
-  const size_t smem = Sh::smem_rc(win);
+  constexpr int FORM = F32 ? kBwdRcF32 : kBwdRc;
+  // the weight gradients' modes: W_fg, W_out
+  constexpr int MFG = F32 ? 4 : 0, MOUT = F32 ? 6 : 3;
+  const size_t smem = F32 ? Sh::smem_rcf32(win) : Sh::smem_rc(win);
   const void* layer = reinterpret_cast<const void*>(
-      stack_bwd_layer_kernel<R, S, kBwdRc>);
+      stack_bwd_layer_kernel<R, S, FORM>);
   err = set_smem(layer, smem);
   if (err) return err;
   int per_sm = 0;
@@ -3011,27 +3154,41 @@ int bwd_tails_impl(const bf16_t* x, const bf16_t* ckpt, const bf16_t* ctx,
     // the group's inputs: h_lo from x or its checkpoint, h_{lo+1} ..
     // rebuilt into the group buffers (slot i holds h_{lo+1+i}) by the
     // forward's layer kernel, skip sum off
-    const bf16_t* h_lo = lo == 0 ? x : ckpt + (lo / every - 1) * mr;
-    auto input = [&](int l) {
+    const Act<F32>* h_lo = lo == 0 ? x : ckpt + (lo / every - 1) * mr;
+    auto input = [&](int l) -> const Act<F32>* {
       return l == lo ? h_lo : group + (l - lo - 1) * mr;
     };
     for (int l = lo; l + 1 < hi; ++l) {
-      err = tl.launch(layer_args<R, S>(
-          input(l), group + (l - lo) * mr, ctx, b_fg, w_fg, w_out, b_out,
-          dil, l, batch, t_len), st);
+      if constexpr (F32)
+        err = tl.launch(f32_layer_args<R, S>(
+            input(l), group + (l - lo) * mr, ctx, b_fg, w_fg, w_out, b_out,
+            dil, l, batch, t_len), st);
+      else
+        err = tl.launch(layer_args<R, S>(
+            input(l), group + (l - lo) * mr, ctx, b_fg, w_fg, w_out, b_out,
+            dil, l, batch, t_len), st);
       if (err) return err;
     }
     for (int l = hi - 1; l >= lo; --l) {
-      const bf16_t* hs = input(l);
+      const Act<F32>* hs = input(l);
       BwdLayerArgs a = {};
       a.dhp = dhp;
       a.p_in = pbuf[(l + 1) & 1];
       a.p_out = pbuf[l & 1];
       a.dh = dh;
       a.dfg = dfg;
-      a.dctx = ctx ? dctx : nullptr;
-      a.dctx_bf = (ctx && l == 0) ? dctx_out : nullptr;
-      a.dskip = dskip;
+      if constexpr (F32) {
+        a.dctx = dctx_out;
+        a.dskip_f = dskip;
+        a.hs_f = hs;
+        a.cx_f = ctx;
+      } else {
+        a.dctx = ctx ? dctx : nullptr;
+        a.dctx_bf = (ctx && l == 0) ? dctx_out : nullptr;
+        a.dskip = dskip;
+        a.hs = hs;
+        a.cx = ctx;
+      }
       a.w_out = w_out + static_cast<long>(l) * R * (R + S);
       a.w_fg = w_fg + static_cast<long>(l) * win * 2 * R;
       a.m_total = m_total;
@@ -3039,21 +3196,25 @@ int bwd_tails_impl(const bf16_t* x, const bf16_t* ckpt, const bf16_t* ctx,
       a.d_in = l + 1 < n_layers ? dil[l + 1] : 0;
       a.top = l == n_layers - 1;
       a.win = win;
-      a.hs = hs;
-      a.cx = ctx;
       a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
       a.gated = gated;
       a.d = dil[l];
-      stack_bwd_layer_kernel<R, S, kBwdRc><<<grid, Sh::kThreads, smem, st>>>(a);
+      stack_bwd_layer_kernel<R, S, FORM><<<grid, Sh::kThreads, smem, st>>>(a);
       e = cudaGetLastError();
       if (e != cudaSuccess) return static_cast<int>(e);
 
       WgradArgs w = {};
-      w.hs = hs;
-      w.ctx = ctx;
+      if constexpr (F32) {
+        w.hs_f = hs;
+        w.ctx_f = ctx;
+        w.dskip_f = dskip;
+      } else {
+        w.hs = hs;
+        w.ctx = ctx;
+        w.dskip = dskip;
+      }
       w.dfg = dfg;
       w.dh = dh;
-      w.dskip = dskip;
       w.gated = gated;
       w.rows_per_batch = t_len;
       w.chunks = chunks;
@@ -3063,19 +3224,21 @@ int bwd_tails_impl(const bf16_t* x, const bf16_t* ckpt, const bf16_t* ctx,
       w.n = 2 * R;
       float* dwf = dw_fg + static_cast<long>(l) * win * 2 * R;
       float* dbf = db_fg + static_cast<long>(l) * batch * 2 * R;
-      err = ctx ? wgrad_launch<0, R, S, 3 * R>(w, batch, dwf, dbf, batch, st)
-                : wgrad_launch<0, R, S, 2 * R>(w, batch, dwf, dbf, batch, st);
+      err = ctx ? wgrad_launch<MFG, R, S, 3 * R>(w, batch, dwf, dbf, batch,
+                                                 st)
+                : wgrad_launch<MFG, R, S, 2 * R>(w, batch, dwf, dbf, batch,
+                                                 st);
       if (err) return err;
       w.n = R + S;
       w.part_b = part + static_cast<long>(batch) * chunks * R * (R + S);
-      err = wgrad_launch<3, R, S, R>(
+      err = wgrad_launch<MOUT, R, S, R>(
           w, batch, dw_out + static_cast<long>(l) * R * (R + S),
           db_out + static_cast<long>(l) * (R + S), 1, st);
       if (err) return err;
     }
   }
-  stack_dx_kernel<<<grid_for(mr), kThreads, 0, st>>>(dhp, pbuf[0], dil[0],
-                                                      t_len, R, mr, dx);
+  stack_dx_kernel<Act<F32>><<<grid_for(mr), kThreads, 0, st>>>(
+      dhp, pbuf[0], dil[0], t_len, R, mr, dx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -3126,6 +3289,49 @@ int bwd_dispatch(const BwdEnds& ends, const Act<F32>* hsave,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <bool F32>
+int tails_fwd_dispatch(const Act<F32>* x, const Act<F32>* ctx,
+                       const float* b_fg, const float* w_fg,
+                       const float* w_out, const float* b_out, const int* dil,
+                       int every, Act<F32>* skip, Act<F32>* ckpt,
+                       Act<F32>* work, float* skacc, int batch, int t_len,
+                       int n_layers, int r, int s, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
+#define X(R_, S_)                                                          \
+  if (r == R_ && s == S_)                                                  \
+    return fwd_tails_impl<R_, S_, F32>(x, ctx, b_fg, w_fg, w_out, b_out,   \
+                                       dil, every, skip, ckpt, work, skacc,\
+                                       batch, t_len, n_layers, st);
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool F32>
+int tails_bwd_dispatch(const Act<F32>* x, const Act<F32>* ckpt,
+                       const Act<F32>* ctx, const float* b_fg,
+                       const float* w_fg, const float* w_out,
+                       const float* b_out, const Act<F32>* dskip,
+                       const int* dil, int every, Act<F32>* group,
+                       float* scratch, int chunks, Act<F32>* dx,
+                       Act<F32>* dctx, float* db_fg, float* dw_fg,
+                       float* dw_out, float* db_out, int batch, int t_len,
+                       int n_layers, int r, int s, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
+#define X(R_, S_)                                                           \
+  if (r == R_ && s == S_)                                                   \
+    return bwd_tails_impl<R_, S_, F32>(x, ckpt, ctx, b_fg, w_fg, w_out,     \
+                                       b_out, dskip, dil, every, group,     \
+                                       scratch, chunks, dx, dctx, db_fg,    \
+                                       dw_fg, dw_out, db_out, batch, t_len, \
+                                       n_layers, st);
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -3156,7 +3362,8 @@ long movenet_stack_bwd_scratch(int batch, int t_len, int r, int s, int win,
 }
 
 // Dynamic shared memory of the backward's launches, in bytes: the layer
-// launch (kind -1; -2 its recompute form, -3 its float32 form) or the
+// launch (kind -1; -2 its recompute form, -3 its float32 form, -4 the
+// recompute form in float32) or the
 // weight-gradient launch of mode kind (0: W_fg with W_in = win, 1: W_out,
 // 2: the projection's W_up, 3: W_out from the float32 gated, 4: W_fg, 5:
 // W_up and 6: W_out in the float32 form); -1 where (r, s) is not built.
@@ -3168,6 +3375,8 @@ long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
       return static_cast<long>(BwdShape<R_, S_>::smem_rc(win));        \
     if (kind == -3)                                                    \
       return static_cast<long>(BwdShape<R_, S_>::smem_f32(win));       \
+    if (kind == -4)                                                    \
+      return static_cast<long>(BwdShape<R_, S_>::smem_rcf32(win));     \
     if (kind == 3) return static_cast<long>(WgShape<3, R_, S_, R_>::smem()); \
     if (kind == 0)                                                     \
       return static_cast<long>(win == 3 * R_                           \
@@ -3407,7 +3616,7 @@ int movenet_stack_head_bwd(const bf16_t* skip, const int* tgt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Float32 scratch elements of the recompute backward (see
+// Float32 scratch elements of the recompute backward, bf16 or float32 (see
 // bwd_tails_impl): eight (M, R) arrays and the weight-gradient partials.
 long movenet_tails_bwd_scratch(int batch, int t_len, int r, int s, int win,
                                int chunks) {
@@ -3427,16 +3636,23 @@ int movenet_stack_fwd_tails(const bf16_t* x, const bf16_t* ctx,
                             bf16_t* ckpt, bf16_t* work, float* skacc,
                             int batch, int t_len, int n_layers, int r, int s,
                             void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
-#define X(R_, S_)                                                         \
-  if (r == R_ && s == S_)                                                 \
-    return fwd_tails_impl<R_, S_>(x, ctx, b_fg, w_fg, w_out, b_out, dil,  \
-                                  every, skip, ckpt, work, skacc, batch,  \
-                                  t_len, n_layers, st);
-  MOVENET_STACK_WIDTHS(X)
-#undef X
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tails_fwd_dispatch<false>(x, ctx, b_fg, w_fg, w_out, b_out, dil,
+                                   every, skip, ckpt, work, skacc, batch,
+                                   t_len, n_layers, r, s, stream);
+}
+
+// The recompute forward in float32 (stack_layer_f32_kernel, no taps): as
+// movenet_stack_fwd_tails with x, ctx, skip, ckpt and work in float32.
+int movenet_stack_fwd_tails_f32(const float* x, const float* ctx,
+                                const float* b_fg, const float* w_fg,
+                                const float* w_out, const float* b_out,
+                                const int* dil, int every, float* skip,
+                                float* ckpt, float* work, float* skacc,
+                                int batch, int t_len, int n_layers, int r,
+                                int s, void* stream) {
+  return tails_fwd_dispatch<true>(x, ctx, b_fg, w_fg, w_out, b_out, dil,
+                                  every, skip, ckpt, work, skacc, batch,
+                                  t_len, n_layers, r, s, stream);
 }
 
 // Recompute backward: dx, dctx (bf16, null without ctx), db_fg (L*B, 2R),
@@ -3454,17 +3670,28 @@ int movenet_stack_bwd_tails(const bf16_t* x, const bf16_t* ckpt,
                             float* dw_out, float* db_out, int batch,
                             int t_len, int n_layers, int r, int s,
                             void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
-#define X(R_, S_)                                                            \
-  if (r == R_ && s == S_)                                                    \
-    return bwd_tails_impl<R_, S_>(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,    \
-                                  dskip, dil, every, group, scratch, chunks, \
-                                  dx, dctx, db_fg, dw_fg, dw_out, db_out,    \
-                                  batch, t_len, n_layers, st);
-  MOVENET_STACK_WIDTHS(X)
-#undef X
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tails_bwd_dispatch<false>(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
+                                   dskip, dil, every, group, scratch, chunks,
+                                   dx, dctx, db_fg, dw_fg, dw_out, db_out,
+                                   batch, t_len, n_layers, r, s, stream);
+}
+
+// The recompute backward in float32: as movenet_stack_bwd_tails with x,
+// ckpt, ctx, dskip, group, dx and dctx in float32 (the same scratch).
+int movenet_stack_bwd_tails_f32(const float* x, const float* ckpt,
+                                const float* ctx, const float* b_fg,
+                                const float* w_fg, const float* w_out,
+                                const float* b_out, const float* dskip,
+                                const int* dil, int every, float* group,
+                                float* scratch, int chunks, float* dx,
+                                float* dctx, float* db_fg, float* dw_fg,
+                                float* dw_out, float* db_out, int batch,
+                                int t_len, int n_layers, int r, int s,
+                                void* stream) {
+  return tails_bwd_dispatch<true>(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
+                                  dskip, dil, every, group, scratch, chunks,
+                                  dx, dctx, db_fg, dw_fg, dw_out, db_out,
+                                  batch, t_len, n_layers, r, s, stream);
 }
 
 }  // extern "C"

@@ -14,8 +14,10 @@ per-block partial sums, and counts one launch in ``launch_counts``.
 With a float32 skip ``head_fwd`` and ``head_bwd`` launch the unpacked
 kernels' float32 forms (split-TF32 products; the backward's scratch and
 dskip float32), counted apart as ``head_fwd_f32`` and ``head_bwd_f32``.
-They take 4 <= S <= 64 and 4 <= C <= 128 (``f32_smem``: W2 in float32 at
-C = 256 does not fit a block); the packed kernels take bf16 only.
+They take 4 <= S <= 64 and 4 <= C <= 256: up to C = 128 with W2 staged in
+shared memory, above it the wide kernels, whose W2 streams through a ring
+of row slabs (``f32_smem``), counted as ``head_fwd_f32_wide`` and
+``head_bwd_f32_wide``; the packed kernels take bf16 only.
 """
 
 from __future__ import annotations
@@ -33,10 +35,14 @@ from movenet_tpu_torch.ops.cuda.stack_kernel import (SMEM_LIMIT, _check,
 KERNEL_SOURCE = "movenet_tpu_torch/csrc/head_loss.cu"
 launch_counts: Dict[str, int] = {"head_fwd": 0, "head_bwd": 0,
                                  "head_fwd_packed": 0, "head_bwd_packed": 0,
-                                 "head_fwd_f32": 0, "head_bwd_f32": 0}
-# the widest head the float32 kernels hold (z in registers, W2 in shared
-# memory)
-F32_MAX_C = 128
+                                 "head_fwd_f32": 0, "head_bwd_f32": 0,
+                                 "head_fwd_f32_wide": 0,
+                                 "head_bwd_f32_wide": 0}
+# the widest head the float32 kernels hold (z in registers; above
+# F32_RING_C W2 streams through a ring of F32_RING_ROWS-row slabs)
+F32_MAX_C = 256
+F32_RING_C = 128
+F32_RING_ROWS = 32
 # blocks per launch: two per SM of an H100
 BLOCKS = 264
 
@@ -89,14 +95,17 @@ def bind(lib):
 
 def f32_smem(s: int, c: int) -> Dict[str, int]:
     """Bytes of dynamic shared memory a block of the float32 forward and
-    backward takes, as csrc/head_loss.cu's ``F32Head`` lays them out: W1
-    (SP, ldc) and W2 (CP, ldc) in float32 (SP, CP: S, C rounded up to 8;
-    ldc, lds: CP, SP rounded up to 32, plus 8), then the forward's biases,
-    block sums and per warp 16 rows of leaky(skip) and a row of CP, or the
-    backward's b1, the warps' column sums and their leaky(skip) rows."""
+    backward takes, as csrc/head_loss.cu's ``F32Head`` and ``F32Wide`` lay
+    them out: W1 (SP, ldc) and W2 (CP, ldc) in float32 (SP, CP: S, C
+    rounded up to 8; ldc, lds: CP, SP rounded up to 32, plus 8), or above
+    C = 128 W1 and a ring of two (32, ldc) stages of W2's rows; then the
+    forward's biases, block sums and per warp 16 rows of leaky(skip) and a
+    row of CP, or the backward's b1, the warps' column sums and their
+    leaky(skip) rows."""
     sp, cp = -(-s // 8) * 8, -(-c // 8) * 8
     ldc, lds = -(-cp // 32) * 32 + 8, -(-sp // 32) * 32 + 8
-    weights = (sp + cp) * ldc
+    w2 = 2 * F32_RING_ROWS if c > F32_RING_C else cp
+    weights = (sp + w2) * ldc
     return {"fwd": 4 * (weights + 2 * cp + 2 * 256 + 8 * (16 * lds + cp)),
             "bwd": 4 * (weights + cp + 8 * 2 * cp + 8 * 16 * lds)}
 
@@ -108,8 +117,8 @@ def _f32_widths(s: int, c: int) -> None:
         raise NotImplementedError(
             f"the float32 head kernels take 4 <= S <= 64 and 4 <= C <= "
             f"{F32_MAX_C}; got S={s}, C={c} in torch.float32 (shared memory "
-            f"{smem} bytes; ROADMAP.md B.2/B.4 (1): the C = 256 head in "
-            "float32)")
+            f"{smem} bytes; ROADMAP.md B.4: the head kernels take C <= "
+            f"{F32_MAX_C})")
 
 
 def _common(lib, skip, pack, w1, b1, w2, b2, tgt_off):
@@ -229,6 +238,14 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _counted(name, skip, c):
+    """The launch count of the unpacked form ``name`` takes at this dtype
+    and C."""
+    if skip.dtype != torch.float32:
+        return name
+    return name + ("_f32_wide" if c > F32_RING_C else "_f32")
+
+
 def head_fwd(skip, pack, w1, b1, w2, b2, rf: int, parity: bool,
              tgt_off: int = 0, save_p: bool = True):
     """(loss_sum, match_count, p or None): plain on the CPU, the forward
@@ -238,8 +255,7 @@ def head_fwd(skip, pack, w1, b1, w2, b2, rf: int, parity: bool,
                                  tgt_off, save_p)
     out = run_fwd(library(), skip, pack, w1, b1, w2, b2, rf, parity,
                   tgt_off, save_p, _stream(skip))
-    launch_counts["head_fwd_f32" if skip.dtype == torch.float32
-                  else "head_fwd"] += 1
+    launch_counts[_counted("head_fwd", skip, w2.shape[1])] += 1
     return out
 
 
@@ -252,8 +268,7 @@ def head_bwd(skip, pack, p, w1, b1, w2, b2, rf: int, parity: bool, dloss,
                                  dloss, tgt_off)
     out = run_bwd(library(), skip, pack, p, w1, b1, w2, b2, rf, parity,
                   dloss, tgt_off, _stream(skip))
-    launch_counts["head_bwd_f32" if skip.dtype == torch.float32
-                  else "head_bwd"] += 1
+    launch_counts[_counted("head_bwd", skip, w2.shape[1])] += 1
     return out
 
 

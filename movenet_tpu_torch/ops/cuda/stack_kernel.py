@@ -31,8 +31,16 @@ and ``stack_bwd`` launch the save kernels' float32 forms, counted apart as
 ``stack_layer_f32_kernel`` per layer; the backward's grids as the bf16
 form's, with the float32 taps, W_fg's gradient from float32 activations
 and W_out's from the float32 gated (``f32_smem`` gives their shared
-memory).  The other kernels take bf16 only, and raise for float32 with
-their ROADMAP.md B.2/B.4 item.
+memory).  With float32 x, ctx and dskip ``stack_fwd_tails`` and
+``stack_bwd_tails`` launch the recompute kernels' float32 forms, counted
+as ``stack_fwd_tails_f32`` and ``stack_bwd_tails_f32``: one launch of
+``stack_layer_f32_kernel`` per layer without the taps (the rebuilds
+without the skip sum too), and the backward's layer launch in its float32
+recompute form (fg formed again in float32 from the operand rows staged
+over the tile's gradient rows) with the float32 save form's weight
+gradients; checkpoints, group buffers, dx and dctx in float32.  The other
+kernels take bf16 only, and raise for float32 with their ROADMAP.md
+B.2/B.4 item.
 """
 
 from __future__ import annotations
@@ -49,7 +57,9 @@ KERNEL_SOURCE = "movenet_tpu_torch/csrc/stack_kernel.cu"
 launch_counts: Dict[str, int] = {"stack_fwd": 0, "stack_bwd": 0,
                                  "stack_fwd_tails": 0, "stack_bwd_tails": 0,
                                  "stack_head_fwd": 0, "stack_head_bwd": 0,
-                                 "stack_fwd_f32": 0, "stack_bwd_f32": 0}
+                                 "stack_fwd_f32": 0, "stack_bwd_f32": 0,
+                                 "stack_fwd_tails_f32": 0,
+                                 "stack_bwd_tails_f32": 0}
 # blocks of the time-reduction launches: two per SM of an H100
 REDUCE_BLOCKS = 264
 # shared memory one block may use on sm_90
@@ -59,7 +69,6 @@ WIDTHS = ((16, 16), (32, 32), (64, 64), (64, 8), (32, 8), (16, 8))
 # what float32 on the card does not run yet, by kernel family (the forms
 # still to build under ROADMAP.md B.2/B.4, in its order)
 F32_UNBUILT = {
-    "recompute": "(1) the recompute forms",
     "non-embed": "(2) the non-embed save form",
     "merged": "(3) the merged forms",
     "gated": "(4) the gated forms",
@@ -70,8 +79,9 @@ F32_UNBUILT = {
 def f32_unbuilt(what: str, family: str, dtype) -> str:
     """The message of a float32 form that is not built yet."""
     return (f"{what} take the bfloat16 compute dtype, got {dtype}; float32 "
-            "on the card runs the save embed form and the head at C <= 128 "
-            f"only (ROADMAP.md B.2/B.4 {F32_UNBUILT[family]})")
+            "on the card runs the save embed form, the recompute forms and "
+            "the unpacked head only (ROADMAP.md B.2/B.4 "
+            f"{F32_UNBUILT[family]})")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -124,6 +134,12 @@ def bind(lib):
     lib.movenet_stack_bwd_tails.argtypes = [_P] * 9 + [_I, _P, _P, _I] \
         + [_P] * 6 + [_I] * 5 + [_P]
     lib.movenet_stack_bwd_tails.restype = _I
+    lib.movenet_stack_fwd_tails_f32.argtypes = \
+        lib.movenet_stack_fwd_tails.argtypes
+    lib.movenet_stack_fwd_tails_f32.restype = _I
+    lib.movenet_stack_bwd_tails_f32.argtypes = \
+        lib.movenet_stack_bwd_tails.argtypes
+    lib.movenet_stack_bwd_tails_f32.restype = _I
     lib.movenet_stack_blocks.argtypes = []
     lib.movenet_stack_blocks.restype = _I
     lib.movenet_stack_head_supports.argtypes = [_I, _I, _I]
@@ -190,22 +206,28 @@ def _wg_smem(n: int, ka: int, split_a: bool) -> int:
 
 
 def f32_smem(r: int, s: int, win: int) -> Dict[str, int]:
-    """Bytes of dynamic shared memory a block of each float32 save launch
-    takes, as csrc/stack_kernel.cu lays them out: the forward's layer
-    kernel (``F32Shape``: the 64-row operand tile, W_fg^T, W_out^T and the
-    gated rows, float32), the backward's layer kernel (``BwdShape``: W_out
-    and W_fg, then per pipeline the [dh | dskip] and dfg rows, whose dfg
-    rows hold the float32 taps first) and its weight-gradient launches
-    (W_fg from float32 activations, W_out from the float32 gated, W_up
-    from float32 xc).  ``win`` is W_in: 2R, or 3R with ctx."""
+    """Bytes of dynamic shared memory a block of each float32 save and
+    recompute launch takes, as csrc/stack_kernel.cu lays them out: the
+    forward's layer kernel (``F32Shape``: the 64-row operand tile, W_fg^T,
+    W_out^T and the gated rows, float32; the recompute forward and its
+    rebuilds launch it too), the save backward's layer kernel
+    (``BwdShape``: W_out and W_fg, then per pipeline the [dh | dskip] and
+    dfg rows, whose dfg rows hold the float32 taps first), the recompute
+    backward's (the same weights; per pipeline the tile holds the float32
+    [h | h(t-d) | ctx] rows first, then [dh | dskip] and dfg) and the
+    weight-gradient launches (W_fg from float32 activations, W_out from
+    the float32 gated, W_up from float32 xc).  ``win`` is W_in: 2R, or 3R
+    with ctx."""
     halves = 2 if r >= 64 else 1
     rows = 64 // halves
     ldd, ldf = r + s + 4, 2 * r + 4
+    weights = r * ldd + win * ldf
     return {
         "layer_fwd": 4 * (64 * (3 * r + 4) + 2 * r * (3 * r + 4)
                           + (r + s) * (r + 4) + 64 * (r + 4)),
-        "layer_bwd": 4 * (r * ldd + win * ldf
-                          + halves * rows * (ldd + ldf)),
+        "layer_bwd": 4 * (weights + halves * rows * (ldd + ldf)),
+        "layer_bwd_rc": 4 * (weights + halves * rows
+                             * max(ldd + ldf, 3 * r + 4)),
         "wgrad_fg": _wg_smem(2 * r, win, True),
         "wgrad_out": _wg_smem(r + s, r, True),
         "wgrad_up": _wg_smem(10 * r, r, True),
@@ -216,7 +238,7 @@ def _f32_fits(r: int, s: int, win: int) -> None:
     over = {k: v for k, v in f32_smem(r, s, win).items() if v > SMEM_LIMIT}
     if over:
         raise NotImplementedError(
-            f"the float32 save kernels at (R, S) = ({r}, {s}) need {over} "
+            f"the float32 trunk kernels at (R, S) = ({r}, {s}) need {over} "
             f"bytes of shared memory, above {SMEM_LIMIT} (ROADMAP.md B.2)")
 
 
@@ -423,54 +445,60 @@ def _tails_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations):
 def run_fwd_tails(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
                   stream=None, every=0):
     """Launch the recompute forward (outputs allocated here); returns
-    (skip_sum, ckpt) as ``stack_fwd_tails_plain``."""
+    (skip_sum, ckpt) as ``stack_fwd_tails_plain``.  float32 x and ctx take
+    the float32 form."""
     batch, t, n_layers, r, s, _ = _tails_check(lib, x, ctx, b_fg, w_fg,
                                                w_out, b_out, dilations)
     every = every or sk.tails_every(n_layers)
-    dev, bf = x.device, torch.bfloat16
-    skip = torch.empty(batch, t, s, dtype=bf, device=dev)
+    dev, act = x.device, x.dtype
+    skip = torch.empty(batch, t, s, dtype=act, device=dev)
     ckpt = torch.empty(len(sk.ckpt_layers(n_layers, every)), batch, t, r,
-                       dtype=bf, device=dev)
-    work = torch.empty(2, batch, t, r, dtype=bf, device=dev)
+                       dtype=act, device=dev)
+    work = torch.empty(2, batch, t, r, dtype=act, device=dev)
     skacc = torch.empty(batch * t, s, dtype=torch.float32, device=dev)
-    err = lib.movenet_stack_fwd_tails(
-        _ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
-        _dils(dilations), every, _ptr(skip), _ptr(ckpt), _ptr(work),
-        _ptr(skacc), batch, t, n_layers, r, s, stream)
-    _raise(err, "stack_fwd_tails")
+    f32 = act == torch.float32
+    fn = lib.movenet_stack_fwd_tails_f32 if f32 else \
+        lib.movenet_stack_fwd_tails
+    err = fn(_ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out),
+             _ptr(b_out), _dils(dilations), every, _ptr(skip), _ptr(ckpt),
+             _ptr(work), _ptr(skacc), batch, t, n_layers, r, s, stream)
+    _raise(err, "stack_fwd_tails_f32" if f32 else "stack_fwd_tails")
     return skip, ckpt
 
 
 def run_bwd_tails(lib, x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
                   dilations, stream=None, every=0):
     """Launch the recompute backward (outputs and scratch allocated
-    here); returns as ``stack_bwd_tails_plain``."""
+    here); returns as ``stack_bwd_tails_plain``.  float32 x, ckpt, ctx and
+    dskip take the float32 form."""
     batch, t, n_layers, r, s, win = _tails_check(lib, x, ctx, b_fg, w_fg,
                                                  w_out, b_out, dilations)
     every = every or sk.tails_every(n_layers)
-    dev, f32 = x.device, torch.float32
-    _check("ckpt", ckpt, torch.bfloat16,
+    dev, f32, act = x.device, torch.float32, x.dtype
+    _check("ckpt", ckpt, act,
            (len(sk.ckpt_layers(n_layers, every)), batch, t, r), dev)
-    _check("dskip", dskip, torch.bfloat16, (batch, t, s), dev)
+    _check("dskip", dskip, act, (batch, t, s), dev)
     chunks = max(1, REDUCE_BLOCKS // batch)
     scratch = torch.empty(
         lib.movenet_tails_bwd_scratch(batch, t, r, s, win, chunks),
         dtype=f32, device=dev)
-    group = torch.empty(max(every - 1, 1), batch, t, r, dtype=torch.bfloat16,
+    group = torch.empty(max(every - 1, 1), batch, t, r, dtype=act,
                         device=dev)
-    dx = torch.empty(batch, t, r, dtype=torch.bfloat16, device=dev)
+    dx = torch.empty(batch, t, r, dtype=act, device=dev)
     dctx = torch.empty_like(dx) if ctx is not None else None
     db_fg = torch.empty(n_layers * batch, 2 * r, dtype=f32, device=dev)
     dw_fg = torch.empty(n_layers, win, 2 * r, dtype=f32, device=dev)
     dw_out = torch.empty(n_layers, r, r + s, dtype=f32, device=dev)
     db_out = torch.empty(n_layers, r + s, dtype=f32, device=dev)
-    err = lib.movenet_stack_bwd_tails(
-        _ptr(x), _ptr(ckpt), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out),
-        _ptr(b_out), _ptr(dskip), _dils(dilations), every, _ptr(group),
-        _ptr(scratch), chunks, _ptr(dx), _ptr(dctx), _ptr(db_fg),
-        _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), batch, t, n_layers, r, s,
-        stream)
-    _raise(err, "stack_bwd_tails")
+    f32_form = act == f32
+    fn = lib.movenet_stack_bwd_tails_f32 if f32_form else \
+        lib.movenet_stack_bwd_tails
+    err = fn(_ptr(x), _ptr(ckpt), _ptr(ctx), _ptr(b_fg), _ptr(w_fg),
+             _ptr(w_out), _ptr(b_out), _ptr(dskip), _dils(dilations), every,
+             _ptr(group), _ptr(scratch), chunks, _ptr(dx), _ptr(dctx),
+             _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), batch, t,
+             n_layers, r, s, stream)
+    _raise(err, "stack_bwd_tails_f32" if f32_form else "stack_bwd_tails")
     return dx, dctx, db_fg, dw_fg, dw_out, db_out
 
 
@@ -478,17 +506,23 @@ def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what,
              family):
     """Checks of the kernels that start from x (the non-embed save form,
     the merged and the recompute kernels; ``family`` names their float32
-    item in ``F32_UNBUILT``): (B, T, L, R, S, W_in)."""
+    item in ``F32_UNBUILT``, or is "recompute", whose float32 form is
+    built): (B, T, L, R, S, W_in)."""
     batch, t, r = x.shape
     n_layers = len(dilations)
     s = w_out.shape[2] - r
     dev = x.device
-    if x.dtype != torch.bfloat16:
+    if family == "recompute":
+        if x.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"{what} take the bfloat16 or float32 compute "
+                             f"dtype, got {x.dtype}")
+    elif x.dtype != torch.bfloat16:
         raise ValueError(f32_unbuilt(what, family, x.dtype))
-    _check("x", x, torch.bfloat16, device=dev)
+    act = x.dtype
+    _check("x", x, act, device=dev)
     win = (3 if ctx is not None else 2) * r
     if ctx is not None:
-        _check("ctx", ctx, torch.bfloat16, (batch, t, r), dev)
+        _check("ctx", ctx, act, (batch, t, r), dev)
     _check("b_fg", b_fg, torch.float32, (n_layers * batch, 2 * r), dev)
     _check("w_fg", w_fg, torch.float32, (n_layers, win, 2 * r), dev)
     _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
@@ -498,6 +532,8 @@ def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what,
             f"the trunk kernels are built for (R, S) in (16, 16), (32, "
             f"32), (64, 64), (64, 8), (32, 8), (16, 8); got ({r}, {s}) "
             "(ROADMAP.md B.2)")
+    if act == torch.float32:
+        _f32_fits(r, s, win)
     return batch, t, n_layers, r, s, win
 
 
@@ -651,7 +687,8 @@ def stack_fwd_tails(x, ctx, b_fg, w_fg, w_out, b_out,
                                         dilations)
     out = run_fwd_tails(library(), x, ctx, b_fg, w_fg, w_out, b_out,
                         dilations, _stream(x))
-    launch_counts["stack_fwd_tails"] += 1
+    launch_counts["stack_fwd_tails_f32" if x.dtype == torch.float32
+                  else "stack_fwd_tails"] += 1
     return out
 
 
@@ -664,7 +701,8 @@ def stack_bwd_tails(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
                                         b_out, dskip, dilations)
     out = run_bwd_tails(library(), x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
                         dskip, dilations, _stream(x))
-    launch_counts["stack_bwd_tails"] += 1
+    launch_counts["stack_bwd_tails_f32" if x.dtype == torch.float32
+                  else "stack_bwd_tails"] += 1
     return out
 
 

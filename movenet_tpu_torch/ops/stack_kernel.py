@@ -599,6 +599,28 @@ def stack_bwd_f32_split(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
             dw_out, db_out, dwup_aug)
 
 
+def stack_fwd_tails_f32_split(x, ctx, b_fg, w_fg, w_out, b_out,
+                              dilations: Sequence[int], every: int = 0):
+    """``stack_fwd_tails_plain`` in float32 as the float32 recompute
+    forward kernels compute it: fg and out from split-TF32 products, layer
+    by layer (skip_sum, ckpt in float32)."""
+    return stack_fwd_tails_plain(
+        x.float(), ctx.float() if ctx is not None else None, b_fg, w_fg,
+        w_out, b_out, dilations, every, split_matmul)
+
+
+def stack_bwd_tails_f32_split(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
+                              dskip, dilations: Sequence[int],
+                              every: int = 0):
+    """``stack_bwd_tails_plain`` in float32 as the float32 recompute
+    backward kernels compute it: the rebuilt layers' products, fg again and
+    the four products of every layer split-TF32 (same returns)."""
+    return stack_bwd_tails_plain(
+        x.float(), ckpt.float(), ctx.float() if ctx is not None else None,
+        b_fg, w_fg, w_out, b_out, dskip.float(), dilations, every,
+        split_matmul)
+
+
 # ------------------------------------------- tensor-core summation order
 # The trunk's layer kernel (csrc/stack_kernel.cu stack_layer_kernel, every
 # forward form) runs its products as bf16 mma.sync m16n8k16: each 16-wide k
@@ -778,11 +800,12 @@ def ckpt_layers(n_layers: int, every: int) -> range:
     return range(every, n_layers, every)
 
 
-def _tails_layer(h, ctxf, bfg, w_fg, w_out, b_out, d, dt):
+def _tails_layer(h, ctxf, bfg, w_fg, w_out, b_out, d, dt,
+                 mm=torch.matmul):
     """One layer of the recompute forward from h (float32 holding
     compute-dtype values): (the next h, rounded; the skip part), with
     the weights rounded to ``dt`` and ``gated`` from the unrounded
-    taps, rounded as a product operand."""
+    taps, rounded as a product operand.  ``mm`` forms both products."""
     f32 = torch.float32
 
     def rnd(v):
@@ -790,21 +813,21 @@ def _tails_layer(h, ctxf, bfg, w_fg, w_out, b_out, d, dt):
 
     r = h.shape[-1]
     parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
-    fg = torch.matmul(torch.cat(parts, dim=-1), rnd(w_fg)) + bfg
+    fg = mm(torch.cat(parts, dim=-1), rnd(w_fg)) + bfg
     gated = torch.tanh(fg[..., :r]) * torch.sigmoid(fg[..., r:])
-    out = torch.matmul(rnd(gated), rnd(w_out)) + b_out.to(f32)
+    out = mm(rnd(gated), rnd(w_out)) + b_out.to(f32)
     return rnd(out[..., :r] + h), out[..., r:]
 
 
 def _tails_rebuild(h, ctxf, bfg, w_fg, w_out, b_out, dilations, dt,
-                   lo: int, hi: int):
+                   lo: int, hi: int, mm=torch.matmul):
     """The inputs h_lo .. h_{hi-1} of layers [lo, hi) from h = h_lo, and
     the skip sum of those layers (float32)."""
     hs, skip = [], None
     for l in range(lo, hi):
         hs.append(h)
         h, sk = _tails_layer(h, ctxf, bfg[l], w_fg[l], w_out[l], b_out[l],
-                             dilations[l], dt)
+                             dilations[l], dt, mm)
         skip = sk if skip is None else skip + sk
     return hs, skip
 
@@ -817,25 +840,30 @@ def _tails_consts(x, ctx, b_fg, dilations):
 
 
 def stack_fwd_tails_plain(x, ctx, b_fg, w_fg, w_out, b_out,
-                          dilations: Sequence[int], every: int = 0):
+                          dilations: Sequence[int], every: int = 0,
+                          mm=torch.matmul):
     """(skip_sum (B,T,S), ckpt (n_ckpt, B, T, R)), both in x's dtype (the
     compute dtype): ckpt[i] is the input of layer (i + 1) k, k = every or
-    ``tails_every(L)``.  ctx is None or flat (B,T,R) in that dtype."""
+    ``tails_every(L)``.  ctx is None or flat (B,T,R) in that dtype.
+    ``mm`` forms the products (``split_matmul``: as the float32 kernels
+    form them)."""
     n_layers = len(dilations)
     every = every or tails_every(n_layers)
     bfg, ctxf = _tails_consts(x, ctx, b_fg, dilations)
     hs, skip = _tails_rebuild(x.to(torch.float32), ctxf, bfg, w_fg, w_out,
-                              b_out, dilations, x.dtype, 0, n_layers)
+                              b_out, dilations, x.dtype, 0, n_layers, mm)
     keep = [hs[l] for l in ckpt_layers(n_layers, every)]
     ckpt = torch.stack(keep) if keep else x.new_zeros((0,) + x.shape)
     return skip.to(x.dtype), ckpt.to(x.dtype)
 
 
 def stack_bwd_tails_plain(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
-                          dilations: Sequence[int], every: int = 0):
+                          dilations: Sequence[int], every: int = 0,
+                          mm=None):
     """The backward of ``stack_fwd_tails_plain``: (dx (B,T,R), dctx (B,T,R)
     or None, both in x's dtype; db_fg (L*B, 2R), dw_fg (L, W_in, 2R),
-    dw_out (L, R+S), db_out (L, R+S) in float32).
+    dw_out (L, R+S), db_out (L, R+S) in float32).  ``mm`` forms the
+    products (``hl.row_products``).
 
     Group by group from the top, as the kernels: each group's layer
     inputs rebuilt from its checkpoint (x for the first), then its layers
@@ -849,6 +877,7 @@ def stack_bwd_tails_plain(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
         raise ValueError(f"{ckpt.shape[0]} checkpoints, expected "
                          f"{len(ckpt_layers(n_layers, every))} for L="
                          f"{n_layers}, every {every}")
+    prod, wgrad = hl.row_products(mm)
     bfg, ctxf = _tails_consts(x, ctx, b_fg, dilations)
     dsk = dskip.to(f32)
     dh = torch.zeros(batch, t, r, dtype=f32, device=x.device)
@@ -858,23 +887,23 @@ def stack_bwd_tails_plain(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
         hi = min(lo + every, n_layers)
         h0 = x if lo == 0 else ckpt[lo // every - 1]
         hs, _ = _tails_rebuild(h0.to(f32), ctxf, bfg, w_fg, w_out, b_out,
-                               dilations, dt, lo, hi)
+                               dilations, dt, lo, hi, prod)
         for l in reversed(range(lo, hi)):
             d = dilations[l]
             h = hs[l - lo]
             parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
             hp = torch.cat(parts, dim=-1)
-            fg = torch.matmul(hp, w_fg[l].to(dt).to(f32)) + bfg[l]
+            fg = prod(hp, w_fg[l].to(dt).to(f32)) + bfg[l]
             tf, sg = torch.tanh(fg[..., :r]), torch.sigmoid(fg[..., r:])
             dout = torch.cat([dh, dsk], dim=-1)
-            dgated = torch.matmul(dout, w_out[l].to(f32).t())
+            dgated = prod(dout, w_out[l].to(f32).t())
             dfg = torch.cat([dgated * (sg * (1.0 - tf * tf)),
                              dgated * (tf * (sg - sg * sg))], dim=-1)
-            dw_fg[l] = torch.einsum("btk,btj->kj", hp, dfg)
+            dw_fg[l] = wgrad(hp, dfg)
             db_fg[l] = dfg.sum(dim=1)
-            dw_out[l] = torch.einsum("btk,btj->kj", tf * sg, dout)
+            dw_out[l] = wgrad(tf * sg, dout)
             db_out[l] = dout.sum(dim=(0, 1))
-            dfg_w = torch.matmul(dfg, w_fg[l].to(f32).t())
+            dfg_w = prod(dfg, w_fg[l].to(f32).t())
             dh = dh + dfg_w[..., :r]
             dh = dh + _unshift(dfg_w[..., r:2 * r], d)
             if dctx is not None:

@@ -1,8 +1,9 @@
-"""The float32 forms of the save trunk and unpacked head kernels
-(csrc/stack_kernel.cu ``stack_layer_f32_kernel`` and the backward's float32
-form, csrc/head_loss.cu ``head_fwd_f32_kernel`` / ``head_bwd_f32_kernel``)
-on the CPU, where no card runs them: their product scheme, their shared
-memory and their refusals.
+"""The float32 forms of the save and recompute trunk and unpacked head
+kernels (csrc/stack_kernel.cu ``stack_layer_f32_kernel`` and the
+backward's float32 forms, csrc/head_loss.cu ``head_fwd_f32_kernel`` /
+``head_bwd_f32_kernel`` and, above C = 128, their wide forms) on the CPU,
+where no card runs them: their product scheme, their shared memory and
+their refusals.
 
 * The split product with both operands float32.  Each of the kernels'
   products (``ops/stack_kernel.F32_SPLIT_PASSES``) emulated with
@@ -17,14 +18,23 @@ memory and their refusals.
   projection triple: skip, hsave and tfsg within 1e-5 of each output's
   scale, every gradient within 1e-4 of its scale, the bars chip_smoke.py
   holds the kernels to on the card.
+* The emulated float32 recompute trunk (``stack_fwd_tails_f32_split`` /
+  ``stack_bwd_tails_f32_split``: the rebuilt layers and every product
+  split-TF32) against JAX's ``fused_stack(..., strategy="recompute")`` in
+  float32 (its tails kernels in interpret mode) at R = S = 16, T = 512
+  with ``DIL`` and T = 1280 with ``DIL_WIDE`` (sum(d) = 510), with and
+  without ctx: skip within 1e-5 of its scale, every gradient within 1e-4.
 * The emulated float32 head (``head_fwd_plain`` / ``head_bwd_plain`` with
   ``split_matmul``) against JAX's ``fused_head_loss`` in float32 at (S,
-  C) = (8, 64) and (8, 128), parity on and off: loss rtol 1e-5, the match
-  count equal, every gradient within 1e-4 of its scale.
+  C) = (8, 64), (8, 128), (8, 256) and (64, 256), parity on and off: loss
+  rtol 1e-5, the match count equal, every gradient within 1e-4 of its
+  scale.
 * The byte counts (``f32_smem``): every built (R, S) pair's float32 save
-  launches and every float32 head at S <= 64, C <= 128 fit a block's
-  232,448 bytes; the float32 head at C = 256 is refused with the B.4
-  label; mixed activation dtypes are refused, naming the tensors.
+  and recompute launches and every float32 head at S <= 64, C <= 256 fit
+  a block's 232,448 bytes; the float32 head at C = 260 is refused with the
+  B.4 label; mixed activation dtypes are refused, naming the tensors; the
+  float32 recompute forms are taken where the merged and non-embed forms
+  still refuse float32.
 """
 
 import numpy as np
@@ -46,6 +56,8 @@ torch.set_num_threads(2)
 B, R, S, V = 2, 16, 16, 64
 DIL = (1, 2, 4, 1, 2, 4)
 L = len(DIL)
+# layer 8 x stack 2: sum(d) = 510; JAX's recompute tile at T = 1280 is 256
+DIL_WIDE = tuple(2 ** i for i in range(8)) * 2
 ROWS = 4096
 
 
@@ -186,8 +198,63 @@ def test_f32_trunk_emulation_matches_jax(proj, t):
         _close(name, got[name], want, 1e-4)
 
 
+# ------------------------------------- the recompute trunk against JAX
+def _tails_inputs(t, has_ctx, n_layers, seed=1):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    win = (3 if has_ctx else 2) * R
+    a = dict(
+        x=(rng.standard_normal((B, t, R)) * 0.5).astype(f),
+        b_fg=(rng.standard_normal((n_layers * B, 2 * R)) * 0.1).astype(f),
+        w_fg=(rng.standard_normal((n_layers, win, 2 * R))
+              / np.sqrt(win)).astype(f),
+        w_out=(rng.standard_normal((n_layers, R, R + S))
+               / np.sqrt(R)).astype(f),
+        b_out=(rng.standard_normal((n_layers, R + S)) * 0.1).astype(f),
+        dskip=(rng.standard_normal((B, t, S)) * 0.1).astype(f))
+    if has_ctx:
+        a["ctx"] = (rng.standard_normal((B, t, R)) * 0.5).astype(f)
+    return a
+
+
+@pytest.mark.parametrize("has_ctx", [False, True])
+@pytest.mark.parametrize("dil,t", [(DIL, 512), (DIL_WIDE, 1280)])
+def test_f32_recompute_emulation_matches_jax(has_ctx, dil, t):
+    """The float32 recompute kernels' products, emulated layer by layer
+    (the forward's, the rebuilt layers', fg again and the gradients'),
+    against JAX's tails kernels in float32: skip within 1e-5 of its
+    scale, dx, dctx and every weight gradient within 1e-4 of theirs."""
+    a = _tails_inputs(t, has_ctx, len(dil))
+    names = ["x"] + (["ctx"] if has_ctx else []) + \
+        ["b_fg", "w_fg", "w_out", "b_out"]
+
+    def op(*xs):
+        d = dict(zip(names, xs))
+        return jsk.fused_stack(d["x"], d.get("ctx"), d["b_fg"], d["w_fg"],
+                               d["w_out"], d["b_out"], dil, True,
+                               "recompute")
+
+    want_skip, vjp = jax.vjp(op, *[jnp.asarray(a[n]) for n in names])
+    want_g = dict(zip(names, vjp(jnp.asarray(a["dskip"]))))
+    ts = {n: torch.from_numpy(v) for n, v in a.items()}
+    args = (ts["x"], ts.get("ctx"), ts["b_fg"], ts["w_fg"], ts["w_out"],
+            ts["b_out"], dil)
+    skip, ckpt = sk.stack_fwd_tails_f32_split(*args)
+    assert skip.dtype == ckpt.dtype == torch.float32
+    assert ckpt.shape[0] == len(sk.ckpt_layers(len(dil),
+                                               sk.tails_every(len(dil))))
+    _close("skip", skip, np.asarray(want_skip), 1e-5)
+    dx, dctx, db_fg, dw_fg, dw_out, db_out = sk.stack_bwd_tails_f32_split(
+        ts["x"], ckpt, *args[1:-1], ts["dskip"], dil)
+    got = {"x": dx, "ctx": dctx, "b_fg": db_fg, "w_fg": dw_fg,
+           "w_out": dw_out, "b_out": db_out}
+    for name in names:
+        assert got[name].dtype == torch.float32
+        _close(name, got[name], np.asarray(want_g[name]), 1e-4)
+
+
 # ------------------------------------------------- the head against JAX
-@pytest.mark.parametrize("s,c", [(8, 64), (8, 128)])
+@pytest.mark.parametrize("s,c", [(8, 64), (8, 128), (8, 256), (64, 256)])
 @pytest.mark.parametrize("parity", [True, False])
 def test_f32_head_emulation_matches_jax(s, c, parity):
     t, rf = 1024, 15
@@ -235,20 +302,45 @@ def test_f32_head_emulation_matches_jax(s, c, parity):
 def test_f32_save_launches_fit_a_block(r, s):
     for win in (2 * r, 3 * r):
         smem = ks.f32_smem(r, s, win)
-        assert set(smem) == {"layer_fwd", "layer_bwd", "wgrad_fg",
-                             "wgrad_out", "wgrad_up"}
+        assert set(smem) == {"layer_fwd", "layer_bwd", "layer_bwd_rc",
+                             "wgrad_fg", "wgrad_out", "wgrad_up"}
         assert max(smem.values()) <= ks.SMEM_LIMIT, (win, smem)
         ks._f32_fits(r, s, win)
 
 
+@pytest.mark.parametrize("r,s", ks.WIDTHS)
+@pytest.mark.parametrize("has_ctx", [False, True])
+def test_f32_recompute_launches_fit_a_block(r, s, has_ctx):
+    """The float32 recompute backward's layer launch stages each tile's
+    float32 [h | h(t-d) | ctx] rows (3R + 4 floats a row) over its [dh |
+    dskip] and dfg rows (R + S + 4 and 2R + 4), so it takes the float32
+    save backward's bytes; at (64, 64) with ctx that is 202,752 of a
+    block's 232,448, where the operand rows beside the tile would need
+    50,176 more.  The recompute forward and its rebuilds launch the save
+    forward's layer kernel."""
+    win = (3 if has_ctx else 2) * r
+    smem = ks.f32_smem(r, s, win)
+    assert 3 * r + 4 <= (r + s + 4) + (2 * r + 4)
+    assert smem["layer_bwd_rc"] == smem["layer_bwd"] <= ks.SMEM_LIMIT
+    if (r, s, has_ctx) == (64, 64, True):
+        assert smem["layer_bwd_rc"] == 202_752
+        assert smem["layer_bwd"] + 2 * 32 * (3 * r + 4) * 4 > ks.SMEM_LIMIT
+    for k in ("layer_fwd", "wgrad_fg", "wgrad_out"):
+        assert smem[k] <= ks.SMEM_LIMIT, (k, smem)
+
+
 def test_f32_heads_fit_a_block_up_to_c128():
+    """Every float32 head at S <= 64, C <= 256 fits a block (above C = 128
+    the wide kernels' W1 and ring of W2 rows); C = 260 is refused with the
+    B.4 label.  W2 staged whole, (256, 264) floats, would be 270,336
+    bytes."""
     for s in range(4, 65, 4):
-        for c in range(4, 129, 4):
+        for c in range(4, 257, 4):
             assert max(kh.f32_smem(s, c).values()) <= ks.SMEM_LIMIT, (s, c)
             kh._f32_widths(s, c)
-    # W2 alone, (256, 264) floats, is 270,336 bytes
-    assert kh.f32_smem(8, 256)["fwd"] > ks.SMEM_LIMIT
-    for s, c in ((8, 256), (64, 256), (8, 132)):
+    assert 256 * 264 * 4 > ks.SMEM_LIMIT
+    assert max(kh.f32_smem(64, 256).values()) == 189_440
+    for s, c in ((8, 260), (64, 260), (68, 64)):
         with pytest.raises(NotImplementedError, match=r"B\.4"):
             kh._f32_widths(s, c)
 
@@ -271,6 +363,36 @@ def test_unbuilt_f32_forms_name_their_roadmap_item():
         assert f"ROADMAP.md B.2/B.4 {item}" in msg
 
 
+class _Built:
+    """A stand-in for the kernel library: every width built."""
+
+    @staticmethod
+    def movenet_stack_supports(r, s):
+        return 1
+
+
+def test_f32_recompute_is_taken_where_merged_and_non_embed_refuse():
+    """_x_check takes float32 x and ctx for the recompute family and
+    refuses them, with their B.2/B.4 item, for the non-embed save and the
+    merged forms; a float16 x is refused for every family."""
+    a = _tails_inputs(256, True, L)
+    ts = {n: torch.from_numpy(v) for n, v in a.items()}
+    args = (ts["x"], ts["ctx"], ts["b_fg"], ts["w_fg"], ts["w_out"],
+            ts["b_out"], DIL)
+    assert ks._x_check(_Built, *args, "the recompute kernels",
+                       "recompute") == (B, 256, L, R, S, 3 * R)
+    for family in ("non-embed", "merged"):
+        with pytest.raises(ValueError, match=r"B\.2/B\.4 \((2|3)\)"):
+            ks._x_check(_Built, *args, "the kernels", family)
+    with pytest.raises(ValueError, match="torch.float16"):
+        ks._x_check(_Built, ts["x"].half(), *args[1:], "the recompute "
+                    "kernels", "recompute")
+    with pytest.raises(ValueError, match="ctx is torch.bfloat16"):
+        ks._x_check(_Built, ts["x"], ts["ctx"].bfloat16(), *args[2:],
+                    "the recompute kernels", "recompute")
+    assert "recompute" not in ks.F32_UNBUILT
+
+
 def test_f32_on_the_cpu_runs_the_plain_versions():
     """The wrappers take the plain versions for float32 CPU tensors and
     count no launch."""
@@ -282,4 +404,9 @@ def test_f32_on_the_cpu_runs_the_plain_versions():
     got = ks.stack_fwd(*args)
     for x, y in zip(got, sk.stack_fwd_plain(*args)):
         assert torch.equal(x, y)
+    tails = (got[1][0][:, :256].contiguous(), None, ts["b_fg"], ts["w_fg"],
+             ts["w_out"], ts["b_out"], DIL)
+    skip, ckpt = ks.stack_fwd_tails(*tails)
+    for x, y in zip((skip, ckpt), sk.stack_fwd_tails_plain(*tails)):
+        assert x.dtype == torch.float32 and torch.equal(x, y)
     assert {**ks.launch_counts, **kh.launch_counts} == before

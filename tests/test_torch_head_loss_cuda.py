@@ -22,9 +22,10 @@ the packed kernels moved to the tensor cores (digests).  The packed
 kernels (split-TF32 tensor cores since then) hold the plain versions'
 tolerances above.
 
-The float32 forms (a float32 skip, S <= 64, C <= 128) take float32 inputs
-that are not bf16 values: loss rtol 1e-5, the match count equal, p within
-1e-5, every gradient (dskip too) within 1e-4 of its scale, two calls
+The float32 forms (a float32 skip, S <= 64, C <= 256: above C = 128 the
+wide kernels, W2 through a ring of row slabs) take float32 inputs that are
+not bf16 values: loss rtol 1e-5, the match count equal, p within 1e-5,
+every gradient (dskip too) within 1e-4 of its scale, two calls
 bit-equal."""
 
 import hashlib
@@ -127,7 +128,9 @@ def test_wide_head_kernels_match_plain(cuda, s, c, t, parity):
 @pytest.mark.parametrize("s,c,t", [(16, 64, 4000), (64, 64, 10000),
                                    (8, 64, 999), (8, 128, 4000),
                                    (64, 128, 2000), (12, 36, 2000),
-                                   (4, 4, 1000)])
+                                   (4, 4, 1000), (12, 132, 2000),
+                                   (16, 192, 2000), (8, 256, 999),
+                                   (64, 256, 4000)])
 @pytest.mark.parametrize("parity", [True, False])
 def test_head_kernels_match_plain_f32(cuda, s, c, t, parity):
     batch, rf = 2, 24
@@ -136,9 +139,11 @@ def test_head_kernels_match_plain_f32(cuda, s, c, t, parity):
     args = (a["skip"], a["pack"], a["w1"], a["b1"], a["w2"], a["b2"], rf,
             parity, 2 * batch)
     n0 = dict(kh.launch_counts)
+    # above C = 128 the wide kernels, counted apart
+    form = "_f32_wide" if c > kh.F32_RING_C else "_f32"
     loss, match, p = kh.head_fwd(*args)
     torch.cuda.synchronize()
-    assert kh.launch_counts["head_fwd_f32"] == n0["head_fwd_f32"] + 1
+    assert kh.launch_counts["head_fwd" + form] == n0["head_fwd" + form] + 1
     assert kh.launch_counts["head_fwd"] == n0["head_fwd"]
     wl, wm, wp = hl.head_fwd_plain(*args)
     np.testing.assert_allclose(float(loss), float(wl), rtol=1e-5)
@@ -152,7 +157,7 @@ def test_head_kernels_match_plain_f32(cuda, s, c, t, parity):
              rf, parity, dloss, 2 * batch)
     got = kh.head_bwd(*bargs)
     torch.cuda.synchronize()
-    assert kh.launch_counts["head_bwd_f32"] == n0["head_bwd_f32"] + 1
+    assert kh.launch_counts["head_bwd" + form] == n0["head_bwd" + form] + 1
     assert kh.launch_counts["head_bwd"] == n0["head_bwd"]
     want = hl.head_bwd_plain(*bargs)
     for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"), got, want):
@@ -163,7 +168,7 @@ def test_head_kernels_match_plain_f32(cuda, s, c, t, parity):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,c", [(16, 64), (8, 128)])
+@pytest.mark.parametrize("s,c", [(16, 64), (8, 128), (64, 256), (12, 132)])
 def test_head_f32_kernels_repeat_bit_equal(cuda, s, c):
     """Two calls of each float32 kernel give the same bits."""
     batch, t, rf = 2, 3000, 24
@@ -184,7 +189,7 @@ def test_head_f32_kernels_repeat_bit_equal(cuda, s, c):
 @pytest.mark.cuda
 def test_head_f32_smem_mirrors_the_library(cuda):
     """ops/cuda/head_loss.f32_smem gives the library's own sizes, and the
-    float32 kernels take exactly S <= 64, C <= 128 (multiples of 4)."""
+    float32 kernels take exactly S <= 64, C <= 256 (multiples of 4)."""
     lib = kh.library()
     for s in range(4, 69, 4):
         for c in range(4, 261, 4):
@@ -192,7 +197,7 @@ def test_head_f32_smem_mirrors_the_library(cuda):
             assert lib.movenet_head_f32_smem(s, c, 0) == want["fwd"], (s, c)
             assert lib.movenet_head_f32_smem(s, c, 1) == want["bwd"], (s, c)
             assert bool(lib.movenet_head_f32_supports(s, c)) == \
-                (s <= 64 and c <= 128), (s, c)
+                (s <= 64 and c <= 256), (s, c)
 
 
 @pytest.mark.cuda
@@ -332,11 +337,11 @@ def test_head_wrapper_rejects_wrong_inputs(cuda):
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         kh.head_fwd(a["skip"].double(), a["pack"], a["w1"], a["b1"],
                     a["w2"], a["b2"], 24, True, 4)
-    # the float32 head at C = 256 is not built (W2 alone takes 270 KB)
+    # no head is built above C = 256, in float32 either
     with pytest.raises(NotImplementedError, match="B.4"):
-        w2 = torch.zeros(256, 256, device=cuda)
-        w1 = torch.zeros(16, 256, device=cuda)
-        b = torch.zeros(256, device=cuda)
+        w2 = torch.zeros(260, 260, device=cuda)
+        w1 = torch.zeros(16, 260, device=cuda)
+        b = torch.zeros(260, device=cuda)
         kh.head_fwd(a["skip"].float(), a["pack"], w1, b, w2, b, 24, True, 4)
     with pytest.raises(ValueError, match=r"B.2/B.4 \(5\)"):
         kh.head_fwd_packed(a["skip"].float(), a["pack"][:, :2].contiguous(),

@@ -23,7 +23,10 @@ pass of TF32 would miss 1e-4 (tests/test_torch_split_tf32.py).
 The float32 forms (the float32 compute dtype: table2, ctx and dskip in
 float32) take float32 inputs that are not bf16 values, so that every split
 counts: the forward within 1e-5 of each output's scale, every gradient
-(dctx too) within 1e-4 of its scale, two calls bit-equal."""
+(dctx too) within 1e-4 of its scale, two calls bit-equal.  The recompute
+kernels' float32 forms (x, ctx and dskip float32) are held to the same
+bars (dx too), their rebuild to the forward's own layer outputs bit for
+bit."""
 
 import numpy as np
 import pytest
@@ -191,6 +194,8 @@ def test_f32_smem_mirrors_the_library(cuda):
             want = ks.f32_smem(r, s, win)
             got = {"layer_fwd": lib.movenet_stack_layer_smem(r, s, 3),
                    "layer_bwd": lib.movenet_stack_bwd_smem(r, s, win, -3),
+                   "layer_bwd_rc": lib.movenet_stack_bwd_smem(r, s, win,
+                                                              -4),
                    "wgrad_fg": lib.movenet_stack_bwd_smem(r, s, win, 4),
                    "wgrad_out": lib.movenet_stack_bwd_smem(r, s, win, 6),
                    "wgrad_up": lib.movenet_stack_bwd_smem(r, s, win, 5)}
@@ -253,9 +258,12 @@ DIL_WIDE = tuple(2 ** i for i in range(8)) * 2
 DIL_FLAGSHIP = tuple(2 ** i for i in range(10)) * 3
 
 
-def _tails_args(dev, t, r, s, has_ctx, dil, batch=2, seed=3):
+def _tails_args(dev, t, r, s, has_ctx, dil, batch=2, seed=3,
+                dtype=torch.bfloat16):
+    """Seeded inputs of the recompute kernels, x, ctx and dskip in
+    dtype."""
     g = torch.Generator().manual_seed(seed)
-    n, win, bf = len(dil), (3 if has_ctx else 2) * r, torch.bfloat16
+    n, win, bf = len(dil), (3 if has_ctx else 2) * r, dtype
 
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
@@ -372,6 +380,103 @@ def test_tails_wrapper_rejects_wrong_inputs(cuda):
         ks.stack_fwd_tails(x, args[1], args[2], args[3],
                            torch.zeros(n, 16, 20, device=cuda),
                            torch.zeros(n, 20, device=cuda), DIL)
+
+
+# the float32 recompute forms at the six built (R, S) pairs with and
+# without ctx, and the flagship's widths and dilations
+TAILS_F32_CASES = [
+    (16, 16, 1280, False, DIL_WIDE), (16, 16, 1280, True, DIL_WIDE),
+    (32, 32, 1280, True, DIL_WIDE), (32, 32, 1280, False, DIL_WIDE),
+    (64, 64, 1280, True, DIL_WIDE), (64, 64, 1280, False, DIL_WIDE),
+    (64, 8, 1280, False, DIL_WIDE), (64, 8, 1000, True, DIL),
+    (32, 8, 1280, False, DIL_WIDE), (32, 8, 1280, True, DIL_WIDE),
+    (16, 8, 1280, True, DIL_WIDE), (16, 8, 1000, False, DIL),
+    (64, 64, 3200, True, DIL_FLAGSHIP),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,t,has_ctx,dil", TAILS_F32_CASES)
+def test_tails_kernels_match_plain_f32(cuda, r, s, t, has_ctx, dil):
+    """The float32 recompute kernels against their plain versions (TF32
+    off): skip and the checkpoints within 1e-5 of their scale, then from
+    the plain checkpoints dx, dctx and every weight gradient within 1e-4
+    of theirs; counted apart from the bf16 forms."""
+    args, dskip = _tails_args(cuda, t, r, s, has_ctx, dil,
+                              dtype=torch.float32)
+    before = dict(ks.launch_counts)
+    got = ks.stack_fwd_tails(*args)
+    torch.cuda.synchronize()
+    assert ks.launch_counts["stack_fwd_tails_f32"] == \
+        before["stack_fwd_tails_f32"] + 1
+    assert ks.launch_counts["stack_fwd_tails"] == before["stack_fwd_tails"]
+    want = sk.stack_fwd_tails_plain(*args)
+    for name, u, w in zip(("skip", "ckpt"), got, want):
+        assert u.dtype == torch.float32 and u.shape == w.shape, name
+        if not w.numel():
+            continue
+        u, w = u.cpu().numpy(), w.cpu().numpy()
+        np.testing.assert_allclose(u, w, rtol=0, atol=1e-5 * np.abs(w).max(),
+                                   err_msg=name)
+    bargs = (args[0], want[1], *args[1:-1], dskip, dil)
+    got = ks.stack_bwd_tails(*bargs)
+    torch.cuda.synchronize()
+    assert ks.launch_counts["stack_bwd_tails_f32"] == \
+        before["stack_bwd_tails_f32"] + 1
+    assert ks.launch_counts["stack_bwd_tails"] == before["stack_bwd_tails"]
+    want = sk.stack_bwd_tails_plain(*bargs)
+    for name, u, w in zip(("dx", "dctx", "db_fg", "dw_fg", "dw_out",
+                           "db_out"), got, want):
+        if w is None:
+            assert u is None, name
+            continue
+        assert u.dtype == torch.float32, name
+        u, w = u.cpu().numpy(), w.cpu().numpy()
+        np.testing.assert_allclose(u, w, rtol=0, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,has_ctx,dil", [
+    (64, 64, True, DIL_FLAGSHIP), (64, 8, True, DIL_WIDE),
+    (16, 8, False, DIL_WIDE), (32, 32, False, DIL_WIDE),
+])
+def test_tails_f32_rebuild_is_bit_equal_to_the_forward(cuda, r, s, has_ctx,
+                                                       dil):
+    """In float32 as in bf16: the forward with a checkpoint at every layer
+    keeps the layer outputs its default checkpoints hold, bit for bit, and
+    the backward from every layer's input equals the default backward,
+    whose groups the same layer kernel rebuilds."""
+    args, dskip = _tails_args(cuda, 1600, r, s, has_ctx, dil,
+                              dtype=torch.float32)
+    n = len(dil)
+    lib = ks.library()
+    skip, every_layer = ks.run_fwd_tails(lib, *args, every=1)
+    assert every_layer.shape[0] == n - 1
+    skip_k, ckpt = ks.run_fwd_tails(lib, *args)
+    assert torch.equal(skip_k, skip)
+    for i, l in enumerate(sk.ckpt_layers(n, sk.tails_every(n))):
+        assert torch.equal(ckpt[i], every_layer[l - 1])
+    tail = (*args[1:-1], dskip, dil)
+    no_rebuild = ks.run_bwd_tails(lib, args[0], every_layer, *tail, every=1)
+    rebuilt = ks.run_bwd_tails(lib, args[0], ckpt, *tail)
+    for u, v in zip(no_rebuild, rebuilt):
+        assert (u is None and v is None) or torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,has_ctx", [(64, 64, True), (64, 8, False),
+                                         (16, 16, True)])
+def test_tails_f32_kernels_repeat_bit_equal(cuda, r, s, has_ctx):
+    """Two calls of each float32 recompute form give the same bits."""
+    args, dskip = _tails_args(cuda, 1280, r, s, has_ctx, DIL_WIDE,
+                              dtype=torch.float32)
+    first, second = ks.stack_fwd_tails(*args), ks.stack_fwd_tails(*args)
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)
+    bargs = (args[0], first[1], *args[1:-1], dskip, args[-1])
+    for u, v in zip(ks.stack_bwd_tails(*bargs), ks.stack_bwd_tails(*bargs)):
+        assert (u is None and v is None) or torch.equal(u, v)
 
 
 def _digest(outs):

@@ -60,7 +60,8 @@ def _setup(dtype, t, video, glob, maf=12800, mvf=128, seed=0, lead=(),
     kw = dict(_model_kw(dtype, glob, maf, mvf), **extra)
     jm = j_make(JModelConfig(**kw))
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, C, size=lead + (2, t)).astype(np.int32)
+    codes = rng.integers(0, kw["input_channels"],
+                         size=lead + (2, t)).astype(np.int32)
     vid = rng.standard_normal(lead + (2, mvf, 64, 64, 1)).astype(
         np.float32) if video else None
     labels = np.tile(np.array([0, 2], np.int32), lead + (1,)) \
@@ -140,6 +141,8 @@ def test_fused_train_loss_matches_jax(dtype, t, video, glob, maf, parity):
     ("float32", 12800, dict(fused_strategy="recompute")),  # triple
     ("bfloat16", 1280, dict(fused_strategy="recompute")),  # flat ctx
     ("float32", 1280, dict(remat=True)),
+    # the flagship's C: the float32 recompute trunk with the C = 256 head
+    ("float32", 1280, dict(fused_strategy="recompute", input_channels=256)),
 ])
 def test_fused_train_loss_recompute_matches_jax(dtype, t, extra,
                                                 monkeypatch):
