@@ -171,8 +171,30 @@ Phases (any failure exits non-zero and prints no result):
      C=256, R=S=64, batch 2, --fused_blocks 1, the default strategy)
      for 1 epoch of 4 steps: the strategy resolves to recompute (only
      the recompute kernels run the trunk), the losses are finite; then
-     one loss + backward of the trained model through each strategy:
-     its peak device memory;
+     one loss + backward of the trained model through the save, replay
+     and recompute strategies, in bf16 and in float32: each one's peak
+     device memory and ms; replay's peak at least REPLAY_SAVING_GB below
+     save's; and in each dtype the trained model's trunk on that batch
+     (its codes' embedding and its video's projection triple) through
+     ``fused_stack`` with save and with replay: the same skip and
+     gradients, bit for bit;
+  23. the replay strategy: (a, after phase 9g (a)) its kernels in bf16
+     and float32 at the flagship's trunk (L=30, R=S=64, B=2, T=160000)
+     and experiment 02's (L=9, S=8), with a flat ctx and with the video
+     projection triple (the trainer's form): against their plain
+     versions within phase 9's bars (bf16) and phase 9f's (float32,
+     TF32 off), and against the save kernels' non-embed form from the
+     same x bit for bit (the forward's skip and taps, each checkpoint,
+     every rebuilt layer input against hsave, every gradient); each
+     form's time beside the save form's and the plain version's, the
+     backward by grid at the flagship; ``fused_stack`` through save and
+     replay with autograd at the flagship in both ctx forms, the same skip
+     and gradients
+     (the float32 non-embed save forms' launches); (c, after phase 16) the
+     trainer CLI with the flagship flags and --fused_strategy replay for
+     4 steps, in bf16 and with --compute_dtype float32: only the replay
+     trunk kernels and the head's run, finite losses, update ms and peak
+     memory;
   17. packed head: with PACKED_HEAD on, at the breakdancing head shapes
      (B=2, T=160000, S=C=64, bf16 skip, seeded), parity on and off, the
      packed kernels (head_loss.py:169 / :218; split-TF32 tensor cores)
@@ -221,9 +243,9 @@ Phases (any failure exits non-zero and prints no result):
      gated block's and the per-block trunk's, the new forms' and the
      experiments' update times and peak memory, the flagship trainer
      step, the sequence-parallel step;
-  22. the kernels line (26 entries, every form of the fourteen TPU kernel
-     functions and the eight float32 forms, each with its bound from this
-     run's shapes; the new
+  22. the kernels line (30 entries, every form of the fourteen TPU kernel
+     functions, the eight float32 forms and the replay strategy's four,
+     each with its bound from this run's shapes; the new
      widths' readings under "widths"; the speculative rows also with
      their stream bound), then the card line, then the result line.
 
@@ -2573,12 +2595,56 @@ FLAGSHIP_FLAGS = ["--layer_size", "10", "--stack_size", "3",
                   "--fused_blocks", "1"]
 
 
+def _trunk_save_is_replay(torch, model, batch, dtype):
+    """The model's trunk on the batch, as its fused loss runs it with the
+    replay strategy (the codes' embedding as x; the video's projection
+    triple, which the trainer's clip length gives), through ``fused_stack``
+    with save and with replay from the same leaves and a seeded dskip: the
+    same skip and the same gradient of every leaf, bit for bit."""
+    from movenet_tpu_torch.models import fused
+    from movenet_tpu_torch.ops import stack_kernel as sk
+
+    dt, dil = model.dtype, tuple(model.dilations)
+    with torch.no_grad():
+        ctx, trunk = fused._prepare_trunk(model, batch.codes, batch.video,
+                                          None)
+        x = sk.front_embed(model.front_cur, model.front_past, batch.codes,
+                           dt)
+    check(sk.ctx_is_proj(ctx), f"flagship {dtype}: the trunk's video ctx "
+          "is not the projection triple")
+    s = trunk[2].shape[2] - x.shape[2]
+    g = torch.Generator(device=x.device).manual_seed(23)
+    dskip = (torch.randn(*x.shape[:2], s, generator=g, device=x.device)
+             * 1e-3).to(dt)
+    runs = {}
+    for strategy in ("save", "replay"):
+        leaves = [v.detach().clone().requires_grad_(True)
+                  for v in (x, *ctx, *trunk)]
+        out = sk.fused_stack(leaves[0], tuple(leaves[1:4]), *leaves[4:], dil,
+                             strategy=strategy)
+        out.backward(dskip)
+        runs[strategy] = (out.detach(), [v.grad for v in leaves])
+        del out, leaves
+    (so, sg), (ro, rg) = runs["save"], runs["replay"]
+    names = ("x", "xc", "wup", "bup", "b_fg", "w_fg", "w_out", "b_out")
+    check(torch.equal(so, ro), f"flagship {dtype}: the trunk's skip through "
+          "replay differs from save's")
+    differ = [n for n, u, v in zip(names, sg, rg) if not torch.equal(u, v)]
+    check(not differ, f"flagship {dtype}: the trunk's gradients of {differ} "
+          "through replay differ from save's")
+    print(f"flagship {dtype}: the trained trunk through replay (video "
+          "projection triple) gives save's skip and every gradient bit for "
+          "bit", flush=True)
+
+
 def phase_flagship_cli(torch, np, root):
     """The trainer CLI at FLAGSHIP_FLAGS for 1 epoch of 4 steps on
     synthetic clips at the real format: the trunk runs only the recompute
     kernels and the losses are finite; then one loss + backward of the
     trained model on seeded random codes and video through each strategy
-    for its peak device memory.  Returns a summary."""
+    for its peak device memory, and the trunk on that batch through save
+    and replay, held bit for bit (``_trunk_save_is_replay``).  Returns a
+    summary."""
     from movenet_tpu_torch.data import kinetics_index, make_synthetic_dataset
     from movenet_tpu_torch.models import fused
     from movenet_tpu_torch.ops.cuda import head_loss as kh
@@ -2619,33 +2685,56 @@ def phase_flagship_cli(torch, np, root):
         video=torch.from_numpy(rng.standard_normal(
             (2, model.max_video_frames, 64, 64, 1)).astype(np.float32))
     ).to("cuda")
+    # one loss + backward through each strategy, in the run's bf16 and in
+    # float32 (the same weights: the compute dtype is the model's setting)
     peaks, ms = {}, {}
-    for strategy in ("save", "recompute"):
-        model.fused_strategy = strategy
-        model.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ks.reset_launch_counts()
-        t0 = time.perf_counter()
-        loss, _ = fused.fused_train_loss(model, batch.codes, batch.video)
-        loss.backward()
-        torch.cuda.synchronize()
-        ms[strategy] = (time.perf_counter() - t0) * 1e3
-        peaks[strategy] = torch.cuda.max_memory_allocated() / 1e9
-        check(np.isfinite(float(loss.detach())), f"{strategy} loss")
-        key = "stack_fwd" if strategy == "save" else "stack_fwd_tails"
-        check(ks.launch_counts[key] == 1, f"{strategy}: {ks.launch_counts}")
+    keys = {"save": "stack_fwd", "replay": "stack_fwd_replay",
+            "recompute": "stack_fwd_tails"}
+    for dtype in ("bfloat16", "float32"):
+        model.compute_dtype = dtype
+        sfx = "_f32" if dtype == "float32" else ""
+        for strategy in ("save", "replay", "recompute"):
+            model.fused_strategy = strategy
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ks.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, _ = fused.fused_train_loss(model, batch.codes, batch.video)
+            loss.backward()
+            torch.cuda.synchronize()
+            ms[(dtype, strategy)] = (time.perf_counter() - t0) * 1e3
+            peaks[(dtype, strategy)] = torch.cuda.max_memory_allocated() / 1e9
+            check(np.isfinite(float(loss.detach())),
+                  f"{strategy} {dtype} loss")
+            check(ks.launch_counts[keys[strategy] + sfx] == 1,
+                  f"{strategy} {dtype}: {ks.launch_counts}")
+            del loss
+        torch.cuda.empty_cache()
+        _trunk_save_is_replay(torch, model, batch, dtype)
+        torch.cuda.empty_cache()
+    model.compute_dtype = "bfloat16"
     model.fused_strategy = None
     model.zero_grad(set_to_none=True)
     print(f"flagship trainer CLI ({' '.join(FLAGSHIP_FLAGS)}, default "
           f"strategy: recompute): 4 steps + {n_val} validation batches; step "
           f"ms {[round(v, 2) for v in steps.ms]} (median after the first "
           f"{median:.2f}); losses {[round(v, 6) for v in losses]}; launches "
-          f"{launches}; one loss + backward: peak memory recompute "
-          f"{peaks['recompute']:.3f} GB, save {peaks['save']:.3f} GB; "
-          f"{ms['recompute']:.1f} ms vs {ms['save']:.1f} ms (first calls)",
-          flush=True)
-    return dict(step_ms=median, peaks=peaks, launches=launches)
+          f"{launches}", flush=True)
+    for dtype in ("bfloat16", "float32"):
+        print(f"flagship one loss + backward ({dtype}): peak memory "
+              + ", ".join(f"{st} {peaks[(dtype, st)]:.3f} GB"
+                          for st in keys)
+              + "; " + ", ".join(f"{st} {ms[(dtype, st)]:.1f} ms"
+                                 for st in keys)
+              + " (first calls)", flush=True)
+    for dtype, least in REPLAY_SAVING_GB.items():
+        saved = peaks[(dtype, "save")] - peaks[(dtype, "replay")]
+        check(saved >= least, f"flagship {dtype}: replay's peak memory only "
+              f"{saved:.3f} GB below save's (at least {least})")
+    return dict(step_ms=median, peaks={st: peaks[("bfloat16", st)]
+                                       for st in keys},
+                peaks_by_dtype=peaks, launches=launches)
 
 
 def phase_f32_tails_kernels(torch, np):
@@ -2982,6 +3071,333 @@ def phase_f32_flagship_cli(torch, np, root):
     return launches, dict(step_ms=median, ms=steps.ms, peak_gb=peak_gb,
                           wall_s=wall, errs=errs, rows=rows,
                           unfused_gb=unfused_gb)
+
+
+# phase 23: the replay strategy's kernels (the save strategy without
+# hsave: the layer inputs rebuilt in the backward), in bf16 and float32,
+# counted apart from the save and recompute forms
+TRUNK_REPLAY_KERNELS = {
+    "stack_fwd_replay": ("movenet_tpu_torch/csrc/stack_kernel.cu",
+                         "movenet_tpu/ops/pallas/stack_kernel.py:280"),
+    "stack_bwd_replay": ("movenet_tpu_torch/csrc/stack_kernel.cu",
+                         "movenet_tpu/ops/pallas/stack_kernel.py:1486"),
+}
+TRUNK_REPLAY_KERNELS.update(
+    {f"{k}_f32": v for k, v in list(TRUNK_REPLAY_KERNELS.items())})
+# its bars, of each output's largest magnitude: in bf16 phase 9's (the
+# forward's outputs 2%, gradients 1e-3, the bf16 dx and dctx 2%), in
+# float32 phase 9f's (TF32 off on the plain side)
+TRUNK_REPLAY_BARS = {"bf16": {"fwd": 2e-2, "bwd": 1e-3, "act": 2e-2},
+                     "f32": {"fwd": F32_BARS["fwd"], "bwd": F32_BARS["bwd"],
+                             "act": F32_BARS["bwd"]}}
+# the grids of its backward at the flagship's shapes
+TRUNK_REPLAY_GRIDS = (("rebuild", "stack_rebuild"),
+                      ("checkpoint rounding", "stack_round_kernel"),
+                      ("layer", "stack_bwd_layer_kernel"),
+                      ("wgrad W_fg", "stack_wgrad_kernel<[04]"),
+                      ("wgrad W_out", "stack_wgrad_kernel<[16]"),
+                      ("dx", "stack_dx_kernel"),
+                      ("reductions", "reduce_kernel"))
+# the least peak-memory saving of replay against save over one loss +
+# backward at the flagship (phase 16), GB, by compute dtype
+REPLAY_SAVING_GB = {"bfloat16": 0.5, "float32": 1.2}
+
+
+def replay_bounds(b, t, l, r, s, win, every, act=2, proj=False):
+    """(bound_ms, bound_by) of the replay kernels: the forward reads x and
+    ctx and writes skip, the taps and the float32 checkpoints; the backward
+    reads x, the checkpoints, the taps, ctx and dskip and writes dx, dctx
+    and the gradients; with the projection triple (``proj``) it reads xc
+    and W_up and writes the coarse dxc, dW_up and db_up in place of the
+    flat dctx.  Operations: the forward's products at the bf16 peak (the
+    float32 form's at the TF32 peak); the backward's rebuilds (R x R a row
+    for each of the L - ceil(L/every) rebuilt layers) at the same peak,
+    plus the save backward's gradient products (with the triple also
+    dxc = dctx W_up^T and dW_up = xc^T dctx) at the TF32 peak, counted
+    once."""
+    m = b * t
+    w_bytes = 4 * l * (win * 2 * r + r * (r + s) + b * 2 * r + r + s)
+    ctx = act * m * r if win == 3 * r else 0
+    ckpt = 4 * m * r * len(range(every, l, every))
+    taps = act * l * m * 2 * r
+    grads = 4 * l * (win * 2 * r + r * (r + s) + r + s + b * 2 * r)
+    fwd_bytes = act * m * r + ctx + w_bytes + act * m * s + taps + ckpt
+    # the ctx gradient: flat, or the coarse dxc with xc read and the
+    # projection's weights read and their gradients written
+    dctx = (2 * act * m * r // 10 + 2 * 4 * 10 * r * (r + 1)) if proj \
+        else ctx
+    bwd_bytes = act * m * r + ckpt + taps + ctx + act * m * s + w_bytes \
+        + act * m * r + dctx + grads
+    fwd_ops = 2 * m * l * (win * 2 * r + r * (r + s))
+    rebuild_ops = 2 * m * r * r * (l - len(range(0, l, every)))
+    grad_ops = 2 * m * l * ((r + s) * r + 2 * r * win + (win + 1) * 2 * r
+                            + (r + 1) * (r + s)) \
+        + (2 * m * r * (2 * r + 1) if proj else 0)
+    low = TF32_OPS_S if act == 4 else BF16_OPS_S
+
+    def bound(nbytes, ops_ms):
+        tb = nbytes / HBM_BYTES_S * 1e3
+        return (tb, "bytes") if tb >= ops_ms else (ops_ms, "operations")
+
+    sfx = "_f32" if act == 4 else ""
+    return {"stack_fwd_replay" + sfx: bound(fwd_bytes, fwd_ops / low * 1e3),
+            "stack_bwd_replay" + sfx: bound(
+                bwd_bytes, (rebuild_ops / low + grad_ops / TF32_OPS_S) * 1e3)}
+
+
+def _replay_case(torch, lib, args, dskip, label, dt_name, proj=None):
+    """One shape, ctx form and dtype of phase 23 (a): the replay kernels
+    against their plain versions within TRUNK_REPLAY_BARS, and against the
+    save kernels' non-embed form from the same x bit for bit (the forward's
+    skip and taps, the checkpoints against hsave, every rebuilt layer
+    input, the backward's outputs); their times beside the save kernels'
+    and the plain versions'.  ``proj`` (xc, wup_t): the backward folds the
+    projection triple's gradient in, ctx in args being its flat form.
+    Returns (fwd record, bwd record)."""
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
+
+    bars = TRUNK_REPLAY_BARS[dt_name]
+    x, ctx, _, w_fg, w_out, b_out, dil = args
+    what = f"replay {dt_name} {label}"
+    st = ks._stream(x)
+    got = ks.run_fwd_replay(lib, *args, stream=st)
+    want = sk.stack_fwd_replay_plain(*args)
+    errs = {}
+    for name, u, w in zip(("skip", "ckpt", "tfsg"), got, want):
+        check(u.dtype == w.dtype and u.shape == w.shape,
+              f"{what} {name}: {u.dtype} {tuple(u.shape)}")
+        errs[name] = _err(u, w)
+        check(errs[name] <= bars["fwd"] * _scale(w), f"{what} {name}: max "
+              f"err {errs[name]:.3g}, scale {_scale(w):.3g}")
+    # bit for bit against the save strategy from the same x
+    skip, hsave, tfsg = ks.run_fwd_x(lib, *args, stream=st)
+    check(torch.equal(got[0], skip) and torch.equal(got[2], tfsg),
+          f"{what}: the forward's skip or taps differ from the save "
+          "forward's")
+    n = len(dil)
+    for i, l in enumerate(sk.ckpt_layers(n, sk.tails_every(n))):
+        check(torch.equal(got[1][i].to(x.dtype), hsave[l]),
+              f"{what}: checkpoint {i} is not the save forward's input of "
+              f"layer {l}")
+    rebuilt = ks.run_replay_inputs(lib, x, got[1], got[2], w_out, b_out,
+                                   stream=st)
+    check(torch.equal(rebuilt, hsave), f"{what}: the rebuilt layer inputs "
+          "differ from the save forward's hsave")
+    del rebuilt
+    bk = (x, got[1], got[2], ctx, w_fg, w_out, b_out, dskip, dil, proj)
+    bs = (hsave, tfsg, ctx, w_fg, w_out, dskip, dil, proj)
+    check(all(u is None or torch.equal(u, v) for u, v in zip(
+        ks.run_bwd_replay(lib, *bk, stream=st),
+        ks.run_bwd_x(lib, *bs, stream=st))),
+        f"{what}: the backward's outputs differ from the save backward's")
+    fwd = dict(errs=errs, max_abs_err=max(errs.values()),
+               ms=time_cuda(torch, lambda: ks.run_fwd_replay(
+                   lib, *args, stream=st), 3),
+               save_ms=time_cuda(torch, lambda: ks.run_fwd_x(
+                   lib, *args, stream=st), 3),
+               plain_ms=time_cuda(
+                   torch, lambda: sk.stack_fwd_replay_plain(*args), 1))
+    bwd = dict(ms=time_cuda(torch, lambda: ks.run_bwd_replay(
+                   lib, *bk, stream=st), 3),
+               save_ms=time_cuda(torch, lambda: ks.run_bwd_x(
+                   lib, *bs, stream=st), 3))
+    if label.startswith("flagship"):
+        bwd["by_grid"] = by_grid(torch, lambda: ks.run_bwd_replay(
+            lib, *bk, stream=st), TRUNK_REPLAY_GRIDS)
+        print(grid_line(f"kernel stack_bwd_replay {dt_name} {label}",
+                        bwd["by_grid"]), flush=True)
+    del got, skip, hsave, tfsg, bk, bs
+    # against the plain backward from the plain forward's saved tensors
+    bargs = (x, want[1], want[2], ctx, w_fg, w_out, b_out, dskip, dil, proj)
+    errs = {}
+    for name, u, w in zip(("dx", "dctx", "db_fg", "dw_fg", "dw_out",
+                           "db_out", "dwup_aug"),
+                          ks.run_bwd_replay(lib, *bargs, stream=st),
+                          sk.stack_bwd_replay_plain(*bargs)):
+        if w is None:
+            continue
+        check(u.dtype == w.dtype, f"{what} {name} is {u.dtype}")
+        errs[name] = _err(u, w)
+        bar = bars["act" if name in ("dx", "dctx") else "bwd"]
+        check(errs[name] <= bar * _scale(w), f"{what} {name}: max err "
+              f"{errs[name]:.3g}, scale {_scale(w):.3g}")
+    bwd.update(errs=errs, max_abs_err=max(errs.values()),
+               plain_ms=time_cuda(
+                   torch, lambda: sk.stack_bwd_replay_plain(*bargs), 1))
+    return fwd, bwd
+
+
+def phase_trunk_replay_kernels(torch, np):
+    """Phase 23 (a): the replay kernels in bf16 and float32 at
+    F32_TAILS_SHAPES (the flagship's trunk and experiment 02's, T=160000;
+    seeded x, weights and dskip) with a flat ctx and with the projection
+    triple, the form that the trainer's video context takes at these
+    lengths, through ``_replay_case``; then at the flagship
+    ``fused_stack`` through the save and the replay strategy with autograd
+    from the same x, in each dtype and ctx form: the same skip and
+    gradients, and the launches of the float32 non-embed save forms.
+    Returns (records by (name, shape label), those launches); the labels
+    are the shape's, with " proj" for the triple."""
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    t, lib = 160_000, ks.library()
+    rec, non_embed = {}, {}
+    for shape, (b, dil, r, s) in F32_TAILS_SHAPES.items():
+        n, win = len(dil), 3 * r
+        for dt_name, dt in (("bf16", torch.bfloat16),
+                            ("f32", torch.float32)):
+            for ctx_kind in ("flat", "proj"):
+                g = torch.Generator(device="cuda").manual_seed(
+                    11 + n + s + 2 * (ctx_kind == "proj"))
+
+                def rn(*shape, scale=1.0):
+                    return torch.randn(*shape, generator=g,
+                                       device="cuda") * scale
+
+                sfx = "_f32" if dt_name == "f32" else ""
+                label = shape if ctx_kind == "flat" else f"{shape} proj"
+                with torch.no_grad():
+                    x = rn(b, t, r, scale=0.5).to(dt)
+                    trip = proj = None
+                    if ctx_kind == "flat":
+                        ctx = rn(b, t, r, scale=0.5).to(dt)
+                    else:
+                        trip = (rn(b, t // 10, r, scale=0.5).to(dt),
+                                rn(r, 10 * r, scale=r ** -0.5),
+                                rn(10 * r, scale=0.1))
+                        ctx = sk.ctx_flatten(trip, dt)
+                        proj = sk._ctx_proj_args(trip)
+                    args = (x, ctx, rn(n * b, 2 * r, scale=0.1),
+                            rn(n, win, 2 * r, scale=win ** -0.5),
+                            rn(n, r, r + s, scale=r ** -0.5),
+                            rn(n, r + s, scale=0.1), dil)
+                    dskip = (rn(b, t, s) * 1e-3).to(dt)
+                    fwd, bwd = _replay_case(torch, lib, args, dskip, label,
+                                            dt_name, proj)
+                bounds = replay_bounds(b, t, n, r, s, win,
+                                       sk.tails_every(n),
+                                       act=4 if sfx else 2,
+                                       proj=proj is not None)
+                for name, r_ in (("stack_fwd_replay" + sfx, fwd),
+                                 ("stack_bwd_replay" + sfx, bwd)):
+                    r_["bound"] = bounds[name]
+                    rec[(name, label)] = r_
+                if shape != "flagship":
+                    continue
+                # the user's entry: fused_stack, save against replay
+                ctx_in = trip if trip is not None else (ctx,)
+                k = len(ctx_in)
+                leaves = [v.detach().clone().requires_grad_(True)
+                          for v in (x, *ctx_in, *args[2:-1])]
+                runs = {}
+                for strategy in ("save", "replay"):
+                    for v in leaves:
+                        v.grad = None
+                    ks.reset_launch_counts()
+                    c = tuple(leaves[1:1 + k]) if k == 3 else leaves[1]
+                    out = sk.fused_stack(leaves[0], c, *leaves[1 + k:], dil,
+                                         strategy=strategy)
+                    out.backward(dskip)
+                    torch.cuda.synchronize()
+                    runs[strategy] = (out.detach(), [v.grad for v in leaves],
+                                      dict(ks.launch_counts))
+                (so, sg, sl), (ro, rg, rl) = runs["save"], runs["replay"]
+                check(torch.equal(so, ro) and all(
+                    torch.equal(u, v) for u, v in zip(sg, rg)),
+                    f"fused_stack {dt_name} {label}: replay's skip or "
+                    "gradients differ from save's")
+                want = {k_: 0 for k_ in sl}
+                want.update({"stack_fwd" + sfx: 1, "stack_bwd" + sfx: 1})
+                check(sl == want,
+                      f"fused_stack save {dt_name} {label}: launches {sl}")
+                want = {k_: 0 for k_ in rl}
+                want.update({"stack_fwd_replay" + sfx: 1,
+                             "stack_bwd_replay" + sfx: 1})
+                check(rl == want,
+                      f"fused_stack replay {dt_name} {label}: launches {rl}")
+                if sfx:
+                    for k_ in ("stack_fwd_f32", "stack_bwd_f32"):
+                        non_embed[k_] = non_embed.get(k_, 0) + sl[k_]
+                del leaves, runs, so, sg, ro, rg, args, x, ctx, trip, proj
+            torch.cuda.empty_cache()
+    for (name, label), r in rec.items():
+        b, dil, rr, s = F32_TAILS_SHAPES[label.split()[0]]
+        ctx_form = "projection triple" if label.endswith("proj") \
+            else "flat ctx"
+        print(f"kernel {name} {label} (B={b}, T=160000, L={len(dil)}, "
+              f"R={rr}, S={s}, {ctx_form}) vs plain: "
+              + ", ".join(f"{k} {x:.3g}" for k, x in r["errs"].items())
+              + f"; bit-equal to the save kernels; kernel {r['ms']:.3f} ms, "
+              f"save form {r['save_ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+              f"ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]})",
+              flush=True)
+    return rec, non_embed
+
+
+def phase_trunk_replay_cli(torch, np, root):
+    """Phase 23 (c): the trainer CLI with FLAGSHIP_FLAGS --fused_strategy
+    replay for 1 epoch of 4 steps on phase 16's clips, in bf16 and with
+    --compute_dtype float32: the trunk runs only the replay kernels and the
+    head only its kernels at C = 256 (the forwards once a train step and
+    validation batch, the backwards once a step), finite losses, update ms
+    and peak memory.  Returns (launches, records by dtype)."""
+    from movenet_tpu_torch.data import kinetics_index
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    ds = root / "flagship_clips"
+    n_val = len(kinetics_index(ds, train=False)) // 2
+    mods = (ks, kh, kg)
+    launches, recs = {}, {}
+    for dtype, sfx, head in (("bfloat16", "", ""),
+                             ("float32", "_f32", "_f32_wide")):
+        run, logs = root / f"replay_run_{dtype}", root / f"replay_logs_{dtype}"
+        for mod in mods:
+            mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with timed_train_steps(torch) as steps:
+            state = trainer_cli([
+                "--dataset", str(ds), *FLAGSHIP_FLAGS, "--fused_strategy",
+                "replay", "--compute_dtype", dtype, "--n_epochs", "1",
+                "--n_steps_per_epoch", "4", "--val_batch_size", "2",
+                "--model_output_path", str(run), "--logger", "jsonl",
+                "--training_logs_path", str(logs)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        got = {k: v for mod in mods for k, v in mod.launch_counts.items()}
+        want = {k: 0 for k in got}
+        want.update({"stack_fwd_replay" + sfx: 4 + n_val,
+                     "stack_bwd_replay" + sfx: 4,
+                     "head_fwd" + head: 4 + n_val, "head_bwd" + head: 4})
+        check(got == want, f"replay trainer CLI ({dtype}) launches {got}, "
+              f"expected {want}")
+        check(state.step == 4, f"replay trainer CLI ({dtype}) took "
+              f"{state.step} steps")
+        lines = [json.loads(l) for l in (logs / "metrics.jsonl").read_text()
+                 .splitlines()]
+        losses = [l["loss"] for l in lines if l["tag"] in ("train", "val")]
+        check(losses and all(np.isfinite(losses)),
+              f"replay trainer CLI ({dtype}) losses {losses}")
+        median = float(np.median(steps.ms[1:]))
+        print(f"replay trainer CLI ({' '.join(FLAGSHIP_FLAGS)} "
+              f"--fused_strategy replay --compute_dtype {dtype}): 4 steps + "
+              f"{n_val} validation batches in {wall:.1f} s; step ms "
+              f"{[round(v, 2) for v in steps.ms]} (median after the first "
+              f"{median:.2f}); peak memory {peak_gb:.3f} GB; losses "
+              f"{[round(v, 6) for v in losses]}; launches {got}", flush=True)
+        launches.update({k: got[k] for k in ("stack_fwd_replay" + sfx,
+                                             "stack_bwd_replay" + sfx)})
+        recs[dtype] = dict(step_ms=median, peak_gb=peak_gb, wall_s=wall)
+        del state
+        torch.cuda.empty_cache()
+    return launches, recs
 
 
 PACKED_KERNELS = {
@@ -3891,6 +4307,10 @@ def main() -> int:
         t0 = time.perf_counter()
         f32_tails_recs = phase_f32_tails_kernels(torch, np)
         f32g_s = time.perf_counter() - t0
+        phase = "23 (a) replay kernels vs plain"
+        t0 = time.perf_counter()
+        replay_recs, replay_non_embed = phase_trunk_replay_kernels(torch, np)
+        replay_s = time.perf_counter() - t0
 
         phase = "merged head"
         t0 = time.perf_counter()
@@ -3926,6 +4346,13 @@ def main() -> int:
             flag_cli = phase_flagship_cli(torch, np, Path(tmp))
             for k in TAILS_KERNELS:
                 launches[k] += flag_cli["launches"][k]
+            phase = "23 (c) replay trainer CLI"
+            t0 = time.perf_counter()
+            replay_launches, replay_cli = phase_trunk_replay_cli(
+                torch, np, Path(tmp))
+            launches.update(replay_launches)
+            replay_s += time.perf_counter() - t0
+            print(f"phase 23: {replay_s:.1f} s", flush=True)
             phase = "9g (b, c) float32 flagship trainer CLI"
             t0 = time.perf_counter()
             f32g_launches, f32g_cli = phase_f32_flagship_cli(torch, np,
@@ -4037,6 +4464,18 @@ def main() -> int:
             print(f"time {name} {label}: kernel {r['ms']:.3f} ms, bf16 form "
                   f"{r['bf16_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
                   f"bound {r['bound'][0]:.3f} ms; {card}", flush=True)
+        for (name, label), r in replay_recs.items():
+            print(f"time {name} {label}: kernel {r['ms']:.3f} ms, save form "
+                  f"{r['save_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                  f"bound {r['bound'][0]:.3f} ms; {card}", flush=True)
+        pk = flag_cli["peaks_by_dtype"]
+        for dtype, r in replay_cli.items():
+            print(f"time replay flagship trainer CLI ({dtype}): update "
+                  f"{r['step_ms']:.2f} ms (median after the first), peak "
+                  f"memory {r['peak_gb']:.3f} GB; one loss + backward peaks "
+                  f"save {pk[(dtype, 'save')]:.3f} GB, replay "
+                  f"{pk[(dtype, 'replay')]:.3f} GB, recompute "
+                  f"{pk[(dtype, 'recompute')]:.3f} GB; {card}", flush=True)
         print(f"time f32 flagship trainer CLI (float32, recompute, C=256): "
               f"update {f32g_cli['step_ms']:.2f} ms (median after the "
               f"first; bf16 {flag_cli['step_ms']:.2f} ms), peak memory "
@@ -4210,6 +4649,11 @@ def main() -> int:
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "library_ms": None, "matches_plain": True,
                 "bf16_ms": r["bf16_ms"],
+                # the trunk's non-embed form's launches through
+                # fused_stack(..., "save") in phase 23 (a), beside the
+                # embed form's above
+                **({"non_embed_launches": replay_non_embed[name]}
+                   if name in replay_non_embed else {}),
                 "shape": "experiment 02 CLI: B=2, T=160000, L=9, R=C=64, S=8, "
                          "float32, video triple (max_abs_err over the "
                          "widths)",
@@ -4251,11 +4695,41 @@ def main() -> int:
                     bound_ms=x["bound"][0], bound_by=x["bound"][1])
                     for (n, label), x in f32_tails_recs.items()
                     if n == name and label != main_shape[name]]})
+        for name, (source, replaces) in TRUNK_REPLAY_KERNELS.items():
+            f32 = name.endswith("_f32")
+            # the trainer's own form: the flagship with the video triple
+            r = replay_recs[(name, "flagship proj")]
+            others = [(label, x) for (n, label), x in replay_recs.items()
+                      if n == name and label != "flagship proj"]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces + " (save_h=False"
+                + (", float32)" if f32 else ")"),
+                "launches": launches[name],
+                "max_abs_err": max([r["max_abs_err"]]
+                                   + [x["max_abs_err"] for _, x in others]),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None, "matches_plain": True,
+                "save_ms": r["save_ms"],
+                "shape": "flagship: B=2, T=160000, L=30 (dilations 1..512 "
+                         "x 3), R=S=64, " + ("float32" if f32 else "bf16")
+                         + ", video projection triple (max_abs_err over the "
+                         "widths)",
+                **({"by_grid_ms": r["by_grid"]} if "by_grid" in r else {}),
+                "widths": [dict(
+                    shape=label, ms=x["ms"], save_ms=x["save_ms"],
+                    plain_ms=x["plain_ms"], max_abs_err=x["max_abs_err"],
+                    bound_ms=x["bound"][0], bound_by=x["bound"][1],
+                    **({"by_grid_ms": x["by_grid"]} if "by_grid" in x
+                       else {}))
+                    for label, x in others]})
         # every form of the fourteen TPU kernel functions: the AR kernel's
         # four and the speculative kernel's two, the ten training kernels,
         # the two packed ones, the four float32 save and C <= 128 head
-        # forms and the four float32 recompute and wide head forms
-        check(len(kernels) == 26, f"{len(kernels)} kernels in the line")
+        # forms, the four float32 recompute and wide head forms and the
+        # replay strategy's four (bf16 and float32)
+        check(len(kernels) == 30, f"{len(kernels)} kernels in the line")
         check(all(k["launches"] > 0 for k in kernels),
               "a kernel of the path was not launched")
         print(json.dumps({"kernels": kernels}))

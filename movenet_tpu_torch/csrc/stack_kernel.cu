@@ -12,15 +12,18 @@
 //     checkpoints, see "the layer kernel" below;
 //   _fwd_kernel_head (stack_kernel.py:464, pallas_call at :576) and
 //     _bwd_kernel_head (:624, pallas_call at :822), the trunk merged with
-//     the output head and the CE loss.
+//     the output head and the CE loss;
+//   _fwd_kernel and _bwd_kernel_padded with save_h=False, the "replay"
+//     strategy: the save kernels without hsave, the layer inputs rebuilt
+//     in the backward, see "the replay strategy" below.
 // The save kernels also run in their non-embed form (x in, dx out; the
-// JAX package's fused_stack with strategy "save"), which the merged
-// kernels build on.  Every form takes the bf16 compute dtype (the
+// JAX package's fused_stack with strategy "save"), which the merged and
+// replay kernels build on.  Every form takes the bf16 compute dtype (the
 // operands of the forward products are bf16, the backward's are f32, as
-// on the TPU); the save strategy's embed form and the recompute forms
-// also take float32 (the float32 compute dtype: stack_layer_f32_kernel
-// and the backward's float32 forms, see "the float32 save forward"
-// below).
+// on the TPU); the save forms (embed and non-embed), the recompute and
+// the replay forms also take float32 (the float32 compute dtype:
+// stack_layer_f32_kernel and the backward's float32 forms, see "the
+// float32 save forward" below).
 //
 // Design.  The TPU runs a (batch, time tile) grid in order and carries the
 // dilation rings and the weight-gradient sums from one grid step to the
@@ -1461,15 +1464,338 @@ struct BwdEnds {
   const int* pack;
   int pack_cols, vocab, embed_blocks;
   float* dtab;
-  bf16_t* dx;            // non-null: dx in place of dtab
+  void* dx;              // non-null: dx (the compute dtype) in place of dtab
 };
 
 // The activations' type: bf16, or float in the float32 form.
 template <bool F32>
 using Act = typename std::conditional<F32, float, bf16_t>::type;
 
-// F32: the float32 form (hsave, tfsg, ctx, xc and dctx_out float32, dskip
-// float32 in ends.dskip_f, the table gradient: the embed form only).
+// ------------------------------------------------ the replay strategy
+// The replay strategy (the JAX package's fused_stack with strategy
+// "replay": _fwd_kernel and _bwd_kernel_padded with save_h=False,
+// stack_kernel.py:280 and :1486, pallas_calls at :424 and :1443) is the
+// save strategy without hsave.  Its forward runs the save forward's layer
+// launches with each layer's input in a two-slot ring instead of hsave
+// (layer l reads slot l % 2, x for the first, and writes slot (l + 1) % 2)
+// and keeps the float32 residual stream h at the input of every k-th
+// layer (k = tails_every(L), about sqrt(L)) as a checkpoint: ceil(L/k) - 1
+// of (M, R) float32.  In float32 the layer inputs are h itself, so the
+// forward is the float32 recompute forward's launches with the taps
+// stored.  The backward walks the groups of k layers from the top; each
+// group's layer inputs are rebuilt from its checkpoint (x for the first)
+// into a group buffer, one rebuild launch a layer, and then the save
+// backward's launches run the group's layers top down, reading the layer
+// inputs there.  A rebuild is
+//   h_{l+1} = (gated_l W_out[:, :R] + b_out[:R]) + h_l   in float32,
+// gated from the saved taps, in the save forward's own order: in bf16 the
+// residual's fmaf chain (k in order, one fmaf per term from zero) on
+// bf16(tf * sg) and bf16 W_out, in float32 the float32 layer kernel's
+// split-TF32 k steps on tf * sg.  So the rebuilt layer inputs equal the
+// save forward's hsave bit for bit, and the replay backward's outputs the
+// save backward's.  (The TPU kernel feeds the unrounded float32 h to W_fg's
+// gradient; here bf16(h) takes its place, as hsave does in the save
+// backward: in bf16 the two differ in that gradient's last bits, in
+// float32 not at all.)
+//
+// Bound of a rebuild at the flagship (B=2, T=160000, L=30, R=S=64, k=6):
+// the taps (82 MB in bf16), the float32 h in and out (164 MB) and the bf16
+// layer input (41 MB), 0.29 GB or 0.09 ms at 3.35 TB/s, against R^2 = 4096
+// fmaf a row (1.3e9, 0.04 ms at the float32 peak): bound by bytes.  The
+// backward launches 25 of them and 4 roundings of a checkpoint.
+
+// The replay backward's source of the layer inputs, in place of hsave: x,
+// the forward's float32 checkpoints, b_out (the rebuild's bias) and the
+// group buffers: in bf16 `every` slots (slot i holds bf16(h_{lo+i}); slot
+// 0 unused in the first group, whose h_0 is x) and the rebuild's float32 h
+// (M, R); in float32 every - 1 slots (slot i holds h_{lo+1+i}).
+template <bool F32>
+struct ReplaySrc {
+  const Act<F32>* x;
+  const float* ckpt;
+  const float* b_out;
+  int every;
+  Act<F32>* group;
+  float* work;
+};
+
+// The bf16 rebuild's tile: rows in groups of 4 by 8 columns a thread.
+template <int R>
+struct RebuildShape {
+  static constexpr int kCw = 8;                        // columns a thread
+  static constexpr int kTpr = R / kCw;                 // threads a row group
+  static constexpr int kRows = 4 * kThreads / kTpr;    // rows a tile
+  static constexpr int kLdg = R + 2;    // gated rows (bf16)
+  static constexpr int kLdk = R + 8;    // W_out's residual columns, k-major
+};
+
+// One rebuild in bf16: each tile's gated rows, bf16(tf * sg) from the
+// rounded taps, and W_out's residual columns rounded to bf16 in shared
+// memory, then per element the fmaf chain over k in order from zero, +
+// b_out, + h, as stack_layer_kernel's save forms form the residual.  h_in
+// is the float32 h_l, or null: then x_in (bf16) is h_0.  hb_out takes
+// bf16(h_{l+1}), h_out (null where no later rebuild reads it) the float32
+// h_{l+1}; it may be h_in, since each thread reads its elements of h_in
+// before it writes them.  Persistent blocks walk the tiles.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    stack_rebuild_kernel(const bf16_t* tfsg, const float* w_out, int ldw,
+                         const float* b_out, const float* h_in,
+                         const bf16_t* x_in, float* h_out, bf16_t* hb_out,
+                         long m_total) {
+  using Sh = RebuildShape<R>;
+  constexpr int CW = Sh::kCw, TPR = Sh::kTpr, ROWS = Sh::kRows;
+  constexpr int LDG = Sh::kLdg, LDK = Sh::kLdk;
+  __shared__ __align__(16) bf16_t gt[ROWS * LDG];
+  __shared__ __align__(16) bf16_t wk[R * LDK];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < R * R; i += kThreads)
+    wk[(i / R) * LDK + i % R] = f2bf(w_out[(i / R) * ldw + i % R]);
+  const int rg = tid / TPR, c0 = CW * (tid % TPR);
+  const long n_tiles = (m_total + ROWS - 1) / ROWS;
+  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long m0 = tile * ROWS;
+    __syncthreads();   // every thread is done with the last tile's rows
+    for (int i = tid; i < ROWS * (R / 2); i += kThreads) {
+      const int row = i / (R / 2), k = 2 * (i % (R / 2));
+      const long m = m0 + row;
+      unsigned v = 0u;
+      if (m < m_total) {
+        const unsigned tf = ld32(tfsg + m * 2 * R + k);
+        const unsigned sg = ld32(tfsg + m * 2 * R + R + k);
+        v = pack2(__uint_as_float(tf << 16) * __uint_as_float(sg << 16),
+                  __uint_as_float(tf & 0xffff0000u) *
+                      __uint_as_float(sg & 0xffff0000u));
+      }
+      *reinterpret_cast<unsigned*>(gt + row * LDG + k) = v;
+    }
+    __syncthreads();
+    float acc[4][CW];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < CW; ++jj) acc[i][jj] = 0.f;
+    const bf16_t* gp = gt + 4 * rg * LDG;
+#pragma unroll 2
+    for (int k = 0; k < R; k += 2) {
+      unsigned au[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) au[i] = ld32(gp + i * LDG + k);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint4 u =
+            *reinterpret_cast<const uint4*>(wk + (k + kk) * LDK + c0);
+        const unsigned wu[4] = {u.x, u.y, u.z, u.w};
+        float wv[CW];
+#pragma unroll
+        for (int jj = 0; jj < CW; jj += 2) {
+          wv[jj] = __uint_as_float(wu[jj / 2] << 16);
+          wv[jj + 1] = __uint_as_float(wu[jj / 2] & 0xffff0000u);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a = kk ? __uint_as_float(au[i] & 0xffff0000u)
+                             : __uint_as_float(au[i] << 16);
+#pragma unroll
+          for (int jj = 0; jj < CW; ++jj)
+            acc[i][jj] = fmaf(a, wv[jj], acc[i][jj]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long m = m0 + 4 * rg + i;
+      if (m >= m_total) continue;
+      float v[CW];
+#pragma unroll
+      for (int jj = 0; jj < CW; ++jj) {
+        const int c = c0 + jj;
+        const float o = h_in ? h_in[m * R + c] : bf2f(x_in[m * R + c]);
+        v[jj] = (acc[i][jj] + __ldg(b_out + c)) + o;
+      }
+#pragma unroll
+      for (int jj = 0; jj < CW; jj += 4) {
+        if (h_out)
+          *reinterpret_cast<float4*>(h_out + m * R + c0 + jj) =
+              make_float4(v[jj], v[jj + 1], v[jj + 2], v[jj + 3]);
+        *reinterpret_cast<uint2*>(hb_out + m * R + c0 + jj) =
+            make_uint2(pack2(v[jj], v[jj + 1]), pack2(v[jj + 2], v[jj + 3]));
+      }
+    }
+  }
+}
+
+// One rebuild in float32: h_out = (gated W_out[:, :R] + b_out[:R]) + h_in
+// with gated = tf * sg from the float32 taps, formed as
+// stack_layer_f32_kernel forms its residual: split-TF32 mma.sync, each
+// 8-wide k step's three passes summed from zero and added in float32, k in
+// order, then + b_out, + h.  64-row tiles, 8 warps: warp w takes rows 16
+// (w % 4) .. + 16 and half w / 4 of the R / 8 residual column tiles.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    stack_rebuild_f32_kernel(const float* tfsg, const float* w_out, int ldw,
+                             const float* b_out, const float* h_in,
+                             float* h_out, long m_total) {
+  constexpr int ROWS = 64, LDG = R + 4, LDO = R + 4, NH = R / 16;
+  __shared__ __align__(16) float gs[ROWS * LDG];
+  __shared__ __align__(16) float wo[R * LDO];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  const int r0 = 16 * (warp & 3), half = warp >> 2;
+  // W_out^T's residual rows, one per output column (k along the row)
+  for (int i = tid; i < R * R; i += kThreads)
+    wo[(i % R) * LDO + i / R] = w_out[(i / R) * ldw + i % R];
+  const long n_tiles = (m_total + ROWS - 1) / ROWS;
+  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long m0 = tile * ROWS;
+    __syncthreads();   // every warp is done with the last tile's gated rows
+    for (int i = tid; i < ROWS * (R / 4); i += kThreads) {
+      const int row = i / (R / 4), c4 = 4 * (i % (R / 4));
+      const long m = m0 + row;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m < m_total) {
+        const float4 tf =
+            *reinterpret_cast<const float4*>(tfsg + m * 2 * R + c4);
+        const float4 sg =
+            *reinterpret_cast<const float4*>(tfsg + m * 2 * R + R + c4);
+        v = make_float4(tf.x * sg.x, tf.y * sg.y, tf.z * sg.z, tf.w * sg.w);
+      }
+      *reinterpret_cast<float4*>(gs + row * LDG + c4) = v;
+    }
+    __syncthreads();
+    float acc[NH][4];
+#pragma unroll
+    for (int j = 0; j < NH; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < R; k0 += 8) {
+      Frag<4> fa;
+      load_a_rows<true>(gs + r0 * LDG + k0, LDG, fa);
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        Frag<2> fb;
+        load_b_cols(wo + 8 * (half * NH + j) * LDO + k0, LDO, fb);
+        mma_split_add<true>(acc[j], fa, fb);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      const int c = 8 * (half * NH + j) + 2 * q;
+      const float b0 = __ldg(b_out + c), b1 = __ldg(b_out + c + 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long m = m0 + r0 + g + 8 * h;
+        if (m >= m_total) continue;
+        const float2 o = *reinterpret_cast<const float2*>(h_in + m * R + c);
+        const float v0 = acc[j][2 * h] + b0, v1 = acc[j][2 * h + 1] + b1;
+        *reinterpret_cast<float2*>(h_out + m * R + c) =
+            make_float2(v0 + o.x, v1 + o.y);
+      }
+    }
+  }
+}
+
+// bf16(src) into dst: a checkpoint's layer input for the weight gradients
+__global__ void __launch_bounds__(kThreads)
+    stack_round_kernel(const float* src, bf16_t* dst, long total) {
+  for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
+       i < total; i += static_cast<long>(gridDim.x) * kThreads)
+    dst[i] = f2bf(src[i]);
+}
+
+// As many persistent blocks of fn as fit on the card, at most one a tile.
+int fill_grid(const void* fn, int threads, size_t smem, long tiles,
+              int* grid) {
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, threads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
+  *grid = static_cast<int>(tiles < fit ? tiles : fit);
+  return 0;
+}
+
+// Rebuild the layer inputs of the group [lo, hi) into rp.group (see
+// ReplaySrc): one rebuild launch for each of layers lo .. hi - 2, and in
+// bf16 the checkpoint's rounding into slot 0 (lo > 0).
+template <int R, int S, bool F32>
+int replay_group(const ReplaySrc<F32>& rp, const Act<F32>* tfsg,
+                 const float* w_out, int lo, int hi, long m_total,
+                 cudaStream_t st) {
+  const long mr = m_total * R;
+  const float* h_lo = lo == 0 ? nullptr : rp.ckpt + (lo / rp.every - 1) * mr;
+  const void* fn =
+      F32 ? reinterpret_cast<const void*>(stack_rebuild_f32_kernel<R>)
+          : reinterpret_cast<const void*>(stack_rebuild_kernel<R>);
+  const long rows = F32 ? 64 : RebuildShape<R>::kRows;
+  int grid = 0;
+  int err = fill_grid(fn, kThreads, 0, (m_total + rows - 1) / rows, &grid);
+  if (err) return err;
+  if constexpr (F32) {
+    const float* in = lo == 0 ? rp.x : h_lo;
+    for (int l = lo; l + 1 < hi; ++l) {
+      float* out = rp.group + (l - lo) * mr;
+      stack_rebuild_f32_kernel<R><<<grid, kThreads, 0, st>>>(
+          tfsg + l * m_total * 2 * R, w_out + static_cast<long>(l) * R * (R + S),
+          R + S, rp.b_out + static_cast<long>(l) * (R + S), in, out, m_total);
+      in = out;
+    }
+  } else {
+    if (h_lo)
+      stack_round_kernel<<<grid_for(mr), kThreads, 0, st>>>(h_lo, rp.group,
+                                                            mr);
+    for (int l = lo; l + 1 < hi; ++l)
+      stack_rebuild_kernel<R><<<grid, kThreads, 0, st>>>(
+          tfsg + l * m_total * 2 * R, w_out + static_cast<long>(l) * R * (R + S),
+          R + S, rp.b_out + static_cast<long>(l) * (R + S),
+          l == lo ? h_lo : rp.work, rp.x, l + 2 < hi ? rp.work : nullptr,
+          rp.group + (l + 1 - lo) * mr, m_total);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The input of layer l of the group from lo, once replay_group has run.
+template <bool F32>
+const Act<F32>* replay_input(const ReplaySrc<F32>& rp, int l, int lo,
+                             long mr) {
+  if (l == 0) return rp.x;
+  if constexpr (F32)
+    return l == lo ? rp.ckpt + (lo / rp.every - 1) * mr
+                   : rp.group + (l - lo - 1) * mr;
+  else
+    return rp.group + (l - lo) * mr;
+}
+
+// Every layer input as the replay backward rebuilds it, group by group,
+// into hsave (L, M, R) in the compute dtype: the rebuild held to the save
+// forward's hsave.  The groups' slots are hsave's own rows; h_lo is copied
+// in where the backward reads it from x or a checkpoint.
+template <int R, int S, bool F32>
+int replay_inputs_impl(const ReplaySrc<F32>& src, const Act<F32>* tfsg,
+                       const float* w_out, Act<F32>* hsave, int n_layers,
+                       long m_total, cudaStream_t st) {
+  const long mr = m_total * R;
+  for (int lo = 0; lo < n_layers; lo += src.every) {
+    const int hi = lo + src.every < n_layers ? lo + src.every : n_layers;
+    ReplaySrc<F32> rp = src;
+    rp.group = hsave + (F32 ? lo + 1 : lo) * mr;
+    int err = replay_group<R, S, F32>(rp, tfsg, w_out, lo, hi, m_total, st);
+    if (err) return err;
+    const Act<F32>* h_lo = replay_input<F32>(rp, lo, lo, mr);
+    if (h_lo != hsave + lo * mr) {
+      const cudaError_t e =
+          cudaMemcpyAsync(hsave + lo * mr, h_lo, mr * sizeof(Act<F32>),
+                          cudaMemcpyDeviceToDevice, st);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+  }
+  return 0;
+}
+
+// F32: the float32 form (hsave, tfsg, ctx, xc, dx and dctx_out float32,
+// dskip float32 in ends.dskip_f).  rp non-null: the replay backward, the
+// layer inputs rebuilt group by group in place of hsave (null).
 template <int R, int S, bool F32>
 int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
              const Act<F32>* tfsg, const Act<F32>* ctx, const float* w_fg,
@@ -1477,7 +1803,7 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
              const float* wup, float* scratch, int chunks,
              Act<F32>* dctx_out, float* db_fg, float* dw_fg, float* dw_out,
              float* db_out, float* dwup, float* dbup, int batch, int t_len,
-             int n_layers, cudaStream_t st) {
+             int n_layers, const ReplaySrc<F32>* rp, cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const int win = ctx ? 3 * R : 2 * R;
   const bool proj = xc != nullptr;
@@ -1510,6 +1836,17 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
   const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
   const int grid = static_cast<int>(pairs < fit ? pairs : fit);
   for (int l = n_layers - 1; l >= 0; --l) {
+    const Act<F32>* hs = rp ? nullptr : hsave + l * m_total * R;
+    if (rp) {
+      // the group's layer inputs, rebuilt as the walk enters it
+      const int lo = l / rp->every * rp->every;
+      const int hi = lo + rp->every < n_layers ? lo + rp->every : n_layers;
+      if (l == hi - 1) {
+        err = replay_group<R, S, F32>(*rp, tfsg, w_out, lo, hi, m_total, st);
+        if (err) return err;
+      }
+      hs = replay_input<F32>(*rp, l, lo, m_total * R);
+    }
     BwdLayerArgs a;
     a.dhp = dhp;
     a.p_in = pbuf[(l + 1) & 1];
@@ -1542,11 +1879,11 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
 
     WgradArgs w = {};
     if constexpr (F32) {
-      w.hs_f = hsave + l * m_total * R;
+      w.hs_f = hs;
       w.ctx_f = ctx;
       w.gated = gated;
     } else {
-      w.hs = hsave + l * m_total * R;
+      w.hs = hs;
       w.ctx = ctx;
       w.tfsg = tfsg + l * m_total * 2 * R;
     }
@@ -1573,8 +1910,9 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
     if (err) return err;
   }
   if (ends.dx) {
-    stack_dx_kernel<bf16_t><<<grid_for(m_total * R), kThreads, 0, st>>>(
-        dhp, pbuf[0], dil[0], t_len, R, m_total * R, ends.dx);
+    stack_dx_kernel<Act<F32>><<<grid_for(m_total * R), kThreads, 0, st>>>(
+        dhp, pbuf[0], dil[0], t_len, R, m_total * R,
+        static_cast<Act<F32>*>(ends.dx));
   } else {
     // table gradient
     const int blocks = ends.embed_blocks, vocab = ends.vocab;
@@ -3029,20 +3367,28 @@ F32LayerArgs f32_layer_args(const float* h, float* h_next, const float* ctx,
   return a;
 }
 
-// The float32 save forward: hsave[0] from the embedding, then one launch
-// of stack_layer_f32_kernel per layer.
+// The float32 save forward: hsave[0] from the embedding or, in the
+// non-embed form (x non-null), a copy of x, then one launch of
+// stack_layer_f32_kernel per layer.
 template <int R, int S>
 int fwd_f32_impl(const int* pack, int pack_cols, const float* table2,
-                 int vocab, const float* ctx, const float* b_fg,
-                 const float* w_fg, const float* w_out, const float* b_out,
-                 const int* dil, float* skacc, float* hsave, float* tfsg,
-                 float* skip, int batch, int t_len, int n_layers,
-                 cudaStream_t st) {
+                 int vocab, const float* x, const float* ctx,
+                 const float* b_fg, const float* w_fg, const float* w_out,
+                 const float* b_out, const int* dil, float* skacc,
+                 float* hsave, float* tfsg, float* skip, int batch,
+                 int t_len, int n_layers, cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const long mr = m_total * R;
-  stack_embed_f32_kernel<<<grid_for(mr), kThreads, 0, st>>>(
-      pack, pack_cols, table2, vocab, batch, t_len, R, hsave);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e;
+  if (x) {
+    e = cudaMemcpyAsync(hsave, x, mr * sizeof(float),
+                        cudaMemcpyDeviceToDevice, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    stack_embed_f32_kernel<<<grid_for(mr), kThreads, 0, st>>>(
+        pack, pack_cols, table2, vocab, batch, t_len, R, hsave);
+  }
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   F32LayerLaunch<R, S> fl;
   int err = fl.setup(m_total);
@@ -3064,13 +3410,15 @@ int fwd_f32_impl(const int* pack, int pack_cols, const float* table2,
 
 // The recompute forward (F32: its float32 form, stack_layer_f32_kernel with
 // no taps): one launch of the layer kernel per layer, the input of every
-// every-th layer kept as a checkpoint.
+// every-th layer kept as a checkpoint.  With tfsg (float32 only) the
+// layers store their taps: the float32 replay forward, whose checkpoints
+// are the float32 residual stream.
 template <int R, int S, bool F32>
 int fwd_tails_impl(const Act<F32>* x, const Act<F32>* ctx, const float* b_fg,
                    const float* w_fg, const float* w_out, const float* b_out,
                    const int* dil, int every, Act<F32>* skip, Act<F32>* ckpt,
-                   Act<F32>* work, float* skacc, int batch, int t_len,
-                   int n_layers, cudaStream_t st) {
+                   Act<F32>* work, float* skacc, float* tfsg, int batch,
+                   int t_len, int n_layers, cudaStream_t st) {
   const long mr = static_cast<long>(batch) * t_len * R;
   std::conditional_t<F32, F32LayerLaunch<R, S>,
                      LayerLaunch<R, S, kRecompute>> tl;
@@ -3097,8 +3445,51 @@ int fwd_tails_impl(const Act<F32>* x, const Act<F32>* ctx, const float* b_fg,
     a.skip = skip;
     a.first = l == 0;
     a.last = l == n_layers - 1;
+    if constexpr (F32)
+      if (tfsg) a.tfsg = tfsg + static_cast<long>(l) * batch * t_len * 2 * R;
     err = tl.launch(a, st);
     if (err) return err;
+  }
+  return 0;
+}
+
+// The bf16 replay forward: the save forward's layer launches (kSave) with
+// each layer's input in the two-slot ring (x for the first layer, then
+// slot l % 2, written by the layer before) in place of hsave, and the
+// float32 h at the input of every every-th layer copied into ckpt.
+template <int R, int S>
+int fwd_replay_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
+                    const float* w_fg, const float* w_out, const float* b_out,
+                    const int* dil, int every, float* h, float* skacc,
+                    bf16_t* ring, bf16_t* tfsg, bf16_t* skip, float* ckpt,
+                    int batch, int t_len, int n_layers, cudaStream_t st) {
+  const long m_total = static_cast<long>(batch) * t_len;
+  const long mr = m_total * R;
+  LayerLaunch<R, S, kSave> body;
+  int err = body.setup(m_total);
+  if (err) return err;
+  for (int l = 0; l < n_layers; ++l) {
+    const bool keep = l + 1 < n_layers && (l + 1) % every == 0;
+    LayerArgs a = layer_args<R, S>(
+        l == 0 ? x : ring + (l & 1) * mr,
+        l + 1 < n_layers ? ring + ((l + 1) & 1) * mr : nullptr, ctx, b_fg,
+        w_fg, w_out, b_out, dil, l, batch, t_len);
+    a.skacc = skacc;
+    a.skip = skip;
+    a.first = l == 0;
+    a.last = l == n_layers - 1;
+    a.hf = h;
+    a.tfsg = tfsg + l * m_total * 2 * R;
+    // the float32 h: read by the layer after next, or kept
+    a.keep_h = l + 2 < n_layers || keep;
+    err = body.launch(a, st);
+    if (err) return err;
+    if (keep) {
+      const cudaError_t e = cudaMemcpyAsync(
+          ckpt + ((l + 1) / every - 1) * mr, h, mr * sizeof(float),
+          cudaMemcpyDeviceToDevice, st);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
   }
   return 0;
 }
@@ -3268,6 +3659,43 @@ int fwd_dispatch(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+int replay_fwd_dispatch(const bf16_t* x, const bf16_t* ctx,
+                        const float* b_fg, const float* w_fg,
+                        const float* w_out, const float* b_out,
+                        const int* dil, int every, float* h, float* skacc,
+                        bf16_t* ring, bf16_t* tfsg, bf16_t* skip, float* ckpt,
+                        int batch, int t_len, int n_layers, int r, int s,
+                        void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
+#define X(R_, S_)                                                           \
+  if (r == R_ && s == S_)                                                   \
+    return fwd_replay_impl<R_, S_>(x, ctx, b_fg, w_fg, w_out, b_out, dil,   \
+                                   every, h, skacc, ring, tfsg, skip, ckpt, \
+                                   batch, t_len, n_layers, st);
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool F32>
+int replay_inputs_dispatch(const ReplaySrc<F32>& rp, const Act<F32>* tfsg,
+                           const float* w_out, Act<F32>* hsave, int batch,
+                           int t_len, int n_layers, int r, int s,
+                           void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rp.every < 1 || n_layers < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long m_total = static_cast<long>(batch) * t_len;
+#define X(R_, S_)                                                           \
+  if (r == R_ && s == S_)                                                   \
+    return replay_inputs_impl<R_, S_, F32>(rp, tfsg, w_out, hsave,          \
+                                           n_layers, m_total, st);
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool F32>
 int bwd_dispatch(const BwdEnds& ends, const Act<F32>* hsave,
                  const Act<F32>* tfsg, const Act<F32>* ctx, const float* w_fg,
@@ -3276,14 +3704,16 @@ int bwd_dispatch(const BwdEnds& ends, const Act<F32>* hsave,
                  Act<F32>* dctx_out, float* db_fg, float* dw_fg,
                  float* dw_out, float* db_out, float* dwup, float* dbup,
                  int batch, int t_len, int n_layers, int r, int s,
-                 void* stream) {
+                 void* stream, const ReplaySrc<F32>* rp = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rp && (rp->every < 1 || n_layers < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
 #define X(R_, S_)                                                           \
   if (r == R_ && s == S_)                                                   \
     return bwd_impl<R_, S_, F32>(ends, hsave, tfsg, ctx, w_fg, w_out, dil,  \
                                  xc, wup, scratch, chunks, dctx_out, db_fg, \
                                  dw_fg, dw_out, db_out, dwup, dbup, batch,  \
-                                 t_len, n_layers, st);
+                                 t_len, n_layers, rp, st);
   MOVENET_STACK_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
@@ -3295,14 +3725,15 @@ int tails_fwd_dispatch(const Act<F32>* x, const Act<F32>* ctx,
                        const float* w_out, const float* b_out, const int* dil,
                        int every, Act<F32>* skip, Act<F32>* ckpt,
                        Act<F32>* work, float* skacc, int batch, int t_len,
-                       int n_layers, int r, int s, void* stream) {
+                       int n_layers, int r, int s, void* stream,
+                       float* tfsg = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define X(R_, S_)                                                          \
   if (r == R_ && s == S_)                                                  \
     return fwd_tails_impl<R_, S_, F32>(x, ctx, b_fg, w_fg, w_out, b_out,   \
                                        dil, every, skip, ckpt, work, skacc,\
-                                       batch, t_len, n_layers, st);
+                                       tfsg, batch, t_len, n_layers, st);
   MOVENET_STACK_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
@@ -3506,7 +3937,27 @@ int movenet_stack_fwd_f32(const int* pack, int pack_cols,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define X(R_, S_)                                                         \
   if (r == R_ && s == S_)                                                 \
-    return fwd_f32_impl<R_, S_>(pack, pack_cols, table2, vocab, ctx, b_fg,\
+    return fwd_f32_impl<R_, S_>(pack, pack_cols, table2, vocab, nullptr,   \
+                                ctx, b_fg, w_fg, w_out, b_out, dil, skacc, \
+                                hsave, tfsg, skip, batch, t_len, n_layers, \
+                                st);
+  MOVENET_STACK_WIDTHS(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The float32 non-embed save forward (h from x, float32): as
+// movenet_stack_fwd_f32 with x in place of the embedding.
+int movenet_stack_fwd_x_f32(const float* x, const float* ctx,
+                            const float* b_fg, const float* w_fg,
+                            const float* w_out, const float* b_out,
+                            const int* dil, float* skacc, float* hsave,
+                            float* tfsg, float* skip, int batch, int t_len,
+                            int n_layers, int r, int s, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define X(R_, S_)                                                         \
+  if (r == R_ && s == S_)                                                 \
+    return fwd_f32_impl<R_, S_>(nullptr, 0, nullptr, 0, x, ctx, b_fg,     \
                                 w_fg, w_out, b_out, dil, skacc, hsave,    \
                                 tfsg, skip, batch, t_len, n_layers, st);
   MOVENET_STACK_WIDTHS(X)
@@ -3514,15 +3965,15 @@ int movenet_stack_fwd_f32(const int* pack, int pack_cols,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The float32 save backward (the embed form): as movenet_stack_bwd with
-// hsave, tfsg, ctx, xc, dskip and dctx_out in float32; scratch holds
+// The float32 save backward: as movenet_stack_bwd with hsave, tfsg, ctx,
+// xc, dskip, dx and dctx_out in float32; scratch holds
 // movenet_stack_bwd_scratch(..., f32 = 1) floats.
 int movenet_stack_bwd_f32(const float* hsave, const float* tfsg,
                           const float* ctx, const float* w_fg,
                           const float* w_out, const float* dskip,
                           const int* pack, int pack_cols, int vocab,
                           const int* dil, const float* xc, const float* wup,
-                          float* scratch, int chunks, float* dtab,
+                          float* scratch, int chunks, float* dtab, float* dx,
                           float* dctx_out, float* db_fg, float* dw_fg,
                           float* dw_out, float* db_out, float* dwup,
                           float* dbup, int batch, int t_len, int n_layers,
@@ -3534,6 +3985,7 @@ int movenet_stack_bwd_f32(const float* hsave, const float* tfsg,
   ends.vocab = vocab;
   ends.embed_blocks = embed_blocks;
   ends.dtab = dtab;
+  ends.dx = dx;
   return bwd_dispatch<true>(ends, hsave, tfsg, ctx, w_fg, w_out, dil, xc, wup,
                             scratch, chunks, dctx_out, db_fg, dw_fg, dw_out,
                             db_out, dwup, dbup, batch, t_len, n_layers, r, s,
@@ -3692,6 +4144,114 @@ int movenet_stack_bwd_tails_f32(const float* x, const float* ckpt,
                                   dskip, dil, every, group, scratch, chunks,
                                   dx, dctx, db_fg, dw_fg, dw_out, db_out,
                                   batch, t_len, n_layers, r, s, stream);
+}
+
+// The replay forward (bf16): skip_sum (B, T, S), the taps tfsg (L, B, T,
+// 2R) and the checkpoints ckpt (ceil(L / every) - 1, B, T, R) float32,
+// ckpt[i] the float32 h at the input of layer (i + 1) * every; ring holds
+// two (B, T, R) bf16 layer inputs, h (B*T, R) and skacc (B*T, S) floats.
+// Returns the first cudaError_t.  dil is a host array.
+int movenet_stack_fwd_replay(const bf16_t* x, const bf16_t* ctx,
+                             const float* b_fg, const float* w_fg,
+                             const float* w_out, const float* b_out,
+                             const int* dil, int every, float* h,
+                             float* skacc, bf16_t* ring, bf16_t* tfsg,
+                             bf16_t* skip, float* ckpt, int batch, int t_len,
+                             int n_layers, int r, int s, void* stream) {
+  return replay_fwd_dispatch(x, ctx, b_fg, w_fg, w_out, b_out, dil, every, h,
+                             skacc, ring, tfsg, skip, ckpt, batch, t_len,
+                             n_layers, r, s, stream);
+}
+
+// The replay forward in float32: as movenet_stack_fwd_replay with x, ctx,
+// ring, tfsg and skip in float32 and no h (the ring holds it).
+int movenet_stack_fwd_replay_f32(const float* x, const float* ctx,
+                                 const float* b_fg, const float* w_fg,
+                                 const float* w_out, const float* b_out,
+                                 const int* dil, int every, float* skacc,
+                                 float* ring, float* tfsg, float* skip,
+                                 float* ckpt, int batch, int t_len,
+                                 int n_layers, int r, int s, void* stream) {
+  return tails_fwd_dispatch<true>(x, ctx, b_fg, w_fg, w_out, b_out, dil,
+                                  every, skip, ckpt, ring, skacc, batch,
+                                  t_len, n_layers, r, s, stream, tfsg);
+}
+
+// The replay backward: as movenet_stack_bwd's non-embed form (dx out,
+// dskip bf16; xc, wup non-null fold the projection's backward in) with
+// the layer inputs rebuilt from x and the forward's checkpoints and taps
+// in place of hsave; group holds `every` (B, T, R) bf16 buffers and work
+// (B*T, R) floats, scratch movenet_stack_bwd_scratch(..., 0, 0, 0) floats.
+int movenet_stack_bwd_replay(const bf16_t* x, const float* ckpt,
+                             const bf16_t* tfsg, const bf16_t* ctx,
+                             const float* w_fg, const float* w_out,
+                             const float* b_out, const bf16_t* dskip,
+                             const int* dil, int every, bf16_t* group,
+                             float* work, const bf16_t* xc, const float* wup,
+                             float* scratch, int chunks, bf16_t* dx,
+                             bf16_t* dctx_out, float* db_fg, float* dw_fg,
+                             float* dw_out, float* db_out, float* dwup,
+                             float* dbup, int batch, int t_len, int n_layers,
+                             int r, int s, void* stream) {
+  BwdEnds ends = {};
+  ends.dskip = dskip;
+  ends.dx = dx;
+  const ReplaySrc<false> rp = {x, ckpt, b_out, every, group, work};
+  return bwd_dispatch<false>(ends, nullptr, tfsg, ctx, w_fg, w_out, dil, xc,
+                             wup, scratch, chunks, dctx_out, db_fg, dw_fg,
+                             dw_out, db_out, dwup, dbup, batch, t_len,
+                             n_layers, r, s, stream, &rp);
+}
+
+// The replay backward in float32: as movenet_stack_bwd_replay with x,
+// tfsg, ctx, dskip, xc, dx and dctx_out in float32; group holds every - 1
+// float32 buffers, work is unused; scratch holds
+// movenet_stack_bwd_scratch(..., f32 = 1) floats.
+int movenet_stack_bwd_replay_f32(const float* x, const float* ckpt,
+                                 const float* tfsg, const float* ctx,
+                                 const float* w_fg, const float* w_out,
+                                 const float* b_out, const float* dskip,
+                                 const int* dil, int every, float* group,
+                                 float* work, const float* xc,
+                                 const float* wup, float* scratch, int chunks,
+                                 float* dx, float* dctx_out, float* db_fg,
+                                 float* dw_fg, float* dw_out, float* db_out,
+                                 float* dwup, float* dbup, int batch,
+                                 int t_len, int n_layers, int r, int s,
+                                 void* stream) {
+  BwdEnds ends = {};
+  ends.dskip_f = dskip;
+  ends.dx = dx;
+  const ReplaySrc<true> rp = {x, ckpt, b_out, every, group, work};
+  return bwd_dispatch<true>(ends, nullptr, tfsg, ctx, w_fg, w_out, dil, xc,
+                            wup, scratch, chunks, dctx_out, db_fg, dw_fg,
+                            dw_out, db_out, dwup, dbup, batch, t_len,
+                            n_layers, r, s, stream, &rp);
+}
+
+// Every layer input (L, B, T, R) as the replay backward rebuilds it from x,
+// the forward's checkpoints and taps, into hsave (bf16; work holds (B*T,
+// R) floats): a check of the rebuild, not a step of the training path.
+int movenet_stack_replay_inputs(const bf16_t* x, const float* ckpt,
+                                const bf16_t* tfsg, const float* w_out,
+                                const float* b_out, int every, float* work,
+                                bf16_t* hsave, int batch, int t_len,
+                                int n_layers, int r, int s, void* stream) {
+  const ReplaySrc<false> rp = {x, ckpt, b_out, every, nullptr, work};
+  return replay_inputs_dispatch<false>(rp, tfsg, w_out, hsave, batch, t_len,
+                                       n_layers, r, s, stream);
+}
+
+// The same in float32 (x, tfsg and hsave float32; work unused).
+int movenet_stack_replay_inputs_f32(const float* x, const float* ckpt,
+                                    const float* tfsg, const float* w_out,
+                                    const float* b_out, int every,
+                                    float* work, float* hsave, int batch,
+                                    int t_len, int n_layers, int r, int s,
+                                    void* stream) {
+  const ReplaySrc<true> rp = {x, ckpt, b_out, every, nullptr, work};
+  return replay_inputs_dispatch<true>(rp, tfsg, w_out, hsave, batch, t_len,
+                                      n_layers, r, s, stream);
 }
 
 }  // extern "C"

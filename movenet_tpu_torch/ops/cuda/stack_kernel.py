@@ -9,7 +9,12 @@ forward and backward kernels in ``csrc/stack_kernel.cu`` (which replace
 ``:464 _fwd_kernel_head`` and ``:624 _bwd_kernel_head``);
 ``stack_fwd_tails`` and ``stack_bwd_tails`` those of the recompute
 strategy's (``:929 _fwd_kernel_tails`` and ``:1031 _bwd_kernel_tails``),
-layer-major with layer checkpoints (``ops/stack_kernel.tails_every``).
+layer-major with layer checkpoints (``ops/stack_kernel.tails_every``);
+``stack_fwd_replay`` and ``stack_bwd_replay`` those of the replay
+strategy (``:280`` and ``:1486`` with save_h=False): the save kernels with
+the layer inputs in a two-slot ring and float32 checkpoints in place of
+hsave, and in the backward each group's layer inputs rebuilt from its
+checkpoint (``stack_rebuild_kernel``) before the save backward's grids.
 For tensors on the CPU they return the plain versions
 (``ops/stack_kernel.stack_fwd_plain`` ...); for CUDA tensors they launch
 the kernels or raise.  One call of ``stack_fwd`` is L+1 grid launches (the
@@ -19,26 +24,36 @@ weight-gradient launches with their reductions.  ``stack_fwd_tails`` is
 L grid launches (one per layer); ``stack_bwd_tails`` is per group of k
 layers k - 1 rebuild launches of the same layer kernel, then per layer the
 save backward's grids in their recompute form (the layer launch, two
-weight-gradient launches and their reductions), then dx.  ``stack_head_fwd``
-is ``stack_fwd``'s grids with x in place of the embedding and the head in
-the last layer's, plus one reduction; ``stack_head_bwd`` is the head's
-backward grid and its reduction, then ``stack_bwd_x``'s grids.  Each call
-counts one launch in ``launch_counts``.
+weight-gradient launches and their reductions), then dx.
+``stack_fwd_replay`` is L grid launches and, in bf16, ceil(L/k) - 1
+checkpoint copies; ``stack_bwd_replay`` is ``stack_bwd_x``'s grids plus per group k -
+1 rebuild launches (and in bf16 one rounding of its checkpoint).
+``stack_head_fwd`` is ``stack_fwd``'s grids with x in place of the
+embedding and the head in the last layer's, plus one reduction;
+``stack_head_bwd`` is the head's backward grid and its reduction, then
+``stack_bwd_x``'s grids.  Each call counts one launch in
+``launch_counts``.
 
-With the float32 compute dtype (table2, ctx and dskip float32) ``stack_fwd``
-and ``stack_bwd`` launch the save kernels' float32 forms, counted apart as
-``stack_fwd_f32`` and ``stack_bwd_f32``: the embedding, then one launch of
-``stack_layer_f32_kernel`` per layer; the backward's grids as the bf16
-form's, with the float32 taps, W_fg's gradient from float32 activations
-and W_out's from the float32 gated (``f32_smem`` gives their shared
-memory).  With float32 x, ctx and dskip ``stack_fwd_tails`` and
-``stack_bwd_tails`` launch the recompute kernels' float32 forms, counted
-as ``stack_fwd_tails_f32`` and ``stack_bwd_tails_f32``: one launch of
-``stack_layer_f32_kernel`` per layer without the taps (the rebuilds
-without the skip sum too), and the backward's layer launch in its float32
-recompute form (fg formed again in float32 from the operand rows staged
-over the tile's gradient rows) with the float32 save form's weight
-gradients; checkpoints, group buffers, dx and dctx in float32.  The other
+With the float32 compute dtype (table2 or x, ctx and dskip float32)
+``stack_fwd``, ``stack_bwd``, ``stack_fwd_x`` and ``stack_bwd_x`` launch
+the save kernels' float32 forms, counted apart as ``stack_fwd_f32`` and
+``stack_bwd_f32``: the embedding (or x copied into hsave), then one
+launch of ``stack_layer_f32_kernel`` per layer; the backward's grids as
+the bf16 form's, with the float32 taps, W_fg's gradient from float32
+activations and W_out's from the float32 gated (``f32_smem`` gives their
+shared memory), then the table gradient or dx.  With float32 x, ctx and
+dskip ``stack_fwd_tails`` and ``stack_bwd_tails`` launch the recompute
+kernels' float32 forms, counted as ``stack_fwd_tails_f32`` and
+``stack_bwd_tails_f32``: one launch of ``stack_layer_f32_kernel`` per
+layer without the taps (the rebuilds without the skip sum too), and the
+backward's layer launch in its float32 recompute form (fg formed again in
+float32 from the operand rows staged over the tile's gradient rows) with
+the float32 save form's weight gradients; checkpoints, group buffers, dx
+and dctx in float32.  ``stack_fwd_replay`` and ``stack_bwd_replay`` in
+float32 (counted as ``stack_fwd_replay_f32`` and
+``stack_bwd_replay_f32``) run the float32 recompute forward's launches
+with the taps stored, and the float32 save backward's grids after the
+rebuilds (``stack_rebuild_f32_kernel``).  The merged, gated and packed
 kernels take bf16 only, and raise for float32 with their ROADMAP.md
 B.2/B.4 item.
 """
@@ -59,7 +74,10 @@ launch_counts: Dict[str, int] = {"stack_fwd": 0, "stack_bwd": 0,
                                  "stack_head_fwd": 0, "stack_head_bwd": 0,
                                  "stack_fwd_f32": 0, "stack_bwd_f32": 0,
                                  "stack_fwd_tails_f32": 0,
-                                 "stack_bwd_tails_f32": 0}
+                                 "stack_bwd_tails_f32": 0,
+                                 "stack_fwd_replay": 0, "stack_bwd_replay": 0,
+                                 "stack_fwd_replay_f32": 0,
+                                 "stack_bwd_replay_f32": 0}
 # blocks of the time-reduction launches: two per SM of an H100
 REDUCE_BLOCKS = 264
 # shared memory one block may use on sm_90
@@ -69,7 +87,6 @@ WIDTHS = ((16, 16), (32, 32), (64, 64), (64, 8), (32, 8), (16, 8))
 # what float32 on the card does not run yet, by kernel family (the forms
 # still to build under ROADMAP.md B.2/B.4, in its order)
 F32_UNBUILT = {
-    "non-embed": "(2) the non-embed save form",
     "merged": "(3) the merged forms",
     "gated": "(4) the gated forms",
     "packed": "(5) the packed head",
@@ -79,9 +96,8 @@ F32_UNBUILT = {
 def f32_unbuilt(what: str, family: str, dtype) -> str:
     """The message of a float32 form that is not built yet."""
     return (f"{what} take the bfloat16 compute dtype, got {dtype}; float32 "
-            "on the card runs the save embed form, the recompute forms and "
-            "the unpacked head only (ROADMAP.md B.2/B.4 "
-            f"{F32_UNBUILT[family]})")
+            "on the card runs the save, recompute and replay forms and the "
+            f"unpacked head only (ROADMAP.md B.2/B.4 {F32_UNBUILT[family]})")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -124,7 +140,7 @@ def bind(lib):
         + [_I] * 5 + [_P]
     lib.movenet_stack_fwd_f32.restype = _I
     lib.movenet_stack_bwd_f32.argtypes = [_P] * 7 + [_I, _I] + [_P] * 4 \
-        + [_I] + [_P] * 8 + [_I] * 6 + [_P]
+        + [_I] + [_P] * 9 + [_I] * 6 + [_P]
     lib.movenet_stack_bwd_f32.restype = _I
     lib.movenet_tails_bwd_scratch.argtypes = [_I] * 6
     lib.movenet_tails_bwd_scratch.restype = _L
@@ -146,6 +162,22 @@ def bind(lib):
     lib.movenet_stack_head_supports.restype = _I
     lib.movenet_stack_fwd_x.argtypes = [_P] * 12 + [_I] * 5 + [_P]
     lib.movenet_stack_fwd_x.restype = _I
+    lib.movenet_stack_fwd_x_f32.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+    lib.movenet_stack_fwd_x_f32.restype = _I
+    lib.movenet_stack_fwd_replay.argtypes = [_P] * 7 + [_I] + [_P] * 6 \
+        + [_I] * 5 + [_P]
+    lib.movenet_stack_fwd_replay.restype = _I
+    lib.movenet_stack_fwd_replay_f32.argtypes = [_P] * 7 + [_I] + [_P] * 5 \
+        + [_I] * 5 + [_P]
+    lib.movenet_stack_fwd_replay_f32.restype = _I
+    for fn in (lib.movenet_stack_replay_inputs,
+               lib.movenet_stack_replay_inputs_f32):
+        fn.argtypes = [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P]
+        fn.restype = _I
+    for fn in (lib.movenet_stack_bwd_replay, lib.movenet_stack_bwd_replay_f32):
+        fn.argtypes = [_P] * 9 + [_I] + [_P] * 5 + [_I] + [_P] * 8 \
+            + [_I] * 5 + [_P]
+        fn.restype = _I
     lib.movenet_stack_head_fwd.argtypes = [_P] * 19 + [_I] * 8 + [_P]
     lib.movenet_stack_head_fwd.restype = _I
     lib.movenet_stack_head_bwd.argtypes = [_P] * 10 + [_I] * 7 + [_P]
@@ -323,27 +355,42 @@ def _run_fwd_f32(lib, pack, table2, ctx, b_fg, w_fg, w_out, b_out,
 
 
 def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
-                stream, pack=None, vocab=0):
+                stream, pack=None, vocab=0, replay=None):
     """The save backward: with ``pack`` the table gradient (2V, R) float32
-    leads the returns, without it dx (B, T, R) in bf16 (the non-embed
-    form).  dskip is bf16, or float32 from the merged head.  float32
-    hsave takes the float32 form (the embed form only): every activation,
-    dskip and dctx in float32.  Returns as the plain versions."""
+    leads the returns, without it dx (B, T, R) in the compute dtype (the
+    non-embed form).  dskip is bf16, or float32 from the merged head.
+    float32 hsave (or x) takes the float32 form: every activation, dskip
+    and dctx in float32.  ``replay`` = (x, ckpt, b_out, every) in place
+    of hsave (None): the replay backward, which rebuilds the layer inputs
+    from x, the float32 checkpoints and the taps.  Returns as the plain
+    versions."""
     n_layers, batch, t, two_r = tfsg.shape
     r = two_r // 2
     s = w_out.shape[2] - r
     dev = tfsg.device
     win = (3 if ctx is not None else 2) * r
-    f32_form = hsave.dtype == torch.float32
+    lead = ("x", replay[0]) if replay is not None else ("hsave", hsave)
+    f32_form = lead[1].dtype == torch.float32
     if f32_form:
         # the float32 form: every activation and dskip in float32
-        _same_dtype(("hsave", hsave), ("tfsg", tfsg), ("ctx", ctx),
-                    ("dskip", dskip))
-        if pack is None:
-            raise ValueError(f32_unbuilt("the non-embed save kernels",
-                                         "non-embed", hsave.dtype))
+        _same_dtype(lead, ("tfsg", tfsg), ("ctx", ctx), ("dskip", dskip))
     act = torch.float32 if f32_form else torch.bfloat16
-    _check("hsave", hsave, act, (n_layers, batch, t, r), dev)
+    if replay is None:
+        _check("hsave", hsave, act, (n_layers, batch, t, r), dev)
+    else:
+        x, ckpt, b_out, every = replay
+        if every < 1:
+            raise ValueError(f"every = {every}: a group holds >= 1 layer")
+        _check("x", x, act, (batch, t, r), dev)
+        _check("ckpt", ckpt, torch.float32,
+               (len(sk.ckpt_layers(n_layers, every)), batch, t, r), dev)
+        _check("b_out", b_out, torch.float32, (n_layers, r + s), dev)
+        if dskip.dtype != act:
+            raise ValueError(f"dskip is {dskip.dtype}, the replay kernels "
+                             f"take {act}")
+        if batch * t >= 2 ** 31:
+            raise ValueError(f"B*T = {batch * t}: the replay kernels index "
+                             "rows in 32 bits")
     _check("tfsg", tfsg, act, device=dev)
     if ctx is not None:
         _check("ctx", ctx, act, (batch, t, r), dev)
@@ -365,7 +412,7 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
     if proj is not None:
         xc, wup_t = proj
         if f32_form:
-            _same_dtype(("hsave", hsave), ("xc", xc))
+            _same_dtype(lead, ("xc", xc))
         _check("xc", xc, act, (batch, t // 10, r), dev)
         # the kernel reads the projection in its (R, 10R) layout
         wup = wup_t.permute(2, 0, 1).reshape(r, 10 * r).contiguous()
@@ -381,7 +428,7 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
     if pack is not None:
         dtab = torch.empty(2 * vocab, r, dtype=f32, device=dev)
     else:
-        dx = torch.empty(batch, t, r, dtype=torch.bfloat16, device=dev)
+        dx = torch.empty(batch, t, r, dtype=act, device=dev)
     dctx = None
     if proj is not None:
         dctx = torch.empty(batch, t // 10, r, dtype=act, device=dev)
@@ -395,14 +442,31 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
     if proj is not None:
         dwup = torch.empty(r, 10 * r, dtype=f32, device=dev)
         dbup = torch.empty(10 * r, dtype=f32, device=dev)
-    if f32_form:
+    if replay is not None:
+        # bf16: `every` group slots and the rebuild's float32 h; float32:
+        # every - 1 slots (the layer inputs are h)
+        group = torch.empty(every if not f32_form else max(every - 1, 1),
+                            batch, t, r, dtype=act, device=dev)
+        work = None if f32_form else torch.empty(batch * t, r, dtype=f32,
+                                                 device=dev)
+        fn = lib.movenet_stack_bwd_replay_f32 if f32_form else \
+            lib.movenet_stack_bwd_replay
+        err = fn(_ptr(x), _ptr(ckpt), _ptr(tfsg), _ptr(ctx), _ptr(w_fg),
+                 _ptr(w_out), _ptr(b_out), _ptr(dskip), _dils(dilations),
+                 every, _ptr(group), _ptr(work), _ptr(xc), _ptr(wup),
+                 _ptr(scratch), chunks, _ptr(dx), _ptr(dctx), _ptr(db_fg),
+                 _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), _ptr(dwup),
+                 _ptr(dbup), batch, t, n_layers, r, s, stream)
+        _raise(err, "stack_bwd_replay_f32" if f32_form
+               else "stack_bwd_replay")
+    elif f32_form:
         err = lib.movenet_stack_bwd_f32(
             _ptr(hsave), _ptr(tfsg), _ptr(ctx), _ptr(w_fg), _ptr(w_out),
-            _ptr(dskip), _ptr(pack), pack.shape[1], vocab, _dils(dilations),
-            _ptr(xc), _ptr(wup), _ptr(scratch), chunks, _ptr(dtab),
-            _ptr(dctx), _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out),
-            _ptr(dwup), _ptr(dbup), batch, t, n_layers, r, s, embed_blocks,
-            stream)
+            _ptr(dskip), _ptr(pack), 0 if pack is None else pack.shape[1],
+            vocab, _dils(dilations), _ptr(xc), _ptr(wup), _ptr(scratch),
+            chunks, _ptr(dtab), _ptr(dx), _ptr(dctx), _ptr(db_fg),
+            _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), _ptr(dwup), _ptr(dbup),
+            batch, t, n_layers, r, s, embed_blocks, stream)
         _raise(err, "stack_bwd_f32")
     else:
         bf = dskip.dtype == torch.bfloat16
@@ -432,12 +496,14 @@ def run_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, pack, vocab,
                        proj, stream, pack, vocab)
 
 
-def _tails_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations):
-    """Checks of the recompute kernels: (B, T, L, R, S, W_in)."""
+def _tails_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
+                 family="recompute"):
+    """Checks of the recompute (or replay) kernels: (B, T, L, R, S,
+    W_in)."""
     dims = _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
-                    "the recompute kernels", "recompute")
+                    f"the {family} kernels", family)
     if dims[0] * dims[1] >= 2 ** 31:
-        raise ValueError(f"B*T = {dims[0] * dims[1]}: the recompute "
+        raise ValueError(f"B*T = {dims[0] * dims[1]}: the {family} "
                          "kernels index rows in 32 bits")
     return dims
 
@@ -505,19 +571,19 @@ def run_bwd_tails(lib, x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
 def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what,
              family):
     """Checks of the kernels that start from x (the non-embed save form,
-    the merged and the recompute kernels; ``family`` names their float32
-    item in ``F32_UNBUILT``, or is "recompute", whose float32 form is
-    built): (B, T, L, R, S, W_in)."""
+    the merged, recompute and replay kernels; a ``family`` in
+    ``F32_UNBUILT`` takes bf16 only, the others bf16 or float32): (B, T,
+    L, R, S, W_in)."""
     batch, t, r = x.shape
     n_layers = len(dilations)
     s = w_out.shape[2] - r
     dev = x.device
-    if family == "recompute":
-        if x.dtype not in (torch.bfloat16, torch.float32):
-            raise ValueError(f"{what} take the bfloat16 or float32 compute "
-                             f"dtype, got {x.dtype}")
-    elif x.dtype != torch.bfloat16:
-        raise ValueError(f32_unbuilt(what, family, x.dtype))
+    if family in F32_UNBUILT:
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f32_unbuilt(what, family, x.dtype))
+    elif x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what} take the bfloat16 or float32 compute "
+                         f"dtype, got {x.dtype}")
     act = x.dtype
     _check("x", x, act, device=dev)
     win = (3 if ctx is not None else 2) * r
@@ -540,11 +606,24 @@ def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what,
 def run_fwd_x(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
               stream=None):
     """Launch the non-embed save forward (B.2(a)); returns (skip_sum,
-    hsave, tfsg) as ``stack_fwd_x_plain``."""
+    hsave, tfsg) as ``stack_fwd_x_plain``.  float32 x and ctx take the
+    float32 form."""
     batch, t, n_layers, r, s, _ = _x_check(lib, x, ctx, b_fg, w_fg, w_out,
                                            b_out, dilations,
                                            "the non-embed save kernels",
                                            "non-embed")
+    if x.dtype == torch.float32:
+        f32, dev, m = torch.float32, x.device, batch * t
+        skacc = torch.empty(m, s, dtype=f32, device=dev)
+        hsave = torch.empty(n_layers, batch, t, r, dtype=f32, device=dev)
+        tfsg = torch.empty(n_layers, batch, t, 2 * r, dtype=f32, device=dev)
+        skip = torch.empty(batch, t, s, dtype=f32, device=dev)
+        err = lib.movenet_stack_fwd_x_f32(
+            _ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out),
+            _ptr(b_out), _dils(dilations), _ptr(skacc), _ptr(hsave),
+            _ptr(tfsg), _ptr(skip), batch, t, n_layers, r, s, stream)
+        _raise(err, "stack_fwd_f32")
+        return skip, hsave, tfsg
     h, skacc, hsave, tfsg, skip = _fwd_buffers(x.device, batch, t,
                                                n_layers, r, s)
     err = lib.movenet_stack_fwd_x(
@@ -568,9 +647,81 @@ def _fwd_buffers(dev, batch, t, n_layers, r, s):
 def run_bwd_x(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
               proj=None, stream=None):
     """Launch the non-embed save backward (B.2(a)); dskip in bf16 or, for
-    the merged head, float32.  Returns as ``stack_bwd_x_plain``."""
+    the merged head, float32; in the float32 form every activation in
+    float32.  Returns as ``stack_bwd_x_plain``."""
     return _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
                        proj, stream)
+
+
+def run_fwd_replay(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
+                   stream=None, every=0):
+    """Launch the replay forward (outputs allocated here); returns
+    (skip_sum, ckpt, tfsg) as ``stack_fwd_replay_plain``.  float32 x and
+    ctx take the float32 form."""
+    batch, t, n_layers, r, s, _ = _tails_check(lib, x, ctx, b_fg, w_fg,
+                                               w_out, b_out, dilations,
+                                               "replay")
+    every = every or sk.tails_every(n_layers)
+    dev, act, f32, m = x.device, x.dtype, torch.float32, batch * t
+    f32_form = act == f32
+    skip = torch.empty(batch, t, s, dtype=act, device=dev)
+    ckpt = torch.empty(len(sk.ckpt_layers(n_layers, every)), batch, t, r,
+                       dtype=f32, device=dev)
+    tfsg = torch.empty(n_layers, batch, t, 2 * r, dtype=act, device=dev)
+    ring = torch.empty(2, batch, t, r, dtype=act, device=dev)
+    skacc = torch.empty(m, s, dtype=f32, device=dev)
+    head = (_ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out),
+            _ptr(b_out), _dils(dilations), every)
+    tail = (_ptr(skacc), _ptr(ring), _ptr(tfsg), _ptr(skip), _ptr(ckpt),
+            batch, t, n_layers, r, s, stream)
+    if f32_form:
+        # in float32 the ring holds the residual stream
+        _raise(lib.movenet_stack_fwd_replay_f32(*head, *tail),
+               "stack_fwd_replay_f32")
+    else:
+        # the float32 residual stream beside the bf16 ring
+        h = torch.empty(m, r, dtype=f32, device=dev)
+        _raise(lib.movenet_stack_fwd_replay(*head, _ptr(h), *tail),
+               "stack_fwd_replay")
+    return skip, ckpt, tfsg
+
+
+def run_replay_inputs(lib, x, ckpt, tfsg, w_out, b_out, stream=None,
+                      every=0):
+    """Every layer input (L, B, T, R), in x's dtype, as the replay backward
+    rebuilds it from x, the checkpoints and the taps (its rebuild launches,
+    not counted): held to the save forward's hsave bit for bit."""
+    n_layers, batch, t, two_r = tfsg.shape
+    r = two_r // 2
+    s = w_out.shape[2] - r
+    every = every or sk.tails_every(n_layers)
+    dev, act = x.device, x.dtype
+    _check("x", x, act, (batch, t, r), dev)
+    _check("tfsg", tfsg, act, device=dev)
+    _check("ckpt", ckpt, torch.float32,
+           (len(sk.ckpt_layers(n_layers, every)), batch, t, r), dev)
+    _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
+    _check("b_out", b_out, torch.float32, (n_layers, r + s), dev)
+    hsave = torch.empty(n_layers, batch, t, r, dtype=act, device=dev)
+    f32 = act == torch.float32
+    work = None if f32 else torch.empty(batch * t, r, dtype=torch.float32,
+                                        device=dev)
+    fn = lib.movenet_stack_replay_inputs_f32 if f32 else \
+        lib.movenet_stack_replay_inputs
+    err = fn(_ptr(x), _ptr(ckpt), _ptr(tfsg), _ptr(w_out), _ptr(b_out),
+             every, _ptr(work), _ptr(hsave), batch, t, n_layers, r, s,
+             stream)
+    _raise(err, "replay_inputs")
+    return hsave
+
+
+def run_bwd_replay(lib, x, ckpt, tfsg, ctx, w_fg, w_out, b_out, dskip,
+                   dilations, proj=None, stream=None, every=0):
+    """Launch the replay backward (outputs and scratch allocated here);
+    dskip in x's dtype.  Returns as ``stack_bwd_replay_plain``."""
+    every = every or sk.tails_every(len(dilations))
+    return _launch_bwd(lib, None, tfsg, ctx, w_fg, w_out, dskip, dilations,
+                       proj, stream, replay=(x, ckpt, b_out, every))
 
 
 def _head_check(lib, batch, t, r, s, targets_tb, w1, b1, w2, b2, dev):
@@ -709,26 +860,57 @@ def stack_bwd_tails(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
 def stack_fwd_x(x, ctx, b_fg, w_fg, w_out, b_out, dilations: Sequence[int]):
     """(skip_sum, hsave, tfsg) of the non-embed save form: the plain
     version for CPU tensors, the forward kernels for CUDA tensors
-    (counted with ``stack_fwd``)."""
+    (counted with ``stack_fwd``, in float32 with ``stack_fwd_f32``)."""
     if not x.is_cuda:
         return sk.stack_fwd_x_plain(x, ctx, b_fg, w_fg, w_out, b_out,
                                     dilations)
     out = run_fwd_x(library(), x, ctx, b_fg, w_fg, w_out, b_out, dilations,
                     _stream(x))
-    launch_counts["stack_fwd"] += 1
+    launch_counts["stack_fwd_f32" if x.dtype == torch.float32
+                  else "stack_fwd"] += 1
     return out
 
 
 def stack_bwd_x(hsave, tfsg, ctx, w_fg, w_out, dskip,
                 dilations: Sequence[int], proj=None):
     """The non-embed save backward: the plain version for CPU tensors,
-    the backward kernels for CUDA tensors (counted with ``stack_bwd``)."""
+    the backward kernels for CUDA tensors (counted with ``stack_bwd``, in
+    float32 with ``stack_bwd_f32``)."""
     if not tfsg.is_cuda:
         return sk.stack_bwd_x_plain(hsave, tfsg, ctx, w_fg, w_out, dskip,
                                     dilations, proj)
     out = run_bwd_x(library(), hsave, tfsg, ctx, w_fg, w_out, dskip,
                     dilations, proj, _stream(tfsg))
-    launch_counts["stack_bwd"] += 1
+    launch_counts["stack_bwd_f32" if tfsg.dtype == torch.float32
+                  else "stack_bwd"] += 1
+    return out
+
+
+def stack_fwd_replay(x, ctx, b_fg, w_fg, w_out, b_out,
+                     dilations: Sequence[int]):
+    """(skip_sum, ckpt, tfsg) of the replay strategy: the plain version
+    for CPU tensors, the forward kernels for CUDA tensors."""
+    if not x.is_cuda:
+        return sk.stack_fwd_replay_plain(x, ctx, b_fg, w_fg, w_out, b_out,
+                                         dilations)
+    out = run_fwd_replay(library(), x, ctx, b_fg, w_fg, w_out, b_out,
+                         dilations, _stream(x))
+    launch_counts["stack_fwd_replay_f32" if x.dtype == torch.float32
+                  else "stack_fwd_replay"] += 1
+    return out
+
+
+def stack_bwd_replay(x, ckpt, tfsg, ctx, w_fg, w_out, b_out, dskip,
+                     dilations: Sequence[int], proj=None):
+    """The replay backward: the plain version for CPU tensors, the
+    kernels for CUDA tensors (returns as ``stack_bwd_replay_plain``)."""
+    if not x.is_cuda:
+        return sk.stack_bwd_replay_plain(x, ckpt, tfsg, ctx, w_fg, w_out,
+                                         b_out, dskip, dilations, proj)
+    out = run_bwd_replay(library(), x, ckpt, tfsg, ctx, w_fg, w_out, b_out,
+                         dskip, dilations, proj, _stream(x))
+    launch_counts["stack_bwd_replay_f32" if x.dtype == torch.float32
+                  else "stack_bwd_replay"] += 1
     return out
 
 
@@ -764,5 +946,6 @@ def stack_head_bwd(hsave, tfsg, ctx, w_fg, w_out, skip, targets_tb, w1, b1,
 
 
 __all__ = ["stack_fwd", "stack_bwd", "stack_fwd_tails", "stack_bwd_tails",
-           "stack_fwd_x", "stack_bwd_x", "stack_head_fwd", "stack_head_bwd",
+           "stack_fwd_x", "stack_bwd_x", "stack_fwd_replay",
+           "stack_bwd_replay", "stack_head_fwd", "stack_head_bwd",
            "launch_counts", "reset_launch_counts", "KERNEL_SOURCE"]

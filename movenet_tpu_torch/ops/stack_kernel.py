@@ -1,8 +1,8 @@
 """Whole-stack WaveNet trunk of the training path: geometry, plain
 versions and the autograd ops.
 
-The counterpart of ``movenet_tpu.ops.pallas.stack_kernel`` for two VJP
-strategies:
+The counterpart of ``movenet_tpu.ops.pallas.stack_kernel`` for its three
+VJP strategies:
 
   save       ``fused_stack_embed``, the front embedding folded in, or
              ``fused_stack``, which takes the embedded h (``front_embed``)
@@ -16,13 +16,23 @@ strategies:
              ``tails_every(L)`` (about sqrt(L); h_0 is x, kept anyway).
              The backward walks the groups of k layers from the top,
              rebuilds each group's layer inputs from its checkpoint and
-             sweeps the group's layers top down.
+             sweeps the group's layers top down;
+  replay     ``fused_stack`` with that strategy: the save strategy without
+             hsave.  The forward keeps x, tfsg and the float32 residual
+             stream h at the inputs of layers k, 2k, ... (float32
+             checkpoints); the backward rebuilds each group's layer inputs
+             from its checkpoint with the save forward's own residual
+             update (``replay_rebuild``: the same bits as hsave) and runs
+             the save backward on them, so its gradients are the save
+             strategy's bit for bit.  (The TPU kernel feeds W_fg's
+             gradient the unrounded float32 h instead of hsave's bf16(h).)
 
 The kernels live in ``csrc/stack_kernel.cu`` behind
 ``ops/cuda/stack_kernel.py``; tensors on the CPU take the plain versions
 here (``stack_fwd_plain`` / ``stack_bwd_plain``, ``stack_fwd_x_plain`` /
 ``stack_bwd_x_plain``, ``stack_fwd_tails_plain`` /
-``stack_bwd_tails_plain``, ``stack_head_fwd_plain`` /
+``stack_bwd_tails_plain``, ``stack_fwd_replay_plain`` /
+``stack_bwd_replay_plain``, ``stack_head_fwd_plain`` /
 ``stack_head_bwd_plain``), which compute the same functions with torch
 ops over whole sequences.
 
@@ -274,13 +284,17 @@ def _unshift(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _save_fwd(h, ctx, b_fg, w_fg, w_out, b_out, dilations, dt,
-              raw_gate: bool, matmul=torch.matmul, acc=torch.float32):
+              raw_gate: bool, matmul=torch.matmul, acc=torch.float32,
+              keep=None):
     """The save forward from the float32 input h: (skip_sum float32,
     hsave, tfsg in ``dt``).  ``gated`` is formed from the rounded taps
     (``_fwd_kernel``), or from the unrounded ones with ``raw_gate``
     (``_fwd_kernel_head``, stack_kernel.py:513).  ``matmul`` forms both
     products (``mma_order_matmul``: in the layer kernel's order); ``acc``
-    is the dtype of every sum (float64: a reference for the orders)."""
+    is the dtype of every sum (float64: a reference for the orders).
+    ``keep`` (layer indices): the replay forward, which keeps no hsave but
+    the unrounded h (in ``acc``) at the input of those layers in its
+    place, (len(keep), B, T, R)."""
     def rnd(x):
         return x.to(dt).to(acc)
 
@@ -293,7 +307,10 @@ def _save_fwd(h, ctx, b_fg, w_fg, w_out, b_out, dilations, dt,
     hsave, tfsg = [], []
     for l, d in enumerate(dilations):
         hr = rnd(h)
-        hsave.append(hr.to(dt))
+        if keep is None:
+            hsave.append(hr.to(dt))
+        elif l in keep:
+            hsave.append(h)
         parts = [hr, rnd(_shift(h, d))] + ([ctxf] if ctxf is not None
                                             else [])
         fg = matmul(torch.cat(parts, dim=-1), rnd(w_fg[l])) + bfg[l]
@@ -306,7 +323,8 @@ def _save_fwd(h, ctx, b_fg, w_fg, w_out, b_out, dilations, dt,
         out = matmul(rnd(gated), rnd(w_out[l])) + b_out[l].to(acc)
         skip = out[..., r:] if skip is None else skip + out[..., r:]
         h = out[..., :r] + h
-    return skip, torch.stack(hsave), torch.stack(tfsg)
+    kept = torch.stack(hsave) if hsave else h.new_zeros((0,) + h.shape)
+    return skip, kept, torch.stack(tfsg)
 
 
 def stack_fwd_plain(pack, table2, ctx, b_fg, w_fg, w_out, b_out,
@@ -423,6 +441,66 @@ def stack_bwd_x_plain(hsave, tfsg, ctx, w_fg, w_out, dskip,
     return (dh.to(tfsg.dtype), dctx_out,
             db_fg.reshape(n_layers * batch, two_r), dw_fg, dw_out, db_out,
             dwup_aug)
+
+
+# --------------------------------------------------- replay strategy
+def stack_fwd_replay_plain(x, ctx, b_fg, w_fg, w_out, b_out,
+                           dilations: Sequence[int], every: int = 0):
+    """The replay forward (``_fwd_kernel`` with save_h=False): the save
+    forward from x without hsave.  Returns (skip_sum (B,T,S) and tfsg
+    (L,B,T,2R) in x's dtype; ckpt (n_ckpt, B, T, R) float32, ckpt[i] the
+    float32 residual stream h at the input of layer (i + 1) k, k = every
+    or ``tails_every(L)``)."""
+    n_layers = len(dilations)
+    every = every or tails_every(n_layers)
+    skip, ckpt, tfsg = _save_fwd(x.to(torch.float32), ctx, b_fg, w_fg,
+                                 w_out, b_out, dilations, x.dtype,
+                                 raw_gate=False,
+                                 keep=ckpt_layers(n_layers, every))
+    return skip.to(x.dtype), ckpt, tfsg
+
+
+def replay_rebuild(h, tfsg, w_out, b_out, dt, lo: int, hi: int):
+    """The layer inputs hsave[lo .. hi) in ``dt`` from h = the float32 h_lo:
+    h_{l+1} = out[..., :R] + h_l with out = rnd(gated) rnd(W_out) + b_out
+    over all R+S columns and gated from the rounded taps, as ``_save_fwd``
+    forms them, so the same bits (the replay backward's rebuild)."""
+    def rnd(v):
+        return v.to(dt).to(torch.float32)
+
+    r = h.shape[-1]
+    hs = []
+    for l in range(lo, hi):
+        hs.append(rnd(h).to(dt))
+        if l + 1 < hi:
+            v = tfsg[l].to(torch.float32)
+            out = torch.matmul(rnd(v[..., :r] * v[..., r:]), rnd(w_out[l])) \
+                + b_out[l].to(torch.float32)
+            h = out[..., :r] + h
+    return hs
+
+
+def stack_bwd_replay_plain(x, ckpt, tfsg, ctx, w_fg, w_out, b_out, dskip,
+                           dilations: Sequence[int], proj=None,
+                           every: int = 0):
+    """The backward of ``stack_fwd_replay_plain``: the layer inputs
+    rebuilt group by group from x and the checkpoints
+    (``replay_rebuild``), then ``stack_bwd_x_plain`` on them, so the
+    returns (dx, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug) are the save
+    backward's from the same x bit for bit."""
+    n_layers = len(dilations)
+    every = every or tails_every(n_layers)
+    if ckpt.shape[0] != len(ckpt_layers(n_layers, every)):
+        raise ValueError(f"{ckpt.shape[0]} checkpoints, expected "
+                         f"{len(ckpt_layers(n_layers, every))} for L="
+                         f"{n_layers}, every {every}")
+    hsave = []
+    for lo in range(0, n_layers, every):
+        h0 = x if lo == 0 else ckpt[lo // every - 1]
+        hsave += replay_rebuild(h0.to(torch.float32), tfsg, w_out, b_out,
+                                x.dtype, lo, min(lo + every, n_layers))
+    return stack_bwd_x_plain(torch.stack(hsave), tfsg, ctx, w_fg, w_out,
+                             dskip, dilations, proj)
 
 
 # ------------------------------------------- merged trunk + head + CE
@@ -1064,22 +1142,19 @@ def fused_stack(x: torch.Tensor, ctx, b_fg, w_fg, w_out, b_out,
       b_fg: (L*B, 2R); w_fg (L, 2R|3R, 2R); w_out (L, R, R+S); b_out
         (L, R+S), all float32.
       strategy: "auto", "save", "recompute" or "replay", resolved as the
-        JAX package resolves it; "replay" is not ported.
+        JAX package resolves it.
     Returns:
       skip_sum (B, T, S) in the compute dtype.
     """
     mode = resolve_strategy(strategy, tuple(x.shape), w_fg.shape[0],
                             dilations, x.element_size())
-    if mode == "replay":
-        raise NotImplementedError(
-            "the replay strategy (the save_h=False forms of the trunk "
-            "kernels) is not ported yet (ROADMAP.md B.2, B.3)")
     xc = wup = bup = ctx_flat = None
     if ctx_is_proj(ctx):
         xc, wup, bup = ctx
     else:
         ctx_flat = ctx
-    op = _FusedStackSave if mode == "save" else _FusedStackTails
+    op = {"save": _FusedStackSave, "recompute": _FusedStackTails,
+          "replay": _FusedStackReplay}[mode]
     return op.apply(x, ctx_flat, xc, wup, bup, b_fg, w_fg, w_out, b_out,
                     tuple(dilations))
 
@@ -1117,6 +1192,50 @@ class _FusedStackSave(torch.autograd.Function):
         dx, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug = kern.stack_bwd_x(
             hsave, tfsg, ctx_flat, w_fg, w_out,
             dskip.to(tfsg.dtype).contiguous(), fctx.dilations, proj)
+        d_flat = d_xc = d_wup = d_bup = None
+        if fctx.proj:
+            d_xc = dctx.to(xc.dtype)
+            d_wup, d_bup = _ctx_proj_grads(dwup_aug, (xc, wup, bup))
+        elif fctx.has_ctx:
+            d_flat = dctx.to(ctx_flat.dtype)
+        return (dx, d_flat, d_xc, d_wup, d_bup, db_fg,
+                dw_fg.to(w_fg.dtype), dw_out.to(w_out.dtype), db_out, None)
+
+
+class _FusedStackReplay(torch.autograd.Function):
+    """skip_sum = trunk(x) through the replay strategy: the forward keeps
+    x, the float32 layer checkpoints and tfsg, no hsave; the backward
+    rebuilds the layer inputs group by group and runs the save backward
+    on them; a projection triple as in ``_FusedStackSave``."""
+
+    @staticmethod
+    def forward(fctx, x, ctx_flat, xc, wup, bup, b_fg, w_fg, w_out, b_out,
+                dilations):
+        from movenet_tpu_torch.ops.cuda import stack_kernel as kern
+
+        proj = xc is not None
+        if proj:
+            ctx_flat = ctx_flatten((xc, wup, bup), x.dtype)
+        skip, ckpt, tfsg = kern.stack_fwd_replay(x, ctx_flat, b_fg, w_fg,
+                                                 w_out, b_out, dilations)
+        fctx.dilations = tuple(dilations)
+        fctx.proj = proj
+        fctx.has_ctx = ctx_flat is not None
+        fctx.save_for_backward(x, ckpt, tfsg, ctx_flat, w_fg, w_out, b_out,
+                               xc, wup, bup)
+        return skip
+
+    @staticmethod
+    def backward(fctx, dskip):
+        from movenet_tpu_torch.ops.cuda import stack_kernel as kern
+
+        (x, ckpt, tfsg, ctx_flat, w_fg, w_out, b_out, xc, wup,
+         bup) = fctx.saved_tensors
+        proj = _ctx_proj_args((xc, wup, bup)) if fctx.proj else None
+        dx, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug = \
+            kern.stack_bwd_replay(x, ckpt, tfsg, ctx_flat, w_fg, w_out,
+                                  b_out, dskip.to(x.dtype).contiguous(),
+                                  fctx.dilations, proj)
         d_flat = d_xc = d_wup = d_bup = None
         if fctx.proj:
             d_xc = dctx.to(xc.dtype)
@@ -1187,7 +1306,8 @@ __all__ = [
     "ctx_is_proj", "ctx_flatten", "ctx_proj_fold", "front_embed",
     "stack_fwd_plain", "stack_bwd_plain", "stack_fwd_x_plain",
     "stack_bwd_x_plain", "stack_head_fwd_plain", "stack_head_bwd_plain",
-    "stack_fwd_tails_plain", "stack_bwd_tails_plain", "fused_stack_embed",
+    "stack_fwd_tails_plain", "stack_bwd_tails_plain",
+    "stack_fwd_replay_plain", "stack_bwd_replay_plain", "fused_stack_embed",
     "fused_stack", "fused_stack_head_loss", "tails_every",
 ]
 

@@ -33,8 +33,12 @@ their refusals.
   and recompute launches and every float32 head at S <= 64, C <= 256 fit
   a block's 232,448 bytes; the float32 head at C = 260 is refused with the
   B.4 label; mixed activation dtypes are refused, naming the tensors; the
-  float32 recompute forms are taken where the merged and non-embed forms
-  still refuse float32.
+  float32 recompute, non-embed save and replay forms are taken where the
+  merged forms still refuse float32.
+* The float32 non-embed save and replay forms on the CPU run their plain
+  versions and count no launch; the replay forward's checkpoints are the
+  float32 save forward's layer inputs, its rebuild of every layer input
+  from them (``replay_rebuild``) the same bits, in float32 as in bf16.
 """
 
 import numpy as np
@@ -372,25 +376,26 @@ class _Built:
 
 
 def test_f32_recompute_is_taken_where_merged_and_non_embed_refuse():
-    """_x_check takes float32 x and ctx for the recompute family and
-    refuses them, with their B.2/B.4 item, for the non-embed save and the
-    merged forms; a float16 x is refused for every family."""
+    """_x_check takes float32 x and ctx for the recompute, the non-embed
+    save (B.2/B.4 (2), built) and the replay families, and refuses them,
+    with their B.2/B.4 item (3), for the merged forms; a float16 x is
+    refused for every family."""
     a = _tails_inputs(256, True, L)
     ts = {n: torch.from_numpy(v) for n, v in a.items()}
     args = (ts["x"], ts["ctx"], ts["b_fg"], ts["w_fg"], ts["w_out"],
             ts["b_out"], DIL)
-    assert ks._x_check(_Built, *args, "the recompute kernels",
-                       "recompute") == (B, 256, L, R, S, 3 * R)
-    for family in ("non-embed", "merged"):
-        with pytest.raises(ValueError, match=r"B\.2/B\.4 \((2|3)\)"):
-            ks._x_check(_Built, *args, "the kernels", family)
-    with pytest.raises(ValueError, match="torch.float16"):
-        ks._x_check(_Built, ts["x"].half(), *args[1:], "the recompute "
-                    "kernels", "recompute")
+    for family in ("recompute", "non-embed", "replay"):
+        assert ks._x_check(_Built, *args, "the kernels", family) == \
+            (B, 256, L, R, S, 3 * R)
+        with pytest.raises(ValueError, match="torch.float16"):
+            ks._x_check(_Built, ts["x"].half(), *args[1:], "the kernels",
+                        family)
+    with pytest.raises(ValueError, match=r"B\.2/B\.4 \(3\)"):
+        ks._x_check(_Built, *args, "the kernels", "merged")
     with pytest.raises(ValueError, match="ctx is torch.bfloat16"):
         ks._x_check(_Built, ts["x"], ts["ctx"].bfloat16(), *args[2:],
                     "the recompute kernels", "recompute")
-    assert "recompute" not in ks.F32_UNBUILT
+    assert not {"recompute", "non-embed", "replay"} & set(ks.F32_UNBUILT)
 
 
 def test_f32_on_the_cpu_runs_the_plain_versions():
@@ -409,4 +414,40 @@ def test_f32_on_the_cpu_runs_the_plain_versions():
     skip, ckpt = ks.stack_fwd_tails(*tails)
     for x, y in zip((skip, ckpt), sk.stack_fwd_tails_plain(*tails)):
         assert x.dtype == torch.float32 and torch.equal(x, y)
+    assert {**ks.launch_counts, **kh.launch_counts} == before
+
+
+@pytest.mark.parametrize("has_ctx", [False, True])
+def test_f32_non_embed_and_replay_on_the_cpu(has_ctx):
+    """The float32 non-embed save and replay wrappers take the plain
+    versions for CPU tensors and count no launch; the replay forward's
+    checkpoints are the float32 save forward's layer inputs at layers k,
+    2k, ..., and ``replay_rebuild`` gives every other layer input bit for
+    bit; the replay backward is the save backward's."""
+    a = _tails_inputs(512, has_ctx, L)
+    ts = {n: torch.from_numpy(v) for n, v in a.items()}
+    args = (ts["x"], ts.get("ctx"), ts["b_fg"], ts["w_fg"], ts["w_out"],
+            ts["b_out"], DIL)
+    before = {**ks.launch_counts, **kh.launch_counts}
+    skip, hsave, tfsg = ks.stack_fwd_x(*args)
+    got = ks.stack_fwd_replay(*args)
+    assert all(v.dtype == torch.float32 for v in (skip, hsave, *got))
+    assert torch.equal(got[0], skip) and torch.equal(got[2], tfsg)
+    every = sk.tails_every(L)
+    layers = sk.ckpt_layers(L, every)
+    assert got[1].shape[0] == len(layers)
+    for i, l in enumerate(layers):
+        assert torch.equal(got[1][i], hsave[l])
+        rebuilt = sk.replay_rebuild(got[1][i], tfsg, ts["w_out"],
+                                    ts["b_out"], torch.float32, l,
+                                    min(l + every, L))
+        assert len(rebuilt) == min(every, L - l)
+        for j, h in enumerate(rebuilt):
+            assert torch.equal(h, hsave[l + j]), l + j
+    tail = (ts.get("ctx"), ts["w_fg"], ts["w_out"])
+    save = ks.stack_bwd_x(hsave, tfsg, *tail, ts["dskip"], DIL)
+    replay = ks.stack_bwd_replay(ts["x"], got[1], tfsg, *tail, ts["b_out"],
+                                 ts["dskip"], DIL)
+    for u, v in zip(replay, save):
+        assert (u is None and v is None) or torch.equal(u, v)
     assert {**ks.launch_counts, **kh.launch_counts} == before

@@ -176,8 +176,12 @@ def test_merged_wrappers_reject_wrong_inputs(cuda):
             a["tgt"], a["w1"], a["b1"], a["w2"], a["b2"], DIL, 15, True]
     with pytest.raises(ValueError, match="B.2"):
         ks.stack_head_fwd(a["x"].float(), *args[1:])
-    with pytest.raises(ValueError, match="B.2"):
-        ks.stack_fwd_x(a["x"].float(), *args[1:6], DIL)
+    # the non-embed save form takes float32 (B.2/B.4 (2), built), not
+    # float16
+    skip, hsave, _ = ks.stack_fwd_x(a["x"].float(), *args[1:6], DIL)
+    assert skip.dtype == hsave.dtype == torch.float32
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        ks.stack_fwd_x(a["x"].half(), *args[1:6], DIL)
     w_out = torch.zeros(len(DIL), 16, 20, device=cuda)
     b_out = torch.zeros(len(DIL), 20, device=cuda)
     with pytest.raises(NotImplementedError, match="B.2"):

@@ -7,7 +7,8 @@ recompute strategy's non-embed ``fused_stack`` (skip_sum and every
 gradient, without and with ctx, at sum(d) = 14 and 510), in float32 and
 bfloat16; ``front_embed`` and ``ctx_proj_fold`` against their XLA
 counterparts.  Plus the recompute strategy's layer checkpoints, the
-geometry helpers and the paths the port refuses.
+geometry helpers and the paths the port refuses (the replay strategy has
+its own file, tests/test_torch_replay.py).
 
 Tolerances: float32 forward rtol 1e-5; gradients within 1% of each leaf's
 largest magnitude plus a gate on the mean difference (a systematic bias),
@@ -221,9 +222,10 @@ def test_unported_strategies_raise():
     for strategy in ("recompute", "replay"):
         with pytest.raises(ValueError, match="fused_stack"):
             sk.fused_stack_embed(*args, strategy=strategy)
+    # the non-embed op runs the replay strategy (ported, ROADMAP.md B.3)
     x = torch.zeros(B, 1024, R)
-    with pytest.raises(NotImplementedError, match="B.3"):
-        sk.fused_stack(x, None, *args[3:], strategy="replay")
+    skip = sk.fused_stack(x, None, *args[3:], strategy="replay")
+    assert skip.shape == (B, 1024, S) and skip.dtype == x.dtype
 
 
 # --------------------------------------------- recompute (tails) route

@@ -26,7 +26,10 @@ counts: the forward within 1e-5 of each output's scale, every gradient
 (dctx too) within 1e-4 of its scale, two calls bit-equal.  The recompute
 kernels' float32 forms (x, ctx and dskip float32) are held to the same
 bars (dx too), their rebuild to the forward's own layer outputs bit for
-bit."""
+bit.  The replay kernels (bf16 and float32) are held to their plain
+versions at the save forms' bars, and to the save kernels' non-embed form
+bit for bit: the forward's outputs, the rebuilt layer inputs against
+hsave and the backward's outputs."""
 
 import numpy as np
 import pytest
@@ -586,9 +589,14 @@ def test_stack_wrapper_rejects_wrong_inputs(cuda):
         ks.stack_bwd(hsave, tfsg, None, a["w_fg"], a["w_out"], a["dskip"],
                      a["pack"], 64, DIL)
     # the float32 forms not built yet raise with their ROADMAP item
-    with pytest.raises(ValueError, match=r"B.2/B.4 \(2\)"):
-        ks.stack_bwd_x(hsave, tfsg, None, a["w_fg"], a["w_out"],
-                       a["dskip"].float(), DIL)
+    x = torch.zeros(batch, 1280, 16, device=cuda)
+    with pytest.raises(ValueError, match=r"B.2/B.4 \(3\)"):
+        ks.stack_head_fwd(x, None, a["b_fg"], a["w_fg"], a["w_out"],
+                          a["b_out"], a["pack"][:, :batch].contiguous(),
+                          torch.zeros(16, 16, device=cuda),
+                          torch.zeros(16, device=cuda),
+                          torch.zeros(16, 16, device=cuda),
+                          torch.zeros(16, device=cuda), DIL, 15, True)
     with pytest.raises(ValueError, match="b_fg"):
         ks.stack_fwd(a["pack"], a["table2"], None, a["b_fg"].double(),
                      a["w_fg"], a["w_out"], a["b_out"], DIL, batch)
@@ -597,3 +605,171 @@ def test_stack_wrapper_rejects_wrong_inputs(cuda):
         b_out = torch.zeros(len(DIL), 20, device=cuda)
         ks.stack_fwd(a["pack"], a["table2"], None, a["b_fg"], a["w_fg"],
                      w_out, b_out, DIL, batch)
+
+
+# ------------------------------------------------------------ replay
+def _replay_args(dev, t, r, s, ctx_kind, dil, dtype, batch=2, seed=5):
+    """Seeded inputs of the replay kernels, the activations in dtype: the
+    forward's (x, flat ctx or None, b_fg, w_fg, w_out, b_out, dil), dskip
+    and the projection's (xc, wup_t) where ctx_kind is "proj"."""
+    g = torch.Generator().manual_seed(seed)
+    n, win = len(dil), (3 if ctx_kind else 2) * r
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    x = rn(batch, t, r, scale=0.5).to(dtype)
+    ctx = proj = None
+    if ctx_kind == "flat":
+        ctx = rn(batch, t, r, scale=0.5).to(dtype)
+    elif ctx_kind == "proj":
+        trip = (rn(batch, t // 10, r, scale=0.5).to(dtype),
+                rn(r, 10 * r, scale=r ** -0.5), rn(10 * r, scale=0.1))
+        ctx = sk.ctx_flatten(trip, dtype)
+        proj = tuple(v.to(dev) for v in sk._ctx_proj_args(trip))
+    w = (rn(n * batch, 2 * r, scale=0.1), rn(n, win, 2 * r, scale=win ** -0.5),
+         rn(n, r, r + s, scale=r ** -0.5), rn(n, r + s, scale=0.1))
+    dskip = rn(batch, t, s, scale=0.1).to(dtype)
+    args = (x.to(dev), None if ctx is None else ctx.to(dev),
+            *(v.to(dev) for v in w), dil)
+    return args, dskip.to(dev), proj
+
+
+# experiment 04's trunk (layer_size 14, stack 1: L = 14, groups of 4, the
+# last of 2) and L = 13 (groups of 4, the last of one layer)
+DIL_EXP04 = tuple(2 ** i for i in range(14))
+DIL_13 = DIL_EXP04[:13]
+# the replay forms at the six built (R, S) pairs with each ctx form, at
+# L = 6 (groups of 3), at the flagship's L = 30 (groups of 6) and with a
+# short last group at L = 14 and 13
+REPLAY_CASES = [
+    (16, 16, 1280, None, DIL), (16, 16, 1280, "flat", DIL),
+    (32, 32, 2000, "proj", DIL), (64, 64, 3200, "proj", DIL),
+    (64, 8, 1000, "flat", DIL), (64, 8, 1280, "proj", DIL),
+    (32, 8, 1280, "proj", DIL), (16, 8, 1280, "proj", DIL),
+    (16, 8, 1000, None, DIL), (64, 64, 1600, None, DIL_FLAGSHIP),
+    (64, 8, 1600, "flat", DIL_FLAGSHIP), (16, 8, 20000, "proj", DIL_EXP04),
+    (16, 8, 10000, "flat", DIL_13),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r,s,t,ctx_kind,dil", REPLAY_CASES)
+def test_replay_kernels_match_plain(cuda, r, s, t, ctx_kind, dil, dtype):
+    """The replay kernels against their plain versions: skip, tfsg and
+    the float32 checkpoints as the save forward's outputs (bf16: 2% of
+    scale, float32: 1e-5); then from the plain checkpoints and taps every
+    gradient as the save backward's (1e-4 of scale; the bf16 dx and dctx
+    2%); counted by dtype."""
+    args, dskip, proj = _replay_args(cuda, t, r, s, ctx_kind, dil, dtype)
+    f32 = dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    before = dict(ks.launch_counts)
+    got = ks.stack_fwd_replay(*args)
+    torch.cuda.synchronize()
+    want = sk.stack_fwd_replay_plain(*args)
+    for name, u, w in zip(("skip", "ckpt", "tfsg"), got, want):
+        assert u.shape == w.shape and u.dtype == w.dtype, name
+        u, w = u.float().cpu().numpy(), w.float().cpu().numpy()
+        np.testing.assert_allclose(
+            u, w, rtol=0, atol=(1e-5 if f32 else 2e-2) * np.abs(w).max(),
+            err_msg=name)
+    bargs = (args[0], want[1], want[2], args[1], args[3], args[4], args[5],
+             dskip, dil, proj)
+    got = ks.stack_bwd_replay(*bargs)
+    torch.cuda.synchronize()
+    for k in ("stack_fwd_replay", "stack_bwd_replay"):
+        assert ks.launch_counts[k + sfx] == before[k + sfx] + 1, k
+    want = sk.stack_bwd_replay_plain(*bargs)
+    for name, u, w in zip(("dx", "dctx", "db_fg", "dw_fg", "dw_out",
+                           "db_out", "dwup_aug"), got, want):
+        if w is None:
+            assert u is None, name
+            continue
+        assert u.dtype == w.dtype, name
+        u, w = u.float().cpu().numpy(), w.float().cpu().numpy()
+        bar = 2e-2 if name in ("dx", "dctx") and not f32 else 1e-4
+        np.testing.assert_allclose(u, w, rtol=0, atol=bar * np.abs(w).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r,s,t,ctx_kind,dil", REPLAY_CASES)
+def test_replay_is_the_save_strategy_bit_for_bit(cuda, r, s, t, ctx_kind,
+                                                 dil, dtype):
+    """The replay kernels against the save kernels' non-embed form on the
+    same x: the forward's skip and tfsg equal, each checkpoint the save
+    forward's layer input (in bf16 once rounded), every layer input as the
+    backward rebuilds it equal to hsave, and the backward's outputs equal
+    the save backward's; two calls of each give the same bits."""
+    args, dskip, proj = _replay_args(cuda, t, r, s, ctx_kind, dil, dtype)
+    lib, n = ks.library(), len(dil)
+    skip, hsave, tfsg = ks.run_fwd_x(lib, *args)
+    got = ks.run_fwd_replay(lib, *args)
+    assert torch.equal(got[0], skip) and torch.equal(got[2], tfsg)
+    ckpt = got[1]
+    for i, l in enumerate(sk.ckpt_layers(n, sk.tails_every(n))):
+        assert torch.equal(ckpt[i].to(dtype), hsave[l]), l
+    rebuilt = ks.run_replay_inputs(lib, args[0], ckpt, tfsg, args[4],
+                                   args[5])
+    for l in range(n):
+        assert torch.equal(rebuilt[l], hsave[l]), l
+    for u, v in zip(got, ks.run_fwd_replay(lib, *args)):
+        assert torch.equal(u, v)
+    tail = (args[1], args[3], args[4])
+    save = ks.run_bwd_x(lib, hsave, tfsg, *tail, dskip, dil, proj)
+    bargs = (args[0], ckpt, tfsg, *tail, args[5], dskip, dil, proj)
+    first = ks.run_bwd_replay(lib, *bargs)
+    second = ks.run_bwd_replay(lib, *bargs)
+    for u, v, w in zip(first, second, save):
+        assert (u is None and w is None) or (torch.equal(u, w)
+                                             and torch.equal(u, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("every", [1, len(DIL)])
+def test_replay_group_size_keeps_the_bits(cuda, every, dtype):
+    """The replay kernels with ``every`` = 1 (a checkpoint at every layer
+    input: each group one layer, no rebuild) and = L (one group, no
+    checkpoint, every layer rebuilt from x): the checkpoints are the save
+    forward's layer inputs, the rebuilt inputs its hsave and the backward's
+    outputs the save backward's, bit for bit."""
+    args, dskip, proj = _replay_args(cuda, 1280, 32, 8, "proj", DIL, dtype)
+    lib, n = ks.library(), len(DIL)
+    skip, hsave, tfsg = ks.run_fwd_x(lib, *args)
+    got_skip, ckpt, got_tfsg = ks.run_fwd_replay(lib, *args, every=every)
+    assert torch.equal(got_skip, skip) and torch.equal(got_tfsg, tfsg)
+    assert ckpt.shape[0] == len(sk.ckpt_layers(n, every))
+    for i, l in enumerate(sk.ckpt_layers(n, every)):
+        assert torch.equal(ckpt[i].to(dtype), hsave[l]), l
+    rebuilt = ks.run_replay_inputs(lib, args[0], ckpt, tfsg, args[4],
+                                   args[5], every=every)
+    assert torch.equal(rebuilt, hsave)
+    tail = (args[1], args[3], args[4])
+    save = ks.run_bwd_x(lib, hsave, tfsg, *tail, dskip, DIL, proj)
+    got = ks.run_bwd_replay(lib, args[0], ckpt, tfsg, *tail, args[5], dskip,
+                            DIL, proj, every=every)
+    for u, w in zip(got, save):
+        assert (u is None and w is None) or torch.equal(u, w)
+
+
+@pytest.mark.cuda
+def test_replay_wrapper_rejects_wrong_inputs(cuda):
+    args, dskip, _ = _replay_args(cuda, 1280, 16, 16, "flat", DIL,
+                                  torch.bfloat16)
+    x, ctx = args[0], args[1]
+    with pytest.raises(ValueError, match="ctx is torch.bfloat16"):
+        ks.stack_fwd_replay(x.float(), *args[1:])
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        ks.stack_fwd_replay(x.half(), None, *args[2:])
+    _, ckpt, tfsg = ks.stack_fwd_replay(*args)
+    tail = (ctx, args[3], args[4], args[5])
+    with pytest.raises(ValueError, match="ckpt"):
+        ks.stack_bwd_replay(x, ckpt[:0], tfsg, *tail, dskip, DIL)
+    with pytest.raises(ValueError, match="dskip is torch.float32"):
+        ks.stack_bwd_replay(x, ckpt, tfsg, *tail, dskip.float(), DIL)
+    with pytest.raises(ValueError, match="tfsg is torch.float32"):
+        ks.stack_bwd_replay(x, ckpt, tfsg.float(), *tail, dskip, DIL)
