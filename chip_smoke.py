@@ -243,11 +243,28 @@ Phases (any failure exits non-zero and prints no result):
      gated block's and the per-block trunk's, the new forms' and the
      experiments' update times and peak memory, the flagship trainer
      step, the sequence-parallel step;
+  24. the R = 128 widths (the wide save trunk kernels and the head at S =
+     128): (a, after phase 13) the four training kernels at the shapes of
+     scripts/probe_r128_mfu.py (utils/fixtures.PROBE_R128: layer 3 x
+     stack 3, R=S=128, C=64, bf16, B=2, T=160000, video) and at
+     experiment 02's CLI widths at --residual_channels 128 (R=128, S=8)
+     against their plain versions at phase 9's bars (the backward with the
+     projection triple, and at the probe with the flat ctx too), their
+     times and the backward by grid; (b) phase 10's 1 + 5 steps of the
+     probe's model through the kernels and plain from one set of weights
+     (losses within 1e-3, each kernel launched once a step); (d) greedy
+     B=1 generation from the trained probe model through the AR kernel's
+     video form, exact and fast, codes equal to the plain version's; (c,
+     after phase 23 (c)) the trainer CLI with experiment 02's flags and
+     --residual_channels 128 for 3 updates on phase 14's clips: R=128,
+     S=8, the save strategy (only the wide save kernels and the head run),
+     finite losses, update ms and peak memory;
   22. the kernels line (30 entries, every form of the fourteen TPU kernel
      functions, the eight float32 forms and the replay strategy's four,
      each with its bound from this run's shapes; the new
-     widths' readings under "widths"; the speculative rows also with
-     their stream bound), then the card line, then the result line.
+     widths' readings under "widths", phase 24's with their launches; the
+     speculative rows also with their stream bound), then the card line,
+     then the result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1151,9 +1168,10 @@ def _scale(want):
     return float(want.float().abs().max())
 
 
-def phase_train_kernels(torch, np, cfg, model, batch):
+def phase_train_kernels(torch, np, cfg, model, batch, tag="breakdancing"):
     """Each training kernel against its plain version on the card, at
-    the breakdancing shapes, and its time; returns records by kernel."""
+    the breakdancing shapes (or ``tag``'s: the probe's, phase 24), and its
+    time; returns records by kernel."""
     from movenet_tpu_torch.models import fused
     from movenet_tpu_torch.ops import head_loss as hl
     from movenet_tpu_torch.ops import stack_kernel as sk
@@ -1198,7 +1216,7 @@ def phase_train_kernels(torch, np, cfg, model, batch):
             plain_ms=time_cuda(torch, lambda: sk.stack_fwd_plain(*fargs),
                                  2),
             by_grid=by_grid(torch, fwd, FWD_GRIDS))
-        print(grid_line("train kernel stack_fwd (breakdancing)",
+        print(grid_line(f"train kernel stack_fwd ({tag})",
                         rec["stack_fwd"]["by_grid"]), flush=True)
         # stack backward from the plain forward's saved tensors and a
         # seeded dskip; float32 sums over 320000 rows in other orders:
@@ -1226,7 +1244,7 @@ def phase_train_kernels(torch, np, cfg, model, batch):
                                  2),
             by_grid=by_grid(torch, lambda: ks.run_bwd(
                 ks.library(), *bargs, stream=ks._stream(tfsg))))
-        print(grid_line("train kernel stack_bwd (breakdancing)",
+        print(grid_line(f"train kernel stack_bwd ({tag})",
                         rec["stack_bwd"]["by_grid"]), flush=True)
         # head forward and backward on the kernel's skip sum; loss rtol
         # 1e-4 (float32 sums of 320000 rows), matches within 10 rows
@@ -1275,7 +1293,7 @@ def phase_train_kernels(torch, np, cfg, model, batch):
         if "equal" in r:
             errs += "; bit-equal share " + ", ".join(
                 f"{k} {v:.6f}" for k, v in r["equal"].items())
-        print(f"train kernel {name} vs plain: {errs}; kernel "
+        print(f"train kernel {name} ({tag}) vs plain: {errs}; kernel "
               f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
     return rec
 
@@ -1307,10 +1325,11 @@ class plain_versions:
         return False
 
 
-def phase_train(torch, np, cfg, model, batch):
+def phase_train(torch, np, cfg, model, batch, tag="train"):
     """The main training path: make_train_step on the card through the
     kernels (1 warm-up + N_TRAIN timed steps), then the same steps through
-    the plain versions from the same weights."""
+    the plain versions from the same weights (the kernels' model is left
+    trained)."""
     import copy
 
     from movenet_tpu_torch.ops.cuda import head_loss as kh
@@ -1351,7 +1370,7 @@ def phase_train(torch, np, cfg, model, batch):
                 float(metrics["grad_norm"])), f"{label} step {i}: "
                 f"loss {loss}, grad_norm {float(metrics['grad_norm'])}")
             losses.append(loss)
-            print(f"train {label} step {i}: loss {loss:.6f} accuracy "
+            print(f"{tag} {label} step {i}: loss {loss:.6f} accuracy "
                   f"{float(metrics['accuracy']):.6f} grad_norm "
                   f"{float(metrics['grad_norm']):.6g}; {times[-1]:.2f} ms; "
                   f"launches {counts}", flush=True)
@@ -1365,7 +1384,7 @@ def phase_train(torch, np, cfg, model, batch):
         check(abs(a - w) <= 1e-3 * abs(w),
               f"train step {i}: kernel loss {a} vs plain {w}")
     k, p = runs["kernels"], runs["plain"]
-    print(f"train: step {k['step_ms']:.2f} ms (median of {N_TRAIN} after "
+    print(f"{tag}: step {k['step_ms']:.2f} ms (median of {N_TRAIN} after "
           f"warm-up), {1e3 / k['step_ms']:.3f} steps/s, plain step "
           f"{p['step_ms']:.2f} ms; peak memory {k['peak_gb']:.2f} GB "
           f"(plain {p['peak_gb']:.2f} GB)", flush=True)
@@ -4201,6 +4220,178 @@ def phase_seq_parallel(torch, np, root, ds):
     return med
 
 
+# phase 24: the R = 128 model of scripts/probe_r128_mfu.py through the
+# wide save trunk kernels and the wide head (utils/fixtures.PROBE_R128: the
+# breakdancing cell at R = S = 128, C = 64), and experiment 02's CLI at
+# --residual_channels 128 (R = 128, S = 8)
+PROBE_TAG = "probe R=128"
+PROBE_SHAPE = ("probe R=128: B=2, T=160000, L=9, R=S=128, C=64, bf16, "
+               "video triple")
+EXP02_R128_TAG = "exp02 R=128"
+EXP02_R128_SHAPE = ("experiment 02 CLI at --residual_channels 128: B=2, "
+                    "T=160000, L=9, R=128, S=8, C=64, bf16, video triple")
+# generated samples of each of phase 24's AR cases
+N_WIDE_GEN = 1024
+
+
+def phase_wide_kernels(torch, np):
+    """Phase 24 (a, b): the four training kernels at the probe's full
+    shapes against their plain versions (phase 9's checks and bars: the
+    forward on the flat ctx, the backward with the projection triple, and
+    here the backward with the flat ctx too), then phase 10's 1 + 5
+    ``make_train_step`` steps through the kernels and plain from one set of
+    weights.  The same kernel checks at experiment 02's CLI widths at
+    --residual_channels 128 ((128, 8), C = 64).  Returns (model, batch,
+    records, (128, 8) records, runs, launches); the model is left
+    trained."""
+    from movenet_tpu_torch.models import fused
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.utils.fixtures import PROBE_R128, breakdancing
+    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
+
+    cfg, model, batch = breakdancing(device="cuda", widths=PROBE_R128)
+    rec = phase_train_kernels(torch, np, cfg, model, batch, PROBE_TAG)
+    b, t = batch.codes.shape
+    dil = tuple(model.dilations)
+    with torch.no_grad():
+        ctx, (b_fg, w_fg, w_out, b_out) = fused._prepare_trunk(
+            model, batch.codes, batch.video, None)
+        ctx_flat = sk.ctx_flatten(ctx, torch.bfloat16)
+        pack = fused._codes_pack(batch.codes, True)
+        table2 = torch.cat([model.front_cur, model.front_past],
+                           0).to(torch.bfloat16)
+        _, hsave, tfsg = sk.stack_fwd_plain(pack, table2, ctx_flat, b_fg,
+                                            w_fg, w_out, b_out, dil, b)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        dskip = (torch.randn(b, t, model.skip_channels, generator=g,
+                             device="cuda") * 1e-3).to(torch.bfloat16)
+        bargs = (hsave, tfsg, ctx_flat, w_fg, w_out, dskip, pack, 64, dil,
+                 None)
+        got, want = ks.stack_bwd(*bargs), sk.stack_bwd_plain(*bargs)
+        errs = {}
+        for name, x, y in zip(("dtab", "dctx", "db_fg", "dw_fg", "dw_out",
+                               "db_out"), got, want):
+            errs[name] = _err(x, y)
+            tol = (2e-2 if name == "dctx" else 1e-3) * _scale(y)
+            check(errs[name] <= tol, f"stack_bwd {PROBE_TAG} flat ctx {name}:"
+                  f" max err {errs[name]:.3g}, scale {_scale(y):.3g}")
+        del got, want
+        lib, st = ks.library(), ks._stream(tfsg)
+        rec["stack_bwd flat"] = dict(
+            max_abs_err=max(errs.values()), errs=errs,
+            ms=time_cuda(torch, lambda: ks.run_bwd(lib, *bargs, stream=st),
+                         5),
+            plain_ms=time_cuda(torch, lambda: sk.stack_bwd_plain(*bargs), 2),
+            by_grid=by_grid(torch, lambda: ks.run_bwd(lib, *bargs,
+                                                      stream=st)))
+        del hsave, tfsg, bargs
+    print(grid_line(f"train kernel stack_bwd ({PROBE_TAG}, flat ctx)",
+                    rec["stack_bwd flat"]["by_grid"]), flush=True)
+    print(f"train kernel stack_bwd ({PROBE_TAG}, flat ctx) vs plain: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; kernel {rec['stack_bwd flat']['ms']:.3f} ms, plain "
+          f"{rec['stack_bwd flat']['plain_ms']:.3f} ms", flush=True)
+    # experiment 02's CLI widths at --residual_channels 128 (S = 8)
+    from movenet_tpu_torch.utils.fixtures import experiment, random_batch
+
+    cfg2, model2 = experiment("02_kinetics_breakdancing",
+                              extra=("--residual_channels", "128"))
+    rec2 = phase_train_kernels(
+        torch, np, cfg2, model2,
+        random_batch(cfg2.model_config, 2, seed=1), EXP02_R128_TAG)
+    del model2
+    runs, launches = phase_train(torch, np, cfg, model, batch,
+                                 f"train {PROBE_TAG}")
+    return model, batch, rec, rec2, runs, launches
+
+
+def phase_wide_generate(torch, np, model, batch):
+    """Phase 24 (d): greedy B=1 generation from the trained probe model
+    through the AR kernel's video form, exact and fast, prompted by the
+    batch's first RF codes and conditioned by its video: codes equal to
+    the plain version's; times."""
+    from movenet_tpu_torch.ops.cuda import ar_sampler as ars
+
+    rf = model.receptive_fields
+    model.eval()
+    out = {}
+    for fast in (False, True):
+        inp = ars.prepare(model, batch.codes[:1, :rf], rf + N_WIDE_GEN,
+                          temperature=0.0, seed=0, parity_sampling=True,
+                          fast=fast, video=batch.video[:1])
+        before = dict(ars.launch_counts)
+        got = ars.ar_sampler(inp)
+        torch.cuda.synchronize()
+        check(ars.launch_counts[inp.name] == before[inp.name] + 1,
+              f"{inp.name} not launched")
+        t0 = time.perf_counter()
+        want = ars.ar_sampler_plain(inp)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = bool(torch.equal(got.cpu(), want.cpu()))
+        check(equal, f"{PROBE_TAG} {inp.name}: kernel and plain codes "
+              f"differ at {(got != want).nonzero()[:3].tolist()}")
+        out[inp.name] = dict(equal=equal, plain_ms=plain_ms,
+                             ms=time_cuda(torch, lambda: ars.ar_sampler(inp),
+                                          3))
+        print(f"generate {PROBE_TAG} {inp.name} (greedy B=1, video, n = RF "
+              f"+ {N_WIDE_GEN}): codes equal to plain; kernel "
+              f"{out[inp.name]['ms']:.2f} ms "
+              f"({out[inp.name]['ms'] * 1e3 / N_WIDE_GEN:.2f} us/step), "
+              f"plain {plain_ms:.1f} ms", flush=True)
+    model.train()
+    return out
+
+
+def phase_wide_cli(torch, np, root, ds):
+    """Phase 24 (c): the trainer CLI with experiment 02's flags and
+    --residual_channels 128 (the CLI's skip width 8) for 1 epoch of 3 steps
+    on phase 14's clips: the default strategy resolves to save, so the
+    wide save kernels at (128, 8) and the head run (no recompute kernel),
+    the losses are finite; update ms and peak memory."""
+    from movenet_tpu_torch.data import kinetics_index
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    n_val = len(kinetics_index(ds, train=False)) // 2
+    ks.reset_launch_counts()
+    kh.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_train_steps(torch) as steps:
+        state = trainer_cli([
+            "--dataset", str(ds), *EXP02_FLAGS, "--residual_channels", "128",
+            "--val_batch_size", "2", "--n_steps_per_epoch", "3",
+            "--n_epochs", "1", "--model_output_path", str(root / "wide_run"),
+            "--logger", "jsonl", "--training_logs_path",
+            str(root / "wide_logs")])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {**ks.launch_counts, **kh.launch_counts}
+    m = state.module
+    check(state.step == 3, f"trainer CLI took {state.step} steps, not 3")
+    check((m.residual_channels, m.skip_channels) == (128, 8),
+          f"--residual_channels 128 built R={m.residual_channels}, "
+          f"S={m.skip_channels}")
+    want = {"stack_fwd": 3 + n_val, "stack_bwd": 3, "head_fwd": 3 + n_val,
+            "head_bwd": 3, "stack_fwd_tails": 0, "stack_bwd_tails": 0,
+            "stack_fwd_replay": 0, "stack_bwd_replay": 0}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"trainer CLI at --residual_channels 128: launches {launches}, "
+          f"expected {want}")
+    lines = [json.loads(l) for l in (root / "wide_logs" / "metrics.jsonl")
+             .read_text().splitlines()]
+    losses = [l["loss"] for l in lines if l["tag"] in ("train", "val")]
+    check(losses and all(np.isfinite(losses)), f"losses {losses}")
+    median = float(np.median(steps.ms[1:]))
+    print(f"trainer CLI (experiment 02 flags, --residual_channels 128: R=128,"
+          f" S=8): 3 steps + {n_val} validation batches; step ms "
+          f"{[round(v, 2) for v in steps.ms]} (median after the first "
+          f"{median:.2f}); peak memory {peak:.3f} GB; losses "
+          f"{[round(v, 6) for v in losses]}; launches {launches}", flush=True)
+    return dict(launches=launches, step_ms=median, peak_gb=peak)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4323,6 +4514,14 @@ def main() -> int:
         launches.update(gated_launches)
         print(f"merged head + gated block phases: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        phase = "24 (a, b) the probe's kernels and train steps at R = 128"
+        t0 = time.perf_counter()
+        (probe_model, probe_batch, wide_recs24, wide_recs24_s8, wide_runs,
+         wide_launches) = phase_wide_kernels(torch, np)
+        phase = "24 (d) generation from the trained probe model"
+        wide_gen = phase_wide_generate(torch, np, probe_model, probe_batch)
+        del probe_model, probe_batch
+        wide_s = time.perf_counter() - t0
         with tempfile.TemporaryDirectory() as tmp:
             phase = "trainer CLI"
             cli_launches, cli_step_ms, ds = phase_trainer_cli(
@@ -4353,6 +4552,11 @@ def main() -> int:
             launches.update(replay_launches)
             replay_s += time.perf_counter() - t0
             print(f"phase 23: {replay_s:.1f} s", flush=True)
+            phase = "24 (c) trainer CLI at --residual_channels 128"
+            t0 = time.perf_counter()
+            wide_cli = phase_wide_cli(torch, np, Path(tmp), ds)
+            wide_s += time.perf_counter() - t0
+            print(f"phase 24: {wide_s:.1f} s", flush=True)
             phase = "9g (b, c) float32 flagship trainer CLI"
             t0 = time.perf_counter()
             f32g_launches, f32g_cli = phase_f32_flagship_cli(torch, np,
@@ -4441,6 +4645,28 @@ def main() -> int:
               f"ctx) + head kernels at (64, 256, 2) {head:.3f} ms (phase 18)"
               f" + the rest {flag_cli['step_ms'] - trunk - head:.2f} ms; "
               f"{card}", flush=True)
+        for name in TRAIN_KERNELS:
+            for tag, recs in ((PROBE_TAG, wide_recs24),
+                              (EXP02_R128_TAG, wide_recs24_s8)):
+                r = recs[name]
+                print(f"time {name} {tag}: kernel {r['ms']:.3f} ms, plain "
+                      f"{r['plain_ms']:.3f} ms; {card}", flush=True)
+        r = wide_recs24["stack_bwd flat"]
+        print(f"time stack_bwd {PROBE_TAG} flat ctx: kernel {r['ms']:.3f} ms,"
+              f" plain {r['plain_ms']:.3f} ms; {card}", flush=True)
+        wk, wp = wide_runs["kernels"], wide_runs["plain"]
+        print(f"time train {PROBE_TAG} (B=2, T=160000, bf16): step "
+              f"{wk['step_ms']:.2f} ms, {1e3 / wk['step_ms']:.3f} steps/s, "
+              f"plain step {wp['step_ms']:.2f} ms, peak memory "
+              f"{wk['peak_gb']:.2f} GB (plain {wp['peak_gb']:.2f} GB); "
+              f"{card}", flush=True)
+        print(f"time trainer CLI {EXP02_R128_TAG}: update "
+              f"{wide_cli['step_ms']:.2f} ms (median after the first), peak "
+              f"memory {wide_cli['peak_gb']:.3f} GB; {card}", flush=True)
+        for name, r in wide_gen.items():
+            print(f"time generate {PROBE_TAG} {name} (B=1, video): kernel "
+                  f"{r['ms']:.2f} ms for {N_WIDE_GEN} samples, plain "
+                  f"{r['plain_ms']:.1f} ms; {card}", flush=True)
         k, pl = runs["kernels"], runs["plain"]
         print(f"time train (breakdancing, B=2, T=160000, bf16): step "
               f"{k['step_ms']:.2f} ms, {1e3 / k['step_ms']:.3f} steps/s, "
@@ -4558,6 +4784,34 @@ def main() -> int:
                         ms=x["ms"], plain_ms=x["plain_ms"],
                         max_abs_err=x["max_abs_err"], bound_ms=hb[0],
                         bound_by=hb[1]))
+            # phase 24: the wide forms at the probe's shapes (launches of
+            # its 1 + 5 kernel steps) and at experiment 02's CLI widths at
+            # --residual_channels 128 (launches of the CLI's 3 updates and
+            # validation batches)
+            for shape, x, s_, n_launch in (
+                    (PROBE_SHAPE, wide_recs24[name], 128,
+                     wide_launches[name]),
+                    (EXP02_R128_SHAPE, wide_recs24_s8[name], 8,
+                     wide_cli["launches"][name])):
+                wb = train_bounds(2, 160_000, 9, 128, s_, 64, 64, 3 * 128,
+                                  True)[name]
+                widths.append(dict(
+                    shape=shape, ms=x["ms"], plain_ms=x["plain_ms"],
+                    max_abs_err=x["max_abs_err"], bound_ms=wb[0],
+                    bound_by=wb[1], launches=n_launch,
+                    **({"by_grid_ms": x["by_grid"]} if "by_grid" in x
+                       else {})))
+            if name == "stack_bwd":
+                x = wide_recs24["stack_bwd flat"]
+                wb = train_bounds(2, 160_000, 9, 128, 128, 64, 64, 3 * 128,
+                                  False)[name]
+                widths.append(dict(
+                    shape=PROBE_SHAPE.replace("video triple", "flat ctx"),
+                    ms=x["ms"], plain_ms=x["plain_ms"],
+                    max_abs_err=x["max_abs_err"], bound_ms=wb[0],
+                    bound_by=wb[1], by_grid_ms=x["by_grid"]))
+            check(all(w.get("launches", 1) > 0 for w in widths),
+                  f"{name}: a wide form was not launched on its path")
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],

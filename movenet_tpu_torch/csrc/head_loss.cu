@@ -17,8 +17,8 @@
 //     head_fwd_packed_kernel and head_bwd_packed_kernel on split-TF32
 //     tensor cores (see "Packed design" below).
 //
-// The unpacked kernels (head_fwd_kernel<NT>, head_bwd_kernel<NT, KS>,
-// head_wgrad_kernel; 4 <= S <= 64, 4 <= C <= 256, multiples of 4).  Every
+// The unpacked kernels (head_fwd_kernel<NT, LG>, head_bwd_kernel<NT, KS>,
+// head_wgrad_kernel; 4 <= S <= 128, 4 <= C <= 256, multiples of 4).  Every
 // product takes bf16 operands, as the TPU's _mdot does: leaky(skip),
 // leaky(y), dz, dy, W1 and W2 rounded to bf16.  Products of bf16 values
 // are exact in float32, so they run on the tensor cores as mma.sync
@@ -62,7 +62,13 @@
 // split-K GEMM: one block per 64x64 output tile and row range,
 // ldmatrix.trans fragments from shared memory.  Every block writes its
 // partial sums, which reduce_kernel adds in a fixed order: deterministic,
-// no atomics.
+// no atomics.  The wide head (S > 64, the R = 128 trunk's skip width)
+// keeps this design with two changes that keep it within a block's shared
+// memory: the backward stages no W1^T and rebuilds y as the forward forms
+// it (y_seq, W1 read down its columns, the rows of skip from global
+// memory), and above C = 128 the forward's y_seq reads its rows from
+// global memory instead of per-warp slabs (LG).  dW1's GEMM takes SP / 64
+// row tiles.
 //
 // Packed design (S = C = 64).  Every product takes float32 operands and
 // runs as split-TF32 mma.sync m16n8k8 (mma_tf32.cuh), three passes each
@@ -264,33 +270,36 @@ __device__ __forceinline__ void y_tile(const bf16_t* w1t, int ld1, int kk,
       }
 }
 
-// y (without b1) as y_tile lays it out, from the slab's rows lsk (16, ld)
-// and W1^T staged as (CP, ld), summed as the plain version's float32
-// product sums it (cuBLAS on the card): k in order, one fmaf per term
-// from zero.  leaky(y) is then rounded to the plain version's bf16 value
-// (a sum in another order moves y by an ulp, and near a rounding midpoint
-// that flips the bf16 operand and moves every z of its row).
-__device__ __forceinline__ void y_seq(const bf16_t* lsk, const bf16_t* w1t,
-                                      int ld, int S, int kk,
+// y (without b1) as y_tile lays it out, from the slab's rows of
+// rnd(leaky(skip)) and W1, summed as the plain version's float32 product
+// sums it (cuBLAS on the card): k in order, one fmaf per term from zero.
+// leaky(y) is then rounded to the plain version's bf16 value (a sum in
+// another order moves y by an ulp, and near a rounding midpoint that flips
+// the bf16 operand and moves every z of its row).  rows(k, u0, u1) gives
+// the pairs at k of the lane's rows g and g + 8 of the slab: from the
+// warp's slab lsk in shared memory, or (the wide head) from skip in global
+// memory; cols(j, k, w0, w1) W1[k][c] and W1[k + 1][c] of the lane's column
+// c = 16 kk + 2q + j, j = 8h + c': from W1^T, or (the wide head's
+// backward) from W1.
+template <typename Rows, typename Cols>
+__device__ __forceinline__ void y_seq(Rows rows, Cols cols, int S,
                                       float (&y)[2][4]) {
-  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
-  const bf16_t* l0 = lsk + g * ld;
-  const bf16_t* w = w1t + (16 * kk + 2 * q) * ld;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int e = 0; e < 4; ++e) y[h][e] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < S; k += 2) {
-    const unsigned u0 = ld32(l0 + k), u1 = ld32(l0 + 8 * ld + k);
+    unsigned u0, u1;
+    rows(k, u0, u1);
     const float a[2][2] = {{bf2f(u0 & 0xffffu), bf2f(u0 >> 16)},
                            {bf2f(u1 & 0xffffu), bf2f(u1 >> 16)}};
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const unsigned wv = ld32(w + (8 * h + c) * ld + k);
-        const float w0 = bf2f(wv & 0xffffu), w1 = bf2f(wv >> 16);
+        float w0, w1;
+        cols(8 * h + c, k, w0, w1);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           float& acc = y[h][2 * r + c];
@@ -358,8 +367,10 @@ __device__ __forceinline__ void colsum_add(const float (&d)[N][4], int n,
     }
 }
 
-// Forward.  NT: n tiles of z held (CP <= 8 NT).
-template <int NT>
+// Forward.  NT: n tiles of z held (CP <= 8 NT).  LG (the wide head, S >
+// 64 with C > 128, whose per-warp slabs do not fit beside W1^T and W2^T):
+// y_seq reads rnd(leaky(skip)) from global memory instead of the slab.
+template <int NT, bool LG>
 __global__ void __launch_bounds__(kThreads, NT > 16 ? 1 : 2)
     head_fwd_kernel(HeadArgs a) {
   const int S = a.s, C = a.c, SP = a.sp, CP = a.cp;
@@ -387,13 +398,29 @@ __global__ void __launch_bounds__(kThreads, NT > 16 ? 1 : 2)
   float loss = 0.f, match = 0.f;   // lanes q = 0, over the block's slabs
   for (long m0 = lo + 16 * (tid >> 5); m0 < hi; m0 += 16 * kWarps) {
     const long r0 = m0 + g;
-    __syncwarp();
-    for (int i = lane; i < 8 * S; i += 32) {
-      const int r = i / (S / 2), k = 2 * (i % (S / 2));
-      st32(lsk + r * ld1 + k,
-           m0 + r < hi ? leaky2(ld32(a.skip + (m0 + r) * S + k)) : 0u);
+    if constexpr (!LG) {
+      __syncwarp();
+      for (int i = lane; i < 8 * S; i += 32) {
+        const int r = i / (S / 2), k = 2 * (i % (S / 2));
+        st32(lsk + r * ld1 + k,
+             m0 + r < hi ? leaky2(ld32(a.skip + (m0 + r) * S + k)) : 0u);
+      }
+      __syncwarp();
     }
-    __syncwarp();
+    // the lane's rows g and g + 8 of the slab
+    const bf16_t* l0 = lsk + g * ld1;
+    const bool ok0 = r0 < hi, ok1 = r0 + 8 < hi;
+    const bf16_t* s0 = a.skip + (ok0 ? r0 : 0) * S;
+    const bf16_t* s1 = a.skip + (ok1 ? r0 + 8 : 0) * S;
+    auto rows = [&](int k, unsigned& u0, unsigned& u1) {
+      if constexpr (LG) {
+        u0 = ok0 ? leaky2(ld32(s0 + k)) : 0u;
+        u1 = ok1 ? leaky2(ld32(s1 + k)) : 0u;
+      } else {
+        u0 = ld32(l0 + k);
+        u1 = ld32(l0 + 8 * ld1 + k);
+      }
+    };
     float z[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -401,7 +428,13 @@ __global__ void __launch_bounds__(kThreads, NT > 16 ? 1 : 2)
       for (int e = 0; e < 4; ++e) z[j][e] = 0.f;
     for (int kk = 0; kk < CP / 16; ++kk) {
       float y[2][4];
-      y_seq(lsk, w1t, ld1, S, kk, y);
+      const bf16_t* w = w1t + (16 * kk + 2 * q) * ld1;
+      auto w1t_cols = [&](int j, int k, float& w0, float& w1) {
+        const unsigned wv = ld32(w + j * ld1 + k);
+        w0 = bf2f(wv & 0xffffu);
+        w1 = bf2f(wv >> 16);
+      };
+      y_seq(rows, w1t_cols, S, y);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -522,15 +555,21 @@ __global__ void __launch_bounds__(kThreads, NT > 16 ? 1 : 2)
 }
 
 // Backward: dz, dy, dskip and the bias gradients; ly, dz_r and dy_r
-// stored for head_wgrad_kernel.
+// stored for head_wgrad_kernel.  KS > 4 (the wide head, S > 64): no W1^T,
+// and y is rebuilt as the forward forms it (y_seq from W1 and the rows of
+// skip in global memory), not on the tensor cores: with 128 terms a sum in
+// another order put y on the other side of zero often enough to move a
+// whole row of dskip through dleaky(y) (on the H100, one row of 2,000 at
+// S = C = 128).
 template <int NT, int KS>
-__global__ void __launch_bounds__(kThreads, NT > 16 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, NT > 16 || KS > 4 ? 1 : 2)
     head_bwd_kernel(HeadArgs a) {
+  constexpr bool kW1t = KS <= 4;
   const int S = a.s, C = a.c, SP = a.sp, CP = a.cp;
   const int ld1 = SP + 8, ldc = CP + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16_t* w1t = reinterpret_cast<bf16_t*>(smem);        // (CP, ld1) W1^T
-  bf16_t* w1 = w1t + CP * ld1;                           // (SP, ldc) W1
+  bf16_t* w1 = w1t + (kW1t ? CP * ld1 : 0);              // (SP, ldc) W1
   bf16_t* w2 = w1 + SP * ldc;                            // (CP, ldc) W2
   float* b1 = reinterpret_cast<float*>(w2 + CP * ldc);   // (CP)
   float* cs = b1 + CP;   // (kWarps, 2, CP): each warp's db2, db1 sums
@@ -538,7 +577,7 @@ __global__ void __launch_bounds__(kThreads, NT > 16 ? 1 : 2)
   // the warp's store buffer (16, kBufLd)
   bf16_t* buf = reinterpret_cast<bf16_t*>(cs + kWarps * 2 * CP) +
                 (tid >> 5) * 16 * kBufLd;
-  stage_wt(a.w1, S, C, SP, CP, w1t, ld1);
+  if constexpr (kW1t) stage_wt(a.w1, S, C, SP, CP, w1t, ld1);
   stage_w(a.w1, S, C, SP, CP, w1, ldc);
   stage_w(a.w2, C, C, CP, CP, w2, ldc);
   for (int i = tid; i < CP; i += kThreads) b1[i] = i < C ? a.b1[i] : 0.f;
@@ -563,7 +602,23 @@ __global__ void __launch_bounds__(kThreads, NT > 16 ? 1 : 2)
     for (int kk = 0; kk < NT / 2; ++kk)
       if (kk < CP / 16) {
         float y[2][4];
-        y_tile<KS>(w1t, ld1, kk, ks1, as, y);
+        if constexpr (kW1t) {
+          y_tile<KS>(w1t, ld1, kk, ks1, as, y);
+        } else {
+          const bool ok0 = r0 < hi, ok1 = r0 + 8 < hi;
+          const bf16_t* s0 = a.skip + (ok0 ? r0 : 0) * S;
+          const bf16_t* s1 = a.skip + (ok1 ? r0 + 8 : 0) * S;
+          y_seq([&](int k, unsigned& u0, unsigned& u1) {
+                  u0 = ok0 ? leaky2(ld32(s0 + k)) : 0u;
+                  u1 = ok1 ? leaky2(ld32(s1 + k)) : 0u;
+                },
+                [&](int j, int k, float& x0, float& x1) {
+                  const bf16_t* wc = w1 + k * ldc + 16 * kk + 2 * q + j;
+                  x0 = bf2f(wc[0]);
+                  x1 = bf2f(wc[ldc]);
+                },
+                S, y);
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -740,10 +795,11 @@ __global__ void __launch_bounds__(kThreads, NT > 16 ? 1 : 2)
 }
 
 // dW2 = ly^T dz_r (blocks x < tiles_n^2) and dW1 = rnd(leaky(skip))^T dy_r
-// (the next tiles_n blocks) over the rows of split blockIdx.y (the
-// backward's block ranges): a 64x64 output tile per block, each warp
-// 32x32, 32-row stages through shared memory with the next stage's loads
-// in flight, fragments by ldmatrix.trans.
+// (the next tiles_s x tiles_n blocks, tiles_s = SP / 64 rounded up) over
+// the rows of split blockIdx.y (the backward's block ranges): a 64x64
+// output tile per block, each warp 32x32, 32-row stages through shared
+// memory with the next stage's loads in flight, fragments by
+// ldmatrix.trans.
 __global__ void __launch_bounds__(kWgThreads)
     head_wgrad_kernel(HeadArgs a, int tiles_n) {
   __shared__ __align__(16) bf16_t sa[kWgRows * kWgLd];
@@ -753,7 +809,7 @@ __global__ void __launch_bounds__(kWgThreads)
   const int tiles2 = tiles_n * tiles_n;
   const bool is_w1 = static_cast<int>(blockIdx.x) >= tiles2;
   const int t = is_w1 ? blockIdx.x - tiles2 : blockIdx.x;
-  const int m0 = is_w1 ? 0 : (t / tiles_n) * kWgTile;
+  const int m0 = (t / tiles_n) * kWgTile;
   const int n0 = (t % tiles_n) * kWgTile;
   const int S = a.s, C = a.c, CP = a.cp;
   const int kc = is_w1 ? S : C, kcp = is_w1 ? a.sp : CP;
@@ -769,8 +825,9 @@ __global__ void __launch_bounds__(kWgThreads)
       for (int u = 0; u < 4; ++u) {
         const int i = tid + kWgThreads * u, row = i >> 4, c4 = (i & 15) * 4;
         uint2 v = make_uint2(0u, 0u);
-        if (r + row < hi && c4 < S)
-          v = *reinterpret_cast<const uint2*>(a.skip + (r + row) * S + c4);
+        if (r + row < hi && m0 + c4 < S)
+          v = *reinterpret_cast<const uint2*>(a.skip + (r + row) * S + m0 +
+                                              c4);
         ra[2 * u] = leaky2(v.x);
         ra[2 * u + 1] = leaky2(v.y);
       }
@@ -2634,15 +2691,22 @@ __global__ void __launch_bounds__(kThreads)
 
 int pad16(int x) { return (x + 15) / 16 * 16; }
 
+// The wide head's forms: the backward from S > 64 (no W1^T), the forward
+// from S > 64 with C > 128 (no per-warp slabs of leaky(skip)).
+bool wide_bwd(int s) { return pad16(s) > 64; }
+bool wide_fwd(int s, int c) { return pad16(s) > 64 && pad16(c) > 128; }
+
 // Shared memory of the unpacked kernels (see their layouts).
 size_t fwd_smem(int s, int c) {
   const size_t sp = pad16(s), cp = pad16(c);
-  return 2 * (cp * (sp + 8) + cp * (cp + 8) + kWarps * 16 * (sp + 8)) +
+  return 2 * (cp * (sp + 8) + cp * (cp + 8) +
+              (wide_fwd(s, c) ? 0 : kWarps * 16 * (sp + 8))) +
          4 * (2 * cp + 2 * kThreads);
 }
 size_t bwd_smem(int s, int c) {
   const size_t sp = pad16(s), cp = pad16(c);
-  return 2 * (cp * (sp + 8) + sp * (cp + 8) + cp * (cp + 8)) +
+  return 2 * ((wide_bwd(s) ? 0 : cp * (sp + 8)) + sp * (cp + 8) +
+              cp * (cp + 8)) +
          4 * (cp + kWarps * 2 * cp) + 2 * kWarps * 16 * kBufLd;
 }
 // Shared memory of the packed kernels (S = C = 64; see their layouts):
@@ -2675,7 +2739,7 @@ int launch(K kernel, const HeadArgs& a, size_t bytes, int blocks,
 }
 
 // The unpacked kernel instance for (SP, CP): NT = 8, 16 or 32 n tiles,
-// KS = 1 or 4 k steps of skip.
+// KS = 1, 4 or 8 k steps of skip.
 template <typename F>
 int dispatch(int sp, int cp, const F& f) {
   if (sp <= 16) {
@@ -2683,9 +2747,14 @@ int dispatch(int sp, int cp, const F& f) {
     if (cp <= 128) return f.template run<16, 1>();
     return f.template run<32, 1>();
   }
-  if (cp <= 64) return f.template run<8, 4>();
-  if (cp <= 128) return f.template run<16, 4>();
-  return f.template run<32, 4>();
+  if (sp <= 64) {
+    if (cp <= 64) return f.template run<8, 4>();
+    if (cp <= 128) return f.template run<16, 4>();
+    return f.template run<32, 4>();
+  }
+  if (cp <= 64) return f.template run<8, 8>();
+  if (cp <= 128) return f.template run<16, 8>();
+  return f.template run<32, 8>();
 }
 
 struct FwdLaunch {
@@ -2694,7 +2763,8 @@ struct FwdLaunch {
   cudaStream_t st;
   template <int NT, int KS>   // the forward holds no skip fragments
   int run() const {
-    return launch(head_fwd_kernel<NT>, a, fwd_smem(a.s, a.c), blocks, st);
+    return launch(head_fwd_kernel<NT, (KS > 4 && NT > 16)>, a,
+                  fwd_smem(a.s, a.c), blocks, st);
   }
 };
 
@@ -2799,9 +2869,10 @@ HeadArgs make_args(const bf16_t* skip, const int* pack, int pack_cols,
 
 extern "C" {
 
-// 1 if the kernels take skip width s and c classes
+// 1 if the kernels take skip width s and c classes (4 <= S <= 128, 4 <= C
+// <= 256, multiples of 4)
 int movenet_head_supports(int s, int c) {
-  return s >= 4 && c >= 4 && s % 4 == 0 && c % 4 == 0 && s <= 64 &&
+  return s >= 4 && c >= 4 && s % 4 == 0 && c % 4 == 0 && s <= 128 &&
          c <= 256 && fwd_smem(s, c) <= kSmemLimit &&
          bwd_smem(s, c) <= kSmemLimit;
 }
@@ -2877,7 +2948,8 @@ int movenet_head_bwd(const bf16_t* skip, const int* pack, int pack_cols,
     err = dispatch(a.sp, a.cp, BwdLaunch{a, blocks, st});
     if (err) return err;
     const int tiles_n = (a.cp + kWgTile - 1) / kWgTile;
-    head_wgrad_kernel<<<dim3(tiles_n * tiles_n + tiles_n, blocks),
+    const int tiles_s = (a.sp + kWgTile - 1) / kWgTile;
+    head_wgrad_kernel<<<dim3(tiles_n * tiles_n + tiles_s * tiles_n, blocks),
                         kWgThreads, 0, st>>>(a, tiles_n);
     err = static_cast<int>(cudaGetLastError());
   }

@@ -275,14 +275,20 @@ struct BwdLayerArgs {
   const float* cx_f;     // (M, R), or null
 };
 
+// The widest R of the layouts below and of the forward's; wider trunks
+// (R = 128) run the wide save forms, whose weights stream through shared
+// memory (see "the wide save forms").
+constexpr int kNarrowR = 64;
+
 // Each SM runs two tile pipelines of 8 warps, so that one pipeline's
 // loads and stores overlap the other's products: at R = 64 two halves of
 // one 512-thread block (the weights staged once in shared memory for
 // both), each walking 32-row tiles with a barrier of its own; at R <= 32
-// two 256-thread blocks of 64-row tiles.
+// two 256-thread blocks of 64-row tiles.  The wide form (R > kNarrowR):
+// one 256-thread block an SM on 64-row tiles (WideBwd).
 template <int R, int S>
 struct BwdShape {
-  static constexpr int kHalves = R >= 64 ? 2 : 1;   // pipelines per block
+  static constexpr int kHalves = R == 64 ? 2 : 1;   // pipelines per block
   static constexpr int kThreads = 256 * kHalves;
   static constexpr int kRows = 64 / kHalves;        // rows per tile
   static constexpr int kMt = kRows / 16;            // row tiles of 16
@@ -297,9 +303,7 @@ struct BwdShape {
   static constexpr size_t kTile =
       static_cast<size_t>(kRows * kLdd + kRows * kLdf) * 4 +
       static_cast<size_t>(kRows * kLdt) * 2;
-  static size_t smem(int win) {
-    return static_cast<size_t>(R * kLdd + win * kLdf) * 4 + kHalves * kTile;
-  }
+  static size_t smem(int win);
   // the recompute form: the [h | h(t-d) | ctx] rows (bf16, stride 8 mod 16
   // as kLdt) in place of the taps
   static constexpr int kLdh = 3 * R + 8;
@@ -326,6 +330,30 @@ struct BwdShape {
   static_assert(kLdhf <= kLdd + kLdf, "the operand rows fit the tile");
   static size_t smem_rcf32(int win) { return smem_f32(win); }
 };
+
+// The wide save backward's block (R > kNarrowR): 8 warps on 64-row tiles,
+// one block an SM.  Its shared memory: the tile's [dh | dskip] rows dd
+// (kRows, kLdd) and dfg rows ff (kRows, kLdf), float32 (the taps widened
+// into ff first), then a ring of two weight slabs of kSw rows (W_out's,
+// k = R+S, row stride kLdd; or W_fg's, k = 2R, stride kLdf), float32 as
+// the weights lie in global memory.  Row strides of 4 mod 8 floats, as
+// BwdShape's.
+template <int R, int S>
+struct WideBwd {
+  static constexpr int kRows = 64, kSw = 32, kThreads = 256;
+  static constexpr int kNo = R + S, kLdd = kNo + 4, kLdf = 2 * R + 4;
+  static constexpr int kLds = kLdd > kLdf ? kLdd : kLdf;
+  static constexpr size_t kBytes =
+      static_cast<size_t>(kRows * (kLdd + kLdf) + 2 * kSw * kLds) * 4;
+};
+
+template <int R, int S>
+size_t BwdShape<R, S>::smem(int win) {
+  if constexpr (R > kNarrowR)
+    return WideBwd<R, S>::kBytes;
+  else
+    return static_cast<size_t>(R * kLdd + win * kLdf) * 4 + kHalves * kTile;
+}
 
 // the layer backward's forms: the save strategy's (bf16 taps), the
 // recompute strategy's, the float32 save form (float32 taps) and the
@@ -429,6 +457,207 @@ __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
   }
 }
 
+// One layer of the wide save backward (R > kNarrowR; "the wide save forms"
+// below): the narrow form's products, operands and sums, the weights
+// streamed.  Persistent blocks walk 64-row tiles.  Per tile: dh (the layer
+// above's dh + dfg_w_h, plus its carry dfg_w_p(t + d)) and dskip into dd,
+// dh to global memory, the taps widened into ff; then the steps, each on
+// one weight slab while the next arrives: dgated over the R / kSw slabs of
+// W_out (each warp 16 rows by 16 of the slab's columns; dfg from the taps
+// overwrites them in ff), then dfg to global memory and dfg_w over the
+// W_in / kSw slabs of W_fg (the same split; the dh part into dhp, the past
+// part into p_out, the ctx part into dctx).
+template <int R, int S>
+__device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
+  using W = WideBwd<R, S>;
+  constexpr int ROWS = W::kRows, SW = W::kSw, NO = W::kNo, THREADS = W::kThreads;
+  constexpr int LDD = W::kLdd, LDF = W::kLdf, LDS = W::kLds;
+  static_assert(R % SW == 0 && S % 4 == 0, "whole slabs and float4 rows");
+  const int win = a.win;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dd = reinterpret_cast<float*>(smem);   // (ROWS, LDD) [dh | dskip]
+  float* ff = dd + ROWS * LDD;                    // (ROWS, LDF) taps, dfg
+  float* ring = ff + ROWS * LDF;                  // (2, SW, LDS) weights
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2;
+  const int q = tid & 3;
+  const int r0 = 16 * (warp & 3), n0 = 16 * (warp >> 2);
+  const int n_out = R / SW, n_steps = n_out + win / SW;
+  const bool ctx_sum = a.dctx != nullptr && !a.top;
+  const long n_tiles = (a.m_total + ROWS - 1) / ROWS;
+
+  // slab j of a tile: W_out's rows [SW j, + SW), or W_fg's [SW (j -
+  // n_out), + SW)
+  auto load_slab = [&](int j, float* dst) {
+    if (j < n_out) {
+      for (int i = tid; i < SW * (NO / 4); i += THREADS) {
+        const int row = i / (NO / 4), c4 = 4 * (i % (NO / 4));
+        cp_async16(dst + row * LDD + c4,
+                   a.w_out + static_cast<long>(SW * j + row) * NO + c4, true);
+      }
+    } else {
+      for (int i = tid; i < SW * (R / 2); i += THREADS) {
+        const int row = i / (R / 2), c4 = 4 * (i % (R / 2));
+        cp_async16(dst + row * LDF + c4,
+                   a.w_fg + static_cast<long>(SW * (j - n_out) + row) * 2 * R +
+                       c4,
+                   true);
+      }
+    }
+  };
+  int ring_i = 0;   // ring slot of the current slab
+  if (blockIdx.x < n_tiles) load_slab(0, ring);
+  cp_async_commit();
+  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    const long m0 = tile_i * ROWS, next = tile_i + gridDim.x;
+    __syncthreads();   // every warp is done with the last tile's rows
+    for (int i = tid; i < ROWS * (R / 4); i += THREADS) {
+      const int row = i / (R / 4), j0 = 4 * (i % (R / 4));
+      const long m = m0 + row;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      float tf[4] = {0.f, 0.f, 0.f, 0.f}, sg[4] = {0.f, 0.f, 0.f, 0.f};
+      if (m < a.m_total) {
+        if (!a.top) {
+          v = *reinterpret_cast<const float4*>(a.dhp + m * R + j0);
+          if (static_cast<int>(m % a.t_len) + a.d_in < a.t_len) {
+            const float4 c = *reinterpret_cast<const float4*>(
+                a.p_in + (m + a.d_in) * R + j0);
+            v = make_float4(v.x + c.x, v.y + c.y, v.z + c.z, v.w + c.w);
+          }
+        }
+        *reinterpret_cast<float4*>(a.dh + m * R + j0) = v;
+        load4(a.tfsg + m * 2 * R + j0, tf);
+        load4(a.tfsg + m * 2 * R + R + j0, sg);
+      }
+      *reinterpret_cast<float4*>(dd + row * LDD + j0) = v;
+      *reinterpret_cast<float4*>(ff + row * LDF + j0) =
+          make_float4(tf[0], tf[1], tf[2], tf[3]);
+      *reinterpret_cast<float4*>(ff + row * LDF + R + j0) =
+          make_float4(sg[0], sg[1], sg[2], sg[3]);
+    }
+    for (int i = tid; i < ROWS * (S / 4); i += THREADS) {
+      const int row = i / (S / 4), j0 = 4 * (i % (S / 4));
+      const long m = m0 + row;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (m < a.m_total) {
+        if (a.dskip_f) {
+          const float4 u =
+              *reinterpret_cast<const float4*>(a.dskip_f + m * S + j0);
+          v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+        } else {
+          load4(a.dskip + m * S + j0, v);
+        }
+      }
+      *reinterpret_cast<float4*>(dd + row * LDD + R + j0) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+    for (int j = 0; j < n_steps; ++j) {
+      cp_async_wait<0>();
+      __syncthreads();   // slab j and the tile's rows, for every warp
+      float* nb = ring + ((ring_i + 1) & 1) * SW * LDS;
+      if (j + 1 < n_steps)
+        load_slab(j + 1, nb);
+      else if (next < n_tiles)
+        load_slab(0, nb);
+      cp_async_commit();
+      const float* w = ring + (ring_i & 1) * SW * LDS;
+      ++ring_i;
+      float acc[2][4] = {};
+      if (j < n_out) {
+        // dgated = [dh | dskip] W_out^T (3 passes) for the warp's columns
+#pragma unroll 2
+        for (int k0 = 0; k0 < NO; k0 += 8) {
+          Frag<4> fa;
+          load_a_rows<true>(dd + r0 * LDD + k0, LDD, fa);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            Frag<2> fb;
+            load_b_cols(w + (n0 + 8 * jj) * LDD + k0, LDD, fb);
+            mma_split<true>(acc[jj], fa, fb);
+          }
+        }
+        // dfg from the taps at the same places
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int c = SW * j + n0 + 8 * jj + 2 * q;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float* fp = ff + (r0 + g + 8 * e) * LDF + c;
+            const float2 tw = *reinterpret_cast<const float2*>(fp);
+            const float2 sw = *reinterpret_cast<const float2*>(fp + R);
+            const float tf[2] = {tw.x, tw.y}, sg[2] = {sw.x, sw.y};
+            float df[2], dq[2];
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+              const float dg = acc[jj][2 * e + k];
+              df[k] = dg * (sg[k] * (1.f - tf[k] * tf[k]));
+              dq[k] = dg * (tf[k] * (sg[k] - sg[k] * sg[k]));
+            }
+            *reinterpret_cast<float2*>(fp) = make_float2(df[0], df[1]);
+            *reinterpret_cast<float2*>(fp + R) = make_float2(dq[0], dq[1]);
+          }
+        }
+        continue;
+      }
+      if (j == n_out) {
+        // dfg is whole: to global memory for the W_fg gradient
+        for (int i = tid; i < ROWS * (R / 2); i += THREADS) {
+          const int row = i / (R / 2), j0 = 4 * (i % (R / 2));
+          const long m = m0 + row;
+          if (m < a.m_total)
+            *reinterpret_cast<float4*>(a.dfg + m * 2 * R + j0) =
+                *reinterpret_cast<const float4*>(ff + row * LDF + j0);
+        }
+      }
+      // dfg_w = dfg W_fg^T (3 passes) for the warp's W_in columns
+#pragma unroll 2
+      for (int k0 = 0; k0 < 2 * R; k0 += 8) {
+        Frag<4> fa;
+        load_a_rows<true>(ff + r0 * LDF + k0, LDF, fa);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          Frag<2> fb;
+          load_b_cols(w + (n0 + 8 * jj) * LDF + k0, LDF, fb);
+          mma_split<true>(acc[jj], fa, fb);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int cw = SW * (j - n_out) + n0 + 8 * jj + 2 * q;
+        const int p = cw / R, c = cw % R;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = r0 + g + 8 * e;
+          const long m = m0 + row;
+          if (m >= a.m_total) continue;
+          const float x0 = acc[jj][2 * e], x1 = acc[jj][2 * e + 1];
+          if (p == 0) {
+            const float2 d =
+                *reinterpret_cast<const float2*>(dd + row * LDD + c);
+            *reinterpret_cast<float2*>(a.dhp + m * R + c) =
+                make_float2(d.x + x0, d.y + x1);
+          } else if (p == 1) {
+            *reinterpret_cast<float2*>(a.p_out + m * R + c) =
+                make_float2(x0, x1);
+          } else {
+            float2 y = make_float2(x0, x1);
+            if (ctx_sum) {
+              const float2 o =
+                  *reinterpret_cast<const float2*>(a.dctx + m * R + c);
+              y = make_float2(o.x + x0, o.y + x1);
+            }
+            if (a.dctx_bf)
+              *reinterpret_cast<unsigned*>(a.dctx_bf + m * R + c) =
+                  pack2(y.x, y.y);
+            else
+              *reinterpret_cast<float2*>(a.dctx + m * R + c) = y;
+          }
+        }
+      }
+    }
+  }  // tiles
+  cp_async_wait<0>();
+}
+
 // Persistent blocks walk the tiles (pipeline h of block b takes tiles
 // b * halves + h, then every gridDim.x * halves-th); the next tile's
 // inputs are loaded into registers while this one computes.  A
@@ -454,6 +683,10 @@ template <int R, int S, int FORM>
 __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
                                   BwdShape<R, S>::kHalves == 2 ? 1 : 2)
     stack_bwd_layer_kernel(BwdLayerArgs a) {
+  if constexpr (R > kNarrowR) {
+  static_assert(FORM == kBwdSave, "the wide forms are the save strategy's");
+  save_wide_bwd<R, S>(a);
+  } else {
   using Sh = BwdShape<R, S>;
   using Regs = BwdTileRegs<R, S, FORM>;
   constexpr bool RC = FORM == kBwdRc, F32 = FORM == kBwdF32;
@@ -772,6 +1005,7 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
     }
   }
   }  // tiles
+  }
 }
 
 // Weight gradients over time, C = sum_rows A^T B and colsum(B), in
@@ -907,7 +1141,10 @@ struct WgShape {
   static constexpr int kN = MODE == 0 || MODE == 4   ? 2 * R
                             : MODE == 2 || MODE == 5 ? 10 * R
                                                      : R + S;
-  static constexpr int kNb = kN < kWgSlab ? kN : kWgSlab;   // slab width
+  // slab width: 64 at the wide widths, whose W_fg sums (KA = 3R) would
+  // not fit a thread's registers over 128 columns
+  static constexpr int kSlabN = R > kNarrowR ? kWgSlab / 2 : kWgSlab;
+  static constexpr int kNb = kN < kSlabN ? kN : kSlabN;
   // row strides of 8 mod 16 floats: conflict-free k-major fragments
   static constexpr int kLda = (KA + 15) / 16 * 16 + 8;
   static constexpr int kLdb = (kNb + 15) / 16 * 16 + 8;
@@ -1206,11 +1443,22 @@ __device__ __forceinline__ void store_act(float* p, float v) { *p = v; }
 // dxc = dz wup^T over rows of dz = dctx as (B*T/10, 10R): the coarse
 // input gradient of the stride-10 projection, stored in the compute
 // dtype (bf16, or float32 in the float32 form).
+template <int R>
+struct ProjDx {
+  // rows a block: 4 x 4 outputs a thread over the block's 256 threads
+  static constexpr int kRows = 16 * kThreads / R < 64 ? 16 * kThreads / R : 64;
+  static constexpr int kKc = 64;
+  static size_t smem() {
+    return static_cast<size_t>(kKc * (kRows + 4) + kKc * R) * 4;
+  }
+};
+
 template <int R, typename ActT>
 __global__ void __launch_bounds__(kThreads)
     stack_proj_dx_kernel(const float* dz, const float* wup, ActT* dxc,
                          long q_total) {
-  constexpr int ROWS = 64, LD = ROWS + 4, KC = 64, K = 10 * R;
+  constexpr int ROWS = ProjDx<R>::kRows, LD = ROWS + 4, KC = ProjDx<R>::kKc;
+  constexpr int K = 10 * R;
   extern __shared__ __align__(16) unsigned char smem[];
   float* zt = reinterpret_cast<float*>(smem);   // (KC, LD)
   float* wt = zt + KC * LD;                       // (KC, R)
@@ -1838,14 +2086,19 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
   for (int l = n_layers - 1; l >= 0; --l) {
     const Act<F32>* hs = rp ? nullptr : hsave + l * m_total * R;
     if (rp) {
-      // the group's layer inputs, rebuilt as the walk enters it
-      const int lo = l / rp->every * rp->every;
-      const int hi = lo + rp->every < n_layers ? lo + rp->every : n_layers;
-      if (l == hi - 1) {
-        err = replay_group<R, S, F32>(*rp, tfsg, w_out, lo, hi, m_total, st);
-        if (err) return err;
+      if constexpr (R > kNarrowR) {
+        return static_cast<int>(cudaErrorInvalidValue);   // narrow only
+      } else {
+        // the group's layer inputs, rebuilt as the walk enters it
+        const int lo = l / rp->every * rp->every;
+        const int hi = lo + rp->every < n_layers ? lo + rp->every : n_layers;
+        if (l == hi - 1) {
+          err = replay_group<R, S, F32>(*rp, tfsg, w_out, lo, hi, m_total,
+                                        st);
+          if (err) return err;
+        }
+        hs = replay_input<F32>(*rp, l, lo, m_total * R);
       }
-      hs = replay_input<F32>(*rp, l, lo, m_total * R);
     }
     BwdLayerArgs a;
     a.dhp = dhp;
@@ -1953,14 +2206,15 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
     err = wgrad_launch<MUP, R, S, R>(w, batch, dwup, dbup, 1, st);
     if (err) return err;
     const long q_total = m_total / 10;
-    const size_t psmem = (64 * 68 + 64 * R) * 4;
+    const size_t psmem = ProjDx<R>::smem();
+    constexpr int prows = ProjDx<R>::kRows;
     const void* pdx =
         reinterpret_cast<const void*>(stack_proj_dx_kernel<R, Act<F32>>);
     err = set_smem(pdx, psmem);
     if (err) return err;
     stack_proj_dx_kernel<R, Act<F32>>
-        <<<static_cast<int>((q_total + 63) / 64), kThreads, psmem, st>>>(
-            dctx, wup, dctx_out, q_total);
+        <<<static_cast<int>((q_total + prows - 1) / prows), kThreads, psmem,
+           st>>>(dctx, wup, dctx_out, q_total);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -2112,6 +2366,59 @@ struct SaveShape {
   static size_t smem() { return kEnd; }
 };
 
+// The wide save forward's block: 8 warps of 16 rows on 128-row tiles, one
+// block an SM.  Its shared memory, byte offsets in this order: the operand
+// tile hp (kRows, kLdh) bf16; a ring of two weight slabs, each the largest
+// of a fg pass's W_fg^T rows (2 kNc, kLdw), a residual slab's W_out rows k
+// (kKh, kLdk) and a skip slab's W_out^T rows (kSw, kLdo), bf16; each
+// warp's gated rows k-major gt (R, 16) bf16; the queues as SaveShape's;
+// the L2 norms of W_fg's columns wn (2R) f32.  The steps of a tile: kFp fg
+// passes, kRk residual slabs, kSk skip slabs.
+constexpr size_t max_size(size_t x, size_t y) { return x > y ? x : y; }
+
+template <int R, int S>
+struct WideShape {
+  static constexpr int kThreads = 256, kWarps = kThreads / 32;
+  static constexpr int kRows = 16 * kWarps;
+  static constexpr int kNc = 16;                   // filter columns a pass
+  static constexpr int kFp = R / kNc;
+  static constexpr int kKh = 64, kRk = R / kKh;    // residual slabs (k)
+  static constexpr int kSw = 64;                   // skip columns a slab
+  static constexpr int kSk = (S + kSw - 1) / kSw;
+  static constexpr int kSteps = kFp + kRk + kSk;
+  static constexpr int kLdh = 3 * R + 8, kLdw = 3 * R + 8;
+  static constexpr int kLdk = R + 8, kLdo = R + 8;
+  static constexpr int kQcap = 128;
+  static_assert(R % kKh == 0 && (S < kSw ? S % 8 == 0 : S % kSw == 0),
+                "whole residual and skip slabs");
+  static constexpr size_t kSlab =
+      max_size(max_size(static_cast<size_t>(2 * kNc) * kLdw,
+                        static_cast<size_t>(kKh) * kLdk),
+               static_cast<size_t>(kSw) * kLdo) * 2;
+  static constexpr size_t kRing = static_cast<size_t>(kRows) * kLdh * 2;
+  static constexpr size_t kGt = kRing + 2 * kSlab;
+  static constexpr size_t kQk = kGt + static_cast<size_t>(kWarps) * R * 16 * 2;
+  static constexpr size_t kQv = kQk + static_cast<size_t>(kWarps) * kQcap * 4;
+  static constexpr size_t kQb = kQv + static_cast<size_t>(kWarps) * kQcap * 4;
+  static constexpr size_t kWn = kQb + static_cast<size_t>(kWarps) * 16 * 4;
+  static constexpr size_t kEnd = kWn + static_cast<size_t>(2 * R) * 4;
+  // bf16 elements of one layer's weights as the wide forward reads them
+  // (stack_wt_kernel): W_fg^T (2R, W_in), W_out's residual columns k-major
+  // (R, R), W_out^T's skip rows (S, R)
+  static long wt_elems(int win) {
+    return 2L * R * win + static_cast<long>(R) * R + static_cast<long>(S) * R;
+  }
+};
+
+// Dynamic shared memory of the save forms' layer launch at (R, S).
+template <int R, int S>
+size_t save_smem() {
+  if constexpr (R > kNarrowR)
+    return WideShape<R, S>::kEnd;
+  else
+    return SaveShape<R, S>::smem();
+}
+
 // The merged head's weights after the layer's shared memory: W1^T (CP, SP
 // + 8) and W2^T (CP, CP + 8) in bf16, then b1 and b2 (CP floats each), zero
 // past S and C; SP and CP are S and C rounded up to 16.
@@ -2162,6 +2469,8 @@ struct LayerArgs : TailsLayerArgs {
   int keep_h;            // store hf (a later layer reads it)
   int raw_gate;          // gated from the unrounded taps (the merged form)
   HeadEpilogue hd;       // kSaveHead
+  const bf16_t* wt;      // the wide forms: this layer's bf16 weights
+                         // (WideShape::wt_elems), or null
 };
 
 template <int FORM>
@@ -2379,6 +2688,9 @@ __device__ __forceinline__ void stage_rows_f32(float* buf, const float* src,
   }
 }
 
+// the save forms' tie margin: 8 float32 rounding units (of |a|_2 |w|_2)
+constexpr float kTie = 8.f / 16777216.f;
+
 // Whether float32 v lies within tau of the bf16 rounding tie (the midpoint
 // between two bf16 values) inside its bf16 interval, or tau is too large
 // to tell: then a value tau away may round to another bf16 value.
@@ -2405,6 +2717,444 @@ __device__ __forceinline__ float fg_chain(const bf16_t* hp, const bf16_t* wf,
                __uint_as_float(wv & 0xffff0000u), acc);
   }
   return acc;
+}
+
+// The save forms' gate of one fg pass p (NP filter n tiles from p NP and
+// their gate tiles; fg sums in the fg_mma layout): tf and sg, the elements
+// near a bf16 rounding tie summed again as the plain version sums them
+// through the warp's queue (qk, qv; qb the fg bias row offsets of the
+// warp's 16 rows), tfsg stored, gated into the A fragments ga of the skip
+// product and, where a layer follows, the warp's k-major gt.  wf holds the
+// pass's W_fg^T rows: the row of fg column c (w R + c', w = 0 filter, 1
+// gate) is srow(c).  rk: the tie margin times the lane's two operand rows'
+// L2 norms; wn: W_fg's column norms.
+template <int R, int NP, int LDH, int LDW, int QCAP, typename Srow>
+__device__ __forceinline__ void save_gate(
+    const LayerArgs& a, const float (&fg)[2 * NP][4], int p,
+    const float* const (&bfr)[2], const float (&rk)[2], const float* wn,
+    const bf16_t* hp, const bf16_t* wf, Srow srow, unsigned* qk, float* qv,
+    const int* qb, int r0, long mr, int win, bf16_t* gt,
+    unsigned (&ga)[R / 16][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = threadIdx.x & 3;
+  const long m_total = a.m_total;
+  // the gate, and the elements whose fg is summed again: bit 8 jj + 2e
+  // + (0: f, 1: g) of flags
+  float tv[NP][4], sv[NP][4];
+  unsigned flags = 0;
+#pragma unroll
+  for (int jj = 0; jj < NP; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = p * NP + jj, c = 8 * j + 2 * q + (e & 1);
+      const float* bf = bfr[e >> 1];
+      const float t = tanhf(fg[jj][e] + __ldg(bf + c));
+      const float s = sigmoidf(fg[NP + jj][e] + __ldg(bf + R + c));
+      tv[jj][e] = t;
+      sv[jj][e] = s;
+      const float tt = (1.f - t * t) * rk[e >> 1] * wn[c] +
+                       4.f * kTie * fabsf(t);
+      const float ts = s * (1.f - s) * rk[e >> 1] * wn[R + c] +
+                       4.f * kTie * s;
+      bool ff = near_bf16_tie(t, tt), fs = near_bf16_tie(s, ts);
+      if (a.raw_gate) {
+        const float tp =
+            fabsf(s) * tt + fabsf(t) * ts + 4.f * kTie * fabsf(t * s);
+        const bool fp = near_bf16_tie(t * s, tp);
+        ff = ff || fp;
+        fs = fs || fp;
+      }
+      flags |= (ff ? 1u : 0u) << (8 * jj + 2 * e) |
+               (fs ? 1u : 0u) << (8 * jj + 2 * e + 1);
+    }
+  // The flagged elements go through the warp's queue, in rounds of
+  // QCAP, in the order of lanes, then bits: the warp's lanes sum them
+  // as the plain version does and apply the gate, and each owner takes
+  // its values back.
+  const int n_own = __popc(flags);
+  int first = n_own;   // the lane's first queue index (a lane scan)
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, first, off);
+    if (lane >= off) first += v;
+  }
+  const int n_q = __shfl_sync(0xffffffffu, first, 31);
+  first -= n_own;
+  for (int rb = 0; rb < n_q; rb += QCAP) {
+    // push: the lane's flagged elements, one pass over its set bits
+    int slot = first - rb;
+    for (unsigned f = flags; f; f &= f - 1u, ++slot) {
+      const int bit = __ffs(f) - 1;
+      if (slot >= 0 && slot < QCAP) {
+        const int e = bit % 8 / 2, w = bit & 1;
+        const int c = 8 * (p * NP + bit / 8) + 2 * q + (e & 1);
+        qk[slot] = static_cast<unsigned>((r0 + g + 8 * (e >> 1)) << 8 |
+                                         (w * R + c));
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < min(n_q - rb, QCAP); i += 32) {
+      const int row = static_cast<int>(qk[i] >> 8);
+      const int col = static_cast<int>(qk[i] & 0xffu);
+      const float v = fg_chain<LDH, LDW>(hp, wf, row, srow(col), win) +
+                      __ldg(a.b_fg + qb[row - r0] + col);
+      qv[i] = col < R ? tanhf(v) : sigmoidf(v);
+    }
+    __syncwarp();
+    // pickup, without branches: every bit reads a slot, the flagged
+    // ones in this round take it
+#pragma unroll
+    for (int bit = 0; bit < 8 * NP; ++bit) {
+      const int at = first + __popc(flags & ((1u << bit) - 1u)) - rb;
+      const bool take = (flags >> bit & 1u) && at >= 0 && at < QCAP;
+      const float v = qv[min(max(at, 0), QCAP - 1)];
+      const int jj = bit / 8, e = bit % 8 / 2;
+      if (bit & 1)
+        sv[jj][e] = take ? v : sv[jj][e];
+      else
+        tv[jj][e] = take ? v : tv[jj][e];
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int jj = 0; jj < NP; ++jj) {
+    const int j = p * NP + jj;
+    float vf[4], vg[4], gv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float t = tv[jj][e], s = sv[jj][e];
+      vf[e] = rnd_bf(t);
+      vg[e] = rnd_bf(s);
+      gv[e] = a.raw_gate ? t * s : vf[e] * vg[e];
+      if (a.h_next)
+        gt[(8 * j + 2 * q + (e & 1)) * 16 + g + 8 * (e >> 1)] =
+            f2bf(gv[e]);
+    }
+    ga[j / 2][2 * (j & 1)] = pack2(gv[0], gv[1]);
+    ga[j / 2][2 * (j & 1) + 1] = pack2(gv[2], gv[3]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long m = mr + g + 8 * h;
+      if (m < m_total) {
+        bf16_t* tp = a.tfsg + m * 2 * R + 8 * j + 2 * q;
+        st32(tp, pack2(vf[2 * h], vf[2 * h + 1]));
+        st32(tp + R, pack2(vg[2 * h], vg[2 * h + 1]));
+      }
+    }
+  }
+}
+
+// ------------------------------------------------- the wide save forms
+// At R = 128 the save forms' layouts no longer fit a block's 232,448 bytes
+// of shared memory: W_fg^T alone is 2R rows of 3R+8 bf16 (200,704 bytes),
+// beside a 128-row operand tile of 100,352; and the save backward's
+// float32 W_out and W_fg take 532,480 bytes at R = S = 128 with video.  So
+// the wide forms (stack_layer_kernel<R, S, kSave> and
+// stack_bwd_layer_kernel<R, S, kBwdSave> at R > kNarrowR) keep only the
+// activations of a tile in shared memory and stream the weights through a
+// ring of two slabs by cp.async, the next slab in flight while a warp
+// computes on the current one.  Each tile reads every weight once from
+// the L2 cache (the layer's weights, 0.26 MB in bf16 forward and 0.52 MB
+// in float32 backward, stay resident there).
+//   forward   the fg product runs in R/16 passes, each over its slab of 16
+//             filter columns of W_fg^T and their 16 gate columns, as the
+//             narrow form's FP passes do over W_fg^T in shared memory:
+//             fg and the gate in registers, the tie queue re-sums in the
+//             plain version's order from the operand tile and the slab
+//             (whose rows are the pass's columns), tfsg stored, gated
+//             into the A fragments of the skip product and into the
+//             warp's gt; then the residual's fmaf chain over k in order
+//             from two slabs of W_out's residual columns (k halves), the
+//             float32 h and hsave[l+1] from registers and global memory;
+//             then the skip part on the tensor cores, a slab of 64 W_out^T
+//             skip rows at a time.  A fg pass's slab needs W_fg^T's rows,
+//             which the wrapper's scratch holds in bf16 (stack_wt_kernel,
+//             once a call for every layer): a slab is whole 16-byte
+//             copies.  The float32 h and the skip sum are read from global
+//             memory where the narrow form stages them.
+//   backward  64-row tiles of [dh | dskip] and of the taps (widened to
+//             float32 in the dfg rows, which their dfg then overwrites in
+//             place) stay in shared memory; dgated = [dh | dskip] W_out^T
+//             runs over slabs of 32 rows of W_out, dfg_w = dfg W_fg^T over
+//             slabs of 32 rows of W_fg (as they lie in global memory,
+//             float32), both split-TF32 as the narrow form's.
+// Bound at the R = 128 probe (B = 2, T = 160000, L = 9, R = S = 128, video):
+// the forward's 262,144 operations a row and layer on bf16 operands, 0.76
+// TFLOP, 0.76 ms at 989 TF/s; the backward's layer products and weight
+// gradients about 1.51 TFLOP, 3.05 ms at the TF32 495 TF/s: both bound by
+// operations.  As launched the weight slabs add about 0.26 MB (forward) and
+// 0.52 MB (backward) of L2 reads a tile, and the save forms' float32
+// intermediates move as at the narrow widths.
+
+// Every layer's bf16 weights for the wide forward (WideShape::wt_elems a
+// layer): W_fg^T, W_out's residual columns k-major and W_out^T's skip
+// rows, rounded as the TPU kernel's _mdot rounds them.
+__global__ void __launch_bounds__(kThreads)
+    stack_wt_kernel(const float* w_fg, const float* w_out, int n_layers,
+                    int win, int r, int s, bf16_t* wt) {
+  const int no = r + s;
+  const long n_fg = 2L * r * win, n_res = static_cast<long>(r) * r;
+  const long per = n_fg + n_res + static_cast<long>(s) * r;
+  const long total = per * n_layers;
+  for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
+       i < total; i += static_cast<long>(gridDim.x) * kThreads) {
+    const long l = i / per;
+    long e = i % per;
+    const float* wf = w_fg + l * win * 2 * r;
+    const float* wo = w_out + l * r * no;
+    float v;
+    if (e < n_fg) {
+      v = wf[(e % win) * 2 * r + e / win];           // W_fg^T (2R, W_in)
+    } else if ((e -= n_fg) < n_res) {
+      v = wo[(e / r) * no + e % r];                  // W_out[:, :R] (k, c)
+    } else {
+      e -= n_res;
+      v = wo[(e % r) * no + r + e / r];              // W_out[:, R:]^T
+    }
+    wt[i] = f2bf(v);
+  }
+}
+
+// One layer of the wide save forward (see above); the narrow save form's
+// arithmetic and order throughout: the same fg_mma passes, tie margin and
+// queue, residual chain and skip product, so the plain version's bits hold
+// as far as the plain version's float32 products are the chains the re-sums
+// and the residual follow.
+template <int R, int S>
+__device__ __forceinline__ void save_wide_layer(const LayerArgs& a) {
+  using Sh = WideShape<R, S>;
+  constexpr int ROWS = Sh::kRows, THREADS = Sh::kThreads, QCAP = Sh::kQcap;
+  constexpr int LDH = Sh::kLdh, LDW = Sh::kLdw, LDK = Sh::kLdk;
+  constexpr int LDO = Sh::kLdo, NC = Sh::kNc, NP = NC / 8, FP = Sh::kFp;
+  constexpr int KH = Sh::kKh, SW = Sh::kSw, CW = R / 8;
+  constexpr int SLAB = static_cast<int>(Sh::kSlab / 2);   // bf16 elements
+  static_assert(CW == 16, "the residual chain's 16 columns a lane");
+  const int win = a.ctx ? 3 * R : 2 * R, per_row = win / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = tid & 3, r0 = 16 * warp;
+  const long m_total = a.m_total;
+  bf16_t* hp = reinterpret_cast<bf16_t*>(smem);
+  bf16_t* ring = reinterpret_cast<bf16_t*>(smem + Sh::kRing);
+  bf16_t* gt = reinterpret_cast<bf16_t*>(smem + Sh::kGt) + warp * R * 16;
+  unsigned* qk = reinterpret_cast<unsigned*>(smem + Sh::kQk) + warp * QCAP;
+  float* qv = reinterpret_cast<float*>(smem + Sh::kQv) + warp * QCAP;
+  int* qb = reinterpret_cast<int*>(smem + Sh::kQb) + warp * 16;
+  float* wn = reinterpret_cast<float*>(smem + Sh::kWn);
+  const bf16_t* wft = a.wt;                          // (2R, W_in)
+  const bf16_t* wkr = wft + 2L * R * win;            // (R, R) k-major
+  const bf16_t* wos = wkr + R * R;                   // (S, R)
+
+  // slab j of a tile into dst: pass j's W_fg^T rows (its NC filter
+  // columns, then their gate columns), a residual slab's W_out rows k, or
+  // a skip slab's W_out^T rows
+  auto load_slab = [&](int j, bf16_t* dst) {
+    if (j < FP) {
+      for (int i = tid; i < 2 * NC * per_row; i += THREADS) {
+        const int row = i / per_row, c8 = 8 * (i % per_row);
+        const int col = row < NC ? NC * j + row : R + NC * j + row - NC;
+        cp_async16(dst + row * LDW + c8,
+                   wft + static_cast<long>(col) * win + c8, true);
+      }
+    } else if (j < FP + Sh::kRk) {
+      const int k0 = KH * (j - FP);
+      for (int i = tid; i < KH * (R / 8); i += THREADS) {
+        const int row = i / (R / 8), c8 = 8 * (i % (R / 8));
+        cp_async16(dst + row * LDK + c8, wkr + (k0 + row) * R + c8, true);
+      }
+    } else {
+      const int c0 = SW * (j - FP - Sh::kRk);
+      const int rows = S - c0 < SW ? S - c0 : SW;
+      for (int i = tid; i < rows * (R / 8); i += THREADS) {
+        const int row = i / (R / 8), c8 = 8 * (i % (R / 8));
+        cp_async16(dst + row * LDO + c8, wos + (c0 + row) * R + c8, true);
+      }
+    }
+  };
+
+  // the L2 norms of W_fg's bf16 columns, for the ties' bounds (visible
+  // after the first step's barrier)
+  for (int c = tid; c < 2 * R; c += THREADS) {
+    float ss = 0.f;
+    for (int k = 0; k < win; ++k) {
+      const float w = rnd_bf(a.w_fg[static_cast<long>(k) * 2 * R + c]);
+      ss = fmaf(w, w, ss);
+    }
+    wn[c] = sqrtf(ss);
+  }
+  const bool read_s = !a.first;
+  const long n_tiles = (m_total + ROWS - 1) / ROWS;
+  int ring_i = 0;   // ring slot of the current slab
+  if (blockIdx.x < n_tiles) {
+    stage_operands<R, LDH, ROWS, THREADS>(hp, a.h, a.ctx,
+                                          static_cast<long>(blockIdx.x) * ROWS,
+                                          m_total, a.t_len, a.d, per_row);
+    load_slab(0, ring);
+  }
+  cp_async_commit();
+  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    const long m0 = tile_i * ROWS, mr = m0 + r0, next = tile_i + gridDim.x;
+    int j = 0;
+    // step j of the tile: slab j resident for every warp; in flight the
+    // next slab (after the last, the next tile's first) and, once the fg
+    // passes are done with hp, the next tile's operand rows
+    auto step = [&]() -> const bf16_t* {
+      cp_async_wait<0>();
+      __syncthreads();
+      bf16_t* nb = ring + ((ring_i + 1) & 1) * SLAB;
+      if (j + 1 < Sh::kSteps)
+        load_slab(j + 1, nb);
+      else if (next < n_tiles)
+        load_slab(0, nb);
+      if (j == FP && next < n_tiles)
+        stage_operands<R, LDH, ROWS, THREADS>(hp, a.h, a.ctx, next * ROWS,
+                                              m_total, a.t_len, a.d,
+                                              per_row);
+      cp_async_commit();
+      const bf16_t* cur = ring + (ring_i & 1) * SLAB;
+      ++ring_i;
+      ++j;
+      return cur;
+    };
+    const bf16_t* wf = step();   // the tile's operands and first slab
+
+    // the L2 norms of the lane's two operand rows, for the ties' bounds
+    float rn[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bf16_t* p = hp + (r0 + g + 8 * h) * LDH;
+      float ss = 0.f;
+      for (int k = 2 * q; k < win; k += 8) {
+        const unsigned u = ld32(p + k);
+        const float x0 = __uint_as_float(u << 16);
+        const float x1 = __uint_as_float(u & 0xffff0000u);
+        ss = fmaf(x1, x1, fmaf(x0, x0, ss));
+      }
+      rn[h] = sqrtf(quad_sum(ss));
+    }
+    const float* bfr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long m = mr + g + 8 * h;
+      const int off = static_cast<int>(m < m_total ? m / a.t_len : 0) * 2 * R;
+      bfr[h] = a.b_fg + off;
+      if (q == 0) qb[g + 8 * h] = off;
+    }
+    const float rk[2] = {kTie * rn[0], kTie * rn[1]};
+    unsigned ga[R / 16][4];
+#pragma unroll
+    for (int p = 0; p < FP; ++p) {
+      if (p > 0) wf = step();
+      float fg[2 * NP][4];
+      fg_mma<2 * NP, LDH>(fg, hp, r0, win, [&](int kk, int jj, unsigned* b) {
+        const bf16_t* bp = wf + (8 * jj + g) * LDW + 16 * kk + 2 * q;
+        b[0] = ld32(bp);
+        b[1] = ld32(bp + 8);
+      });
+      save_gate<R, NP, LDH, LDW, QCAP>(
+          a, fg, p, bfr, rk, wn, hp, wf,
+          [p](int c) { return c < R ? c - NC * p : NC + c - R - NC * p; },
+          qk, qv, qb, r0, mr, win, gt, ga);
+    }
+
+    // the residual's out + b_out as the plain version sums it (k in order,
+    // one fmaf per term) over the lane's 4 rows by CW columns, k from two
+    // slabs of W_out's rows: h = (out + b_out) + h in float32, hsave[l+1]
+    // = bf16(h); the first layer's h is its bf16 input
+    const int rg = lane >> 3, cg = lane & 7;
+    float acc[4][CW];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < CW; ++jj) acc[i][jj] = 0.f;
+    for (int kh = 0; kh < Sh::kRk; ++kh) {
+      const bf16_t* wk = step();
+      if (!a.h_next) continue;
+      const bf16_t* gp = gt + 4 * rg + KH * kh * 16;
+      const bf16_t* wp = wk + CW * cg;
+#pragma unroll 2
+      for (int k = 0; k < KH; ++k) {
+        const uint2 au = *reinterpret_cast<const uint2*>(gp + k * 16);
+        const float av[4] = {__uint_as_float(au.x << 16),
+                             __uint_as_float(au.x & 0xffff0000u),
+                             __uint_as_float(au.y << 16),
+                             __uint_as_float(au.y & 0xffff0000u)};
+        const uint4 u0 = *reinterpret_cast<const uint4*>(wp + k * LDK);
+        const uint4 u1 = *reinterpret_cast<const uint4*>(wp + k * LDK + 8);
+        const unsigned wu[8] = {u0.x, u0.y, u0.z, u0.w,
+                                u1.x, u1.y, u1.z, u1.w};
+        float wv[CW];
+#pragma unroll
+        for (int jj = 0; jj < CW; jj += 2) {
+          wv[jj] = __uint_as_float(wu[jj / 2] << 16);
+          wv[jj + 1] = __uint_as_float(wu[jj / 2] & 0xffff0000u);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < CW; ++jj)
+            acc[i][jj] = fmaf(av[i], wv[jj], acc[i][jj]);
+      }
+    }
+    if (a.h_next) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long m = m0 + r0 + 4 * rg + i;
+        if (m >= m_total) continue;
+#pragma unroll
+        for (int jj = 0; jj < CW; jj += 4) {
+          const int c = CW * cg + jj;
+          float o[4];
+          if (a.first) {
+            load4(a.h + m * R + c, o);
+          } else {
+            const float4 v = *reinterpret_cast<const float4*>(a.hf + m * R + c);
+            o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+          }
+          float v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            v[u] = (acc[i][jj + u] + __ldg(a.b_out + c + u)) + o[u];
+          if (a.keep_h)
+            *reinterpret_cast<float4*>(a.hf + m * R + c) =
+                make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<uint2*>(a.h_next + m * R + c) =
+              make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+        }
+      }
+    }
+
+    // the skip part on the tensor cores, a slab of W_out^T's skip rows at
+    // a time: the sum over layers in float32, stored in bf16 by the last
+    // layer
+    constexpr int NTS = (S < SW ? S : SW) / 8;
+    for (int sj = 0; sj < Sh::kSk; ++sj) {
+      const bf16_t* wo = step();
+      float oc[NTS][4];
+      out_mma<NTS, R, LDO>(oc, ga, wo, 0);
+#pragma unroll
+      for (int jj = 0; jj < NTS; ++jj) {
+        const int c = SW * sj + 8 * jj + 2 * q;
+        const float b0 = __ldg(a.b_out + R + c);
+        const float b1 = __ldg(a.b_out + R + c + 1);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const long m = m0 + r0 + g + 8 * e;
+          if (m >= m_total) continue;
+          float2 s = make_float2(oc[jj][2 * e] + b0, oc[jj][2 * e + 1] + b1);
+          if (read_s) {
+            const float2 o =
+                *reinterpret_cast<const float2*>(a.skacc + m * S + c);
+            s = make_float2(o.x + s.x, o.y + s.y);
+          }
+          if (a.last)
+            st32(a.skip + m * S + c, pack2(s.x, s.y));
+          else
+            *reinterpret_cast<float2*>(a.skacc + m * S + c) = s;
+        }
+      }
+    }
+  }  // tiles
+  cp_async_wait<0>();
 }
 
 // One layer of the trunk forward, in the form FORM (see above).  Persistent
@@ -2566,6 +3316,9 @@ __global__ void __launch_bounds__(
       }
     }
   }  // tiles
+  } else if constexpr (R > kNarrowR) {
+  static_assert(FORM == kSave, "the wide forms have no merged head");
+  save_wide_layer<R, S>(a);
   } else {
   using Sh = SaveShape<R, S>;
   constexpr int ROWS = Sh::kRows, THREADS = Sh::kThreads, QCAP = Sh::kQcap;
@@ -2676,7 +3429,6 @@ __global__ void __launch_bounds__(
     // gated into the A fragments of the skip product and, for the
     // residual's chain, into gt
     constexpr int FP = R >= 32 ? 2 : 1, NP = R / 8 / FP;
-    constexpr float kTie = 8.f / 16777216.f;   // 8 float32 rounding units
     const float rk[2] = {kTie * rn[0], kTie * rn[1]};
     unsigned ga[R / 16][4];
 #pragma unroll
@@ -2688,110 +3440,9 @@ __global__ void __launch_bounds__(
         b[0] = ld32(bp);
         b[1] = ld32(bp + 8);
       });
-      // the gate, and the elements whose fg is summed again: bit 8 jj + 2e
-      // + (0: f, 1: g) of flags
-      float tv[NP][4], sv[NP][4];
-      unsigned flags = 0;
-#pragma unroll
-      for (int jj = 0; jj < NP; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = p * NP + jj, c = 8 * j + 2 * q + (e & 1);
-          const float* bf = bfr[e >> 1];
-          const float t = tanhf(fg[jj][e] + __ldg(bf + c));
-          const float s = sigmoidf(fg[NP + jj][e] + __ldg(bf + R + c));
-          tv[jj][e] = t;
-          sv[jj][e] = s;
-          const float tt = (1.f - t * t) * rk[e >> 1] * wn[c] +
-                           4.f * kTie * fabsf(t);
-          const float ts = s * (1.f - s) * rk[e >> 1] * wn[R + c] +
-                           4.f * kTie * s;
-          bool ff = near_bf16_tie(t, tt), fs = near_bf16_tie(s, ts);
-          if (a.raw_gate) {
-            const float tp =
-                fabsf(s) * tt + fabsf(t) * ts + 4.f * kTie * fabsf(t * s);
-            const bool fp = near_bf16_tie(t * s, tp);
-            ff = ff || fp;
-            fs = fs || fp;
-          }
-          flags |= (ff ? 1u : 0u) << (8 * jj + 2 * e) |
-                   (fs ? 1u : 0u) << (8 * jj + 2 * e + 1);
-        }
-      // The flagged elements go through the warp's queue, in rounds of
-      // QCAP, in the order of lanes, then bits: the warp's lanes sum them
-      // as the plain version does and apply the gate, and each owner takes
-      // its values back.
-      const int n_own = __popc(flags);
-      int first = n_own;   // the lane's first queue index (a lane scan)
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, first, off);
-        if (lane >= off) first += v;
-      }
-      const int n_q = __shfl_sync(0xffffffffu, first, 31);
-      first -= n_own;
-      for (int rb = 0; rb < n_q; rb += QCAP) {
-        // push: the lane's flagged elements, one pass over its set bits
-        int slot = first - rb;
-        for (unsigned f = flags; f; f &= f - 1u, ++slot) {
-          const int bit = __ffs(f) - 1;
-          if (slot >= 0 && slot < QCAP) {
-            const int e = bit % 8 / 2, w = bit & 1;
-            const int c = 8 * (p * NP + bit / 8) + 2 * q + (e & 1);
-            qk[slot] = static_cast<unsigned>((r0 + g + 8 * (e >> 1)) << 8 |
-                                             (w * R + c));
-          }
-        }
-        __syncwarp();
-        for (int i = lane; i < min(n_q - rb, QCAP); i += 32) {
-          const int row = static_cast<int>(qk[i] >> 8);
-          const int col = static_cast<int>(qk[i] & 0xffu);
-          const float v = fg_chain<LDH, LDW>(hp, wf, row, col, win) +
-                          __ldg(a.b_fg + qb[row - r0] + col);
-          qv[i] = col < R ? tanhf(v) : sigmoidf(v);
-        }
-        __syncwarp();
-        // pickup, without branches: every bit reads a slot, the flagged
-        // ones in this round take it
-#pragma unroll
-        for (int bit = 0; bit < 8 * NP; ++bit) {
-          const int at = first + __popc(flags & ((1u << bit) - 1u)) - rb;
-          const bool take = (flags >> bit & 1u) && at >= 0 && at < QCAP;
-          const float v = qv[min(max(at, 0), QCAP - 1)];
-          const int jj = bit / 8, e = bit % 8 / 2;
-          if (bit & 1)
-            sv[jj][e] = take ? v : sv[jj][e];
-          else
-            tv[jj][e] = take ? v : tv[jj][e];
-        }
-        __syncwarp();
-      }
-#pragma unroll
-      for (int jj = 0; jj < NP; ++jj) {
-        const int j = p * NP + jj;
-        float vf[4], vg[4], gv[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float t = tv[jj][e], s = sv[jj][e];
-          vf[e] = rnd_bf(t);
-          vg[e] = rnd_bf(s);
-          gv[e] = a.raw_gate ? t * s : vf[e] * vg[e];
-          if (a.h_next)
-            gt[(8 * j + 2 * q + (e & 1)) * 16 + g + 8 * (e >> 1)] =
-                f2bf(gv[e]);
-        }
-        ga[j / 2][2 * (j & 1)] = pack2(gv[0], gv[1]);
-        ga[j / 2][2 * (j & 1) + 1] = pack2(gv[2], gv[3]);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long m = mr + g + 8 * h;
-          if (m < m_total) {
-            bf16_t* tp = a.tfsg + m * 2 * R + 8 * j + 2 * q;
-            st32(tp, pack2(vf[2 * h], vf[2 * h + 1]));
-            st32(tp + R, pack2(vg[2 * h], vg[2 * h + 1]));
-          }
-        }
-      }
+      save_gate<R, NP, LDH, LDW, QCAP>(a, fg, p, bfr, rk, wn, hp, wf,
+                                       [](int c) { return c; }, qk, qv, qb,
+                                       r0, mr, win, gt, ga);
     }
     // the residual's chain tile of the lane: rows 4 rg .. 4 rg + 3 of the
     // warp's, columns CW cg .. CW cg + CW - 1; the first layer's h is its
@@ -3201,8 +3852,7 @@ struct LayerLaunch {
   size_t smem = 0;
   int grid = 0;
   int setup(long m_total, long max_grid = 0) {
-    smem = FORM == kRecompute ? TlShape<R, S>::smem()
-                              : SaveShape<R, S>::smem();
+    smem = FORM == kRecompute ? TlShape<R, S>::smem() : save_smem<R, S>();
     const void* fn = reinterpret_cast<const void*>(
         stack_layer_kernel<R, S, FORM>);
     int err = set_smem(fn, smem);
@@ -3256,6 +3906,8 @@ struct FwdSource {
   int raw_gate;
   HeadEpilogue hd;       // hd.tgt non-null: the head on the last layer
   float* out;            // (2) the head's loss sum and match count
+  bf16_t* wt;            // the wide forms' weight scratch
+                         // (movenet_stack_wt_elems), or null
 };
 
 // The save forward: hsave[0] from the embedding or x, then one launch of
@@ -3279,11 +3931,23 @@ int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const bool head = src.hd.tgt != nullptr;
+  constexpr bool kWide = R > kNarrowR;
   LayerLaunch<R, S, kSave> body;
   int err = body.setup(m_total);
   if (err) return err;
-  LayerLaunch<R, S, kSaveHead> top;
-  if (head) {
+  // the merged form's last layer (narrow widths only)
+  LayerLaunch<R, S, kWide ? kSave : kSaveHead> top;
+  long wt_layer = 0;
+  if constexpr (kWide) {
+    // every layer's bf16 weights in the wrapper's scratch
+    if (head || !src.wt) return static_cast<int>(cudaErrorInvalidValue);
+    const int win = ctx ? 3 * R : 2 * R;
+    wt_layer = WideShape<R, S>::wt_elems(win);
+    stack_wt_kernel<<<grid_for(wt_layer * n_layers), kThreads, 0, st>>>(
+        w_fg, w_out, n_layers, win, R, S, src.wt);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (head) {
     if (HeadSmem(S, src.hd.c).bytes() > SaveShape<R, S>::kEnd -
                                             SaveShape<R, S>::kWk)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -3303,6 +3967,7 @@ int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
     a.tfsg = tfsg + l * m_total * 2 * R;
     a.keep_h = l + 2 < n_layers;
     a.raw_gate = src.raw_gate;
+    a.wt = kWide ? src.wt + l * wt_layer : nullptr;
     if (a.last && head) {
       a.hd = src.hd;
       err = top.launch(a, st);
@@ -3635,8 +4300,13 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
 
 }  // namespace
 
+// The (R, S) pairs each kernel family is built for.  Every family takes
+// the narrow widths; the bf16 save forms (embed and non-embed) also the
+// wide ones (R = 128, "the wide save forms").
 #define MOVENET_STACK_WIDTHS(X) \
   X(16, 16) X(32, 32) X(64, 64) X(64, 8) X(32, 8) X(16, 8)
+#define MOVENET_WIDE_WIDTHS(X) X(128, 128) X(128, 8)
+#define MOVENET_SAVE_WIDTHS(X) MOVENET_STACK_WIDTHS(X) MOVENET_WIDE_WIDTHS(X)
 
 namespace {
 
@@ -3654,7 +4324,7 @@ int fwd_dispatch(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
     return fwd_impl<R_, S_>(src, ctx, b_fg, w_fg, w_out, b_out, dil, h,     \
                             skacc, hsave, tfsg, skip, batch, t_len,         \
                             n_layers, st);
-  MOVENET_STACK_WIDTHS(X)
+  MOVENET_SAVE_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -3714,7 +4384,11 @@ int bwd_dispatch(const BwdEnds& ends, const Act<F32>* hsave,
                                  xc, wup, scratch, chunks, dctx_out, db_fg, \
                                  dw_fg, dw_out, db_out, dwup, dbup, batch,  \
                                  t_len, n_layers, rp, st);
-  MOVENET_STACK_WIDTHS(X)
+  if constexpr (F32) {
+    MOVENET_STACK_WIDTHS(X)
+  } else {
+    MOVENET_SAVE_WIDTHS(X)
+  }
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -3767,11 +4441,30 @@ int tails_bwd_dispatch(const Act<F32>* x, const Act<F32>* ckpt,
 
 extern "C" {
 
-// 1 if the kernels are built for residual width r and skip width s
-int movenet_stack_supports(int r, int s) {
+// 1 if the kernels of `family` are built for residual width r and skip
+// width s.  Families, as ops/cuda/stack_kernel.FAMILY_WIDTHS numbers them:
+// 0 the bf16 save forms (embed and non-embed), 1 the float32 save forms, 2
+// the recompute forms, 3 the replay forms, 4 the merged forms.
+int movenet_stack_supports(int family, int r, int s) {
+  if (family < 0 || family > 4) return 0;
 #define X(R_, S_) \
   if (r == R_ && s == S_) return 1;
-  MOVENET_STACK_WIDTHS(X)
+  if (family == 0) {
+    MOVENET_SAVE_WIDTHS(X)
+  } else {
+    MOVENET_STACK_WIDTHS(X)
+  }
+#undef X
+  return 0;
+}
+
+// bf16 elements of the wide save forward's weight scratch (every layer's
+// W_fg^T, W_out residual columns and W_out^T skip rows); 0 at the narrow
+// widths, which take none.
+long movenet_stack_wt_elems(int r, int s, int win, int n_layers) {
+#define X(R_, S_) \
+  if (r == R_ && s == S_) return WideShape<R_, S_>::wt_elems(win) * n_layers;
+  MOVENET_WIDE_WIDTHS(X)
 #undef X
   return 0;
 }
@@ -3824,23 +4517,39 @@ long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
   }
   MOVENET_STACK_WIDTHS(X)
 #undef X
+  // the wide widths: the bf16 save backward's launches only
+#define X(R_, S_)                                                      \
+  if (r == R_ && s == S_) {                                            \
+    if (kind == -1) return static_cast<long>(BwdShape<R_, S_>::smem(win)); \
+    if (kind == 0)                                                     \
+      return static_cast<long>(win == 3 * R_                           \
+                                   ? WgShape<0, R_, S_, 3 * R_>::smem() \
+                                   : WgShape<0, R_, S_, 2 * R_>::smem()); \
+    if (kind == 1) return static_cast<long>(WgShape<1, R_, S_, R_>::smem()); \
+    if (kind == 2) return static_cast<long>(WgShape<2, R_, S_, R_>::smem()); \
+    return -1;                                                         \
+  }
+  MOVENET_WIDE_WIDTHS(X)
+#undef X
   return -1;
 }
 
 // Forward of the whole stack; returns the first cudaError_t.  dil is a
-// host array.
+// host array; wt holds movenet_stack_wt_elems bf16 elements (null at the
+// narrow widths).
 int movenet_stack_fwd(const int* pack, int pack_cols, const bf16_t* table2,
                       int vocab, const bf16_t* ctx, const float* b_fg,
                       const float* w_fg, const float* w_out,
                       const float* b_out, const int* dil, float* h,
                       float* skacc, bf16_t* hsave, bf16_t* tfsg,
-                      bf16_t* skip, int batch, int t_len, int n_layers, int r,
-                      int s, void* stream) {
+                      bf16_t* skip, bf16_t* wt, int batch, int t_len,
+                      int n_layers, int r, int s, void* stream) {
   FwdSource src = {};
   src.pack = pack;
   src.pack_cols = pack_cols;
   src.table2 = table2;
   src.vocab = vocab;
+  src.wt = wt;
   return fwd_dispatch(src, ctx, b_fg, w_fg, w_out, b_out, dil, h, skacc,
                       hsave, tfsg, skip, batch, t_len, n_layers, r, s,
                       stream);
@@ -3851,10 +4560,12 @@ int movenet_stack_fwd_x(const bf16_t* x, const bf16_t* ctx,
                         const float* b_fg, const float* w_fg,
                         const float* w_out, const float* b_out,
                         const int* dil, float* h, float* skacc,
-                        bf16_t* hsave, bf16_t* tfsg, bf16_t* skip, int batch,
-                        int t_len, int n_layers, int r, int s, void* stream) {
+                        bf16_t* hsave, bf16_t* tfsg, bf16_t* skip,
+                        bf16_t* wt, int batch, int t_len, int n_layers, int r,
+                        int s, void* stream) {
   FwdSource src = {};
   src.x = x;
+  src.wt = wt;
   return fwd_dispatch(src, ctx, b_fg, w_fg, w_out, b_out, dil, h, skacc,
                       hsave, tfsg, skip, batch, t_len, n_layers, r, s,
                       stream);
@@ -4005,6 +4716,12 @@ long movenet_stack_layer_smem(int r, int s, int form) {
                                          : SaveShape<R_, S_>::smem());
   MOVENET_STACK_WIDTHS(X)
 #undef X
+  // the wide widths: the save form (1) only
+#define X(R_, S_)                                                        \
+  if (r == R_ && s == S_)                                                \
+    return form == kSave ? static_cast<long>(save_smem<R_, S_>()) : -1;
+  MOVENET_WIDE_WIDTHS(X)
+#undef X
   return -1;
 }
 
@@ -4013,7 +4730,7 @@ int movenet_stack_blocks() { return sm_count(); }
 
 // 1 if the merged kernels take (R, S) and C classes.
 int movenet_stack_head_supports(int r, int s, int c) {
-  if (!movenet_stack_supports(r, s) || c < 4 || c > 64 || c % 4) return 0;
+  if (!movenet_stack_supports(4, r, s) || c < 4 || c > 64 || c % 4) return 0;
   if (head_bwd_smem(s, c) > kSmemLimit) return 0;
 #define X(R_, S_)                                                        \
   if (r == R_ && s == S_)                                                \

@@ -20,10 +20,13 @@ from typing import Dict
 import torch
 
 from movenet_tpu_torch.ops import gated_block as gb
-from movenet_tpu_torch.ops.cuda.stack_kernel import (_check, _ptr, _raise,
-                                                     f32_unbuilt)
+from movenet_tpu_torch.ops.cuda.stack_kernel import (WIDTHS, _check, _ptr,
+                                                     _raise, f32_unbuilt,
+                                                     widths_message)
 
 KERNEL_SOURCE = "movenet_tpu_torch/csrc/gated_block.cu"
+# the built (R, S) pairs (MOVENET_GATED_WIDTHS in csrc/gated_block.cu)
+GATED_WIDTHS = WIDTHS
 launch_counts: Dict[str, int] = {"gated_block_fwd": 0, "gated_block_bwd": 0}
 
 _P = ctypes.c_void_p
@@ -76,10 +79,8 @@ def _common(lib, h, ctx, b_fg, w_fg, w_out):
     _check("w_fg", w_fg, torch.float32, (win, 2 * r), dev)
     _check("w_out", w_out, torch.float32, (r, r + s), dev)
     if not lib.movenet_gated_supports(r, s):
-        raise NotImplementedError(
-            f"the gated-block kernels are built for (R, S) in (16, 16), "
-            f"(32, 32), (64, 64), (64, 8), (32, 8), (16, 8); got ({r}, "
-            f"{s}) (ROADMAP.md B.2)")
+        raise NotImplementedError(widths_message(
+            "the gated-block kernels", GATED_WIDTHS, r, s, "B.2 widths (4)"))
     return batch, t, r, s, win
 
 

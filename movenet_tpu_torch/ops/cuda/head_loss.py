@@ -14,7 +14,8 @@ per-block partial sums, and counts one launch in ``launch_counts``.
 With a float32 skip ``head_fwd`` and ``head_bwd`` launch the unpacked
 kernels' float32 forms (split-TF32 products; the backward's scratch and
 dskip float32), counted apart as ``head_fwd_f32`` and ``head_bwd_f32``.
-They take 4 <= S <= 64 and 4 <= C <= 256: up to C = 128 with W2 staged in
+They take 4 <= S <= 64 (the bf16 kernels 4 <= S <= 128) and 4 <= C <=
+256: up to C = 128 with W2 staged in
 shared memory, above it the wide kernels, whose W2 streams through a ring
 of row slabs (``f32_smem``), counted as ``head_fwd_f32_wide`` and
 ``head_bwd_f32_wide``; the packed kernels take bf16 only.
@@ -42,6 +43,11 @@ launch_counts: Dict[str, int] = {"head_fwd": 0, "head_bwd": 0,
 # F32_RING_C W2 streams through a ring of F32_RING_ROWS-row slabs)
 F32_MAX_C = 256
 F32_RING_C = 128
+# the widest skip the bf16 kernels take (above 64 the wide forms: no W1^T
+# in the backward, and above C = 128 the forward's y_seq reads skip from
+# global memory) and the float32 kernels take
+MAX_S = 128
+F32_MAX_S = 64
 F32_RING_ROWS = 32
 # blocks per launch: two per SM of an H100
 BLOCKS = 264
@@ -112,8 +118,14 @@ def f32_smem(s: int, c: int) -> Dict[str, int]:
 
 def _f32_widths(s: int, c: int) -> None:
     """Raise where the float32 head is not built at (S, C)."""
+    if s > F32_MAX_S:
+        raise NotImplementedError(
+            f"the float32 head kernels take 4 <= S <= {F32_MAX_S}; got "
+            f"S={s} in torch.float32 (ROADMAP.md B.4 widths (6): the "
+            f"float32 head above S = {F32_MAX_S}; the bf16 head takes S <= "
+            f"{MAX_S})")
     smem = f32_smem(s, c)
-    if c > F32_MAX_C or s > 64 or max(smem.values()) > SMEM_LIMIT:
+    if c > F32_MAX_C or max(smem.values()) > SMEM_LIMIT:
         raise NotImplementedError(
             f"the float32 head kernels take 4 <= S <= 64 and 4 <= C <= "
             f"{F32_MAX_C}; got S={s}, C={c} in torch.float32 (shared memory "
@@ -143,7 +155,7 @@ def _common(lib, skip, pack, w1, b1, w2, b2, tgt_off):
                          f"{batch * t}")
     if not lib.movenet_head_supports(s, c):
         raise NotImplementedError(
-            f"the head kernels take 4 <= S <= 64 and 4 <= C <= 256, "
+            f"the head kernels take 4 <= S <= {MAX_S} and 4 <= C <= 256, "
             f"multiples of 4; got S={s}, C={c} (ROADMAP.md B.4)")
     if skip.dtype == torch.float32:
         _f32_widths(s, c)

@@ -56,6 +56,13 @@ with the taps stored, and the float32 save backward's grids after the
 rebuilds (``stack_rebuild_f32_kernel``).  The merged, gated and packed
 kernels take bf16 only, and raise for float32 with their ROADMAP.md
 B.2/B.4 item.
+
+Every family is built for the (R, S) pairs ``WIDTHS``; the bf16 save forms
+(embed and non-embed) also for ``WIDE_WIDTHS`` (R = 128), whose kernels
+stream their weights through shared memory (csrc/stack_kernel.cu, "the
+wide save forms"; the forward's wrapper allocates their bf16 weight
+scratch, ``movenet_stack_wt_elems``).  A family raises at a pair it is not
+built for with its ROADMAP.md item (``FAMILY_WIDTHS``, ``WIDTH_ITEMS``).
 """
 
 from __future__ import annotations
@@ -82,8 +89,20 @@ launch_counts: Dict[str, int] = {"stack_fwd": 0, "stack_bwd": 0,
 REDUCE_BLOCKS = 264
 # shared memory one block may use on sm_90
 SMEM_LIMIT = 232448
-# the built (R, S) pairs (MOVENET_STACK_WIDTHS in csrc/stack_kernel.cu)
+# the (R, S) pairs every kernel family is built for (MOVENET_STACK_WIDTHS in
+# csrc/stack_kernel.cu), and the wide ones the bf16 save forms also take
+# (MOVENET_WIDE_WIDTHS: the R = 128 model of scripts/probe_r128_mfu.py and
+# experiment 02 at --residual_channels 128)
 WIDTHS = ((16, 16), (32, 32), (64, 64), (64, 8), (32, 8), (16, 8))
+WIDE_WIDTHS = ((128, 128), (128, 8))
+# the built pairs by kernel family, in the order of the library's family
+# numbers (movenet_stack_supports), and the ROADMAP.md item of what each
+# family does not take yet
+FAMILY_WIDTHS = {"save": WIDTHS + WIDE_WIDTHS, "save_f32": WIDTHS,
+                 "recompute": WIDTHS, "replay": WIDTHS, "merged": WIDTHS}
+WIDTH_ITEMS = {"save": "B.2 widths (5)", "save_f32": "B.2 widths (2)",
+               "recompute": "B.2 widths (1)", "replay": "B.2 widths (1)",
+               "merged": "B.2 widths (3)"}
 # what float32 on the card does not run yet, by kernel family (the forms
 # still to build under ROADMAP.md B.2/B.4, in its order)
 F32_UNBUILT = {
@@ -105,6 +124,21 @@ _L = ctypes.c_long
 _lib = None
 
 
+def widths_message(what: str, pairs, r: int, s: int, item: str) -> str:
+    """The message of a width a kernel family is not built for."""
+    listed = ", ".join(f"({a}, {b})" for a, b in pairs)
+    return (f"{what} are built for (R, S) in {listed}; got ({r}, {s}) "
+            f"(ROADMAP.md {item})")
+
+
+def _widths(lib, family: str, r: int, s: int, what: str) -> None:
+    """Raise where the kernels of ``family`` are not built at (R, S)."""
+    if not lib.movenet_stack_supports(list(FAMILY_WIDTHS).index(family), r,
+                                      s):
+        raise NotImplementedError(widths_message(
+            what, FAMILY_WIDTHS[family], r, s, WIDTH_ITEMS[family]))
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
@@ -121,8 +155,10 @@ def library():
 
 
 def bind(lib):
-    lib.movenet_stack_supports.argtypes = [_I, _I]
+    lib.movenet_stack_supports.argtypes = [_I, _I, _I]
     lib.movenet_stack_supports.restype = _I
+    lib.movenet_stack_wt_elems.argtypes = [_I, _I, _I, _I]
+    lib.movenet_stack_wt_elems.restype = _L
     lib.movenet_stack_bwd_scratch.argtypes = [_I] * 9
     lib.movenet_stack_bwd_scratch.restype = _L
     lib.movenet_stack_bwd_smem.argtypes = [_I, _I, _I, _I]
@@ -130,8 +166,8 @@ def bind(lib):
     lib.movenet_stack_layer_smem.argtypes = [_I, _I, _I]
     lib.movenet_stack_layer_smem.restype = _L
     lib.movenet_stack_fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _P,
-                                      _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _P]
+                                      _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _P]
     lib.movenet_stack_fwd.restype = _I
     lib.movenet_stack_bwd.argtypes = [_P] * 8 + [_I, _I] + [_P] * 4 \
         + [_I] + [_P] * 9 + [_I] * 6 + [_P]
@@ -160,7 +196,7 @@ def bind(lib):
     lib.movenet_stack_blocks.restype = _I
     lib.movenet_stack_head_supports.argtypes = [_I, _I, _I]
     lib.movenet_stack_head_supports.restype = _I
-    lib.movenet_stack_fwd_x.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+    lib.movenet_stack_fwd_x.argtypes = [_P] * 13 + [_I] * 5 + [_P]
     lib.movenet_stack_fwd_x.restype = _I
     lib.movenet_stack_fwd_x_f32.argtypes = [_P] * 11 + [_I] * 5 + [_P]
     lib.movenet_stack_fwd_x_f32.restype = _I
@@ -316,22 +352,19 @@ def run_fwd(lib, pack, table2, ctx, b_fg, w_fg, w_out, b_out, dilations,
     float32 table2 and ctx take the float32 form."""
     t, n_layers, r, s = _fwd_check(pack, table2, ctx, b_fg, w_fg, w_out,
                                    b_out, dilations, batch)
-    if not lib.movenet_stack_supports(r, s):
-        raise NotImplementedError(
-            f"the trunk kernels are built for (R, S) in (16, 16), (32, "
-            f"32), (64, 64), (64, 8), (32, 8), (16, 8); got ({r}, {s}) "
-            "(ROADMAP.md B.2)")
     if table2.dtype == torch.float32:
+        _widths(lib, "save_f32", r, s, "the float32 save kernels")
         return _run_fwd_f32(lib, pack, table2, ctx, b_fg, w_fg, w_out,
                             b_out, dilations, batch, t, n_layers, r, s,
                             stream)
-    h, skacc, hsave, tfsg, skip = _fwd_buffers(table2.device, batch, t,
-                                               n_layers, r, s)
+    _widths(lib, "save", r, s, "the save kernels")
+    h, skacc, hsave, tfsg, skip, wt = _fwd_buffers(
+        lib, table2.device, batch, t, n_layers, r, s, ctx is not None)
     err = lib.movenet_stack_fwd(
         _ptr(pack), pack.shape[1], _ptr(table2), table2.shape[0] // 2,
         _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
         _dils(dilations), _ptr(h), _ptr(skacc), _ptr(hsave), _ptr(tfsg),
-        _ptr(skip), batch, t, n_layers, r, s, stream)
+        _ptr(skip), _ptr(wt), batch, t, n_layers, r, s, stream)
     _raise(err, "stack_fwd")
     return skip, hsave, tfsg
 
@@ -402,10 +435,12 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
     _check("dskip", dskip, dskip.dtype, (batch, t, s), dev)
     if pack is not None:
         _check("codes_pack", pack, torch.int32, device=dev)
-    if not lib.movenet_stack_supports(r, s):
-        raise NotImplementedError(
-            f"the trunk kernels are not built for (R, S) = ({r}, {s}) "
-            "(ROADMAP.md B.2)")
+    if replay is not None:
+        _widths(lib, "replay", r, s, "the replay kernels")
+    elif f32_form:
+        _widths(lib, "save_f32", r, s, "the float32 save kernels")
+    else:
+        _widths(lib, "save", r, s, "the save kernels")
     if f32_form:
         _f32_fits(r, s, win)
     xc = wup = None
@@ -571,9 +606,9 @@ def run_bwd_tails(lib, x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
 def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what,
              family):
     """Checks of the kernels that start from x (the non-embed save form,
-    the merged, recompute and replay kernels; a ``family`` in
-    ``F32_UNBUILT`` takes bf16 only, the others bf16 or float32): (B, T,
-    L, R, S, W_in)."""
+    ``family`` "non-embed"; the merged, recompute and replay kernels; a
+    ``family`` in ``F32_UNBUILT`` takes bf16 only, the others bf16 or
+    float32): (B, T, L, R, S, W_in)."""
     batch, t, r = x.shape
     n_layers = len(dilations)
     s = w_out.shape[2] - r
@@ -593,11 +628,9 @@ def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what,
     _check("w_fg", w_fg, torch.float32, (n_layers, win, 2 * r), dev)
     _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
     _check("b_out", b_out, torch.float32, (n_layers, r + s), dev)
-    if not lib.movenet_stack_supports(r, s):
-        raise NotImplementedError(
-            f"the trunk kernels are built for (R, S) in (16, 16), (32, "
-            f"32), (64, 64), (64, 8), (32, 8), (16, 8); got ({r}, {s}) "
-            "(ROADMAP.md B.2)")
+    if family == "non-embed":
+        family = "save_f32" if act == torch.float32 else "save"
+    _widths(lib, family, r, s, what)
     if act == torch.float32:
         _f32_fits(r, s, win)
     return batch, t, n_layers, r, s, win
@@ -624,24 +657,27 @@ def run_fwd_x(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
             _ptr(tfsg), _ptr(skip), batch, t, n_layers, r, s, stream)
         _raise(err, "stack_fwd_f32")
         return skip, hsave, tfsg
-    h, skacc, hsave, tfsg, skip = _fwd_buffers(x.device, batch, t,
-                                               n_layers, r, s)
+    h, skacc, hsave, tfsg, skip, wt = _fwd_buffers(
+        lib, x.device, batch, t, n_layers, r, s, ctx is not None)
     err = lib.movenet_stack_fwd_x(
         _ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out), _ptr(b_out),
         _dils(dilations), _ptr(h), _ptr(skacc), _ptr(hsave), _ptr(tfsg),
-        _ptr(skip), batch, t, n_layers, r, s, stream)
+        _ptr(skip), _ptr(wt), batch, t, n_layers, r, s, stream)
     _raise(err, "stack_fwd_x")
     return skip, hsave, tfsg
 
 
-def _fwd_buffers(dev, batch, t, n_layers, r, s):
-    """(h, skip accumulator) float32 scratch and (hsave, tfsg, skip)."""
+def _fwd_buffers(lib, dev, batch, t, n_layers, r, s, ctx: bool):
+    """(h, skip accumulator) float32 scratch, (hsave, tfsg, skip), and the
+    wide forms' bf16 weight scratch (None at the narrow widths)."""
     m, bf = batch * t, torch.bfloat16
+    n_wt = lib.movenet_stack_wt_elems(r, s, (3 if ctx else 2) * r, n_layers)
     return (torch.empty(m, r, dtype=torch.float32, device=dev),
             torch.empty(m, s, dtype=torch.float32, device=dev),
             torch.empty(n_layers, batch, t, r, dtype=bf, device=dev),
             torch.empty(n_layers, batch, t, 2 * r, dtype=bf, device=dev),
-            torch.empty(batch, t, s, dtype=bf, device=dev))
+            torch.empty(batch, t, s, dtype=bf, device=dev),
+            torch.empty(n_wt, dtype=bf, device=dev) if n_wt else None)
 
 
 def run_bwd_x(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
@@ -731,6 +767,7 @@ def _head_check(lib, batch, t, r, s, targets_tb, w1, b1, w2, b2, dev):
     _check("b1", b1, torch.float32, (c,), dev)
     _check("w2", w2, torch.float32, (c, c), dev)
     _check("b2", b2, torch.float32, (c,), dev)
+    _widths(lib, "merged", r, s, "the merged kernels")
     if not lib.movenet_stack_head_supports(r, s, c):
         raise NotImplementedError(
             f"the merged head kernels take C <= 64, a multiple of 4, at "
@@ -748,8 +785,8 @@ def run_head_fwd(lib, x, ctx, b_fg, w_fg, w_out, b_out, targets_tb, w1, b1,
         "the merged kernels", "merged")
     dev = x.device
     c = _head_check(lib, batch, t, r, s, targets_tb, w1, b1, w2, b2, dev)
-    h, skacc, hsave, tfsg, skip = _fwd_buffers(dev, batch, t, n_layers, r,
-                                               s)
+    h, skacc, hsave, tfsg, skip, _ = _fwd_buffers(lib, dev, batch, t,
+                                                  n_layers, r, s, False)
     part = torch.empty(lib.movenet_stack_blocks(), 2, dtype=torch.float32,
                        device=dev)
     out = torch.empty(2, dtype=torch.float32, device=dev)

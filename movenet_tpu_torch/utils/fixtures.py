@@ -70,6 +70,11 @@ BREAKDANCING = dict(layer_size=3, stack_size=3, input_channels=64,
 # trainer CLI: layer 10 x stack 3, C=256, R=S=64, video)
 FLAGSHIP_TRAIN = dict(BREAKDANCING, layer_size=10, input_channels=256)
 
+# the breakdancing config at R = S = 128 (scripts/probe_r128_mfu.py: the
+# JAX package's tensor-core-filling geometry), trained through the wide
+# save kernels
+PROBE_R128 = dict(BREAKDANCING, residual_channels=128, skip_channels=128)
+
 
 def random_batch(mc, rows: int, use_video: bool = True, seed: int = 0,
                  device="cuda"):

@@ -57,8 +57,8 @@ SHAPES = ((64, 64, 2), (8, 128, 3), (8, 128, 2), (16, 256, 2),
 T, RF = 160_000, 24
 # diagnostic edits of csrc/head_loss.cu: name -> ((text, replacement), ...)
 VARIANTS = {
-    "no_y": (("y_seq(lsk, w1t, ld1, S, kk, y);",
-              "y_seq(lsk, w1t, ld1, 0, kk, y);"),),
+    "no_y": (("y_seq(rows, w1t_cols, S, y);",
+              "y_seq(rows, w1t_cols, 0, y);"),),
     "no_z_mma": (("          mma_bf16(z[j], af, b);", ""),),
     "no_p_store": (("    if (a.p_out) {", "    if (false) {"),),
     "fast_exp": (("expf(", "__expf("),),
@@ -66,8 +66,8 @@ VARIANTS = {
     "no_colsums": (("    colsum_add<NT>(d, nt, cs2);", ""),
                    ("      colsum_add<8>(dy, nt - 8 * ch, cs1 + 64 * ch);",
                     "")),
-    "bwd_one_block": (("__launch_bounds__(kThreads, NT > 16 ? 1 : 2)\n"
-                       "    head_bwd_kernel",
+    "bwd_one_block": (("__launch_bounds__(kThreads, NT > 16 || KS > 4 ? 1 : 2)"
+                       "\n    head_bwd_kernel",
                        "__launch_bounds__(kThreads, 1)\n    head_bwd_kernel"),),
     "no_scratch_stores": (("store_a(a.ly,", "if (0) store_a(a.ly,"),
                           ("store_a(a.dzr,", "if (0) store_a(a.dzr,"),

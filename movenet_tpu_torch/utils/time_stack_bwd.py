@@ -18,7 +18,9 @@ the gated-block kernels (``gated_block_fwd``, ``gated_block_bwd``).
 Shapes (T = 160,000, bf16, video as the stride-10 projection triple,
 seeded random codes, table, triple, weights and dskip):
 breakdancing (B=2, dilations (1,2,4) x 3, R=S=64, V=64), exp03 (B=3,
-(1,2,1,2), R=32, S=8, V=128), exp04 (B=2, 1..8192, R=16, S=8, V=128).
+(1,2,1,2), R=32, S=8, V=128), exp04 (B=2, 1..8192, R=16, S=8, V=128);
+named only: probe (B=2, (1,2,4) x 3, R=S=128, V=64; the wide save forms)
+and exp02_r128 (the same at S=8).
 hsave and tfsg come from the kernel forward.  Each call is timed by CUDA
 events (mean of ``--repeats`` after a warm call), and once under
 ``torch.profiler`` by grid.  With ``--parent DIR`` (a checkout of another
@@ -80,6 +82,11 @@ from pathlib import Path
 SHAPES = {"breakdancing": (2, 64, 64, (1, 2, 4) * 3, 64),
           "exp03": (3, 32, 8, (1, 2, 1, 2), 128),
           "exp04": (2, 16, 8, tuple(2 ** i for i in range(14)), 128)}
+# the wide save forms' shapes, named with --shapes only: the R = 128
+# model of scripts/probe_r128_mfu.py and experiment 02's CLI widths at
+# --residual_channels 128
+WIDE_SHAPES = {"probe": (2, 128, 128, (1, 2, 4) * 3, 64),
+               "exp02_r128": (2, 128, 8, (1, 2, 4) * 3, 64)}
 RECOMPUTE_SHAPES = {"exp02": (2, 64, 8, (1, 2, 4) * 3, True),
                     "flagship": (2, 64, 64, tuple(2 ** i for i in range(10))
                                  * 3, False)}
@@ -138,15 +145,14 @@ FWD_VARIANTS = {
     # run); the residual's fmaf chain not run
     "no_resum": (("bool ff = near_bf16_tie(t, tt), fs = near_bf16_tie(s, ts);",
                   "bool ff = false, fs = false;"),
-                 ("          if (a.raw_gate) {\n            const float tp",
-                  "          if (0) {\n            const float tp")),
-    "no_queue": (("    for (int rb = 0; rb < n_q; rb += QCAP) {",
-                  "    for (int rb = 0; rb < n_q && n_q < 0; rb += QCAP) {"),),
+                 ("      if (a.raw_gate) {\n        const float tp",
+                  "      if (0) {\n        const float tp")),
+    "no_queue": (("for (int rb = 0; rb < n_q; rb += QCAP) {",
+                  "for (int rb = 0; rb < n_q && n_q < 0; rb += QCAP) {"),),
     # the queue's parts left out: the chain sums, the gate
-    "q_nochain": (("fg_chain<LDH, LDW>(hp, wf, row, col, win) +\n",
+    "q_nochain": (("fg_chain<LDH, LDW>(hp, wf, row, srow(col), win) +\n",
                    "0.f +\n"),),
-    "q_nogate": (("          qv[i] = col < R ? tanhf(v) : sigmoidf(v);",
-                  "          qv[i] = v;"),),
+    "q_nogate": (("qv[i] = col < R ? tanhf(v) : sigmoidf(v);", "qv[i] = v;"),),
     "no_chain": (("#pragma unroll 4\n      for (int k = 0; k < R; ++k) {",
                   "#pragma unroll 4\n      for (int k = 0; k < 0; ++k) {"),),
     # parts of the save form's traffic left out: the tfsg stores, the
@@ -175,6 +181,14 @@ FWD_VARIANTS = {
     # fg in one pass at R = 32 (its sums and taps all live at once)
     "one_fg_pass": (("constexpr int FP = R >= 32 ? 2 : 1,",
                      "constexpr int FP = R >= 64 ? 2 : 1,"),),
+    # the wide forms' parts left out: the residual's fmaf chain, the wait
+    # for each weight slab (its reads race the copy: outputs wrong by
+    # design); the shared edits above reach the wide forms' passes too
+    "wide_no_chain": (("#pragma unroll 2\n      for (int k = 0; k < KH; ++k) {",
+                       "#pragma unroll 2\n      for (int k = 0; k < 0; ++k) {"),),
+    "wide_no_wait": (("      cp_async_wait<0>();\n      __syncthreads();\n"
+                      "      bf16_t* nb = ring",
+                      "      __syncthreads();\n      bf16_t* nb = ring"),),
 }
 
 
@@ -323,7 +337,7 @@ def fwd_inputs(torch, name: str, seed: int = 0):
     ``name``."""
     from movenet_tpu_torch.ops import stack_kernel as sk
 
-    b, r, s, dil, v = SHAPES[name]
+    b, r, s, dil, v = {**SHAPES, **WIDE_SHAPES}[name]
     n, bf = len(dil), torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -361,8 +375,8 @@ def inputs(torch, name: str, seed: int = 0):
     s = w_out.shape[2] - w_out.shape[1]
     dskip = (torch.randn(b, T, s, generator=g, device="cuda")
              * 1e-3).to(torch.bfloat16)
-    return (hsave, tfsg, ctx, w_fg, w_out, dskip, pack, SHAPES[name][4], dil,
-            sk._ctx_proj_args(trip))
+    return (hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
+            {**SHAPES, **WIDE_SHAPES}[name][4], dil, sk._ctx_proj_args(trip))
 
 
 def head_inputs(torch, seed: int = 0, c: int = 64):

@@ -371,7 +371,7 @@ class _Built:
     """A stand-in for the kernel library: every width built."""
 
     @staticmethod
-    def movenet_stack_supports(r, s):
+    def movenet_stack_supports(family, r, s):
         return 1
 
 

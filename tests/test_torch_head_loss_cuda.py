@@ -220,12 +220,13 @@ def test_head_kernels_repeat_bit_equal(cuda, s, c):
 
 @pytest.mark.cuda
 def test_head_supports_as_before(cuda):
-    """The widths the kernels take are the ones they took before the
-    tensor-core redesign: 4 <= S <= 64, 4 <= C <= 256, multiples of 4."""
+    """The widths the kernels take: the ones they took before the
+    tensor-core redesign (4 <= S <= 64, 4 <= C <= 256, multiples of 4),
+    and since the wide forms S up to 128 (``kh.MAX_S``) at every such C."""
     lib = kh.library()
-    for s in range(4, 69):
+    for s in range(4, kh.MAX_S + 5):
         for c in range(4, 261):
-            old = s % 4 == 0 and c % 4 == 0 and s <= 64 and c <= 256
+            old = s % 4 == 0 and c % 4 == 0 and s <= kh.MAX_S and c <= 256
             assert bool(lib.movenet_head_supports(s, c)) == old, (s, c)
 
 
@@ -464,3 +465,56 @@ def test_packed_route_through_the_op(cuda, monkeypatch):
     for x, y in zip([skip.grad] + [v.grad for v in w], want):
         x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
         np.testing.assert_allclose(x, y, rtol=0, atol=1e-2 * np.abs(y).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c,t", [(128, 64, 2000), (128, 256, 1000),
+                                   (128, 128, 1000), (100, 132, 1000)])
+@pytest.mark.parametrize("parity", [True, False])
+def test_wide_skip_head_kernels_match_plain(cuda, s, c, t, parity):
+    """S above 64: (128, 64) the head of the R = 128 probe
+    (scripts/probe_r128_mfu.py), (128, 256) and (128, 128) its widest C,
+    (100, 132) widths padded to 112 and 144.  The backward stages no W1^T
+    there (y from W1 by ldmatrix.trans), and above C = 128 the forward
+    reads leaky(skip) from global memory.  Bars as the wide head test's:
+    with 128 skip columns a row more bf16 operands of dy may land one
+    rounding step from the plain version's."""
+    batch, rf = 2, 24
+    a = _inputs(cuda, batch, t, s, c)
+    a = {k: v.to(cuda) for k, v in a.items()}
+    args = (a["skip"], a["pack"], a["w1"], a["b1"], a["w2"], a["b2"], rf,
+            parity, 2 * batch)
+    n0 = dict(kh.launch_counts)
+    loss, match, p = kh.head_fwd(*args)
+    wl, wm, wp = hl.head_fwd_plain(*args)
+    np.testing.assert_allclose(float(loss), float(wl), rtol=1e-5)
+    assert abs(float(match) - float(wm)) <= 1
+    np.testing.assert_allclose(p.cpu().numpy(), wp.cpu().numpy(), rtol=0,
+                               atol=2e-4)
+    dloss = torch.tensor(1.0 / (batch * (t - rf)), device=cuda)
+    bargs = (a["skip"], a["pack"], wp, a["w1"], a["b1"], a["w2"], a["b2"],
+             rf, parity, dloss, 2 * batch)
+    got = kh.head_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert kh.launch_counts["head_fwd"] == n0["head_fwd"] + 1
+    assert kh.launch_counts["head_bwd"] == n0["head_bwd"] + 1
+    second = kh.head_bwd(*bargs)
+    assert all(torch.equal(x, y) for x, y in zip(got, second))
+    want = hl.head_bwd_plain(*bargs)
+    for name, x, y in zip(("dskip", "dw1", "db1", "dw2", "db2"), got, want):
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        tol = (1e-2 if name == "dskip" else 1e-3) * np.abs(y).max()
+        np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_f32_head_raises_above_s64(cuda):
+    """The float32 head keeps S <= 64 and raises above it with its
+    ROADMAP.md item, launching nothing."""
+    a = _inputs(cuda, 2, 500, 128, 64, dtype=torch.float32)
+    a = {k: v.to(cuda) for k, v in a.items()}
+    before = dict(kh.launch_counts)
+    with pytest.raises(NotImplementedError, match=r"B\.4 widths \(6\)"):
+        kh.head_fwd(a["skip"], a["pack"], a["w1"], a["b1"], a["w2"],
+                    a["b2"], 24, True, 4)
+    assert kh.launch_counts == before

@@ -773,3 +773,143 @@ def test_replay_wrapper_rejects_wrong_inputs(cuda):
         ks.stack_bwd_replay(x, ckpt, tfsg, *tail, dskip.float(), DIL)
     with pytest.raises(ValueError, match="tfsg is torch.float32"):
         ks.stack_bwd_replay(x, ckpt, tfsg.float(), *tail, dskip, DIL)
+
+
+# ----------------------------------------------------- the wide widths
+# (R, S) = (128, 128), the model of scripts/probe_r128_mfu.py, and (128, 8),
+# experiment 02 at --residual_channels 128: the bf16 save forms only.  The
+# forward keeps the narrow form's tie re-sums and residual chain, so its
+# bars are the narrow form's (2% of each output's scale); the backward
+# takes the plain version's saved tensors at the narrow form's 1e-4.
+WIDE_CASES = [(128, 128, 1280, "proj"), (128, 128, 1000, None),
+              (128, 8, 1280, "flat"), (128, 8, 1280, "proj")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,t,ctx_kind", WIDE_CASES)
+def test_wide_stack_kernels_match_plain(cuda, r, s, t, ctx_kind):
+    a, ctx, proj, batch = _inputs(cuda, t, r, s, 64, ctx_kind)
+    args = (a["pack"], a["table2"], ctx, a["b_fg"], a["w_fg"], a["w_out"],
+            a["b_out"], DIL, batch)
+    before = dict(ks.launch_counts)
+    got = ks.stack_fwd(*args)
+    torch.cuda.synchronize()
+    assert ks.launch_counts["stack_fwd"] == before["stack_fwd"] + 1
+    want = sk.stack_fwd_plain(*args)
+    for name, x, y in zip(("skip", "hsave", "tfsg"), got, want):
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=0,
+                                   atol=2e-2 * np.abs(y).max(), err_msg=name)
+    hsave, tfsg = want[1], want[2]
+    bargs = (hsave, tfsg, ctx, a["w_fg"], a["w_out"], a["dskip"], a["pack"],
+             64, DIL, proj)
+    got = ks.stack_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert ks.launch_counts["stack_bwd"] == before["stack_bwd"] + 1
+    want = sk.stack_bwd_plain(*bargs)
+    names = ("dtab", "dctx", "db_fg", "dw_fg", "dw_out", "db_out",
+             "dwup_aug")
+    for name, x, y in zip(names, got, want):
+        if y is None:
+            assert x is None, name
+            continue
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        tol = (2e-2 if name == "dctx" else 1e-4) * np.abs(y).max()
+        np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,ctx_kind", [(128, 128, "flat"), (128, 8, None)])
+def test_wide_non_embed_kernels_match_plain(cuda, r, s, ctx_kind):
+    """The non-embed save form (x in, dx out) at the wide widths, and two
+    calls bit-equal."""
+    a, ctx, _, batch = _inputs(cuda, 1280, r, s, 64, ctx_kind)
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(batch, 1280, r, generator=g) * 0.5).to(
+        torch.bfloat16).to(cuda)
+    args = (x, ctx, a["b_fg"], a["w_fg"], a["w_out"], a["b_out"], DIL)
+    got = ks.stack_fwd_x(*args)
+    assert all(torch.equal(u, v) for u, v in zip(got, ks.stack_fwd_x(*args)))
+    want = sk.stack_fwd_x_plain(*args)
+    for name, u, v in zip(("skip", "hsave", "tfsg"), got, want):
+        u, v = u.float().cpu().numpy(), v.float().cpu().numpy()
+        np.testing.assert_allclose(u, v, rtol=0,
+                                   atol=2e-2 * np.abs(v).max(), err_msg=name)
+    bargs = (want[1], want[2], ctx, a["w_fg"], a["w_out"], a["dskip"], DIL)
+    got = ks.stack_bwd_x(*bargs)
+    second = ks.stack_bwd_x(*bargs)
+    assert all((u is None and v is None) or torch.equal(u, v)
+               for u, v in zip(got, second))
+    want = sk.stack_bwd_x_plain(*bargs)
+    names = ("dx", "dctx", "db_fg", "dw_fg", "dw_out", "db_out")
+    for name, u, v in zip(names, got, want):
+        if v is None:
+            assert u is None, name
+            continue
+        u, v = u.float().cpu().numpy(), v.float().cpu().numpy()
+        tol = (2e-2 if name in ("dx", "dctx") else 1e-4) * np.abs(v).max()
+        np.testing.assert_allclose(u, v, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_family_widths_mirror_the_library(cuda):
+    """ops/cuda/stack_kernel.FAMILY_WIDTHS is the library's own list of
+    each family (movenet_stack_supports), the wide pairs the bf16 save
+    family's alone; the wide save launches' shared memory fits a block."""
+    lib = ks.library()
+    pairs = {(r, s) for r in (8, 16, 32, 48, 64, 96, 128, 256)
+             for s in (4, 8, 16, 32, 64, 128)}
+    for i, (family, widths) in enumerate(ks.FAMILY_WIDTHS.items()):
+        for r, s in pairs:
+            assert bool(lib.movenet_stack_supports(i, r, s)) == \
+                ((r, s) in widths), (family, r, s)
+    assert set(ks.FAMILY_WIDTHS["save"]) - set(ks.WIDTHS) == \
+        set(ks.WIDE_WIDTHS)
+    for r, s in ks.WIDE_WIDTHS:
+        assert 0 < lib.movenet_stack_layer_smem(r, s, 1) <= ks.SMEM_LIMIT
+        assert lib.movenet_stack_layer_smem(r, s, 0) == -1
+        for win in (2 * r, 3 * r):
+            for kind in (-1, 0, 1, 2):
+                n = lib.movenet_stack_bwd_smem(r, s, win, kind)
+                assert 0 < n <= ks.SMEM_LIMIT, (r, s, win, kind)
+            assert lib.movenet_stack_bwd_smem(r, s, win, -3) == -1
+
+
+@pytest.mark.cuda
+def test_other_families_raise_at_the_wide_widths(cuda):
+    """Every family but the bf16 save forms raises at R = 128 with its
+    ROADMAP.md item, and never falls back to a plain version: recompute
+    and replay (1), the float32 save forms (2), merged (3), gated (4); a
+    pair no family takes, (128, 64), raises for the save forms (5)."""
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+
+    r, s, t = 128, 128, 1280
+    a, ctx, _, batch = _inputs(cuda, t, r, s, 64, "flat")
+    x = torch.zeros(batch, t, r, dtype=torch.bfloat16, device=cuda)
+    rest = (ctx, a["b_fg"], a["w_fg"], a["w_out"], a["b_out"], DIL)
+    before = dict(ks.launch_counts)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(1\)"):
+        ks.stack_fwd_tails(x, *rest)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(1\)"):
+        ks.stack_fwd_replay(x, *rest)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
+        ks.stack_fwd(a["pack"], a["table2"].float(), ctx.float(), a["b_fg"],
+                     a["w_fg"], a["w_out"], a["b_out"], DIL, batch)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
+        ks.stack_fwd_x(x.float(), ctx.float(), *rest[1:])
+    tgt = a["pack"][:, :batch].contiguous()
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(3\)"):
+        ks.stack_head_fwd(x, *rest[:5], tgt,
+                          torch.zeros(s, 64, device=cuda),
+                          torch.zeros(64, device=cuda),
+                          torch.zeros(64, 64, device=cuda),
+                          torch.zeros(64, device=cuda), DIL, 15, True)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(4\)"):
+        kg.gated_block_fwd(x, ctx, a["b_fg"][:batch], a["w_fg"][0],
+                           a["w_out"][0], a["b_out"][:1], 1)
+    w_out = torch.zeros(len(DIL), r, r + 64, device=cuda)
+    b_out = torch.zeros(len(DIL), r + 64, device=cuda)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(5\)"):
+        ks.stack_fwd(a["pack"], a["table2"], ctx, a["b_fg"], a["w_fg"],
+                     w_out, b_out, DIL, batch)
+    assert ks.launch_counts == before
