@@ -259,12 +259,34 @@ Phases (any failure exits non-zero and prints no result):
      --residual_channels 128 for 3 updates on phase 14's clips: R=128,
      S=8, the save strategy (only the wide save kernels and the head run),
      finite losses, update ms and peak memory;
-  22. the kernels line (30 entries, every form of the fourteen TPU kernel
-     functions, the eight float32 forms and the replay strategy's four,
-     each with its bound from this run's shapes; the new
-     widths' readings under "widths", phase 24's with their launches; the
-     speculative rows also with their stream bound), then the card line,
-     then the result line.
+  25. the recompute and replay strategies at R = 128: (a, after phase 24
+     (d)) their four kernels (the wide recompute forward and backward, the
+     replay forward and backward at R = 128) at the flagship's depth at R
+     = S = 128 (L=30, B=2, T=160000) and at experiment 02's shapes at
+     --residual_channels 128 ((128, 8), L=9), each with a flat ctx and
+     with the video projection triple, against their plain versions at
+     phases 11's and 23's bars, the replay kernels also bit for bit
+     against the wide save kernels (every rebuilt layer input against
+     hsave); their times by CUDA events and the backwards by grid at the
+     flagship's depth; (b, after phase 24 (c)) the trainer CLI at the
+     flagship's depth at R = S = 128 (the flagship flags with
+     --residual_channels 128 --skip_channels 128) for 4 steps on phase
+     16's clips with no strategy flag (the default resolves recompute:
+     only the recompute trunk kernels and the head's run) and with
+     --fused_strategy replay (only the replay trunk kernels), finite
+     losses, update ms and peak memory, then one loss + backward of the
+     trained model through save, replay and recompute for each one's peak
+     memory; (c) experiment 02's CLI with --residual_channels 128 --remat
+     1 for 3 updates on phase 14's clips: recompute at (128, 8); (d)
+     phase 24 (d)'s greedy B=1 generation with video from (b)'s trained
+     model, exact and fast, codes equal to the plain version's (the ring
+     in 32 KB slabs: two 64 KB stages do not fit there);
+  22. the kernels line (34 entries, every form of the fourteen TPU kernel
+     functions, the eight float32 forms, the replay strategy's four and
+     phase 25's four at R = 128, each with its bound from this run's
+     shapes; the new widths' readings under "widths", phase 24's with
+     their launches; the speculative rows also with their stream bound),
+     then the card line, then the result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1095,9 +1117,9 @@ def bwd_smem_note(lib, kernel: str) -> str:
     """The dynamic shared memory of a trunk kernel instance (the layer
     forward stack_layer_kernel<R,S,FORM> and its float32 form
     stack_layer_f32_kernel<R,S>; stack_bwd_layer_kernel<R,S,FORM> at win =
-    3R, FORM 0 save, 1 recompute, 2 float32;
-    stack_wgrad_kernel<MODE,R,S,KA>), from the library's own sizes; "" for
-    another kernel."""
+    3R, FORM 0 save, 1 recompute, 2 float32; the replay backward's
+    stack_rebuild_kernel<R>; stack_wgrad_kernel<MODE,R,S,KA>), from the
+    library's own sizes; "" for another kernel."""
     m = re.match(r"stack_layer_kernel<(\d+),(\d+),(\d)>$", kernel)
     if m:
         r, s_, form = (int(x) for x in m.groups())
@@ -1114,6 +1136,11 @@ def bwd_smem_note(lib, kernel: str) -> str:
         return (f"; dynamic shared memory "
                 f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -1 - form)}"
                 f" bytes (win = 3R)")
+    m = re.match(r"stack_rebuild_kernel<(\d+)>$", kernel)
+    if m:
+        r = int(m.group(1))
+        return (f"; dynamic shared memory "
+                f"{lib.movenet_stack_bwd_smem(r, r, 3 * r, -5)} bytes")
     m = re.match(r"stack_wgrad_kernel<(\d),(\d+),(\d+),(\d+)>$", kernel)
     if m:
         mode, r, s_, ka = (int(x) for x in m.groups())
@@ -1701,17 +1728,19 @@ def tails_compare(torch, args, dskip, label, grad_tol):
     # the layers above: 2% of each output's scale, as the save forward
     got = ks.stack_fwd_tails(*args)
     want = sk.stack_fwd_tails_plain(*args)
-    errs, equal = {}, {}
+    errs, equal, of_scale = {}, {}, {}
     for name, u, w in zip(("skip", "ckpt"), got, want):
         if not w.numel():
             continue
         errs[name] = _err(u, w)
         equal[name] = float((u == w).float().mean())
+        of_scale[name] = errs[name] / _scale(w)
         check(errs[name] <= 2e-2 * _scale(w),
               f"stack_fwd_tails {label} {name}: max err {errs[name]:.3g}, "
               f"scale {_scale(w):.3g}")
     rec["stack_fwd_tails"] = dict(
         max_abs_err=max(errs.values()), errs=errs, equal=equal,
+        of_scale=of_scale,
         ms=time_cuda(torch, lambda: ks.run_fwd_tails(
             ks.library(), *args, stream=ks._stream(x)), 5),
         plain_ms=time_cuda(torch, lambda: sk.stack_fwd_tails_plain(*args),
@@ -1741,7 +1770,9 @@ def tails_compare(torch, args, dskip, label, grad_tol):
         extra = ""
         if "equal" in r:
             extra = "; bit-equal share " + ", ".join(
-                f"{k} {v:.6f}" for k, v in r["equal"].items())
+                f"{k} {v:.6f}" for k, v in r["equal"].items()) \
+                + "; of scale " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in r["of_scale"].items())
         print(f"recompute kernel {name} {label} vs plain: {errs}{extra}; "
               f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms",
               flush=True)
@@ -4306,11 +4337,12 @@ def phase_wide_kernels(torch, np):
     return model, batch, rec, rec2, runs, launches
 
 
-def phase_wide_generate(torch, np, model, batch):
+def phase_wide_generate(torch, np, model, batch, tag=PROBE_TAG):
     """Phase 24 (d): greedy B=1 generation from the trained probe model
     through the AR kernel's video form, exact and fast, prompted by the
     batch's first RF codes and conditioned by its video: codes equal to
-    the plain version's; times."""
+    the plain version's; times (and the ring's slab size).  Phase 25 (d)
+    runs the same on the flagship's depth at R = S = 128 (``tag``)."""
     from movenet_tpu_torch.ops.cuda import ar_sampler as ars
 
     rf = model.receptive_fields
@@ -4330,14 +4362,15 @@ def phase_wide_generate(torch, np, model, batch):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         equal = bool(torch.equal(got.cpu(), want.cpu()))
-        check(equal, f"{PROBE_TAG} {inp.name}: kernel and plain codes "
+        check(equal, f"{tag} {inp.name}: kernel and plain codes "
               f"differ at {(got != want).nonzero()[:3].tolist()}")
-        out[inp.name] = dict(equal=equal, plain_ms=plain_ms,
+        slab = ars._default_slab(inp, 1)
+        out[inp.name] = dict(equal=equal, plain_ms=plain_ms, slab=slab,
                              ms=time_cuda(torch, lambda: ars.ar_sampler(inp),
                                           3))
-        print(f"generate {PROBE_TAG} {inp.name} (greedy B=1, video, n = RF "
-              f"+ {N_WIDE_GEN}): codes equal to plain; kernel "
-              f"{out[inp.name]['ms']:.2f} ms "
+        print(f"generate {tag} {inp.name} (greedy B=1, video, n = RF "
+              f"+ {N_WIDE_GEN}, {slab // 1024} KB slabs): codes equal to "
+              f"plain; kernel {out[inp.name]['ms']:.2f} ms "
               f"({out[inp.name]['ms'] * 1e3 / N_WIDE_GEN:.2f} us/step), "
               f"plain {plain_ms:.1f} ms", flush=True)
     model.train()
@@ -4390,6 +4423,227 @@ def phase_wide_cli(torch, np, root, ds):
           f"{median:.2f}); peak memory {peak:.3f} GB; losses "
           f"{[round(v, 6) for v in losses]}; launches {launches}", flush=True)
     return dict(launches=launches, step_ms=median, peak_gb=peak)
+
+
+# phase 25: the recompute and replay strategies at R = 128: the flagship's
+# depth at R = S = 128 (utils/fixtures.FLAGSHIP_TRAIN at residual_channels
+# = skip_channels = 128: layer 10 x stack 3, C = 256) and experiment 02's
+# CLI at --residual_channels 128 --remat 1 (R = 128, S = 8)
+WIDE_TAILS_KERNELS = {
+    f"{k} (R=128)": v for k, v in (
+        *TAILS_KERNELS.items(),
+        *((k, TRUNK_REPLAY_KERNELS[k]) for k in ("stack_fwd_replay",
+                                                 "stack_bwd_replay")))}
+FLAGSHIP_R128_TAG = "flagship R=128"
+FLAGSHIP_R128_FLAGS = [("128" if v == "64" else v) for v in FLAGSHIP_FLAGS]
+# (B, dilations, R, S) of its kernel shapes, T = 160000: the flagship's
+# depth and experiment 02's
+WIDE_TAILS_SHAPES = {
+    FLAGSHIP_R128_TAG: (2, tuple(2 ** i for i in range(10)) * 3, 128, 128),
+    EXP02_R128_TAG: (2, (1, 2, 4) * 3, 128, 8)}
+# the grids of its recompute backward at the flagship's depth
+WIDE_TAILS_GRIDS = (("weights", "stack_wt_kernel"),
+                    ("rebuild", "stack_layer_kernel"),
+                    ("layer", "stack_bwd_layer_kernel"),
+                    ("wgrad W_fg", "stack_wgrad_kernel<0"),
+                    ("wgrad W_out", "stack_wgrad_kernel<3"),
+                    ("dx", "stack_dx_kernel"),
+                    ("reductions", "reduce_kernel"))
+
+
+def phase_wide_tails_kernels(torch, np):
+    """Phase 25 (a): the recompute and replay kernels at R = 128 against
+    their plain versions at WIDE_TAILS_SHAPES (seeded x, weights and
+    dskip), with a flat ctx and with the video projection triple (the
+    recompute kernels take the triple's flat form, as the trainer hands it
+    to them): the recompute kernels through ``tails_compare`` (phase 11's
+    bars; the backward also by grid at the flagship's depth), the replay
+    kernels through ``_replay_case`` (phase 23's bars, and bit for bit
+    against the wide save kernels: every rebuilt layer input against
+    hsave).  Returns records by (kernel line name, shape label), each with
+    its bound."""
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
+
+    t, lib, bf = 160_000, ks.library(), torch.bfloat16
+    rec = {}
+    for shape, (b, dil, r, s) in WIDE_TAILS_SHAPES.items():
+        n, win, every = len(dil), 3 * r, sk.tails_every(len(dil))
+        for ctx_kind in ("flat", "proj"):
+            g = torch.Generator(device="cuda").manual_seed(
+                31 + n + s + 2 * (ctx_kind == "proj"))
+
+            def rn(*shape, scale=1.0):
+                return torch.randn(*shape, generator=g,
+                                   device="cuda") * scale
+
+            label = shape if ctx_kind == "flat" else f"{shape} proj"
+            with torch.no_grad():
+                x = rn(b, t, r, scale=0.5).to(bf)
+                proj = None
+                if ctx_kind == "flat":
+                    ctx = rn(b, t, r, scale=0.5).to(bf)
+                else:
+                    trip = (rn(b, t // 10, r, scale=0.5).to(bf),
+                            rn(r, 10 * r, scale=r ** -0.5),
+                            rn(10 * r, scale=0.1))
+                    ctx = sk.ctx_flatten(trip, bf)
+                    proj = sk._ctx_proj_args(trip)
+                    del trip
+                args = (x, ctx, rn(n * b, 2 * r, scale=0.1),
+                        rn(n, win, 2 * r, scale=win ** -0.5),
+                        rn(n, r, r + s, scale=r ** -0.5),
+                        rn(n, r + s, scale=0.1), dil)
+                dskip = (rn(b, t, s) * 1e-3).to(bf)
+                tails = tails_compare(torch, args, dskip, label, 1e-3)
+                if shape == FLAGSHIP_R128_TAG and ctx_kind == "proj":
+                    _, ckpt = ks.run_fwd_tails(lib, *args, stream=ks._stream(x))
+                    bargs = (x, ckpt, *args[1:-1], dskip, dil)
+                    tails["stack_bwd_tails"]["by_grid"] = by_grid(
+                        torch, lambda: ks.run_bwd_tails(
+                            lib, *bargs, stream=ks._stream(x)),
+                        WIDE_TAILS_GRIDS)
+                    print(grid_line(f"kernel stack_bwd_tails {label}",
+                                    tails["stack_bwd_tails"]["by_grid"]),
+                          flush=True)
+                    del ckpt, bargs
+                fwd, bwd = _replay_case(torch, lib, args, dskip, label,
+                                        "bf16", proj)
+                del x, ctx, args, dskip, proj
+            torch.cuda.empty_cache()
+            tb = tails_bounds(b, t, n, r, s, win, every)
+            rb = replay_bounds(b, t, n, r, s, win, every,
+                               proj=ctx_kind == "proj")
+            for name in TAILS_KERNELS:
+                tails[name]["bound"] = tb[name]
+                rec[(f"{name} (R=128)", label)] = tails[name]
+            for name, r_ in (("stack_fwd_replay", fwd),
+                             ("stack_bwd_replay", bwd)):
+                r_["bound"] = rb[name]
+                rec[(f"{name} (R=128)", label)] = r_
+    for (name, label), r_ in rec.items():
+        print(f"kernel {name} {label}: kernel {r_['ms']:.3f} ms, plain "
+              f"{r_['plain_ms']:.3f} ms, bound {r_['bound'][0]:.3f} ms "
+              f"({r_['bound'][1]})"
+              + (f", save form {r_['save_ms']:.3f} ms" if "save_ms" in r_
+                 else ""), flush=True)
+    return rec
+
+
+def phase_wide_tails_cli(torch, np, root, ds):
+    """Phase 25 (b, c): (b) the trainer CLI at the flagship's depth at R =
+    S = 128 (FLAGSHIP_R128_FLAGS) for 1 epoch of 4 steps on phase 16's
+    clips, first with no strategy flag (the default resolves recompute:
+    only the recompute trunk kernels and the head's run), then with
+    --fused_strategy replay (only the replay trunk kernels); finite losses,
+    update ms and peak memory; then one loss + backward of the first run's
+    trained model on seeded codes and video through the save, replay and
+    recompute strategies, each one's peak device memory and ms; (c)
+    experiment 02's CLI with --residual_channels 128 --remat 1 for 3
+    updates on phase 14's clips (``ds``): recompute at (128, 8).  Returns
+    (the trained flagship model, its seeded batch, launches of the R = 128
+    kernels on these runs, records)."""
+    from movenet_tpu_torch.data import kinetics_index
+    from movenet_tpu_torch.models import fused
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.train import Batch
+
+    mods = (ks, kh, kg)
+    flag_ds = root / "flagship_clips"
+    runs, launches, model = {}, {k: 0 for k in WIDE_TAILS_KERNELS}, None
+    cases = (("recompute", flag_ds, FLAGSHIP_R128_FLAGS, [], 4,
+              ("stack_fwd_tails", "stack_bwd_tails")),
+             ("replay", flag_ds, FLAGSHIP_R128_FLAGS,
+              ["--fused_strategy", "replay"], 4,
+              ("stack_fwd_replay", "stack_bwd_replay")),
+             ("exp02 remat", ds, EXP02_FLAGS,
+              ["--residual_channels", "128", "--remat", "1"], 3,
+              ("stack_fwd_tails", "stack_bwd_tails")))
+    for key, data, flags, extra, n_steps, (fwd, bwd) in cases:
+        n_val = len(kinetics_index(data, train=False)) // 2
+        run, logs = root / f"r128_run_{len(runs)}", root / f"r128_logs_{len(runs)}"
+        for mod in mods:
+            mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_train_steps(torch) as steps:
+            state = trainer_cli([
+                "--dataset", str(data), *flags, *extra, "--n_epochs", "1",
+                "--n_steps_per_epoch", str(n_steps), "--val_batch_size", "2",
+                "--model_output_path", str(run), "--logger", "jsonl",
+                "--training_logs_path", str(logs)])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        got = {k: v for mod in mods for k, v in mod.launch_counts.items()}
+        m = state.module
+        check(state.step == n_steps, f"R=128 trainer CLI ({key}) took "
+              f"{state.step} steps, not {n_steps}")
+        check(m.residual_channels == 128, f"R=128 trainer CLI ({key}) built "
+              f"R={m.residual_channels}")
+        want = {k: 0 for k in got}
+        want.update({fwd: n_steps + n_val, bwd: n_steps,
+                     "head_fwd": n_steps + n_val, "head_bwd": n_steps})
+        check(got == want, f"R=128 trainer CLI ({key}) launches {got}, "
+              f"expected {want}")
+        lines = [json.loads(l) for l in (logs / "metrics.jsonl").read_text()
+                 .splitlines()]
+        losses = [l["loss"] for l in lines if l["tag"] in ("train", "val")]
+        check(losses and all(np.isfinite(losses)),
+              f"R=128 trainer CLI ({key}) losses {losses}")
+        median = float(np.median(steps.ms[1:]))
+        print(f"trainer CLI {key} at R=128 ({' '.join(flags + extra)}; "
+              f"R={m.residual_channels}, S={m.skip_channels}): {n_steps} "
+              f"steps + {n_val} validation batches; step ms "
+              f"{[round(v, 2) for v in steps.ms]} (median after the first "
+              f"{median:.2f}); peak memory {peak:.3f} GB; losses "
+              f"{[round(v, 6) for v in losses]}; launches {got}", flush=True)
+        for k in (fwd, bwd):
+            launches[f"{k} (R=128)"] += got[k]
+        runs[key] = dict(step_ms=median, peak_gb=peak, launches=got)
+        if key == "recompute":
+            model = state.module
+        del state
+        torch.cuda.empty_cache()
+    # one loss + backward of the trained flagship model through each
+    # strategy, for its peak device memory
+    rng = np.random.default_rng(0)
+    batch = Batch(
+        codes=torch.from_numpy(rng.integers(
+            0, model.input_channels, size=(2, model.max_audio_frames))).int(),
+        video=torch.from_numpy(rng.standard_normal(
+            (2, model.max_video_frames, 64, 64, 1)).astype(np.float32))
+    ).to("cuda")
+    keys = {"save": "stack_fwd", "replay": "stack_fwd_replay",
+            "recompute": "stack_fwd_tails"}
+    peaks, ms = {}, {}
+    for strategy in keys:
+        model.fused_strategy = strategy
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ks.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _ = fused.fused_train_loss(model, batch.codes, batch.video)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms[strategy] = (time.perf_counter() - t0) * 1e3
+        peaks[strategy] = torch.cuda.max_memory_allocated() / 1e9
+        check(np.isfinite(float(loss.detach())), f"{strategy} loss")
+        check(ks.launch_counts[keys[strategy]] == 1,
+              f"{FLAGSHIP_R128_TAG} {strategy}: {ks.launch_counts}")
+        del loss
+    model.fused_strategy = None
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    print(f"{FLAGSHIP_R128_TAG} one loss + backward (bf16, B=2, T=160000): "
+          "peak memory " + ", ".join(f"{k} {peaks[k]:.3f} GB" for k in keys)
+          + "; " + ", ".join(f"{k} {ms[k]:.1f} ms" for k in keys)
+          + " (first calls)", flush=True)
+    return model, batch, launches, dict(runs=runs, peaks=peaks, ms=ms)
 
 
 def main() -> int:
@@ -4522,6 +4776,10 @@ def main() -> int:
         wide_gen = phase_wide_generate(torch, np, probe_model, probe_batch)
         del probe_model, probe_batch
         wide_s = time.perf_counter() - t0
+        phase = "25 (a) recompute and replay kernels at R = 128 vs plain"
+        t0 = time.perf_counter()
+        r128_recs = phase_wide_tails_kernels(torch, np)
+        r128_s = time.perf_counter() - t0
         with tempfile.TemporaryDirectory() as tmp:
             phase = "trainer CLI"
             cli_launches, cli_step_ms, ds = phase_trainer_cli(
@@ -4557,6 +4815,17 @@ def main() -> int:
             wide_cli = phase_wide_cli(torch, np, Path(tmp), ds)
             wide_s += time.perf_counter() - t0
             print(f"phase 24: {wide_s:.1f} s", flush=True)
+            phase = "25 (b, c) trainer CLI at R = 128, recompute and replay"
+            t0 = time.perf_counter()
+            r128_model, r128_batch, r128_launches, r128_cli = \
+                phase_wide_tails_cli(torch, np, Path(tmp), ds)
+            phase = "25 (d) generation from the trained R = 128 flagship"
+            r128_gen = phase_wide_generate(torch, np, r128_model, r128_batch,
+                                           FLAGSHIP_R128_TAG)
+            del r128_model, r128_batch
+            torch.cuda.empty_cache()
+            r128_s += time.perf_counter() - t0
+            print(f"phase 25: {r128_s:.1f} s", flush=True)
             phase = "9g (b, c) float32 flagship trainer CLI"
             t0 = time.perf_counter()
             f32g_launches, f32g_cli = phase_f32_flagship_cli(torch, np,
@@ -4667,6 +4936,23 @@ def main() -> int:
             print(f"time generate {PROBE_TAG} {name} (B=1, video): kernel "
                   f"{r['ms']:.2f} ms for {N_WIDE_GEN} samples, plain "
                   f"{r['plain_ms']:.1f} ms; {card}", flush=True)
+        for key, r in r128_cli["runs"].items():
+            print(f"time trainer CLI {key} at R=128: update "
+                  f"{r['step_ms']:.2f} ms (median after the first), peak "
+                  f"memory {r['peak_gb']:.3f} GB; {card}", flush=True)
+        print(f"time {FLAGSHIP_R128_TAG} one loss + backward peaks: "
+              + ", ".join(f"{k} {v:.3f} GB" for k, v in
+                          r128_cli["peaks"].items()) + f"; {card}",
+              flush=True)
+        for name, r in r128_gen.items():
+            print(f"time generate {FLAGSHIP_R128_TAG} {name} (B=1, video, "
+                  f"{r['slab'] // 1024} KB slabs): kernel {r['ms']:.2f} ms "
+                  f"for {N_WIDE_GEN} samples, plain {r['plain_ms']:.1f} ms; "
+                  f"{card}", flush=True)
+        for (name, label), r in r128_recs.items():
+            print(f"time {name} {label}: kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms; "
+                  f"{card}", flush=True)
         k, pl = runs["kernels"], runs["plain"]
         print(f"time train (breakdancing, B=2, T=160000, bf16): step "
               f"{k['step_ms']:.2f} ms, {1e3 / k['step_ms']:.3f} steps/s, "
@@ -4978,12 +5264,45 @@ def main() -> int:
                     **({"by_grid_ms": x["by_grid"]} if "by_grid" in x
                        else {}))
                     for label, x in others]})
+        # phase 25: the recompute and replay kernels at R = 128, timed at
+        # the flagship's depth with the video triple (the trainer's form),
+        # launched by the trainer CLI runs of phase 25 (b, c)
+        for name, (source, replaces) in WIDE_TAILS_KERNELS.items():
+            main_label = f"{FLAGSHIP_R128_TAG} proj"
+            r = r128_recs[(name, main_label)]
+            others = [(label, x) for (n, label), x in r128_recs.items()
+                      if n == name and label != main_label]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces + (" (save_h=False, R = 128)"
+                                        if "replay" in name
+                                        else " (R = 128)"),
+                "launches": r128_launches[name],
+                "max_abs_err": max([r["max_abs_err"]]
+                                   + [x["max_abs_err"] for _, x in others]),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None, "matches_plain": True,
+                **({"save_ms": r["save_ms"]} if "save_ms" in r else {}),
+                "shape": "flagship depth at R=S=128: B=2, T=160000, L=30 "
+                         "(dilations 1..512 x 3), bf16, video projection "
+                         "triple (max_abs_err over the widths)",
+                **({"by_grid_ms": r["by_grid"]} if "by_grid" in r else {}),
+                "widths": [dict(
+                    shape=label, ms=x["ms"], plain_ms=x["plain_ms"],
+                    max_abs_err=x["max_abs_err"], bound_ms=x["bound"][0],
+                    bound_by=x["bound"][1],
+                    **({"save_ms": x["save_ms"]} if "save_ms" in x else {}),
+                    **({"by_grid_ms": x["by_grid"]} if "by_grid" in x
+                       else {}))
+                    for label, x in others]})
         # every form of the fourteen TPU kernel functions: the AR kernel's
         # four and the speculative kernel's two, the ten training kernels,
         # the two packed ones, the four float32 save and C <= 128 head
-        # forms, the four float32 recompute and wide head forms and the
-        # replay strategy's four (bf16 and float32)
-        check(len(kernels) == 30, f"{len(kernels)} kernels in the line")
+        # forms, the four float32 recompute and wide head forms, the
+        # replay strategy's four (bf16 and float32) and the recompute and
+        # replay forms at R = 128
+        check(len(kernels) == 34, f"{len(kernels)} kernels in the line")
         check(all(k["launches"] > 0 for k in kernels),
               "a kernel of the path was not launched")
         print(json.dumps({"kernels": kernels}))

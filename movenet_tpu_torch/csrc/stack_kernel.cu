@@ -23,7 +23,9 @@
 // on the TPU); the save forms (embed and non-embed), the recompute and
 // the replay forms also take float32 (the float32 compute dtype:
 // stack_layer_f32_kernel and the backward's float32 forms, see "the
-// float32 save forward" below).
+// float32 save forward" below).  The bf16 save, recompute and replay forms
+// also run at R = 128 (MOVENET_WIDE_WIDTHS), their weights streamed through
+// shared memory: see "the wide save forms" and "the wide recompute forms".
 //
 // Design.  The TPU runs a (batch, time tile) grid in order and carries the
 // dilation rings and the weight-gradient sums from one grid step to the
@@ -246,6 +248,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
+// The operand rows [h | h(t-d) | ctx] of the tile at row m0 into hp (row
+// stride LDH) by cp.async: zero past the rows and for the tap before t = d,
+// as hp_item.  Row indices fit 32 bits (B*T < 2^31).
+template <int R, int LDH, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_operands(bf16_t* hp, const bf16_t* h,
+                                               const bf16_t* ctx, long m0,
+                                               long m_total, int t_len,
+                                               int d, int per_row) {
+  for (int i = threadIdx.x; i < ROWS * per_row; i += THREADS) {
+    const int row = i / per_row, c8 = 8 * (i % per_row);
+    const int part = c8 / R, j0 = c8 % R;
+    const long m = m0 + row;
+    bool ok = m < m_total;
+    const bf16_t* src = h + m * R + j0;
+    if (part == 1) {
+      ok = ok && static_cast<int>(static_cast<unsigned>(m) %
+                                  static_cast<unsigned>(t_len)) >= d;
+      src -= static_cast<long>(d) * R;
+    } else if (part == 2) {
+      src = ctx + m * R + j0;
+    }
+    cp_async16(hp + row * LDH + c8, ok ? src : h, ok);
+  }
+}
+
 struct BwdLayerArgs {
   float* dhp;            // (M, R) in: layer l+1's dh + dfg_w_h; out: layer l's
   const float* p_in;     // (M, R) layer l+1's dfg_w past part (not at top)
@@ -273,6 +300,9 @@ struct BwdLayerArgs {
   // the recompute form in float32: h_l and ctx in float32
   const float* hs_f;     // (M, R)
   const float* cx_f;     // (M, R), or null
+  // the wide recompute form: this layer's W_fg^T (2R, W_in) in bf16 (the
+  // forward's weight scratch)
+  const bf16_t* wt;
 };
 
 // The widest R of the layouts below and of the forward's; wider trunks
@@ -310,10 +340,7 @@ struct BwdShape {
   static constexpr size_t kTileRc =
       static_cast<size_t>(kRows * kLdd + kRows * kLdf) * 4 +
       static_cast<size_t>(kRows * kLdh) * 2;
-  static size_t smem_rc(int win) {
-    return static_cast<size_t>(R * kLdd + win * kLdf) * 4 +
-           kHalves * kTileRc;
-  }
+  static size_t smem_rc(int win);
   // the float32 form: the taps (float32) are staged in the dfg rows, which
   // their dfg then overwrites place by place
   static constexpr size_t kTileF32 =
@@ -337,7 +364,12 @@ struct BwdShape {
 // into ff first), then a ring of two weight slabs of kSw rows (W_out's,
 // k = R+S, row stride kLdd; or W_fg's, k = 2R, stride kLdf), float32 as
 // the weights lie in global memory.  Row strides of 4 mod 8 floats, as
-// BwdShape's.
+// BwdShape's.  The recompute form (kBwdRc): the tile's bf16 operand rows
+// [h | h(t-d) | ctx] (kRows, kLdh) lie in dd's bytes (kDd of them, the
+// larger of the two) until fg is formed again from them in kFp passes, each
+// over a ring slab of W_fg^T's bf16 rows for kNc filter columns and their
+// kNc gate columns (2 kNc, kLdh); tf and sg (float32) take the places of
+// the taps in ff.
 template <int R, int S>
 struct WideBwd {
   static constexpr int kRows = 64, kSw = 32, kThreads = 256;
@@ -345,6 +377,16 @@ struct WideBwd {
   static constexpr int kLds = kLdd > kLdf ? kLdd : kLdf;
   static constexpr size_t kBytes =
       static_cast<size_t>(kRows * (kLdd + kLdf) + 2 * kSw * kLds) * 4;
+  static constexpr int kNc = 16, kFp = R / kNc, kLdh = 3 * R + 8;
+  static constexpr size_t kDd =
+      static_cast<size_t>(kRows) * kLdd * 4 >
+              static_cast<size_t>(kRows) * kLdh * 2
+          ? static_cast<size_t>(kRows) * kLdd * 4
+          : static_cast<size_t>(kRows) * kLdh * 2;
+  static constexpr size_t kBytesRc =
+      kDd + static_cast<size_t>(kRows * kLdf + 2 * kSw * kLds) * 4;
+  static_assert(2 * kNc * kLdh * 2 <= kSw * kLds * 4,
+                "a W_fg^T slab fits a ring slot");
 };
 
 template <int R, int S>
@@ -353,6 +395,15 @@ size_t BwdShape<R, S>::smem(int win) {
     return WideBwd<R, S>::kBytes;
   else
     return static_cast<size_t>(R * kLdd + win * kLdf) * 4 + kHalves * kTile;
+}
+
+template <int R, int S>
+size_t BwdShape<R, S>::smem_rc(int win) {
+  if constexpr (R > kNarrowR)
+    return WideBwd<R, S>::kBytesRc;
+  else
+    return static_cast<size_t>(R * kLdd + win * kLdf) * 4 +
+           kHalves * kTileRc;
 }
 
 // the layer backward's forms: the save strategy's (bf16 taps), the
@@ -467,49 +518,70 @@ __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
 // overwrites them in ff), then dfg to global memory and dfg_w over the
 // W_in / kSw slabs of W_fg (the same split; the dh part into dhp, the past
 // part into p_out, the ctx part into dctx).
-template <int R, int S>
+// RC: the recompute form (stack_bwd_tails; the narrow kBwdRc at R = 128).
+// The tile's operand rows [h | h(t-d) | ctx] (bf16) arrive by cp.async in
+// dd's bytes, and kFp steps come first, each over a slab of W_fg^T's bf16
+// rows (a.wt) for kNc filter columns and their gate columns: each warp
+// forms fg again for its 16 rows and 8 of the filter columns with their
+// gate columns through fg_mma, as the forward's passes sum it (so the same
+// bits), and puts tf and sg (float32) where the taps go in ff and gated =
+// tf * sg (float32) in global memory for the W_out gradient (MODE 3).
+// dh and dskip take dd's bytes once every warp is done with the operand
+// rows; the steps after are the save form's.
+template <int R, int S, bool RC>
 __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
   using W = WideBwd<R, S>;
   constexpr int ROWS = W::kRows, SW = W::kSw, NO = W::kNo, THREADS = W::kThreads;
   constexpr int LDD = W::kLdd, LDF = W::kLdf, LDS = W::kLds;
+  constexpr int NC = W::kNc, LDH = W::kLdh, FP = RC ? W::kFp : 0;
   static_assert(R % SW == 0 && S % 4 == 0, "whole slabs and float4 rows");
   const int win = a.win;
   extern __shared__ __align__(16) unsigned char smem[];
   float* dd = reinterpret_cast<float*>(smem);   // (ROWS, LDD) [dh | dskip]
-  float* ff = dd + ROWS * LDD;                    // (ROWS, LDF) taps, dfg
+  bf16_t* hq = reinterpret_cast<bf16_t*>(smem);   // RC: (ROWS, LDH) operands
+  float* ff = reinterpret_cast<float*>(             // (ROWS, LDF) taps, dfg
+      smem + (RC ? W::kDd : static_cast<size_t>(ROWS) * LDD * 4));
   float* ring = ff + ROWS * LDF;                  // (2, SW, LDS) weights
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2;
   const int q = tid & 3;
   const int r0 = 16 * (warp & 3), n0 = 16 * (warp >> 2);
-  const int n_out = R / SW, n_steps = n_out + win / SW;
+  const int n_out = R / SW, n_steps = FP + n_out + win / SW;
   const bool ctx_sum = a.dctx != nullptr && !a.top;
   const long n_tiles = (a.m_total + ROWS - 1) / ROWS;
 
-  // slab j of a tile: W_out's rows [SW j, + SW), or W_fg's [SW (j -
-  // n_out), + SW)
+  // slab j of a tile: RC's fg pass j (W_fg^T's bf16 rows of its NC filter
+  // columns, then their gate columns), W_out's rows [SW jo, + SW), or W_fg's
+  // [SW (jo - n_out), + SW), jo = j - FP
   auto load_slab = [&](int j, float* dst) {
-    if (j < n_out) {
+    const int jo = j - FP;
+    if (j < FP) {
+      bf16_t* db = reinterpret_cast<bf16_t*>(dst);
+      const int per_row = win / 8;
+      for (int i = tid; i < 2 * NC * per_row; i += THREADS) {
+        const int row = i / per_row, c8 = 8 * (i % per_row);
+        const int col = row < NC ? NC * j + row : R + NC * j + row - NC;
+        cp_async16(db + row * LDH + c8,
+                   a.wt + static_cast<long>(col) * win + c8, true);
+      }
+    } else if (jo < n_out) {
       for (int i = tid; i < SW * (NO / 4); i += THREADS) {
         const int row = i / (NO / 4), c4 = 4 * (i % (NO / 4));
         cp_async16(dst + row * LDD + c4,
-                   a.w_out + static_cast<long>(SW * j + row) * NO + c4, true);
+                   a.w_out + static_cast<long>(SW * jo + row) * NO + c4, true);
       }
     } else {
       for (int i = tid; i < SW * (R / 2); i += THREADS) {
         const int row = i / (R / 2), c4 = 4 * (i % (R / 2));
         cp_async16(dst + row * LDF + c4,
-                   a.w_fg + static_cast<long>(SW * (j - n_out) + row) * 2 * R +
+                   a.w_fg + static_cast<long>(SW * (jo - n_out) + row) * 2 * R +
                        c4,
                    true);
       }
     }
   };
-  int ring_i = 0;   // ring slot of the current slab
-  if (blockIdx.x < n_tiles) load_slab(0, ring);
-  cp_async_commit();
-  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
-    const long m0 = tile_i * ROWS, next = tile_i + gridDim.x;
-    __syncthreads();   // every warp is done with the last tile's rows
+  // the tile's dh (to global memory too) and dskip into dd; the save
+  // form's taps widened into ff
+  auto fill = [&](long m0) {
     for (int i = tid; i < ROWS * (R / 4); i += THREADS) {
       const int row = i / (R / 4), j0 = 4 * (i % (R / 4));
       const long m = m0 + row;
@@ -525,14 +597,18 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
           }
         }
         *reinterpret_cast<float4*>(a.dh + m * R + j0) = v;
-        load4(a.tfsg + m * 2 * R + j0, tf);
-        load4(a.tfsg + m * 2 * R + R + j0, sg);
+        if (!RC) {
+          load4(a.tfsg + m * 2 * R + j0, tf);
+          load4(a.tfsg + m * 2 * R + R + j0, sg);
+        }
       }
       *reinterpret_cast<float4*>(dd + row * LDD + j0) = v;
-      *reinterpret_cast<float4*>(ff + row * LDF + j0) =
-          make_float4(tf[0], tf[1], tf[2], tf[3]);
-      *reinterpret_cast<float4*>(ff + row * LDF + R + j0) =
-          make_float4(sg[0], sg[1], sg[2], sg[3]);
+      if (!RC) {
+        *reinterpret_cast<float4*>(ff + row * LDF + j0) =
+            make_float4(tf[0], tf[1], tf[2], tf[3]);
+        *reinterpret_cast<float4*>(ff + row * LDF + R + j0) =
+            make_float4(sg[0], sg[1], sg[2], sg[3]);
+      }
     }
     for (int i = tid; i < ROWS * (S / 4); i += THREADS) {
       const int row = i / (S / 4), j0 = 4 * (i % (S / 4));
@@ -550,6 +626,20 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
       *reinterpret_cast<float4*>(dd + row * LDD + R + j0) =
           make_float4(v[0], v[1], v[2], v[3]);
     }
+  };
+  int ring_i = 0;   // ring slot of the current slab
+  if (blockIdx.x < n_tiles) load_slab(0, ring);
+  cp_async_commit();
+  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    const long m0 = tile_i * ROWS, next = tile_i + gridDim.x;
+    __syncthreads();   // every warp is done with the last tile's rows
+    if constexpr (RC) {
+      stage_operands<R, LDH, ROWS, THREADS>(hq, a.hs, a.cx, m0, a.m_total,
+                                            a.t_len, a.d, win / 8);
+      cp_async_commit();
+    } else {
+      fill(m0);
+    }
     for (int j = 0; j < n_steps; ++j) {
       cp_async_wait<0>();
       __syncthreads();   // slab j and the tile's rows, for every warp
@@ -561,8 +651,50 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
       cp_async_commit();
       const float* w = ring + (ring_i & 1) * SW * LDS;
       ++ring_i;
+      if (RC && j < FP) {
+        // fg again for the warp's 16 rows, filter n tile warp / 4 of the
+        // pass and its gate tile; tf and sg into ff, gated out
+        const bf16_t* wb = reinterpret_cast<const bf16_t*>(w);
+        const int half = warp >> 2;
+        float fg[2][4];
+        fg_mma<2, LDH>(fg, hq, r0, win, [&](int kk, int jj, unsigned* b) {
+          const bf16_t* bp =
+              wb + (NC * jj + 8 * half + g) * LDH + 16 * kk + 2 * q;
+          b[0] = ld32(bp);
+          b[1] = ld32(bp + 8);
+        });
+        const int c = NC * j + 8 * half + 2 * q;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = r0 + g + 8 * e;
+          const long m = m0 + row;
+          const float* bf =
+              a.b_fg + (m < a.m_total ? m / a.t_len : 0) * 2 * R;
+          float tf[2], sg[2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            tf[k] = tanhf(fg[0][2 * e + k] + __ldg(bf + c + k));
+            sg[k] = sigmoidf(fg[1][2 * e + k] + __ldg(bf + R + c + k));
+          }
+          *reinterpret_cast<float2*>(ff + row * LDF + c) =
+              make_float2(tf[0], tf[1]);
+          *reinterpret_cast<float2*>(ff + row * LDF + R + c) =
+              make_float2(sg[0], sg[1]);
+          if (m < a.m_total)
+            *reinterpret_cast<float2*>(a.gated + m * R + c) =
+                make_float2(tf[0] * sg[0], tf[1] * sg[1]);
+        }
+        continue;
+      }
+      const int jo = j - FP;
+      if (RC && jo == 0) {
+        // every warp is done with the operand rows: dh and dskip take
+        // their bytes
+        fill(m0);
+        __syncthreads();
+      }
       float acc[2][4] = {};
-      if (j < n_out) {
+      if (jo < n_out) {
         // dgated = [dh | dskip] W_out^T (3 passes) for the warp's columns
 #pragma unroll 2
         for (int k0 = 0; k0 < NO; k0 += 8) {
@@ -578,7 +710,7 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
         // dfg from the taps at the same places
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
-          const int c = SW * j + n0 + 8 * jj + 2 * q;
+          const int c = SW * jo + n0 + 8 * jj + 2 * q;
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float* fp = ff + (r0 + g + 8 * e) * LDF + c;
@@ -598,7 +730,7 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
         }
         continue;
       }
-      if (j == n_out) {
+      if (jo == n_out) {
         // dfg is whole: to global memory for the W_fg gradient
         for (int i = tid; i < ROWS * (R / 2); i += THREADS) {
           const int row = i / (R / 2), j0 = 4 * (i % (R / 2));
@@ -622,7 +754,7 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
       }
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
-        const int cw = SW * (j - n_out) + n0 + 8 * jj + 2 * q;
+        const int cw = SW * (jo - n_out) + n0 + 8 * jj + 2 * q;
         const int p = cw / R, c = cw % R;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -684,8 +816,9 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
                                   BwdShape<R, S>::kHalves == 2 ? 1 : 2)
     stack_bwd_layer_kernel(BwdLayerArgs a) {
   if constexpr (R > kNarrowR) {
-  static_assert(FORM == kBwdSave, "the wide forms are the save strategy's");
-  save_wide_bwd<R, S>(a);
+  static_assert(FORM == kBwdSave || FORM == kBwdRc,
+                "the wide forms are the bf16 save and recompute forms");
+  save_wide_bwd<R, S, FORM == kBwdRc>(a);
   } else {
   using Sh = BwdShape<R, S>;
   using Regs = BwdTileRegs<R, S, FORM>;
@@ -1373,22 +1506,24 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Table gradient: dh of layer 0 (its partial + the carry) added by code
-// into per-block (2V, R) tables in shared memory.  The block's rows are cut
-// into `groups` contiguous chunks, each with a table of its own; one
-// thread per (chunk, column) adds its rows in order (loads grouped ahead
-// of the adds), and the chunks' tables are added in chunk order: the sums
-// are deterministic, so a resumed run trains bit for bit as an
+// into per-block (2V, rc) tables in shared memory, rc of the R columns a
+// block (blockIdx.y: the column slab; rc = R wherever a (2V, R) table fits
+// a block, as at every width but R = 128 with 2V = 512).  The block's rows
+// are cut into `groups` contiguous chunks, each with a table of its own;
+// one thread per (chunk, column) adds its rows in order (loads grouped
+// ahead of the adds), and the chunks' tables are added in chunk order: the
+// sums are deterministic, so a resumed run trains bit for bit as an
 // uninterrupted one.
 __global__ void __launch_bounds__(kThreads)
     stack_embed_grad_kernel(const float* dhp, const float* p, int d0,
                             const int* pack, int pack_cols, int batch,
-                            int t_len, int vocab, int r, long rows_per_block,
-                            int groups, float* part) {
+                            int t_len, int vocab, int r, int rc,
+                            long rows_per_block, int groups, float* part) {
   constexpr int U = 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* tabs = reinterpret_cast<float*>(smem);   // (groups, 2V, R)
-  const int tid = threadIdx.x;
-  const int n_tab = 2 * vocab * r;
+  float* tabs = reinterpret_cast<float*>(smem);   // (groups, 2V, rc)
+  const int tid = threadIdx.x, c0 = blockIdx.y * rc;
+  const int n_tab = 2 * vocab * rc;
   for (int i = tid; i < groups * n_tab; i += kThreads) tabs[i] = 0.f;
   __syncthreads();
   const long m_total = static_cast<long>(batch) * t_len;
@@ -1396,7 +1531,7 @@ __global__ void __launch_bounds__(kThreads)
   const long hi = lo + rows_per_block < m_total ? lo + rows_per_block
                                                 : m_total;
   const long chunk = (hi - lo + groups - 1) / groups;
-  const int g = tid / r, j = tid % r;
+  const int g = tid / rc, j = tid % rc;
   if (g < groups && hi > lo) {
     float* tab = tabs + static_cast<long>(g) * n_tab;
     const long c_lo = lo + g * chunk;
@@ -1412,17 +1547,17 @@ __global__ void __launch_bounds__(kThreads)
         if (m < c_hi) {
           const int b = static_cast<int>(m / t_len);
           const int t = static_cast<int>(m % t_len);
-          v[u] = dhp[m * r + j];
-          if (t + d0 < t_len) v[u] = v[u] + p[(m + d0) * r + j];
+          v[u] = dhp[m * r + c0 + j];
+          if (t + d0 < t_len) v[u] = v[u] + p[(m + d0) * r + c0 + j];
           cur[u] = pack[static_cast<long>(t) * pack_cols + b];
           prev[u] = pack[static_cast<long>(t) * pack_cols + batch + b];
         }
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        if (cur[u] >= 0 && cur[u] < vocab) tab[cur[u] * r + j] += v[u];
+        if (cur[u] >= 0 && cur[u] < vocab) tab[cur[u] * rc + j] += v[u];
         if (prev[u] >= 0 && prev[u] < vocab)
-          tab[(vocab + prev[u]) * r + j] += v[u];
+          tab[(vocab + prev[u]) * rc + j] += v[u];
       }
     }
   }
@@ -1431,7 +1566,8 @@ __global__ void __launch_bounds__(kThreads)
     float sum = tabs[i];
     for (int c = 1; c < groups; ++c)
       sum += tabs[static_cast<long>(c) * n_tab + i];
-    part[static_cast<long>(blockIdx.x) * n_tab + i] = sum;
+    part[static_cast<long>(blockIdx.x) * 2 * vocab * r + (i / rc) * r + c0 +
+         i % rc] = sum;
   }
 }
 
@@ -1658,6 +1794,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------- host side
+// shared memory one block may use on sm_90
+constexpr size_t kSmemLimit = 232448;
+
 int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
@@ -1751,6 +1890,14 @@ using Act = typename std::conditional<F32, float, bf16_t>::type;
 // layer input (41 MB), 0.29 GB or 0.09 ms at 3.35 TB/s, against R^2 = 4096
 // fmaf a row (1.3e9, 0.04 ms at the float32 peak): bound by bytes.  The
 // backward launches 25 of them and 4 roundings of a checkpoint.
+//
+// At R = 128 (the bf16 form only) the forward's layer launches are the wide
+// save form's (the wrapper's weight scratch written once a call), the
+// rebuild is the same kernel on 64-row tiles (its 51,456 bytes of shared
+// memory dynamic), whose fmaf chain is the wide save form's residual chain
+// (k in order from zero over both k-half slabs, one accumulator), and the
+// backward's grids are the wide save backward's.  A rebuild there moves
+// 0.57 GB (0.17 ms) against 16,384 fmaf a row (0.16 ms).
 
 // The replay backward's source of the layer inputs, in place of hsave: x,
 // the forward's float32 checkpoints, b_out (the rebuild's bias) and the
@@ -1767,7 +1914,9 @@ struct ReplaySrc {
   float* work;
 };
 
-// The bf16 rebuild's tile: rows in groups of 4 by 8 columns a thread.
+// The bf16 rebuild's tile: rows in groups of 4 by 8 columns a thread.  Its
+// dynamic shared memory: the tile's gated rows gt (kRows, kLdg), then W_out's
+// residual columns k-major wk (R, kLdk), bf16 (51,456 bytes at R = 128).
 template <int R>
 struct RebuildShape {
   static constexpr int kCw = 8;                        // columns a thread
@@ -1775,12 +1924,17 @@ struct RebuildShape {
   static constexpr int kRows = 4 * kThreads / kTpr;    // rows a tile
   static constexpr int kLdg = R + 2;    // gated rows (bf16)
   static constexpr int kLdk = R + 8;    // W_out's residual columns, k-major
+  static constexpr size_t kWk = static_cast<size_t>(kRows) * kLdg * 2;
+  static constexpr size_t kEnd = kWk + static_cast<size_t>(R) * kLdk * 2;
+  static_assert(kWk % 16 == 0, "wk's 16-byte rows");
 };
 
 // One rebuild in bf16: each tile's gated rows, bf16(tf * sg) from the
 // rounded taps, and W_out's residual columns rounded to bf16 in shared
 // memory, then per element the fmaf chain over k in order from zero, +
-// b_out, + h, as stack_layer_kernel's save forms form the residual.  h_in
+// b_out, + h, as stack_layer_kernel's save forms form the residual (the
+// wide save form too, whose chain runs over two k-half slabs from one
+// accumulator: the same chain).  h_in
 // is the float32 h_l, or null: then x_in (bf16) is h_0.  hb_out takes
 // bf16(h_{l+1}), h_out (null where no later rebuild reads it) the float32
 // h_{l+1}; it may be h_in, since each thread reads its elements of h_in
@@ -1794,8 +1948,9 @@ __global__ void __launch_bounds__(kThreads)
   using Sh = RebuildShape<R>;
   constexpr int CW = Sh::kCw, TPR = Sh::kTpr, ROWS = Sh::kRows;
   constexpr int LDG = Sh::kLdg, LDK = Sh::kLdk;
-  __shared__ __align__(16) bf16_t gt[ROWS * LDG];
-  __shared__ __align__(16) bf16_t wk[R * LDK];
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16_t* gt = reinterpret_cast<bf16_t*>(smem);            // (ROWS, LDG)
+  bf16_t* wk = reinterpret_cast<bf16_t*>(smem + Sh::kWk);  // (R, LDK)
   const int tid = threadIdx.x;
   for (int i = tid; i < R * R; i += kThreads)
     wk[(i / R) * LDK + i % R] = f2bf(w_out[(i / R) * ldw + i % R]);
@@ -1973,12 +2128,21 @@ int replay_group(const ReplaySrc<F32>& rp, const Act<F32>* tfsg,
                  cudaStream_t st) {
   const long mr = m_total * R;
   const float* h_lo = lo == 0 ? nullptr : rp.ckpt + (lo / rp.every - 1) * mr;
-  const void* fn =
-      F32 ? reinterpret_cast<const void*>(stack_rebuild_f32_kernel<R>)
-          : reinterpret_cast<const void*>(stack_rebuild_kernel<R>);
-  const long rows = F32 ? 64 : RebuildShape<R>::kRows;
+  const void* fn;
+  long rows;
+  size_t smem = 0;
+  if constexpr (F32) {
+    fn = reinterpret_cast<const void*>(stack_rebuild_f32_kernel<R>);
+    rows = 64;
+  } else {
+    fn = reinterpret_cast<const void*>(stack_rebuild_kernel<R>);
+    rows = RebuildShape<R>::kRows;
+    smem = RebuildShape<R>::kEnd;
+  }
+  int err = set_smem(fn, smem);
+  if (err) return err;
   int grid = 0;
-  int err = fill_grid(fn, kThreads, 0, (m_total + rows - 1) / rows, &grid);
+  err = fill_grid(fn, kThreads, smem, (m_total + rows - 1) / rows, &grid);
   if (err) return err;
   if constexpr (F32) {
     const float* in = lo == 0 ? rp.x : h_lo;
@@ -1994,7 +2158,7 @@ int replay_group(const ReplaySrc<F32>& rp, const Act<F32>* tfsg,
       stack_round_kernel<<<grid_for(mr), kThreads, 0, st>>>(h_lo, rp.group,
                                                             mr);
     for (int l = lo; l + 1 < hi; ++l)
-      stack_rebuild_kernel<R><<<grid, kThreads, 0, st>>>(
+      stack_rebuild_kernel<R><<<grid, kThreads, smem, st>>>(
           tfsg + l * m_total * 2 * R, w_out + static_cast<long>(l) * R * (R + S),
           R + S, rp.b_out + static_cast<long>(l) * (R + S),
           l == lo ? h_lo : rp.work, rp.x, l + 2 < hi ? rp.work : nullptr,
@@ -2086,19 +2250,14 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
   for (int l = n_layers - 1; l >= 0; --l) {
     const Act<F32>* hs = rp ? nullptr : hsave + l * m_total * R;
     if (rp) {
-      if constexpr (R > kNarrowR) {
-        return static_cast<int>(cudaErrorInvalidValue);   // narrow only
-      } else {
-        // the group's layer inputs, rebuilt as the walk enters it
-        const int lo = l / rp->every * rp->every;
-        const int hi = lo + rp->every < n_layers ? lo + rp->every : n_layers;
-        if (l == hi - 1) {
-          err = replay_group<R, S, F32>(*rp, tfsg, w_out, lo, hi, m_total,
-                                        st);
-          if (err) return err;
-        }
-        hs = replay_input<F32>(*rp, l, lo, m_total * R);
+      // the group's layer inputs, rebuilt as the walk enters it
+      const int lo = l / rp->every * rp->every;
+      const int hi = lo + rp->every < n_layers ? lo + rp->every : n_layers;
+      if (l == hi - 1) {
+        err = replay_group<R, S, F32>(*rp, tfsg, w_out, lo, hi, m_total, st);
+        if (err) return err;
       }
+      hs = replay_input<F32>(*rp, l, lo, m_total * R);
     }
     BwdLayerArgs a;
     a.dhp = dhp;
@@ -2170,19 +2329,24 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
     // table gradient
     const int blocks = ends.embed_blocks, vocab = ends.vocab;
     const long per = (m_total + blocks - 1) / blocks;
+    // columns per block: all R where a (2V, R) table fits a block, else
+    // the widest power-of-two slab that does
+    int rc = R;
+    while (rc > 1 && static_cast<size_t>(2 * vocab * rc) * 4 > kSmemLimit)
+      rc /= 2;
     // chunks per block: a thread per (chunk, column), their tables within
     // 112 KB (two blocks per SM)
-    const size_t tab_bytes = static_cast<size_t>(2 * vocab * R) * 4;
+    const size_t tab_bytes = static_cast<size_t>(2 * vocab * rc) * 4;
     int groups = static_cast<int>((112 * 1024) / tab_bytes);
-    groups = groups < kThreads / R ? groups : kThreads / R;
+    groups = groups < kThreads / rc ? groups : kThreads / rc;
     groups = groups < 1 ? 1 : groups;
     const size_t tsmem = tab_bytes * groups;
     err = set_smem(reinterpret_cast<const void*>(stack_embed_grad_kernel),
                    tsmem);
     if (err) return err;
-    stack_embed_grad_kernel<<<blocks, kThreads, tsmem, st>>>(
+    stack_embed_grad_kernel<<<dim3(blocks, R / rc), kThreads, tsmem, st>>>(
         dhp, pbuf[0], dil[0], ends.pack, ends.pack_cols, batch, t_len, vocab,
-        R, per, groups, part);
+        R, rc, per, groups, part);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     const long nt = 2L * vocab * R;
@@ -2473,13 +2637,19 @@ struct LayerArgs : TailsLayerArgs {
                          // (WideShape::wt_elems), or null
 };
 
-template <int FORM>
+// The kernel parameters of the layer kernel's form FORM at width R: the
+// narrow recompute form's own small struct (a larger one moved ptxas'
+// registers), LayerArgs elsewhere (the wide forms read their weight
+// scratch, LayerArgs::wt).
+template <int R, int FORM>
 struct FormArgs {
   using type = LayerArgs;
 };
-template <>
-struct FormArgs<kRecompute> {
-  using type = TailsLayerArgs;
+template <int R>
+struct FormArgs<R, kRecompute> {
+  using type =
+      typename std::conditional<(R > kNarrowR), LayerArgs,
+                                TailsLayerArgs>::type;
 };
 
 __device__ __forceinline__ void st32(bf16_t* p, unsigned v) {
@@ -2647,31 +2817,6 @@ __device__ __forceinline__ void head_slab(const HeadEpilogue& hd,
       loss += nll;
       match += am[h] == tg[h] ? 1.f : 0.f;
     }
-  }
-}
-
-// The operand rows [h | h(t-d) | ctx] of the tile at row m0 into hp (row
-// stride LDH) by cp.async: zero past the rows and for the tap before t = d,
-// as hp_item.  Row indices fit 32 bits (B*T < 2^31).
-template <int R, int LDH, int ROWS, int THREADS>
-__device__ __forceinline__ void stage_operands(bf16_t* hp, const bf16_t* h,
-                                               const bf16_t* ctx, long m0,
-                                               long m_total, int t_len,
-                                               int d, int per_row) {
-  for (int i = threadIdx.x; i < ROWS * per_row; i += THREADS) {
-    const int row = i / per_row, c8 = 8 * (i % per_row);
-    const int part = c8 / R, j0 = c8 % R;
-    const long m = m0 + row;
-    bool ok = m < m_total;
-    const bf16_t* src = h + m * R + j0;
-    if (part == 1) {
-      ok = ok && static_cast<int>(static_cast<unsigned>(m) %
-                                  static_cast<unsigned>(t_len)) >= d;
-      src -= static_cast<long>(d) * R;
-    } else if (part == 2) {
-      src = ctx + m * R + j0;
-    }
-    cp_async16(hp + row * LDH + c8, ok ? src : h, ok);
   }
 }
 
@@ -2885,12 +3030,15 @@ __device__ __forceinline__ void save_gate(
 // 0.52 MB (backward) of L2 reads a tile, and the save forms' float32
 // intermediates move as at the narrow widths.
 
-// Every layer's bf16 weights for the wide forward (WideShape::wt_elems a
-// layer): W_fg^T, W_out's residual columns k-major and W_out^T's skip
-// rows, rounded as the TPU kernel's _mdot rounds them.
+// Every layer's bf16 weights for the wide forms (WideShape::wt_elems a
+// layer): W_fg^T, then W_out's residual columns k-major (res_t 0: the save
+// forms' chain) or W_out^T's residual rows (res_t 1: the recompute forms'
+// tensor-core product), then W_out^T's skip rows, rounded as the TPU
+// kernel's _mdot rounds them.  With res_t 1 the layer's W_out^T (R + S, R)
+// is whole after W_fg^T.
 __global__ void __launch_bounds__(kThreads)
     stack_wt_kernel(const float* w_fg, const float* w_out, int n_layers,
-                    int win, int r, int s, bf16_t* wt) {
+                    int win, int r, int s, int res_t, bf16_t* wt) {
   const int no = r + s;
   const long n_fg = 2L * r * win, n_res = static_cast<long>(r) * r;
   const long per = n_fg + n_res + static_cast<long>(s) * r;
@@ -2905,7 +3053,8 @@ __global__ void __launch_bounds__(kThreads)
     if (e < n_fg) {
       v = wf[(e % win) * 2 * r + e / win];           // W_fg^T (2R, W_in)
     } else if ((e -= n_fg) < n_res) {
-      v = wo[(e / r) * no + e % r];                  // W_out[:, :R] (k, c)
+      v = res_t ? wo[(e % r) * no + e / r]           // W_out[:, :R]^T (c, k)
+                : wo[(e / r) * no + e % r];          // W_out[:, :R] (k, c)
     } else {
       e -= n_res;
       v = wo[(e % r) * no + r + e / r];              // W_out[:, R:]^T
@@ -3157,6 +3306,223 @@ __device__ __forceinline__ void save_wide_layer(const LayerArgs& a) {
   cp_async_wait<0>();
 }
 
+// ----------------------------------------- the wide recompute forms
+// At R = 128 the recompute form's layout (TlShape: a 256-row operand tile
+// beside W_fg^T and W_out^T, staged once) takes about twice a block's
+// 232,448 bytes of shared memory.  Its wide form (stack_layer_kernel<R, S,
+// kRecompute> at R > kNarrowR) walks the tiles as the wide save forward
+// does: 8 warps on 128-row tiles, the tile's operand rows [h | h(t-d) |
+// ctx] (bf16) in shared memory, the weights streamed through a ring of two
+// slabs by cp.async from the wrapper's bf16 scratch (stack_wt_kernel in
+// its recompute layout: W_fg^T, then W_out^T).  Per tile: kFp fg passes,
+// each over a slab of kNc filter columns of W_fg^T and their kNc gate
+// columns (fg_mma, the gate in registers, gated rounded into the A
+// fragments of the out product), then out = gated W_out on the tensor
+// cores over slabs of kSw W_out^T rows, the residual h + out rounded into
+// h_next and the skip sum in float32.  h stays bf16 between layers, as in
+// the narrow form, whose arithmetic and order this is: every fg and out n
+// tile summed from zero over its k steps in order (mma_bf16_add), no tie
+// re-sums.  So the backward's rebuilds, which launch this kernel, give the
+// forward's layer inputs bit for bit.  The residual's h is read from
+// global memory (L2), as the operand tile takes the next tile's rows
+// while the out slabs run.  The layer backward's wide recompute form
+// (save_wide_bwd with RC) forms fg again through the same passes.
+// Bound at the flagship's depth at R = S = 128 (B = 2, T = 160000, L =
+// 30, video): 262,144 operations a row and layer on bf16 operands, 2.5
+// TFLOP, 2.5 ms at 989 TF/s, against about 0.3 GB of compulsory traffic
+// (x, ctx, skip, the checkpoints): bound by operations.
+template <int R, int S>
+struct WideTlShape {
+  static constexpr int kThreads = 256, kWarps = kThreads / 32;
+  static constexpr int kRows = 16 * kWarps;
+  static constexpr int kNc = 16, kFp = R / kNc;          // fg passes
+  static constexpr int kSw = 64;                         // out columns a slab
+  static constexpr int kOs = (R + S + kSw - 1) / kSw;    // out slabs
+  static constexpr int kSteps = kFp + kOs;
+  static constexpr int kLdh = 3 * R + 8, kLdw = 3 * R + 8, kLdo = R + 8;
+  static_assert(R % kSw == 0 && S % 8 == 0,
+                "out slabs wholly in the residual or the skip part");
+  static constexpr size_t kSlab =
+      max_size(static_cast<size_t>(2 * kNc) * kLdw,
+               static_cast<size_t>(kSw) * kLdo) * 2;
+  static constexpr size_t kRing = static_cast<size_t>(kRows) * kLdh * 2;
+  static constexpr size_t kEnd = kRing + 2 * kSlab;
+};
+
+// Dynamic shared memory of the recompute form's layer launch at (R, S).
+template <int R, int S>
+size_t tails_smem() {
+  if constexpr (R > kNarrowR)
+    return WideTlShape<R, S>::kEnd;
+  else
+    return TlShape<R, S>::smem();
+}
+
+// One layer of the wide recompute forward (see above).
+template <int R, int S>
+__device__ __forceinline__ void tails_wide_layer(const LayerArgs& a) {
+  using Sh = WideTlShape<R, S>;
+  constexpr int ROWS = Sh::kRows, THREADS = Sh::kThreads, NO = R + S;
+  constexpr int LDH = Sh::kLdh, LDW = Sh::kLdw, LDO = Sh::kLdo;
+  constexpr int NC = Sh::kNc, NP = NC / 8, FP = Sh::kFp, SW = Sh::kSw;
+  constexpr int NTO = SW / 8;                               // out n tiles
+  constexpr int SLAB = static_cast<int>(Sh::kSlab / 2);   // bf16 elements
+  const int win = a.ctx ? 3 * R : 2 * R, per_row = win / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = tid & 3, r0 = 16 * warp;
+  const long m_total = a.m_total;
+  bf16_t* hp = reinterpret_cast<bf16_t*>(smem);
+  bf16_t* ring = reinterpret_cast<bf16_t*>(smem + Sh::kRing);
+  const bf16_t* wft = a.wt;                          // (2R, W_in)
+  const bf16_t* wot = wft + 2L * R * win;            // (R + S, R)
+
+  // slab j of a tile into dst: pass j's W_fg^T rows (its NC filter
+  // columns, then their gate columns), or an out slab's W_out^T rows
+  auto load_slab = [&](int j, bf16_t* dst) {
+    if (j < FP) {
+      for (int i = tid; i < 2 * NC * per_row; i += THREADS) {
+        const int row = i / per_row, c8 = 8 * (i % per_row);
+        const int col = row < NC ? NC * j + row : R + NC * j + row - NC;
+        cp_async16(dst + row * LDW + c8,
+                   wft + static_cast<long>(col) * win + c8, true);
+      }
+    } else {
+      const int c0 = SW * (j - FP), rows = NO - c0 < SW ? NO - c0 : SW;
+      for (int i = tid; i < rows * (R / 8); i += THREADS) {
+        const int row = i / (R / 8), c8 = 8 * (i % (R / 8));
+        cp_async16(dst + row * LDO + c8,
+                   wot + static_cast<long>(c0 + row) * R + c8, true);
+      }
+    }
+  };
+  const long n_tiles = (m_total + ROWS - 1) / ROWS;
+  int ring_i = 0;   // ring slot of the current slab
+  if (blockIdx.x < n_tiles) {
+    stage_operands<R, LDH, ROWS, THREADS>(hp, a.h, a.ctx,
+                                          static_cast<long>(blockIdx.x) * ROWS,
+                                          m_total, a.t_len, a.d, per_row);
+    load_slab(0, ring);
+  }
+  cp_async_commit();
+  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    const long m0 = tile_i * ROWS, next = tile_i + gridDim.x;
+    int j = 0;
+    // step j of the tile: slab j resident for every warp; in flight the
+    // next slab (after the last, the next tile's first) and, once the fg
+    // passes are done with hp, the next tile's operand rows
+    auto step = [&]() -> const bf16_t* {
+      cp_async_wait<0>();
+      __syncthreads();
+      bf16_t* nb = ring + ((ring_i + 1) & 1) * SLAB;
+      if (j + 1 < Sh::kSteps)
+        load_slab(j + 1, nb);
+      else if (next < n_tiles)
+        load_slab(0, nb);
+      if (j == FP && next < n_tiles)
+        stage_operands<R, LDH, ROWS, THREADS>(hp, a.h, a.ctx, next * ROWS,
+                                              m_total, a.t_len, a.d,
+                                              per_row);
+      cp_async_commit();
+      const bf16_t* cur = ring + (ring_i & 1) * SLAB;
+      ++ring_i;
+      ++j;
+      return cur;
+    };
+    // the fg bias rows of the lane's two rows' batch rows
+    const float* bfr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long m = m0 + r0 + g + 8 * h;
+      bfr[h] = a.b_fg + (m < m_total ? m / a.t_len : 0) * 2 * R;
+    }
+    // fg and the gate, pass p over filter n tiles p NP .. + NP and their
+    // gate tiles; gated rounded to bf16 in the A fragment layout of the
+    // out product (its k step kk = filter n tiles 2kk, 2kk + 1)
+    unsigned ga[R / 16][4];
+#pragma unroll
+    for (int p = 0; p < FP; ++p) {
+      const bf16_t* wf = step();
+      float fg[2 * NP][4];
+      fg_mma<2 * NP, LDH>(fg, hp, r0, win, [&](int kk, int jj, unsigned* b) {
+        const bf16_t* bp = wf + (8 * jj + g) * LDW + 16 * kk + 2 * q;
+        b[0] = ld32(bp);
+        b[1] = ld32(bp + 8);
+      });
+#pragma unroll
+      for (int jj = 0; jj < NP; ++jj) {
+        const int jt = p * NP + jj;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* bf = bfr[e >> 1];
+          const int c = 8 * jt + 2 * q + (e & 1);
+          v[e] = tanhf(fg[jj][e] + __ldg(bf + c)) *
+                 sigmoidf(fg[NP + jj][e] + __ldg(bf + R + c));
+        }
+        ga[jt / 2][2 * (jt & 1)] = pack2(v[0], v[1]);
+        ga[jt / 2][2 * (jt & 1) + 1] = pack2(v[2], v[3]);
+      }
+    }
+    // out + b_out, a slab of W_out^T rows at a time: the residual (an
+    // 8-column n tile lies wholly in it or in the skip part), then the skip
+    // sum in layer order
+    for (int os = 0; os < Sh::kOs; ++os) {
+      const bf16_t* wo = step();
+      const int c0 = SW * os;
+      const int nt = (NO - c0 < SW ? NO - c0 : SW) / 8;
+      float oc[NTO][4];
+#pragma unroll
+      for (int jo = 0; jo < NTO; ++jo)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oc[jo][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk)
+#pragma unroll
+        for (int jo = 0; jo < NTO; ++jo) {
+          if (jo < nt) {
+            const bf16_t* p = wo + (8 * jo + g) * LDO + 16 * kk + 2 * q;
+            const unsigned b[2] = {ld32(p), ld32(p + 8)};
+            mma_bf16_add(oc[jo], ga[kk], b);
+          }
+        }
+#pragma unroll
+      for (int jo = 0; jo < NTO; ++jo) {
+        if (jo >= nt) continue;
+        const int c = c0 + 8 * jo + 2 * q;
+        const float b0 = __ldg(a.b_out + c), b1 = __ldg(a.b_out + c + 1);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const long m = m0 + r0 + g + 8 * e;
+          if (m >= m_total) continue;
+          const float v0 = oc[jo][2 * e] + b0, v1 = oc[jo][2 * e + 1] + b1;
+          if (c < R) {
+            if (a.h_next) {
+              const unsigned hw = ld32(a.h + m * R + c);
+              *reinterpret_cast<unsigned*>(a.h_next + m * R + c) =
+                  pack2(v0 + __uint_as_float(hw << 16),
+                        v1 + __uint_as_float(hw & 0xffff0000u));
+            }
+          } else if (a.skacc) {
+            float* sp = a.skacc + m * S + c - R;
+            float2 sv = make_float2(v0, v1);
+            if (!a.first) {
+              const float2 o = *reinterpret_cast<const float2*>(sp);
+              sv = make_float2(o.x + v0, o.y + v1);
+            }
+            if (a.last)
+              *reinterpret_cast<unsigned*>(a.skip + m * S + c - R) =
+                  pack2(sv.x, sv.y);
+            else
+              *reinterpret_cast<float2*>(sp) = sv;
+          }
+        }
+      }
+    }
+  }  // tiles
+  cp_async_wait<0>();
+}
+
 // One layer of the trunk forward, in the form FORM (see above).  Persistent
 // blocks walk tiles of 16 rows a warp, W_fg^T and W_out staged once.  Warp
 // w takes rows 16w .. 16w + 15 of the tile: fg over all 2R columns on the
@@ -3192,16 +3558,19 @@ __device__ __forceinline__ void save_wide_layer(const LayerArgs& a) {
 // operands while it runs out and the stores.
 template <int R, int S, int FORM>
 __global__ void __launch_bounds__(
-    FORM == kRecompute ? kTlThreads : SaveShape<R, S>::kThreads,
+    FORM == kRecompute && R <= kNarrowR ? kTlThreads
+                                        : SaveShape<R, S>::kThreads,
     FORM == kRecompute ? 1 : SaveShape<R, S>::kMinBlocks)
-    stack_layer_kernel(typename FormArgs<FORM>::type a) {
+    stack_layer_kernel(typename FormArgs<R, FORM>::type a) {
   static_assert(R % 16 == 0 && S % 8 == 0, "16-wide k steps, 8-wide tiles");
   const int win = a.ctx ? 3 * R : 2 * R, per_row = win / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = tid & 3, r0 = 16 * warp;
   const long m_total = a.m_total;
-  if constexpr (FORM == kRecompute) {
+  if constexpr (FORM == kRecompute && R > kNarrowR) {
+  tails_wide_layer<R, S>(a);
+  } else if constexpr (FORM == kRecompute) {
   using Sh = TlShape<R, S>;
   constexpr int NO = Sh::kNo, LDH = Sh::kLdh, LDW = Sh::kLdw;
   constexpr int LDO = Sh::kLdo, NF = 2 * R / 8, NOT = NO / 8;
@@ -3845,14 +4214,15 @@ __global__ void __launch_bounds__(256, 1)
 // most max_grid) for every layer.
 template <int R, int S, int FORM>
 struct LayerLaunch {
-  static constexpr int kThreads =
-      FORM == kRecompute ? kTlThreads : SaveShape<R, S>::kThreads;
-  static constexpr int kRows =
-      FORM == kRecompute ? kTlRows : SaveShape<R, S>::kRows;
+  // the narrow recompute form's block; the save forms' and the wide
+  // recompute form's (WideTlShape: the same 8 warps on 128-row tiles)
+  static constexpr bool kTl = FORM == kRecompute && R <= kNarrowR;
+  static constexpr int kThreads = kTl ? kTlThreads : SaveShape<R, S>::kThreads;
+  static constexpr int kRows = kTl ? kTlRows : SaveShape<R, S>::kRows;
   size_t smem = 0;
   int grid = 0;
   int setup(long m_total, long max_grid = 0) {
-    smem = FORM == kRecompute ? TlShape<R, S>::smem() : save_smem<R, S>();
+    smem = FORM == kRecompute ? tails_smem<R, S>() : save_smem<R, S>();
     const void* fn = reinterpret_cast<const void*>(
         stack_layer_kernel<R, S, FORM>);
     int err = set_smem(fn, smem);
@@ -3867,7 +4237,7 @@ struct LayerLaunch {
     grid = static_cast<int>(tiles < fit ? tiles : fit);
     return 0;
   }
-  int launch(const typename FormArgs<FORM>::type& a,
+  int launch(const typename FormArgs<R, FORM>::type& a,
              cudaStream_t st) const {
     stack_layer_kernel<R, S, FORM><<<grid, kThreads, smem, st>>>(a);
     return static_cast<int>(cudaGetLastError());
@@ -3910,6 +4280,17 @@ struct FwdSource {
                          // (movenet_stack_wt_elems), or null
 };
 
+// Every layer's bf16 weights of the wide forms into wt (stack_wt_kernel;
+// res_t as there): the elements of one layer.
+template <int R, int S>
+long wide_weights(const float* w_fg, const float* w_out, int win,
+                  int n_layers, int res_t, bf16_t* wt, cudaStream_t st) {
+  const long per = WideShape<R, S>::wt_elems(win);
+  stack_wt_kernel<<<grid_for(per * n_layers), kThreads, 0, st>>>(
+      w_fg, w_out, n_layers, win, R, S, res_t, wt);
+  return per;
+}
+
 // The save forward: hsave[0] from the embedding or x, then one launch of
 // the layer kernel per layer (kSave; the merged form's last layer
 // kSaveHead, at most one block per SM, and a fixed-order reduction of the
@@ -3941,10 +4322,8 @@ int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
   if constexpr (kWide) {
     // every layer's bf16 weights in the wrapper's scratch
     if (head || !src.wt) return static_cast<int>(cudaErrorInvalidValue);
-    const int win = ctx ? 3 * R : 2 * R;
-    wt_layer = WideShape<R, S>::wt_elems(win);
-    stack_wt_kernel<<<grid_for(wt_layer * n_layers), kThreads, 0, st>>>(
-        w_fg, w_out, n_layers, win, R, S, src.wt);
+    wt_layer = wide_weights<R, S>(w_fg, w_out, ctx ? 3 * R : 2 * R,
+                                  n_layers, 0, src.wt, st);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   } else if (head) {
@@ -4077,18 +4456,28 @@ int fwd_f32_impl(const int* pack, int pack_cols, const float* table2,
 // no taps): one launch of the layer kernel per layer, the input of every
 // every-th layer kept as a checkpoint.  With tfsg (float32 only) the
 // layers store their taps: the float32 replay forward, whose checkpoints
-// are the float32 residual stream.
+// are the float32 residual stream.  The wide form (R > kNarrowR) first
+// writes every layer's bf16 weights into wt (the recompute layout).
 template <int R, int S, bool F32>
 int fwd_tails_impl(const Act<F32>* x, const Act<F32>* ctx, const float* b_fg,
                    const float* w_fg, const float* w_out, const float* b_out,
                    const int* dil, int every, Act<F32>* skip, Act<F32>* ckpt,
-                   Act<F32>* work, float* skacc, float* tfsg, int batch,
-                   int t_len, int n_layers, cudaStream_t st) {
+                   Act<F32>* work, float* skacc, float* tfsg, bf16_t* wt,
+                   int batch, int t_len, int n_layers, cudaStream_t st) {
   const long mr = static_cast<long>(batch) * t_len * R;
+  constexpr bool kWide = R > kNarrowR;
   std::conditional_t<F32, F32LayerLaunch<R, S>,
                      LayerLaunch<R, S, kRecompute>> tl;
   int err = tl.setup(static_cast<long>(batch) * t_len);
   if (err) return err;
+  long wt_layer = 0;
+  if constexpr (kWide) {
+    if (!wt) return static_cast<int>(cudaErrorInvalidValue);
+    wt_layer = wide_weights<R, S>(w_fg, w_out, ctx ? 3 * R : 2 * R, n_layers,
+                                  1, wt, st);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   // the input of layer l: x, a checkpoint (l a multiple of every) or one
   // of the two work buffers
   auto input = [&](int l) -> Act<F32>* {
@@ -4110,8 +4499,11 @@ int fwd_tails_impl(const Act<F32>* x, const Act<F32>* ctx, const float* b_fg,
     a.skip = skip;
     a.first = l == 0;
     a.last = l == n_layers - 1;
-    if constexpr (F32)
+    if constexpr (F32) {
       if (tfsg) a.tfsg = tfsg + static_cast<long>(l) * batch * t_len * 2 * R;
+    } else if constexpr (kWide) {
+      a.wt = wt + l * wt_layer;
+    }
     err = tl.launch(a, st);
     if (err) return err;
   }
@@ -4121,18 +4513,30 @@ int fwd_tails_impl(const Act<F32>* x, const Act<F32>* ctx, const float* b_fg,
 // The bf16 replay forward: the save forward's layer launches (kSave) with
 // each layer's input in the two-slot ring (x for the first layer, then
 // slot l % 2, written by the layer before) in place of hsave, and the
-// float32 h at the input of every every-th layer copied into ckpt.
+// float32 h at the input of every every-th layer copied into ckpt.  The
+// wide form (R > kNarrowR) first writes the wide save forms' bf16 weights
+// into wt, as the save forward does.
 template <int R, int S>
 int fwd_replay_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
                     const float* w_fg, const float* w_out, const float* b_out,
                     const int* dil, int every, float* h, float* skacc,
                     bf16_t* ring, bf16_t* tfsg, bf16_t* skip, float* ckpt,
-                    int batch, int t_len, int n_layers, cudaStream_t st) {
+                    bf16_t* wt, int batch, int t_len, int n_layers,
+                    cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const long mr = m_total * R;
+  constexpr bool kWide = R > kNarrowR;
   LayerLaunch<R, S, kSave> body;
   int err = body.setup(m_total);
   if (err) return err;
+  long wt_layer = 0;
+  if constexpr (kWide) {
+    if (!wt) return static_cast<int>(cudaErrorInvalidValue);
+    wt_layer = wide_weights<R, S>(w_fg, w_out, ctx ? 3 * R : 2 * R, n_layers,
+                                  0, wt, st);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   for (int l = 0; l < n_layers; ++l) {
     const bool keep = l + 1 < n_layers && (l + 1) % every == 0;
     LayerArgs a = layer_args<R, S>(
@@ -4147,6 +4551,7 @@ int fwd_replay_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
     a.tfsg = tfsg + l * m_total * 2 * R;
     // the float32 h: read by the layer after next, or kept
     a.keep_h = l + 2 < n_layers || keep;
+    a.wt = kWide ? wt + l * wt_layer : nullptr;
     err = body.launch(a, st);
     if (err) return err;
     if (keep) {
@@ -4170,11 +4575,12 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
                    const Act<F32>* dskip, const int* dil, int every,
                    Act<F32>* group, float* scratch, int chunks, Act<F32>* dx,
                    Act<F32>* dctx_out, float* db_fg, float* dw_fg,
-                   float* dw_out, float* db_out, int batch, int t_len,
-                   int n_layers, cudaStream_t st) {
+                   float* dw_out, float* db_out, bf16_t* wt, int batch,
+                   int t_len, int n_layers, cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const long mr = m_total * R;
   const int win = ctx ? 3 * R : 2 * R;
+  constexpr bool kWide = R > kNarrowR;
   // float32 scratch: the save backward's dhp, p[2], dh, dfg, dctx, then
   // gated, then the partials (the float32 form sums dctx in its output)
   float* dhp = scratch;
@@ -4188,6 +4594,15 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
                      LayerLaunch<R, S, kRecompute>> tl;
   int err = tl.setup(m_total);
   if (err) return err;
+  // the wide form: every layer's bf16 weights for the rebuilds and for fg
+  // formed again (W_fg^T leads each layer's)
+  long wt_layer = 0;
+  if constexpr (kWide) {
+    if (!wt) return static_cast<int>(cudaErrorInvalidValue);
+    wt_layer = wide_weights<R, S>(w_fg, w_out, win, n_layers, 1, wt, st);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   using Sh = BwdShape<R, S>;
   constexpr int FORM = F32 ? kBwdRcF32 : kBwdRc;
   // the weight gradients' modes: W_fg, W_out
@@ -4215,14 +4630,17 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
       return l == lo ? h_lo : group + (l - lo - 1) * mr;
     };
     for (int l = lo; l + 1 < hi; ++l) {
-      if constexpr (F32)
+      if constexpr (F32) {
         err = tl.launch(f32_layer_args<R, S>(
             input(l), group + (l - lo) * mr, ctx, b_fg, w_fg, w_out, b_out,
             dil, l, batch, t_len), st);
-      else
-        err = tl.launch(layer_args<R, S>(
-            input(l), group + (l - lo) * mr, ctx, b_fg, w_fg, w_out, b_out,
-            dil, l, batch, t_len), st);
+      } else {
+        LayerArgs la = layer_args<R, S>(input(l), group + (l - lo) * mr, ctx,
+                                        b_fg, w_fg, w_out, b_out, dil, l,
+                                        batch, t_len);
+        la.wt = kWide ? wt + l * wt_layer : nullptr;
+        err = tl.launch(la, st);
+      }
       if (err) return err;
     }
     for (int l = hi - 1; l >= lo; --l) {
@@ -4255,6 +4673,7 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
       a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
       a.gated = gated;
       a.d = dil[l];
+      a.wt = kWide ? wt + l * wt_layer : nullptr;
       stack_bwd_layer_kernel<R, S, FORM><<<grid, Sh::kThreads, smem, st>>>(a);
       e = cudaGetLastError();
       if (e != cudaSuccess) return static_cast<int>(e);
@@ -4310,9 +4729,6 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
 
 namespace {
 
-// shared memory one block may use on sm_90
-constexpr size_t kSmemLimit = 232448;
-
 int fwd_dispatch(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
                  const float* w_fg, const float* w_out, const float* b_out,
                  const int* dil, float* h, float* skacc, bf16_t* hsave,
@@ -4334,16 +4750,16 @@ int replay_fwd_dispatch(const bf16_t* x, const bf16_t* ctx,
                         const float* w_out, const float* b_out,
                         const int* dil, int every, float* h, float* skacc,
                         bf16_t* ring, bf16_t* tfsg, bf16_t* skip, float* ckpt,
-                        int batch, int t_len, int n_layers, int r, int s,
-                        void* stream) {
+                        bf16_t* wt, int batch, int t_len, int n_layers, int r,
+                        int s, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define X(R_, S_)                                                           \
   if (r == R_ && s == S_)                                                   \
     return fwd_replay_impl<R_, S_>(x, ctx, b_fg, w_fg, w_out, b_out, dil,   \
                                    every, h, skacc, ring, tfsg, skip, ckpt, \
-                                   batch, t_len, n_layers, st);
-  MOVENET_STACK_WIDTHS(X)
+                                   wt, batch, t_len, n_layers, st);
+  MOVENET_SAVE_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -4361,7 +4777,11 @@ int replay_inputs_dispatch(const ReplaySrc<F32>& rp, const Act<F32>* tfsg,
   if (r == R_ && s == S_)                                                   \
     return replay_inputs_impl<R_, S_, F32>(rp, tfsg, w_out, hsave,          \
                                            n_layers, m_total, st);
-  MOVENET_STACK_WIDTHS(X)
+  if constexpr (F32) {
+    MOVENET_STACK_WIDTHS(X)
+  } else {
+    MOVENET_SAVE_WIDTHS(X)
+  }
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -4398,8 +4818,8 @@ int tails_fwd_dispatch(const Act<F32>* x, const Act<F32>* ctx,
                        const float* b_fg, const float* w_fg,
                        const float* w_out, const float* b_out, const int* dil,
                        int every, Act<F32>* skip, Act<F32>* ckpt,
-                       Act<F32>* work, float* skacc, int batch, int t_len,
-                       int n_layers, int r, int s, void* stream,
+                       Act<F32>* work, float* skacc, bf16_t* wt, int batch,
+                       int t_len, int n_layers, int r, int s, void* stream,
                        float* tfsg = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -4407,8 +4827,13 @@ int tails_fwd_dispatch(const Act<F32>* x, const Act<F32>* ctx,
   if (r == R_ && s == S_)                                                  \
     return fwd_tails_impl<R_, S_, F32>(x, ctx, b_fg, w_fg, w_out, b_out,   \
                                        dil, every, skip, ckpt, work, skacc,\
-                                       tfsg, batch, t_len, n_layers, st);
-  MOVENET_STACK_WIDTHS(X)
+                                       tfsg, wt, batch, t_len, n_layers,   \
+                                       st);
+  if constexpr (F32) {
+    MOVENET_STACK_WIDTHS(X)
+  } else {
+    MOVENET_SAVE_WIDTHS(X)
+  }
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -4421,8 +4846,8 @@ int tails_bwd_dispatch(const Act<F32>* x, const Act<F32>* ckpt,
                        const int* dil, int every, Act<F32>* group,
                        float* scratch, int chunks, Act<F32>* dx,
                        Act<F32>* dctx, float* db_fg, float* dw_fg,
-                       float* dw_out, float* db_out, int batch, int t_len,
-                       int n_layers, int r, int s, void* stream) {
+                       float* dw_out, float* db_out, bf16_t* wt, int batch,
+                       int t_len, int n_layers, int r, int s, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define X(R_, S_)                                                           \
@@ -4430,9 +4855,13 @@ int tails_bwd_dispatch(const Act<F32>* x, const Act<F32>* ckpt,
     return bwd_tails_impl<R_, S_, F32>(x, ckpt, ctx, b_fg, w_fg, w_out,     \
                                        b_out, dskip, dil, every, group,     \
                                        scratch, chunks, dx, dctx, db_fg,    \
-                                       dw_fg, dw_out, db_out, batch, t_len, \
-                                       n_layers, st);
-  MOVENET_STACK_WIDTHS(X)
+                                       dw_fg, dw_out, db_out, wt, batch,    \
+                                       t_len, n_layers, st);
+  if constexpr (F32) {
+    MOVENET_STACK_WIDTHS(X)
+  } else {
+    MOVENET_SAVE_WIDTHS(X)
+  }
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -4444,12 +4873,14 @@ extern "C" {
 // 1 if the kernels of `family` are built for residual width r and skip
 // width s.  Families, as ops/cuda/stack_kernel.FAMILY_WIDTHS numbers them:
 // 0 the bf16 save forms (embed and non-embed), 1 the float32 save forms, 2
-// the recompute forms, 3 the replay forms, 4 the merged forms.
+// the bf16 recompute forms, 3 the bf16 replay forms, 4 the merged forms, 5
+// the float32 recompute forms, 6 the float32 replay forms.  The bf16 save,
+// recompute and replay forms take the wide widths too.
 int movenet_stack_supports(int family, int r, int s) {
-  if (family < 0 || family > 4) return 0;
+  if (family < 0 || family > 6) return 0;
 #define X(R_, S_) \
   if (r == R_ && s == S_) return 1;
-  if (family == 0) {
+  if (family == 0 || family == 2 || family == 3) {
     MOVENET_SAVE_WIDTHS(X)
   } else {
     MOVENET_STACK_WIDTHS(X)
@@ -4458,8 +4889,9 @@ int movenet_stack_supports(int family, int r, int s) {
   return 0;
 }
 
-// bf16 elements of the wide save forward's weight scratch (every layer's
-// W_fg^T, W_out residual columns and W_out^T skip rows); 0 at the narrow
+// bf16 elements of the wide forms' weight scratch (every layer's W_fg^T,
+// W_out's residual columns and W_out^T's skip rows: the save and replay
+// forwards' and the recompute forward's and backward's); 0 at the narrow
 // widths, which take none.
 long movenet_stack_wt_elems(int r, int s, int win, int n_layers) {
 #define X(R_, S_) \
@@ -4487,7 +4919,8 @@ long movenet_stack_bwd_scratch(int batch, int t_len, int r, int s, int win,
 
 // Dynamic shared memory of the backward's launches, in bytes: the layer
 // launch (kind -1; -2 its recompute form, -3 its float32 form, -4 the
-// recompute form in float32) or the
+// recompute form in float32), the replay backward's bf16 rebuild (kind -5)
+// or the
 // weight-gradient launch of mode kind (0: W_fg with W_in = win, 1: W_out,
 // 2: the projection's W_up, 3: W_out from the float32 gated, 4: W_fg, 5:
 // W_up and 6: W_out in the float32 form); -1 where (r, s) is not built.
@@ -4501,6 +4934,7 @@ long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
       return static_cast<long>(BwdShape<R_, S_>::smem_f32(win));       \
     if (kind == -4)                                                    \
       return static_cast<long>(BwdShape<R_, S_>::smem_rcf32(win));     \
+    if (kind == -5) return static_cast<long>(RebuildShape<R_>::kEnd);  \
     if (kind == 3) return static_cast<long>(WgShape<3, R_, S_, R_>::smem()); \
     if (kind == 0)                                                     \
       return static_cast<long>(win == 3 * R_                           \
@@ -4517,10 +4951,15 @@ long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
   }
   MOVENET_STACK_WIDTHS(X)
 #undef X
-  // the wide widths: the bf16 save backward's launches only
+  // the wide widths: the bf16 save, recompute and replay backwards'
+  // launches only
 #define X(R_, S_)                                                      \
   if (r == R_ && s == S_) {                                            \
     if (kind == -1) return static_cast<long>(BwdShape<R_, S_>::smem(win)); \
+    if (kind == -2)                                                    \
+      return static_cast<long>(BwdShape<R_, S_>::smem_rc(win));        \
+    if (kind == -5) return static_cast<long>(RebuildShape<R_>::kEnd);  \
+    if (kind == 3) return static_cast<long>(WgShape<3, R_, S_, R_>::smem()); \
     if (kind == 0)                                                     \
       return static_cast<long>(win == 3 * R_                           \
                                    ? WgShape<0, R_, S_, 3 * R_>::smem() \
@@ -4716,10 +5155,12 @@ long movenet_stack_layer_smem(int r, int s, int form) {
                                          : SaveShape<R_, S_>::smem());
   MOVENET_STACK_WIDTHS(X)
 #undef X
-  // the wide widths: the save form (1) only
+  // the wide widths: the recompute (0) and save (1) forms only
 #define X(R_, S_)                                                        \
   if (r == R_ && s == S_)                                                \
-    return form == kSave ? static_cast<long>(save_smem<R_, S_>()) : -1;
+    return form == kSave        ? static_cast<long>(save_smem<R_, S_>())  \
+           : form == kRecompute ? static_cast<long>(tails_smem<R_, S_>()) \
+                                : -1;
   MOVENET_WIDE_WIDTHS(X)
 #undef X
   return -1;
@@ -4796,17 +5237,18 @@ long movenet_tails_bwd_scratch(int batch, int t_len, int r, int s, int win,
 
 // Recompute forward: skip_sum (B,T,S) and the checkpoints ckpt (ceil(L /
 // every) - 1, B, T, R), ckpt[i] the input of layer (i + 1) * every; work
-// holds two (B, T, R) bf16 buffers and skacc (B*T, S) floats.  Returns the
-// first cudaError_t.  dil is a host array.
+// holds two (B, T, R) bf16 buffers and skacc (B*T, S) floats, wt
+// movenet_stack_wt_elems bf16 elements (null at the narrow widths).
+// Returns the first cudaError_t.  dil is a host array.
 int movenet_stack_fwd_tails(const bf16_t* x, const bf16_t* ctx,
                             const float* b_fg, const float* w_fg,
                             const float* w_out, const float* b_out,
                             const int* dil, int every, bf16_t* skip,
                             bf16_t* ckpt, bf16_t* work, float* skacc,
-                            int batch, int t_len, int n_layers, int r, int s,
-                            void* stream) {
+                            bf16_t* wt, int batch, int t_len, int n_layers,
+                            int r, int s, void* stream) {
   return tails_fwd_dispatch<false>(x, ctx, b_fg, w_fg, w_out, b_out, dil,
-                                   every, skip, ckpt, work, skacc, batch,
+                                   every, skip, ckpt, work, skacc, wt, batch,
                                    t_len, n_layers, r, s, stream);
 }
 
@@ -4820,15 +5262,16 @@ int movenet_stack_fwd_tails_f32(const float* x, const float* ctx,
                                 int batch, int t_len, int n_layers, int r,
                                 int s, void* stream) {
   return tails_fwd_dispatch<true>(x, ctx, b_fg, w_fg, w_out, b_out, dil,
-                                  every, skip, ckpt, work, skacc, batch,
-                                  t_len, n_layers, r, s, stream);
+                                  every, skip, ckpt, work, skacc, nullptr,
+                                  batch, t_len, n_layers, r, s, stream);
 }
 
 // Recompute backward: dx, dctx (bf16, null without ctx), db_fg (L*B, 2R),
 // dw_fg (L, W_in, 2R), dw_out (L, R, R+S), db_out (L, R+S) in float32,
 // from x and the forward's checkpoints; group holds every - 1 (B, T, R)
-// bf16 buffers, scratch movenet_tails_bwd_scratch floats.  Returns the
-// first cudaError_t.  dil is a host array.
+// bf16 buffers, scratch movenet_tails_bwd_scratch floats, wt
+// movenet_stack_wt_elems bf16 elements (null at the narrow widths).
+// Returns the first cudaError_t.  dil is a host array.
 int movenet_stack_bwd_tails(const bf16_t* x, const bf16_t* ckpt,
                             const bf16_t* ctx, const float* b_fg,
                             const float* w_fg, const float* w_out,
@@ -4836,12 +5279,12 @@ int movenet_stack_bwd_tails(const bf16_t* x, const bf16_t* ckpt,
                             const int* dil, int every, bf16_t* group,
                             float* scratch, int chunks, bf16_t* dx,
                             bf16_t* dctx, float* db_fg, float* dw_fg,
-                            float* dw_out, float* db_out, int batch,
-                            int t_len, int n_layers, int r, int s,
+                            float* dw_out, float* db_out, bf16_t* wt,
+                            int batch, int t_len, int n_layers, int r, int s,
                             void* stream) {
   return tails_bwd_dispatch<false>(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
                                    dskip, dil, every, group, scratch, chunks,
-                                   dx, dctx, db_fg, dw_fg, dw_out, db_out,
+                                   dx, dctx, db_fg, dw_fg, dw_out, db_out, wt,
                                    batch, t_len, n_layers, r, s, stream);
 }
 
@@ -4860,23 +5303,26 @@ int movenet_stack_bwd_tails_f32(const float* x, const float* ckpt,
   return tails_bwd_dispatch<true>(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
                                   dskip, dil, every, group, scratch, chunks,
                                   dx, dctx, db_fg, dw_fg, dw_out, db_out,
-                                  batch, t_len, n_layers, r, s, stream);
+                                  nullptr, batch, t_len, n_layers, r, s,
+                                  stream);
 }
 
 // The replay forward (bf16): skip_sum (B, T, S), the taps tfsg (L, B, T,
 // 2R) and the checkpoints ckpt (ceil(L / every) - 1, B, T, R) float32,
 // ckpt[i] the float32 h at the input of layer (i + 1) * every; ring holds
-// two (B, T, R) bf16 layer inputs, h (B*T, R) and skacc (B*T, S) floats.
+// two (B, T, R) bf16 layer inputs, h (B*T, R) and skacc (B*T, S) floats, wt
+// movenet_stack_wt_elems bf16 elements (null at the narrow widths).
 // Returns the first cudaError_t.  dil is a host array.
 int movenet_stack_fwd_replay(const bf16_t* x, const bf16_t* ctx,
                              const float* b_fg, const float* w_fg,
                              const float* w_out, const float* b_out,
                              const int* dil, int every, float* h,
                              float* skacc, bf16_t* ring, bf16_t* tfsg,
-                             bf16_t* skip, float* ckpt, int batch, int t_len,
-                             int n_layers, int r, int s, void* stream) {
+                             bf16_t* skip, float* ckpt, bf16_t* wt, int batch,
+                             int t_len, int n_layers, int r, int s,
+                             void* stream) {
   return replay_fwd_dispatch(x, ctx, b_fg, w_fg, w_out, b_out, dil, every, h,
-                             skacc, ring, tfsg, skip, ckpt, batch, t_len,
+                             skacc, ring, tfsg, skip, ckpt, wt, batch, t_len,
                              n_layers, r, s, stream);
 }
 
@@ -4890,8 +5336,8 @@ int movenet_stack_fwd_replay_f32(const float* x, const float* ctx,
                                  float* ckpt, int batch, int t_len,
                                  int n_layers, int r, int s, void* stream) {
   return tails_fwd_dispatch<true>(x, ctx, b_fg, w_fg, w_out, b_out, dil,
-                                  every, skip, ckpt, ring, skacc, batch,
-                                  t_len, n_layers, r, s, stream, tfsg);
+                                  every, skip, ckpt, ring, skacc, nullptr,
+                                  batch, t_len, n_layers, r, s, stream, tfsg);
 }
 
 // The replay backward: as movenet_stack_bwd's non-embed form (dx out,

@@ -412,6 +412,11 @@ MAX_STAGES = 32
 # (in 2, 3 or 5 stages alike) and 67.7 with 64 KB in two stages (H100
 # 80GB HBM3 at 700 W, utils/time_spec --probe and --variants)
 SLAB_BYTES = 65536
+# the slab sizes a ring takes by default, widest first: 64 KB where two
+# such stages fit beside the chain buffers, else 32 or 16 KB (at the
+# flagship's depth at R = S = 128 with video the two 64 KB stages need
+# 234,200 bytes in all)
+SLAB_CHOICES = (SLAB_BYTES, 32768, 16384)
 # the kernel's PhaseKind order (csrc/ar_layout.cuh)
 KINDS = ("A", "C", "H1", "H2", "F0", "M", "ML", "M2", "P")
 _FORM_KINDS = {False: ("A", "C", "H1", "H2"),
@@ -530,6 +535,32 @@ def smem_layout(fast: bool, nch: int, c: int, r: int, s: int,
                 total=fixed + n_stages * per_stage)
 
 
+@functools.lru_cache(maxsize=None)
+def ring_slab_bytes(fast: bool, nch: int, c: int, r: int, s: int,
+                    n_layers: int, video: bool = False) -> int:
+    """The slab size of a form's ring by default: the widest of
+    ``SLAB_CHOICES`` whose two stages fit a block beside the rest
+    (``smem_layout``, which raises where not even the narrowest does).  A
+    slab cuts each thread's rows of a dot, summed in the same order
+    whatever the cut."""
+    for slab in SLAB_CHOICES[:-1]:
+        try:
+            smem_layout(fast, nch, c, r, s, n_layers, video, slab)
+        except ValueError:
+            continue
+        return slab
+    smem_layout(fast, nch, c, r, s, n_layers, video, SLAB_CHOICES[-1])
+    return SLAB_CHOICES[-1]
+
+
+def _default_slab(inp: "SamplerInputs", nch: int) -> int:
+    """``ring_slab_bytes`` of the request's form with ``nch`` chains."""
+    w = inp.weights
+    c_in, r = w["front_cur"].shape
+    return ring_slab_bytes(inp.fast, nch, c_in, r, w["w_out"].shape[2] - r,
+                           len(inp.dilations), inp.ctx is not None)
+
+
 @functools.lru_cache(maxsize=16)
 def _stream_index(fast: bool, nch: int, dilations: Tuple[int, ...], r: int,
                   s: int, c: int, slab_bytes: int = SLAB_BYTES,
@@ -599,11 +630,14 @@ def _stream_index(fast: bool, nch: int, dilations: Tuple[int, ...], r: int,
 
 
 def pack_stream(inp: "SamplerInputs", nch: int,
-                slab_bytes: int = SLAB_BYTES) -> torch.Tensor:
+                slab_bytes: Optional[int] = None) -> torch.Tensor:
     """The kernel's weight stream for ``nch`` chains (1: the standard
     form; speculative depth + 1): one float32 tensor on the weights'
     device, every weight bit for bit, in the order and layout the kernel
-    consumes it; cached on ``inp``."""
+    consumes it, in slabs of ``slab_bytes`` (default ``ring_slab_bytes``);
+    cached on ``inp``."""
+    if slab_bytes is None:
+        slab_bytes = _default_slab(inp, nch)
     got = inp.streams.get((nch, slab_bytes))
     if got is not None:
         return got
@@ -994,7 +1028,8 @@ def _device_of(inp: SamplerInputs, what: str):
 
 def run_ring(lib, inp: SamplerInputs, depth: int = 0, order: int = 3,
              adaptive: bool = False, stream=None,
-             slab_bytes: int = SLAB_BYTES, max_stages: int = MAX_STAGES):
+             slab_bytes: Optional[int] = None,
+             max_stages: int = MAX_STAGES):
     """One launch of ``ar_sampler_kernel`` through ``lib`` (a library with
     the C interface of ``csrc/ar_sampler.cu``) on ``stream``, on the
     inputs' device: ((B, n - RF) int32 codes, 0-d int32 hits).  Depth 0
@@ -1003,12 +1038,14 @@ def run_ring(lib, inp: SamplerInputs, depth: int = 0, order: int = 3,
     the speculative form, the guess tables (the kernel updates both in
     place).  It takes CPU tensors with ``stream=None`` for a library built
     for the CPU (an emulation of the kernel).  Raises where the ring and
-    the chain buffers do not fit the shared memory of a block;
-    ``slab_bytes`` and ``max_stages`` reshape the ring (for
-    measurements)."""
+    the chain buffers do not fit the shared memory of a block.  The ring's
+    slabs are ``ring_slab_bytes`` of the form by default; ``slab_bytes``
+    and ``max_stages`` reshape the ring (for measurements)."""
     dev = inp.ring.device
     c_in, r, s, n_layers, sum_d = _check_inputs(inp, dev)
     nch = depth + 1
+    if slab_bytes is None:
+        slab_bytes = _default_slab(inp, nch)
     lay = smem_layout(inp.fast, nch, c_in, r, s, n_layers,
                       inp.ctx is not None, slab_bytes, max_stages)
     wstream = pack_stream(inp, nch, slab_bytes)
@@ -1085,7 +1122,7 @@ def ar_sampler_spec(inp: SamplerInputs, order: Optional[int] = None,
 
 def run_spec(lib, inp: SamplerInputs, order: Optional[int] = None,
              depth: Optional[int] = None, adaptive: Optional[bool] = None,
-             stream=None, slab_bytes: int = SLAB_BYTES,
+             stream=None, slab_bytes: Optional[int] = None,
              max_stages: int = MAX_STAGES):
     """``run_ring`` in the speculative form, with order, depth and
     adaptivity defaulting to the ones ``prepare`` was given: ((1, n - RF)

@@ -20,7 +20,9 @@ For tensors on the CPU they return the plain versions
 the kernels or raise.  One call of ``stack_fwd`` is L+1 grid launches (the
 embedding, then one per layer); one call of ``stack_bwd`` is 5L+2 (plus 3
 with the video projection): per layer the layer launch and two
-weight-gradient launches with their reductions.  ``stack_fwd_tails`` is
+weight-gradient launches with their reductions (the wide forms, R = 128,
+first write every layer's bf16 weights: one more launch in each forward and
+in the recompute backward).  ``stack_fwd_tails`` is
 L grid launches (one per layer); ``stack_bwd_tails`` is per group of k
 layers k - 1 rebuild launches of the same layer kernel, then per layer the
 save backward's grids in their recompute form (the layer launch, two
@@ -58,11 +60,14 @@ kernels take bf16 only, and raise for float32 with their ROADMAP.md
 B.2/B.4 item.
 
 Every family is built for the (R, S) pairs ``WIDTHS``; the bf16 save forms
-(embed and non-embed) also for ``WIDE_WIDTHS`` (R = 128), whose kernels
-stream their weights through shared memory (csrc/stack_kernel.cu, "the
-wide save forms"; the forward's wrapper allocates their bf16 weight
-scratch, ``movenet_stack_wt_elems``).  A family raises at a pair it is not
-built for with its ROADMAP.md item (``FAMILY_WIDTHS``, ``WIDTH_ITEMS``).
+(embed and non-embed), the bf16 recompute and the bf16 replay forms also
+for ``WIDE_WIDTHS`` (R = 128), whose kernels stream their weights through
+shared memory (csrc/stack_kernel.cu, "the wide save forms" and "the wide
+recompute forms"; the save, replay and recompute forwards' wrappers and the
+recompute backward's allocate their bf16 weight scratch,
+``movenet_stack_wt_elems``).  A family raises at a pair it is not built for
+with its ROADMAP.md item (``FAMILY_WIDTHS``, ``WIDTH_ITEMS``); the float32
+recompute and replay forms are families of their own there.
 """
 
 from __future__ import annotations
@@ -90,8 +95,9 @@ REDUCE_BLOCKS = 264
 # shared memory one block may use on sm_90
 SMEM_LIMIT = 232448
 # the (R, S) pairs every kernel family is built for (MOVENET_STACK_WIDTHS in
-# csrc/stack_kernel.cu), and the wide ones the bf16 save forms also take
-# (MOVENET_WIDE_WIDTHS: the R = 128 model of scripts/probe_r128_mfu.py and
+# csrc/stack_kernel.cu), and the wide ones the bf16 save, recompute and
+# replay forms also take (MOVENET_WIDE_WIDTHS: the R = 128 model of
+# scripts/probe_r128_mfu.py, the flagship's depth at R = S = 128, and
 # experiment 02 at --residual_channels 128)
 WIDTHS = ((16, 16), (32, 32), (64, 64), (64, 8), (32, 8), (16, 8))
 WIDE_WIDTHS = ((128, 128), (128, 8))
@@ -99,10 +105,13 @@ WIDE_WIDTHS = ((128, 128), (128, 8))
 # numbers (movenet_stack_supports), and the ROADMAP.md item of what each
 # family does not take yet
 FAMILY_WIDTHS = {"save": WIDTHS + WIDE_WIDTHS, "save_f32": WIDTHS,
-                 "recompute": WIDTHS, "replay": WIDTHS, "merged": WIDTHS}
+                 "recompute": WIDTHS + WIDE_WIDTHS,
+                 "replay": WIDTHS + WIDE_WIDTHS, "merged": WIDTHS,
+                 "recompute_f32": WIDTHS, "replay_f32": WIDTHS}
 WIDTH_ITEMS = {"save": "B.2 widths (5)", "save_f32": "B.2 widths (2)",
-               "recompute": "B.2 widths (1)", "replay": "B.2 widths (1)",
-               "merged": "B.2 widths (3)"}
+               "recompute": "B.2 widths (5)", "replay": "B.2 widths (5)",
+               "merged": "B.2 widths (3)", "recompute_f32": "B.2 widths (2)",
+               "replay_f32": "B.2 widths (2)"}
 # what float32 on the card does not run yet, by kernel family (the forms
 # still to build under ROADMAP.md B.2/B.4, in its order)
 F32_UNBUILT = {
@@ -180,18 +189,20 @@ def bind(lib):
     lib.movenet_stack_bwd_f32.restype = _I
     lib.movenet_tails_bwd_scratch.argtypes = [_I] * 6
     lib.movenet_tails_bwd_scratch.restype = _L
-    lib.movenet_stack_fwd_tails.argtypes = [_P] * 7 + [_I] + [_P] * 4 \
+    # the bf16 recompute forms take the wide forms' weight scratch after
+    # their other pointers; the float32 forms have none
+    lib.movenet_stack_fwd_tails_f32.argtypes = [_P] * 7 + [_I] + [_P] * 4 \
+        + [_I] * 5 + [_P]
+    lib.movenet_stack_fwd_tails_f32.restype = _I
+    lib.movenet_stack_fwd_tails.argtypes = [_P] * 7 + [_I] + [_P] * 5 \
         + [_I] * 5 + [_P]
     lib.movenet_stack_fwd_tails.restype = _I
-    lib.movenet_stack_bwd_tails.argtypes = [_P] * 9 + [_I, _P, _P, _I] \
+    lib.movenet_stack_bwd_tails_f32.argtypes = [_P] * 9 + [_I, _P, _P, _I] \
         + [_P] * 6 + [_I] * 5 + [_P]
-    lib.movenet_stack_bwd_tails.restype = _I
-    lib.movenet_stack_fwd_tails_f32.argtypes = \
-        lib.movenet_stack_fwd_tails.argtypes
-    lib.movenet_stack_fwd_tails_f32.restype = _I
-    lib.movenet_stack_bwd_tails_f32.argtypes = \
-        lib.movenet_stack_bwd_tails.argtypes
     lib.movenet_stack_bwd_tails_f32.restype = _I
+    lib.movenet_stack_bwd_tails.argtypes = [_P] * 9 + [_I, _P, _P, _I] \
+        + [_P] * 7 + [_I] * 5 + [_P]
+    lib.movenet_stack_bwd_tails.restype = _I
     lib.movenet_stack_blocks.argtypes = []
     lib.movenet_stack_blocks.restype = _I
     lib.movenet_stack_head_supports.argtypes = [_I, _I, _I]
@@ -200,7 +211,7 @@ def bind(lib):
     lib.movenet_stack_fwd_x.restype = _I
     lib.movenet_stack_fwd_x_f32.argtypes = [_P] * 11 + [_I] * 5 + [_P]
     lib.movenet_stack_fwd_x_f32.restype = _I
-    lib.movenet_stack_fwd_replay.argtypes = [_P] * 7 + [_I] + [_P] * 6 \
+    lib.movenet_stack_fwd_replay.argtypes = [_P] * 7 + [_I] + [_P] * 7 \
         + [_I] * 5 + [_P]
     lib.movenet_stack_fwd_replay.restype = _I
     lib.movenet_stack_fwd_replay_f32.argtypes = [_P] * 7 + [_I] + [_P] * 5 \
@@ -436,7 +447,9 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
     if pack is not None:
         _check("codes_pack", pack, torch.int32, device=dev)
     if replay is not None:
-        _widths(lib, "replay", r, s, "the replay kernels")
+        _widths(lib, "replay_f32" if f32_form else "replay", r, s,
+                "the float32 replay kernels" if f32_form
+                else "the replay kernels")
     elif f32_form:
         _widths(lib, "save_f32", r, s, "the float32 save kernels")
     else:
@@ -557,13 +570,17 @@ def run_fwd_tails(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
                        dtype=act, device=dev)
     work = torch.empty(2, batch, t, r, dtype=act, device=dev)
     skacc = torch.empty(batch * t, s, dtype=torch.float32, device=dev)
-    f32 = act == torch.float32
-    fn = lib.movenet_stack_fwd_tails_f32 if f32 else \
-        lib.movenet_stack_fwd_tails
-    err = fn(_ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out),
-             _ptr(b_out), _dils(dilations), every, _ptr(skip), _ptr(ckpt),
-             _ptr(work), _ptr(skacc), batch, t, n_layers, r, s, stream)
-    _raise(err, "stack_fwd_tails_f32" if f32 else "stack_fwd_tails")
+    head = (_ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out),
+            _ptr(b_out), _dils(dilations), every, _ptr(skip), _ptr(ckpt),
+            _ptr(work), _ptr(skacc))
+    tail = (batch, t, n_layers, r, s, stream)
+    if act == torch.float32:
+        _raise(lib.movenet_stack_fwd_tails_f32(*head, *tail),
+               "stack_fwd_tails_f32")
+    else:
+        wt = _weight_scratch(lib, dev, r, s, ctx is not None, n_layers)
+        _raise(lib.movenet_stack_fwd_tails(*head, _ptr(wt), *tail),
+               "stack_fwd_tails")
     return skip, ckpt
 
 
@@ -591,15 +608,18 @@ def run_bwd_tails(lib, x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
     dw_fg = torch.empty(n_layers, win, 2 * r, dtype=f32, device=dev)
     dw_out = torch.empty(n_layers, r, r + s, dtype=f32, device=dev)
     db_out = torch.empty(n_layers, r + s, dtype=f32, device=dev)
-    f32_form = act == f32
-    fn = lib.movenet_stack_bwd_tails_f32 if f32_form else \
-        lib.movenet_stack_bwd_tails
-    err = fn(_ptr(x), _ptr(ckpt), _ptr(ctx), _ptr(b_fg), _ptr(w_fg),
-             _ptr(w_out), _ptr(b_out), _ptr(dskip), _dils(dilations), every,
-             _ptr(group), _ptr(scratch), chunks, _ptr(dx), _ptr(dctx),
-             _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), batch, t,
-             n_layers, r, s, stream)
-    _raise(err, "stack_bwd_tails_f32" if f32_form else "stack_bwd_tails")
+    head = (_ptr(x), _ptr(ckpt), _ptr(ctx), _ptr(b_fg), _ptr(w_fg),
+            _ptr(w_out), _ptr(b_out), _ptr(dskip), _dils(dilations), every,
+            _ptr(group), _ptr(scratch), chunks, _ptr(dx), _ptr(dctx),
+            _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out))
+    tail = (batch, t, n_layers, r, s, stream)
+    if act == f32:
+        _raise(lib.movenet_stack_bwd_tails_f32(*head, *tail),
+               "stack_bwd_tails_f32")
+    else:
+        wt = _weight_scratch(lib, dev, r, s, ctx is not None, n_layers)
+        _raise(lib.movenet_stack_bwd_tails(*head, _ptr(wt), *tail),
+               "stack_bwd_tails")
     return dx, dctx, db_fg, dw_fg, dw_out, db_out
 
 
@@ -630,6 +650,9 @@ def _x_check(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations, what,
     _check("b_out", b_out, torch.float32, (n_layers, r + s), dev)
     if family == "non-embed":
         family = "save_f32" if act == torch.float32 else "save"
+    elif act == torch.float32 and family in ("recompute", "replay"):
+        family += "_f32"
+        what = what.replace("the ", "the float32 ", 1)
     _widths(lib, family, r, s, what)
     if act == torch.float32:
         _f32_fits(r, s, win)
@@ -667,17 +690,24 @@ def run_fwd_x(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
     return skip, hsave, tfsg
 
 
+def _weight_scratch(lib, dev, r, s, ctx: bool, n_layers):
+    """The wide forms' bf16 weight scratch (``movenet_stack_wt_elems``), or
+    None at the narrow widths, which take none."""
+    n_wt = lib.movenet_stack_wt_elems(r, s, (3 if ctx else 2) * r, n_layers)
+    return torch.empty(n_wt, dtype=torch.bfloat16, device=dev) if n_wt \
+        else None
+
+
 def _fwd_buffers(lib, dev, batch, t, n_layers, r, s, ctx: bool):
     """(h, skip accumulator) float32 scratch, (hsave, tfsg, skip), and the
     wide forms' bf16 weight scratch (None at the narrow widths)."""
     m, bf = batch * t, torch.bfloat16
-    n_wt = lib.movenet_stack_wt_elems(r, s, (3 if ctx else 2) * r, n_layers)
     return (torch.empty(m, r, dtype=torch.float32, device=dev),
             torch.empty(m, s, dtype=torch.float32, device=dev),
             torch.empty(n_layers, batch, t, r, dtype=bf, device=dev),
             torch.empty(n_layers, batch, t, 2 * r, dtype=bf, device=dev),
             torch.empty(batch, t, s, dtype=bf, device=dev),
-            torch.empty(n_wt, dtype=bf, device=dev) if n_wt else None)
+            _weight_scratch(lib, dev, r, s, ctx, n_layers))
 
 
 def run_bwd_x(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
@@ -715,9 +745,12 @@ def run_fwd_replay(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
         _raise(lib.movenet_stack_fwd_replay_f32(*head, *tail),
                "stack_fwd_replay_f32")
     else:
-        # the float32 residual stream beside the bf16 ring
+        # the float32 residual stream beside the bf16 ring, and the wide
+        # forms' weight scratch
         h = torch.empty(m, r, dtype=f32, device=dev)
-        _raise(lib.movenet_stack_fwd_replay(*head, _ptr(h), *tail),
+        wt = _weight_scratch(lib, dev, r, s, ctx is not None, n_layers)
+        _raise(lib.movenet_stack_fwd_replay(*head, _ptr(h), *tail[:5],
+                                            _ptr(wt), *tail[5:]),
                "stack_fwd_replay")
     return skip, ckpt, tfsg
 

@@ -139,6 +139,13 @@ GATED_VARIANTS = {
              "R >= 64 ? 4 : 2;"),),
     "no_mma": VARIANTS["no_mma"],
 }
+# the wide save forward's ring step, from its tile loop's first line
+WIDE_STEP = ("mr = m0 + r0, next = tile_i + gridDim.x;\n    int j = 0;\n"
+             "    // step j of the tile: slab j resident for every warp; in "
+             "flight the\n    // next slab (after the last, the next tile's "
+             "first) and, once the fg\n    // passes are done with hp, the "
+             "next tile's operand rows\n    auto step = [&]() -> const "
+             "bf16_t* {\n      cp_async_wait<0>();\n")
 FWD_VARIANTS = {
     # the save form's exactness work left out: no fg summed again in the
     # plain version's order (no ties flagged; flagged but the queue not
@@ -181,14 +188,15 @@ FWD_VARIANTS = {
     # fg in one pass at R = 32 (its sums and taps all live at once)
     "one_fg_pass": (("constexpr int FP = R >= 32 ? 2 : 1,",
                      "constexpr int FP = R >= 64 ? 2 : 1,"),),
-    # the wide forms' parts left out: the residual's fmaf chain, the wait
-    # for each weight slab (its reads race the copy: outputs wrong by
-    # design); the shared edits above reach the wide forms' passes too
+    # the wide save forward's parts left out: the residual's fmaf chain,
+    # the wait for each weight slab (its reads race the copy: outputs wrong
+    # by design; the edit is anchored at the save form's tile loop, whose
+    # ring step the wide recompute form's repeats); the shared edits above
+    # reach the wide forms' passes too
     "wide_no_chain": (("#pragma unroll 2\n      for (int k = 0; k < KH; ++k) {",
                        "#pragma unroll 2\n      for (int k = 0; k < 0; ++k) {"),),
-    "wide_no_wait": (("      cp_async_wait<0>();\n      __syncthreads();\n"
-                      "      bf16_t* nb = ring",
-                      "      __syncthreads();\n      bf16_t* nb = ring"),),
+    "wide_no_wait": ((WIDE_STEP, WIDE_STEP.replace(
+        "      cp_async_wait<0>();\n", "")),),
 }
 
 

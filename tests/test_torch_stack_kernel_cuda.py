@@ -285,14 +285,17 @@ def _tails_args(dev, t, r, s, has_ctx, dil, batch=2, seed=3,
     (64, 64, 1280, True, DIL_WIDE), (64, 8, 1280, False, DIL_WIDE),
     (32, 8, 1280, False, DIL_WIDE), (16, 8, 1280, True, DIL_WIDE),
     (64, 8, 1000, True, DIL), (64, 64, 3200, False, DIL_FLAGSHIP),
+    (128, 128, 1280, True, DIL_WIDE), (128, 8, 1000, False, DIL),
+    (128, 128, 3200, True, DIL_FLAGSHIP), (128, 8, 1280, True, DIL_WIDE),
 ])
 def test_tails_kernels_match_plain(cuda, r, s, t, has_ctx, dil):
-    """The recompute kernels against their plain versions at the six
-    built (R, S) pairs, at L = 16 (sum(d) = 510) and the flagship's
-    dilations (sum(d) = 3069).  The forward as the save forward (2% of
-    scale); the backward rebuilds h with its own float32 sums, so a
-    rebuilt bf16 value may sit one step from the plain version's: the
-    gradients within 1e-2 of their scale, dx and dctx (bf16) within 2%."""
+    """The recompute kernels against their plain versions at the eight
+    built (R, S) pairs (the wide ones, R = 128, stream their weights), at L
+    = 16 (sum(d) = 510) and the flagship's dilations (sum(d) = 3069).  The
+    forward as the save forward (2% of scale); the backward rebuilds h with
+    its own float32 sums, so a rebuilt bf16 value may sit one step from the
+    plain version's: the gradients within 1e-2 of their scale, dx and dctx
+    (bf16) within 2%."""
     args, dskip = _tails_args(cuda, t, r, s, has_ctx, dil)
     before = dict(ks.launch_counts)
     got = ks.stack_fwd_tails(*args)
@@ -326,7 +329,8 @@ def test_tails_kernels_match_plain(cuda, r, s, t, has_ctx, dil):
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,s,has_ctx,dil", [
     (64, 8, True, DIL_WIDE), (64, 64, False, DIL_FLAGSHIP),
-    (16, 8, False, DIL_WIDE),
+    (16, 8, False, DIL_WIDE), (128, 128, True, DIL_FLAGSHIP),
+    (128, 8, False, DIL_WIDE),
 ])
 def test_tails_rebuild_is_bit_equal_to_the_forward(cuda, r, s, has_ctx,
                                                    dil):
@@ -353,7 +357,8 @@ def test_tails_rebuild_is_bit_equal_to_the_forward(cuda, r, s, has_ctx,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,s,has_ctx", [(64, 8, True), (64, 64, False),
-                                         (32, 8, False)])
+                                         (32, 8, False), (128, 128, True),
+                                         (128, 8, False)])
 def test_tails_kernels_are_deterministic(cuda, r, s, has_ctx):
     """Two forward and two backward calls on the same inputs give the same
     bits (fixed fragment ownership, fixed-order reductions)."""
@@ -756,6 +761,35 @@ def test_replay_group_size_keeps_the_bits(cuda, every, dtype):
         assert (u is None and w is None) or torch.equal(u, w)
 
 
+# the bf16 replay forms at the wide pairs (R = 128: the wide save forward's
+# launches, the rebuild at R = 128 and the wide save backward's grids), with
+# each ctx form, at L = 6 and the flagship's L = 30
+WIDE_REPLAY_CASES = [
+    (128, 128, 1280, "proj", DIL), (128, 128, 1000, None, DIL),
+    (128, 8, 1280, "flat", DIL), (128, 8, 1280, "proj", DIL),
+    (128, 128, 1600, "flat", DIL_FLAGSHIP),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,t,ctx_kind,dil", WIDE_REPLAY_CASES)
+def test_wide_replay_kernels_match_plain(cuda, r, s, t, ctx_kind, dil):
+    """test_replay_kernels_match_plain at the wide pairs, in bf16."""
+    test_replay_kernels_match_plain(cuda, r, s, t, ctx_kind, dil,
+                                    torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,t,ctx_kind,dil", WIDE_REPLAY_CASES)
+def test_wide_replay_is_the_save_strategy_bit_for_bit(cuda, r, s, t,
+                                                      ctx_kind, dil):
+    """test_replay_is_the_save_strategy_bit_for_bit at the wide pairs, in
+    bf16: the rebuild at R = 128 follows the wide save forward's residual
+    chain."""
+    test_replay_is_the_save_strategy_bit_for_bit(cuda, r, s, t, ctx_kind,
+                                                 dil, torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_replay_wrapper_rejects_wrong_inputs(cuda):
     args, dskip, _ = _replay_args(cuda, 1280, 16, 16, "flat", DIL,
@@ -819,6 +853,32 @@ def test_wide_stack_kernels_match_plain(cuda, r, s, t, ctx_kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(128, 128), (128, 8)])
+def test_wide_table_gradient_at_2v_512(cuda, r, s):
+    """The save backward's table gradient at R = 128 with 2V = 512, the
+    embed form's largest table (the flagship's C = 256 at R = 128): a (2V,
+    R) float32 table passes a block's shared memory, so each block takes a
+    slab of the columns.  Against the plain version, and two calls
+    bit-equal."""
+    t, v = 1280, 256
+    a, ctx, proj, batch = _inputs(cuda, t, r, s, v, "proj")
+    args = (a["pack"], a["table2"], ctx, a["b_fg"], a["w_fg"], a["w_out"],
+            a["b_out"], DIL, batch)
+    _, hsave, tfsg = sk.stack_fwd_plain(*args)
+    bargs = (hsave, tfsg, ctx, a["w_fg"], a["w_out"], a["dskip"], a["pack"],
+             v, DIL, proj)
+    got = ks.stack_bwd(*bargs)
+    assert all(torch.equal(x, y) for x, y in zip(got, ks.stack_bwd(*bargs)))
+    want = sk.stack_bwd_plain(*bargs)
+    assert got[0].shape == (2 * v, r)
+    for name, x, y in zip(("dtab", "dctx", "db_fg", "dw_fg", "dw_out",
+                           "db_out", "dwup_aug"), got, want):
+        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        tol = (2e-2 if name == "dctx" else 1e-4) * np.abs(y).max()
+        np.testing.assert_allclose(x, y, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("r,s,ctx_kind", [(128, 128, "flat"), (128, 8, None)])
 def test_wide_non_embed_kernels_match_plain(cuda, r, s, ctx_kind):
     """The non-embed save form (x in, dx out) at the wide widths, and two
@@ -854,8 +914,13 @@ def test_wide_non_embed_kernels_match_plain(cuda, r, s, ctx_kind):
 @pytest.mark.cuda
 def test_family_widths_mirror_the_library(cuda):
     """ops/cuda/stack_kernel.FAMILY_WIDTHS is the library's own list of
-    each family (movenet_stack_supports), the wide pairs the bf16 save
-    family's alone; the wide save launches' shared memory fits a block."""
+    each family (movenet_stack_supports), the wide pairs the bf16 save,
+    recompute and replay families' alone; the wide save and recompute
+    launches' shared memory fits a block (the recompute forward's layer
+    launch, form 0, and the backward's layer launch, kind -2, and its W_out
+    gradient from the float32 gated, kind 3, are the recompute forms'; the
+    rebuild, kind -5, the replay backward's), and the float32 forms have
+    none there."""
     lib = ks.library()
     pairs = {(r, s) for r in (8, 16, 32, 48, 64, 96, 128, 256)
              for s in (4, 8, 16, 32, 64, 128)}
@@ -863,13 +928,16 @@ def test_family_widths_mirror_the_library(cuda):
         for r, s in pairs:
             assert bool(lib.movenet_stack_supports(i, r, s)) == \
                 ((r, s) in widths), (family, r, s)
-    assert set(ks.FAMILY_WIDTHS["save"]) - set(ks.WIDTHS) == \
-        set(ks.WIDE_WIDTHS)
+    assert not lib.movenet_stack_supports(len(ks.FAMILY_WIDTHS), 16, 16)
+    for family in ("save", "recompute", "replay"):
+        assert set(ks.FAMILY_WIDTHS[family]) - set(ks.WIDTHS) == \
+            set(ks.WIDE_WIDTHS), family
     for r, s in ks.WIDE_WIDTHS:
-        assert 0 < lib.movenet_stack_layer_smem(r, s, 1) <= ks.SMEM_LIMIT
-        assert lib.movenet_stack_layer_smem(r, s, 0) == -1
+        for form in (0, 1):
+            n = lib.movenet_stack_layer_smem(r, s, form)
+            assert 0 < n <= ks.SMEM_LIMIT, (r, s, form)
         for win in (2 * r, 3 * r):
-            for kind in (-1, 0, 1, 2):
+            for kind in (-5, -2, -1, 0, 1, 2, 3):
                 n = lib.movenet_stack_bwd_smem(r, s, win, kind)
                 assert 0 < n <= ks.SMEM_LIMIT, (r, s, win, kind)
             assert lib.movenet_stack_bwd_smem(r, s, win, -3) == -1
@@ -877,21 +945,31 @@ def test_family_widths_mirror_the_library(cuda):
 
 @pytest.mark.cuda
 def test_other_families_raise_at_the_wide_widths(cuda):
-    """Every family but the bf16 save forms raises at R = 128 with its
-    ROADMAP.md item, and never falls back to a plain version: recompute
-    and replay (1), the float32 save forms (2), merged (3), gated (4); a
-    pair no family takes, (128, 64), raises for the save forms (5)."""
+    """Every family but the bf16 save, recompute and replay forms raises
+    at R = 128 with its ROADMAP.md item, and never falls back to a plain
+    version: the float32 save, recompute and replay forms (2), merged (3),
+    gated (4); a pair no family takes, (128, 64), raises for the save,
+    recompute and replay forms (5)."""
     from movenet_tpu_torch.ops.cuda import gated_block as kg
 
     r, s, t = 128, 128, 1280
     a, ctx, _, batch = _inputs(cuda, t, r, s, 64, "flat")
     x = torch.zeros(batch, t, r, dtype=torch.bfloat16, device=cuda)
     rest = (ctx, a["b_fg"], a["w_fg"], a["w_out"], a["b_out"], DIL)
+    rest32 = (ctx.float(), *rest[1:])
     before = dict(ks.launch_counts)
-    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(1\)"):
-        ks.stack_fwd_tails(x, *rest)
-    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(1\)"):
-        ks.stack_fwd_replay(x, *rest)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
+        ks.stack_fwd_tails(x.float(), *rest32)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
+        ks.stack_bwd_tails(x.float(), x[None, :0].float(), *rest32[:-1],
+                           a["dskip"].float(), DIL)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
+        ks.stack_fwd_replay(x.float(), *rest32)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
+        ks.stack_bwd_replay(
+            x.float(), torch.zeros(1, batch, t, r, device=cuda),
+            torch.zeros(len(DIL), batch, t, 2 * r, device=cuda), ctx.float(),
+            a["w_fg"], a["w_out"], a["b_out"], a["dskip"].float(), DIL)
     with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
         ks.stack_fwd(a["pack"], a["table2"].float(), ctx.float(), a["b_fg"],
                      a["w_fg"], a["w_out"], a["b_out"], DIL, batch)
@@ -912,4 +990,8 @@ def test_other_families_raise_at_the_wide_widths(cuda):
     with pytest.raises(NotImplementedError, match=r"B\.2 widths \(5\)"):
         ks.stack_fwd(a["pack"], a["table2"], ctx, a["b_fg"], a["w_fg"],
                      w_out, b_out, DIL, batch)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(5\)"):
+        ks.stack_fwd_tails(x, ctx, a["b_fg"], a["w_fg"], w_out, b_out, DIL)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(5\)"):
+        ks.stack_fwd_replay(x, ctx, a["b_fg"], a["w_fg"], w_out, b_out, DIL)
     assert ks.launch_counts == before

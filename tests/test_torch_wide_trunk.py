@@ -15,7 +15,8 @@ scripts/probe_r128_mfu.py, and (128, 8), experiment 02 at
   same weights (``models.convert.load_jax_params``): loss and grad_norm;
 - the strategy the fused loss resolves at the probe's full shape (B = 2, T
   = 160,000, L = 9, bf16): save, with 2V = 128 inside the embedding
-  kernel, as in JAX; and what the flagship depth at R = 128 resolves to.
+  kernel, as in JAX; and what the flagship depth at R = 128 resolves to
+  (recompute).
 
 Tolerances as tests/test_torch_narrow_trunk.py and
 tests/test_torch_train.py: float32 forward rtol 1e-5, gradients within 1%
@@ -244,8 +245,9 @@ def test_probe_strategy_matches_jax():
     """At the probe's full shape the fused loss resolves the save strategy,
     hsave 9 x 320,000 x 128 x 2 bytes = 737 MB under JAX's 1 GiB budget, and
     2V = 128 takes the embedding kernel; at the flagship depth (30 layers)
-    hsave is 2.46 GB and both resolve recompute (which raises on the card
-    at R = 128: ROADMAP.md B.2 widths (1))."""
+    hsave is 2.46 GB and both resolve recompute, which the card runs at R
+    = 128 through the wide recompute kernels
+    (tests/test_torch_wide_recompute.py holds it to JAX here)."""
     shape, n = (2, 160_000, 128), len(PROBE_DIL)
     assert n * 2 * 160_000 * 128 * 2 == 737_280_000
     for strategy in ("auto", "save"):
