@@ -177,7 +177,9 @@ Phases (any failure exits non-zero and prints no result):
      save's; and in each dtype the trained model's trunk on that batch
      (its codes' embedding and its video's projection triple) through
      ``fused_stack`` with save and with replay: the same skip and
-     gradients, bit for bit;
+     gradients, bit for bit, but for W_fg's in bf16, which replay forms
+     from the float32 h as the TPU kernel does: held within phase 23's bar
+     of the plain replay's;
   23. the replay strategy: (a, after phase 9g (a)) its kernels in bf16
      and float32 at the flagship's trunk (L=30, R=S=64, B=2, T=160000)
      and experiment 02's (L=9, S=8), with a flat ctx and with the video
@@ -185,11 +187,13 @@ Phases (any failure exits non-zero and prints no result):
      versions within phase 9's bars (bf16) and phase 9f's (float32,
      TF32 off), and against the save kernels' non-embed form from the
      same x bit for bit (the forward's skip and taps, each checkpoint,
-     every rebuilt layer input against hsave, every gradient); each
-     form's time beside the save form's and the plain version's, the
-     backward by grid at the flagship; ``fused_stack`` through save and
-     replay with autograd at the flagship in both ctx forms, the same skip
-     and gradients
+     every rebuilt float32 layer input against the checkpoints and,
+     rounded, hsave, every gradient but W_fg's in bf16, which takes the
+     float32 h and is held to the plain version); each form's time beside
+     the save form's and the plain version's, the backward by grid at the
+     flagship; ``fused_stack`` through save and replay with autograd at
+     the flagship in both ctx forms, the same skip and gradients (W_fg's in
+     bf16 within phase 23's bar of the plain replay's)
      (the float32 non-embed save forms' launches); (c, after phase 16) the
      trainer CLI with the flagship flags and --fused_strategy replay for
      4 steps, in bf16 and with --compute_dtype float32: only the replay
@@ -266,9 +270,9 @@ Phases (any failure exits non-zero and prints no result):
      --residual_channels 128 ((128, 8), L=9), each with a flat ctx and
      with the video projection triple, against their plain versions at
      phases 11's and 23's bars, the replay kernels also bit for bit
-     against the wide save kernels (every rebuilt layer input against
-     hsave); their times by CUDA events and the backwards by grid at the
-     flagship's depth; (b, after phase 24 (c)) the trainer CLI at the
+     against the wide save kernels as in phase 23 (every rebuilt layer
+     input against hsave, every gradient but W_fg's in bf16); their times
+     by CUDA events and the backwards by grid at the flagship's depth; (b, after phase 24 (c)) the trainer CLI at the
      flagship's depth at R = S = 128 (the flagship flags with
      --residual_channels 128 --skip_channels 128) for 4 steps on phase
      16's clips with no strategy flag (the default resolves recompute:
@@ -281,12 +285,33 @@ Phases (any failure exits non-zero and prints no result):
      phase 24 (d)'s greedy B=1 generation with video from (b)'s trained
      model, exact and fast, codes equal to the plain version's (the ring
      in 32 KB slabs: two 64 KB stages do not fit there);
-  22. the kernels line (34 entries, every form of the fourteen TPU kernel
-     functions, the eight float32 forms, the replay strategy's four and
-     phase 25's four at R = 128, each with its bound from this run's
-     shapes; the new widths' readings under "widths", phase 24's with
-     their launches; the speculative rows also with their stream bound),
-     then the card line, then the result line.
+  26. float32 training at R = 128: (a, after phase 25 (a)) the float32
+     recompute forms at R = 128 (the wide float32 forward's slab walk; the
+     backward's taps launches and wide layer launches) at the flagship's
+     depth at R = S = 128 and experiment 02's shapes at
+     --residual_channels 128, each with a flat ctx and the video
+     projection triple's flat form, and the float32 head at (S, C, B) =
+     (128, 256, 2) and (128, 64, 2), against their plain versions (TF32
+     off) within phase 9g's bars; the backward by grid at the flagship's
+     depth; at experiment 02's shapes the rebuilt layer inputs bit for bit
+     against the forward's; each form's time beside its bf16 form's and
+     the plain version's; (b, after phase 9g (b, c)) the trainer CLI at
+     the flagship's depth at R = S = 128 with --compute_dtype float32 for
+     4 steps on phase 16's clips (the default strategy resolves
+     recompute): exact launches of the float32 recompute and wide head
+     forms, finite losses, update ms and peak memory, then the fused
+     float32 route against the unfused one from checkpoint 0
+     (``f32_routes``, phase 9g (c)'s bars); (c) experiment 02's CLI with
+     --compute_dtype float32 --residual_channels 128, then also with
+     --skip_channels 128, 3 updates each on phase 14's clips: exact
+     launches;
+  22. the kernels line (38 entries, every form of the fourteen TPU kernel
+     functions, the eight float32 forms, the replay strategy's four,
+     phase 25's four at R = 128 and phase 26's four in float32 at R = S =
+     128, each with its bound from this run's shapes; the new widths'
+     readings under "widths", phase 24's with their launches; the
+     speculative rows also with their stream bound), then the whole run's
+     seconds, the card line, then the result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1117,7 +1142,8 @@ def bwd_smem_note(lib, kernel: str) -> str:
     """The dynamic shared memory of a trunk kernel instance (the layer
     forward stack_layer_kernel<R,S,FORM> and its float32 form
     stack_layer_f32_kernel<R,S>; stack_bwd_layer_kernel<R,S,FORM> at win =
-    3R, FORM 0 save, 1 recompute, 2 float32; the replay backward's
+    3R, FORM 0 save, 1 recompute, 2 float32, 3 float32 recompute; the
+    replay backward's
     stack_rebuild_kernel<R>; stack_wgrad_kernel<MODE,R,S,KA>), from the
     library's own sizes; "" for another kernel."""
     m = re.match(r"stack_layer_kernel<(\d+),(\d+),(\d)>$", kernel)
@@ -1130,7 +1156,7 @@ def bwd_smem_note(lib, kernel: str) -> str:
         r, s_ = (int(x) for x in m.groups())
         return (f"; dynamic shared memory "
                 f"{lib.movenet_stack_layer_smem(r, s_, 3)} bytes")
-    m = re.match(r"stack_bwd_layer_kernel<(\d+),(\d+),([012])>$", kernel)
+    m = re.match(r"stack_bwd_layer_kernel<(\d+),(\d+),([0-3])>$", kernel)
     if m:
         r, s_, form = (int(x) for x in m.groups())
         return (f"; dynamic shared memory "
@@ -1144,7 +1170,7 @@ def bwd_smem_note(lib, kernel: str) -> str:
     m = re.match(r"stack_wgrad_kernel<(\d),(\d+),(\d+),(\d+)>$", kernel)
     if m:
         mode, r, s_, ka = (int(x) for x in m.groups())
-        win = ka if mode in (0, 4) else 3 * r
+        win = ka if mode in (0, 4, 7) else 3 * r
         return (f"; dynamic shared memory "
                 f"{lib.movenet_stack_bwd_smem(r, s_, win, mode)} bytes")
     return ""
@@ -2650,7 +2676,9 @@ def _trunk_save_is_replay(torch, model, batch, dtype):
     replay strategy (the codes' embedding as x; the video's projection
     triple, which the trainer's clip length gives), through ``fused_stack``
     with save and with replay from the same leaves and a seeded dskip: the
-    same skip and the same gradient of every leaf, bit for bit."""
+    same skip and the same gradient of every leaf, bit for bit, but for
+    W_fg's in bf16, which replay forms from the float32 h as the TPU
+    kernel does: that one within phase 23's bar of the plain replay's."""
     from movenet_tpu_torch.models import fused
     from movenet_tpu_torch.ops import stack_kernel as sk
 
@@ -2680,11 +2708,25 @@ def _trunk_save_is_replay(torch, model, batch, dtype):
     check(torch.equal(so, ro), f"flagship {dtype}: the trunk's skip through "
           "replay differs from save's")
     differ = [n for n, u, v in zip(names, sg, rg) if not torch.equal(u, v)]
-    check(not differ, f"flagship {dtype}: the trunk's gradients of {differ} "
-          "through replay differ from save's")
+    bf16 = dtype == "bfloat16"
+    check(set(differ) <= ({"w_fg"} if bf16 else set()),
+          f"flagship {dtype}: the trunk's gradients of {differ} through "
+          "replay differ from save's")
+    note = ""
+    if bf16:
+        trip = tuple(ctx)
+        args = (x, sk.ctx_flatten(trip, dt), *trunk, dil)
+        want = _replay_dw_fg_plain(torch, x, args[1],
+                                   sk._ctx_proj_args(trip), args, dskip)
+        err = _err(rg[names.index("w_fg")], want)
+        check(err <= TRUNK_REPLAY_BARS["bf16"]["bwd"] * _scale(want),
+              f"flagship bf16: replay's W_fg gradient {err:.3g} from the "
+              f"plain replay's, scale {_scale(want):.3g}")
+        note = (f" (W_fg's from the float32 h: {err:.3g} from the plain "
+                f"replay's, scale {_scale(want):.3g})")
     print(f"flagship {dtype}: the trained trunk through replay (video "
           "projection triple) gives save's skip and every gradient bit for "
-          "bit", flush=True)
+          f"bit{note}", flush=True)
 
 
 def phase_flagship_cli(torch, np, root):
@@ -2787,6 +2829,86 @@ def phase_flagship_cli(torch, np, root):
                 peaks_by_dtype=peaks, launches=launches)
 
 
+def f32_head_compare(torch, s, c, b, fwd_name, bwd_name, grid=False):
+    """The float32 head kernels against their plain versions at (S, C, B),
+    T = 160000 (seeded skip, parity CE, RF 3072), within F32_BARS; their
+    times by CUDA events beside the bf16 form's (skip rounded to bf16) and
+    the plain version's, and with ``grid`` the backward's device time by
+    grid.  Returns (forward record, backward record), each with its
+    bound."""
+    from movenet_tpu_torch.ops import head_loss as hl
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
+
+    t, bf, hlib = 160_000, torch.bfloat16, kh.library()
+    label = f"S={s} C={c} B={b}"
+    g = torch.Generator(device="cuda").manual_seed(s * c + b)
+    rf = 3072
+    n_valid = b * (t - rf)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    codes = torch.randint(0, c, (b, t), generator=g, device="cuda",
+                          dtype=torch.int32)
+    prev = torch.cat([torch.full_like(codes[:, :1], -1), codes[:, :-1]], 1)
+    pack = torch.cat([codes, prev, torch.roll(codes, -1, 1)],
+                     0).t().contiguous()
+    with torch.no_grad():
+        skip = rn(b, t, s)
+        hargs = (skip, pack, rn(s, c, scale=0.25), rn(c, scale=0.1),
+                 rn(c, c, scale=2.5 / c ** 0.5), rn(c, scale=0.1), rf,
+                 True, 2 * b)
+        hst = kh._stream(skip)
+        loss, match, p = kh.head_fwd(*hargs)
+        wl, wm, wp = hl.head_fwd_plain(*hargs)
+        errs = {"loss": abs(float(loss) - float(wl)) / abs(float(wl)),
+                "match": abs(float(match) - float(wm)),
+                "p": _err(p, wp)}
+        check(errs["loss"] <= F32_BARS["loss"],
+              f"{fwd_name} {label}: loss {float(loss)} vs plain "
+              f"{float(wl)}")
+        check(errs["match"] <= F32_BARS["match"] * n_valid,
+              f"{fwd_name} {label}: match {float(match)} vs plain "
+              f"{float(wm)} of {n_valid} rows")
+        check(errs["p"] <= F32_BARS["p"], f"{fwd_name} {label}: p max err "
+              f"{errs['p']:.3g}")
+        del p
+        bfh = (skip.to(bf), *hargs[1:])
+        fwd = dict(
+            errs=errs, max_abs_err=errs["p"],
+            ms=time_cuda(torch, lambda: kh.run_fwd(hlib, *hargs,
+                                                   stream=hst), 3),
+            bf16_ms=time_cuda(torch, lambda: kh.run_fwd(hlib, *bfh,
+                                                        stream=hst), 3),
+            plain_ms=time_cuda(torch, lambda: hl.head_fwd_plain(*hargs), 1))
+        dloss = torch.tensor(1.0 / n_valid, device="cuda")
+        hb = (skip, pack, wp, *hargs[2:6], rf, True, dloss, 2 * b)
+        bar = F32_BARS["head_bwd"]
+        errs = _check_grads(f"{bwd_name} {label}", kh.head_bwd(*hb),
+                            hl.head_bwd_plain(*hb),
+                            dict(dskip=bar, dw1=bar, db1=bar, dw2=bar,
+                                 db2=bar))
+        bfhb = (skip.to(bf), pack, wp, *hargs[2:6], rf, True, dloss, 2 * b)
+        bwd = dict(
+            errs=errs, max_abs_err=max(errs.values()),
+            ms=time_cuda(torch, lambda: kh.run_bwd(hlib, *hb, stream=hst),
+                         3),
+            bf16_ms=time_cuda(torch, lambda: kh.run_bwd(hlib, *bfhb,
+                                                        stream=hst), 3),
+            plain_ms=time_cuda(torch, lambda: hl.head_bwd_plain(*hb), 1))
+        if grid:
+            print(grid_line(f"f32 kernel {bwd_name} {label}",
+                            by_grid(torch, lambda: kh.run_bwd(
+                                hlib, *hb, stream=hst), F32_TAILS_GRIDS)),
+                  flush=True)
+        del wp, hb, bfh, bfhb, skip
+    bounds = train_bounds(b, t, 1, 8, s, c, c, 16, False, act=4,
+                          peak=TF32_OPS_S)
+    fwd["bound"], bwd["bound"] = bounds["head_fwd"], bounds["head_bwd"]
+    return fwd, bwd
+
+
 def phase_f32_tails_kernels(torch, np):
     """Phase 9g (a): the float32 recompute forms against their plain
     versions (TF32 off) at F32_TAILS_SHAPES (seeded float32 x, flat ctx,
@@ -2796,9 +2918,7 @@ def phase_f32_tails_kernels(torch, np):
     on the same shapes (the activations rounded to bf16) and the plain
     version's; the backwards' device time by grid at the flagship's
     shapes.  Returns records by (name, shape label)."""
-    from movenet_tpu_torch.ops import head_loss as hl
     from movenet_tpu_torch.ops import stack_kernel as sk
-    from movenet_tpu_torch.ops.cuda import head_loss as kh
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
     from movenet_tpu_torch.utils.time_stack_bwd import by_grid
 
@@ -2873,77 +2993,13 @@ def phase_f32_tails_kernels(torch, np):
         bounds = tails_bounds(b, t, n, r, s, win, sk.tails_every(n), act=4)
         for name in F32_TAILS_KERNELS:
             rec[(name, label)]["bound"] = bounds[name[:-4]]
-    hlib = kh.library()
     for s, c, b in F32_WIDE_HEADS:
         label = f"S={s} C={c} B={b}"
-        g = torch.Generator(device="cuda").manual_seed(s * c + b)
-        rf = 3072
-        n_valid = b * (t - rf)
-
-        def rn(*shape, scale=1.0):
-            return torch.randn(*shape, generator=g, device="cuda") * scale
-
-        codes = torch.randint(0, c, (b, t), generator=g, device="cuda",
-                              dtype=torch.int32)
-        prev = torch.cat([torch.full_like(codes[:, :1], -1), codes[:, :-1]],
-                         1)
-        pack = torch.cat([codes, prev, torch.roll(codes, -1, 1)],
-                         0).t().contiguous()
-        with torch.no_grad():
-            skip = rn(b, t, s)
-            hargs = (skip, pack, rn(s, c, scale=0.25), rn(c, scale=0.1),
-                     rn(c, c, scale=2.5 / c ** 0.5), rn(c, scale=0.1), rf,
-                     True, 2 * b)
-            hst = kh._stream(skip)
-            loss, match, p = kh.head_fwd(*hargs)
-            wl, wm, wp = hl.head_fwd_plain(*hargs)
-            errs = {"loss": abs(float(loss) - float(wl)) / abs(float(wl)),
-                    "match": abs(float(match) - float(wm)),
-                    "p": _err(p, wp)}
-            check(errs["loss"] <= F32_BARS["loss"],
-                  f"head_fwd_f32_wide {label}: loss {float(loss)} vs plain "
-                  f"{float(wl)}")
-            check(errs["match"] <= F32_BARS["match"] * n_valid,
-                  f"head_fwd_f32_wide {label}: match {float(match)} vs "
-                  f"plain {float(wm)} of {n_valid} rows")
-            check(errs["p"] <= F32_BARS["p"], f"head_fwd_f32_wide {label}: "
-                  f"p max err {errs['p']:.3g}")
-            del p
-            bfh = (skip.to(bf), *hargs[1:])
-            rec[("head_fwd_f32_wide", label)] = dict(
-                errs=errs, max_abs_err=errs["p"],
-                ms=time_cuda(torch, lambda: kh.run_fwd(hlib, *hargs,
-                                                       stream=hst), 3),
-                bf16_ms=time_cuda(torch, lambda: kh.run_fwd(hlib, *bfh,
-                                                            stream=hst), 3),
-                plain_ms=time_cuda(torch, lambda: hl.head_fwd_plain(*hargs),
-                                   1))
-            dloss = torch.tensor(1.0 / n_valid, device="cuda")
-            hb = (skip, pack, wp, *hargs[2:6], rf, True, dloss, 2 * b)
-            bar = F32_BARS["head_bwd"]
-            errs = _check_grads(f"head_bwd_f32_wide {label}",
-                                kh.head_bwd(*hb), hl.head_bwd_plain(*hb),
-                                dict(dskip=bar, dw1=bar, db1=bar, dw2=bar,
-                                     db2=bar))
-            bfhb = (skip.to(bf), pack, wp, *hargs[2:6], rf, True, dloss,
-                    2 * b)
-            rec[("head_bwd_f32_wide", label)] = dict(
-                errs=errs, max_abs_err=max(errs.values()),
-                ms=time_cuda(torch, lambda: kh.run_bwd(hlib, *hb,
-                                                       stream=hst), 3),
-                bf16_ms=time_cuda(torch, lambda: kh.run_bwd(hlib, *bfhb,
-                                                            stream=hst), 3),
-                plain_ms=time_cuda(torch, lambda: hl.head_bwd_plain(*hb), 1))
-            if (s, c, b) == F32_WIDE_HEADS[0]:
-                print(grid_line(f"f32 kernel head_bwd_f32_wide {label}",
-                                by_grid(torch, lambda: kh.run_bwd(
-                                    hlib, *hb, stream=hst),
-                                    F32_TAILS_GRIDS)), flush=True)
-            del wp, hb, bfh, bfhb, skip
-        bounds = train_bounds(b, t, 1, 8, s, c, c, 16, False, act=4,
-                              peak=TF32_OPS_S)
-        for name in F32_WIDE_KERNELS:
-            rec[(name, label)]["bound"] = bounds[name[:8]]
+        fwd, bwd = f32_head_compare(torch, s, c, b, "head_fwd_f32_wide",
+                                    "head_bwd_f32_wide",
+                                    (s, c, b) == F32_WIDE_HEADS[0])
+        rec[("head_fwd_f32_wide", label)] = fwd
+        rec[("head_bwd_f32_wide", label)] = bwd
     for (name, label), r in rec.items():
         shape = label
         if label in F32_TAILS_SHAPES:
@@ -3142,9 +3198,8 @@ TRUNK_REPLAY_BARS = {"bf16": {"fwd": 2e-2, "bwd": 1e-3, "act": 2e-2},
                              "act": F32_BARS["bwd"]}}
 # the grids of its backward at the flagship's shapes
 TRUNK_REPLAY_GRIDS = (("rebuild", "stack_rebuild"),
-                      ("checkpoint rounding", "stack_round_kernel"),
                       ("layer", "stack_bwd_layer_kernel"),
-                      ("wgrad W_fg", "stack_wgrad_kernel<[04]"),
+                      ("wgrad W_fg", "stack_wgrad_kernel<[047]"),
                       ("wgrad W_out", "stack_wgrad_kernel<[16]"),
                       ("dx", "stack_dx_kernel"),
                       ("reductions", "reduce_kernel"))
@@ -3199,9 +3254,11 @@ def _replay_case(torch, lib, args, dskip, label, dt_name, proj=None):
     """One shape, ctx form and dtype of phase 23 (a): the replay kernels
     against their plain versions within TRUNK_REPLAY_BARS, and against the
     save kernels' non-embed form from the same x bit for bit (the forward's
-    skip and taps, the checkpoints against hsave, every rebuilt layer
-    input, the backward's outputs); their times beside the save kernels'
-    and the plain versions'.  ``proj`` (xc, wup_t): the backward folds the
+    skip and taps, the checkpoints against hsave, every rebuilt float32
+    layer input against the checkpoints and, rounded, hsave, the
+    backward's outputs but for dW_fg in bf16, which takes the float32 h as
+    the TPU kernel does and is held to the plain version below); their
+    times beside the save kernels' and the plain versions'.  ``proj`` (xc, wup_t): the backward folds the
     projection triple's gradient in, ctx in args being its flat form.
     Returns (fwd record, bwd record)."""
     from movenet_tpu_torch.ops import stack_kernel as sk
@@ -3233,15 +3290,22 @@ def _replay_case(torch, lib, args, dskip, label, dt_name, proj=None):
               f"layer {l}")
     rebuilt = ks.run_replay_inputs(lib, x, got[1], got[2], w_out, b_out,
                                    stream=st)
-    check(torch.equal(rebuilt, hsave), f"{what}: the rebuilt layer inputs "
-          "differ from the save forward's hsave")
+    check(torch.equal(rebuilt.to(x.dtype), hsave), f"{what}: the rebuilt "
+          "layer inputs differ from the save forward's hsave")
+    check(all(torch.equal(rebuilt[l], got[1][i]) for i, l in enumerate(
+        sk.ckpt_layers(n, sk.tails_every(n)))),
+        f"{what}: the rebuilt layer inputs differ from the checkpoints")
     del rebuilt
     bk = (x, got[1], got[2], ctx, w_fg, w_out, b_out, dskip, dil, proj)
     bs = (hsave, tfsg, ctx, w_fg, w_out, dskip, dil, proj)
-    check(all(u is None or torch.equal(u, v) for u, v in zip(
+    # in bf16 W_fg's gradient (index 3) takes the float32 h: not save's
+    differ = {i for i, (u, v) in enumerate(zip(
         ks.run_bwd_replay(lib, *bk, stream=st),
-        ks.run_bwd_x(lib, *bs, stream=st))),
-        f"{what}: the backward's outputs differ from the save backward's")
+        ks.run_bwd_x(lib, *bs, stream=st))) if u is not None
+        and not torch.equal(u, v)}
+    check(differ <= ({3} if dt_name == "bf16" else set()),
+          f"{what}: the backward's outputs {sorted(differ)} differ from the "
+          "save backward's")
     fwd = dict(errs=errs, max_abs_err=max(errs.values()),
                ms=time_cuda(torch, lambda: ks.run_fwd_replay(
                    lib, *args, stream=st), 3),
@@ -3355,10 +3419,21 @@ def phase_trunk_replay_kernels(torch, np):
                     runs[strategy] = (out.detach(), [v.grad for v in leaves],
                                       dict(ks.launch_counts))
                 (so, sg, sl), (ro, rg, rl) = runs["save"], runs["replay"]
+                # W_fg's gradient: in bf16 replay's takes the float32 h
+                iw = 2 + k
                 check(torch.equal(so, ro) and all(
-                    torch.equal(u, v) for u, v in zip(sg, rg)),
+                    torch.equal(u, v) for i, (u, v) in enumerate(zip(sg, rg))
+                    if sfx or i != iw),
                     f"fused_stack {dt_name} {label}: replay's skip or "
                     "gradients differ from save's")
+                if not sfx:
+                    want = _replay_dw_fg_plain(torch, x, ctx, proj, args,
+                                               dskip)
+                    err = _err(rg[iw], want)
+                    check(err <= TRUNK_REPLAY_BARS["bf16"]["bwd"]
+                          * _scale(want), f"fused_stack bf16 {label}: "
+                          f"replay's W_fg gradient {err:.3g} from the plain "
+                          f"replay's, scale {_scale(want):.3g}")
                 want = {k_: 0 for k_ in sl}
                 want.update({"stack_fwd" + sfx: 1, "stack_bwd" + sfx: 1})
                 check(sl == want,
@@ -3385,6 +3460,17 @@ def phase_trunk_replay_kernels(torch, np):
               f"ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]})",
               flush=True)
     return rec, non_embed
+
+
+def _replay_dw_fg_plain(torch, x, ctx, proj, args, dskip):
+    """W_fg's gradient of the plain replay strategy on ``args`` = (x, the
+    flat ctx, b_fg, w_fg, w_out, b_out, dilations), dskip and ``proj``
+    (the triple's (xc, wup_t), or None)."""
+    from movenet_tpu_torch.ops import stack_kernel as sk
+
+    _, ckpt, tfsg = sk.stack_fwd_replay_plain(*args)
+    return sk.stack_bwd_replay_plain(x, ckpt, tfsg, ctx, *args[3:6], dskip,
+                                     args[-1], proj)[3]
 
 
 def phase_trunk_replay_cli(torch, np, root):
@@ -4646,10 +4732,303 @@ def phase_wide_tails_cli(torch, np, root, ds):
     return model, batch, launches, dict(runs=runs, peaks=peaks, ms=ms)
 
 
+# phase 26: float32 training at R = 128: the float32 recompute forms at the
+# wide pairs (the wide float32 forward's slab walk; its backward's taps
+# launches and wide layer launches) and the float32 head at 64 < S <= 128
+WIDE_F32_KERNELS = {f"{k} (R=128)": v for k, v in F32_TAILS_KERNELS.items()}
+WIDE_F32_HEAD_KERNELS = {"head_fwd_f32 (S=128)": TRAIN_KERNELS["head_fwd"],
+                         "head_bwd_f32 (S=128)": TRAIN_KERNELS["head_bwd"]}
+# the head's (S, C, B): the flagship's depth at R = S = 128 (C = 256, the
+# wide kernels) and experiment 02 at --residual_channels 128
+# --skip_channels 128 (C = 64)
+WIDE_F32_HEADS = ((128, 256, 2), (128, 64, 2))
+# the grids of its recompute backward at the flagship's depth: the taps
+# launches are the forward's kernel, as the rebuilds
+WIDE_F32_GRIDS = (("weights", "stack_wt_kernel"),
+                  ("rebuilds and taps", "stack_layer_f32_kernel"),
+                  ("layer", "stack_bwd_layer_kernel"),
+                  ("wgrad W_fg", "stack_wgrad_kernel<4"),
+                  ("wgrad W_out", "stack_wgrad_kernel<6"),
+                  ("dx", "stack_dx_kernel"),
+                  ("reductions", "reduce_kernel"))
+
+
+def phase_wide_f32_kernels(torch, np):
+    """Phase 26 (a): the float32 recompute forms at R = 128 against their
+    plain versions (TF32 off) at WIDE_TAILS_SHAPES (seeded float32 x,
+    weights and dskip), with a flat ctx and with the video projection
+    triple's flat form, within F32_BARS; the backward from the plain
+    checkpoints, by grid at the flagship's depth with the triple; at
+    experiment 02's shapes with the flat ctx the forward with a checkpoint
+    at every layer against the default checkpoints and the backward from
+    every layer input against the default backward, bit for bit (the
+    rebuilds are the forward); then the float32 head at WIDE_F32_HEADS
+    (``f32_head_compare``).  Each form's time beside its bf16 form's and
+    the plain version's.  Returns records by (kernel line name, shape
+    label), each with its bound."""
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+    from movenet_tpu_torch.utils.time_stack_bwd import by_grid
+
+    t, f32, bf = 160_000, torch.float32, torch.bfloat16
+    lib = ks.library()
+    rec = {}
+    for shape, (b, dil, r, s) in WIDE_TAILS_SHAPES.items():
+        n, win, every = len(dil), 3 * r, sk.tails_every(len(dil))
+        for ctx_kind in ("flat", "proj"):
+            g = torch.Generator(device="cuda").manual_seed(
+                41 + n + s + 2 * (ctx_kind == "proj"))
+
+            def rn(*shape_, scale=1.0):
+                return torch.randn(*shape_, generator=g,
+                                   device="cuda") * scale
+
+            label = shape if ctx_kind == "flat" else f"{shape} proj"
+            with torch.no_grad():
+                x = rn(b, t, r, scale=0.5)
+                if ctx_kind == "flat":
+                    ctx = rn(b, t, r, scale=0.5)
+                else:
+                    ctx = sk.ctx_flatten(
+                        (rn(b, t // 10, r, scale=0.5),
+                         rn(r, 10 * r, scale=r ** -0.5),
+                         rn(10 * r, scale=0.1)), f32)
+                args = (x, ctx, rn(n * b, 2 * r, scale=0.1),
+                        rn(n, win, 2 * r, scale=win ** -0.5),
+                        rn(n, r, r + s, scale=r ** -0.5),
+                        rn(n, r + s, scale=0.1), dil)
+                st = ks._stream(x)
+                what = f"stack_fwd_tails_f32 (R=128) {label}"
+                got = ks.stack_fwd_tails(*args)
+                want = sk.stack_fwd_tails_plain(*args)
+                errs = {}
+                for name, u, w in zip(("skip", "ckpt"), got, want):
+                    check(u.dtype == f32, f"{what} {name} is {u.dtype}")
+                    errs[name] = _err(u, w)
+                    check(errs[name] <= F32_BARS["fwd"] * _scale(w),
+                          f"{what} {name}: max err {errs[name]:.3g}, scale "
+                          f"{_scale(w):.3g}")
+                ckpt = want[1]
+                del got, want
+                bfa = (x.to(bf), ctx.to(bf), *args[2:])
+                fwd = dict(
+                    errs=errs, max_abs_err=max(errs.values()),
+                    ms=time_cuda(torch, lambda: ks.run_fwd_tails(
+                        lib, *args, stream=st), 3),
+                    bf16_ms=time_cuda(torch, lambda: ks.run_fwd_tails(
+                        lib, *bfa, stream=st), 3),
+                    plain_ms=time_cuda(
+                        torch, lambda: sk.stack_fwd_tails_plain(*args), 1))
+                dskip = rn(b, t, s, scale=1e-3)
+                bargs = (x, ckpt, *args[1:-1], dskip, dil)
+                what = f"stack_bwd_tails_f32 (R=128) {label}"
+                got = ks.stack_bwd_tails(*bargs)
+                want = sk.stack_bwd_tails_plain(*bargs)
+                errs = {}
+                for name, u, w in zip(("dx", "dctx", "db_fg", "dw_fg",
+                                       "dw_out", "db_out"), got, want):
+                    check(u.dtype == f32, f"{what} {name} is {u.dtype}")
+                    errs[name] = _err(u, w)
+                    check(errs[name] <= F32_BARS["bwd"] * _scale(w),
+                          f"{what} {name}: max err {errs[name]:.3g}, scale "
+                          f"{_scale(w):.3g}")
+                del got, want
+                _, ckpt_bf = ks.run_fwd_tails(lib, *bfa, stream=st)
+                bfb = (bfa[0], ckpt_bf, *bfa[1:-1], dskip.to(bf), dil)
+                bwd = dict(
+                    errs=errs, max_abs_err=max(errs.values()),
+                    ms=time_cuda(torch, lambda: ks.run_bwd_tails(
+                        lib, *bargs, stream=st), 3),
+                    bf16_ms=time_cuda(torch, lambda: ks.run_bwd_tails(
+                        lib, *bfb, stream=st), 3),
+                    plain_ms=time_cuda(
+                        torch, lambda: sk.stack_bwd_tails_plain(*bargs), 1))
+                del bfb, ckpt_bf
+                if shape == FLAGSHIP_R128_TAG and ctx_kind == "proj":
+                    bwd["by_grid"] = by_grid(torch, lambda: ks.run_bwd_tails(
+                        lib, *bargs, stream=st), WIDE_F32_GRIDS)
+                    print(grid_line(f"f32 kernel stack_bwd_tails_f32 "
+                                    f"{label}", bwd["by_grid"]), flush=True)
+                if shape == EXP02_R128_TAG and ctx_kind == "flat":
+                    # the rebuilds and the taps launches are the forward
+                    skip1, every_layer = ks.run_fwd_tails(lib, *args,
+                                                          stream=st, every=1)
+                    skip_k, ckpt_k = ks.run_fwd_tails(lib, *args, stream=st)
+                    check(torch.equal(skip1, skip_k) and all(
+                        torch.equal(ckpt_k[i], every_layer[l - 1])
+                        for i, l in enumerate(sk.ckpt_layers(n, every))),
+                        f"float32 R=128 {label}: the checkpoints differ "
+                        "from the forward's layer inputs")
+                    tail = (*args[1:-1], dskip, dil)
+                    check(all((u is None and v is None) or torch.equal(u, v)
+                              for u, v in zip(
+                                  ks.run_bwd_tails(lib, x, every_layer, *tail,
+                                                   stream=st, every=1),
+                                  ks.run_bwd_tails(lib, x, ckpt_k, *tail,
+                                                   stream=st))),
+                          f"float32 R=128 {label}: the backward from rebuilt "
+                          "inputs differs from the backward from every "
+                          "layer's input")
+                    print(f"f32 kernel stack_bwd_tails_f32 (R=128) {label}: "
+                          "the rebuilt layer inputs are the forward's, bit "
+                          "for bit", flush=True)
+                    del skip1, every_layer, skip_k, ckpt_k
+                del x, ctx, args, bfa, bargs, ckpt, dskip
+            torch.cuda.empty_cache()
+            bounds = tails_bounds(b, t, n, r, s, win, every, act=4)
+            for name, r_ in (("stack_fwd_tails", fwd),
+                             ("stack_bwd_tails", bwd)):
+                r_["bound"] = bounds[name]
+                rec[(f"{name}_f32 (R=128)", label)] = r_
+    for s, c, b in WIDE_F32_HEADS:
+        label = f"S={s} C={c} B={b}"
+        fwd, bwd = f32_head_compare(torch, s, c, b, "head_fwd_f32 (S=128)",
+                                    "head_bwd_f32 (S=128)",
+                                    (s, c, b) == WIDE_F32_HEADS[0])
+        rec[("head_fwd_f32 (S=128)", label)] = fwd
+        rec[("head_bwd_f32 (S=128)", label)] = bwd
+    for (name, label), r_ in rec.items():
+        print(f"f32 kernel {name} {label} (float32) vs plain: "
+              + ", ".join(f"{k} {x:.3g}" for k, x in r_["errs"].items())
+              + f"; kernel {r_['ms']:.3f} ms, bf16 form {r_['bf16_ms']:.3f} "
+              f"ms, plain (TF32 off) {r_['plain_ms']:.3f} ms, bound "
+              f"{r_['bound'][0]:.3f} ms ({r_['bound'][1]})", flush=True)
+    return rec
+
+
+def phase_wide_f32_cli(torch, np, root, ds):
+    """Phase 26 (b, c): (b) the trainer CLI at the flagship's depth at R =
+    S = 128 in float32 (FLAGSHIP_R128_FLAGS --compute_dtype float32) for 1
+    epoch of 4 steps on phase 16's clips: the default strategy resolves to
+    recompute, the trunk runs only the float32 recompute forms (at R =
+    128) and the head only the wide float32 forms (at S = 128), launched
+    exactly; finite losses, update ms and peak memory; then from
+    checkpoint 0 the fused route against the unfused one (``f32_routes``,
+    on the first row where B = 2 does not fit the unfused route); (c)
+    experiment 02's CLI with --compute_dtype float32 --residual_channels
+    128 (S = 8: the float32 head at (8, 64)) and then also with
+    --skip_channels 128 (the float32 head at (128, 64)), 3 updates each on
+    phase 14's clips (``ds``), launched exactly.  Returns (launches of the
+    kernel line's phase 26 entries on these runs, records)."""
+    from movenet_tpu_torch.config import arg_parser, config_from_args
+    from movenet_tpu_torch.data import kinetics_index
+    from movenet_tpu_torch.models.wavenet import make_wavenet
+    from movenet_tpu_torch.ops import stack_kernel as sk
+    from movenet_tpu_torch.ops.cuda import gated_block as kg
+    from movenet_tpu_torch.ops.cuda import head_loss as kh
+    from movenet_tpu_torch.ops.cuda import stack_kernel as ks
+
+    mods = (ks, kh, kg)
+    flag_ds = root / "flagship_clips"
+    f32 = ["--compute_dtype", "float32"]
+    launches = {k: 0 for k in {**WIDE_F32_KERNELS, **WIDE_F32_HEAD_KERNELS}}
+    runs, first = {}, None
+    cases = (("flagship", flag_ds, FLAGSHIP_R128_FLAGS, f32, 4),
+             ("exp02 R=128", ds, EXP02_FLAGS,
+              f32 + ["--residual_channels", "128"], 3),
+             ("exp02 R=S=128", ds, EXP02_FLAGS,
+              f32 + ["--residual_channels", "128", "--skip_channels",
+                     "128"], 3))
+    for key, data, flags, extra, n_steps in cases:
+        run = root / f"f32_r128_run_{len(runs)}"
+        logs = root / f"f32_r128_logs_{len(runs)}"
+        argv = ["--dataset", str(data), *flags, *extra, "--n_epochs", "1",
+                "--n_steps_per_epoch", str(n_steps), "--val_batch_size", "2",
+                "--model_output_path", str(run), "--logger", "jsonl",
+                "--training_logs_path", str(logs)]
+        cfg = config_from_args(arg_parser().parse_args(argv))
+        mc = cfg.model_config
+        dil = tuple(make_wavenet(mc).dilations)
+        strategy = sk.resolve_strategy(
+            "auto", (cfg.batch_size, mc.max_audio_frames,
+                     mc.residual_channels), len(dil), dil, 4)
+        check(strategy == "recompute",
+              f"float32 R=128 {key}: strategy {strategy}")
+        n_val = len(kinetics_index(data, train=False)) // 2
+        for mod in mods:
+            mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with timed_train_steps(torch, record=1) as steps:
+            state = trainer_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        got = {k: v for mod in mods for k, v in mod.launch_counts.items()}
+        m = state.module
+        check(state.step == n_steps, f"float32 R=128 trainer CLI ({key}) "
+              f"took {state.step} steps, not {n_steps}")
+        check((m.residual_channels, m.skip_channels, m.compute_dtype) ==
+              (128, mc.skip_channels, "float32"),
+              f"float32 R=128 trainer CLI ({key}) built R="
+              f"{m.residual_channels}, S={m.skip_channels}, "
+              f"{m.compute_dtype}")
+        head = "head_fwd_f32_wide" if mc.input_channels > kh.F32_RING_C \
+            else "head_fwd_f32"
+        want = {k: 0 for k in got}
+        want.update({"stack_fwd_tails_f32": n_steps + n_val,
+                     "stack_bwd_tails_f32": n_steps,
+                     head: n_steps + n_val,
+                     head.replace("fwd", "bwd"): n_steps})
+        check(got == want, f"float32 R=128 trainer CLI ({key}) launches "
+              f"{got}, expected {want}")
+        lines = [json.loads(l) for l in (logs / "metrics.jsonl").read_text()
+                 .splitlines()]
+        losses = [l["loss"] for l in lines if l["tag"] in ("train", "val")]
+        check(losses and all(np.isfinite(losses)),
+              f"float32 R=128 trainer CLI ({key}) losses {losses}")
+        median = float(np.median(steps.ms[1:]))
+        print(f"f32 trainer CLI {key} ({' '.join(flags + extra)}; R="
+              f"{m.residual_channels}, S={m.skip_channels}, C="
+              f"{m.input_channels}; strategy {strategy}): {n_steps} steps + "
+              f"{n_val} validation batches in {wall:.1f} s; step ms "
+              f"{[round(v, 2) for v in steps.ms]} (median after the first "
+              f"{median:.2f}); peak memory {peak:.3f} GB; losses "
+              f"{[round(v, 6) for v in losses]}; launches {got}", flush=True)
+        for k in ("stack_fwd_tails_f32", "stack_bwd_tails_f32"):
+            launches[f"{k} (R=128)"] += got[k]
+        if mc.skip_channels == 128:
+            for k in ("head_fwd", "head_bwd"):
+                launches[f"{k}_f32 (S=128)"] += \
+                    got[head.replace("head_fwd", k)]
+        runs[key] = dict(step_ms=median, peak_gb=peak, wall_s=wall,
+                         launches=got, ms=steps.ms)
+        if first is None:
+            first = (mc, run, steps.batches[0])
+        del state
+        torch.cuda.empty_cache()
+    mc, run, batch = first
+    fused_want = dict(stack_fwd_tails_f32=1, stack_bwd_tails_f32=1,
+                      head_fwd_f32_wide=1, head_bwd_f32_wide=1)
+    rows = 2
+    try:
+        errs, unfused_gb = f32_routes(
+            torch, np, mc, run, batch, fused_want,
+            f"{FLAGSHIP_R128_TAG} float32 fused vs unfused (checkpoint 0, "
+            "the run's first batch, B=2, T=160000)")
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        rows = 1
+        one = type(batch)(codes=batch.codes[:1],
+                          video=None if batch.video is None
+                          else batch.video[:1],
+                          labels=None if batch.labels is None
+                          else batch.labels[:1])
+        errs, unfused_gb = f32_routes(
+            torch, np, mc, run, one, fused_want,
+            f"{FLAGSHIP_R128_TAG} float32 fused vs unfused (checkpoint 0, "
+            "the first row of the run's first batch: the unfused route does "
+            "not fit the card at B=2)")
+    return launches, dict(runs=runs, errs=errs, rows=rows,
+                          unfused_gb=unfused_gb)
+
+
 def main() -> int:
     import numpy as np
     import torch
 
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -4780,6 +5159,11 @@ def main() -> int:
         t0 = time.perf_counter()
         r128_recs = phase_wide_tails_kernels(torch, np)
         r128_s = time.perf_counter() - t0
+        phase = "26 (a) float32 recompute kernels at R = 128 and head at " \
+            "S = 128 vs plain"
+        t0 = time.perf_counter()
+        f32w_recs = phase_wide_f32_kernels(torch, np)
+        f32w_s = time.perf_counter() - t0
         with tempfile.TemporaryDirectory() as tmp:
             phase = "trainer CLI"
             cli_launches, cli_step_ms, ds = phase_trainer_cli(
@@ -4834,6 +5218,12 @@ def main() -> int:
             for k in {**F32_TAILS_KERNELS, **F32_WIDE_KERNELS}:
                 launches[k] = f32g_launches[k]
             print(f"phase 9g: {f32g_s:.1f} s", flush=True)
+            phase = "26 (b, c) float32 trainer CLI at R = 128"
+            t0 = time.perf_counter()
+            f32w_launches, f32w_cli = phase_wide_f32_cli(torch, np,
+                                                         Path(tmp), ds)
+            f32w_s += time.perf_counter() - t0
+            print(f"phase 26: {f32w_s:.1f} s", flush=True)
 
         phase = "packed head"
         packed_recs, packed_launches = phase_packed_head(torch, np, bd_model,
@@ -4953,6 +5343,18 @@ def main() -> int:
             print(f"time {name} {label}: kernel {r['ms']:.3f} ms, plain "
                   f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms; "
                   f"{card}", flush=True)
+        for (name, label), r in f32w_recs.items():
+            print(f"time {name} {label}: kernel {r['ms']:.3f} ms, bf16 form "
+                  f"{r['bf16_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                  f"bound {r['bound'][0]:.3f} ms; {card}", flush=True)
+        for key, r in f32w_cli["runs"].items():
+            print(f"time f32 trainer CLI {key} at R=128 (float32, "
+                  f"recompute): update {r['step_ms']:.2f} ms (median after "
+                  f"the first), peak memory {r['peak_gb']:.3f} GB; {card}",
+                  flush=True)
+        print(f"time {FLAGSHIP_R128_TAG} float32 routes: the unfused "
+              f"route's loss + backward on {f32w_cli['rows']} row(s) peaked "
+              f"at {f32w_cli['unfused_gb']:.3f} GB; {card}", flush=True)
         k, pl = runs["kernels"], runs["plain"]
         print(f"time train (breakdancing, B=2, T=160000, bf16): step "
               f"{k['step_ms']:.2f} ms, {1e3 / k['step_ms']:.3f} steps/s, "
@@ -5296,15 +5698,53 @@ def main() -> int:
                     **({"by_grid_ms": x["by_grid"]} if "by_grid" in x
                        else {}))
                     for label, x in others]})
+        # phase 26: the float32 recompute forms at R = 128, timed at the
+        # flagship's depth with the video triple, and the float32 head at
+        # S = 128, timed at the flagship's (128, 256, 2); launched by the
+        # trainer CLI runs of phase 26 (b, c)
+        main_label = {**{k: f"{FLAGSHIP_R128_TAG} proj"
+                         for k in WIDE_F32_KERNELS},
+                      **{k: "S=128 C=256 B=2" for k in WIDE_F32_HEAD_KERNELS}}
+        for name, (source, replaces) in {**WIDE_F32_KERNELS,
+                                         **WIDE_F32_HEAD_KERNELS}.items():
+            r = f32w_recs[(name, main_label[name])]
+            others = [(label, x) for (n, label), x in f32w_recs.items()
+                      if n == name and label != main_label[name]]
+            trunk = "tails" in name
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces + (" (float32, R = 128)" if trunk
+                                        else " (float32, S = 128)"),
+                "launches": f32w_launches[name],
+                "max_abs_err": max([r["max_abs_err"]]
+                                   + [x["max_abs_err"] for _, x in others]),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None, "matches_plain": True,
+                "bf16_ms": r["bf16_ms"],
+                "shape": ("flagship depth at R=S=128: B=2, T=160000, L=30 "
+                          "(dilations 1..512 x 3), float32, video "
+                          "projection triple" if trunk else
+                          "S=128, C=256, B=2, T=160000, float32, parity CE")
+                + " (max_abs_err over the widths)",
+                **({"by_grid_ms": r["by_grid"]} if "by_grid" in r else {}),
+                "widths": [dict(
+                    shape=label, ms=x["ms"], bf16_ms=x["bf16_ms"],
+                    plain_ms=x["plain_ms"], max_abs_err=x["max_abs_err"],
+                    bound_ms=x["bound"][0], bound_by=x["bound"][1])
+                    for label, x in others]})
         # every form of the fourteen TPU kernel functions: the AR kernel's
         # four and the speculative kernel's two, the ten training kernels,
         # the two packed ones, the four float32 save and C <= 128 head
         # forms, the four float32 recompute and wide head forms, the
-        # replay strategy's four (bf16 and float32) and the recompute and
-        # replay forms at R = 128
-        check(len(kernels) == 34, f"{len(kernels)} kernels in the line")
+        # replay strategy's four (bf16 and float32), the recompute and
+        # replay forms at R = 128 and the float32 recompute and head forms
+        # at R = S = 128
+        check(len(kernels) == 38, f"{len(kernels)} kernels in the line")
         check(all(k["launches"] > 0 for k in kernels),
               "a kernel of the path was not launched")
+        print(f"chip_smoke: every phase passed in "
+              f"{time.perf_counter() - t_run:.1f} s", flush=True)
         print(json.dumps({"kernels": kernels}))
         print(card)
     except PhaseFailed as e:

@@ -1681,8 +1681,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // _fwd_kernel and :336 _bwd_kernel, whose roundings to in_dtype do nothing
 // in float32): skip, p and dskip float32, and every product with float32
 // operands as split-TF32 mma.sync m16n8k8 in three passes (no operand is
-// exact in TF32).  4 <= S <= 64 and 4 <= C <= 128, multiples of 4, here;
+// exact in TF32).  4 <= S <= 128 and 4 <= C <= 128, multiples of 4, here;
 // above C = 128 the wide kernels below, whose W2 streams through a ring.
+// Above S = 64 dskip's n tiles run in two halves of 8 over the same dy
+// fragments (the same sums, in the same order).
 // The design is the bf16 unpacked kernels' with float32 tiles and the
 // packed kernels' fragments: a block of 8 warps stages W1 and W2 once as
 // float32 (SP and CP: S and C rounded up to 8, zero-padded; rows of 8 mod
@@ -1773,6 +1775,25 @@ __device__ __forceinline__ void f32_a_rows(const float* p, int ld, int k0,
   frag_set<true>(f, x);
 }
 
+// The same A of leaky(skip) read from a warp's 16 rows of skip in global
+// memory from row m0 (the wide kernels above S = 64, which stage no rows):
+// zero at or past hi and past S (a multiple of 4: a pair lies wholly in or
+// past it)
+__device__ __forceinline__ void f32_a_skip(const float* skip, int S, long m0,
+                                           long hi, int k0, Frag<4>& f) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const int k = k0 + 2 * q;
+  float2 u = make_float2(0.f, 0.f), v = u;
+  if (k < S) {
+    if (m0 + g < hi)
+      u = *reinterpret_cast<const float2*>(skip + (m0 + g) * S + k);
+    if (m0 + g + 8 < hi)
+      v = *reinterpret_cast<const float2*>(skip + (m0 + g + 8) * S + k);
+  }
+  const float x[4] = {leaky(u.x), leaky(v.x), leaky(u.y), leaky(v.y)};
+  frag_set<true>(f, x);
+}
+
 // The warp's 16 rows of leaky(skip) from row m0 into lsk (row stride lds),
 // zero at or past hi and past S up to SP
 __device__ __forceinline__ void stage_lskip_f32(const float* skip, int S,
@@ -1788,12 +1809,14 @@ __device__ __forceinline__ void stage_lskip_f32(const float* skip, int S,
   __syncwarp();
 }
 
-// y[c] (without b1) of the row whose leaky(skip) is lrow, as the plain
-// version forms it: an fmaf chain over k in order from zero
+// y[c] (without b1) of the row whose leaky(skip) is lrow (or, with lg, of
+// the row of skip at lrow), as the plain version forms it: an fmaf chain
+// over k in order from zero
 __device__ float exact_y_f32(const float* lrow, const float* w1s, int ld,
-                             int S, int c) {
+                             int S, int c, bool lg = false) {
   float acc = 0.f;
-  for (int k = 0; k < S; ++k) acc = fmaf(lrow[k], w1s[wrow(k) * ld + c], acc);
+  for (int k = 0; k < S; ++k)
+    acc = fmaf(lg ? leaky(lrow[k]) : lrow[k], w1s[wrow(k) * ld + c], acc);
   return acc;
 }
 
@@ -1806,10 +1829,10 @@ __device__ float exact_y_f32(const float* lrow, const float* w1s, int ld,
 __device__ int exact_argmax_f32(const float* lrow, const float* w1s,
                                 const float* w2, const float* b1,
                                 const float* b2, float* scr, int S, int C,
-                                int ld, int ld2, bool w2_wrow) {
+                                int ld, int ld2, bool w2_wrow, bool lg) {
   const int lane = threadIdx.x & 31;
   for (int c = lane; c < C; c += 32)
-    scr[c] = leaky(exact_y_f32(lrow, w1s, ld, S, c) + b1[c]);
+    scr[c] = leaky(exact_y_f32(lrow, w1s, ld, S, c, lg) + b1[c]);
   __syncwarp();
   float v = -INFINITY;
   int col = C;
@@ -1840,13 +1863,14 @@ __device__ int exact_argmax_f32(const float* lrow, const float* w1s,
 // them) of a warp's slab [r0 - g, + 16): the two largest logits and the
 // first argmax of each row, the NLL, p; near-tied rows take the argmax of
 // exact_argmax_f32; loss and match gain the valid rows (lanes q = 0) and p
-// is stored (a.p_out).
+// is stored (a.p_out).  lsk holds the slab's leaky(skip) rows or, with lg,
+// points at its rows of skip (lds = S).
 template <int NT>
 __device__ __forceinline__ void fwd_rows_f32(
     const HeadArgs& a, float (&z)[NT][4], int nt, long r0, long hi,
     const float* lsk, int lds, const float* w1s, int ldc, const float* w2,
     int ld2, bool w2_wrow, const float* b1, const float* b2, float* scr,
-    float& loss, float& match) {
+    float& loss, float& match, bool lg = false) {
   const int C = a.c, S = a.s;
   const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
   // per row (h: rows r0, r0 + 8): the two largest logits, the first
@@ -1939,7 +1963,7 @@ __device__ __forceinline__ void fwd_rows_f32(
       const int src = __ffs(ties) - 1, row = (src >> 2) + 8 * h;
       ties &= ties - 1;
       const int col = exact_argmax_f32(lsk + row * lds, w1s, w2, b1, b2, scr,
-                                       S, C, ldc, ld2, w2_wrow);
+                                       S, C, ldc, ld2, w2_wrow, lg);
       if (g == (src >> 2)) am[h] = col;
     }
   }
@@ -2074,8 +2098,9 @@ __device__ __forceinline__ void store_rows_f32(float* x, int ld, long m0,
 // within kTieMargin of zero formed again in the plain version's order
 // (dleaky reads its sign: a flip moves that dy by 100x); y > 0 as bit 4 j
 // + e (n tile j, element e) of yp, leaky(y) stored to a.ly_f, and y left
-// as leaky(y).
-template <int NT>
+// as leaky(y).  GS: the rows of skip read from global memory (lsk = skip
+// + m0 S, lds = S; see f32_a_skip).
+template <int NT, bool GS = false>
 __device__ __forceinline__ void rebuild_y_f32(const HeadArgs& a,
                                               float (&y)[NT][4],
                                               unsigned (&yp)[(NT + 7) / 8],
@@ -2094,7 +2119,10 @@ __device__ __forceinline__ void rebuild_y_f32(const HeadArgs& a,
     if (j < nt) {
       for (int k0 = 0; k0 < SP; k0 += 8) {
         Frag<4> fa;
-        f32_a_rows(lsk, lds, k0, fa);
+        if (GS)
+          f32_a_skip(a.skip_f, S, m0, hi, k0, fa);
+        else
+          f32_a_rows(lsk, lds, k0, fa);
         Frag<2> fb;
         f32_b_w(w1s, ldc, k0, 8 * j, fb);
         mma_split_add<true>(y[j], fa, fb);
@@ -2119,10 +2147,10 @@ __device__ __forceinline__ void rebuild_y_f32(const HeadArgs& a,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 8 * j + 2 * q + (e & 1);
-      if (j < nt && c < C &&
+      if (j < nt && c < C && (!GS || m0 + g + 8 * (e >> 1) < hi) &&
           fabsf(y[j][e]) <= kTieMargin * (1.f + ymax[e >> 1]))
         y[j][e] = exact_y_f32(lsk + (g + 8 * (e >> 1)) * lds, w1s, ldc, S,
-                              c) + b1[c];
+                              c, GS) + b1[c];
     }
 #pragma unroll
   for (int i = 0; i < (NT + 7) / 8; ++i) yp[i] = 0u;
@@ -2220,18 +2248,20 @@ __device__ __forceinline__ void dz_from_p_f32(const HeadArgs& a,
   }
 }
 
-// dskip = ds * dleaky(skip) of a warp's slab (ds: the 8 n tiles of dy
-// W1^T), stored in float32 (leaky(skip) and skip have the same sign)
+// dskip = ds * dleaky(skip) of a warp's slab (ds: n tiles i0 .. i0 + 7 of
+// dy W1^T, of ns), stored in float32 (leaky(skip) and skip have the same
+// sign: lsk may be the slab's rows of skip)
 __device__ __forceinline__ void store_dskip_f32(const HeadArgs& a,
                                                 const float (&ds)[8][4],
-                                                int ns, long r0, long hi,
-                                                const float* lsk, int lds) {
+                                                int ns, int i0, long r0,
+                                                long hi, const float* lsk,
+                                                int lds) {
   const int S = a.s;
   const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int col = 8 * i + 2 * q;
-    if (i < ns && col < S) {
+    const int col = 8 * (i0 + i) + 2 * q;
+    if (i0 + i < ns && col < S) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const long r = r0 + 8 * h;
@@ -2323,26 +2353,28 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 4; ++e) y[j][e] *= dleaky_bit(yp, j, e);
     colsum_add<NT>(y, nt, cs1);
     store_rows_f32<NT>(a.dy_f, CP, m0, hi, nt, y);
-    // dskip = dy W1^T * dleaky(skip)
-    float ds[8][4];
+    // dskip = dy W1^T * dleaky(skip), 8 n tiles at a time
+    for (int i0 = 0; i0 < ns; i0 += 8) {
+      float ds[8][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ds[i][e] = 0.f;
+        for (int e = 0; e < 4; ++e) ds[i][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j >= nt) break;
-      Frag<4> fa;
-      a_from_c<true>(y[j], fa);
+      for (int j = 0; j < NT; ++j) {
+        if (j >= nt) break;
+        Frag<4> fa;
+        a_from_c<true>(y[j], fa);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (i >= ns) break;
-        Frag<2> fb;
-        f32_b_wt(w1s, ldc, 8 * j, 8 * i, fb);
-        mma_split_add<true>(ds[i], fa, fb);
+        for (int i = 0; i < 8; ++i) {
+          if (i0 + i >= ns) break;
+          Frag<2> fb;
+          f32_b_wt(w1s, ldc, 8 * j, 8 * (i0 + i), fb);
+          mma_split_add<true>(ds[i], fa, fb);
+        }
       }
+      store_dskip_f32(a, ds, ns, i0, r0, hi, lsk, lds);
     }
-    store_dskip_f32(a, ds, ns, r0, hi, lsk, lds);
   }
   __syncthreads();
   // partial: dw1 (S*C) | db1 (C) | dw2 (C*C) | db2 (C); the weight
@@ -2353,7 +2385,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------- float32 at 128 < C <= 256 (W2 through a ring)
 //
 // The wide float32 kernels (head_fwd_f32_wide_kernel,
-// head_bwd_f32_wide_kernel; 4 <= S <= 64, 128 < C <= 256, multiples of 4):
+// head_bwd_f32_wide_kernel; 4 <= S <= 128, 128 < C <= 256, multiples of 4):
 // W2 in float32 at C = 256 takes 270 KB with its row padding, more than a
 // block's shared memory, so only W1 is staged once; W2 streams through a
 // ring of two stages of kRing rows (cp.async, at rows wrow(k) as above)
@@ -2370,30 +2402,40 @@ __global__ void __launch_bounds__(kThreads, 1)
 // s, + kRing): dy = dz W2^T there, times dleaky(y), stored, its column
 // sums added, and dskip += dy W1^T at once (dskip's 8 n tiles in
 // registers).  The weight gradients are head_wgrad_f32_kernel's, as for C
-// <= 128.
+// <= 128.  Above S = 64 (GS: the R = 128 trunk's skip width) W1 staged
+// whole is 135,168 bytes at C = 256, so the warps stage no rows of
+// leaky(skip): its fragments are read from global memory (f32_a_skip), as
+// the bf16 forward's y_seq reads them above C = 128, and the plain-order
+// re-sums read the row of skip there; the backward's dskip then runs in
+// two halves of 8 n tiles after the ring, from the dy rows it stored (dy
+// W1^T in the k order of the in-ring sums, so the same bits).
 constexpr int kRing = 32;
 
 // The float32 wide kernels' shared memory (ops/cuda/head_loss.f32_smem
 // mirrors it): W1 (SP, ldc) at rows wrow(k), the ring (2, kRing, ldc),
 // then the forward's b1, b2 (CP each), block sums (2, kThreads) and per warp
-// its leaky(skip) rows (16, lds) and a row of CP floats; the backward's b1,
-// the warps' column sums (kWarps, 2, CP) and per warp its leaky(skip)
-// rows.
+// its leaky(skip) rows (16, lds; none above S = 64) and a row of CP floats;
+// the backward's b1, the warps' column sums (kWarps, 2, CP) and per warp
+// its leaky(skip) rows (none above S = 64).
 struct F32Wide {
   F32Head h;
   __host__ __device__ F32Wide(int s, int c) : h(s, c) {}
+  // the rows of skip come from global memory (GS)
+  __host__ __device__ bool gs() const { return h.sp > 64; }
   __host__ __device__ size_t ring() const {
     return static_cast<size_t>(2) * kRing * h.ldc;
   }
+  __host__ __device__ size_t rows() const {
+    return gs() ? 0 : static_cast<size_t>(16) * h.lds;
+  }
   __host__ __device__ size_t fwd_bytes() const {
     return 4 * (static_cast<size_t>(h.sp) * h.ldc + ring() + 2 * h.cp +
-                2 * kThreads +
-                static_cast<size_t>(kWarps) * (16 * h.lds + h.cp));
+                2 * kThreads + static_cast<size_t>(kWarps) * (rows() + h.cp));
   }
   __host__ __device__ size_t bwd_bytes() const {
     return 4 * (static_cast<size_t>(h.sp) * h.ldc + ring() + h.cp +
                 static_cast<size_t>(kWarps) * 2 * h.cp +
-                static_cast<size_t>(kWarps) * 16 * h.lds);
+                static_cast<size_t>(kWarps) * rows());
   }
 };
 
@@ -2410,7 +2452,7 @@ __device__ __forceinline__ void ring_fetch(const float* w2, int C, int CP,
   cp_async_commit();
 }
 
-template <int NT>
+template <int NT, bool GS>
 __global__ void __launch_bounds__(kThreads, 1)
     head_fwd_f32_wide_kernel(HeadArgs a) {
   const int S = a.s, C = a.c;
@@ -2424,8 +2466,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* red = b2 + CP;                           // (2, kThreads)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
-  float* lsk = red + 2 * kThreads + warp * (16 * lds + CP);   // (16, lds)
-  float* scr = lsk + 16 * lds;                                 // (CP)
+  const int nrow = GS ? 0 : 16 * lds;
+  float* lsk = red + 2 * kThreads + warp * (nrow + CP);   // (16, lds)
+  float* scr = lsk + nrow;                                 // (CP)
   const int nt = CP / 8, nslab = (CP + kRing - 1) / kRing;
   ring_fetch(a.w2, C, CP, ldc, 0, ring);
   stage_w_f32(a.w1, S, C, SP, CP, w1s, ldc);
@@ -2439,7 +2482,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   int it = 0;                      // ring stages taken: stage it & 1
   for (long mb = lo; mb < hi; mb += 16 * kWarps) {
     const long m0 = mb + 16 * warp, r0 = m0 + g;
-    stage_lskip_f32(a.skip_f, S, SP, m0, hi, lsk, lds);
+    if (!GS) stage_lskip_f32(a.skip_f, S, SP, m0, hi, lsk, lds);
     float z[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -2458,7 +2501,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         float y[4] = {0.f, 0.f, 0.f, 0.f};
         for (int k0 = 0; k0 < SP; k0 += 8) {
           Frag<4> fa;
-          f32_a_rows(lsk, lds, k0, fa);
+          if (GS)
+            f32_a_skip(a.skip_f, S, m0, hi, k0, fa);
+          else
+            f32_a_rows(lsk, lds, k0, fa);
           Frag<2> fb;
           f32_b_w(w1s, ldc, k0, 8 * j, fb);
           mma_split_add<true>(y, fa, fb);
@@ -2477,8 +2523,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
       }
     }
-    fwd_rows_f32<NT>(a, z, nt, r0, hi, lsk, lds, w1s, ldc, a.w2, C, false,
-                     b1, b2, scr, loss, match);
+    if (GS)
+      fwd_rows_f32<NT>(a, z, nt, r0, hi, a.skip_f + m0 * S, S, w1s, ldc,
+                       a.w2, C, false, b1, b2, scr, loss, match, true);
+    else
+      fwd_rows_f32<NT>(a, z, nt, r0, hi, lsk, lds, w1s, ldc, a.w2, C, false,
+                       b1, b2, scr, loss, match);
   }
   // the last stage fetched lands before the block's shared memory goes
   cp_async_wait<0>();
@@ -2486,7 +2536,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   block_sums_f32(a, red, loss, match);
 }
 
-template <int NT>
+template <int NT, bool GS>
 __global__ void __launch_bounds__(kThreads, 1)
     head_bwd_f32_wide_kernel(HeadArgs a) {
   const int S = a.s, C = a.c;
@@ -2498,8 +2548,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* b1 = ring + 2 * kRing * ldc;             // (CP)
   float* cs = b1 + CP;   // (kWarps, 2, CP): each warp's db2, db1 sums
   const int tid = threadIdx.x, warp = tid >> 5;
-  const int g = (tid & 31) >> 2;
-  float* lsk = cs + kWarps * 2 * CP + warp * 16 * lds;   // (16, lds)
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  float* lsk = cs + kWarps * 2 * CP + warp * 16 * lds;   // (16, lds): !GS
   const int nt = CP / 8, ns = SP / 8, nslab = (CP + kRing - 1) / kRing;
   ring_fetch(a.w2, C, CP, ldc, 0, ring);
   stage_w_f32(a.w1, S, C, SP, CP, w1s, ldc);
@@ -2514,12 +2564,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   int it = 0;                      // ring stages taken: stage it & 1
   for (long mb = lo; mb < hi; mb += 16 * kWarps) {
     const long m0 = mb + 16 * warp, r0 = m0 + g;
-    stage_lskip_f32(a.skip_f, S, SP, m0, hi, lsk, lds);
+    // the slab's leaky(skip) rows, or (GS) its rows of skip in place
+    const float* lrows = GS ? a.skip_f + m0 * S : lsk;
+    const int ldr = GS ? S : lds;
+    if (!GS) stage_lskip_f32(a.skip_f, S, SP, m0, hi, lsk, lds);
     unsigned yp[(NT + 7) / 8];
     float d[NT][4];
     {
       float y[NT][4];
-      rebuild_y_f32<NT>(a, y, yp, nt, m0, hi, lsk, lds, w1s, ldc, b1);
+      rebuild_y_f32<NT, GS>(a, y, yp, nt, m0, hi, lrows, ldr, w1s, ldc, b1);
     }
     dz_from_p_f32<NT>(a, d, nt, r0, hi, dloss);
     colsum_add<NT>(d, nt, cs2);
@@ -2553,6 +2606,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int e = 0; e < 4; ++e) dy[0][e] *= dleaky_bit(yp, jn, e);
         colsum_add<1>(dy, 1, cs1 + 8 * jn);
         store_rows_f32<1>(a.dy_f + 8 * jn, CP, m0, hi, 1, dy);
+        if (GS) continue;
         // dskip += dy W1^T over this n tile's k step
         Frag<4> fa;
         a_from_c<true>(dy[0], fa);
@@ -2565,7 +2619,45 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    store_dskip_f32(a, ds, ns, r0, hi, lsk, lds);
+    if (!GS) {
+      store_dskip_f32(a, ds, ns, 0, r0, hi, lsk, lds);
+      continue;
+    }
+    // GS: dskip = dy W1^T, 8 n tiles at a time, k (dy's n tiles) in order
+    // from the dy rows the warp stored
+    __syncwarp();
+    for (int i0 = 0; i0 < ns; i0 += 8) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[i][e] = 0.f;
+      for (int jn = 0; jn < nt; ++jn) {
+        const int col = 8 * jn + 2 * q;
+        float c4[4] = {0.f, 0.f, 0.f, 0.f};
+        if (r0 < hi) {
+          const float2 u =
+              *reinterpret_cast<const float2*>(a.dy_f + r0 * CP + col);
+          c4[0] = u.x;
+          c4[1] = u.y;
+        }
+        if (r0 + 8 < hi) {
+          const float2 u =
+              *reinterpret_cast<const float2*>(a.dy_f + (r0 + 8) * CP + col);
+          c4[2] = u.x;
+          c4[3] = u.y;
+        }
+        Frag<4> fa;
+        a_from_c<true>(c4, fa);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (i0 + i >= ns) break;
+          Frag<2> fb;
+          f32_b_wt(w1s, ldc, 8 * jn, 8 * (i0 + i), fb);
+          mma_split_add<true>(ds[i], fa, fb);
+        }
+      }
+      store_dskip_f32(a, ds, ns, i0, r0, hi, lrows, ldr);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -2590,7 +2682,7 @@ __global__ void __launch_bounds__(kWgThreads)
   const int tiles2 = tiles_n * tiles_n;
   const bool is_w1 = static_cast<int>(blockIdx.x) >= tiles2;
   const int t = is_w1 ? blockIdx.x - tiles2 : blockIdx.x;
-  const int m0 = is_w1 ? 0 : (t / tiles_n) * kWgTile;
+  const int m0 = (t / tiles_n) * kWgTile;   // dW1: SP / 64 row tiles
   const int n0 = (t % tiles_n) * kWgTile;
   const int S = a.s, C = a.c;
   const F32Head L(S, C);
@@ -2608,8 +2700,9 @@ __global__ void __launch_bounds__(kWgThreads)
       const bool in = r + row < hi;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (is_w1) {
-        if (in && c4 < S) {
-          v = *reinterpret_cast<const float4*>(a.skip_f + (r + row) * S + c4);
+        if (in && m0 + c4 < S) {
+          v = *reinterpret_cast<const float4*>(a.skip_f + (r + row) * S + m0 +
+                                               c4);
           v = make_float4(leaky(v.x), leaky(v.y), leaky(v.z), leaky(v.w));
         }
       } else if (in && m0 + c4 < CP) {
@@ -2795,8 +2888,11 @@ struct FwdF32Launch {
   template <int NT>
   int run() const {
     if constexpr (NT > 16)
-      return launch(head_fwd_f32_wide_kernel<NT>, a,
-                    F32Wide(a.s, a.c).fwd_bytes(), blocks, st);
+      return F32Wide(a.s, a.c).gs()
+                 ? launch(head_fwd_f32_wide_kernel<NT, true>, a,
+                          F32Wide(a.s, a.c).fwd_bytes(), blocks, st)
+                 : launch(head_fwd_f32_wide_kernel<NT, false>, a,
+                          F32Wide(a.s, a.c).fwd_bytes(), blocks, st);
     else
       return launch(head_fwd_f32_kernel<NT>, a,
                     F32Head(a.s, a.c).fwd_bytes(), blocks, st);
@@ -2810,8 +2906,11 @@ struct BwdF32Launch {
   template <int NT>
   int run() const {
     if constexpr (NT > 16)
-      return launch(head_bwd_f32_wide_kernel<NT>, a,
-                    F32Wide(a.s, a.c).bwd_bytes(), blocks, st);
+      return F32Wide(a.s, a.c).gs()
+                 ? launch(head_bwd_f32_wide_kernel<NT, true>, a,
+                          F32Wide(a.s, a.c).bwd_bytes(), blocks, st)
+                 : launch(head_bwd_f32_wide_kernel<NT, false>, a,
+                          F32Wide(a.s, a.c).bwd_bytes(), blocks, st);
     else
       return launch(head_bwd_f32_kernel<NT>, a,
                     F32Head(a.s, a.c).bwd_bytes(), blocks, st);
@@ -2830,7 +2929,7 @@ size_t f32_bytes(int s, int c, bool bwd) {
 }
 
 bool f32_supports(int s, int c) {
-  return s >= 4 && c >= 4 && s % 4 == 0 && c % 4 == 0 && s <= 64 &&
+  return s >= 4 && c >= 4 && s % 4 == 0 && c % 4 == 0 && s <= 128 &&
          c <= 256 && f32_bytes(s, c, false) <= kSmemLimit &&
          f32_bytes(s, c, true) <= kSmemLimit;
 }
@@ -2959,7 +3058,7 @@ int movenet_head_bwd(const bf16_t* skip, const int* pack, int pack_cols,
   return static_cast<int>(cudaGetLastError());
 }
 
-// 1 if the float32 kernels take skip width s and c classes (4 <= S <= 64,
+// 1 if the float32 kernels take skip width s and c classes (4 <= S <= 128,
 // 4 <= C <= 256, multiples of 4)
 int movenet_head_f32_supports(int s, int c) { return f32_supports(s, c); }
 
@@ -3023,7 +3122,9 @@ int movenet_head_bwd_f32(const float* skip, const int* pack, int pack_cols,
   int err = dispatch_f32(cp, BwdF32Launch{a, blocks, st});
   if (err) return err;
   const int tiles_n = (cp + kWgTile - 1) / kWgTile;
-  head_wgrad_f32_kernel<<<dim3(tiles_n * tiles_n + tiles_n, blocks),
+  const int tiles_s = (F32Head(s, c).sp + kWgTile - 1) / kWgTile;
+  head_wgrad_f32_kernel<<<dim3(tiles_n * tiles_n + tiles_s * tiles_n,
+                               blocks),
                           kWgThreads, 0, st>>>(a, tiles_n);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;

@@ -355,7 +355,7 @@ struct BwdShape {
   // float32 form
   static constexpr int kLdhf = 3 * R + 4;
   static_assert(kLdhf <= kLdd + kLdf, "the operand rows fit the tile");
-  static size_t smem_rcf32(int win) { return smem_f32(win); }
+  static size_t smem_rcf32(int win);
 };
 
 // The wide save backward's block (R > kNarrowR): 8 warps on 64-row tiles,
@@ -395,6 +395,14 @@ size_t BwdShape<R, S>::smem(int win) {
     return WideBwd<R, S>::kBytes;
   else
     return static_cast<size_t>(R * kLdd + win * kLdf) * 4 + kHalves * kTile;
+}
+
+template <int R, int S>
+size_t BwdShape<R, S>::smem_rcf32(int win) {
+  if constexpr (R > kNarrowR)
+    return WideBwd<R, S>::kBytes;
+  else
+    return smem_f32(win);
 }
 
 template <int R, int S>
@@ -528,8 +536,16 @@ __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
 // tf * sg (float32) in global memory for the W_out gradient (MODE 3).
 // dh and dskip take dd's bytes once every warp is done with the operand
 // rows; the steps after are the save form's.
-template <int R, int S, bool RC>
+// F32: the recompute form in float32 (stack_bwd_tails_f32 at R = 128).
+// Its taps (float32) come from global memory, where the layer's taps launch
+// (stack_layer_f32_kernel with the taps alone, the forward's arithmetic)
+// put them just before; they are widened into ff as the save form's are,
+// gated = tf * sg (float32) goes to global memory for the W_out gradient
+// (MODE 6) where dgated meets them, and every product adds its k steps in
+// float32 (mma_split_add), as the narrow float32 forms do.
+template <int R, int S, int FORM>
 __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
+  constexpr bool RC = FORM == kBwdRc, F32 = FORM == kBwdRcF32;
   using W = WideBwd<R, S>;
   constexpr int ROWS = W::kRows, SW = W::kSw, NO = W::kNo, THREADS = W::kThreads;
   constexpr int LDD = W::kLdd, LDF = W::kLdf, LDS = W::kLds;
@@ -597,7 +613,14 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
           }
         }
         *reinterpret_cast<float4*>(a.dh + m * R + j0) = v;
-        if (!RC) {
+        if (F32) {
+          const float4 t4 =
+              *reinterpret_cast<const float4*>(a.tfsg_f + m * 2 * R + j0);
+          const float4 s4 = *reinterpret_cast<const float4*>(
+              a.tfsg_f + m * 2 * R + R + j0);
+          tf[0] = t4.x, tf[1] = t4.y, tf[2] = t4.z, tf[3] = t4.w;
+          sg[0] = s4.x, sg[1] = s4.y, sg[2] = s4.z, sg[3] = s4.w;
+        } else if (!RC) {
           load4(a.tfsg + m * 2 * R + j0, tf);
           load4(a.tfsg + m * 2 * R + R + j0, sg);
         }
@@ -704,7 +727,10 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
           for (int jj = 0; jj < 2; ++jj) {
             Frag<2> fb;
             load_b_cols(w + (n0 + 8 * jj) * LDD + k0, LDD, fb);
-            mma_split<true>(acc[jj], fa, fb);
+            if constexpr (F32)
+              mma_split_add<true>(acc[jj], fa, fb);
+            else
+              mma_split<true>(acc[jj], fa, fb);
           }
         }
         // dfg from the taps at the same places
@@ -717,6 +743,12 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
             const float2 tw = *reinterpret_cast<const float2*>(fp);
             const float2 sw = *reinterpret_cast<const float2*>(fp + R);
             const float tf[2] = {tw.x, tw.y}, sg[2] = {sw.x, sw.y};
+            if (F32) {
+              const long m = m0 + r0 + g + 8 * e;
+              if (m < a.m_total)
+                *reinterpret_cast<float2*>(a.gated + m * R + c) =
+                    make_float2(tf[0] * sg[0], tf[1] * sg[1]);
+            }
             float df[2], dq[2];
 #pragma unroll
             for (int k = 0; k < 2; ++k) {
@@ -749,7 +781,10 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
         for (int jj = 0; jj < 2; ++jj) {
           Frag<2> fb;
           load_b_cols(w + (n0 + 8 * jj) * LDF + k0, LDF, fb);
-          mma_split<true>(acc[jj], fa, fb);
+          if constexpr (F32)
+            mma_split_add<true>(acc[jj], fa, fb);
+          else
+            mma_split<true>(acc[jj], fa, fb);
         }
       }
 #pragma unroll
@@ -810,15 +845,18 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
 // bytes of its [dh | dskip] and dfg rows; each warp forms fg for its dgated
 // columns as split-TF32 mma.sync from W_fg in shared memory (its float32
 // values), keeps tf and sg in registers as kBwdRc does, and after a barrier
-// the tile's dh and dskip take those bytes.
+// the tile's dh and dskip take those bytes.  At R > kNarrowR the forms run
+// save_wide_bwd: kBwdSave, kBwdRc, and kBwdRcF32 on the taps of the
+// layer's taps launch.
 template <int R, int S, int FORM>
 __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
                                   BwdShape<R, S>::kHalves == 2 ? 1 : 2)
     stack_bwd_layer_kernel(BwdLayerArgs a) {
   if constexpr (R > kNarrowR) {
-  static_assert(FORM == kBwdSave || FORM == kBwdRc,
-                "the wide forms are the bf16 save and recompute forms");
-  save_wide_bwd<R, S, FORM == kBwdRc>(a);
+  static_assert(FORM != kBwdF32,
+                "the wide forms are the bf16 save and recompute forms and "
+                "the float32 recompute form");
+  save_wide_bwd<R, S, FORM>(a);
   } else {
   using Sh = BwdShape<R, S>;
   using Regs = BwdTileRegs<R, S, FORM>;
@@ -1153,10 +1191,15 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
 //           as 0
 //   MODE 5: A = xc rows in float32 (the float32 form), B as 2
 //   MODE 6: A = gated in float32 (the float32 save form), B as 1
-// The float32 form's modes (4-6) sum each 8-row k step from zero and add
-// it in float32 (mma_split_add): a sum over a block's thousands of rows
-// in the tensor core's own accumulation drifts by 1e-4 of the result.
-// Loads move 8 bf16 or 4 floats at a time; shapes are template constants.
+//   MODE 7: A = [h | h(t-d) | ctx] of the bf16 replay backward: h the
+//           rebuild's float32 h (or, at layer 0, x in bf16), h(t-d) the
+//           same but rounded to bf16 on the rows with t mod tile < d
+//           (those the TPU kernel reads from its ring snapshot in the
+//           compute dtype), ctx bf16; B as 0
+// The float32 modes (4-7) sum each 8-row k step from zero and add it in
+// float32 (mma_split_add): a sum over a block's thousands of rows in the
+// tensor core's own accumulation drifts by 1e-4 of the result.  Loads move
+// 8 bf16 or 4 floats at a time; shapes are template constants.
 struct WgradArgs {
   const bf16_t* hs;
   const bf16_t* ctx;
@@ -1174,6 +1217,7 @@ struct WgradArgs {
   const float* hs_f;    // MODE 4: (M, R) float32 hsave
   const float* ctx_f;   // MODE 4: (M, R) float32 ctx, or null
   const float* xc_f;    // MODE 5: (M / 10, R) float32 xc
+  int tile;             // MODE 7: the TPU kernel's time tile
 };
 
 constexpr int kWgRows = 64;
@@ -1221,10 +1265,52 @@ __device__ __forceinline__ const float* wg_a_f32(const WgradArgs& a,
   return a.ctx_f + row * R + 8 * (q - 2 * G);
 }
 
+__device__ __forceinline__ void unpack8(const uint4 v, float* o) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// MODE 7: the 8 values of one row of A, group q (see above); t is the
+// row's time.
+template <int R>
+__device__ __forceinline__ void wg_a_replay(const WgradArgs& a, long row,
+                                            int t, int q, float* v) {
+  constexpr int G = R / 8;
+  if (q >= 2 * G) {
+    unpack8(*reinterpret_cast<const uint4*>(a.ctx + row * R + 8 * (q - 2 * G)),
+            v);
+    return;
+  }
+  const bool sh = q >= G;
+  const int j0 = 8 * (sh ? q - G : q);
+  if (sh && t < a.d) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = 0.f;
+    return;
+  }
+  const long src = (sh ? row - a.d : row) * R + j0;
+  if (a.hs_f) {
+    const float4 u = *reinterpret_cast<const float4*>(a.hs_f + src);
+    const float4 w = *reinterpret_cast<const float4*>(a.hs_f + src + 4);
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+    v[4] = w.x, v[5] = w.y, v[6] = w.z, v[7] = w.w;
+  } else {
+    unpack8(*reinterpret_cast<const uint4*>(a.hs + src), v);
+  }
+  if (sh && t % a.tile < a.d) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = bf2f(f2bf(v[j]));
+  }
+}
+
 // One row of B, 4 columns (c, c+1, c+2, c+3) at a time.
 template <int MODE, int R, int S>
 __device__ __forceinline__ float4 wg_b4(const WgradArgs& a, long row, int c) {
-  if (MODE == 0 || MODE == 4)
+  if (MODE == 0 || MODE == 4 || MODE == 7)
     return *reinterpret_cast<const float4*>(a.dfg + row * 2 * R + c);
   if (MODE == 1 || MODE == 3 || MODE == 6) {
     if (c < R) return *reinterpret_cast<const float4*>(a.dh + row * R + c);
@@ -1235,15 +1321,6 @@ __device__ __forceinline__ float4 wg_b4(const WgradArgs& a, long row, int c) {
     return make_float4(v[0], v[1], v[2], v[3]);
   }
   return *reinterpret_cast<const float4*>(a.dctx + row * 10 * R + c);
-}
-
-__device__ __forceinline__ void unpack8(const uint4 v, float* o) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    o[2 * i] = __uint_as_float(w[i] << 16);
-    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // The 8 warps over the (KA/16) x (NB/8) output tiles: wm x wn tile
@@ -1271,7 +1348,7 @@ constexpr WgSplit wg_split(int km, int kn, int ca, int cb) {
 
 template <int MODE, int R, int S, int KA>
 struct WgShape {
-  static constexpr int kN = MODE == 0 || MODE == 4   ? 2 * R
+  static constexpr int kN = MODE == 0 || MODE == 4 || MODE == 7 ? 2 * R
                             : MODE == 2 || MODE == 5 ? 10 * R
                                                      : R + S;
   // slab width: 64 at the wide widths, whose W_fg sums (KA = 3R) would
@@ -1281,6 +1358,11 @@ struct WgShape {
   // row strides of 8 mod 16 floats: conflict-free k-major fragments
   static constexpr int kLda = (KA + 15) / 16 * 16 + 8;
   static constexpr int kLdb = (kNb + 15) / 16 * 16 + 8;
+  // rows staged a chunk: 32 for W_fg's float32 sums at the wide widths,
+  // whose two words an item of A would not fit a thread's registers
+  // beside the sums over 64 rows
+  static constexpr int kRows =
+      R > kNarrowR && (MODE == 4 || MODE == 7) ? kWgRows / 2 : kWgRows;
   // gated, or float32 activations; else bf16 values
   static constexpr bool kSplitA = MODE == 1 || MODE >= 3;
   static constexpr WgSplit kW =
@@ -1289,10 +1371,10 @@ struct WgShape {
   static constexpr int kMt = KA / 16 / kW.wm, kNt = kNb / 8 / kW.wn;
   // 16-byte items of one 64-row chunk per thread: A (8 bf16), B (4 f32)
   static constexpr int kGa = KA / 8, kGb = kNb / 4;
-  static constexpr int kIa = (kWgRows * kGa + kThreads - 1) / kThreads;
-  static constexpr int kIb = (kWgRows * kGb + kThreads - 1) / kThreads;
+  static constexpr int kIa = (kRows * kGa + kThreads - 1) / kThreads;
+  static constexpr int kIb = (kRows * kGb + kThreads - 1) / kThreads;
   static size_t smem() {
-    const size_t tiles = static_cast<size_t>(kWgRows) * (kLda + kLdb);
+    const size_t tiles = static_cast<size_t>(kRows) * (kLda + kLdb);
     const size_t red = static_cast<size_t>(kWk - 1) * KA * kNb;
     return (tiles > red ? tiles : red) * 4;
   }
@@ -1319,15 +1401,24 @@ __device__ __forceinline__ void wg_fetch(const WgradArgs& a, long base,
     const int i = tid + u * kThreads, rr = i / Sh::kGa, c = i % Sh::kGa;
     f.a[u] = make_uint4(0, 0, 0, 0);
     if (MODE == 1 || MODE >= 3) f.sg[u] = f.a[u];
-    if (MODE >= 3) {
-      if (i < kWgRows * Sh::kGa && rr < rows) {
+    if (MODE == 7) {
+      if (i < Sh::kRows * Sh::kGa && rr < rows) {
+        float v[8];
+        wg_a_replay<R>(a, base + t0 + rr, t0 + rr, c, v);
+        f.a[u] = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                            __float_as_uint(v[2]), __float_as_uint(v[3]));
+        f.sg[u] = make_uint4(__float_as_uint(v[4]), __float_as_uint(v[5]),
+                             __float_as_uint(v[6]), __float_as_uint(v[7]));
+      }
+    } else if (MODE >= 3) {
+      if (i < Sh::kRows * Sh::kGa && rr < rows) {
         const float* p = wg_a_f32<MODE, R>(a, base + t0 + rr, t0 + rr, c);
         if (p) {
           f.a[u] = *reinterpret_cast<const uint4*>(p);
           f.sg[u] = *reinterpret_cast<const uint4*>(p + 4);
         }
       }
-    } else if (i < kWgRows * Sh::kGa && rr < rows) {
+    } else if (i < Sh::kRows * Sh::kGa && rr < rows) {
       f.a[u] = wg_a_raw<MODE, R>(a, base + t0 + rr, t0 + rr, c,
                                  &f.sg[MODE == 1 ? u : 0]);
     }
@@ -1336,7 +1427,7 @@ __device__ __forceinline__ void wg_fetch(const WgradArgs& a, long base,
   for (int u = 0; u < Sh::kIb; ++u) {
     const int i = tid + u * kThreads, rr = i / Sh::kGb;
     const int c = col0 + 4 * (i % Sh::kGb);
-    f.b[u] = i < kWgRows * Sh::kGb && rr < rows && c < Sh::kN
+    f.b[u] = i < Sh::kRows * Sh::kGb && rr < rows && c < Sh::kN
                  ? wg_b4<MODE, R, S>(a, base + t0 + rr, c)
                  : make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -1348,18 +1439,21 @@ __device__ __forceinline__ void wg_fetch(const WgradArgs& a, long base,
 // W_out and W_up sums fit two blocks per SM (128 registers), so that
 // one block's loads overlap the other's products; W_fg's take more.
 template <int MODE, int R, int S, int KA>
-__global__ void __launch_bounds__(kThreads, MODE == 0 || MODE == 4 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads,
+                                  MODE == 0 || MODE == 4 || MODE == 7 ? 1
+                                                                      : 2)
     stack_wgrad_kernel(WgradArgs a) {
   using Sh = WgShape<MODE, R, S, KA>;
   constexpr int N = Sh::kN, NB = Sh::kNb, LDA = Sh::kLda, LDB = Sh::kLdb;
   constexpr int GA = Sh::kGa, GB = Sh::kGb;
   constexpr int MT = Sh::kMt, NT = Sh::kNt, WK = Sh::kWk, WN = Sh::kW.wn;
+  constexpr int ROWS = Sh::kRows;
   static_assert(kThreads == 256 && KA % 16 == 0 && NB % 8 == 0,
                 "8 warps over 16 x 8 tiles");
   const int col0 = blockIdx.y * NB;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* as = reinterpret_cast<float*>(smem);   // (kWgRows, LDA)
-  float* bs = as + kWgRows * LDA;                 // (kWgRows, LDB)
+  float* as = reinterpret_cast<float*>(smem);   // (ROWS, LDA)
+  float* bs = as + ROWS * LDA;                    // (ROWS, LDB)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int kg = warp % WK, wt = warp / WK;      // k group, tile group
   const int i0 = (wt / WN) * MT * 16, j0 = (wt % WN) * NT * 8;
@@ -1373,15 +1467,15 @@ __global__ void __launch_bounds__(kThreads, MODE == 0 || MODE == 4 ? 1 : 2)
   float bsum = 0.f;
   WgChunkRegs<MODE, R, S, KA> nx;
   if (t_lo < t_hi)
-    wg_fetch<MODE, R, S, KA>(a, base, t_lo, min(kWgRows, t_hi - t_lo), col0,
+    wg_fetch<MODE, R, S, KA>(a, base, t_lo, min(ROWS, t_hi - t_lo), col0,
                              nx);
-  for (int t0 = t_lo; t0 < t_hi; t0 += kWgRows) {
-    const int rows = min(kWgRows, t_hi - t0);
+  for (int t0 = t_lo; t0 < t_hi; t0 += ROWS) {
+    const int rows = min(ROWS, t_hi - t0);
     __syncthreads();
 #pragma unroll
     for (int u = 0; u < Sh::kIa; ++u) {
       const int i = tid + u * kThreads;
-      if (i >= kWgRows * GA) break;
+      if (i >= ROWS * GA) break;
       float v[8];
       if (MODE >= 3) {
         const unsigned w[8] = {nx.a[u].x,  nx.a[u].y,  nx.a[u].z,
@@ -1403,14 +1497,14 @@ __global__ void __launch_bounds__(kThreads, MODE == 0 || MODE == 4 ? 1 : 2)
 #pragma unroll
     for (int u = 0; u < Sh::kIb; ++u) {
       const int i = tid + u * kThreads;
-      if (i >= kWgRows * GB) break;
+      if (i >= ROWS * GB) break;
       *reinterpret_cast<float4*>(bs + (i / GB) * LDB + 4 * (i % GB)) =
           nx.b[u];
     }
     __syncthreads();
-    if (t0 + kWgRows < t_hi)
-      wg_fetch<MODE, R, S, KA>(a, base, t0 + kWgRows,
-                               min(kWgRows, t_hi - t0 - kWgRows), col0, nx);
+    if (t0 + ROWS < t_hi)
+      wg_fetch<MODE, R, S, KA>(a, base, t0 + ROWS,
+                               min(ROWS, t_hi - t0 - ROWS), col0, nx);
     if (tid < NB) {
 #pragma unroll 8
       for (int rr = 0; rr < rows; ++rr) bsum += bs[rr * LDB + tid];
@@ -1879,17 +1973,21 @@ using Act = typename std::conditional<F32, float, bf16_t>::type;
 // residual's fmaf chain (k in order, one fmaf per term from zero) on
 // bf16(tf * sg) and bf16 W_out, in float32 the float32 layer kernel's
 // split-TF32 k steps on tf * sg.  So the rebuilt layer inputs equal the
-// save forward's hsave bit for bit, and the replay backward's outputs the
-// save backward's.  (The TPU kernel feeds the unrounded float32 h to W_fg's
-// gradient; here bf16(h) takes its place, as hsave does in the save
-// backward: in bf16 the two differ in that gradient's last bits, in
-// float32 not at all.)
+// save forward's residual stream bit for bit: in float32 hsave, and the
+// replay backward's outputs the save backward's.  In bf16 the group
+// buffers hold the rebuild's float32 h, not hsave's bf16(h): the layer
+// launches read only the taps, and W_fg's gradient takes [h | h(t-d) |
+// ctx] as the TPU kernel does (stack_kernel.py:1609-1622, float32 operands
+// from its replayed h), the rows t with t mod tile < d of h(t-d) rounded to
+// bf16 as its ring snapshot holds them (the weight-gradient MODE 7).  So in
+// bf16 every output but dW_fg is the save backward's bit for bit, and dW_fg
+// the TPU replay's.
 //
 // Bound of a rebuild at the flagship (B=2, T=160000, L=30, R=S=64, k=6):
-// the taps (82 MB in bf16), the float32 h in and out (164 MB) and the bf16
-// layer input (41 MB), 0.29 GB or 0.09 ms at 3.35 TB/s, against R^2 = 4096
-// fmaf a row (1.3e9, 0.04 ms at the float32 peak): bound by bytes.  The
-// backward launches 25 of them and 4 roundings of a checkpoint.
+// the taps (82 MB in bf16) and the float32 h in and out (164 MB), 0.25 GB
+// or 0.07 ms at 3.35 TB/s, against R^2 = 4096 fmaf a row (1.3e9, 0.04 ms
+// at the float32 peak): bound by bytes.  The backward launches 25 of
+// them.
 //
 // At R = 128 (the bf16 form only) the forward's layer launches are the wide
 // save form's (the wrapper's weight scratch written once a call), the
@@ -1901,17 +1999,16 @@ using Act = typename std::conditional<F32, float, bf16_t>::type;
 
 // The replay backward's source of the layer inputs, in place of hsave: x,
 // the forward's float32 checkpoints, b_out (the rebuild's bias) and the
-// group buffers: in bf16 `every` slots (slot i holds bf16(h_{lo+i}); slot
-// 0 unused in the first group, whose h_0 is x) and the rebuild's float32 h
-// (M, R); in float32 every - 1 slots (slot i holds h_{lo+1+i}).
+// group buffers, every - 1 float32 slots (slot i holds h_{lo+1+i}); in
+// bf16 the TPU kernel's time tile for W_fg's gradient (MODE 7).
 template <bool F32>
 struct ReplaySrc {
   const Act<F32>* x;
   const float* ckpt;
   const float* b_out;
   int every;
-  Act<F32>* group;
-  float* work;
+  float* group;
+  int tile;
 };
 
 // The bf16 rebuild's tile: rows in groups of 4 by 8 columns a thread.  Its
@@ -1934,17 +2031,14 @@ struct RebuildShape {
 // memory, then per element the fmaf chain over k in order from zero, +
 // b_out, + h, as stack_layer_kernel's save forms form the residual (the
 // wide save form too, whose chain runs over two k-half slabs from one
-// accumulator: the same chain).  h_in
-// is the float32 h_l, or null: then x_in (bf16) is h_0.  hb_out takes
-// bf16(h_{l+1}), h_out (null where no later rebuild reads it) the float32
-// h_{l+1}; it may be h_in, since each thread reads its elements of h_in
-// before it writes them.  Persistent blocks walk the tiles.
+// accumulator: the same chain).  h_in is the float32 h_l, or null: then
+// x_in (bf16) is h_0.  h_out takes the float32 h_{l+1}.  Persistent blocks
+// walk the tiles.
 template <int R>
 __global__ void __launch_bounds__(kThreads)
     stack_rebuild_kernel(const bf16_t* tfsg, const float* w_out, int ldw,
                          const float* b_out, const float* h_in,
-                         const bf16_t* x_in, float* h_out, bf16_t* hb_out,
-                         long m_total) {
+                         const bf16_t* x_in, float* h_out, long m_total) {
   using Sh = RebuildShape<R>;
   constexpr int CW = Sh::kCw, TPR = Sh::kTpr, ROWS = Sh::kRows;
   constexpr int LDG = Sh::kLdg, LDK = Sh::kLdk;
@@ -2017,13 +2111,9 @@ __global__ void __launch_bounds__(kThreads)
         v[jj] = (acc[i][jj] + __ldg(b_out + c)) + o;
       }
 #pragma unroll
-      for (int jj = 0; jj < CW; jj += 4) {
-        if (h_out)
-          *reinterpret_cast<float4*>(h_out + m * R + c0 + jj) =
-              make_float4(v[jj], v[jj + 1], v[jj + 2], v[jj + 3]);
-        *reinterpret_cast<uint2*>(hb_out + m * R + c0 + jj) =
-            make_uint2(pack2(v[jj], v[jj + 1]), pack2(v[jj + 2], v[jj + 3]));
-      }
+      for (int jj = 0; jj < CW; jj += 4)
+        *reinterpret_cast<float4*>(h_out + m * R + c0 + jj) =
+            make_float4(v[jj], v[jj + 1], v[jj + 2], v[jj + 3]);
     }
   }
 }
@@ -2099,12 +2189,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// bf16(src) into dst: a checkpoint's layer input for the weight gradients
+// x (bf16) widened into dst (float32): layer 0's input in the rebuilt
+// layer inputs of replay_inputs_impl
 __global__ void __launch_bounds__(kThreads)
-    stack_round_kernel(const float* src, bf16_t* dst, long total) {
+    stack_widen_kernel(const bf16_t* src, float* dst, long total) {
   for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
        i < total; i += static_cast<long>(gridDim.x) * kThreads)
-    dst[i] = f2bf(src[i]);
+    dst[i] = bf2f(src[i]);
 }
 
 // As many persistent blocks of fn as fit on the card, at most one a tile.
@@ -2120,8 +2211,7 @@ int fill_grid(const void* fn, int threads, size_t smem, long tiles,
 }
 
 // Rebuild the layer inputs of the group [lo, hi) into rp.group (see
-// ReplaySrc): one rebuild launch for each of layers lo .. hi - 2, and in
-// bf16 the checkpoint's rounding into slot 0 (lo > 0).
+// ReplaySrc): one rebuild launch for each of layers lo .. hi - 2.
 template <int R, int S, bool F32>
 int replay_group(const ReplaySrc<F32>& rp, const Act<F32>* tfsg,
                  const float* w_out, int lo, int hi, long m_total,
@@ -2144,63 +2234,62 @@ int replay_group(const ReplaySrc<F32>& rp, const Act<F32>* tfsg,
   int grid = 0;
   err = fill_grid(fn, kThreads, smem, (m_total + rows - 1) / rows, &grid);
   if (err) return err;
-  if constexpr (F32) {
-    const float* in = lo == 0 ? rp.x : h_lo;
-    for (int l = lo; l + 1 < hi; ++l) {
-      float* out = rp.group + (l - lo) * mr;
+  for (int l = lo; l + 1 < hi; ++l) {
+    const float* in = l == lo ? h_lo : rp.group + (l - lo - 1) * mr;
+    float* out = rp.group + (l - lo) * mr;
+    const long wo = static_cast<long>(l) * R * (R + S);
+    const long bo = static_cast<long>(l) * (R + S);
+    if constexpr (F32)
       stack_rebuild_f32_kernel<R><<<grid, kThreads, 0, st>>>(
-          tfsg + l * m_total * 2 * R, w_out + static_cast<long>(l) * R * (R + S),
-          R + S, rp.b_out + static_cast<long>(l) * (R + S), in, out, m_total);
-      in = out;
-    }
-  } else {
-    if (h_lo)
-      stack_round_kernel<<<grid_for(mr), kThreads, 0, st>>>(h_lo, rp.group,
-                                                            mr);
-    for (int l = lo; l + 1 < hi; ++l)
+          tfsg + l * m_total * 2 * R, w_out + wo, R + S, rp.b_out + bo,
+          in ? in : rp.x, out, m_total);
+    else
       stack_rebuild_kernel<R><<<grid, kThreads, smem, st>>>(
-          tfsg + l * m_total * 2 * R, w_out + static_cast<long>(l) * R * (R + S),
-          R + S, rp.b_out + static_cast<long>(l) * (R + S),
-          l == lo ? h_lo : rp.work, rp.x, l + 2 < hi ? rp.work : nullptr,
-          rp.group + (l + 1 - lo) * mr, m_total);
+          tfsg + l * m_total * 2 * R, w_out + wo, R + S, rp.b_out + bo, in,
+          rp.x, out, m_total);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The input of layer l of the group from lo, once replay_group has run.
+// The float32 input of layer l of the group from lo, once replay_group has
+// run; in bf16 null for layer 0, whose input is x.
 template <bool F32>
-const Act<F32>* replay_input(const ReplaySrc<F32>& rp, int l, int lo,
-                             long mr) {
-  if (l == 0) return rp.x;
-  if constexpr (F32)
-    return l == lo ? rp.ckpt + (lo / rp.every - 1) * mr
-                   : rp.group + (l - lo - 1) * mr;
-  else
-    return rp.group + (l - lo) * mr;
+const float* replay_input(const ReplaySrc<F32>& rp, int l, int lo, long mr) {
+  if (l == 0) {
+    if constexpr (F32)
+      return rp.x;
+    else
+      return nullptr;
+  }
+  return l == lo ? rp.ckpt + (lo / rp.every - 1) * mr
+                 : rp.group + (l - lo - 1) * mr;
 }
 
 // Every layer input as the replay backward rebuilds it, group by group,
-// into hsave (L, M, R) in the compute dtype: the rebuild held to the save
-// forward's hsave.  The groups' slots are hsave's own rows; h_lo is copied
-// in where the backward reads it from x or a checkpoint.
+// into hf (L, M, R) in float32: the rebuild held to the save forward's
+// hsave (in bf16 rounded).  The groups' slots are hf's own rows; h_lo is
+// copied in where the backward reads it from x or a checkpoint.
 template <int R, int S, bool F32>
 int replay_inputs_impl(const ReplaySrc<F32>& src, const Act<F32>* tfsg,
-                       const float* w_out, Act<F32>* hsave, int n_layers,
+                       const float* w_out, float* hf, int n_layers,
                        long m_total, cudaStream_t st) {
   const long mr = m_total * R;
   for (int lo = 0; lo < n_layers; lo += src.every) {
     const int hi = lo + src.every < n_layers ? lo + src.every : n_layers;
     ReplaySrc<F32> rp = src;
-    rp.group = hsave + (F32 ? lo + 1 : lo) * mr;
+    rp.group = hf + (lo + 1) * mr;
     int err = replay_group<R, S, F32>(rp, tfsg, w_out, lo, hi, m_total, st);
     if (err) return err;
-    const Act<F32>* h_lo = replay_input<F32>(rp, lo, lo, mr);
-    if (h_lo != hsave + lo * mr) {
-      const cudaError_t e =
-          cudaMemcpyAsync(hsave + lo * mr, h_lo, mr * sizeof(Act<F32>),
+    const float* h_lo = replay_input<F32>(rp, lo, lo, mr);
+    cudaError_t e = cudaSuccess;
+    if (h_lo)
+      e = cudaMemcpyAsync(hf + lo * mr, h_lo, mr * sizeof(float),
                           cudaMemcpyDeviceToDevice, st);
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
+    else
+      stack_widen_kernel<<<grid_for(mr), kThreads, 0, st>>>(
+          reinterpret_cast<const bf16_t*>(rp.x), hf, mr);
+    if (e == cudaSuccess) e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
 }
@@ -2249,6 +2338,8 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
   const int grid = static_cast<int>(pairs < fit ? pairs : fit);
   for (int l = n_layers - 1; l >= 0; --l) {
     const Act<F32>* hs = rp ? nullptr : hsave + l * m_total * R;
+    // the replay backward's float32 layer input (bf16: null at layer 0)
+    const float* hr = nullptr;
     if (rp) {
       // the group's layer inputs, rebuilt as the walk enters it
       const int lo = l / rp->every * rp->every;
@@ -2257,7 +2348,8 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
         err = replay_group<R, S, F32>(*rp, tfsg, w_out, lo, hi, m_total, st);
         if (err) return err;
       }
-      hs = replay_input<F32>(*rp, l, lo, m_total * R);
+      hr = replay_input<F32>(*rp, l, lo, m_total * R);
+      if constexpr (F32) hs = hr;
     }
     BwdLayerArgs a;
     a.dhp = dhp;
@@ -2295,7 +2387,9 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
       w.ctx_f = ctx;
       w.gated = gated;
     } else {
-      w.hs = hs;
+      w.hs = rp ? rp->x : hs;
+      w.hs_f = hr;
+      w.tile = rp ? rp->tile : 0;
       w.ctx = ctx;
       w.tfsg = tfsg + l * m_total * 2 * R;
     }
@@ -2311,8 +2405,17 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
     w.n = 2 * R;
     float* dwf = dw_fg + static_cast<long>(l) * win * 2 * R;
     float* dbf = db_fg + static_cast<long>(l) * batch * 2 * R;
-    err = ctx ? wgrad_launch<MFG, R, S, 3 * R>(w, batch, dwf, dbf, batch, st)
-              : wgrad_launch<MFG, R, S, 2 * R>(w, batch, dwf, dbf, batch, st);
+    // W_fg's gradient; the bf16 replay backward's from its float32 h
+    constexpr int MRP = F32 ? MFG : 7;
+    if (rp)
+      err = ctx ? wgrad_launch<MRP, R, S, 3 * R>(w, batch, dwf, dbf, batch,
+                                                 st)
+                : wgrad_launch<MRP, R, S, 2 * R>(w, batch, dwf, dbf, batch,
+                                                 st);
+    else
+      err = ctx
+                ? wgrad_launch<MFG, R, S, 3 * R>(w, batch, dwf, dbf, batch, st)
+                : wgrad_launch<MFG, R, S, 2 * R>(w, batch, dwf, dbf, batch, st);
     if (err) return err;
     w.n = R + S;
     w.part_b = part + static_cast<long>(batch) * chunks * R * (R + S);
@@ -3035,10 +3138,12 @@ __device__ __forceinline__ void save_gate(
 // forms' chain) or W_out^T's residual rows (res_t 1: the recompute forms'
 // tensor-core product), then W_out^T's skip rows, rounded as the TPU
 // kernel's _mdot rounds them.  With res_t 1 the layer's W_out^T (R + S, R)
-// is whole after W_fg^T.
+// is whole after W_fg^T.  The wide float32 recompute form takes the same
+// layout (res_t 1) in float32, T = float, nothing rounded.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     stack_wt_kernel(const float* w_fg, const float* w_out, int n_layers,
-                    int win, int r, int s, int res_t, bf16_t* wt) {
+                    int win, int r, int s, int res_t, T* wt) {
   const int no = r + s;
   const long n_fg = 2L * r * win, n_res = static_cast<long>(r) * r;
   const long per = n_fg + n_res + static_cast<long>(s) * r;
@@ -3059,7 +3164,7 @@ __global__ void __launch_bounds__(kThreads)
       e -= n_res;
       v = wo[(e % r) * no + r + e / r];              // W_out[:, R:]^T
     }
-    wt[i] = f2bf(v);
+    store_act(wt + i, v);
   }
 }
 
@@ -4058,11 +4163,271 @@ struct F32LayerArgs {
   float* skip;           // (M, S) skip_sum, stored by the last layer
   long m_total;
   int t_len, d, first, last;
+  const float* wt;       // the wide form: this layer's float32 W_fg^T and
+                         // W_out^T (stack_wt_kernel<float>, res_t 1)
 };
+
+// ------------------------------ the wide float32 recompute forward
+// At R = 128 the float32 layer kernel's layout (F32Shape: the 64-row
+// operand tile beside W_fg^T and W_out^T, staged once) takes 665,600 bytes
+// with video, nearly three blocks' shared memory.  Its wide form
+// (stack_layer_f32_kernel<R, S> at R > kNarrowR) keeps the tile's float32
+// operand rows [h | h(t-d) | ctx] in shared memory and streams the weights
+// through a ring of two slabs by cp.async from the wrapper's float32
+// scratch (stack_wt_kernel<float> in the recompute layout: W_fg^T, then
+// W_out^T).  Per tile: kFp fg passes, each over a slab of W_fg^T's rows for
+// kNc filter columns and then their kNc gate columns.  Warp w takes rows 16
+// (w % 4) .. + 16 and half w / 4 of the pass's filter columns with their
+// gate columns: fg, the gate, the taps stored where asked (the recompute
+// backward's taps launches), gated held in registers (32 a lane over the
+// passes).  Once every warp is done with the passes' operand rows, gated
+// lands in the tile's tap columns [R, 2R) (h stays in [0, R) for the
+// residual), and out = gated W_out runs over slabs of kSw W_out^T rows,
+// each warp on its half of a slab's n tiles: the residual h + out into
+// h_next and the skip sum.  The arithmetic is the narrow form's: every fg
+// and out n tile summed over its k steps in order, each step's three
+// split-TF32 passes summed from zero and added in float32 (mma_split_add),
+// then the bias, the gate, + h.  So the backward's rebuilds and taps
+// launches, which launch this kernel, give the forward's values bit for
+// bit.  Shared memory: the tile (64, 3R + 4) and two slabs of the larger of
+// (2 kNc, 3R + 4) and (kSw, R + 4) floats, 198,656 bytes at R = 128.
+// Bound at the flagship's depth at R = S = 128 in float32 (B = 2, T =
+// 160000, L = 30, video): 262,144 operations a row and layer, 2.5 TFLOP,
+// 5.1 ms at the TF32 495 TF/s counted once, against about 0.6 GB of
+// compulsory traffic (x, ctx, skip and the checkpoints in float32, 0.2
+// ms): bound by operations.
+template <int R, int S>
+struct WideF32Shape {
+  static constexpr int kRows = 64, kThreads = 256;
+  static constexpr int kNc = 16, kFp = R / kNc;        // fg passes
+  static constexpr int kSw = 64;                       // out columns a slab
+  static constexpr int kOs = (R + S + kSw - 1) / kSw;  // out slabs
+  static constexpr int kLdh = 3 * R + 4, kLdw = 3 * R + 4, kLdo = R + 4;
+  static_assert(R % kSw == 0 && S % 8 == 0,
+                "out slabs wholly in the residual or the skip part");
+  static constexpr size_t kSlab =
+      max_size(static_cast<size_t>(2 * kNc) * kLdw,
+               static_cast<size_t>(kSw) * kLdo) * 4;
+  static constexpr size_t kRing = static_cast<size_t>(kRows) * kLdh * 4;
+  static constexpr size_t kEnd = kRing + 2 * kSlab;
+};
+
+// One layer of the wide float32 recompute forward (see above).  Without
+// h_next and the skip sum (a taps launch) the out steps do not run.
+template <int R, int S>
+__device__ __forceinline__ void f32_wide_layer(const F32LayerArgs& a) {
+  using Sh = WideF32Shape<R, S>;
+  constexpr int ROWS = Sh::kRows, THREADS = Sh::kThreads, NO = R + S;
+  constexpr int LDH = Sh::kLdh, LDW = Sh::kLdw, LDO = Sh::kLdo;
+  constexpr int NC = Sh::kNc, FP = Sh::kFp, SW = Sh::kSw;
+  constexpr int NTO = SW / 16;                  // a warp's out n tiles
+  constexpr int SLAB = static_cast<int>(Sh::kSlab / 4);   // floats
+  const int win = a.ctx ? 3 * R : 2 * R, per_row = win / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  const int r0 = 16 * (warp & 3), half = warp >> 2;
+  const long m_total = a.m_total;
+  float* hp = reinterpret_cast<float*>(smem);
+  float* ring = reinterpret_cast<float*>(smem + Sh::kRing);
+  const float* wft = a.wt;                        // (2R, W_in)
+  const float* wot = wft + 2L * R * win;          // (R + S, R)
+  const bool outs = a.h_next != nullptr || a.skacc != nullptr;
+  const int n_steps = FP + (outs ? Sh::kOs : 0);
+
+  // slab j of a tile into dst: pass j's W_fg^T rows (its NC filter
+  // columns, then their gate columns), or an out slab's W_out^T rows
+  auto load_slab = [&](int j, float* dst) {
+    if (j < FP) {
+      for (int i = tid; i < 2 * NC * per_row; i += THREADS) {
+        const int row = i / per_row, c4 = 4 * (i % per_row);
+        const int col = row < NC ? NC * j + row : R + NC * j + row - NC;
+        cp_async16(dst + row * LDW + c4,
+                   wft + static_cast<long>(col) * win + c4, true);
+      }
+    } else {
+      const int c0 = SW * (j - FP), rows = NO - c0 < SW ? NO - c0 : SW;
+      for (int i = tid; i < rows * (R / 4); i += THREADS) {
+        const int row = i / (R / 4), c4 = 4 * (i % (R / 4));
+        cp_async16(dst + row * LDO + c4,
+                   wot + static_cast<long>(c0 + row) * R + c4, true);
+      }
+    }
+  };
+  const long n_tiles = (m_total + ROWS - 1) / ROWS;
+  int ring_i = 0;   // ring slot of the current slab
+  if (blockIdx.x < n_tiles) load_slab(0, ring);
+  cp_async_commit();
+  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    const long m0 = tile_i * ROWS, next = tile_i + gridDim.x;
+    __syncthreads();   // every warp is done with the last tile's rows
+    // the operand rows [h | h(t-d) | ctx], zero past the rows and for the
+    // tap before t = d
+    for (int i = tid; i < ROWS * per_row; i += THREADS) {
+      const int row = i / per_row, c4 = 4 * (i % per_row);
+      const int part = c4 / R, j0 = c4 % R;
+      const long m = m0 + row;
+      bool ok = m < m_total;
+      const float* src = a.h + m * R + j0;
+      if (part == 1) {
+        ok = ok && static_cast<int>(m % a.t_len) >= a.d;
+        src -= static_cast<long>(a.d) * R;
+      } else if (part == 2) {
+        src = a.ctx + m * R + j0;
+      }
+      cp_async16(hp + row * LDH + c4, ok ? src : a.h, ok);
+    }
+    cp_async_commit();
+    int j = 0;
+    // step j of the tile: slab j and the tile's rows resident for every
+    // warp; in flight the next slab (after the last, the next tile's first)
+    auto step = [&]() -> const float* {
+      cp_async_wait<0>();
+      __syncthreads();
+      float* nb = ring + ((ring_i + 1) & 1) * SLAB;
+      if (j + 1 < n_steps)
+        load_slab(j + 1, nb);
+      else if (next < n_tiles)
+        load_slab(0, nb);
+      cp_async_commit();
+      const float* cur = ring + (ring_i & 1) * SLAB;
+      ++ring_i;
+      ++j;
+      return cur;
+    };
+    // the fg bias rows of the lane's two rows' batch rows
+    const float* bfr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long m = m0 + r0 + g + 8 * h;
+      bfr[h] = a.b_fg + (m < m_total ? m / a.t_len : 0) * 2 * R;
+    }
+    // fg and the gate, pass p over filter n tile 2p + half and its gate
+    // tile; gated of the lane's places held in gv
+    float gv[FP][4];
+#pragma unroll
+    for (int p = 0; p < FP; ++p) {
+      const float* w = step();
+      float acc[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < win; k0 += 8) {
+        Frag<4> fa;
+        load_a_rows<true>(hp + r0 * LDH + k0, LDH, fa);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          Frag<2> fb;
+          load_b_cols(w + (NC * jj + 8 * half) * LDW + k0, LDW, fb);
+          mma_split_add<true>(acc[jj], fa, fb);
+        }
+      }
+      const int c = NC * p + 8 * half + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long m = m0 + r0 + g + 8 * h;
+        float tf[2], sg[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          tf[k] = tanhf(acc[0][2 * h + k] + __ldg(bfr[h] + c + k));
+          sg[k] = sigmoidf(acc[1][2 * h + k] + __ldg(bfr[h] + R + c + k));
+          gv[p][2 * h + k] = tf[k] * sg[k];
+        }
+        if (a.tfsg && m < m_total) {
+          float* tp = a.tfsg + m * 2 * R + c;
+          *reinterpret_cast<float2*>(tp) = make_float2(tf[0], tf[1]);
+          *reinterpret_cast<float2*>(tp + R) = make_float2(sg[0], sg[1]);
+        }
+      }
+    }
+    if (!outs) continue;
+    // every warp is done with the passes' operand rows: gated into the tap
+    // columns (the first out step's barrier orders it before the reads)
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < FP; ++p) {
+      const int c = NC * p + 8 * half + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(hp + (r0 + g + 8 * h) * LDH + R + c) =
+            make_float2(gv[p][2 * h], gv[p][2 * h + 1]);
+    }
+    // out + b_out, a slab of W_out^T rows at a time, the warp's half of its
+    // n tiles: the residual (an 8-column n tile lies wholly in it or in the
+    // skip part), then the skip sum
+    for (int os = 0; os < Sh::kOs; ++os) {
+      const float* wo = step();
+      const int c0 = SW * os;
+      const int nt = (NO - c0 < SW ? NO - c0 : SW) / 8;
+      float acc[NTO][4];
+#pragma unroll
+      for (int jo = 0; jo < NTO; ++jo)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jo][e] = 0.f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < R; k0 += 8) {
+        Frag<4> fa;
+        load_a_rows<true>(hp + r0 * LDH + R + k0, LDH, fa);
+#pragma unroll
+        for (int jo = 0; jo < NTO; ++jo) {
+          if (half * NTO + jo >= nt) break;
+          Frag<2> fb;
+          load_b_cols(wo + 8 * (half * NTO + jo) * LDO + k0, LDO, fb);
+          mma_split_add<true>(acc[jo], fa, fb);
+        }
+      }
+#pragma unroll
+      for (int jo = 0; jo < NTO; ++jo) {
+        if (half * NTO + jo >= nt) break;
+        const int c = c0 + 8 * (half * NTO + jo) + 2 * q;
+        const float b0 = __ldg(a.b_out + c), b1 = __ldg(a.b_out + c + 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + g + 8 * h;
+          const long m = m0 + row;
+          if (m >= m_total) continue;
+          const float v0 = acc[jo][2 * h] + b0, v1 = acc[jo][2 * h + 1] + b1;
+          if (c < R) {
+            if (a.h_next) {
+              const float2 o =
+                  *reinterpret_cast<const float2*>(hp + row * LDH + c);
+              *reinterpret_cast<float2*>(a.h_next + m * R + c) =
+                  make_float2(v0 + o.x, v1 + o.y);
+            }
+          } else if (a.skacc) {
+            float2 sv = make_float2(v0, v1);
+            float* sp = a.skacc + m * S + c - R;
+            if (!a.first) {
+              const float2 o = *reinterpret_cast<const float2*>(sp);
+              sv = make_float2(o.x + v0, o.y + v1);
+            }
+            *reinterpret_cast<float2*>(a.last ? a.skip + m * S + c - R
+                                              : sp) = sv;
+          }
+        }
+      }
+    }
+  }  // tiles
+  cp_async_wait<0>();
+}
+
+// Dynamic shared memory of stack_layer_f32_kernel at (R, S).
+template <int R, int S>
+size_t f32_layer_smem() {
+  if constexpr (R > kNarrowR)
+    return WideF32Shape<R, S>::kEnd;
+  else
+    return F32Shape<R, S>::kEnd;
+}
 
 template <int R, int S>
 __global__ void __launch_bounds__(256, 1)
     stack_layer_f32_kernel(F32LayerArgs a) {
+  if constexpr (R > kNarrowR) {
+  f32_wide_layer<R, S>(a);
+  } else {
   using Sh = F32Shape<R, S>;
   constexpr int ROWS = Sh::kRows, THREADS = Sh::kThreads;
   constexpr int LDH = Sh::kLdh, LDW = Sh::kLdw, LDO = Sh::kLdo;
@@ -4207,6 +4572,7 @@ __global__ void __launch_bounds__(256, 1)
       }
     }
   }  // tiles
+  }
 }
 
 // Launches of the layer kernel in one form: its shared memory set once,
@@ -4280,11 +4646,12 @@ struct FwdSource {
                          // (movenet_stack_wt_elems), or null
 };
 
-// Every layer's bf16 weights of the wide forms into wt (stack_wt_kernel;
-// res_t as there): the elements of one layer.
-template <int R, int S>
+// Every layer's weights of the wide forms into wt (stack_wt_kernel; res_t
+// as there), bf16 or, for the float32 recompute form, float32: the
+// elements of one layer.
+template <int R, int S, typename T>
 long wide_weights(const float* w_fg, const float* w_out, int win,
-                  int n_layers, int res_t, bf16_t* wt, cudaStream_t st) {
+                  int n_layers, int res_t, T* wt, cudaStream_t st) {
   const long per = WideShape<R, S>::wt_elems(win);
   stack_wt_kernel<<<grid_for(per * n_layers), kThreads, 0, st>>>(
       w_fg, w_out, n_layers, win, R, S, res_t, wt);
@@ -4366,26 +4733,28 @@ int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
 
 // Launches of stack_layer_f32_kernel: its shared memory set once, the grid
 // (as many persistent blocks as fit, at most one per tile) for every layer.
+// (both forms: 8 warps on 64-row tiles)
 template <int R, int S>
 struct F32LayerLaunch {
-  using Sh = F32Shape<R, S>;
+  static constexpr int kThreads = 256, kRows = 64;
+  size_t smem = f32_layer_smem<R, S>();
   int grid = 0;
   int setup(long m_total) {
     const void* fn =
         reinterpret_cast<const void*>(stack_layer_f32_kernel<R, S>);
-    int err = set_smem(fn, Sh::kEnd);
+    int err = set_smem(fn, smem);
     if (err) return err;
     int per_sm = 0;
     cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fn, Sh::kThreads, Sh::kEnd);
+        &per_sm, fn, kThreads, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const long tiles = (m_total + Sh::kRows - 1) / Sh::kRows;
+    const long tiles = (m_total + kRows - 1) / kRows;
     const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
     grid = static_cast<int>(tiles < fit ? tiles : fit);
     return 0;
   }
   int launch(const F32LayerArgs& a, cudaStream_t st) const {
-    stack_layer_f32_kernel<R, S><<<grid, Sh::kThreads, Sh::kEnd, st>>>(a);
+    stack_layer_f32_kernel<R, S><<<grid, kThreads, smem, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -4457,12 +4826,13 @@ int fwd_f32_impl(const int* pack, int pack_cols, const float* table2,
 // every-th layer kept as a checkpoint.  With tfsg (float32 only) the
 // layers store their taps: the float32 replay forward, whose checkpoints
 // are the float32 residual stream.  The wide form (R > kNarrowR) first
-// writes every layer's bf16 weights into wt (the recompute layout).
+// writes every layer's weights into wt (the recompute layout, in the
+// compute dtype).
 template <int R, int S, bool F32>
 int fwd_tails_impl(const Act<F32>* x, const Act<F32>* ctx, const float* b_fg,
                    const float* w_fg, const float* w_out, const float* b_out,
                    const int* dil, int every, Act<F32>* skip, Act<F32>* ckpt,
-                   Act<F32>* work, float* skacc, float* tfsg, bf16_t* wt,
+                   Act<F32>* work, float* skacc, float* tfsg, Act<F32>* wt,
                    int batch, int t_len, int n_layers, cudaStream_t st) {
   const long mr = static_cast<long>(batch) * t_len * R;
   constexpr bool kWide = R > kNarrowR;
@@ -4501,9 +4871,8 @@ int fwd_tails_impl(const Act<F32>* x, const Act<F32>* ctx, const float* b_fg,
     a.last = l == n_layers - 1;
     if constexpr (F32) {
       if (tfsg) a.tfsg = tfsg + static_cast<long>(l) * batch * t_len * 2 * R;
-    } else if constexpr (kWide) {
-      a.wt = wt + l * wt_layer;
     }
+    if constexpr (kWide) a.wt = wt + l * wt_layer;
     err = tl.launch(a, st);
     if (err) return err;
   }
@@ -4567,7 +4936,10 @@ int fwd_replay_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
 // The recompute backward (F32: its float32 form: the rebuilds by
 // stack_layer_f32_kernel, the layer launches in form kBwdRcF32, the weight
 // gradients from float32 activations and gated, MODE 4 and 6; dskip, dx and
-// dctx float32).
+// dctx float32).  The wide float32 form (R > kNarrowR) runs before each
+// layer launch a taps launch of stack_layer_f32_kernel on the layer's input
+// (the forward's fg and gate, the float32 taps into scratch), which the
+// wide layer backward reads as the save form reads its taps.
 template <int R, int S, bool F32>
 int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
                    const Act<F32>* ctx, const float* b_fg, const float* w_fg,
@@ -4575,21 +4947,24 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
                    const Act<F32>* dskip, const int* dil, int every,
                    Act<F32>* group, float* scratch, int chunks, Act<F32>* dx,
                    Act<F32>* dctx_out, float* db_fg, float* dw_fg,
-                   float* dw_out, float* db_out, bf16_t* wt, int batch,
+                   float* dw_out, float* db_out, Act<F32>* wt, int batch,
                    int t_len, int n_layers, cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const long mr = m_total * R;
   const int win = ctx ? 3 * R : 2 * R;
   constexpr bool kWide = R > kNarrowR;
   // float32 scratch: the save backward's dhp, p[2], dh, dfg, dctx, then
-  // gated, then the partials (the float32 form sums dctx in its output)
+  // gated, (the wide float32 form: the taps,) then the partials (the
+  // float32 form sums dctx in its output)
+  constexpr bool kTaps = F32 && kWide;
   float* dhp = scratch;
   float* pbuf[2] = {dhp + mr, dhp + 2 * mr};
   float* dh = dhp + 3 * mr;
   float* dfg = dhp + 4 * mr;
   float* dctx = dhp + 6 * mr;
   float* gated = dhp + 7 * mr;
-  float* part = dhp + 8 * mr;
+  float* taps = dhp + 8 * mr;
+  float* part = dhp + (kTaps ? 10 : 8) * mr;
   std::conditional_t<F32, F32LayerLaunch<R, S>,
                      LayerLaunch<R, S, kRecompute>> tl;
   int err = tl.setup(m_total);
@@ -4631,9 +5006,11 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
     };
     for (int l = lo; l + 1 < hi; ++l) {
       if constexpr (F32) {
-        err = tl.launch(f32_layer_args<R, S>(
+        F32LayerArgs fa = f32_layer_args<R, S>(
             input(l), group + (l - lo) * mr, ctx, b_fg, w_fg, w_out, b_out,
-            dil, l, batch, t_len), st);
+            dil, l, batch, t_len);
+        if constexpr (kWide) fa.wt = wt + l * wt_layer;
+        err = tl.launch(fa, st);
       } else {
         LayerArgs la = layer_args<R, S>(input(l), group + (l - lo) * mr, ctx,
                                         b_fg, w_fg, w_out, b_out, dil, l,
@@ -4645,6 +5022,16 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
     }
     for (int l = hi - 1; l >= lo; --l) {
       const Act<F32>* hs = input(l);
+      if constexpr (kTaps) {
+        // the layer's taps, as its forward formed them
+        F32LayerArgs fa = f32_layer_args<R, S>(hs, nullptr, ctx, b_fg, w_fg,
+                                               w_out, b_out, dil, l, batch,
+                                               t_len);
+        fa.tfsg = taps;
+        fa.wt = wt + l * wt_layer;
+        err = tl.launch(fa, st);
+        if (err) return err;
+      }
       BwdLayerArgs a = {};
       a.dhp = dhp;
       a.p_in = pbuf[(l + 1) & 1];
@@ -4656,6 +5043,7 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
         a.dskip_f = dskip;
         a.hs_f = hs;
         a.cx_f = ctx;
+        a.tfsg_f = taps;
       } else {
         a.dctx = ctx ? dctx : nullptr;
         a.dctx_bf = (ctx && l == 0) ? dctx_out : nullptr;
@@ -4673,7 +5061,7 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
       a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
       a.gated = gated;
       a.d = dil[l];
-      a.wt = kWide ? wt + l * wt_layer : nullptr;
+      if constexpr (kWide && !F32) a.wt = wt + l * wt_layer;
       stack_bwd_layer_kernel<R, S, FORM><<<grid, Sh::kThreads, smem, st>>>(a);
       e = cudaGetLastError();
       if (e != cudaSuccess) return static_cast<int>(e);
@@ -4766,7 +5154,7 @@ int replay_fwd_dispatch(const bf16_t* x, const bf16_t* ctx,
 
 template <bool F32>
 int replay_inputs_dispatch(const ReplaySrc<F32>& rp, const Act<F32>* tfsg,
-                           const float* w_out, Act<F32>* hsave, int batch,
+                           const float* w_out, float* hsave, int batch,
                            int t_len, int n_layers, int r, int s,
                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -4818,7 +5206,7 @@ int tails_fwd_dispatch(const Act<F32>* x, const Act<F32>* ctx,
                        const float* b_fg, const float* w_fg,
                        const float* w_out, const float* b_out, const int* dil,
                        int every, Act<F32>* skip, Act<F32>* ckpt,
-                       Act<F32>* work, float* skacc, bf16_t* wt, int batch,
+                       Act<F32>* work, float* skacc, Act<F32>* wt, int batch,
                        int t_len, int n_layers, int r, int s, void* stream,
                        float* tfsg = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -4829,11 +5217,7 @@ int tails_fwd_dispatch(const Act<F32>* x, const Act<F32>* ctx,
                                        dil, every, skip, ckpt, work, skacc,\
                                        tfsg, wt, batch, t_len, n_layers,   \
                                        st);
-  if constexpr (F32) {
-    MOVENET_STACK_WIDTHS(X)
-  } else {
-    MOVENET_SAVE_WIDTHS(X)
-  }
+  MOVENET_SAVE_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -4846,7 +5230,7 @@ int tails_bwd_dispatch(const Act<F32>* x, const Act<F32>* ckpt,
                        const int* dil, int every, Act<F32>* group,
                        float* scratch, int chunks, Act<F32>* dx,
                        Act<F32>* dctx, float* db_fg, float* dw_fg,
-                       float* dw_out, float* db_out, bf16_t* wt, int batch,
+                       float* dw_out, float* db_out, Act<F32>* wt, int batch,
                        int t_len, int n_layers, int r, int s, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -4857,11 +5241,7 @@ int tails_bwd_dispatch(const Act<F32>* x, const Act<F32>* ckpt,
                                        scratch, chunks, dx, dctx, db_fg,    \
                                        dw_fg, dw_out, db_out, wt, batch,    \
                                        t_len, n_layers, st);
-  if constexpr (F32) {
-    MOVENET_STACK_WIDTHS(X)
-  } else {
-    MOVENET_SAVE_WIDTHS(X)
-  }
+  MOVENET_SAVE_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -4875,12 +5255,13 @@ extern "C" {
 // 0 the bf16 save forms (embed and non-embed), 1 the float32 save forms, 2
 // the bf16 recompute forms, 3 the bf16 replay forms, 4 the merged forms, 5
 // the float32 recompute forms, 6 the float32 replay forms.  The bf16 save,
-// recompute and replay forms take the wide widths too.
+// recompute and replay forms and the float32 recompute forms take the wide
+// widths too.
 int movenet_stack_supports(int family, int r, int s) {
   if (family < 0 || family > 6) return 0;
 #define X(R_, S_) \
   if (r == R_ && s == S_) return 1;
-  if (family == 0 || family == 2 || family == 3) {
+  if (family == 0 || family == 2 || family == 3 || family == 5) {
     MOVENET_SAVE_WIDTHS(X)
   } else {
     MOVENET_STACK_WIDTHS(X)
@@ -4923,7 +5304,8 @@ long movenet_stack_bwd_scratch(int batch, int t_len, int r, int s, int win,
 // or the
 // weight-gradient launch of mode kind (0: W_fg with W_in = win, 1: W_out,
 // 2: the projection's W_up, 3: W_out from the float32 gated, 4: W_fg, 5:
-// W_up and 6: W_out in the float32 form); -1 where (r, s) is not built.
+// W_up and 6: W_out in the float32 form, 7: W_fg in the bf16 replay
+// backward); -1 where (r, s) is not built.
 long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
 #define X(R_, S_)                                                      \
   if (r == R_ && s == S_) {                                            \
@@ -4944,6 +5326,10 @@ long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
       return static_cast<long>(win == 3 * R_                           \
                                    ? WgShape<4, R_, S_, 3 * R_>::smem() \
                                    : WgShape<4, R_, S_, 2 * R_>::smem()); \
+    if (kind == 7)                                                     \
+      return static_cast<long>(win == 3 * R_                           \
+                                   ? WgShape<7, R_, S_, 3 * R_>::smem() \
+                                   : WgShape<7, R_, S_, 2 * R_>::smem()); \
     if (kind == 1) return static_cast<long>(WgShape<1, R_, S_, R_>::smem()); \
     if (kind == 5) return static_cast<long>(WgShape<5, R_, S_, R_>::smem()); \
     if (kind == 6) return static_cast<long>(WgShape<6, R_, S_, R_>::smem()); \
@@ -4951,14 +5337,25 @@ long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
   }
   MOVENET_STACK_WIDTHS(X)
 #undef X
-  // the wide widths: the bf16 save, recompute and replay backwards'
-  // launches only
+  // the wide widths: the bf16 save, recompute and replay backwards' and
+  // the float32 recompute backward's launches
 #define X(R_, S_)                                                      \
   if (r == R_ && s == S_) {                                            \
     if (kind == -1) return static_cast<long>(BwdShape<R_, S_>::smem(win)); \
     if (kind == -2)                                                    \
       return static_cast<long>(BwdShape<R_, S_>::smem_rc(win));        \
+    if (kind == -4)                                                    \
+      return static_cast<long>(BwdShape<R_, S_>::smem_rcf32(win));     \
     if (kind == -5) return static_cast<long>(RebuildShape<R_>::kEnd);  \
+    if (kind == 4)                                                     \
+      return static_cast<long>(win == 3 * R_                           \
+                                   ? WgShape<4, R_, S_, 3 * R_>::smem() \
+                                   : WgShape<4, R_, S_, 2 * R_>::smem()); \
+    if (kind == 6) return static_cast<long>(WgShape<6, R_, S_, R_>::smem()); \
+    if (kind == 7)                                                     \
+      return static_cast<long>(win == 3 * R_                           \
+                                   ? WgShape<7, R_, S_, 3 * R_>::smem() \
+                                   : WgShape<7, R_, S_, 2 * R_>::smem()); \
     if (kind == 3) return static_cast<long>(WgShape<3, R_, S_, R_>::smem()); \
     if (kind == 0)                                                     \
       return static_cast<long>(win == 3 * R_                           \
@@ -5155,11 +5552,12 @@ long movenet_stack_layer_smem(int r, int s, int form) {
                                          : SaveShape<R_, S_>::smem());
   MOVENET_STACK_WIDTHS(X)
 #undef X
-  // the wide widths: the recompute (0) and save (1) forms only
+  // the wide widths: the recompute (0), save (1) and float32 (3) forms
 #define X(R_, S_)                                                        \
   if (r == R_ && s == S_)                                                \
     return form == kSave        ? static_cast<long>(save_smem<R_, S_>())  \
            : form == kRecompute ? static_cast<long>(tails_smem<R_, S_>()) \
+           : form == 3 ? static_cast<long>(f32_layer_smem<R_, S_>())      \
                                 : -1;
   MOVENET_WIDE_WIDTHS(X)
 #undef X
@@ -5226,13 +5624,15 @@ int movenet_stack_head_bwd(const bf16_t* skip, const int* tgt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Float32 scratch elements of the recompute backward, bf16 or float32 (see
-// bwd_tails_impl): eight (M, R) arrays and the weight-gradient partials.
+// Float32 scratch elements of the recompute backward, bf16 or float32 (f32
+// 1; see bwd_tails_impl): eight (M, R) arrays (ten in the wide float32
+// form, whose taps take two) and the weight-gradient partials.
 long movenet_tails_bwd_scratch(int batch, int t_len, int r, int s, int win,
-                               int chunks) {
+                               int chunks, int f32) {
   const long p_fg = static_cast<long>(batch) * chunks * (win + 1) * 2 * r;
   const long p_out = static_cast<long>(batch) * chunks * (r + 1) * (r + s);
-  return 8L * batch * t_len * r + (p_fg > p_out ? p_fg : p_out);
+  const long arrays = f32 && r > kNarrowR ? 10 : 8;
+  return arrays * batch * t_len * r + (p_fg > p_out ? p_fg : p_out);
 }
 
 // Recompute forward: skip_sum (B,T,S) and the checkpoints ckpt (ceil(L /
@@ -5253,17 +5653,19 @@ int movenet_stack_fwd_tails(const bf16_t* x, const bf16_t* ctx,
 }
 
 // The recompute forward in float32 (stack_layer_f32_kernel, no taps): as
-// movenet_stack_fwd_tails with x, ctx, skip, ckpt and work in float32.
+// movenet_stack_fwd_tails with x, ctx, skip, ckpt and work in float32, and
+// wt the wide form's float32 weights (movenet_stack_wt_elems floats; null
+// at the narrow widths).
 int movenet_stack_fwd_tails_f32(const float* x, const float* ctx,
                                 const float* b_fg, const float* w_fg,
                                 const float* w_out, const float* b_out,
                                 const int* dil, int every, float* skip,
                                 float* ckpt, float* work, float* skacc,
-                                int batch, int t_len, int n_layers, int r,
-                                int s, void* stream) {
+                                float* wt, int batch, int t_len, int n_layers,
+                                int r, int s, void* stream) {
   return tails_fwd_dispatch<true>(x, ctx, b_fg, w_fg, w_out, b_out, dil,
-                                  every, skip, ckpt, work, skacc, nullptr,
-                                  batch, t_len, n_layers, r, s, stream);
+                                  every, skip, ckpt, work, skacc, wt, batch,
+                                  t_len, n_layers, r, s, stream);
 }
 
 // Recompute backward: dx, dctx (bf16, null without ctx), db_fg (L*B, 2R),
@@ -5289,7 +5691,9 @@ int movenet_stack_bwd_tails(const bf16_t* x, const bf16_t* ckpt,
 }
 
 // The recompute backward in float32: as movenet_stack_bwd_tails with x,
-// ckpt, ctx, dskip, group, dx and dctx in float32 (the same scratch).
+// ckpt, ctx, dskip, group, dx and dctx in float32, scratch
+// movenet_tails_bwd_scratch(..., f32 = 1) floats and wt as in
+// movenet_stack_fwd_tails_f32.
 int movenet_stack_bwd_tails_f32(const float* x, const float* ckpt,
                                 const float* ctx, const float* b_fg,
                                 const float* w_fg, const float* w_out,
@@ -5297,14 +5701,13 @@ int movenet_stack_bwd_tails_f32(const float* x, const float* ckpt,
                                 const int* dil, int every, float* group,
                                 float* scratch, int chunks, float* dx,
                                 float* dctx, float* db_fg, float* dw_fg,
-                                float* dw_out, float* db_out, int batch,
-                                int t_len, int n_layers, int r, int s,
-                                void* stream) {
+                                float* dw_out, float* db_out, float* wt,
+                                int batch, int t_len, int n_layers, int r,
+                                int s, void* stream) {
   return tails_bwd_dispatch<true>(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
                                   dskip, dil, every, group, scratch, chunks,
-                                  dx, dctx, db_fg, dw_fg, dw_out, db_out,
-                                  nullptr, batch, t_len, n_layers, r, s,
-                                  stream);
+                                  dx, dctx, db_fg, dw_fg, dw_out, db_out, wt,
+                                  batch, t_len, n_layers, r, s, stream);
 }
 
 // The replay forward (bf16): skip_sum (B, T, S), the taps tfsg (L, B, T,
@@ -5343,14 +5746,15 @@ int movenet_stack_fwd_replay_f32(const float* x, const float* ctx,
 // The replay backward: as movenet_stack_bwd's non-embed form (dx out,
 // dskip bf16; xc, wup non-null fold the projection's backward in) with
 // the layer inputs rebuilt from x and the forward's checkpoints and taps
-// in place of hsave; group holds `every` (B, T, R) bf16 buffers and work
-// (B*T, R) floats, scratch movenet_stack_bwd_scratch(..., 0, 0, 0) floats.
+// in place of hsave; group holds every - 1 (B, T, R) float32 buffers (at
+// least one), tile is the TPU kernel's time tile (W_fg's gradient, MODE
+// 7), scratch holds movenet_stack_bwd_scratch(..., 0, 0, 0) floats.
 int movenet_stack_bwd_replay(const bf16_t* x, const float* ckpt,
                              const bf16_t* tfsg, const bf16_t* ctx,
                              const float* w_fg, const float* w_out,
                              const float* b_out, const bf16_t* dskip,
-                             const int* dil, int every, bf16_t* group,
-                             float* work, const bf16_t* xc, const float* wup,
+                             const int* dil, int every, float* group,
+                             int tile, const bf16_t* xc, const float* wup,
                              float* scratch, int chunks, bf16_t* dx,
                              bf16_t* dctx_out, float* db_fg, float* dw_fg,
                              float* dw_out, float* db_out, float* dwup,
@@ -5359,7 +5763,8 @@ int movenet_stack_bwd_replay(const bf16_t* x, const float* ckpt,
   BwdEnds ends = {};
   ends.dskip = dskip;
   ends.dx = dx;
-  const ReplaySrc<false> rp = {x, ckpt, b_out, every, group, work};
+  if (tile < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const ReplaySrc<false> rp = {x, ckpt, b_out, every, group, tile};
   return bwd_dispatch<false>(ends, nullptr, tfsg, ctx, w_fg, w_out, dil, xc,
                              wup, scratch, chunks, dctx_out, db_fg, dw_fg,
                              dw_out, db_out, dwup, dbup, batch, t_len,
@@ -5367,15 +5772,15 @@ int movenet_stack_bwd_replay(const bf16_t* x, const float* ckpt,
 }
 
 // The replay backward in float32: as movenet_stack_bwd_replay with x,
-// tfsg, ctx, dskip, xc, dx and dctx_out in float32; group holds every - 1
-// float32 buffers, work is unused; scratch holds
-// movenet_stack_bwd_scratch(..., f32 = 1) floats.
+// tfsg, ctx, dskip, xc, dx and dctx_out in float32 (tile unused: no value
+// is rounded); scratch holds movenet_stack_bwd_scratch(..., f32 = 1)
+// floats.
 int movenet_stack_bwd_replay_f32(const float* x, const float* ckpt,
                                  const float* tfsg, const float* ctx,
                                  const float* w_fg, const float* w_out,
                                  const float* b_out, const float* dskip,
                                  const int* dil, int every, float* group,
-                                 float* work, const float* xc,
+                                 int tile, const float* xc,
                                  const float* wup, float* scratch, int chunks,
                                  float* dx, float* dctx_out, float* db_fg,
                                  float* dw_fg, float* dw_out, float* db_out,
@@ -5385,7 +5790,7 @@ int movenet_stack_bwd_replay_f32(const float* x, const float* ckpt,
   BwdEnds ends = {};
   ends.dskip_f = dskip;
   ends.dx = dx;
-  const ReplaySrc<true> rp = {x, ckpt, b_out, every, group, work};
+  const ReplaySrc<true> rp = {x, ckpt, b_out, every, group, tile};
   return bwd_dispatch<true>(ends, nullptr, tfsg, ctx, w_fg, w_out, dil, xc,
                             wup, scratch, chunks, dctx_out, db_fg, dw_fg,
                             dw_out, db_out, dwup, dbup, batch, t_len,
@@ -5393,26 +5798,27 @@ int movenet_stack_bwd_replay_f32(const float* x, const float* ckpt,
 }
 
 // Every layer input (L, B, T, R) as the replay backward rebuilds it from x,
-// the forward's checkpoints and taps, into hsave (bf16; work holds (B*T,
-// R) floats): a check of the rebuild, not a step of the training path.
+// the forward's checkpoints and taps, into hf (float32: in bf16 the
+// rebuild's float32 h, layer 0 x widened): a check of the rebuild, not a
+// step of the training path.
 int movenet_stack_replay_inputs(const bf16_t* x, const float* ckpt,
                                 const bf16_t* tfsg, const float* w_out,
-                                const float* b_out, int every, float* work,
-                                bf16_t* hsave, int batch, int t_len,
-                                int n_layers, int r, int s, void* stream) {
-  const ReplaySrc<false> rp = {x, ckpt, b_out, every, nullptr, work};
-  return replay_inputs_dispatch<false>(rp, tfsg, w_out, hsave, batch, t_len,
+                                const float* b_out, int every, float* hf,
+                                int batch, int t_len, int n_layers, int r,
+                                int s, void* stream) {
+  const ReplaySrc<false> rp = {x, ckpt, b_out, every, nullptr, 0};
+  return replay_inputs_dispatch<false>(rp, tfsg, w_out, hf, batch, t_len,
                                        n_layers, r, s, stream);
 }
 
-// The same in float32 (x, tfsg and hsave float32; work unused).
+// The same in float32 (x and tfsg float32).
 int movenet_stack_replay_inputs_f32(const float* x, const float* ckpt,
                                     const float* tfsg, const float* w_out,
                                     const float* b_out, int every,
-                                    float* work, float* hsave, int batch,
-                                    int t_len, int n_layers, int r, int s,
+                                    float* hsave, int batch, int t_len,
+                                    int n_layers, int r, int s,
                                     void* stream) {
-  const ReplaySrc<true> rp = {x, ckpt, b_out, every, nullptr, work};
+  const ReplaySrc<true> rp = {x, ckpt, b_out, every, nullptr, 0};
   return replay_inputs_dispatch<true>(rp, tfsg, w_out, hsave, batch, t_len,
                                       n_layers, r, s, stream);
 }

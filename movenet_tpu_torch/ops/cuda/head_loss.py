@@ -14,11 +14,12 @@ per-block partial sums, and counts one launch in ``launch_counts``.
 With a float32 skip ``head_fwd`` and ``head_bwd`` launch the unpacked
 kernels' float32 forms (split-TF32 products; the backward's scratch and
 dskip float32), counted apart as ``head_fwd_f32`` and ``head_bwd_f32``.
-They take 4 <= S <= 64 (the bf16 kernels 4 <= S <= 128) and 4 <= C <=
-256: up to C = 128 with W2 staged in
-shared memory, above it the wide kernels, whose W2 streams through a ring
-of row slabs (``f32_smem``), counted as ``head_fwd_f32_wide`` and
-``head_bwd_f32_wide``; the packed kernels take bf16 only.
+They take 4 <= S <= 128 and 4 <= C <= 256, as the bf16 kernels: up to C
+= 128 with W2 staged in shared memory, above it the wide kernels, whose W2
+streams through a ring of row slabs and which above S = 64 read the rows
+of skip from global memory (``f32_smem``), counted as
+``head_fwd_f32_wide`` and ``head_bwd_f32_wide``; the packed kernels take
+bf16 only.
 """
 
 from __future__ import annotations
@@ -45,9 +46,10 @@ F32_MAX_C = 256
 F32_RING_C = 128
 # the widest skip the bf16 kernels take (above 64 the wide forms: no W1^T
 # in the backward, and above C = 128 the forward's y_seq reads skip from
-# global memory) and the float32 kernels take
+# global memory) and the float32 kernels take (above 64 with C > 128 the
+# rows of skip from global memory too)
 MAX_S = 128
-F32_MAX_S = 64
+F32_MAX_S = 128
 F32_RING_ROWS = 32
 # blocks per launch: two per SM of an H100
 BLOCKS = 264
@@ -107,13 +109,16 @@ def f32_smem(s: int, c: int) -> Dict[str, int]:
     C = 128 W1 and a ring of two (32, ldc) stages of W2's rows; then the
     forward's biases, block sums and per warp 16 rows of leaky(skip) and a
     row of CP, or the backward's b1, the warps' column sums and their
-    leaky(skip) rows."""
+    leaky(skip) rows.  The wide kernels above S = 64 stage no rows of
+    leaky(skip)."""
     sp, cp = -(-s // 8) * 8, -(-c // 8) * 8
     ldc, lds = -(-cp // 32) * 32 + 8, -(-sp // 32) * 32 + 8
-    w2 = 2 * F32_RING_ROWS if c > F32_RING_C else cp
+    wide = c > F32_RING_C
+    w2 = 2 * F32_RING_ROWS if wide else cp
     weights = (sp + w2) * ldc
-    return {"fwd": 4 * (weights + 2 * cp + 2 * 256 + 8 * (16 * lds + cp)),
-            "bwd": 4 * (weights + cp + 8 * 2 * cp + 8 * 16 * lds)}
+    rows = 0 if wide and sp > 64 else 16 * lds
+    return {"fwd": 4 * (weights + 2 * cp + 2 * 256 + 8 * (rows + cp)),
+            "bwd": 4 * (weights + cp + 8 * 2 * cp + 8 * rows)}
 
 
 def _f32_widths(s: int, c: int) -> None:
@@ -121,16 +126,15 @@ def _f32_widths(s: int, c: int) -> None:
     if s > F32_MAX_S:
         raise NotImplementedError(
             f"the float32 head kernels take 4 <= S <= {F32_MAX_S}; got "
-            f"S={s} in torch.float32 (ROADMAP.md B.4 widths (6): the "
-            f"float32 head above S = {F32_MAX_S}; the bf16 head takes S <= "
-            f"{MAX_S})")
+            f"S={s} in torch.float32 (ROADMAP.md B.4: the head kernels "
+            f"take S <= {MAX_S})")
     smem = f32_smem(s, c)
     if c > F32_MAX_C or max(smem.values()) > SMEM_LIMIT:
         raise NotImplementedError(
-            f"the float32 head kernels take 4 <= S <= 64 and 4 <= C <= "
-            f"{F32_MAX_C}; got S={s}, C={c} in torch.float32 (shared memory "
-            f"{smem} bytes; ROADMAP.md B.4: the head kernels take C <= "
-            f"{F32_MAX_C})")
+            f"the float32 head kernels take 4 <= S <= {F32_MAX_S} and 4 <= C "
+            f"<= {F32_MAX_C}; got S={s}, C={c} in torch.float32 (shared "
+            f"memory {smem} bytes; ROADMAP.md B.4: the head kernels take C "
+            f"<= {F32_MAX_C})")
 
 
 def _common(lib, skip, pack, w1, b1, w2, b2, tgt_off):

@@ -28,8 +28,11 @@ layers k - 1 rebuild launches of the same layer kernel, then per layer the
 save backward's grids in their recompute form (the layer launch, two
 weight-gradient launches and their reductions), then dx.
 ``stack_fwd_replay`` is L grid launches and, in bf16, ceil(L/k) - 1
-checkpoint copies; ``stack_bwd_replay`` is ``stack_bwd_x``'s grids plus per group k -
-1 rebuild launches (and in bf16 one rounding of its checkpoint).
+checkpoint copies; ``stack_bwd_replay`` is ``stack_bwd_x``'s grids plus per
+group k - 1 rebuild launches; its group buffers hold the rebuild's float32
+h, which in bf16 feeds W_fg's gradient as the TPU kernel feeds it (the
+rows t with t mod tile < d of h(t-d) rounded to bf16, tile =
+``ops/stack_kernel.pick_stack_tile``).
 ``stack_head_fwd`` is ``stack_fwd``'s grids with x in place of the
 embedding and the head in the last layer's, plus one reduction;
 ``stack_head_bwd`` is the head's backward grid and its reduction, then
@@ -49,9 +52,11 @@ kernels' float32 forms, counted as ``stack_fwd_tails_f32`` and
 ``stack_bwd_tails_f32``: one launch of ``stack_layer_f32_kernel`` per
 layer without the taps (the rebuilds without the skip sum too), and the
 backward's layer launch in its float32 recompute form (fg formed again in
-float32 from the operand rows staged over the tile's gradient rows) with
-the float32 save form's weight gradients; checkpoints, group buffers, dx
-and dctx in float32.  ``stack_fwd_replay`` and ``stack_bwd_replay`` in
+float32 from the operand rows staged over the tile's gradient rows; at R =
+128 by a taps launch of the forward's layer kernel before each layer
+launch, whose wide form reads the float32 taps) with the float32 save
+form's weight gradients; checkpoints, group buffers, dx and dctx in
+float32.  ``stack_fwd_replay`` and ``stack_bwd_replay`` in
 float32 (counted as ``stack_fwd_replay_f32`` and
 ``stack_bwd_replay_f32``) run the float32 recompute forward's launches
 with the taps stored, and the float32 save backward's grids after the
@@ -60,14 +65,17 @@ kernels take bf16 only, and raise for float32 with their ROADMAP.md
 B.2/B.4 item.
 
 Every family is built for the (R, S) pairs ``WIDTHS``; the bf16 save forms
-(embed and non-embed), the bf16 recompute and the bf16 replay forms also
-for ``WIDE_WIDTHS`` (R = 128), whose kernels stream their weights through
-shared memory (csrc/stack_kernel.cu, "the wide save forms" and "the wide
-recompute forms"; the save, replay and recompute forwards' wrappers and the
-recompute backward's allocate their bf16 weight scratch,
-``movenet_stack_wt_elems``).  A family raises at a pair it is not built for
-with its ROADMAP.md item (``FAMILY_WIDTHS``, ``WIDTH_ITEMS``); the float32
-recompute and replay forms are families of their own there.
+(embed and non-embed), the bf16 recompute, the bf16 replay and the float32
+recompute forms also for ``WIDE_WIDTHS`` (R = 128), whose kernels stream
+their weights through shared memory (csrc/stack_kernel.cu, "the wide save
+forms", "the wide recompute forms" and "the wide float32 recompute
+forward"; the save, replay and recompute forwards' wrappers and the
+recompute backward's allocate their weight scratch in the compute dtype,
+``movenet_stack_wt_elems``; the wide float32 recompute backward runs a taps
+launch of the forward's layer kernel before each layer launch).  A family
+raises at a pair it is not built for with its ROADMAP.md item
+(``FAMILY_WIDTHS``, ``WIDTH_ITEMS``); the float32 recompute and replay forms
+are families of their own there.
 """
 
 from __future__ import annotations
@@ -96,9 +104,10 @@ REDUCE_BLOCKS = 264
 SMEM_LIMIT = 232448
 # the (R, S) pairs every kernel family is built for (MOVENET_STACK_WIDTHS in
 # csrc/stack_kernel.cu), and the wide ones the bf16 save, recompute and
-# replay forms also take (MOVENET_WIDE_WIDTHS: the R = 128 model of
-# scripts/probe_r128_mfu.py, the flagship's depth at R = S = 128, and
-# experiment 02 at --residual_channels 128)
+# replay forms and the float32 recompute forms also take
+# (MOVENET_WIDE_WIDTHS: the R = 128 model of scripts/probe_r128_mfu.py, the
+# flagship's depth at R = S = 128, and experiment 02 at
+# --residual_channels 128)
 WIDTHS = ((16, 16), (32, 32), (64, 64), (64, 8), (32, 8), (16, 8))
 WIDE_WIDTHS = ((128, 128), (128, 8))
 # the built pairs by kernel family, in the order of the library's family
@@ -107,7 +116,7 @@ WIDE_WIDTHS = ((128, 128), (128, 8))
 FAMILY_WIDTHS = {"save": WIDTHS + WIDE_WIDTHS, "save_f32": WIDTHS,
                  "recompute": WIDTHS + WIDE_WIDTHS,
                  "replay": WIDTHS + WIDE_WIDTHS, "merged": WIDTHS,
-                 "recompute_f32": WIDTHS, "replay_f32": WIDTHS}
+                 "recompute_f32": WIDTHS + WIDE_WIDTHS, "replay_f32": WIDTHS}
 WIDTH_ITEMS = {"save": "B.2 widths (5)", "save_f32": "B.2 widths (2)",
                "recompute": "B.2 widths (5)", "replay": "B.2 widths (5)",
                "merged": "B.2 widths (3)", "recompute_f32": "B.2 widths (2)",
@@ -187,22 +196,17 @@ def bind(lib):
     lib.movenet_stack_bwd_f32.argtypes = [_P] * 7 + [_I, _I] + [_P] * 4 \
         + [_I] + [_P] * 9 + [_I] * 6 + [_P]
     lib.movenet_stack_bwd_f32.restype = _I
-    lib.movenet_tails_bwd_scratch.argtypes = [_I] * 6
+    lib.movenet_tails_bwd_scratch.argtypes = [_I] * 7
     lib.movenet_tails_bwd_scratch.restype = _L
-    # the bf16 recompute forms take the wide forms' weight scratch after
-    # their other pointers; the float32 forms have none
-    lib.movenet_stack_fwd_tails_f32.argtypes = [_P] * 7 + [_I] + [_P] * 4 \
-        + [_I] * 5 + [_P]
-    lib.movenet_stack_fwd_tails_f32.restype = _I
-    lib.movenet_stack_fwd_tails.argtypes = [_P] * 7 + [_I] + [_P] * 5 \
-        + [_I] * 5 + [_P]
-    lib.movenet_stack_fwd_tails.restype = _I
-    lib.movenet_stack_bwd_tails_f32.argtypes = [_P] * 9 + [_I, _P, _P, _I] \
-        + [_P] * 6 + [_I] * 5 + [_P]
-    lib.movenet_stack_bwd_tails_f32.restype = _I
-    lib.movenet_stack_bwd_tails.argtypes = [_P] * 9 + [_I, _P, _P, _I] \
-        + [_P] * 7 + [_I] * 5 + [_P]
-    lib.movenet_stack_bwd_tails.restype = _I
+    # the recompute forms take the wide forms' weight scratch after their
+    # other pointers
+    for fn in (lib.movenet_stack_fwd_tails, lib.movenet_stack_fwd_tails_f32):
+        fn.argtypes = [_P] * 7 + [_I] + [_P] * 5 + [_I] * 5 + [_P]
+        fn.restype = _I
+    for fn in (lib.movenet_stack_bwd_tails, lib.movenet_stack_bwd_tails_f32):
+        fn.argtypes = [_P] * 9 + [_I, _P, _P, _I] + [_P] * 7 + [_I] * 5 \
+            + [_P]
+        fn.restype = _I
     lib.movenet_stack_blocks.argtypes = []
     lib.movenet_stack_blocks.restype = _I
     lib.movenet_stack_head_supports.argtypes = [_I, _I, _I]
@@ -219,10 +223,10 @@ def bind(lib):
     lib.movenet_stack_fwd_replay_f32.restype = _I
     for fn in (lib.movenet_stack_replay_inputs,
                lib.movenet_stack_replay_inputs_f32):
-        fn.argtypes = [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 5 + [_I] + [_P] + [_I] * 5 + [_P]
         fn.restype = _I
     for fn in (lib.movenet_stack_bwd_replay, lib.movenet_stack_bwd_replay_f32):
-        fn.argtypes = [_P] * 9 + [_I] + [_P] * 5 + [_I] + [_P] * 8 \
+        fn.argtypes = [_P] * 9 + [_I, _P, _I] + [_P] * 3 + [_I] + [_P] * 8 \
             + [_I] * 5 + [_P]
         fn.restype = _I
     lib.movenet_stack_head_fwd.argtypes = [_P] * 19 + [_I] * 8 + [_P]
@@ -274,14 +278,16 @@ def _wg_split(km: int, kn: int, ca: int, cb: int):
     return best
 
 
-def _wg_smem(n: int, ka: int, split_a: bool) -> int:
+def _wg_smem(n: int, ka: int, split_a: bool, wide: bool = False,
+             rows: int = 64) -> int:
     """``WgShape<MODE, R, S, KA>::smem()``: the weight-gradient launch's
-    bytes for an output of KA x n columns."""
-    nb = min(n, 128)
+    bytes for an output of KA x n columns in slabs of 128 columns (64 at the
+    wide widths), ``rows`` rows staged a chunk."""
+    nb = min(n, 64 if wide else 128)
     lda, ldb = (ka + 15) // 16 * 16 + 8, (nb + 15) // 16 * 16 + 8
     wm, wn = _wg_split(ka // 16, nb // 8, 12 if split_a else 4, 6)
     red = (8 // (wm * wn) - 1) * ka * nb
-    return 4 * max(64 * (lda + ldb), red)
+    return 4 * max(rows * (lda + ldb), red)
 
 
 def f32_smem(r: int, s: int, win: int) -> Dict[str, int]:
@@ -296,7 +302,25 @@ def f32_smem(r: int, s: int, win: int) -> Dict[str, int]:
     [h | h(t-d) | ctx] rows first, then [dh | dskip] and dfg) and the
     weight-gradient launches (W_fg from float32 activations, W_out from
     the float32 gated, W_up from float32 xc).  ``win`` is W_in: 2R, or 3R
-    with ctx."""
+    with ctx.  Above R = 64 the wide layouts: the forward's
+    ``WideF32Shape`` (the 64-row float32 operand tile and a ring of two
+    weight slabs, the larger of 32 W_fg^T rows and 64 W_out^T rows), the
+    layer backward's ``WideBwd`` (64 rows of [dh | dskip] and of dfg, the
+    float32 taps first, and a ring of two 32-row weight slabs; the
+    recompute form reads the taps of its taps launch) and W_fg's gradient
+    on 32-row chunks."""
+    if r > 64:
+        ldh, ldd, ldf = 3 * r + 4, r + s + 4, 2 * r + 4
+        slab = max(2 * 16 * ldh, 64 * (r + 4))
+        bwd = 4 * (64 * (ldd + ldf) + 2 * 32 * max(ldd, ldf))
+        return {
+            "layer_fwd": 4 * (64 * ldh + 2 * slab),
+            "layer_bwd": bwd,
+            "layer_bwd_rc": bwd,
+            "wgrad_fg": _wg_smem(2 * r, win, True, True, 32),
+            "wgrad_out": _wg_smem(r + s, r, True, True),
+            "wgrad_up": _wg_smem(10 * r, r, True, True),
+        }
     halves = 2 if r >= 64 else 1
     rows = 64 // halves
     ldd, ldf = r + s + 4, 2 * r + 4
@@ -491,17 +515,17 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
         dwup = torch.empty(r, 10 * r, dtype=f32, device=dev)
         dbup = torch.empty(10 * r, dtype=f32, device=dev)
     if replay is not None:
-        # bf16: `every` group slots and the rebuild's float32 h; float32:
-        # every - 1 slots (the layer inputs are h)
-        group = torch.empty(every if not f32_form else max(every - 1, 1),
-                            batch, t, r, dtype=act, device=dev)
-        work = None if f32_form else torch.empty(batch * t, r, dtype=f32,
-                                                 device=dev)
+        # every - 1 slots of the rebuild's float32 h; in bf16 the TPU
+        # kernel's tile decides which rows of h(t-d) W_fg's gradient takes
+        # rounded
+        group = torch.empty(max(every - 1, 1), batch, t, r, dtype=f32,
+                            device=dev)
+        tile = sk.pick_stack_tile(t, dilations, ctx is not None)
         fn = lib.movenet_stack_bwd_replay_f32 if f32_form else \
             lib.movenet_stack_bwd_replay
         err = fn(_ptr(x), _ptr(ckpt), _ptr(tfsg), _ptr(ctx), _ptr(w_fg),
                  _ptr(w_out), _ptr(b_out), _ptr(dskip), _dils(dilations),
-                 every, _ptr(group), _ptr(work), _ptr(xc), _ptr(wup),
+                 every, _ptr(group), tile, _ptr(xc), _ptr(wup),
                  _ptr(scratch), chunks, _ptr(dx), _ptr(dctx), _ptr(db_fg),
                  _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), _ptr(dwup),
                  _ptr(dbup), batch, t, n_layers, r, s, stream)
@@ -570,17 +594,15 @@ def run_fwd_tails(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
                        dtype=act, device=dev)
     work = torch.empty(2, batch, t, r, dtype=act, device=dev)
     skacc = torch.empty(batch * t, s, dtype=torch.float32, device=dev)
-    head = (_ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out),
+    wt = _weight_scratch(lib, dev, r, s, ctx is not None, n_layers, act)
+    args = (_ptr(x), _ptr(ctx), _ptr(b_fg), _ptr(w_fg), _ptr(w_out),
             _ptr(b_out), _dils(dilations), every, _ptr(skip), _ptr(ckpt),
-            _ptr(work), _ptr(skacc))
-    tail = (batch, t, n_layers, r, s, stream)
+            _ptr(work), _ptr(skacc), _ptr(wt), batch, t, n_layers, r, s,
+            stream)
     if act == torch.float32:
-        _raise(lib.movenet_stack_fwd_tails_f32(*head, *tail),
-               "stack_fwd_tails_f32")
+        _raise(lib.movenet_stack_fwd_tails_f32(*args), "stack_fwd_tails_f32")
     else:
-        wt = _weight_scratch(lib, dev, r, s, ctx is not None, n_layers)
-        _raise(lib.movenet_stack_fwd_tails(*head, _ptr(wt), *tail),
-               "stack_fwd_tails")
+        _raise(lib.movenet_stack_fwd_tails(*args), "stack_fwd_tails")
     return skip, ckpt
 
 
@@ -598,7 +620,8 @@ def run_bwd_tails(lib, x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
     _check("dskip", dskip, act, (batch, t, s), dev)
     chunks = max(1, REDUCE_BLOCKS // batch)
     scratch = torch.empty(
-        lib.movenet_tails_bwd_scratch(batch, t, r, s, win, chunks),
+        lib.movenet_tails_bwd_scratch(batch, t, r, s, win, chunks,
+                                      int(act == f32)),
         dtype=f32, device=dev)
     group = torch.empty(max(every - 1, 1), batch, t, r, dtype=act,
                         device=dev)
@@ -608,18 +631,16 @@ def run_bwd_tails(lib, x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
     dw_fg = torch.empty(n_layers, win, 2 * r, dtype=f32, device=dev)
     dw_out = torch.empty(n_layers, r, r + s, dtype=f32, device=dev)
     db_out = torch.empty(n_layers, r + s, dtype=f32, device=dev)
-    head = (_ptr(x), _ptr(ckpt), _ptr(ctx), _ptr(b_fg), _ptr(w_fg),
+    wt = _weight_scratch(lib, dev, r, s, ctx is not None, n_layers, act)
+    args = (_ptr(x), _ptr(ckpt), _ptr(ctx), _ptr(b_fg), _ptr(w_fg),
             _ptr(w_out), _ptr(b_out), _ptr(dskip), _dils(dilations), every,
             _ptr(group), _ptr(scratch), chunks, _ptr(dx), _ptr(dctx),
-            _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out))
-    tail = (batch, t, n_layers, r, s, stream)
+            _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), _ptr(wt),
+            batch, t, n_layers, r, s, stream)
     if act == f32:
-        _raise(lib.movenet_stack_bwd_tails_f32(*head, *tail),
-               "stack_bwd_tails_f32")
+        _raise(lib.movenet_stack_bwd_tails_f32(*args), "stack_bwd_tails_f32")
     else:
-        wt = _weight_scratch(lib, dev, r, s, ctx is not None, n_layers)
-        _raise(lib.movenet_stack_bwd_tails(*head, _ptr(wt), *tail),
-               "stack_bwd_tails")
+        _raise(lib.movenet_stack_bwd_tails(*args), "stack_bwd_tails")
     return dx, dctx, db_fg, dw_fg, dw_out, db_out
 
 
@@ -690,12 +711,13 @@ def run_fwd_x(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
     return skip, hsave, tfsg
 
 
-def _weight_scratch(lib, dev, r, s, ctx: bool, n_layers):
-    """The wide forms' bf16 weight scratch (``movenet_stack_wt_elems``), or
-    None at the narrow widths, which take none."""
+def _weight_scratch(lib, dev, r, s, ctx: bool, n_layers,
+                    dtype=torch.bfloat16):
+    """The wide forms' weight scratch (``movenet_stack_wt_elems``) in
+    ``dtype`` (bf16; float32 for the float32 recompute forms), or None at
+    the narrow widths, which take none."""
     n_wt = lib.movenet_stack_wt_elems(r, s, (3 if ctx else 2) * r, n_layers)
-    return torch.empty(n_wt, dtype=torch.bfloat16, device=dev) if n_wt \
-        else None
+    return torch.empty(n_wt, dtype=dtype, device=dev) if n_wt else None
 
 
 def _fwd_buffers(lib, dev, batch, t, n_layers, r, s, ctx: bool):
@@ -757,9 +779,10 @@ def run_fwd_replay(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
 
 def run_replay_inputs(lib, x, ckpt, tfsg, w_out, b_out, stream=None,
                       every=0):
-    """Every layer input (L, B, T, R), in x's dtype, as the replay backward
+    """Every layer input (L, B, T, R) in float32 as the replay backward
     rebuilds it from x, the checkpoints and the taps (its rebuild launches,
-    not counted): held to the save forward's hsave bit for bit."""
+    not counted): the save forward's residual stream, held to hsave bit for
+    bit (in bf16 rounded)."""
     n_layers, batch, t, two_r = tfsg.shape
     r = two_r // 2
     s = w_out.shape[2] - r
@@ -771,17 +794,13 @@ def run_replay_inputs(lib, x, ckpt, tfsg, w_out, b_out, stream=None,
            (len(sk.ckpt_layers(n_layers, every)), batch, t, r), dev)
     _check("w_out", w_out, torch.float32, (n_layers, r, r + s), dev)
     _check("b_out", b_out, torch.float32, (n_layers, r + s), dev)
-    hsave = torch.empty(n_layers, batch, t, r, dtype=act, device=dev)
-    f32 = act == torch.float32
-    work = None if f32 else torch.empty(batch * t, r, dtype=torch.float32,
-                                        device=dev)
-    fn = lib.movenet_stack_replay_inputs_f32 if f32 else \
+    hf = torch.empty(n_layers, batch, t, r, dtype=torch.float32, device=dev)
+    fn = lib.movenet_stack_replay_inputs_f32 if act == torch.float32 else \
         lib.movenet_stack_replay_inputs
     err = fn(_ptr(x), _ptr(ckpt), _ptr(tfsg), _ptr(w_out), _ptr(b_out),
-             every, _ptr(work), _ptr(hsave), batch, t, n_layers, r, s,
-             stream)
+             every, _ptr(hf), batch, t, n_layers, r, s, stream)
     _raise(err, "replay_inputs")
-    return hsave
+    return hf
 
 
 def run_bwd_replay(lib, x, ckpt, tfsg, ctx, w_fg, w_out, b_out, dskip,

@@ -20,12 +20,17 @@ VJP strategies:
   replay     ``fused_stack`` with that strategy: the save strategy without
              hsave.  The forward keeps x, tfsg and the float32 residual
              stream h at the inputs of layers k, 2k, ... (float32
-             checkpoints); the backward rebuilds each group's layer inputs
-             from its checkpoint with the save forward's own residual
-             update (``replay_rebuild``: the same bits as hsave) and runs
-             the save backward on them, so its gradients are the save
-             strategy's bit for bit.  (The TPU kernel feeds W_fg's
-             gradient the unrounded float32 h instead of hsave's bf16(h).)
+             checkpoints); the backward rebuilds each group's float32 layer
+             inputs from its checkpoint with the save forward's own
+             residual update (``replay_rebuild``: the save forward's
+             residual stream bit for bit, hsave its rounding) and runs the
+             save backward on them.  As in the TPU kernel W_fg's gradient
+             takes the float32 h and h(t-d), the rows t with t mod tile < d
+             of h(t-d) rounded to the compute dtype (the TPU kernel's ring
+             snapshot; tile = ``pick_stack_tile(T, dilations, ctx)``), so
+             in bf16 dW_fg differs from the save strategy's and every other
+             gradient is the save strategy's bit for bit; in float32 all
+             are.
 
 The kernels live in ``csrc/stack_kernel.cu`` behind
 ``ops/cuda/stack_kernel.py``; tensors on the CPU take the plain versions
@@ -349,12 +354,15 @@ def stack_fwd_x_plain(x, ctx, b_fg, w_fg, w_out, b_out,
     return skip.to(x.dtype), hsave, tfsg
 
 
-def _save_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, mm=None):
+def _save_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, mm=None,
+              tap_round=None):
     """The layer sweep of the save backward: (dh of the stack's input,
     dctx or None, db_fg (L, B, 2R), dw_fg, dw_out, db_out), float32.
     dskip may be in the compute dtype or float32 (the merged head's).
     ``mm(a, b)`` forms the four products in place of torch's
-    (``split_matmul``: as the float32 kernels form them)."""
+    (``split_matmul``: as the float32 kernels form them).  ``tap_round`` =
+    (dt, tile): the replay backward, whose float32 layer inputs feed W_fg's
+    gradient with the rows t of h(t-d), t mod tile < d, rounded to dt."""
     n_layers, batch, t, two_r = tfsg.shape
     r = two_r // 2
     f32 = torch.float32
@@ -371,7 +379,13 @@ def _save_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, mm=None):
     for l in reversed(range(n_layers)):
         d = dilations[l]
         h = hsave[l].to(f32)
-        parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
+        sh = _shift(h, d)
+        if tap_round is not None:
+            dt, tile = tap_round
+            ring = (torch.arange(t, device=h.device) % tile < d)[None, :,
+                                                                 None]
+            sh = torch.where(ring, sh.to(dt).to(f32), sh)
+        parts = [h, sh] + ([ctxf] if ctxf is not None else [])
         hp = torch.cat(parts, dim=-1)
         v = tfsg[l].to(f32)
         tf, sg = v[..., :r], v[..., r:]
@@ -431,12 +445,14 @@ def stack_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
 
 
 def stack_bwd_x_plain(hsave, tfsg, ctx, w_fg, w_out, dskip,
-                      dilations: Sequence[int], proj=None):
+                      dilations: Sequence[int], proj=None, tap_round=None):
     """The backward of ``stack_fwd_x_plain``: as ``stack_bwd_plain`` with
-    dx (B, T, R) in the compute dtype in place of the table gradient."""
+    dx (B, T, R) in the compute dtype in place of the table gradient
+    (``tap_round``: ``_save_bwd``'s)."""
     n_layers, batch, _, two_r = tfsg.shape
     dh, dctx, db_fg, dw_fg, dw_out, db_out = _save_bwd(
-        hsave, tfsg, ctx, w_fg, w_out, dskip, dilations)
+        hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
+        tap_round=tap_round)
     dctx_out, dwup_aug = _dctx_out(dctx, proj, tfsg.dtype)
     return (dh.to(tfsg.dtype), dctx_out,
             db_fg.reshape(n_layers * batch, two_r), dw_fg, dw_out, db_out,
@@ -461,17 +477,18 @@ def stack_fwd_replay_plain(x, ctx, b_fg, w_fg, w_out, b_out,
 
 
 def replay_rebuild(h, tfsg, w_out, b_out, dt, lo: int, hi: int):
-    """The layer inputs hsave[lo .. hi) in ``dt`` from h = the float32 h_lo:
+    """The float32 layer inputs h_lo .. h_{hi-1} from h = the float32 h_lo:
     h_{l+1} = out[..., :R] + h_l with out = rnd(gated) rnd(W_out) + b_out
     over all R+S columns and gated from the rounded taps, as ``_save_fwd``
-    forms them, so the same bits (the replay backward's rebuild)."""
+    forms them, so the save forward's residual stream bit for bit, hsave[lo
+    .. hi) its rounding to ``dt`` (the replay backward's rebuild)."""
     def rnd(v):
         return v.to(dt).to(torch.float32)
 
     r = h.shape[-1]
     hs = []
     for l in range(lo, hi):
-        hs.append(rnd(h).to(dt))
+        hs.append(h)
         if l + 1 < hi:
             v = tfsg[l].to(torch.float32)
             out = torch.matmul(rnd(v[..., :r] * v[..., r:]), rnd(w_out[l])) \
@@ -483,24 +500,26 @@ def replay_rebuild(h, tfsg, w_out, b_out, dt, lo: int, hi: int):
 def stack_bwd_replay_plain(x, ckpt, tfsg, ctx, w_fg, w_out, b_out, dskip,
                            dilations: Sequence[int], proj=None,
                            every: int = 0):
-    """The backward of ``stack_fwd_replay_plain``: the layer inputs
-    rebuilt group by group from x and the checkpoints
-    (``replay_rebuild``), then ``stack_bwd_x_plain`` on them, so the
-    returns (dx, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug) are the save
-    backward's from the same x bit for bit."""
+    """The backward of ``stack_fwd_replay_plain``: the float32 layer inputs
+    rebuilt group by group from x and the checkpoints (``replay_rebuild``),
+    then the save backward's sweep on them with W_fg's gradient as the TPU
+    kernel forms it (``_save_bwd``'s ``tap_round``).  The returns (dx, dctx,
+    db_fg, dw_fg, dw_out, db_out, dwup_aug) are the save backward's from the
+    same x bit for bit, but for dw_fg in bf16."""
     n_layers = len(dilations)
     every = every or tails_every(n_layers)
     if ckpt.shape[0] != len(ckpt_layers(n_layers, every)):
         raise ValueError(f"{ckpt.shape[0]} checkpoints, expected "
                          f"{len(ckpt_layers(n_layers, every))} for L="
                          f"{n_layers}, every {every}")
-    hsave = []
+    hs = []
     for lo in range(0, n_layers, every):
         h0 = x if lo == 0 else ckpt[lo // every - 1]
-        hsave += replay_rebuild(h0.to(torch.float32), tfsg, w_out, b_out,
-                                x.dtype, lo, min(lo + every, n_layers))
-    return stack_bwd_x_plain(torch.stack(hsave), tfsg, ctx, w_fg, w_out,
-                             dskip, dilations, proj)
+        hs += replay_rebuild(h0.to(torch.float32), tfsg, w_out, b_out,
+                             x.dtype, lo, min(lo + every, n_layers))
+    tile = pick_stack_tile(x.shape[1], dilations, ctx is not None)
+    return stack_bwd_x_plain(torch.stack(hs), tfsg, ctx, w_fg, w_out, dskip,
+                             dilations, proj, (x.dtype, tile))
 
 
 # ------------------------------------------- merged trunk + head + CE
@@ -641,6 +660,28 @@ def split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (a (..., K) and b (K, N), float32) as the float32 kernels
     form it: both operands split, three passes (``tf32_split_matmul``)."""
     out = tf32_split_matmul(a.reshape(-1, a.shape[-1]), b, True, True)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def kstep_split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (a (..., K) and b (K, N), float32) in the float32 kernels'
+    order: k in steps of 8, each step's three split-TF32 passes (small *
+    big, big * small, big * big) summed from zero, each pass's exact sum
+    rounded to float32, then the step added in float32 (mma_split_add).
+    ``split_matmul`` sums each pass over all of K before rounding; this is
+    the order the kernels sum in, up to the tensor core's rounding inside
+    a pass."""
+    f64, f32 = torch.float64, torch.float32
+    a2 = a.reshape(-1, a.shape[-1])
+    ab, a_s = (v.to(f64) for v in tf32_split(a2))
+    bb, b_s = (v.to(f64) for v in tf32_split(b))
+    out = torch.zeros(a2.shape[0], b.shape[1], dtype=f32, device=a.device)
+    for k0 in range(0, a2.shape[1], 8):
+        k = slice(k0, k0 + 8)
+        t = (a_s[:, k] @ bb[k]).to(f32)
+        t = (t.to(f64) + ab[:, k] @ b_s[k]).to(f32)
+        t = (t.to(f64) + ab[:, k] @ bb[k]).to(f32)
+        out = out + t
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 

@@ -31,8 +31,8 @@ their refusals.
   scale.
 * The byte counts (``f32_smem``): every built (R, S) pair's float32 save
   and recompute launches and every float32 head at S <= 64, C <= 256 fit
-  a block's 232,448 bytes; the float32 head at C = 260 is refused with the
-  B.4 label; mixed activation dtypes are refused, naming the tensors; the
+  a block's 232,448 bytes; the float32 head at C = 260 or S = 132 is
+  refused with the B.4 label; mixed activation dtypes are refused, naming the tensors; the
   float32 recompute, non-embed save and replay forms are taken where the
   merged forms still refuse float32.
 * The float32 non-embed save and replay forms on the CPU run their plain
@@ -335,7 +335,8 @@ def test_f32_recompute_launches_fit_a_block(r, s, has_ctx):
 
 def test_f32_heads_fit_a_block_up_to_c128():
     """Every float32 head at S <= 64, C <= 256 fits a block (above C = 128
-    the wide kernels' W1 and ring of W2 rows); C = 260 is refused with the
+    the wide kernels' W1 and ring of W2 rows; above S = 64,
+    tests/test_torch_wide_f32.py); C = 260 and S = 132 are refused with the
     B.4 label.  W2 staged whole, (256, 264) floats, would be 270,336
     bytes."""
     for s in range(4, 65, 4):
@@ -344,7 +345,7 @@ def test_f32_heads_fit_a_block_up_to_c128():
             kh._f32_widths(s, c)
     assert 256 * 264 * 4 > ks.SMEM_LIMIT
     assert max(kh.f32_smem(64, 256).values()) == 189_440
-    for s, c in ((8, 260), (64, 260), (68, 64)):
+    for s, c in ((8, 260), (64, 260), (132, 64)):
         with pytest.raises(NotImplementedError, match=r"B\.4"):
             kh._f32_widths(s, c)
 

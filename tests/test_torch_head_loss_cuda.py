@@ -22,9 +22,9 @@ the packed kernels moved to the tensor cores (digests).  The packed
 kernels (split-TF32 tensor cores since then) hold the plain versions'
 tolerances above.
 
-The float32 forms (a float32 skip, S <= 64, C <= 256: above C = 128 the
-wide kernels, W2 through a ring of row slabs) take float32 inputs that are
-not bf16 values: loss rtol 1e-5, the match count equal, p within 1e-5,
+The float32 forms (a float32 skip, S <= 128, C <= 256: above C = 128 the
+wide kernels, W2 through a ring of row slabs, above S = 64 with the rows
+of skip from global memory) take float32 inputs that are not bf16 values: loss rtol 1e-5, the match count equal, p within 1e-5,
 every gradient (dskip too) within 1e-4 of its scale, two calls
 bit-equal."""
 
@@ -130,7 +130,9 @@ def test_wide_head_kernels_match_plain(cuda, s, c, t, parity):
                                    (64, 128, 2000), (12, 36, 2000),
                                    (4, 4, 1000), (12, 132, 2000),
                                    (16, 192, 2000), (8, 256, 999),
-                                   (64, 256, 4000)])
+                                   (64, 256, 4000), (128, 64, 2000),
+                                   (128, 128, 1000), (128, 256, 1000),
+                                   (100, 132, 1000)])
 @pytest.mark.parametrize("parity", [True, False])
 def test_head_kernels_match_plain_f32(cuda, s, c, t, parity):
     batch, rf = 2, 24
@@ -168,7 +170,8 @@ def test_head_kernels_match_plain_f32(cuda, s, c, t, parity):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,c", [(16, 64), (8, 128), (64, 256), (12, 132)])
+@pytest.mark.parametrize("s,c", [(16, 64), (8, 128), (64, 256), (12, 132),
+                                 (128, 64), (128, 256)])
 def test_head_f32_kernels_repeat_bit_equal(cuda, s, c):
     """Two calls of each float32 kernel give the same bits."""
     batch, t, rf = 2, 3000, 24
@@ -189,15 +192,15 @@ def test_head_f32_kernels_repeat_bit_equal(cuda, s, c):
 @pytest.mark.cuda
 def test_head_f32_smem_mirrors_the_library(cuda):
     """ops/cuda/head_loss.f32_smem gives the library's own sizes, and the
-    float32 kernels take exactly S <= 64, C <= 256 (multiples of 4)."""
+    float32 kernels take exactly S <= 128, C <= 256 (multiples of 4)."""
     lib = kh.library()
-    for s in range(4, 69, 4):
+    for s in range(4, 133, 4):
         for c in range(4, 261, 4):
             want = kh.f32_smem(s, c)
             assert lib.movenet_head_f32_smem(s, c, 0) == want["fwd"], (s, c)
             assert lib.movenet_head_f32_smem(s, c, 1) == want["bwd"], (s, c)
             assert bool(lib.movenet_head_f32_supports(s, c)) == \
-                (s <= 64 and c <= 256), (s, c)
+                (s <= 128 and c <= 256), (s, c)
 
 
 @pytest.mark.cuda
@@ -509,12 +512,12 @@ def test_wide_skip_head_kernels_match_plain(cuda, s, c, t, parity):
 
 @pytest.mark.cuda
 def test_f32_head_raises_above_s64(cuda):
-    """The float32 head keeps S <= 64 and raises above it with its
-    ROADMAP.md item, launching nothing."""
-    a = _inputs(cuda, 2, 500, 128, 64, dtype=torch.float32)
+    """The float32 head takes S <= 128 (ROADMAP.md B.4 widths (6) is built)
+    and raises above it with its ROADMAP.md item, launching nothing."""
+    a = _inputs(cuda, 2, 500, 132, 64, dtype=torch.float32)
     a = {k: v.to(cuda) for k, v in a.items()}
     before = dict(kh.launch_counts)
-    with pytest.raises(NotImplementedError, match=r"B\.4 widths \(6\)"):
+    with pytest.raises(NotImplementedError, match=r"B\.4"):
         kh.head_fwd(a["skip"], a["pack"], a["w1"], a["b1"], a["w2"],
                     a["b2"], 24, True, 4)
     assert kh.launch_counts == before

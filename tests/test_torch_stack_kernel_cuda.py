@@ -26,10 +26,12 @@ counts: the forward within 1e-5 of each output's scale, every gradient
 (dctx too) within 1e-4 of its scale, two calls bit-equal.  The recompute
 kernels' float32 forms (x, ctx and dskip float32) are held to the same
 bars (dx too), their rebuild to the forward's own layer outputs bit for
-bit.  The replay kernels (bf16 and float32) are held to their plain
-versions at the save forms' bars, and to the save kernels' non-embed form
-bit for bit: the forward's outputs, the rebuilt layer inputs against
-hsave and the backward's outputs."""
+bit, at the narrow pairs and at R = 128.  The replay kernels (bf16 and
+float32) are held to their plain versions at the save forms' bars, and to
+the save kernels' non-embed form bit for bit: the forward's outputs, the
+rebuilt layer inputs against the save forward's residual stream (hsave
+its rounding) and the backward's outputs, but for W_fg's gradient in bf16,
+which takes the rebuilt float32 h as the TPU kernel does."""
 
 import numpy as np
 import pytest
@@ -400,6 +402,11 @@ TAILS_F32_CASES = [
     (32, 8, 1280, False, DIL_WIDE), (32, 8, 1280, True, DIL_WIDE),
     (16, 8, 1280, True, DIL_WIDE), (16, 8, 1000, False, DIL),
     (64, 64, 3200, True, DIL_FLAGSHIP),
+    # the wide forms (R = 128: the weights through a ring of slabs, a taps
+    # launch before each layer launch of the backward)
+    (128, 128, 1280, True, DIL_WIDE), (128, 128, 1000, False, DIL),
+    (128, 8, 1280, True, DIL_WIDE), (128, 8, 1000, False, DIL),
+    (128, 128, 3200, True, DIL_FLAGSHIP),
 ]
 
 
@@ -448,6 +455,7 @@ def test_tails_kernels_match_plain_f32(cuda, r, s, t, has_ctx, dil):
 @pytest.mark.parametrize("r,s,has_ctx,dil", [
     (64, 64, True, DIL_FLAGSHIP), (64, 8, True, DIL_WIDE),
     (16, 8, False, DIL_WIDE), (32, 32, False, DIL_WIDE),
+    (128, 128, True, DIL_FLAGSHIP), (128, 8, False, DIL_WIDE),
 ])
 def test_tails_f32_rebuild_is_bit_equal_to_the_forward(cuda, r, s, has_ctx,
                                                        dil):
@@ -474,7 +482,8 @@ def test_tails_f32_rebuild_is_bit_equal_to_the_forward(cuda, r, s, has_ctx,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,s,has_ctx", [(64, 64, True), (64, 8, False),
-                                         (16, 16, True)])
+                                         (16, 16, True), (128, 128, True),
+                                         (128, 8, False)])
 def test_tails_f32_kernels_repeat_bit_equal(cuda, r, s, has_ctx):
     """Two calls of each float32 recompute form give the same bits."""
     args, dskip = _tails_args(cuda, 1280, r, s, has_ctx, DIL_WIDE,
@@ -707,20 +716,27 @@ def test_replay_is_the_save_strategy_bit_for_bit(cuda, r, s, t, ctx_kind,
     """The replay kernels against the save kernels' non-embed form on the
     same x: the forward's skip and tfsg equal, each checkpoint the save
     forward's layer input (in bf16 once rounded), every layer input as the
-    backward rebuilds it equal to hsave, and the backward's outputs equal
-    the save backward's; two calls of each give the same bits."""
+    backward rebuilds it (float32) the checkpoints at their layers and,
+    rounded, hsave, and the backward's outputs equal the save backward's,
+    but for dW_fg in bf16, which takes the float32 h (JAX's replay): that
+    one within 1e-4 of its scale of the plain replay backward's; two calls
+    of each give the same bits."""
     args, dskip, proj = _replay_args(cuda, t, r, s, ctx_kind, dil, dtype)
     lib, n = ks.library(), len(dil)
     skip, hsave, tfsg = ks.run_fwd_x(lib, *args)
     got = ks.run_fwd_replay(lib, *args)
     assert torch.equal(got[0], skip) and torch.equal(got[2], tfsg)
     ckpt = got[1]
-    for i, l in enumerate(sk.ckpt_layers(n, sk.tails_every(n))):
+    layers = sk.ckpt_layers(n, sk.tails_every(n))
+    for i, l in enumerate(layers):
         assert torch.equal(ckpt[i].to(dtype), hsave[l]), l
     rebuilt = ks.run_replay_inputs(lib, args[0], ckpt, tfsg, args[4],
                                    args[5])
+    assert rebuilt.dtype == torch.float32
     for l in range(n):
-        assert torch.equal(rebuilt[l], hsave[l]), l
+        assert torch.equal(rebuilt[l].to(dtype), hsave[l]), l
+    for i, l in enumerate(layers):
+        assert torch.equal(rebuilt[l], ckpt[i]), l
     for u, v in zip(got, ks.run_fwd_replay(lib, *args)):
         assert torch.equal(u, v)
     tail = (args[1], args[3], args[4])
@@ -728,9 +744,18 @@ def test_replay_is_the_save_strategy_bit_for_bit(cuda, r, s, t, ctx_kind,
     bargs = (args[0], ckpt, tfsg, *tail, args[5], dskip, dil, proj)
     first = ks.run_bwd_replay(lib, *bargs)
     second = ks.run_bwd_replay(lib, *bargs)
-    for u, v, w in zip(first, second, save):
-        assert (u is None and w is None) or (torch.equal(u, w)
-                                             and torch.equal(u, v))
+    for i, (u, v, w) in enumerate(zip(first, second, save)):
+        if u is None:
+            assert w is None, i
+            continue
+        assert torch.equal(u, v), i
+        if i == 3 and dtype == torch.bfloat16:
+            want = sk.stack_bwd_replay_plain(*bargs)[3]
+            np.testing.assert_allclose(
+                u.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                atol=1e-4 * float(want.abs().max()), err_msg="dw_fg")
+        else:
+            assert torch.equal(u, w), i
 
 
 @pytest.mark.cuda
@@ -740,8 +765,10 @@ def test_replay_group_size_keeps_the_bits(cuda, every, dtype):
     """The replay kernels with ``every`` = 1 (a checkpoint at every layer
     input: each group one layer, no rebuild) and = L (one group, no
     checkpoint, every layer rebuilt from x): the checkpoints are the save
-    forward's layer inputs, the rebuilt inputs its hsave and the backward's
-    outputs the save backward's, bit for bit."""
+    forward's layer inputs, the rebuilt inputs (rounded) its hsave and the
+    backward's outputs the save backward's, bit for bit, but for dW_fg in
+    bf16, which is the default groups' bit for bit (the float32 layer
+    inputs do not depend on the grouping)."""
     args, dskip, proj = _replay_args(cuda, 1280, 32, 8, "proj", DIL, dtype)
     lib, n = ks.library(), len(DIL)
     skip, hsave, tfsg = ks.run_fwd_x(lib, *args)
@@ -752,13 +779,18 @@ def test_replay_group_size_keeps_the_bits(cuda, every, dtype):
         assert torch.equal(ckpt[i].to(dtype), hsave[l]), l
     rebuilt = ks.run_replay_inputs(lib, args[0], ckpt, tfsg, args[4],
                                    args[5], every=every)
-    assert torch.equal(rebuilt, hsave)
+    assert torch.equal(rebuilt.to(dtype), hsave)
     tail = (args[1], args[3], args[4])
     save = ks.run_bwd_x(lib, hsave, tfsg, *tail, dskip, DIL, proj)
     got = ks.run_bwd_replay(lib, args[0], ckpt, tfsg, *tail, args[5], dskip,
                             DIL, proj, every=every)
-    for u, w in zip(got, save):
-        assert (u is None and w is None) or torch.equal(u, w)
+    _, ckpt0, _ = ks.run_fwd_replay(lib, *args)
+    default = ks.run_bwd_replay(lib, args[0], ckpt0, tfsg, *tail, args[5],
+                                dskip, DIL, proj)
+    for i, (u, w) in enumerate(zip(got, save)):
+        if i == 3 and dtype == torch.bfloat16:
+            w = default[3]
+        assert (u is None and w is None) or torch.equal(u, w), i
 
 
 # the bf16 replay forms at the wide pairs (R = 128: the wide save forward's
@@ -915,12 +947,16 @@ def test_wide_non_embed_kernels_match_plain(cuda, r, s, ctx_kind):
 def test_family_widths_mirror_the_library(cuda):
     """ops/cuda/stack_kernel.FAMILY_WIDTHS is the library's own list of
     each family (movenet_stack_supports), the wide pairs the bf16 save,
-    recompute and replay families' alone; the wide save and recompute
-    launches' shared memory fits a block (the recompute forward's layer
-    launch, form 0, and the backward's layer launch, kind -2, and its W_out
-    gradient from the float32 gated, kind 3, are the recompute forms'; the
-    rebuild, kind -5, the replay backward's), and the float32 forms have
-    none there."""
+    recompute and replay families' and the float32 recompute family's
+    alone; the wide save and recompute launches' shared memory fits a block
+    (the recompute forward's layer launch, form 0, and the backward's layer
+    launch, kind -2, and its W_out gradient from the float32 gated, kind 3,
+    are the recompute forms'; the rebuild, kind -5, and W_fg's gradient in
+    its MODE 7, kind 7, the replay backward's; the float32 layer kernel,
+    form 3, the layer backward's float32 recompute form, kind -4, and W_fg's
+    and W_out's float32 gradients, kinds 4 and 6, the float32 recompute
+    forms', equal to ``f32_smem``'s), and the float32 save form's layer
+    backward has none there."""
     lib = ks.library()
     pairs = {(r, s) for r in (8, 16, 32, 48, 64, 96, 128, 256)
              for s in (4, 8, 16, 32, 64, 128)}
@@ -929,27 +965,33 @@ def test_family_widths_mirror_the_library(cuda):
             assert bool(lib.movenet_stack_supports(i, r, s)) == \
                 ((r, s) in widths), (family, r, s)
     assert not lib.movenet_stack_supports(len(ks.FAMILY_WIDTHS), 16, 16)
-    for family in ("save", "recompute", "replay"):
+    for family in ("save", "recompute", "replay", "recompute_f32"):
         assert set(ks.FAMILY_WIDTHS[family]) - set(ks.WIDTHS) == \
             set(ks.WIDE_WIDTHS), family
     for r, s in ks.WIDE_WIDTHS:
-        for form in (0, 1):
+        for form in (0, 1, 3):
             n = lib.movenet_stack_layer_smem(r, s, form)
             assert 0 < n <= ks.SMEM_LIMIT, (r, s, form)
         for win in (2 * r, 3 * r):
-            for kind in (-5, -2, -1, 0, 1, 2, 3):
+            for kind in (-5, -4, -2, -1, 0, 1, 2, 3, 4, 6, 7):
                 n = lib.movenet_stack_bwd_smem(r, s, win, kind)
                 assert 0 < n <= ks.SMEM_LIMIT, (r, s, win, kind)
             assert lib.movenet_stack_bwd_smem(r, s, win, -3) == -1
+            f32 = ks.f32_smem(r, s, win)
+            assert lib.movenet_stack_layer_smem(r, s, 3) == f32["layer_fwd"]
+            for kind, key in ((-4, "layer_bwd_rc"), (4, "wgrad_fg"),
+                              (6, "wgrad_out")):
+                assert lib.movenet_stack_bwd_smem(r, s, win, kind) == \
+                    f32[key], (r, s, win, kind)
 
 
 @pytest.mark.cuda
 def test_other_families_raise_at_the_wide_widths(cuda):
-    """Every family but the bf16 save, recompute and replay forms raises
-    at R = 128 with its ROADMAP.md item, and never falls back to a plain
-    version: the float32 save, recompute and replay forms (2), merged (3),
-    gated (4); a pair no family takes, (128, 64), raises for the save,
-    recompute and replay forms (5)."""
+    """Every family but the bf16 save, recompute and replay forms and the
+    float32 recompute forms raises at R = 128 with its ROADMAP.md item, and
+    never falls back to a plain version: the float32 save and replay forms
+    (2), merged (3), gated (4); a pair no family takes, (128, 64), raises
+    for the save, recompute and replay forms (5)."""
     from movenet_tpu_torch.ops.cuda import gated_block as kg
 
     r, s, t = 128, 128, 1280
@@ -958,11 +1000,6 @@ def test_other_families_raise_at_the_wide_widths(cuda):
     rest = (ctx, a["b_fg"], a["w_fg"], a["w_out"], a["b_out"], DIL)
     rest32 = (ctx.float(), *rest[1:])
     before = dict(ks.launch_counts)
-    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
-        ks.stack_fwd_tails(x.float(), *rest32)
-    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
-        ks.stack_bwd_tails(x.float(), x[None, :0].float(), *rest32[:-1],
-                           a["dskip"].float(), DIL)
     with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
         ks.stack_fwd_replay(x.float(), *rest32)
     with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):

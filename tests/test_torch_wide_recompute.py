@@ -11,7 +11,7 @@ scripts/probe_r128_mfu.py, and (128, 8), experiment 02 at
   the triple coarse: a stack tile that is a multiple of 80), on a 3-layer
   cut of the probe's dilations (1, 2, 4) at B = 2;
 - the plain replay's rebuilt layer inputs against the plain save
-  forward's hsave at R = 128, bit for bit;
+  forward's residual stream at R = 128 (hsave its rounding), bit for bit;
 - one train step of the flagship's widths cut to layer 3 x stack 1 (R = S =
   128, C = 256, input 256, video, remat, AdamW 3e-4) against JAX's
   ``make_train_step`` from the same weights
@@ -158,7 +158,8 @@ def test_wide_strategy_matches_jax(r, s, ctx_kind, dtype, strategy,
 def test_wide_replay_rebuild_is_the_save_hsave(r, s, ctx_kind):
     """At R = 128 in bf16 the plain replay forward gives the save forward's
     skip and tfsg, its checkpoints round to hsave at their layers, and
-    every layer input rebuilt from x and the checkpoints equals the save
+    every layer input rebuilt from x and the checkpoints is the float32
+    residual stream: the checkpoints at their layers, and rounded the save
     forward's hsave, bit for bit (the kernels' rebuild follows the same
     residual chain)."""
     a = _inputs(r, s, ctx_kind, seed=1)
@@ -184,7 +185,9 @@ def test_wide_replay_rebuild_is_the_save_hsave(r, s, ctx_kind):
                                      min(lo + every, n))
     assert len(rebuilt) == n
     for l in range(n):
-        assert torch.equal(rebuilt[l], hsave[l]), l
+        assert torch.equal(rebuilt[l].to(bf), hsave[l]), l
+    for i, l in enumerate(sk.ckpt_layers(n, every)):
+        assert torch.equal(rebuilt[l], ckpt[i]), l
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -305,8 +308,10 @@ class _Library:
 @pytest.mark.parametrize("family", ["recompute", "replay"])
 def test_wide_families_route_by_dtype(family):
     """At R = 128 the wrappers' checks take bf16 x for the recompute and
-    replay kernels and refuse float32 with ROADMAP.md B.2 widths (2); an
-    unbuilt pair, (128, 64), is refused with B.2 widths (5)."""
+    replay kernels, and float32 x for the recompute kernels (their float32
+    forms' wide layouts fit a block); the float32 replay and save forms
+    are refused with ROADMAP.md B.2 widths (2); an unbuilt pair, (128, 64),
+    is refused with B.2 widths (5)."""
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
 
     a = _inputs(128, 128, "flat")
@@ -314,11 +319,18 @@ def test_wide_families_route_by_dtype(family):
     args = (ts["x"].bfloat16(), ts["ctx"].bfloat16(), ts["b_fg"],
             ts["w_fg"], ts["w_out"], ts["b_out"], DIL)
     what = f"the {family} kernels"
-    assert ks._x_check(_Library, *args, what, family) == \
-        (B, T_FLAT, len(DIL), 128, 128, 384)
-    with pytest.raises(NotImplementedError,
-                       match=r"float32 .*B\.2 widths \(2\)"):
-        ks._x_check(_Library, ts["x"], ts["ctx"], *args[2:], what, family)
+    dims = (B, T_FLAT, len(DIL), 128, 128, 384)
+    assert ks._x_check(_Library, *args, what, family) == dims
+    f32_args = (ts["x"], ts["ctx"], *args[2:])
+    if family == "recompute":
+        assert ks._x_check(_Library, *f32_args, what, family) == dims
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=r"float32 .*B\.2 widths \(2\)"):
+            ks._x_check(_Library, *f32_args, what, family)
+    with pytest.raises(NotImplementedError, match=r"B\.2 widths \(2\)"):
+        ks._x_check(_Library, *f32_args, "the non-embed save kernels",
+                    "non-embed")
     n = len(DIL)
     w_out, b_out = torch.zeros(n, 128, 192), torch.zeros(n, 192)
     with pytest.raises(NotImplementedError, match=r"B\.2 widths \(5\)"):
