@@ -1151,7 +1151,7 @@ def bwd_smem_note(lib, kernel: str) -> str:
         r, s_, form = (int(x) for x in m.groups())
         return (f"; dynamic shared memory "
                 f"{lib.movenet_stack_layer_smem(r, s_, form)} bytes")
-    m = re.match(r"stack_layer_f32_kernel<(\d+),(\d+)>$", kernel)
+    m = re.match(r"stack_layer(?:_wg)?_f32_kernel<(\d+),(\d+)>$", kernel)
     if m:
         r, s_ = (int(x) for x in m.groups())
         return (f"; dynamic shared memory "
@@ -1162,6 +1162,11 @@ def bwd_smem_note(lib, kernel: str) -> str:
         return (f"; dynamic shared memory "
                 f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -1 - form)}"
                 f" bytes (win = 3R)")
+    m = re.match(r"stack_bwd_wg_f32_kernel<(\d+),(\d+),\d>$", kernel)
+    if m:
+        r, s_ = (int(x) for x in m.groups())
+        return (f"; dynamic shared memory "
+                f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -4)} bytes")
     m = re.match(r"stack_rebuild_kernel<(\d+)>$", kernel)
     if m:
         r = int(m.group(1))
@@ -1201,6 +1206,21 @@ def ring_smem_report() -> None:
                   f"flagship width ({lay['n_stages']} stages of "
                   f"{lay['stage_bytes']} bytes + {fixed} for the chains, "
                   f"biases and tables)")
+
+
+def wgmma_sass_report(path) -> None:
+    """The wide float32 recompute kernels' HGMMA (wgmma) and HMMA
+    (mma.sync) instructions in the built library's SASS: each issues
+    wgmma."""
+    from movenet_tpu_torch.utils.time_stack_bwd import sass_counts
+
+    wide = {kernel_name(k): v for k, v in sass_counts(path).items()
+            if "wg_f32" in k}
+    for kernel, (hg, hm, loc) in sorted(wide.items()):
+        print(f"  sass {kernel}: {hg} HGMMA, {hm} HMMA, {loc} local-memory "
+              "instructions", flush=True)
+    check(len(wide) == 6 and all(v[0] > 0 for v in wide.values()),
+          f"the wide float32 kernels' SASS: {wide}")
 
 
 def grid_line(label: str, by: dict) -> str:
@@ -4744,9 +4764,9 @@ WIDE_F32_HEAD_KERNELS = {"head_fwd_f32 (S=128)": TRAIN_KERNELS["head_fwd"],
 WIDE_F32_HEADS = ((128, 256, 2), (128, 64, 2))
 # the grids of its recompute backward at the flagship's depth: the taps
 # launches are the forward's kernel, as the rebuilds
-WIDE_F32_GRIDS = (("weights", "stack_wt_kernel"),
-                  ("rebuilds and taps", "stack_layer_f32_kernel"),
-                  ("layer", "stack_bwd_layer_kernel"),
+WIDE_F32_GRIDS = (("weights", "stack_wt_split_kernel"),
+                  ("rebuilds and taps", "stack_layer_wg_f32_kernel"),
+                  ("layer", "stack_bwd_wg_f32_kernel"),
                   ("wgrad W_fg", "stack_wgrad_kernel<4"),
                   ("wgrad W_out", "stack_wgrad_kernel<6"),
                   ("dx", "stack_dx_kernel"),
@@ -5063,6 +5083,7 @@ def main() -> int:
                     if name == "stack_kernel" else ""
                 print(f"  nvcc {name}: {kernel}: {what}{note}")
         ring_smem_report()
+        wgmma_sass_report(libs["stack_kernel"])
 
         phase = "kernel vs plain"
         mc, model = flagship_model(torch)

@@ -25,7 +25,9 @@
 // stack_layer_f32_kernel and the backward's float32 forms, see "the
 // float32 save forward" below).  The bf16 save, recompute and replay forms
 // also run at R = 128 (MOVENET_WIDE_WIDTHS), their weights streamed through
-// shared memory: see "the wide save forms" and "the wide recompute forms".
+// shared memory: see "the wide save forms" and "the wide recompute forms";
+// the float32 recompute forms there run on wgmma: "the wide float32
+// recompute kernels".
 //
 // Design.  The TPU runs a (batch, time tile) grid in order and carries the
 // dilation rings and the weight-gradient sums from one grid step to the
@@ -116,6 +118,7 @@
 #include "head_core.cuh"
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -398,9 +401,12 @@ size_t BwdShape<R, S>::smem(int win) {
 }
 
 template <int R, int S>
+struct WgF32Bwd;
+
+template <int R, int S>
 size_t BwdShape<R, S>::smem_rcf32(int win) {
   if constexpr (R > kNarrowR)
-    return WideBwd<R, S>::kBytes;
+    return WgF32Bwd<R, S>::kEnd;
   else
     return smem_f32(win);
 }
@@ -536,16 +542,11 @@ __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
 // tf * sg (float32) in global memory for the W_out gradient (MODE 3).
 // dh and dskip take dd's bytes once every warp is done with the operand
 // rows; the steps after are the save form's.
-// F32: the recompute form in float32 (stack_bwd_tails_f32 at R = 128).
-// Its taps (float32) come from global memory, where the layer's taps launch
-// (stack_layer_f32_kernel with the taps alone, the forward's arithmetic)
-// put them just before; they are widened into ff as the save form's are,
-// gated = tf * sg (float32) goes to global memory for the W_out gradient
-// (MODE 6) where dgated meets them, and every product adds its k steps in
-// float32 (mma_split_add), as the narrow float32 forms do.
+// The float32 recompute form at R = 128 is kernel B ("the wide float32
+// recompute kernels").
 template <int R, int S, int FORM>
 __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
-  constexpr bool RC = FORM == kBwdRc, F32 = FORM == kBwdRcF32;
+  constexpr bool RC = FORM == kBwdRc;
   using W = WideBwd<R, S>;
   constexpr int ROWS = W::kRows, SW = W::kSw, NO = W::kNo, THREADS = W::kThreads;
   constexpr int LDD = W::kLdd, LDF = W::kLdf, LDS = W::kLds;
@@ -613,14 +614,7 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
           }
         }
         *reinterpret_cast<float4*>(a.dh + m * R + j0) = v;
-        if (F32) {
-          const float4 t4 =
-              *reinterpret_cast<const float4*>(a.tfsg_f + m * 2 * R + j0);
-          const float4 s4 = *reinterpret_cast<const float4*>(
-              a.tfsg_f + m * 2 * R + R + j0);
-          tf[0] = t4.x, tf[1] = t4.y, tf[2] = t4.z, tf[3] = t4.w;
-          sg[0] = s4.x, sg[1] = s4.y, sg[2] = s4.z, sg[3] = s4.w;
-        } else if (!RC) {
+        if (!RC) {
           load4(a.tfsg + m * 2 * R + j0, tf);
           load4(a.tfsg + m * 2 * R + R + j0, sg);
         }
@@ -727,10 +721,7 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
           for (int jj = 0; jj < 2; ++jj) {
             Frag<2> fb;
             load_b_cols(w + (n0 + 8 * jj) * LDD + k0, LDD, fb);
-            if constexpr (F32)
-              mma_split_add<true>(acc[jj], fa, fb);
-            else
-              mma_split<true>(acc[jj], fa, fb);
+            mma_split<true>(acc[jj], fa, fb);
           }
         }
         // dfg from the taps at the same places
@@ -743,12 +734,6 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
             const float2 tw = *reinterpret_cast<const float2*>(fp);
             const float2 sw = *reinterpret_cast<const float2*>(fp + R);
             const float tf[2] = {tw.x, tw.y}, sg[2] = {sw.x, sw.y};
-            if (F32) {
-              const long m = m0 + r0 + g + 8 * e;
-              if (m < a.m_total)
-                *reinterpret_cast<float2*>(a.gated + m * R + c) =
-                    make_float2(tf[0] * sg[0], tf[1] * sg[1]);
-            }
             float df[2], dq[2];
 #pragma unroll
             for (int k = 0; k < 2; ++k) {
@@ -781,10 +766,7 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
         for (int jj = 0; jj < 2; ++jj) {
           Frag<2> fb;
           load_b_cols(w + (n0 + 8 * jj) * LDF + k0, LDF, fb);
-          if constexpr (F32)
-            mma_split_add<true>(acc[jj], fa, fb);
-          else
-            mma_split<true>(acc[jj], fa, fb);
+          mma_split<true>(acc[jj], fa, fb);
         }
       }
 #pragma unroll
@@ -846,16 +828,15 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
 // columns as split-TF32 mma.sync from W_fg in shared memory (its float32
 // values), keeps tf and sg in registers as kBwdRc does, and after a barrier
 // the tile's dh and dskip take those bytes.  At R > kNarrowR the forms run
-// save_wide_bwd: kBwdSave, kBwdRc, and kBwdRcF32 on the taps of the
-// layer's taps launch.
+// save_wide_bwd: kBwdSave and kBwdRc; kBwdRcF32 there is kernel B.
 template <int R, int S, int FORM>
 __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
                                   BwdShape<R, S>::kHalves == 2 ? 1 : 2)
     stack_bwd_layer_kernel(BwdLayerArgs a) {
   if constexpr (R > kNarrowR) {
-  static_assert(FORM != kBwdF32,
-                "the wide forms are the bf16 save and recompute forms and "
-                "the float32 recompute form");
+  static_assert(FORM == kBwdSave || FORM == kBwdRc,
+                "the wide forms are the bf16 save and recompute forms; the "
+                "float32 recompute form is kernel B");
   save_wide_bwd<R, S, FORM>(a);
   } else {
   using Sh = BwdShape<R, S>;
@@ -2528,7 +2509,8 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
 //               float32 the same walk runs stack_layer_f32_kernel for the
 //               rebuilds and the layer backward's kBwdRcF32 form (fg formed
 //               again split-TF32), W_fg's and W_out's gradients from float32
-//               activations and gated (MODE 4 and 6).
+//               activations and gated (MODE 4 and 6); at R = 128 kernels A
+//               and B ("the wide float32 recompute kernels") in their place.
 // Products.  fg = [h | h(t-d) | ctx] W_fg and out = gated W_out run as bf16
 // mma.sync m16n8k16 with float32 sums: the operands are exact bf16 values
 // (the weights rounded as the TPU's _mdot rounds them), and each 16-wide k
@@ -3138,12 +3120,10 @@ __device__ __forceinline__ void save_gate(
 // forms' chain) or W_out^T's residual rows (res_t 1: the recompute forms'
 // tensor-core product), then W_out^T's skip rows, rounded as the TPU
 // kernel's _mdot rounds them.  With res_t 1 the layer's W_out^T (R + S, R)
-// is whole after W_fg^T.  The wide float32 recompute form takes the same
-// layout (res_t 1) in float32, T = float, nothing rounded.
-template <typename T>
+// is whole after W_fg^T.
 __global__ void __launch_bounds__(kThreads)
     stack_wt_kernel(const float* w_fg, const float* w_out, int n_layers,
-                    int win, int r, int s, int res_t, T* wt) {
+                    int win, int r, int s, int res_t, bf16_t* wt) {
   const int no = r + s;
   const long n_fg = 2L * r * win, n_res = static_cast<long>(r) * r;
   const long per = n_fg + n_res + static_cast<long>(s) * r;
@@ -4092,7 +4072,8 @@ __global__ void __launch_bounds__(
 // The recompute strategy's float32 forms launch the same layer kernel
 // with no taps (tfsg null) for the forward and its checkpoints, and with
 // no skip sum either (skacc null) for the backward's rebuilds; their
-// layer backward is stack_bwd_layer_kernel's kBwdRcF32 form.
+// layer backward is stack_bwd_layer_kernel's kBwdRcF32 form.  At R = 128
+// both are the wgmma kernels A and B below.
 //
 // Bound at the breakdancing cell (B=2, T=160000, L=9, R=S=64, video):
 // 1.9e11 operations at the TF32 peak counted once (0.38 ms) against 2.4
@@ -4163,261 +4144,638 @@ struct F32LayerArgs {
   float* skip;           // (M, S) skip_sum, stored by the last layer
   long m_total;
   int t_len, d, first, last;
-  const float* wt;       // the wide form: this layer's float32 W_fg^T and
-                         // W_out^T (stack_wt_kernel<float>, res_t 1)
+  const float* wt;       // the wide form (kernel A): this layer's weight
+                         // images (stack_wt_split_kernel)
 };
 
-// ------------------------------ the wide float32 recompute forward
-// At R = 128 the float32 layer kernel's layout (F32Shape: the 64-row
-// operand tile beside W_fg^T and W_out^T, staged once) takes 665,600 bytes
-// with video, nearly three blocks' shared memory.  Its wide form
-// (stack_layer_f32_kernel<R, S> at R > kNarrowR) keeps the tile's float32
-// operand rows [h | h(t-d) | ctx] in shared memory and streams the weights
-// through a ring of two slabs by cp.async from the wrapper's float32
-// scratch (stack_wt_kernel<float> in the recompute layout: W_fg^T, then
-// W_out^T).  Per tile: kFp fg passes, each over a slab of W_fg^T's rows for
-// kNc filter columns and then their kNc gate columns.  Warp w takes rows 16
-// (w % 4) .. + 16 and half w / 4 of the pass's filter columns with their
-// gate columns: fg, the gate, the taps stored where asked (the recompute
-// backward's taps launches), gated held in registers (32 a lane over the
-// passes).  Once every warp is done with the passes' operand rows, gated
-// lands in the tile's tap columns [R, 2R) (h stays in [0, R) for the
-// residual), and out = gated W_out runs over slabs of kSw W_out^T rows,
-// each warp on its half of a slab's n tiles: the residual h + out into
-// h_next and the skip sum.  The arithmetic is the narrow form's: every fg
-// and out n tile summed over its k steps in order, each step's three
-// split-TF32 passes summed from zero and added in float32 (mma_split_add),
-// then the bias, the gate, + h.  So the backward's rebuilds and taps
-// launches, which launch this kernel, give the forward's values bit for
-// bit.  Shared memory: the tile (64, 3R + 4) and two slabs of the larger of
-// (2 kNc, 3R + 4) and (kSw, R + 4) floats, 198,656 bytes at R = 128.
-// Bound at the flagship's depth at R = S = 128 in float32 (B = 2, T =
-// 160000, L = 30, video): 262,144 operations a row and layer, 2.5 TFLOP,
-// 5.1 ms at the TF32 495 TF/s counted once, against about 0.6 GB of
-// compulsory traffic (x, ctx, skip and the checkpoints in float32, 0.2
-// ms): bound by operations.
+// ------------------------------ the wide float32 recompute kernels
+// At R = 128 (MOVENET_WIDE_WIDTHS) the float32 recompute forms run two
+// kernels of their own on Hopper's warpgroup tensor-core instruction:
+//   kernel A, stack_layer_wg_f32_kernel<R, S>: one layer of the float32
+//     recompute forward (stack_kernel.py:929 _fwd_kernel_tails in float32),
+//     also launched by the backward for each rebuilt layer input and, with
+//     the taps alone, before each layer backward;
+//   kernel B, stack_bwd_wg_f32_kernel<R, S, CTX>: the layer launch of the
+//     float32 recompute backward (stack_kernel.py:1031 _bwd_kernel_tails in
+//     float32): dgated, dfg from the taps, dfg_w.
+// Every product is split-TF32 (mma_tf32.cuh's split, three passes) on
+// wgmma m64nNk8 from shared memory (wgmma_tf32.cuh).
+//
+// Bound.  fg = [h | h(t-d) | ctx] W_fg (k = W_in = 3R, n = 2R) and out =
+// gated W_out (k = R, n = R + S) are 262,144 multiply-adds a row at R = S =
+// 128 with ctx, as are the backward's dgated (k = R + S, n = R) and dfg_w (k
+// = 2R, n = W_in): at the flagship's depth (B = 2, T = 160,000, 30 layers)
+// 2.5 TFLOP a pass, 5.1 ms at TF32's 495 TF/s counted once, 0.17 ms a layer;
+// the compulsory traffic (the layer's input, ctx, the output or gradients,
+// float32) is about 0.1 ms a layer: bound by operations.  The three passes
+// make it 0.51 ms a layer at the tensor cores' peak.
+//
+// Design, against what held the mma.sync forms at about 4 ms a layer:
+//  - every operand is split once: the weights once a call into TF32 big
+//    and small images in global memory (stack_wt_split_kernel), the
+//    activation tiles as they land in shared memory (a producer warpgroup
+//    loads them, splits them and stores both parts), so no k loop splits;
+//  - wgmma m64nNk8 .tf32 from shared memory (both operands K-major in 8 x 4
+//    core matrices, no swizzle), n = 128 or 192 a product: each operand
+//    byte read into the tensor core feeds 64 rows by up to 192 columns;
+//  - 128-row tiles: two consumer warpgroups of 64 rows share each weight
+//    stage, half the L2 weight traffic a row of the 64-row forms;
+//  - the operands stream through a ring of stages with full and empty
+//    mbarriers: the producer's bulk copies (cp.async.bulk, the weight
+//    images laid out as the stages want them) and split stores run ahead
+//    of the consumers; no block-wide barrier a step;
+//  - one block of 384 threads an SM: two consumer warpgroups (warps 0-7)
+//    at kConsumerRegs registers a thread, so that a chunk's sum beside the
+//    running sums stays in registers, and a producer warpgroup (warps
+//    8-11) at kProducerRegs, moved by setmaxnreg from the 168 a thread
+//    that a 384-thread block is given.  A block of 8 consumer warps and one
+//    producer warp is given 168 as well (registers are allocated for
+//    12 warps), and spilled its running sums: 1-2 KB a thread, to L2,
+//    since the tiles leave L1 no room.
+// Accumulation: the tensor core sums each stage's 16 k (two k steps of
+// three passes) from zero; the chunk is added to a float32 running sum
+// (wg_chunk_add), as mma_split_add adds each k step of 8 in the mma.sync
+// forms: the tensor core's own sum truncates, and over a long k it drifts
+// (ops/stack_kernel.WIDE_F32_CHUNK, measured against float64 in
+// tests/test_torch_wgmma_cuda.py).  A chunk's sum and its running sum take
+// two accumulators, and a consumer thread holds at most about 168
+// registers (ptxas allocates the 384-thread block's 168 whatever
+// setmaxnreg asks; running sums of 128 floats and a chunk of 64 spilled to
+// L2, since the tiles leave L1 no room): every product is n = 64 (a chunk
+// of 32 floats), and kernel A forms fg in two passes over k, each of R/2
+// channels (the operand rows split again each pass), and out in two, its
+// residual columns then its skip columns.
+//
+// The weight images (stack_wt_split_kernel, wgmma_tf32.cuh's layout, 16 k
+// a chunk, each chunk's big part then its small part), in the order the
+// kernels stream them: per layer for kernel A W_fg^T in two passes of R
+// rows (R/2 filter columns, then their R/2 gate columns: filter column c
+// and gate column c fall at the same places of one thread's sums, so that
+// tanh * sigmoid stays in its registers), then W_out^T's residual rows (R
+// x R) and its skip rows (S x R); with the backward's, after every layer's
+// forward images, for kernel B W_out (R rows x R + S, zero to a multiple
+// of 16) and W_fg in W_in / R passes of R rows (x 2R).
+// registers a thread of the producer and consumer warpgroups: 128 x 56 +
+// 256 x 224 = 384 x 168, the 384-thread block's own
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+
 template <int R, int S>
-struct WideF32Shape {
-  static constexpr int kRows = 64, kThreads = 256;
-  static constexpr int kNc = 16, kFp = R / kNc;        // fg passes
-  static constexpr int kSw = 64;                       // out columns a slab
-  static constexpr int kOs = (R + S + kSw - 1) / kSw;  // out slabs
-  static constexpr int kLdh = 3 * R + 4, kLdw = 3 * R + 4, kLdo = R + 4;
-  static_assert(R % kSw == 0 && S % 8 == 0,
-                "out slabs wholly in the residual or the skip part");
-  static constexpr size_t kSlab =
-      max_size(static_cast<size_t>(2 * kNc) * kLdw,
-               static_cast<size_t>(kSw) * kLdo) * 4;
-  static constexpr size_t kRing = static_cast<size_t>(kRows) * kLdh * 4;
-  static constexpr size_t kEnd = kRing + 2 * kSlab;
+struct WgF32Images {
+  static constexpr int kKc = 16, kNo = R + S;
+  static constexpr int kK1 = (kNo + kKc - 1) / kKc * kKc;
+  __host__ __device__ static long fwd_floats(int win) {
+    return 2L * (2L * R * win + static_cast<long>(kNo) * R);
+  }
+  __host__ __device__ static long bwd_floats(int win) {
+    return 2L * (static_cast<long>(R) * kK1 + 2L * R * win);
+  }
+  // rows and k of image i of a layer: 0, 1 W_fg^T's passes, 2 W_out^T's
+  // residual rows, 3 its skip rows; 4 W_out, 5.. W_fg's passes
+  __host__ __device__ static int rows(int i) { return i == 3 ? S : R; }
+  __host__ __device__ static int kdim(int i, int win) {
+    return i <= 1 ? win : i <= 3 ? R : i == 4 ? kK1 : 2 * R;
+  }
 };
 
-// One layer of the wide float32 recompute forward (see above).  Without
-// h_next and the skip sum (a taps launch) the out steps do not run.
 template <int R, int S>
-__device__ __forceinline__ void f32_wide_layer(const F32LayerArgs& a) {
-  using Sh = WideF32Shape<R, S>;
-  constexpr int ROWS = Sh::kRows, THREADS = Sh::kThreads, NO = R + S;
-  constexpr int LDH = Sh::kLdh, LDW = Sh::kLdw, LDO = Sh::kLdo;
-  constexpr int NC = Sh::kNc, FP = Sh::kFp, SW = Sh::kSw;
-  constexpr int NTO = SW / 16;                  // a warp's out n tiles
-  constexpr int SLAB = static_cast<int>(Sh::kSlab / 4);   // floats
-  const int win = a.ctx ? 3 * R : 2 * R, per_row = win / 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int g = (tid & 31) >> 2, q = tid & 3;
-  const int r0 = 16 * (warp & 3), half = warp >> 2;
-  const long m_total = a.m_total;
-  float* hp = reinterpret_cast<float*>(smem);
-  float* ring = reinterpret_cast<float*>(smem + Sh::kRing);
-  const float* wft = a.wt;                        // (2R, W_in)
-  const float* wot = wft + 2L * R * win;          // (R + S, R)
-  const bool outs = a.h_next != nullptr || a.skacc != nullptr;
-  const int n_steps = FP + (outs ? Sh::kOs : 0);
-
-  // slab j of a tile into dst: pass j's W_fg^T rows (its NC filter
-  // columns, then their gate columns), or an out slab's W_out^T rows
-  auto load_slab = [&](int j, float* dst) {
-    if (j < FP) {
-      for (int i = tid; i < 2 * NC * per_row; i += THREADS) {
-        const int row = i / per_row, c4 = 4 * (i % per_row);
-        const int col = row < NC ? NC * j + row : R + NC * j + row - NC;
-        cp_async16(dst + row * LDW + c4,
-                   wft + static_cast<long>(col) * win + c4, true);
-      }
+__global__ void __launch_bounds__(kThreads)
+    stack_wt_split_kernel(const float* w_fg, const float* w_out, int n_layers,
+                          int win, int bwd, float* wt) {
+  using Im = WgF32Images<R, S>;
+  constexpr int KC = Im::kKc, NO = Im::kNo;
+  const long fpl = Im::fwd_floats(win) / 2;          // (big, small) pairs
+  const long bpl = bwd ? Im::bwd_floats(win) / 2 : 0;
+  const long total = (fpl + bpl) * n_layers;
+  for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
+       i < total; i += static_cast<long>(gridDim.x) * kThreads) {
+    int l, img;
+    long e;
+    float* dst;
+    if (i < fpl * n_layers) {
+      l = static_cast<int>(i / fpl);
+      e = i % fpl;
+      dst = wt + l * 2 * fpl;
+      img = 0;
     } else {
-      const int c0 = SW * (j - FP), rows = NO - c0 < SW ? NO - c0 : SW;
-      for (int i = tid; i < rows * (R / 4); i += THREADS) {
-        const int row = i / (R / 4), c4 = 4 * (i % (R / 4));
-        cp_async16(dst + row * LDO + c4,
-                   wot + static_cast<long>(c0 + row) * R + c4, true);
-      }
+      const long j = i - fpl * n_layers;
+      l = static_cast<int>(j / bpl);
+      e = j % bpl;
+      dst = wt + n_layers * 2 * fpl + l * 2 * bpl;
+      img = 4;
     }
-  };
-  const long n_tiles = (m_total + ROWS - 1) / ROWS;
-  int ring_i = 0;   // ring slot of the current slab
-  if (blockIdx.x < n_tiles) load_slab(0, ring);
-  cp_async_commit();
-  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
-    const long m0 = tile_i * ROWS, next = tile_i + gridDim.x;
-    __syncthreads();   // every warp is done with the last tile's rows
-    // the operand rows [h | h(t-d) | ctx], zero past the rows and for the
-    // tap before t = d
-    for (int i = tid; i < ROWS * per_row; i += THREADS) {
-      const int row = i / per_row, c4 = 4 * (i % per_row);
-      const int part = c4 / R, j0 = c4 % R;
-      const long m = m0 + row;
-      bool ok = m < m_total;
-      const float* src = a.h + m * R + j0;
-      if (part == 1) {
-        ok = ok && static_cast<int>(m % a.t_len) >= a.d;
-        src -= static_cast<long>(a.d) * R;
-      } else if (part == 2) {
-        src = a.ctx + m * R + j0;
-      }
-      cp_async16(hp + row * LDH + c4, ok ? src : a.h, ok);
+    // the image of pair e, and e within it
+    for (;; ++img) {
+      const long n = static_cast<long>(Im::rows(img)) * Im::kdim(img, win);
+      if (e < n) break;
+      e -= n;
+      dst += 2 * n;
     }
-    cp_async_commit();
-    int j = 0;
-    // step j of the tile: slab j and the tile's rows resident for every
-    // warp; in flight the next slab (after the last, the next tile's first)
-    auto step = [&]() -> const float* {
-      cp_async_wait<0>();
-      __syncthreads();
-      float* nb = ring + ((ring_i + 1) & 1) * SLAB;
-      if (j + 1 < n_steps)
-        load_slab(j + 1, nb);
-      else if (next < n_tiles)
-        load_slab(0, nb);
-      cp_async_commit();
-      const float* cur = ring + (ring_i & 1) * SLAB;
-      ++ring_i;
-      ++j;
-      return cur;
+    const int rows = Im::rows(img);
+    const int chunk = static_cast<int>(e / (rows * KC));
+    const int rem = static_cast<int>(e % (rows * KC));
+    const int row = rem / KC, kk = rem % KC, k = KC * chunk + kk;
+    const float* wf = w_fg + static_cast<long>(l) * win * 2 * R;
+    const float* wo = w_out + static_cast<long>(l) * R * NO;
+    float v;
+    if (img <= 1) {
+      const int ch = R / 2 * img + (row < R / 2 ? row : R + row - R / 2);
+      v = wf[static_cast<long>(k) * 2 * R + ch];
+    } else if (img <= 3) {
+      v = wo[static_cast<long>(k) * NO + (img == 3 ? R : 0) + row];
+    } else if (img == 4) {
+      v = k < NO ? wo[static_cast<long>(row) * NO + k] : 0.f;
+    } else {
+      v = wf[(static_cast<long>(img - 5) * R + row) * 2 * R + k];
+    }
+    dst += static_cast<long>(chunk) * 2 * rows * KC;
+    const int o = img_off(row, kk, KC);
+    const float big = __uint_as_float(tf32_rna(v));
+    dst[o] = big;
+    dst[rows * KC + o] = __uint_as_float(tf32_rna(v - big));
+  }
+}
+
+// Kernel A's block: two consumer warpgroups (warps 0-7) and a producer
+// warpgroup (warps 8-11) on 128-row tiles.  Shared memory: the tile's gated
+// rows as the out product's A image (big, then small: 128 x R floats each),
+// then a ring of three stages, each the A image of 16 k of the tile's
+// operand rows [h | h(t-d) | ctx] (big, small: 128 x 16 floats each) and a
+// B image of 16 k of R weight rows (a W_fg^T pass, W_out^T's residual or
+// skip rows), then the stages' barriers: 131,072 + 98,304 + 48 = 229,424
+// bytes at R = 128.  Registers a consumer thread: a pass's running sums (64
+// floats) and a chunk's (32).
+template <int R, int S>
+struct WgF32Fwd {
+  static constexpr int kRows = 128, kThreads = 384, kKc = 16, kStages = 3;
+  static constexpr size_t kA = static_cast<size_t>(kRows) * kKc * 4;
+  static constexpr size_t kW = static_cast<size_t>(R) * kKc * 4;
+  static constexpr size_t kStage = 2 * kA + 2 * kW;
+  static constexpr size_t kG = static_cast<size_t>(kRows) * R * 4;
+  static constexpr size_t kRing = 2 * kG;
+  static constexpr size_t kBar = kRing + kStages * kStage;
+  static constexpr size_t kEnd = kBar + 2 * kStages * 8;
+  static_assert(R == 128 && (S == 8 || S == R),
+                "n = 128 products; the skip part one of n = S");
+};
+
+// One layer of kernel A (see above).  Per tile: fg in two passes, each over
+// the W_in / 16 stages of the operand rows (split again each pass) and 16 k
+// of one of W_fg^T's passes; each consumer warpgroup forms its 64 rows by
+// two products of n = 64 (R/2 filter columns, their gate columns) a stage,
+// each chunk added to its running sum, then the gate of those R/2
+// channels: the taps stored where asked, gated split into the gated image.
+// Unless this is a taps launch (no h_next, no skip sum): out in two passes
+// over the R / 16 stages of W_out^T's residual rows, then of its skip rows:
+// the residual h + out into h_next, the skip sum.  Zero rows past m_total
+// and for the tap before t = d.
+template <int R, int S>
+__global__ void __launch_bounds__(384, 1)
+    stack_layer_wg_f32_kernel(F32LayerArgs a) {
+  using Sh = WgF32Fwd<R, S>;
+  constexpr int KC = Sh::kKc, ST = Sh::kStages, ROWS = Sh::kRows;
+  constexpr uint32_t SBO = KC * 32, GSBO = R * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* gbig = reinterpret_cast<float*>(smem);
+  float* gsmall = gbig + ROWS * R;
+  unsigned char* ring = smem + Sh::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Sh::kBar);
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 129);   // the producer's threads and its copy
+      mbar_init(empty + s, 8);    // the consumers' warps
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int win = a.ctx ? 3 * R : 2 * R;
+  const int n_fg = win / KC, n_out = R / KC;
+  const bool outs = a.h_next != nullptr || a.skacc != nullptr;
+  const long m_total = a.m_total, n_tiles = (m_total + ROWS - 1) / ROWS;
+  RingPos pos;
+  if (tid >= 256) {
+    // the producer warpgroup: operand rows split into the stage's A image,
+    // the weight images by bulk copy
+    setmaxnreg_dec<kProducerRegs>();
+    const int pl = tid - 256;
+    // a stage's B image: `rows` rows of 16 k from src
+    auto weights = [&](const float* src, int rows) {
+      mbar_wait(empty + pos.stage, pos.phase ^ 1);
+      if (pl == 0) {
+        mbar_arrive_tx(full + pos.stage, rows * KC * 8);
+        bulk_g2s(ring + pos.stage * Sh::kStage + 2 * Sh::kA, src,
+                 rows * KC * 8, full + pos.stage);
+      }
     };
-    // the fg bias rows of the lane's two rows' batch rows
-    const float* bfr[2];
+    for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long m0 = tile * ROWS;
+      for (int p = 0; p < 2; ++p)
+        for (int c = 0; c < n_fg; ++c) {
+          const int k0 = KC * c, part = k0 / R, j0 = k0 % R;
+          float4 v[4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long m = m0 + r0 + g + 8 * h;
-      bfr[h] = a.b_fg + (m < m_total ? m / a.t_len : 0) * 2 * R;
-    }
-    // fg and the gate, pass p over filter n tile 2p + half and its gate
-    // tile; gated of the lane's places held in gv
-    float gv[FP][4];
-#pragma unroll
-    for (int p = 0; p < FP; ++p) {
-      const float* w = step();
-      float acc[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
-#pragma unroll 2
-      for (int k0 = 0; k0 < win; k0 += 8) {
-        Frag<4> fa;
-        load_a_rows<true>(hp + r0 * LDH + k0, LDH, fa);
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          Frag<2> fb;
-          load_b_cols(w + (NC * jj + 8 * half) * LDW + k0, LDW, fb);
-          mma_split_add<true>(acc[jj], fa, fb);
-        }
-      }
-      const int c = NC * p + 8 * half + 2 * q;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long m = m0 + r0 + g + 8 * h;
-        float tf[2], sg[2];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          tf[k] = tanhf(acc[0][2 * h + k] + __ldg(bfr[h] + c + k));
-          sg[k] = sigmoidf(acc[1][2 * h + k] + __ldg(bfr[h] + R + c + k));
-          gv[p][2 * h + k] = tf[k] * sg[k];
-        }
-        if (a.tfsg && m < m_total) {
-          float* tp = a.tfsg + m * 2 * R + c;
-          *reinterpret_cast<float2*>(tp) = make_float2(tf[0], tf[1]);
-          *reinterpret_cast<float2*>(tp + R) = make_float2(sg[0], sg[1]);
-        }
-      }
-    }
-    if (!outs) continue;
-    // every warp is done with the passes' operand rows: gated into the tap
-    // columns (the first out step's barrier orders it before the reads)
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < FP; ++p) {
-      const int c = NC * p + 8 * half + 2 * q;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(hp + (r0 + g + 8 * h) * LDH + R + c) =
-            make_float2(gv[p][2 * h], gv[p][2 * h + 1]);
-    }
-    // out + b_out, a slab of W_out^T rows at a time, the warp's half of its
-    // n tiles: the residual (an 8-column n tile lies wholly in it or in the
-    // skip part), then the skip sum
-    for (int os = 0; os < Sh::kOs; ++os) {
-      const float* wo = step();
-      const int c0 = SW * os;
-      const int nt = (NO - c0 < SW ? NO - c0 : SW) / 8;
-      float acc[NTO][4];
-#pragma unroll
-      for (int jo = 0; jo < NTO; ++jo)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[jo][e] = 0.f;
-#pragma unroll 2
-      for (int k0 = 0; k0 < R; k0 += 8) {
-        Frag<4> fa;
-        load_a_rows<true>(hp + r0 * LDH + R + k0, LDH, fa);
-#pragma unroll
-        for (int jo = 0; jo < NTO; ++jo) {
-          if (half * NTO + jo >= nt) break;
-          Frag<2> fb;
-          load_b_cols(wo + 8 * (half * NTO + jo) * LDO + k0, LDO, fb);
-          mma_split_add<true>(acc[jo], fa, fb);
-        }
-      }
-#pragma unroll
-      for (int jo = 0; jo < NTO; ++jo) {
-        if (half * NTO + jo >= nt) break;
-        const int c = c0 + 8 * (half * NTO + jo) + 2 * q;
-        const float b0 = __ldg(a.b_out + c), b1 = __ldg(a.b_out + c + 1);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = r0 + g + 8 * h;
-          const long m = m0 + row;
-          if (m >= m_total) continue;
-          const float v0 = acc[jo][2 * h] + b0, v1 = acc[jo][2 * h + 1] + b1;
-          if (c < R) {
-            if (a.h_next) {
-              const float2 o =
-                  *reinterpret_cast<const float2*>(hp + row * LDH + c);
-              *reinterpret_cast<float2*>(a.h_next + m * R + c) =
-                  make_float2(v0 + o.x, v1 + o.y);
+          for (int u = 0; u < 4; ++u) {
+            // item i: row group i / 32, k group (i / 8) % 4, row i % 8 (its
+            // 16 bytes are slot i of the image)
+            const int i = pl + 128 * u;
+            const int row = 8 * (i >> 5) + (i & 7), kc = (i >> 3) & 3;
+            const long m = m0 + row;
+            bool ok = m < m_total;
+            const float* src = a.h + m * R + j0 + 4 * kc;
+            if (part == 1) {
+              ok = ok && static_cast<int>(static_cast<unsigned>(m) %
+                                          static_cast<unsigned>(a.t_len)) >=
+                             a.d;
+              src -= static_cast<long>(a.d) * R;
+            } else if (part == 2) {
+              src = a.ctx + m * R + j0 + 4 * kc;
             }
-          } else if (a.skacc) {
-            float2 sv = make_float2(v0, v1);
-            float* sp = a.skacc + m * S + c - R;
-            if (!a.first) {
-              const float2 o = *reinterpret_cast<const float2*>(sp);
-              sv = make_float2(o.x + v0, o.y + v1);
+            v[u] = ok ? __ldg(reinterpret_cast<const float4*>(src))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+          weights(a.wt + 2L * R * win * p + 2L * c * R * KC, R);
+          unsigned char* st = ring + pos.stage * Sh::kStage;
+          float4* ab = reinterpret_cast<float4*>(st);
+          float4* as = reinterpret_cast<float4*>(st + Sh::kA);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) split4(v[u], ab[pl + 128 * u],
+                                             as[pl + 128 * u]);
+          fence_async_smem();
+          mbar_arrive(full + pos.stage);
+          pos.next(ST);
+        }
+      if (!outs) continue;
+      for (int p = 0; p < 2; ++p) {
+        const int rows = p ? S : R;
+        const float* src = a.wt + 4L * R * win + 2L * R * R * p;
+        for (int c = 0; c < n_out; ++c) {
+          weights(src + 2L * c * rows * KC, rows);
+          mbar_arrive(full + pos.stage);
+          pos.next(ST);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = tid >> 7, lt = tid & 127;
+    const int lane = lt & 31, g = lane >> 2, q = lane & 3;
+    const int rt = 64 * w + 16 * (lt >> 5) + g;   // the lane's first tile row
+    float t[64];
+    // a stage's product of n = N (its B image's rows) into run, the A image
+    // the stage's or, with gated, the gated image's 16 k at chunk c
+    auto step = [&](float* run, bool first, int c, bool gated, auto n_const) {
+      constexpr int N = decltype(n_const)::value;
+      mbar_wait(full + pos.stage, pos.phase);
+      const uint32_t sa = smem_u32(ring + pos.stage * Sh::kStage);
+      const uint32_t ga = smem_u32(gbig) + w * 8 * GSBO + c * 512;
+      const uint64_t ab = gated ? wg_desc(ga, GSBO)
+                                : wg_desc(sa + w * 8 * SBO, SBO);
+      const uint64_t as = gated ? wg_desc(ga + Sh::kG, GSBO)
+                                : wg_desc(sa + Sh::kA + w * 8 * SBO, SBO);
+      const uint32_t wb = sa + 2 * Sh::kA;
+      wg_split_chunk<N, 2>(t, ab, as, wg_desc(wb, SBO),
+                           wg_desc(wb + N * KC * 4, SBO), true);
+      wg_chunk_add<N>(run, t, first);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + pos.stage);
+      pos.next(ST);
+    };
+    using N128 = std::integral_constant<int, 128>;
+    for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long m0 = tile * ROWS;
+      const long mrow[2] = {m0 + rt, m0 + rt + 8};
+      const float* bfr[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        bfr[e] = a.b_fg + (mrow[e] < m_total ? mrow[e] / a.t_len : 0) * 2 * R;
+      for (int p = 0; p < 2; ++p) {
+        // fg of R/2 channels: filter columns (n tiles 0-7), then their gate
+        // columns (8-15)
+        float run[64];
+        for (int c = 0; c < n_fg; ++c) step(run, c == 0, c, false, N128());
+        // the gate: the taps where asked; gated into the out product's image
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+          const int c = R / 2 * p + 8 * jb + 2 * q;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float tf[2], sg[2];
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+              tf[k] = tanhf(run[4 * jb + 2 * e + k] + __ldg(bfr[e] + c + k));
+              sg[k] = sigmoidf(run[4 * (jb + 8) + 2 * e + k] +
+                               __ldg(bfr[e] + R + c + k));
             }
-            *reinterpret_cast<float2*>(a.last ? a.skip + m * S + c - R
-                                              : sp) = sv;
+            const long m = mrow[e];
+            if (a.tfsg && m < m_total) {
+              float* tp = a.tfsg + m * 2 * R + c;
+              *reinterpret_cast<float2*>(tp) = make_float2(tf[0], tf[1]);
+              *reinterpret_cast<float2*>(tp + R) = make_float2(sg[0], sg[1]);
+            }
+            if (outs) {
+              const float gv[2] = {tf[0] * sg[0], tf[1] * sg[1]};
+              float b[2], s[2];
+#pragma unroll
+              for (int k = 0; k < 2; ++k) {
+                b[k] = __uint_as_float(tf32_rna(gv[k]));
+                s[k] = __uint_as_float(tf32_rna(gv[k] - b[k]));
+              }
+              const int o = img_off(rt + 8 * e, c, R);
+              *reinterpret_cast<float2*>(gbig + o) = make_float2(b[0], b[1]);
+              *reinterpret_cast<float2*>(gsmall + o) = make_float2(s[0], s[1]);
+            }
           }
         }
       }
-    }
-  }  // tiles
-  cp_async_wait<0>();
+      if (!outs) continue;
+      // the warpgroup's gated rows, seen by its products
+      fence_async_smem();
+      named_sync(1 + w, 128);
+      {
+        // out's residual columns + b_out + h into h_next
+        float ro[64];
+        for (int c = 0; c < n_out; ++c) step(ro, c == 0, c, true, N128());
+        if (a.h_next) {
+#pragma unroll
+          for (int jb = 0; jb < R / 8; ++jb) {
+            const int c = 8 * jb + 2 * q;
+            const float b0 = __ldg(a.b_out + c), b1 = __ldg(a.b_out + c + 1);
+            const float* vr = ro + 4 * jb;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const long m = mrow[e];
+              if (m >= m_total) continue;
+              const float v0 = vr[2 * e] + b0, v1 = vr[2 * e + 1] + b1;
+              const float2 o =
+                  __ldg(reinterpret_cast<const float2*>(a.h + m * R + c));
+              *reinterpret_cast<float2*>(a.h_next + m * R + c) =
+                  make_float2(v0 + o.x, v1 + o.y);
+            }
+          }
+        }
+      }
+      {
+        // out's skip columns + b_out into the skip sum
+        float rs[S / 2];
+        for (int c = 0; c < n_out; ++c)
+          step(rs, c == 0, c, true, std::integral_constant<int, S>());
+        if (a.skacc) {
+#pragma unroll
+          for (int jb = 0; jb < S / 8; ++jb) {
+            const int c = 8 * jb + 2 * q;
+            const float b0 = __ldg(a.b_out + R + c);
+            const float b1 = __ldg(a.b_out + R + c + 1);
+            const float* sr = rs + 4 * jb;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const long m = mrow[e];
+              if (m >= m_total) continue;
+              const float v0 = sr[2 * e] + b0, v1 = sr[2 * e + 1] + b1;
+              float2 sv = make_float2(v0, v1);
+              float* sp = a.skacc + m * S + c;
+              if (!a.first) {
+                const float2 o = *reinterpret_cast<const float2*>(sp);
+                sv = make_float2(o.x + v0, o.y + v1);
+              }
+              *reinterpret_cast<float2*>(a.last ? a.skip + m * S + c : sp) =
+                  sv;
+            }
+          }
+        }
+      }
+    }  // tiles
+  }
 }
 
-// Dynamic shared memory of stack_layer_f32_kernel at (R, S).
+// Kernel B's block: as kernel A's, on 128-row tiles.  Shared memory: a ring
+// of seven stages, each the A image of 16 k of the tile's rows (big, small:
+// 128 x 16 floats each; [dh | dskip] for dgated, dfg for dfg_w) and a B
+// image of 16 k of R weight rows (W_out's, or a pass of W_fg's), then the
+// barriers: 229,488 bytes at R = 128.  Registers a consumer thread: a
+// running sum and a chunk of 64 floats (products of n = 128).
+template <int R, int S>
+struct WgF32Bwd {
+  static constexpr int kRows = 128, kThreads = 384, kKc = 16, kStages = 7;
+  static constexpr int kNo = R + S;
+  static constexpr int kK1 = (kNo + kKc - 1) / kKc * kKc;
+  static constexpr size_t kA = static_cast<size_t>(kRows) * kKc * 4;
+  static constexpr size_t kW = static_cast<size_t>(R) * kKc * 4;
+  static constexpr size_t kStage = 2 * kA + 2 * kW;
+  static constexpr size_t kBar = kStages * kStage;
+  static constexpr size_t kEnd = kBar + 2 * kStages * 8;
+  static_assert(R == 128 && S % 4 == 0, "n = 128 products");
+};
+
+// One layer of kernel B (see above; the layer launch of the float32
+// recompute backward at R = 128, on the taps of the layer's taps launch of
+// kernel A).  Per tile: (1) dgated = [dh | dskip] W_out^T over (R + S) / 16
+// stages: the producer forms dh = the layer above's dh + dfg_w_h plus its
+// carry dfg_w_p(t + d), stores it for the W_out gradient and splits it with
+// dskip; each consumer warpgroup's 64 rows by the R columns.  Then from the
+// taps at the same places gated = tf * sg (stored for the W_out gradient)
+// and dfg (stored for the W_fg gradient).  (2) Once every consumer has
+// stored its dfg (a named barrier with the producer), dfg_w = dfg W_fg^T in
+// W_in / R passes, each over 2R / 16 stages of dfg rows (split again by the
+// producer each pass) and one of W_fg's passes of R rows: the dh part into
+// dhp, the past part into p_out, the ctx part into dctx.  The order of
+// save_wide_bwd's outputs and sums.
+template <int R, int S, bool CTX>
+__global__ void __launch_bounds__(384, 1)
+    stack_bwd_wg_f32_kernel(BwdLayerArgs a, const float* img) {
+  using Sh = WgF32Bwd<R, S>;
+  constexpr int KC = Sh::kKc, NO = Sh::kNo, K1 = Sh::kK1, ST = Sh::kStages;
+  constexpr int ROWS = Sh::kRows, NP = CTX ? 3 : 2;   // dfg_w's passes
+  constexpr int N1 = K1 / KC, NF = 2 * R / KC;
+  constexpr uint32_t SBO = KC * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Sh::kBar);
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 129);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const long m_total = a.m_total, n_tiles = (m_total + ROWS - 1) / ROWS;
+  const float* wo_img = img;
+  const float* wf_img = img + 2L * R * K1;
+  RingPos pos;
+  if (tid >= 256) {
+    // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    const int pl = tid - 256;
+    // the stage's A image from v (slot pl + 128 u), the B image by copy
+    auto fill = [&](const float4 (&v)[4], const float* b_src,
+                    uint32_t b_bytes) {
+      mbar_wait(empty + pos.stage, pos.phase ^ 1);
+      unsigned char* st = smem + pos.stage * Sh::kStage;
+      if (pl == 0) {
+        mbar_arrive_tx(full + pos.stage, b_bytes);
+        bulk_g2s(st + 2 * Sh::kA, b_src, b_bytes, full + pos.stage);
+      }
+      float4* ab = reinterpret_cast<float4*>(st);
+      float4* as = reinterpret_cast<float4*>(st + Sh::kA);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) split4(v[u], ab[pl + 128 * u],
+                                         as[pl + 128 * u]);
+      fence_async_smem();
+      mbar_arrive(full + pos.stage);
+      pos.next(ST);
+    };
+    for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long m0 = tile * ROWS;
+      for (int c = 0; c < N1; ++c) {
+        float4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = pl + 128 * u;
+          const int row = 8 * (i >> 5) + (i & 7);
+          const int k = KC * c + 4 * ((i >> 3) & 3);
+          const long m = m0 + row;
+          float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (m < m_total) {
+            if (k < R) {
+              if (!a.top) {
+                x = *reinterpret_cast<const float4*>(a.dhp + m * R + k);
+                if (static_cast<int>(static_cast<unsigned>(m) %
+                                     static_cast<unsigned>(a.t_len)) +
+                        a.d_in < a.t_len) {
+                  const float4 p = __ldg(reinterpret_cast<const float4*>(
+                      a.p_in + (m + a.d_in) * R + k));
+                  x = make_float4(x.x + p.x, x.y + p.y, x.z + p.z, x.w + p.w);
+                }
+              }
+              *reinterpret_cast<float4*>(a.dh + m * R + k) = x;
+            } else if (k < NO) {
+              x = __ldg(reinterpret_cast<const float4*>(a.dskip_f + m * S +
+                                                        k - R));
+            }
+          }
+          v[u] = x;
+        }
+        fill(v, wo_img + static_cast<long>(c) * 2 * R * KC, R * KC * 8);
+      }
+      // every consumer has stored the tile's dfg
+      named_sync(3, 384);
+      for (int p = 0; p < NP; ++p)
+        for (int c = 0; c < NF; ++c) {
+          float4 v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int i = pl + 128 * u;
+            const long m = m0 + 8 * (i >> 5) + (i & 7);
+            v[u] = m < m_total ? *reinterpret_cast<const float4*>(
+                                     a.dfg + m * 2 * R + KC * c +
+                                     4 * ((i >> 3) & 3))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+          fill(v, wf_img + static_cast<long>(p * NF + c) * 2 * R * KC,
+               R * KC * 8);
+        }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = tid >> 7, lt = tid & 127;
+    const int lane = lt & 31, g = lane >> 2, q = lane & 3;
+    const int rt = 64 * w + 16 * (lt >> 5) + g;
+    const bool ctx_sum = a.dctx != nullptr && !a.top;
+    float t[R / 2];
+    // a stage's product of n = R (its B image's rows) into run
+    auto step = [&](float* run, bool first) {
+      mbar_wait(full + pos.stage, pos.phase);
+      const uint32_t sa = smem_u32(smem + pos.stage * Sh::kStage);
+      const uint32_t wb = sa + 2 * Sh::kA;
+      wg_split_chunk<R, 2>(t, wg_desc(sa + w * 8 * SBO, SBO),
+                           wg_desc(sa + Sh::kA + w * 8 * SBO, SBO),
+                           wg_desc(wb, SBO), wg_desc(wb + R * KC * 4, SBO),
+                           true);
+      wg_chunk_add<R>(run, t, first);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + pos.stage);
+      pos.next(ST);
+    };
+    for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long m0 = tile * ROWS;
+      const long mrow[2] = {m0 + rt, m0 + rt + 8};
+      {
+        // dgated, then gated and dfg from the taps at the same places
+        float run[R / 2];
+        for (int c = 0; c < N1; ++c) step(run, c == 0);
+#pragma unroll
+        for (int jb = 0; jb < R / 8; ++jb) {
+          const int c = 8 * jb + 2 * q;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const long m = mrow[e];
+            if (m >= m_total) continue;
+            const float2 tw = __ldg(
+                reinterpret_cast<const float2*>(a.tfsg_f + m * 2 * R + c));
+            const float2 sw = __ldg(reinterpret_cast<const float2*>(
+                a.tfsg_f + m * 2 * R + R + c));
+            const float tf[2] = {tw.x, tw.y}, sg[2] = {sw.x, sw.y};
+            *reinterpret_cast<float2*>(a.gated + m * R + c) =
+                make_float2(tf[0] * sg[0], tf[1] * sg[1]);
+            float df[2], dq[2];
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+              const float dg = run[4 * jb + 2 * e + k];
+              df[k] = dg * (sg[k] * (1.f - tf[k] * tf[k]));
+              dq[k] = dg * (tf[k] * (sg[k] - sg[k] * sg[k]));
+            }
+            *reinterpret_cast<float2*>(a.dfg + m * 2 * R + c) =
+                make_float2(df[0], df[1]);
+            *reinterpret_cast<float2*>(a.dfg + m * 2 * R + R + c) =
+                make_float2(dq[0], dq[1]);
+          }
+        }
+      }
+      __threadfence_block();
+      named_arrive(3, 384);
+      // dfg_w, a pass a part: dh, past, ctx
+      for (int part = 0; part < NP; ++part) {
+        float run[R / 2];
+        for (int c = 0; c < NF; ++c) step(run, c == 0);
+#pragma unroll
+        for (int jb = 0; jb < R / 8; ++jb) {
+          const int c = 8 * jb + 2 * q;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const long m = mrow[e];
+            if (m >= m_total) continue;
+            const float x0 = run[4 * jb + 2 * e], x1 = run[4 * jb + 2 * e + 1];
+            if (part == 0) {
+              const float2 d = *reinterpret_cast<const float2*>(a.dh + m * R + c);
+              *reinterpret_cast<float2*>(a.dhp + m * R + c) =
+                  make_float2(d.x + x0, d.y + x1);
+            } else if (part == 1) {
+              *reinterpret_cast<float2*>(a.p_out + m * R + c) =
+                  make_float2(x0, x1);
+            } else {
+              float2 y = make_float2(x0, x1);
+              if (ctx_sum) {
+                const float2 o =
+                    *reinterpret_cast<const float2*>(a.dctx + m * R + c);
+                y = make_float2(o.x + x0, o.y + x1);
+              }
+              *reinterpret_cast<float2*>(a.dctx + m * R + c) = y;
+            }
+          }
+        }
+      }
+    }  // tiles
+  }
+}
+
+// Dynamic shared memory of stack_layer_f32_kernel at (R, S), or of kernel A
+// at the wide widths.
 template <int R, int S>
 size_t f32_layer_smem() {
   if constexpr (R > kNarrowR)
-    return WideF32Shape<R, S>::kEnd;
+    return WgF32Fwd<R, S>::kEnd;
   else
     return F32Shape<R, S>::kEnd;
 }
@@ -4425,9 +4783,7 @@ size_t f32_layer_smem() {
 template <int R, int S>
 __global__ void __launch_bounds__(256, 1)
     stack_layer_f32_kernel(F32LayerArgs a) {
-  if constexpr (R > kNarrowR) {
-  f32_wide_layer<R, S>(a);
-  } else {
+  static_assert(R <= kNarrowR, "the wide widths run kernel A");
   using Sh = F32Shape<R, S>;
   constexpr int ROWS = Sh::kRows, THREADS = Sh::kThreads;
   constexpr int LDH = Sh::kLdh, LDW = Sh::kLdw, LDO = Sh::kLdo;
@@ -4572,7 +4928,6 @@ __global__ void __launch_bounds__(256, 1)
       }
     }
   }  // tiles
-  }
 }
 
 // Launches of the layer kernel in one form: its shared memory set once,
@@ -4646,12 +5001,11 @@ struct FwdSource {
                          // (movenet_stack_wt_elems), or null
 };
 
-// Every layer's weights of the wide forms into wt (stack_wt_kernel; res_t
-// as there), bf16 or, for the float32 recompute form, float32: the
-// elements of one layer.
-template <int R, int S, typename T>
+// Every layer's bf16 weights of the wide forms into wt (stack_wt_kernel;
+// res_t as there): the elements of one layer.
+template <int R, int S>
 long wide_weights(const float* w_fg, const float* w_out, int win,
-                  int n_layers, int res_t, T* wt, cudaStream_t st) {
+                  int n_layers, int res_t, bf16_t* wt, cudaStream_t st) {
   const long per = WideShape<R, S>::wt_elems(win);
   stack_wt_kernel<<<grid_for(per * n_layers), kThreads, 0, st>>>(
       w_fg, w_out, n_layers, win, R, S, res_t, wt);
@@ -4736,12 +5090,18 @@ int fwd_impl(const FwdSource& src, const bf16_t* ctx, const float* b_fg,
 // (both forms: 8 warps on 64-row tiles)
 template <int R, int S>
 struct F32LayerLaunch {
-  static constexpr int kThreads = 256, kRows = 64;
+  static constexpr bool kWide = R > kNarrowR;
+  static constexpr int kThreads = kWide ? 384 : 256, kRows = kWide ? 128 : 64;
   size_t smem = f32_layer_smem<R, S>();
   int grid = 0;
+  static const void* fn() {
+    if constexpr (kWide)
+      return reinterpret_cast<const void*>(stack_layer_wg_f32_kernel<R, S>);
+    else
+      return reinterpret_cast<const void*>(stack_layer_f32_kernel<R, S>);
+  }
   int setup(long m_total) {
-    const void* fn =
-        reinterpret_cast<const void*>(stack_layer_f32_kernel<R, S>);
+    const void* fn = F32LayerLaunch::fn();
     int err = set_smem(fn, smem);
     if (err) return err;
     int per_sm = 0;
@@ -4754,10 +5114,27 @@ struct F32LayerLaunch {
     return 0;
   }
   int launch(const F32LayerArgs& a, cudaStream_t st) const {
-    stack_layer_f32_kernel<R, S><<<grid, kThreads, smem, st>>>(a);
+    if constexpr (kWide)
+      stack_layer_wg_f32_kernel<R, S><<<grid, kThreads, smem, st>>>(a);
+    else
+      stack_layer_f32_kernel<R, S><<<grid, kThreads, smem, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
 };
+
+// Every layer's weight images of the wide float32 kernels into wt
+// (stack_wt_split_kernel): kernel A's, and with bwd kernel B's after them.
+// Returns the floats of one layer's forward images.
+template <int R, int S>
+long wg_f32_weights(const float* w_fg, const float* w_out, int win,
+                    int n_layers, bool bwd, float* wt, cudaStream_t st) {
+  using Im = WgF32Images<R, S>;
+  const long pairs =
+      (Im::fwd_floats(win) + (bwd ? Im::bwd_floats(win) : 0)) / 2 * n_layers;
+  stack_wt_split_kernel<R, S><<<grid_for(pairs), kThreads, 0, st>>>(
+      w_fg, w_out, n_layers, win, bwd ? 1 : 0, wt);
+  return Im::fwd_floats(win);
+}
 
 // The float32 layer arguments of layer l (no taps, skip sum off).
 template <int R, int S>
@@ -4843,8 +5220,12 @@ int fwd_tails_impl(const Act<F32>* x, const Act<F32>* ctx, const float* b_fg,
   long wt_layer = 0;
   if constexpr (kWide) {
     if (!wt) return static_cast<int>(cudaErrorInvalidValue);
-    wt_layer = wide_weights<R, S>(w_fg, w_out, ctx ? 3 * R : 2 * R, n_layers,
-                                  1, wt, st);
+    if constexpr (F32)
+      wt_layer = wg_f32_weights<R, S>(w_fg, w_out, ctx ? 3 * R : 2 * R,
+                                      n_layers, false, wt, st);
+    else
+      wt_layer = wide_weights<R, S>(w_fg, w_out, ctx ? 3 * R : 2 * R,
+                                    n_layers, 1, wt, st);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -4933,13 +5314,70 @@ int fwd_replay_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
   return 0;
 }
 
+// The layer launches of the recompute backward: stack_bwd_layer_kernel's
+// recompute form (kBwdRc, or kBwdRcF32 in float32) or, in float32 at the
+// wide widths, kernel B (on the layer's weight images).  Its shared memory
+// set once, the grid (as many persistent blocks as fit, at most one per
+// tile, or pair of tiles of a two-pipeline block) for every layer.
+template <int R, int S, bool F32>
+struct RcBwdLaunch {
+  static constexpr bool kWg = F32 && R > kNarrowR;
+  static constexpr int kForm = F32 ? kBwdRcF32 : kBwdRc;
+  using Sh = BwdShape<R, S>;
+  static constexpr int kThreads = kWg ? 384 : Sh::kThreads;
+  size_t smem = 0;
+  int grid = 0;
+  static const void* fn(bool ctx) {
+    if constexpr (kWg)
+      return ctx ? reinterpret_cast<const void*>(
+                       stack_bwd_wg_f32_kernel<R, S, true>)
+                 : reinterpret_cast<const void*>(
+                       stack_bwd_wg_f32_kernel<R, S, false>);
+    else
+      return reinterpret_cast<const void*>(
+          stack_bwd_layer_kernel<R, S, kForm>);
+  }
+  int setup(long m_total, int win) {
+    smem = F32 ? Sh::smem_rcf32(win) : Sh::smem_rc(win);
+    const void* f = fn(win == 3 * R);
+    int err = set_smem(f, smem);
+    if (err) return err;
+    int per_sm = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, f, kThreads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    long units;
+    if constexpr (kWg)
+      units = (m_total + WgF32Bwd<R, S>::kRows - 1) / WgF32Bwd<R, S>::kRows;
+    else
+      units = ((m_total + Sh::kRows - 1) / Sh::kRows + Sh::kHalves - 1) /
+              Sh::kHalves;
+    const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
+    grid = static_cast<int>(units < fit ? units : fit);
+    return 0;
+  }
+  int launch(const BwdLayerArgs& a, const float* img, cudaStream_t st) const {
+    if constexpr (kWg) {
+      if (a.cx_f)
+        stack_bwd_wg_f32_kernel<R, S, true><<<grid, kThreads, smem, st>>>(a,
+                                                                          img);
+      else
+        stack_bwd_wg_f32_kernel<R, S, false><<<grid, kThreads, smem, st>>>(
+            a, img);
+    } else {
+      stack_bwd_layer_kernel<R, S, kForm><<<grid, kThreads, smem, st>>>(a);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
 // The recompute backward (F32: its float32 form: the rebuilds by
 // stack_layer_f32_kernel, the layer launches in form kBwdRcF32, the weight
 // gradients from float32 activations and gated, MODE 4 and 6; dskip, dx and
-// dctx float32).  The wide float32 form (R > kNarrowR) runs before each
-// layer launch a taps launch of stack_layer_f32_kernel on the layer's input
-// (the forward's fg and gate, the float32 taps into scratch), which the
-// wide layer backward reads as the save form reads its taps.
+// dctx float32).  The wide float32 form (R > kNarrowR) runs kernel A for the
+// rebuilds and, before each layer launch, a taps launch of it on the layer's
+// input (the forward's fg and gate, the float32 taps into scratch), which
+// kernel B, the layer launch, reads.
 template <int R, int S, bool F32>
 int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
                    const Act<F32>* ctx, const float* b_fg, const float* w_fg,
@@ -4969,32 +5407,28 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
                      LayerLaunch<R, S, kRecompute>> tl;
   int err = tl.setup(m_total);
   if (err) return err;
-  // the wide form: every layer's bf16 weights for the rebuilds and for fg
-  // formed again (W_fg^T leads each layer's)
+  // the wide form: every layer's weights for the rebuilds and for fg
+  // formed again (bf16, W_fg^T leads each layer's), or in float32 the weight
+  // images of kernels A and B
   long wt_layer = 0;
+  const float* bwd_img = nullptr;
   if constexpr (kWide) {
     if (!wt) return static_cast<int>(cudaErrorInvalidValue);
-    wt_layer = wide_weights<R, S>(w_fg, w_out, win, n_layers, 1, wt, st);
+    if constexpr (F32) {
+      wt_layer = wg_f32_weights<R, S>(w_fg, w_out, win, n_layers, true, wt,
+                                      st);
+      bwd_img = wt + n_layers * wt_layer;
+    } else {
+      wt_layer = wide_weights<R, S>(w_fg, w_out, win, n_layers, 1, wt, st);
+    }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  using Sh = BwdShape<R, S>;
-  constexpr int FORM = F32 ? kBwdRcF32 : kBwdRc;
   // the weight gradients' modes: W_fg, W_out
   constexpr int MFG = F32 ? 4 : 0, MOUT = F32 ? 6 : 3;
-  const size_t smem = F32 ? Sh::smem_rcf32(win) : Sh::smem_rc(win);
-  const void* layer = reinterpret_cast<const void*>(
-      stack_bwd_layer_kernel<R, S, FORM>);
-  err = set_smem(layer, smem);
+  RcBwdLaunch<R, S, F32> layer;
+  err = layer.setup(m_total, win);
   if (err) return err;
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, layer, Sh::kThreads, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long tiles = (m_total + Sh::kRows - 1) / Sh::kRows;
-  const long pairs = (tiles + Sh::kHalves - 1) / Sh::kHalves;
-  const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
-  const int grid = static_cast<int>(pairs < fit ? pairs : fit);
   for (int lo = (n_layers - 1) / every * every; lo >= 0; lo -= every) {
     const int hi = lo + every < n_layers ? lo + every : n_layers;
     // the group's inputs: h_lo from x or its checkpoint, h_{lo+1} ..
@@ -5062,9 +5496,11 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
       a.gated = gated;
       a.d = dil[l];
       if constexpr (kWide && !F32) a.wt = wt + l * wt_layer;
-      stack_bwd_layer_kernel<R, S, FORM><<<grid, Sh::kThreads, smem, st>>>(a);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return static_cast<int>(e);
+      err = layer.launch(
+          a,
+          kTaps ? bwd_img + l * WgF32Images<R, S>::bwd_floats(win) : nullptr,
+          st);
+      if (err) return err;
 
       WgradArgs w = {};
       if constexpr (F32) {
@@ -5277,6 +5713,20 @@ int movenet_stack_supports(int family, int r, int s) {
 long movenet_stack_wt_elems(int r, int s, int win, int n_layers) {
 #define X(R_, S_) \
   if (r == R_ && s == S_) return WideShape<R_, S_>::wt_elems(win) * n_layers;
+  MOVENET_WIDE_WIDTHS(X)
+#undef X
+  return 0;
+}
+
+// Floats of the wide float32 recompute kernels' weight images
+// (stack_wt_split_kernel): kernel A's of every layer, with bwd also kernel
+// B's.  0 at the narrow widths.
+long movenet_stack_wt_f32_elems(int r, int s, int win, int n_layers,
+                                int bwd) {
+#define X(R_, S_)                                                       \
+  if (r == R_ && s == S_)                                               \
+    return (WgF32Images<R_, S_>::fwd_floats(win) +                      \
+            (bwd ? WgF32Images<R_, S_>::bwd_floats(win) : 0)) * n_layers;
   MOVENET_WIDE_WIDTHS(X)
 #undef X
   return 0;

@@ -52,11 +52,12 @@ kernels' float32 forms, counted as ``stack_fwd_tails_f32`` and
 ``stack_bwd_tails_f32``: one launch of ``stack_layer_f32_kernel`` per
 layer without the taps (the rebuilds without the skip sum too), and the
 backward's layer launch in its float32 recompute form (fg formed again in
-float32 from the operand rows staged over the tile's gradient rows; at R =
-128 by a taps launch of the forward's layer kernel before each layer
-launch, whose wide form reads the float32 taps) with the float32 save
-form's weight gradients; checkpoints, group buffers, dx and dctx in
-float32.  ``stack_fwd_replay`` and ``stack_bwd_replay`` in
+float32 from the operand rows staged over the tile's gradient rows) with
+the float32 save form's weight gradients; at R = 128 the layer kernel is
+kernel A and the layer backward kernel B (split-TF32 wgmma, "the wide
+float32 recompute kernels"), a taps launch of kernel A before each layer
+launch giving kernel B the float32 taps; checkpoints, group buffers, dx
+and dctx in float32.  ``stack_fwd_replay`` and ``stack_bwd_replay`` in
 float32 (counted as ``stack_fwd_replay_f32`` and
 ``stack_bwd_replay_f32``) run the float32 recompute forward's launches
 with the taps stored, and the float32 save backward's grids after the
@@ -69,11 +70,11 @@ Every family is built for the (R, S) pairs ``WIDTHS``; the bf16 save forms
 recompute forms also for ``WIDE_WIDTHS`` (R = 128), whose kernels stream
 their weights through shared memory (csrc/stack_kernel.cu, "the wide save
 forms", "the wide recompute forms" and "the wide float32 recompute
-forward"; the save, replay and recompute forwards' wrappers and the
-recompute backward's allocate their weight scratch in the compute dtype,
-``movenet_stack_wt_elems``; the wide float32 recompute backward runs a taps
-launch of the forward's layer kernel before each layer launch).  A family
-raises at a pair it is not built for with its ROADMAP.md item
+kernels"; the save, replay and recompute forwards' wrappers and the
+recompute backward's allocate their weight scratch: bf16,
+``movenet_stack_wt_elems``, or the float32 forms' TF32 images,
+``movenet_stack_wt_f32_elems``).  A family raises at a pair it is not
+built for with its ROADMAP.md item
 (``FAMILY_WIDTHS``, ``WIDTH_ITEMS``); the float32 recompute and replay forms
 are families of their own there.
 """
@@ -177,6 +178,8 @@ def bind(lib):
     lib.movenet_stack_supports.restype = _I
     lib.movenet_stack_wt_elems.argtypes = [_I, _I, _I, _I]
     lib.movenet_stack_wt_elems.restype = _L
+    lib.movenet_stack_wt_f32_elems.argtypes = [_I] * 5
+    lib.movenet_stack_wt_f32_elems.restype = _L
     lib.movenet_stack_bwd_scratch.argtypes = [_I] * 9
     lib.movenet_stack_bwd_scratch.restype = _L
     lib.movenet_stack_bwd_smem.argtypes = [_I, _I, _I, _I]
@@ -302,21 +305,22 @@ def f32_smem(r: int, s: int, win: int) -> Dict[str, int]:
     [h | h(t-d) | ctx] rows first, then [dh | dskip] and dfg) and the
     weight-gradient launches (W_fg from float32 activations, W_out from
     the float32 gated, W_up from float32 xc).  ``win`` is W_in: 2R, or 3R
-    with ctx.  Above R = 64 the wide layouts: the forward's
-    ``WideF32Shape`` (the 64-row float32 operand tile and a ring of two
-    weight slabs, the larger of 32 W_fg^T rows and 64 W_out^T rows), the
-    layer backward's ``WideBwd`` (64 rows of [dh | dskip] and of dfg, the
-    float32 taps first, and a ring of two 32-row weight slabs; the
-    recompute form reads the taps of its taps launch) and W_fg's gradient
-    on 32-row chunks."""
+    with ctx.  Above R = 64 the wide layouts: kernel A's (``WgF32Fwd``:
+    the 128-row tile's gated rows as big and small TF32 images, then a ring
+    of three stages of 16 k, each the A images of 128 operand rows and the
+    B images of R weight rows, then the stages' barriers), the layer
+    backward's ``WideBwd`` (the bf16 forms' 64 rows of [dh | dskip] and of
+    dfg and a ring of two 32-row weight slabs), kernel B's (``WgF32Bwd``:
+    seven stages of 16 k, each the A images of 128 rows and the B images of
+    R weight rows) and W_fg's gradient on 32-row chunks."""
     if r > 64:
-        ldh, ldd, ldf = 3 * r + 4, r + s + 4, 2 * r + 4
-        slab = max(2 * 16 * ldh, 64 * (r + 4))
-        bwd = 4 * (64 * (ldd + ldf) + 2 * 32 * max(ldd, ldf))
+        ldd, ldf, kc = r + s + 4, 2 * r + 4, 16
+        a_img = 2 * 128 * kc * 4
         return {
-            "layer_fwd": 4 * (64 * ldh + 2 * slab),
-            "layer_bwd": bwd,
-            "layer_bwd_rc": bwd,
+            "layer_fwd": 2 * 128 * r * 4 + 3 * (a_img + 2 * r * kc * 4)
+            + 2 * 3 * 8,
+            "layer_bwd": 4 * (64 * (ldd + ldf) + 2 * 32 * max(ldd, ldf)),
+            "layer_bwd_rc": 7 * (a_img + 2 * r * kc * 4) + 2 * 7 * 8,
             "wgrad_fg": _wg_smem(2 * r, win, True, True, 32),
             "wgrad_out": _wg_smem(r + s, r, True, True),
             "wgrad_up": _wg_smem(10 * r, r, True, True),
@@ -631,7 +635,8 @@ def run_bwd_tails(lib, x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
     dw_fg = torch.empty(n_layers, win, 2 * r, dtype=f32, device=dev)
     dw_out = torch.empty(n_layers, r, r + s, dtype=f32, device=dev)
     db_out = torch.empty(n_layers, r + s, dtype=f32, device=dev)
-    wt = _weight_scratch(lib, dev, r, s, ctx is not None, n_layers, act)
+    wt = _weight_scratch(lib, dev, r, s, ctx is not None, n_layers, act,
+                         bwd=True)
     args = (_ptr(x), _ptr(ckpt), _ptr(ctx), _ptr(b_fg), _ptr(w_fg),
             _ptr(w_out), _ptr(b_out), _ptr(dskip), _dils(dilations), every,
             _ptr(group), _ptr(scratch), chunks, _ptr(dx), _ptr(dctx),
@@ -712,11 +717,17 @@ def run_fwd_x(lib, x, ctx, b_fg, w_fg, w_out, b_out, dilations,
 
 
 def _weight_scratch(lib, dev, r, s, ctx: bool, n_layers,
-                    dtype=torch.bfloat16):
-    """The wide forms' weight scratch (``movenet_stack_wt_elems``) in
-    ``dtype`` (bf16; float32 for the float32 recompute forms), or None at
-    the narrow widths, which take none."""
-    n_wt = lib.movenet_stack_wt_elems(r, s, (3 if ctx else 2) * r, n_layers)
+                    dtype=torch.bfloat16, bwd: bool = False):
+    """The wide forms' weight scratch, or None at the narrow widths, which
+    take none: the bf16 forms' weights (``movenet_stack_wt_elems``), or for
+    the float32 recompute forms the TF32 big and small images of kernel A's
+    weights and, with ``bwd``, kernel B's (``movenet_stack_wt_f32_elems``;
+    ``ops/stack_kernel.wide_f32_weight_images`` is its plain version)."""
+    win = (3 if ctx else 2) * r
+    if dtype == torch.float32:
+        n_wt = lib.movenet_stack_wt_f32_elems(r, s, win, n_layers, int(bwd))
+    else:
+        n_wt = lib.movenet_stack_wt_elems(r, s, win, n_layers)
     return torch.empty(n_wt, dtype=dtype, device=dev) if n_wt else None
 
 

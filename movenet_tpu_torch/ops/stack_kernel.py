@@ -602,6 +602,12 @@ BWD_SPLIT_PASSES = {
     "dw_out": (True, True),    # gated^T [dh | dskip], gated = tf * sg
     "dw_up": (False, True),    # xc^T dctx, the projection (bf16 A)
 }
+# The accumulation chunk of the wide float32 recompute kernels' wgmma
+# products (csrc/stack_kernel.cu, "the wide float32 recompute kernels"):
+# the tensor core sums each chunk of 16 k (two k steps of 8, three passes
+# each) from zero, and the chunk is added in float32.  Chosen on the card
+# against float64 (tests/test_torch_wgmma_cuda.py, PERF.md).
+WIDE_F32_CHUNK = 16
 # The float32 save kernels' products (stack_layer_f32_kernel, and the
 # backward's float32 form): every operand is float32 and none is exact in
 # TF32 (hsave, ctx, gated and xc are no longer bf16 values), so every
@@ -663,26 +669,84 @@ def split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
-def kstep_split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def kstep_split_matmul(a: torch.Tensor, b: torch.Tensor,
+                       chunk: int = 8) -> torch.Tensor:
     """``a @ b`` (a (..., K) and b (K, N), float32) in the float32 kernels'
-    order: k in steps of 8, each step's three split-TF32 passes (small *
-    big, big * small, big * big) summed from zero, each pass's exact sum
-    rounded to float32, then the step added in float32 (mma_split_add).
-    ``split_matmul`` sums each pass over all of K before rounding; this is
-    the order the kernels sum in, up to the tensor core's rounding inside
-    a pass."""
+    order: k in chunks of ``chunk`` (8: one k step of the ``mma.sync``
+    kernels; ``WIDE_F32_CHUNK`` for the wide float32 recompute kernels'
+    ``wgmma`` products), each chunk's three split-TF32 passes (small * big,
+    big * small, big * big) summed from zero, each pass's exact sum rounded
+    to float32, then the chunk added in float32 (mma_split_add,
+    wg_chunk_add).  ``split_matmul`` sums each pass over all of K before
+    rounding; this is the order the kernels sum in, up to the tensor core's
+    rounding inside a pass."""
     f64, f32 = torch.float64, torch.float32
     a2 = a.reshape(-1, a.shape[-1])
     ab, a_s = (v.to(f64) for v in tf32_split(a2))
     bb, b_s = (v.to(f64) for v in tf32_split(b))
     out = torch.zeros(a2.shape[0], b.shape[1], dtype=f32, device=a.device)
-    for k0 in range(0, a2.shape[1], 8):
-        k = slice(k0, k0 + 8)
+    for k0 in range(0, a2.shape[1], chunk):
+        k = slice(k0, k0 + chunk)
         t = (a_s[:, k] @ bb[k]).to(f32)
         t = (t.to(f64) + ab[:, k] @ b_s[k]).to(f32)
         t = (t.to(f64) + ab[:, k] @ bb[k]).to(f32)
         out = out + t
     return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def img_offsets(rows: int, kc: int) -> torch.Tensor:
+    """(rows, kc) float offsets of each element (r, k) of an operand image
+    of the wgmma kernels (csrc/wgmma_tf32.cuh ``img_off``): 8 x 4 core
+    matrices, those of a row group of 8 in k order, the row groups after
+    each other."""
+    r = torch.arange(rows)[:, None]
+    k = torch.arange(kc)[None, :]
+    return (r // 8) * (kc * 8) + (k // 4) * 32 + (r % 8) * 4 + k % 4
+
+
+def _images(mat: torch.Tensor, kc: int = 16) -> torch.Tensor:
+    """``mat`` (rows, K), K a multiple of kc, as the wgmma kernels' images:
+    per chunk of kc k its TF32 big part, then its small part
+    (``tf32_split``), each laid out by ``img_offsets``."""
+    rows, kdim = mat.shape
+    off = img_offsets(rows, kc).reshape(-1)
+    out = []
+    for part in tf32_split(mat.float()):
+        img = torch.empty(kdim // kc, rows * kc, dtype=torch.float32)
+        img[:, off] = part.reshape(rows, kdim // kc, kc).transpose(0, 1) \
+            .reshape(kdim // kc, rows * kc)
+        out.append(img)
+    return torch.stack(out, 1).reshape(-1)
+
+
+def wide_f32_weight_images(w_fg: torch.Tensor, w_out: torch.Tensor,
+                           bwd: bool = False) -> torch.Tensor:
+    """The plain version of the wide float32 recompute kernels' weight
+    split (csrc/stack_kernel.cu ``stack_wt_split_kernel``): the flat
+    float32 scratch it writes from w_fg (L, W_in, 2R) and w_out (L, R, R+S).
+    Every layer's images for kernel A: W_fg^T in two passes of R rows (W_in
+    k), each R/2 filter columns and then their R/2 gate columns, and W_out^T
+    (R k) as its R residual rows, then its S skip rows; with ``bwd`` then
+    every layer's for kernel B: W_out (R rows, R+S k zero to a multiple of
+    16) and W_fg (2R k) as W_in/R passes of R rows."""
+    n_layers, win, two_r = w_fg.shape
+    r, no = two_r // 2, w_out.shape[2]
+    half = r // 2
+    n = torch.arange(r)
+    ch = [half * p + torch.where(n < half, n, r + n - half) for p in (0, 1)]
+    parts = [torch.cat([_images(w_fg[l].t()[ch[0]]),
+                        _images(w_fg[l].t()[ch[1]]),
+                        _images(w_out[l].t()[:r]), _images(w_out[l].t()[r:])])
+             for l in range(n_layers)]
+    if bwd:
+        k1 = -(-no // 16) * 16
+        for l in range(n_layers):
+            wo = torch.zeros(r, k1, dtype=torch.float32)
+            wo[:, :no] = w_out[l]
+            parts.append(torch.cat(
+                [_images(wo)] + [_images(w_fg[l][p * r:(p + 1) * r])
+                                 for p in range(win // r)]))
+    return torch.cat(parts)
 
 
 def stack_fwd_f32_split(pack, table2, ctx, b_fg, w_fg, w_out, b_out,
@@ -978,11 +1042,12 @@ def stack_fwd_tails_plain(x, ctx, b_fg, w_fg, w_out, b_out,
 
 def stack_bwd_tails_plain(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
                           dilations: Sequence[int], every: int = 0,
-                          mm=None):
+                          mm=None, wmm=None):
     """The backward of ``stack_fwd_tails_plain``: (dx (B,T,R), dctx (B,T,R)
     or None, both in x's dtype; db_fg (L*B, 2R), dw_fg (L, W_in, 2R),
     dw_out (L, R+S), db_out (L, R+S) in float32).  ``mm`` forms the
-    products (``hl.row_products``).
+    products (``hl.row_products``), ``wmm`` the weight gradients (``mm``
+    where not given).
 
     Group by group from the top, as the kernels: each group's layer
     inputs rebuilt from its checkpoint (x for the first), then its layers
@@ -997,6 +1062,8 @@ def stack_bwd_tails_plain(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
                          f"{len(ckpt_layers(n_layers, every))} for L="
                          f"{n_layers}, every {every}")
     prod, wgrad = hl.row_products(mm)
+    if wmm is not None:
+        wgrad = hl.row_products(wmm)[1]
     bfg, ctxf = _tails_consts(x, ctx, b_fg, dilations)
     dsk = dskip.to(f32)
     dh = torch.zeros(batch, t, r, dtype=f32, device=x.device)

@@ -12,6 +12,7 @@ the gated-block kernels (``gated_block_fwd``, ``gated_block_bwd``).
         [--parent DIR] [--shapes breakdancing,exp03,exp04] [--repeats 5]
     python -m movenet_tpu_torch.utils.time_stack_bwd --recompute
         [--parent DIR] [--shapes exp02,flagship] [--repeats 5]
+        [--dtype float32] [--sass]
     python -m movenet_tpu_torch.utils.time_stack_bwd --gated
         [--parent DIR] [--shapes 64x64_d1,64x64_d512,32x8,16x8]
 
@@ -46,13 +47,22 @@ outputs compared (max difference over scale and the bit-equal share of
 each output; the loss as a relative difference, the match count as a
 difference).
 
-``--recompute`` shapes (T = 160,000, bf16, seeded random x, weights and
-dskip): exp02 (experiment 02 through the CLI: B=2, dilations (1,2,4) x
-3, R=64, S=8, flat ctx) and flagship (B=2, dilations 1..512 x 3, R=S=64,
-no ctx).  Each side's backward takes its own forward's saved tensors
-(the parent's layout may differ); the outputs are compared as above and
-said bit-equal or not.  A parent that raises at a shape is reported and
-not timed.
+``--recompute`` shapes (T = 160,000, bf16 or with ``--dtype float32``
+float32, seeded random x, ctx, weights and dskip): exp02 (experiment 02
+through the CLI: B=2, dilations (1,2,4) x 3, R=64, S=8, flat ctx) and
+flagship (B=2, dilations 1..512 x 3, R=S=64, no ctx); named only,
+flagship_r128 (B=2, dilations 1..512 x 3, R=S=128, flat ctx: the
+flagship's depth at R = S = 128) and exp02_r128 (B=2, (1,2,4) x 3, R=128,
+S=8, flat ctx).  Each side's forward and backward by call (CUDA events)
+and by grid: the weight copies, the layer kernel's launches ("rebuild /
+taps" in the backward: the rebuilt inputs and, in float32 at R = 128, the
+taps launches), the layer backward ("layer"), W_fg's and W_out's
+gradients, dx, the reductions.  Each side's backward takes its own
+forward's saved tensors (the parent's layout may differ); the outputs are
+compared as above and said bit-equal or not.  A parent that raises at a
+shape is reported and not timed.  ``--sass`` prints, per kernel of the
+built trunk library, its HGMMA (wgmma) and HMMA (mma.sync) instructions
+in ``cuobjdump -sass`` (the wide float32 recompute kernels' only).
 
 ``--gated`` shapes (T = 160,000, bf16, flat ctx, seeded random h, ctx,
 weights, dres and dskip): one block at R = S = 64, B = 2, d = 1 and d =
@@ -90,6 +100,11 @@ WIDE_SHAPES = {"probe": (2, 128, 128, (1, 2, 4) * 3, 64),
 RECOMPUTE_SHAPES = {"exp02": (2, 64, 8, (1, 2, 4) * 3, True),
                     "flagship": (2, 64, 64, tuple(2 ** i for i in range(10))
                                  * 3, False)}
+# the float32 recompute kernels' R = 128 shapes, named with --shapes only
+WIDE_RECOMPUTE_SHAPES = {
+    "flagship_r128": (2, 128, 128, tuple(2 ** i for i in range(10)) * 3,
+                      True),
+    "exp02_r128": (2, 128, 8, (1, 2, 4) * 3, True)}
 GATED_SHAPES = {"64x64_d1": (2, 64, 64, 1), "64x64_d512": (2, 64, 64, 512),
                 "32x8": (3, 32, 8, 1), "16x8": (2, 16, 8, 1)}
 T = 160_000
@@ -104,6 +119,17 @@ GRIDS = (("layer", "stack_bwd_layer_kernel"),
          ("layer forward", "stack_layer_kernel"),
          ("reductions", "reduce_kernel"),
          ("head", "stack_head_bwd_kernel"))
+# the recompute strategy's grids, forward and backward (either source's
+# kernel names)
+RECOMPUTE_GRIDS = (
+    ("weights", "stack_wt"),
+    ("rebuild / taps", "stack_layer_wg_f32_kernel|stack_layer_f32_kernel|"
+                       "stack_layer_kernel"),
+    ("layer", "stack_bwd_wg_f32_kernel|stack_bwd_layer_kernel"),
+    ("wgrad W_fg", "stack_wgrad_kernel<[047]"),
+    ("wgrad W_out", "stack_wgrad_kernel<[36]"),
+    ("dx", "stack_dx_kernel"),
+    ("reductions", "reduce_kernel"))
 # the gated-block kernels' grids (the parent's backward sweep under its
 # own name)
 GATED_GRIDS = (("forward", "gated_fwd_kernel"),
@@ -128,6 +154,42 @@ VARIANTS = {
                 '.f32 "'),),
     "one_pass": (("  if (SPLIT_A) mma_tf32(d, a.small, b.big);\n"
                   "  mma_tf32(d, a.big, b.small);\n", ""),),
+}
+# diagnostic edits of the wide float32 recompute kernels (kernels A and B,
+# csrc/stack_kernel.cu), timed with --recompute --variants: their outputs
+# are wrong by design and are not compared
+RECOMPUTE_VARIANTS = {
+    # the producers' operand-row loads left out (zeros split and stored)
+    "no_row_loads": (
+        ("            v[u] = ok ? __ldg(reinterpret_cast<const float4*>(src))"
+         "\n                      : make_float4(0.f, 0.f, 0.f, 0.f);",
+         "            v[u] = make_float4(0.f, 0.f, 0.f, 0.f);"),
+        ("            v[u] = m < m_total ? *reinterpret_cast<const float4*>(\n"
+         "                                     a.dfg + m * 2 * R + KC * c +\n"
+         "                                     4 * ((i >> 3) & 3))\n"
+         "                               : make_float4(0.f, 0.f, 0.f, 0.f);",
+         "            v[u] = make_float4(0.f, 0.f, 0.f, 0.f);")),
+    # the weight images' bulk copies left out (the stages' B images stale)
+    "no_weight_copies": (
+        ("        mbar_arrive_tx(full + pos.stage, rows * KC * 8);\n"
+         "        bulk_g2s(ring + pos.stage * Sh::kStage + 2 * Sh::kA, src,\n"
+         "                 rows * KC * 8, full + pos.stage);",
+         "        mbar_arrive(full + pos.stage);"),
+        ("        mbar_arrive_tx(full + pos.stage, b_bytes);\n"
+         "        bulk_g2s(st + 2 * Sh::kA, b_src, b_bytes, full + pos.stage);",
+         "        mbar_arrive(full + pos.stage);")),
+    # no wgmma issued (the loads, splits, stores, barriers and epilogues)
+    "no_wgmma": (
+        ("    wgmma_tf32<N>(t, desc_add(as, o), desc_add(bb, o), zero && s == 0 "
+         "? 0 : 1);\n    wgmma_tf32<N>(t, desc_add(ab, o), desc_add(bs, o), 1);"
+         "\n    wgmma_tf32<N>(t, desc_add(ab, o), desc_add(bb, o), 1);", ""),),
+    # one pass (big * big) in place of the split's three
+    "one_pass": (
+        ("    wgmma_tf32<N>(t, desc_add(as, o), desc_add(bb, o), zero && s == 0 "
+         "? 0 : 1);\n    wgmma_tf32<N>(t, desc_add(ab, o), desc_add(bs, o), 1);"
+         "\n    wgmma_tf32<N>(t, desc_add(ab, o), desc_add(bb, o), 1);",
+         "    wgmma_tf32<N>(t, desc_add(ab, o), desc_add(bb, o), "
+         "zero && s == 0 ? 0 : 1);"),),
 }
 GATED_VARIANTS = {
     # blocks of 16 warps at R >= 32 (a 16-row m tile a warp)
@@ -271,13 +333,18 @@ def parent_gated_kernels(parent: Path):
 
 
 def inlined_source(name: str) -> str:
-    """``csrc/<name>.cu`` with the split-TF32 header inlined, so that a
-    variant's edit may reach its helpers."""
+    """``csrc/<name>.cu`` with the split-TF32 headers inlined
+    (``mma_tf32.cuh``, and ``wgmma_tf32.cuh`` where it is included), so
+    that a variant's edit may reach their helpers."""
     from movenet_tpu_torch.ops.cuda import build
 
-    header = (build.CSRC / "mma_tf32.cuh").read_text()
+    mma = (build.CSRC / "mma_tf32.cuh").read_text().replace(
+        "#pragma once\n", "")
+    wg = (build.CSRC / "wgmma_tf32.cuh").read_text().replace(
+        "#pragma once\n", "").replace('#include "mma_tf32.cuh"\n', "")
     return (build.CSRC / f"{name}.cu").read_text().replace(
-        '#include "mma_tf32.cuh"\n', header.replace("#pragma once\n", ""))
+        '#include "mma_tf32.cuh"\n', mma).replace(
+        '#include "wgmma_tf32.cuh"\n', wg)
 
 
 def apply_edits(text: str, name: str, edits) -> str:
@@ -408,11 +475,12 @@ def head_inputs(torch, seed: int = 0, c: int = 64):
             True)
 
 
-def recompute_inputs(torch, name: str, seed: int = 0):
+def recompute_inputs(torch, name: str, seed: int = 0, dtype=None):
     """(forward args (x, ctx, b_fg, w_fg, w_out, b_out, dilations), dskip)
-    of the recompute kernels at shape ``name``."""
-    b, r, s, dil, has_ctx = RECOMPUTE_SHAPES[name]
-    n, bf = len(dil), torch.bfloat16
+    of the recompute kernels at shape ``name``, the activations in ``dtype``
+    (bf16 by default)."""
+    b, r, s, dil, has_ctx = {**RECOMPUTE_SHAPES, **WIDE_RECOMPUTE_SHAPES}[name]
+    n, bf = len(dil), dtype or torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape, scale=1.0):
@@ -524,12 +592,15 @@ def time_merged_bwd(torch, lib, old, repeats: int, card: str) -> None:
 
 
 def time_recompute(torch, lib, old, name: str, repeats: int,
-                   card: str) -> None:
-    """Print the recompute forward's and backward's times at ``name``
-    (against ``old`` = (library, wrapper module) of another source)."""
+                   card: str, dtype=None, variants=None) -> None:
+    """Print the recompute forward's and backward's times at ``name``, the
+    activations in ``dtype`` (against ``old`` = (library, wrapper module) of
+    another source; ``variants``: {name: library} of RECOMPUTE_VARIANTS,
+    each timed by call and by grid, not compared)."""
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
 
-    fargs, dskip = recompute_inputs(torch, name)
+    fargs, dskip = recompute_inputs(torch, name, dtype=dtype)
+    name = f"{name} {str(fargs[0].dtype).split('.')[-1]}"
     st = ks._stream(fargs[0])
     sides = {"this": (lib, ks)}
     if old is not None:
@@ -565,8 +636,48 @@ def time_recompute(torch, lib, old, name: str, repeats: int,
                         for u, v in zip(new, old_out))
             line += (f"; bit-equal to the parent: {equal}; "
                      + diff_text(names[kind], new, old_out))
-        print(f"{line}; {grid_text(torch, by_side['this'])}; {card}",
-              flush=True)
+        for side, fn in by_side.items():
+            grids = by_grid(torch, fn, RECOMPUTE_GRIDS)
+            line += f"; by grid ({side}) " + ", ".join(
+                f"{k} {v:.3f}" for k, v in grids.items() if v > 0) \
+                + f" (device {sum(grids.values()):.3f} ms)"
+        print(f"{line}; {card}", flush=True)
+    for vname, vlib in (variants or {}).items():
+        saved = ks.run_fwd_tails(vlib, *fargs, stream=st)[1]
+        for kind, fn in (
+                ("fwd", lambda: ks.run_fwd_tails(vlib, *fargs, stream=st)),
+                ("bwd", lambda: ks.run_bwd_tails(
+                    vlib, fargs[0], saved, *fargs[1:-1], dskip, fargs[-1],
+                    stream=st))):
+            grids = by_grid(torch, fn, RECOMPUTE_GRIDS)
+            print(f"stack_{kind}_tails {name} variant {vname}: "
+                  f"{events_ms(torch, fn, repeats):.3f} ms; by grid "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in grids.items()
+                              if v > 0) + f"; {card}", flush=True)
+
+
+def sass_counts(path) -> dict:
+    """{kernel (mangled name): (HGMMA, HMMA, local-memory instructions)}
+    of a built library, from ``cuobjdump -sass``: wgmma issues HGMMA,
+    mma.sync HMMA, register spills LDL and STL."""
+    from movenet_tpu_torch.ops.cuda import build
+
+    tool = str(Path(build.nvcc_path()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0, 0]
+        elif name and "HGMMA" in line:
+            out[name][0] += 1
+        elif name and "HMMA" in line:
+            out[name][1] += 1
+        elif name and re.search(r"\b(LDL|STL)\b", line):
+            out[name][2] += 1
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def time_forward(torch, lib, old, name: str, repeats: int, card: str,
@@ -682,6 +793,9 @@ def main(argv=None) -> None:
                     help="time the diagnostic builds too (all, or those "
                     "named, comma-separated)")
     ap.add_argument("--recompute", action="store_true")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    ap.add_argument("--sass", action="store_true")
     ap.add_argument("--forward", action="store_true")
     ap.add_argument("--gated", action="store_true")
     args = ap.parse_args(argv)
@@ -702,12 +816,23 @@ def main(argv=None) -> None:
             time_gated(torch, old, name, args.repeats, card, variants)
         return
     lib = ks.library()
+    if args.sass:
+        from movenet_tpu_torch.ops.cuda import build
+
+        for kernel, (hg, hm, loc) in sass_counts(
+                build.build(["stack_kernel"])["stack_kernel"]).items():
+            if "wg_f32" in kernel:
+                print(f"sass {kernel}: {hg} HGMMA, {hm} HMMA, {loc} "
+                      "local-memory instructions", flush=True)
     old = parent_kernels(args.parent) if args.parent else None
     if args.recompute:
+        variants = variant_kernels(RECOMPUTE_VARIANTS, names) \
+            if args.variants is not None else {}
         shapes = args.shapes if args.shapes != ",".join(SHAPES) \
             else ",".join(RECOMPUTE_SHAPES)
         for name in shapes.split(","):
-            time_recompute(torch, lib, old, name, args.repeats, card)
+            time_recompute(torch, lib, old, name, args.repeats, card,
+                           getattr(torch, args.dtype), variants)
         return
     if args.forward:
         variants = variant_kernels(FWD_VARIANTS, names) \

@@ -198,15 +198,17 @@ def test_save_fwd_in_float64_is_the_same_forward():
 
 def test_time_stack_bwd_variant_edits_apply():
     """Each diagnostic edit of the timing tool applies once to the
-    kernel source it builds (the split-TF32 header inlined), as the tool
-    requires: the trunk's edits to stack_kernel.cu, the gated block's to
-    gated_block.cu."""
+    kernel source it builds (the split-TF32 headers inlined), as the tool
+    requires: the trunk's edits to stack_kernel.cu (the wide float32
+    recompute kernels' among them), the gated block's to gated_block.cu."""
     from movenet_tpu_torch.utils import time_stack_bwd as tsb
 
-    for source, tables in (("stack_kernel", (tsb.VARIANTS, tsb.FWD_VARIANTS)),
+    for source, tables in (("stack_kernel", (tsb.VARIANTS, tsb.FWD_VARIANTS,
+                                             tsb.RECOMPUTE_VARIANTS)),
                            ("gated_block", (tsb.GATED_VARIANTS,))):
         src = tsb.inlined_source(source)
         assert '#include "mma_tf32.cuh"' not in src
+        assert '#include "wgmma_tf32.cuh"' not in src
         for table in tables:
             for name, edits in table.items():
                 text = src
