@@ -1162,11 +1162,17 @@ def bwd_smem_note(lib, kernel: str) -> str:
         return (f"; dynamic shared memory "
                 f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -1 - form)}"
                 f" bytes (win = 3R)")
-    m = re.match(r"stack_bwd_wg_f32_kernel<(\d+),(\d+),\d>$", kernel)
+    m = re.match(r"stack_bwd_wg_kernel<(\d+),(\d+),\d,([0-3])>$", kernel)
     if m:
-        r, s_ = (int(x) for x in m.groups())
+        r, s_, form = (int(x) for x in m.groups())
         return (f"; dynamic shared memory "
-                f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -4)} bytes")
+                f"{lib.movenet_stack_bwd_smem(r, s_, 3 * r, -1 - form)}"
+                " bytes")
+    m = re.match(r"stack_wgrad_wg_kernel<([07]),(\d+),(\d+),(\d+)>$", kernel)
+    if m:
+        mode, r, s_, ka = (int(x) for x in m.groups())
+        return (f"; dynamic shared memory "
+                f"{lib.movenet_stack_bwd_smem(r, s_, ka, mode)} bytes")
     m = re.match(r"stack_rebuild_kernel<(\d+)>$", kernel)
     if m:
         r = int(m.group(1))
@@ -1209,18 +1215,26 @@ def ring_smem_report() -> None:
 
 
 def wgmma_sass_report(path) -> None:
-    """The wide float32 recompute kernels' HGMMA (wgmma) and HMMA
-    (mma.sync) instructions in the built library's SASS: each issues
-    wgmma."""
+    """The wgmma kernels' HGMMA (wgmma) and HMMA (mma.sync) instructions in
+    the built library's SASS: the wide float32 recompute kernels (kernel A,
+    2 instances; kernel B, stack_bwd_wg_kernel's float32 form, 4), the wide
+    bf16 layer backwards (its forms 0 and 1, 8) and W_fg's gradient on
+    wgmma (modes 0 and 7, 8): each issues wgmma, and no wide mma.sync layer
+    backward nor R = 128 mma.sync W_fg gradient (modes 0, 7) is built."""
     from movenet_tpu_torch.utils.time_stack_bwd import sass_counts
 
-    wide = {kernel_name(k): v for k, v in sass_counts(path).items()
-            if "wg_f32" in k}
+    counts = {kernel_name(k): v for k, v in sass_counts(path).items()}
+    wide = {k: v for k, v in counts.items()
+            if re.match(r"stack_(layer_wg_f32|bwd_wg|wgrad_wg)_kernel<", k)}
     for kernel, (hg, hm, loc) in sorted(wide.items()):
         print(f"  sass {kernel}: {hg} HGMMA, {hm} HMMA, {loc} local-memory "
               "instructions", flush=True)
-    check(len(wide) == 6 and all(v[0] > 0 for v in wide.values()),
-          f"the wide float32 kernels' SASS: {wide}")
+    check(len(wide) == 22 and all(v[0] > 0 for v in wide.values()),
+          f"the wgmma kernels' SASS: {wide}")
+    old = [k for k in counts
+           if re.match(r"stack_bwd_layer_kernel<128,|"
+                       r"stack_wgrad_kernel<[07],128,", k)]
+    check(not old, f"the old wide mma.sync kernels are built: {old}")
 
 
 def grid_line(label: str, by: dict) -> str:
@@ -3217,9 +3231,11 @@ TRUNK_REPLAY_BARS = {"bf16": {"fwd": 2e-2, "bwd": 1e-3, "act": 2e-2},
                      "f32": {"fwd": F32_BARS["fwd"], "bwd": F32_BARS["bwd"],
                              "act": F32_BARS["bwd"]}}
 # the grids of its backward at the flagship's shapes
-TRUNK_REPLAY_GRIDS = (("rebuild", "stack_rebuild"),
-                      ("layer", "stack_bwd_layer_kernel"),
-                      ("wgrad W_fg", "stack_wgrad_kernel<[047]"),
+TRUNK_REPLAY_GRIDS = (("weights", "stack_wt"),
+                      ("rebuild", "stack_rebuild"),
+                      ("layer", "stack_bwd_layer_kernel|stack_bwd_wg_kernel"),
+                      ("wgrad W_fg",
+                       "stack_wgrad_kernel<[047]|stack_wgrad_wg_kernel"),
                       ("wgrad W_out", "stack_wgrad_kernel<[16]"),
                       ("dx", "stack_dx_kernel"),
                       ("reductions", "reduce_kernel"))
@@ -4547,11 +4563,14 @@ FLAGSHIP_R128_FLAGS = [("128" if v == "64" else v) for v in FLAGSHIP_FLAGS]
 WIDE_TAILS_SHAPES = {
     FLAGSHIP_R128_TAG: (2, tuple(2 ** i for i in range(10)) * 3, 128, 128),
     EXP02_R128_TAG: (2, (1, 2, 4) * 3, 128, 8)}
-# the grids of its recompute backward at the flagship's depth
-WIDE_TAILS_GRIDS = (("weights", "stack_wt_kernel"),
-                    ("rebuild", "stack_layer_kernel"),
-                    ("layer", "stack_bwd_layer_kernel"),
-                    ("wgrad W_fg", "stack_wgrad_kernel<0"),
+# the grids of its recompute backward at the flagship's depth: the weight
+# copies (bf16, and the layer launches' TF32 images), the wide forward's
+# rebuilds and taps launches, the layer launches (kernel B's block in its
+# bf16 recompute form) and W_fg's gradient on wgmma
+WIDE_TAILS_GRIDS = (("weights", "stack_wt"),
+                    ("rebuilds and taps", "stack_layer_kernel"),
+                    ("layer", "stack_bwd_wg_kernel"),
+                    ("wgrad W_fg", "stack_wgrad_wg_kernel<0"),
                     ("wgrad W_out", "stack_wgrad_kernel<3"),
                     ("dx", "stack_dx_kernel"),
                     ("reductions", "reduce_kernel"))
@@ -4766,7 +4785,7 @@ WIDE_F32_HEADS = ((128, 256, 2), (128, 64, 2))
 # launches are the forward's kernel, as the rebuilds
 WIDE_F32_GRIDS = (("weights", "stack_wt_split_kernel"),
                   ("rebuilds and taps", "stack_layer_wg_f32_kernel"),
-                  ("layer", "stack_bwd_wg_f32_kernel"),
+                  ("layer", "stack_bwd_wg_kernel"),
                   ("wgrad W_fg", "stack_wgrad_kernel<4"),
                   ("wgrad W_out", "stack_wgrad_kernel<6"),
                   ("dx", "stack_dx_kernel"),

@@ -26,8 +26,9 @@
 // float32 save forward" below).  The bf16 save, recompute and replay forms
 // also run at R = 128 (MOVENET_WIDE_WIDTHS), their weights streamed through
 // shared memory: see "the wide save forms" and "the wide recompute forms";
-// the float32 recompute forms there run on wgmma: "the wide float32
-// recompute kernels".
+// the float32 recompute forms there, and every backward's layer launch and
+// the bf16 forms' W_fg gradient, run on wgmma: "the wide float32 recompute
+// kernels".
 //
 // Design.  The TPU runs a (batch, time tile) grid in order and carries the
 // dilation rings and the weight-gradient sums from one grid step to the
@@ -89,8 +90,10 @@
 // The save backward's take float32 operands, as the TPU kernel's
 // (stack_kernel.py:199 _BWD_OPERAND_DT, a multi-pass MXU product there);
 // here they run on the tensor cores as split-TF32 mma.sync (m16n8k8,
-// float32 sums; see "backward" below): the layer launch's dgated = [dh |
-// dskip] W_out^T and dfg_w = dfg W_fg^T in three passes, the weight
+// float32 sums; see "backward" below; at R = 128 the layer launch and
+// W_fg's gradient as split-TF32 wgmma, "the wide layer backwards on
+// wgmma"): the layer launch's dgated = [dh | dskip] W_out^T and dfg_w =
+// dfg W_fg^T in three passes, the weight
 // gradients dW_out = gated^T [dh | dskip] in three and dW_fg = [hsave |
 // hsave(t-d) | ctx]^T dfg and dW_up = xc^T dctx in two.  Every warp walks
 // its rows and k in a fixed order: two calls give the same bits.  The
@@ -242,6 +245,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
+// 8 bytes (zero where not valid), through L1
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -309,16 +320,17 @@ struct BwdLayerArgs {
 };
 
 // The widest R of the layouts below and of the forward's; wider trunks
-// (R = 128) run the wide save forms, whose weights stream through shared
-// memory (see "the wide save forms").
+// (R = 128) run the wide forms, whose weights stream through shared memory
+// (see "the wide save forms"; the wide layer backwards and W_fg's gradient
+// there run on wgmma, "the wide layer backwards on wgmma").
 constexpr int kNarrowR = 64;
 
 // Each SM runs two tile pipelines of 8 warps, so that one pipeline's
 // loads and stores overlap the other's products: at R = 64 two halves of
 // one 512-thread block (the weights staged once in shared memory for
 // both), each walking 32-row tiles with a barrier of its own; at R <= 32
-// two 256-thread blocks of 64-row tiles.  The wide form (R > kNarrowR):
-// one 256-thread block an SM on 64-row tiles (WideBwd).
+// two 256-thread blocks of 64-row tiles.  The wide widths (R > kNarrowR)
+// run stack_bwd_wg_kernel (WgF32Bwd's block) in every form.
 template <int R, int S>
 struct BwdShape {
   static constexpr int kHalves = R == 64 ? 2 : 1;   // pipelines per block
@@ -361,47 +373,16 @@ struct BwdShape {
   static size_t smem_rcf32(int win);
 };
 
-// The wide save backward's block (R > kNarrowR): 8 warps on 64-row tiles,
-// one block an SM.  Its shared memory: the tile's [dh | dskip] rows dd
-// (kRows, kLdd) and dfg rows ff (kRows, kLdf), float32 (the taps widened
-// into ff first), then a ring of two weight slabs of kSw rows (W_out's,
-// k = R+S, row stride kLdd; or W_fg's, k = 2R, stride kLdf), float32 as
-// the weights lie in global memory.  Row strides of 4 mod 8 floats, as
-// BwdShape's.  The recompute form (kBwdRc): the tile's bf16 operand rows
-// [h | h(t-d) | ctx] (kRows, kLdh) lie in dd's bytes (kDd of them, the
-// larger of the two) until fg is formed again from them in kFp passes, each
-// over a ring slab of W_fg^T's bf16 rows for kNc filter columns and their
-// kNc gate columns (2 kNc, kLdh); tf and sg (float32) take the places of
-// the taps in ff.
 template <int R, int S>
-struct WideBwd {
-  static constexpr int kRows = 64, kSw = 32, kThreads = 256;
-  static constexpr int kNo = R + S, kLdd = kNo + 4, kLdf = 2 * R + 4;
-  static constexpr int kLds = kLdd > kLdf ? kLdd : kLdf;
-  static constexpr size_t kBytes =
-      static_cast<size_t>(kRows * (kLdd + kLdf) + 2 * kSw * kLds) * 4;
-  static constexpr int kNc = 16, kFp = R / kNc, kLdh = 3 * R + 8;
-  static constexpr size_t kDd =
-      static_cast<size_t>(kRows) * kLdd * 4 >
-              static_cast<size_t>(kRows) * kLdh * 2
-          ? static_cast<size_t>(kRows) * kLdd * 4
-          : static_cast<size_t>(kRows) * kLdh * 2;
-  static constexpr size_t kBytesRc =
-      kDd + static_cast<size_t>(kRows * kLdf + 2 * kSw * kLds) * 4;
-  static_assert(2 * kNc * kLdh * 2 <= kSw * kLds * 4,
-                "a W_fg^T slab fits a ring slot");
-};
+struct WgF32Bwd;
 
 template <int R, int S>
 size_t BwdShape<R, S>::smem(int win) {
   if constexpr (R > kNarrowR)
-    return WideBwd<R, S>::kBytes;
+    return WgF32Bwd<R, S>::kEnd;
   else
     return static_cast<size_t>(R * kLdd + win * kLdf) * 4 + kHalves * kTile;
 }
-
-template <int R, int S>
-struct WgF32Bwd;
 
 template <int R, int S>
 size_t BwdShape<R, S>::smem_rcf32(int win) {
@@ -414,7 +395,7 @@ size_t BwdShape<R, S>::smem_rcf32(int win) {
 template <int R, int S>
 size_t BwdShape<R, S>::smem_rc(int win) {
   if constexpr (R > kNarrowR)
-    return WideBwd<R, S>::kBytesRc;
+    return WgF32Bwd<R, S>::kEnd;
   else
     return static_cast<size_t>(R * kLdd + win * kLdf) * 4 +
            kHalves * kTileRc;
@@ -522,291 +503,6 @@ __device__ __forceinline__ void bwd_fetch(const BwdLayerArgs& a, long m0,
   }
 }
 
-// One layer of the wide save backward (R > kNarrowR; "the wide save forms"
-// below): the narrow form's products, operands and sums, the weights
-// streamed.  Persistent blocks walk 64-row tiles.  Per tile: dh (the layer
-// above's dh + dfg_w_h, plus its carry dfg_w_p(t + d)) and dskip into dd,
-// dh to global memory, the taps widened into ff; then the steps, each on
-// one weight slab while the next arrives: dgated over the R / kSw slabs of
-// W_out (each warp 16 rows by 16 of the slab's columns; dfg from the taps
-// overwrites them in ff), then dfg to global memory and dfg_w over the
-// W_in / kSw slabs of W_fg (the same split; the dh part into dhp, the past
-// part into p_out, the ctx part into dctx).
-// RC: the recompute form (stack_bwd_tails; the narrow kBwdRc at R = 128).
-// The tile's operand rows [h | h(t-d) | ctx] (bf16) arrive by cp.async in
-// dd's bytes, and kFp steps come first, each over a slab of W_fg^T's bf16
-// rows (a.wt) for kNc filter columns and their gate columns: each warp
-// forms fg again for its 16 rows and 8 of the filter columns with their
-// gate columns through fg_mma, as the forward's passes sum it (so the same
-// bits), and puts tf and sg (float32) where the taps go in ff and gated =
-// tf * sg (float32) in global memory for the W_out gradient (MODE 3).
-// dh and dskip take dd's bytes once every warp is done with the operand
-// rows; the steps after are the save form's.
-// The float32 recompute form at R = 128 is kernel B ("the wide float32
-// recompute kernels").
-template <int R, int S, int FORM>
-__device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
-  constexpr bool RC = FORM == kBwdRc;
-  using W = WideBwd<R, S>;
-  constexpr int ROWS = W::kRows, SW = W::kSw, NO = W::kNo, THREADS = W::kThreads;
-  constexpr int LDD = W::kLdd, LDF = W::kLdf, LDS = W::kLds;
-  constexpr int NC = W::kNc, LDH = W::kLdh, FP = RC ? W::kFp : 0;
-  static_assert(R % SW == 0 && S % 4 == 0, "whole slabs and float4 rows");
-  const int win = a.win;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dd = reinterpret_cast<float*>(smem);   // (ROWS, LDD) [dh | dskip]
-  bf16_t* hq = reinterpret_cast<bf16_t*>(smem);   // RC: (ROWS, LDH) operands
-  float* ff = reinterpret_cast<float*>(             // (ROWS, LDF) taps, dfg
-      smem + (RC ? W::kDd : static_cast<size_t>(ROWS) * LDD * 4));
-  float* ring = ff + ROWS * LDF;                  // (2, SW, LDS) weights
-  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2;
-  const int q = tid & 3;
-  const int r0 = 16 * (warp & 3), n0 = 16 * (warp >> 2);
-  const int n_out = R / SW, n_steps = FP + n_out + win / SW;
-  const bool ctx_sum = a.dctx != nullptr && !a.top;
-  const long n_tiles = (a.m_total + ROWS - 1) / ROWS;
-
-  // slab j of a tile: RC's fg pass j (W_fg^T's bf16 rows of its NC filter
-  // columns, then their gate columns), W_out's rows [SW jo, + SW), or W_fg's
-  // [SW (jo - n_out), + SW), jo = j - FP
-  auto load_slab = [&](int j, float* dst) {
-    const int jo = j - FP;
-    if (j < FP) {
-      bf16_t* db = reinterpret_cast<bf16_t*>(dst);
-      const int per_row = win / 8;
-      for (int i = tid; i < 2 * NC * per_row; i += THREADS) {
-        const int row = i / per_row, c8 = 8 * (i % per_row);
-        const int col = row < NC ? NC * j + row : R + NC * j + row - NC;
-        cp_async16(db + row * LDH + c8,
-                   a.wt + static_cast<long>(col) * win + c8, true);
-      }
-    } else if (jo < n_out) {
-      for (int i = tid; i < SW * (NO / 4); i += THREADS) {
-        const int row = i / (NO / 4), c4 = 4 * (i % (NO / 4));
-        cp_async16(dst + row * LDD + c4,
-                   a.w_out + static_cast<long>(SW * jo + row) * NO + c4, true);
-      }
-    } else {
-      for (int i = tid; i < SW * (R / 2); i += THREADS) {
-        const int row = i / (R / 2), c4 = 4 * (i % (R / 2));
-        cp_async16(dst + row * LDF + c4,
-                   a.w_fg + static_cast<long>(SW * (jo - n_out) + row) * 2 * R +
-                       c4,
-                   true);
-      }
-    }
-  };
-  // the tile's dh (to global memory too) and dskip into dd; the save
-  // form's taps widened into ff
-  auto fill = [&](long m0) {
-    for (int i = tid; i < ROWS * (R / 4); i += THREADS) {
-      const int row = i / (R / 4), j0 = 4 * (i % (R / 4));
-      const long m = m0 + row;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      float tf[4] = {0.f, 0.f, 0.f, 0.f}, sg[4] = {0.f, 0.f, 0.f, 0.f};
-      if (m < a.m_total) {
-        if (!a.top) {
-          v = *reinterpret_cast<const float4*>(a.dhp + m * R + j0);
-          if (static_cast<int>(m % a.t_len) + a.d_in < a.t_len) {
-            const float4 c = *reinterpret_cast<const float4*>(
-                a.p_in + (m + a.d_in) * R + j0);
-            v = make_float4(v.x + c.x, v.y + c.y, v.z + c.z, v.w + c.w);
-          }
-        }
-        *reinterpret_cast<float4*>(a.dh + m * R + j0) = v;
-        if (!RC) {
-          load4(a.tfsg + m * 2 * R + j0, tf);
-          load4(a.tfsg + m * 2 * R + R + j0, sg);
-        }
-      }
-      *reinterpret_cast<float4*>(dd + row * LDD + j0) = v;
-      if (!RC) {
-        *reinterpret_cast<float4*>(ff + row * LDF + j0) =
-            make_float4(tf[0], tf[1], tf[2], tf[3]);
-        *reinterpret_cast<float4*>(ff + row * LDF + R + j0) =
-            make_float4(sg[0], sg[1], sg[2], sg[3]);
-      }
-    }
-    for (int i = tid; i < ROWS * (S / 4); i += THREADS) {
-      const int row = i / (S / 4), j0 = 4 * (i % (S / 4));
-      const long m = m0 + row;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (m < a.m_total) {
-        if (a.dskip_f) {
-          const float4 u =
-              *reinterpret_cast<const float4*>(a.dskip_f + m * S + j0);
-          v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
-        } else {
-          load4(a.dskip + m * S + j0, v);
-        }
-      }
-      *reinterpret_cast<float4*>(dd + row * LDD + R + j0) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
-  };
-  int ring_i = 0;   // ring slot of the current slab
-  if (blockIdx.x < n_tiles) load_slab(0, ring);
-  cp_async_commit();
-  for (long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
-    const long m0 = tile_i * ROWS, next = tile_i + gridDim.x;
-    __syncthreads();   // every warp is done with the last tile's rows
-    if constexpr (RC) {
-      stage_operands<R, LDH, ROWS, THREADS>(hq, a.hs, a.cx, m0, a.m_total,
-                                            a.t_len, a.d, win / 8);
-      cp_async_commit();
-    } else {
-      fill(m0);
-    }
-    for (int j = 0; j < n_steps; ++j) {
-      cp_async_wait<0>();
-      __syncthreads();   // slab j and the tile's rows, for every warp
-      float* nb = ring + ((ring_i + 1) & 1) * SW * LDS;
-      if (j + 1 < n_steps)
-        load_slab(j + 1, nb);
-      else if (next < n_tiles)
-        load_slab(0, nb);
-      cp_async_commit();
-      const float* w = ring + (ring_i & 1) * SW * LDS;
-      ++ring_i;
-      if (RC && j < FP) {
-        // fg again for the warp's 16 rows, filter n tile warp / 4 of the
-        // pass and its gate tile; tf and sg into ff, gated out
-        const bf16_t* wb = reinterpret_cast<const bf16_t*>(w);
-        const int half = warp >> 2;
-        float fg[2][4];
-        fg_mma<2, LDH>(fg, hq, r0, win, [&](int kk, int jj, unsigned* b) {
-          const bf16_t* bp =
-              wb + (NC * jj + 8 * half + g) * LDH + 16 * kk + 2 * q;
-          b[0] = ld32(bp);
-          b[1] = ld32(bp + 8);
-        });
-        const int c = NC * j + 8 * half + 2 * q;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = r0 + g + 8 * e;
-          const long m = m0 + row;
-          const float* bf =
-              a.b_fg + (m < a.m_total ? m / a.t_len : 0) * 2 * R;
-          float tf[2], sg[2];
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            tf[k] = tanhf(fg[0][2 * e + k] + __ldg(bf + c + k));
-            sg[k] = sigmoidf(fg[1][2 * e + k] + __ldg(bf + R + c + k));
-          }
-          *reinterpret_cast<float2*>(ff + row * LDF + c) =
-              make_float2(tf[0], tf[1]);
-          *reinterpret_cast<float2*>(ff + row * LDF + R + c) =
-              make_float2(sg[0], sg[1]);
-          if (m < a.m_total)
-            *reinterpret_cast<float2*>(a.gated + m * R + c) =
-                make_float2(tf[0] * sg[0], tf[1] * sg[1]);
-        }
-        continue;
-      }
-      const int jo = j - FP;
-      if (RC && jo == 0) {
-        // every warp is done with the operand rows: dh and dskip take
-        // their bytes
-        fill(m0);
-        __syncthreads();
-      }
-      float acc[2][4] = {};
-      if (jo < n_out) {
-        // dgated = [dh | dskip] W_out^T (3 passes) for the warp's columns
-#pragma unroll 2
-        for (int k0 = 0; k0 < NO; k0 += 8) {
-          Frag<4> fa;
-          load_a_rows<true>(dd + r0 * LDD + k0, LDD, fa);
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            Frag<2> fb;
-            load_b_cols(w + (n0 + 8 * jj) * LDD + k0, LDD, fb);
-            mma_split<true>(acc[jj], fa, fb);
-          }
-        }
-        // dfg from the taps at the same places
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int c = SW * jo + n0 + 8 * jj + 2 * q;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float* fp = ff + (r0 + g + 8 * e) * LDF + c;
-            const float2 tw = *reinterpret_cast<const float2*>(fp);
-            const float2 sw = *reinterpret_cast<const float2*>(fp + R);
-            const float tf[2] = {tw.x, tw.y}, sg[2] = {sw.x, sw.y};
-            float df[2], dq[2];
-#pragma unroll
-            for (int k = 0; k < 2; ++k) {
-              const float dg = acc[jj][2 * e + k];
-              df[k] = dg * (sg[k] * (1.f - tf[k] * tf[k]));
-              dq[k] = dg * (tf[k] * (sg[k] - sg[k] * sg[k]));
-            }
-            *reinterpret_cast<float2*>(fp) = make_float2(df[0], df[1]);
-            *reinterpret_cast<float2*>(fp + R) = make_float2(dq[0], dq[1]);
-          }
-        }
-        continue;
-      }
-      if (jo == n_out) {
-        // dfg is whole: to global memory for the W_fg gradient
-        for (int i = tid; i < ROWS * (R / 2); i += THREADS) {
-          const int row = i / (R / 2), j0 = 4 * (i % (R / 2));
-          const long m = m0 + row;
-          if (m < a.m_total)
-            *reinterpret_cast<float4*>(a.dfg + m * 2 * R + j0) =
-                *reinterpret_cast<const float4*>(ff + row * LDF + j0);
-        }
-      }
-      // dfg_w = dfg W_fg^T (3 passes) for the warp's W_in columns
-#pragma unroll 2
-      for (int k0 = 0; k0 < 2 * R; k0 += 8) {
-        Frag<4> fa;
-        load_a_rows<true>(ff + r0 * LDF + k0, LDF, fa);
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          Frag<2> fb;
-          load_b_cols(w + (n0 + 8 * jj) * LDF + k0, LDF, fb);
-          mma_split<true>(acc[jj], fa, fb);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int cw = SW * (jo - n_out) + n0 + 8 * jj + 2 * q;
-        const int p = cw / R, c = cw % R;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = r0 + g + 8 * e;
-          const long m = m0 + row;
-          if (m >= a.m_total) continue;
-          const float x0 = acc[jj][2 * e], x1 = acc[jj][2 * e + 1];
-          if (p == 0) {
-            const float2 d =
-                *reinterpret_cast<const float2*>(dd + row * LDD + c);
-            *reinterpret_cast<float2*>(a.dhp + m * R + c) =
-                make_float2(d.x + x0, d.y + x1);
-          } else if (p == 1) {
-            *reinterpret_cast<float2*>(a.p_out + m * R + c) =
-                make_float2(x0, x1);
-          } else {
-            float2 y = make_float2(x0, x1);
-            if (ctx_sum) {
-              const float2 o =
-                  *reinterpret_cast<const float2*>(a.dctx + m * R + c);
-              y = make_float2(o.x + x0, o.y + x1);
-            }
-            if (a.dctx_bf)
-              *reinterpret_cast<unsigned*>(a.dctx_bf + m * R + c) =
-                  pack2(y.x, y.y);
-            else
-              *reinterpret_cast<float2*>(a.dctx + m * R + c) = y;
-          }
-        }
-      }
-    }
-  }  // tiles
-  cp_async_wait<0>();
-}
-
 // Persistent blocks walk the tiles (pipeline h of block b takes tiles
 // b * halves + h, then every gridDim.x * halves-th); the next tile's
 // inputs are loaded into registers while this one computes.  A
@@ -827,18 +523,13 @@ __device__ __forceinline__ void save_wide_bwd(const BwdLayerArgs& a) {
 // bytes of its [dh | dskip] and dfg rows; each warp forms fg for its dgated
 // columns as split-TF32 mma.sync from W_fg in shared memory (its float32
 // values), keeps tf and sg in registers as kBwdRc does, and after a barrier
-// the tile's dh and dskip take those bytes.  At R > kNarrowR the forms run
-// save_wide_bwd: kBwdSave and kBwdRc; kBwdRcF32 there is kernel B.
+// the tile's dh and dskip take those bytes.  At R > kNarrowR every form
+// runs stack_bwd_wg_kernel ("the wide layer backwards on wgmma").
 template <int R, int S, int FORM>
 __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
                                   BwdShape<R, S>::kHalves == 2 ? 1 : 2)
     stack_bwd_layer_kernel(BwdLayerArgs a) {
-  if constexpr (R > kNarrowR) {
-  static_assert(FORM == kBwdSave || FORM == kBwdRc,
-                "the wide forms are the bf16 save and recompute forms; the "
-                "float32 recompute form is kernel B");
-  save_wide_bwd<R, S, FORM>(a);
-  } else {
+  static_assert(R <= kNarrowR, "the wide widths run stack_bwd_wg_kernel");
   using Sh = BwdShape<R, S>;
   using Regs = BwdTileRegs<R, S, FORM>;
   constexpr bool RC = FORM == kBwdRc, F32 = FORM == kBwdF32;
@@ -1157,7 +848,6 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
     }
   }
   }  // tiles
-  }
 }
 
 // Weight gradients over time, C = sum_rows A^T B and colsum(B), in
@@ -1180,7 +870,9 @@ __global__ void __launch_bounds__(BwdShape<R, S>::kThreads,
 // The float32 modes (4-7) sum each 8-row k step from zero and add it in
 // float32 (mma_split_add): a sum over a block's thousands of rows in the
 // tensor core's own accumulation drifts by 1e-4 of the result.  Loads move
-// 8 bf16 or 4 floats at a time; shapes are template constants.
+// 8 bf16 or 4 floats at a time; shapes are template constants.  At the wide
+// widths (R > kNarrowR) MODES 0 and 7 run stack_wgrad_wg_kernel on wgmma
+// ("W_fg's gradient on wgmma"); these launches take the others.
 struct WgradArgs {
   const bf16_t* hs;
   const bf16_t* ctx;
@@ -1339,11 +1031,11 @@ struct WgShape {
   // row strides of 8 mod 16 floats: conflict-free k-major fragments
   static constexpr int kLda = (KA + 15) / 16 * 16 + 8;
   static constexpr int kLdb = (kNb + 15) / 16 * 16 + 8;
-  // rows staged a chunk: 32 for W_fg's float32 sums at the wide widths,
-  // whose two words an item of A would not fit a thread's registers
-  // beside the sums over 64 rows
+  // rows staged a chunk: 32 for W_fg's float32 sums at the wide widths
+  // (MODE 4), whose two words an item of A would not fit a thread's
+  // registers beside the sums over 64 rows
   static constexpr int kRows =
-      R > kNarrowR && (MODE == 4 || MODE == 7) ? kWgRows / 2 : kWgRows;
+      R > kNarrowR && MODE == 4 ? kWgRows / 2 : kWgRows;
   // gated, or float32 activations; else bf16 values
   static constexpr bool kSplitA = MODE == 1 || MODE >= 3;
   static constexpr WgSplit kW =
@@ -1896,26 +1588,36 @@ int grid_for(long n) {
 }
 
 template <int MODE, int R, int S, int KA>
+int wgrad_wg_launch(WgradArgs a, int batch, float* out_w, float* out_b,
+                    int bias_groups, cudaStream_t st);
+
+template <int MODE, int R, int S, int KA>
 int wgrad_launch(WgradArgs a, int batch, float* out_w, float* out_b,
                  int bias_groups, cudaStream_t st) {
-  using Sh = WgShape<MODE, R, S, KA>;
-  const int slabs = (a.n + Sh::kNb - 1) / Sh::kNb;
-  const size_t smem = Sh::smem();
-  int err = set_smem(reinterpret_cast<const void*>(
-                         stack_wgrad_kernel<MODE, R, S, KA>), smem);
-  if (err) return err;
-  stack_wgrad_kernel<MODE, R, S, KA>
-      <<<dim3(batch * a.chunks, slabs), kThreads, smem, st>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long nw = static_cast<long>(KA) * a.n;
-  reduce_kernel<<<grid_for(nw), kThreads, 0, st>>>(a.part, out_w, nw, 1,
-                                                   batch * a.chunks);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  reduce_kernel<<<grid_for(a.n * bias_groups), kThreads, 0, st>>>(
-      a.part_b, out_b, a.n, bias_groups, batch * a.chunks / bias_groups);
-  return static_cast<int>(cudaGetLastError());
+  // W_fg's gradient of the bf16 forms at the wide widths: on wgmma
+  if constexpr (R > kNarrowR && (MODE == 0 || MODE == 7)) {
+    return wgrad_wg_launch<MODE, R, S, KA>(a, batch, out_w, out_b,
+                                           bias_groups, st);
+  } else {
+    using Sh = WgShape<MODE, R, S, KA>;
+    const int slabs = (a.n + Sh::kNb - 1) / Sh::kNb;
+    const size_t smem = Sh::smem();
+    int err = set_smem(reinterpret_cast<const void*>(
+                           stack_wgrad_kernel<MODE, R, S, KA>), smem);
+    if (err) return err;
+    stack_wgrad_kernel<MODE, R, S, KA>
+        <<<dim3(batch * a.chunks, slabs), kThreads, smem, st>>>(a);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long nw = static_cast<long>(KA) * a.n;
+    reduce_kernel<<<grid_for(nw), kThreads, 0, st>>>(a.part, out_w, nw, 1,
+                                                     batch * a.chunks);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    reduce_kernel<<<grid_for(a.n * bias_groups), kThreads, 0, st>>>(
+        a.part_b, out_b, a.n, bias_groups, batch * a.chunks / bias_groups);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // The backward's input gradient: the table gradient (pack, vocab, dtab)
@@ -2275,9 +1977,19 @@ int replay_inputs_impl(const ReplaySrc<F32>& src, const Act<F32>* tfsg,
   return 0;
 }
 
+template <int R, int S, int FORM>
+struct BwdLaunch;
+template <int R, int S>
+void wg_bwd_weights(const float* w_fg, const float* w_out, int win,
+                    int n_layers, float* img, cudaStream_t st);
+template <int R, int S>
+struct WgF32Images;
+
 // F32: the float32 form (hsave, tfsg, ctx, xc, dx and dctx_out float32,
 // dskip float32 in ends.dskip_f).  rp non-null: the replay backward, the
-// layer inputs rebuilt group by group in place of hsave (null).
+// layer inputs rebuilt group by group in place of hsave (null).  At the
+// wide widths (bf16) img takes every layer's weight images
+// (movenet_stack_wt_bwd_elems floats), written here once a call.
 template <int R, int S, bool F32>
 int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
              const Act<F32>* tfsg, const Act<F32>* ctx, const float* w_fg,
@@ -2285,10 +1997,12 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
              const float* wup, float* scratch, int chunks,
              Act<F32>* dctx_out, float* db_fg, float* dw_fg, float* dw_out,
              float* db_out, float* dwup, float* dbup, int batch, int t_len,
-             int n_layers, const ReplaySrc<F32>* rp, cudaStream_t st) {
+             int n_layers, const ReplaySrc<F32>* rp, float* img,
+             cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const int win = ctx ? 3 * R : 2 * R;
   const bool proj = xc != nullptr;
+  constexpr bool kWide = R > kNarrowR;
   // float32 scratch: dhp, p[2], dh, dfg, dctx, (the float32 form: gated,)
   // partials
   float* dhp = scratch;
@@ -2298,25 +2012,21 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
   float* dctx = dhp + 6 * m_total * R;
   float* gated = dhp + 7 * m_total * R;
   float* part = dhp + (F32 ? 8 : 7) * m_total * R;
-  using Sh = BwdShape<R, S>;
   constexpr int FORM = F32 ? kBwdF32 : kBwdSave;
   // the weight gradients' modes: W_fg, W_out, W_up
   constexpr int MFG = F32 ? 4 : 0, MOUT = F32 ? 6 : 1, MUP = F32 ? 5 : 2;
-  const size_t smem = F32 ? Sh::smem_f32(win) : Sh::smem(win);
-  const void* layer = reinterpret_cast<const void*>(
-      stack_bwd_layer_kernel<R, S, FORM>);
-  int err = set_smem(layer, smem);
+  BwdLaunch<R, S, FORM> layer;
+  int err = layer.setup(m_total, win);
   if (err) return err;
-  // persistent blocks: as many as fit on the card, at most one per
-  // (tile, pipeline) pair
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, layer, Sh::kThreads, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long tiles = (m_total + Sh::kRows - 1) / Sh::kRows;
-  const long pairs = (tiles + Sh::kHalves - 1) / Sh::kHalves;
-  const long fit = static_cast<long>(per_sm < 1 ? 1 : per_sm) * sm_count();
-  const int grid = static_cast<int>(pairs < fit ? pairs : fit);
+  cudaError_t e;
+  long img_layer = 0;
+  if constexpr (kWide) {
+    if (!img) return static_cast<int>(cudaErrorInvalidValue);
+    wg_bwd_weights<R, S>(w_fg, w_out, win, n_layers, img, st);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    img_layer = WgF32Images<R, S>::bwd_floats(win);
+  }
   for (int l = n_layers - 1; l >= 0; --l) {
     const Act<F32>* hs = rp ? nullptr : hsave + l * m_total * R;
     // the replay backward's float32 layer input (bf16: null at layer 0)
@@ -2332,7 +2042,7 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
       hr = replay_input<F32>(*rp, l, lo, m_total * R);
       if constexpr (F32) hs = hr;
     }
-    BwdLayerArgs a;
+    BwdLayerArgs a = {};
     a.dhp = dhp;
     a.p_in = pbuf[(l + 1) & 1];
     a.p_out = pbuf[l & 1];
@@ -2358,9 +2068,8 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
     a.d_in = l + 1 < n_layers ? dil[l + 1] : 0;
     a.top = l == n_layers - 1;
     a.win = win;
-    stack_bwd_layer_kernel<R, S, FORM><<<grid, Sh::kThreads, smem, st>>>(a);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
+    err = layer.launch(a, kWide ? img + l * img_layer : nullptr, st);
+    if (err) return err;
 
     WgradArgs w = {};
     if constexpr (F32) {
@@ -2550,8 +2259,9 @@ int bwd_impl(const BwdEnds& ends, const Act<F32>* hsave,
 // operations); as launched it moves the save backward's float32
 // intermediates and gated (about 1.3 GB a layer).
 
-// the layer kernel's forms
-constexpr int kRecompute = 0, kSave = 1, kSaveHead = 2;
+// the layer kernel's forms (kTaps: the wide recompute form's taps launch
+// for the wide bf16 recompute backward, built at the wide widths alone)
+constexpr int kRecompute = 0, kSave = 1, kSaveHead = 2, kTaps = 4;
 // the recompute form's block: 16 warps of 16 rows each per tile (one
 // block per SM: the tile and the weights fill its shared memory)
 constexpr int kTlWarps = 16;
@@ -2720,6 +2430,8 @@ struct LayerArgs : TailsLayerArgs {
   HeadEpilogue hd;       // kSaveHead
   const bf16_t* wt;      // the wide forms: this layer's bf16 weights
                          // (WideShape::wt_elems), or null
+  float* taps;           // the wide recompute form's taps launch: tf, sg
+                         // (M, 2R) float32 out, no h_next and no skip sum
 };
 
 // The kernel parameters of the layer kernel's form FORM at width R: the
@@ -3410,8 +3122,11 @@ __device__ __forceinline__ void save_wide_layer(const LayerArgs& a) {
 // re-sums.  So the backward's rebuilds, which launch this kernel, give the
 // forward's layer inputs bit for bit.  The residual's h is read from
 // global memory (L2), as the operand tile takes the next tile's rows
-// while the out slabs run.  The layer backward's wide recompute form
-// (save_wide_bwd with RC) forms fg again through the same passes.
+// while the out slabs run.  The wide recompute backward launches it once
+// more a layer with the taps alone (TAPS, the layer kernel's form kTaps:
+// no h_next, no skip sum, the fg passes and no out slabs), tf and sg in
+// float32 into a.taps for its layer launch, so that they are the forward's
+// bits.
 // Bound at the flagship's depth at R = S = 128 (B = 2, T = 160000, L =
 // 30, video): 262,144 operations a row and layer on bf16 operands, 2.5
 // TFLOP, 2.5 ms at 989 TF/s, against about 0.3 GB of compulsory traffic
@@ -3444,7 +3159,7 @@ size_t tails_smem() {
 }
 
 // One layer of the wide recompute forward (see above).
-template <int R, int S>
+template <int R, int S, bool TAPS>
 __device__ __forceinline__ void tails_wide_layer(const LayerArgs& a) {
   using Sh = WideTlShape<R, S>;
   constexpr int ROWS = Sh::kRows, THREADS = Sh::kThreads, NO = R + S;
@@ -3461,6 +3176,8 @@ __device__ __forceinline__ void tails_wide_layer(const LayerArgs& a) {
   bf16_t* ring = reinterpret_cast<bf16_t*>(smem + Sh::kRing);
   const bf16_t* wft = a.wt;                          // (2R, W_in)
   const bf16_t* wot = wft + 2L * R * win;            // (R + S, R)
+  // a taps launch runs the fg passes alone
+  constexpr int steps = TAPS ? FP : Sh::kSteps;
 
   // slab j of a tile into dst: pass j's W_fg^T rows (its NC filter
   // columns, then their gate columns), or an out slab's W_out^T rows
@@ -3500,7 +3217,7 @@ __device__ __forceinline__ void tails_wide_layer(const LayerArgs& a) {
       cp_async_wait<0>();
       __syncthreads();
       bf16_t* nb = ring + ((ring_i + 1) & 1) * SLAB;
-      if (j + 1 < Sh::kSteps)
+      if (j + 1 < steps)
         load_slab(j + 1, nb);
       else if (next < n_tiles)
         load_slab(0, nb);
@@ -3542,12 +3259,28 @@ __device__ __forceinline__ void tails_wide_layer(const LayerArgs& a) {
         for (int e = 0; e < 4; ++e) {
           const float* bf = bfr[e >> 1];
           const int c = 8 * jt + 2 * q + (e & 1);
-          v[e] = tanhf(fg[jj][e] + __ldg(bf + c)) *
-                 sigmoidf(fg[NP + jj][e] + __ldg(bf + R + c));
+          const float tf = tanhf(fg[jj][e] + __ldg(bf + c));
+          const float sg = sigmoidf(fg[NP + jj][e] + __ldg(bf + R + c));
+          v[e] = tf * sg;
+          const long m = m0 + r0 + g + 8 * (e >> 1);
+          if (TAPS && m < m_total) {
+            a.taps[m * 2 * R + c] = tf;
+            a.taps[m * 2 * R + R + c] = sg;
+          }
         }
         ga[jt / 2][2 * (jt & 1)] = pack2(v[0], v[1]);
         ga[jt / 2][2 * (jt & 1) + 1] = pack2(v[2], v[3]);
       }
+    }
+    if constexpr (TAPS) {
+      // every warp is done with the operand rows: the next tile's land
+      __syncthreads();
+      if (next < n_tiles)
+        stage_operands<R, LDH, ROWS, THREADS>(hp, a.h, a.ctx, next * ROWS,
+                                              m_total, a.t_len, a.d,
+                                              per_row);
+      cp_async_commit();
+      continue;
     }
     // out + b_out, a slab of W_out^T rows at a time: the residual (an
     // 8-column n tile lies wholly in it or in the skip part), then the skip
@@ -3645,7 +3378,7 @@ template <int R, int S, int FORM>
 __global__ void __launch_bounds__(
     FORM == kRecompute && R <= kNarrowR ? kTlThreads
                                         : SaveShape<R, S>::kThreads,
-    FORM == kRecompute ? 1 : SaveShape<R, S>::kMinBlocks)
+    FORM == kRecompute || FORM == kTaps ? 1 : SaveShape<R, S>::kMinBlocks)
     stack_layer_kernel(typename FormArgs<R, FORM>::type a) {
   static_assert(R % 16 == 0 && S % 8 == 0, "16-wide k steps, 8-wide tiles");
   const int win = a.ctx ? 3 * R : 2 * R, per_row = win / 8;
@@ -3653,8 +3386,9 @@ __global__ void __launch_bounds__(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = tid & 3, r0 = 16 * warp;
   const long m_total = a.m_total;
-  if constexpr (FORM == kRecompute && R > kNarrowR) {
-  tails_wide_layer<R, S>(a);
+  static_assert(FORM != kTaps || R > kNarrowR, "taps launches are wide");
+  if constexpr ((FORM == kRecompute || FORM == kTaps) && R > kNarrowR) {
+  tails_wide_layer<R, S, FORM == kTaps>(a);
   } else if constexpr (FORM == kRecompute) {
   using Sh = TlShape<R, S>;
   constexpr int NO = Sh::kNo, LDH = Sh::kLdh, LDW = Sh::kLdw;
@@ -4155,11 +3889,14 @@ struct F32LayerArgs {
 //     recompute forward (stack_kernel.py:929 _fwd_kernel_tails in float32),
 //     also launched by the backward for each rebuilt layer input and, with
 //     the taps alone, before each layer backward;
-//   kernel B, stack_bwd_wg_f32_kernel<R, S, CTX>: the layer launch of the
-//     float32 recompute backward (stack_kernel.py:1031 _bwd_kernel_tails in
-//     float32): dgated, dfg from the taps, dfg_w.
+//   kernel B, stack_bwd_wg_kernel<R, S, CTX, kBwdRcF32>: the layer launch
+//     of the float32 recompute backward (stack_kernel.py:1031
+//     _bwd_kernel_tails in float32): dgated, dfg from the taps, dfg_w.
 // Every product is split-TF32 (mma_tf32.cuh's split, three passes) on
-// wgmma m64nNk8 from shared memory (wgmma_tf32.cuh).
+// wgmma m64nNk8 from shared memory (wgmma_tf32.cuh).  Kernel B's other
+// forms are the wide bf16 backwards' layer launches, and W_fg's gradient of
+// the bf16 forms there runs on the same building block (stack_wgrad_wg_kernel):
+// "the wide layer backwards on wgmma" and "W_fg's gradient on wgmma" below.
 //
 // Bound.  fg = [h | h(t-d) | ctx] W_fg (k = W_in = 3R, n = 2R) and out =
 // gated W_out (k = R, n = R + S) are 262,144 multiply-adds a row at R = S =
@@ -4237,13 +3974,15 @@ struct WgF32Images {
   }
 };
 
+// fwd 0: the backward's images alone (the wide bf16 backwards'), each
+// layer's where the float32 forms' scratch holds them after the forward's.
 template <int R, int S>
 __global__ void __launch_bounds__(kThreads)
     stack_wt_split_kernel(const float* w_fg, const float* w_out, int n_layers,
-                          int win, int bwd, float* wt) {
+                          int win, int fwd, int bwd, float* wt) {
   using Im = WgF32Images<R, S>;
   constexpr int KC = Im::kKc, NO = Im::kNo;
-  const long fpl = Im::fwd_floats(win) / 2;          // (big, small) pairs
+  const long fpl = fwd ? Im::fwd_floats(win) / 2 : 0;   // (big, small) pairs
   const long bpl = bwd ? Im::bwd_floats(win) / 2 : 0;
   const long total = (fpl + bpl) * n_layers;
   for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x;
@@ -4578,11 +4317,32 @@ struct WgF32Bwd {
 // stored its dfg (a named barrier with the producer), dfg_w = dfg W_fg^T in
 // W_in / R passes, each over 2R / 16 stages of dfg rows (split again by the
 // producer each pass) and one of W_fg's passes of R rows: the dh part into
-// dhp, the past part into p_out, the ctx part into dctx.  The order of
-// save_wide_bwd's outputs and sums.
-template <int R, int S, bool CTX>
+// dhp, the past part into p_out, the ctx part into dctx.  The order of the
+// 64-row mma.sync forms' outputs and sums.
+//
+// The wide layer backwards on wgmma.  The same kernel is the layer launch of
+// the wide bf16 backwards (FORM; _bwd_kernel_padded and _bwd_kernel_tails at
+// R = 128 in bf16, whose backward products take float32 operands as the
+// float32 forms' do, stack_kernel.py:199 _BWD_OPERAND_DT), on the same
+// weight images (written once a call by wg_bwd_weights):
+//   kBwdSave, the save and replay strategies': the taps are the forward's
+//     bf16 tfsg, widened at the dgated places; gated is not stored (W_out's
+//     gradient, MODE 1, takes tf * sg from tfsg);
+//   kBwdRc, the recompute strategy's: the taps are float32, written into
+//     this launch's dfg rows by a taps launch of the wide recompute forward
+//     (fg formed again through the forward's passes, so the forward's bits),
+//     each read at its place before dfg overwrites it; gated (float32) for
+//     W_out's gradient, MODE 3;
+//   kBwdRcF32, kernel B.
+// The bf16 forms take dskip in bf16 (or the merged head's float32 dskip_f)
+// and store the flat dctx of layer 0 in bf16 (dctx_bf), as the narrow forms
+// do.  Kernel B's code and bits are those of its float32 form alone.
+template <int R, int S, bool CTX, int FORM>
 __global__ void __launch_bounds__(384, 1)
-    stack_bwd_wg_f32_kernel(BwdLayerArgs a, const float* img) {
+    stack_bwd_wg_kernel(BwdLayerArgs a, const float* img) {
+  static_assert(FORM == kBwdSave || FORM == kBwdRc || FORM == kBwdRcF32,
+                "the bf16 save and recompute forms and kernel B");
+  constexpr bool F32 = FORM == kBwdRcF32;
   using Sh = WgF32Bwd<R, S>;
   constexpr int KC = Sh::kKc, NO = Sh::kNo, K1 = Sh::kK1, ST = Sh::kStages;
   constexpr int ROWS = Sh::kRows, NP = CTX ? 3 : 2;   // dfg_w's passes
@@ -4651,8 +4411,14 @@ __global__ void __launch_bounds__(384, 1)
               }
               *reinterpret_cast<float4*>(a.dh + m * R + k) = x;
             } else if (k < NO) {
-              x = __ldg(reinterpret_cast<const float4*>(a.dskip_f + m * S +
-                                                        k - R));
+              if (F32 || a.dskip_f) {
+                x = __ldg(reinterpret_cast<const float4*>(a.dskip_f + m * S +
+                                                          k - R));
+              } else {
+                float w[4];
+                load4(a.dskip + m * S + k - R, w);
+                x = make_float4(w[0], w[1], w[2], w[3]);
+              }
             }
           }
           v[u] = x;
@@ -4712,13 +4478,36 @@ __global__ void __launch_bounds__(384, 1)
           for (int e = 0; e < 2; ++e) {
             const long m = mrow[e];
             if (m >= m_total) continue;
-            const float2 tw = __ldg(
-                reinterpret_cast<const float2*>(a.tfsg_f + m * 2 * R + c));
-            const float2 sw = __ldg(reinterpret_cast<const float2*>(
-                a.tfsg_f + m * 2 * R + R + c));
-            const float tf[2] = {tw.x, tw.y}, sg[2] = {sw.x, sw.y};
-            *reinterpret_cast<float2*>(a.gated + m * R + c) =
-                make_float2(tf[0] * sg[0], tf[1] * sg[1]);
+            float tf[2], sg[2];
+            if constexpr (FORM == kBwdSave) {
+              const unsigned tw = __ldg(reinterpret_cast<const unsigned*>(
+                  a.tfsg + m * 2 * R + c));
+              const unsigned sw = __ldg(reinterpret_cast<const unsigned*>(
+                  a.tfsg + m * 2 * R + R + c));
+              tf[0] = __uint_as_float(tw << 16);
+              tf[1] = __uint_as_float(tw & 0xffff0000u);
+              sg[0] = __uint_as_float(sw << 16);
+              sg[1] = __uint_as_float(sw & 0xffff0000u);
+            } else {
+              // kBwdRc: the taps in this launch's dfg rows, read before
+              // dfg takes their places (plain loads: they are written here)
+              const float2 tw =
+                  F32 ? __ldg(reinterpret_cast<const float2*>(
+                            a.tfsg_f + m * 2 * R + c))
+                      : *reinterpret_cast<const float2*>(a.tfsg_f +
+                                                         m * 2 * R + c);
+              const float2 sw =
+                  F32 ? __ldg(reinterpret_cast<const float2*>(
+                            a.tfsg_f + m * 2 * R + R + c))
+                      : *reinterpret_cast<const float2*>(a.tfsg_f +
+                                                         m * 2 * R + R + c);
+              tf[0] = tw.x;
+              tf[1] = tw.y;
+              sg[0] = sw.x;
+              sg[1] = sw.y;
+              *reinterpret_cast<float2*>(a.gated + m * R + c) =
+                  make_float2(tf[0] * sg[0], tf[1] * sg[1]);
+            }
             float df[2], dq[2];
 #pragma unroll
             for (int k = 0; k < 2; ++k) {
@@ -4761,13 +4550,294 @@ __global__ void __launch_bounds__(384, 1)
                     *reinterpret_cast<const float2*>(a.dctx + m * R + c);
                 y = make_float2(o.x + x0, o.y + x1);
               }
-              *reinterpret_cast<float2*>(a.dctx + m * R + c) = y;
+              if (!F32 && a.dctx_bf)
+                *reinterpret_cast<unsigned*>(a.dctx_bf + m * R + c) =
+                    pack2(y.x, y.y);
+              else
+                *reinterpret_cast<float2*>(a.dctx + m * R + c) = y;
             }
           }
         }
       }
     }  // tiles
   }
+}
+
+// W_fg's gradient on wgmma.  At the wide widths the bf16 backwards' W_fg
+// gradient (MODE 0: A = [hsave | hsave(t-d) | ctx], bf16; MODE 7: the bf16
+// replay backward's A from the rebuilt float32 h, see WgradArgs) runs
+// stack_wgrad_wg_kernel<MODE, R, S, KA>: dW_fg = sum_rows A^T dfg in
+// per-(batch, chunk) partial sums and the bias gradient's column sums of
+// dfg, reduced by reduce_kernel in fixed order as stack_wgrad_kernel's.
+// Here k is the row axis, and wgmma takes TF32 operands K-major: the
+// producer warpgroup writes A^T and dfg^T into each stage, rows contiguous
+// (16 rows a stage), in wgmma_tf32.cuh's images, splitting dfg and MODE 7's
+// float32 A as they land; MODE 0's A is bf16, exact in TF32: its big part
+// alone, two passes a k step (BWD_SPLIT_PASSES["dw_fg"]).  A block: 128
+// columns of A (the consumer warpgroups' 64 each) by 128 of dfg over one
+// (batch, chunk) range of rows, the ranges' blocks adjacent in launch order
+// (blockIdx.x the slab pair), so that the blocks of one range read its
+// rows from L2 together.  Each stage's 16 rows are summed by the tensor
+// core from zero and added in float32 (wg_chunk_add at WIDE_F32_CHUNK): a
+// range's thousand-odd rows summed in the tensor core's own accumulation
+// drift.  The bias partials: the blocks of A's first slab, the producer's
+// threads each over its rows (4 a stage), then their four row groups in
+// order.  The producer's rows land by cp.async in a ring of kRaw stages of
+// raw rows (A as it lies in global memory, bf16 or MODE 7's float32 h, and
+// dfg), kRaw - 1 stages ahead: each producer thread copies the 4 rows by 4
+// columns of each that it reads back, so it waits on its own copies alone
+// (cp.async.wait_group) and a stage's loads overlap the stages before it.
+// No setmaxnreg: the consumers hold a running sum and a chunk (n = 128).
+// Bound at the flagship's depth at R = S = 128: 98,304 multiply-adds a row
+// and layer, 3.8 ms a call counted once at TF32's 495 TF/s (MODE 0 runs two
+// passes, MODE 7 three).
+template <int MODE, int R>
+struct WgWgrad {
+  static constexpr int kRows = 128, kN = 128, kKc = 16, kThreads = 384;
+  static constexpr bool kSplitA = MODE == 7;
+  static constexpr size_t kA = static_cast<size_t>(kRows) * kKc * 4;
+  static constexpr size_t kB = static_cast<size_t>(kN) * kKc * 4;
+  static constexpr size_t kStage = (kSplitA ? 2 : 1) * kA + 2 * kB;
+  static constexpr int kStages = kSplitA ? 4 : 6;
+  // the raw rows' ring: kKc rows of A's slab (4 bytes an element in MODE
+  // 7, 2 in MODE 0) and of dfg's, each row's 128 columns in order
+  static constexpr int kRaw = 6;
+  static constexpr size_t kRawA = static_cast<size_t>(kKc) * kRows *
+                                  (kSplitA ? 4 : 2);
+  static constexpr size_t kRawStage = kRawA + static_cast<size_t>(kKc) * kN * 4;
+  static constexpr size_t kRawOff = kStages * kStage;
+  static constexpr size_t kBar = kRawOff + kRaw * kRawStage;
+  static constexpr size_t kSums = kBar + 2 * kStages * 8;
+  static constexpr size_t kEnd = kSums + 4 * kN * 4;
+  static_assert(R == kRows && (MODE == 0 || MODE == 7),
+                "a slab of A is one part of [h | h(t-d) | ctx]");
+};
+
+// The copies of one row of a stage into the raw ring (its A slot ra, 4
+// elements of ea bytes, and its dfg slot rb, 4 floats): the columns j0 ..
+// j0 + 3 of A's part p (0 h, 1 h(t-d), 2 ctx; zero past t_hi and for the
+// tap before t = d) and of dfg's columns n0 + j0 ..; t the row's time.
+template <int MODE, int R>
+__device__ __forceinline__ void wg_row_copy(const WgradArgs& a, void* ra,
+                                            void* rb, long row, int t,
+                                            int t_hi, int p, int j0, int n0,
+                                            int ea) {
+  const bool ok = t < t_hi, tap = ok && (p != 1 || t >= a.d);
+  const long src = (p == 1 ? row - a.d : row) * R + j0;
+  if (MODE == 7 && ea == 4)
+    cp_async16(ra, tap ? a.hs_f + src : a.hs_f, tap);
+  else if (p == 2)
+    cp_async8(ra, tap ? a.ctx + src : a.ctx, tap);
+  else
+    cp_async8(ra, tap ? a.hs + src : a.hs, tap);
+  cp_async16(rb, ok ? a.dfg + row * 2 * R + n0 + j0 : a.dfg, ok);
+}
+
+// Four values of A back from a raw slot (ea bytes an element); MODE 7
+// rounds h(t-d) to bf16 on the rows t mod tile < d (part 1).
+template <int MODE>
+__device__ __forceinline__ float4 wg_a_back(const WgradArgs& a,
+                                            const unsigned char* ra, int ea,
+                                            int t, int p) {
+  float v[4];
+  if (MODE == 7 && ea == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(ra);
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+  } else {
+    load4(reinterpret_cast<const bf16_t*>(ra), v);
+  }
+  if (MODE == 7 && p == 1 && t % a.tile < a.d) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = bf2f(f2bf(v[j]));
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ float f4_at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <int MODE, int R, int S, int KA>
+__global__ void __launch_bounds__(384, 1)
+    stack_wgrad_wg_kernel(WgradArgs a) {
+  using Sh = WgWgrad<MODE, R>;
+  constexpr int KC = Sh::kKc, ST = Sh::kStages, NS = 2 * R / Sh::kN;
+  constexpr bool SA = Sh::kSplitA;
+  constexpr uint32_t SBO = KC * 32;
+  constexpr size_t AB = (SA ? 2 : 1) * Sh::kA;   // the B images' offset
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Sh::kBar);
+  uint64_t* empty = full + ST;
+  float* sums = reinterpret_cast<float*>(smem + Sh::kSums);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 128);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int mi = blockIdx.x / NS, ni = blockIdx.x % NS;   // A's, dfg's slab
+  const int n0 = Sh::kN * ni;
+  const int g = blockIdx.y;
+  const int b = g / a.chunks, ch = g % a.chunks;
+  const int per = (a.rows_per_batch + a.chunks - 1) / a.chunks;
+  const int t_lo = ch * per;
+  const int t_hi = min(a.rows_per_batch, t_lo + per);
+  const int n_st = t_hi > t_lo ? (t_hi - t_lo + KC - 1) / KC : 0;
+  const long base = static_cast<long>(b) * a.rows_per_batch;
+  RingPos pos;
+  if (tid >= 256) {
+    // the producer: thread (pw, cg) takes rows 4 pw .. + 4 of each stage
+    // and columns 4 cg .. + 4 of each slab; it stores the image rows of
+    // its columns in turn from cg / 2 on, so that the eight lanes of a
+    // store's phase fall in distinct banks
+    const int pl = tid - 256, pw = pl >> 5, cg = pl & 31, rot = cg >> 1;
+    const bool bias = mi == 0;
+    float bsum[4] = {0.f, 0.f, 0.f, 0.f};
+    // A's bytes an element: MODE 7's float32 h (not the bf16 x of the
+    // first layer, nor ctx), else bf16
+    const int ea = MODE == 7 && a.hs_f && mi < 2 ? 4 : 2;
+    constexpr int PD = Sh::kRaw;
+    // this thread's slots of raw stage i, row u: A's, dfg's
+    auto raw_a = [&](int i, int u) {
+      return smem + Sh::kRawOff + i * Sh::kRawStage +
+             ((4 * pw + u) * Sh::kRows + 4 * cg) * ea;
+    };
+    auto raw_b = [&](int i, int u) {
+      return smem + Sh::kRawOff + i * Sh::kRawStage + Sh::kRawA +
+             ((4 * pw + u) * Sh::kN + 4 * cg) * 4;
+    };
+    // stage st's rows into raw stage st mod PD: one cp.async group a
+    // stage (an empty one past the last, so that the count stays even)
+    auto issue = [&](int st) {
+      if (st < n_st) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int t = t_lo + KC * st + 4 * pw + u;
+          wg_row_copy<MODE, R>(a, raw_a(st % PD, u), raw_b(st % PD, u),
+                               base + t, t, t_hi, mi, 4 * cg, n0, ea);
+        }
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int st = 0; st < PD - 1; ++st) issue(st);
+    for (int st = 0; st < n_st; ++st) {
+      // stage st + PD - 1 into the raw stage that stage st - 1 held
+      issue(st + PD - 1);
+      cp_async_wait<PD - 1>();
+      float4 ca[4], cb[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int t = t_lo + KC * st + 4 * pw + u;
+        ca[u] = wg_a_back<MODE>(a, raw_a(st % PD, u), ea, t, mi);
+        cb[u] = *reinterpret_cast<const float4*>(raw_b(st % PD, u));
+      }
+      mbar_wait(empty + pos.stage, pos.phase ^ 1);
+      float* sa = reinterpret_cast<float*>(smem + pos.stage * Sh::kStage);
+      float* sb = reinterpret_cast<float*>(smem + pos.stage * Sh::kStage + AB);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int cc = (c + rot) & 3;
+        const int o = img_off(4 * cg + cc, 4 * pw, KC);
+        const float4 va = make_float4(f4_at(ca[0], cc), f4_at(ca[1], cc),
+                                      f4_at(ca[2], cc), f4_at(ca[3], cc));
+        const float4 vb = make_float4(f4_at(cb[0], cc), f4_at(cb[1], cc),
+                                      f4_at(cb[2], cc), f4_at(cb[3], cc));
+        float4 big, small;
+        if constexpr (SA) {
+          split4(va, big, small);
+          *reinterpret_cast<float4*>(sa + o) = big;
+          *reinterpret_cast<float4*>(sa + Sh::kA / 4 + o) = small;
+        } else {
+          *reinterpret_cast<float4*>(sa + o) = va;   // bf16: exact in TF32
+        }
+        split4(vb, big, small);
+        *reinterpret_cast<float4*>(sb + o) = big;
+        *reinterpret_cast<float4*>(sb + Sh::kB / 4 + o) = small;
+      }
+      fence_async_smem();
+      mbar_arrive(full + pos.stage);
+      pos.next(ST);
+      if (bias) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          bsum[0] += cb[u].x;
+          bsum[1] += cb[u].y;
+          bsum[2] += cb[u].z;
+          bsum[3] += cb[u].w;
+        }
+      }
+    }
+    if (bias) {
+      *reinterpret_cast<float4*>(sums + pw * Sh::kN + 4 * cg) =
+          make_float4(bsum[0], bsum[1], bsum[2], bsum[3]);
+      named_sync(1, 128);
+      const float v = sums[pl] + sums[Sh::kN + pl] + sums[2 * Sh::kN + pl] +
+                      sums[3 * Sh::kN + pl];
+      a.part_b[static_cast<long>(g) * a.n + n0 + pl] = v;
+    }
+  } else {
+    const int w = tid >> 7, lt = tid & 127;
+    const int lane = lt & 31, gq = lane >> 2, q = lane & 3;
+    float run[Sh::kN / 2], t[Sh::kN / 2];
+#pragma unroll
+    for (int i = 0; i < Sh::kN / 2; ++i) run[i] = 0.f;
+    for (int st = 0; st < n_st; ++st) {
+      mbar_wait(full + pos.stage, pos.phase);
+      const uint32_t sa = smem_u32(smem + pos.stage * Sh::kStage);
+      const uint32_t sb = sa + AB;
+      const uint64_t ab = wg_desc(sa + w * 8 * SBO, SBO);
+      if constexpr (SA)
+        wg_split_chunk<Sh::kN, 2>(t, ab, wg_desc(sa + Sh::kA + w * 8 * SBO, SBO),
+                                  wg_desc(sb, SBO), wg_desc(sb + Sh::kB, SBO),
+                                  true);
+      else
+        wg_split_chunk_exact_a<Sh::kN, 2>(t, ab, wg_desc(sb, SBO),
+                                          wg_desc(sb + Sh::kB, SBO), true);
+      wg_chunk_add<Sh::kN>(run, t, false);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + pos.stage);
+      pos.next(ST);
+    }
+    // this block's (128 x 128) of the (KA, 2R) partial sum of group g
+    float* out = a.part + static_cast<long>(g) * KA * a.n;
+    const int r0 = Sh::kRows * mi + 64 * w + 16 * (lt >> 5) + gq;
+#pragma unroll
+    for (int j = 0; j < Sh::kN / 8; ++j) {
+      const int c = n0 + 8 * j + 2 * q;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(out + static_cast<long>(r0 + 8 * e) * a.n +
+                                   c) =
+            make_float2(run[4 * j + 2 * e], run[4 * j + 2 * e + 1]);
+    }
+  }
+}
+
+template <int MODE, int R, int S, int KA>
+int wgrad_wg_launch(WgradArgs a, int batch, float* out_w, float* out_b,
+                    int bias_groups, cudaStream_t st) {
+  using Sh = WgWgrad<MODE, R>;
+  const void* fn =
+      reinterpret_cast<const void*>(stack_wgrad_wg_kernel<MODE, R, S, KA>);
+  int err = set_smem(fn, Sh::kEnd);
+  if (err) return err;
+  stack_wgrad_wg_kernel<MODE, R, S, KA>
+      <<<dim3(KA / Sh::kRows * (2 * R / Sh::kN), batch * a.chunks),
+         Sh::kThreads, Sh::kEnd, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long nw = static_cast<long>(KA) * a.n;
+  reduce_kernel<<<grid_for(nw), kThreads, 0, st>>>(a.part, out_w, nw, 1,
+                                                   batch * a.chunks);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  reduce_kernel<<<grid_for(a.n * bias_groups), kThreads, 0, st>>>(
+      a.part_b, out_b, a.n, bias_groups, batch * a.chunks / bias_groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Dynamic shared memory of stack_layer_f32_kernel at (R, S), or of kernel A
@@ -4943,7 +5013,8 @@ struct LayerLaunch {
   size_t smem = 0;
   int grid = 0;
   int setup(long m_total, long max_grid = 0) {
-    smem = FORM == kRecompute ? tails_smem<R, S>() : save_smem<R, S>();
+    smem = FORM == kRecompute || FORM == kTaps ? tails_smem<R, S>()
+                                               : save_smem<R, S>();
     const void* fn = reinterpret_cast<const void*>(
         stack_layer_kernel<R, S, FORM>);
     int err = set_smem(fn, smem);
@@ -5132,8 +5203,19 @@ long wg_f32_weights(const float* w_fg, const float* w_out, int win,
   const long pairs =
       (Im::fwd_floats(win) + (bwd ? Im::bwd_floats(win) : 0)) / 2 * n_layers;
   stack_wt_split_kernel<R, S><<<grid_for(pairs), kThreads, 0, st>>>(
-      w_fg, w_out, n_layers, win, bwd ? 1 : 0, wt);
+      w_fg, w_out, n_layers, win, 1, bwd ? 1 : 0, wt);
   return Im::fwd_floats(win);
+}
+
+// Every layer's backward weight images alone into img (the wide bf16
+// backwards; stack_wt_split_kernel with fwd 0): kernel B's layout, layer l's
+// at img + l * WgF32Images::bwd_floats(win).
+template <int R, int S>
+void wg_bwd_weights(const float* w_fg, const float* w_out, int win,
+                    int n_layers, float* img, cudaStream_t st) {
+  const long pairs = WgF32Images<R, S>::bwd_floats(win) / 2 * n_layers;
+  stack_wt_split_kernel<R, S><<<grid_for(pairs), kThreads, 0, st>>>(
+      w_fg, w_out, n_layers, win, 0, 1, img);
 }
 
 // The float32 layer arguments of layer l (no taps, skip sum off).
@@ -5314,15 +5396,14 @@ int fwd_replay_impl(const bf16_t* x, const bf16_t* ctx, const float* b_fg,
   return 0;
 }
 
-// The layer launches of the recompute backward: stack_bwd_layer_kernel's
-// recompute form (kBwdRc, or kBwdRcF32 in float32) or, in float32 at the
-// wide widths, kernel B (on the layer's weight images).  Its shared memory
-// set once, the grid (as many persistent blocks as fit, at most one per
-// tile, or pair of tiles of a two-pipeline block) for every layer.
-template <int R, int S, bool F32>
-struct RcBwdLaunch {
-  static constexpr bool kWg = F32 && R > kNarrowR;
-  static constexpr int kForm = F32 ? kBwdRcF32 : kBwdRc;
+// The layer launches of a backward in form FORM: stack_bwd_layer_kernel or,
+// at the wide widths, stack_bwd_wg_kernel (on the layer's weight images; the
+// float32 recompute form there is kernel B).  Its shared memory set once,
+// the grid (as many persistent blocks as fit, at most one per tile, or pair
+// of tiles of a two-pipeline block) for every layer.
+template <int R, int S, int FORM>
+struct BwdLaunch {
+  static constexpr bool kWg = R > kNarrowR;
   using Sh = BwdShape<R, S>;
   static constexpr int kThreads = kWg ? 384 : Sh::kThreads;
   size_t smem = 0;
@@ -5330,15 +5411,18 @@ struct RcBwdLaunch {
   static const void* fn(bool ctx) {
     if constexpr (kWg)
       return ctx ? reinterpret_cast<const void*>(
-                       stack_bwd_wg_f32_kernel<R, S, true>)
+                       stack_bwd_wg_kernel<R, S, true, FORM>)
                  : reinterpret_cast<const void*>(
-                       stack_bwd_wg_f32_kernel<R, S, false>);
+                       stack_bwd_wg_kernel<R, S, false, FORM>);
     else
       return reinterpret_cast<const void*>(
-          stack_bwd_layer_kernel<R, S, kForm>);
+          stack_bwd_layer_kernel<R, S, FORM>);
   }
   int setup(long m_total, int win) {
-    smem = F32 ? Sh::smem_rcf32(win) : Sh::smem_rc(win);
+    smem = FORM == kBwdSave  ? Sh::smem(win)
+           : FORM == kBwdRc  ? Sh::smem_rc(win)
+           : FORM == kBwdF32 ? Sh::smem_f32(win)
+                             : Sh::smem_rcf32(win);
     const void* f = fn(win == 3 * R);
     int err = set_smem(f, smem);
     if (err) return err;
@@ -5358,14 +5442,14 @@ struct RcBwdLaunch {
   }
   int launch(const BwdLayerArgs& a, const float* img, cudaStream_t st) const {
     if constexpr (kWg) {
-      if (a.cx_f)
-        stack_bwd_wg_f32_kernel<R, S, true><<<grid, kThreads, smem, st>>>(a,
-                                                                          img);
+      if (a.win == 3 * R)
+        stack_bwd_wg_kernel<R, S, true, FORM><<<grid, kThreads, smem, st>>>(
+            a, img);
       else
-        stack_bwd_wg_f32_kernel<R, S, false><<<grid, kThreads, smem, st>>>(
+        stack_bwd_wg_kernel<R, S, false, FORM><<<grid, kThreads, smem, st>>>(
             a, img);
     } else {
-      stack_bwd_layer_kernel<R, S, kForm><<<grid, kThreads, smem, st>>>(a);
+      stack_bwd_layer_kernel<R, S, FORM><<<grid, kThreads, smem, st>>>(a);
     }
     return static_cast<int>(cudaGetLastError());
   }
@@ -5377,7 +5461,11 @@ struct RcBwdLaunch {
 // dctx float32).  The wide float32 form (R > kNarrowR) runs kernel A for the
 // rebuilds and, before each layer launch, a taps launch of it on the layer's
 // input (the forward's fg and gate, the float32 taps into scratch), which
-// kernel B, the layer launch, reads.
+// kernel B, the layer launch, reads.  The wide bf16 form likewise: the wide
+// recompute forward for the rebuilds and each layer's taps launch (the
+// float32 taps in the dfg rows, which its layer launch overwrites place by
+// place), then stack_bwd_wg_kernel's kBwdRc form on the weight images in img
+// (movenet_stack_wt_bwd_elems floats), written here once a call.
 template <int R, int S, bool F32>
 int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
                    const Act<F32>* ctx, const float* b_fg, const float* w_fg,
@@ -5385,28 +5473,35 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
                    const Act<F32>* dskip, const int* dil, int every,
                    Act<F32>* group, float* scratch, int chunks, Act<F32>* dx,
                    Act<F32>* dctx_out, float* db_fg, float* dw_fg,
-                   float* dw_out, float* db_out, Act<F32>* wt, int batch,
-                   int t_len, int n_layers, cudaStream_t st) {
+                   float* dw_out, float* db_out, Act<F32>* wt, float* img,
+                   int batch, int t_len, int n_layers, cudaStream_t st) {
   const long m_total = static_cast<long>(batch) * t_len;
   const long mr = m_total * R;
   const int win = ctx ? 3 * R : 2 * R;
   constexpr bool kWide = R > kNarrowR;
   // float32 scratch: the save backward's dhp, p[2], dh, dfg, dctx, then
   // gated, (the wide float32 form: the taps,) then the partials (the
-  // float32 form sums dctx in its output)
-  constexpr bool kTaps = F32 && kWide;
+  // float32 form sums dctx in its output); the wide bf16 form's taps lie in
+  // the dfg rows
+  constexpr bool kTapsF32 = F32 && kWide;
   float* dhp = scratch;
   float* pbuf[2] = {dhp + mr, dhp + 2 * mr};
   float* dh = dhp + 3 * mr;
   float* dfg = dhp + 4 * mr;
   float* dctx = dhp + 6 * mr;
   float* gated = dhp + 7 * mr;
-  float* taps = dhp + 8 * mr;
-  float* part = dhp + (kTaps ? 10 : 8) * mr;
+  float* taps = kTapsF32 ? dhp + 8 * mr : dfg;
+  float* part = dhp + (kTapsF32 ? 10 : 8) * mr;
   std::conditional_t<F32, F32LayerLaunch<R, S>,
                      LayerLaunch<R, S, kRecompute>> tl;
   int err = tl.setup(m_total);
   if (err) return err;
+  // the wide bf16 form's taps launches (set up there alone)
+  LayerLaunch<R, S, kTaps> taps_l;
+  if constexpr (kWide && !F32) {
+    err = taps_l.setup(m_total);
+    if (err) return err;
+  }
   // the wide form: every layer's weights for the rebuilds and for fg
   // formed again (bf16, W_fg^T leads each layer's), or in float32 the weight
   // images of kernels A and B
@@ -5419,14 +5514,17 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
                                       st);
       bwd_img = wt + n_layers * wt_layer;
     } else {
+      if (!img) return static_cast<int>(cudaErrorInvalidValue);
       wt_layer = wide_weights<R, S>(w_fg, w_out, win, n_layers, 1, wt, st);
+      wg_bwd_weights<R, S>(w_fg, w_out, win, n_layers, img, st);
+      bwd_img = img;
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   // the weight gradients' modes: W_fg, W_out
   constexpr int MFG = F32 ? 4 : 0, MOUT = F32 ? 6 : 3;
-  RcBwdLaunch<R, S, F32> layer;
+  BwdLaunch<R, S, F32 ? kBwdRcF32 : kBwdRc> layer;
   err = layer.setup(m_total, win);
   if (err) return err;
   for (int lo = (n_layers - 1) / every * every; lo >= 0; lo -= every) {
@@ -5456,14 +5554,22 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
     }
     for (int l = hi - 1; l >= lo; --l) {
       const Act<F32>* hs = input(l);
-      if constexpr (kTaps) {
+      if constexpr (kWide) {
         // the layer's taps, as its forward formed them
-        F32LayerArgs fa = f32_layer_args<R, S>(hs, nullptr, ctx, b_fg, w_fg,
-                                               w_out, b_out, dil, l, batch,
-                                               t_len);
-        fa.tfsg = taps;
-        fa.wt = wt + l * wt_layer;
-        err = tl.launch(fa, st);
+        if constexpr (F32) {
+          F32LayerArgs fa = f32_layer_args<R, S>(hs, nullptr, ctx, b_fg, w_fg,
+                                                 w_out, b_out, dil, l, batch,
+                                                 t_len);
+          fa.tfsg = taps;
+          fa.wt = wt + l * wt_layer;
+          err = tl.launch(fa, st);
+        } else {
+          LayerArgs la = layer_args<R, S>(hs, nullptr, ctx, b_fg, w_fg, w_out,
+                                          b_out, dil, l, batch, t_len);
+          la.wt = wt + l * wt_layer;
+          la.taps = taps;
+          err = taps_l.launch(la, st);
+        }
         if (err) return err;
       }
       BwdLayerArgs a = {};
@@ -5484,6 +5590,7 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
         a.dskip = dskip;
         a.hs = hs;
         a.cx = ctx;
+        a.tfsg_f = taps;
       }
       a.w_out = w_out + static_cast<long>(l) * R * (R + S);
       a.w_fg = w_fg + static_cast<long>(l) * win * 2 * R;
@@ -5495,10 +5602,8 @@ int bwd_tails_impl(const Act<F32>* x, const Act<F32>* ckpt,
       a.b_fg = b_fg + static_cast<long>(l) * batch * 2 * R;
       a.gated = gated;
       a.d = dil[l];
-      if constexpr (kWide && !F32) a.wt = wt + l * wt_layer;
       err = layer.launch(
-          a,
-          kTaps ? bwd_img + l * WgF32Images<R, S>::bwd_floats(win) : nullptr,
+          a, kWide ? bwd_img + l * WgF32Images<R, S>::bwd_floats(win) : nullptr,
           st);
       if (err) return err;
 
@@ -5618,7 +5723,8 @@ int bwd_dispatch(const BwdEnds& ends, const Act<F32>* hsave,
                  Act<F32>* dctx_out, float* db_fg, float* dw_fg,
                  float* dw_out, float* db_out, float* dwup, float* dbup,
                  int batch, int t_len, int n_layers, int r, int s,
-                 void* stream, const ReplaySrc<F32>* rp = nullptr) {
+                 void* stream, const ReplaySrc<F32>* rp = nullptr,
+                 float* img = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rp && (rp->every < 1 || n_layers < 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -5627,7 +5733,7 @@ int bwd_dispatch(const BwdEnds& ends, const Act<F32>* hsave,
     return bwd_impl<R_, S_, F32>(ends, hsave, tfsg, ctx, w_fg, w_out, dil,  \
                                  xc, wup, scratch, chunks, dctx_out, db_fg, \
                                  dw_fg, dw_out, db_out, dwup, dbup, batch,  \
-                                 t_len, n_layers, rp, st);
+                                 t_len, n_layers, rp, img, st);
   if constexpr (F32) {
     MOVENET_STACK_WIDTHS(X)
   } else {
@@ -5666,8 +5772,9 @@ int tails_bwd_dispatch(const Act<F32>* x, const Act<F32>* ckpt,
                        const int* dil, int every, Act<F32>* group,
                        float* scratch, int chunks, Act<F32>* dx,
                        Act<F32>* dctx, float* db_fg, float* dw_fg,
-                       float* dw_out, float* db_out, Act<F32>* wt, int batch,
-                       int t_len, int n_layers, int r, int s, void* stream) {
+                       float* dw_out, float* db_out, Act<F32>* wt, float* img,
+                       int batch, int t_len, int n_layers, int r, int s,
+                       void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (every < 1 || n_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define X(R_, S_)                                                           \
@@ -5675,8 +5782,8 @@ int tails_bwd_dispatch(const Act<F32>* x, const Act<F32>* ckpt,
     return bwd_tails_impl<R_, S_, F32>(x, ckpt, ctx, b_fg, w_fg, w_out,     \
                                        b_out, dskip, dil, every, group,     \
                                        scratch, chunks, dx, dctx, db_fg,    \
-                                       dw_fg, dw_out, db_out, wt, batch,    \
-                                       t_len, n_layers, st);
+                                       dw_fg, dw_out, db_out, wt, img,      \
+                                       batch, t_len, n_layers, st);
   MOVENET_SAVE_WIDTHS(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
@@ -5727,6 +5834,17 @@ long movenet_stack_wt_f32_elems(int r, int s, int win, int n_layers,
   if (r == R_ && s == S_)                                               \
     return (WgF32Images<R_, S_>::fwd_floats(win) +                      \
             (bwd ? WgF32Images<R_, S_>::bwd_floats(win) : 0)) * n_layers;
+  MOVENET_WIDE_WIDTHS(X)
+#undef X
+  return 0;
+}
+
+// Floats of the wide bf16 backwards' weight images (kernel B's layout,
+// every layer's: the save, replay and recompute backwards' img); 0 at the
+// narrow widths.
+long movenet_stack_wt_bwd_elems(int r, int s, int win, int n_layers) {
+#define X(R_, S_) \
+  if (r == R_ && s == S_) return WgF32Images<R_, S_>::bwd_floats(win) * n_layers;
   MOVENET_WIDE_WIDTHS(X)
 #undef X
   return 0;
@@ -5788,7 +5906,9 @@ long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
   MOVENET_STACK_WIDTHS(X)
 #undef X
   // the wide widths: the bf16 save, recompute and replay backwards' and
-  // the float32 recompute backward's launches
+  // the float32 recompute backward's launches (every layer launch
+  // stack_bwd_wg_kernel; W_fg's gradient of the bf16 forms, modes 0 and 7,
+  // stack_wgrad_wg_kernel)
 #define X(R_, S_)                                                      \
   if (r == R_ && s == S_) {                                            \
     if (kind == -1) return static_cast<long>(BwdShape<R_, S_>::smem(win)); \
@@ -5802,15 +5922,9 @@ long movenet_stack_bwd_smem(int r, int s, int win, int kind) {
                                    ? WgShape<4, R_, S_, 3 * R_>::smem() \
                                    : WgShape<4, R_, S_, 2 * R_>::smem()); \
     if (kind == 6) return static_cast<long>(WgShape<6, R_, S_, R_>::smem()); \
-    if (kind == 7)                                                     \
-      return static_cast<long>(win == 3 * R_                           \
-                                   ? WgShape<7, R_, S_, 3 * R_>::smem() \
-                                   : WgShape<7, R_, S_, 2 * R_>::smem()); \
+    if (kind == 7) return static_cast<long>(WgWgrad<7, R_>::kEnd);     \
     if (kind == 3) return static_cast<long>(WgShape<3, R_, S_, R_>::smem()); \
-    if (kind == 0)                                                     \
-      return static_cast<long>(win == 3 * R_                           \
-                                   ? WgShape<0, R_, S_, 3 * R_>::smem() \
-                                   : WgShape<0, R_, S_, 2 * R_>::smem()); \
+    if (kind == 0) return static_cast<long>(WgWgrad<0, R_>::kEnd);     \
     if (kind == 1) return static_cast<long>(WgShape<1, R_, S_, R_>::smem()); \
     if (kind == 2) return static_cast<long>(WgShape<2, R_, S_, R_>::smem()); \
     return -1;                                                         \
@@ -5892,6 +6006,7 @@ int movenet_stack_head_fwd(const bf16_t* x, const bf16_t* ctx,
 
 // Backward of the whole stack; returns the first cudaError_t.  dil is a
 // host array.  xc/wup are null unless the projection backward is folded in.
+// img holds movenet_stack_wt_bwd_elems floats (null at the narrow widths).
 // dskip is bf16, or dskip_f float32 (the merged head's), the other null.
 // With dx null the table gradient goes to dtab (pack, vocab, embed_blocks
 // as the forward's); with dx (the non-embed form) dx is stored instead,
@@ -5904,8 +6019,8 @@ int movenet_stack_bwd(const bf16_t* hsave, const bf16_t* tfsg,
                       const float* wup, float* scratch, int chunks,
                       float* dtab, bf16_t* dx, bf16_t* dctx_out,
                       float* db_fg, float* dw_fg, float* dw_out,
-                      float* db_out, float* dwup, float* dbup, int batch,
-                      int t_len, int n_layers, int r, int s,
+                      float* db_out, float* dwup, float* dbup, float* img,
+                      int batch, int t_len, int n_layers, int r, int s,
                       int embed_blocks, void* stream) {
   BwdEnds ends = {};
   ends.dskip = dskip;
@@ -5919,7 +6034,7 @@ int movenet_stack_bwd(const bf16_t* hsave, const bf16_t* tfsg,
   return bwd_dispatch<false>(ends, hsave, tfsg, ctx, w_fg, w_out, dil, xc,
                              wup, scratch, chunks, dctx_out, db_fg, dw_fg,
                              dw_out, db_out, dwup, dbup, batch, t_len,
-                             n_layers, r, s, stream);
+                             n_layers, r, s, stream, nullptr, img);
 }
 
 // The float32 save forward (the embed form): as movenet_stack_fwd with
@@ -5992,7 +6107,8 @@ int movenet_stack_bwd_f32(const float* hsave, const float* tfsg,
 // Dynamic shared memory of the layer kernel's launches in form `form`, in
 // bytes (the merged form's last layer, form 2, keeps its head's weights in
 // the residual's place; form 3: the float32 layer kernel,
-// stack_layer_f32_kernel); -1 where (r, s) is not built.
+// stack_layer_f32_kernel; form 4, kTaps, at the wide widths); -1 where (r,
+// s) is not built.
 long movenet_stack_layer_smem(int r, int s, int form) {
 #define X(R_, S_)                                                        \
   if (r == R_ && s == S_)                                                \
@@ -6002,11 +6118,13 @@ long movenet_stack_layer_smem(int r, int s, int form) {
                                          : SaveShape<R_, S_>::smem());
   MOVENET_STACK_WIDTHS(X)
 #undef X
-  // the wide widths: the recompute (0), save (1) and float32 (3) forms
+  // the wide widths: the recompute (0), save (1), float32 (3) and taps (4)
+  // forms
 #define X(R_, S_)                                                        \
   if (r == R_ && s == S_)                                                \
     return form == kSave        ? static_cast<long>(save_smem<R_, S_>())  \
-           : form == kRecompute ? static_cast<long>(tails_smem<R_, S_>()) \
+           : form == kRecompute || form == kTaps                          \
+               ? static_cast<long>(tails_smem<R_, S_>())                    \
            : form == 3 ? static_cast<long>(f32_layer_smem<R_, S_>())      \
                                 : -1;
   MOVENET_WIDE_WIDTHS(X)
@@ -6122,7 +6240,8 @@ int movenet_stack_fwd_tails_f32(const float* x, const float* ctx,
 // dw_fg (L, W_in, 2R), dw_out (L, R, R+S), db_out (L, R+S) in float32,
 // from x and the forward's checkpoints; group holds every - 1 (B, T, R)
 // bf16 buffers, scratch movenet_tails_bwd_scratch floats, wt
-// movenet_stack_wt_elems bf16 elements (null at the narrow widths).
+// movenet_stack_wt_elems bf16 elements and img movenet_stack_wt_bwd_elems
+// floats (both null at the narrow widths).
 // Returns the first cudaError_t.  dil is a host array.
 int movenet_stack_bwd_tails(const bf16_t* x, const bf16_t* ckpt,
                             const bf16_t* ctx, const float* b_fg,
@@ -6132,12 +6251,12 @@ int movenet_stack_bwd_tails(const bf16_t* x, const bf16_t* ckpt,
                             float* scratch, int chunks, bf16_t* dx,
                             bf16_t* dctx, float* db_fg, float* dw_fg,
                             float* dw_out, float* db_out, bf16_t* wt,
-                            int batch, int t_len, int n_layers, int r, int s,
-                            void* stream) {
+                            float* img, int batch, int t_len, int n_layers,
+                            int r, int s, void* stream) {
   return tails_bwd_dispatch<false>(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
                                    dskip, dil, every, group, scratch, chunks,
                                    dx, dctx, db_fg, dw_fg, dw_out, db_out, wt,
-                                   batch, t_len, n_layers, r, s, stream);
+                                   img, batch, t_len, n_layers, r, s, stream);
 }
 
 // The recompute backward in float32: as movenet_stack_bwd_tails with x,
@@ -6157,7 +6276,8 @@ int movenet_stack_bwd_tails_f32(const float* x, const float* ckpt,
   return tails_bwd_dispatch<true>(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
                                   dskip, dil, every, group, scratch, chunks,
                                   dx, dctx, db_fg, dw_fg, dw_out, db_out, wt,
-                                  batch, t_len, n_layers, r, s, stream);
+                                  nullptr, batch, t_len, n_layers, r, s,
+                                  stream);
 }
 
 // The replay forward (bf16): skip_sum (B, T, S), the taps tfsg (L, B, T,
@@ -6198,7 +6318,8 @@ int movenet_stack_fwd_replay_f32(const float* x, const float* ctx,
 // the layer inputs rebuilt from x and the forward's checkpoints and taps
 // in place of hsave; group holds every - 1 (B, T, R) float32 buffers (at
 // least one), tile is the TPU kernel's time tile (W_fg's gradient, MODE
-// 7), scratch holds movenet_stack_bwd_scratch(..., 0, 0, 0) floats.
+// 7), scratch holds movenet_stack_bwd_scratch(..., 0, 0, 0) floats, img
+// movenet_stack_wt_bwd_elems floats (null at the narrow widths).
 int movenet_stack_bwd_replay(const bf16_t* x, const float* ckpt,
                              const bf16_t* tfsg, const bf16_t* ctx,
                              const float* w_fg, const float* w_out,
@@ -6208,8 +6329,8 @@ int movenet_stack_bwd_replay(const bf16_t* x, const float* ckpt,
                              float* scratch, int chunks, bf16_t* dx,
                              bf16_t* dctx_out, float* db_fg, float* dw_fg,
                              float* dw_out, float* db_out, float* dwup,
-                             float* dbup, int batch, int t_len, int n_layers,
-                             int r, int s, void* stream) {
+                             float* dbup, float* img, int batch, int t_len,
+                             int n_layers, int r, int s, void* stream) {
   BwdEnds ends = {};
   ends.dskip = dskip;
   ends.dx = dx;
@@ -6218,7 +6339,7 @@ int movenet_stack_bwd_replay(const bf16_t* x, const float* ckpt,
   return bwd_dispatch<false>(ends, nullptr, tfsg, ctx, w_fg, w_out, dil, xc,
                              wup, scratch, chunks, dctx_out, db_fg, dw_fg,
                              dw_out, db_out, dwup, dbup, batch, t_len,
-                             n_layers, r, s, stream, &rp);
+                             n_layers, r, s, stream, &rp, img);
 }
 
 // The replay backward in float32: as movenet_stack_bwd_replay with x,

@@ -1,6 +1,8 @@
 // Float32-accurate products on Hopper's warpgroup tensor-core instruction
 // (wgmma.mma_async m64nNk8 .tf32), shared by stack_kernel.cu (the wide
-// float32 recompute kernels) and wgmma_tf32.cu (the building block's probe).
+// float32 recompute kernels, the wide bf16 layer backwards and W_fg's
+// gradient at the wide widths) and wgmma_tf32.cu (the building block's
+// probe).
 //
 // The split is mma_tf32.cuh's: x = big + small, big = tf32(x), small =
 // tf32(x - big), each rounded as cvt.rna rounds; a product is small*big +
@@ -126,6 +128,23 @@ __device__ __forceinline__ void wg_split_chunk(float* t, uint64_t ab,
     const uint32_t o = 256 * s;
     wgmma_tf32<N>(t, desc_add(as, o), desc_add(bb, o), zero && s == 0 ? 0 : 1);
     wgmma_tf32<N>(t, desc_add(ab, o), desc_add(bs, o), 1);
+    wgmma_tf32<N>(t, desc_add(ab, o), desc_add(bb, o), 1);
+  }
+  wg_commit();
+}
+
+// The same where A is exact in TF32 (bf16 values): its big part alone, two
+// passes a k step (big*small, big*big).
+template <int N, int KS>
+__device__ __forceinline__ void wg_split_chunk_exact_a(float* t, uint64_t ab,
+                                                       uint64_t bb,
+                                                       uint64_t bs,
+                                                       bool zero) {
+  wg_fence();
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const uint32_t o = 256 * s;
+    wgmma_tf32<N>(t, desc_add(ab, o), desc_add(bs, o), zero && s == 0 ? 0 : 1);
     wgmma_tf32<N>(t, desc_add(ab, o), desc_add(bb, o), 1);
   }
   wg_commit();

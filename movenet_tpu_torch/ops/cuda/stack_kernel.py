@@ -22,11 +22,13 @@ embedding, then one per layer); one call of ``stack_bwd`` is 5L+2 (plus 3
 with the video projection): per layer the layer launch and two
 weight-gradient launches with their reductions (the wide forms, R = 128,
 first write every layer's bf16 weights: one more launch in each forward and
-in the recompute backward).  ``stack_fwd_tails`` is
-L grid launches (one per layer); ``stack_bwd_tails`` is per group of k
+in the recompute backward; every bf16 backward there first writes its
+layer launches' TF32 weight images, one more launch).  ``stack_fwd_tails``
+is L grid launches (one per layer); ``stack_bwd_tails`` is per group of k
 layers k - 1 rebuild launches of the same layer kernel, then per layer the
 save backward's grids in their recompute form (the layer launch, two
-weight-gradient launches and their reductions), then dx.
+weight-gradient launches and their reductions; at R = 128 after a taps
+launch of the layer kernel), then dx.
 ``stack_fwd_replay`` is L grid launches and, in bf16, ceil(L/k) - 1
 checkpoint copies; ``stack_bwd_replay`` is ``stack_bwd_x``'s grids plus per
 group k - 1 rebuild launches; its group buffers hold the rebuild's float32
@@ -73,7 +75,9 @@ forms", "the wide recompute forms" and "the wide float32 recompute
 kernels"; the save, replay and recompute forwards' wrappers and the
 recompute backward's allocate their weight scratch: bf16,
 ``movenet_stack_wt_elems``, or the float32 forms' TF32 images,
-``movenet_stack_wt_f32_elems``).  A family raises at a pair it is not
+``movenet_stack_wt_f32_elems``; the bf16 backwards' wrappers the TF32
+images of their layer launches on ``wgmma``,
+``movenet_stack_wt_bwd_elems``).  A family raises at a pair it is not
 built for with its ROADMAP.md item
 (``FAMILY_WIDTHS``, ``WIDTH_ITEMS``); the float32 recompute and replay forms
 are families of their own there.
@@ -180,6 +184,8 @@ def bind(lib):
     lib.movenet_stack_wt_elems.restype = _L
     lib.movenet_stack_wt_f32_elems.argtypes = [_I] * 5
     lib.movenet_stack_wt_f32_elems.restype = _L
+    lib.movenet_stack_wt_bwd_elems.argtypes = [_I] * 4
+    lib.movenet_stack_wt_bwd_elems.restype = _L
     lib.movenet_stack_bwd_scratch.argtypes = [_I] * 9
     lib.movenet_stack_bwd_scratch.restype = _L
     lib.movenet_stack_bwd_smem.argtypes = [_I, _I, _I, _I]
@@ -190,8 +196,10 @@ def bind(lib):
                                       _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _P]
     lib.movenet_stack_fwd.restype = _I
+    # the bf16 backwards take the wide widths' weight images (img) after
+    # their other pointers
     lib.movenet_stack_bwd.argtypes = [_P] * 8 + [_I, _I] + [_P] * 4 \
-        + [_I] + [_P] * 9 + [_I] * 6 + [_P]
+        + [_I] + [_P] * 10 + [_I] * 6 + [_P]
     lib.movenet_stack_bwd.restype = _I
     lib.movenet_stack_fwd_f32.argtypes = [_P, _I, _P, _I] + [_P] * 10 \
         + [_I] * 5 + [_P]
@@ -210,6 +218,8 @@ def bind(lib):
         fn.argtypes = [_P] * 9 + [_I, _P, _P, _I] + [_P] * 7 + [_I] * 5 \
             + [_P]
         fn.restype = _I
+    lib.movenet_stack_bwd_tails.argtypes = [_P] * 9 + [_I, _P, _P, _I] \
+        + [_P] * 8 + [_I] * 5 + [_P]
     lib.movenet_stack_blocks.argtypes = []
     lib.movenet_stack_blocks.restype = _I
     lib.movenet_stack_head_supports.argtypes = [_I, _I, _I]
@@ -232,6 +242,8 @@ def bind(lib):
         fn.argtypes = [_P] * 9 + [_I, _P, _I] + [_P] * 3 + [_I] + [_P] * 8 \
             + [_I] * 5 + [_P]
         fn.restype = _I
+    lib.movenet_stack_bwd_replay.argtypes = [_P] * 9 + [_I, _P, _I] \
+        + [_P] * 3 + [_I] + [_P] * 9 + [_I] * 5 + [_P]
     lib.movenet_stack_head_fwd.argtypes = [_P] * 19 + [_I] * 8 + [_P]
     lib.movenet_stack_head_fwd.restype = _I
     lib.movenet_stack_head_bwd.argtypes = [_P] * 10 + [_I] * 7 + [_P]
@@ -308,19 +320,19 @@ def f32_smem(r: int, s: int, win: int) -> Dict[str, int]:
     with ctx.  Above R = 64 the wide layouts: kernel A's (``WgF32Fwd``:
     the 128-row tile's gated rows as big and small TF32 images, then a ring
     of three stages of 16 k, each the A images of 128 operand rows and the
-    B images of R weight rows, then the stages' barriers), the layer
-    backward's ``WideBwd`` (the bf16 forms' 64 rows of [dh | dskip] and of
-    dfg and a ring of two 32-row weight slabs), kernel B's (``WgF32Bwd``:
-    seven stages of 16 k, each the A images of 128 rows and the B images of
-    R weight rows) and W_fg's gradient on 32-row chunks."""
+    B images of R weight rows, then the stages' barriers), kernel B's
+    (``WgF32Bwd``: seven stages of 16 k, each the A images of 128 rows and
+    the B images of R weight rows; every layer backward there runs it) and
+    W_fg's gradient on 32-row chunks."""
     if r > 64:
-        ldd, ldf, kc = r + s + 4, 2 * r + 4, 16
+        kc = 16
         a_img = 2 * 128 * kc * 4
+        layer_bwd = 7 * (a_img + 2 * r * kc * 4) + 2 * 7 * 8
         return {
             "layer_fwd": 2 * 128 * r * 4 + 3 * (a_img + 2 * r * kc * 4)
             + 2 * 3 * 8,
-            "layer_bwd": 4 * (64 * (ldd + ldf) + 2 * 32 * max(ldd, ldf)),
-            "layer_bwd_rc": 7 * (a_img + 2 * r * kc * 4) + 2 * 7 * 8,
+            "layer_bwd": layer_bwd,
+            "layer_bwd_rc": layer_bwd,
             "wgrad_fg": _wg_smem(2 * r, win, True, True, 32),
             "wgrad_out": _wg_smem(r + s, r, True, True),
             "wgrad_up": _wg_smem(10 * r, r, True, True),
@@ -339,6 +351,27 @@ def f32_smem(r: int, s: int, win: int) -> Dict[str, int]:
         "wgrad_out": _wg_smem(r + s, r, True),
         "wgrad_up": _wg_smem(10 * r, r, True),
     }
+
+
+def wide_bwd_smem(r: int) -> Dict[str, int]:
+    """Bytes of dynamic shared memory a block of each wide bf16 backward
+    launch on wgmma takes (R > 64), as csrc/stack_kernel.cu lays them out:
+    the layer launch of every form (kernel B's block, ``f32_smem``'s
+    ``layer_bwd``) and W_fg's gradient (``WgWgrad``: stages of 16 rows,
+    each A^T's image of 128 columns, its big part alone in MODE 0 (bf16 A)
+    and both in MODE 7 (the replay's float32 A), and dfg^T's big and small
+    images of 128 columns, six stages in MODE 0 and four in MODE 7; then
+    the producer's six raw stages of 16 rows of A's slab, 2 bytes an
+    element in MODE 0 and 4 in MODE 7, and of dfg's 128 columns; the
+    barriers and the bias partials of four row groups).  S and W_in set
+    none of them: A's slabs are 128 columns whatever W_in."""
+    kc, cols, raw = 16, 128, 6
+    img = cols * kc * 4
+    wg = {mode: st * (parts * img + 2 * img)
+          + raw * kc * cols * (ea + 4) + 2 * st * 8 + 4 * cols * 4
+          for mode, st, parts, ea in ((0, 6, 1, 2), (7, 4, 2, 4))}
+    return {"layer_bwd": f32_smem(r, r, 2 * r)["layer_bwd"],
+            "wgrad_fg": wg[0], "wgrad_fg_replay": wg[7]}
 
 
 def _f32_fits(r: int, s: int, win: int) -> None:
@@ -525,16 +558,20 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
         group = torch.empty(max(every - 1, 1), batch, t, r, dtype=f32,
                             device=dev)
         tile = sk.pick_stack_tile(t, dilations, ctx is not None)
-        fn = lib.movenet_stack_bwd_replay_f32 if f32_form else \
-            lib.movenet_stack_bwd_replay
-        err = fn(_ptr(x), _ptr(ckpt), _ptr(tfsg), _ptr(ctx), _ptr(w_fg),
-                 _ptr(w_out), _ptr(b_out), _ptr(dskip), _dils(dilations),
-                 every, _ptr(group), tile, _ptr(xc), _ptr(wup),
-                 _ptr(scratch), chunks, _ptr(dx), _ptr(dctx), _ptr(db_fg),
-                 _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), _ptr(dwup),
-                 _ptr(dbup), batch, t, n_layers, r, s, stream)
-        _raise(err, "stack_bwd_replay_f32" if f32_form
-               else "stack_bwd_replay")
+        head = (_ptr(x), _ptr(ckpt), _ptr(tfsg), _ptr(ctx), _ptr(w_fg),
+                _ptr(w_out), _ptr(b_out), _ptr(dskip), _dils(dilations),
+                every, _ptr(group), tile, _ptr(xc), _ptr(wup),
+                _ptr(scratch), chunks, _ptr(dx), _ptr(dctx), _ptr(db_fg),
+                _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), _ptr(dwup),
+                _ptr(dbup))
+        tail = (batch, t, n_layers, r, s, stream)
+        if f32_form:
+            _raise(lib.movenet_stack_bwd_replay_f32(*head, *tail),
+                   "stack_bwd_replay_f32")
+        else:
+            img = _bwd_images(lib, dev, r, s, win, n_layers)
+            _raise(lib.movenet_stack_bwd_replay(*head, _ptr(img), *tail),
+                   "stack_bwd_replay")
     elif f32_form:
         err = lib.movenet_stack_bwd_f32(
             _ptr(hsave), _ptr(tfsg), _ptr(ctx), _ptr(w_fg), _ptr(w_out),
@@ -546,14 +583,15 @@ def _launch_bwd(lib, hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, proj,
         _raise(err, "stack_bwd_f32")
     else:
         bf = dskip.dtype == torch.bfloat16
+        img = _bwd_images(lib, dev, r, s, win, n_layers)
         err = lib.movenet_stack_bwd(
             _ptr(hsave), _ptr(tfsg), _ptr(ctx), _ptr(w_fg), _ptr(w_out),
             _ptr(dskip) if bf else None, None if bf else _ptr(dskip),
             _ptr(pack), 0 if pack is None else pack.shape[1], vocab,
             _dils(dilations), _ptr(xc), _ptr(wup), _ptr(scratch), chunks,
             _ptr(dtab), _ptr(dx), _ptr(dctx), _ptr(db_fg), _ptr(dw_fg),
-            _ptr(dw_out), _ptr(db_out), _ptr(dwup), _ptr(dbup), batch, t,
-            n_layers, r, s, embed_blocks, stream)
+            _ptr(dw_out), _ptr(db_out), _ptr(dwup), _ptr(dbup), _ptr(img),
+            batch, t, n_layers, r, s, embed_blocks, stream)
         _raise(err, "stack_bwd")
     dwup_aug = None
     if proj is not None:
@@ -637,15 +675,18 @@ def run_bwd_tails(lib, x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
     db_out = torch.empty(n_layers, r + s, dtype=f32, device=dev)
     wt = _weight_scratch(lib, dev, r, s, ctx is not None, n_layers, act,
                          bwd=True)
-    args = (_ptr(x), _ptr(ckpt), _ptr(ctx), _ptr(b_fg), _ptr(w_fg),
+    head = (_ptr(x), _ptr(ckpt), _ptr(ctx), _ptr(b_fg), _ptr(w_fg),
             _ptr(w_out), _ptr(b_out), _ptr(dskip), _dils(dilations), every,
             _ptr(group), _ptr(scratch), chunks, _ptr(dx), _ptr(dctx),
-            _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), _ptr(wt),
-            batch, t, n_layers, r, s, stream)
+            _ptr(db_fg), _ptr(dw_fg), _ptr(dw_out), _ptr(db_out), _ptr(wt))
+    tail = (batch, t, n_layers, r, s, stream)
     if act == f32:
-        _raise(lib.movenet_stack_bwd_tails_f32(*args), "stack_bwd_tails_f32")
+        _raise(lib.movenet_stack_bwd_tails_f32(*head, *tail),
+               "stack_bwd_tails_f32")
     else:
-        _raise(lib.movenet_stack_bwd_tails(*args), "stack_bwd_tails")
+        img = _bwd_images(lib, dev, r, s, win, n_layers)
+        _raise(lib.movenet_stack_bwd_tails(*head, _ptr(img), *tail),
+               "stack_bwd_tails")
     return dx, dctx, db_fg, dw_fg, dw_out, db_out
 
 
@@ -729,6 +770,16 @@ def _weight_scratch(lib, dev, r, s, ctx: bool, n_layers,
     else:
         n_wt = lib.movenet_stack_wt_elems(r, s, win, n_layers)
     return torch.empty(n_wt, dtype=dtype, device=dev) if n_wt else None
+
+
+def _bwd_images(lib, dev, r, s, win, n_layers):
+    """The bf16 backwards' float32 weight images at the wide widths (kernel
+    B's TF32 big and small images of every layer's W_out and W_fg,
+    ``movenet_stack_wt_bwd_elems``, the backward part of
+    ``ops/stack_kernel.wide_f32_weight_images``), or None at the narrow
+    widths."""
+    n = lib.movenet_stack_wt_bwd_elems(r, s, win, n_layers)
+    return torch.empty(n, dtype=torch.float32, device=dev) if n else None
 
 
 def _fwd_buffers(lib, dev, batch, t, n_layers, r, s, ctx: bool):

@@ -79,6 +79,7 @@ and feeds it to the save layer sweep unrounded.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Sequence
@@ -354,19 +355,41 @@ def stack_fwd_x_plain(x, ctx, b_fg, w_fg, w_out, b_out,
     return skip.to(x.dtype), hsave, tfsg
 
 
-def _save_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, mm=None,
-              tap_round=None):
+# The backward's products by name: the layer's dgated = [dh | dskip]
+# W_out^T and dfg_w = dfg W_fg^T, W_fg's and W_out's gradients, and the
+# recompute backward's fg (its rebuilt layers and fg formed again).
+BWD_PRODUCTS = ("dgated", "dfg_w", "dw_fg", "dw_out", "fg")
+
+
+def all_products(mm=None, wgrad=None) -> dict:
+    """The plain backwards' ``products`` that form every product by
+    ``mm(a, b)`` (a (..., K), b (K, N); None: torch's), and the weight
+    gradients by ``wgrad`` where it is given."""
+    return {k: wgrad if wgrad is not None and k.startswith("dw") else mm
+            for k in BWD_PRODUCTS}
+
+
+def _products(products):
+    """{name: (prod, wgrad)} (``hl.row_products``) of each product of
+    ``products`` (matmuls by name; a name not given, or None: torch's)."""
+    return {k: hl.row_products((products or {}).get(k))
+            for k in BWD_PRODUCTS}
+
+
+def _save_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
+              tap_round=None, products=None):
     """The layer sweep of the save backward: (dh of the stack's input,
     dctx or None, db_fg (L, B, 2R), dw_fg, dw_out, db_out), float32.
     dskip may be in the compute dtype or float32 (the merged head's).
-    ``mm(a, b)`` forms the four products in place of torch's
-    (``split_matmul``: as the float32 kernels form them).  ``tap_round`` =
+    ``products`` forms the four products in place of torch's (``_products``:
+    ``all_products(split_matmul)`` as the float32 kernels form them,
+    ``wide_bwd_products`` as the wide bf16 kernels do).  ``tap_round`` =
     (dt, tile): the replay backward, whose float32 layer inputs feed W_fg's
     gradient with the rows t of h(t-d), t mod tile < d, rounded to dt."""
     n_layers, batch, t, two_r = tfsg.shape
     r = two_r // 2
     f32 = torch.float32
-    prod, wgrad = hl.row_products(mm)
+    pr = _products(products)
 
     ctxf = ctx.to(f32) if ctx is not None else None
     dsk = dskip.to(f32)
@@ -390,15 +413,15 @@ def _save_bwd(hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, mm=None,
         v = tfsg[l].to(f32)
         tf, sg = v[..., :r], v[..., r:]
         dout = torch.cat([dh, dsk], dim=-1)
-        dgated = prod(dout, w_out[l].to(f32).t())
+        dgated = pr["dgated"][0](dout, w_out[l].to(f32).t())
         dfg = torch.cat([dgated * (sg * (1.0 - tf * tf)),
                          dgated * (tf * (sg - sg * sg))], dim=-1)
         gated = tf * sg
-        dw_fg[l] = wgrad(hp, dfg)
+        dw_fg[l] = pr["dw_fg"][1](hp, dfg)
         db_fg[l] = dfg.sum(dim=1)
-        dw_out[l] = wgrad(gated, dout)
+        dw_out[l] = pr["dw_out"][1](gated, dout)
         db_out[l] = dout.sum(dim=(0, 1))
-        dfg_w = prod(dfg, w_fg[l].to(f32).t())
+        dfg_w = pr["dfg_w"][0](dfg, w_fg[l].to(f32).t())
         dh = dh + dfg_w[..., :r] + _unshift(dfg_w[..., r:2 * r], d)
         if dctx is not None:
             dctx = dctx + dfg_w[..., 2 * r:]
@@ -445,14 +468,15 @@ def stack_bwd_plain(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
 
 
 def stack_bwd_x_plain(hsave, tfsg, ctx, w_fg, w_out, dskip,
-                      dilations: Sequence[int], proj=None, tap_round=None):
+                      dilations: Sequence[int], proj=None, tap_round=None,
+                      products=None):
     """The backward of ``stack_fwd_x_plain``: as ``stack_bwd_plain`` with
     dx (B, T, R) in the compute dtype in place of the table gradient
-    (``tap_round``: ``_save_bwd``'s)."""
+    (``tap_round``, ``products``: ``_save_bwd``'s)."""
     n_layers, batch, _, two_r = tfsg.shape
     dh, dctx, db_fg, dw_fg, dw_out, db_out = _save_bwd(
         hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
-        tap_round=tap_round)
+        tap_round=tap_round, products=products)
     dctx_out, dwup_aug = _dctx_out(dctx, proj, tfsg.dtype)
     return (dh.to(tfsg.dtype), dctx_out,
             db_fg.reshape(n_layers * batch, two_r), dw_fg, dw_out, db_out,
@@ -499,13 +523,13 @@ def replay_rebuild(h, tfsg, w_out, b_out, dt, lo: int, hi: int):
 
 def stack_bwd_replay_plain(x, ckpt, tfsg, ctx, w_fg, w_out, b_out, dskip,
                            dilations: Sequence[int], proj=None,
-                           every: int = 0):
+                           every: int = 0, products=None):
     """The backward of ``stack_fwd_replay_plain``: the float32 layer inputs
     rebuilt group by group from x and the checkpoints (``replay_rebuild``),
     then the save backward's sweep on them with W_fg's gradient as the TPU
-    kernel forms it (``_save_bwd``'s ``tap_round``).  The returns (dx, dctx,
-    db_fg, dw_fg, dw_out, db_out, dwup_aug) are the save backward's from the
-    same x bit for bit, but for dw_fg in bf16."""
+    kernel forms it (``_save_bwd``'s ``tap_round``; ``products`` its).  The
+    returns (dx, dctx, db_fg, dw_fg, dw_out, db_out, dwup_aug) are the save
+    backward's from the same x bit for bit, but for dw_fg in bf16."""
     n_layers = len(dilations)
     every = every or tails_every(n_layers)
     if ckpt.shape[0] != len(ckpt_layers(n_layers, every)):
@@ -519,7 +543,7 @@ def stack_bwd_replay_plain(x, ckpt, tfsg, ctx, w_fg, w_out, b_out, dskip,
                              x.dtype, lo, min(lo + every, n_layers))
     tile = pick_stack_tile(x.shape[1], dilations, ctx is not None)
     return stack_bwd_x_plain(torch.stack(hs), tfsg, ctx, w_fg, w_out, dskip,
-                             dilations, proj, (x.dtype, tile))
+                             dilations, proj, (x.dtype, tile), products)
 
 
 # ------------------------------------------- merged trunk + head + CE
@@ -669,29 +693,53 @@ def split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
-def kstep_split_matmul(a: torch.Tensor, b: torch.Tensor,
-                       chunk: int = 8) -> torch.Tensor:
+def kstep_split_matmul(a: torch.Tensor, b: torch.Tensor, chunk: int = 8,
+                       split_a: bool = True) -> torch.Tensor:
     """``a @ b`` (a (..., K) and b (K, N), float32) in the float32 kernels'
     order: k in chunks of ``chunk`` (8: one k step of the ``mma.sync``
-    kernels; ``WIDE_F32_CHUNK`` for the wide float32 recompute kernels'
-    ``wgmma`` products), each chunk's three split-TF32 passes (small * big,
-    big * small, big * big) summed from zero, each pass's exact sum rounded
-    to float32, then the chunk added in float32 (mma_split_add,
+    kernels; ``WIDE_F32_CHUNK`` for the wide kernels' ``wgmma`` products),
+    each chunk's split-TF32 passes (small * big, big * small, big * big;
+    without ``split_a``, A exact in TF32 as ``BWD_SPLIT_PASSES`` marks a bf16
+    operand, the last two) summed from zero, each pass's exact
+    sum rounded to float32, then the chunk added in float32 (mma_split_add,
     wg_chunk_add).  ``split_matmul`` sums each pass over all of K before
     rounding; this is the order the kernels sum in, up to the tensor core's
     rounding inside a pass."""
     f64, f32 = torch.float64, torch.float32
     a2 = a.reshape(-1, a.shape[-1])
-    ab, a_s = (v.to(f64) for v in tf32_split(a2))
+    ab, a_s = tf32_split(a2) if split_a else (tf32_rna(a2), None)
     bb, b_s = (v.to(f64) for v in tf32_split(b))
+    ab = ab.to(f64)
+    passes = ([(a_s.to(f64), bb)] if split_a else []) + [(ab, b_s), (ab, bb)]
     out = torch.zeros(a2.shape[0], b.shape[1], dtype=f32, device=a.device)
     for k0 in range(0, a2.shape[1], chunk):
         k = slice(k0, k0 + chunk)
-        t = (a_s[:, k] @ bb[k]).to(f32)
-        t = (t.to(f64) + ab[:, k] @ b_s[k]).to(f32)
-        t = (t.to(f64) + ab[:, k] @ bb[k]).to(f32)
+        t = None
+        for u, v in passes:
+            p = u[:, k] @ v[k]
+            t = p.to(f32) if t is None else (t.to(f64) + p).to(f32)
         out = out + t
     return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def wide_bwd_products(replay: bool = False) -> dict:
+    """The wide bf16 backwards' products as their kernels sum them at R =
+    128 (``_save_bwd``'s and ``stack_bwd_tails_plain``'s ``products``):
+    dgated and dfg_w split-TF32 on ``wgmma`` (stack_bwd_wg_kernel), both
+    operands split; W_fg's gradient (stack_wgrad_wg_kernel) over rows, its
+    A split only in the replay backward (MODE 7, the rebuilt float32 h;
+    MODE 0's A is bf16, exact in TF32: ``BWD_SPLIT_PASSES["dw_fg"]``); each
+    ``WIDE_F32_CHUNK`` of k summed from zero and added in float32 (the
+    kernels' per-(batch, chunk) partial sums of W_fg's gradient, reduced in
+    order, are summed here in one run of chunks); W_out's gradient as torch
+    sums it (its kernel is unchanged: mma.sync, the tensor core's sum over
+    all rows); the recompute's fg formed again, and its rebuilt layers, in
+    bf16 k steps of 16 as the wide forward sums them
+    (``mma_order_matmul``)."""
+    wg = functools.partial(kstep_split_matmul, chunk=WIDE_F32_CHUNK)
+    return {"dgated": wg, "dfg_w": wg,
+            "dw_fg": functools.partial(wg, split_a=replay),
+            "dw_out": None, "fg": mma_order_matmul}
 
 
 def img_offsets(rows: int, kc: int) -> torch.Tensor:
@@ -720,7 +768,8 @@ def _images(mat: torch.Tensor, kc: int = 16) -> torch.Tensor:
 
 
 def wide_f32_weight_images(w_fg: torch.Tensor, w_out: torch.Tensor,
-                           bwd: bool = False) -> torch.Tensor:
+                           bwd: bool = False,
+                           fwd: bool = True) -> torch.Tensor:
     """The plain version of the wide float32 recompute kernels' weight
     split (csrc/stack_kernel.cu ``stack_wt_split_kernel``): the flat
     float32 scratch it writes from w_fg (L, W_in, 2R) and w_out (L, R, R+S).
@@ -728,7 +777,9 @@ def wide_f32_weight_images(w_fg: torch.Tensor, w_out: torch.Tensor,
     k), each R/2 filter columns and then their R/2 gate columns, and W_out^T
     (R k) as its R residual rows, then its S skip rows; with ``bwd`` then
     every layer's for kernel B: W_out (R rows, R+S k zero to a multiple of
-    16) and W_fg (2R k) as W_in/R passes of R rows."""
+    16) and W_fg (2R k) as W_in/R passes of R rows.  Without ``fwd`` kernel
+    B's alone: the images the wide bf16 backwards take (their wrappers'
+    ``img``, ``movenet_stack_wt_bwd_elems``)."""
     n_layers, win, two_r = w_fg.shape
     r, no = two_r // 2, w_out.shape[2]
     half = r // 2
@@ -737,7 +788,7 @@ def wide_f32_weight_images(w_fg: torch.Tensor, w_out: torch.Tensor,
     parts = [torch.cat([_images(w_fg[l].t()[ch[0]]),
                         _images(w_fg[l].t()[ch[1]]),
                         _images(w_out[l].t()[:r]), _images(w_out[l].t()[r:])])
-             for l in range(n_layers)]
+             for l in range(n_layers)] if fwd else []
     if bwd:
         k1 = -(-no // 16) * 16
         for l in range(n_layers):
@@ -768,7 +819,8 @@ def stack_bwd_f32_split(hsave, tfsg, ctx, w_fg, w_out, dskip, pack,
     gradients float32 sums as the kernels' (same returns)."""
     n_layers, batch, _, two_r = tfsg.shape
     dh, dctx, db_fg, dw_fg, dw_out, db_out = _save_bwd(
-        hsave, tfsg, ctx, w_fg, w_out, dskip, dilations, mm=split_matmul)
+        hsave, tfsg, ctx, w_fg, w_out, dskip, dilations,
+        products=all_products(split_matmul))
     dtab = torch.einsum("btv,btr->vr", _embed_onehot(pack, batch, vocab), dh)
     dctx_out, dwup_aug = _dctx_out(dctx, proj, torch.float32)
     if proj is not None:
@@ -801,7 +853,7 @@ def stack_bwd_tails_f32_split(x, ckpt, ctx, b_fg, w_fg, w_out, b_out,
     return stack_bwd_tails_plain(
         x.float(), ckpt.float(), ctx.float() if ctx is not None else None,
         b_fg, w_fg, w_out, b_out, dskip.float(), dilations, every,
-        split_matmul)
+        all_products(split_matmul))
 
 
 # ------------------------------------------- tensor-core summation order
@@ -1042,12 +1094,12 @@ def stack_fwd_tails_plain(x, ctx, b_fg, w_fg, w_out, b_out,
 
 def stack_bwd_tails_plain(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
                           dilations: Sequence[int], every: int = 0,
-                          mm=None, wmm=None):
+                          products=None):
     """The backward of ``stack_fwd_tails_plain``: (dx (B,T,R), dctx (B,T,R)
     or None, both in x's dtype; db_fg (L*B, 2R), dw_fg (L, W_in, 2R),
-    dw_out (L, R+S), db_out (L, R+S) in float32).  ``mm`` forms the
-    products (``hl.row_products``), ``wmm`` the weight gradients (``mm``
-    where not given).
+    dw_out (L, R+S), db_out (L, R+S) in float32).  ``products`` forms the
+    products in place of torch's (``_products``; fg is the rebuilt layers'
+    and fg formed again).
 
     Group by group from the top, as the kernels: each group's layer
     inputs rebuilt from its checkpoint (x for the first), then its layers
@@ -1061,9 +1113,8 @@ def stack_bwd_tails_plain(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
         raise ValueError(f"{ckpt.shape[0]} checkpoints, expected "
                          f"{len(ckpt_layers(n_layers, every))} for L="
                          f"{n_layers}, every {every}")
-    prod, wgrad = hl.row_products(mm)
-    if wmm is not None:
-        wgrad = hl.row_products(wmm)[1]
+    pr = _products(products)
+    fgp = pr["fg"][0]
     bfg, ctxf = _tails_consts(x, ctx, b_fg, dilations)
     dsk = dskip.to(f32)
     dh = torch.zeros(batch, t, r, dtype=f32, device=x.device)
@@ -1073,23 +1124,23 @@ def stack_bwd_tails_plain(x, ckpt, ctx, b_fg, w_fg, w_out, b_out, dskip,
         hi = min(lo + every, n_layers)
         h0 = x if lo == 0 else ckpt[lo // every - 1]
         hs, _ = _tails_rebuild(h0.to(f32), ctxf, bfg, w_fg, w_out, b_out,
-                               dilations, dt, lo, hi, prod)
+                               dilations, dt, lo, hi, fgp)
         for l in reversed(range(lo, hi)):
             d = dilations[l]
             h = hs[l - lo]
             parts = [h, _shift(h, d)] + ([ctxf] if ctxf is not None else [])
             hp = torch.cat(parts, dim=-1)
-            fg = prod(hp, w_fg[l].to(dt).to(f32)) + bfg[l]
+            fg = fgp(hp, w_fg[l].to(dt).to(f32)) + bfg[l]
             tf, sg = torch.tanh(fg[..., :r]), torch.sigmoid(fg[..., r:])
             dout = torch.cat([dh, dsk], dim=-1)
-            dgated = prod(dout, w_out[l].to(f32).t())
+            dgated = pr["dgated"][0](dout, w_out[l].to(f32).t())
             dfg = torch.cat([dgated * (sg * (1.0 - tf * tf)),
                              dgated * (tf * (sg - sg * sg))], dim=-1)
-            dw_fg[l] = wgrad(hp, dfg)
+            dw_fg[l] = pr["dw_fg"][1](hp, dfg)
             db_fg[l] = dfg.sum(dim=1)
-            dw_out[l] = wgrad(tf * sg, dout)
+            dw_out[l] = pr["dw_out"][1](tf * sg, dout)
             db_out[l] = dout.sum(dim=(0, 1))
-            dfg_w = prod(dfg, w_fg[l].to(f32).t())
+            dfg_w = pr["dfg_w"][0](dfg, w_fg[l].to(f32).t())
             dh = dh + dfg_w[..., :r]
             dh = dh + _unshift(dfg_w[..., r:2 * r], d)
             if dctx is not None:

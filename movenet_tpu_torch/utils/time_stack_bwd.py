@@ -3,8 +3,10 @@ call and by grid, at the training shapes, optionally against another
 copy of the kernel source on the same card; with ``--forward``, of the
 save forward (``stack_fwd``) and the merged forward (``stack_head_fwd``)
 instead; with ``--recompute``, of the recompute strategy's forward and
-backward (``stack_fwd_tails``, ``stack_bwd_tails``); with ``--gated``, of
-the gated-block kernels (``gated_block_fwd``, ``gated_block_bwd``).
+backward (``stack_fwd_tails``, ``stack_bwd_tails``); with ``--replay``, of
+the replay strategy's (``stack_fwd_replay``, ``stack_bwd_replay``); with
+``--gated``, of the gated-block kernels (``gated_block_fwd``,
+``gated_block_bwd``).
 
     python -m movenet_tpu_torch.utils.time_stack_bwd [--parent DIR]
         [--shapes breakdancing,exp03,exp04] [--repeats 5]
@@ -13,6 +15,8 @@ the gated-block kernels (``gated_block_fwd``, ``gated_block_bwd``).
     python -m movenet_tpu_torch.utils.time_stack_bwd --recompute
         [--parent DIR] [--shapes exp02,flagship] [--repeats 5]
         [--dtype float32] [--sass]
+    python -m movenet_tpu_torch.utils.time_stack_bwd --replay
+        [--parent DIR] [--shapes flagship_r128,exp02_r128] [--repeats 5]
     python -m movenet_tpu_torch.utils.time_stack_bwd --gated
         [--parent DIR] [--shapes 64x64_d1,64x64_d512,32x8,16x8]
 
@@ -60,9 +64,14 @@ taps launches), the layer backward ("layer"), W_fg's and W_out's
 gradients, dx, the reductions.  Each side's backward takes its own
 forward's saved tensors (the parent's layout may differ); the outputs are
 compared as above and said bit-equal or not.  A parent that raises at a
-shape is reported and not timed.  ``--sass`` prints, per kernel of the
-built trunk library, its HGMMA (wgmma) and HMMA (mma.sync) instructions
-in ``cuobjdump -sass`` (the wide float32 recompute kernels' only).
+shape is reported and not timed.  ``--replay`` does the same for the
+bf16 replay strategy at the R = 128 shapes (default flagship_r128 and
+exp02_r128): the forward's outputs (skip, ckpt, tfsg) and the backward's
+compared, the backward by grid (its weight images, rebuilds, layer
+launches, W_fg's and W_out's gradients).  ``--sass`` prints, per kernel of
+the built trunk library, its HGMMA (wgmma) and HMMA (mma.sync)
+instructions in ``cuobjdump -sass`` (the wgmma kernels' only: kernel A,
+stack_bwd_wg_kernel and stack_wgrad_wg_kernel).
 
 ``--gated`` shapes (T = 160,000, bf16, flat ctx, seeded random h, ctx,
 weights, dres and dskip): one block at R = S = 64, B = 2, d = 1 and d =
@@ -111,23 +120,26 @@ T = 160_000
 # the grids of the save backward (and the merged backward's head
 # launch, and the recompute strategy's layer-forward and W_out launches),
 # by a pattern (re.search) of the kernel name each launch carries
-GRIDS = (("layer", "stack_bwd_layer_kernel"),
-         ("wgrad W_fg", "stack_wgrad_kernel<0"),
+GRIDS = (("weights", "stack_wt"),
+         ("layer", "stack_bwd_layer_kernel|stack_bwd_wg_kernel"),
+         ("wgrad W_fg", "stack_wgrad_kernel<0|stack_wgrad_wg_kernel<0"),
          ("wgrad W_out", "stack_wgrad_kernel<1"),
          ("wgrad W_up", "stack_wgrad_kernel<2"),
          ("wgrad W_out (gated)", "stack_wgrad_kernel<3"),
          ("layer forward", "stack_layer_kernel"),
          ("reductions", "reduce_kernel"),
          ("head", "stack_head_bwd_kernel"))
-# the recompute strategy's grids, forward and backward (either source's
-# kernel names)
+# the recompute and replay strategies' grids, forward and backward (either
+# source's kernel names): the forward's layer launches count under "rebuild
+# / taps" too
 RECOMPUTE_GRIDS = (
     ("weights", "stack_wt"),
     ("rebuild / taps", "stack_layer_wg_f32_kernel|stack_layer_f32_kernel|"
-                       "stack_layer_kernel"),
-    ("layer", "stack_bwd_wg_f32_kernel|stack_bwd_layer_kernel"),
-    ("wgrad W_fg", "stack_wgrad_kernel<[047]"),
-    ("wgrad W_out", "stack_wgrad_kernel<[36]"),
+                       "stack_layer_kernel|stack_rebuild"),
+    ("layer", "stack_bwd_wg_f32_kernel|stack_bwd_wg_kernel|"
+              "stack_bwd_layer_kernel"),
+    ("wgrad W_fg", "stack_wgrad_kernel<[047]|stack_wgrad_wg_kernel"),
+    ("wgrad W_out", "stack_wgrad_kernel<[136]"),
     ("dx", "stack_dx_kernel"),
     ("reductions", "reduce_kernel"))
 # the gated-block kernels' grids (the parent's backward sweep under its
@@ -178,6 +190,22 @@ RECOMPUTE_VARIANTS = {
         ("        mbar_arrive_tx(full + pos.stage, b_bytes);\n"
          "        bulk_g2s(st + 2 * Sh::kA, b_src, b_bytes, full + pos.stage);",
          "        mbar_arrive(full + pos.stage);")),
+    # the layer launches' epilogues left out (kernel B's block, every form):
+    # no taps read and no gated or dfg stored after dgated, no dhp, p_out
+    # or dctx after dfg_w (the products, loads and hand-offs alone)
+    "no_epilogues": (
+        ("            const long m = mrow[e];\n"
+         "            if (m >= m_total) continue;\n"
+         "            float tf[2], sg[2];",
+         "            const long m = mrow[e];\n"
+         "            if (m >= 0) continue;\n"
+         "            float tf[2], sg[2];"),
+        ("            if (m >= m_total) continue;\n"
+         "            const float x0 = run[4 * jb + 2 * e], "
+         "x1 = run[4 * jb + 2 * e + 1];",
+         "            if (m >= 0) continue;\n"
+         "            const float x0 = run[4 * jb + 2 * e], "
+         "x1 = run[4 * jb + 2 * e + 1];")),
     # no wgmma issued (the loads, splits, stores, barriers and epilogues)
     "no_wgmma": (
         ("    wgmma_tf32<N>(t, desc_add(as, o), desc_add(bb, o), zero && s == 0 "
@@ -592,33 +620,46 @@ def time_merged_bwd(torch, lib, old, repeats: int, card: str) -> None:
 
 
 def time_recompute(torch, lib, old, name: str, repeats: int,
-                   card: str, dtype=None, variants=None) -> None:
-    """Print the recompute forward's and backward's times at ``name``, the
-    activations in ``dtype`` (against ``old`` = (library, wrapper module) of
-    another source; ``variants``: {name: library} of RECOMPUTE_VARIANTS,
-    each timed by call and by grid, not compared)."""
+                   card: str, dtype=None, variants=None,
+                   replay: bool = False) -> None:
+    """Print the recompute forward's and backward's times at ``name`` (with
+    ``replay``, the replay strategy's), the activations in ``dtype``
+    (against ``old`` = (library, wrapper module) of another source;
+    ``variants``: {name: library} of RECOMPUTE_VARIANTS, each timed by call
+    and by grid, not compared)."""
     from movenet_tpu_torch.ops.cuda import stack_kernel as ks
 
     fargs, dskip = recompute_inputs(torch, name, dtype=dtype)
     name = f"{name} {str(fargs[0].dtype).split('.')[-1]}"
     st = ks._stream(fargs[0])
+    strategy = "replay" if replay else "tails"
+
+    def fwd(slib, smod):
+        run = smod.run_fwd_replay if replay else smod.run_fwd_tails
+        return run(slib, *fargs, stream=st)
+
+    def bwd(slib, smod, out):
+        x, ctx, b_fg, w_fg, w_out, b_out, dil = fargs
+        if replay:
+            return smod.run_bwd_replay(slib, x, out[1], out[2], ctx, w_fg,
+                                       w_out, b_out, dskip, dil, stream=st)
+        return smod.run_bwd_tails(slib, x, out[1], ctx, b_fg, w_fg, w_out,
+                                  b_out, dskip, dil, stream=st)
+
     sides = {"this": (lib, ks)}
     if old is not None:
         try:
-            old[1].run_fwd_tails(old[0], *fargs, stream=st)
+            fwd(*old)
             sides["parent"] = old
         except NotImplementedError as e:
-            print(f"recompute {name}: the parent raises: {e}", flush=True)
+            print(f"{strategy} {name}: the parent raises: {e}", flush=True)
     fns = {"fwd": {}, "bwd": {}}
     for side, (slib, smod) in sides.items():
-        saved = smod.run_fwd_tails(slib, *fargs, stream=st)[1]
-        fns["fwd"][side] = (lambda slib=slib, smod=smod: smod.run_fwd_tails(
-            slib, *fargs, stream=st))
-        fns["bwd"][side] = (lambda slib=slib, smod=smod, saved=saved:
-                            smod.run_bwd_tails(slib, fargs[0], saved,
-                                               *fargs[1:-1], dskip,
-                                               fargs[-1], stream=st))
-    names = {"fwd": ("skip",),
+        out = fwd(slib, smod)
+        fns["fwd"][side] = (lambda slib=slib, smod=smod: fwd(slib, smod))
+        fns["bwd"][side] = (lambda slib=slib, smod=smod, out=out:
+                            bwd(slib, smod, out))
+    names = {"fwd": ("skip", "ckpt", "tfsg") if replay else ("skip",),
              "bwd": ("dx", "dctx", "db_fg", "dw_fg", "dw_out", "db_out")}
     for kind, by_side in fns.items():
         order = ("parent", "this", "this", "parent") if len(by_side) > 1 \
@@ -627,7 +668,7 @@ def time_recompute(torch, lib, old, name: str, repeats: int,
         for side in order:
             ms.setdefault(side, []).append(events_ms(torch, by_side[side],
                                                      repeats))
-        line = f"stack_{kind}_tails {name}: " + "; ".join(
+        line = f"stack_{kind}_{strategy} {name}: " + "; ".join(
             f"{side} " + ", ".join(f"{v:.3f}" for v in vals) + " ms"
             for side, vals in ms.items())
         if len(by_side) > 1:
@@ -643,14 +684,11 @@ def time_recompute(torch, lib, old, name: str, repeats: int,
                 + f" (device {sum(grids.values()):.3f} ms)"
         print(f"{line}; {card}", flush=True)
     for vname, vlib in (variants or {}).items():
-        saved = ks.run_fwd_tails(vlib, *fargs, stream=st)[1]
-        for kind, fn in (
-                ("fwd", lambda: ks.run_fwd_tails(vlib, *fargs, stream=st)),
-                ("bwd", lambda: ks.run_bwd_tails(
-                    vlib, fargs[0], saved, *fargs[1:-1], dskip, fargs[-1],
-                    stream=st))):
+        out = fwd(vlib, ks)
+        for kind, fn in (("fwd", lambda: fwd(vlib, ks)),
+                         ("bwd", lambda: bwd(vlib, ks, out))):
             grids = by_grid(torch, fn, RECOMPUTE_GRIDS)
-            print(f"stack_{kind}_tails {name} variant {vname}: "
+            print(f"stack_{kind}_{strategy} {name} variant {vname}: "
                   f"{events_ms(torch, fn, repeats):.3f} ms; by grid "
                   + ", ".join(f"{k} {v:.3f}" for k, v in grids.items()
                               if v > 0) + f"; {card}", flush=True)
@@ -793,6 +831,7 @@ def main(argv=None) -> None:
                     help="time the diagnostic builds too (all, or those "
                     "named, comma-separated)")
     ap.add_argument("--recompute", action="store_true")
+    ap.add_argument("--replay", action="store_true")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
     ap.add_argument("--sass", action="store_true")
@@ -821,18 +860,20 @@ def main(argv=None) -> None:
 
         for kernel, (hg, hm, loc) in sass_counts(
                 build.build(["stack_kernel"])["stack_kernel"]).items():
-            if "wg_f32" in kernel:
+            if re.search(r"stack_(layer_wg_f32|bwd_wg|wgrad_wg)_kernel",
+                         kernel):
                 print(f"sass {kernel}: {hg} HGMMA, {hm} HMMA, {loc} "
                       "local-memory instructions", flush=True)
     old = parent_kernels(args.parent) if args.parent else None
-    if args.recompute:
+    if args.recompute or args.replay:
         variants = variant_kernels(RECOMPUTE_VARIANTS, names) \
             if args.variants is not None else {}
+        default = WIDE_RECOMPUTE_SHAPES if args.replay else RECOMPUTE_SHAPES
         shapes = args.shapes if args.shapes != ",".join(SHAPES) \
-            else ",".join(RECOMPUTE_SHAPES)
+            else ",".join(default)
         for name in shapes.split(","):
             time_recompute(torch, lib, old, name, args.repeats, card,
-                           getattr(torch, args.dtype), variants)
+                           getattr(torch, args.dtype), variants, args.replay)
         return
     if args.forward:
         variants = variant_kernels(FWD_VARIANTS, names) \

@@ -955,8 +955,10 @@ def test_family_widths_mirror_the_library(cuda):
     its MODE 7, kind 7, the replay backward's; the float32 layer kernel,
     form 3, the layer backward's float32 recompute form, kind -4, and W_fg's
     and W_out's float32 gradients, kinds 4 and 6, the float32 recompute
-    forms', equal to ``f32_smem``'s), and the float32 save form's layer
-    backward has none there."""
+    forms', equal to ``f32_smem``'s; the bf16 layer backwards, kinds -1 and
+    -2, and W_fg's bf16 gradients, kinds 0 and 7, equal to
+    ``wide_bwd_smem``'s; the taps launch, form 4, the recompute forward's
+    block), and the float32 save form's layer backward has none there."""
     lib = ks.library()
     pairs = {(r, s) for r in (8, 16, 32, 48, 64, 96, 128, 256)
              for s in (4, 8, 16, 32, 64, 128)}
@@ -983,6 +985,13 @@ def test_family_widths_mirror_the_library(cuda):
                               (6, "wgrad_out")):
                 assert lib.movenet_stack_bwd_smem(r, s, win, kind) == \
                     f32[key], (r, s, win, kind)
+            wide = ks.wide_bwd_smem(r)
+            for kind, key in ((-1, "layer_bwd"), (-2, "layer_bwd"),
+                              (0, "wgrad_fg"), (7, "wgrad_fg_replay")):
+                assert lib.movenet_stack_bwd_smem(r, s, win, kind) == \
+                    wide[key], (r, s, win, kind)
+            assert lib.movenet_stack_layer_smem(r, s, 4) == \
+                lib.movenet_stack_layer_smem(r, s, 0), (r, s)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ within the float32 bars (forward 1e-5 of each output's scale, gradients
 HGMMA."""
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -155,7 +156,10 @@ def test_wide_f32_kernels_issue_hgmma(cuda):
     from movenet_tpu_torch.utils.time_stack_bwd import sass_counts
 
     counts = sass_counts(build.build(["stack_kernel"])["stack_kernel"])
-    wide = {k: v for k, v in counts.items() if "wg_f32" in k}
+    # kernel A, and kernel B: stack_bwd_wg_kernel's float32 form (3)
+    wide = {k: v for k, v in counts.items()
+            if "wg_f32" in k
+            or re.search(r"stack_bwd_wg_kernelILi\d+ELi\d+ELb[01]ELi3E", k)}
     print({k: v for k, v in wide.items()})
     assert len(wide) == 6, sorted(counts)
     assert all(v[0] > 0 for v in wide.values()), wide

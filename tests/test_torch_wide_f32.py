@@ -103,7 +103,8 @@ def test_wide_f32_recompute_emulation_matches_jax(r, s, has_ctx):
     assert skip.dtype == ckpt.dtype == torch.float32
     _close("skip", skip, want_skip, 1e-5)
     got = sk.stack_bwd_tails_plain(ts["x"], ckpt, *args[1:-1], ts["dskip"],
-                                   DIL, mm=wg_mm, wmm=mm)
+                                   DIL,
+                                   products=sk.all_products(wg_mm, wgrad=mm))
     for name, x in zip(("x", "ctx", "b_fg", "w_fg", "w_out", "b_out"), got):
         if name in want_g:
             assert x.dtype == torch.float32
